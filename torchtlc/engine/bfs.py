@@ -1,0 +1,519 @@
+"""Exhaustive single-device BFS engine (port of jaxtlc/engine/bfs.py:298-1090
+and :1287-1380; immediate, sorted, unpipelined mode).
+
+The frontier is a ping-pong pair of level buffers of packed states
+(``[2, qcap + 2*chunk, W]`` int32).  One chunk step:
+
+1. pops up to ``ck`` states contiguously from the current level;
+2. expands them (kernel K1), fingerprints the candidates (kernel K2) and
+   reduces the expand-stage violation (backend.make_expand_stage);
+3. dedups and inserts the valid candidates into the fingerprint table
+   (fpset.fpset_insert_sorted: kernel K3 around a library sort);
+4. appends the new states, in candidate-lane order, to the next level and
+   adds the per-action distinct counts and the outdegree histogram
+   (``commit_block``: kernel K4);
+5. merges violations first-wins (carried > expand stage > fp-full >
+   queue-full) and flips the level when the current one is exhausted.
+
+The reference runs the step inside one ``lax.while_loop``; here a host
+loop drives it, and reads one small bundle of scalars per step (the pop
+cursor, level sizes, distinct count and verdict) for the two-tier choice
+and the termination test.  Every result - counts, depth, per-action
+statistics, outdegree, fingerprint-table words, queue words - equals the
+reference engine's at the same geometry.
+
+A step updates the carry's table, queue and counter tensors IN PLACE (the
+reference donates its carry the same way); keep a copy
+(interop.carry_to_numpy) to compare carries.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import ModelConfig
+from ..spec.invariants import make_invariant_kernel
+from ..spec.labels import LABELS
+from .backend import (
+    OK,
+    VIOL_ASSERT,
+    VIOL_DEADLOCK,
+    VIOL_FPSET_FULL,
+    VIOL_ONLYONEVERSION,
+    VIOL_QUEUE_FULL,
+    VIOL_SLOT_OVERFLOW,
+    VIOL_TYPEOK,
+    kubeapi_backend,
+    make_expand_stage,
+)
+from .fingerprint import fp64_words
+from .fpset import FPSet, fpset_actual_collision, fpset_insert_sorted, fpset_new
+
+__all__ = [
+    "OK", "VIOL_TYPEOK", "VIOL_ONLYONEVERSION", "VIOL_ASSERT", "VIOL_DEADLOCK",
+    "VIOL_SLOT_OVERFLOW", "VIOL_FPSET_FULL", "VIOL_QUEUE_FULL",
+    "VIOLATION_NAMES", "EngineCarry", "CheckResult", "make_engine",
+    "make_backend_engine", "make_stage_pair", "check", "result_from_carry",
+    "outdegree_from_hist", "commit_block", "commit_block_plain",
+    "enqueue_order", "resolve_device",
+]
+
+VIOLATION_NAMES = {
+    OK: "none",
+    VIOL_TYPEOK: "Invariant TypeOK is violated",
+    VIOL_ONLYONEVERSION: "Invariant OnlyOneVersion is violated",
+    VIOL_ASSERT: "Assertion failure (PlusCal assert)",
+    VIOL_DEADLOCK: "Deadlock reached",
+    VIOL_SLOT_OVERFLOW: "Codec slot overflow (raise ModelConfig bounds)",
+    VIOL_FPSET_FULL: "Fingerprint table full (raise fp_capacity)",
+    VIOL_QUEUE_FULL: "Frontier queue full (raise queue_capacity)",
+}
+
+# fingerprint-table load at which a run halts with VIOL_FPSET_FULL rather
+# than degrade into long straggler walks (the reference's default)
+FP_HIGHWATER = 0.85
+# the reference's auto thresholds for the sort-free and deferred modes
+SORT_FREE_AUTO_CHUNK = 2048
+DEFERRED_AUTO_CHUNK = 2048
+
+
+class Bundle(NamedTuple):
+    """Host copy of the carry scalars a step needs before it launches."""
+
+    parity: int
+    qhead: int
+    level_n: int
+    next_n: int
+    distinct: int
+    viol: int
+
+
+class EngineCarry(NamedTuple):
+    fps: FPSet
+    queue: torch.Tensor  # [2, qcap + 2*chunk, W] int32 packed level buffers
+    parity: torch.Tensor  # which buffer holds the CURRENT level
+    qhead: torch.Tensor  # pop position within the current level
+    level_n: torch.Tensor  # states in the current level
+    next_n: torch.Tensor  # states appended to the next level so far
+    level: torch.Tensor  # BFS level of states being popped (init = 1)
+    depth: torch.Tensor  # deepest nonempty level
+    generated: torch.Tensor
+    distinct: torch.Tensor
+    act_gen: torch.Tensor  # [n_labels + 1] int64
+    act_dist: torch.Tensor  # [n_labels + 1] int64
+    outdeg_hist: torch.Tensor  # [L + 2] int64: popped states with d new children
+    viol: torch.Tensor  # violation code
+    viol_state: torch.Tensor  # [F] int32
+    viol_action: torch.Tensor
+    # scalars above as of the step that made this carry (None: read them)
+    bundle: Bundle = None
+
+
+class CheckResult(NamedTuple):
+    generated: int
+    distinct: int
+    depth: int
+    queue_left: int
+    violation: int
+    violation_name: str
+    violation_state: np.ndarray
+    violation_action: int
+    action_generated: dict
+    action_distinct: dict
+    wall_s: float
+    iterations: int
+    outdegree: tuple = None  # (avg, min, max, p95), MC.out:1104
+    actual_fp_collision: float = None  # MC.out:42
+    fp_occupancy: float = None  # distinct / fp_capacity
+
+
+def resolve_device(device) -> torch.device:
+    """None means the card; without one, only an explicit CPU request runs."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass device='cpu' to run the "
+                "plain torch path on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def read_bundle(c: EngineCarry) -> Bundle:
+    if c.bundle is not None:
+        return c.bundle
+    vals = torch.stack([c.parity, c.qhead, c.level_n, c.next_n, c.distinct,
+                        c.viol]).tolist()
+    return Bundle(*vals)
+
+
+def _running(h: Bundle) -> bool:
+    return (h.qhead < h.level_n or h.next_n > 0) and h.viol == OK
+
+
+# ---------------------------------------------------------------------------
+# commit: enqueue order (library scans) + kernel K4
+# ---------------------------------------------------------------------------
+
+
+def enqueue_order(is_new_c: torch.Tensor, c_idx: torch.Tensor, nreps,
+                  R: int):
+    """The reference's enqueue order e_idx [ncand] (int64) and n_new.
+
+    e_idx lists the new entries by candidate lane, then the other entries
+    of the first R compacted positions (all positions when nreps > R) by
+    lane, then zeros - the reference's stable (new-first, lane) sort, done
+    here as a stable partition by prefix sums.  The tail rows matter: the
+    enqueue copies whole A-wide segments, so they land past the level's
+    end in the queue buffer, exactly as in the reference."""
+    ncand = is_new_c.shape[0]
+    dev = is_new_c.device
+    lane_new = torch.zeros(ncand, dtype=torch.bool, device=dev)
+    lane_new[c_idx] = is_new_c
+    if R >= ncand:
+        tail = ~lane_new
+    else:
+        in_r = torch.zeros(ncand, dtype=torch.bool, device=dev)
+        in_r[c_idx[:R]] = True
+        tail = ~lane_new & ((nreps > R) | in_r)
+    ni = lane_new.to(torch.int64)
+    cn = torch.cumsum(ni, 0)
+    n_new = cn[-1]
+    ti = tail.to(torch.int64)
+    pos = torch.where(lane_new, cn - 1,
+                      torch.where(tail, n_new + torch.cumsum(ti, 0) - 1, ncand))
+    e_idx = torch.zeros(ncand + 1, dtype=torch.int64, device=dev)
+    e_idx[pos] = torch.arange(ncand, device=dev)  # only position ncand repeats
+    return e_idx[:ncand], n_new
+
+
+def commit_block_plain(queue, dst: int, next_n: int, qcap: int, e_idx,
+                       n_new, packed, action, n_pop: int, act_dist,
+                       outdeg_hist, A: int, L: int, n_labels: int):
+    """Torch version of kernel K4: append A-row segments of packed rows
+    (gathered through e_idx) to level buffer `dst` at next_n + offs while
+    offs < n_new, add per-action distinct counts of the n_new new entries,
+    and add the outdegree histogram from run lengths of e_idx // L (bin 0
+    gets the popped states with no new child).  In place."""
+    ncand = e_idx.shape[0]
+    nn = int(n_new)
+    dev = e_idx.device
+    e_p = torch.cat([e_idx, torch.zeros(A, dtype=e_idx.dtype, device=dev)])
+    s = 0
+    while s * A < nn:
+        offs = s * A
+        idx = e_p[offs:offs + A]
+        woff = min(next_n + offs, qcap)
+        queue[dst, woff:woff + A] = packed[idx]
+        active = torch.arange(A, device=dev) + offs < nn
+        acts = action[idx].to(torch.int64)
+        act_dist[:n_labels] += torch.bincount(
+            acts[active & (acts >= 0) & (acts < n_labels)],
+            minlength=n_labels)[:n_labels]
+        s += 1
+    pos = torch.arange(ncand, device=dev)
+    active_new = pos < nn
+    src = torch.where(active_new, e_idx // L, -1)
+    change = src[1:] != src[:-1]
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    startf = torch.cat([one, change]) & active_new
+    endf = torch.cat([change, one]) & active_new
+    run0 = torch.cummax(torch.where(startf, pos, 0), 0).values
+    run_len = (pos - run0 + 1)[endf]
+    outdeg_hist[1:L + 1] += torch.bincount(run_len, minlength=L + 1)[1:L + 1]
+    outdeg_hist[0] += n_pop - startf.sum()
+
+
+def commit_block(queue, dst: int, next_n: int, qcap: int, e_idx, n_new,
+                 packed, action, n_pop: int, act_dist, outdeg_hist, A: int,
+                 L: int, n_labels: int):
+    """Kernel K4 on CUDA tensors (n_new read on the device), the plain
+    version on CPU tensors."""
+    if not queue.is_cuda:
+        return commit_block_plain(queue, dst, next_n, qcap, e_idx, n_new,
+                                  packed, action, n_pop, act_dist,
+                                  outdeg_hist, A, L, n_labels)
+    from ..kernels import ops
+
+    ops.commit(queue, dst, next_n, qcap, e_idx, n_new, packed, action, n_pop,
+               act_dist, outdeg_hist, A, L, n_labels)
+
+
+# ---------------------------------------------------------------------------
+# the two halves of a step
+# ---------------------------------------------------------------------------
+
+
+def make_stage_pair(backend, ck: int, *, queue_capacity: int,
+                    fp_capacity: int):
+    """(pop_expand, commit) at pop width ck."""
+    cdc = backend.cdc
+    L = backend.n_lanes
+    n_labels = len(backend.labels)
+    qcap = queue_capacity
+    ncand = ck * L
+    R = min(2 * ck, ncand)  # fpset probe width
+    CW = min(2 * ck, R)  # fpset round-0 claim width
+    A = min(2 * ck, ncand)  # enqueue segment width
+    fp_limit = int(fp_capacity * FP_HIGHWATER)
+    expand = make_expand_stage(backend, ck)
+
+    def pop_expand(c: EngineCarry, h: Bundle):
+        n = min(max(h.level_n - h.qhead, 0), ck)
+        block = c.queue[h.parity, h.qhead:h.qhead + ck]
+        return expand(block, n), n
+
+    def commit(c: EngineCarry, ex, n: int, qhead_pop: int, qhead_out: int,
+               h: Bundle) -> EngineCarry:
+        # the body's own candidate width against the high-water mark
+        fp_full = h.distinct + ncand > fp_limit
+        insert_mask = torch.zeros_like(ex.valid) if fp_full else ex.valid
+        fps, is_new_c, c_idx, nreps = fpset_insert_sorted(
+            c.fps, ex.lo, ex.hi, insert_mask, probe_width=R, claim_width=CW)
+        e_idx, n_new = enqueue_order(is_new_c, c_idx, nreps, R)
+        commit_block(c.queue, 1 - h.parity, h.next_n, qcap, e_idx, n_new,
+                     ex.packed, ex.action, n, c.act_dist, c.outdeg_hist, A, L,
+                     n_labels)
+        c.act_gen[:n_labels] += ex.gen
+        generated = c.generated + ex.valid.sum()
+        distinct = c.distinct + n_new
+
+        # violations, first wins: carried > expand stage > capacity
+        hit_ex = (ex.viol != OK) & (c.viol == OK)
+        viol = torch.where(hit_ex, ex.viol, c.viol)
+        viol_action = torch.where(hit_ex, ex.viol_action, c.viol_action)
+        if fp_full:
+            viol = torch.where(ex.valid.any() & (viol == OK), VIOL_FPSET_FULL,
+                               viol)
+        viol = torch.where((h.next_n + n_new > qcap) & (viol == OK),
+                           VIOL_QUEUE_FULL, viol)
+
+        # level bookkeeping: ping-pong at the level boundary
+        next_n = torch.clamp(c.next_n + n_new, max=qcap)
+        if qhead_pop >= h.level_n:
+            parity, level_n, qhead = 1 - c.parity, next_n, c.qhead * 0
+            level = torch.where(next_n > 0, c.level + 1, c.level)
+            next_n = next_n * 0
+        else:
+            parity, level_n, level = c.parity, c.level_n, c.level
+            qhead = c.qhead + (qhead_out - h.qhead)
+        depth = torch.maximum(c.depth, level)
+
+        vals = torch.stack([parity, qhead, level_n, next_n, distinct, viol,
+                            hit_ex.to(torch.int64)]).tolist()
+        viol_state = c.viol_state
+        if vals[6]:
+            # the expand stage's violating state, unpacked on the host
+            row = ex.viol_words.cpu()[None]
+            viol_state = cdc.unpack(row)[0].to(c.viol_state.device)
+        return c._replace(
+            fps=fps, parity=parity, qhead=qhead, level_n=level_n,
+            next_n=next_n, level=level, depth=depth, generated=generated,
+            distinct=distinct, viol=viol, viol_state=viol_state,
+            viol_action=viol_action, bundle=Bundle(*vals[:6]),
+        )
+
+    return pop_expand, commit
+
+
+# ---------------------------------------------------------------------------
+# engine factory
+# ---------------------------------------------------------------------------
+
+
+def _resolve_modes(chunk, sort_free, deferred, pipeline, obs_slots, coverage):
+    """The reference's mode resolution; every mode but the immediate,
+    sorted, unpipelined one raises (nothing runs another mode quietly)."""
+    if sort_free is None:
+        sort_free = chunk >= SORT_FREE_AUTO_CHUNK
+    if deferred is None:
+        deferred = chunk >= DEFERRED_AUTO_CHUNK
+    for name, on in (("sort_free", sort_free), ("deferred", deferred),
+                     ("pipeline", pipeline), ("obs_slots", obs_slots),
+                     ("coverage", coverage)):
+        if on:
+            raise NotImplementedError(
+                f"{name}={on!r} (resolved) is not ported yet; pass "
+                f"{name}={0 if name == 'obs_slots' else False} explicitly")
+
+
+def make_backend_engine(
+    backend,
+    chunk: int = 1024,
+    queue_capacity: int = 1 << 15,
+    fp_capacity: int = 1 << 20,
+    pipeline: bool = False,
+    obs_slots: int = 0,
+    coverage: bool = False,
+    sort_free: bool = None,
+    deferred: bool = None,
+    device=None,
+):
+    """Build (init_fn, run_fn, step_fn) over a SpecBackend.
+
+    init_fn() -> EngineCarry seeded with the Init states.
+    run_fn(carry) -> EngineCarry after exhaustion or a violation.
+    step_fn(carry) -> EngineCarry after ONE chunk step (unchanged when the
+    run is over).
+
+    Two-tier stepping as in the reference: at chunk >= 2^14, a level
+    remainder below chunk // 2 is popped by a small body of chunk // 16."""
+    _resolve_modes(chunk, sort_free, deferred, pipeline, obs_slots, coverage)
+    dev = resolve_device(device)
+    cdc = backend.cdc
+    F = cdc.n_fields
+    W = cdc.n_words
+    L = backend.n_lanes
+    n_labels = len(backend.labels)
+    qcap = queue_capacity
+    small = chunk // 16 if chunk >= 1 << 14 else 0
+    kw = dict(queue_capacity=qcap, fp_capacity=fp_capacity)
+    big_stages = make_stage_pair(backend, chunk, **kw)
+    small_stages = make_stage_pair(backend, small, **kw) if small else None
+
+    def i64(v):
+        return torch.full((), v, dtype=torch.int64, device=dev)
+
+    def init_fn(inits=None) -> EngineCarry:
+        # Init is encoded, packed and invariant-checked on the host
+        if inits is None:
+            inits = backend.initial_vectors()
+        inits = torch.as_tensor(np.asarray(inits, dtype=np.int32))
+        n0 = inits.shape[0]
+        assert n0 <= chunk and n0 <= qcap, "raise chunk/queue_capacity"
+        packed0 = cdc.pack(inits)
+        queue = torch.zeros(2, qcap + 2 * chunk, W, dtype=torch.int32,
+                            device=dev)
+        queue[0, :n0] = packed0.to(dev)
+        lo, hi = fp64_words(packed0.to(dev), cdc.nbits)
+        fps, is_new_c, _, _ = fpset_insert_sorted(
+            fpset_new(fp_capacity, dev), lo, hi,
+            torch.ones(n0, dtype=torch.bool, device=dev))
+        inv0 = make_invariant_kernel(backend.cfg)(inits)
+        viol, viol_state = OK, torch.zeros(F, dtype=torch.int32)
+        for k, code in enumerate(backend.inv_codes):
+            bad = (inv0 & (1 << k)) == 0
+            if viol == OK and bool(bad.any()):
+                viol = code
+                viol_state = inits[int(torch.argmax(bad.to(torch.uint8)))]
+        return EngineCarry(
+            fps=fps, queue=queue, parity=i64(0), qhead=i64(0),
+            level_n=i64(n0), next_n=i64(0), level=i64(1), depth=i64(1),
+            generated=i64(n0), distinct=is_new_c.sum(),
+            act_gen=torch.zeros(n_labels + 1, dtype=torch.int64, device=dev),
+            act_dist=torch.zeros(n_labels + 1, dtype=torch.int64, device=dev),
+            outdeg_hist=torch.zeros(L + 2, dtype=torch.int64, device=dev),
+            viol=i64(viol), viol_state=viol_state.to(dev), viol_action=i64(-1),
+        )
+
+    def body(c: EngineCarry, h: Bundle) -> EngineCarry:
+        # break-even: the big body only when the level remainder mostly
+        # fills it
+        stages = big_stages
+        if small and h.level_n - h.qhead < chunk // 2:
+            stages = small_stages
+        pop_expand, commit = stages
+        ex, n = pop_expand(c, h)
+        return commit(c, ex, n, h.qhead + n, h.qhead + n, h)
+
+    def step_fn(c: EngineCarry) -> EngineCarry:
+        h = read_bundle(c)
+        return body(c, h) if _running(h) else c._replace(bundle=h)
+
+    def run_fn(c: EngineCarry) -> EngineCarry:
+        steps = 0
+        h = read_bundle(c)
+        while _running(h):
+            c = body(c, h)
+            h = c.bundle
+            steps += 1
+        run_fn.steps = steps
+        return c
+
+    run_fn.steps = 0
+    return init_fn, run_fn, step_fn
+
+
+def make_engine(cfg: ModelConfig, chunk: int = 1024,
+                queue_capacity: int = 1 << 15, fp_capacity: int = 1 << 20,
+                pipeline: bool = False, obs_slots: int = 0,
+                coverage: bool = False, sort_free: bool = None,
+                deferred: bool = None, device=None):
+    """(init_fn, run_fn, step_fn) for one KubeAPI configuration."""
+    return make_backend_engine(
+        kubeapi_backend(cfg), chunk, queue_capacity, fp_capacity,
+        pipeline=pipeline,
+        obs_slots=obs_slots, coverage=coverage, sort_free=sort_free,
+        deferred=deferred, device=device)
+
+
+def check(cfg: ModelConfig, chunk: int = 1024, queue_capacity: int = 1 << 15,
+          fp_capacity: int = 1 << 20, pipeline: bool = False, obs_slots: int = 0, coverage: bool = False,
+          sort_free: bool = None, deferred: bool = None,
+          device=None) -> CheckResult:
+    """Run an exhaustive check on `device` (None = the card).  wall_s
+    times the run only: the kernels are built and loaded before it."""
+    init_fn, run_fn, _ = make_engine(
+        cfg, chunk, queue_capacity, fp_capacity, pipeline=pipeline,
+        obs_slots=obs_slots,
+        coverage=coverage, sort_free=sort_free, deferred=deferred,
+        device=device)
+    carry = init_fn()
+    if carry.queue.is_cuda:
+        torch.cuda.synchronize()
+    t0 = time.time()
+    carry = run_fn(carry)
+    if carry.queue.is_cuda:
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    return result_from_carry(
+        carry, wall, iterations=run_fn.steps, fp_capacity=fp_capacity,
+    )._replace(actual_fp_collision=fpset_actual_collision(carry.fps))
+
+
+def outdegree_from_hist(hist: np.ndarray):
+    """(avg, min, max, p95) of TLC's outdegree from a new-children
+    histogram; None if empty (MC.out:1104's convention)."""
+    hist = np.asarray(hist, dtype=np.int64)
+    total = hist.sum()
+    if total == 0:
+        return None
+    degs = np.arange(len(hist))
+    nz = np.flatnonzero(hist)
+    cum = np.cumsum(hist)
+    p95 = int(degs[np.searchsorted(cum, 0.95 * total)])
+    return (
+        int(round((degs * hist).sum() / total)),
+        int(nz[0]),
+        int(nz[-1]),
+        p95,
+    )
+
+
+def result_from_carry(carry: EngineCarry, wall_s: float, iterations: int = -1,
+                      fp_capacity: int = 0,
+                      labels: tuple = LABELS) -> CheckResult:
+    """Pull a finished (or interrupted) carry to the host."""
+    act_gen = carry.act_gen.cpu().numpy()[: len(labels)]
+    act_dist = carry.act_dist.cpu().numpy()[: len(labels)]
+    hist = carry.outdeg_hist.cpu().numpy()[:-1]  # drop the dump row
+    viol = int(carry.viol)
+    return CheckResult(
+        generated=int(carry.generated),
+        distinct=int(carry.distinct),
+        depth=int(carry.depth),
+        queue_left=int(carry.level_n) - int(carry.qhead) + int(carry.next_n),
+        violation=viol,
+        violation_name=VIOLATION_NAMES.get(viol, f"violation {viol}"),
+        violation_state=carry.viol_state.cpu().numpy(),
+        violation_action=int(carry.viol_action),
+        action_generated={labels[i]: int(v) for i, v in enumerate(act_gen) if v},
+        action_distinct={labels[i]: int(v) for i, v in enumerate(act_dist) if v},
+        wall_s=wall_s,
+        iterations=iterations,
+        outdegree=outdegree_from_hist(hist),
+        fp_occupancy=int(carry.distinct) / fp_capacity if fp_capacity else None,
+    )

@@ -1,0 +1,328 @@
+"""Device-resident fingerprint set, sorted path (port of
+jaxtlc/engine/fpset.py:87-655).
+
+The table is ``[cap/8, 16]`` int32 (32-bit words as bit patterns): one
+64-byte row per 8-slot bucket, slots interleaved ``lo0,hi0,...,lo7,hi7``,
+(0, 0) = empty.  Stored words are the avalanche-MIXED fingerprint
+(``_mix``), remapped so no real entry is (0, 0); the home bucket is the top
+bits of the mixed ``hi``; a bucket's occupied slots are a prefix, and a
+fingerprint lives in bucket ``b + j`` only if buckets ``b .. b+j-1`` are
+full.  Insert sequences leave the table words equal to the reference's.
+
+An insert (``fpset_insert_sorted``):
+
+1. ``fpset_key``: mix + remap + mask, into one int64 sort key per lane,
+   ``((hi ^ 0x80000000) << 32) | lo`` read as signed - so the signed
+   ``torch.sort`` orders by unsigned (hi, lo), and the reserved invalid
+   pair (0, 0) sorts first.
+2. One stable sort of the keys groups duplicates; the representative of a
+   class is its LAST (highest-lane) member.  A stable partition moves the
+   representatives, still fingerprint-sorted, to the front.
+3. Probe segments of width R (``probe_segment``): round 0 gathers each
+   candidate's home bucket row, tests for a hit, and claims slot
+   ``occupancy + rank-in-run`` for the first C fitting claimants;
+   stragglers walk buckets linearly in slices of ``S = min(R, 2048)``
+   taken in position order, each walk round ranking same-bucket wanters
+   by ascending (lo, hi).  Every write targets a distinct slot.
+
+On a CUDA tensor the key step and each probe segment run kernel K3
+(torchtlc/kernels/csrc/fpset.cu: fpset_key, fpset_probe, fpset_claim,
+fpset_walk); on a CPU tensor, the plain versions below.  The sort and the
+partition are library calls (``torch.sort``, ``torch.cumsum``) in both.
+The table is updated IN PLACE.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from ..spec.codec import to_i32, to_u64
+
+BUCKET = 8
+WALK_SLICE = 2048  # S: stragglers settled per walk slice
+KEY00 = -(1 << 63)  # sort key of the reserved (0, 0) pair
+MASK32 = 0xFFFFFFFF
+_MIX_CONSTS = (0x9E3779B9, 0x517CC1B7, 0x27220A95)
+
+
+class FPSet(NamedTuple):
+    # [cap / BUCKET, 2 * BUCKET] int32 bucket rows, slots interleaved
+    table: torch.Tensor
+
+
+def fpset_new(cap: int, device="cpu") -> FPSet:
+    assert cap & (cap - 1) == 0, "capacity must be a power of two"
+    assert cap >= BUCKET, f"capacity must be at least {BUCKET}"
+    return FPSet(torch.zeros(cap // BUCKET, 2 * BUCKET, dtype=torch.int32,
+                             device=device))
+
+
+def fpset_count(s: FPSet) -> torch.Tensor:
+    """Occupied-slot count."""
+    t = s.table.view(-1, 2)
+    return ((t[:, 0] != 0) | (t[:, 1] != 0)).sum()
+
+
+# ---------------------------------------------------------------------------
+# mixing (int64 holding uint32 words)
+# ---------------------------------------------------------------------------
+
+
+def _fmix32(h):
+    """murmur3 finalizer: a bijection on uint32."""
+    h = h ^ (h >> 16)
+    h = (h * 0x85EBCA6B) & MASK32
+    h = h ^ (h >> 13)
+    h = (h * 0xC2B2AE35) & MASK32
+    return h ^ (h >> 16)
+
+
+def _mix(lo, hi):
+    """3-round Feistel avalanche of the 64-bit fingerprint (bijective)."""
+    for c in _MIX_CONSTS:
+        lo, hi = hi, lo ^ _fmix32((hi + c) & MASK32)
+    return lo, hi
+
+
+def _unmix(lo, hi):
+    """Inverse of _mix: recovers the raw fingerprint of a stored entry."""
+    for c in reversed(_MIX_CONSTS):
+        lo, hi = hi ^ _fmix32((lo + c) & MASK32), lo
+    return lo, hi
+
+
+def _remap(lo, hi):
+    """Reserve (0, 0) as the empty marker: a real (0, 0) becomes (1, 0)."""
+    return torch.where((lo == 0) & (hi == 0), 1, lo), hi
+
+
+def _bucket_of(hi, nbuckets: int):
+    """Home bucket = top log2(nbuckets) bits of the mixed hi."""
+    lognb = nbuckets.bit_length() - 1
+    if lognb == 0:
+        return torch.zeros_like(hi)
+    return hi >> (32 - lognb)
+
+
+def key_of(lo, hi):
+    """Unsigned word pair (int64) -> signed int64 sort key."""
+    return (hi - (1 << 31)) * (1 << 32) + lo
+
+
+def key_words(key):
+    """Inverse of key_of: (lo, hi) as int64 unsigned words."""
+    return key & MASK32, (key >> 32) + (1 << 31)
+
+
+def fpset_key_plain(lo: torch.Tensor, hi: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """(lo, hi) int32 fingerprints + bool mask -> int64 sort keys of the
+    mixed, remapped words; masked-off lanes get KEY00."""
+    mlo, mhi = _remap(*_mix(to_u64(lo), to_u64(hi)))
+    return torch.where(mask, key_of(mlo, mhi), KEY00)
+
+
+def fpset_key(lo, hi, mask):
+    if not lo.is_cuda:
+        return fpset_key_plain(lo, hi, mask)
+    from ..kernels import ops
+
+    return ops.fpset_key(lo, hi, mask)
+
+
+# ---------------------------------------------------------------------------
+# probe segment: round 0 + straggler walk (plain version of K3)
+# ---------------------------------------------------------------------------
+
+
+def _slot_write(table, slot, lo, hi):
+    flat = table.view(-1, 2)
+    flat[slot, 0] = to_i32(lo)
+    flat[slot, 1] = to_i32(hi)
+
+
+def _row_probe(table, b, lo, hi):
+    """(found, occupancy) of (lo, hi) against bucket rows b."""
+    rows = to_u64(table[b])
+    rlo, rhi = rows[:, 0::2], rows[:, 1::2]
+    f = ((rlo == lo[:, None]) & (rhi == hi[:, None])).any(1)
+    occ = ((rlo != 0) | (rhi != 0)).sum(1)
+    return f, occ
+
+
+def fpset_round0_plain(table: torch.Tensor, keys: torch.Tensor,
+                       active: torch.Tensor) -> torch.Tensor:
+    """Round 0 of the reference's _probe_block over a block of keys sorted
+    ascending and duplicate-free, against the table before any claim:
+    slot codes [R] int32 - -1 nothing to claim (inactive, or stored in the
+    home bucket), -2 a wanter that does not fit its home bucket, else the
+    slot id claimed (home bucket * 8 + occupancy + rank among the run's
+    wanters)."""
+    nb = table.shape[0]
+    lo, hi = key_words(keys)
+    bid = _bucket_of(hi, nb)
+    found, noccup = _row_probe(table, bid, lo, hi)
+    want = active & ~found
+    wi = want.to(torch.int64)
+    start = torch.cat([torch.ones(1, dtype=torch.bool, device=keys.device),
+                       bid[1:] != bid[:-1]])
+    wc = torch.cumsum(wi, 0)
+    base = torch.cummax(torch.where(start, wc - wi, 0), 0).values
+    slot = noccup + wc - wi - base
+    code = torch.where(slot < BUCKET, bid * BUCKET + slot, -2)
+    return torch.where(want, code, -1).to(torch.int32)
+
+
+def fpset_claim_plain(table: torch.Tensor, keys: torch.Tensor,
+                      slot: torch.Tensor, C: int):
+    """Write the first C round-0 claims: (is_new, pending) [R] uint8."""
+    fits = slot >= 0
+    claimed = fits & (torch.cumsum(fits.to(torch.int64), 0) - 1 < C)
+    lo, hi = key_words(keys)
+    _slot_write(table, slot.to(torch.int64)[claimed], lo[claimed],
+                hi[claimed])
+    pending = (slot == -2) | (fits & ~claimed)
+    return claimed.to(torch.uint8), pending.to(torch.uint8)
+
+
+def fpset_walk_plain(table: torch.Tensor, keys: torch.Tensor,
+                     pending: torch.Tensor, is_new: torch.Tensor) -> None:
+    """The straggler walk (the reference's dense [S, S] rank form):
+    settle the pending lanes in slices of S = min(R, 2048) in position
+    order; each round every pending lane reads its current bucket, the
+    wanters of one bucket claim occupancy + rank by ascending (lo, hi),
+    the rest advance one bucket.  Updates table, pending and is_new
+    ([R] uint8) in place."""
+    nb = table.shape[0]
+    R = keys.shape[0]
+    lo, hi = key_words(keys)
+    bid = _bucket_of(hi, nb)
+    while bool(pending.any()):
+        pos = torch.nonzero(pending).flatten()[:min(R, WALK_SLICE)]
+        s_lo, s_hi, cur = lo[pos], hi[pos], bid[pos]
+        pend = torch.ones(pos.shape[0], dtype=torch.bool, device=keys.device)
+        new = torch.zeros_like(pend)
+        less = (s_lo[None, :] < s_lo[:, None]) | (
+            (s_lo[None, :] == s_lo[:, None]) & (s_hi[None, :] < s_hi[:, None]))
+        while bool(pend.any()):
+            f, occ = _row_probe(table, cur, s_lo, s_hi)
+            f = pend & f
+            wnt = pend & ~f
+            same = wnt[:, None] & wnt[None, :] & (cur[:, None] == cur[None, :])
+            sl = occ + (same & less).sum(1)
+            ok = wnt & (sl < BUCKET)
+            _slot_write(table, (cur * BUCKET + sl)[ok], s_lo[ok], s_hi[ok])
+            new |= ok
+            pend = pend & ~(f | ok)
+            cur = torch.where(wnt & ~ok & pend, (cur + 1) % nb, cur)
+        is_new[pos] = new.to(torch.uint8)
+        pending[pos] = 0
+
+
+def probe_segment_plain(table: torch.Tensor, keys: torch.Tensor,
+                        active: torch.Tensor, C: int) -> torch.Tensor:
+    """Insert-or-find the `active` entries of a sorted, duplicate-free key
+    block (the reference's _probe_block).  Updates `table` in place;
+    returns is_new [R] bool."""
+    slot = fpset_round0_plain(table, keys, active)
+    is_new, pending = fpset_claim_plain(table, keys, slot, C)
+    fpset_walk_plain(table, keys, pending, is_new)
+    return is_new.bool()
+
+
+def probe_segment(table, keys, nreps, off: int, C: int, is_new_out,
+                  npend=None):
+    """Probe one R-wide segment of the compacted keys, whose entries at
+    global positions ``off + i < nreps`` are active; writes is_new_out
+    [R] (uint8) and updates the table in place.  CUDA: kernel K3, reading
+    nreps on the device (an inactive segment is a no-op); CPU: the plain
+    version."""
+    if not keys.is_cuda:
+        R = keys.shape[0]
+        active = torch.arange(R) + off < int(nreps)
+        is_new_out.copy_(probe_segment_plain(table, keys, active, C))
+        return
+    from ..kernels import ops
+
+    ops.fpset_probe_segment(table, keys, nreps, off, C, is_new_out, npend)
+
+
+# ---------------------------------------------------------------------------
+# sorted dedup + segmented probe
+# ---------------------------------------------------------------------------
+
+
+def dedup_compact(key: torch.Tensor):
+    """Stable sort + representative compaction: (c_key [n], c_idx [n]
+    int64, nreps 0-dim int64).  Entries j < nreps are the distinct valid
+    keys, ascending, each from its highest lane; the rest keep the stable
+    sort order."""
+    s_key, s_idx = torch.sort(key, stable=True)
+    last = torch.cat([s_key[1:] != s_key[:-1],
+                      torch.ones(1, dtype=torch.bool, device=key.device)])
+    rep = (s_key != KEY00) & last
+    ri = rep.to(torch.int64)
+    cr = torch.cumsum(ri, 0)
+    nreps = cr[-1]
+    pos = torch.where(rep, cr - 1, nreps + torch.cumsum(1 - ri, 0) - 1)
+    c_key = torch.empty_like(s_key)
+    c_idx = torch.empty_like(s_idx)
+    c_key[pos] = s_key
+    c_idx[pos] = s_idx
+    return c_key, c_idx, nreps
+
+
+def fpset_insert_sorted(
+    s: FPSet, lo, hi, mask, probe_width: int = 0, claim_width: int = 0
+) -> Tuple[FPSet, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Insert-or-find a batch; results in compacted order.
+
+    lo/hi: [N] int32 fingerprints; mask: [N] bool.  Returns (set,
+    is_new_c [N] bool, c_idx [N] int64, nreps 0-dim int64): entry j <
+    nreps of the compacted order represents a distinct masked fingerprint,
+    originally at lane c_idx[j]; is_new_c[j] says whether it was new.
+    probe_width bounds the probe segment (0 = whole batch); claim_width
+    the round-0 claims (0 = probe_width)."""
+    n = lo.shape[0]
+    R = min(probe_width or n, n)
+    C = min(claim_width or R, R)
+    key = fpset_key(lo, hi, mask)
+    c_key, c_idx, nreps = dedup_compact(key)
+    nseg = (n + R - 1) // R
+    pad = nseg * R - n
+    if pad:
+        c_key = torch.cat([c_key, torch.full((pad,), KEY00, dtype=torch.int64,
+                                             device=c_key.device)])
+    is_new = torch.zeros(nseg * R, dtype=torch.uint8, device=lo.device)
+    npend = (torch.zeros(nseg, dtype=torch.int32, device=lo.device)
+             if lo.is_cuda else None)
+    for seg in range(nseg):
+        if not lo.is_cuda and seg * R >= int(nreps):
+            break
+        probe_segment(s.table, c_key[seg * R:(seg + 1) * R], nreps, seg * R,
+                      C, is_new[seg * R:(seg + 1) * R],
+                      None if npend is None else npend[seg:seg + 1])
+    return s, is_new[:n].bool(), c_idx, nreps
+
+
+def fpset_actual_collision(s: FPSet) -> float:
+    """TLC's "based on the actual fingerprints" estimate (MC.out:42):
+    1 / min adjacent gap of the sorted stored (mixed) entries, in the
+    reference's float32 arithmetic."""
+    t = to_u64(s.table.view(-1, 2))
+    occ = (t[:, 0] != 0) | (t[:, 1] != 0)
+    keys = torch.sort(key_of(t[occ, 0], t[occ, 1])).values
+    if keys.numel() < 2:
+        return 0.0
+    lo, hi = key_words(keys)
+    dl = (lo[1:] - lo[:-1]) & MASK32
+    borrow = (lo[1:] < lo[:-1]).to(torch.int64)
+    dh = (hi[1:] - hi[:-1] - borrow) & MASK32
+    gap = (dh.to(torch.float32) * torch.tensor(4294967296.0)
+           + dl.to(torch.float32))
+    min_gap = gap.min()
+    if not (torch.isfinite(min_gap) and min_gap > 0):
+        return 0.0
+    return float(torch.tensor(1.0, dtype=torch.float32) / min_gap)

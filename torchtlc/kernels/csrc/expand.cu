@@ -1,0 +1,61 @@
+// Kernel K1 "expand": one thread per (popped state, lane).
+//
+// Replaces jaxtlc/engine/backend.py:make_expand_stage.expand (:195) over
+// Codec.unpack (codec.py:367), make_kernel.step (kernel.py:521),
+// canonicalize (codec.py:319), make_invariant_kernel.check
+// (invariants.py:50) and Codec.pack (codec.py:337), plus
+// kubeapi_backend.gen_counts (backend.py:443).  The reference materializes
+// the successor fields [ck*L, F] int32; this kernel keeps them in registers
+// and local memory and writes only packed words and per-lane bytes.
+//
+// Bound: bytes.  It reads the popped rows (ck*W words) and writes ck*L*W
+// packed words, 5 flag bytes and an int32 action per lane.  Per-action
+// generated counts go through a shared-memory histogram, then one integer
+// atomicAdd per label per block (order-free, so deterministic).
+#include <cuda_runtime.h>
+
+#include "kubeapi.cuh"
+
+__global__ void expand_kernel(KubeLayout Y, const u32* __restrict__ block,
+                              int ck, int n, u32* __restrict__ packed,
+                              uint8_t* __restrict__ flags,
+                              int32_t* __restrict__ action,
+                              unsigned long long* __restrict__ gen) {
+  __shared__ unsigned int hist[KUBE_N_LABELS];
+  for (int t = threadIdx.x; t < KUBE_N_LABELS; t += blockDim.x) hist[t] = 0;
+  __syncthreads();
+  const long long ncand = (long long)ck * Y.L;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx < ncand) {
+    const int row = (int)(idx / Y.L), lane = (int)(idx % Y.L);
+    LaneOut o = kube_expand_lane(Y, block + (size_t)row * Y.W, row < n, lane,
+                                 packed + (size_t)idx * Y.W);
+    flags[idx] = o.valid;
+    flags[ncand + idx] = o.afail;
+    flags[2 * ncand + idx] = o.ovf;
+    flags[3 * ncand + idx] = o.bad_typeok;
+    flags[4 * ncand + idx] = o.bad_onlyone;
+    action[idx] = o.action;
+    if (o.valid) atomicAdd(&hist[o.action], 1u);
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < KUBE_N_LABELS; t += blockDim.x)
+    if (hist[t]) atomicAdd(&gen[t], (unsigned long long)hist[t]);
+}
+
+extern "C" int tt_layout_words() { return sizeof(KubeLayout) / 4; }
+
+// gen must hold KUBE_N_LABELS zeroed (or accumulating) counters
+extern "C" int tt_expand(const void* layout, const void* block, int ck, int n,
+                         void* packed, void* flags, void* action, void* gen,
+                         void* stream) {
+  const KubeLayout& Y = *(const KubeLayout*)layout;
+  const long long ncand = (long long)ck * Y.L;
+  const int threads = 128;
+  const long long blocks = (ncand + threads - 1) / threads;
+  if (blocks > 0)
+    expand_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        Y, (const u32*)block, ck, n, (u32*)packed, (uint8_t*)flags,
+        (int32_t*)action, (unsigned long long*)gen);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,274 @@
+"""ctypes wrappers of the CUDA kernels (torchtlc/kernels/csrc).
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs with torch, launches on ``torch.cuda.current_stream()``, raises if
+the launch returned a CUDA error, and adds one to ``LAUNCHES[name]`` per
+kernel launch.  Nothing here runs on a CPU tensor: the callers
+(engine.backend, engine.fingerprint, engine.fpset, engine.bfs) take the
+plain torch versions for CPU tensors, and a CUDA tensor always reaches a
+kernel here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from . import build as _build
+
+KERNELS = ("expand", "fp64", "fpset_key", "fpset_probe", "fpset_claim",
+           "fpset_walk", "commit")
+LAUNCHES = {name: 0 for name in KERNELS}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_SIGNATURES = {
+    "tt_layout_words": ("expand", []),
+    "tt_expand": ("expand", [_P, _P, _I, _I, _P, _P, _P, _P, _P]),
+    "tt_fp64": ("fp64", [_P, _LL, _I, _I, _P, _P, _P, _P]),
+    "tt_fpset_key": ("fpset", [_P, _P, _P, _LL, _P, _P]),
+    "tt_fpset_probe": ("fpset", [_P, _I, _P, _I, _P, _LL, _P, _P]),
+    "tt_fpset_claim": ("fpset", [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P]),
+    "tt_fpset_walk": ("fpset", [_P, _I, ctypes.c_uint, _P, _I, _P, _P, _P,
+                                _P]),
+    "tt_commit": ("commit", [_P, _I, _LL, _LL, _P, _LL, _P, _P, _P, _LL, _P,
+                             _P, _I, _I, _I, _P]),
+}
+
+
+class _Lib:
+    def __init__(self, info: _build.BuildInfo):
+        self.info = info
+        dlls = {stem: ctypes.CDLL(path) for stem, path in info.libs.items()}
+        for fn, (stem, argtypes) in _SIGNATURES.items():
+            f = getattr(dlls[stem], fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+            setattr(self, fn, f)
+
+
+_lib = None
+
+
+def load(ptxas_report: bool = False) -> _build.BuildInfo:
+    """Build (at first use) and load the kernel libraries."""
+    global _lib
+    if _lib is None or ptxas_report:
+        _lib = _Lib(_build.build(ptxas_report=ptxas_report))
+    return _lib.info
+
+
+def lib() -> _Lib:
+    load()
+    return _lib
+
+
+def reset_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _launched(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"kernel {name}: launch failed, CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _need(t: torch.Tensor, name: str, dtype, shape=None) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(cfg) -> np.ndarray:
+    from ..engine.backend import kernel_layout
+
+    words = kernel_layout(cfg)
+    n = lib().tt_layout_words()
+    if n != words.shape[0]:
+        raise RuntimeError(f"KubeLayout mismatch: kernel has {n} words, "
+                           f"kernel_layout gives {words.shape[0]}")
+    return words
+
+
+# ---------------------------------------------------------------------------
+# K1 expand
+# ---------------------------------------------------------------------------
+
+
+def expand(cfg, block: torch.Tensor, n: int):
+    """-> (packed [ck*L, W] int32, flags [5, ck*L] uint8, action [ck*L]
+    int32, gen [n_labels] int64); see engine.backend.expand_block."""
+    from ..spec.labels import LABELS
+
+    lay = _layout(cfg)
+    ck, W = block.shape
+    L, F_W = int(lay[28]), int(lay[25])
+    _need(block, "block", torch.int32, (ck, F_W))
+    dev = block.device
+    ncand = ck * L
+    packed = torch.empty(ncand, W, dtype=torch.int32, device=dev)
+    flags = torch.empty(5, ncand, dtype=torch.uint8, device=dev)
+    action = torch.empty(ncand, dtype=torch.int32, device=dev)
+    gen = torch.zeros(len(LABELS), dtype=torch.int64, device=dev)
+    rc = lib().tt_expand(lay.ctypes.data_as(_P), _ptr(block), ck, n,
+                         _ptr(packed), _ptr(flags), _ptr(action), _ptr(gen),
+                         _stream())
+    _launched("expand", rc)
+    return packed, flags, action, gen
+
+
+# ---------------------------------------------------------------------------
+# K2 fp64
+# ---------------------------------------------------------------------------
+
+
+def fp64(words: torch.Tensor, basis: torch.Tensor, nbits: int):
+    """[N, W] int32 packed rows -> (lo, hi) [N] int32; basis [nbits+1, 2]
+    int32 (basis rows then const, engine.fingerprint._basis_words)."""
+    N, W = words.shape
+    if not 0 < nbits <= 32 * W:
+        raise ValueError(f"nbits {nbits} does not fit {W} words")
+    _need(words, "words", torch.int32)
+    _need(basis, "basis", torch.int32, (nbits + 1, 2))
+    lo = torch.empty(N, dtype=torch.int32, device=words.device)
+    hi = torch.empty(N, dtype=torch.int32, device=words.device)
+    rc = lib().tt_fp64(_ptr(words), N, W, nbits, _ptr(basis), _ptr(lo),
+                       _ptr(hi), _stream())
+    _launched("fp64", rc)
+    return lo, hi
+
+
+# ---------------------------------------------------------------------------
+# K3 fingerprint set
+# ---------------------------------------------------------------------------
+
+
+def fpset_key(lo: torch.Tensor, hi: torch.Tensor, mask: torch.Tensor):
+    """Mixed, remapped, masked sort keys [N] int64."""
+    N = lo.shape[0]
+    _need(lo, "lo", torch.int32, (N,))
+    _need(hi, "hi", torch.int32, (N,))
+    _need(mask, "mask", torch.bool, (N,))
+    key = torch.empty(N, dtype=torch.int64, device=lo.device)
+    rc = lib().tt_fpset_key(_ptr(lo), _ptr(hi), _ptr(mask), N, _ptr(key),
+                            _stream())
+    _launched("fpset_key", rc)
+    return key
+
+
+def _table_geom(table: torch.Tensor):
+    nb = table.shape[0]
+    if nb & (nb - 1):
+        raise ValueError("table rows must be a power of two")
+    _need(table, "table", torch.int32, (nb, 16))
+    return nb, nb.bit_length() - 1
+
+
+def fpset_probe(table: torch.Tensor, keys: torch.Tensor, nreps: torch.Tensor,
+                off: int) -> torch.Tensor:
+    """Round 0 over one R-wide block of sorted compacted keys, lanes active
+    where off + i < nreps (read on the device): slot codes [R] int32, as
+    engine.fpset.fpset_round0_plain."""
+    _, lognb = _table_geom(table)
+    R = keys.shape[0]
+    _need(keys, "keys", torch.int64, (R,))
+    _need(nreps, "nreps", torch.int64, ())
+    slot = torch.empty(R, dtype=torch.int32, device=keys.device)
+    _launched("fpset_probe", lib().tt_fpset_probe(
+        _ptr(table), lognb, _ptr(keys), R, _ptr(nreps), off, _ptr(slot),
+        _stream()))
+    return slot
+
+
+def fpset_claim(table: torch.Tensor, keys: torch.Tensor, slot: torch.Tensor,
+                C: int, is_new: torch.Tensor, pending: torch.Tensor,
+                npend: torch.Tensor) -> None:
+    """Write the first C round-0 claims; fill is_new and pending [R] uint8
+    and add the straggler count to npend (int32 [1])."""
+    _table_geom(table)
+    R = keys.shape[0]
+    _need(keys, "keys", torch.int64, (R,))
+    _need(slot, "slot", torch.int32, (R,))
+    _need(is_new, "is_new", torch.uint8, (R,))
+    _need(pending, "pending", torch.uint8, (R,))
+    _need(npend, "npend", torch.int32, (1,))
+    cum = None
+    if C < R:  # claims beyond the first C fitting ones wait for the walk
+        cum = torch.cumsum((slot >= 0).to(torch.int64), 0)
+    _launched("fpset_claim", lib().tt_fpset_claim(
+        _ptr(table), _ptr(keys), R, _ptr(slot),
+        None if cum is None else _ptr(cum), C, _ptr(is_new), _ptr(pending),
+        _ptr(npend), _stream()))
+
+
+def fpset_walk(table: torch.Tensor, keys: torch.Tensor, pending: torch.Tensor,
+               is_new: torch.Tensor, npend: torch.Tensor) -> None:
+    """Settle the npend pending stragglers (one block, no host round
+    trip); updates table, pending and is_new in place."""
+    nb, lognb = _table_geom(table)
+    R = keys.shape[0]
+    _need(keys, "keys", torch.int64, (R,))
+    _need(pending, "pending", torch.uint8, (R,))
+    _need(is_new, "is_new", torch.uint8, (R,))
+    _need(npend, "npend", torch.int32, (1,))
+    _launched("fpset_walk", lib().tt_fpset_walk(
+        _ptr(table), lognb, nb - 1, _ptr(keys), R, _ptr(pending),
+        _ptr(is_new), _ptr(npend), _stream()))
+
+
+def fpset_probe_segment(table, keys, nreps, off: int, C: int,
+                        is_new_out: torch.Tensor, npend: torch.Tensor) -> None:
+    """Insert-or-find one probe segment: fpset_probe, fpset_claim,
+    fpset_walk.  npend: a zeroed int32 [1] counter."""
+    slot = fpset_probe(table, keys, nreps, off)
+    pending = torch.empty_like(is_new_out)
+    fpset_claim(table, keys, slot, C, is_new_out, pending, npend)
+    fpset_walk(table, keys, pending, is_new_out, npend)
+
+
+# ---------------------------------------------------------------------------
+# K4 commit
+# ---------------------------------------------------------------------------
+
+
+def commit(queue, dst: int, next_n: int, qcap: int, e_idx, n_new, packed,
+           action, n_pop: int, act_dist, outdeg_hist, A: int, L: int,
+           n_labels: int) -> None:
+    """See engine.bfs.commit_block_plain; n_new is read on the device."""
+    ncand, W = packed.shape
+    _need(queue, "queue", torch.int32)
+    if queue.dim() != 3 or queue.shape[2] != W:
+        raise ValueError("queue must be [2, rows, W]")
+    if qcap + A > queue.shape[1]:
+        raise ValueError("queue rows must cover qcap + A")
+    _need(e_idx, "e_idx", torch.int64, (ncand,))
+    _need(n_new, "n_new", torch.int64, ())
+    _need(packed, "packed", torch.int32)
+    _need(action, "action", torch.int32, (ncand,))
+    _need(act_dist, "act_dist", torch.int64)
+    _need(outdeg_hist, "outdeg_hist", torch.int64, (L + 2,))
+    rc = lib().tt_commit(_ptr(queue[dst]), W, next_n, qcap, _ptr(e_idx),
+                         ncand, _ptr(n_new), _ptr(packed), _ptr(action), n_pop,
+                         _ptr(act_dist), _ptr(outdeg_hist), A, L, n_labels,
+                         _stream())
+    _launched("commit", rc)
