@@ -5,15 +5,19 @@
 
 Builds every CUDA kernel of the port's main path from torchtlc/kernels/csrc,
 drives the exhaustive BFS through the user entry points (engine.bfs.check's
-engine) on the FF corner, on Model_1 and on the scaled 2x1 workload, checks
-every result against its pinned value, holds each kernel bitwise against
-its plain torch version on the card, and prints:
+engine) on the FF corner, on Model_1 and on the scaled 2x1 workload - in the
+sorted immediate mode, then Model_1 at chunk 2048 and the scaled workload in
+the default modes the reference resolves there (sort-free slab dedup,
+deferred invariants; the scaled run with the counter ring) - checks every
+result against its pinned value, holds each kernel bitwise against its
+plain torch version on the card, and prints:
 
 * one line per phase;
 * a line with the card's name and power limit (nvidia-smi);
 * a JSON line {"kernels": [...]} with each kernel's launches on the main
-  path (the Model_1 and scaled runs), its error against the plain version,
-  its time, the plain version's time and its bound on this card;
+  path (the two Model_1 and the two scaled runs), its error against the
+  plain version, its time, the plain version's time and its bound on this
+  card;
 * last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Any mismatch exits nonzero before the last line.  Without a CUDA device, or
@@ -65,6 +69,23 @@ M1_DISTINCT = {
     "PVCListedPVCs": 1171, "PVCStart": 1086, "c12": 2606,
 }
 SCALED_COUNTS = (62014325, 19359985, 186)  # SCALED_VALIDATION.json
+
+SORTED = dict(sort_free=False, deferred=False)
+# Model_1 at chunk 2048 in the default modes (sort-free + deferred)
+M1_2048_KW = dict(chunk=2048, queue_capacity=1 << 15, fp_capacity=1 << 18)
+# the reference engine at M1_2048_KW in its default modes (slow test in
+# tests/test_torch_engine.py)
+M1_2048_TABLE_SHA256 = (
+    "89247de671615f91c8b444bb3b3046af477a7ecf199a2d542a739225d984dc78")
+M1_2048_DISTINCT = {
+    "DoRequest": 32456, "DoReply": 35308, "DoListRequest": 2003,
+    "DoListReply": 2174, "CStart": 29273, "C1": 13321, "C10": 6195,
+    "C11": 8741, "c12": 2605, "C13": 12157, "C2": 770, "C3": 1247,
+    "C8": 668, "C6": 424, "C7": 698, "C4": 483, "C5": 1186, "PVCStart": 715,
+    "PVCListedPVCs": 810, "PVCHavePVCs": 237, "PVCDone": 137,
+    "APIStart": 11798,
+}
+SCALED_OBS_SLOTS = 256
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 SEED = 20261017
@@ -121,12 +142,15 @@ def main() -> int:
     runs["ff"] = phase_ff(torch, ops)
     phase_violation(torch)
     runs["m1"] = phase_model1(torch, ops, card)
+    runs["m1_auto"] = phase_model1_auto(torch, ops, card)
     runs["scaled"] = phase_scaled(torch, ops, card)
-    launches = {k: runs["m1"]["launches"][k] + runs["scaled"]["launches"][k]
+    runs["scaled_auto"] = phase_scaled_auto(torch, ops, card, runs["scaled"])
+    main = ("m1", "m1_auto", "scaled", "scaled_auto")
+    launches = {k: sum(runs[r]["launches"][k] for r in main)
                 for k in ops.KERNELS}
     kernels = phase_kernels(torch, ops, runs, launches)
-    print(f"phase 6 launches on the Model_1 + scaled runs: {launches}",
-          flush=True)
+    print(f"phase 6 launches on the Model_1 + scaled runs (both modes): "
+          f"{launches}", flush=True)
     for k, v in launches.items():
         need(v > 0, f"kernel {k} was not launched on the main path")
     print(smi, flush=True)
@@ -137,14 +161,14 @@ def main() -> int:
     return 0
 
 
-def run_engine(torch, ops, cfg, kw):
+def run_engine(torch, ops, cfg, kw, modes=SORTED):
     """One exhaustive run through the port's engine entry points, with the
-    launch counts reset just before and read just after."""
+    launch counts reset just before and read just after; `modes` {} takes
+    the defaults.  Returns (carry, result, launches, run_fn)."""
     from torchtlc.engine.bfs import make_engine, result_from_carry
     from torchtlc.engine.fpset import fpset_actual_collision
 
-    init_fn, run_fn, _ = make_engine(cfg, sort_free=False, deferred=False,
-                                     **kw)
+    init_fn, run_fn, _ = make_engine(cfg, **modes, **kw)
     carry = init_fn()
     torch.cuda.synchronize()
     ops.reset_counts()
@@ -156,13 +180,14 @@ def run_engine(torch, ops, cfg, kw):
     r = result_from_carry(carry, wall, iterations=run_fn.steps,
                           fp_capacity=kw["fp_capacity"])
     r = r._replace(actual_fp_collision=fpset_actual_collision(carry.fps))
-    return carry, r, launches
+    return carry, r, launches, run_fn
 
 
 def phase_ff(torch, ops):
     from torchtlc.config import MATRIX
 
-    carry, r, launches = run_engine(torch, ops, MATRIX[(False, False)], FF_KW)
+    carry, r, launches, _ = run_engine(torch, ops, MATRIX[(False, False)],
+                                       FF_KW)
     sha = table_sha256(carry.fps.table)
     print(f"phase 3 FF: {r.generated} / {r.distinct} / {r.depth}, outdegree "
           f"{r.outdegree}, table sha256 {sha[:16]}, {r.iterations} steps in "
@@ -191,7 +216,7 @@ def phase_violation(torch):
     for dev in ("cuda", "cpu"):
         init_fn, run_fn, _ = make_engine(
             MODEL_1, chunk=64, queue_capacity=1 << 10, fp_capacity=1 << 12,
-            sort_free=False, deferred=False, device=dev)
+            **SORTED, device=dev)
         carry = init_fn()
         carry.queue[0, :2] = packed.to(dev)
         carry = run_fn(carry)
@@ -206,7 +231,7 @@ def phase_violation(torch):
 def phase_model1(torch, ops, card):
     from torchtlc.config import MODEL_1
 
-    carry, r, launches = run_engine(torch, ops, MODEL_1, M1_KW)
+    carry, r, launches, _ = run_engine(torch, ops, MODEL_1, M1_KW)
     sha = table_sha256(carry.fps.table)
     print(f"phase 4 Model_1: {r.generated} / {r.distinct} / {r.depth}, "
           f"outdegree {r.outdegree}, table sha256 {sha[:16]}, "
@@ -225,7 +250,7 @@ def phase_scaled(torch, ops, card):
     from torchtlc.config import scaled_config
 
     cfg, kw = scaled_config()
-    carry, r, launches = run_engine(torch, ops, cfg, kw)
+    carry, r, launches, _ = run_engine(torch, ops, cfg, kw)
     rate = r.distinct / r.wall_s
     print(f"phase 5 scaled 2x1: {r.generated} / {r.distinct} / {r.depth}, "
           f"{r.iterations} steps in {r.wall_s:.3f} s wall, "
@@ -233,8 +258,78 @@ def phase_scaled(torch, ops, card):
           flush=True)
     need((r.generated, r.distinct, r.depth) == SCALED_COUNTS, "scaled counts")
     need(r.violation == 0 and r.queue_left == 0, "scaled verdict")
+    # the repaired rows: the library sort of the sorted dedup and the
+    # actual-collision estimate, timed on this run's table
+    from torchtlc.engine.fpset import fpset_actual_collision
+
+    coll_ms = cuda_ms(torch, lambda _: fpset_actual_collision(carry.fps), 3)
+    print(f"phase 5 fpset_actual_collision on the scaled table: {coll_ms:.3f}"
+          f" ms (bound {carry.fps.table.numel() * 4 / HBM_BYTES_PER_S * 1e3:.4f}"
+          f" ms: the table read once)", flush=True)
     return {"carry": carry, "result": r, "launches": launches, "cfg": cfg,
-            "kw": kw}
+            "kw": kw, "sha": table_sha256(carry.fps.table),
+            "collision_ms": coll_ms}
+
+
+def phase_model1_auto(torch, ops, card):
+    """Model_1 at chunk 2048 with default modes: the sort-free slab dedup
+    and the deferred invariants, as the reference resolves them."""
+    from torchtlc.config import MODEL_1
+
+    carry, r, launches, run_fn = run_engine(torch, ops, MODEL_1, M1_2048_KW,
+                                            modes={})
+    sha = table_sha256(carry.fps.table)
+    print(f"phase 4b Model_1 chunk 2048, default modes (slab + deferred): "
+          f"{r.generated} / {r.distinct} / {r.depth}, outdegree "
+          f"{r.outdegree}, table sha256 {sha[:16]}, {r.iterations} steps "
+          f"({run_fn.slab_fallbacks[2048]} slab fallbacks) in "
+          f"{r.wall_s:.3f} s wall on {card}; launches {launches}", flush=True)
+    need((r.generated, r.distinct, r.depth) == M1_COUNTS,
+         "Model_1 (2048) counts")
+    need(r.outdegree == M1_OUTDEGREE, "Model_1 (2048) outdegree")
+    need(r.violation == 0 and r.queue_left == 0, "Model_1 (2048) verdict")
+    need(r.action_generated == MC_OUT_GENERATED,
+         "Model_1 (2048) per-action generated")
+    need(r.action_distinct == M1_2048_DISTINCT,
+         "Model_1 (2048) per-action distinct")
+    need(sha == M1_2048_TABLE_SHA256, "Model_1 (2048) table words")
+    return {"carry": carry, "result": r, "launches": launches}
+
+
+def phase_scaled_auto(torch, ops, card, sorted_run):
+    """The scaled workload in the default modes with the counter ring: the
+    sorted run's counts and table words (the reference's bit-identity of
+    the modes), one ring row per level flip, the last carrying the
+    totals."""
+    from torchtlc.engine.bfs import obs_rows
+
+    cfg, kw = sorted_run["cfg"], sorted_run["kw"]
+    carry, r, launches, run_fn = run_engine(
+        torch, ops, cfg, dict(kw, obs_slots=SCALED_OBS_SLOTS), modes={})
+    sha = table_sha256(carry.fps.table)
+    rows, head = obs_rows(carry)
+    ck = kw["chunk"]
+    full = run_fn.steps_by_width[ck]
+    fb = run_fn.slab_fallbacks
+    rate = r.distinct / r.wall_s
+    print(f"phase 5b scaled 2x1, default modes (slab + deferred) + ring: "
+          f"{r.generated} / {r.distinct} / {r.depth}, {r.iterations} steps "
+          f"({full} at width {ck}, {fb[ck]} of them took the slab fallback; "
+          f"small width: {fb.get(ck // 16, 0)} fallbacks) in {r.wall_s:.3f} "
+          f"s wall, {rate:.0f} distinct states/s on {card}; ring head {head},"
+          f" last row {rows[-1] if rows else None}; launches {launches}",
+          flush=True)
+    need((r.generated, r.distinct, r.depth) == SCALED_COUNTS,
+         "scaled (default modes) counts")
+    need(r.violation == 0 and r.queue_left == 0,
+         "scaled (default modes) verdict")
+    need(sha == sorted_run["sha"],
+         "scaled (default modes) table words differ from the sorted run's")
+    need(head == r.depth, "ring head is not the number of level flips")
+    need(rows and (rows[-1]["generated"], rows[-1]["distinct"])
+         == (r.generated, r.distinct), "last ring row lacks the totals")
+    return {"carry": carry, "result": r, "launches": launches,
+            "fallbacks": fb, "full_steps": full}
 
 
 # ---------------------------------------------------------------------------
@@ -242,9 +337,16 @@ def phase_scaled(torch, ops, card):
 # ---------------------------------------------------------------------------
 
 
+SPIN_CYCLES = 4_000_000  # ~2 ms of a spinning kernel at H100 clocks
+
+
 def cuda_ms(torch, fn, reps, setup=None):
     """Mean device time of fn(setup()) over reps calls (CUDA events around
-    each call; setup is not timed); one untimed warm-up call first."""
+    each call; setup is not timed); one untimed warm-up call first.  A
+    spinning kernel queued ahead of the first event keeps the card busy
+    while the host enqueues the call, so the events time the device work
+    and not the host's launch latency (a call that reads back to the host
+    or enqueues for longer than the spin still includes its host time)."""
     fn(setup() if setup else None)
     torch.cuda.synchronize()
     total = 0.0
@@ -253,6 +355,7 @@ def cuda_ms(torch, fn, reps, setup=None):
         torch.cuda.synchronize()
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         s.record()
         fn(arg)
         e.record()
@@ -393,6 +496,36 @@ def phase_kernels(torch, ops, runs, launches):
                           f"{v[-1]['bound_ms']:.4f} ms)"
                           for k, v in rows.items()), flush=True)
 
+    # the slice-2 kernels at the Model_1 chunk-2048 and the scaled step
+    # shapes: the first 2048 rows of the same Model_1 level-40 frontier, and
+    # the first chunk rows of the scaled run's first level that fills a
+    # chunk (reachable states only: a level buffer's rows past its level
+    # hold the enqueue tail's padding, the packed rows of disabled lanes)
+    block2048 = c.queue[int(c.parity), :M1_2048_KW["chunk"]].contiguous()
+    s_cfg, s_kw = runs["scaled"]["cfg"], runs["scaled"]["kw"]
+    s_init, _, s_step = bfs.make_engine(s_cfg, sort_free=False,
+                                        deferred=False, **s_kw)
+    sc = s_init()
+    while not (int(sc.level_n) >= ck_big and int(sc.qhead) == 0):
+        need(int(sc.level_n) > 0, "the scaled run has no level of a chunk")
+        sc = s_step(sc)
+    s_level, s_level_n = int(sc.level), int(sc.level_n)
+    s_block = sc.queue[int(sc.parity), :ck_big].contiguous()
+    del sc
+    print(f"phase 2 slice-2 scaled step: the first {ck_big} rows of level "
+          f"{s_level} ({s_level_n} states) of a sorted scaled run",
+          flush=True)
+    first_slice = set(rows)
+    for tag, cfg, block, n in (
+            ("model1_2048", MODEL_1, block2048,
+             min(int(c.level_n), M1_2048_KW["chunk"])),
+            ("scaled", s_cfg, s_block, ck_big - 3)):
+        check_new_kernels(torch, ops, rng, tag, cfg, block, n, record, runs)
+        print(f"phase 2 slice-2 times ({tag}): " + ", ".join(
+            f"{k} {v[-1]['ms']:.4f} ms (plain {v[-1]['plain_ms']:.3f} ms, "
+            f"bound {v[-1]['bound_ms']:.4f} ms)" for k, v in rows.items()
+            if v[-1]["shape"] == tag and k not in first_slice), flush=True)
+
     source = {
         "expand": ("torchtlc/kernels/csrc/expand.cu",
                    "jaxtlc/engine/backend.py:195"),
@@ -408,7 +541,22 @@ def phase_kernels(torch, ops, runs, launches):
                        "jaxtlc/engine/fpset.py:369"),
         "commit": ("torchtlc/kernels/csrc/commit.cu",
                    "jaxtlc/engine/bfs.py:434"),
+        "slab_scatter": ("torchtlc/kernels/csrc/slab.cu",
+                         "jaxtlc/engine/fpset.py:659"),
+        "slab_resolve": ("torchtlc/kernels/csrc/slab.cu",
+                         "jaxtlc/engine/fpset.py:659"),
+        "slab_compact": ("torchtlc/kernels/csrc/slab.cu",
+                         "jaxtlc/engine/fpset.py:659"),
+        "slab_order": ("torchtlc/kernels/csrc/slab.cu",
+                       "jaxtlc/engine/fpset.py:726"),
+        "slab_mark": ("torchtlc/kernels/csrc/slab.cu",
+                      "jaxtlc/engine/fpset.py:726"),
+        "deferred_check": ("torchtlc/kernels/csrc/deferred.cu",
+                           "jaxtlc/engine/backend.py:325"),
+        "ring_row": ("torchtlc/kernels/csrc/ring.cu",
+                     "jaxtlc/obs/counters.py:89"),
     }
+    first = {name: rows[name][0] for name in rows}
     out = []
     for name in ops.KERNELS:
         big = rows[name][-1]  # the scaled step shape
@@ -419,9 +567,18 @@ def phase_kernels(torch, ops, runs, launches):
             "ms": big["ms"], "plain_ms": big["plain_ms"],
             "bound_ms": big["bound_ms"], "bound_by": "bytes",
             "library_ms": None,
-            "model1": {k: rows[name][0][k]
-                       for k in ("ms", "plain_ms", "bound_ms")},
+            "model1": {k: first[name][k]
+                       for k in ("shape", "ms", "plain_ms", "bound_ms")},
         })
+        for var in rows:  # the variants measured under this kernel
+            if var.startswith(name + "/"):
+                out[-1].setdefault("variants", {})[var.split("/", 1)[1]] = [
+                    {k: r[k] for k in ("shape", "max_abs_err", "ms",
+                                       "plain_ms", "bound_ms")}
+                    for r in rows[var]]
+    for k in [k for k in ops.KERNELS if k not in rows]:
+        raise SmokeFailure(f"kernel {k} was not held against its plain "
+                           "version")
     return out
 
 
@@ -477,6 +634,7 @@ def check_fpset(torch, fpset, rng, dev, tag, R, ncand):
             e.record()
             return e
 
+        torch.cuda._sleep(SPIN_CYCLES)  # time device work, not the launch
         e0 = ev()
         slot = ops.fpset_probe(t_k, keys, nreps, off)
         e1 = ev()
@@ -485,6 +643,7 @@ def check_fpset(torch, fpset, rng, dev, tag, R, ncand):
         is_new = torch.empty(R, dtype=torch.uint8, device=dev)
         pend = torch.empty(R, dtype=torch.uint8, device=dev)
         npend = torch.zeros(1, dtype=torch.int32, device=dev)
+        torch.cuda._sleep(SPIN_CYCLES)
         e3 = ev()
         ops.fpset_claim(t_k, keys, slot, R, is_new, pend, npend)
         e4 = ev()
@@ -494,6 +653,7 @@ def check_fpset(torch, fpset, rng, dev, tag, R, ncand):
              and bool((is_new == is_new_p).all())
              and bool((t_k == t_p).all()), f"K3 round 0 differs ({tag})")
         n_s = int(npend)
+        torch.cuda._sleep(SPIN_CYCLES)
         e6 = ev()
         ops.fpset_walk(t_k, keys, pend, is_new, npend)
         e7 = ev()
@@ -526,6 +686,338 @@ def check_fpset(torch, fpset, rng, dev, tag, R, ncand):
         "fpset_walk": (*per["fpset_walk"],
                        stragglers / nseg_run * (8 + 64 + 8) + R * 2),
     }
+
+
+def check_new_kernels(torch, ops, rng, tag, cfg, block, n, record, runs):
+    """K1's deferred variant, K5 slab, K6 slab order, K3's masked probe,
+    K7 deferred_check and K8 ring_row, each against its plain version on
+    the same inputs at this step shape; the slab with its default geometry,
+    with slab_bits=3 (collisions everywhere) and on an all-distinct burst
+    (the sorted fallback).  Also times the library sort of the sorted
+    dedup at this shape."""
+    import numpy as np
+
+    from torchtlc.engine import backend, fpset
+    from torchtlc.engine.fingerprint import fp64_words
+    from torchtlc.obs import counters
+    from torchtlc.spec.codec import get_codec
+    from torchtlc.spec.kernel import lane_layout
+
+    dev = block.device
+    cdc = get_codec(cfg)
+    W, F = cdc.n_words, cdc.n_fields
+    _, L = lane_layout(cfg)
+    ck = block.shape[0]
+    ncand = ck * L
+    R = min(2 * ck, ncand)
+
+    def err_of(a, b):
+        a, b = a.to(torch.int64), b.to(torch.int64)
+        return int((a - b).abs().max()) if a.numel() else 0
+
+    # K1, deferred variant
+    got = backend.expand_block(cfg, block, n, True)
+    ref = backend.expand_plain(cfg, block, n, True)
+    err = max(err_of(a, b) for a, b in zip(got, ref))
+    need(err == 0, f"K1 deferred variant differs from its plain version "
+         f"({tag})")
+    need(int(got[1][3:].sum()) == 0, f"K1 deferred variant flagged an "
+         f"invariant ({tag})")
+    ms = cuda_ms(torch, lambda _: backend.expand_block(cfg, block, n, True),
+                 20)
+    pms = cuda_ms(torch, lambda _: backend.expand_plain(cfg, block, n, True),
+                  3)
+    record("expand/deferred", tag, err, ms, pms,
+           ck * W * 4 + ncand * (W * 4 + 5 + 4) + 22 * 8)
+    packed, flags, action, _ = got
+    valid = flags[0].bool()
+    lo, hi = fp64_words(packed, cdc.nbits)
+
+    # the library sort of the sorted dedup (the repaired row): bound = the
+    # int64 keys and lanes read and written once
+    key = fpset.fpset_key(lo, hi, valid)
+    lib_ms = {
+        "shape": tag,
+        "dedup_compact_ms": cuda_ms(torch, lambda _: fpset.dedup_compact(key),
+                                    10),
+        "torch_sort_ms": cuda_ms(
+            torch, lambda _: torch.sort(key, stable=True), 10),
+        "bound_ms": 4 * 8 * ncand / HBM_BYTES_PER_S * 1e3,
+    }
+
+    def slab_case(name, keys, bits, expect_fallback):
+        """One slab insert step by step, kernel against plain; returns
+        (n_cand, the step's inputs for K3)."""
+        N = keys.shape[0]
+        m = 1 << fpset.slab_log2_cells(N, 4, bits)
+        nvalid = int((keys != fpset.KEY00).sum())
+        st = {}
+        for impl in ("kernel", "plain"):
+            unres = torch.zeros(N, dtype=torch.uint8, device=dev)
+            rep = torch.zeros(N, dtype=torch.uint8, device=dev)
+            cand = torch.zeros(N, dtype=torch.uint8, device=dev)
+            slab = torch.zeros(m, dtype=torch.int32, device=dev)
+            if impl == "kernel":
+                ops.slab_scatter(keys, 0, m - 1, unres, slab)
+                s_slab = slab.clone()
+                ops.slab_resolve(keys, 0, m - 1, slab, unres, rep, cand)
+            else:
+                fpset.slab_scatter_plain(keys, 0, m - 1, unres, slab)
+                s_slab = slab.clone()
+                fpset.slab_resolve_plain(keys, 0, m - 1, slab, unres, rep,
+                                         cand)
+            pos = torch.cumsum(cand, 0)
+            c_lane = torch.full((R,), -1, dtype=torch.int32, device=dev)
+            (ops.slab_compact if impl == "kernel"
+             else fpset.slab_compact_plain)(cand, pos, R, c_lane)
+            st[impl] = (s_slab, unres, rep, cand, pos, c_lane)
+        k, p = st["kernel"], st["plain"]
+        errs = [err_of(a, b) for a, b in zip(k, p)]
+        need(max(errs) == 0, f"K5 slab differs from its plain version "
+             f"({tag}, {name}: {errs})")
+        n_cand = int(k[4][-1])
+        need(expect_fallback is None or (n_cand > R) == expect_fallback,
+             f"K5 slab case {name} ({tag}): {n_cand} claimants for R {R}")
+
+        def setup():
+            return (torch.zeros(m, dtype=torch.int32, device=dev),
+                    torch.zeros(N, dtype=torch.uint8, device=dev),
+                    torch.zeros(N, dtype=torch.uint8, device=dev),
+                    torch.zeros(N, dtype=torch.uint8, device=dev))
+
+        def run_scatter(fn):
+            return lambda a: fn(keys, 0, m - 1, a[1], a[0])
+
+        def resolve_setup():
+            a = setup()
+            ops.slab_scatter(keys, 0, m - 1, a[1], a[0])
+            return a
+
+        def run_resolve(fn):
+            return lambda a: fn(keys, 0, m - 1, a[0], a[1], a[2], a[3])
+
+        pos, cand = k[4], k[3]
+        c_lane = torch.empty(R, dtype=torch.int32, device=dev)
+        suffix = "" if name == "default" else "/" + name
+        # bound: keys read, unres written, one 4 B cell per valid lane; the
+        # slab's zeroing is a torch.zeros outside the kernel (and outside
+        # the timed call), timed on its own by the caller
+        record("slab_scatter" + suffix, tag, errs[0],
+               cuda_ms(torch, run_scatter(ops.slab_scatter), 10, setup),
+               cuda_ms(torch, run_scatter(fpset.slab_scatter_plain), 3,
+                       setup),
+               (8 * N + N + 4 * nvalid))
+        record("slab_resolve" + suffix, tag, max(errs[1:4]),
+               cuda_ms(torch, run_resolve(ops.slab_resolve), 10,
+                       resolve_setup),
+               cuda_ms(torch, run_resolve(fpset.slab_resolve_plain), 3,
+                       resolve_setup),
+               (8 * N + 4 * nvalid + N + 3 * N))
+        record("slab_compact" + suffix, tag, errs[5],
+               cuda_ms(torch, lambda _: ops.slab_compact(cand, pos, R,
+                                                          c_lane), 10),
+               cuda_ms(torch, lambda _: fpset.slab_compact_plain(
+                   cand, pos, R, c_lane), 3),
+               (N + 8 * n_cand + 4 * min(n_cand, R)))  # pos read at claimants
+        return n_cand, k[5], k[4][-1]
+
+    def order_mark(name, keys, c_lane, n_cand_t):
+        """K6 kernel against plain; (s_key, perm, c_idx, active)."""
+        n_cand = int(n_cand_t)
+        ok_ = ops.slab_order(keys, c_lane, n_cand_t)
+        op_ = fpset.slab_order_plain(keys, c_lane, R, n_cand_t)
+        e_order = err_of(ok_, op_)
+        need(e_order == 0, f"K6 slab_order differs ({tag}, {name})")
+        s_key, perm = torch.sort(ok_, stable=True)
+        ci_k, ac_k = ops.slab_mark(s_key, perm, c_lane, n_cand_t, ncand)
+        ci_p, ac_p = fpset.slab_mark_plain(s_key, perm, c_lane, n_cand_t,
+                                           ncand)
+        e_mark = max(err_of(ci_k, ci_p), err_of(ac_k, ac_p))
+        need(e_mark == 0, f"K6 slab_mark differs ({tag}, {name})")
+        suffix = "" if name == "default" else "/" + name
+        record("slab_order" + suffix, tag, e_order,
+               cuda_ms(torch, lambda _: ops.slab_order(keys, c_lane,
+                                                        n_cand_t), 10),
+               cuda_ms(torch, lambda _: fpset.slab_order_plain(
+                   keys, c_lane, R, n_cand_t), 3),
+               (4 * R + 8 * min(n_cand, R) + 8 * R))
+        record("slab_mark" + suffix, tag, e_mark,
+               cuda_ms(torch, lambda _: ops.slab_mark(s_key, perm, c_lane,
+                                                       n_cand_t, ncand), 10),
+               cuda_ms(torch, lambda _: fpset.slab_mark_plain(
+                   s_key, perm, c_lane, n_cand_t, ncand), 3),
+               (8 * R + 8 * R + 4 * R + 8 * R + R))
+        return s_key, ci_k, ac_k, ac_p
+
+    def order_and_probe(name, keys, c_lane, n_cand_t, table0, C):
+        """K6 then K3 with the slab mask, kernel against plain."""
+        s_key, ci_k, ac_k, ac_p = order_mark(name, keys, c_lane, n_cand_t)
+        nrep = int(ac_k.sum())
+        t_k, t_p = table0.clone(), table0.clone()
+        new_k = torch.empty(R, dtype=torch.uint8, device=dev)
+        fpset.probe_segment(t_k, s_key, None, 0, C, new_k,
+                            torch.zeros(1, dtype=torch.int32, device=dev),
+                            ac_k)
+        new_p = fpset.probe_segment_plain(t_p, s_key, ac_p.bool(), C)
+        e_probe = max(err_of(new_k, new_p), err_of(t_k, t_p))
+        need(e_probe == 0, f"K3 masked probe differs ({tag}, {name})")
+        suffix = "" if name == "default" else "/" + name
+        record("fpset_probe/masked_" + name, tag, e_probe,
+               cuda_ms(torch, lambda t: ops.fpset_probe(t, s_key, None, 0,
+                                                         ac_k), 10,
+                       lambda: table0.clone()),
+               cuda_ms(torch, lambda t: fpset.fpset_round0_plain(
+                   t, s_key, ac_p.bool()), 3, lambda: table0.clone()),
+               (R * (8 + 1 + 4) + nrep * 64))
+        return s_key, ci_k, ac_k, nrep, int((new_k != 0).sum())
+
+    # a table at 0.55 load of 4x the candidate width, like the K3 test
+    cap = 1 << int(np.floor(np.log2(4.8 * ncand)))
+    table0 = torch.zeros(cap // 8, 16, dtype=torch.int32, device=dev)
+    while int(fpset.fpset_count(fpset.FPSet(table0))) < int(0.55 * cap):
+        r_lo = torch.from_numpy(rng.integers(0, 2**32, ncand // 4,
+                                             dtype=np.uint64).astype(
+            np.uint32).view(np.int32)).to(dev)
+        r_hi = torch.from_numpy(rng.integers(0, 2**32, ncand // 4,
+                                             dtype=np.uint64).astype(
+            np.uint32).view(np.int32)).to(dev)
+        fpset.fpset_insert_sorted(fpset.FPSet(table0), r_lo, r_hi,
+                                  torch.ones_like(r_lo, dtype=torch.bool),
+                                  probe_width=R, claim_width=R)
+
+    # default geometry on this step's real candidates; if their claimants
+    # exceed R, the valid lanes are cut to R // 2 so K6 and K3 run too
+    n_cand, c_lane, n_cand_t = slab_case("default", key, 0, None)
+    m_cells = 1 << fpset.slab_log2_cells(ncand)
+    memset_ms = cuda_ms(torch, lambda _: torch.zeros(
+        m_cells, dtype=torch.int32, device=dev), 10)
+    lines = [f"default: {n_cand} claimants; the slab's zeroing (torch.zeros "
+             f"of {m_cells} cells, outside K5) {memset_ms:.4f} ms, bound "
+             f"{4 * m_cells / HBM_BYTES_PER_S * 1e3:.4f} ms"]
+    if n_cand > R:
+        keep = valid & (torch.cumsum(valid.to(torch.int64), 0) <= R // 2)
+        key = fpset.fpset_key(lo, hi, keep)
+        n_cand, c_lane, n_cand_t = slab_case("default_cut", key, 0, False)
+        lines.append(f"cut to {R // 2} valid lanes: {n_cand} claimants")
+    s_key, ci, ac, nrep, nnew = order_and_probe("default", key, c_lane,
+                                                n_cand_t, table0, R)
+    lines.append(f"{nrep} representatives, {nnew} new")
+    # slab_bits=3: 8 cells, nearly every class unresolved; R // 2 valid
+    # lanes so that the claimants fit
+    keep = valid & (torch.cumsum(valid.to(torch.int64), 0) <= R // 2)
+    key3 = fpset.fpset_key(lo, hi, keep)
+    n3, c_lane3, n3_t = slab_case("bits3", key3, 3, False)
+    _, _, ac3, nrep3, _ = order_and_probe("bits3", key3, c_lane3, n3_t,
+                                          table0, R)
+    need(nrep3 < n3, f"slab_bits=3 left no duplicate row ({tag})")
+    lines.append(f"slab_bits=3: {n3} claimants, {nrep3} representatives")
+    # an all-distinct burst: every lane valid and distinct -> fallback
+    b_lo = torch.from_numpy(rng.integers(0, 2**32, ncand, dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).to(dev)
+    b_hi = torch.from_numpy(rng.integers(0, 2**32, ncand, dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).to(dev)
+    keyb = fpset.fpset_key(b_lo, b_hi, torch.ones(ncand, dtype=torch.bool,
+                                                  device=dev))
+    nb, c_lane_b, nb_t = slab_case("burst", keyb, 0, True)
+    _, _, ac_b, _ = order_mark("burst", keyb, c_lane_b, nb_t)
+    need(bool(ac_b[-1]), f"K6 left row R - 1 of the burst open ({tag})")
+    lines.append(f"all-distinct burst: {nb} claimants > R, sorted fallback "
+                 f"(K6 on the overfull slice equal too)")
+
+    # K7 on doctored rows: every 5th popped row holds identity 0 twice
+    # (two versions), so OnlyOneVersion fails on most of its lanes
+    fields = cdc.unpack(block)
+    api = cdc.offsets["api"]
+    word = (1 << cdc.o_present) | (0 << cdc.o_ident)
+    rows_d = torch.arange(0, n, 5, device=dev)
+    fields[rows_d, api] = word | (1 << cdc.o_vv)
+    fields[rows_d, api + 1] = word
+    dblock = cdc.pack(fields).contiguous()
+    dpacked, dflags, daction, _ = backend.expand_block(cfg, dblock, n, True)
+    dvalid = dflags[0].bool()
+    dlo, dhi = fp64_words(dpacked, cdc.nbits)
+    big = 1 << (2 * ncand - 1).bit_length()
+    _, fresh, c_idx, _, fell = fpset.fpset_insert_slab(
+        fpset.fpset_new(big, dev), dlo, dhi, dvalid, probe_width=R,
+        claim_width=R)
+    rows = ncand if fell else R
+    got = backend.deferred_check(cfg, dblock, fresh, c_idx, daction, rows)
+    ref = backend.deferred_check_plain(cfg, dblock, fresh, c_idx, daction,
+                                       rows)
+    err = max(err_of(a, b) for a, b in zip(got, ref))
+    need(err == 0, f"K7 deferred_check differs from its plain version "
+         f"({tag})")
+    need(int(got[0]) == backend.VIOL_ONLYONEVERSION,
+         f"K7 reported {int(got[0])}, not OnlyOneVersion, on doctored rows "
+         f"({tag})")
+    d_lanes = c_idx[:rows][fresh[:rows]]
+    n_doct = int(((d_lanes // (ncand // ck)) % 5 == 0).sum())
+    need(n_doct > 1, f"K7: {n_doct} fresh claimants from doctored rows "
+         f"({tag})")
+    n_fresh = int(fresh.sum())
+    ms = cuda_ms(torch, lambda _: backend.deferred_check(
+        cfg, dblock, fresh, c_idx, daction, rows), 10)
+    pms = cuda_ms(torch, lambda _: backend.deferred_check_plain(
+        cfg, dblock, fresh, c_idx, daction, rows), 2)
+    record("deferred_check", tag, err, ms, pms,
+           (rows * 9 + n_fresh * (W * 4 + 4) + F * 4))
+    lines.append(f"K7: {n_fresh} fresh claimants of {rows} rows, "
+                 f"{n_doct} from doctored rows, violation {int(got[0])} at "
+                 f"action {int(got[2])}")
+
+    # K8 on the scaled default-mode run's counters, as they are and with
+    # every counter 3 below a multiple of 2^32 (the sticky overflow)
+    carry = runs["scaled_auto"]["carry"]
+    n_labels = 22
+    top = (1 << 32) - 3  # 3 below 2^32: +5 wraps every uint32 view
+    for name, wrap in (("", False), ("/wrap", True)):
+        outs = []
+        for fn in (counters.ring_row, counters.ring_row_plain):
+            ring = carry.obs_ring.clone()
+            head, bodies, exp_ = (carry.obs_head.clone(),
+                                  carry.obs_bodies.clone(),
+                                  carry.obs_expanded.clone())
+            acts_old = torch.cat([carry.act_gen, carry.act_dist])
+            g_old, d_old = carry.generated, carry.distinct
+            if wrap:
+                acts_old = torch.full_like(acts_old, top)
+                g_old, d_old = g_old * 0 + top, d_old * 0 + top
+            n_acts = carry.act_gen.shape[0]
+            fn(ring, head, bodies, exp_, ck, True, carry.level, g_old + 9,
+               g_old, d_old + 7, d_old, carry.level_n,
+               acts_old[:n_acts] + 5, acts_old[n_acts:] + 5, acts_old,
+               n_labels)
+            outs.append((ring, head, bodies, exp_))
+        err = max(err_of(a, b) for a, b in zip(*outs))
+        need(err == 0, f"K8 ring_row differs from its plain version ({tag}"
+             f"{name})")
+        if wrap:
+            need(int(outs[0][0][int(carry.obs_head) % SCALED_OBS_SLOTS,
+                                counters.COL_OVERFLOW]) == 1,
+                 "K8 missed a uint32 wrap")
+
+        def ring_args(fn):
+            def run(st):
+                fn(st[0], st[1], st[2], st[3], ck, True, carry.level,
+                   carry.generated, carry.generated, carry.distinct,
+                   carry.distinct, carry.level_n, carry.act_gen,
+                   carry.act_dist, torch.cat([carry.act_gen,
+                                              carry.act_dist]), n_labels)
+            return run
+
+        def ring_setup():
+            return (carry.obs_ring.clone(), carry.obs_head.clone(),
+                    carry.obs_bodies.clone(), carry.obs_expanded.clone())
+
+        slots1, cols = carry.obs_ring.shape
+        record("ring_row" + name, tag, err,
+               cuda_ms(torch, ring_args(counters.ring_row), 10, ring_setup),
+               cuda_ms(torch, ring_args(counters.ring_row_plain), 3,
+                       ring_setup),
+               (slots1 * 4 + 4 * (n_labels + 1) * 8 + cols * 4 + 10 * 8))
+    print(f"phase 2 slice-2 kernels vs plain ({tag}, chunk {ck}, {n} popped, "
+          f"{ncand} candidates, R {R}): all bitwise equal; "
+          + "; ".join(lines) + f"; library sort {lib_ms}", flush=True)
 
 
 if __name__ == "__main__":

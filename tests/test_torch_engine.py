@@ -129,9 +129,8 @@ def test_seeded_assert_gives_same_violation_state_and_action():
 
 
 @pytest.mark.parametrize("mode", [
-    dict(chunk=2048, sort_free=None, deferred=None), dict(sort_free=True), dict(deferred=True),
-    dict(pipeline=True), dict(obs_slots=4), dict(coverage=True),
-], ids=["auto_at_2048", "sort_free", "deferred", "pipeline", "obs", "coverage"])
+    dict(pipeline=True), dict(coverage=True),
+], ids=["pipeline", "coverage"])
 def test_unported_modes_raise(mode):
     kw = {**KW, **MODES, **mode}
     with pytest.raises(NotImplementedError):
@@ -168,6 +167,30 @@ def test_two_tier_stepping_ff_chunk_16384():
     tc = t_run(t_init())
     assert (int(tc.generated), int(tc.distinct), int(tc.depth)) == (
         17020, 8203, 109)
+    _assert_words_equal(carry_to_numpy(tc), _jax_np(jc))
+
+
+@pytest.mark.slow
+def test_model1_default_modes_at_2048_match_the_chip_smoke_pin():
+    """Model_1 at chip_smoke's chunk-2048 geometry with default modes
+    (sort-free slab + deferred invariants): MC.out counts, outdegree and
+    per-action generated counts; the per-action distinct counts and table
+    words equal the reference engine's in the same modes, whose digest
+    chip_smoke.py pins."""
+    kw = chip_smoke.M1_2048_KW
+    t_init, t_run, _ = tb.make_engine(MODEL_1, device="cpu", **kw)
+    tc = t_run(t_init())
+    r = tb.result_from_carry(tc, 0.0, fp_capacity=kw["fp_capacity"])
+    assert (r.generated, r.distinct, r.depth) == MC_OUT_COUNTS
+    assert r.outdegree == (1, 0, 4, 2) and r.violation == 0
+    assert r.action_generated == {a: g for a, (_, g) in MC_OUT_ACTIONS.items()}
+    assert r.action_distinct == chip_smoke.M1_2048_DISTINCT
+    assert t_run.steps_by_width == {2048: t_run.steps}
+    j_init, j_run, _ = jb.make_engine(J_MODEL_1, donate=False, **kw)
+    jc = jax.block_until_ready(j_run(j_init()))
+    assert _sha(np.asarray(jc.fps.table)) == chip_smoke.M1_2048_TABLE_SHA256
+    jr = jb.result_from_carry(jc, 0.0)
+    assert jr.action_distinct == chip_smoke.M1_2048_DISTINCT
     _assert_words_equal(carry_to_numpy(tc), _jax_np(jc))
 
 

@@ -75,7 +75,7 @@ def test_every_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 14  # every module of the slice
+    assert int(out.stdout.strip()) >= 16  # every module of the slices
 
 
 def test_config_copy_equals_reference():
@@ -102,3 +102,36 @@ def test_label_tables_equal_reference():
     for name in ("LABELS", "LABEL_ID", "VERBS", "VERB_ID", "RESPONSES",
                  "RESPONSE_ID", "DEFAULT_INIT", "PROC_API", "PROC_LISTAPI"):
         assert getattr(tl, name) == getattr(jl, name), name
+
+
+def test_ring_layout_copy_equals_reference():
+    """torchtlc.obs.counters keeps its own copy of the reference's ring
+    layout and decoder: every column constant, the row width, and the
+    decoded rows of one random ring."""
+    import numpy as np
+
+    from jaxtlc.obs import counters as jc
+    from torchtlc.obs import counters as tc
+
+    names = [n for n in dir(jc) if n.startswith("COL_")] + [
+        "N_FIXED_COLS", "DEFAULT_OBS_SLOTS"]
+    assert sorted(n for n in dir(tc) if n.startswith("COL_")) == sorted(
+        n for n in dir(jc) if n.startswith("COL_"))
+    for name in names:
+        assert getattr(tc, name) == getattr(jc, name), name
+    for n_labels in (0, 3, 22):
+        assert tc.ring_cols(n_labels) == jc.ring_cols(n_labels)
+    rng = np.random.default_rng(8)
+    labels = tuple(f"a{i}" for i in range(4))
+    ring = rng.integers(0, 2**32, (6, jc.ring_cols(4)),
+                        dtype=np.uint64).astype(np.uint32)
+    ring[:, jc.COL_OVERFLOW] = rng.integers(0, 2, 6)
+    ring[:, jc.COL_CERT] = rng.integers(0, 2, 6)
+    for head, since in ((3, 0), (9, 2), (12, 8)):
+        for lab in (None, labels):
+            want = jc.rows_from_ring(ring, head, labels=lab, since=since,
+                                     fp_capacity=1 << 20)
+            assert tc.rows_from_ring(ring, head, labels=lab, since=since,
+                                     fp_capacity=1 << 20) == want
+            assert tc.rows_from_ring(ring.view(np.int32), head, labels=lab,
+                                     since=since, fp_capacity=1 << 20) == want

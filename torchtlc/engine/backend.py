@@ -1,5 +1,5 @@
-"""KubeAPI backend and the expand stage of a BFS step (port of
-jaxtlc/engine/backend.py:135-322 and :432-477, immediate mode).
+"""KubeAPI backend, the expand stage of a BFS step and the deferred
+invariant checker (port of jaxtlc/engine/backend.py:135-477).
 
 ``expand_block`` is the wrapper of kernel K1 (torchtlc/kernels/csrc/
 expand.cu): one launch replaces the reference's unpack -> next-state
@@ -15,7 +15,11 @@ per candidate lane (``ck * L`` of them, lane-major within a row):
 * ``gen [n_labels]`` int64 - generated successors per action.
 
 ``expand_plain`` is the same function in torch (the CPU path, and the
-yardstick the kernel is held against on the card).
+yardstick the kernel is held against on the card).  ``deferred=True`` (the
+reference's mode at chunk >= 2048) skips the invariants there: the flag
+rows FLAG_BAD_TYPEOK and FLAG_BAD_ONLYONE stay zero, and the commit stage
+runs ``deferred_check`` (kernel K7, torchtlc/kernels/csrc/deferred.cu) on
+the fresh-insert claimants instead.
 """
 
 from __future__ import annotations
@@ -87,7 +91,8 @@ def gen_counts(cfg: ModelConfig, batch: torch.Tensor, valid: torch.Tensor):
     return counts
 
 
-def expand_plain(cfg: ModelConfig, block: torch.Tensor, n: int):
+def expand_plain(cfg: ModelConfig, block: torch.Tensor, n: int,
+                 deferred: bool = False):
     """Torch version of kernel K1: (packed, flags, action, gen)."""
     cdc = get_codec(cfg)
     ck = block.shape[0]
@@ -99,7 +104,10 @@ def expand_plain(cfg: ModelConfig, block: torch.Tensor, n: int):
     ovf = ovf & valid
     flat = succ.reshape(-1, cdc.n_fields)
     fvalid = valid.reshape(-1)
-    bits = make_invariant_kernel(cfg)(flat)
+    if deferred:  # every invariant holds until the deferred check
+        bits = torch.full_like(fvalid, 3, dtype=torch.int32)
+    else:
+        bits = make_invariant_kernel(cfg)(flat)
     flags = torch.stack([
         fvalid, afail.reshape(-1), ovf.reshape(-1),
         fvalid & ((bits & 1) == 0), fvalid & ((bits & 2) == 0),
@@ -108,14 +116,15 @@ def expand_plain(cfg: ModelConfig, block: torch.Tensor, n: int):
             gen_counts(cfg, batch, valid))
 
 
-def expand_block(cfg: ModelConfig, block: torch.Tensor, n: int):
+def expand_block(cfg: ModelConfig, block: torch.Tensor, n: int,
+                 deferred: bool = False):
     """Expand the first n rows of a popped block ([ck, W] int32): kernel
     K1 on a CUDA tensor, the plain version on a CPU tensor."""
     if not block.is_cuda:
-        return expand_plain(cfg, block, n)
+        return expand_plain(cfg, block, n, deferred)
     from ..kernels import ops
 
-    return ops.expand(cfg, block, n)
+    return ops.expand(cfg, block, n, deferred)
 
 
 class ExpandOut(NamedTuple):
@@ -130,12 +139,16 @@ class ExpandOut(NamedTuple):
     viol: torch.Tensor  # 0-dim int64: first-wins expand-stage violation
     viol_words: torch.Tensor  # [W] int32: its state, packed
     viol_action: torch.Tensor  # 0-dim int64
+    block: torch.Tensor  # [chunk, W] int32: the popped rows (deferred check)
 
 
-def make_expand_stage(backend: SpecBackend, chunk: int):
+def make_expand_stage(backend: SpecBackend, chunk: int,
+                      deferred: bool = False):
     """expand(block [chunk, W] int32, n) -> ExpandOut: kernel K1, the
     deadlock mask, fingerprints (kernel K2) and the first-wins violation
-    (TypeOK > OnlyOneVersion > assert > deadlock > slot overflow).
+    (TypeOK > OnlyOneVersion > assert > deadlock > slot overflow; with
+    deferred=True the invariants are not evaluated here, so the reduce
+    covers assert > deadlock > slot overflow).
 
     The violating state is carried packed (viol_words); the engine unpacks
     it on the host once a violation is read back."""
@@ -149,7 +162,7 @@ def make_expand_stage(backend: SpecBackend, chunk: int):
 
     def expand(block: torch.Tensor, n: int) -> ExpandOut:
         dev = block.device
-        packed, flags, action, gen = expand_block(cfg, block, n)
+        packed, flags, action, gen = expand_block(cfg, block, n, deferred)
         valid = flags[FLAG_VALID].bool()
         # deadlock: a popped state with no valid successor (TLC's
         # -deadlock check, always on for KubeAPI)
@@ -163,26 +176,99 @@ def make_expand_stage(backend: SpecBackend, chunk: int):
         d_first = dead.to(torch.uint8).argmax()
         hits = torch.stack([lane_any[0], lane_any[1], lane_any[2],
                             dead.any(), lane_any[3]])
-        words = torch.stack([
-            packed[lane_first[0]], packed[lane_first[1]],
-            block[lane_first[2] // L], block[d_first], block[lane_first[3] // L],
+        # gathers with 1-D device indices: indexing with a 0-dim CUDA
+        # tensor would read it back to the host
+        words = torch.cat([
+            packed.index_select(0, lane_first[:2]),
+            block.index_select(0, torch.stack([
+                lane_first[2] // L, d_first, lane_first[3] // L])),
         ])
-        acts = torch.stack([
-            action[lane_first[0]], action[lane_first[1]], action[lane_first[2]],
-            torch.full((), -1, dtype=torch.int32, device=dev),
-            action[lane_first[3]],
+        acts = torch.cat([
+            action.index_select(0, lane_first[:3]),
+            torch.full((1,), -1, dtype=torch.int32, device=dev),
+            action.index_select(0, lane_first[3:]),
         ]).to(torch.int64)
-        k = hits.to(torch.uint8).argmax()
+        k = hits.to(torch.uint8).argmax().view(1)
         hit = hits.any()
         lo, hi = fp64_words(packed, nbits)
         return ExpandOut(
             packed=packed, lo=lo, hi=hi, valid=valid, action=action, gen=gen,
-            viol=torch.where(hit, k + 1, OK),
-            viol_words=words[k],
-            viol_action=torch.where(hit, acts[k], -1),
+            viol=torch.where(hit, k[0] + 1, OK),
+            viol_words=words.index_select(0, k)[0],
+            viol_action=torch.where(hit, acts.index_select(0, k)[0], -1),
+            block=block,
         )
 
     return expand
+
+
+# ---------------------------------------------------------------------------
+# deferred invariants on the fresh-insert claimants (kernel K7)
+# ---------------------------------------------------------------------------
+
+
+def deferred_check_plain(cfg: ModelConfig, block: torch.Tensor,
+                         fresh: torch.Tensor, c_idx: torch.Tensor,
+                         action: torch.Tensor, rows: int):
+    """Torch version of kernel K7: the invariants of the fresh claimants
+    among the first `rows` rows of an insert's (is_new_c, c_idx), each
+    candidate's raw successor derived again from its popped source row
+    (lane // L) and lane (lane % L).  First wins across TypeOK,
+    OnlyOneVersion; within a code the highest violating lane.  Returns
+    (viol 0-dim int64, state [F] int32 raw successor fields, action 0-dim
+    int64); (OK, zeros, -1) when every fresh claimant passes."""
+    cdc = get_codec(cfg)
+    _, L = lane_layout(cfg)
+    dev = block.device
+    lanes = c_idx[:rows][fresh[:rows].bool()]
+    viol, state, vaction = OK, torch.zeros(cdc.n_fields, dtype=torch.int32,
+                                            device=dev), -1
+    if lanes.numel():
+        succ = make_kernel(cfg)(cdc.unpack(block[lanes // L]))[0]
+        flat = succ[torch.arange(lanes.numel(), device=dev), lanes % L]
+        bits = make_invariant_kernel(cfg)(flat)
+        for k, code in enumerate((VIOL_TYPEOK, VIOL_ONLYONEVERSION)):
+            bad = (bits & (1 << k)) == 0
+            if bad.any():
+                j = int(torch.argmax(torch.where(bad, lanes, -1)))
+                viol, state = code, flat[j].to(torch.int32)
+                vaction = int(action[lanes[j]])
+                break
+
+    def i64(v):
+        return torch.tensor(v, dtype=torch.int64, device=dev)
+
+    return i64(viol), state, i64(vaction)
+
+
+def deferred_check(cfg: ModelConfig, block, fresh, c_idx, action,
+                   rows: int):
+    """Kernel K7 on CUDA tensors, the plain version on CPU tensors."""
+    if not block.is_cuda:
+        return deferred_check_plain(cfg, block, fresh, c_idx, action, rows)
+    from ..kernels import ops
+
+    return ops.deferred_check(cfg, block, fresh, c_idx, action, rows)
+
+
+def make_deferred_checker(backend: SpecBackend):
+    """The commit-stage invariant check over the fresh-insert claimants
+    (jaxtlc/engine/backend.py:325).  TLC checks a state when it is first
+    generated, and first generation is the fresh insert, so the verdict is
+    the immediate mode's; the reported state is the violating fresh
+    claimant with the HIGHEST candidate lane (the reference's pinned
+    attribution rule).  KubeAPI has no certificate check.
+
+    Returns check(block [ck, W], action [ck*L], is_new_c, c_idx, rows) ->
+    (viol, viol_state [F], viol_action); `rows` bounds the rows that can
+    be fresh (R on the slab path, the whole batch on the sorted one)."""
+    cfg = backend.cfg
+    assert backend.inv_codes == (VIOL_TYPEOK, VIOL_ONLYONEVERSION)
+
+    def check(block, action, is_new_c, c_idx, rows: int):
+        return deferred_check(cfg, block, is_new_c, c_idx, action, rows)
+
+    return check
 
 
 def kernel_layout(cfg: ModelConfig) -> np.ndarray:

@@ -1,5 +1,5 @@
-"""Exhaustive single-device BFS engine (port of jaxtlc/engine/bfs.py:298-1090
-and :1287-1380; immediate, sorted, unpipelined mode).
+"""Exhaustive single-device BFS engine (port of jaxtlc/engine/bfs.py:241-1105;
+unpipelined).
 
 The frontier is a ping-pong pair of level buffers of packed states
 (``[2, qcap + 2*chunk, W]`` int32).  One chunk step:
@@ -8,19 +8,34 @@ The frontier is a ping-pong pair of level buffers of packed states
 2. expands them (kernel K1), fingerprints the candidates (kernel K2) and
    reduces the expand-stage violation (backend.make_expand_stage);
 3. dedups and inserts the valid candidates into the fingerprint table
-   (fpset.fpset_insert_sorted: kernel K3 around a library sort);
+   (fpset.fpset_insert_dedup): the sorted path (kernel K3 around a
+   library sort) or, in the sort-free mode, the slab path (kernels K5, K6
+   and K3 around an R-wide library sort);
 4. appends the new states, in candidate-lane order, to the next level and
    adds the per-action distinct counts and the outdegree histogram
    (``commit_block``: kernel K4);
-5. merges violations first-wins (carried > expand stage > fp-full >
-   queue-full) and flips the level when the current one is exhausted.
+5. in the deferred mode, checks the invariants of the fresh-insert
+   claimants (backend.make_deferred_checker: kernel K7);
+6. merges violations first-wins (carried > deferred invariant > expand
+   stage > fp-full > queue-full) and flips the level when the current one
+   is exhausted;
+7. with ``obs_slots > 0``, writes the body's row of the counter ring
+   (obs.counters.ring_row: kernel K8).
+
+Modes resolve as the reference's do (``resolve_sort_free``,
+``resolve_deferred``): at chunk >= 2048 both the sort-free slab dedup and
+the deferred invariants are on.  ``pipeline=True`` and ``coverage=True``
+are not ported and raise.
 
 The reference runs the step inside one ``lax.while_loop``; here a host
 loop drives it, and reads one small bundle of scalars per step (the pop
 cursor, level sizes, distinct count and verdict) for the two-tier choice
-and the termination test.  Every result - counts, depth, per-action
-statistics, outdegree, fingerprint-table words, queue words - equals the
-reference engine's at the same geometry.
+and the termination test.  The sort-free mode reads one more scalar per
+step, the claimant count, for the fallback to the sorted path (the
+reference decides it in a ``lax.cond`` on the device).  Every result -
+counts, depth, per-action statistics, outdegree, fingerprint-table words,
+queue words, ring words - equals the reference engine's at the same
+geometry and modes.
 
 A step updates the carry's table, queue and counter tensors IN PLACE (the
 reference donates its carry the same way); keep a copy
@@ -36,6 +51,7 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig
+from ..obs.counters import ring_new, ring_row, rows_from_ring
 from ..spec.invariants import make_invariant_kernel
 from ..spec.labels import LABELS
 from .backend import (
@@ -48,10 +64,17 @@ from .backend import (
     VIOL_SLOT_OVERFLOW,
     VIOL_TYPEOK,
     kubeapi_backend,
+    make_deferred_checker,
     make_expand_stage,
 )
 from .fingerprint import fp64_words
-from .fpset import FPSet, fpset_actual_collision, fpset_insert_sorted, fpset_new
+from .fpset import (
+    FPSet,
+    fpset_actual_collision,
+    fpset_insert_dedup,
+    fpset_insert_sorted,
+    fpset_new,
+)
 
 __all__ = [
     "OK", "VIOL_TYPEOK", "VIOL_ONLYONEVERSION", "VIOL_ASSERT", "VIOL_DEADLOCK",
@@ -59,7 +82,8 @@ __all__ = [
     "VIOLATION_NAMES", "EngineCarry", "CheckResult", "make_engine",
     "make_backend_engine", "make_stage_pair", "check", "result_from_carry",
     "outdegree_from_hist", "commit_block", "commit_block_plain",
-    "enqueue_order", "resolve_device",
+    "enqueue_order", "resolve_device", "resolve_sort_free",
+    "resolve_deferred", "obs_rows",
 ]
 
 VIOLATION_NAMES = {
@@ -111,6 +135,12 @@ class EngineCarry(NamedTuple):
     viol_action: torch.Tensor
     # scalars above as of the step that made this carry (None: read them)
     bundle: Bundle = None
+    # observability counter ring (None when obs is off): one row per
+    # completed level, non-flip bodies write the dump row (obs.counters)
+    obs_ring: torch.Tensor = None  # [obs_slots + 1, cols] int32 words
+    obs_head: torch.Tensor = None  # rows ever written
+    obs_bodies: torch.Tensor = None  # engine bodies executed
+    obs_expanded: torch.Tensor = None  # states popped so far
 
 
 class CheckResult(NamedTuple):
@@ -150,6 +180,21 @@ def read_bundle(c: EngineCarry) -> Bundle:
     return Bundle(*vals)
 
 
+def resolve_sort_free(sort_free, chunk: int) -> bool:
+    """The tri-state sort-free flag (None = auto: on at chunk >= 2048)."""
+    if sort_free is not None:
+        return bool(sort_free)
+    return chunk >= SORT_FREE_AUTO_CHUNK
+
+
+def resolve_deferred(deferred, chunk: int) -> bool:
+    """The tri-state deferred-invariant flag (None = auto: on at chunk >=
+    2048)."""
+    if deferred is not None:
+        return bool(deferred)
+    return chunk >= DEFERRED_AUTO_CHUNK
+
+
 def _running(h: Bundle) -> bool:
     return (h.qhead < h.level_n or h.next_n > 0) and h.viol == OK
 
@@ -160,34 +205,49 @@ def _running(h: Bundle) -> bool:
 
 
 def enqueue_order(is_new_c: torch.Tensor, c_idx: torch.Tensor, nreps,
-                  R: int):
+                  R: int, slab: bool = False):
     """The reference's enqueue order e_idx [ncand] (int64) and n_new.
 
-    e_idx lists the new entries by candidate lane, then the other entries
-    of the first R compacted positions (all positions when nreps > R) by
-    lane, then zeros - the reference's stable (new-first, lane) sort, done
-    here as a stable partition by prefix sums.  The tail rows matter: the
-    enqueue copies whole A-wide segments, so they land past the level's
-    end in the queue buffer, exactly as in the reference."""
+    The reference sorts (not new, c_idx) stably over the first R rows of
+    the insert's layout (all rows when R >= ncand or nreps > R) and pads
+    with zeros: e_idx lists the new entries by candidate lane, then the
+    other lanes of that window by lane, then - in the slab layout
+    (`slab`) - one entry per padding row of the window, whose sentinel
+    lane ncand the reference's gather clamps to ncand - 1, then zeros.
+    Here that is a stable partition by prefix sums.  The tail rows matter:
+    the enqueue copies whole A-wide segments, so they land past the
+    level's end in the queue buffer, exactly as in the reference."""
     ncand = is_new_c.shape[0]
     dev = is_new_c.device
-    lane_new = torch.zeros(ncand, dtype=torch.bool, device=dev)
-    lane_new[c_idx] = is_new_c
-    if R >= ncand:
+    lane_new = torch.zeros(ncand + 1, dtype=torch.bool, device=dev)
+    lane_new[c_idx] = is_new_c  # the sentinel row's writes are all False
+    lane_new = lane_new[:ncand]
+    win = c_idx[:min(R, ncand)]
+    if R >= ncand and not slab:
         tail = ~lane_new
     else:
-        in_r = torch.zeros(ncand, dtype=torch.bool, device=dev)
-        in_r[c_idx[:R]] = True
-        tail = ~lane_new & ((nreps > R) | in_r)
+        in_w = torch.zeros(ncand + 1, dtype=torch.bool, device=dev)
+        in_w[win] = True
+        tail = ~lane_new & in_w[:ncand]
+        if R < ncand:  # nreps > R: the sorted layout, every lane present
+            tail = tail | (~lane_new & (nreps > R))
     ni = lane_new.to(torch.int64)
     cn = torch.cumsum(ni, 0)
     n_new = cn[-1]
     ti = tail.to(torch.int64)
+    ct = torch.cumsum(ti, 0)
     pos = torch.where(lane_new, cn - 1,
-                      torch.where(tail, n_new + torch.cumsum(ti, 0) - 1, ncand))
+                      torch.where(tail, n_new + ct - 1, ncand))
     e_idx = torch.zeros(ncand + 1, dtype=torch.int64, device=dev)
     e_idx[pos] = torch.arange(ncand, device=dev)  # only position ncand repeats
-    return e_idx[:ncand], n_new
+    e_idx = e_idx[:ncand]
+    if slab:
+        first = n_new + ct[-1]
+        n_sent = (win == ncand).sum()
+        ar = torch.arange(ncand, device=dev)
+        e_idx = torch.where((ar >= first) & (ar < first + n_sent), ncand - 1,
+                            e_idx)
+    return e_idx, n_new
 
 
 def commit_block_plain(queue, dst: int, next_n: int, qcap: int, e_idx,
@@ -248,8 +308,13 @@ def commit_block(queue, dst: int, next_n: int, qcap: int, e_idx, n_new,
 
 
 def make_stage_pair(backend, ck: int, *, queue_capacity: int,
-                    fp_capacity: int):
-    """(pop_expand, commit) at pop width ck."""
+                    fp_capacity: int, sort_free: bool = False,
+                    deferred: bool = False, obs_slots: int = 0):
+    """(pop_expand, commit) at pop width ck, in the RESOLVED modes:
+    sort_free commits through the hash-slab dedup, deferred checks the
+    invariants on the fresh-insert claimants, obs_slots > 0 writes the
+    counter ring.  commit.slab_fallbacks counts the commits whose slab
+    claimants exceeded R (the sorted fallback)."""
     cdc = backend.cdc
     L = backend.n_lanes
     n_labels = len(backend.labels)
@@ -259,7 +324,8 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
     CW = min(2 * ck, R)  # fpset round-0 claim width
     A = min(2 * ck, ncand)  # enqueue segment width
     fp_limit = int(fp_capacity * FP_HIGHWATER)
-    expand = make_expand_stage(backend, ck)
+    expand = make_expand_stage(backend, ck, deferred=deferred)
+    checker = make_deferred_checker(backend) if deferred else None
 
     def pop_expand(c: EngineCarry, h: Bundle):
         n = min(max(h.level_n - h.qhead, 0), ck)
@@ -271,9 +337,16 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
         # the body's own candidate width against the high-water mark
         fp_full = h.distinct + ncand > fp_limit
         insert_mask = torch.zeros_like(ex.valid) if fp_full else ex.valid
-        fps, is_new_c, c_idx, nreps = fpset_insert_sorted(
-            c.fps, ex.lo, ex.hi, insert_mask, probe_width=R, claim_width=CW)
-        e_idx, n_new = enqueue_order(is_new_c, c_idx, nreps, R)
+        fps, is_new_c, c_idx, nreps, fell_back = fpset_insert_dedup(
+            c.fps, ex.lo, ex.hi, insert_mask, probe_width=R, claim_width=CW,
+            sort_free=sort_free)
+        commit.slab_fallbacks += fell_back
+        # the slab layout's claimants sit in the first R rows
+        fresh_rows = R if sort_free and not fell_back else ncand
+        e_idx, n_new = enqueue_order(is_new_c, c_idx, nreps, R,
+                                     slab=sort_free)
+        acts_old = (torch.cat([c.act_gen, c.act_dist]) if obs_slots
+                    else None)
         commit_block(c.queue, 1 - h.parity, h.next_n, qcap, e_idx, n_new,
                      ex.packed, ex.action, n, c.act_dist, c.outdeg_hist, A, L,
                      n_labels)
@@ -281,10 +354,20 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
         generated = c.generated + ex.valid.sum()
         distinct = c.distinct + n_new
 
-        # violations, first wins: carried > expand stage > capacity
-        hit_ex = (ex.viol != OK) & (c.viol == OK)
-        viol = torch.where(hit_ex, ex.viol, c.viol)
-        viol_action = torch.where(hit_ex, ex.viol_action, c.viol_action)
+        # violations, first wins: carried > deferred invariant > expand
+        # stage > capacity
+        viol, viol_state = c.viol, c.viol_state
+        viol_action = c.viol_action
+        if checker is not None:
+            d_viol, d_state, d_action = checker(ex.block, ex.action, is_new_c,
+                                                c_idx, fresh_rows)
+            hit_d = (d_viol != OK) & (viol == OK)
+            viol = torch.where(hit_d, d_viol, viol)
+            viol_state = torch.where(hit_d, d_state, viol_state)
+            viol_action = torch.where(hit_d, d_action, viol_action)
+        hit_ex = (ex.viol != OK) & (viol == OK)
+        viol = torch.where(hit_ex, ex.viol, viol)
+        viol_action = torch.where(hit_ex, ex.viol_action, viol_action)
         if fp_full:
             viol = torch.where(ex.valid.any() & (viol == OK), VIOL_FPSET_FULL,
                                viol)
@@ -293,7 +376,8 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
 
         # level bookkeeping: ping-pong at the level boundary
         next_n = torch.clamp(c.next_n + n_new, max=qcap)
-        if qhead_pop >= h.level_n:
+        level_done = qhead_pop >= h.level_n
+        if level_done:
             parity, level_n, qhead = 1 - c.parity, next_n, c.qhead * 0
             level = torch.where(next_n > 0, c.level + 1, c.level)
             next_n = next_n * 0
@@ -301,10 +385,16 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
             parity, level_n, level = c.parity, c.level_n, c.level
             qhead = c.qhead + (qhead_out - h.qhead)
         depth = torch.maximum(c.depth, level)
+        if obs_slots:
+            # one telemetry row per body (post-commit cumulative counters;
+            # non-flip bodies write the dump row)
+            ring_row(c.obs_ring, c.obs_head, c.obs_bodies, c.obs_expanded, n,
+                     level_done, c.level, generated, c.generated, distinct,
+                     c.distinct, level_n, c.act_gen, c.act_dist, acts_old,
+                     n_labels)
 
         vals = torch.stack([parity, qhead, level_n, next_n, distinct, viol,
                             hit_ex.to(torch.int64)]).tolist()
-        viol_state = c.viol_state
         if vals[6]:
             # the expand stage's violating state, unpacked on the host
             row = ex.viol_words.cpu()[None]
@@ -316,6 +406,7 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
             viol_action=viol_action, bundle=Bundle(*vals[:6]),
         )
 
+    commit.slab_fallbacks = 0
     return pop_expand, commit
 
 
@@ -324,20 +415,16 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
 # ---------------------------------------------------------------------------
 
 
-def _resolve_modes(chunk, sort_free, deferred, pipeline, obs_slots, coverage):
-    """The reference's mode resolution; every mode but the immediate,
-    sorted, unpipelined one raises (nothing runs another mode quietly)."""
-    if sort_free is None:
-        sort_free = chunk >= SORT_FREE_AUTO_CHUNK
-    if deferred is None:
-        deferred = chunk >= DEFERRED_AUTO_CHUNK
-    for name, on in (("sort_free", sort_free), ("deferred", deferred),
-                     ("pipeline", pipeline), ("obs_slots", obs_slots),
-                     ("coverage", coverage)):
+def _resolve_modes(chunk, sort_free, deferred, pipeline, coverage):
+    """The reference's mode resolution: (sort_free, deferred) as resolved
+    bools; the pipelined and coverage modes are not ported and raise
+    (nothing runs another mode quietly)."""
+    for name, on in (("pipeline", pipeline), ("coverage", coverage)):
         if on:
             raise NotImplementedError(
-                f"{name}={on!r} (resolved) is not ported yet; pass "
-                f"{name}={0 if name == 'obs_slots' else False} explicitly")
+                f"{name}={on!r} is not ported yet; pass {name}=False")
+    return resolve_sort_free(sort_free, chunk), resolve_deferred(deferred,
+                                                                 chunk)
 
 
 def make_backend_engine(
@@ -360,8 +447,16 @@ def make_backend_engine(
     run is over).
 
     Two-tier stepping as in the reference: at chunk >= 2^14, a level
-    remainder below chunk // 2 is popped by a small body of chunk // 16."""
-    _resolve_modes(chunk, sort_free, deferred, pipeline, obs_slots, coverage)
+    remainder below chunk // 2 is popped by a small body of chunk // 16.
+
+    sort_free and deferred are tri-state (None = auto, on at chunk >=
+    2048, as the reference resolves them) and apply to both body widths;
+    obs_slots > 0 carries the counter ring (obs.counters).  After a run,
+    run_fn.steps counts its bodies, run_fn.steps_by_width maps each body
+    width to its bodies and run_fn.slab_fallbacks each width to its
+    sorted fallbacks (cumulative over the engine's life)."""
+    sort_free, deferred = _resolve_modes(chunk, sort_free, deferred, pipeline,
+                                         coverage)
     dev = resolve_device(device)
     cdc = backend.cdc
     F = cdc.n_fields
@@ -370,9 +465,11 @@ def make_backend_engine(
     n_labels = len(backend.labels)
     qcap = queue_capacity
     small = chunk // 16 if chunk >= 1 << 14 else 0
-    kw = dict(queue_capacity=qcap, fp_capacity=fp_capacity)
+    kw = dict(queue_capacity=qcap, fp_capacity=fp_capacity,
+              sort_free=sort_free, deferred=deferred, obs_slots=obs_slots)
     big_stages = make_stage_pair(backend, chunk, **kw)
     small_stages = make_stage_pair(backend, small, **kw) if small else None
+    widths = {chunk: big_stages} | ({small: small_stages} if small else {})
 
     def i64(v):
         return torch.full((), v, dtype=torch.int64, device=dev)
@@ -399,6 +496,11 @@ def make_backend_engine(
             if viol == OK and bool(bad.any()):
                 viol = code
                 viol_state = inits[int(torch.argmax(bad.to(torch.uint8)))]
+        obs = {}
+        if obs_slots:
+            ring, head = ring_new(obs_slots, n_labels, dev)
+            obs = dict(obs_ring=ring, obs_head=head, obs_bodies=i64(0),
+                       obs_expanded=i64(0))
         return EngineCarry(
             fps=fps, queue=queue, parity=i64(0), qhead=i64(0),
             level_n=i64(n0), next_n=i64(0), level=i64(1), depth=i64(1),
@@ -407,15 +509,17 @@ def make_backend_engine(
             act_dist=torch.zeros(n_labels + 1, dtype=torch.int64, device=dev),
             outdeg_hist=torch.zeros(L + 2, dtype=torch.int64, device=dev),
             viol=i64(viol), viol_state=viol_state.to(dev), viol_action=i64(-1),
+            **obs,
         )
 
     def body(c: EngineCarry, h: Bundle) -> EngineCarry:
         # break-even: the big body only when the level remainder mostly
         # fills it
-        stages = big_stages
+        width = chunk
         if small and h.level_n - h.qhead < chunk // 2:
-            stages = small_stages
-        pop_expand, commit = stages
+            width = small
+        pop_expand, commit = widths[width]
+        run_fn.steps_by_width[width] += 1
         ex, n = pop_expand(c, h)
         return commit(c, ex, n, h.qhead + n, h.qhead + n, h)
 
@@ -431,9 +535,13 @@ def make_backend_engine(
             h = c.bundle
             steps += 1
         run_fn.steps = steps
+        run_fn.slab_fallbacks = {w: st[1].slab_fallbacks
+                                 for w, st in widths.items()}
         return c
 
     run_fn.steps = 0
+    run_fn.steps_by_width = {w: 0 for w in widths}
+    run_fn.slab_fallbacks = {w: 0 for w in widths}
     return init_fn, run_fn, step_fn
 
 
@@ -451,7 +559,8 @@ def make_engine(cfg: ModelConfig, chunk: int = 1024,
 
 
 def check(cfg: ModelConfig, chunk: int = 1024, queue_capacity: int = 1 << 15,
-          fp_capacity: int = 1 << 20, pipeline: bool = False, obs_slots: int = 0, coverage: bool = False,
+          fp_capacity: int = 1 << 20, pipeline: bool = False,
+          obs_slots: int = 0, coverage: bool = False,
           sort_free: bool = None, deferred: bool = None,
           device=None) -> CheckResult:
     """Run an exhaustive check on `device` (None = the card).  wall_s
@@ -472,6 +581,18 @@ def check(cfg: ModelConfig, chunk: int = 1024, queue_capacity: int = 1 << 15,
     return result_from_carry(
         carry, wall, iterations=run_fn.steps, fp_capacity=fp_capacity,
     )._replace(actual_fp_collision=fpset_actual_collision(carry.fps))
+
+
+def obs_rows(carry, labels: tuple = None, since: int = 0,
+             fp_capacity: int = 0):
+    """Decode the carry's counter ring into journal-`level`-event dicts
+    (oldest first) plus the new head cursor; ([], since) when obs is
+    off (the reference's obs_rows, jaxtlc/engine/bfs.py:1089)."""
+    if getattr(carry, "obs_ring", None) is None:
+        return [], int(since)
+    head = int(carry.obs_head)
+    return (rows_from_ring(carry.obs_ring.cpu().numpy(), head, labels=labels,
+                           since=since, fp_capacity=fp_capacity), head)
 
 
 def outdegree_from_hist(hist: np.ndarray):

@@ -1,5 +1,5 @@
-"""Device-resident fingerprint set, sorted path (port of
-jaxtlc/engine/fpset.py:87-655).
+"""Device-resident fingerprint set, sorted and sort-free paths (port of
+jaxtlc/engine/fpset.py:87-870).
 
 The table is ``[cap/8, 16]`` int32 (32-bit words as bit patterns): one
 64-byte row per 8-slot bucket, slots interleaved ``lo0,hi0,...,lo7,hi7``,
@@ -25,11 +25,27 @@ An insert (``fpset_insert_sorted``):
    taken in position order, each walk round ranking same-bucket wanters
    by ascending (lo, hi).  Every write targets a distinct slot.
 
+The sort-free insert (``fpset_insert_slab``, the reference's mode at
+chunk >= 2048) replaces the two full-width sorts with a hash slab:
+
+1. ``_slab_dedup_core``: a scatter-max of lane + 1 into a slab of
+   ``slab_factor * N`` cells (power of two) keeps each fingerprint class's
+   highest lane; a class whose cell another fingerprint won stays
+   unresolved, and every lane of it rides along.  The claimants (winners
+   and unresolved lanes) are compacted in lane order to R rows;
+2. ``_order_and_dedup``: one stable R-wide sort of the claimant keys;
+   the last row of each fingerprint group is the representative, the
+   stable sort's own rule;
+3. one probe segment over the ordered keys with that (non-prefix) active
+   mask.  When the claimants exceed R the batch takes the sorted path
+   wholesale, as the reference does.
+
 On a CUDA tensor the key step and each probe segment run kernel K3
 (torchtlc/kernels/csrc/fpset.cu: fpset_key, fpset_probe, fpset_claim,
-fpset_walk); on a CPU tensor, the plain versions below.  The sort and the
-partition are library calls (``torch.sort``, ``torch.cumsum``) in both.
-The table is updated IN PLACE.
+fpset_walk), the slab steps K5 and K6 (slab.cu); on a CPU tensor, the
+plain versions below.  The sorts and the prefix sums are library calls
+(``torch.sort``, ``torch.cumsum``) in both.  The table is updated IN
+PLACE.
 """
 
 from __future__ import annotations
@@ -233,20 +249,23 @@ def probe_segment_plain(table: torch.Tensor, keys: torch.Tensor,
 
 
 def probe_segment(table, keys, nreps, off: int, C: int, is_new_out,
-                  npend=None):
-    """Probe one R-wide segment of the compacted keys, whose entries at
-    global positions ``off + i < nreps`` are active; writes is_new_out
-    [R] (uint8) and updates the table in place.  CUDA: kernel K3, reading
-    nreps on the device (an inactive segment is a no-op); CPU: the plain
-    version."""
+                  npend=None, active=None):
+    """Probe one R-wide segment of ascending keys; writes is_new_out [R]
+    (uint8) and updates the table in place.  The active entries are
+    `active` ([R] uint8, the slab layout: duplicate rows interspersed)
+    when given, else the prefix ``off + i < nreps`` of the compacted keys.
+    CUDA: kernel K3, reading nreps on the device (an inactive segment is a
+    no-op); CPU: the plain version."""
     if not keys.is_cuda:
         R = keys.shape[0]
-        active = torch.arange(R) + off < int(nreps)
-        is_new_out.copy_(probe_segment_plain(table, keys, active, C))
+        act = (active.bool() if active is not None
+               else torch.arange(R) + off < int(nreps))
+        is_new_out.copy_(probe_segment_plain(table, keys, act, C))
         return
     from ..kernels import ops
 
-    ops.fpset_probe_segment(table, keys, nreps, off, C, is_new_out, npend)
+    ops.fpset_probe_segment(table, keys, nreps, off, C, is_new_out, npend,
+                            active)
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +293,32 @@ def dedup_compact(key: torch.Tensor):
     return c_key, c_idx, nreps
 
 
+def _sorted_dedup_probe(table: torch.Tensor, key: torch.Tensor, R: int,
+                        C: int):
+    """The sorted dedup + probe over fpset_key's keys (the reference's
+    _sorted_dedup_probe, jaxtlc/engine/fpset.py:546, below its mixing
+    prologue, so the slab path falls back to the same computation):
+    (is_new_c [n] bool, c_idx [n] int64, nreps 0-dim int64)."""
+    n = key.shape[0]
+    dev = key.device
+    c_key, c_idx, nreps = dedup_compact(key)
+    nseg = (n + R - 1) // R
+    pad = nseg * R - n
+    if pad:
+        c_key = torch.cat([c_key, torch.full((pad,), KEY00, dtype=torch.int64,
+                                             device=dev)])
+    is_new = torch.zeros(nseg * R, dtype=torch.uint8, device=dev)
+    npend = (torch.zeros(nseg, dtype=torch.int32, device=dev)
+             if key.is_cuda else None)
+    for seg in range(nseg):
+        if not key.is_cuda and seg * R >= int(nreps):
+            break
+        probe_segment(table, c_key[seg * R:(seg + 1) * R], nreps, seg * R,
+                      C, is_new[seg * R:(seg + 1) * R],
+                      None if npend is None else npend[seg:seg + 1])
+    return is_new[:n].bool(), c_idx, nreps
+
+
 def fpset_insert_sorted(
     s: FPSet, lo, hi, mask, probe_width: int = 0, claim_width: int = 0
 ) -> Tuple[FPSet, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -288,23 +333,229 @@ def fpset_insert_sorted(
     n = lo.shape[0]
     R = min(probe_width or n, n)
     C = min(claim_width or R, R)
+    is_new_c, c_idx, nreps = _sorted_dedup_probe(
+        s.table, fpset_key(lo, hi, mask), R, C)
+    return s, is_new_c, c_idx, nreps
+
+
+# ---------------------------------------------------------------------------
+# sort-free path: hash-slab dedup (K5) + ordering (K6) + masked probe (K3)
+# ---------------------------------------------------------------------------
+
+# per-pass slab hash constants (the reference's _SLAB_CONSTS)
+_SLAB_CONSTS = (0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F)
+SLAB_KEY_PAD = (1 << 63) - 1  # ordering key of padding rows: sorts last
+
+
+def slab_log2_cells(n: int, slab_factor: int = 4, bits: int = 0) -> int:
+    """log2 of the slab's cell count: `bits` when given, else the
+    power of two at or above slab_factor * n (at least 8 cells)."""
+    return bits or max((slab_factor * n - 1).bit_length(), 3)
+
+
+def _slab_cell(keys, p: int, mmask: int):
+    lo, hi = key_words(keys)
+    c = _SLAB_CONSTS[p % len(_SLAB_CONSTS)]
+    return (_fmix32((lo + c) & MASK32) ^ hi) & mmask
+
+
+def slab_scatter_plain(keys, p: int, mmask: int, unres, slab) -> None:
+    """Pass p's scatter-max of lane + 1 into the slab cells of the
+    unresolved lanes (pass 0 first marks every valid lane unresolved).
+    unres [N] uint8 and slab [m] int32 in place."""
+    if p == 0:
+        unres.copy_((keys != KEY00).to(torch.uint8))
+    u = unres.bool()
+    lane1 = torch.arange(1, keys.shape[0] + 1, device=keys.device)
+    slab.scatter_reduce_(0, _slab_cell(keys, p, mmask)[u],
+                         lane1[u].to(torch.int32), reduce="amax")
+
+
+def slab_resolve_plain(keys, p: int, mmask: int, slab, unres, rep,
+                       cand=None) -> None:
+    """Pass p's resolve: an unresolved lane whose cell winner holds its
+    fingerprint is resolved, and the winner is its class's representative.
+    unres, rep (and, on the last pass, cand = rep | unres) [N] uint8 in
+    place."""
+    n = keys.shape[0]
+    lane = torch.arange(n, device=keys.device)
+    r = (torch.zeros(n, dtype=torch.bool, device=keys.device) if p == 0
+         else rep.bool())
+    u = unres.bool()
+    wl = torch.clamp(slab[_slab_cell(keys, p, mmask)].to(torch.int64) - 1,
+                     0, n - 1)
+    same = u & (keys[wl] == keys)
+    r = r | (same & (wl == lane))
+    u = u & ~same
+    unres.copy_(u.to(torch.uint8))
+    rep.copy_(r.to(torch.uint8))
+    if cand is not None:
+        cand.copy_((r | u).to(torch.uint8))
+
+
+def slab_compact_plain(cand, pos, R: int, c_lane) -> None:
+    """Claimant lanes into their prefix positions below R (pos: the
+    inclusive prefix sum of cand).  c_lane [R] int32 in place; rows at or
+    past n_cand are left as they were."""
+    sel = cand.bool() & (pos - 1 < R)
+    lane = torch.arange(cand.shape[0], device=cand.device)
+    c_lane[(pos - 1)[sel]] = lane[sel].to(torch.int32)
+
+
+def slab_order_plain(keys, c_lane, R: int, n_cand) -> torch.Tensor:
+    """The R-wide ordering keys: claimant row -> its key, padding rows
+    (at or past n_cand) -> SLAB_KEY_PAD."""
+    i = torch.arange(R, device=keys.device)
+    filled = i < n_cand
+    lane = torch.where(filled, c_lane.to(torch.int64), 0)
+    return torch.where(filled, keys[lane], SLAB_KEY_PAD)
+
+
+def slab_mark_plain(s_key, perm, c_lane, n_cand, n: int):
+    """The ordered claimant slice's lanes (c_idx [R] int64, sentinel n on
+    padding) and its last-of-group rows (active [R] uint8): the class
+    representatives, since unresolved duplicates sort adjacent and
+    lane-ascending."""
+    R = s_key.shape[0]
+    i = torch.arange(R, device=s_key.device)
+    filled = perm < n_cand
+    lane = c_lane.to(torch.int64)[torch.where(filled, perm, 0)]
+    c_idx = torch.where(filled, lane, n)
+    nxt = torch.cat([s_key[1:] != s_key[:-1],
+                     torch.ones(1, dtype=torch.bool, device=s_key.device)])
+    active = (i < n_cand) & ((i + 1 == n_cand) | nxt)
+    return c_idx, active.to(torch.uint8)
+
+
+def _slab_dedup_core(key: torch.Tensor, R: int, slab_factor: int,
+                     slab_passes: int, bits: int):
+    """The slab passes + claimant compaction (jaxtlc/engine/fpset.py:659)
+    over fpset_key's keys: (c_lane [R] int32, n_cand 0-dim int64).  The
+    claimants (every class winner, and every lane of a class whose cell a
+    different fingerprint won) sit in lane order in the first
+    min(n_cand, R) rows.  CUDA: K5 (slab_scatter, slab_resolve,
+    slab_compact) around a torch.cumsum; CPU: the plain versions."""
+    n = key.shape[0]
+    dev = key.device
+    m = 1 << slab_log2_cells(n, slab_factor, bits)
+    unres = torch.empty(n, dtype=torch.uint8, device=dev)
+    rep = torch.empty(n, dtype=torch.uint8, device=dev)
+    cand = torch.empty(n, dtype=torch.uint8, device=dev)
+    passes = max(slab_passes, 1)
+    if key.is_cuda:
+        from ..kernels import ops
+    for p in range(passes):
+        slab = torch.zeros(m, dtype=torch.int32, device=dev)
+        last = cand if p == passes - 1 else None
+        if key.is_cuda:
+            ops.slab_scatter(key, p, m - 1, unres, slab)
+            ops.slab_resolve(key, p, m - 1, slab, unres, rep, last)
+        else:
+            slab_scatter_plain(key, p, m - 1, unres, slab)
+            slab_resolve_plain(key, p, m - 1, slab, unres, rep, last)
+    pos = torch.cumsum(cand, 0)
+    c_lane = torch.empty(R, dtype=torch.int32, device=dev)
+    if key.is_cuda:
+        ops.slab_compact(cand, pos, R, c_lane)
+    else:
+        slab_compact_plain(cand, pos, R, c_lane)
+    return c_lane, pos[-1]
+
+
+def _order_and_dedup(key: torch.Tensor, c_lane, n_cand, R: int):
+    """Order the claimant slice ascending by fingerprint and finish the
+    dedup (jaxtlc/engine/fpset.py:726): (s_key [R] int64 ordered keys,
+    c_idx [R] int64 lanes with sentinel N on padding, active [R] uint8
+    marking the representatives - not a prefix: duplicate rows of
+    slab-collision classes sit interspersed).  CUDA: K6 (slab_order,
+    slab_mark) around a stable torch.sort; CPU: the plain versions."""
+    n = key.shape[0]
+    if key.is_cuda:
+        from ..kernels import ops
+
+        s_key, perm = torch.sort(ops.slab_order(key, c_lane, n_cand),
+                                 stable=True)
+        c_idx, active = ops.slab_mark(s_key, perm, c_lane, n_cand, n)
+    else:
+        s_key, perm = torch.sort(slab_order_plain(key, c_lane, R, n_cand),
+                                 stable=True)
+        c_idx, active = slab_mark_plain(s_key, perm, c_lane, n_cand, n)
+    return s_key, c_idx, active
+
+
+def slab_dedup(lo, hi, mask, probe_width: int = 0, slab_factor: int = 4,
+               slab_passes: int = 1, slab_bits: int = 0):
+    """In-batch hash-slab dedup (jaxtlc/engine/fpset.py:757): (c_key [R]
+    ordered claimant keys - fpset_key's keys, the reference's mixed
+    (lo, hi) words as one int64 -, c_idx [R] int64 lanes (sentinel N on
+    padding), active [R] bool representative rows, fallback: whether the
+    claimants exceeded R, read on the host)."""
+    n = lo.shape[0]
+    R = min(probe_width or n, n)
     key = fpset_key(lo, hi, mask)
-    c_key, c_idx, nreps = dedup_compact(key)
-    nseg = (n + R - 1) // R
-    pad = nseg * R - n
-    if pad:
-        c_key = torch.cat([c_key, torch.full((pad,), KEY00, dtype=torch.int64,
-                                             device=c_key.device)])
-    is_new = torch.zeros(nseg * R, dtype=torch.uint8, device=lo.device)
-    npend = (torch.zeros(nseg, dtype=torch.int32, device=lo.device)
-             if lo.is_cuda else None)
-    for seg in range(nseg):
-        if not lo.is_cuda and seg * R >= int(nreps):
-            break
-        probe_segment(s.table, c_key[seg * R:(seg + 1) * R], nreps, seg * R,
-                      C, is_new[seg * R:(seg + 1) * R],
-                      None if npend is None else npend[seg:seg + 1])
-    return s, is_new[:n].bool(), c_idx, nreps
+    c_lane, n_cand = _slab_dedup_core(key, R, slab_factor, slab_passes,
+                                      slab_bits)
+    s_key, c_idx, active = _order_and_dedup(key, c_lane, n_cand, R)
+    return s_key, c_idx, active.bool(), int(n_cand) > R
+
+
+def claimant_count(n_cand: torch.Tensor) -> int:
+    """The host read of the claimant count that decides the fallback
+    (torchtlc.profile times it)."""
+    return int(n_cand)
+
+
+def fpset_insert_slab(
+    s: FPSet, lo, hi, mask, probe_width: int = 0, claim_width: int = 0,
+    slab_factor: int = 4, slab_passes: int = 1, slab_bits: int = 0,
+) -> Tuple[FPSet, torch.Tensor, torch.Tensor, torch.Tensor, bool]:
+    """Sort-free insert-or-find (jaxtlc/engine/fpset.py:795):
+    fpset_insert_sorted's contract (same per-lane verdicts, same
+    representatives, the same TABLE words) in the reference's slab layout:
+    representatives fp-ascending in the first R rows but not a prefix
+    (slab-collision duplicate rows interspersed, is_new False, their real
+    lane in c_idx), padding rows with the sentinel lane N.  Falls back to
+    the sorted computation wholesale when the claimants exceed R.
+
+    Returns the reference's (s, is_new_c, c_idx, nreps) and, last, whether
+    the batch took the fallback (the engine counts them).  The fallback
+    decision reads n_cand on the host: the step's second host read, where
+    the reference decides in a lax.cond on the device."""
+    n = lo.shape[0]
+    R = min(probe_width or n, n)
+    C = min(claim_width or R, R)
+    key = fpset_key(lo, hi, mask)
+    c_lane, n_cand = _slab_dedup_core(key, R, slab_factor, slab_passes,
+                                      slab_bits)
+    if claimant_count(n_cand) > R:
+        is_new_c, c_idx, nreps = _sorted_dedup_probe(s.table, key, R, C)
+        return s, is_new_c, c_idx, nreps, True
+    s_key, c_idx_r, active = _order_and_dedup(key, c_lane, n_cand, R)
+    is_new = torch.empty(R, dtype=torch.uint8, device=lo.device)
+    probe_segment(s.table, s_key, None, 0, C, is_new,
+                  torch.zeros(1, dtype=torch.int32, device=lo.device)
+                  if lo.is_cuda else None, active)
+    nreps = active.sum(dtype=torch.int64)
+    is_new_c = torch.cat([is_new.bool(), torch.zeros(
+        n - R, dtype=torch.bool, device=lo.device)])
+    c_idx = torch.cat([c_idx_r, torch.full((n - R,), n, dtype=torch.int64,
+                                           device=lo.device)])
+    return s, is_new_c, c_idx, nreps, False
+
+
+def fpset_insert_dedup(
+    s: FPSet, lo, hi, mask, probe_width: int = 0, claim_width: int = 0,
+    sort_free: bool = False,
+) -> Tuple[FPSet, torch.Tensor, torch.Tensor, torch.Tensor, bool]:
+    """The engine seam's one dispatch point (jaxtlc/engine/fpset.py:849):
+    the sorted path or the sort-free slab path, the same contract either
+    way.  Returns the reference's (s, is_new_c, c_idx, nreps) and whether
+    the slab path fell back to the sorted one (always False when sorted)."""
+    if not sort_free:
+        return (*fpset_insert_sorted(s, lo, hi, mask, probe_width=probe_width,
+                                     claim_width=claim_width), False)
+    return fpset_insert_slab(s, lo, hi, mask, probe_width=probe_width,
+                             claim_width=claim_width)
 
 
 def fpset_actual_collision(s: FPSet) -> float:

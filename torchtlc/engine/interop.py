@@ -4,7 +4,9 @@ model checker.
 ``carry_to_numpy(c)`` gives a dict with the field names of the reference
 EngineCarry (unpipelined fields), each leaf a numpy array in the
 reference's dtype; the fingerprint set appears as ``fps``, its
-``[cap/8, 16]`` uint32 table words.  ``carry_from_numpy(d)`` takes such a
+``[cap/8, 16]`` uint32 table words.  The observability leaves
+(``OBS_FIELDS``: the ring as uint32 words, its head as int32, the bodies
+and expanded counters as uint32) appear when the carry has them.  ``carry_from_numpy(d)`` takes such a
 dict - or any object with those attributes, such as a reference carry whose
 leaves were pulled to numpy - and builds the port's carry on `device`.
 Converting a reference carry, stepping both, and converting back gives
@@ -29,6 +31,14 @@ COUNTERS = ("act_gen", "act_dist", "outdeg_hist")  # uint32 in the reference
 FIELDS = ("fps", "queue", "parity", "qhead", "level_n", "next_n", "level",
           "depth", "generated", "distinct", "act_gen", "act_dist",
           "outdeg_hist", "viol", "viol_state", "viol_action")
+OBS_SCALARS = {"obs_head": np.int32, "obs_bodies": np.uint32,
+               "obs_expanded": np.uint32}
+OBS_FIELDS = ("obs_ring", *OBS_SCALARS)
+
+
+def _has(d, name) -> bool:
+    v = d.get(name) if isinstance(d, dict) else getattr(d, name, None)
+    return v is not None
 
 
 def _get(d, name):
@@ -50,6 +60,11 @@ def carry_to_numpy(c: EngineCarry) -> dict:
     for name in COUNTERS:
         out[name] = (getattr(c, name).cpu().numpy() & 0xFFFFFFFF).astype(
             np.uint32)
+    if c.obs_ring is not None:
+        out["obs_ring"] = c.obs_ring.cpu().numpy().view(np.uint32)
+        for name, dt in OBS_SCALARS.items():
+            out[name] = np.asarray(int(getattr(c, name)) & 0xFFFFFFFF,
+                                   np.uint32).astype(dt)
     return out
 
 
@@ -65,6 +80,11 @@ def carry_from_numpy(d, device=None) -> EngineCarry:
     for name in COUNTERS:
         vals[name] = torch.from_numpy(
             _get(d, name).astype(np.int64)).to(dev)
+    if _has(d, "obs_ring"):
+        vals["obs_ring"] = words(_get(d, "obs_ring"))
+        for name in OBS_SCALARS:
+            vals[name] = torch.tensor(int(_get(d, name)), dtype=torch.int64,
+                                      device=dev)
     return EngineCarry(
         fps=FPSet(words(_get(d, "fps"))),
         queue=words(_get(d, "queue")),

@@ -8,6 +8,10 @@
 // the successor fields [ck*L, F] int32; this kernel keeps them in registers
 // and local memory and writes only packed words and per-lane bytes.
 //
+// Deferred mode (the reference's make_expand_stage(deferred=True),
+// backend.py:228-237) is the kDeferred instantiation: no invariant
+// evaluation, the two invariant flag rows stay zero.
+//
 // Bound: bytes.  It reads the popped rows (ck*W words) and writes ck*L*W
 // packed words, 5 flag bytes and an int32 action per lane.  Per-action
 // generated counts go through a shared-memory histogram, then one integer
@@ -16,6 +20,7 @@
 
 #include "kubeapi.cuh"
 
+template <bool kDeferred>
 __global__ void expand_kernel(KubeLayout Y, const u32* __restrict__ block,
                               int ck, int n, u32* __restrict__ packed,
                               uint8_t* __restrict__ flags,
@@ -28,7 +33,7 @@ __global__ void expand_kernel(KubeLayout Y, const u32* __restrict__ block,
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx < ncand) {
     const int row = (int)(idx / Y.L), lane = (int)(idx % Y.L);
-    LaneOut o = kube_expand_lane(Y, block + (size_t)row * Y.W, row < n, lane,
+    LaneOut o = kube_expand_lane<kDeferred>(Y, block + (size_t)row * Y.W, row < n, lane,
                                  packed + (size_t)idx * Y.W);
     flags[idx] = o.valid;
     flags[ncand + idx] = o.afail;
@@ -47,14 +52,19 @@ extern "C" int tt_layout_words() { return sizeof(KubeLayout) / 4; }
 
 // gen must hold KUBE_N_LABELS zeroed (or accumulating) counters
 extern "C" int tt_expand(const void* layout, const void* block, int ck, int n,
-                         void* packed, void* flags, void* action, void* gen,
-                         void* stream) {
+                         int deferred, void* packed, void* flags,
+                         void* action, void* gen, void* stream) {
   const KubeLayout& Y = *(const KubeLayout*)layout;
   const long long ncand = (long long)ck * Y.L;
   const int threads = 128;
   const long long blocks = (ncand + threads - 1) / threads;
-  if (blocks > 0)
-    expand_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  if (blocks > 0 && deferred)
+    expand_kernel<true><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        Y, (const u32*)block, ck, n, (u32*)packed, (uint8_t*)flags,
+        (int32_t*)action, (unsigned long long*)gen);
+  else if (blocks > 0)
+    expand_kernel<false><<<(unsigned)blocks, threads, 0,
+                           (cudaStream_t)stream>>>(
         Y, (const u32*)block, ck, n, (u32*)packed, (uint8_t*)flags,
         (int32_t*)action, (unsigned long long*)gen);
   return (int)cudaGetLastError();

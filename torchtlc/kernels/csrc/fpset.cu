@@ -6,7 +6,9 @@
 //                (:121-152) in fpset_insert_sorted (:614).
 //   fpset_probe  round 0 of _probe_block (:369-417), one thread per
 //                candidate: home-row gather, hit test, occupancy, claim
-//                slot = occupancy + rank among the run's wanters.
+//                slot = occupancy + rank among the run's wanters.  The
+//                active lanes are a prefix (sorted path) or a mask (the
+//                slab path's interspersed layout, fpset.py:726).
 //   fpset_claim  writes the round-0 claims (every claim targets a distinct
 //                slot) and marks the stragglers; a separate launch so that
 //                every round-0 read sees the table before any claim.
@@ -36,12 +38,17 @@ __global__ void key_kernel(const uint32_t* __restrict__ lo,
   if (i < N) key[i] = fp_key(lo[i], hi[i], mask[i] != 0);
 }
 
+// active lanes: act[i] when act is given (the slab layout), else the
+// prefix off + i < nreps
 __global__ void probe_kernel(const uint32_t* __restrict__ table, int lognb,
                              const int64_t* __restrict__ keys, int R,
                              const long long* __restrict__ nreps,
-                             long long off, int32_t* __restrict__ slot) {
+                             const uint8_t* __restrict__ act, long long off,
+                             int32_t* __restrict__ slot) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < R) slot[i] = fp_round0(table, lognb, keys, i, off + i < *nreps);
+  if (i < R)
+    slot[i] = fp_round0(table, lognb, keys, act, i,
+                        act != nullptr ? act[i] != 0 : off + i < *nreps);
 }
 
 __global__ void claim_kernel(uint32_t* __restrict__ table,
@@ -209,13 +216,13 @@ extern "C" int tt_fpset_key(const void* lo, const void* hi, const void* mask,
 }
 
 extern "C" int tt_fpset_probe(const void* table, int lognb, const void* keys,
-                              int R, const void* nreps, long long off,
-                              void* slot, void* stream) {
+                              int R, const void* nreps, const void* act,
+                              long long off, void* slot, void* stream) {
   const int threads = 256;
   probe_kernel<<<(R + threads - 1) / threads, threads, 0,
                  (cudaStream_t)stream>>>(
       (const uint32_t*)table, lognb, (const int64_t*)keys, R,
-      (const long long*)nreps, off, (int32_t*)slot);
+      (const long long*)nreps, (const uint8_t*)act, off, (int32_t*)slot);
   return (int)cudaGetLastError();
 }
 

@@ -59,15 +59,20 @@ HD int fp_row_occ(const uint32_t* row) {
   return n;
 }
 
-// Round 0 for lane i of a sorted, duplicate-free key block, against the
-// table as it was before any claim of this round:
+// Round 0 for lane i of a sorted key block whose active lanes are
+// duplicate-free, against the table as it was before any claim of this
+// round:
 //   -1  nothing to claim (inactive, or already stored in the home bucket)
 //   -2  a wanter that does not fit its home bucket (walks)
 //  >=0  the slot id it claims: occupancy + rank among the run's wanters.
 // The run's earlier lanes share this lane's bucket row, so the rank needs
 // no other lane's result; the walk back stops once the bucket is full.
+// `act` (nullable) marks the active lanes when they are not a prefix (the
+// slab path's layout: duplicate rows of slab-collision classes sit
+// between the actives); the walk back skips the inactive ones, so it is
+// bounded by 16 steps plus the inactive rows inside the run.
 HD int32_t fp_round0(const uint32_t* table, int lognb, const int64_t* keys,
-                     int i, bool active) {
+                     const uint8_t* act, int i, bool active) {
   if (!active) return -1;
   const uint32_t lo = fp_key_lo(keys[i]), hi = fp_key_hi(keys[i]);
   const uint32_t b = fp_bucket(hi, lognb);
@@ -79,6 +84,7 @@ HD int32_t fp_round0(const uint32_t* table, int lognb, const int64_t* keys,
   for (int j = i - 1; j >= 0 && occ + rank < FP_BUCKET; j--) {
     uint32_t hj = fp_key_hi(keys[j]);
     if (fp_bucket(hj, lognb) != b) break;
+    if (act != nullptr && !act[j]) continue;
     if (!fp_row_has(row, fp_key_lo(keys[j]), hj)) rank++;
   }
   return occ + rank < FP_BUCKET ? (int32_t)(b * FP_BUCKET + occ + rank) : -2;

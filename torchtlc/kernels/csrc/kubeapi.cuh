@@ -491,15 +491,16 @@ HD void kube_server_list(const KubeLayout& Y, const int32_t* f, int c,
 
 // -- one (state, lane) ------------------------------------------------------
 
-// Expand lane `lane` of the packed row `row` (popped: the row is inside the
-// pop mask); writes the packed canonical successor to `out` (W words).
-HD LaneOut kube_expand_lane(const KubeLayout& Y, const u32* row, bool popped,
-                            int lane, u32* out) {
-  int32_t f[KUBE_MAXF], s[KUBE_MAXF];
+// The canonical successor of lane `lane` of the packed row `row` (popped:
+// the row is inside the pop mask), as F raw int32 fields in `s` - the
+// reference's pre-pack `flat` row.  bad_typeok/bad_onlyone are left false.
+HD LaneOut kube_succ_lane(const KubeLayout& Y, const u32* row, bool popped,
+                          int lane, int32_t* s) {
+  int32_t f[KUBE_MAXF];
   kube_unpack(Y, row, f);
   for (int j = 0; j < Y.F; j++) s[j] = f[j];
   LaneOut o;
-  o.valid = o.afail = o.ovf = false;
+  o.valid = o.afail = o.ovf = o.bad_typeok = o.bad_onlyone = false;
   o.action = 0;
   const int ncl = Y.nc * Y.CL;
   if (lane < ncl) {
@@ -520,9 +521,24 @@ HD LaneOut kube_expand_lane(const KubeLayout& Y, const u32* row, bool popped,
   o.valid = o.valid && popped;
   o.afail = o.afail && o.valid;
   o.ovf = o.ovf && o.valid;
-  int bits = kube_invariants(Y, s);
-  o.bad_typeok = o.valid && !(bits & 1);
-  o.bad_onlyone = o.valid && !(bits & 2);
+  return o;
+}
+
+// Expand lane `lane` of the packed row `row`; writes the packed canonical
+// successor to `out` (W words).  kDeferred skips the invariants (the
+// reference's deferred=True expand stage, jaxtlc/engine/backend.py:228):
+// the commit's deferred checker (deferred.cu) evaluates them on the fresh
+// claimants instead.
+template <bool kDeferred>
+HD LaneOut kube_expand_lane(const KubeLayout& Y, const u32* row, bool popped,
+                            int lane, u32* out) {
+  int32_t s[KUBE_MAXF];
+  LaneOut o = kube_succ_lane(Y, row, popped, lane, s);
+  if (!kDeferred) {
+    int bits = kube_invariants(Y, s);
+    o.bad_typeok = o.valid && !(bits & 1);
+    o.bad_onlyone = o.valid && !(bits & 2);
+  }
   kube_pack(Y, s, out);
   return o;
 }

@@ -20,7 +20,9 @@ import torch
 from . import build as _build
 
 KERNELS = ("expand", "fp64", "fpset_key", "fpset_probe", "fpset_claim",
-           "fpset_walk", "commit")
+           "fpset_walk", "commit", "slab_scatter", "slab_resolve",
+           "slab_compact", "slab_order", "slab_mark", "deferred_check",
+           "ring_row")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -28,15 +30,25 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "tt_layout_words": ("expand", []),
-    "tt_expand": ("expand", [_P, _P, _I, _I, _P, _P, _P, _P, _P]),
+    "tt_expand": ("expand", [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P]),
     "tt_fp64": ("fp64", [_P, _LL, _I, _I, _P, _P, _P, _P]),
     "tt_fpset_key": ("fpset", [_P, _P, _P, _LL, _P, _P]),
-    "tt_fpset_probe": ("fpset", [_P, _I, _P, _I, _P, _LL, _P, _P]),
+    "tt_fpset_probe": ("fpset", [_P, _I, _P, _I, _P, _P, _LL, _P, _P]),
     "tt_fpset_claim": ("fpset", [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P]),
     "tt_fpset_walk": ("fpset", [_P, _I, ctypes.c_uint, _P, _I, _P, _P, _P,
                                 _P]),
     "tt_commit": ("commit", [_P, _I, _LL, _LL, _P, _LL, _P, _P, _P, _LL, _P,
                              _P, _I, _I, _I, _P]),
+    "tt_slab_scatter": ("slab", [_P, _LL, _I, ctypes.c_uint, _P, _P, _P]),
+    "tt_slab_resolve": ("slab", [_P, _LL, _I, ctypes.c_uint, _P, _P, _P, _P,
+                                 _P]),
+    "tt_slab_compact": ("slab", [_P, _P, _LL, _I, _P, _P]),
+    "tt_slab_order": ("slab", [_P, _P, _I, _P, _P, _P]),
+    "tt_slab_mark": ("slab", [_P, _P, _P, _I, _P, _LL, _P, _P, _P]),
+    "tt_deferred_check": ("deferred", [_P, _P, _LL, _P, _P, _P, _P, _P, _P,
+                                       _P, _P]),
+    "tt_ring_row": ("ring", [_P, _I, _I, _P, _P, _P, _LL, _I, _P, _P, _P, _P,
+                             _P, _P, _P, _P, _P, _I, _I, _P]),
 }
 
 
@@ -115,9 +127,10 @@ def _layout(cfg) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def expand(cfg, block: torch.Tensor, n: int):
+def expand(cfg, block: torch.Tensor, n: int, deferred: bool = False):
     """-> (packed [ck*L, W] int32, flags [5, ck*L] uint8, action [ck*L]
-    int32, gen [n_labels] int64); see engine.backend.expand_block."""
+    int32, gen [n_labels] int64); see engine.backend.expand_block.
+    deferred launches the variant without invariants."""
     from ..spec.labels import LABELS
 
     lay = _layout(cfg)
@@ -131,7 +144,7 @@ def expand(cfg, block: torch.Tensor, n: int):
     action = torch.empty(ncand, dtype=torch.int32, device=dev)
     gen = torch.zeros(len(LABELS), dtype=torch.int64, device=dev)
     rc = lib().tt_expand(lay.ctypes.data_as(_P), _ptr(block), ck, n,
-                         _ptr(packed), _ptr(flags), _ptr(action), _ptr(gen),
+                         int(deferred), _ptr(packed), _ptr(flags), _ptr(action), _ptr(gen),
                          _stream())
     _launched("expand", rc)
     return packed, flags, action, gen
@@ -184,18 +197,23 @@ def _table_geom(table: torch.Tensor):
     return nb, nb.bit_length() - 1
 
 
-def fpset_probe(table: torch.Tensor, keys: torch.Tensor, nreps: torch.Tensor,
-                off: int) -> torch.Tensor:
-    """Round 0 over one R-wide block of sorted compacted keys, lanes active
-    where off + i < nreps (read on the device): slot codes [R] int32, as
-    engine.fpset.fpset_round0_plain."""
+def fpset_probe(table: torch.Tensor, keys: torch.Tensor, nreps, off: int,
+                active=None) -> torch.Tensor:
+    """Round 0 over one R-wide block of sorted keys, lanes active where
+    active[i] ([R] uint8) when given, else where off + i < nreps (read on
+    the device): slot codes [R] int32, as engine.fpset.fpset_round0_plain."""
     _, lognb = _table_geom(table)
     R = keys.shape[0]
     _need(keys, "keys", torch.int64, (R,))
-    _need(nreps, "nreps", torch.int64, ())
+    if active is None:
+        _need(nreps, "nreps", torch.int64, ())
+    else:
+        _need(active, "active", torch.uint8, (R,))
     slot = torch.empty(R, dtype=torch.int32, device=keys.device)
     _launched("fpset_probe", lib().tt_fpset_probe(
-        _ptr(table), lognb, _ptr(keys), R, _ptr(nreps), off, _ptr(slot),
+        _ptr(table), lognb, _ptr(keys), R,
+        None if active is not None else _ptr(nreps),
+        None if active is None else _ptr(active), off, _ptr(slot),
         _stream()))
     return slot
 
@@ -237,10 +255,11 @@ def fpset_walk(table: torch.Tensor, keys: torch.Tensor, pending: torch.Tensor,
 
 
 def fpset_probe_segment(table, keys, nreps, off: int, C: int,
-                        is_new_out: torch.Tensor, npend: torch.Tensor) -> None:
+                        is_new_out: torch.Tensor, npend: torch.Tensor,
+                        active=None) -> None:
     """Insert-or-find one probe segment: fpset_probe, fpset_claim,
     fpset_walk.  npend: a zeroed int32 [1] counter."""
-    slot = fpset_probe(table, keys, nreps, off)
+    slot = fpset_probe(table, keys, nreps, off, active)
     pending = torch.empty_like(is_new_out)
     fpset_claim(table, keys, slot, C, is_new_out, pending, npend)
     fpset_walk(table, keys, pending, is_new_out, npend)
@@ -272,3 +291,139 @@ def commit(queue, dst: int, next_n: int, qcap: int, e_idx, n_new, packed,
                          _ptr(act_dist), _ptr(outdeg_hist), A, L, n_labels,
                          _stream())
     _launched("commit", rc)
+
+
+# ---------------------------------------------------------------------------
+# K5 slab, K6 slab order
+# ---------------------------------------------------------------------------
+
+
+def slab_scatter(keys: torch.Tensor, p: int, mmask: int, unres: torch.Tensor,
+                 slab: torch.Tensor) -> None:
+    """Pass p's scatter-max of lane + 1; see fpset.slab_scatter_plain."""
+    N = keys.shape[0]
+    _need(keys, "keys", torch.int64, (N,))
+    _need(unres, "unres", torch.uint8, (N,))
+    _need(slab, "slab", torch.int32, (mmask + 1,))
+    if N >= 1 << 31:
+        raise ValueError("slab lanes must fit 31 bits")
+    _launched("slab_scatter", lib().tt_slab_scatter(
+        _ptr(keys), N, p, mmask, _ptr(unres), _ptr(slab), _stream()))
+
+
+def slab_resolve(keys: torch.Tensor, p: int, mmask: int, slab: torch.Tensor,
+                 unres: torch.Tensor, rep: torch.Tensor, cand=None) -> None:
+    """Pass p's winner resolve; see fpset.slab_resolve_plain."""
+    N = keys.shape[0]
+    _need(keys, "keys", torch.int64, (N,))
+    _need(slab, "slab", torch.int32, (mmask + 1,))
+    for name, t in (("unres", unres), ("rep", rep)) + (
+            (("cand", cand),) if cand is not None else ()):
+        _need(t, name, torch.uint8, (N,))
+    _launched("slab_resolve", lib().tt_slab_resolve(
+        _ptr(keys), N, p, mmask, _ptr(slab), _ptr(unres), _ptr(rep),
+        None if cand is None else _ptr(cand), _stream()))
+
+
+def slab_compact(cand: torch.Tensor, pos: torch.Tensor, R: int,
+                 c_lane: torch.Tensor) -> None:
+    """Claimant lanes into their prefix positions < R."""
+    N = cand.shape[0]
+    _need(cand, "cand", torch.uint8, (N,))
+    _need(pos, "pos", torch.int64, (N,))
+    _need(c_lane, "c_lane", torch.int32, (R,))
+    _launched("slab_compact", lib().tt_slab_compact(
+        _ptr(cand), _ptr(pos), N, R, _ptr(c_lane), _stream()))
+
+
+def slab_order(keys: torch.Tensor, c_lane: torch.Tensor,
+               n_cand: torch.Tensor) -> torch.Tensor:
+    """The R-wide ordering keys [R] int64 (n_cand read on the device)."""
+    R = c_lane.shape[0]
+    _need(keys, "keys", torch.int64)
+    _need(c_lane, "c_lane", torch.int32, (R,))
+    _need(n_cand, "n_cand", torch.int64, ())
+    ord_key = torch.empty(R, dtype=torch.int64, device=keys.device)
+    _launched("slab_order", lib().tt_slab_order(
+        _ptr(keys), _ptr(c_lane), R, _ptr(n_cand), _ptr(ord_key), _stream()))
+    return ord_key
+
+
+def slab_mark(s_key: torch.Tensor, perm: torch.Tensor, c_lane: torch.Tensor,
+              n_cand: torch.Tensor, n: int):
+    """-> (c_idx [R] int64, active [R] uint8); see fpset.slab_mark_plain."""
+    R = s_key.shape[0]
+    _need(s_key, "s_key", torch.int64, (R,))
+    _need(perm, "perm", torch.int64, (R,))
+    _need(c_lane, "c_lane", torch.int32, (R,))
+    _need(n_cand, "n_cand", torch.int64, ())
+    c_idx = torch.empty(R, dtype=torch.int64, device=s_key.device)
+    active = torch.empty(R, dtype=torch.uint8, device=s_key.device)
+    _launched("slab_mark", lib().tt_slab_mark(
+        _ptr(s_key), _ptr(perm), _ptr(c_lane), R, _ptr(n_cand), n,
+        _ptr(c_idx), _ptr(active), _stream()))
+    return c_idx, active
+
+
+# ---------------------------------------------------------------------------
+# K7 deferred check
+# ---------------------------------------------------------------------------
+
+
+def deferred_check(cfg, block: torch.Tensor, fresh: torch.Tensor,
+                   c_idx: torch.Tensor, action: torch.Tensor, rows: int):
+    """-> (viol 0-dim int64, state [F] int32, action 0-dim int64); see
+    engine.backend.deferred_check_plain."""
+    lay = _layout(cfg)
+    ck, W = block.shape
+    L, F = int(lay[28]), int(lay[24])
+    _need(block, "block", torch.int32, (ck, int(lay[25])))
+    n = fresh.shape[0]
+    if not 0 < rows <= n:
+        raise ValueError(f"rows {rows} outside (0, {n}]")
+    _need(fresh, "fresh", torch.bool, (n,))
+    _need(c_idx, "c_idx", torch.int64, (n,))
+    _need(action, "action", torch.int32, (ck * L,))
+    dev = block.device
+    scratch = torch.full((3,), -1, dtype=torch.int32, device=dev)
+    viol = torch.empty((), dtype=torch.int64, device=dev)
+    state = torch.empty(F, dtype=torch.int32, device=dev)
+    vaction = torch.empty((), dtype=torch.int64, device=dev)
+    _launched("deferred_check", lib().tt_deferred_check(
+        lay.ctypes.data_as(_P), _ptr(block), rows, _ptr(fresh), _ptr(c_idx),
+        _ptr(action), _ptr(scratch), _ptr(viol), _ptr(state), _ptr(vaction),
+        _stream()))
+    return viol, state, vaction
+
+
+# ---------------------------------------------------------------------------
+# K8 ring row
+# ---------------------------------------------------------------------------
+
+
+def ring_row(ring, head, bodies, expanded, n_pop: int, flip: bool, level,
+             gen_new, gen_old, dist_new, dist_old, queue_n, act_gen,
+             act_dist, acts_old, n_labels: int) -> None:
+    """One ring row; see obs.counters.ring_row_plain."""
+    slots, cols = ring.shape[0] - 1, ring.shape[1]
+    _need(ring, "ring", torch.int32)
+    if slots < 1 or cols != 10 + 2 * n_labels:
+        raise ValueError(f"ring shape {tuple(ring.shape)} for {n_labels} "
+                         "labels")
+    for name, t in (("head", head), ("bodies", bodies),
+                    ("expanded", expanded), ("level", level),
+                    ("gen_new", gen_new), ("gen_old", gen_old),
+                    ("dist_new", dist_new), ("dist_old", dist_old),
+                    ("queue_n", queue_n)):
+        _need(t, name, torch.int64, ())
+    n_acts = act_gen.shape[0]
+    if n_acts < n_labels:
+        raise ValueError("act_gen holds fewer counters than labels")
+    _need(act_gen, "act_gen", torch.int64, (n_acts,))
+    _need(act_dist, "act_dist", torch.int64, (n_acts,))
+    _need(acts_old, "acts_old", torch.int64, (2 * n_acts,))
+    _launched("ring_row", lib().tt_ring_row(
+        _ptr(ring), slots, cols, _ptr(head), _ptr(bodies), _ptr(expanded),
+        n_pop, int(flip), _ptr(level), _ptr(gen_new), _ptr(gen_old),
+        _ptr(dist_new), _ptr(dist_old), _ptr(queue_n), _ptr(act_gen),
+        _ptr(act_dist), _ptr(acts_old), n_acts, n_labels, _stream()))
