@@ -8,30 +8,44 @@ drives the exhaustive BFS through the user entry points (engine.bfs.check's
 engine) on the FF corner, on Model_1 and on the scaled 2x1 workload - in the
 sorted immediate mode, then Model_1 at chunk 2048 and the scaled workload in
 the default modes the reference resolves there (sort-free slab dedup,
-deferred invariants; the scaled run with the counter ring) - checks every
-result against its pinned value, holds each kernel bitwise against its
-plain torch version on the card, and prints:
+deferred invariants; the scaled run with the counter ring) - then the
+user's command, ``python -m torchtlc.cli check MC.cfg``, on a Model_1
+MC.tla/MC.cfg pair written to a temporary directory: a clean run (phase 7),
+auto-regrow from -fpcap 65536 (7b), the host spill tier behind kernel K9 at
+Model_1 and at the scaled size (8, 8b), SIGTERM -> exit 75 -> -recover
+(9) and a violation's counterexample (9b).  It checks every result
+against its pinned value, holds each kernel bitwise against its plain
+torch version on the card, and prints:
 
 * one line per phase;
 * a line with the card's name and power limit (nvidia-smi);
 * a JSON line {"kernels": [...]} with each kernel's launches on the main
-  path (the two Model_1 and the two scaled runs), its error against the
-  plain version, its time, the plain version's time and its bound on this
-  card;
+  paths (the two Model_1 and the two scaled engine runs and the in-process
+  command, regrow, spill and violation runs; each path's counts are reset
+  just before it and read just after), its error against the plain
+  version, its time, the plain version's time, its bound on this card
+  and, where one PyTorch call computes the same function, that call's
+  time;
 * last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Any mismatch exits nonzero before the last line.  Without a CUDA device, or
 without the torchtlc package beside it, it exits nonzero and prints no
 result.  The build's ptxas report goes to torchtlc/kernels/_build/ptxas.txt.
+``--phases 7,8`` runs phase 1 and the named later phases only (for
+iterating on the card; the contract run takes no arguments).
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 FF_KW = dict(chunk=256, queue_capacity=1 << 13, fp_capacity=1 << 15)
@@ -87,6 +101,33 @@ M1_2048_DISTINCT = {
 }
 SCALED_OBS_SLOTS = 256
 
+# the command's phases: a Model_1 model directory (both constants TRUE)
+MC_TLA = """---- MODULE MC ----
+EXTENDS KubeAPI, TLC
+
+\\* CONSTANT definitions @modelParameterConstants:1REQUESTS_CAN_FAIL
+const_fail ==
+{fail}
+
+\\* CONSTANT definitions @modelParameterConstants:2REQUESTS_CAN_TIMEOUT
+const_to ==
+{timeout}
+====
+"""
+MC_CFG = """CONSTANT defaultInitValue = defaultInitValue
+CONSTANT REQUESTS_CAN_FAIL <- const_fail
+CONSTANT REQUESTS_CAN_TIMEOUT <- const_to
+SPECIFICATION Spec
+INVARIANT TypeOK
+INVARIANT OnlyOneVersion
+"""
+# spill at Model_1: the reference's own setting (tests/test_spill.py:325)
+M1_SPILL_KW = dict(chunk=1024, queue_capacity=1 << 13, fp_capacity=1 << 17)
+# spill at the scaled size: the table saturates at ~14.2M of 19.36M
+SCALED_SPILL_KW = dict(chunk=8192, queue_capacity=1 << 21,
+                       fp_capacity=1 << 24)
+SPILL_N = 8192 * 12  # K9's lanes at the scaled spill step
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 SEED = 20261017
 
@@ -138,18 +179,52 @@ def main() -> int:
     print(f"phase 1 build: {len(info.libs)} libraries with nvcc in "
           f"{time.time() - t0:.1f} s; registers {regs}", flush=True)
 
+    only = None
+    if "--phases" in sys.argv:
+        only = set(sys.argv[sys.argv.index("--phases") + 1].split(","))
+
+    def want(phase):
+        return only is None or phase in only
+
     runs = {}
-    runs["ff"] = phase_ff(torch, ops)
-    phase_violation(torch)
-    runs["m1"] = phase_model1(torch, ops, card)
-    runs["m1_auto"] = phase_model1_auto(torch, ops, card)
-    runs["scaled"] = phase_scaled(torch, ops, card)
-    runs["scaled_auto"] = phase_scaled_auto(torch, ops, card, runs["scaled"])
-    main = ("m1", "m1_auto", "scaled", "scaled_auto")
+    if only is None:
+        runs["ff"] = phase_ff(torch, ops)
+        phase_violation(torch)
+        runs["m1"] = phase_model1(torch, ops, card)
+        runs["m1_auto"] = phase_model1_auto(torch, ops, card)
+        runs["scaled"] = phase_scaled(torch, ops, card)
+        runs["scaled_auto"] = phase_scaled_auto(torch, ops, card,
+                                                runs["scaled"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        model = write_model(tmp, "Model_1", True, True)
+        if want("7"):
+            runs["cmd"] = phase_command(torch, ops, model, card)
+        if want("7b"):
+            runs["regrow"] = phase_regrow(torch, ops, model, tmp, runs, card)
+        if want("8"):
+            runs["spill_m1"] = phase_spill_model1(torch, ops, card)
+        if want("8b"):
+            runs["spill_scaled"] = phase_spill_scaled(torch, ops, card)
+        if want("9"):
+            phase_preempt(model, tmp)
+        if want("9b"):
+            runs["viol_cmd"] = phase_violation_command(
+                torch, ops, write_model(tmp, "Model_FF", False, False))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if only is not None and "2" in only:
+        check_member(torch, ops, runs, lambda *a: None)
+    if only is not None:
+        print(f"chip_smoke: phases {sorted(only)} passed (a partial run "
+              "prints no contract lines)", flush=True)
+        return 0
+    main = ("m1", "m1_auto", "scaled", "scaled_auto", "cmd", "regrow",
+            "spill_m1", "spill_scaled", "viol_cmd")
     launches = {k: sum(runs[r]["launches"][k] for r in main)
                 for k in ops.KERNELS}
     kernels = phase_kernels(torch, ops, runs, launches)
-    print(f"phase 6 launches on the Model_1 + scaled runs (both modes): "
+    print(f"phase 6 launches on the main paths ({', '.join(main)}): "
           f"{launches}", flush=True)
     for k, v in launches.items():
         need(v > 0, f"kernel {k} was not launched on the main path")
@@ -333,6 +408,258 @@ def phase_scaled_auto(torch, ops, card, sorted_run):
 
 
 # ---------------------------------------------------------------------------
+# phases 7-9: the user's command, regrow, the spill tier, preemption
+# ---------------------------------------------------------------------------
+
+
+def write_model(tmp, name, fail, timeout):
+    """A Toolbox model directory: MC.tla + MC.cfg; returns the MC.cfg."""
+    d = os.path.join(tmp, name)
+    os.makedirs(d)
+    with open(os.path.join(d, "MC.tla"), "w") as f:
+        f.write(MC_TLA.format(fail="TRUE" if fail else "FALSE",
+                              timeout="TRUE" if timeout else "FALSE"))
+    with open(os.path.join(d, "MC.cfg"), "w") as f:
+        f.write(MC_CFG)
+    return os.path.join(d, "MC.cfg")
+
+
+def command(argv):
+    """python -m torchtlc.cli check ... as a subprocess: (rc, stdout)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    p = subprocess.run([sys.executable, "-m", "torchtlc.cli", "check",
+                        *argv], cwd=here, env=env, capture_output=True,
+                       text=True, timeout=600)
+    if p.returncode not in (0, 12, 75):
+        print(p.stderr[-4000:], file=sys.stderr)
+    return p.returncode, p.stdout
+
+
+def command_here(ops, argv):
+    """The same command in this process (torchtlc.cli.main), its launch
+    counts reset just before and read just after: (rc, stdout, launches,
+    wall)."""
+    from torchtlc.cli import main as cli_main
+
+    out = io.StringIO()
+    ops.reset_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(["check", *argv])
+    return rc, out.getvalue(), dict(ops.LAUNCHES), time.time() - t0
+
+
+def final_counts(text):
+    """(generated, distinct, depth) from a transcript's 2199/2194 lines."""
+    g = d = depth = None
+    for line in text.splitlines():
+        if line.endswith("states left on queue.") and "distinct states " \
+                "found," in line and not line.startswith("Progress"):
+            parts = line.split()
+            g, d = int(parts[0]), int(parts[3])
+        if line.startswith("The depth of the complete state graph search"):
+            depth = int(line.rstrip(".").split()[-1])
+    return g, d, depth
+
+
+def phase_command(torch, ops, cfg, card):
+    """Phase 7: the user's command on Model_1 - a subprocess in plain-text
+    mode, then the same command in this process in tool mode (its kernel
+    launches are counted)."""
+    t0 = time.time()
+    rc, out = command([cfg, "-noTool"])
+    sub_wall = time.time() - t0
+    need(rc == 0, f"the command exited {rc} on Model_1")
+    need(final_counts(out) == M1_COUNTS,
+         f"the command's counts {final_counts(out)}")
+    need("Model checking completed. No error has been found" in out,
+         "the command did not report success")
+    rc, out, launches, wall = command_here(ops, [cfg])
+    need(rc == 0, f"the command (tool mode) exited {rc}")
+    for code in ("@!@!@STARTMSG 2193", "@!@!@STARTMSG 2199",
+                 "@!@!@ENDMSG"):
+        need(code in out, f"tool mode lacks {code}")
+    need(all(f"{n:,}" in out or str(n) in out for n in M1_COUNTS[:2]),
+         "tool mode lacks the counts")
+    print(f"phase 7 command: `python -m torchtlc.cli check MC.cfg -noTool` "
+          f"exit 0, {M1_COUNTS[0]} / {M1_COUNTS[1]} / {M1_COUNTS[2]} "
+          f"({sub_wall:.1f} s as a subprocess, start-up and build lookup "
+          f"included); tool mode in-process exit 0, framed 2193/2199, "
+          f"{wall:.2f} s on {card}; launches {launches}", flush=True)
+    return {"launches": launches}
+
+
+def phase_regrow(torch, ops, cfg, tmp, runs, card):
+    """Phase 7b: the command with -fpcap 65536 regrows twice (65,536 ->
+    131,072 -> 262,144) to the same counts; its final checkpoint's table
+    holds the same stored words as phase 4's Model_1 table (fp 2^18,
+    chunk 1024), compared sorted (slots depend on insertion order)."""
+    import numpy as np
+
+    ck = os.path.join(tmp, "regrow.ckpt")
+    rc, out, launches, wall = command_here(
+        ops, [cfg, "-noTool", "-fpcap", "65536", "-checkpoint", ck])
+    need(rc == 0, f"the regrow command exited {rc}")
+    need(final_counts(out) == M1_COUNTS,
+         f"the regrow command's counts {final_counts(out)}")
+    grows = [line for line in out.splitlines() if "regrowing" in line]
+    need(len(grows) == 2 and "65536 -> 131072" in grows[0]
+         and "131072 -> 262144" in grows[1], f"regrow events {grows}")
+    with np.load(ck) as z:
+        table = z["leaf_0"]
+    need(table.shape == (262144 // 8, 16), f"final table {table.shape}")
+    ref = model1_table(torch, ops, runs).cpu().numpy().view(np.uint32)
+
+    def stored(t):
+        w = t.reshape(-1, 2).astype(np.uint64)
+        w = w[(w[:, 0] != 0) | (w[:, 1] != 0)]
+        return np.sort((w[:, 1] << np.uint64(32)) | w[:, 0])
+
+    a, b = stored(table), stored(ref)
+    need(a.shape == b.shape and bool((a == b).all()),
+         "the regrown table's words differ from the fp 2^18 run's")
+    print(f"phase 7b regrow: -fpcap 65536 -> 2 regrows ({grows[0].strip()} "
+          f"| {grows[1].strip()}), {M1_COUNTS}, final table's "
+          f"{a.shape[0]} stored words equal to phase 4's; {wall:.2f} s on "
+          f"{card}; launches {launches}", flush=True)
+    return {"launches": launches}
+
+
+def model1_table(torch, ops, runs):
+    """Phase 4's Model_1 table (fp 2^18, load 0.62), run anew in a partial
+    run."""
+    if "m1" not in runs:
+        from torchtlc.config import MODEL_1
+
+        runs["m1"] = {"carry": run_engine(torch, ops, MODEL_1, M1_KW)[0]}
+    return runs["m1"]["carry"].fps.table
+
+
+def run_supervised(torch, ops, cfg, kw, opts):
+    """check_supervised on the card, counts reset before and read after."""
+    from torchtlc.resil.supervisor import check_supervised
+
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    sup = check_supervised(cfg, **kw, opts=opts)
+    torch.cuda.synchronize()
+    return sup, dict(ops.LAUNCHES), time.time() - t0
+
+
+def phase_spill_model1(torch, ops, card):
+    """Phase 8: Model_1 through the spill tier (fp 2^17 with the first
+    regrow probe denied): the clean counts, K9 launched, a spilled host
+    store, spill_hits in the counter ring."""
+    from torchtlc.config import MODEL_1
+    from torchtlc.resil.faults import FaultPlan
+    from torchtlc.resil.supervisor import SupervisorOptions
+
+    levels = []
+    opts = SupervisorOptions(
+        faults=FaultPlan.parse("alloc_fail@1"),
+        on_event=lambda k, i: levels.append(i) if k == "level" else None)
+    sup, launches, wall = run_supervised(
+        torch, ops, MODEL_1, dict(M1_SPILL_KW, obs_slots=256), opts)
+    r = sup.result
+    print(f"phase 8 spill Model_1 (fp 2^17, alloc_fail@1): {r.generated} / "
+          f"{r.distinct} / {r.depth}, {sup.spilled} fingerprints spilled in "
+          f"{sup.spill_flushes} flushes, {sup.spill_hits} host hits, host "
+          f"store {sup.spill_store_s:.3f} s, wall {wall:.2f} s on {card}; "
+          f"K9 launches {launches['fpset_member']}", flush=True)
+    need((r.generated, r.distinct, r.depth) == M1_COUNTS, "spill counts")
+    need(r.violation == 0 and r.queue_left == 0, "spill verdict")
+    need(sup.spilled > 0 and sup.spill_hits > 0, "nothing spilled")
+    need(launches["fpset_member"] > 0, "K9 was not launched")
+    need(max(row.get("spill_hits", 0) for row in levels) == sup.spill_hits,
+         "the ring's spill column lacks spill_hits")
+    return {"launches": launches}
+
+
+def phase_spill_scaled(torch, ops, card):
+    """Phase 8b: the scaled 2x1 workload at chunk 8192 with a 2^24-slot
+    table and the spill tier preferred at the first saturation: phase 5's
+    counts, ~14M fingerprints in the host store."""
+    from torchtlc.config import scaled_config
+    from torchtlc.resil.supervisor import SupervisorOptions
+
+    cfg, _ = scaled_config()
+    flushes = []
+    opts = SupervisorOptions(
+        spill="on",
+        on_event=lambda k, i: flushes.append(i)
+        if k == "spill" and i["phase"] == "flush" else None)
+    sup, launches, wall = run_supervised(torch, ops, cfg, SCALED_SPILL_KW,
+                                         opts)
+    r = sup.result
+    flush_s = sum(f["wall_s"] for f in flushes)
+    print(f"phase 8b spill scaled 2x1 (chunk 8192, fp 2^24, -spill): "
+          f"{r.generated} / {r.distinct} / {r.depth}, wall {wall:.2f} s on "
+          f"{card}; host store {sup.spill_store_s:.2f} s ({flush_s:.2f} s "
+          f"in {sup.spill_flushes} flushes, the rest probes); "
+          f"{sup.spilled} fingerprints spilled, {sup.spill_hits} host hits; "
+          f"K9 launches {launches['fpset_member']}, {sup.segments} "
+          f"segments", flush=True)
+    need((r.generated, r.distinct, r.depth) == SCALED_COUNTS,
+         "scaled spill counts")
+    need(r.violation == 0 and r.queue_left == 0, "scaled spill verdict")
+    need(sup.spilled > 0 and launches["fpset_member"] > 0,
+         "the scaled run did not spill")
+    return {"launches": launches}
+
+
+def phase_preempt(cfg, tmp):
+    """Phase 9: SIGTERM at segment 3 -> exit 75 with a final checkpoint;
+    -recover -> exit 0 with the clean counts (both as subprocesses)."""
+    ck = os.path.join(tmp, "preempt.ckpt")
+    base = [cfg, "-noTool", "-checkpoint", ck, "-checkpointevery", "32"]
+    t0 = time.time()
+    rc, out = command(base + ["-faults", "sigterm@3"])
+    wall_term = time.time() - t0
+    need(rc == 75, f"the SIGTERM run exited {rc}, not 75")
+    need("Run interrupted by signal" in out, "no interrupt banner")
+    t0 = time.time()
+    rc, out2 = command(base + ["-recover"])
+    wall_recover = time.time() - t0
+    need(rc == 0, f"the -recover run exited {rc}")
+    need(final_counts(out2) == M1_COUNTS,
+         f"the resumed counts {final_counts(out2)}")
+    need("Starting recovery from checkpoint" in out2, "no recovery banner")
+    print(f"phase 9 preemption: sigterm@3 -> exit 75 "
+          f"({final_counts(out)[:2]} checkpointed, {wall_term:.2f} s), "
+          f"-recover -> exit 0, {M1_COUNTS} ({wall_recover:.2f} s; both "
+          f"walls are subprocesses, interpreter start included)", flush=True)
+
+
+def trace_text(text):
+    """The counterexample: from "State 1:" to the final Progress line."""
+    lines = text.splitlines()
+    first = next(i for i, x in enumerate(lines) if x.startswith("State 1:"))
+    last = max(i for i, x in enumerate(lines) if x.startswith("Progress("))
+    return "\n".join(lines[first:last])
+
+
+def phase_violation_command(torch, ops, cfg):
+    """Phase 9b: FF with -mutation delete_noop exits 12 with the
+    reference's trace re-run on the card; its text equals the -workers
+    cpu run's."""
+    argv = [cfg, "-noTool", "-mutation", "delete_noop", "-chunk", "256"]
+    rc, out, launches, wall = command_here(ops, argv)
+    need(rc == 12, f"the violation run exited {rc}, not 12")
+    rc_cpu, out_cpu, _, _ = command_here(ops, argv + ["-workers", "cpu"])
+    need(rc_cpu == 12, f"the -workers cpu violation run exited {rc_cpu}")
+    t_gpu, t_cpu = trace_text(out), trace_text(out_cpu)
+    need(t_gpu == t_cpu, "the card's trace differs from the CPU run's")
+    n_states = t_gpu.count("\nState ") + 1
+    need("assert" in out.lower() and n_states > 1, "no assertion trace")
+    print(f"phase 9b violation: delete_noop -> exit 12, a {n_states}-state "
+          f"trace equal to the -workers cpu run's ({wall:.2f} s); launches "
+          f"{launches}", flush=True)
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # phase 2: each kernel against its plain version, at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -379,6 +706,7 @@ def phase_kernels(torch, ops, runs, launches):
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
     rows = {}
+    library = {}  # kernel -> one PyTorch call's time at the scaled shape
 
     def record(name, shape, err, ms, plain_ms, nbytes):
         rows.setdefault(name, []).append(dict(
@@ -438,6 +766,8 @@ def phase_kernels(torch, ops, runs, launches):
         ms = cuda_ms(torch, lambda _: fp64_words(words, nbits), 20)
         pms = cuda_ms(torch, lambda _: fp64_words_plain(words, nbits), 2)
         record("fp64", tag, err, ms, pms, ncand * W * 4 + ncand * 8)
+        if tag == "scaled":
+            library["fp64"] = fp64_library_ms(torch, words, nbits, lo, hi)
 
         # fpset_key on the step's real fingerprints
         lo, hi = fp64_words(packed, nbits)
@@ -526,7 +856,10 @@ def phase_kernels(torch, ops, runs, launches):
             f"bound {v[-1]['bound_ms']:.4f} ms)" for k, v in rows.items()
             if v[-1]["shape"] == tag and k not in first_slice), flush=True)
 
+    check_member(torch, ops, runs, record)
     source = {
+        "fpset_member": ("torchtlc/kernels/csrc/fpset.cu",
+                         "jaxtlc/engine/fpset.py:292"),
         "expand": ("torchtlc/kernels/csrc/expand.cu",
                    "jaxtlc/engine/backend.py:195"),
         "fp64": ("torchtlc/kernels/csrc/fp64.cu",
@@ -566,7 +899,7 @@ def phase_kernels(torch, ops, runs, launches):
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": big["ms"], "plain_ms": big["plain_ms"],
             "bound_ms": big["bound_ms"], "bound_by": "bytes",
-            "library_ms": None,
+            "library_ms": library.get(name),
             "model1": {k: first[name][k]
                        for k in ("shape", "ms", "plain_ms", "bound_ms")},
         })
@@ -580,6 +913,121 @@ def phase_kernels(torch, ops, runs, launches):
         raise SmokeFailure(f"kernel {k} was not held against its plain "
                            "version")
     return out
+
+
+def fp64_library_ms(torch, words, nbits, lo, hi):
+    """K2's library yardstick: the reference's own form of the fingerprint
+    (jaxtlc/engine/fingerprint.py:241 fp64_words_mxu) - the unpacked bit
+    matrix [N, nbits] times the basis bits [nbits, 64], one torch.matmul
+    in float32 (TF32 off: the sums are exact) - timed at K2's shape; its
+    parity xor const must equal K2's words."""
+    import numpy as np
+
+    from torchtlc.engine.fingerprint import affine_basis
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        const, basis = affine_basis(nbits)
+        shifts = torch.arange(32, device=words.device)
+        bb = ((torch.from_numpy(basis.astype(np.int64)).to(words.device)[
+            :, :, None] >> shifts) & 1).reshape(nbits, 64).float()
+        w = words.to(torch.int64) & 0xFFFFFFFF
+        bits = ((w[:, :, None] >> shifts) & 1).reshape(w.shape[0], -1)[
+            :, :nbits].float().contiguous()
+        par = torch.matmul(bits, bb).to(torch.int64) & 1
+        lo_m = ((par[:, :32] << shifts).sum(1) ^ int(const[0])) & 0xFFFFFFFF
+        hi_m = ((par[:, 32:] << shifts).sum(1) ^ int(const[1])) & 0xFFFFFFFF
+        need(bool((lo_m == (lo.to(torch.int64) & 0xFFFFFFFF)).all())
+             and bool((hi_m == (hi.to(torch.int64) & 0xFFFFFFFF)).all()),
+             "the matmul form of K2 disagrees with K2")
+        ms = cuda_ms(torch, lambda _: torch.matmul(bits, bb), 20)
+        bits16, bb16 = bits.to(torch.bfloat16), bb.to(torch.bfloat16)
+        ms16 = cuda_ms(torch, lambda _: torch.matmul(bits16, bb16), 20)
+        print(f"phase 2 K2 library yardstick: torch.matmul [{bits.shape[0]}, "
+              f"{nbits}] x [{nbits}, 64] float32 {ms:.4f} ms (parity equal to "
+              f"K2's words); bfloat16 {ms16:.4f} ms", flush=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return ms
+
+
+def check_member(torch, ops, runs, record):
+    """K9 fpset_member against its plain version, word for word, on two
+    tables: the Model_1 table (load 0.62) at the Model_1 step width with
+    max_rounds 0 and 4, and a table filled to the 0.85 highwater - the
+    spill's operating point - at the scaled spill width (98,304 lanes),
+    where lanes walk the longest bucket runs.  The queries mix stored
+    fingerprints (recovered from the table words), absent random keys,
+    the (0, 0) and (1, 0) pair of the remap class, and masked-off lanes.
+    The byte bound counts the rows the plain walk reads."""
+    import numpy as np
+
+    from torchtlc.engine import fpset
+
+    rng = np.random.default_rng(SEED + 9)
+    dev = torch.device("cuda")
+
+    def queries(table, n):
+        t = table.cpu().numpy().view(np.uint32).reshape(-1, 2)
+        occ = t[(t[:, 0] != 0) | (t[:, 1] != 0)]
+        pick = occ[rng.integers(0, len(occ), n // 2)]
+        raw_lo, raw_hi = fpset.unmix_host(pick[:, 0], pick[:, 1])
+        lo = np.concatenate([raw_lo, rng.integers(0, 2**32, n - n // 2,
+                                                  dtype=np.uint64)])
+        hi = np.concatenate([raw_hi, rng.integers(0, 2**32, n - n // 2,
+                                                  dtype=np.uint64)])
+        lo, hi = lo.astype(np.uint32), hi.astype(np.uint32)
+        # the remap class: the raw words whose mix is (0, 0) or (1, 0)
+        lo[:2], hi[:2] = fpset.unmix_host(np.array([0, 1], np.uint32),
+                                          np.array([0, 0], np.uint32))
+        perm = rng.permutation(n)
+        mask = rng.random(n) < 0.9
+        return [torch.from_numpy(np.ascontiguousarray(x[perm]).view(np.int32)
+                                 ).to(dev) for x in (lo, hi)] + [
+            torch.from_numpy(mask).to(dev)]
+
+    # a 2^22-slot table filled to 0.85 by seeded spill-width batches
+    hw = torch.zeros((1 << 22) // 8, 16, dtype=torch.int32, device=dev)
+    target = int(0.85 * (1 << 22))
+    while int(fpset.fpset_count(fpset.FPSet(hw))) < target:
+        left = target - int(fpset.fpset_count(fpset.FPSet(hw)))
+        n = min(SPILL_N, left)
+        b = [torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint64)
+                              .astype(np.uint32).view(np.int32)).to(dev)
+             for _ in range(2)]
+        fpset.fpset_insert_sorted(fpset.FPSet(hw), b[0], b[1],
+                                  torch.ones(n, dtype=torch.bool, device=dev),
+                                  probe_width=16384, claim_width=16384)
+    load = int(fpset.fpset_count(fpset.FPSet(hw))) / (1 << 22)
+    m1 = model1_table(torch, ops, runs)
+    lines = []
+    for tag, table, n, rounds in (("model1", m1, 1024 * 12, (0, 4)),
+                                  ("scaled", hw, SPILL_N, (0, 4))):
+        lo, hi, mask = queries(table, n)
+        for mr in rounds:
+            got = fpset.fpset_member(fpset.FPSet(table), lo, hi, mask, mr)
+            ref, rows_read = fpset.fpset_member_plain(table, lo, hi, mask,
+                                                      mr, count_rows=True)
+            err = int((got != ref).sum())
+            need(err == 0, f"K9 fpset_member differs from its plain version "
+                 f"({tag}, max_rounds {mr}: {err} lanes)")
+            ms = cuda_ms(torch, lambda _: fpset.fpset_member(
+                fpset.FPSet(table), lo, hi, mask, mr), 20)
+            pms = cuda_ms(torch, lambda _: fpset.fpset_member_plain(
+                table, lo, hi, mask, mr), 3)
+            name = "fpset_member" if mr == 4 else "fpset_member/rounds0"
+            record(name, tag, err, ms, pms, n * (4 + 4 + 1) + n
+                   + 64 * rows_read)
+            lines.append(f"{tag} max_rounds {mr}: {int(got.sum())} of {n} "
+                         f"found, {rows_read} rows read, {ms:.4f} ms (plain "
+                         f"{pms:.3f} ms, bound "
+                         f"{(n * 10 + 64 * rows_read) / HBM_BYTES_PER_S * 1e3:.4f}"
+                         f" ms)")
+    print(f"phase 2 K9 fpset_member vs plain (Model_1 table load "
+          f"{int(fpset.fpset_count(fpset.FPSet(m1))) / m1.numel() * 2:.3f}; "
+          f"highwater table 2^22 slots at load {load:.3f}): all bitwise "
+          f"equal; " + "; ".join(lines), flush=True)
 
 
 def check_fpset(torch, fpset, rng, dev, tag, R, ncand):
@@ -970,7 +1418,12 @@ def check_new_kernels(torch, ops, rng, tag, cfg, block, n, record, runs):
     carry = runs["scaled_auto"]["carry"]
     n_labels = 22
     top = (1 << 32) - 3  # 3 below 2^32: +5 wraps every uint32 view
-    for name, wrap in (("", False), ("/wrap", True)):
+    # spill: the spill_hits counter after and before the body (COL_SPILL)
+    spill = (torch.full((), 123457, dtype=torch.int64, device=dev),
+             torch.full((), 123400, dtype=torch.int64, device=dev))
+    for name, wrap, sp in (("", False, (None, None)),
+                           ("/wrap", True, (None, None)),
+                           ("/spill", False, spill)):
         outs = []
         for fn in (counters.ring_row, counters.ring_row_plain):
             ring = carry.obs_ring.clone()
@@ -986,7 +1439,7 @@ def check_new_kernels(torch, ops, rng, tag, cfg, block, n, record, runs):
             fn(ring, head, bodies, exp_, ck, True, carry.level, g_old + 9,
                g_old, d_old + 7, d_old, carry.level_n,
                acts_old[:n_acts] + 5, acts_old[n_acts:] + 5, acts_old,
-               n_labels)
+               n_labels, *sp)
             outs.append((ring, head, bodies, exp_))
         err = max(err_of(a, b) for a, b in zip(*outs))
         need(err == 0, f"K8 ring_row differs from its plain version ({tag}"
@@ -995,6 +1448,10 @@ def check_new_kernels(torch, ops, rng, tag, cfg, block, n, record, runs):
             need(int(outs[0][0][int(carry.obs_head) % SCALED_OBS_SLOTS,
                                 counters.COL_OVERFLOW]) == 1,
                  "K8 missed a uint32 wrap")
+        if sp[0] is not None:
+            need(int(outs[0][0][int(carry.obs_head) % SCALED_OBS_SLOTS,
+                                counters.COL_SPILL]) == 123457,
+                 "K8 did not write spill_hits into COL_SPILL")
 
         def ring_args(fn):
             def run(st):

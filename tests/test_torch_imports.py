@@ -135,3 +135,49 @@ def test_ring_layout_copy_equals_reference():
                                      fp_capacity=1 << 20) == want
             assert tc.rows_from_ring(ring.view(np.int32), head, labels=lab,
                                      since=since, fp_capacity=1 << 20) == want
+
+
+def test_copied_modules_equal_reference(tmp_path):
+    """The port's own copies of jax-free reference modules: the journal
+    schema, the fault plan, the transcript's action table and rates, the
+    model parsers and the journal file format."""
+    from jaxtlc.frontend import launch as jl, mc_cfg as jcfg, mc_tla as jtla
+    from jaxtlc.io import tlc_log as jlog
+    from jaxtlc.obs import journal as jj, schema as js, views as jv
+    from jaxtlc.resil import faults as jf
+    from torchtlc.frontend import launch as tl, mc_cfg as tcfg, mc_tla as ttla
+    from torchtlc.io import tlc_log as tlog
+    from torchtlc.obs import journal as tj, schema as ts, views as tv
+    from torchtlc.resil import faults as tf
+
+    for name in ("SCHEMA_VERSION", "ENVELOPE", "EVENTS", "VERDICTS"):
+        assert getattr(ts, name) == getattr(js, name), name
+    assert ([f.name for f in dataclasses.fields(tf.FaultPlan)]
+            == [f.name for f in dataclasses.fields(jf.FaultPlan)])
+    spec = "write_fail@2,truncate@1,transient@0,sigterm@3,alloc_fail@1," \
+           "spill_fail@2,runner_die@1,slow_dispatch@4"
+    assert (dataclasses.astuple(tf.FaultPlan.parse(spec))
+            == dataclasses.astuple(jf.FaultPlan.parse(spec)))
+    assert tlog.ACTION_LINES == jlog.ACTION_LINES
+    for prev in (None, (10.0, 100, 50), (30.0, 5, 5)):
+        assert (tv.interval_rates(prev, 20.0, 700, 300)
+                == jv.interval_rates(prev, 20.0, 700, 300))
+    cfg_text = ("CONSTANT defaultInitValue = defaultInitValue\n"
+                "CONSTANT REQUESTS_CAN_FAIL <- const_fail\n"
+                "SPECIFICATION Spec\nINVARIANT TypeOK\n"
+                "INVARIANT OnlyOneVersion\nPROPERTY ReconcileCompletes\n")
+    assert (dataclasses.asdict(tcfg.parse_cfg(cfg_text))
+            == dataclasses.asdict(jcfg.parse_cfg(cfg_text)))
+    tla_text = ("---- MODULE MC ----\nEXTENDS KubeAPI, TLC\n"
+                "const_fail ==\nTRUE\nconst_set ==\n{\"a\", \"b\"}\n====\n")
+    assert (dataclasses.asdict(ttla.parse_mc_tla(tla_text))
+            == dataclasses.asdict(jtla.parse_mc_tla(tla_text)))
+    assert ttla.eval_constant("TRUE") == jtla.eval_constant("TRUE")
+    assert [f.name for f in dataclasses.fields(tl.LaunchConfig)] == [
+        f.name for f in dataclasses.fields(jl.LaunchConfig)]
+    # one journal line each, read back by the other package's reader
+    for mine, theirs, name in ((tj, jj, "t"), (jj, tj, "j")):
+        path = str(tmp_path / f"{name}.jsonl")
+        with mine.RunJournal(path) as j:
+            j.event("progress", depth=3, generated=10, distinct=7, queue=2)
+        assert [e["event"] for e in theirs.read(path)] == ["progress"]

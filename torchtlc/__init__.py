@@ -3,6 +3,11 @@ checker, for one NVIDIA H100.
 
 Layers, from the entry point down:
 
+* ``cli`` / ``api`` - the user's ``python -m torchtlc.cli check MC.cfg``:
+  model resolution (``frontend``), the TLC transcript (``io.tlc_log``),
+  the run supervisor (``resil``: segments, checkpoints, -recover,
+  auto-regrow, the host spill tier) and the counterexample re-run
+  (``engine.hostdriver``, ``engine.trace``);
 * ``entry`` - ``entry()`` and ``dryrun_multichip()``, shaped like the
   reference's ``__graft_entry__``;
 * ``engine.bfs`` - the host-driven BFS loop (``check``, ``make_engine``);
@@ -16,3 +21,5 @@ Layers, from the entry point down:
 
 Imports torch and numpy only: never jax, never the reference package.
 """
+
+__version__ = "0.2.0"  # the reference release the port tracks

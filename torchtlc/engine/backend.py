@@ -34,7 +34,7 @@ from ..spec.codec import get_codec
 from ..spec.invariants import make_invariant_kernel
 from ..spec.kernel import initial_vectors, lane_layout, make_kernel
 from ..spec.labels import LABEL_ID, LABELS
-from .fingerprint import fp64_words
+from .fingerprint import DEFAULT_FP_INDEX, fp64_words
 
 # violation codes (jaxtlc/engine/bfs.py:53-61)
 OK = 0
@@ -143,7 +143,8 @@ class ExpandOut(NamedTuple):
 
 
 def make_expand_stage(backend: SpecBackend, chunk: int,
-                      deferred: bool = False):
+                      deferred: bool = False,
+                      fp_index: int = DEFAULT_FP_INDEX):
     """expand(block [chunk, W] int32, n) -> ExpandOut: kernel K1, the
     deadlock mask, fingerprints (kernel K2) and the first-wins violation
     (TypeOK > OnlyOneVersion > assert > deadlock > slot overflow; with
@@ -190,7 +191,7 @@ def make_expand_stage(backend: SpecBackend, chunk: int,
         ]).to(torch.int64)
         k = hits.to(torch.uint8).argmax().view(1)
         hit = hits.any()
-        lo, hi = fp64_words(packed, nbits)
+        lo, hi = fp64_words(packed, nbits, fp_index)
         return ExpandOut(
             packed=packed, lo=lo, hi=hi, valid=valid, action=action, gen=gen,
             viol=torch.where(hit, k[0] + 1, OK),

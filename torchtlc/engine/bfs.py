@@ -22,6 +22,18 @@ The frontier is a ping-pong pair of level buffers of packed states
 7. with ``obs_slots > 0``, writes the body's row of the counter ring
    (obs.counters.ring_row: kernel K8).
 
+In spill mode (``make_stage_pair(..., spill=True)``, driven by
+engine.spill.SpillRuntime) the commit also takes a host ``veto`` mask -
+candidates the host spill store already holds - that dedups like a
+table hit, the fp-full halt is off (the host driver flushes the table
+before it could fill), and the carry's ``spill_hits`` counts the vetoed
+valid candidates (ring column 7).
+
+``make_segment`` runs exactly ``ckpt_every`` step bodies - the
+reference's ``lax.fori_loop(0, ckpt_every, step_fn)`` segment - each of
+them the identity on a finished carry, so segment boundaries (and with
+them checkpoints) fall where the reference's do.
+
 Modes resolve as the reference's do (``resolve_sort_free``,
 ``resolve_deferred``): at chunk >= 2048 both the sort-free slab dedup and
 the deferred invariants are on.  ``pipeline=True`` and ``coverage=True``
@@ -67,7 +79,7 @@ from .backend import (
     make_deferred_checker,
     make_expand_stage,
 )
-from .fingerprint import fp64_words
+from .fingerprint import DEFAULT_FP_INDEX, fp64_words
 from .fpset import (
     FPSet,
     fpset_actual_collision,
@@ -83,7 +95,8 @@ __all__ = [
     "make_backend_engine", "make_stage_pair", "check", "result_from_carry",
     "outdegree_from_hist", "commit_block", "commit_block_plain",
     "enqueue_order", "resolve_device", "resolve_sort_free",
-    "resolve_deferred", "obs_rows",
+    "resolve_deferred", "obs_rows", "make_segment", "carry_done",
+    "clone_carry",
 ]
 
 VIOLATION_NAMES = {
@@ -93,7 +106,10 @@ VIOLATION_NAMES = {
     VIOL_ASSERT: "Assertion failure (PlusCal assert)",
     VIOL_DEADLOCK: "Deadlock reached",
     VIOL_SLOT_OVERFLOW: "Codec slot overflow (raise ModelConfig bounds)",
-    VIOL_FPSET_FULL: "Fingerprint table full (raise fp_capacity)",
+    VIOL_FPSET_FULL: ("Fingerprint table full (auto-grow doubles it; "
+                      "when device memory is exhausted the host spill "
+                      "tier takes over - raise fp_capacity only to "
+                      "avoid the regrow recompiles)"),
     VIOL_QUEUE_FULL: "Frontier queue full (raise queue_capacity)",
 }
 
@@ -141,6 +157,9 @@ class EngineCarry(NamedTuple):
     obs_head: torch.Tensor = None  # rows ever written
     obs_bodies: torch.Tensor = None  # engine bodies executed
     obs_expanded: torch.Tensor = None  # states popped so far
+    # host spill tier (None when spill mode is off): candidates the host
+    # fingerprint store vetoed so far (engine.spill)
+    spill_hits: torch.Tensor = None
 
 
 class CheckResult(NamedTuple):
@@ -197,6 +216,11 @@ def resolve_deferred(deferred, chunk: int) -> bool:
 
 def _running(h: Bundle) -> bool:
     return (h.qhead < h.level_n or h.next_n > 0) and h.viol == OK
+
+
+def carry_done(c: EngineCarry) -> bool:
+    """Host-side termination test: a violation, or both levels empty."""
+    return not _running(read_bundle(c))
 
 
 # ---------------------------------------------------------------------------
@@ -309,12 +333,19 @@ def commit_block(queue, dst: int, next_n: int, qcap: int, e_idx, n_new,
 
 def make_stage_pair(backend, ck: int, *, queue_capacity: int,
                     fp_capacity: int, sort_free: bool = False,
-                    deferred: bool = False, obs_slots: int = 0):
+                    deferred: bool = False, obs_slots: int = 0,
+                    spill: bool = False, fp_index: int = DEFAULT_FP_INDEX):
     """(pop_expand, commit) at pop width ck, in the RESOLVED modes:
     sort_free commits through the hash-slab dedup, deferred checks the
     invariants on the fresh-insert claimants, obs_slots > 0 writes the
     counter ring.  commit.slab_fallbacks counts the commits whose slab
-    claimants exceeded R (the sorted fallback)."""
+    claimants exceeded R (the sorted fallback).
+
+    spill=True builds the spill-mode commit (jaxtlc/engine/bfs.py:
+    434-447, 598-600, 639-649): it takes `veto` ([ck * L] bool, the
+    candidates the host store holds), inserts valid & ~veto, never raises
+    the fp-full halt, and adds the vetoed valid candidates to the carry's
+    spill_hits."""
     cdc = backend.cdc
     L = backend.n_lanes
     n_labels = len(backend.labels)
@@ -324,7 +355,8 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
     CW = min(2 * ck, R)  # fpset round-0 claim width
     A = min(2 * ck, ncand)  # enqueue segment width
     fp_limit = int(fp_capacity * FP_HIGHWATER)
-    expand = make_expand_stage(backend, ck, deferred=deferred)
+    expand = make_expand_stage(backend, ck, deferred=deferred,
+                               fp_index=fp_index)
     checker = make_deferred_checker(backend) if deferred else None
 
     def pop_expand(c: EngineCarry, h: Bundle):
@@ -333,10 +365,16 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
         return expand(block, n), n
 
     def commit(c: EngineCarry, ex, n: int, qhead_pop: int, qhead_out: int,
-               h: Bundle) -> EngineCarry:
-        # the body's own candidate width against the high-water mark
-        fp_full = h.distinct + ncand > fp_limit
-        insert_mask = torch.zeros_like(ex.valid) if fp_full else ex.valid
+               h: Bundle, veto=None) -> EngineCarry:
+        if spill:
+            # the host driver keeps the table below the high-water mark;
+            # a host-vetoed candidate dedups like a table hit
+            fp_full = False
+            insert_mask = ex.valid & ~veto
+        else:
+            # the body's own candidate width against the high-water mark
+            fp_full = h.distinct + ncand > fp_limit
+            insert_mask = torch.zeros_like(ex.valid) if fp_full else ex.valid
         fps, is_new_c, c_idx, nreps, fell_back = fpset_insert_dedup(
             c.fps, ex.lo, ex.hi, insert_mask, probe_width=R, claim_width=CW,
             sort_free=sort_free)
@@ -385,13 +423,17 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
             parity, level_n, level = c.parity, c.level_n, c.level
             qhead = c.qhead + (qhead_out - h.qhead)
         depth = torch.maximum(c.depth, level)
+        spill_hits = c.spill_hits
+        if spill:
+            spill_hits = c.spill_hits + (veto & ex.valid).sum()
         if obs_slots:
             # one telemetry row per body (post-commit cumulative counters;
             # non-flip bodies write the dump row)
             ring_row(c.obs_ring, c.obs_head, c.obs_bodies, c.obs_expanded, n,
                      level_done, c.level, generated, c.generated, distinct,
                      c.distinct, level_n, c.act_gen, c.act_dist, acts_old,
-                     n_labels)
+                     n_labels, spill_hits if spill else None,
+                     c.spill_hits if spill else None)
 
         vals = torch.stack([parity, qhead, level_n, next_n, distinct, viol,
                             hit_ex.to(torch.int64)]).tolist()
@@ -403,7 +445,8 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
             fps=fps, parity=parity, qhead=qhead, level_n=level_n,
             next_n=next_n, level=level, depth=depth, generated=generated,
             distinct=distinct, viol=viol, viol_state=viol_state,
-            viol_action=viol_action, bundle=Bundle(*vals[:6]),
+            viol_action=viol_action, spill_hits=spill_hits,
+            bundle=Bundle(*vals[:6]),
         )
 
     commit.slab_fallbacks = 0
@@ -438,6 +481,7 @@ def make_backend_engine(
     sort_free: bool = None,
     deferred: bool = None,
     device=None,
+    fp_index: int = DEFAULT_FP_INDEX,
 ):
     """Build (init_fn, run_fn, step_fn) over a SpecBackend.
 
@@ -466,7 +510,8 @@ def make_backend_engine(
     qcap = queue_capacity
     small = chunk // 16 if chunk >= 1 << 14 else 0
     kw = dict(queue_capacity=qcap, fp_capacity=fp_capacity,
-              sort_free=sort_free, deferred=deferred, obs_slots=obs_slots)
+              sort_free=sort_free, deferred=deferred, obs_slots=obs_slots,
+              fp_index=fp_index)
     big_stages = make_stage_pair(backend, chunk, **kw)
     small_stages = make_stage_pair(backend, small, **kw) if small else None
     widths = {chunk: big_stages} | ({small: small_stages} if small else {})
@@ -485,7 +530,7 @@ def make_backend_engine(
         queue = torch.zeros(2, qcap + 2 * chunk, W, dtype=torch.int32,
                             device=dev)
         queue[0, :n0] = packed0.to(dev)
-        lo, hi = fp64_words(packed0.to(dev), cdc.nbits)
+        lo, hi = fp64_words(packed0.to(dev), cdc.nbits, fp_index)
         fps, is_new_c, _, _ = fpset_insert_sorted(
             fpset_new(fp_capacity, dev), lo, hi,
             torch.ones(n0, dtype=torch.bool, device=dev))
@@ -545,31 +590,57 @@ def make_backend_engine(
     return init_fn, run_fn, step_fn
 
 
+def clone_carry(c: EngineCarry) -> EngineCarry:
+    """A copy of every tensor of the carry (the engine steps in place; the
+    supervisor keeps its last good carry intact this way)."""
+    return EngineCarry(**{
+        k: (FPSet(v.table.clone()) if k == "fps"
+            else v.clone() if isinstance(v, torch.Tensor) else v)
+        for k, v in c._asdict().items()})
+
+
+def make_segment(step_fn, ckpt_every: int):
+    """seg(carry) -> the carry after exactly ckpt_every step bodies (the
+    reference's lax.fori_loop(0, ckpt_every, step_fn)); a body on a
+    finished carry leaves it as it is, so the loop stops early with the
+    same result."""
+
+    def seg(c: EngineCarry) -> EngineCarry:
+        for _ in range(ckpt_every):
+            if carry_done(c):
+                break
+            c = step_fn(c)
+        return c
+
+    return seg
+
+
 def make_engine(cfg: ModelConfig, chunk: int = 1024,
                 queue_capacity: int = 1 << 15, fp_capacity: int = 1 << 20,
                 pipeline: bool = False, obs_slots: int = 0,
                 coverage: bool = False, sort_free: bool = None,
-                deferred: bool = None, device=None):
+                deferred: bool = None, device=None,
+                fp_index: int = DEFAULT_FP_INDEX):
     """(init_fn, run_fn, step_fn) for one KubeAPI configuration."""
     return make_backend_engine(
         kubeapi_backend(cfg), chunk, queue_capacity, fp_capacity,
         pipeline=pipeline,
         obs_slots=obs_slots, coverage=coverage, sort_free=sort_free,
-        deferred=deferred, device=device)
+        deferred=deferred, device=device, fp_index=fp_index)
 
 
 def check(cfg: ModelConfig, chunk: int = 1024, queue_capacity: int = 1 << 15,
           fp_capacity: int = 1 << 20, pipeline: bool = False,
           obs_slots: int = 0, coverage: bool = False,
           sort_free: bool = None, deferred: bool = None,
-          device=None) -> CheckResult:
+          device=None, fp_index: int = DEFAULT_FP_INDEX) -> CheckResult:
     """Run an exhaustive check on `device` (None = the card).  wall_s
     times the run only: the kernels are built and loaded before it."""
     init_fn, run_fn, _ = make_engine(
         cfg, chunk, queue_capacity, fp_capacity, pipeline=pipeline,
         obs_slots=obs_slots,
         coverage=coverage, sort_free=sort_free, deferred=deferred,
-        device=device)
+        device=device, fp_index=fp_index)
     carry = init_fn()
     if carry.queue.is_cuda:
         torch.cuda.synchronize()

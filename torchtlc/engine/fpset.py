@@ -40,10 +40,16 @@ chunk >= 2048) replaces the two full-width sorts with a hash slab:
    mask.  When the claimants exceed R the batch takes the sorted path
    wholesale, as the reference does.
 
+The membership walk (``fpset_member``, the host spill tier's device
+filter) reads the table only: per lane, mix + remap, then bucket rows
+``b, b+1, ...`` until a word-exact match or a row with an empty slot.
+
 On a CUDA tensor the key step and each probe segment run kernel K3
 (torchtlc/kernels/csrc/fpset.cu: fpset_key, fpset_probe, fpset_claim,
-fpset_walk), the slab steps K5 and K6 (slab.cu); on a CPU tensor, the
-plain versions below.  The sorts and the prefix sums are library calls
+fpset_walk), the slab steps K5 and K6 (slab.cu), the membership walk K9
+(fpset.cu: fpset_member); on a CPU tensor, the plain versions below.
+The host helpers (``mix_host_np``, ``unmix_host``, ``host_insert``) are
+numpy copies of the reference's.  The sorts and the prefix sums are library calls
 (``torch.sort``, ``torch.cumsum``) in both.  The table is updated IN
 PLACE.
 """
@@ -52,6 +58,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from ..spec.codec import to_i32, to_u64
@@ -61,6 +68,20 @@ WALK_SLICE = 2048  # S: stragglers settled per walk slice
 KEY00 = -(1 << 63)  # sort key of the reserved (0, 0) pair
 MASK32 = 0xFFFFFFFF
 _MIX_CONSTS = (0x9E3779B9, 0x517CC1B7, 0x27220A95)
+
+
+class CapacityError(RuntimeError):
+    """A fingerprint table (or another bounded resource) ran out of room,
+    with its occupancy and capacity."""
+
+    def __init__(self, occupancy: int, capacity: int,
+                 resource: str = "fpset"):
+        self.occupancy = int(occupancy)
+        self.capacity = int(capacity)
+        self.resource = resource
+        super().__init__(
+            f"{resource} full: {self.occupancy}/{self.capacity} slots "
+            f"occupied (raise the {resource} capacity or enable auto-grow)")
 
 
 class FPSet(NamedTuple):
@@ -120,6 +141,94 @@ def _bucket_of(hi, nbuckets: int):
     if lognb == 0:
         return torch.zeros_like(hi)
     return hi >> (32 - lognb)
+
+
+# ---------------------------------------------------------------------------
+# host helpers (numpy and Python ints; jaxtlc/engine/fpset.py:191-290)
+# ---------------------------------------------------------------------------
+
+
+def _fmix32_host(h: int) -> int:
+    m = 0xFFFFFFFF
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & m
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & m
+    h ^= h >> 16
+    return h
+
+
+def mix_host(lo: int, hi: int) -> Tuple[int, int]:
+    """Host replica of _mix on Python ints."""
+    for c in _MIX_CONSTS:
+        lo, hi = hi, lo ^ _fmix32_host((hi + c) & 0xFFFFFFFF)
+    return lo, hi
+
+
+def _fmix32_np(h: np.ndarray) -> np.ndarray:
+    h = h.astype(np.uint32)
+    h ^= h >> np.uint32(16)
+    h = (h * np.uint32(0x85EBCA6B)).astype(np.uint32)
+    h ^= h >> np.uint32(13)
+    h = (h * np.uint32(0xC2B2AE35)).astype(np.uint32)
+    h ^= h >> np.uint32(16)
+    return h
+
+
+def unmix_host(lo: np.ndarray, hi: np.ndarray):
+    """Vectorized inverse of _mix over uint32 arrays: the raw fingerprints
+    of stored table words (regrow's migration and the spill flush)."""
+    lo = np.asarray(lo, np.uint32).copy()
+    hi = np.asarray(hi, np.uint32).copy()
+    with np.errstate(over="ignore"):
+        for c in reversed(_MIX_CONSTS):
+            lo, hi = (
+                hi ^ _fmix32_np((lo + np.uint32(c)).astype(np.uint32)),
+                lo,
+            )
+    return lo, hi
+
+
+def mix_host_np(lo: np.ndarray, hi: np.ndarray):
+    """Vectorized _mix over uint32 arrays (inverse of unmix_host); the
+    host spill store keys on these MIXED words."""
+    lo = np.asarray(lo, np.uint32).copy()
+    hi = np.asarray(hi, np.uint32).copy()
+    with np.errstate(over="ignore"):
+        for c in _MIX_CONSTS:
+            lo, hi = (
+                hi.copy(),
+                lo ^ _fmix32_np((hi + np.uint32(c)).astype(np.uint32)),
+            )
+    return lo, hi
+
+
+def bucket_of_host(hi: int, nbuckets: int) -> int:
+    lognb = nbuckets.bit_length() - 1
+    return (hi >> (32 - lognb)) if lognb else 0
+
+
+def host_insert(table: np.ndarray, lo: int, hi: int) -> bool:
+    """Insert-or-find one raw fingerprint in a host numpy table whose
+    memory order is slot-major (lo, hi) pairs (the device's [cap/8, 16]
+    rows or a flat [cap, 2]), walking the device's slot sequence linearly
+    from the home bucket's first slot.  Returns is_new."""
+    table = table.reshape(-1, 2)  # a view: writes reach the caller
+    cap = table.shape[0]
+    lo, hi = mix_host(lo, hi)
+    if lo == 0 and hi == 0:
+        lo = 1
+    base = bucket_of_host(hi, cap // BUCKET) * BUCKET
+    for k in range(cap):
+        slot = (base + k) % cap
+        r0, r1 = int(table[slot, 0]), int(table[slot, 1])
+        if r0 == lo and r1 == hi:
+            return False
+        if r0 == 0 and r1 == 0:
+            table[slot, 0] = lo
+            table[slot, 1] = hi
+            return True
+    raise CapacityError(cap, cap)
 
 
 def key_of(lo, hi):
@@ -266,6 +375,53 @@ def probe_segment(table, keys, nreps, off: int, C: int, is_new_out,
 
     ops.fpset_probe_segment(table, keys, nreps, off, C, is_new_out, npend,
                             active)
+
+
+# ---------------------------------------------------------------------------
+# membership walk (plain version of K9)
+# ---------------------------------------------------------------------------
+
+
+def fpset_member_plain(table: torch.Tensor, lo: torch.Tensor,
+                       hi: torch.Tensor, mask: torch.Tensor,
+                       max_rounds: int = 0, count_rows: bool = False):
+    """The reference's fpset_member (jaxtlc/engine/fpset.py:292), [N] bool:
+    True where the masked raw fingerprint (lo, hi int32) is stored.  Each
+    round every pending lane reads its current bucket row: a word-exact
+    match is found, a row with an empty slot ends the walk, a full row
+    sends the lane on to the next bucket.  max_rounds > 0 caps the rounds
+    (unresolved lanes report False); 0 walks until every lane resolved,
+    at most nb rounds.  count_rows=True also returns the bucket rows read
+    (the byte bound of K9 counts them).  The table is only read."""
+    nb = table.shape[0]
+    mlo, mhi = _remap(*_mix(to_u64(lo), to_u64(hi)))
+    cur = _bucket_of(mhi, nb)
+    pend = mask.clone()
+    found = torch.zeros_like(mask)
+    limit = max_rounds if max_rounds > 0 else nb
+    rows_read = 0
+    for _ in range(limit):
+        if not bool(pend.any()):
+            break
+        rows_read += int(pend.sum())
+        f, occ = _row_probe(table, torch.where(pend, cur, 0), mlo, mhi)
+        hit = pend & f
+        found |= hit
+        pend = pend & ~hit & (occ == BUCKET)
+        cur = torch.where(pend, (cur + 1) % nb, cur)
+    return (found, rows_read) if count_rows else found
+
+
+def fpset_member(s: FPSet, lo, hi, mask, max_rounds: int = 0) -> torch.Tensor:
+    """Membership-only probe, [N] bool: kernel K9 on a CUDA tensor, the
+    plain version on a CPU tensor.  A stored fingerprint may report False
+    when max_rounds cuts its walk (the spill filter then asks the host
+    store); an absent one never reports True."""
+    if not lo.is_cuda:
+        return fpset_member_plain(s.table, lo, hi, mask, max_rounds)
+    from ..kernels import ops
+
+    return ops.fpset_member(s.table, lo, hi, mask, max_rounds)
 
 
 # ---------------------------------------------------------------------------
@@ -556,6 +712,21 @@ def fpset_insert_dedup(
                                      claim_width=claim_width), False)
     return fpset_insert_slab(s, lo, hi, mask, probe_width=probe_width,
                              claim_width=claim_width)
+
+
+def fpset_insert(s: FPSet, lo, hi, mask, sort_free: bool = False,
+                 probe_width: int = 0) -> Tuple[FPSet, torch.Tensor]:
+    """Insert-or-find a batch (jaxtlc/engine/fpset.py:869): (set, is_new
+    [N] bool in lane order).  A fingerprint repeated in the batch is new
+    at most at its highest lane.  sort_free takes the slab path, where
+    probe_width bounds the claimant slice."""
+    n = lo.shape[0]
+    s2, is_new_c, c_idx, _, _ = fpset_insert_dedup(
+        s, lo, hi, mask, probe_width=probe_width if sort_free else 0,
+        sort_free=sort_free)
+    is_new = torch.zeros(n + 1, dtype=torch.bool, device=lo.device)
+    is_new[c_idx] = is_new_c  # the slab path's sentinel lane n drops
+    return s2, is_new[:n]
 
 
 def fpset_actual_collision(s: FPSet) -> float:

@@ -6,7 +6,8 @@ EngineCarry (unpipelined fields), each leaf a numpy array in the
 reference's dtype; the fingerprint set appears as ``fps``, its
 ``[cap/8, 16]`` uint32 table words.  The observability leaves
 (``OBS_FIELDS``: the ring as uint32 words, its head as int32, the bodies
-and expanded counters as uint32) appear when the carry has them.  ``carry_from_numpy(d)`` takes such a
+and expanded counters as uint32) appear when the carry has them.  A spill-mode carry adds ``spill_hits`` (uint32).
+``carry_from_numpy(d)`` takes such a
 dict - or any object with those attributes, such as a reference carry whose
 leaves were pulled to numpy - and builds the port's carry on `device`.
 Converting a reference carry, stepping both, and converting back gives
@@ -34,6 +35,9 @@ FIELDS = ("fps", "queue", "parity", "qhead", "level_n", "next_n", "level",
 OBS_SCALARS = {"obs_head": np.int32, "obs_bodies": np.uint32,
                "obs_expanded": np.uint32}
 OBS_FIELDS = ("obs_ring", *OBS_SCALARS)
+# the reference carry's leaf order (jax.tree_util.tree_leaves of an
+# unpipelined EngineCarry: NamedTuple field order, None fields dropped)
+LEAF_ORDER = FIELDS + OBS_FIELDS + ("spill_hits",)
 
 
 def _has(d, name) -> bool:
@@ -65,6 +69,9 @@ def carry_to_numpy(c: EngineCarry) -> dict:
         for name, dt in OBS_SCALARS.items():
             out[name] = np.asarray(int(getattr(c, name)) & 0xFFFFFFFF,
                                    np.uint32).astype(dt)
+    if c.spill_hits is not None:
+        out["spill_hits"] = np.asarray(int(c.spill_hits) & 0xFFFFFFFF,
+                                       np.uint32)
     return out
 
 
@@ -85,6 +92,9 @@ def carry_from_numpy(d, device=None) -> EngineCarry:
         for name in OBS_SCALARS:
             vals[name] = torch.tensor(int(_get(d, name)), dtype=torch.int64,
                                       device=dev)
+    if _has(d, "spill_hits"):
+        vals["spill_hits"] = torch.tensor(int(_get(d, "spill_hits")),
+                                          dtype=torch.int64, device=dev)
     return EngineCarry(
         fps=FPSet(words(_get(d, "fps"))),
         queue=words(_get(d, "queue")),

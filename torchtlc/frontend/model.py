@@ -1,0 +1,139 @@
+"""Model resolution: MC.cfg + MC.tla (+ .launch) -> a run spec (port of
+jaxtlc/frontend/model.py, KubeAPI path).
+
+The three config layers a Toolbox model has - the .launch file (Toolbox
+knobs), MC.cfg (the TLC DSL) and MC.tla (constant definitions) - are
+resolved against the KubeAPI spec, the one root spec the port executes
+so far.  A model of another root spec is refused with an error: the
+generic and structural frontends come with their own slices of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import List, Optional
+
+from ..config import ModelConfig
+from ..engine.fingerprint import DEFAULT_FP_INDEX
+from .launch import LaunchConfig, parse_launch_file
+from .mc_cfg import TLCConfig, parse_cfg_file
+from .mc_tla import eval_constant, parse_mc_tla_file
+
+KNOWN_INVARIANTS = ("TypeOK", "OnlyOneVersion")
+KNOWN_PROPERTIES = ("ReconcileCompletes", "CleansUpProperly")
+
+OTHER_SPEC = ("the port runs only the KubeAPI root spec so far; the gen "
+              "and struct frontends are ported later (ROADMAP Queue A "
+              "items 11, 12)")
+
+
+@dataclasses.dataclass
+class RunSpec:
+    model: ModelConfig
+    invariants: List[str]
+    properties: List[str]
+    check_deadlock: bool
+    workers: str
+    fp_index: int
+    spec_name: str
+    model_name: str
+
+
+def resolve(
+    cfg_path: str,
+    launch_path: Optional[str] = None,
+    workers: str = "gpu",
+    fp_index: Optional[int] = None,
+    check_deadlock: bool = True,
+    const_overrides: Optional[dict] = None,
+) -> RunSpec:
+    """Resolve a run from an MC.cfg (with sibling MC.tla) as TLC would;
+    ValueError for anything the KubeAPI path cannot run."""
+    cfg: TLCConfig = parse_cfg_file(cfg_path)
+    model_dir = os.path.dirname(os.path.abspath(cfg_path))
+    mc_tla_path = os.path.join(model_dir, "MC.tla")
+    consts = dict(cfg.constants)
+    extends: List[str] = []
+    if os.path.exists(mc_tla_path):
+        mc = parse_mc_tla_file(mc_tla_path)
+        extends = mc.extends
+        for name, defname in cfg.substitutions.items():
+            if defname in mc.definitions:
+                consts[name] = mc.definitions[defname]
+    if const_overrides:
+        consts.update(const_overrides)
+
+    launch: Optional[LaunchConfig] = None
+    if launch_path is None:
+        toolbox_dir = os.path.dirname(model_dir)
+        names = (sorted(os.listdir(toolbox_dir))
+                 if os.path.isdir(toolbox_dir) else [])
+        for f in names:
+            if f.endswith(".launch"):
+                launch_path = os.path.join(toolbox_dir, f)
+                break
+    if launch_path and os.path.exists(launch_path):
+        launch = parse_launch_file(launch_path)
+
+    spec_name = launch.spec_name if launch else (extends[0] if extends
+                                                 else "")
+    if spec_name == "" and not os.path.exists(mc_tla_path):
+        # no MC.tla: TLC's Foo.cfg <-> Foo.tla convention, then a module
+        # named like the toolbox directory, then a lone module
+        cands = sorted(f[:-4] for f in os.listdir(model_dir)
+                       if f.endswith(".tla"))
+        cfg_base = os.path.splitext(os.path.basename(cfg_path))[0]
+        toolbox = os.path.basename(os.path.dirname(model_dir))
+        toolbox = toolbox[:-8] if toolbox.endswith(".toolbox") else toolbox
+        preferred = [p for p in (cfg_base, toolbox) if p in cands]
+        if preferred:
+            spec_name = preferred[0]
+        elif len(cands) == 1:
+            spec_name = cands[0]
+        elif cands:
+            raise ValueError(
+                f"ambiguous root spec: several .tla modules next to the "
+                f"config ({', '.join(cands)}); add a .launch file or an "
+                "MC.tla naming the root module")
+    if spec_name not in ("", "KubeAPI"):
+        raise ValueError(f"root spec {spec_name!r}: {OTHER_SPEC}")
+    if cfg.specification not in (None, "Spec"):
+        raise ValueError(f"unsupported SPECIFICATION {cfg.specification!r}")
+
+    def boolify(name: str, default: bool) -> bool:
+        v = consts.get(name, default)
+        if isinstance(v, str):
+            v = eval_constant(v)
+        if not isinstance(v, bool):
+            raise ValueError(f"constant {name} must be BOOLEAN, got {v!r}")
+        return v
+
+    model = ModelConfig(
+        requests_can_fail=boolify("REQUESTS_CAN_FAIL", True),
+        requests_can_timeout=boolify("REQUESTS_CAN_TIMEOUT", True),
+    )
+    invariants = [i for i in cfg.invariants if i]
+    for inv in invariants:
+        if inv not in KNOWN_INVARIANTS:
+            raise ValueError(f"unknown INVARIANT {inv!r}")
+    properties = list(cfg.properties)
+    if launch:
+        enabled_inv = {n for n, on in launch.invariants if on}
+        if launch.invariants:
+            invariants = [i for i in invariants if i in enabled_inv]
+        properties = [n for n, on in launch.properties if on]
+        check_deadlock = launch.check_deadlock
+        if fp_index is None:
+            fp_index = launch.fp_index
+    return RunSpec(
+        model=model,
+        invariants=invariants,
+        properties=properties,
+        check_deadlock=check_deadlock,
+        workers=workers,
+        fp_index=DEFAULT_FP_INDEX if fp_index is None else fp_index,
+        spec_name=spec_name or "KubeAPI",
+        model_name=(launch.model_name if launch
+                    else os.path.basename(model_dir)),
+    )

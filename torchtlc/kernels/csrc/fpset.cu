@@ -23,6 +23,16 @@
 //
 // Bound: latency.  Round 0 gathers one 64-byte row per candidate (R rows);
 // the walk is serial in rounds but touches only the few stragglers.
+//
+// Kernel K9 "fpset_member" (member_kernel below) replaces
+// jaxtlc/engine/fpset.py:292 fpset_member, the device filter of the host
+// spill tier (jaxtlc/engine/spill.py:319-325): a read-only membership walk,
+// one thread per lane.  The reference's while_loop runs every lane to the
+// worst lane's round; lanes do not interact, so each thread here walks its
+// own rows and stops at its first hit or non-full row, which gives the
+// same per-lane answer.  Bound: bytes - each lane reads its 9 input bytes,
+// writes one, and gathers one 64-byte row per round it walks (four 16-byte
+// loads); at the spill's 0.85 load most lanes stop after one or two rows.
 #include <cuda_runtime.h>
 
 #include "fpset.cuh"
@@ -245,5 +255,34 @@ extern "C" int tt_fpset_walk(void* table, int lognb, unsigned nb_mask,
   walk_kernel<<<1, WALK_THREADS, 0, (cudaStream_t)stream>>>(
       (uint32_t*)table, lognb, (uint32_t)nb_mask, (const int64_t*)keys, R,
       (uint8_t*)pending, (uint8_t*)is_new, (const int*)npend);
+  return (int)cudaGetLastError();
+}
+
+__global__ void member_kernel(const uint32_t* __restrict__ table, int lognb,
+                              uint32_t nb_mask,
+                              const uint32_t* __restrict__ lo,
+                              const uint32_t* __restrict__ hi,
+                              const uint8_t* __restrict__ mask, long long N,
+                              long long max_rounds,
+                              uint8_t* __restrict__ found) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= N) return;
+  long long rows;
+  found[i] = fp_member_lane(table, lognb, nb_mask, lo[i], hi[i], mask[i] != 0,
+                            max_rounds, &rows);
+}
+
+extern "C" int tt_fpset_member(const void* table, int lognb, unsigned nb_mask,
+                               const void* lo, const void* hi,
+                               const void* mask, long long N,
+                               long long max_rounds, void* found,
+                               void* stream) {
+  const int threads = 256;
+  const long long blocks = (N + threads - 1) / threads;
+  if (blocks > 0)
+    member_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)table, lognb, (uint32_t)nb_mask, (const uint32_t*)lo,
+        (const uint32_t*)hi, (const uint8_t*)mask, N, max_rounds,
+        (uint8_t*)found);
   return (int)cudaGetLastError();
 }

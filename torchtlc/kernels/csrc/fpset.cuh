@@ -94,3 +94,46 @@ HD int32_t fp_round0(const uint32_t* table, int lognb, const int64_t* keys,
 HD bool fp_less(uint32_t lo_a, uint32_t hi_a, uint32_t lo_b, uint32_t hi_b) {
   return lo_a < lo_b || (lo_a == lo_b && hi_a < hi_b);
 }
+
+// One 64-byte bucket row into registers: four 16-byte loads on the card.
+HD void fp_load_row(const uint32_t* table, uint32_t b, uint32_t* row) {
+#if defined(__CUDA_ARCH__)
+  const uint4* src = reinterpret_cast<const uint4*>(table + (size_t)b * 16);
+  for (int q = 0; q < 4; q++) {
+    const uint4 v = __ldg(src + q);
+    row[4 * q] = v.x;
+    row[4 * q + 1] = v.y;
+    row[4 * q + 2] = v.z;
+    row[4 * q + 3] = v.w;
+  }
+#else
+  for (int k = 0; k < 2 * FP_BUCKET; k++) row[k] = table[(size_t)b * 16 + k];
+#endif
+}
+
+// Membership walk of one raw fingerprint (kernel K9, the reference's
+// fpset_member): mix + remap, then bucket rows b, b+1, ... mod nb until a
+// word-exact match (found) or a row with an empty slot (absent).  A
+// positive max_rounds caps the rows read (an unresolved lane reports
+// false); max_rounds == 0 walks at most nb rows, a bound that binds only
+// on a full table.  *rows gets the number of rows read.
+HD bool fp_member_lane(const uint32_t* table, int lognb, uint32_t nb_mask,
+                       uint32_t lo, uint32_t hi, bool mask,
+                       long long max_rounds, long long* rows) {
+  *rows = 0;
+  if (!mask) return false;
+  const int64_t k = fp_key(lo, hi, true);
+  const uint32_t mlo = fp_key_lo(k), mhi = fp_key_hi(k);
+  uint32_t b = fp_bucket(mhi, lognb);
+  const long long limit =
+      max_rounds > 0 ? max_rounds : (long long)nb_mask + 1;
+  for (long long r = 0; r < limit; r++) {
+    uint32_t row[2 * FP_BUCKET];
+    fp_load_row(table, b, row);
+    *rows = r + 1;
+    if (fp_row_has(row, mlo, mhi)) return true;
+    if (fp_row_occ(row) < FP_BUCKET) return false;
+    b = (b + 1u) & nb_mask;
+  }
+  return false;
+}

@@ -1,4 +1,4 @@
-// CPU build of the per-lane logic of K1, K3, K5-K8, for the host tests
+// CPU build of the per-lane logic of K1, K3, K5-K9, for the host tests
 // (tests/test_torch_kernels_host.py).  g++ compiles the same
 // __host__ __device__ headers nvcc builds the kernels from; these loops
 // stand in for the grids, the straggler walk runs the walk kernel's
@@ -39,6 +39,22 @@ extern "C" void host_expand(const void* layout, const uint32_t* block, int ck,
 extern "C" void host_fpset_key(const uint32_t* lo, const uint32_t* hi,
                                const uint8_t* mask, long long N, int64_t* key) {
   for (long long i = 0; i < N; i++) key[i] = fp_key(lo[i], hi[i], mask[i] != 0);
+}
+
+// The membership walk (K9) of every lane; returns the bucket rows read.
+extern "C" long long host_fpset_member(const uint32_t* table, int lognb,
+                                       const uint32_t* lo, const uint32_t* hi,
+                                       const uint8_t* mask, long long N,
+                                       long long max_rounds, uint8_t* found) {
+  const uint32_t nb_mask = (uint32_t)((1ull << lognb) - 1ull);
+  long long total = 0;
+  for (long long i = 0; i < N; i++) {
+    long long rows;
+    found[i] = fp_member_lane(table, lognb, nb_mask, lo[i], hi[i],
+                              mask[i] != 0, max_rounds, &rows);
+    total += rows;
+  }
+  return total;
 }
 
 // One probe segment: round 0 against the pre-claim table, the first C
@@ -176,7 +192,8 @@ extern "C" void host_deferred_check(const void* layout, const uint32_t* block,
   kube_deferred_pick(Y, block, action, bad, viol, state, vaction);
 }
 
-// One ring row (K8): the same reads, row and updates, sequentially.
+// One ring row (K8): the same reads, row and updates, sequentially;
+// spill_new / spill_old null outside spill mode, as in tt_ring_row.
 extern "C" void host_ring_row(uint32_t* ring, int slots, int cols,
                               long long* head, long long* bodies,
                               long long* expanded, long long n_pop, int flip,
@@ -185,7 +202,9 @@ extern "C" void host_ring_row(uint32_t* ring, int slots, int cols,
                               long long dist_old, long long queue_n,
                               const long long* act_gen,
                               const long long* act_dist,
-                              const long long* acts_old, int n_acts,
+                              const long long* acts_old,
+                              const long long* spill_new,
+                              const long long* spill_old, int n_acts,
                               int n_labels) {
   uint32_t m = 0u;
   for (int r = 0; r <= slots; r++)
@@ -193,7 +212,8 @@ extern "C" void host_ring_row(uint32_t* ring, int slots, int cols,
   bool wrap = ring_wrapped(gen_new, gen_old) ||
               ring_wrapped(dist_new, dist_old) ||
               ring_wrapped(*bodies + 1, *bodies) ||
-              ring_wrapped(*expanded + n_pop, *expanded);
+              ring_wrapped(*expanded + n_pop, *expanded) ||
+              (spill_new != nullptr && ring_wrapped(*spill_new, *spill_old));
   for (int k = 0; k < n_acts; k++)
     wrap = wrap || ring_wrapped(act_gen[k], acts_old[k]) ||
            ring_wrapped(act_dist[k], acts_old[n_acts + k]);
@@ -205,6 +225,7 @@ extern "C" void host_ring_row(uint32_t* ring, int slots, int cols,
   v.bodies = *bodies + 1;
   v.expanded = *expanded + n_pop;
   v.overflow = std::max(m, wrap ? 1u : 0u);
+  v.spill = spill_new != nullptr ? *spill_new : 0;
   const long long row = flip ? *head % slots : slots;
   for (int c = 0; c < cols; c++)
     ring[(size_t)row * cols + c] = ring_cell(v, act_gen, act_dist, n_labels, c);

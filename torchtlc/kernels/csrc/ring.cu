@@ -12,6 +12,9 @@
 //   2. the row, written at head % slots on a level flip, else into the
 //      dump row `slots` (flip is known on the host);
 //   3. head += flip, bodies += 1, expanded += n_pop, in place.
+// In spill mode the row's COL_SPILL is the carry's spill_hits counter
+// (spill_new, after the body) and its wrap against spill_old joins the
+// overflow test; both pointers are null otherwise.
 // __syncthreads separates the reads of phase 1 from the writes of 2 and 3.
 //
 // Bound: latency.  It moves a few hundred bytes (one ring column of
@@ -29,7 +32,8 @@ __global__ void __launch_bounds__(RING_THREADS)
                 const long long* gen_old, const long long* dist_new,
                 const long long* dist_old, const long long* queue_n,
                 const long long* act_gen, const long long* act_dist,
-                const long long* acts_old, int n_acts, int n_labels) {
+                const long long* acts_old, const long long* spill_new,
+                const long long* spill_old, int n_acts, int n_labels) {
   __shared__ unsigned int s_over;
   const int tid = threadIdx.x;
   if (tid == 0) s_over = 0u;
@@ -47,7 +51,8 @@ __global__ void __launch_bounds__(RING_THREADS)
   if (tid == 0)
     wrap = wrap || ring_wrapped(*gen_new, *gen_old) ||
            ring_wrapped(*dist_new, *dist_old) ||
-           ring_wrapped(b0 + 1, b0) || ring_wrapped(e0 + n_pop, e0);
+           ring_wrapped(b0 + 1, b0) || ring_wrapped(e0 + n_pop, e0) ||
+           (spill_new != nullptr && ring_wrapped(*spill_new, *spill_old));
   m = wrap && m < 1u ? 1u : m;
   atomicMax(&s_over, m);
   __syncthreads();
@@ -59,6 +64,7 @@ __global__ void __launch_bounds__(RING_THREADS)
   v.bodies = b0 + 1;
   v.expanded = e0 + n_pop;
   v.overflow = s_over;
+  v.spill = spill_new != nullptr ? *spill_new : 0;
   const long long h = *head;
   const long long row = flip ? h % slots : slots;
   for (int col = tid; col < cols; col += blockDim.x)
@@ -78,7 +84,8 @@ extern "C" int tt_ring_row(void* ring, int slots, int cols, void* head,
                            const void* gen_old, const void* dist_new,
                            const void* dist_old, const void* queue_n,
                            const void* act_gen, const void* act_dist,
-                           const void* acts_old, int n_acts, int n_labels,
+                           const void* acts_old, const void* spill_new,
+                           const void* spill_old, int n_acts, int n_labels,
                            void* stream) {
   ring_kernel<<<1, RING_THREADS, 0, (cudaStream_t)stream>>>(
       (uint32_t*)ring, slots, cols, (long long*)head, (long long*)bodies,
@@ -86,7 +93,8 @@ extern "C" int tt_ring_row(void* ring, int slots, int cols, void* head,
       (const long long*)gen_new, (const long long*)gen_old,
       (const long long*)dist_new, (const long long*)dist_old,
       (const long long*)queue_n, (const long long*)act_gen,
-      (const long long*)act_dist, (const long long*)acts_old, n_acts,
+      (const long long*)act_dist, (const long long*)acts_old,
+      (const long long*)spill_new, (const long long*)spill_old, n_acts,
       n_labels);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // Per-column logic of the observability ring row (kernel K8, ring.cu) as
 // __host__ __device__ functions.
 //
-// Replaces jaxtlc/obs/counters.py:pack_row (:106), wrapped_any (:150) and
+// Replaces jaxtlc/obs/counters.py:pack_row (:106, with COL_SPILL from
+// :32-35), wrapped_any (:150) and
 // the row layout of the module docstring: 10 fixed uint32 columns, then
 // the per-action generated and distinct counters.  The port's counters are
 // int64; a column holds the low 32 bits, as the reference's wrapping
@@ -22,6 +23,7 @@ HD bool ring_wrapped(long long nw, long long old) {
 struct RingScalars {
   long long level, generated, distinct, queue, bodies, expanded;
   uint32_t overflow;
+  long long spill;  // spill_hits in spill mode, else 0
 };
 
 // column `col` of the row; act_gen / act_dist hold n_labels counters
@@ -35,7 +37,8 @@ HD uint32_t ring_cell(const RingScalars& v, const long long* act_gen,
     case 4: return ring_lo32(v.bodies);
     case 5: return ring_lo32(v.expanded);
     case RING_COL_OVERFLOW: return v.overflow;
-    case 7: case 8: case 9: return 0u;  // spill, cert, sym: not carried
+    case 7: return ring_lo32(v.spill);
+    case 8: case 9: return 0u;  // cert, sym: not carried
     default: break;
   }
   const int k = col - RING_N_FIXED;

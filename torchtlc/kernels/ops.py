@@ -22,7 +22,7 @@ from . import build as _build
 KERNELS = ("expand", "fp64", "fpset_key", "fpset_probe", "fpset_claim",
            "fpset_walk", "commit", "slab_scatter", "slab_resolve",
            "slab_compact", "slab_order", "slab_mark", "deferred_check",
-           "ring_row")
+           "ring_row", "fpset_member")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -37,6 +37,8 @@ _SIGNATURES = {
     "tt_fpset_claim": ("fpset", [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P]),
     "tt_fpset_walk": ("fpset", [_P, _I, ctypes.c_uint, _P, _I, _P, _P, _P,
                                 _P]),
+    "tt_fpset_member": ("fpset", [_P, _I, ctypes.c_uint, _P, _P, _P, _LL,
+                                  _LL, _P, _P]),
     "tt_commit": ("commit", [_P, _I, _LL, _LL, _P, _LL, _P, _P, _P, _LL, _P,
                              _P, _I, _I, _I, _P]),
     "tt_slab_scatter": ("slab", [_P, _LL, _I, ctypes.c_uint, _P, _P, _P]),
@@ -48,7 +50,7 @@ _SIGNATURES = {
     "tt_deferred_check": ("deferred", [_P, _P, _LL, _P, _P, _P, _P, _P, _P,
                                        _P, _P]),
     "tt_ring_row": ("ring", [_P, _I, _I, _P, _P, _P, _LL, _I, _P, _P, _P, _P,
-                             _P, _P, _P, _P, _P, _I, _I, _P]),
+                             _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]),
 }
 
 
@@ -265,6 +267,24 @@ def fpset_probe_segment(table, keys, nreps, off: int, C: int,
     fpset_walk(table, keys, pending, is_new_out, npend)
 
 
+def fpset_member(table: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                 mask: torch.Tensor, max_rounds: int = 0) -> torch.Tensor:
+    """Kernel K9: membership of each masked raw fingerprint, [N] bool; see
+    engine.fpset.fpset_member_plain.  The table is only read."""
+    nb, lognb = _table_geom(table)
+    N = lo.shape[0]
+    _need(lo, "lo", torch.int32, (N,))
+    _need(hi, "hi", torch.int32, (N,))
+    _need(mask, "mask", torch.bool, (N,))
+    if max_rounds < 0:
+        raise ValueError("max_rounds must be >= 0")
+    found = torch.empty(N, dtype=torch.bool, device=lo.device)
+    _launched("fpset_member", lib().tt_fpset_member(
+        _ptr(table), lognb, nb - 1, _ptr(lo), _ptr(hi), _ptr(mask), N,
+        max_rounds, _ptr(found), _stream()))
+    return found
+
+
 # ---------------------------------------------------------------------------
 # K4 commit
 # ---------------------------------------------------------------------------
@@ -403,8 +423,10 @@ def deferred_check(cfg, block: torch.Tensor, fresh: torch.Tensor,
 
 def ring_row(ring, head, bodies, expanded, n_pop: int, flip: bool, level,
              gen_new, gen_old, dist_new, dist_old, queue_n, act_gen,
-             act_dist, acts_old, n_labels: int) -> None:
-    """One ring row; see obs.counters.ring_row_plain."""
+             act_dist, acts_old, n_labels: int, spill_new=None,
+             spill_old=None) -> None:
+    """One ring row; see obs.counters.ring_row_plain (spill_new and
+    spill_old: both or neither)."""
     slots, cols = ring.shape[0] - 1, ring.shape[1]
     _need(ring, "ring", torch.int32)
     if slots < 1 or cols != 10 + 2 * n_labels:
@@ -416,6 +438,11 @@ def ring_row(ring, head, bodies, expanded, n_pop: int, flip: bool, level,
                     ("dist_new", dist_new), ("dist_old", dist_old),
                     ("queue_n", queue_n)):
         _need(t, name, torch.int64, ())
+    if (spill_new is None) != (spill_old is None):
+        raise ValueError("spill_new and spill_old go together")
+    if spill_new is not None:
+        _need(spill_new, "spill_new", torch.int64, ())
+        _need(spill_old, "spill_old", torch.int64, ())
     n_acts = act_gen.shape[0]
     if n_acts < n_labels:
         raise ValueError("act_gen holds fewer counters than labels")
@@ -426,4 +453,7 @@ def ring_row(ring, head, bodies, expanded, n_pop: int, flip: bool, level,
         _ptr(ring), slots, cols, _ptr(head), _ptr(bodies), _ptr(expanded),
         n_pop, int(flip), _ptr(level), _ptr(gen_new), _ptr(gen_old),
         _ptr(dist_new), _ptr(dist_old), _ptr(queue_n), _ptr(act_gen),
-        _ptr(act_dist), _ptr(acts_old), n_acts, n_labels, _stream()))
+        _ptr(act_dist), _ptr(acts_old),
+        None if spill_new is None else _ptr(spill_new),
+        None if spill_old is None else _ptr(spill_old), n_acts, n_labels,
+        _stream()))

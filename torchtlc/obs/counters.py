@@ -19,7 +19,7 @@ packages):
     col 5  expanded   states popped so far
     col 6  overflow   STICKY: 1 once any cumulative counter's uint32 view
                       wrapped
-    col 7  spill      host-spill hits (0: the port has no spill tier yet)
+    col 7  spill      host-spill hits (spill mode; else 0)
     col 8  cert       sticky certificate flag (0: no certificate check)
     col 9  sym        sticky orbit flag (0: no symmetry reduction)
     col 10..10+A-1      per-action generated
@@ -74,13 +74,15 @@ def _word(v: torch.Tensor) -> torch.Tensor:
 
 
 def pack_row(level, generated, distinct, queue, bodies, expanded, act_gen,
-             act_dist, overflow=None) -> torch.Tensor:
+             act_dist, overflow=None, spill=None) -> torch.Tensor:
     """One ring row ([cols] int32) from the counters (0-dim int64 tensors;
-    act_gen / act_dist [n_labels]); spill, cert and sym write 0."""
+    act_gen / act_dist [n_labels]); spill (the spill_hits counter) writes
+    0 when None, cert and sym always 0."""
     zero = torch.zeros((), dtype=torch.int64, device=act_gen.device)
     fixed = torch.stack([
         level, generated, distinct, queue, bodies, expanded,
-        zero if overflow is None else overflow, zero, zero, zero,
+        zero if overflow is None else overflow,
+        zero if spill is None else spill, zero, zero,
     ]).to(torch.int64)
     return _word(torch.cat([fixed, act_gen.to(torch.int64),
                             act_dist.to(torch.int64)]))
@@ -118,23 +120,28 @@ def ring_update(ring: torch.Tensor, head: torch.Tensor, row: torch.Tensor,
 
 def ring_row_plain(ring, head, bodies, expanded, n_pop: int, flip: bool,
                    level, gen_new, gen_old, dist_new, dist_old, queue_n,
-                   act_gen, act_dist, acts_old, n_labels: int) -> None:
+                   act_gen, act_dist, acts_old, n_labels: int,
+                   spill_new=None, spill_old=None) -> None:
     """Torch version of kernel K8: the row of one engine body, after its
     commit.  act_gen / act_dist are the [n_labels + 1] counters after the
     body, acts_old their concatenation before it; bodies and expanded are
-    advanced by 1 and n_pop.  Updates ring, head, bodies and expanded in
-    place."""
+    advanced by 1 and n_pop; spill_new / spill_old (spill mode) are the
+    spill_hits counter after and before the body.  Updates ring, head,
+    bodies and expanded in place."""
     n_acts = act_gen.shape[0]
     b1 = bodies + 1
     e1 = expanded + n_pop
-    wrapped = wrapped_any([
+    pairs = [
         (gen_new, gen_old), (dist_new, dist_old),
         (act_gen, acts_old[:n_acts]), (act_dist, acts_old[n_acts:]),
         (b1, bodies), (e1, expanded),
-    ])
+    ]
+    if spill_new is not None:
+        pairs.append((spill_new, spill_old))
     row = pack_row(level, gen_new, dist_new, queue_n, b1, e1,
                    act_gen[:n_labels], act_dist[:n_labels],
-                   overflow=sticky_overflow(ring, wrapped))
+                   overflow=sticky_overflow(ring, wrapped_any(pairs)),
+                   spill=spill_new)
     ring_update(ring, head, row, flip)
     bodies.copy_(b1)
     expanded.copy_(e1)
@@ -142,11 +149,12 @@ def ring_row_plain(ring, head, bodies, expanded, n_pop: int, flip: bool,
 
 def ring_row(ring, head, bodies, expanded, n_pop: int, flip: bool, level,
              gen_new, gen_old, dist_new, dist_old, queue_n, act_gen,
-             act_dist, acts_old, n_labels: int) -> None:
+             act_dist, acts_old, n_labels: int, spill_new=None,
+             spill_old=None) -> None:
     """Kernel K8 on CUDA tensors, the plain version on CPU tensors."""
     args = (ring, head, bodies, expanded, n_pop, flip, level, gen_new,
             gen_old, dist_new, dist_old, queue_n, act_gen, act_dist,
-            acts_old, n_labels)
+            acts_old, n_labels, spill_new, spill_old)
     if not ring.is_cuda:
         return ring_row_plain(*args)
     from ..kernels import ops

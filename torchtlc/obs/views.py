@@ -1,0 +1,103 @@
+"""Derived views of journal events (port of the part of
+jaxtlc/obs/views.py the `check` command uses).
+
+``render_tlc_event`` renders one supervisor event as its TLC
+structured-log banner - the 2200 Progress line, the checkpoint (2195),
+recovery (2196) and regrow (2198) banners, the retry, spill, degrade,
+interrupt and exhaustion messages - so the transcript is a view of the
+journal and cannot disagree with it.  ``interval_rates`` is the per-minute
+rate arithmetic of the Progress line.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+
+def interval_rates(prev: Optional[Tuple[float, int, int]],
+                   now: float, generated: int,
+                   distinct: int) -> Tuple[int, int]:
+    """(states/min, distinct-states/min) between two observations; with no
+    previous observation the raw counts, as TLC reports its first
+    interval."""
+    if prev is None or now <= prev[0]:
+        return generated, distinct
+    dt = now - prev[0]
+    return (int((generated - prev[1]) * 60 / dt),
+            int((distinct - prev[2]) * 60 / dt))
+
+
+def render_tlc_event(log, ev: dict, resume_cmd: str = "") -> None:
+    """Render one journal event as its TLC banner; kinds without one
+    (segments, levels without a flag, flushes, final) render nothing."""
+    kind = ev["event"]
+    if kind == "progress":
+        log.progress(ev["depth"], ev["generated"], ev["distinct"],
+                     ev["queue"])
+    elif kind == "level" and ev.get("counter_overflow"):
+        # the ring's sticky COL_OVERFLOW flag: warn once per run
+        if not getattr(log, "_warned_counter_overflow", False):
+            log._warned_counter_overflow = True
+            log.msg(
+                1000,
+                "Warning: on-device cumulative uint32 counters "
+                "saturated (ring overflow flag set); generated/"
+                "distinct totals beyond this level may have wrapped.",
+                severity=1,
+            )
+    elif kind == "checkpoint":
+        log.checkpoint_saved(ev["path"])
+    elif kind == "recovery":
+        log.recovery(ev["path"], ev["distinct"])
+    elif kind == "regrow":
+        log.regrow(ev["resource"], ev["old"], ev["new"], ev["violation"])
+    elif kind == "retry":
+        log.msg(
+            1000,
+            f"Transient error (attempt {ev['attempt']}): {ev['error']}; "
+            f"retrying in {ev['delay_s']}s from the last good state.",
+            severity=1,
+        )
+    elif kind == "ckpt_write_failed":
+        log.msg(
+            1000,
+            f"Checkpoint write failed: {ev['error']} (run continues; "
+            "the next segment boundary retries).",
+            severity=1,
+        )
+    elif kind == "ckpt_fallback":
+        log.msg(
+            1000,
+            f"Checkpoint {ev['path']} failed verification "
+            f"({ev['error']}); falling back to the previous generation.",
+            severity=1,
+        )
+    elif kind == "interrupted":
+        log.interrupted(ev["signum"], ev["path"], resume_cmd)
+    elif kind == "degrade":
+        log.msg(
+            1000,
+            f"Capacity ladder [{ev['rung']}] {ev['resource']}: "
+            f"{ev['action']} ({ev['reason']}).",
+            severity=1,
+        )
+    elif kind == "spill" and ev["phase"] == "activate":
+        # flushes stay in the journal (one per highwater crossing)
+        log.msg(
+            1000,
+            "Host fingerprint spill tier activated: device table "
+            f"stays at {ev['resident']:,} resident fingerprints, "
+            "cold fingerprints migrate to host RAM "
+            f"(store capacity {ev['capacity']:,}, auto-grows).",
+            severity=1,
+        )
+    elif kind == "exhausted":
+        log.msg(
+            1000,
+            f"Capacity exhausted ({ev['resource']}): "
+            f"{ev['distinct']:,} distinct states checkpointed"
+            + (f" at {ev['path']}" if ev.get("path") else
+               " (no -checkpoint: progress lost)")
+            + (f"; resume with: {resume_cmd}" if resume_cmd else ""),
+            severity=1,
+        )

@@ -13,7 +13,8 @@ because CPU torch has no shifts or adds for ``torch.uint32``.
 Init is built directly (``initial_vectors``): every Init state has an empty
 apiState, no requests, default procedure parameters, each client at its
 role's start label, and one shouldReconcile bit per reconciler
-(KubeAPI.tla:455-469).
+(KubeAPI.tla:455-469).  ``decode`` turns a field vector back into spec
+values (spec.values.State) for counterexample traces.
 """
 
 from __future__ import annotations
@@ -27,7 +28,16 @@ import numpy as np
 import torch
 
 from ..config import RECONCILER, ModelConfig
-from .labels import LABEL_ID, LABELS
+from . import values
+from .labels import (
+    DEFAULT_INIT,
+    LABEL_ID,
+    LABELS,
+    PROC_API,
+    PROC_LISTAPI,
+    RESPONSES,
+    VERBS,
+)
 
 MASK32 = 0xFFFFFFFF
 
@@ -227,6 +237,85 @@ class Codec:
             pos += width
         assert pos == self.nbits
         return out
+
+    def decode_obj(self, w: int):
+        """Object word -> object record (None if absent)."""
+        if not (w >> self.o_present) & 1:
+            return None
+        ident = (w >> self.o_ident) & ((1 << self.ib) - 1)
+        kind, name = self.cfg.identities[ident]
+        d = {"k": kind, "n": name}
+        if (w >> self.o_hasvv) & 1:
+            d["vv"] = frozenset(self.cfg.clients[i] for i in range(self.nc)
+                                if (w >> (self.o_vv + i)) & 1)
+        if (w >> self.o_spec) & 1:
+            d["spec"] = values.rec(pvname=name)
+        return tuple(sorted(d.items()))
+
+    def decode(self, vec) -> values.State:
+        """Field vector -> spec values (jaxtlc/spec/codec.py:237)."""
+        v = np.asarray(vec, dtype=np.int64)
+        api = frozenset(o for o in (self.decode_obj(int(w))
+                                    for w in v[self.sl("api")])
+                        if o is not None)
+        requests = ()
+        for ci, w in enumerate(v[self.sl("req")]):
+            w = int(w)
+            if not (w >> self.r_present) & 1:
+                continue
+            r = values.rec(
+                op=VERBS[(w >> self.r_op) & 7],
+                obj=self.decode_obj((w >> self.r_obj)
+                                    & ((1 << self.obj_bits) - 1)),
+                status=RESPONSES[(w >> self.r_status) & 3])
+            requests = values.pmap_set(requests, self.cfg.clients[ci], r)
+        list_requests = ()
+        lo = v[self.sl("lreq_obj")]
+        for ci, w in enumerate(v[self.sl("lreq_meta")]):
+            w = int(w)
+            if not (w >> self.lm_present) & 1:
+                continue
+            objs = frozenset(
+                o for o in (self.decode_obj(int(x))
+                            for x in lo[ci * self.ls:(ci + 1) * self.ls])
+                if o is not None)
+            r = values.rec(
+                kind=self.cfg.kinds[(w >> self.lm_kind)
+                                    & ((1 << self.kb) - 1)],
+                objs=objs, status=RESPONSES[(w >> self.lm_status) & 3])
+            list_requests = values.pmap_set(list_requests,
+                                            self.cfg.clients[ci], r)
+        pc = tuple(LABELS[int(x)] for x in v[self.sl("pc")])
+        stack = []
+        for ci in range(self.nc):
+            w = int(v[self.sl("stack")][ci])
+            if (w >> self.s_present) & 1:
+                ret = LABELS[(w >> self.s_retpc) & ((1 << self.lb) - 1)]
+                if (w >> self.s_proc) & 1:
+                    frame = values.rec(procedure=PROC_LISTAPI, pc=ret,
+                                       kind=DEFAULT_INIT)
+                else:
+                    frame = values.rec(procedure=PROC_API, pc=ret,
+                                       op=DEFAULT_INIT, obj=DEFAULT_INIT)
+                stack.append((frame,))
+            else:
+                stack.append(())
+        stack.append(())  # the server's
+        p_op, p_obj, p_kind = [], [], []
+        for ci in range(self.nc):
+            w = int(v[self.sl("p_op")][ci])
+            p_op.append(DEFAULT_INIT if w == 0 else VERBS[w - 1])
+            o = self.decode_obj(int(v[self.sl("p_obj")][ci]))
+            p_obj.append(DEFAULT_INIT if o is None else o)
+            w = int(v[self.sl("p_kind")][ci])
+            p_kind.append(DEFAULT_INIT if w == 0 else self.cfg.kinds[w - 1])
+        for lst in (p_op, p_obj, p_kind):
+            lst.append(DEFAULT_INIT)
+        return values.State(
+            api_state=api, requests=requests, list_requests=list_requests,
+            pc=pc, stack=tuple(stack), op=tuple(p_op), obj=tuple(p_obj),
+            kind=tuple(p_kind),
+            should_reconcile=tuple(bool(x) for x in v[self.sl("sr")]))
 
     def initial_vectors(self) -> np.ndarray:
         """Init (KubeAPI.tla:455-469) as field vectors, [2^nr, F] int32, in
