@@ -13,16 +13,20 @@ user's command, ``python -m torchtlc.cli check MC.cfg``, on a Model_1
 MC.tla/MC.cfg pair written to a temporary directory: a clean run (phase 7),
 auto-regrow from -fpcap 65536 (7b), the host spill tier behind kernel K9 at
 Model_1 and at the scaled size (8, 8b), SIGTERM -> exit 75 -> -recover
-(9) and a violation's counterexample (9b).  It checks every result
-against its pinned value, holds each kernel bitwise against its plain
-torch version on the card, and prints:
+(9) and a violation's counterexample (9b); then the device coverage plane
+behind kernel K10: Model_1 with coverage in both mode sets (10), the
+scaled 2x1 workload with coverage, timed against coverage off (10b), and
+``python -m torchtlc.cli check MC.cfg -coverage`` (10c).  It checks every
+result against its pinned value, holds each kernel bitwise against its
+plain torch version on the card, and prints:
 
 * one line per phase;
 * a line with the card's name and power limit (nvidia-smi);
 * a JSON line {"kernels": [...]} with each kernel's launches on the main
-  paths (the two Model_1 and the two scaled engine runs and the in-process
-  command, regrow, spill and violation runs; each path's counts are reset
-  just before it and read just after), its error against the plain
+  paths (the two Model_1 and the two scaled engine runs, the in-process
+  command, regrow, spill and violation runs, and the three covered engine
+  runs; each path's counts are reset just before it and read just after),
+  its error against the plain
   version, its time, the plain version's time, its bound on this card
   and, where one PyTorch call computes the same function, that call's
   time;
@@ -32,7 +36,8 @@ Any mismatch exits nonzero before the last line.  Without a CUDA device, or
 without the torchtlc package beside it, it exits nonzero and prints no
 result.  The build's ptxas report goes to torchtlc/kernels/_build/ptxas.txt.
 ``--phases 7,8`` runs phase 1 and the named later phases only (for
-iterating on the card; the contract run takes no arguments).
+iterating on the card; the contract run takes no arguments); ``2c`` names
+K10's check against its plain version, untimed.
 """
 
 from __future__ import annotations
@@ -83,6 +88,18 @@ M1_DISTINCT = {
     "PVCListedPVCs": 1171, "PVCStart": 1086, "c12": 2606,
 }
 SCALED_COUNTS = (62014325, 19359985, 186)  # SCALED_VALIDATION.json
+# SHA-256 of the reference engine's 311-site coverage vector (little-endian
+# uint32, site-table order) on Model_1 at M1_KW, jaxtlc.engine.bfs.check(
+# MODEL_1, **M1_KW, coverage=True, sort_free=False, deferred=False); the
+# vector does not depend on the modes (slow test in
+# tests/test_torch_coverage_cli.py)
+M1_COVERAGE_SHA256 = (
+    "2c1f7f2d71ccb42bc3bad5fd96da4fcac8e5a99567ad8f829b5db9a48893cb4f")
+# SHA-256 of the Model_1 per-expression dump lines of `check -coverage
+# -noTool` (coverage_dump below: the timestamp masked), from the reference
+# host walker (tests/test_torch_coverage_cli.py re-derives it)
+M1_COVERAGE_DUMP_SHA256 = (
+    "f8565fc31586f2197788242c318e445b888873d2964f8a42d349302177252c5a")
 
 SORTED = dict(sort_free=False, deferred=False)
 # Model_1 at chunk 2048 in the default modes (sort-free + deferred)
@@ -195,6 +212,12 @@ def main() -> int:
         runs["scaled"] = phase_scaled(torch, ops, card)
         runs["scaled_auto"] = phase_scaled_auto(torch, ops, card,
                                                 runs["scaled"])
+    if only is not None and "2c" in only:
+        check_coverage_blocks(torch, ops)
+    if want("10"):
+        runs.update(phase_coverage_model1(torch, ops, card))
+    if want("10b"):
+        runs["cov_scaled"] = phase_coverage_scaled(torch, ops, card, runs)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         model = write_model(tmp, "Model_1", True, True)
@@ -211,6 +234,8 @@ def main() -> int:
         if want("9b"):
             runs["viol_cmd"] = phase_violation_command(
                 torch, ops, write_model(tmp, "Model_FF", False, False))
+        if want("10c"):
+            phase_coverage_command(model, tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if only is not None and "2" in only:
@@ -220,7 +245,8 @@ def main() -> int:
               "prints no contract lines)", flush=True)
         return 0
     main = ("m1", "m1_auto", "scaled", "scaled_auto", "cmd", "regrow",
-            "spill_m1", "spill_scaled", "viol_cmd")
+            "spill_m1", "spill_scaled", "viol_cmd", "cov_m1", "cov_m1_auto",
+            "cov_scaled")
     launches = {k: sum(runs[r]["launches"][k] for r in main)
                 for k in ops.KERNELS}
     kernels = phase_kernels(torch, ops, runs, launches)
@@ -236,14 +262,16 @@ def main() -> int:
     return 0
 
 
-def run_engine(torch, ops, cfg, kw, modes=SORTED):
+def run_engine(torch, ops, cfg, kw, modes=SORTED, coverage=False):
     """One exhaustive run through the port's engine entry points, with the
     launch counts reset just before and read just after; `modes` {} takes
-    the defaults.  Returns (carry, result, launches, run_fn)."""
+    the defaults, coverage=True carries the coverage plane.  Returns
+    (carry, result, launches, run_fn)."""
     from torchtlc.engine.bfs import make_engine, result_from_carry
     from torchtlc.engine.fpset import fpset_actual_collision
+    from torchtlc.spec.coverage_device import site_table
 
-    init_fn, run_fn, _ = make_engine(cfg, **modes, **kw)
+    init_fn, run_fn, _ = make_engine(cfg, **modes, **kw, coverage=coverage)
     carry = init_fn()
     torch.cuda.synchronize()
     ops.reset_counts()
@@ -253,7 +281,8 @@ def run_engine(torch, ops, cfg, kw, modes=SORTED):
     wall = time.time() - t0
     launches = dict(ops.LAUNCHES)
     r = result_from_carry(carry, wall, iterations=run_fn.steps,
-                          fp_capacity=kw["fp_capacity"])
+                          fp_capacity=kw["fp_capacity"],
+                          sites=site_table(cfg) if coverage else None)
     r = r._replace(actual_fp_collision=fpset_actual_collision(carry.fps))
     return carry, r, launches, run_fn
 
@@ -660,6 +689,214 @@ def phase_violation_command(torch, ops, cfg):
 
 
 # ---------------------------------------------------------------------------
+# phases 10-10c: the device coverage plane (kernel K10)
+# ---------------------------------------------------------------------------
+
+
+def coverage_vector(result, sites):
+    """The 311-site vector of a covered result ([311] little-endian
+    uint32, site-table order) and its SHA-256."""
+    import numpy as np
+
+    vec = np.asarray([result.site_coverage[s.key] for s in sites], "<u4")
+    return vec, hashlib.sha256(vec.tobytes()).hexdigest()
+
+
+def coverage_dump(text):
+    """The per-expression dump of a -noTool transcript: the lines from the
+    2201 banner up to the Progress line after it, the timestamp masked."""
+    import re
+
+    lines = text.splitlines()
+    first = next(i for i, x in enumerate(lines)
+                 if x.startswith("The coverage statistics at "))
+    last = next(i for i in range(first, len(lines))
+                if lines[i].startswith("Progress("))
+    return [re.sub(r"\d{4}-\d\d-\d\d \d\d:\d\d:\d\d", "DATE", x)
+            for x in lines[first:last]]
+
+
+def phase_coverage_model1(torch, ops, card):
+    """Phase 10: Model_1 with the coverage plane, chunk 1024 sorted and
+    chunk 2048 in the default modes: the coverage-off counts and table
+    words, the reference's 311-site vector, MC.out's per-action generated
+    counts as its prefix, and the Init and span sites equal to the port's
+    host walker."""
+    from torchtlc.config import MODEL_1
+    from torchtlc.spec.coverage import run_coverage
+    from torchtlc.spec.coverage_device import site_table
+
+    sites = site_table(MODEL_1)
+    out, walls = {}, []
+    for key, kw, modes, table_pin in (
+            ("cov_m1", M1_KW, SORTED, M1_TABLE_SHA256),
+            ("cov_m1_auto", M1_2048_KW, {}, M1_2048_TABLE_SHA256)):
+        carry, r, launches, _ = run_engine(torch, ops, MODEL_1, kw, modes,
+                                           coverage=True)
+        _, sha = coverage_vector(r, sites)
+        need((r.generated, r.distinct, r.depth) == M1_COUNTS,
+             f"{key}: counts {(r.generated, r.distinct, r.depth)}")
+        need(r.violation == 0 and r.queue_left == 0, f"{key}: verdict")
+        need(table_sha256(carry.fps.table) == table_pin,
+             f"{key}: table words differ from the coverage-off pin")
+        need(sha == M1_COVERAGE_SHA256, f"{key}: site vector {sha[:16]}")
+        need({s.key: r.site_coverage[s.key] for s in sites[:22]}
+             == MC_OUT_GENERATED, f"{key}: the action prefix is not MC.out's")
+        need(launches["coverage_count"] == r.iterations,
+             f"{key}: {launches['coverage_count']} K10 launches in "
+             f"{r.iterations} bodies")
+        out[key] = {"launches": launches, "result": r}
+        walls.append(r.wall_s)
+    t0 = time.time()
+    walk = run_coverage(MODEL_1)
+    walk_s = time.time() - t0
+    need((walk.generated, walk.distinct, walk.depth) == M1_COUNTS,
+         "the host walker's counts")
+    r = out["cov_m1"]["result"]
+    bad = [s.key for s in sites if s.kind != "action"
+           and r.site_coverage[s.key] != walk.cov.n.get(s.key, 0)]
+    need(not bad, f"sites differ from the host walker: {bad[:8]}")
+    print(f"phase 10 Model_1 with coverage: {M1_COUNTS}, site vector sha256 "
+          f"{M1_COVERAGE_SHA256[:16]} at chunk 1024 sorted ({walls[0]:.3f} s)"
+          f" and chunk 2048 default modes ({walls[1]:.3f} s), tables equal to"
+          f" the coverage-off pins, prefix = MC.out, 289 Init and span sites "
+          f"equal to the host walker ({walk_s:.1f} s) on {card}; K10 "
+          f"launches {out['cov_m1']['launches']['coverage_count']} + "
+          f"{out['cov_m1_auto']['launches']['coverage_count']}", flush=True)
+    return out
+
+
+def phase_coverage_scaled(torch, ops, card, runs):
+    """Phase 10b: the scaled 2x1 workload with the coverage plane at full
+    width (chunk 131072, default modes, the counter ring): the coverage-off
+    counts and table words, the action prefix equal to the carry's
+    per-action generated counts, K10 equal to count_plain on blocks taken
+    during the run; then the wall with and without coverage, alternating."""
+    from torchtlc.config import scaled_config
+    from torchtlc.engine.backend import kubeapi_backend
+    from torchtlc.engine.bfs import make_backend_engine, result_from_carry
+    from torchtlc.spec.coverage_device import count_plain
+
+    cfg, kw = scaled_config()
+    kw_ring = dict(kw, obs_slots=SCALED_OBS_SLOTS)
+    ck = kw["chunk"]
+    if "scaled" in runs:
+        off_sha = runs["scaled"]["sha"]
+    else:  # a partial run: the coverage-off table anew
+        off_sha = table_sha256(run_engine(torch, ops, cfg, kw)[0].fps.table)
+    base = kubeapi_backend(cfg, coverage=True)
+    plane = base.coverage
+    taken = []
+
+    def count(block, n, valid):
+        # K10 as the engine calls it; the inputs and output of the first
+        # body, of two full-width bodies and of a small-width body are kept
+        out = plane.count(block, n, valid)
+        kinds = [t[4] for t in taken]
+        kind = ("first" if not taken else
+                "full" if n == ck and kinds.count("full") < 2 else
+                "small" if block.shape[0] < ck and "small" not in kinds
+                else None)
+        if kind is not None:
+            taken.append((block.clone(), n, valid.clone(), out.clone(), kind))
+        return out
+
+    init_fn, run_fn, _ = make_backend_engine(
+        base._replace(coverage=plane._replace(count=count)), **kw_ring)
+    carry = init_fn()
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.time()
+    carry = run_fn(carry)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(ops.LAUNCHES)
+    r = result_from_carry(carry, wall, iterations=run_fn.steps,
+                          fp_capacity=kw["fp_capacity"], sites=plane.sites)
+    need((r.generated, r.distinct, r.depth) == SCALED_COUNTS,
+         "scaled with coverage: counts")
+    need(r.violation == 0 and r.queue_left == 0, "scaled with coverage: "
+         "verdict")
+    need(table_sha256(carry.fps.table) == off_sha,
+         "scaled with coverage: table words differ from coverage off")
+    need({s.key: r.site_coverage[s.key] for s in plane.sites[:22]}
+         == {a: r.action_generated.get(a, 0)
+             for a in (s.key for s in plane.sites[:22])},
+         "scaled: the action prefix is not the carry's act_gen")
+    need(launches["coverage_count"] == r.iterations,
+         "scaled: a body without K10")
+    need(len(taken) >= 3, f"only {len(taken)} blocks taken")
+    for block, n, valid, out, kind in taken:
+        plain = count_plain(cfg, block, n, valid)
+        need(torch.equal(out, plain),
+             f"K10 differs from count_plain on the {kind} body ({n} rows)")
+    del carry
+    walls = {False: [], True: []}
+    for cov in (False, True, True, False):
+        c2, r2, _, _ = run_engine(torch, ops, cfg, kw_ring, modes={},
+                                  coverage=cov)
+        need((r2.generated, r2.distinct) == SCALED_COUNTS[:2],
+             "scaled timing run: counts")
+        walls[cov].append(r2.wall_s)
+        del c2
+    off, on = (sum(walls[k]) / 2 for k in (False, True))
+    print(f"phase 10b scaled 2x1 with coverage (chunk {ck}, default modes + "
+          f"ring): {SCALED_COUNTS}, table equal to coverage off, prefix = "
+          f"act_gen, K10 = count_plain on {len(taken)} bodies "
+          f"({', '.join(f'{t[4]} n={t[1]}' for t in taken)}); "
+          f"{r.iterations} bodies in {wall:.3f} s; alternating off/on/on/off "
+          f"walls {walls[False][0]:.3f} / {walls[True][0]:.3f} / "
+          f"{walls[True][1]:.3f} / {walls[False][1]:.3f} s: coverage "
+          f"{on:.3f} s vs {off:.3f} s ({(on / off - 1) * 100:+.2f}%) on "
+          f"{card}; launches {launches}", flush=True)
+    return {"launches": launches, "wall_off": walls[False],
+            "wall_on": walls[True]}
+
+
+def phase_coverage_command(cfg, tmp, card):
+    """Phase 10c: `python -m torchtlc.cli check MC.cfg -coverage` as a
+    subprocess on Model_1: exit 0, the dump lines equal to the reference's
+    (pinned digest), and the journal's coverage events folding to the
+    final carry's totals (the checkpoint's cov_counts leaf)."""
+    import numpy as np
+
+    from torchtlc.config import MODEL_1
+    from torchtlc.obs.coverage import coverage_from_events
+    from torchtlc.obs.journal import read as read_journal
+    from torchtlc.spec.coverage_device import site_table
+
+    ck = os.path.join(tmp, "cov.ckpt")
+    t0 = time.time()
+    rc, out = command([cfg, "-noTool", "-coverage", "-checkpoint", ck])
+    wall = time.time() - t0
+    need(rc == 0, f"the -coverage command exited {rc}")
+    need(final_counts(out) == M1_COUNTS,
+         f"the -coverage command's counts {final_counts(out)}")
+    dump = coverage_dump(out)
+    dump_sha = hashlib.sha256("\n".join(dump).encode()).hexdigest()
+    need(dump_sha == M1_COVERAGE_DUMP_SHA256,
+         f"the dump's digest {dump_sha[:16]} is not the reference's")
+    events = read_journal(ck + ".journal.jsonl")
+    folded = coverage_from_events(events)
+    with np.load(ck) as z:
+        n_leaves = sum(k.startswith("leaf_") for k in z.files)
+        cov = z[f"leaf_{n_leaves - 1}"]
+    sites = site_table(MODEL_1)
+    need(cov.shape == (311,) and hashlib.sha256(
+        cov.astype("<u4").tobytes()).hexdigest() == M1_COVERAGE_SHA256,
+         "the final carry's cov_counts differ from the pinned vector")
+    need(folded is not None and folded["sites"] == {
+        s.key: int(v) for s, v in zip(sites, cov) if v},
+         "the journal's coverage events do not fold to the carry's totals")
+    n_ev = sum(1 for e in events if e["event"] == "coverage")
+    print(f"phase 10c command: `python -m torchtlc.cli check MC.cfg "
+          f"-coverage` exit 0, {M1_COUNTS}, {len(dump)} dump lines equal to "
+          f"the reference's (sha256 {dump_sha[:16]}), {n_ev} coverage events "
+          f"folding to the carry's {folded['visited']} visited sites; "
+          f"{wall:.1f} s as a subprocess on {card}", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 2: each kernel against its plain version, at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -754,6 +991,10 @@ def phase_kernels(torch, ops, runs, launches):
                ck * W * 4 + ncand * (W * 4 + 5 + 4) + n_labels * 8)
         packed, flags, action, _ = got
         valid = flags[0].bool()
+
+        # K10 coverage_count on K1's valid flags of the same block
+        check_coverage_kernel(torch, ops, tag, cfg, block, n, flags[0],
+                              record)
 
         # K2 fp64 on seeded random words
         words = torch.from_numpy(rng.integers(
@@ -850,7 +1091,8 @@ def phase_kernels(torch, ops, runs, launches):
             ("model1_2048", MODEL_1, block2048,
              min(int(c.level_n), M1_2048_KW["chunk"])),
             ("scaled", s_cfg, s_block, ck_big - 3)):
-        check_new_kernels(torch, ops, rng, tag, cfg, block, n, record, runs)
+        check_new_kernels(torch, ops, rng, tag, cfg, block, n, record, runs,
+                          library)
         print(f"phase 2 slice-2 times ({tag}): " + ", ".join(
             f"{k} {v[-1]['ms']:.4f} ms (plain {v[-1]['plain_ms']:.3f} ms, "
             f"bound {v[-1]['bound_ms']:.4f} ms)" for k, v in rows.items()
@@ -858,6 +1100,8 @@ def phase_kernels(torch, ops, runs, launches):
 
     check_member(torch, ops, runs, record)
     source = {
+        "coverage_count": ("torchtlc/kernels/csrc/coverage.cu",
+                           "jaxtlc/spec/coverage_device.py:766"),
         "fpset_member": ("torchtlc/kernels/csrc/fpset.cu",
                          "jaxtlc/engine/fpset.py:292"),
         "expand": ("torchtlc/kernels/csrc/expand.cu",
@@ -913,6 +1157,80 @@ def phase_kernels(torch, ops, runs, launches):
         raise SmokeFailure(f"kernel {k} was not held against its plain "
                            "version")
     return out
+
+
+def check_coverage_kernel(torch, ops, tag, cfg, block, n, valid,
+                          record=None):
+    """K10 coverage_count against count_plain on one popped block and K1's
+    valid flags of it, word for word; timed when `record` is given (bound:
+    the block, the flags and the 311 words, each moved once)."""
+    from torchtlc.spec.coverage_device import count_plain
+
+    got = ops.coverage_count(cfg, block, n, valid)
+    ref = count_plain(cfg, block, n, valid)
+    err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+    need(err == 0, f"K10 coverage_count differs from its plain version "
+         f"({tag})")
+    need(int((ref != 0).sum()) > 200, f"K10 test block is vacuous ({tag})")
+    if record is not None:
+        ck, W = block.shape
+        record("coverage_count", tag, err,
+               cuda_ms(torch, lambda _: ops.coverage_count(cfg, block, n,
+                                                           valid), 20),
+               cuda_ms(torch, lambda _: count_plain(cfg, block, n, valid), 2),
+               ck * W * 4 + valid.numel() + 311 * 4)
+    return err
+
+
+def check_coverage_blocks(torch, ops):
+    """The partial run's K10 check (--phases 2c): a Model_1 level-40 block
+    and a full-width block of the scaled workload, untimed."""
+    from torchtlc.config import MODEL_1, scaled_config
+    from torchtlc.engine import bfs
+    from torchtlc.engine.backend import FLAG_VALID, expand_block
+
+    init_fn, _, step_fn = bfs.make_engine(MODEL_1, **SORTED, **M1_KW)
+    c = init_fn()
+    while int(c.level) < 40:
+        c = step_fn(c)
+    s_cfg, s_kw = scaled_config()
+    s_init, _, s_step = bfs.make_engine(s_cfg, **SORTED, **s_kw)
+    sc = s_init()
+    ck = s_kw["chunk"]
+    while not (int(sc.level_n) >= ck and int(sc.qhead) == 0):
+        sc = s_step(sc)
+    for tag, cfg, block, n in (
+            ("model1", MODEL_1, c.queue[int(c.parity), :M1_KW["chunk"]],
+             int(c.level_n)),
+            ("scaled", s_cfg, sc.queue[int(sc.parity), :ck], ck - 3)):
+        block = block.contiguous()
+        flags = expand_block(cfg, block, n)[1]
+        check_coverage_kernel(torch, ops, tag, cfg, block, n,
+                              flags[FLAG_VALID])
+    print("phase 2c K10 coverage_count equal to count_plain at the Model_1 "
+          "and scaled shapes (untimed)", flush=True)
+
+
+def slab_scatter_library_ms(torch, fpset, keys, m, want):
+    """K5 slab_scatter's library yardstick: one Tensor.scatter_reduce_
+    (reduce="amax") of lane + 1 into the slab at the valid lanes' cells,
+    with the cells and lanes computed beforehand (K5 computes the cell from
+    the key inside its body); its slab must equal K5's."""
+    u = keys != fpset.KEY00
+    cell = fpset._slab_cell(keys, 0, m - 1)[u]
+    lane1 = (torch.arange(1, keys.shape[0] + 1, device=keys.device)[u]
+             .to(torch.int32))
+    slab = torch.zeros(m, dtype=torch.int32, device=keys.device)
+    slab.scatter_reduce_(0, cell, lane1, reduce="amax")
+    need(torch.equal(slab, want), "scatter_reduce_ disagrees with K5")
+    ms = cuda_ms(torch, lambda z: z.scatter_reduce_(0, cell, lane1,
+                                                   reduce="amax"), 10,
+                 lambda: torch.zeros(m, dtype=torch.int32,
+                                     device=keys.device))
+    print(f"phase 2 K5 library yardstick: scatter_reduce_ amax of "
+          f"{cell.shape[0]} lanes into {m} cells {ms:.4f} ms (slab equal to "
+          "K5's)", flush=True)
+    return ms
 
 
 def fp64_library_ms(torch, words, nbits, lo, hi):
@@ -1136,13 +1454,15 @@ def check_fpset(torch, fpset, rng, dev, tag, R, ncand):
     }
 
 
-def check_new_kernels(torch, ops, rng, tag, cfg, block, n, record, runs):
+def check_new_kernels(torch, ops, rng, tag, cfg, block, n, record, runs,
+                      library):
     """K1's deferred variant, K5 slab, K6 slab order, K3's masked probe,
     K7 deferred_check and K8 ring_row, each against its plain version on
     the same inputs at this step shape; the slab with its default geometry,
     with slab_bits=3 (collisions everywhere) and on an all-distinct burst
     (the sorted fallback).  Also times the library sort of the sorted
-    dedup at this shape."""
+    dedup at this shape and, at the scaled shape, K5's library call
+    (library["slab_scatter"])."""
     import numpy as np
 
     from torchtlc.engine import backend, fpset
@@ -1247,6 +1567,9 @@ def check_new_kernels(torch, ops, rng, tag, cfg, block, n, record, runs):
         pos, cand = k[4], k[3]
         c_lane = torch.empty(R, dtype=torch.int32, device=dev)
         suffix = "" if name == "default" else "/" + name
+        if name == "default" and tag == "scaled":
+            library["slab_scatter"] = slab_scatter_library_ms(
+                torch, fpset, keys, m, k[0])
         # bound: keys read, unres written, one 4 B cell per valid lane; the
         # slab's zeroing is a torch.zeros outside the kernel (and outside
         # the timed call), timed on its own by the caller
@@ -1421,9 +1744,15 @@ def check_new_kernels(torch, ops, rng, tag, cfg, block, n, record, runs):
     # spill: the spill_hits counter after and before the body (COL_SPILL)
     spill = (torch.full((), 123457, dtype=torch.int64, device=dev),
              torch.full((), 123400, dtype=torch.int64, device=dev))
-    for name, wrap, sp in (("", False, (None, None)),
-                           ("/wrap", True, (None, None)),
-                           ("/spill", False, spill)):
+    # coverage: the 311 site counters after and before the body, one of
+    # them 3 below 2^32 so that its uint32 view wraps
+    cov_old = torch.arange(311, dtype=torch.int64, device=dev) * 1000
+    cov_old[57] = top
+    cov_pair = (cov_old + 5, cov_old)
+    for name, wrap, sp, cv in (("", False, (None, None), (None, None)),
+                               ("/wrap", True, (None, None), (None, None)),
+                               ("/spill", False, spill, (None, None)),
+                               ("/coverage", False, (None, None), cov_pair)):
         outs = []
         for fn in (counters.ring_row, counters.ring_row_plain):
             ring = carry.obs_ring.clone()
@@ -1439,15 +1768,15 @@ def check_new_kernels(torch, ops, rng, tag, cfg, block, n, record, runs):
             fn(ring, head, bodies, exp_, ck, True, carry.level, g_old + 9,
                g_old, d_old + 7, d_old, carry.level_n,
                acts_old[:n_acts] + 5, acts_old[n_acts:] + 5, acts_old,
-               n_labels, *sp)
+               n_labels, *sp, *cv)
             outs.append((ring, head, bodies, exp_))
         err = max(err_of(a, b) for a, b in zip(*outs))
         need(err == 0, f"K8 ring_row differs from its plain version ({tag}"
              f"{name})")
-        if wrap:
+        if wrap or cv[0] is not None:
             need(int(outs[0][0][int(carry.obs_head) % SCALED_OBS_SLOTS,
                                 counters.COL_OVERFLOW]) == 1,
-                 "K8 missed a uint32 wrap")
+                 f"K8 missed a uint32 wrap ({tag}{name})")
         if sp[0] is not None:
             need(int(outs[0][0][int(carry.obs_head) % SCALED_OBS_SLOTS,
                                 counters.COL_SPILL]) == 123457,
@@ -1459,7 +1788,8 @@ def check_new_kernels(torch, ops, rng, tag, cfg, block, n, record, runs):
                    carry.generated, carry.generated, carry.distinct,
                    carry.distinct, carry.level_n, carry.act_gen,
                    carry.act_dist, torch.cat([carry.act_gen,
-                                              carry.act_dist]), n_labels)
+                                              carry.act_dist]), n_labels,
+                   *sp, *cv)
             return run
 
         def ring_setup():
@@ -1471,7 +1801,8 @@ def check_new_kernels(torch, ops, rng, tag, cfg, block, n, record, runs):
                cuda_ms(torch, ring_args(counters.ring_row), 10, ring_setup),
                cuda_ms(torch, ring_args(counters.ring_row_plain), 3,
                        ring_setup),
-               (slots1 * 4 + 4 * (n_labels + 1) * 8 + cols * 4 + 10 * 8))
+               (slots1 * 4 + 4 * (n_labels + 1) * 8 + cols * 4 + 10 * 8
+                + (311 * 16 if cv[0] is not None else 0)))
     print(f"phase 2 slice-2 kernels vs plain ({tag}, chunk {ck}, {n} popped, "
           f"{ncand} candidates, R {R}): all bitwise equal; "
           + "; ".join(lines) + f"; library sort {lib_ms}", flush=True)

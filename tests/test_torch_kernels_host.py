@@ -41,7 +41,7 @@ def host_lib(tmp_path_factory):
     lib.host_slab_dedup.restype = LL
     lib.host_deferred_check.argtypes = [P, P, LL, P, P, P, P, P, P]
     lib.host_ring_row.argtypes = [P, I, I, P, P, P, LL, I, LL, LL, LL, LL, LL,
-                                  LL, P, P, P, P, P, I, I]
+                                  LL, P, P, P, P, P, I, I, P, P, I]
     return lib
 
 
@@ -297,7 +297,7 @@ def test_ring_header_equals_plain(host_lib, near_wrap, flip):
                            int(flip), 12, g_new, g_old, d_new, d_old, 321,
                            a_gen.ctypes.data, a_dist.ctypes.data,
                            old.ctypes.data, None, None, n_labels + 1,
-                           n_labels)
+                           n_labels, None, None, 0)
     ring = torch.from_numpy(ring0.copy())
     head, bodies, expanded = (torch.tensor(v) for v in (11, 3, 7000))
     t = torch.tensor

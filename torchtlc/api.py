@@ -7,7 +7,9 @@ runs the exhaustive check - under the run supervisor (segments,
 checkpoints, -recover, auto-regrow, the host spill tier) whenever
 -auto-grow (the default) or -checkpoint is in play, the plain engine
 otherwise - and on a violation re-runs the search in the host driver to
-print the counterexample.  Exit codes are the reference's: 0 no error, 12
+print the counterexample; with -coverage, the success transcript carries
+the host coverage walker's per-expression dump (MC.out:44-1092) and the
+engine the device coverage plane.  Exit codes are the reference's: 0 no error, 12
 safety violation, 75 interrupted or capacity-exhausted with a final
 checkpoint, 1 usage or configuration error.
 
@@ -133,7 +135,17 @@ def _run_check(args) -> int:
     else:
         log.success(r.generated, r.distinct, r.actual_fp_collision,
                     occupancy=r.fp_occupancy)
-        log.coverage(2, r.action_generated, r.action_distinct)
+        if args.coverage:
+            # the full per-expression dump (MC.out:44-1092): the host
+            # walker re-walks the space with the instrumented evaluator
+            from .spec.coverage import render_coverage, run_coverage
+
+            cov = run_coverage(spec.model)
+            stamp = time.strftime("%Y-%m-%d %H:%M:%S")
+            for line in render_coverage(cov, stamp, tool_mode=log.tool):
+                log.raw(line)
+        else:
+            log.coverage(2, r.action_generated, r.action_distinct)
     log.progress(r.depth, r.generated, r.distinct, r.queue_left)
     log.final_counts(r.generated, r.distinct, r.queue_left)
     log.depth(r.depth)
@@ -156,14 +168,15 @@ def _dispatch_check(args, spec, log, device):
             fp_capacity=args.fpcap, obs_slots=_obs_slots(args),
             sort_free=args.sortfree, deferred=args.deferredinv,
             opts=_sup_opts(args, log), device=device,
-            fp_index=spec.fp_index)
+            fp_index=spec.fp_index, coverage=args.coverage)
         return sup.result, sup
     from .engine.bfs import check
 
     return check(spec.model, chunk=args.chunk, queue_capacity=args.qcap,
                  fp_capacity=args.fpcap, obs_slots=_obs_slots(args),
-                 sort_free=args.sortfree, deferred=args.deferredinv,
-                 device=device, fp_index=spec.fp_index), None
+                 coverage=args.coverage, sort_free=args.sortfree,
+                 deferred=args.deferredinv, device=device,
+                 fp_index=spec.fp_index), None
 
 
 def _sup_opts(args, log):
@@ -263,6 +276,8 @@ def _resume_command(args) -> str:
     if args.deferredinv is not None:
         parts += ["-deferred-inv" if args.deferredinv
                   else "-no-deferred-inv"]
+    if args.coverage:
+        parts += ["-coverage"]  # the covered carry is a different layout
     if args.workers == "cpu":
         parts += ["-workers", "cpu"]
     if not args.checkpoint:

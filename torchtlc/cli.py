@@ -4,7 +4,7 @@ jaxtlc/cli.py on the KubeAPI path.
     python -m torchtlc.cli check /path/to/Model_1/MC.cfg \\
         [-workers cpu] [-chunk 1024] [-qcap N] [-fpcap N] \\
         [-checkpoint PATH [-checkpointevery N] [-recover]] \\
-        [-no-auto-grow] [-spill | -no-spill] [-noTool] ...
+        [-no-auto-grow] [-spill | -no-spill] [-coverage] [-noTool] ...
 
 Reads MC.cfg with its sibling MC.tla (and a toolbox .launch if present),
 runs the exhaustive check on the card - on the CPU only with -workers cpu
@@ -26,9 +26,7 @@ from .api import _run_check
 # given", what the error says)
 UNPORTED = {
     "pipeline": (False, "-pipeline (the pipelined body) is ported in slice "
-                 "4 of the port (ROADMAP Queue A item 7b)"),
-    "coverage": (False, "-coverage (the device coverage plane) is ported "
-                 "in slice 4 of the port (ROADMAP Queue A items 7b, 13)"),
+                 "6 of the port (ROADMAP Queue A item 7b)"),
     "sharded": (0, "-sharded (the sharded engine) is ported in the "
                 "sharded slice (ROADMAP Queue A item 10)"),
     "fpset": ("JaxFPSet", "-fpset DiskFPSet (the native disk tier) is "
@@ -51,7 +49,7 @@ UNPORTED = {
     "serve": (0, "-serve (the live monitor server) is ported with the "
               "serving plane (ROADMAP Queue A item 13)"),
     "phasetiming": (False, "-phase-timing is ported with the pipelined "
-                    "step in slice 4 of the port (ROADMAP Queue A item "
+                    "step in slice 6 of the port (ROADMAP Queue A item "
                     "7b)"),
     "traceout": ("", "-trace-out (the Chrome-trace export) is ported with "
                  "the serving plane (ROADMAP Queue A item 13)"),
@@ -136,6 +134,9 @@ def _parser() -> argparse.ArgumentParser:
     c.add_argument("-no-obs", dest="obs", action="store_false")
     c.add_argument("-obs-slots", dest="obsslots", type=int, default=256,
                    metavar="N")
+    c.add_argument("-coverage", action="store_true",
+                   help="carry the device coverage plane and print TLC's "
+                        "per-expression coverage dump")
     c.add_argument("-journal", default="", metavar="PATH",
                    help="append-only JSONL run journal (default "
                         "CHECKPOINT.journal.jsonl with -checkpoint)")
@@ -162,7 +163,6 @@ def _parser() -> argparse.ArgumentParser:
                        const=True, default=None)
         c.add_argument(f"-no-{flag}", dest=dest, action="store_const",
                        const=False)
-    c.add_argument("-coverage", action="store_true")
     c.add_argument("-simulate", action="store_true")
     c.add_argument("-depth", type=int, default=100)
     c.add_argument("-walkers", type=int, default=256)

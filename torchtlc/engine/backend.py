@@ -20,6 +20,11 @@ reference's mode at chunk >= 2048) skips the invariants there: the flag
 rows FLAG_BAD_TYPEOK and FLAG_BAD_ONLYONE stay zero, and the commit stage
 runs ``deferred_check`` (kernel K7, torchtlc/kernels/csrc/deferred.cu) on
 the fresh-insert claimants instead.
+
+``kubeapi_backend(cfg, coverage=True)`` adds the device coverage plane
+(spec.coverage_device): the expand stage then counts the block's 311 site
+increments (kernel K10, torchtlc/kernels/csrc/coverage.cu) on K1's valid
+flags, before dedup, in every mode.
 """
 
 from __future__ import annotations
@@ -59,10 +64,18 @@ class SpecBackend(NamedTuple):
     inv_codes: tuple  # invariant bit k failing reports this code
     initial_vectors: object  # () -> [n0, F] numpy int32
     labels: tuple  # action id -> display name
+    # the device coverage plane (obs.coverage.CoveragePlane) or None: pure
+    # telemetry, so coverage-on results are coverage-off results
+    coverage: object = None
 
 
-def kubeapi_backend(cfg: ModelConfig) -> SpecBackend:
+def kubeapi_backend(cfg: ModelConfig, coverage: bool = False) -> SpecBackend:
     cdc = get_codec(cfg)
+    plane = None
+    if coverage:
+        from ..spec.coverage_device import kubeapi_coverage_plane
+
+        plane = kubeapi_coverage_plane(cfg)
     return SpecBackend(
         cfg=cfg,
         cdc=cdc,
@@ -70,6 +83,7 @@ def kubeapi_backend(cfg: ModelConfig) -> SpecBackend:
         inv_codes=(VIOL_TYPEOK, VIOL_ONLYONEVERSION),
         initial_vectors=lambda: initial_vectors(cfg),
         labels=LABELS,
+        coverage=plane,
     )
 
 
@@ -140,6 +154,9 @@ class ExpandOut(NamedTuple):
     viol_words: torch.Tensor  # [W] int32: its state, packed
     viol_action: torch.Tensor  # 0-dim int64
     block: torch.Tensor  # [chunk, W] int32: the popped rows (deferred check)
+    # [n_sites] int32 (uint32 words): this block's coverage site increments
+    # (None without a coverage plane)
+    cov: torch.Tensor = None
 
 
 def make_expand_stage(backend: SpecBackend, chunk: int,
@@ -152,7 +169,9 @@ def make_expand_stage(backend: SpecBackend, chunk: int,
     covers assert > deadlock > slot overflow).
 
     The violating state is carried packed (viol_words); the engine unpacks
-    it on the host once a violation is read back."""
+    it on the host once a violation is read back.  With a coverage plane
+    the stage also counts the block's site increments (ExpandOut.cov) on
+    K1's valid flags, which already carry the pop mask."""
     cfg = backend.cfg
     cdc = backend.cdc
     L = backend.n_lanes
@@ -165,6 +184,9 @@ def make_expand_stage(backend: SpecBackend, chunk: int,
         dev = block.device
         packed, flags, action, gen = expand_block(cfg, block, n, deferred)
         valid = flags[FLAG_VALID].bool()
+        cov = None
+        if backend.coverage is not None:
+            cov = backend.coverage.count(block, n, flags[FLAG_VALID])
         # deadlock: a popped state with no valid successor (TLC's
         # -deadlock check, always on for KubeAPI)
         dead = ~valid.view(chunk, L).any(1)
@@ -197,7 +219,7 @@ def make_expand_stage(backend: SpecBackend, chunk: int,
             viol=torch.where(hit, k[0] + 1, OK),
             viol_words=words.index_select(0, k)[0],
             viol_action=torch.where(hit, acts.index_select(0, k)[0], -1),
-            block=block,
+            block=block, cov=cov,
         )
 
     return expand

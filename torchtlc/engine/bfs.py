@@ -22,6 +22,12 @@ The frontier is a ping-pong pair of level buffers of packed states
 7. with ``obs_slots > 0``, writes the body's row of the counter ring
    (obs.counters.ring_row: kernel K8).
 
+With a coverage plane on the backend (``backend.kubeapi_backend(cfg,
+coverage=True)``), the expand stage also counts the block's site
+increments (kernel K10) and the commit folds them into the carry's
+cumulative ``cov_counts`` - telemetry only, so every other result equals
+the coverage-off run's.
+
 In spill mode (``make_stage_pair(..., spill=True)``, driven by
 engine.spill.SpillRuntime) the commit also takes a host ``veto`` mask -
 candidates the host spill store already holds - that dedups like a
@@ -36,8 +42,8 @@ them checkpoints) fall where the reference's do.
 
 Modes resolve as the reference's do (``resolve_sort_free``,
 ``resolve_deferred``): at chunk >= 2048 both the sort-free slab dedup and
-the deferred invariants are on.  ``pipeline=True`` and ``coverage=True``
-are not ported and raise.
+the deferred invariants are on.  ``pipeline=True`` is not ported and
+raises.
 
 The reference runs the step inside one ``lax.while_loop``; here a host
 loop drives it, and reads one small bundle of scalars per step (the pop
@@ -64,6 +70,7 @@ import torch
 
 from ..config import ModelConfig
 from ..obs.counters import ring_new, ring_row, rows_from_ring
+from ..obs.coverage import site_totals_dict
 from ..spec.invariants import make_invariant_kernel
 from ..spec.labels import LABELS
 from .backend import (
@@ -96,7 +103,7 @@ __all__ = [
     "outdegree_from_hist", "commit_block", "commit_block_plain",
     "enqueue_order", "resolve_device", "resolve_sort_free",
     "resolve_deferred", "obs_rows", "make_segment", "carry_done",
-    "clone_carry",
+    "clone_carry", "cov_totals",
 ]
 
 VIOLATION_NAMES = {
@@ -160,6 +167,10 @@ class EngineCarry(NamedTuple):
     # host spill tier (None when spill mode is off): candidates the host
     # fingerprint store vetoed so far (engine.spill)
     spill_hits: torch.Tensor = None
+    # device coverage plane (None without one): [n_sites] int64 cumulative
+    # per-site visits (their low 32 bits are the reference's uint32
+    # counters), seeded with the Init-site visits
+    cov_counts: torch.Tensor = None
 
 
 class CheckResult(NamedTuple):
@@ -178,6 +189,7 @@ class CheckResult(NamedTuple):
     outdegree: tuple = None  # (avg, min, max, p95), MC.out:1104
     actual_fp_collision: float = None  # MC.out:42
     fp_occupancy: float = None  # distinct / fp_capacity
+    site_coverage: dict = None  # {site key: visits}; None without coverage
 
 
 def resolve_device(device) -> torch.device:
@@ -385,6 +397,11 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
                                      slab=sort_free)
         acts_old = (torch.cat([c.act_gen, c.act_dist]) if obs_slots
                     else None)
+        cov_counts = c.cov_counts
+        if ex.cov is not None and cov_counts is not None:
+            # fold the block's site increments (uint32 words) into the
+            # cumulative counters (telemetry only)
+            cov_counts = cov_counts + (ex.cov.to(torch.int64) & 0xFFFFFFFF)
         commit_block(c.queue, 1 - h.parity, h.next_n, qcap, e_idx, n_new,
                      ex.packed, ex.action, n, c.act_dist, c.outdeg_hist, A, L,
                      n_labels)
@@ -433,7 +450,9 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
                      level_done, c.level, generated, c.generated, distinct,
                      c.distinct, level_n, c.act_gen, c.act_dist, acts_old,
                      n_labels, spill_hits if spill else None,
-                     c.spill_hits if spill else None)
+                     c.spill_hits if spill else None,
+                     cov_counts if ex.cov is not None else None,
+                     c.cov_counts if ex.cov is not None else None)
 
         vals = torch.stack([parity, qhead, level_n, next_n, distinct, viol,
                             hit_ex.to(torch.int64)]).tolist()
@@ -446,7 +465,7 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
             next_n=next_n, level=level, depth=depth, generated=generated,
             distinct=distinct, viol=viol, viol_state=viol_state,
             viol_action=viol_action, spill_hits=spill_hits,
-            bundle=Bundle(*vals[:6]),
+            cov_counts=cov_counts, bundle=Bundle(*vals[:6]),
         )
 
     commit.slab_fallbacks = 0
@@ -458,14 +477,14 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
 # ---------------------------------------------------------------------------
 
 
-def _resolve_modes(chunk, sort_free, deferred, pipeline, coverage):
+def _resolve_modes(chunk, sort_free, deferred, pipeline):
     """The reference's mode resolution: (sort_free, deferred) as resolved
-    bools; the pipelined and coverage modes are not ported and raise
-    (nothing runs another mode quietly)."""
-    for name, on in (("pipeline", pipeline), ("coverage", coverage)):
-        if on:
-            raise NotImplementedError(
-                f"{name}={on!r} is not ported yet; pass {name}=False")
+    bools; the pipelined body is not ported and raises (nothing runs
+    another mode quietly)."""
+    if pipeline:
+        raise NotImplementedError(
+            f"pipeline={pipeline!r}: the pipelined body is ported in slice 6 "
+            "of the port (ROADMAP Queue A item 7b); pass pipeline=False")
     return resolve_sort_free(sort_free, chunk), resolve_deferred(deferred,
                                                                  chunk)
 
@@ -477,7 +496,6 @@ def make_backend_engine(
     fp_capacity: int = 1 << 20,
     pipeline: bool = False,
     obs_slots: int = 0,
-    coverage: bool = False,
     sort_free: bool = None,
     deferred: bool = None,
     device=None,
@@ -495,12 +513,12 @@ def make_backend_engine(
 
     sort_free and deferred are tri-state (None = auto, on at chunk >=
     2048, as the reference resolves them) and apply to both body widths;
-    obs_slots > 0 carries the counter ring (obs.counters).  After a run,
+    obs_slots > 0 carries the counter ring (obs.counters); a backend with
+    a coverage plane carries ``cov_counts``.  After a run,
     run_fn.steps counts its bodies, run_fn.steps_by_width maps each body
     width to its bodies and run_fn.slab_fallbacks each width to its
     sorted fallbacks (cumulative over the engine's life)."""
-    sort_free, deferred = _resolve_modes(chunk, sort_free, deferred, pipeline,
-                                         coverage)
+    sort_free, deferred = _resolve_modes(chunk, sort_free, deferred, pipeline)
     dev = resolve_device(device)
     cdc = backend.cdc
     F = cdc.n_fields
@@ -546,6 +564,10 @@ def make_backend_engine(
             ring, head = ring_new(obs_slots, n_labels, dev)
             obs = dict(obs_ring=ring, obs_head=head, obs_bodies=i64(0),
                        obs_expanded=i64(0))
+        if backend.coverage is not None:
+            # the coverage counters start at the Init-site visits
+            obs["cov_counts"] = torch.from_numpy(
+                backend.coverage.seed(inits.numpy()).astype(np.int64)).to(dev)
         return EngineCarry(
             fps=fps, queue=queue, parity=i64(0), qhead=i64(0),
             level_n=i64(n0), next_n=i64(0), level=i64(1), depth=i64(1),
@@ -621,12 +643,13 @@ def make_engine(cfg: ModelConfig, chunk: int = 1024,
                 coverage: bool = False, sort_free: bool = None,
                 deferred: bool = None, device=None,
                 fp_index: int = DEFAULT_FP_INDEX):
-    """(init_fn, run_fn, step_fn) for one KubeAPI configuration."""
+    """(init_fn, run_fn, step_fn) for one KubeAPI configuration;
+    coverage=True carries the device coverage plane."""
     return make_backend_engine(
-        kubeapi_backend(cfg), chunk, queue_capacity, fp_capacity,
-        pipeline=pipeline,
-        obs_slots=obs_slots, coverage=coverage, sort_free=sort_free,
-        deferred=deferred, device=device, fp_index=fp_index)
+        kubeapi_backend(cfg, coverage=coverage), chunk, queue_capacity,
+        fp_capacity, pipeline=pipeline, obs_slots=obs_slots,
+        sort_free=sort_free, deferred=deferred, device=device,
+        fp_index=fp_index)
 
 
 def check(cfg: ModelConfig, chunk: int = 1024, queue_capacity: int = 1 << 15,
@@ -635,11 +658,12 @@ def check(cfg: ModelConfig, chunk: int = 1024, queue_capacity: int = 1 << 15,
           sort_free: bool = None, deferred: bool = None,
           device=None, fp_index: int = DEFAULT_FP_INDEX) -> CheckResult:
     """Run an exhaustive check on `device` (None = the card).  wall_s
-    times the run only: the kernels are built and loaded before it."""
-    init_fn, run_fn, _ = make_engine(
-        cfg, chunk, queue_capacity, fp_capacity, pipeline=pipeline,
-        obs_slots=obs_slots,
-        coverage=coverage, sort_free=sort_free, deferred=deferred,
+    times the run only: the kernels are built and loaded before it.  With
+    coverage=True the result's site_coverage holds the plane's totals."""
+    backend = kubeapi_backend(cfg, coverage=coverage)
+    init_fn, run_fn, _ = make_backend_engine(
+        backend, chunk, queue_capacity, fp_capacity, pipeline=pipeline,
+        obs_slots=obs_slots, sort_free=sort_free, deferred=deferred,
         device=device, fp_index=fp_index)
     carry = init_fn()
     if carry.queue.is_cuda:
@@ -649,8 +673,10 @@ def check(cfg: ModelConfig, chunk: int = 1024, queue_capacity: int = 1 << 15,
     if carry.queue.is_cuda:
         torch.cuda.synchronize()
     wall = time.time() - t0
+    sites = backend.coverage.sites if backend.coverage else None
     return result_from_carry(
         carry, wall, iterations=run_fn.steps, fp_capacity=fp_capacity,
+        sites=sites,
     )._replace(actual_fp_collision=fpset_actual_collision(carry.fps))
 
 
@@ -685,14 +711,26 @@ def outdegree_from_hist(hist: np.ndarray):
     )
 
 
+def cov_totals(carry) -> "np.ndarray | None":
+    """Cumulative per-site coverage counters of a carry ([n_sites] int64
+    host array of the reference's uint32 values), or None when no coverage
+    plane rides the carry."""
+    counts = getattr(carry, "cov_counts", None)
+    if counts is None:
+        return None
+    return counts.cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+
+
 def result_from_carry(carry: EngineCarry, wall_s: float, iterations: int = -1,
-                      fp_capacity: int = 0,
-                      labels: tuple = LABELS) -> CheckResult:
-    """Pull a finished (or interrupted) carry to the host."""
+                      fp_capacity: int = 0, labels: tuple = LABELS,
+                      sites: tuple = None) -> CheckResult:
+    """Pull a finished (or interrupted) carry to the host; `sites` (the
+    coverage plane's table) keys site_coverage."""
     act_gen = carry.act_gen.cpu().numpy()[: len(labels)]
     act_dist = carry.act_dist.cpu().numpy()[: len(labels)]
     hist = carry.outdeg_hist.cpu().numpy()[:-1]  # drop the dump row
     viol = int(carry.viol)
+    totals = cov_totals(carry)
     return CheckResult(
         generated=int(carry.generated),
         distinct=int(carry.distinct),
@@ -708,4 +746,6 @@ def result_from_carry(carry: EngineCarry, wall_s: float, iterations: int = -1,
         iterations=iterations,
         outdegree=outdegree_from_hist(hist),
         fp_occupancy=int(carry.distinct) / fp_capacity if fp_capacity else None,
+        site_coverage=(None if totals is None or sites is None
+                       else site_totals_dict(sites, totals)),
     )

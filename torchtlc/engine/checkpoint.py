@@ -3,7 +3,8 @@
 A checkpoint is the reference's file: an ``.npz`` of the engine carry's
 leaves ``leaf_i`` - in the reference carry's leaf order and dtypes
 (interop.LEAF_ORDER: the unpipelined EngineCarry's fields, the
-observability ring and, in spill mode, ``spill_hits``) - plus a JSON
+observability ring, in spill mode ``spill_hits`` and with the coverage
+plane ``cov_counts``) - plus a JSON
 ``__meta__`` with the engine geometry, the ModelConfig stanza and a CRC32
 manifest of every leaf, written to a temporary file, fsync'd and renamed.
 So a checkpoint written by either package loads in the other, and a
@@ -104,7 +105,8 @@ def _leaf_specs(carry) -> list:
         return [(k, np.shape(carry[k]), np.asarray(carry[k]).dtype)
                 for k in sorted(carry)]
     dtypes = {"fps": np.uint32, "queue": np.uint32, "viol_state": np.int32,
-              "obs_ring": np.uint32, "spill_hits": np.uint32, **SCALARS,
+              "obs_ring": np.uint32, "spill_hits": np.uint32,
+              "cov_counts": np.uint32, **SCALARS,
               **OBS_SCALARS, **{k: np.uint32 for k in COUNTERS}}
     out = []
     for name in LEAF_ORDER:

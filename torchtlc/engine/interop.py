@@ -6,7 +6,9 @@ EngineCarry (unpipelined fields), each leaf a numpy array in the
 reference's dtype; the fingerprint set appears as ``fps``, its
 ``[cap/8, 16]`` uint32 table words.  The observability leaves
 (``OBS_FIELDS``: the ring as uint32 words, its head as int32, the bodies
-and expanded counters as uint32) appear when the carry has them.  A spill-mode carry adds ``spill_hits`` (uint32).
+and expanded counters as uint32) appear when the carry has them.  A
+spill-mode carry adds ``spill_hits`` (uint32), a covered carry its
+``cov_counts`` ([n_sites] uint32).
 ``carry_from_numpy(d)`` takes such a
 dict - or any object with those attributes, such as a reference carry whose
 leaves were pulled to numpy - and builds the port's carry on `device`.
@@ -37,7 +39,7 @@ OBS_SCALARS = {"obs_head": np.int32, "obs_bodies": np.uint32,
 OBS_FIELDS = ("obs_ring", *OBS_SCALARS)
 # the reference carry's leaf order (jax.tree_util.tree_leaves of an
 # unpipelined EngineCarry: NamedTuple field order, None fields dropped)
-LEAF_ORDER = FIELDS + OBS_FIELDS + ("spill_hits",)
+LEAF_ORDER = FIELDS + OBS_FIELDS + ("spill_hits", "cov_counts")
 
 
 def _has(d, name) -> bool:
@@ -72,6 +74,9 @@ def carry_to_numpy(c: EngineCarry) -> dict:
     if c.spill_hits is not None:
         out["spill_hits"] = np.asarray(int(c.spill_hits) & 0xFFFFFFFF,
                                        np.uint32)
+    if c.cov_counts is not None:
+        out["cov_counts"] = (c.cov_counts.cpu().numpy() & 0xFFFFFFFF).astype(
+            np.uint32)
     return out
 
 
@@ -95,6 +100,9 @@ def carry_from_numpy(d, device=None) -> EngineCarry:
     if _has(d, "spill_hits"):
         vals["spill_hits"] = torch.tensor(int(_get(d, "spill_hits")),
                                           dtype=torch.int64, device=dev)
+    if _has(d, "cov_counts"):
+        vals["cov_counts"] = torch.from_numpy(
+            _get(d, "cov_counts").astype(np.int64)).to(dev)
     return EngineCarry(
         fps=FPSet(words(_get(d, "fps"))),
         queue=words(_get(d, "queue")),

@@ -1,4 +1,4 @@
-// CPU build of the per-lane logic of K1, K3, K5-K9, for the host tests
+// CPU build of the per-lane logic of K1, K3, K5-K10, for the host tests
 // (tests/test_torch_kernels_host.py).  g++ compiles the same
 // __host__ __device__ headers nvcc builds the kernels from; these loops
 // stand in for the grids, the straggler walk runs the walk kernel's
@@ -7,12 +7,33 @@
 #include <algorithm>
 #include <vector>
 
+#include "coverage.cuh"
 #include "deferred.cuh"
 #include "fpset.cuh"
 #include "ring.cuh"
 #include "slab.cuh"
 
 extern "C" int tt_layout_words() { return sizeof(KubeLayout) / 4; }
+extern "C" int tt_coverage_words() { return sizeof(CovParams) / 4; }
+
+// K10: every row's site contributions, added into out[COV_N_SITES]
+struct HostEmit {
+  uint32_t* out;
+  int k;
+  void operator()(int v) { out[k++] += (uint32_t)v; }
+  void skip(int n) { k += n; }
+};
+
+extern "C" void host_coverage_count(const void* params, const uint32_t* block,
+                                    int ck, int n, const uint8_t* valid,
+                                    uint32_t* out) {
+  const CovParams& P = *(const CovParams*)params;
+  for (int row = 0; row < ck; row++) {
+    HostEmit e{out, 0};
+    cov_row(P, block + (size_t)row * P.Y.W, row < n,
+            valid + (size_t)row * P.Y.L, e);
+  }
+}
 
 extern "C" void host_expand(const void* layout, const uint32_t* block, int ck,
                             int n, int deferred, uint32_t* packed,
@@ -205,7 +226,8 @@ extern "C" void host_ring_row(uint32_t* ring, int slots, int cols,
                               const long long* acts_old,
                               const long long* spill_new,
                               const long long* spill_old, int n_acts,
-                              int n_labels) {
+                              int n_labels, const long long* cov_new,
+                              const long long* cov_old, int n_cov) {
   uint32_t m = 0u;
   for (int r = 0; r <= slots; r++)
     m = std::max(m, ring[(size_t)r * cols + RING_COL_OVERFLOW]);
@@ -214,9 +236,9 @@ extern "C" void host_ring_row(uint32_t* ring, int slots, int cols,
               ring_wrapped(*bodies + 1, *bodies) ||
               ring_wrapped(*expanded + n_pop, *expanded) ||
               (spill_new != nullptr && ring_wrapped(*spill_new, *spill_old));
-  for (int k = 0; k < n_acts; k++)
-    wrap = wrap || ring_wrapped(act_gen[k], acts_old[k]) ||
-           ring_wrapped(act_dist[k], acts_old[n_acts + k]);
+  wrap = wrap || ring_any_wrapped(act_gen, acts_old, n_acts, 0, 1) ||
+         ring_any_wrapped(act_dist, acts_old + n_acts, n_acts, 0, 1) ||
+         ring_any_wrapped(cov_new, cov_old, n_cov, 0, 1);
   RingScalars v;
   v.level = level;
   v.generated = gen_new;

@@ -14,7 +14,9 @@
 //   3. head += flip, bodies += 1, expanded += n_pop, in place.
 // In spill mode the row's COL_SPILL is the carry's spill_hits counter
 // (spill_new, after the body) and its wrap against spill_old joins the
-// overflow test; both pointers are null otherwise.
+// overflow test; both pointers are null otherwise.  With the coverage
+// plane, the n_cov site counters after (cov_new) and before (cov_old) the
+// body join the wrap test too (no column: the counters ride the carry).
 // __syncthreads separates the reads of phase 1 from the writes of 2 and 3.
 //
 // Bound: latency.  It moves a few hundred bytes (one ring column of
@@ -33,7 +35,9 @@ __global__ void __launch_bounds__(RING_THREADS)
                 const long long* dist_old, const long long* queue_n,
                 const long long* act_gen, const long long* act_dist,
                 const long long* acts_old, const long long* spill_new,
-                const long long* spill_old, int n_acts, int n_labels) {
+                const long long* spill_old, int n_acts, int n_labels,
+                const long long* cov_new, const long long* cov_old,
+                int n_cov) {
   __shared__ unsigned int s_over;
   const int tid = threadIdx.x;
   if (tid == 0) s_over = 0u;
@@ -43,10 +47,10 @@ __global__ void __launch_bounds__(RING_THREADS)
     const unsigned int w = ring[(size_t)r * cols + RING_COL_OVERFLOW];
     m = w > m ? w : m;
   }
-  bool wrap = false;
-  for (int k = tid; k < n_acts; k += blockDim.x)
-    wrap = wrap || ring_wrapped(act_gen[k], acts_old[k]) ||
-           ring_wrapped(act_dist[k], acts_old[n_acts + k]);
+  bool wrap = ring_any_wrapped(act_gen, acts_old, n_acts, tid, blockDim.x) ||
+              ring_any_wrapped(act_dist, acts_old + n_acts, n_acts, tid,
+                               blockDim.x) ||
+              ring_any_wrapped(cov_new, cov_old, n_cov, tid, blockDim.x);
   const long long b0 = *bodies, e0 = *expanded;
   if (tid == 0)
     wrap = wrap || ring_wrapped(*gen_new, *gen_old) ||
@@ -86,6 +90,7 @@ extern "C" int tt_ring_row(void* ring, int slots, int cols, void* head,
                            const void* act_gen, const void* act_dist,
                            const void* acts_old, const void* spill_new,
                            const void* spill_old, int n_acts, int n_labels,
+                           const void* cov_new, const void* cov_old, int n_cov,
                            void* stream) {
   ring_kernel<<<1, RING_THREADS, 0, (cudaStream_t)stream>>>(
       (uint32_t*)ring, slots, cols, (long long*)head, (long long*)bodies,
@@ -95,6 +100,6 @@ extern "C" int tt_ring_row(void* ring, int slots, int cols, void* head,
       (const long long*)queue_n, (const long long*)act_gen,
       (const long long*)act_dist, (const long long*)acts_old,
       (const long long*)spill_new, (const long long*)spill_old, n_acts,
-      n_labels);
+      n_labels, (const long long*)cov_new, (const long long*)cov_old, n_cov);
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,8 @@
 // __host__ __device__ functions.
 //
 // Replaces jaxtlc/obs/counters.py:pack_row (:106, with COL_SPILL from
-// :32-35), wrapped_any (:150) and
+// :32-35), wrapped_any (:150, over the pairs jaxtlc/engine/bfs.py:632-645
+// gives it, the coverage counters' included) and
 // the row layout of the module docstring: 10 fixed uint32 columns, then
 // the per-action generated and distinct counters.  The port's counters are
 // int64; a column holds the low 32 bits, as the reference's wrapping
@@ -18,6 +19,15 @@ HD uint32_t ring_lo32(long long v) { return (uint32_t)(unsigned long long)v; }
 // a cumulative counter's uint32 view wrapped between old and new
 HD bool ring_wrapped(long long nw, long long old) {
   return ring_lo32(nw) < ring_lo32(old);
+}
+
+// any counter of a span whose uint32 view wrapped: the pairs
+// (nw[k], old[k]) for k = first, first + step, ... < n
+HD bool ring_any_wrapped(const long long* nw, const long long* old, int n,
+                         int first, int step) {
+  bool w = false;
+  for (int k = first; k < n; k += step) w = w || ring_wrapped(nw[k], old[k]);
+  return w;
 }
 
 struct RingScalars {

@@ -22,7 +22,7 @@ from . import build as _build
 KERNELS = ("expand", "fp64", "fpset_key", "fpset_probe", "fpset_claim",
            "fpset_walk", "commit", "slab_scatter", "slab_resolve",
            "slab_compact", "slab_order", "slab_mark", "deferred_check",
-           "ring_row", "fpset_member")
+           "ring_row", "fpset_member", "coverage_count")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -49,8 +49,11 @@ _SIGNATURES = {
     "tt_slab_mark": ("slab", [_P, _P, _P, _I, _P, _LL, _P, _P, _P]),
     "tt_deferred_check": ("deferred", [_P, _P, _LL, _P, _P, _P, _P, _P, _P,
                                        _P, _P]),
+    "tt_coverage_words": ("coverage", []),
+    "tt_coverage_count": ("coverage", [_P, _P, _I, _I, _P, _P, _P]),
     "tt_ring_row": ("ring", [_P, _I, _I, _P, _P, _P, _LL, _I, _P, _P, _P, _P,
-                             _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]),
+                             _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
+                             _P]),
 }
 
 
@@ -424,9 +427,9 @@ def deferred_check(cfg, block: torch.Tensor, fresh: torch.Tensor,
 def ring_row(ring, head, bodies, expanded, n_pop: int, flip: bool, level,
              gen_new, gen_old, dist_new, dist_old, queue_n, act_gen,
              act_dist, acts_old, n_labels: int, spill_new=None,
-             spill_old=None) -> None:
+             spill_old=None, cov_new=None, cov_old=None) -> None:
     """One ring row; see obs.counters.ring_row_plain (spill_new and
-    spill_old: both or neither)."""
+    spill_old, cov_new and cov_old: both or neither)."""
     slots, cols = ring.shape[0] - 1, ring.shape[1]
     _need(ring, "ring", torch.int32)
     if slots < 1 or cols != 10 + 2 * n_labels:
@@ -443,6 +446,13 @@ def ring_row(ring, head, bodies, expanded, n_pop: int, flip: bool, level,
     if spill_new is not None:
         _need(spill_new, "spill_new", torch.int64, ())
         _need(spill_old, "spill_old", torch.int64, ())
+    if (cov_new is None) != (cov_old is None):
+        raise ValueError("cov_new and cov_old go together")
+    n_cov = 0
+    if cov_new is not None:
+        n_cov = cov_new.shape[0]
+        _need(cov_new, "cov_new", torch.int64, (n_cov,))
+        _need(cov_old, "cov_old", torch.int64, (n_cov,))
     n_acts = act_gen.shape[0]
     if n_acts < n_labels:
         raise ValueError("act_gen holds fewer counters than labels")
@@ -456,4 +466,42 @@ def ring_row(ring, head, bodies, expanded, n_pop: int, flip: bool, level,
         _ptr(act_dist), _ptr(acts_old),
         None if spill_new is None else _ptr(spill_new),
         None if spill_old is None else _ptr(spill_old), n_acts, n_labels,
-        _stream()))
+        None if cov_new is None else _ptr(cov_new),
+        None if cov_old is None else _ptr(cov_old), n_cov, _stream()))
+
+
+# ---------------------------------------------------------------------------
+# K10 coverage count
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _cov_params(cfg) -> np.ndarray:
+    from ..spec.coverage_device import kernel_params
+
+    words = kernel_params(cfg)
+    n = lib().tt_coverage_words()
+    if n != words.shape[0]:
+        raise RuntimeError(f"CovParams mismatch: kernel has {n} words, "
+                           f"kernel_params gives {words.shape[0]}")
+    return words
+
+
+def coverage_count(cfg, block: torch.Tensor, n: int,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """-> [311] int32 (uint32 words): the site increments of the first n
+    rows of a popped block; see spec.coverage_device.count_plain.  valid:
+    the expand stage's [ck * L] lane flags (uint8 or bool)."""
+    params = _cov_params(cfg)
+    lay = _layout(cfg)
+    ck = block.shape[0]
+    L = int(lay[28])
+    _need(block, "block", torch.int32, (ck, int(lay[25])))
+    if valid.dtype == torch.bool:
+        valid = valid.view(torch.uint8)
+    _need(valid, "valid", torch.uint8, (ck * L,))
+    out = torch.zeros(311, dtype=torch.int32, device=block.device)
+    _launched("coverage_count", lib().tt_coverage_count(
+        params.ctypes.data_as(_P), _ptr(block), ck, n, _ptr(valid),
+        _ptr(out), _stream()))
+    return out

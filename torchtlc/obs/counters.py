@@ -28,7 +28,8 @@ packages):
 The port's counters are int64 and the ring stores their low 32 bits, which
 are the reference's wrapping uint32 values; ``wrapped_any`` fires when a
 counter's uint32 view wrapped during the body, so the sticky overflow word
-equals the reference's.
+equals the reference's.  With the coverage plane the site counters'
+pair joins that wrap test (jaxtlc/engine/bfs.py:641-642).
 
 ``ring_row`` writes one row: kernel K8 (torchtlc/kernels/csrc/ring.cu) on a
 CUDA tensor, ``ring_row_plain`` - the composition of ``pack_row``,
@@ -121,12 +122,14 @@ def ring_update(ring: torch.Tensor, head: torch.Tensor, row: torch.Tensor,
 def ring_row_plain(ring, head, bodies, expanded, n_pop: int, flip: bool,
                    level, gen_new, gen_old, dist_new, dist_old, queue_n,
                    act_gen, act_dist, acts_old, n_labels: int,
-                   spill_new=None, spill_old=None) -> None:
+                   spill_new=None, spill_old=None, cov_new=None,
+                   cov_old=None) -> None:
     """Torch version of kernel K8: the row of one engine body, after its
     commit.  act_gen / act_dist are the [n_labels + 1] counters after the
     body, acts_old their concatenation before it; bodies and expanded are
     advanced by 1 and n_pop; spill_new / spill_old (spill mode) are the
-    spill_hits counter after and before the body.  Updates ring, head,
+    spill_hits counter after and before the body, cov_new / cov_old (with
+    the coverage plane) the [n_sites] site counters.  Updates ring, head,
     bodies and expanded in place."""
     n_acts = act_gen.shape[0]
     b1 = bodies + 1
@@ -138,6 +141,8 @@ def ring_row_plain(ring, head, bodies, expanded, n_pop: int, flip: bool,
     ]
     if spill_new is not None:
         pairs.append((spill_new, spill_old))
+    if cov_new is not None:
+        pairs.append((cov_new, cov_old))
     row = pack_row(level, gen_new, dist_new, queue_n, b1, e1,
                    act_gen[:n_labels], act_dist[:n_labels],
                    overflow=sticky_overflow(ring, wrapped_any(pairs)),
@@ -150,11 +155,11 @@ def ring_row_plain(ring, head, bodies, expanded, n_pop: int, flip: bool,
 def ring_row(ring, head, bodies, expanded, n_pop: int, flip: bool, level,
              gen_new, gen_old, dist_new, dist_old, queue_n, act_gen,
              act_dist, acts_old, n_labels: int, spill_new=None,
-             spill_old=None) -> None:
+             spill_old=None, cov_new=None, cov_old=None) -> None:
     """Kernel K8 on CUDA tensors, the plain version on CPU tensors."""
     args = (ring, head, bodies, expanded, n_pop, flip, level, gen_new,
             gen_old, dist_new, dist_old, queue_n, act_gen, act_dist,
-            acts_old, n_labels, spill_new, spill_old)
+            acts_old, n_labels, spill_new, spill_old, cov_new, cov_old)
     if not ring.is_cuda:
         return ring_row_plain(*args)
     from ..kernels import ops

@@ -90,7 +90,8 @@ def migrate_engine_carry(carry: EngineCarry, old_params: Dict,
     copied into the new queue, normalized to parity 0.  `new_chunk`
     re-seats the queue's chunk padding for another pop width (the
     ladder's chunk shrink: counts and verdict are kept, in-batch
-    attribution may shift).  The ring and spill_hits travel verbatim."""
+    attribution may shift).  The ring, spill_hits and the coverage
+    counters travel verbatim."""
     dev = carry.queue.device
     chunk = (carry.queue.shape[1] - int(old_params["queue_capacity"])) // 2
     if new_chunk is not None:
@@ -126,4 +127,5 @@ def migrate_engine_carry(carry: EngineCarry, old_params: Dict,
         obs_head=copy(carry.obs_head), obs_bodies=copy(carry.obs_bodies),
         obs_expanded=copy(carry.obs_expanded),
         spill_hits=copy(carry.spill_hits),
+        cov_counts=copy(carry.cov_counts),
     )

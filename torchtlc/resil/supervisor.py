@@ -23,6 +23,11 @@ injected transient faults into events:
   reference's format (engine.checkpoint); a spilling run pairs each with
   its host-store file, and ``resume`` loads the newest intact pair,
   rebuilding the engine with the geometry the checkpoint records.
+* **Coverage.**  With the device coverage plane, each segment fence
+  journals one ``coverage`` event of per-site deltas, and a run that goes
+  ``coverage_sat_levels`` BFS levels without a new site journals the
+  saturation event once; a resumed run's cursor starts at the restored
+  totals, so the stream continues across -recover.
 
 The engine updates its carry in place, so every segment runs on a copy
 of the last good carry (bfs.clone_carry): retries and regrows replay
@@ -41,6 +46,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..engine import checkpoint as ckpt
+from ..engine.backend import kubeapi_backend
 from ..engine.bfs import (
     FP_HIGHWATER,
     OK,
@@ -49,7 +55,8 @@ from ..engine.bfs import (
     CheckResult,
     carry_done,
     clone_carry,
-    make_engine,
+    cov_totals,
+    make_backend_engine,
     make_segment,
     read_bundle,
     resolve_deferred,
@@ -58,6 +65,7 @@ from ..engine.bfs import (
     result_from_carry,
 )
 from ..engine.fingerprint import DEFAULT_FP_INDEX, DEFAULT_SEED
+from ..obs.coverage import coverage_delta_event
 from ..engine.spill import SpillWriteError
 from .faults import FaultInjector, FaultPlan, TransientFault
 from .regrow import GROWABLE, grown, migrate_engine_carry
@@ -127,9 +135,12 @@ class SupervisorOptions:
     spill: str = "auto"
     spill_capacity: int = 1 << 15
     min_chunk: int = MIN_CHUNK
+    # coverage saturation: after this many BFS levels with no new coverage
+    # site, one `coverage` event with saturated=true (coverage runs only)
+    coverage_sat_levels: int = 8
     # on_event(kind, info): checkpoint / ckpt_write_failed / ckpt_fallback
     # / recovery / regrow / retry / interrupted / progress / level /
-    # segment / spill / degrade / exhausted / final
+    # coverage / segment / spill / degrade / exhausted / final
     on_event: Optional[Callable[[str, dict], None]] = None
 
 
@@ -185,7 +196,8 @@ def _sync(carry) -> None:
 
 class SingleDeviceAdapter:
     """The supervision seam over the single-device segmented engine on
-    the KubeAPI backend.  Growable: queue_capacity, fp_capacity."""
+    the KubeAPI backend (built once, with the coverage plane when
+    coverage=True).  Growable: queue_capacity, fp_capacity."""
 
     kind = "single"
     GEOM_KEYS = ("queue_capacity", "fp_capacity")
@@ -195,8 +207,13 @@ class SingleDeviceAdapter:
 
     def __init__(self, cfg, chunk: int = 1024, obs_slots: int = 0,
                  sort_free: bool = None, deferred: bool = None,
-                 device=None, fp_index: int = DEFAULT_FP_INDEX):
+                 device=None, fp_index: int = DEFAULT_FP_INDEX,
+                 coverage: bool = False):
         self.cfg = cfg
+        # one backend for the engine, the spill runtime, the site table and
+        # the meta's `coverage` flag
+        self.backend = kubeapi_backend(cfg, coverage=coverage)
+        self.coverage = self.backend.coverage is not None
         self.chunk = chunk
         self.fp_index = fp_index
         # resolved once against the initial chunk: a ladder chunk shrink
@@ -209,8 +226,8 @@ class SingleDeviceAdapter:
 
     def build(self, params: dict, ckpt_every: int):
         """(template carry, segment function) for geometry `params`."""
-        init_fn, _, step_fn = make_engine(
-            self.cfg, self.chunk, params["queue_capacity"],
+        init_fn, _, step_fn = make_backend_engine(
+            self.backend, self.chunk, params["queue_capacity"],
             params["fp_capacity"], obs_slots=self.obs_slots,
             sort_free=self.sort_free, deferred=self.deferred,
             device=self.device, fp_index=self.fp_index)
@@ -220,7 +237,7 @@ class SingleDeviceAdapter:
         return ckpt._meta(
             self.cfg, chunk=self.chunk, fp_index=self.fp_index,
             seed=DEFAULT_SEED, fp_highwater=self.fp_highwater,
-            pipeline=False, obs_slots=self.obs_slots, coverage=False,
+            pipeline=False, obs_slots=self.obs_slots, coverage=self.coverage,
             sort_free=self.sort_free, deferred=self.deferred,
             symmetry=False, por=False, **params)
 
@@ -229,6 +246,14 @@ class SingleDeviceAdapter:
 
     def done(self, carry) -> bool:
         return carry_done(carry)
+
+    def cov_sites(self):
+        """The coverage plane's site table (None when coverage is off)."""
+        plane = self.backend.coverage
+        return plane.sites if plane is not None else None
+
+    def cov_totals(self, carry):
+        return cov_totals(carry)
 
     def obs_rows(self, carry, since: int, params: dict):
         from ..engine.bfs import obs_rows
@@ -247,11 +272,10 @@ class SingleDeviceAdapter:
     def build_spill(self, params: dict, store, on_event=None,
                     spill_write_hook=None):
         """A SpillRuntime over this adapter's geometry."""
-        from ..engine.backend import kubeapi_backend
         from ..engine.spill import SpillRuntime
 
         return SpillRuntime(
-            kubeapi_backend(self.cfg), self.chunk, params["queue_capacity"],
+            self.backend, self.chunk, params["queue_capacity"],
             params["fp_capacity"], fp_highwater=self.fp_highwater,
             obs_slots=self.obs_slots, sort_free=self.sort_free,
             deferred=self.deferred, store=store, on_event=on_event,
@@ -275,7 +299,7 @@ class SingleDeviceAdapter:
 
         return result_from_carry(
             carry, wall, iterations=segments,
-            fp_capacity=params["fp_capacity"],
+            fp_capacity=params["fp_capacity"], sites=self.cov_sites(),
         )._replace(actual_fp_collision=fpset_actual_collision(carry.fps))
 
 
@@ -471,6 +495,16 @@ def supervise(adapter, params: dict,
     # ring rows below this cursor are journaled already (a resumed carry
     # starts past its restored history)
     _, obs_seen = adapter.obs_rows(carry, 0, params)
+    # coverage cursor: the per-site totals journaled already.  A resumed
+    # carry's restored totals are in the original journal, so they seed
+    # it; a fresh run's first event carries the Init visits
+    cov_sites = adapter.cov_sites()
+    cov_seen = None
+    cov_visited = cov_level = cov_last_new_level = 0
+    cov_saturated = False
+    if cov_sites is not None and opts.resume:
+        cov_seen = adapter.cov_totals(carry)
+        cov_visited = int((cov_seen > 0).sum())
     # the periodic checkpoint of a segment is written after the next
     # segment ran (the reference writes it while that segment is in
     # flight), so the events come in the reference's order
@@ -666,6 +700,26 @@ def supervise(adapter, params: dict,
             rows, obs_seen = adapter.obs_rows(carry, obs_seen, params)
             for row in rows:
                 _emit(opts, "level", **row)
+            if rows:
+                cov_level = max(cov_level, rows[-1]["level"])
+            if cov_sites is not None:
+                # the per-site deltas of this segment as one event, and
+                # the saturation signal once a run stops visiting new sites
+                totals = adapter.cov_totals(carry)
+                payload = coverage_delta_event(cov_sites, totals, cov_seen)
+                if payload is not None:
+                    _emit(opts, "coverage", **payload)
+                    cov_seen = totals
+                    if payload["visited"] > cov_visited:
+                        cov_visited = payload["visited"]
+                        cov_last_new_level = cov_level
+                if (not cov_saturated and cov_visited
+                        and cov_level - cov_last_new_level
+                        >= opts.coverage_sat_levels):
+                    cov_saturated = True
+                    _emit(opts, "coverage", visited=cov_visited,
+                          sites=len(cov_sites), delta={}, saturated=True,
+                          level=cov_level)
 
         if interrupted:
             pending_save = None  # superseded by the final generation
@@ -723,12 +777,15 @@ def check_supervised(
     opts: SupervisorOptions = None,
     device=None,
     fp_index: int = DEFAULT_FP_INDEX,
+    coverage: bool = False,
 ) -> SupervisedResult:
     """Supervised single-device exhaustive check of a KubeAPI
-    configuration on `device` (None = the card)."""
+    configuration on `device` (None = the card); coverage=True carries the
+    device coverage plane and journals its `coverage` events."""
     adapter = SingleDeviceAdapter(
         cfg, chunk=chunk, obs_slots=obs_slots, sort_free=sort_free,
-        deferred=deferred, device=device, fp_index=fp_index)
+        deferred=deferred, device=device, fp_index=fp_index,
+        coverage=coverage)
     return supervise(
         adapter,
         {"queue_capacity": queue_capacity, "fp_capacity": fp_capacity},
