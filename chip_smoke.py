@@ -832,23 +832,25 @@ def phase_coverage_scaled(torch, ops, card, runs):
              f"K10 differs from count_plain on the {kind} body ({n} rows)")
     del carry
     walls = {False: [], True: []}
-    for cov in (False, True, True, False):
+    for cov in (False, True, True, False) * 2:
         c2, r2, _, _ = run_engine(torch, ops, cfg, kw_ring, modes={},
                                   coverage=cov)
         need((r2.generated, r2.distinct) == SCALED_COUNTS[:2],
              "scaled timing run: counts")
         walls[cov].append(r2.wall_s)
         del c2
-    off, on = (sum(walls[k]) / 2 for k in (False, True))
+    off, on = (sorted(walls[k])[1:3] for k in (False, True))
+    off, on = sum(off) / 2, sum(on) / 2  # the middle two of four
     print(f"phase 10b scaled 2x1 with coverage (chunk {ck}, default modes + "
           f"ring): {SCALED_COUNTS}, table equal to coverage off, prefix = "
           f"act_gen, K10 = count_plain on {len(taken)} bodies "
           f"({', '.join(f'{t[4]} n={t[1]}' for t in taken)}); "
-          f"{r.iterations} bodies in {wall:.3f} s; alternating off/on/on/off "
-          f"walls {walls[False][0]:.3f} / {walls[True][0]:.3f} / "
-          f"{walls[True][1]:.3f} / {walls[False][1]:.3f} s: coverage "
-          f"{on:.3f} s vs {off:.3f} s ({(on / off - 1) * 100:+.2f}%) on "
-          f"{card}; launches {launches}", flush=True)
+          f"{r.iterations} bodies in {wall:.3f} s; walls in turns "
+          f"off/on/on/off/off/on/on/off: off "
+          f"{[round(w, 4) for w in walls[False]]} s, on "
+          f"{[round(w, 4) for w in walls[True]]} s; middle-two means: "
+          f"coverage {on:.4f} s vs {off:.4f} s ({(on / off - 1) * 100:+.2f}%)"
+          f" on {card}; launches {launches}", flush=True)
     return {"launches": launches, "wall_off": walls[False],
             "wall_on": walls[True]}
 
@@ -958,11 +960,7 @@ def phase_kernels(torch, ops, runs, launches):
     # Model_1: the frontier of level 40 of a fresh run, popped as the
     # engine pops it; scaled: the first chunk rows of level buffer 0 after
     # the run (states of earlier levels), all but 3 inside the pop mask
-    init_fn, _, step_fn = bfs.make_engine(MODEL_1, sort_free=False,
-                                          deferred=False, **M1_KW)
-    c = init_fn()
-    while int(c.level) < 40:
-        c = step_fn(c)
+    c = model1_level40()
     m1_block = c.queue[int(c.parity), :M1_KW["chunk"]].contiguous()
     big = runs["scaled"]["carry"].queue
     ck_big = runs["scaled"]["kw"]["chunk"]
@@ -1074,15 +1072,7 @@ def phase_kernels(torch, ops, runs, launches):
     # hold the enqueue tail's padding, the packed rows of disabled lanes)
     block2048 = c.queue[int(c.parity), :M1_2048_KW["chunk"]].contiguous()
     s_cfg, s_kw = runs["scaled"]["cfg"], runs["scaled"]["kw"]
-    s_init, _, s_step = bfs.make_engine(s_cfg, sort_free=False,
-                                        deferred=False, **s_kw)
-    sc = s_init()
-    while not (int(sc.level_n) >= ck_big and int(sc.qhead) == 0):
-        need(int(sc.level_n) > 0, "the scaled run has no level of a chunk")
-        sc = s_step(sc)
-    s_level, s_level_n = int(sc.level), int(sc.level_n)
-    s_block = sc.queue[int(sc.parity), :ck_big].contiguous()
-    del sc
+    s_block, s_level, s_level_n = scaled_full_level(s_cfg, s_kw)
     print(f"phase 2 slice-2 scaled step: the first {ck_big} rows of level "
           f"{s_level} ({s_level_n} states) of a sorted scaled run",
           flush=True)
@@ -1159,6 +1149,35 @@ def phase_kernels(torch, ops, runs, launches):
     return out
 
 
+def model1_level40():
+    """A sorted Model_1 engine's carry when level 40 is next to pop (the
+    frontier phase 2 takes its Model_1 step blocks from)."""
+    from torchtlc.config import MODEL_1
+    from torchtlc.engine import bfs
+
+    init_fn, _, step_fn = bfs.make_engine(MODEL_1, **SORTED, **M1_KW)
+    c = init_fn()
+    while int(c.level) < 40:
+        c = step_fn(c)
+    return c
+
+
+def scaled_full_level(cfg, kw):
+    """(block, level, level_n): the first chunk rows of the first level of
+    a sorted scaled run that fills a chunk - reachable states only (a level
+    buffer's rows past its level hold the enqueue tail's padding)."""
+    from torchtlc.engine import bfs
+
+    init_fn, _, step_fn = bfs.make_engine(cfg, **SORTED, **kw)
+    sc = init_fn()
+    ck = kw["chunk"]
+    while not (int(sc.level_n) >= ck and int(sc.qhead) == 0):
+        need(int(sc.level_n) > 0, "the scaled run has no level of a chunk")
+        sc = step_fn(sc)
+    return (sc.queue[int(sc.parity), :ck].contiguous(), int(sc.level),
+            int(sc.level_n))
+
+
 def check_coverage_kernel(torch, ops, tag, cfg, block, n, valid,
                           record=None):
     """K10 coverage_count against count_plain on one popped block and K1's
@@ -1186,23 +1205,15 @@ def check_coverage_blocks(torch, ops):
     """The partial run's K10 check (--phases 2c): a Model_1 level-40 block
     and a full-width block of the scaled workload, untimed."""
     from torchtlc.config import MODEL_1, scaled_config
-    from torchtlc.engine import bfs
     from torchtlc.engine.backend import FLAG_VALID, expand_block
 
-    init_fn, _, step_fn = bfs.make_engine(MODEL_1, **SORTED, **M1_KW)
-    c = init_fn()
-    while int(c.level) < 40:
-        c = step_fn(c)
+    c = model1_level40()
     s_cfg, s_kw = scaled_config()
-    s_init, _, s_step = bfs.make_engine(s_cfg, **SORTED, **s_kw)
-    sc = s_init()
     ck = s_kw["chunk"]
-    while not (int(sc.level_n) >= ck and int(sc.qhead) == 0):
-        sc = s_step(sc)
     for tag, cfg, block, n in (
             ("model1", MODEL_1, c.queue[int(c.parity), :M1_KW["chunk"]],
              int(c.level_n)),
-            ("scaled", s_cfg, sc.queue[int(sc.parity), :ck], ck - 3)):
+            ("scaled", s_cfg, scaled_full_level(s_cfg, s_kw)[0], ck - 3)):
         block = block.contiguous()
         flags = expand_block(cfg, block, n)[1]
         check_coverage_kernel(torch, ops, tag, cfg, block, n,

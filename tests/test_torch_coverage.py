@@ -18,7 +18,6 @@
 
 import ctypes
 import os
-import subprocess
 
 import jax.numpy as jnp
 import numpy as np
@@ -36,7 +35,7 @@ from jaxtlc.spec.codec import get_codec as j_get_codec
 from jaxtlc.spec.coverage_device import kubeapi_coverage_plane as j_plane
 from torchtlc.config import MATRIX, make_scaled
 from torchtlc.engine import bfs, checkpoint as ck
-from torchtlc.engine.backend import expand_plain, kubeapi_backend
+from torchtlc.engine.backend import expand_plain
 from torchtlc.engine.interop import carry_to_numpy
 from torchtlc.obs import counters as tcnt
 from torchtlc.obs.coverage import coverage_from_events
@@ -56,11 +55,9 @@ from torchtlc.spec.coverage_device import (
     kernel_params,
     kubeapi_coverage_plane,
 )
-from torchtlc.spec.kernel import lane_layout
+from test_torch_kernels_host import host_lib as host_lib_base  # noqa: F401
 
-CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "torchtlc", "kernels", "csrc")
-P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+P, I = ctypes.c_void_p, ctypes.c_int
 
 FF = MATRIX[(False, False)]
 J_FF = J_MATRIX[(False, False)]
@@ -81,18 +78,10 @@ CASES = [(name, seed) for name in CONFIGS for seed in (0, 1)]
 
 
 @pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    so = str(tmp_path_factory.mktemp("host_cov") / "libhost.so")
-    subprocess.run(
-        ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-D__host__=",
-         "-D__device__=", "-I", CSRC, "-o", so,
-         os.path.join(CSRC, "host_launch.cpp")],
-        check=True, capture_output=True, timeout=300)
-    lib = ctypes.CDLL(so)
-    lib.host_coverage_count.argtypes = [P, P, I, I, P, P]
-    lib.host_ring_row.argtypes = [P, I, I, P, P, P, LL, I, LL, LL, LL, LL, LL,
-                                  LL, P, P, P, P, P, I, I, P, P, I]
-    return lib
+def host_lib(host_lib_base):
+    """The g++ build of the kernels' headers (test_torch_kernels_host)."""
+    host_lib_base.host_coverage_count.argtypes = [P, P, I, I, P, P]
+    return host_lib_base
 
 
 def _reachable(jcfg, depth):

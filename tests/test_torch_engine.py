@@ -129,9 +129,11 @@ def test_seeded_assert_gives_same_violation_state_and_action():
 
 
 @pytest.mark.parametrize("mode", [
-    dict(pipeline=True), dict(coverage=True),
+    dict(pipeline=True), dict(pipeline=True, coverage=True),
 ], ids=["pipeline", "coverage"])
 def test_unported_modes_raise(mode):
+    """The pipelined body (slice 6) raises, with or without the coverage
+    plane (its staged st_cov leaf comes with it)."""
     kw = {**KW, **MODES, **mode}
     with pytest.raises(NotImplementedError):
         tb.make_engine(FF, device="cpu", **kw)

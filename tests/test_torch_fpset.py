@@ -62,7 +62,7 @@ def _stragglers(table, batch, R, C):
 def test_insert_sequences_equal_reference(cap, rounds, n, n_values, invalid,
                                           R, C):
     rng = np.random.default_rng(cap + n)
-    j_set, t_set = jfs.fpset_new(cap), tfs.fpset_new(cap)
+    j_set, t_set = jfs.fpset_new(cap), tfs.fpset_new(cap, "cpu")
     for _ in range(rounds):
         j_set, t_set, nreps = _insert_both(
             j_set, t_set, _batch(rng, n, n_values, invalid), R, C)
@@ -78,9 +78,10 @@ def test_in_batch_duplicates_resolve_to_highest_lane():
     rng = np.random.default_rng(5)
     lo, hi, m = _batch(rng, 64, 16)
     j_set, t_set, nreps = _insert_both(jfs.fpset_new(1 << 10),
-                                       tfs.fpset_new(1 << 10), (lo, hi, m))
+                                       tfs.fpset_new(1 << 10, "cpu"),
+                                       (lo, hi, m))
     _, is_new, c_idx, _ = tfs.fpset_insert_sorted(
-        tfs.fpset_new(1 << 10), torch.from_numpy(lo.view(np.int32)),
+        tfs.fpset_new(1 << 10, "cpu"), torch.from_numpy(lo.view(np.int32)),
         torch.from_numpy(hi.view(np.int32)), torch.from_numpy(m))
     pairs = list(zip(lo.tolist(), hi.tolist()))
     for j in range(nreps):
@@ -94,9 +95,10 @@ def test_more_than_2048_stragglers():
     6000-wide segment to the walk: three walk slices of S = 2048."""
     rng = np.random.default_rng(9)
     batch = _batch(rng, 6000, 4000)
-    assert _stragglers(tfs.fpset_new(1 << 14).table, batch, 0, 64) > 2048
+    assert _stragglers(tfs.fpset_new(1 << 14, "cpu").table, batch, 0,
+                       64) > 2048
     j_set, t_set, _ = _insert_both(jfs.fpset_new(1 << 14),
-                                   tfs.fpset_new(1 << 14), batch, 0, 64)
+                                   tfs.fpset_new(1 << 14, "cpu"), batch, 0, 64)
     j_set, t_set, _ = _insert_both(j_set, t_set, _batch(rng, 6000, 4000), 0, 64)
 
 
@@ -106,7 +108,7 @@ def test_high_load_walk_more_than_2048_stragglers():
     stragglers in the segment that walk full buckets."""
     rng = np.random.default_rng(13)
     cap = 1 << 16
-    j_set, t_set = jfs.fpset_new(cap), tfs.fpset_new(cap)
+    j_set, t_set = jfs.fpset_new(cap), tfs.fpset_new(cap, "cpu")
     j_set, t_set, _ = _insert_both(j_set, t_set, _batch(rng, 36000))
     batch = _batch(rng, 18000)
     assert _stragglers(t_set.table, batch, 0, 0) > 2048
@@ -129,6 +131,7 @@ def test_mix_and_unmix_equal_reference():
 def test_actual_collision_equals_reference():
     rng = np.random.default_rng(4)
     j_set, t_set, _ = _insert_both(jfs.fpset_new(1 << 12),
-                                   tfs.fpset_new(1 << 12), _batch(rng, 2000))
+                                   tfs.fpset_new(1 << 12, "cpu"),
+                                   _batch(rng, 2000))
     assert (tfs.fpset_actual_collision(t_set)
             == float(jfs.fpset_actual_collision(j_set)))

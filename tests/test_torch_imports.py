@@ -181,3 +181,82 @@ def test_copied_modules_equal_reference(tmp_path):
         with mine.RunJournal(path) as j:
             j.event("progress", depth=3, generated=10, distinct=7, queue=2)
         assert [e["event"] for e in theirs.read(path)] == ["progress"]
+
+
+def test_coverage_copies_equal_reference():
+    """The port's copies of the coverage vocabulary (obs.coverage), the
+    span table (spec.coverage_spans), the oracle's value helpers and Init
+    (spec.values) and the host walker (spec.coverage): field for field,
+    value for value, and one FF walk rendered line for line."""
+    import numpy as np
+
+    from jaxtlc.config import MATRIX as JM
+    from jaxtlc.obs import coverage as jc
+    from jaxtlc.spec import coverage as jwalk, coverage_spans as jspans
+    from jaxtlc.spec import oracle as jo
+    from torchtlc.config import MATRIX as TM
+    from torchtlc.obs import coverage as tc
+    from torchtlc.spec import coverage as twalk, coverage_spans as tspans
+    from torchtlc.spec import values as tv
+
+    assert tc.Site._fields == jc.Site._fields
+    assert tc.Site._field_defaults == jc.Site._field_defaults
+    assert tc.CoveragePlane._fields == jc.CoveragePlane._fields
+    assert (tc.CoveragePlane._field_defaults
+            == jc.CoveragePlane._field_defaults)
+    acts = ("A", "B", "C")
+    locs = {"B": "line 3"}
+    assert ([tuple(s) for s in tc.action_site_table("M", acts, locs)]
+            == [tuple(s) for s in jc.action_site_table("M", acts, locs)])
+    sites_t = tc.action_site_table("M", acts)
+    sites_j = jc.action_site_table("M", acts)
+    counts = np.array([3, 0, 7], np.uint32)
+    assert (tc.site_totals_dict(sites_t, counts)
+            == jc.site_totals_dict(sites_j, counts))
+    for seen in (None, np.array([1, 0, 7])):
+        assert (tc.coverage_delta_event(sites_t, counts, seen)
+                == jc.coverage_delta_event(sites_j, counts, seen))
+    assert tc.coverage_delta_event(sites_t, counts, counts) is None
+    events = [
+        {"event": "coverage", "visited": 1, "sites": 3, "delta": {"A": 2}},
+        {"event": "level", "level": 3},
+        {"event": "coverage", "visited": 2, "sites": 3,
+         "delta": {"A": 1, "C": 4}},
+        {"event": "coverage", "visited": 2, "sites": 3, "delta": {},
+         "saturated": True, "level": 9},
+    ]
+    assert tc.coverage_from_events(events) == jc.coverage_from_events(events)
+    assert tc.coverage_from_events([]) is None
+    assert tspans.MODULE == jspans.MODULE
+    assert tspans.SPANS == jspans.SPANS
+    for key in ((False, False), (True, True)):
+        assert tv.initial_states(TM[key]) == jo.initial_states(JM[key])
+    vals = [frozenset({("a", 1), ("b", 2)}), (("x", 1),), 3, "s"]
+    assert [tv._ckey(v) for v in vals] == [jo._ckey(v) for v in vals]
+    assert tv.rec_from((("a", 1),), b=2) == jo.rec_from((("a", 1),), b=2)
+    assert tv.pmap_get((("c", 1),), "c") == jo.pmap_get((("c", 1),), "c")
+    assert tv._set((1, 2, 3), 1, 9) == jo._set((1, 2, 3), 1, 9)
+    ff_t, ff_j = TM[(False, False)], JM[(False, False)]
+    mine = twalk.render_coverage(twalk.run_coverage(ff_t), "T", tool_mode=True)
+    ref = jwalk.render_coverage(jwalk.run_coverage(ff_j), "T", tool_mode=True)
+    assert mine == ref
+
+
+def test_table_and_ring_constructors_default_to_the_card():
+    """fpset_new and ring_new, like the engines, run on the card unless
+    the caller names the CPU: without a card the default raises."""
+    import torch
+
+    from torchtlc.engine.fpset import fpset_new
+    from torchtlc.obs.counters import ring_new
+
+    if torch.cuda.is_available():
+        assert fpset_new(1 << 8).table.is_cuda
+        assert ring_new(4, 2)[0].is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fpset_new(1 << 8)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ring_new(4, 2)
+    assert fpset_new(1 << 8, "cpu").table.device.type == "cpu"
+    assert ring_new(4, 2, "cpu")[1].device.type == "cpu"

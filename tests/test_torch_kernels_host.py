@@ -146,7 +146,7 @@ def _host_insert(lib, table, lo, hi, mask, R=0, C=0):
 def test_fpset_header_equals_plain(host_lib, cap, rounds, n, n_values, R, C):
     rng = np.random.default_rng(cap + n)
     host = np.zeros((cap // 8, 16), np.uint32)
-    plain = tfs.fpset_new(cap)
+    plain = tfs.fpset_new(cap, "cpu")
     for _ in range(rounds):
         lo = rng.integers(0, 2**32, n_values or n, dtype=np.uint64)
         hi = rng.integers(0, 2**32, n_values or n, dtype=np.uint64)
@@ -210,7 +210,7 @@ def test_slab_header_equals_plain(host_lib, bits, passes, n, R, dup):
     assert (active == p_active.numpy()).all()
     cap = 1 << 12
     host = np.zeros((cap // 8, 16), np.uint32)
-    plain = tfs.fpset_new(cap)
+    plain = tfs.fpset_new(cap, "cpu")
     is_new = np.zeros(R, np.uint8)
     sk = np.ascontiguousarray(s_key.numpy())
     host_lib.host_fpset_probe_segment(host.ctypes.data, (cap // 8).bit_length()

@@ -147,7 +147,7 @@ def test_fpset_insert_equals_reference(sort_free):
     pool_lo = rng.integers(0, 2**32, 700, dtype=np.uint64).astype(np.uint32)
     pool_hi = rng.integers(0, 2**32, 700, dtype=np.uint64).astype(np.uint32)
     j_fps = J.fpset_new(1 << 11)
-    t_fps = T.fpset_new(1 << 11)
+    t_fps = T.fpset_new(1 << 11, "cpu")
     for _ in range(3):
         pick = rng.integers(0, 700, 512)
         lo, hi = pool_lo[pick], pool_hi[pick]

@@ -120,9 +120,8 @@ def test_mode_resolution_equals_reference(chunk, flag):
 def test_auto_at_2048_ran_both_modes(runs):
     """The default-mode engine at chunk 2048 ran the slab path (it counts
     its sorted fallbacks per body width) and the deferred check."""
-    assert tb._resolve_modes(2048, None, None, False, False) == (True, True)
-    assert tb._resolve_modes(1024, None, None, False, False) == (False,
-                                                                 False)
+    assert tb._resolve_modes(2048, None, None, False) == (True, True)
+    assert tb._resolve_modes(1024, None, None, False) == (False, False)
     assert runs["auto_at_2048"]["t_run"].slab_fallbacks == {2048: 0}
     assert runs["auto_at_2048"]["t_run"].steps_by_width == {2048: 109}
 

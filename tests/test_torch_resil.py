@@ -316,7 +316,7 @@ def test_migrate_table_runs_on_the_card_by_default():
     rng = np.random.default_rng(9)
     lo, hi = (torch.from_numpy(rng.integers(0, 2**31, 1500).astype(np.int32))
               for _ in range(2))
-    fps, _ = tfs.fpset_insert(tfs.fpset_new(1 << 11), lo, hi,
+    fps, _ = tfs.fpset_insert(tfs.fpset_new(1 << 11, "cpu"), lo, hi,
                               torch.ones(1500, dtype=torch.bool))
     old = fps.table.numpy()
     got = regrow.migrate_table(old, 1 << 12, batch=512, device="cpu")

@@ -43,7 +43,7 @@ CASES = {
 def test_slab_insert_equals_reference_position_by_position(case):
     n, R, cap, dup, invalid, bits, passes = CASES[case]
     rng = np.random.default_rng(sum(map(ord, case)))
-    j_set, t_set = jfs.fpset_new(cap), tfs.fpset_new(cap)
+    j_set, t_set = jfs.fpset_new(cap), tfs.fpset_new(cap, "cpu")
     fallbacks = 0
     for _ in range(3):
         lo, hi, m = _batch(rng, n, dup, invalid)
@@ -122,7 +122,7 @@ def test_enqueue_order_of_the_slab_layout(bits, R):
     n = 512
     lo, hi, m = _batch(rng, n, 60, 0.3)
     _, is_new_c, c_idx, nreps, _ = tfs.fpset_insert_slab(
-        tfs.fpset_new(1 << 12), _t(lo), _t(hi), torch.from_numpy(m),
+        tfs.fpset_new(1 << 12, "cpu"), _t(lo), _t(hi), torch.from_numpy(m),
         probe_width=R, claim_width=R, slab_bits=bits)
     e_idx, n_new = tb.enqueue_order(is_new_c, c_idx, nreps, R, slab=True)
     ref_e, ref_n = _reference_enqueue(is_new_c.numpy(), c_idx.numpy(),
@@ -135,7 +135,7 @@ def test_enqueue_order_of_the_slab_layout(bits, R):
 def test_insert_dedup_seam_equals_reference(sort_free):
     """The engine seam's one dispatch point, both modes."""
     rng = np.random.default_rng(31 + sort_free)
-    j_set, t_set = jfs.fpset_new(1 << 12), tfs.fpset_new(1 << 12)
+    j_set, t_set = jfs.fpset_new(1 << 12), tfs.fpset_new(1 << 12, "cpu")
     for _ in range(2):
         lo, hi, m = _batch(rng, 700, 300, 0.1)
         j_set, a, b, c = jfs.fpset_insert_dedup(

@@ -148,7 +148,7 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(so)
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.host_ring_row.argtypes = [P, I, I, P, P, P, LL, I, LL, LL, LL, LL, LL,
-                                  LL, P, P, P, P, P, I, I]
+                                  LL, P, P, P, P, P, I, I, P, P, I]
     return lib
 
 
@@ -172,5 +172,5 @@ def test_ring_spill_host_build_equals_reference(host_lib, wrap):
         d["level"], d["gen_new"], d["gen_old"], d["dist_new"],
         d["dist_old"], d["queue"], ag.ctypes.data, ad.ctypes.data,
         ao.ctypes.data, ctypes.byref(spill_new), ctypes.byref(spill_old),
-        d["n_labels"] + 1, d["n_labels"])
+        d["n_labels"] + 1, d["n_labels"], None, None, 0)
     assert np.array_equal(ring, want_ring) and head.value == want_head

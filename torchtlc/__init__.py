@@ -15,7 +15,8 @@ Layers, from the entry point down:
   expand stage, the fingerprint set and the fingerprint, each with a plain
   torch version beside the wrapper of its kernel;
 * ``spec`` - the KubeAPI codec, next-state function and invariants in
-  plain torch;
+  plain torch; the device coverage plane (``spec.coverage_device``) and
+  the host coverage walker (``spec.coverage``) behind ``-coverage``;
 * ``kernels`` - the hand-written CUDA kernels (``csrc/``), their nvcc build
   and ctypes wrappers.
 

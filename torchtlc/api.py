@@ -7,9 +7,10 @@ runs the exhaustive check - under the run supervisor (segments,
 checkpoints, -recover, auto-regrow, the host spill tier) whenever
 -auto-grow (the default) or -checkpoint is in play, the plain engine
 otherwise - and on a violation re-runs the search in the host driver to
-print the counterexample; with -coverage, the success transcript carries
-the host coverage walker's per-expression dump (MC.out:44-1092) and the
-engine the device coverage plane.  Exit codes are the reference's: 0 no error, 12
+print the counterexample; with -coverage, the engine carries the device
+coverage plane and the success transcript the host coverage walker's
+per-expression dump (MC.out:44-1092).  Exit codes are the reference's: 0
+no error, 12
 safety violation, 75 interrupted or capacity-exhausted with a final
 checkpoint, 1 usage or configuration error.
 

@@ -559,14 +559,14 @@ def make_backend_engine(
             if viol == OK and bool(bad.any()):
                 viol = code
                 viol_state = inits[int(torch.argmax(bad.to(torch.uint8)))]
-        obs = {}
+        extra = {}
         if obs_slots:
             ring, head = ring_new(obs_slots, n_labels, dev)
-            obs = dict(obs_ring=ring, obs_head=head, obs_bodies=i64(0),
-                       obs_expanded=i64(0))
+            extra = dict(obs_ring=ring, obs_head=head, obs_bodies=i64(0),
+                         obs_expanded=i64(0))
         if backend.coverage is not None:
             # the coverage counters start at the Init-site visits
-            obs["cov_counts"] = torch.from_numpy(
+            extra["cov_counts"] = torch.from_numpy(
                 backend.coverage.seed(inits.numpy()).astype(np.int64)).to(dev)
         return EngineCarry(
             fps=fps, queue=queue, parity=i64(0), qhead=i64(0),
@@ -576,7 +576,7 @@ def make_backend_engine(
             act_dist=torch.zeros(n_labels + 1, dtype=torch.int64, device=dev),
             outdeg_hist=torch.zeros(L + 2, dtype=torch.int64, device=dev),
             viol=i64(viol), viol_state=viol_state.to(dev), viol_action=i64(-1),
-            **obs,
+            **extra,
         )
 
     def body(c: EngineCarry, h: Bundle) -> EngineCarry:

@@ -89,11 +89,14 @@ class FPSet(NamedTuple):
     table: torch.Tensor
 
 
-def fpset_new(cap: int, device="cpu") -> FPSet:
+def fpset_new(cap: int, device=None) -> FPSet:
+    """An empty table of `cap` slots on `device` (None: the card)."""
+    from .bfs import resolve_device
+
     assert cap & (cap - 1) == 0, "capacity must be a power of two"
     assert cap >= BUCKET, f"capacity must be at least {BUCKET}"
     return FPSet(torch.zeros(cap // BUCKET, 2 * BUCKET, dtype=torch.int32,
-                             device=device))
+                             device=resolve_device(device)))
 
 
 def fpset_count(s: FPSet) -> torch.Tensor:

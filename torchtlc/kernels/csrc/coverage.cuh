@@ -176,7 +176,8 @@ HD void cov_row(const CovParams& P, const u32* words, bool masked,
     E(fire);             // .b1g
     E(fire);             // .b1b
     E(fire);             // .b2
-    const int subs = lbl == LBL_DoReply ? 5 : 4;  // pc op obj st un / pc kind st un
+    // DoReply: pc op obj st un; DoListReply: pc kind st un
+    const int subs = lbl == LBL_DoReply ? 5 : 4;
     for (int k = 0; k < subs; k++) E(fire * (1 + timeout));
   }
 
@@ -251,7 +252,8 @@ HD void cov_row(const CovParams& P, const u32* words, bool masked,
   }
   {  // C8: branch on an empty listed set
     const int o = rsum([&](int i) { return occ(i, LBL_C8); });
-    const int empty = rsum([&](int i) { return occ(i, LBL_C8) * (nobjs[i] == 0); });
+    const int empty =
+        rsum([&](int i) { return occ(i, LBL_C8) * (nobjs[i] == 0); });
     E(nr + o);
     E(nr);
     E(o);          // .if
@@ -337,14 +339,15 @@ HD void cov_row(const CovParams& P, const u32* words, bool masked,
     const int ne = bsum([&](int i) {
       return occ(i, LBL_PVCHavePVCs) * (nunb[i] > 0);
     });
-    const int paths = bsum([&](int i) { return occ(i, LBL_PVCHavePVCs) * nunb[i]; });
+    const int paths =
+        bsum([&](int i) { return occ(i, LBL_PVCHavePVCs) * nunb[i]; });
     E(n_bind + ne);  // PH.g
     E(n_bind);       // PH.gs
     E(paths);        // PH.ex
     E(paths);        // PH.un
   }
 
-  // ---- the API server ---------------------------------------------------------
+  // ---- the API server --------------------------------------------------
   auto pending = [&](int i) { return rp[i] & (rs[i] == 0); };
   auto lpending = [&](int i) { return lmp[i] & (lms[i] == 0); };
   auto op_is = [&](int i, int verb) { return pending(i) * (rop[i] == verb); };
@@ -378,10 +381,13 @@ HD void cov_row(const CovParams& P, const u32* words, bool masked,
     E(force - ex);                      // AS.f.add
     E(force);                           // AS.f.ok
     for (int k = 0; k < 3; k++) E(ex);  // AS.f.set .setc .dom
-    const int elems = vsum(VERB_Force, [&](int i) { return exists(i) * api_n; });
-    for (int k = 0; k < 6; k++) E(elems);  // .elif .cond .co .cr .civo.w .civo.1
+    const int elems =
+        vsum(VERB_Force, [&](int i) { return exists(i) * api_n; });
+    // .elif .cond .co .cr .civo.w .civo.1
+    for (int k = 0; k < 6; k++) E(elems);
     E(vsum(VERB_Force, [&](int i) { return exists(i) * m_n[i]; }));  // .civo.2
-    const int match = vsum(VERB_Force, [&](int i) { return exists(i) * m_nk[i]; });
+    const int match =
+        vsum(VERB_Force, [&](int i) { return exists(i) * m_nk[i]; });
     E(match);          // AS.f.wr
     E(elems - match);  // AS.f.o
   }
@@ -397,14 +403,16 @@ HD void cov_row(const CovParams& P, const u32* words, bool masked,
     const int elems = vsum(VERB_Get, [&](int i) { return exists(i) * api_n; });
     for (int k = 0; k < 6; k++) E(elems);  // .chob .choo .chor .elif .cond .co
     E(elems + ex);                         // AS.g.cr
-    const int nmatch = vsum(VERB_Get, [&](int i) { return exists(i) * m_n[i]; });
+    const int nmatch =
+        vsum(VERB_Get, [&](int i) { return exists(i) * m_n[i]; });
     E(elems);   // AS.g.chivo.w
     E(elems);   // AS.g.chivo.1
     E(nmatch);  // AS.g.chivo.2
     E(elems);   // AS.g.civo.w
     E(elems);   // AS.g.civo.1
     E(nmatch);  // AS.g.civo.2
-    const int match = vsum(VERB_Get, [&](int i) { return exists(i) * m_nk[i]; });
+    const int match =
+        vsum(VERB_Get, [&](int i) { return exists(i) * m_nk[i]; });
     E(match);          // AS.g.rd
     E(elems - match);  // AS.g.o
   }
@@ -425,8 +433,10 @@ HD void cov_row(const CovParams& P, const u32* words, bool masked,
     for (int k = 0; k < 6; k++) E(fnd);  // .set .set2 .filt .fdom .wr .ok
     E(upd - fnd);                        // AS.u.err
     E(upd - fnd);                        // AS.u.unch
-    const int elems = vsum(VERB_Update, [&](int i) { return found[i] * api_n; });
-    for (int k = 0; k < 6; k++) E(elems);  // .fneg .fnegi .fo .fr .fivo.w .fivo.1
+    const int elems =
+        vsum(VERB_Update, [&](int i) { return found[i] * api_n; });
+    // .fneg .fnegi .fo .fr .fivo.w .fivo.1
+    for (int k = 0; k < 6; k++) E(elems);
     E(vsum(VERB_Update, [&](int i) { return found[i] * m_n[i]; }));  // .fivo.2
   }
   {  // list serving: every span iterates the whole apiState

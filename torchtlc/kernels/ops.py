@@ -491,14 +491,12 @@ def coverage_count(cfg, block: torch.Tensor, n: int,
                    valid: torch.Tensor) -> torch.Tensor:
     """-> [311] int32 (uint32 words): the site increments of the first n
     rows of a popped block; see spec.coverage_device.count_plain.  valid:
-    the expand stage's [ck * L] lane flags (uint8 or bool)."""
+    the expand stage's [ck * L] uint8 lane flags."""
     params = _cov_params(cfg)
     lay = _layout(cfg)
     ck = block.shape[0]
     L = int(lay[28])
     _need(block, "block", torch.int32, (ck, int(lay[25])))
-    if valid.dtype == torch.bool:
-        valid = valid.view(torch.uint8)
     _need(valid, "valid", torch.uint8, (ck * L,))
     out = torch.zeros(311, dtype=torch.int32, device=block.device)
     _launched("coverage_count", lib().tt_coverage_count(

@@ -61,8 +61,12 @@ def ring_cols(n_labels: int) -> int:
     return N_FIXED_COLS + 2 * n_labels
 
 
-def ring_new(slots: int, n_labels: int, device="cpu"):
-    """Fresh ring ([slots + 1, cols] int32; last row = dump) + head."""
+def ring_new(slots: int, n_labels: int, device=None):
+    """Fresh ring ([slots + 1, cols] int32; last row = dump) + head, on
+    `device` (None: the card)."""
+    from ..engine.bfs import resolve_device
+
+    device = resolve_device(device)
     return (torch.zeros(slots + 1, ring_cols(n_labels), dtype=torch.int32,
                         device=device),
             torch.zeros((), dtype=torch.int64, device=device))

@@ -1,13 +1,14 @@
 """Device-time breakdown of one exhaustive run of the port on the card.
 
-    python3 -m torchtlc.profile [scaled|model1] [sorted|auto]
+    python3 -m torchtlc.profile [scaled|model1] [sorted|auto] [cov]
     python3 -m torchtlc.profile [scaled|model1] ab [PAIRS]
 
 ``sorted`` runs the immediate sorted mode (``sort_free=False,
 deferred=False``); ``auto`` the modes the reference resolves at the
 workload's chunk (both on at chunk >= 2048; Model_1 then runs at chunk
 2048, the scaled workload at its own 131,072) with the counter ring on the
-scaled run.  Runs the workload once untraced (kernels built, allocator
+scaled run; ``cov`` adds the device coverage plane (kernel K10 per
+step).  Runs the workload once untraced (kernels built, allocator
 warm), then once under torch.profiler with CPU and CUDA activity, and
 prints one JSON line: the untraced and traced wall, the device-busy time
 (sum of kernel and memcpy/memset device time on the one stream) and its
@@ -64,7 +65,8 @@ def main(argv) -> int:
         return ab(workload, cfg, kw, sorted_modes,
                   int(argv[2]) if len(argv) > 2 else 3)
     modes = sorted_modes if mode == "sorted" else {}
-    init_fn, run_fn, _ = make_engine(cfg, **modes, **kw)
+    coverage = "cov" in argv[2:]
+    init_fn, run_fn, _ = make_engine(cfg, **modes, **kw, coverage=coverage)
 
     reads = []
     count = fpset.claimant_count
@@ -115,6 +117,7 @@ def main(argv) -> int:
     print(json.dumps({
         "workload": workload,
         "mode": mode,
+        "coverage": coverage,
         "chunk": kw["chunk"],
         "device": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -25,7 +25,7 @@ injected transient faults into events:
   rebuilding the engine with the geometry the checkpoint records.
 * **Coverage.**  With the device coverage plane, each segment fence
   journals one ``coverage`` event of per-site deltas, and a run that goes
-  ``coverage_sat_levels`` BFS levels without a new site journals the
+  ``COVERAGE_SAT_LEVELS`` BFS levels without a new site journals the
   saturation event once; a resumed run's cursor starts at the restored
   totals, so the stream continues across -recover.
 
@@ -65,8 +65,8 @@ from ..engine.bfs import (
     result_from_carry,
 )
 from ..engine.fingerprint import DEFAULT_FP_INDEX, DEFAULT_SEED
-from ..obs.coverage import coverage_delta_event
 from ..engine.spill import SpillWriteError
+from ..obs.coverage import coverage_delta_event
 from .faults import FaultInjector, FaultPlan, TransientFault
 from .regrow import GROWABLE, grown, migrate_engine_carry
 
@@ -93,6 +93,11 @@ EXIT_INTERRUPTED = 75
 
 # the chunk-shrink floor of the ladder's rung 3
 MIN_CHUNK = 64
+
+# coverage saturation: after this many BFS levels with no new coverage
+# site, one `coverage` event with saturated=true (the reference's default
+# coverage_sat_levels)
+COVERAGE_SAT_LEVELS = 8
 
 
 class SlotOverflowError(RuntimeError):
@@ -135,9 +140,6 @@ class SupervisorOptions:
     spill: str = "auto"
     spill_capacity: int = 1 << 15
     min_chunk: int = MIN_CHUNK
-    # coverage saturation: after this many BFS levels with no new coverage
-    # site, one `coverage` event with saturated=true (coverage runs only)
-    coverage_sat_levels: int = 8
     # on_event(kind, info): checkpoint / ckpt_write_failed / ckpt_fallback
     # / recovery / regrow / retry / interrupted / progress / level /
     # coverage / segment / spill / degrade / exhausted / final
@@ -251,9 +253,6 @@ class SingleDeviceAdapter:
         """The coverage plane's site table (None when coverage is off)."""
         plane = self.backend.coverage
         return plane.sites if plane is not None else None
-
-    def cov_totals(self, carry):
-        return cov_totals(carry)
 
     def obs_rows(self, carry, since: int, params: dict):
         from ..engine.bfs import obs_rows
@@ -503,7 +502,7 @@ def supervise(adapter, params: dict,
     cov_visited = cov_level = cov_last_new_level = 0
     cov_saturated = False
     if cov_sites is not None and opts.resume:
-        cov_seen = adapter.cov_totals(carry)
+        cov_seen = cov_totals(carry)
         cov_visited = int((cov_seen > 0).sum())
     # the periodic checkpoint of a segment is written after the next
     # segment ran (the reference writes it while that segment is in
@@ -705,7 +704,7 @@ def supervise(adapter, params: dict,
             if cov_sites is not None:
                 # the per-site deltas of this segment as one event, and
                 # the saturation signal once a run stops visiting new sites
-                totals = adapter.cov_totals(carry)
+                totals = cov_totals(carry)
                 payload = coverage_delta_event(cov_sites, totals, cov_seen)
                 if payload is not None:
                     _emit(opts, "coverage", **payload)
@@ -715,7 +714,7 @@ def supervise(adapter, params: dict,
                         cov_last_new_level = cov_level
                 if (not cov_saturated and cov_visited
                         and cov_level - cov_last_new_level
-                        >= opts.coverage_sat_levels):
+                        >= COVERAGE_SAT_LEVELS):
                     cov_saturated = True
                     _emit(opts, "coverage", visited=cov_visited,
                           sites=len(cov_sites), delta={}, saturated=True,

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..config import RECONCILER, ModelConfig
-from ..obs.coverage import CoveragePlane, Site
+from ..obs.coverage import CoveragePlane, Site, action_site_table
 from .codec import get_codec
 from .kernel import lane_layout
 from .labels import LABEL_ID, LABELS, VERB_ID
@@ -245,7 +245,7 @@ def _registry(cfg: ModelConfig):
             site(f"{key}.{sub}", label,
                  lambda c, f=fire: f(c) * (1 + timeout))
 
-    # ---- reconciler client machine ---------------------------------------------
+    # ---- reconciler client machine ------------------------------------------
 
     recon = [(i, cfg.sr_index(i), cfg.targets[i])
              for i, r in enumerate(cfg.roles) if r == RECONCILER]
@@ -373,7 +373,7 @@ def _registry(cfg: ModelConfig):
     site("C4.oed.body", "C4", oed)
     site("C4.oed.arg", "C4", oed)
 
-    # ---- binder machine ----------------------------------------------------------
+    # ---- binder machine -----------------------------------------------------
 
     binders = [i for i, r in enumerate(cfg.roles) if r != RECONCILER]
 
@@ -421,7 +421,7 @@ def _registry(cfg: ModelConfig):
     site("PH.ex", "PVCHavePVCs", ph_paths)
     site("PH.un", "PVCHavePVCs", ph_paths)
 
-    # ---- the API server -------------------------------------------------------------
+    # ---- the API server -----------------------------------------------------
 
     def pending(c, i):
         return i64(req_present(c, i) & (req_status(c, i) == 0))
@@ -589,7 +589,7 @@ def site_table(cfg: ModelConfig) -> tuple:
     """The plane's ordered sites: actions, Init, spans."""
     entries, _ = _registry(cfg)
     locs = _span_locs() if cfg.identities == MODEL1_IDENTITIES else {}
-    return (tuple(Site(key=a, kind="action", action=a) for a in LABELS)
+    return (tuple(action_site_table("KubeAPI", LABELS))
             + tuple(Site(key=k, kind="init", action="Init")
                     for k in INIT_KEYS)
             + tuple(Site(key=k, kind="span", action=a, loc=locs.get(k, ""))
