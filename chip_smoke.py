@@ -16,7 +16,13 @@ Model_1 and at the scaled size (8, 8b), SIGTERM -> exit 75 -> -recover
 (9) and a violation's counterexample (9b); then the device coverage plane
 behind kernel K10: Model_1 with coverage in both mode sets (10), the
 scaled 2x1 workload with coverage, timed against coverage off (10b), and
-``python -m torchtlc.cli check MC.cfg -coverage`` (10c).  It checks every
+``python -m torchtlc.cli check MC.cfg -coverage`` (10c); then the
+pipelined body (``pipeline=True``, a composition of the same kernels):
+Model_1 in both mode sets and the scaled workload at two chunks, timed
+against the unpipelined body (11), ``check MC.cfg -pipeline`` through
+SIGTERM -> exit 75 -> -recover, the wrong-mode resume refused and the
+journal's segment-scope phase rows (11b), and auto-regrow under -pipeline
+(11c).  It checks every
 result against its pinned value, holds each kernel bitwise against its
 plain torch version on the card, and prints:
 
@@ -24,8 +30,9 @@ plain torch version on the card, and prints:
 * a line with the card's name and power limit (nvidia-smi);
 * a JSON line {"kernels": [...]} with each kernel's launches on the main
   paths (the two Model_1 and the two scaled engine runs, the in-process
-  command, regrow, spill and violation runs, and the three covered engine
-  runs; each path's counts are reset just before it and read just after),
+  command, regrow, spill and violation runs, the three covered engine
+  runs, and the four pipelined engine runs and the pipelined regrow; each
+  path's counts are reset just before it and read just after),
   its error against the plain
   version, its time, the plain version's time, its bound on this card
   and, where one PyTorch call computes the same function, that call's
@@ -37,7 +44,8 @@ without the torchtlc package beside it, it exits nonzero and prints no
 result.  The build's ptxas report goes to torchtlc/kernels/_build/ptxas.txt.
 ``--phases 7,8`` runs phase 1 and the named later phases only (for
 iterating on the card; the contract run takes no arguments); ``2c`` names
-K10's check against its plain version, untimed.
+K10's check against its plain version, untimed; ``--phases 11,11b,11c`` is
+the pipelined slice alone.
 """
 
 from __future__ import annotations
@@ -236,6 +244,12 @@ def main() -> int:
                 torch, ops, write_model(tmp, "Model_FF", False, False))
         if want("10c"):
             phase_coverage_command(model, tmp, card)
+        if want("11"):
+            runs.update(phase_pipeline(torch, ops, card))
+        if want("11b"):
+            phase_pipeline_command(model, tmp, card)
+        if want("11c"):
+            runs["pipe_regrow"] = phase_pipeline_regrow(ops, model, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if only is not None and "2" in only:
@@ -246,7 +260,8 @@ def main() -> int:
         return 0
     main = ("m1", "m1_auto", "scaled", "scaled_auto", "cmd", "regrow",
             "spill_m1", "spill_scaled", "viol_cmd", "cov_m1", "cov_m1_auto",
-            "cov_scaled")
+            "cov_scaled", "pipe_m1", "pipe_m1_auto", "pipe_scaled",
+            "pipe_scaled_65536", "pipe_regrow")
     launches = {k: sum(runs[r]["launches"][k] for r in main)
                 for k in ops.KERNELS}
     kernels = phase_kernels(torch, ops, runs, launches)
@@ -262,16 +277,18 @@ def main() -> int:
     return 0
 
 
-def run_engine(torch, ops, cfg, kw, modes=SORTED, coverage=False):
+def run_engine(torch, ops, cfg, kw, modes=SORTED, coverage=False,
+               pipeline=False):
     """One exhaustive run through the port's engine entry points, with the
     launch counts reset just before and read just after; `modes` {} takes
-    the defaults, coverage=True carries the coverage plane.  Returns
-    (carry, result, launches, run_fn)."""
+    the defaults, coverage=True carries the coverage plane, pipeline=True
+    runs the pipelined body.  Returns (carry, result, launches, run_fn)."""
     from torchtlc.engine.bfs import make_engine, result_from_carry
     from torchtlc.engine.fpset import fpset_actual_collision
     from torchtlc.spec.coverage_device import site_table
 
-    init_fn, run_fn, _ = make_engine(cfg, **modes, **kw, coverage=coverage)
+    init_fn, run_fn, _ = make_engine(cfg, **modes, **kw, coverage=coverage,
+                                     pipeline=pipeline)
     carry = init_fn()
     torch.cuda.synchronize()
     ops.reset_counts()
@@ -896,6 +913,177 @@ def phase_coverage_command(cfg, tmp, card):
           f"the reference's (sha256 {dump_sha[:16]}), {n_ev} coverage events "
           f"folding to the carry's {folded['visited']} visited sites; "
           f"{wall:.1f} s as a subprocess on {card}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phases 11-11c: the pipelined body
+# ---------------------------------------------------------------------------
+
+
+def phase_pipeline(torch, ops, card):
+    """Phase 11: the pipelined engine.  Model_1 at chunk 1024 sorted pops
+    the unpipelined blocks (below the two-tier threshold): MC.out's counts
+    and per-action counts and phase 4's table words; at chunk 2048 in the
+    default modes with coverage: phase 4b's table words and phase 10's
+    site vector.  The scaled 2x1 workload in the default modes with the
+    ring at chunk 131072 and 65536: single-tier there, so counts and
+    per-action generated counts only (equal to the unpipelined run's);
+    the 131072 walls alternate with the unpipelined body's."""
+    from torchtlc.config import MODEL_1, scaled_config
+    from torchtlc.engine.bfs import obs_rows
+    from torchtlc.spec.coverage_device import site_table
+
+    out, lines = {}, []
+    carry, r, launches, run_fn = run_engine(torch, ops, MODEL_1, M1_KW,
+                                            pipeline=True)
+    sha = table_sha256(carry.fps.table)
+    need((r.generated, r.distinct, r.depth) == M1_COUNTS,
+         f"pipelined Model_1 counts {(r.generated, r.distinct, r.depth)}")
+    need(r.outdegree == M1_OUTDEGREE and r.violation == 0
+         and r.queue_left == 0, "pipelined Model_1 verdict")
+    need(r.action_generated == MC_OUT_GENERATED,
+         "pipelined Model_1 per-action generated")
+    need(r.action_distinct == M1_DISTINCT,
+         "pipelined Model_1 per-action distinct")
+    need(sha == M1_TABLE_SHA256, "pipelined Model_1 table words")
+    out["pipe_m1"] = {"launches": launches}
+    lines.append(f"Model_1 chunk 1024 sorted {r.iterations} steps "
+                 f"{r.wall_s:.3f} s")
+    sites = site_table(MODEL_1)
+    carry, r, launches, run_fn = run_engine(torch, ops, MODEL_1, M1_2048_KW,
+                                            {}, coverage=True, pipeline=True)
+    need((r.generated, r.distinct, r.depth) == M1_COUNTS,
+         "pipelined Model_1 (2048, coverage) counts")
+    need(r.violation == 0 and r.queue_left == 0,
+         "pipelined Model_1 (2048, coverage) verdict")
+    need(r.action_distinct == M1_2048_DISTINCT,
+         "pipelined Model_1 (2048) per-action distinct")
+    need(table_sha256(carry.fps.table) == M1_2048_TABLE_SHA256,
+         "pipelined Model_1 (2048) table words")
+    need(coverage_vector(r, sites)[1] == M1_COVERAGE_SHA256,
+         "pipelined Model_1 (2048) site vector")
+    need(launches["coverage_count"] == r.iterations,
+         "pipelined Model_1 (2048): a body without K10")
+    out["pipe_m1_auto"] = {"launches": launches}
+    lines.append(f"Model_1 chunk 2048 default modes + coverage "
+                 f"{r.iterations} steps {r.wall_s:.3f} s")
+    del carry
+
+    cfg, kw = scaled_config()
+    kw_ring = dict(kw, obs_slots=SCALED_OBS_SLOTS)
+    walls = {False: [], True: []}
+    act_gen = {}
+    for pipe in (False, True, True, False):
+        c, r, launches, _ = run_engine(torch, ops, cfg, kw_ring, {},
+                                       pipeline=pipe)
+        need((r.generated, r.distinct, r.depth) == SCALED_COUNTS,
+             f"scaled (pipeline={pipe}) counts")
+        need(r.violation == 0 and r.queue_left == 0,
+             f"scaled (pipeline={pipe}) verdict")
+        rows, head = obs_rows(c)
+        need(head == r.depth and (rows[-1]["generated"],
+                                  rows[-1]["distinct"])
+             == (r.generated, r.distinct),
+             f"scaled (pipeline={pipe}): ring rows")
+        act_gen.setdefault(pipe, r.action_generated)
+        walls[pipe].append((r.wall_s, r.iterations))
+        if pipe and "pipe_scaled" not in out:
+            out["pipe_scaled"] = {"launches": launches}
+        del c
+        torch.cuda.empty_cache()
+    need(act_gen[True] == act_gen[False],
+         "scaled: pipelined per-action generated differ")
+    c, r, launches, _ = run_engine(torch, ops, cfg,
+                                   dict(kw_ring, chunk=1 << 16), {},
+                                   pipeline=True)
+    need((r.generated, r.distinct, r.depth) == SCALED_COUNTS,
+         "scaled (pipelined, chunk 65536) counts")
+    need(r.violation == 0 and r.queue_left == 0,
+         "scaled (pipelined, chunk 65536) verdict")
+    need(r.action_generated == act_gen[False],
+         "scaled (pipelined, chunk 65536) per-action generated")
+    out["pipe_scaled_65536"] = {"launches": launches}
+    lines.append(f"scaled chunk 65536 pipelined {r.iterations} steps "
+                 f"{r.wall_s:.3f} s")
+    del c
+    torch.cuda.empty_cache()
+    print(f"phase 11 pipelined engine: {M1_COUNTS} with phase 4's and 4b's "
+          f"table words and phase 10's site vector, {SCALED_COUNTS} at "
+          f"chunk 131072 and 65536 with the unpipelined per-action "
+          f"generated counts; {'; '.join(lines)}; scaled chunk {kw['chunk']}"
+          f" default modes + ring, in turns unpipelined/pipelined/pipelined/"
+          f"unpipelined: unpipelined "
+          f"{[(round(w, 4), n) for w, n in walls[False]]}, pipelined "
+          f"{[(round(w, 4), n) for w, n in walls[True]]} (s, steps) on "
+          f"{card}", flush=True)
+    return out
+
+
+def command_err(argv):
+    """The command as a subprocess: (rc, stdout, stderr)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    p = subprocess.run([sys.executable, "-m", "torchtlc.cli", "check",
+                        *argv], cwd=here, env=env, capture_output=True,
+                       text=True, timeout=600)
+    return p.returncode, p.stdout, p.stderr
+
+
+def phase_pipeline_command(cfg, tmp, card):
+    """Phase 11b: `check MC.cfg -pipeline` with SIGTERM at segment 3 ->
+    exit 75; -recover without -pipeline refused (the reference raises the
+    same ValueError, exit 1); -recover -pipeline -> exit 0 with the
+    Model_1 counts; every segment of the journal has its device and
+    readback phase rows."""
+    from torchtlc.obs.journal import read as read_journal
+
+    ck = os.path.join(tmp, "pipe.ckpt")
+    base = [cfg, "-noTool", "-checkpoint", ck, "-checkpointevery", "32"]
+    t0 = time.time()
+    rc, out = command(base + ["-pipeline", "-faults", "sigterm@3"])
+    wall_term = time.time() - t0
+    need(rc == 75, f"the -pipeline SIGTERM run exited {rc}, not 75")
+    need(any("-recover" in x and "-pipeline" in x
+             for x in out.splitlines()), "no -pipeline resume command")
+    rc, _, err = command_err(base + ["-recover"])
+    need(rc == 1 and "checkpoint pipeline mismatch" in err,
+         f"the wrong-mode -recover exited {rc}: {err[-300:]}")
+    t0 = time.time()
+    rc, out = command(base + ["-pipeline", "-recover"])
+    wall_recover = time.time() - t0
+    need(rc == 0, f"the -pipeline -recover run exited {rc}")
+    need(final_counts(out) == M1_COUNTS,
+         f"the resumed -pipeline counts {final_counts(out)}")
+    events = read_journal(ck + ".journal.jsonl")
+    segs = [e["index"] for e in events if e["event"] == "segment"]
+    phases = [(e["index"], e["phase"]) for e in events
+              if e["event"] == "phase" and e["scope"] == "segment"]
+    need(segs and phases == [(i, p) for i in segs
+                             for p in ("device", "readback")],
+         f"segment phase rows {phases[:6]} for segments {segs[:3]}")
+    print(f"phase 11b command: `check MC.cfg -pipeline` sigterm@3 -> exit 75 "
+          f"({wall_term:.2f} s), -recover without -pipeline refused (exit 1,"
+          f" checkpoint pipeline mismatch), -recover -pipeline -> exit 0, "
+          f"{M1_COUNTS} ({wall_recover:.2f} s; subprocesses); {len(segs)} "
+          f"segments in the journal, each with its device and readback "
+          f"phase rows, on {card}", flush=True)
+
+
+def phase_pipeline_regrow(ops, cfg, card):
+    """Phase 11c: `check MC.cfg -pipeline -fpcap 65536` regrows twice, the
+    staged block migrated verbatim, to the Model_1 counts."""
+    rc, out, launches, wall = command_here(
+        ops, [cfg, "-noTool", "-pipeline", "-fpcap", "65536"])
+    need(rc == 0, f"the -pipeline regrow command exited {rc}")
+    need(final_counts(out) == M1_COUNTS,
+         f"the -pipeline regrow counts {final_counts(out)}")
+    grows = [line for line in out.splitlines() if "regrowing" in line]
+    need(len(grows) == 2 and "65536 -> 131072" in grows[0]
+         and "131072 -> 262144" in grows[1], f"regrow events {grows}")
+    print(f"phase 11c regrow: -pipeline -fpcap 65536 -> 2 regrows, "
+          f"{M1_COUNTS}; {wall:.2f} s on {card}; launches {launches}",
+          flush=True)
+    return {"launches": launches}
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,9 @@ import pytest
 
 from jaxtlc.cli import main as j_main
 from torchtlc.cli import UNPORTED, main
+from torchtlc.testing import one_thread
+
+one_thread()
 
 MC_TLA = """---- MODULE MC ----
 EXTENDS KubeAPI, TLC
@@ -157,7 +160,7 @@ def test_spill_fail_exit75_then_recover(model_dir, tmp_path, capsys):
 
 
 FLAG_VALUES = {
-    "pipeline": ["-pipeline"], "coverage": ["-coverage"],
+    "coverage": ["-coverage"],
     "sharded": ["-sharded", "4"], "fpset": ["-fpset", "DiskFPSet"],
     "symmetry": ["-symmetry"], "por": ["-por"], "simulate": ["-simulate"],
     "infer": ["-infer"], "liveness": ["-liveness"],
@@ -198,5 +201,53 @@ def test_no_card_without_workers_cpu_is_an_error(model_dir, capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     rc = main(["check", str(model_dir / "MC.cfg"), "-noTool"])
+    err = capsys.readouterr().err
+    assert rc == 1 and "no CUDA device" in err
+
+
+def test_pipeline_transcript_equals_reference(model_dir, capsys):
+    """`check MC.cfg -pipeline`: exit 0 and the reference's transcript."""
+    import contextlib
+    import io
+
+    argv = ["check", str(model_dir / "MC.cfg"), "-noTool", "-pipeline"]
+    rc, out = _run(main, argv + SMALL, capsys)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ref_rc = j_main(argv + ["-no-preflight"] + SMALL)
+    assert rc == ref_rc == 0
+    assert "17020 states generated, 8203 distinct" in out
+    assert masked(out) == masked(buf.getvalue())
+
+
+def test_pipeline_sigterm_resume_hint_and_recover(model_dir, tmp_path,
+                                                  capsys):
+    """An interrupted -pipeline run prints a resume command that repeats
+    -pipeline; -recover without it is refused naming `pipeline` (the
+    reference raises the same ValueError); with it the run completes."""
+    ck = str(tmp_path / "run.ckpt.npz")
+    base = ["check", str(model_dir / "MC.cfg"), "-noTool", "-checkpoint",
+            ck, "-checkpointevery", "16"] + SMALL
+    rc, out = _run(main, base + ["-pipeline", "-faults", "sigterm@2"],
+                   capsys)
+    assert rc == 75
+    hint = [ln for ln in out.splitlines() if "-recover" in ln]
+    assert hint and all("-pipeline" in ln for ln in hint)
+    for fn in (main, j_main):
+        with pytest.raises(ValueError, match="pipeline"):
+            fn(base + ["-recover"])
+    capsys.readouterr()
+    rc, out = _run(main, base + ["-pipeline", "-recover"], capsys)
+    assert rc == 0 and "17020 states generated, 8203 distinct" in out
+
+
+def test_pipeline_without_card_or_workers_cpu_is_an_error(model_dir, capsys):
+    """-pipeline runs on the card like every path: without one, and
+    without -workers cpu, the command refuses instead of using the CPU."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    rc = main(["check", str(model_dir / "MC.cfg"), "-noTool", "-pipeline"])
     err = capsys.readouterr().err
     assert rc == 1 and "no CUDA device" in err

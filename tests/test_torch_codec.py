@@ -14,6 +14,9 @@ from jaxtlc.spec.kernel import initial_vectors as j_initial_vectors
 from torchtlc.config import MODEL_1, ModelConfig, make_scaled
 from torchtlc.spec.codec import get_codec, to_i32, to_u64
 from torchtlc.spec.kernel import initial_vectors
+from torchtlc.testing import one_thread
+
+one_thread()
 
 FF, J_FF = ModelConfig(False, False), JConfig(False, False)
 

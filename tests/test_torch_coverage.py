@@ -56,6 +56,9 @@ from torchtlc.spec.coverage_device import (
     kubeapi_coverage_plane,
 )
 from test_torch_kernels_host import host_lib as host_lib_base  # noqa: F401
+from torchtlc.testing import one_thread
+
+one_thread()
 
 P, I = ctypes.c_void_p, ctypes.c_int
 
@@ -258,11 +261,6 @@ def test_default_modes_count_before_dedup(port_runs):
                   fp_capacity=1 << 15, coverage=True, device="cpu")
     assert (r.generated, r.distinct, r.depth) == FF_COUNTS
     assert r.site_coverage == port_runs[True][1].site_coverage
-
-
-def test_pipeline_still_refused():
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        bfs.make_engine(FF, **KW, pipeline=True, device="cpu")
 
 
 # ---------------------------------------------------------------------------

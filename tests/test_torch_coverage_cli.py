@@ -3,7 +3,7 @@
 transcript - the host walker's per-expression dump included - equal to
 the reference's after masking; the journal's `coverage` events fold to
 the run's totals; SIGTERM -> exit 75 prints a resume command that keeps
--coverage; -pipeline and -phase-timing still exit 2.  The Model_1 pins of
+-coverage; -phase-timing still exits 2.  The Model_1 pins of
 chip_smoke.py (the dump's digest here, the engine's site vector in the
 slow suite) are re-derived from jaxtlc."""
 
@@ -25,6 +25,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 import chip_smoke  # noqa: E402  (the pinned digests)
 from test_torch_cli import MC_CFG, MC_TLA, SMALL, masked  # noqa: E402
+from torchtlc.testing import one_thread  # noqa: E402
+
+one_thread()
 
 
 @pytest.fixture(scope="module")
@@ -86,9 +89,13 @@ def test_sigterm_resume_command_keeps_coverage(model_dir, tmp_path):
 
 @pytest.mark.parametrize("flag", ["-pipeline", "-phase-timing"])
 def test_pipeline_and_phase_timing_name_slice_6(model_dir, capsys, flag):
-    rc = main(["check", str(model_dir / "MC.cfg"), flag])
+    """Named for the slice that refused both flags.  -pipeline runs now,
+    so its case gives -phase-timing beside it: refused there too (the
+    reference ignores it under -pipeline), the error naming slice 7."""
+    argv = ["-pipeline", "-phase-timing"] if flag == "-pipeline" else [flag]
+    rc = main(["check", str(model_dir / "MC.cfg")] + argv)
     err = capsys.readouterr().err
-    assert rc == 2 and "slice 6" in err
+    assert rc == 2 and "slice 7" in err and "-pipeline" in err
 
 
 def test_model1_dump_pin():

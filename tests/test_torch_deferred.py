@@ -27,6 +27,9 @@ from torchtlc.engine.backend import (
     OK, VIOL_ONLYONEVERSION, deferred_check_plain, expand_plain,
 )
 from torchtlc.engine.interop import carry_to_numpy
+from torchtlc.testing import one_thread
+
+one_thread()
 
 FF, J_FF = ModelConfig(False, False), JConfig(False, False)
 CK = 48

@@ -28,6 +28,9 @@ from torchtlc.engine.interop import FIELDS, carry_from_numpy, carry_to_numpy
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the pinned digests)
 from mc_expect import MC_OUT_ACTIONS, MC_OUT_COUNTS  # noqa: E402
+from torchtlc.testing import one_thread  # noqa: E402
+
+one_thread()
 
 FF, J_FF = ModelConfig(False, False), JConfig(False, False)
 KW = dict(chunk=256, queue_capacity=1 << 13, fp_capacity=1 << 15)
@@ -126,17 +129,6 @@ def test_seeded_assert_gives_same_violation_state_and_action():
     assert (tc.viol_state.numpy() == np.asarray(jc.viol_state)).all()
     assert int(tc.viol_action) == int(jc.viol_action)
     _assert_words_equal(carry_to_numpy(tc), _jax_np(jc))
-
-
-@pytest.mark.parametrize("mode", [
-    dict(pipeline=True), dict(pipeline=True, coverage=True),
-], ids=["pipeline", "coverage"])
-def test_unported_modes_raise(mode):
-    """The pipelined body (slice 6) raises, with or without the coverage
-    plane (its staged st_cov leaf comes with it)."""
-    kw = {**KW, **MODES, **mode}
-    with pytest.raises(NotImplementedError):
-        tb.make_engine(FF, device="cpu", **kw)
 
 
 def test_default_device_is_the_card(monkeypatch):

@@ -8,6 +8,9 @@ import torch
 import jax.numpy as jnp
 from jaxtlc.engine import fingerprint as jf
 from torchtlc.engine import fingerprint as tf
+from torchtlc.testing import one_thread
+
+one_thread()
 
 
 @pytest.mark.parametrize("nbits", [108, 222, 64, 33])

@@ -10,6 +10,9 @@ import torch
 import jax.numpy as jnp
 from jaxtlc.engine import fpset as jfs
 from torchtlc.engine import fpset as tfs
+from torchtlc.testing import one_thread
+
+one_thread()
 
 
 def _batch(rng, n, n_values=None, invalid=0.0):

@@ -10,6 +10,10 @@ import sys
 
 import pytest
 
+from torchtlc.testing import one_thread, subprocess_env
+
+one_thread()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxtlc")
 
@@ -70,7 +74,7 @@ print(len(names))
 
 
 def test_every_module_imports_with_jax_blocked():
-    env = dict(os.environ)
+    env = subprocess_env()
     env.pop("PYTHONPATH", None)
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
@@ -240,6 +244,19 @@ def test_coverage_copies_equal_reference():
     mine = twalk.render_coverage(twalk.run_coverage(ff_t), "T", tool_mode=True)
     ref = jwalk.render_coverage(jwalk.run_coverage(ff_j), "T", tool_mode=True)
     assert mine == ref
+
+
+def test_phases_copy_equals_reference():
+    """The port's copy of the fence-mode phase rows (obs.phases): the
+    phase names and segment_phases, field for field."""
+    from jaxtlc.obs import phases as jp
+    from torchtlc.obs import phases as tp
+
+    for name in ("PHASE_EXPAND", "PHASE_COMMIT", "PHASE_DEVICE",
+                 "PHASE_READBACK"):
+        assert getattr(tp, name) == getattr(jp, name), name
+    for args in ((0, 1.2345678), (7, 0.5, 0.0012345), (3, 2.0, None)):
+        assert tp.segment_phases(*args) == jp.segment_phases(*args)
 
 
 def test_table_and_ring_constructors_default_to_the_card():

@@ -18,6 +18,9 @@ from torchtlc.config import MODEL_1, ModelConfig, make_scaled
 from torchtlc.spec.codec import get_codec
 from torchtlc.spec.invariants import make_invariant_kernel
 from torchtlc.spec.kernel import lane_layout, make_kernel
+from torchtlc.testing import one_thread
+
+one_thread()
 
 J_FF = JConfig(False, False)
 NAMES = ("succ", "valid", "action", "assert_fail", "overflow")

@@ -19,6 +19,9 @@ from torchtlc.config import MODEL_1, ModelConfig, make_scaled
 from torchtlc.engine import fpset as tfs
 from torchtlc.engine.backend import expand_plain, kernel_layout
 from torchtlc.spec.codec import get_codec
+from torchtlc.testing import one_thread
+
+one_thread()
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "torchtlc", "kernels", "csrc")

@@ -15,6 +15,9 @@ import torch
 
 from jaxtlc.engine import fpset as J
 from torchtlc.engine import fpset as T
+from torchtlc.testing import one_thread
+
+one_thread()
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "torchtlc", "kernels", "csrc")

@@ -23,6 +23,9 @@ from torchtlc.engine.interop import (
 )
 from torchtlc.obs import counters as tcnt
 from torchtlc.spec.labels import LABELS
+from torchtlc.testing import one_thread
+
+one_thread()
 
 FF, J_FF = ModelConfig(False, False), JConfig(False, False)
 GEO = dict(queue_capacity=1 << 13, fp_capacity=1 << 15)

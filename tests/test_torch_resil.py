@@ -32,6 +32,9 @@ from torchtlc.resil.supervisor import (
     is_resource_exhausted,
 )
 from torchtlc.resil.faults import FaultInjector
+from torchtlc.testing import one_thread
+
+one_thread()
 
 FF = MATRIX[(False, False)]
 J_FF = J_MATRIX[(False, False)]
@@ -44,6 +47,16 @@ def signature(r):
     return (r.generated, r.distinct, r.depth, r.violation,
             tuple(sorted(r.action_generated.items())),
             tuple(sorted(r.action_distinct.items())), r.outdegree)
+
+
+# the journal fields that hold walls, clock times or paths
+DROP = ("wall_s", "t_dispatch", "t_fence", "seconds", "path")
+
+
+def norm(ev):
+    """Events as (kind, fields) without walls, clock times and paths."""
+    return [(k, {a: b for a, b in i.items() if a not in DROP})
+            for k, i in ev]
 
 
 def ref_leaves(jc) -> dict:
@@ -138,8 +151,7 @@ def test_regrow_matches_reference(tmp_path):
                  i["regrows"]) for k, i in ev if k == "regrow"]
 
     assert grows(ev_t) == grows(ev_j)
-    assert ([k for k, _ in ev_t]
-            == [k for k, _ in ev_j if k not in ("phase",)])
+    assert norm(ev_t) == norm(ev_j)
     assert signature(rt.result) == signature(rj.result)
     with np.load(pt) as zt, np.load(pj) as zj:
         assert zt["leaf_0"].shape == (kw["fp_capacity"] * 4 // 8, 16)
@@ -197,12 +209,6 @@ def test_spill_matches_reference(tmp_path):
     assert (rt.spilled, rt.spill_hits, rt.spill_flushes) == (
         rj.spilled, rj.spill_hits, rj.spill_flushes)
     assert signature(rt.result) == signature(rj.result)
-    drop = ("wall_s", "t_dispatch", "t_fence", "seconds", "path")
-
-    def norm(ev):
-        return [(k, {a: b for a, b in i.items() if a not in drop})
-                for k, i in ev if k != "phase"]
-
     assert norm(ev_t) == norm(ev_j)
     assert any(i.get("spill_hits") for k, i in ev_t if k == "level")
     st, sj = SpillStore.load(pt + ".spill"), JStore.load(pj + ".spill")
@@ -324,3 +330,133 @@ def test_migrate_table_runs_on_the_card_by_default():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             regrow.migrate_table(old, 1 << 12)
+
+
+# ---------------------------------------------------------------------------
+# the pipelined engine under the supervisor and across the two packages
+# ---------------------------------------------------------------------------
+
+
+def test_pipeline_sigterm_resume_exact(tmp_path, clean_ff):
+    """SIGTERM under pipeline=True: the final checkpoint carries the staged
+    block, the journal equals the reference's, a resume in the other mode
+    raises naming `pipeline`, and -recover in the same mode ends at the
+    clean statistics."""
+    p, pj = str(tmp_path / "ck.npz"), str(tmp_path / "j.npz")
+    ev_t, ev_j = [], []
+    sr = check_supervised(FF, **KW, device="cpu", pipeline=True,
+                          opts=SupervisorOptions(
+                              ckpt_path=p, ckpt_every=8,
+                              faults=FaultPlan.parse("sigterm@2"),
+                              on_event=lambda k, i: ev_t.append((k, i))))
+    j_supervised(J_FF, **KW, pipeline=True, opts=JOpts(
+        ckpt_path=pj, ckpt_every=8, faults=JPlan.parse("sigterm@2"),
+        on_event=lambda k, i: ev_j.append((k, i))))
+    assert sr.interrupted and sr.result.queue_left > 0
+    assert norm(ev_t) == norm(ev_j)
+    assert ck.read_checkpoint_meta(p)["pipeline"] is True
+    with pytest.raises(ValueError, match="pipeline"):
+        check_supervised(FF, **KW, device="cpu", opts=SupervisorOptions(
+            ckpt_path=p, resume=True))
+    sr2 = check_supervised(FF, **KW, device="cpu", pipeline=True,
+                           opts=SupervisorOptions(ckpt_path=p, ckpt_every=64,
+                                                  resume=True))
+    assert not sr2.interrupted
+    assert signature(sr2.result) == signature(clean_ff)
+
+
+def test_pipeline_regrow_matches_reference(tmp_path, clean_ff):
+    """fp 2^12 under pipeline=True: both supervisors regrow twice with the
+    staged block migrated verbatim, with equal journals and final table
+    words, to the clean statistics."""
+    kw = dict(chunk=128, queue_capacity=1 << 12, fp_capacity=1 << 12)
+    ev_t, ev_j = [], []
+    pt, pj = str(tmp_path / "port.ckpt"), str(tmp_path / "ref.ckpt")
+    rt = check_supervised(FF, **kw, device="cpu", pipeline=True,
+                          opts=SupervisorOptions(
+                              ckpt_path=pt, ckpt_every=16,
+                              on_event=lambda k, i: ev_t.append((k, i))))
+    rj = j_supervised(J_FF, **kw, pipeline=True, opts=JOpts(
+        ckpt_path=pj, ckpt_every=16,
+        on_event=lambda k, i: ev_j.append((k, i))))
+    assert rt.regrows == rj.regrows == 2 and rt.params == rj.params
+    assert norm(ev_t) == norm(ev_j)
+    assert signature(rt.result) == signature(rj.result)
+    assert signature(rt.result) == signature(clean_ff)
+    with np.load(pt) as zt, np.load(pj) as zj:
+        assert np.array_equal(zt["leaf_0"], zj["leaf_0"])
+
+
+def test_pipeline_ladder_skips_spill_and_shrink():
+    """A pipelined adapter has neither the spill rung nor the chunk
+    shrink (the reference's supports_spill / can_shrink)."""
+    a = SingleDeviceAdapter(FF, chunk=KW["chunk"], device="cpu",
+                            pipeline=True)
+    assert not a.supports_spill() and not a.can_shrink()
+    b = SingleDeviceAdapter(FF, chunk=KW["chunk"], device="cpu")
+    assert b.supports_spill() and b.can_shrink()
+    from torchtlc.resil.regrow import migrate_engine_carry
+
+    init_fn, _, _ = bfs.make_engine(FF, **KW, pipeline=True, device="cpu")
+    params = {k: KW[k] for k in ("queue_capacity", "fp_capacity")}
+    with pytest.raises(ValueError, match="unpipelined"):
+        migrate_engine_carry(init_fn(), params, params, new_chunk=64)
+
+
+# (sort_free, deferred, coverage + ring) of the cross-package checkpoints
+PIPE_MODES = {"default": (None, None, False),
+              "slab-deferred": (True, True, False),
+              "coverage-ring": (None, None, True)}
+
+
+def _pipe_engines(mode):
+    sf, de, cov = PIPE_MODES[mode]
+    kw = dict(KW, sort_free=sf, deferred=de, coverage=cov,
+              obs_slots=OBS if cov else 0)
+    adapter = SingleDeviceAdapter(FF, chunk=KW["chunk"], device="cpu",
+                                  pipeline=True, sort_free=sf, deferred=de,
+                                  coverage=cov, obs_slots=kw["obs_slots"])
+    meta = adapter.meta({k: KW[k] for k in ("queue_capacity",
+                                             "fp_capacity")})
+    return (bfs.make_engine(FF, pipeline=True, device="cpu", **kw),
+            jbfs.make_engine(J_FF, pipeline=True, donate=False, **kw),
+            meta, adapter.deferred)
+
+
+def _pipe_leaves_equal(port_carry, jc, deferred):
+    mine = carry_to_numpy(port_carry, cfg=FF, deferred=deferred)
+    ref = {f: np.asarray(jc.fps.table if f == "fps" else getattr(jc, f))
+           for f in ck.LEAF_ORDER if getattr(jc, f, None) is not None
+           or f == "fps"}
+    assert set(mine) == set(ref)
+    for name, want in ref.items():
+        assert mine[name].dtype == want.dtype, name
+        assert np.array_equal(mine[name], want), name
+
+
+@pytest.mark.parametrize("mode", list(PIPE_MODES))
+def test_pipeline_port_checkpoint_resumes_in_reference(tmp_path, mode):
+    (init_fn, run_fn, step_fn), (j_init, j_run, _), meta, de = \
+        _pipe_engines(mode)
+    carry = bfs.make_segment(step_fn, STEPS)(init_fn())
+    assert int(carry.st_n) > 0
+    path = str(tmp_path / "port.npz")
+    ck.save_checkpoint(path, carry, meta, cfg=FF)
+    got_meta, jc = jck.load_checkpoint(path, j_init())
+    assert got_meta["pipeline"] is True
+    _pipe_leaves_equal(carry, jc, de)
+    _pipe_leaves_equal(run_fn(carry), j_run(jc), de)
+
+
+@pytest.mark.parametrize("mode", list(PIPE_MODES))
+def test_pipeline_reference_checkpoint_resumes_in_port(tmp_path, mode):
+    (init_fn, run_fn, _), (j_init, j_run, j_step), meta, de = \
+        _pipe_engines(mode)
+    jc = j_init()
+    for _ in range(STEPS):
+        jc = j_step(jc)
+    path = str(tmp_path / "ref.npz")
+    jck.save_checkpoint(path, jc, meta)
+    _, carry = ck.load_checkpoint(path, init_fn(), FF)
+    _pipe_leaves_equal(carry, jc, de)
+    _pipe_leaves_equal(run_fn(carry), j_run(jc), de)

@@ -14,6 +14,9 @@ import jax.numpy as jnp
 from jaxtlc.engine import fpset as jfs
 from torchtlc.engine import bfs as tb
 from torchtlc.engine import fpset as tfs
+from torchtlc.testing import one_thread
+
+one_thread()
 
 
 def _batch(rng, n, dup_values, invalid):

@@ -26,6 +26,9 @@ from torchtlc.engine import hostdriver, trace
 from torchtlc.obs import counters as tc
 from torchtlc.spec import pretty
 from torchtlc.spec.codec import get_codec
+from torchtlc.testing import one_thread
+
+one_thread()
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "torchtlc", "kernels", "csrc")

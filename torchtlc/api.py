@@ -9,7 +9,8 @@ checkpoints, -recover, auto-regrow, the host spill tier) whenever
 otherwise - and on a violation re-runs the search in the host driver to
 print the counterexample; with -coverage, the engine carries the device
 coverage plane and the success transcript the host coverage walker's
-per-expression dump (MC.out:44-1092).  Exit codes are the reference's: 0
+per-expression dump (MC.out:44-1092); with -pipeline, the engines run the
+pipelined body.  Exit codes are the reference's: 0
 no error, 12
 safety violation, 75 interrupted or capacity-exhausted with a final
 checkpoint, 1 usage or configuration error.
@@ -86,7 +87,8 @@ def _run_check(args) -> int:
     _open_journal(args, workload=spec.spec_name, device=device_name,
                   params=dict(chunk=args.chunk, queue_capacity=args.qcap,
                               fp_capacity=args.fpcap, sharded=0,
-                              pipeline=False, sort_free=_sort_free(args),
+                              pipeline=args.pipeline,
+                              sort_free=_sort_free(args),
                               deferred=_deferred(args),
                               obs_slots=_obs_slots(args)))
     t0 = time.time()
@@ -169,12 +171,14 @@ def _dispatch_check(args, spec, log, device):
             fp_capacity=args.fpcap, obs_slots=_obs_slots(args),
             sort_free=args.sortfree, deferred=args.deferredinv,
             opts=_sup_opts(args, log), device=device,
-            fp_index=spec.fp_index, coverage=args.coverage)
+            fp_index=spec.fp_index, coverage=args.coverage,
+            pipeline=args.pipeline)
         return sup.result, sup
     from .engine.bfs import check
 
     return check(spec.model, chunk=args.chunk, queue_capacity=args.qcap,
-                 fp_capacity=args.fpcap, obs_slots=_obs_slots(args),
+                 fp_capacity=args.fpcap, pipeline=args.pipeline,
+                 obs_slots=_obs_slots(args),
                  coverage=args.coverage, sort_free=args.sortfree,
                  deferred=args.deferredinv, device=device,
                  fp_index=spec.fp_index), None
@@ -272,6 +276,8 @@ def _resume_command(args) -> str:
         parts += ["-checkpoint", args.checkpoint, "-recover"]
     if args.chunk != 1024:
         parts += ["-chunk", str(args.chunk)]
+    if args.pipeline:
+        parts += ["-pipeline"]  # checkpoints only resume in the same mode
     if args.sortfree is not None:
         parts += ["-sort-free" if args.sortfree else "-no-sort-free"]
     if args.deferredinv is not None:

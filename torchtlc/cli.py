@@ -4,7 +4,8 @@ jaxtlc/cli.py on the KubeAPI path.
     python -m torchtlc.cli check /path/to/Model_1/MC.cfg \\
         [-workers cpu] [-chunk 1024] [-qcap N] [-fpcap N] \\
         [-checkpoint PATH [-checkpointevery N] [-recover]] \\
-        [-no-auto-grow] [-spill | -no-spill] [-coverage] [-noTool] ...
+        [-no-auto-grow] [-spill | -no-spill] [-coverage] [-pipeline] \\
+        [-noTool] ...
 
 Reads MC.cfg with its sibling MC.tla (and a toolbox .launch if present),
 runs the exhaustive check on the card - on the CPU only with -workers cpu
@@ -25,8 +26,6 @@ from .api import _run_check
 # flags of paths not ported yet: dest -> (the value that means "not
 # given", what the error says)
 UNPORTED = {
-    "pipeline": (False, "-pipeline (the pipelined body) is ported in slice "
-                 "6 of the port (ROADMAP Queue A item 7b)"),
     "sharded": (0, "-sharded (the sharded engine) is ported in the "
                 "sharded slice (ROADMAP Queue A item 10)"),
     "fpset": ("JaxFPSet", "-fpset DiskFPSet (the native disk tier) is "
@@ -48,9 +47,11 @@ UNPORTED = {
                  "(ROADMAP Queue A item 13)"),
     "serve": (0, "-serve (the live monitor server) is ported with the "
               "serving plane (ROADMAP Queue A item 13)"),
-    "phasetiming": (False, "-phase-timing is ported with the pipelined "
-                    "step in slice 6 of the port (ROADMAP Queue A item "
-                    "7b)"),
+    "phasetiming": (False, "-phase-timing (measured per-level expand/commit "
+                    "walls) is ported in slice 7 of the port (ROADMAP "
+                    "Queue A item 7b); until then it is refused in every "
+                    "mode, -pipeline included, where the reference ignores "
+                    "it"),
     "traceout": ("", "-trace-out (the Chrome-trace export) is ported with "
                  "the serving plane (ROADMAP Queue A item 13)"),
     "narrow": (False, "-narrow (the certified narrowed codec) is ported "
@@ -156,7 +157,11 @@ def _parser() -> argparse.ArgumentParser:
     c.add_argument("-sharded", type=int, default=0, metavar="N")
     c.add_argument("-routefactor", type=float, default=2.0)
     c.add_argument("-pipeline", dest="pipeline", action="store_true",
-                   default=False)
+                   default=False,
+                   help="the pipelined body: each step commits the "
+                        "previous block while the next one is staged "
+                        "(the same counts; a checkpoint records the mode "
+                        "and -recover must repeat it)")
     c.add_argument("-no-pipeline", dest="pipeline", action="store_false")
     for flag, dest in (("symmetry", "symmetry"), ("por", "por")):
         c.add_argument(f"-{flag}", dest=dest, action="store_const",

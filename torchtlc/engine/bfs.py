@@ -1,5 +1,4 @@
-"""Exhaustive single-device BFS engine (port of jaxtlc/engine/bfs.py:241-1105;
-unpipelined).
+"""Exhaustive single-device BFS engine (port of jaxtlc/engine/bfs.py:241-1105).
 
 The frontier is a ping-pong pair of level buffers of packed states
 (``[2, qcap + 2*chunk, W]`` int32).  One chunk step:
@@ -42,8 +41,15 @@ them checkpoints) fall where the reference's do.
 
 Modes resolve as the reference's do (``resolve_sort_free``,
 ``resolve_deferred``): at chunk >= 2048 both the sort-free slab dedup and
-the deferred invariants are on.  ``pipeline=True`` is not ported and
-raises.
+the deferred invariants are on.
+
+``pipeline=True`` runs the reference's two-deep pipelined body
+(jaxtlc/engine/bfs.py:938-995): the carry stages one expanded block (the
+``st_*`` leaves) and each body commits the staged block k-1, then stages
+block k - expanded from the pre-commit carry, or at a level flip from the
+post-commit carry.  It is the same two halves in another order on one
+stream (no kernel of its own), single-tier at every chunk, and every
+carry word equals the reference's pipelined carry at the same body.
 
 The reference runs the step inside one ``lax.while_loop``; here a host
 loop drives it, and reads one small bundle of scalars per step (the pop
@@ -75,6 +81,7 @@ from ..spec.invariants import make_invariant_kernel
 from ..spec.labels import LABELS
 from .backend import (
     OK,
+    ExpandOut,
     VIOL_ASSERT,
     VIOL_DEADLOCK,
     VIOL_FPSET_FULL,
@@ -137,6 +144,7 @@ class Bundle(NamedTuple):
     next_n: int
     distinct: int
     viol: int
+    st_n: int = 0  # rows of the staged block (pipelined carries)
 
 
 class EngineCarry(NamedTuple):
@@ -171,6 +179,23 @@ class EngineCarry(NamedTuple):
     # per-site visits (their low 32 bits are the reference's uint32
     # counters), seeded with the Init-site visits
     cov_counts: torch.Tensor = None
+    # the pipelined engine's staged block (None on unpipelined carries): the
+    # expand-stage output of the last pop, committed by the next body.  The
+    # popped rows themselves stay in the current level buffer at
+    # queue[parity, qhead - st_n:], which no commit writes.
+    st_packed: torch.Tensor = None  # [chunk*L, W] int32
+    st_lo: torch.Tensor = None  # [chunk*L] int32
+    st_hi: torch.Tensor = None  # [chunk*L] int32
+    st_valid: torch.Tensor = None  # [chunk*L] bool
+    st_action: torch.Tensor = None  # [chunk*L] int32
+    st_gen: torch.Tensor = None  # [n_labels] int64
+    st_n: torch.Tensor = None  # rows staged (0 = empty)
+    st_viol: torch.Tensor = None  # expand-stage violation code
+    # [W] int32: the expand-stage violating state PACKED (ExpandOut.
+    # viol_words); interop unpacks it to the reference's [F] fields
+    st_viol_state: torch.Tensor = None
+    st_viol_action: torch.Tensor = None
+    st_cov: torch.Tensor = None  # [n_sites] int32 words (coverage plane)
 
 
 class CheckResult(NamedTuple):
@@ -206,8 +231,9 @@ def resolve_device(device) -> torch.device:
 def read_bundle(c: EngineCarry) -> Bundle:
     if c.bundle is not None:
         return c.bundle
+    st_n = c.st_n if c.st_n is not None else c.qhead * 0
     vals = torch.stack([c.parity, c.qhead, c.level_n, c.next_n, c.distinct,
-                        c.viol]).tolist()
+                        c.viol, st_n]).tolist()
     return Bundle(*vals)
 
 
@@ -227,11 +253,13 @@ def resolve_deferred(deferred, chunk: int) -> bool:
 
 
 def _running(h: Bundle) -> bool:
-    return (h.qhead < h.level_n or h.next_n > 0) and h.viol == OK
+    return (h.qhead < h.level_n or h.next_n > 0 or h.st_n > 0) and (
+        h.viol == OK)
 
 
 def carry_done(c: EngineCarry) -> bool:
-    """Host-side termination test: a violation, or both levels empty."""
+    """Host-side termination test: a violation, or both levels and the
+    staged block empty."""
     return not _running(read_bundle(c))
 
 
@@ -479,12 +507,7 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
 
 def _resolve_modes(chunk, sort_free, deferred, pipeline):
     """The reference's mode resolution: (sort_free, deferred) as resolved
-    bools; the pipelined body is not ported and raises (nothing runs
-    another mode quietly)."""
-    if pipeline:
-        raise NotImplementedError(
-            f"pipeline={pipeline!r}: the pipelined body is ported in slice 6 "
-            "of the port (ROADMAP Queue A item 7b); pass pipeline=False")
+    bools, the same for the pipelined and the unpipelined body."""
     return resolve_sort_free(sort_free, chunk), resolve_deferred(deferred,
                                                                  chunk)
 
@@ -510,6 +533,9 @@ def make_backend_engine(
 
     Two-tier stepping as in the reference: at chunk >= 2^14, a level
     remainder below chunk // 2 is popped by a small body of chunk // 16.
+    pipeline=True builds the pipelined body instead (the module
+    docstring), single-tier as the reference's: its staged block has one
+    width.
 
     sort_free and deferred are tri-state (None = auto, on at chunk >=
     2048, as the reference resolves them) and apply to both body widths;
@@ -526,7 +552,7 @@ def make_backend_engine(
     L = backend.n_lanes
     n_labels = len(backend.labels)
     qcap = queue_capacity
-    small = chunk // 16 if chunk >= 1 << 14 else 0
+    small = chunk // 16 if chunk >= 1 << 14 and not pipeline else 0
     kw = dict(queue_capacity=qcap, fp_capacity=fp_capacity,
               sort_free=sort_free, deferred=deferred, obs_slots=obs_slots,
               fp_index=fp_index)
@@ -568,6 +594,22 @@ def make_backend_engine(
             # the coverage counters start at the Init-site visits
             extra["cov_counts"] = torch.from_numpy(
                 backend.coverage.seed(inits.numpy()).astype(np.int64)).to(dev)
+        if pipeline:
+            # an empty staged block: the first body commits nothing
+            ncand = chunk * L
+
+            def zeros(*shape, dtype=torch.int32):
+                return torch.zeros(*shape, dtype=dtype, device=dev)
+
+            extra.update(
+                st_packed=zeros(ncand, W), st_lo=zeros(ncand),
+                st_hi=zeros(ncand), st_valid=zeros(ncand, dtype=torch.bool),
+                st_action=zeros(ncand),
+                st_gen=zeros(n_labels, dtype=torch.int64), st_n=i64(0),
+                st_viol=i64(OK), st_viol_state=zeros(W),
+                st_viol_action=i64(-1))
+            if backend.coverage is not None:
+                extra["st_cov"] = zeros(backend.coverage.n_sites)
         return EngineCarry(
             fps=fps, queue=queue, parity=i64(0), qhead=i64(0),
             level_n=i64(n0), next_n=i64(0), level=i64(1), depth=i64(1),
@@ -579,7 +621,7 @@ def make_backend_engine(
             **extra,
         )
 
-    def body(c: EngineCarry, h: Bundle) -> EngineCarry:
+    def fused_body(c: EngineCarry, h: Bundle) -> EngineCarry:
         # break-even: the big body only when the level remainder mostly
         # fills it
         width = chunk
@@ -589,6 +631,47 @@ def make_backend_engine(
         run_fn.steps_by_width[width] += 1
         ex, n = pop_expand(c, h)
         return commit(c, ex, n, h.qhead + n, h.qhead + n, h)
+
+    def staged_ex(c: EngineCarry, h: Bundle) -> ExpandOut:
+        # the staged block's popped rows, for the deferred checker: a view
+        # of the current level buffer, valid because no commit writes it
+        start = h.qhead - h.st_n
+        return ExpandOut(
+            packed=c.st_packed, lo=c.st_lo, hi=c.st_hi, valid=c.st_valid,
+            action=c.st_action, gen=c.st_gen, viol=c.st_viol,
+            viol_words=c.st_viol_state, viol_action=c.st_viol_action,
+            block=c.queue[h.parity, start:start + chunk], cov=c.st_cov)
+
+    def with_staged(c: EngineCarry, ex: ExpandOut, n: int) -> EngineCarry:
+        # rebinds the expand stage's outputs, which are fresh tensors of
+        # this body (no copy), and advances the pop cursor past them
+        h = c.bundle
+        return c._replace(
+            qhead=c.qhead + n, st_packed=ex.packed, st_lo=ex.lo,
+            st_hi=ex.hi, st_valid=ex.valid, st_action=ex.action,
+            st_gen=ex.gen, st_n=i64(n), st_viol=ex.viol,
+            st_viol_state=ex.viol_words, st_viol_action=ex.viol_action,
+            st_cov=ex.cov, bundle=h._replace(qhead=h.qhead + n, st_n=n))
+
+    def pipelined_body(c: EngineCarry, h: Bundle) -> EngineCarry:
+        # commit the staged block k-1 and stage block k.  At a level flip
+        # (the staged block was the level's last pop) block k comes from
+        # the post-commit carry, the freshly flipped level.  Otherwise it
+        # comes from the pre-commit carry: the expansion reads only rows
+        # of the current level buffer, and the commit writes in place
+        # only the other buffer (K4) and counters the expansion does not
+        # read, so expanding first is the reference's expand_pre.
+        pop_expand, commit = big_stages
+        run_fn.steps_by_width[chunk] += 1
+        will_flip = h.qhead >= h.level_n
+        if not will_flip:
+            ex, n = pop_expand(c, h)
+        c2 = commit(c, staged_ex(c, h), h.st_n, h.qhead, h.qhead, h)
+        if will_flip:
+            ex, n = pop_expand(c2, c2.bundle)
+        return with_staged(c2, ex, n)
+
+    body = pipelined_body if pipeline else fused_body
 
     def step_fn(c: EngineCarry) -> EngineCarry:
         h = read_bundle(c)
@@ -735,7 +818,10 @@ def result_from_carry(carry: EngineCarry, wall_s: float, iterations: int = -1,
         generated=int(carry.generated),
         distinct=int(carry.distinct),
         depth=int(carry.depth),
-        queue_left=int(carry.level_n) - int(carry.qhead) + int(carry.next_n),
+        # a staged block counts as still queued
+        queue_left=(int(carry.level_n) - int(carry.qhead)
+                    + int(carry.next_n)
+                    + (int(carry.st_n) if carry.st_n is not None else 0)),
         violation=viol,
         violation_name=VIOLATION_NAMES.get(viol, f"violation {viol}"),
         violation_state=carry.viol_state.cpu().numpy(),

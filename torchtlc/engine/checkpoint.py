@@ -2,14 +2,16 @@
 
 A checkpoint is the reference's file: an ``.npz`` of the engine carry's
 leaves ``leaf_i`` - in the reference carry's leaf order and dtypes
-(interop.LEAF_ORDER: the unpipelined EngineCarry's fields, the
-observability ring, in spill mode ``spill_hits`` and with the coverage
-plane ``cov_counts``) - plus a JSON
+(interop.LEAF_ORDER: the EngineCarry's fields, a pipelined carry's
+staged block, the observability ring, in spill mode ``spill_hits`` and
+with the coverage plane ``cov_counts``) - plus a JSON
 ``__meta__`` with the engine geometry, the ModelConfig stanza and a CRC32
 manifest of every leaf, written to a temporary file, fsync'd and renamed.
 So a checkpoint written by either package loads in the other, and a
 resumed run equals an uninterrupted one: the engine is a function of its
-carry.
+carry.  A pipelined carry converts with its ModelConfig (the `cfg`
+argument of the save and load functions); the meta records ``pipeline``,
+and a resume in the other mode is refused before any engine is built.
 
 ``check_with_checkpoints`` is the checkpointed driver: the host loop
 runs segments of ``ckpt_every`` step bodies (bfs.make_segment) and writes
@@ -46,6 +48,7 @@ from .interop import (
     LEAF_ORDER,
     OBS_SCALARS,
     SCALARS,
+    STAGED_DTYPES,
     carry_from_numpy,
     carry_to_numpy,
 )
@@ -88,17 +91,17 @@ def fsync_replace(tmp: str, path: str, f=None) -> None:
         os.close(dirfd)
 
 
-def _leaves(carry) -> list:
+def _leaves(carry, cfg=None, deferred: bool = False) -> list:
     """The carry's leaves as numpy arrays in the reference's order: an
     EngineCarry through interop, a dict in sorted key order (a pytree
     dict's order)."""
     if isinstance(carry, EngineCarry):
-        d = carry_to_numpy(carry)
+        d = carry_to_numpy(carry, cfg=cfg, deferred=deferred)
         return [d[k] for k in LEAF_ORDER if k in d]
     return [np.asarray(carry[k]) for k in sorted(carry)]
 
 
-def _leaf_specs(carry) -> list:
+def _leaf_specs(carry, cfg=None, deferred: bool = False) -> list:
     """[(name, shape, dtype)] of the leaves _leaves(carry) gives, without
     copying the carry off its device."""
     if not isinstance(carry, EngineCarry):
@@ -106,11 +109,23 @@ def _leaf_specs(carry) -> list:
                 for k in sorted(carry)]
     dtypes = {"fps": np.uint32, "queue": np.uint32, "viol_state": np.int32,
               "obs_ring": np.uint32, "spill_hits": np.uint32,
-              "cov_counts": np.uint32, **SCALARS,
+              "cov_counts": np.uint32, **SCALARS, **STAGED_DTYPES,
               **OBS_SCALARS, **{k: np.uint32 for k in COUNTERS}}
+    shapes = {}
+    if carry.st_n is not None:
+        # the leaves the port holds in another form (interop docstring)
+        from ..spec.codec import get_codec
+
+        F = get_codec(cfg).n_fields
+        shapes["st_viol_state"] = (F,)
+        if deferred:
+            shapes["st_flat"] = (carry.st_packed.shape[0], F)
     out = []
     for name in LEAF_ORDER:
-        v = getattr(carry, name)
+        if name in shapes:
+            out.append((name, shapes[name], np.dtype(dtypes[name])))
+            continue
+        v = getattr(carry, name, None)
         if v is None:
             continue
         t = v.table if name == "fps" else v
@@ -118,10 +133,12 @@ def _leaf_specs(carry) -> list:
     return out
 
 
-def save_checkpoint(path: str, carry, meta: dict) -> None:
+def save_checkpoint(path: str, carry, meta: dict, cfg=None) -> None:
     """Crash-consistent snapshot: leaves as npz + JSON meta with a
-    per-leaf CRC32 manifest, through an fsync'd temporary file."""
-    arrays = {f"leaf_{i}": a for i, a in enumerate(_leaves(carry))}
+    per-leaf CRC32 manifest, through an fsync'd temporary file.  A
+    pipelined carry needs its ModelConfig `cfg`."""
+    arrays = {f"leaf_{i}": a for i, a in enumerate(
+        _leaves(carry, cfg, bool(meta.get("deferred"))))}
     manifest = {k: zlib.crc32(np.ascontiguousarray(a).tobytes())
                 for k, a in arrays.items()}
     meta = {**meta, "manifest": manifest}
@@ -141,11 +158,12 @@ def read_checkpoint_meta(path: str) -> dict:
         raise CheckpointCorruptError(f"unreadable checkpoint {path!r}: {e}")
 
 
-def load_checkpoint(path: str, template):
+def load_checkpoint(path: str, template, cfg=None):
     """Load + verify a snapshot into the structure of `template` (a carry
-    of the same engine geometry, or a dict).  Returns (meta, carry); the
-    carry lands on the template's device.  CheckpointCorruptError on a
-    torn file or a CRC mismatch, ValueError on a geometry mismatch."""
+    of the same engine geometry, or a dict; a pipelined template needs its
+    ModelConfig `cfg`).  Returns (meta, carry); the carry lands on the
+    template's device.  CheckpointCorruptError on a torn file or a CRC
+    mismatch, ValueError on a geometry mismatch."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     try:
@@ -165,7 +183,7 @@ def load_checkpoint(path: str, template):
                 raise CheckpointCorruptError(
                     f"checkpoint {path!r} leaf_{i} CRC mismatch "
                     f"({got} != {want}) - torn write or bit rot")
-    specs = _leaf_specs(template)
+    specs = _leaf_specs(template, cfg, bool(meta.get("deferred")))
     if len(leaves) != len(specs):
         raise ValueError(
             f"checkpoint has {len(leaves)} leaves, engine expects "
@@ -181,7 +199,8 @@ def load_checkpoint(path: str, template):
                 "- corrupt or version-skewed file")
     named = dict(zip((name for name, _, _ in specs), leaves))
     if isinstance(template, EngineCarry):
-        return meta, carry_from_numpy(named, device=template.queue.device)
+        return meta, carry_from_numpy(named, device=template.queue.device,
+                                      cfg=cfg)
     return meta, named
 
 
@@ -203,13 +222,14 @@ def list_generations(base: str):
     return sorted(out)
 
 
-def save_generation(base: str, carry, meta: dict, keep: int = 2) -> str:
+def save_generation(base: str, carry, meta: dict, keep: int = 2,
+                    cfg=None) -> str:
     """Write the next generation of `base`, then prune to the newest
     `keep` (a generation's host-tier sibling goes with it)."""
     gens = list_generations(base)
     gen = (gens[-1][0] + 1) if gens else 1
     path = generation_path(base, gen)
-    save_checkpoint(path, carry, {**meta, "generation": gen})
+    save_checkpoint(path, carry, {**meta, "generation": gen}, cfg=cfg)
     for _, old_path in gens[: max(0, len(gens) - (keep - 1))]:
         for victim in (old_path, old_path + ".spill"):
             try:
@@ -219,14 +239,14 @@ def save_generation(base: str, carry, meta: dict, keep: int = 2) -> str:
     return path
 
 
-def load_latest_generation(base: str, template):
+def load_latest_generation(base: str, template, cfg=None):
     """The newest generation that passes verification: (path, meta,
     carry).  A corrupt file falls back to its predecessor; a geometry
     mismatch raises; FileNotFoundError when none loads."""
     last_err = None
     for _, path in reversed(list_generations(base)):
         try:
-            meta, carry = load_checkpoint(path, template)
+            meta, carry = load_checkpoint(path, template, cfg)
             return path, meta, carry
         except CheckpointCorruptError as e:
             last_err = e
@@ -252,9 +272,11 @@ def check_with_checkpoints(
     deferred: bool = None,
     device=None,
     fp_index: int = DEFAULT_FP_INDEX,
+    pipeline: bool = False,
 ) -> CheckResult:
     """Exhaustive check with a snapshot every `ckpt_every` chunk steps.
-    resume=True loads `ckpt_path` (its meta must match this engine) and
+    resume=True loads `ckpt_path` (its meta must match this engine, the
+    pipeline mode included, checked before any engine is built) and
     continues; max_segments stops early, leaving a valid checkpoint;
     on_progress(depth, generated, distinct, queue_left) fires at every
     segment boundary of an unfinished run."""
@@ -262,23 +284,15 @@ def check_with_checkpoints(
 
     sort_free = resolve_sort_free(sort_free, chunk)
     deferred = resolve_deferred(deferred, chunk)
-    init_fn, _, step_fn = make_engine(
-        cfg, chunk, queue_capacity, fp_capacity, obs_slots=obs_slots,
-        sort_free=sort_free, deferred=deferred, device=device,
-        fp_index=fp_index)
     meta = _meta(cfg, chunk=chunk, queue_capacity=queue_capacity,
                  fp_capacity=fp_capacity, fp_index=fp_index,
                  seed=DEFAULT_SEED, fp_highwater=FP_HIGHWATER,
-                 pipeline=False, obs_slots=obs_slots, sort_free=sort_free,
-                 deferred=deferred)
-    segment = make_segment(step_fn, ckpt_every)
-    template = init_fn()
-    t0 = time.time()
-    carry = template
+                 pipeline=bool(pipeline), obs_slots=obs_slots,
+                 sort_free=sort_free, deferred=deferred)
     if resume:
         if ckpt_path is None or not os.path.exists(ckpt_path):
             raise FileNotFoundError(f"no checkpoint at {ckpt_path!r}")
-        saved, carry = load_checkpoint(ckpt_path, template)
+        saved = read_checkpoint_meta(ckpt_path)
         for key in ("format", "config", "chunk", "queue_capacity",
                     "fp_capacity", "fp_index", "seed", "fp_highwater",
                     "pipeline", "obs_slots", "sort_free", "deferred"):
@@ -288,6 +302,16 @@ def check_with_checkpoints(
             if have != meta[key]:
                 raise ValueError(f"checkpoint {key} mismatch: "
                                  f"{have!r} != {meta[key]!r}")
+    init_fn, _, step_fn = make_engine(
+        cfg, chunk, queue_capacity, fp_capacity, pipeline=pipeline,
+        obs_slots=obs_slots, sort_free=sort_free, deferred=deferred,
+        device=device, fp_index=fp_index)
+    segment = make_segment(step_fn, ckpt_every)
+    template = init_fn()
+    t0 = time.time()
+    carry = template
+    if resume:
+        _, carry = load_checkpoint(ckpt_path, template, cfg)
     segments = 0
     while not carry_done(carry):
         if max_segments is not None and segments >= max_segments:
@@ -295,11 +319,11 @@ def check_with_checkpoints(
         carry = segment(carry)
         segments += 1
         if ckpt_path is not None:
-            save_checkpoint(ckpt_path, carry, meta)
+            save_checkpoint(ckpt_path, carry, meta, cfg=cfg)
         if on_progress is not None and not carry_done(carry):
             h = read_bundle(carry)
             on_progress(int(carry.depth), int(carry.generated), h.distinct,
-                        h.level_n - h.qhead + h.next_n)
+                        h.level_n - h.qhead + h.next_n + h.st_n)
     wall = time.time() - t0
     from .fpset import fpset_actual_collision
 

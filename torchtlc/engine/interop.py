@@ -9,11 +9,27 @@ reference's dtype; the fingerprint set appears as ``fps``, its
 and expanded counters as uint32) appear when the carry has them.  A
 spill-mode carry adds ``spill_hits`` (uint32), a covered carry its
 ``cov_counts`` ([n_sites] uint32).
+A pipelined carry adds the staged block (``STAGED``, in the reference's
+dtypes; ``st_cov`` with coverage and, in the deferred mode, ``st_flat``)
+and needs its ModelConfig (`cfg`) both ways, for the two leaves the port
+does not hold in the reference's form:
+
+* ``st_viol_state``: the reference's [F] int32 state, zeros when
+  ``st_viol`` is OK; the port stages it packed ([W] words), so it is
+  unpacked on the way out and packed on the way in;
+* ``st_flat``: the reference's [chunk*L, F] int32 pre-pack successor
+  fields of every lane.  The port's K7 derives them again from the parent
+  rows, so the port holds no such leaf: on the way out it is computed with
+  K1's plain twin (spec.kernel.make_kernel) on the staged parents
+  ``queue[parity, qhead - st_n:][:chunk]``; on the way in it is dropped.
+  ``unpack(st_packed)`` is not that leaf: it differs on disabled lanes of
+  rows past the level (fields out of their packed range).
+
 ``carry_from_numpy(d)`` takes such a
 dict - or any object with those attributes, such as a reference carry whose
 leaves were pulled to numpy - and builds the port's carry on `device`.
 Converting a reference carry, stepping both, and converting back gives
-word-equal leaves (tests/test_torch_engine.py).
+word-equal leaves (tests/test_torch_engine.py, tests/test_torch_pipeline.py).
 """
 
 from __future__ import annotations
@@ -37,9 +53,20 @@ FIELDS = ("fps", "queue", "parity", "qhead", "level_n", "next_n", "level",
 OBS_SCALARS = {"obs_head": np.int32, "obs_bodies": np.uint32,
                "obs_expanded": np.uint32}
 OBS_FIELDS = ("obs_ring", *OBS_SCALARS)
+# the pipelined engine's staged block, and the dtypes of its leaves
+STAGED = ("st_packed", "st_lo", "st_hi", "st_valid", "st_action", "st_gen",
+          "st_n", "st_viol", "st_viol_state", "st_viol_action")
+STAGED_DTYPES = {
+    "st_packed": np.uint32, "st_lo": np.uint32, "st_hi": np.uint32,
+    "st_valid": np.bool_, "st_action": np.int32, "st_gen": np.uint32,
+    "st_n": np.int32, "st_viol": np.int32, "st_viol_state": np.int32,
+    "st_viol_action": np.int32, "st_flat": np.int32, "st_cov": np.uint32,
+}
 # the reference carry's leaf order (jax.tree_util.tree_leaves of an
-# unpipelined EngineCarry: NamedTuple field order, None fields dropped)
-LEAF_ORDER = FIELDS + OBS_FIELDS + ("spill_hits", "cov_counts")
+# EngineCarry: NamedTuple field order, None fields dropped; KubeAPI has
+# no certificate, symmetry or POR leaves)
+LEAF_ORDER = (FIELDS + STAGED + OBS_FIELDS
+              + ("spill_hits", "st_flat", "cov_counts", "st_cov"))
 
 
 def _has(d, name) -> bool:
@@ -54,7 +81,61 @@ def _get(d, name):
     return np.asarray(v)
 
 
-def carry_to_numpy(c: EngineCarry) -> dict:
+def _u32(t) -> np.ndarray:
+    return (t.cpu().numpy().astype(np.int64) & 0xFFFFFFFF).astype(np.uint32)
+
+
+def staged_parents(c: EngineCarry, chunk: int):
+    """The staged block's popped rows ([chunk, W] int32): the pop window
+    that starts st_n rows before the pop cursor in the current level
+    buffer."""
+    start = int(c.qhead) - int(c.st_n)
+    return c.queue[int(c.parity), start:start + chunk]
+
+
+def _staged_to_numpy(c: EngineCarry, cfg, deferred: bool) -> dict:
+    from ..spec.codec import get_codec
+    from ..spec.kernel import lane_layout, make_kernel
+
+    if cfg is None:
+        raise ValueError("a pipelined carry converts with its ModelConfig "
+                         "(cfg=...)")
+    cdc = get_codec(cfg)
+    out = {
+        "st_packed": c.st_packed.cpu().numpy().view(np.uint32),
+        "st_lo": c.st_lo.cpu().numpy().view(np.uint32),
+        "st_hi": c.st_hi.cpu().numpy().view(np.uint32),
+        "st_valid": c.st_valid.cpu().numpy().astype(np.bool_),
+        "st_action": c.st_action.cpu().numpy().astype(np.int32),
+        "st_gen": _u32(c.st_gen),
+    }
+    for name in ("st_n", "st_viol", "st_viol_action"):
+        out[name] = np.asarray(int(getattr(c, name)), np.int32)
+    if int(c.st_viol) != 0:
+        out["st_viol_state"] = cdc.unpack(
+            c.st_viol_state.cpu()[None])[0].numpy().astype(np.int32)
+    else:
+        out["st_viol_state"] = np.zeros(cdc.n_fields, np.int32)
+    if deferred:
+        chunk = c.st_packed.shape[0] // lane_layout(cfg)[1]
+        if int(c.qhead) == 0 and int(c.level_n) > 0:
+            # no body has run (every body leaves the cursor past its pop
+            # or the level empty): the reference's all-zero seed block
+            out["st_flat"] = np.zeros((chunk * lane_layout(cfg)[1],
+                                       cdc.n_fields), np.int32)
+        else:
+            block = staged_parents(c, chunk).cpu()
+            succ = make_kernel(cfg)(cdc.unpack(block))[0]
+            out["st_flat"] = succ.reshape(-1, cdc.n_fields).numpy().astype(
+                np.int32)
+    if c.st_cov is not None:
+        out["st_cov"] = c.st_cov.cpu().numpy().view(np.uint32)
+    return out
+
+
+def carry_to_numpy(c: EngineCarry, cfg=None, deferred: bool = False) -> dict:
+    """The reference's leaves of a port carry; a pipelined carry needs its
+    `cfg`, and `deferred` adds st_flat."""
     out = {
         "fps": c.fps.table.cpu().numpy().view(np.uint32),
         "queue": c.queue.cpu().numpy().view(np.uint32),
@@ -77,10 +158,14 @@ def carry_to_numpy(c: EngineCarry) -> dict:
     if c.cov_counts is not None:
         out["cov_counts"] = (c.cov_counts.cpu().numpy() & 0xFFFFFFFF).astype(
             np.uint32)
+    if c.st_n is not None:
+        out.update(_staged_to_numpy(c, cfg, deferred))
     return out
 
 
-def carry_from_numpy(d, device=None) -> EngineCarry:
+def carry_from_numpy(d, device=None, cfg=None) -> EngineCarry:
+    """The port's carry from reference leaves; a pipelined one (with
+    st_n) needs its `cfg`."""
     dev = resolve_device(device)
 
     def words(a):  # a copy: the engine updates its carry in place
@@ -103,6 +188,8 @@ def carry_from_numpy(d, device=None) -> EngineCarry:
     if _has(d, "cov_counts"):
         vals["cov_counts"] = torch.from_numpy(
             _get(d, "cov_counts").astype(np.int64)).to(dev)
+    if _has(d, "st_n"):
+        vals.update(_staged_from_numpy(d, cfg, dev, words))
     return EngineCarry(
         fps=FPSet(words(_get(d, "fps"))),
         queue=words(_get(d, "queue")),
@@ -110,3 +197,34 @@ def carry_from_numpy(d, device=None) -> EngineCarry:
             _get(d, "viol_state").astype(np.int32)).to(dev),
         **vals,
     )
+
+
+def _staged_from_numpy(d, cfg, dev, words) -> dict:
+    from ..spec.codec import get_codec
+
+    if cfg is None:
+        raise ValueError("a pipelined carry converts with its ModelConfig "
+                         "(cfg=...)")
+    cdc = get_codec(cfg)
+
+    def t(name, dtype):
+        return torch.from_numpy(np.array(_get(d, name)).astype(dtype)).to(dev)
+
+    def i64(name):
+        return torch.tensor(int(_get(d, name)), dtype=torch.int64,
+                            device=dev)
+
+    out = {
+        "st_packed": words(_get(d, "st_packed")),
+        "st_lo": words(_get(d, "st_lo")), "st_hi": words(_get(d, "st_hi")),
+        "st_valid": t("st_valid", np.bool_),
+        "st_action": t("st_action", np.int32),
+        "st_gen": t("st_gen", np.int64),
+        "st_n": i64("st_n"), "st_viol": i64("st_viol"),
+        "st_viol_action": i64("st_viol_action"),
+        "st_viol_state": cdc.pack(torch.from_numpy(
+            np.array(_get(d, "st_viol_state"), np.int32))[None])[0].to(dev),
+    }
+    if _has(d, "st_cov"):
+        out["st_cov"] = words(_get(d, "st_cov"))
+    return out

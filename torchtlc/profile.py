@@ -1,14 +1,14 @@
 """Device-time breakdown of one exhaustive run of the port on the card.
 
-    python3 -m torchtlc.profile [scaled|model1] [sorted|auto] [cov]
-    python3 -m torchtlc.profile [scaled|model1] ab [PAIRS]
+    python3 -m torchtlc.profile [scaled|model1] [sorted|auto] [cov] [pipeline]
+    python3 -m torchtlc.profile [scaled|model1] ab [PAIRS] [pipeline]
 
 ``sorted`` runs the immediate sorted mode (``sort_free=False,
 deferred=False``); ``auto`` the modes the reference resolves at the
 workload's chunk (both on at chunk >= 2048; Model_1 then runs at chunk
 2048, the scaled workload at its own 131,072) with the counter ring on the
 scaled run; ``cov`` adds the device coverage plane (kernel K10 per
-step).  Runs the workload once untraced (kernels built, allocator
+step); ``pipeline`` runs the pipelined body.  Runs the workload once untraced (kernels built, allocator
 warm), then once under torch.profiler with CPU and CUDA activity, and
 prints one JSON line: the untraced and traced wall, the device-busy time
 (sum of kernel and memcpy/memset device time on the one stream) and its
@@ -22,7 +22,10 @@ profiler's own overhead; the untraced wall is the workload's figure.
 ``ab`` compares the two modes on one card in one process, at the chunk
 the auto mode uses (Model_1: 2048): after one untimed run of each, PAIRS
 (default 3) pairs of untraced runs in turns sorted, auto, auto, sorted,
-...; prints one JSON line with every wall.
+...; prints one JSON line with every wall.  ``ab ... pipeline`` compares
+the unpipelined and the pipelined body instead, both in the auto modes
+(the scaled run with the counter ring), in turns unpipelined, pipelined,
+pipelined, unpipelined, ...
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ def main(argv) -> int:
         raise SystemExit(f"unknown mode {mode!r}")
     if workload == "scaled":
         cfg, kw = scaled_config()
-        if mode == "auto":
+        if mode == "auto" or (mode == "ab" and "pipeline" in argv[2:]):
             kw = dict(kw, obs_slots=256)
     elif workload == "model1":
         cfg = MODEL_1
@@ -61,12 +64,15 @@ def main(argv) -> int:
     else:
         raise SystemExit(f"unknown workload {workload!r}")
     sorted_modes = dict(sort_free=False, deferred=False)
+    pipeline = "pipeline" in argv[2:]
     if mode == "ab":
-        return ab(workload, cfg, kw, sorted_modes,
-                  int(argv[2]) if len(argv) > 2 else 3)
+        pairs = [int(a) for a in argv[2:] if a.isdigit()]
+        return ab(workload, cfg, kw, sorted_modes, pairs[0] if pairs else 3,
+                  pipeline)
     modes = sorted_modes if mode == "sorted" else {}
     coverage = "cov" in argv[2:]
-    init_fn, run_fn, _ = make_engine(cfg, **modes, **kw, coverage=coverage)
+    init_fn, run_fn, _ = make_engine(cfg, **modes, **kw, coverage=coverage,
+                                     pipeline=pipeline)
 
     reads = []
     count = fpset.claimant_count
@@ -118,6 +124,7 @@ def main(argv) -> int:
         "workload": workload,
         "mode": mode,
         "coverage": coverage,
+        "pipeline": pipeline,
         "chunk": kw["chunk"],
         "device": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -144,16 +151,24 @@ def main(argv) -> int:
     return 0
 
 
-def ab(workload, cfg, kw, sorted_modes, pairs: int) -> int:
-    """Untraced walls of the sorted and the default modes, in turns."""
+def ab(workload, cfg, kw, sorted_modes, pairs: int,
+       pipeline: bool = False) -> int:
+    """Untraced walls of the sorted and the default modes - or, with
+    `pipeline`, of the unpipelined and the pipelined body in the default
+    modes - in turns."""
     import subprocess
 
     import torch
 
     from .engine.bfs import make_engine
 
-    engines = {"sorted": make_engine(cfg, **sorted_modes, **kw),
-               "auto": make_engine(cfg, **kw)}
+    if pipeline:
+        engines = {"unpipelined": make_engine(cfg, **kw),
+                   "pipelined": make_engine(cfg, **kw, pipeline=True)}
+    else:
+        engines = {"sorted": make_engine(cfg, **sorted_modes, **kw),
+                   "auto": make_engine(cfg, **kw)}
+    first, second = engines
 
     def wall(name):
         init_fn, run_fn, _ = engines[name]
@@ -166,15 +181,16 @@ def ab(workload, cfg, kw, sorted_modes, pairs: int) -> int:
 
     for name in engines:  # untimed warm-up of each
         wall(name)
-    walls = {"sorted": [], "auto": []}
+    walls = {name: [] for name in engines}
     order = []
     for p in range(pairs):
-        for name in (("sorted", "auto") if p % 2 == 0 else ("auto", "sorted")):
+        for name in ((first, second) if p % 2 == 0 else (second, first)):
             w, distinct = wall(name)
             walls[name].append(w)
             order.append(name)
     print(json.dumps({
-        "workload": workload, "mode": "ab", "chunk": kw["chunk"],
+        "workload": workload, "mode": "ab", "pipeline": pipeline,
+        "chunk": kw["chunk"],
         "device": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True,

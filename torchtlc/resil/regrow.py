@@ -25,6 +25,7 @@ from ..engine.bfs import (
     EngineCarry,
     resolve_device,
 )
+from ..engine.interop import STAGED
 from ..engine.fpset import (
     BUCKET,
     FPSet,
@@ -90,11 +91,18 @@ def migrate_engine_carry(carry: EngineCarry, old_params: Dict,
     copied into the new queue, normalized to parity 0.  `new_chunk`
     re-seats the queue's chunk padding for another pop width (the
     ladder's chunk shrink: counts and verdict are kept, in-batch
-    attribution may shift).  The ring, spill_hits and the coverage
-    counters travel verbatim."""
+    attribution may shift; unpipelined carries only, the staged block is
+    chunk-shaped).  The ring, spill_hits, the coverage counters and a
+    pipelined carry's staged block (st_cov with it) travel verbatim: the
+    replayed segment commits the staged candidates against the regrown
+    table and queue.  The staged block's popped rows are rows of the
+    current level, which the new queue keeps at the same positions."""
     dev = carry.queue.device
     chunk = (carry.queue.shape[1] - int(old_params["queue_capacity"])) // 2
     if new_chunk is not None:
+        if carry.st_n is not None:
+            raise ValueError("chunk re-seat supports unpipelined carries "
+                             "only")
         chunk = int(new_chunk)
     W = carry.queue.shape[2]
     qcap2 = int(new_params["queue_capacity"])
@@ -128,4 +136,5 @@ def migrate_engine_carry(carry: EngineCarry, old_params: Dict,
         obs_expanded=copy(carry.obs_expanded),
         spill_hits=copy(carry.spill_hits),
         cov_counts=copy(carry.cov_counts),
+        **{f: copy(getattr(carry, f)) for f in STAGED + ("st_cov",)},
     )

@@ -28,6 +28,12 @@ injected transient faults into events:
   ``COVERAGE_SAT_LEVELS`` BFS levels without a new site journals the
   saturation event once; a resumed run's cursor starts at the restored
   totals, so the stream continues across -recover.
+* **Phases.**  Each segment fence ends with two ``phase`` events of scope
+  "segment" (obs.phases): the device wall (dispatch to fence) and the
+  host readback wall (progress, ring and coverage reads).
+* **The pipelined engine** (``pipeline=True``) runs the same ladder
+  without the spill and chunk-shrink rungs: its staged block has no spill
+  composition and cannot be re-seated at another pop width.
 
 The engine updates its carry in place, so every segment runs on a copy
 of the last good carry (bfs.clone_carry): retries and regrows replay
@@ -67,6 +73,7 @@ from ..engine.bfs import (
 from ..engine.fingerprint import DEFAULT_FP_INDEX, DEFAULT_SEED
 from ..engine.spill import SpillWriteError
 from ..obs.coverage import coverage_delta_event
+from ..obs.phases import segment_phases
 from .faults import FaultInjector, FaultPlan, TransientFault
 from .regrow import GROWABLE, grown, migrate_engine_carry
 
@@ -142,7 +149,7 @@ class SupervisorOptions:
     min_chunk: int = MIN_CHUNK
     # on_event(kind, info): checkpoint / ckpt_write_failed / ckpt_fallback
     # / recovery / regrow / retry / interrupted / progress / level /
-    # coverage / segment / spill / degrade / exhausted / final
+    # coverage / phase / segment / spill / degrade / exhausted / final
     on_event: Optional[Callable[[str, dict], None]] = None
 
 
@@ -199,7 +206,8 @@ def _sync(carry) -> None:
 class SingleDeviceAdapter:
     """The supervision seam over the single-device segmented engine on
     the KubeAPI backend (built once, with the coverage plane when
-    coverage=True).  Growable: queue_capacity, fp_capacity."""
+    coverage=True; the pipelined body when pipeline=True).  Growable:
+    queue_capacity, fp_capacity."""
 
     kind = "single"
     GEOM_KEYS = ("queue_capacity", "fp_capacity")
@@ -210,13 +218,14 @@ class SingleDeviceAdapter:
     def __init__(self, cfg, chunk: int = 1024, obs_slots: int = 0,
                  sort_free: bool = None, deferred: bool = None,
                  device=None, fp_index: int = DEFAULT_FP_INDEX,
-                 coverage: bool = False):
+                 coverage: bool = False, pipeline: bool = False):
         self.cfg = cfg
         # one backend for the engine, the spill runtime, the site table and
         # the meta's `coverage` flag
         self.backend = kubeapi_backend(cfg, coverage=coverage)
         self.coverage = self.backend.coverage is not None
         self.chunk = chunk
+        self.pipeline = bool(pipeline)
         self.fp_index = fp_index
         # resolved once against the initial chunk: a ladder chunk shrink
         # keeps the modes (and the meta stays consistent across resumes)
@@ -230,16 +239,18 @@ class SingleDeviceAdapter:
         """(template carry, segment function) for geometry `params`."""
         init_fn, _, step_fn = make_backend_engine(
             self.backend, self.chunk, params["queue_capacity"],
-            params["fp_capacity"], obs_slots=self.obs_slots,
-            sort_free=self.sort_free, deferred=self.deferred,
-            device=self.device, fp_index=self.fp_index)
+            params["fp_capacity"], pipeline=self.pipeline,
+            obs_slots=self.obs_slots, sort_free=self.sort_free,
+            deferred=self.deferred, device=self.device,
+            fp_index=self.fp_index)
         return init_fn(), make_segment(step_fn, ckpt_every)
 
     def meta(self, params: dict) -> dict:
         return ckpt._meta(
             self.cfg, chunk=self.chunk, fp_index=self.fp_index,
             seed=DEFAULT_SEED, fp_highwater=self.fp_highwater,
-            pipeline=False, obs_slots=self.obs_slots, coverage=self.coverage,
+            pipeline=self.pipeline, obs_slots=self.obs_slots,
+            coverage=self.coverage,
             sort_free=self.sort_free, deferred=self.deferred,
             symmetry=False, por=False, **params)
 
@@ -261,12 +272,19 @@ class SingleDeviceAdapter:
                         fp_capacity=params["fp_capacity"])
 
     def progress(self, carry):
+        # a pipelined carry's staged block counts as queued work
         h = read_bundle(carry)
         return (int(carry.depth), int(carry.generated), h.distinct,
-                h.level_n - h.qhead + h.next_n)
+                h.level_n - h.qhead + h.next_n + h.st_n)
 
     def migrate(self, carry, old_params: dict, new_params: dict):
         return migrate_engine_carry(carry, old_params, new_params)
+
+    def supports_spill(self) -> bool:
+        # the spill runtime runs the unpipelined stages; a pipelined
+        # carry's staged block has no spill composition (the ladder
+        # degrades those runs to the next rung instead)
+        return not self.pipeline
 
     def build_spill(self, params: dict, store, on_event=None,
                     spill_write_hook=None):
@@ -282,7 +300,9 @@ class SingleDeviceAdapter:
             fp_index=self.fp_index)
 
     def can_shrink(self, floor: int = MIN_CHUNK) -> bool:
-        return self.chunk // 2 >= floor
+        # the staged block is chunk-shaped: a pipelined carry is never
+        # re-seated at another pop width
+        return not self.pipeline and self.chunk // 2 >= floor
 
     def reseat_chunk(self, carry, params: dict):
         """Halve the pop width (rung 3): re-seat the queue padding."""
@@ -366,7 +386,7 @@ def _resume(adapter, params: dict, opts: SupervisorOptions,
         else:
             template, seg_fn = adapter.build(new_params, opts.ckpt_every)
         try:
-            _, carry = ckpt.load_checkpoint(path, template)
+            _, carry = ckpt.load_checkpoint(path, template, adapter.cfg)
         except ckpt.CheckpointCorruptError as e:
             last_err = e
             _emit(opts, "ckpt_fallback", path=path, error=str(e))
@@ -459,7 +479,8 @@ def supervise(adapter, params: dict,
             meta["spill"] = {"active": True, "count": int(store_snap.count),
                              "capacity": int(store_snap.table.shape[0])}
         path = ckpt.save_generation(opts.ckpt_path, carry_to_save, meta,
-                                    keep=opts.keep_generations)
+                                    keep=opts.keep_generations,
+                                    cfg=adapter.cfg)
         heads = [(path, opts.ckpt_path)]
         if spill_rt is not None and store_snap is not None:
             from ..engine.spill import save_snapshot, spill_sibling
@@ -565,7 +586,7 @@ def supervise(adapter, params: dict,
                             opts.ckpt_path):
                         try:
                             _, _, good = ckpt.load_latest_generation(
-                                opts.ckpt_path, template)
+                                opts.ckpt_path, template, adapter.cfg)
                         except FileNotFoundError:
                             pass
 
@@ -607,7 +628,8 @@ def supervise(adapter, params: dict,
                 rollback_store()
                 denial = None
                 spill_first = (resource == "fp_capacity"
-                               and opts.spill == "on" and spill_rt is None)
+                               and opts.spill == "on" and spill_rt is None
+                               and adapter.supports_spill())
                 # ---- rung 1: probed regrow ---------------------------
                 if not spill_first:
                     if regrows >= opts.max_regrow:
@@ -636,7 +658,7 @@ def supervise(adapter, params: dict,
                           action="denied", reason=denial)
                 # ---- rung 2: host spill tier (fpset only) ------------
                 if (resource == "fp_capacity" and opts.spill != "off"
-                        and spill_rt is None):
+                        and spill_rt is None and adapter.supports_spill()):
                     from ..engine.spill import SpillStore
 
                     spill_rt = make_spill_runtime(
@@ -692,6 +714,7 @@ def supervise(adapter, params: dict,
                   wall_s=round(t_fence - t_dispatch, 6))
             if opts.ckpt_path:
                 pending_save = (good, good_store)
+            t_readback = time.time()
             if adapter.viol(carry) == OK and not adapter.done(carry):
                 d, g, di, q = adapter.progress(carry)
                 _emit(opts, "progress", depth=d, generated=g, distinct=di,
@@ -719,6 +742,11 @@ def supervise(adapter, params: dict,
                     _emit(opts, "coverage", visited=cov_visited,
                           sites=len(cov_sites), delta={}, saturated=True,
                           level=cov_level)
+            # the fence-scope phase rows: the device wall and the host
+            # readback wall just measured (host arithmetic only)
+            for row in segment_phases(segments - 1, t_fence - t_dispatch,
+                                      readback_s=time.time() - t_readback):
+                _emit(opts, "phase", **row)
 
         if interrupted:
             pending_save = None  # superseded by the final generation
@@ -734,10 +762,12 @@ def supervise(adapter, params: dict,
                       path=path, generated=g, distinct=di, queue=q,
                       wall_s=round(time.time() - t0, 6))
             else:
+                # drained: the reference's programmatic drain request (its
+                # serving plane, not ported) - a signal here, always
                 _emit(opts, "interrupted",
                       signum=int(sig.hit) if sig.hit else None, path=path,
                       generated=g, distinct=di, queue=q,
-                      wall_s=round(time.time() - t0, 6))
+                      wall_s=round(time.time() - t0, 6), drained=False)
         else:
             flush_save()
 
@@ -777,14 +807,16 @@ def check_supervised(
     device=None,
     fp_index: int = DEFAULT_FP_INDEX,
     coverage: bool = False,
+    pipeline: bool = False,
 ) -> SupervisedResult:
     """Supervised single-device exhaustive check of a KubeAPI
     configuration on `device` (None = the card); coverage=True carries the
-    device coverage plane and journals its `coverage` events."""
+    device coverage plane and journals its `coverage` events;
+    pipeline=True runs the pipelined body."""
     adapter = SingleDeviceAdapter(
         cfg, chunk=chunk, obs_slots=obs_slots, sort_free=sort_free,
         deferred=deferred, device=device, fp_index=fp_index,
-        coverage=coverage)
+        coverage=coverage, pipeline=pipeline)
     return supervise(
         adapter,
         {"queue_capacity": queue_capacity, "fp_capacity": fp_capacity},
