@@ -470,16 +470,24 @@ def write_model(tmp, name, fail, timeout):
     return os.path.join(d, "MC.cfg")
 
 
-def command(argv):
-    """python -m torchtlc.cli check ... as a subprocess: (rc, stdout)."""
+def command_err(argv):
+    """python -m torchtlc.cli check ... as a subprocess: (rc, stdout,
+    stderr)."""
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=here)
     p = subprocess.run([sys.executable, "-m", "torchtlc.cli", "check",
                         *argv], cwd=here, env=env, capture_output=True,
                        text=True, timeout=600)
-    if p.returncode not in (0, 12, 75):
-        print(p.stderr[-4000:], file=sys.stderr)
-    return p.returncode, p.stdout
+    return p.returncode, p.stdout, p.stderr
+
+
+def command(argv):
+    """The command as a subprocess: (rc, stdout); stderr printed unless
+    it exits 0, 12 or 75."""
+    rc, out, err = command_err(argv)
+    if rc not in (0, 12, 75):
+        print(err[-4000:], file=sys.stderr)
+    return rc, out
 
 
 def command_here(ops, argv):
@@ -1017,16 +1025,6 @@ def phase_pipeline(torch, ops, card):
           f"{[(round(w, 4), n) for w, n in walls[True]]} (s, steps) on "
           f"{card}", flush=True)
     return out
-
-
-def command_err(argv):
-    """The command as a subprocess: (rc, stdout, stderr)."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=here)
-    p = subprocess.run([sys.executable, "-m", "torchtlc.cli", "check",
-                        *argv], cwd=here, env=env, capture_output=True,
-                       text=True, timeout=600)
-    return p.returncode, p.stdout, p.stderr
 
 
 def phase_pipeline_command(cfg, tmp, card):

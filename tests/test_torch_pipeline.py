@@ -294,3 +294,36 @@ def test_model1_pipelined_matches_the_pins():
                                       **kw)
     jc = jax.block_until_ready(j_run(j_init()))
     _assert_words_equal(carry_to_numpy(tc, cfg=MODEL_1), _ref_np(jc))
+
+
+def test_migrated_carry_leaves_equal_but_st_flat_past_the_pop():
+    """A regrow migrates the staged block verbatim in both packages; the
+    migrated queues keep only the level's rows.  Every leaf of the two
+    migrated carries is equal except st_flat, which the reference carries
+    over from the old queue and the port derives from the new one: it
+    differs only on lanes of the pop window's rows st_n and later,
+    disabled lanes no checker reads (ROADMAP Queue C item 4)."""
+    from jaxtlc.resil import regrow as jr
+    from torchtlc.resil import regrow as tr
+
+    kw = dict(chunk=64, queue_capacity=1 << 12, fp_capacity=1 << 14,
+              sort_free=True, deferred=True)
+    j_init, _, j_step = jb.make_engine(J_FF, pipeline=True, donate=False,
+                                       **kw)
+    t_init, _, t_step = tb.make_engine(FF, pipeline=True, device="cpu", **kw)
+    jc, tc = j_init(), t_init()
+    for _ in range(150):
+        jc, tc = j_step(jc), t_step(tc)
+    old = dict(queue_capacity=1 << 12, fp_capacity=1 << 14)
+    new = dict(queue_capacity=1 << 13, fp_capacity=1 << 15)
+    mine = _port_np(tr.migrate_engine_carry(tc, old, new), True)
+    ref = _ref_np(jr.migrate_engine_carry(jc, old, new))
+    flat_m, flat_r = mine.pop("st_flat"), ref.pop("st_flat")
+    _assert_words_equal(mine, ref)
+    L = flat_m.shape[0] // kw["chunk"]
+    st_n = int(tc.st_n)
+    assert 0 < st_n < kw["chunk"]
+    assert (flat_m[:st_n * L] == flat_r[:st_n * L]).all()
+    rows = np.flatnonzero((flat_m != flat_r).any(1))
+    assert rows.size and rows.min() >= st_n * L
+    assert not mine["st_valid"][rows].any()

@@ -110,7 +110,7 @@ __all__ = [
     "outdegree_from_hist", "commit_block", "commit_block_plain",
     "enqueue_order", "resolve_device", "resolve_sort_free",
     "resolve_deferred", "obs_rows", "make_segment", "carry_done",
-    "clone_carry", "cov_totals",
+    "clone_carry", "cov_totals", "staged_block",
 ]
 
 VIOLATION_NAMES = {
@@ -250,6 +250,15 @@ def resolve_deferred(deferred, chunk: int) -> bool:
     if deferred is not None:
         return bool(deferred)
     return chunk >= DEFERRED_AUTO_CHUNK
+
+
+def staged_block(c: EngineCarry, h: Bundle, chunk: int) -> torch.Tensor:
+    """The popped rows of a pipelined carry's staged block ([chunk, W]
+    int32): a view of the current level buffer from st_n rows before the
+    pop cursor, valid until the level flips twice because no commit writes
+    the buffer being popped."""
+    start = h.qhead - h.st_n
+    return c.queue[h.parity, start:start + chunk]
 
 
 def _running(h: Bundle) -> bool:
@@ -633,14 +642,12 @@ def make_backend_engine(
         return commit(c, ex, n, h.qhead + n, h.qhead + n, h)
 
     def staged_ex(c: EngineCarry, h: Bundle) -> ExpandOut:
-        # the staged block's popped rows, for the deferred checker: a view
-        # of the current level buffer, valid because no commit writes it
-        start = h.qhead - h.st_n
+        # block: the staged rows the deferred checker reads
         return ExpandOut(
             packed=c.st_packed, lo=c.st_lo, hi=c.st_hi, valid=c.st_valid,
             action=c.st_action, gen=c.st_gen, viol=c.st_viol,
             viol_words=c.st_viol_state, viol_action=c.st_viol_action,
-            block=c.queue[h.parity, start:start + chunk], cov=c.st_cov)
+            block=staged_block(c, h, chunk), cov=c.st_cov)
 
     def with_staged(c: EngineCarry, ex: ExpandOut, n: int) -> EngineCarry:
         # rebinds the expand stage's outputs, which are fresh tensors of

@@ -37,7 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .bfs import EngineCarry, resolve_device
+from .bfs import EngineCarry, read_bundle, resolve_device, staged_block
 from .fpset import FPSet
 
 SCALARS = {
@@ -81,18 +81,6 @@ def _get(d, name):
     return np.asarray(v)
 
 
-def _u32(t) -> np.ndarray:
-    return (t.cpu().numpy().astype(np.int64) & 0xFFFFFFFF).astype(np.uint32)
-
-
-def staged_parents(c: EngineCarry, chunk: int):
-    """The staged block's popped rows ([chunk, W] int32): the pop window
-    that starts st_n rows before the pop cursor in the current level
-    buffer."""
-    start = int(c.qhead) - int(c.st_n)
-    return c.queue[int(c.parity), start:start + chunk]
-
-
 def _staged_to_numpy(c: EngineCarry, cfg, deferred: bool) -> dict:
     from ..spec.codec import get_codec
     from ..spec.kernel import lane_layout, make_kernel
@@ -107,7 +95,7 @@ def _staged_to_numpy(c: EngineCarry, cfg, deferred: bool) -> dict:
         "st_hi": c.st_hi.cpu().numpy().view(np.uint32),
         "st_valid": c.st_valid.cpu().numpy().astype(np.bool_),
         "st_action": c.st_action.cpu().numpy().astype(np.int32),
-        "st_gen": _u32(c.st_gen),
+        "st_gen": (c.st_gen.cpu().numpy() & 0xFFFFFFFF).astype(np.uint32),
     }
     for name in ("st_n", "st_viol", "st_viol_action"):
         out[name] = np.asarray(int(getattr(c, name)), np.int32)
@@ -124,7 +112,7 @@ def _staged_to_numpy(c: EngineCarry, cfg, deferred: bool) -> dict:
             out["st_flat"] = np.zeros((chunk * lane_layout(cfg)[1],
                                        cdc.n_fields), np.int32)
         else:
-            block = staged_parents(c, chunk).cpu()
+            block = staged_block(c, read_bundle(c), chunk).cpu()
             succ = make_kernel(cfg)(cdc.unpack(block))[0]
             out["st_flat"] = succ.reshape(-1, cdc.n_fields).numpy().astype(
                 np.int32)

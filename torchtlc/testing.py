@@ -19,6 +19,6 @@ def one_thread() -> None:
     torch.set_num_threads(1)
 
 
-def subprocess_env(**extra) -> dict:
-    """os.environ plus OMP_NUM_THREADS=1 and `extra`."""
-    return dict(os.environ, OMP_NUM_THREADS="1", **extra)
+def subprocess_env() -> dict:
+    """os.environ plus OMP_NUM_THREADS=1."""
+    return dict(os.environ, OMP_NUM_THREADS="1")
