@@ -22,7 +22,13 @@ Model_1 in both mode sets and the scaled workload at two chunks, timed
 against the unpipelined body (11), ``check MC.cfg -pipeline`` through
 SIGTERM -> exit 75 -> -recover, the wrong-mode resume refused and the
 journal's segment-scope phase rows (11b), and auto-regrow under -pipeline
-(11c).  It checks every
+(11c); then the sharded engine, D fingerprint-space shards in one process
+behind kernels K11-K13: ``torchtlc.entry.dryrun_multichip(8)`` on Model_1
+with the reference's shard-table digest and FF at 1, 2 and 8 shards (12),
+the scaled 2x1 workload on 4 shards against the single-device table's
+fingerprint set, unpipelined and pipelined in turns (12b), and ``check
+MC.cfg -sharded 4`` - clean, a table regrow, a route-bucket regrow, and
+-pipeline through SIGTERM -> exit 75 -> -recover (12c).  It checks every
 result against its pinned value, holds each kernel bitwise against its
 plain torch version on the card, and prints:
 
@@ -45,7 +51,7 @@ result.  The build's ptxas report goes to torchtlc/kernels/_build/ptxas.txt.
 ``--phases 7,8`` runs phase 1 and the named later phases only (for
 iterating on the card; the contract run takes no arguments); ``2c`` names
 K10's check against its plain version, untimed; ``--phases 11,11b,11c`` is
-the pipelined slice alone.
+the pipelined slice alone, ``--phases 12,12b,12c`` the sharded one.
 """
 
 from __future__ import annotations
@@ -125,6 +131,29 @@ M1_2048_DISTINCT = {
     "APIStart": 11798,
 }
 SCALED_OBS_SLOTS = 256
+# the sharded engine: dryrun_multichip's Model_1 geometry (per shard), the
+# SHA-256 of its 8 shard tables ([8, 2^16, 16] little-endian uint32) from
+# the reference, jaxtlc.engine.sharded.make_sharded_engine(ModelConfig(
+# True, True), <8-device CPU mesh>, **M1_SHARDED_KW) (re-derived by
+# tests/test_torch_sharded.py), and its per-action distinct counts (its
+# in-batch attribution)
+M1_SHARDED_KW = dict(chunk=2048, queue_capacity=1 << 15,
+                     fp_capacity=1 << 19)
+M1_SHARDED_TABLE_SHA256 = (
+    "5ad6e4f7ac84df02f1bbc70b175c20d30659c91e9dde60fb8f9f84dede8cbbc6")
+M1_SHARDED_DISTINCT = {
+    "DoRequest": 21067, "DoReply": 22194, "DoListRequest": 9096,
+    "DoListReply": 19130, "CStart": 16155, "C1": 9033, "C10": 3823,
+    "C11": 5933, "c12": 1703, "C13": 7089, "C2": 382, "C3": 686, "C8": 341,
+    "C6": 202, "C7": 392, "C4": 279, "C5": 629, "PVCStart": 11487,
+    "PVCListedPVCs": 15119, "PVCHavePVCs": 6547, "PVCDone": 1930,
+    "APIStart": 10189,
+}
+M1_SHARDED_OUTDEGREE = (1, 0, 4, 3)
+# the scaled workload on 4 shards: 32,768 per shard, 131,072 in all (phase
+# 5b's width); qcap 2^20 and fp 2^24 per shard (four 128 MiB tables)
+SCALED_SHARDED_KW = dict(chunk=1 << 15, queue_capacity=1 << 20,
+                         fp_capacity=1 << 24)
 
 # the command's phases: a Model_1 model directory (both constants TRUE)
 MC_TLA = """---- MODULE MC ----
@@ -250,6 +279,12 @@ def main() -> int:
             phase_pipeline_command(model, tmp, card)
         if want("11c"):
             runs["pipe_regrow"] = phase_pipeline_regrow(ops, model, card)
+        if want("12"):
+            runs.update(phase_sharded_model1(torch, ops, card, runs))
+        if want("12b"):
+            runs.update(phase_sharded_scaled(torch, ops, card, runs))
+        if want("12c"):
+            runs.update(phase_sharded_command(ops, model, tmp, card))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if only is not None and "2" in only:
@@ -261,12 +296,17 @@ def main() -> int:
     main = ("m1", "m1_auto", "scaled", "scaled_auto", "cmd", "regrow",
             "spill_m1", "spill_scaled", "viol_cmd", "cov_m1", "cov_m1_auto",
             "cov_scaled", "pipe_m1", "pipe_m1_auto", "pipe_scaled",
-            "pipe_scaled_65536", "pipe_regrow")
+            "pipe_scaled_65536", "pipe_regrow", "shard_m1", "shard_scaled",
+            "shard_scaled_pipe", "shard_cmd", "shard_cmd_fp",
+            "shard_cmd_route")
     launches = {k: sum(runs[r]["launches"][k] for r in main)
                 for k in ops.KERNELS}
     kernels = phase_kernels(torch, ops, runs, launches)
     print(f"phase 6 launches on the main paths ({', '.join(main)}): "
           f"{launches}", flush=True)
+    for r in ("shard_m1", "shard_scaled", "shard_scaled_pipe"):
+        print(f"phase 6 {r}: {runs[r]['bodies']} bodies, launches per body "
+              f"{runs[r]['per_body']:.1f}", flush=True)
     for k, v in launches.items():
         need(v > 0, f"kernel {k} was not launched on the main path")
     print(smi, flush=True)
@@ -1085,6 +1125,415 @@ def phase_pipeline_regrow(ops, cfg, card):
 
 
 # ---------------------------------------------------------------------------
+# phases 12-12c: the sharded engine (D shards in one process)
+# ---------------------------------------------------------------------------
+
+
+def run_sharded(torch, ops, cfg, D, kw, pipeline=False, obs_slots=0):
+    """One exhaustive sharded run through the engine's entry points, the
+    launch counts reset just before and read just after: (carry, result,
+    launches, bodies)."""
+    from torchtlc.engine import sharded as ts
+
+    init_fn, run_fn = ts.make_sharded_engine(
+        cfg, ts.ShardMesh(D), **kw, pipeline=pipeline, obs_slots=obs_slots)
+    carry = init_fn()
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.time()
+    carry = run_fn(carry)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(ops.LAUNCHES)
+    r = ts.result_from_shard_carry(carry, wall, iterations=run_fn.steps,
+                                   fp_capacity_total=D * kw["fp_capacity"])
+    return carry, r, launches, run_fn.steps
+
+
+def _per_body(launches, bodies):
+    return sum(launches.values()) / max(bodies, 1)
+
+
+def sharded_kernel_checks(torch, ops, tag, cfg, kw, D, bodies, runs,
+                          with_ring=False):
+    """K1's sharded variant, K11 route_scatter, K12 verdict_fold, K13
+    shard_enqueue, K7's received-rows variant (and K8's entry row) each
+    held bitwise against its plain version and timed, on the carry of a
+    sharded run `bodies` bodies in - the blocks that run pops next.  The
+    rows go to runs["sharded_rows"] for the kernel table."""
+    import numpy as np
+
+    from torchtlc.engine import sharded as ts
+    from torchtlc.engine.fingerprint import fp64_words
+    from torchtlc.engine.fpset import FPSet, fpset_insert_dedup
+    from torchtlc.obs import counters
+    from torchtlc.spec.codec import get_codec
+
+    rows = runs.setdefault("sharded_rows", {})
+    library = runs.setdefault("sharded_library", {})
+
+    def record(name, err, ms, pms, nbytes):
+        rows.setdefault(name, []).append(dict(
+            shape=tag, max_abs_err=err, ms=ms, plain_ms=pms,
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3))
+
+    def err_of(a, b):
+        if a is None or b is None:
+            return 0 if a is b else 1 << 62
+        a, b = a.to(torch.int64), b.to(torch.int64)
+        return int((a - b).abs().max()) if a.numel() else 0
+
+    cdc = get_codec(cfg)
+    init_fn, seg = ts.make_sharded_engine(cfg, ts.ShardMesh(D), **kw,
+                                          segment=bodies,
+                                          obs_slots=16 if with_ring else 0)
+    c = seg(init_fn())
+    dev = c.queue.device
+    g = seg.geometry
+    chunk, L, F, B, ncand = g["chunk"], g["L"], g["F"], g["B"], g["ncand"]
+    W = cdc.n_words
+    DB = D * B
+    h = ts.read_bundle(c)
+    need(h.viol == 0, f"sharded kernel step ({tag}): the run halted")
+    n = [min(chunk, min(e, t) - q) for q, t, e in
+         zip(h.qhead, h.qtail, h.level_end)]
+    npop = torch.tensor(n, dtype=torch.int64, device=dev)
+    deferred = g["deferred"]
+    lines = []
+
+    # K1, the sharded variant: the pops of all shards in one launch
+    got = ts.expand_sharded(cfg, c.queue, c.qhead, npop, chunk, deferred,
+                            True)
+    ref = ts.expand_sharded_plain(cfg, c.queue, c.qhead, npop, chunk,
+                                  deferred, True)
+    err = max(err_of(a, b) for a, b in zip(got, ref))
+    need(err == 0, f"K1 sharded variant differs from its plain version "
+         f"({tag})")
+    record("expand/sharded", err,
+           cuda_ms(torch, lambda _: ts.expand_sharded(
+               cfg, c.queue, c.qhead, npop, chunk, deferred, True), 20),
+           cuda_ms(torch, lambda _: ts.expand_sharded_plain(
+               cfg, c.queue, c.qhead, npop, chunk, deferred, True), 2),
+           D * chunk * F * 4 + D * ncand * (W * 4 + 5 + 4 + F * 4)
+           + D * chunk * W * 4)
+    packed, flags, action, gen, fields, block = got
+    lo, hi = fp64_words(packed, cdc.nbits)
+    valid = flags[0]
+    nvalid = int(valid.sum())
+
+    # K11 route_scatter
+    rk = ts.route_out_new(D, ncand, B, F, dev)
+    rp = ts.route_out_new(D, ncand, B, F, dev)
+    ts.route(hi, lo, valid, fields, D, B, rk)
+    ts.route_plain(hi, lo, valid, fields, D, B, rp)
+    err = max(err_of(getattr(rk, k), getattr(rp, k)) for k in (
+        "order", "s_own", "s_pos", "s_valid", "xvalid", "route_ovf"))
+    xv = rk.xvalid
+    err = max(err, *(err_of(getattr(rk, k)[xv], getattr(rp, k)[xv])
+                     for k in ("xrows", "xlo", "xhi")))
+    need(err == 0, f"K11 route_scatter differs from its plain version "
+         f"({tag})")
+    fit = int(xv.sum())
+    ntiles = -(-ncand // 1024)
+    record("route_scatter", err,
+           cuda_ms(torch, lambda _: ts.route(hi, lo, valid, fields, D, B,
+                                             rk), 20),
+           cuda_ms(torch, lambda _: ts.route_plain(hi, lo, valid, fields, D,
+                                                   B, rp), 3),
+           D * ncand * (5 + 5 + 4 + 13) + fit * (2 * F * 4 + 9)
+           + 2 * D * ntiles * (D + 1) * 4 + D * D * B)
+    keys = torch.where(valid.view(D, ncand).bool(),
+                       hi.view(D, ncand).to(torch.int64) & (D - 1), D)
+    # the library yardstick: the owner order alone, one stable argsort
+    lib_ms = cuda_ms(torch, lambda _: torch.argsort(keys, dim=1,
+                                                    stable=True), 20)
+    library["route_scatter"] = lib_ms  # the last shape's (scaled) wins
+
+    # the owner-side insert (the engine's path), then K13 and K12
+    is_new = torch.zeros(D, DB + 1, dtype=torch.bool, device=dev)
+    fresh = []
+    tables = c.table.clone()
+    for o in range(D):
+        _, is_new_c, c_idx, _, fell = fpset_insert_dedup(
+            FPSet(tables[o]), rk.xlo[o].reshape(DB), rk.xhi[o].reshape(DB),
+            rk.xvalid[o].reshape(DB), probe_width=(
+                min(4 * chunk, DB) if g["sort_free"] else 0),
+            sort_free=g["sort_free"])
+        is_new[o, c_idx] = is_new_c
+        fresh.append((is_new_c, c_idx,
+                      min(4 * chunk, DB) if g["sort_free"] and not fell
+                      else DB))
+    is_new = is_new[:, :DB].contiguous()
+    cum = torch.cumsum(is_new, 1)
+    q_full = (c.qtail - c.qhead) + cum[:, -1] > kw["queue_capacity"]
+    n_new = int(cum[:, -1].sum())
+    xr, xvv = rk.xrows.view(D, DB, F), rk.xvalid.view(D, DB)
+    qk, qp = c.queue.clone(), c.queue.clone()
+    ts.shard_enqueue(qk, is_new, cum, c.qtail, q_full, xr, xvv)
+    ts.shard_enqueue_plain(qp, is_new, cum, c.qtail, q_full, xr, xvv)
+    err = err_of(qk, qp)
+    need(err == 0, f"K13 shard_enqueue differs from its plain version "
+         f"({tag})")
+    record("shard_enqueue", err,
+           cuda_ms(torch, lambda _: ts.shard_enqueue(
+               qk, is_new, cum, c.qtail, q_full, xr, xvv), 20),
+           cuda_ms(torch, lambda _: ts.shard_enqueue_plain(
+               qp, is_new, cum, c.qtail, q_full, xr, xvv), 3),
+           D * DB * 10 + n_new * 2 * F * 4 + D * 2 * F * 4)
+    verd = is_new.view(D, D, B).to(torch.uint8)
+    fa = action.view(D, ncand)
+
+    def fold(fn, st):
+        fn(verd, rk.s_own, rk.s_pos, rk.s_valid, rk.order, fa, npop, chunk,
+           L, 22, st[0], st[1])
+
+    def fresh_counters(_=None):
+        return c.outdeg_hist.clone(), c.act_dist.clone()
+
+    sk, sp = fresh_counters(), fresh_counters()
+    fold(ts.verdict_fold, sk)
+    fold(ts.verdict_fold_plain, sp)
+    err = max(err_of(sk[0], sp[0]), err_of(sk[1], sp[1]))
+    need(err == 0, f"K12 verdict_fold differs from its plain version "
+         f"({tag})")
+    got_n = int(sk[1][:, :22].sum() - c.act_dist[:, :22].sum())
+    record("verdict_fold", err,
+           cuda_ms(torch, lambda st: fold(ts.verdict_fold, st), 20,
+                   fresh_counters),
+           cuda_ms(torch, lambda st: fold(ts.verdict_fold_plain, st), 3,
+                   fresh_counters),
+           D * ncand * 13 + nvalid + got_n * 4 + 2 * D * chunk * 4
+           + D * (L + 2 + 23) * 16)
+
+    # K7 on received rows: owner 0's batch, and the same rows with every
+    # other fresh claimant doctored to hold identity 0 twice
+    # (OnlyOneVersion fails)
+    rows0 = xr[0].contiguous()
+    doct = rows0.clone()
+    api = cdc.offsets["api"]
+    word = (1 << cdc.o_present) | (0 << cdc.o_ident)
+    is_new_c, c_idx, nrows = fresh[0]
+    pick = c_idx[:nrows][is_new_c[:nrows]][::2]
+    need(pick.numel() > 0, f"K7 rows: owner 0 has no fresh claimant ({tag})")
+    doct[pick, api] = word | (1 << cdc.o_vv)
+    doct[pick, api + 1] = word
+    for name, rws in (("", rows0), ("doctored", doct)):
+        a = ts.deferred_check_rows(cfg, rws, is_new_c, c_idx, nrows)
+        b = ts.deferred_check_rows_plain(cfg, rws, is_new_c, c_idx, nrows)
+        err = max(err_of(x, y) for x, y in zip(a, b))
+        need(err == 0, f"K7 received-rows variant differs ({tag} {name})")
+        if name:
+            need(int(a[0]) == 2, f"K7 rows: {int(a[0])} on doctored rows")
+    nf = int(is_new_c[:nrows].sum())
+    record("deferred_check/rows", err,
+           cuda_ms(torch, lambda _: ts.deferred_check_rows(
+               cfg, doct, is_new_c, c_idx, nrows), 20),
+           cuda_ms(torch, lambda _: ts.deferred_check_rows_plain(
+               cfg, doct, is_new_c, c_idx, nrows), 3),
+           nrows * 9 + nf * F * 4 + F * 4)
+
+    if with_ring:
+        # K8's entry row (the pipelined sharded ring) on shard 0's ring
+        outs = []
+        for fn in (counters.ring_row, counters.ring_row_plain):
+            ring, head = c.obs_ring[0].clone(), c.obs_head[0].clone()
+            bo, ex = c.obs_bodies[0].clone(), c.obs_expanded[0].clone()
+            fn(ring, head, bo, ex, n[0], True, c.level[0],
+               c.generated[0] + 9, c.generated[0], c.distinct[0] + 7,
+               c.distinct[0], c.qtail[0] - c.qhead[0], c.act_gen[0] + 5,
+               c.act_dist[0], torch.cat([c.act_gen[0], c.act_dist[0]]), 22,
+               entry=True)
+            outs.append((ring, head, bo, ex))
+        err = max(err_of(x, y) for x, y in zip(*outs))
+        need(err == 0, f"K8 entry row differs from its plain version "
+             f"({tag})")
+        rows.setdefault("ring_row/entry", []).append(dict(
+            shape=tag, max_abs_err=err, ms=None, plain_ms=None,
+            bound_ms=None))
+        lines.append("K8 entry row equal")
+    print(f"phase 12 sharded kernels vs plain ({tag}, {D} shards, chunk "
+          f"{chunk}, {sum(n)} popped, {nvalid} valid candidates, {fit} "
+          f"routed, B {B}, {n_new} new): all bitwise equal; " + ", ".join(
+              f"{k} {v[-1]['ms']:.4f} ms (plain {v[-1]['plain_ms']:.3f} ms, "
+              f"bound {v[-1]['bound_ms']:.4f} ms)" for k, v in rows.items()
+              if v[-1]["shape"] == tag and v[-1]["ms"] is not None)
+          + f"; library argsort {lib_ms:.4f} ms"
+          + (f"; {'; '.join(lines)}" if lines else ""), flush=True)
+    del c, tables, qk, qp
+    torch.cuda.empty_cache()
+
+
+def phase_sharded_model1(torch, ops, card, runs):
+    """Phase 12: torchtlc.entry.dryrun_multichip(8) - Model_1 on 8 shards
+    at chunk 2048 (slab dedup and deferred invariants), MC.out's counts -
+    then the same engine's carry against the reference's shard-table
+    digest; FF at 1, 2 and 8 shards; K1's sharded variant and K7, K11-K13
+    against their plain versions on a block the Model_1 run pops."""
+    import numpy as np
+
+    from torchtlc.config import MATRIX, MODEL_1
+    from torchtlc.entry import dryrun_multichip
+
+    ops.reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        r = dryrun_multichip(8)
+    launches = dict(ops.LAUNCHES)
+    need((r.generated, r.distinct, r.depth) == M1_COUNTS,
+         "dryrun_multichip counts")
+    need(r.action_distinct == M1_SHARDED_DISTINCT,
+         "sharded Model_1 per-action distinct")
+    need(r.outdegree == M1_SHARDED_OUTDEGREE, "sharded Model_1 outdegree")
+    need(r.action_generated == MC_OUT_GENERATED,
+         "sharded Model_1 per-action generated")
+    carry, r2, _, bodies = run_sharded(torch, ops, MODEL_1, 8, M1_SHARDED_KW)
+    sha = table_sha256(carry.table)
+    need(sha == M1_SHARDED_TABLE_SHA256,
+         f"sharded Model_1 shard tables {sha[:16]}")
+    need(r2.iterations == r.iterations, "two sharded Model_1 runs differ")
+    ff = []
+    for D in (1, 2, 8):
+        _, rf, _, nb = run_sharded(torch, ops, MATRIX[(False, False)], D,
+                                   dict(FF_KW, chunk=128))
+        need((rf.generated, rf.distinct, rf.depth) == FF_COUNTS
+             and rf.violation == 0, f"FF at {D} shards")
+        ff.append(f"{D}: {nb} bodies {rf.wall_s:.3f} s")
+    del carry
+    sharded_kernel_checks(torch, ops, "model1_D8", MODEL_1, M1_SHARDED_KW, 8,
+                          60, runs)
+    per = _per_body(launches, r.iterations)
+    print(f"phase 12 sharded Model_1: {out.getvalue().strip()}; "
+          f"{r.iterations} bodies, {per:.1f} launches per body; per-action "
+          f"distinct and outdegree {r.outdegree} as jaxtlc's sharded run, "
+          f"shard tables sha256 {sha[:16]} = jaxtlc's; FF {FF_COUNTS} at "
+          f"1/2/8 shards ({', '.join(ff)}) on {card}; launches {launches}",
+          flush=True)
+    return {"shard_m1": {"launches": launches, "bodies": r.iterations,
+                         "per_body": per}}
+
+
+def _stored_keys(torch, table):
+    """The raw (unmixed) fingerprints a table stores, as sorted int64 keys
+    hi << 32 | lo."""
+    from torchtlc.engine.fpset import _unmix
+
+    t = table.reshape(-1, 2).to(torch.int64) & 0xFFFFFFFF
+    t = t[(t[:, 0] != 0) | (t[:, 1] != 0)]
+    lo, hi = _unmix(t[:, 0], t[:, 1])
+    return torch.sort((hi << 32) | lo).values
+
+
+def phase_sharded_scaled(torch, ops, card, runs):
+    """Phase 12b: the scaled 2x1 workload on 4 shards at 32,768 per shard
+    (131,072 in all), qcap 2^20 and fp 2^24 per shard, default modes + the
+    ring: the single-device counts and per-action generated counts, every
+    stored fingerprint on its owner shard, the union of the shard tables
+    equal to the single-device run's table set; then pipelined, and one
+    unpipelined/pipelined pair in turns.  K1-sharded, K7, K8-entry and
+    K11-K13 held against their plain versions at this step."""
+    from torchtlc.config import scaled_config
+
+    cfg, kw1 = scaled_config()
+    single, rs, _, _ = run_engine(torch, ops, cfg, kw1, {})
+    ref_keys = _stored_keys(torch, single.fps.table)
+    del single
+    torch.cuda.empty_cache()
+    D = 4
+    xbytes = D * D * (2 * SCALED_SHARDED_KW["chunk"] * 12 // D + 8) * (
+        34 + 3) * 4
+    out, walls = {}, {False: [], True: []}
+    for pipe in (False, True, True, False):
+        carry, r, launches, bodies = run_sharded(
+            torch, ops, cfg, D, SCALED_SHARDED_KW, pipeline=pipe,
+            obs_slots=SCALED_OBS_SLOTS)
+        need((r.generated, r.distinct, r.depth) == SCALED_COUNTS,
+             f"sharded scaled (pipeline={pipe}) counts "
+             f"{(r.generated, r.distinct, r.depth)}")
+        need(r.violation == 0 and r.queue_left == 0,
+             f"sharded scaled (pipeline={pipe}) verdict")
+        need(r.action_generated == rs.action_generated,
+             f"sharded scaled (pipeline={pipe}) per-action generated")
+        walls[pipe].append((r.wall_s, bodies, _per_body(launches, bodies)))
+        key = "shard_scaled_pipe" if pipe else "shard_scaled"
+        if key not in out:
+            out[key] = {"launches": launches, "bodies": bodies,
+                        "per_body": _per_body(launches, bodies)}
+            keys = []
+            for d in range(D):
+                k = _stored_keys(torch, carry.table[d])
+                need(bool(((k >> 32) & (D - 1) == d).all()),
+                     f"a fingerprint off its owner shard {d}")
+                keys.append(k)
+            union = torch.sort(torch.cat(keys)).values
+            need(union.shape == ref_keys.shape
+                 and bool((union == ref_keys).all()),
+                 "the shard tables' fingerprints differ from the "
+                 "single-device table's")
+        del carry
+        torch.cuda.empty_cache()
+    sharded_kernel_checks(torch, ops, "scaled_D4", cfg, SCALED_SHARDED_KW,
+                          D, 140, runs, with_ring=True)
+    print(f"phase 12b sharded scaled 2x1: {SCALED_COUNTS} on 4 shards, chunk "
+          f"{SCALED_SHARDED_KW['chunk']} per shard (exchange planes "
+          f"{xbytes / 2**20:.1f} MiB), default modes + ring; the single-"
+          f"device run's per-action generated counts; every fingerprint on "
+          f"its owner, the union of the 4 tables = the single-device table "
+          f"({ref_keys.shape[0]} fingerprints), unpipelined and pipelined; "
+          f"single-device default modes {rs.wall_s:.4f} s, {rs.iterations} "
+          f"steps; in turns U/P/P/U (wall s, bodies, launches per body): "
+          f"unpipelined {[(round(w, 4), b, round(p, 1)) for w, b, p in walls[False]]}"
+          f", pipelined {[(round(w, 4), b, round(p, 1)) for w, b, p in walls[True]]}"
+          f" on {card}", flush=True)
+    return out
+
+
+def phase_sharded_command(ops, cfg, tmp, card):
+    """Phase 12c: `check MC.cfg -sharded 4` on Model_1 - clean (exit 0, the
+    transcript's counts), -fpcap 16384 (table regrows through
+    migrate_shard_carry), -routefactor 0.25 (VIOL_ROUTE_OVERFLOW and a
+    route-factor regrow), all in this process; then -pipeline -checkpoint
+    P -checkpointevery 32 -faults sigterm@3 -> exit 75, -recover -pipeline
+    -> exit 0 (subprocesses)."""
+    out, lines = {}, []
+    for key, extra in (("shard_cmd", []), ("shard_cmd_fp", ["-fpcap",
+                                                             "16384"]),
+                       ("shard_cmd_route", ["-routefactor", "0.25"])):
+        rc, text, launches, wall = command_here(
+            ops, [cfg, "-noTool", "-sharded", "4", *extra])
+        need(rc == 0, f"`check -sharded 4 {' '.join(extra)}` exited {rc}")
+        need(final_counts(text) == M1_COUNTS,
+             f"`-sharded 4 {' '.join(extra)}` counts {final_counts(text)}")
+        need("Model checking completed. No error has been found" in text,
+             "the sharded command did not report success")
+        grows = [x.strip() for x in text.splitlines() if "regrowing" in x]
+        want = {"-fpcap": "regrowing fp_capacity",
+                "-routefactor": "regrowing route_factor"}
+        need(bool(grows) == bool(extra) and all(
+            want[extra[0]] in x for x in grows),
+             f"`-sharded 4 {' '.join(extra)}`: regrows {grows}")
+        out[key] = {"launches": launches}
+        lines.append(f"{' '.join(extra) or 'clean'}: exit 0, "
+                     f"{len(grows)} regrows {grows[:3]}, {wall:.2f} s")
+    ck = os.path.join(tmp, "shard.ckpt")
+    base = [cfg, "-noTool", "-sharded", "4", "-pipeline", "-checkpoint", ck,
+            "-checkpointevery", "32"]
+    t0 = time.time()
+    rc, text = command(base + ["-faults", "sigterm@3"])
+    wall_term = time.time() - t0
+    need(rc == 75, f"the sharded -pipeline SIGTERM run exited {rc}, not 75")
+    t0 = time.time()
+    rc, text = command(base + ["-recover"])
+    need(rc == 0, f"the sharded -recover -pipeline run exited {rc}")
+    need(final_counts(text) == M1_COUNTS,
+         f"the resumed sharded counts {final_counts(text)}")
+    print(f"phase 12c command `check MC.cfg -sharded 4`: {'; '.join(lines)};"
+          f" -pipeline sigterm@3 -> exit 75 ({wall_term:.2f} s), -recover "
+          f"-pipeline -> exit 0, {M1_COUNTS} ({time.time() - t0:.2f} s; "
+          f"subprocesses) on {card}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 2: each kernel against its plain version, at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -1308,7 +1757,16 @@ def phase_kernels(torch, ops, runs, launches):
                            "jaxtlc/engine/backend.py:325"),
         "ring_row": ("torchtlc/kernels/csrc/ring.cu",
                      "jaxtlc/obs/counters.py:89"),
+        "route_scatter": ("torchtlc/kernels/csrc/route.cu",
+                          "jaxtlc/engine/sharded.py:553"),
+        "verdict_fold": ("torchtlc/kernels/csrc/route.cu",
+                         "jaxtlc/engine/sharded.py:701"),
+        "shard_enqueue": ("torchtlc/kernels/csrc/route.cu",
+                          "jaxtlc/engine/sharded.py:685"),
     }
+    for name, got in runs.get("sharded_rows", {}).items():
+        rows.setdefault(name, []).extend(got)
+    library.update(runs.get("sharded_library", {}))
     first = {name: rows[name][0] for name in rows}
     out = []
     for name in ops.KERNELS:

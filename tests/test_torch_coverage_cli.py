@@ -91,11 +91,12 @@ def test_sigterm_resume_command_keeps_coverage(model_dir, tmp_path):
 def test_pipeline_and_phase_timing_name_slice_6(model_dir, capsys, flag):
     """Named for the slice that refused both flags.  -pipeline runs now,
     so its case gives -phase-timing beside it: refused there too (the
-    reference ignores it under -pipeline), the error naming slice 7."""
+    reference ignores it under -pipeline), the error naming the ROADMAP
+    item that ports it (Queue A item 7b)."""
     argv = ["-pipeline", "-phase-timing"] if flag == "-pipeline" else [flag]
     rc = main(["check", str(model_dir / "MC.cfg")] + argv)
     err = capsys.readouterr().err
-    assert rc == 2 and "slice 7" in err and "-pipeline" in err
+    assert rc == 2 and "item 7b" in err and "-pipeline" in err
 
 
 def test_model1_dump_pin():

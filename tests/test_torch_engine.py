@@ -137,9 +137,11 @@ def test_default_device_is_the_card(monkeypatch):
         tb.make_engine(FF, **MODES, **KW)
 
 
-def test_entry_steps_like_the_reference_entry():
+def test_entry_steps_like_the_reference_entry(monkeypatch):
     """torchtlc.entry.entry() has the shape of __graft_entry__.entry():
-    (step_fn, (carry,)); three steps give word-equal carries."""
+    (step_fn, (carry,)); three steps give word-equal carries.
+    dryrun_multichip runs the sharded engine (tests/test_torch_sharded.py)
+    on the card unless asked otherwise: without one it refuses."""
     import __graft_entry__
     from torchtlc.entry import dryrun_multichip, entry
 
@@ -148,7 +150,8 @@ def test_entry_steps_like_the_reference_entry():
     for _ in range(3):
         carry, jc = step(carry), j_step(jc)
     _assert_words_equal(carry_to_numpy(carry), _jax_np(jc))
-    with pytest.raises(NotImplementedError):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         dryrun_multichip(2)
 
 

@@ -277,3 +277,45 @@ def test_table_and_ring_constructors_default_to_the_card():
             ring_new(4, 2)
     assert fpset_new(1 << 8, "cpu").table.device.type == "cpu"
     assert ring_new(4, 2, "cpu")[1].device.type == "cpu"
+
+
+def test_sharded_copies_equal_reference():
+    """The sharded engine's copies of reference code (torchtlc.engine.
+    sharded imports no jax: the walk above imports it with jax blocked):
+    the route bucket width, the route-overflow code and its message, the
+    regrow table and doubling, and the sharded ring decoder on one random
+    3-shard ring."""
+    import numpy as np
+
+    from jaxtlc.engine import bfs as jb
+    from jaxtlc.engine import sharded as js
+    from jaxtlc.obs import counters as jc
+    from jaxtlc.resil import regrow as jr
+    from torchtlc.engine import bfs as tb
+    from torchtlc.engine import sharded as ts
+    from torchtlc.obs import counters as tc
+    from torchtlc.resil import regrow as tr
+
+    for args in ((512, 10, 1, 2.0), (2048, 10, 8, 2.0), (64, 8, 4, 0.3),
+                 (32768, 12, 4, 2.0), (128, 8, 2, 4.0)):
+        assert ts.route_bucket_width(*args) == js.route_bucket_width(*args)
+    code = jb.VIOL_ROUTE_OVERFLOW
+    assert tb.VIOL_ROUTE_OVERFLOW == code
+    assert tb.VIOLATION_NAMES[code] == jb.VIOLATION_NAMES[code]
+    assert tr.GROWABLE == jr.GROWABLE
+    params = {"fp_capacity": 1 << 10, "queue_capacity": 1 << 9,
+              "route_factor": 0.5}
+    for res in params:
+        assert tr.grown(params, res) == jr.grown(params, res)
+    rng = np.random.default_rng(7)
+    labels = tuple(f"a{i}" for i in range(4))
+    ring = rng.integers(0, 2**20, (3, 7, jc.ring_cols(4)),
+                        dtype=np.uint64).astype(np.uint32)
+    heads = np.array([9, 9, 8])
+    for since in (0, 3):
+        want = jc.shard_rows_from_ring(ring, heads, labels=labels,
+                                       since=since, fp_capacity_total=1 << 12)
+        for r in (ring, ring.view(np.int32)):
+            assert tc.shard_rows_from_ring(
+                r, heads, labels=labels, since=since,
+                fp_capacity_total=1 << 12) == want

@@ -296,13 +296,14 @@ def test_model1_pipelined_matches_the_pins():
     _assert_words_equal(carry_to_numpy(tc, cfg=MODEL_1), _ref_np(jc))
 
 
-def test_migrated_carry_leaves_equal_but_st_flat_past_the_pop():
+def test_migrated_pipelined_carry_equals_reference():
     """A regrow migrates the staged block verbatim in both packages; the
-    migrated queues keep only the level's rows.  Every leaf of the two
-    migrated carries is equal except st_flat, which the reference carries
-    over from the old queue and the port derives from the new one: it
-    differs only on lanes of the pop window's rows st_n and later,
-    disabled lanes no checker reads (ROADMAP Queue C item 4)."""
+    migrated queues keep only the level's rows, and the port keeps the
+    staged pop window of the old queue (st_block), from which its st_flat
+    is the reference's carried-over leaf.  Every leaf of the two migrated
+    carries - st_flat included, so the checkpoint of a migrated carry
+    saved before its next body - is equal word for word (ROADMAP Queue C
+    item 4, repaired); the next body drops the old window."""
     from jaxtlc.resil import regrow as jr
     from torchtlc.resil import regrow as tr
 
@@ -316,14 +317,18 @@ def test_migrated_carry_leaves_equal_but_st_flat_past_the_pop():
         jc, tc = j_step(jc), t_step(tc)
     old = dict(queue_capacity=1 << 12, fp_capacity=1 << 14)
     new = dict(queue_capacity=1 << 13, fp_capacity=1 << 15)
-    mine = _port_np(tr.migrate_engine_carry(tc, old, new), True)
-    ref = _ref_np(jr.migrate_engine_carry(jc, old, new))
-    flat_m, flat_r = mine.pop("st_flat"), ref.pop("st_flat")
-    _assert_words_equal(mine, ref)
-    L = flat_m.shape[0] // kw["chunk"]
     st_n = int(tc.st_n)
     assert 0 < st_n < kw["chunk"]
-    assert (flat_m[:st_n * L] == flat_r[:st_n * L]).all()
-    rows = np.flatnonzero((flat_m != flat_r).any(1))
-    assert rows.size and rows.min() >= st_n * L
-    assert not mine["st_valid"][rows].any()
+    migrated = tr.migrate_engine_carry(tc, old, new)
+    jm = jr.migrate_engine_carry(jc, old, new)
+    _assert_words_equal(_port_np(migrated, True), _ref_np(jm))
+    # the window past the level differs between the old and new queue, so
+    # the carried window is what makes st_flat equal
+    assert migrated.st_block is not None
+    kw2 = dict(kw, **new)
+    _, _, j_step2 = jb.make_engine(J_FF, pipeline=True, donate=False, **kw2)
+    _, _, t_step2 = tb.make_engine(FF, pipeline=True, device="cpu", **kw2)
+    nxt = t_step2(migrated)
+    assert nxt.st_block is None
+    _assert_words_equal(_port_np(nxt, True),
+                        _ref_np(jax.block_until_ready(j_step2(jm))))

@@ -10,7 +10,8 @@ otherwise - and on a violation re-runs the search in the host driver to
 print the counterexample; with -coverage, the engine carries the device
 coverage plane and the success transcript the host coverage walker's
 per-expression dump (MC.out:44-1092); with -pipeline, the engines run the
-pipelined body.  Exit codes are the reference's: 0
+pipelined body; with -sharded N, the sharded engine over N fingerprint-
+space shards in one process (capacities per shard).  Exit codes are the reference's: 0
 no error, 12
 safety violation, 75 interrupted or capacity-exhausted with a final
 checkpoint, 1 usage or configuration error.
@@ -70,6 +71,11 @@ def _run_check(args) -> int:
     if args.recover and not args.checkpoint:
         print("Error: -recover requires -checkpoint PATH", file=sys.stderr)
         return 1
+    if args.sharded and (args.sharded & (args.sharded - 1) or
+                         args.sharded > 8):
+        print(f"Error: -sharded {args.sharded}: the shard count must be a "
+              "power of two, at most 8", file=sys.stderr)
+        return 1
     device = _device(args)
     try:
         device_name = _device_name(device)
@@ -86,7 +92,7 @@ def _run_check(args) -> int:
     log.computing_init()
     _open_journal(args, workload=spec.spec_name, device=device_name,
                   params=dict(chunk=args.chunk, queue_capacity=args.qcap,
-                              fp_capacity=args.fpcap, sharded=0,
+                              fp_capacity=args.fpcap, sharded=args.sharded,
                               pipeline=args.pipeline,
                               sort_free=_sort_free(args),
                               deferred=_deferred(args),
@@ -162,7 +168,10 @@ def _run_check(args) -> int:
 def _dispatch_check(args, spec, log, device):
     """The KubeAPI engine the flags pick: the supervised segmented engine
     when -auto-grow (default) or -checkpoint is in play, else the plain
-    engine.  Returns (CheckResult, SupervisedResult or None)."""
+    engine; the sharded ones with -sharded N.  Returns (CheckResult,
+    SupervisedResult or None)."""
+    if args.sharded:
+        return _dispatch_sharded(args, spec, log, device)
     if args.checkpoint or args.autogrow:
         from .resil.supervisor import check_supervised
 
@@ -182,6 +191,30 @@ def _dispatch_check(args, spec, log, device):
                  coverage=args.coverage, sort_free=args.sortfree,
                  deferred=args.deferredinv, device=device,
                  fp_index=spec.fp_index), None
+
+
+def _dispatch_sharded(args, spec, log, device):
+    """-sharded N (jaxtlc/api.py:456-497): supervised when -checkpoint or
+    auto-grow is in play, the raw sharded engine otherwise."""
+    kw = dict(chunk=args.chunk, queue_capacity=args.qcap,
+              fp_capacity=args.fpcap, route_factor=args.routefactor,
+              pipeline=args.pipeline, obs_slots=_obs_slots(args),
+              sort_free=args.sortfree, deferred=args.deferredinv,
+              fp_index=spec.fp_index)
+    if args.checkpoint or args.autogrow:
+        from .resil.supervisor import check_sharded_supervised
+
+        sup = check_sharded_supervised(
+            spec.model, args.sharded, coverage=args.coverage,
+            opts=_sup_opts(args, log), device=device, **kw)
+        return sup.result, sup
+    from .engine.backend import kubeapi_backend
+    from .engine.sharded import ShardMesh, check_sharded
+
+    return check_sharded(
+        spec.model, ShardMesh(args.sharded, device),
+        backend=kubeapi_backend(spec.model, coverage=args.coverage),
+        **kw), None
 
 
 def _sup_opts(args, log):
@@ -242,7 +275,8 @@ def _open_journal(args, workload: str, device: str, params: dict):
         j.event("run_resume", version=__version__, path=path)
     else:
         j.event("run_start", version=__version__, workload=workload,
-                engine="single", device=device, params=params)
+                engine="sharded" if params.get("sharded") else "single",
+                device=device, params=params)
     args._journal = j
     return j
 
@@ -276,6 +310,8 @@ def _resume_command(args) -> str:
         parts += ["-checkpoint", args.checkpoint, "-recover"]
     if args.chunk != 1024:
         parts += ["-chunk", str(args.chunk)]
+    if args.sharded:
+        parts += ["-sharded", str(args.sharded)]
     if args.pipeline:
         parts += ["-pipeline"]  # checkpoints only resume in the same mode
     if args.sortfree is not None:

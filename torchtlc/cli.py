@@ -5,7 +5,7 @@ jaxtlc/cli.py on the KubeAPI path.
         [-workers cpu] [-chunk 1024] [-qcap N] [-fpcap N] \\
         [-checkpoint PATH [-checkpointevery N] [-recover]] \\
         [-no-auto-grow] [-spill | -no-spill] [-coverage] [-pipeline] \\
-        [-noTool] ...
+        [-sharded N [-routefactor F]] [-noTool] ...
 
 Reads MC.cfg with its sibling MC.tla (and a toolbox .launch if present),
 runs the exhaustive check on the card - on the CPU only with -workers cpu
@@ -26,8 +26,6 @@ from .api import _run_check
 # flags of paths not ported yet: dest -> (the value that means "not
 # given", what the error says)
 UNPORTED = {
-    "sharded": (0, "-sharded (the sharded engine) is ported in the "
-                "sharded slice (ROADMAP Queue A item 10)"),
     "fpset": ("JaxFPSet", "-fpset DiskFPSet (the native disk tier) is "
               "ported with the capacity tiers (ROADMAP Queue A item 13)"),
     "symmetry": (None, "-symmetry/-no-symmetry (state-space reduction) is "
@@ -48,10 +46,9 @@ UNPORTED = {
     "serve": (0, "-serve (the live monitor server) is ported with the "
               "serving plane (ROADMAP Queue A item 13)"),
     "phasetiming": (False, "-phase-timing (measured per-level expand/commit "
-                    "walls) is ported in slice 7 of the port (ROADMAP "
-                    "Queue A item 7b); until then it is refused in every "
-                    "mode, -pipeline included, where the reference ignores "
-                    "it"),
+                    "walls) is not ported yet (ROADMAP Queue A item 7b); "
+                    "until then it is refused in every mode, -pipeline "
+                    "included, where the reference ignores it"),
     "traceout": ("", "-trace-out (the Chrome-trace export) is ported with "
                  "the serving plane (ROADMAP Queue A item 13)"),
     "narrow": (False, "-narrow (the certified narrowed codec) is ported "
@@ -151,11 +148,17 @@ def _parser() -> argparse.ArgumentParser:
     c.add_argument("-mutation", default="",
                    help="self-test: a deliberately broken transition rule "
                         "(e.g. delete_noop)")
+    c.add_argument("-sharded", type=int, default=0, metavar="N",
+                   help="the sharded engine over N fingerprint-space shards "
+                        "(a power of two, at most 8) in one process; the "
+                        "capacities are per shard")
+    c.add_argument("-routefactor", type=float, default=2.0,
+                   help="sharded route bucket size as a multiple of the "
+                        "mean per-owner share (auto-grow doubles it on a "
+                        "bucket overflow)")
     # the flags of paths the port does not run yet: parsed, then refused
     c.add_argument("-frontend", default="auto")
     c.add_argument("-fpset", default="JaxFPSet")
-    c.add_argument("-sharded", type=int, default=0, metavar="N")
-    c.add_argument("-routefactor", type=float, default=2.0)
     c.add_argument("-pipeline", dest="pipeline", action="store_true",
                    default=False,
                    help="the pipelined body: each step commits the "
@@ -202,9 +205,10 @@ def unported(args) -> list:
     errs = [msg for dest, (off, msg) in UNPORTED.items()
             if getattr(args, dest) != off
             and not (dest == "frontend" and args.frontend == "hand")]
-    if args.routefactor != 2.0:
-        errs.append(UNPORTED["sharded"][1].replace("-sharded",
-                                                    "-routefactor"))
+    if args.sharded and args.spill == "on":
+        errs.append("-spill with -sharded (the sharded engine's host spill "
+                    "tier) is ported in the sharded-spill slice (ROADMAP "
+                    "Queue A item 10b)")
     if not args.simulate and (args.depth, args.walkers, args.simseed) != (
             100, 256, 0):
         errs.append(UNPORTED["simulate"][1].replace(

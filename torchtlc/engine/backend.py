@@ -50,6 +50,7 @@ VIOL_DEADLOCK = 4
 VIOL_SLOT_OVERFLOW = 5
 VIOL_FPSET_FULL = 6
 VIOL_QUEUE_FULL = 7
+VIOL_ROUTE_OVERFLOW = 8  # the sharded engine's bucket overflow
 
 FLAG_VALID, FLAG_AFAIL, FLAG_OVF, FLAG_BAD_TYPEOK, FLAG_BAD_ONLYONE = range(5)
 

@@ -87,6 +87,7 @@ from .backend import (
     VIOL_FPSET_FULL,
     VIOL_ONLYONEVERSION,
     VIOL_QUEUE_FULL,
+    VIOL_ROUTE_OVERFLOW,
     VIOL_SLOT_OVERFLOW,
     VIOL_TYPEOK,
     kubeapi_backend,
@@ -105,6 +106,7 @@ from .fpset import (
 __all__ = [
     "OK", "VIOL_TYPEOK", "VIOL_ONLYONEVERSION", "VIOL_ASSERT", "VIOL_DEADLOCK",
     "VIOL_SLOT_OVERFLOW", "VIOL_FPSET_FULL", "VIOL_QUEUE_FULL",
+    "VIOL_ROUTE_OVERFLOW",
     "VIOLATION_NAMES", "EngineCarry", "CheckResult", "make_engine",
     "make_backend_engine", "make_stage_pair", "check", "result_from_carry",
     "outdegree_from_hist", "commit_block", "commit_block_plain",
@@ -125,6 +127,7 @@ VIOLATION_NAMES = {
                       "tier takes over - raise fp_capacity only to "
                       "avoid the regrow recompiles)"),
     VIOL_QUEUE_FULL: "Frontier queue full (raise queue_capacity)",
+    VIOL_ROUTE_OVERFLOW: "Routing bucket overflow (raise route_factor)",
 }
 
 # fingerprint-table load at which a run halts with VIOL_FPSET_FULL rather
@@ -196,6 +199,12 @@ class EngineCarry(NamedTuple):
     st_viol_state: torch.Tensor = None
     st_viol_action: torch.Tensor = None
     st_cov: torch.Tensor = None  # [n_sites] int32 words (coverage plane)
+    # the staged block's popped rows as they stood before a regrow's
+    # migration ([chunk, W] int32; None otherwise, and cleared by the next
+    # body): a migrated queue keeps only the level's rows, and the
+    # reference carries its pre-pack `st_flat` leaf over from the old
+    # queue, so interop derives that leaf from these rows
+    st_block: torch.Tensor = None
 
 
 class CheckResult(NamedTuple):
@@ -658,7 +667,8 @@ def make_backend_engine(
             st_hi=ex.hi, st_valid=ex.valid, st_action=ex.action,
             st_gen=ex.gen, st_n=i64(n), st_viol=ex.viol,
             st_viol_state=ex.viol_words, st_viol_action=ex.viol_action,
-            st_cov=ex.cov, bundle=h._replace(qhead=h.qhead + n, st_n=n))
+            st_cov=ex.cov, st_block=None,
+            bundle=h._replace(qhead=h.qhead + n, st_n=n))
 
     def pipelined_body(c: EngineCarry, h: Bundle) -> EngineCarry:
         # commit the staged block k-1 and stage block k.  At a level flip
@@ -702,11 +712,12 @@ def make_backend_engine(
     return init_fn, run_fn, step_fn
 
 
-def clone_carry(c: EngineCarry) -> EngineCarry:
-    """A copy of every tensor of the carry (the engine steps in place; the
-    supervisor keeps its last good carry intact this way)."""
-    return EngineCarry(**{
-        k: (FPSet(v.table.clone()) if k == "fps"
+def clone_carry(c):
+    """A copy of every tensor of a carry - an EngineCarry or the sharded
+    engine's ShardCarry (the engines step in place; the supervisor keeps
+    its last good carry intact this way)."""
+    return type(c)(**{
+        k: (FPSet(v.table.clone()) if isinstance(v, FPSet)
             else v.clone() if isinstance(v, torch.Tensor) else v)
         for k, v in c._asdict().items()})
 
@@ -803,12 +814,14 @@ def outdegree_from_hist(hist: np.ndarray):
 
 def cov_totals(carry) -> "np.ndarray | None":
     """Cumulative per-site coverage counters of a carry ([n_sites] int64
-    host array of the reference's uint32 values), or None when no coverage
-    plane rides the carry."""
+    host array of the reference's uint32 values; a ShardCarry's [D,
+    n_sites] partials summed, as the reference sums them), or None when no
+    coverage plane rides the carry."""
     counts = getattr(carry, "cov_counts", None)
     if counts is None:
         return None
-    return counts.cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+    counts = counts.cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+    return counts.sum(axis=0) if counts.ndim == 2 else counts
 
 
 def result_from_carry(carry: EngineCarry, wall_s: float, iterations: int = -1,

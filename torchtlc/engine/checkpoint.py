@@ -4,7 +4,9 @@ A checkpoint is the reference's file: an ``.npz`` of the engine carry's
 leaves ``leaf_i`` - in the reference carry's leaf order and dtypes
 (interop.LEAF_ORDER: the EngineCarry's fields, a pipelined carry's
 staged block, the observability ring, in spill mode ``spill_hits`` and
-with the coverage plane ``cov_counts``) - plus a JSON
+with the coverage plane ``cov_counts``; for the sharded engine's
+ShardCarry, interop.SHARD_LEAF_ORDER with every leaf's leading shard axis
+and the meta's ``devices``) - plus a JSON
 ``__meta__`` with the engine geometry, the ModelConfig stanza and a CRC32
 manifest of every leaf, written to a temporary file, fsync'd and renamed.
 So a checkpoint written by either package loads in the other, and a
@@ -49,9 +51,14 @@ from .interop import (
     OBS_SCALARS,
     SCALARS,
     STAGED_DTYPES,
+    SHARD_DTYPES,
+    SHARD_LEAF_ORDER,
     carry_from_numpy,
     carry_to_numpy,
+    shard_carry_from_numpy,
+    shard_carry_to_numpy,
 )
+from .sharded import ShardCarry
 
 # the reference's format version (v3: per-array CRC32 manifest, bucketized
 # table layout, fp_highwater in meta)
@@ -98,12 +105,19 @@ def _leaves(carry, cfg=None, deferred: bool = False) -> list:
     if isinstance(carry, EngineCarry):
         d = carry_to_numpy(carry, cfg=cfg, deferred=deferred)
         return [d[k] for k in LEAF_ORDER if k in d]
+    if isinstance(carry, ShardCarry):
+        d = shard_carry_to_numpy(carry)
+        return [d[k] for k in SHARD_LEAF_ORDER if k in d]
     return [np.asarray(carry[k]) for k in sorted(carry)]
 
 
 def _leaf_specs(carry, cfg=None, deferred: bool = False) -> list:
     """[(name, shape, dtype)] of the leaves _leaves(carry) gives, without
     copying the carry off its device."""
+    if isinstance(carry, ShardCarry):
+        return [(k, tuple(getattr(carry, k).shape), np.dtype(dt))
+                for k, dt in SHARD_DTYPES.items()
+                if getattr(carry, k) is not None]
     if not isinstance(carry, EngineCarry):
         return [(k, np.shape(carry[k]), np.asarray(carry[k]).dtype)
                 for k in sorted(carry)]
@@ -201,6 +215,9 @@ def load_checkpoint(path: str, template, cfg=None):
     if isinstance(template, EngineCarry):
         return meta, carry_from_numpy(named, device=template.queue.device,
                                       cfg=cfg)
+    if isinstance(template, ShardCarry):
+        return meta, shard_carry_from_numpy(named,
+                                            device=template.queue.device)
     return meta, named
 
 

@@ -21,7 +21,9 @@ does not hold in the reference's form:
   fields of every lane.  The port's K7 derives them again from the parent
   rows, so the port holds no such leaf: on the way out it is computed with
   K1's plain twin (spec.kernel.make_kernel) on the staged parents
-  ``queue[parity, qhead - st_n:][:chunk]``; on the way in it is dropped.
+  ``queue[parity, qhead - st_n:][:chunk]`` - or, on a carry a regrow just
+  migrated, on that window as it stood in the old queue (``st_block``) -;
+  on the way in it is dropped.
   ``unpack(st_packed)`` is not that leaf: it differs on disabled lanes of
   rows past the level (fields out of their packed range).
 
@@ -30,6 +32,11 @@ dict - or any object with those attributes, such as a reference carry whose
 leaves were pulled to numpy - and builds the port's carry on `device`.
 Converting a reference carry, stepping both, and converting back gives
 word-equal leaves (tests/test_torch_engine.py, tests/test_torch_pipeline.py).
+
+``shard_carry_to_numpy`` / ``shard_carry_from_numpy`` do the same for the
+sharded engine's ShardCarry: the reference ShardCarry's leaves
+(``SHARD_LEAF_ORDER``, every one with its leading shard axis) in its
+dtypes, both ways (tests/test_torch_sharded.py).
 """
 
 from __future__ import annotations
@@ -112,7 +119,8 @@ def _staged_to_numpy(c: EngineCarry, cfg, deferred: bool) -> dict:
             out["st_flat"] = np.zeros((chunk * lane_layout(cfg)[1],
                                        cdc.n_fields), np.int32)
         else:
-            block = staged_block(c, read_bundle(c), chunk).cpu()
+            block = (c.st_block if c.st_block is not None
+                     else staged_block(c, read_bundle(c), chunk)).cpu()
             succ = make_kernel(cfg)(cdc.unpack(block))[0]
             out["st_flat"] = succ.reshape(-1, cdc.n_fields).numpy().astype(
                 np.int32)
@@ -216,3 +224,73 @@ def _staged_from_numpy(d, cfg, dev, words) -> dict:
     if _has(d, "st_cov"):
         out["st_cov"] = words(_get(d, "st_cov"))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the sharded engine's carry (engine.sharded.ShardCarry)
+# ---------------------------------------------------------------------------
+
+# the reference ShardCarry's fields in order (jaxtlc/engine/sharded.py:
+# 119-179; None fields drop out of its leaves) and each leaf's dtype
+SHARD_DTYPES = {
+    "table": np.uint32, "queue": np.int32, "qhead": np.int32,
+    "qtail": np.int32, "level_end": np.int32, "level": np.int32,
+    "depth": np.int32, "generated": np.uint32, "distinct": np.uint32,
+    "act_gen": np.uint32, "act_dist": np.uint32, "outdeg_hist": np.uint32,
+    "viol": np.int32, "viol_state": np.int32, "viol_local": np.bool_,
+    "cont": np.bool_, "pv_send": np.uint8, "pv_sown": np.int32,
+    "pv_pos": np.int32, "pv_svalid": np.bool_, "pv_order": np.int32,
+    "pv_faction": np.int32, "pv_n": np.int32, "obs_ring": np.uint32,
+    "obs_head": np.int32, "obs_bodies": np.uint32,
+    "obs_expanded": np.uint32, "obs_pl_level": np.int32,
+    "obs_pl_flag": np.bool_, "cov_counts": np.uint32,
+}
+SHARD_LEAF_ORDER = tuple(SHARD_DTYPES)
+# the port's dtype of each leaf: int32 words, bool/uint8 flags, int64
+# counters (the reference's uint32 words in their low 32 bits)
+_SHARD_TORCH = {"table": torch.int32, "queue": torch.int32,
+                "viol_state": torch.int32, "obs_ring": torch.int32,
+                "pv_send": torch.uint8, "pv_sown": torch.int32,
+                "pv_pos": torch.int32, "pv_order": torch.int32,
+                "pv_faction": torch.int32, "viol_local": torch.bool,
+                "cont": torch.bool, "pv_svalid": torch.bool,
+                "obs_pl_flag": torch.bool}
+
+
+def shard_carry_to_numpy(c) -> dict:
+    """The reference's ShardCarry leaves of a port ShardCarry, as numpy
+    arrays in the reference's dtypes (the carry's None leaves left out)."""
+    out = {}
+    for name, dt in SHARD_DTYPES.items():
+        v = getattr(c, name, None)
+        if v is None:
+            continue
+        a = v.cpu().numpy()
+        if a.dtype == np.int64:  # a counter: its low 32 bits
+            a = (a & 0xFFFFFFFF).astype(np.uint32)
+        # 32-bit words keep their bit patterns; flags keep their values
+        out[name] = a.view(dt) if a.dtype.itemsize == 4 else a.astype(dt)
+    return out
+
+
+def shard_carry_from_numpy(d, device=None):
+    """The port's ShardCarry from reference leaves (a dict, or an object
+    with those attributes such as a reference ShardCarry), on `device`."""
+    from .sharded import ShardCarry
+
+    dev = resolve_device(device)
+    vals = {}
+    for name, dt in SHARD_DTYPES.items():
+        if not _has(d, name):
+            continue
+        a = np.array(_get(d, name), dtype=dt)
+        want = _SHARD_TORCH.get(name)
+        if want is torch.int32:
+            t = torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
+                                 else a.astype(np.int32))
+        elif want is not None:
+            t = torch.from_numpy(a).to(want)
+        else:  # counters: int64 holding the uint32 words
+            t = torch.from_numpy(a.astype(np.int64))
+        vals[name] = t.to(dev)
+    return ShardCarry(**vals)

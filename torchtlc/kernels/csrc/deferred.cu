@@ -65,3 +65,50 @@ extern "C" int tt_deferred_check(const void* layout, const void* block,
       (long long*)viol, (int32_t*)state, (long long*)vaction);
   return (int)cudaGetLastError();
 }
+
+// The owner-side variant of the sharded engine: one thread per claimant
+// row of the received batch, the claimant's fields read from `rows`
+// ([N, F] int32) instead of derived from a popped parent.  Same scratch
+// protocol and verdict rule; no action.
+__global__ void deferred_rows_kernel(KubeLayout Y,
+                                     const int32_t* __restrict__ rows_in,
+                                     long long rows,
+                                     const uint8_t* __restrict__ fresh,
+                                     const int64_t* __restrict__ c_idx,
+                                     int* scratch, long long* __restrict__ viol,
+                                     int32_t* __restrict__ state) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < rows && fresh[i]) {
+    const long long lane = c_idx[i];
+    int32_t s[KUBE_MAXF];
+    const int bits = kube_row_bits(Y, rows_in, lane, s);
+    for (int k = 0; k < DEFERRED_N_CODES; k++)
+      if (!(bits & (1 << k))) atomicMax(&scratch[k], (int)lane);
+  }
+  __threadfence();
+  __syncthreads();
+  __shared__ bool last;
+  if (threadIdx.x == 0)
+    last = atomicAdd(&scratch[DEFERRED_N_CODES], 1) == (int)gridDim.x - 2;
+  __syncthreads();
+  if (last && threadIdx.x == 0) {
+    int bad[DEFERRED_N_CODES];
+    for (int k = 0; k < DEFERRED_N_CODES; k++)
+      bad[k] = atomicAdd(&scratch[k], 0);
+    kube_deferred_pick_rows(Y, rows_in, bad, viol, state);
+  }
+}
+
+extern "C" int tt_deferred_check_rows(const void* layout, const void* rows_in,
+                                      long long rows, const void* fresh,
+                                      const void* c_idx, void* scratch,
+                                      void* viol, void* state, void* stream) {
+  const KubeLayout& Y = *(const KubeLayout*)layout;
+  const int threads = 128;
+  const long long blocks = rows > 0 ? (rows + threads - 1) / threads : 1;
+  deferred_rows_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      Y, (const int32_t*)rows_in, rows, (const uint8_t*)fresh,
+      (const int64_t*)c_idx, (int*)scratch, (long long*)viol,
+      (int32_t*)state);
+  return (int)cudaGetLastError();
+}

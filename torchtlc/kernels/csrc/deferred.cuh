@@ -48,3 +48,31 @@ HD void kube_deferred_pick(const KubeLayout& Y, const u32* block,
   for (int j = 0; j < Y.F; j++) state[j] = s[j];
   *vaction = action[lane];
 }
+
+// The sharded engine's owner-side check (jaxtlc/engine/sharded.py:737-747):
+// the claimants are rows of the owner's received batch, whose raw
+// successor fields arrived with them ([N, F] int32 `rows`), so a
+// claimant's state is read, not derived again.
+HD int kube_row_bits(const KubeLayout& Y, const int32_t* rows,
+                     long long lane, int32_t* s) {
+  for (int j = 0; j < Y.F; j++) s[j] = rows[(size_t)lane * Y.F + j];
+  return kube_invariants(Y, s);
+}
+
+// kube_deferred_pick over received rows: the code (0 = OK) and the
+// violating row's fields ([F] zeros when OK); the sharded result reports
+// no action.
+HD void kube_deferred_pick_rows(const KubeLayout& Y, const int32_t* rows,
+                                const int* bad_lane, long long* viol,
+                                int32_t* state) {
+  int code = 0;
+  long long lane = -1;
+  for (int k = 0; k < DEFERRED_N_CODES; k++)
+    if (code == 0 && bad_lane[k] >= 0) {
+      code = k + 1;
+      lane = bad_lane[k];
+    }
+  *viol = code;
+  for (int j = 0; j < Y.F; j++)
+    state[j] = code == 0 ? 0 : rows[(size_t)lane * Y.F + j];
+}

@@ -1,5 +1,5 @@
-// CPU build of the per-lane logic of K1, K3, K5-K10, for the host tests
-// (tests/test_torch_kernels_host.py).  g++ compiles the same
+// CPU build of the per-lane logic of K1, K3, K5-K13, for the host tests
+// (tests/test_torch_kernels_host.py, tests/test_torch_sharded.py).  g++ compiles the same
 // __host__ __device__ headers nvcc builds the kernels from; these loops
 // stand in for the grids, the straggler walk runs the walk kernel's
 // rounds (read, rank, claim-or-advance) sequentially, and std::stable_sort
@@ -11,6 +11,7 @@
 #include "deferred.cuh"
 #include "fpset.cuh"
 #include "ring.cuh"
+#include "route.cuh"
 #include "slab.cuh"
 
 extern "C" int tt_layout_words() { return sizeof(KubeLayout) / 4; }
@@ -254,4 +255,145 @@ extern "C" void host_ring_row(uint32_t* ring, int slots, int cols,
   *head += flip ? 1 : 0;
   *bodies = v.bodies;
   *expanded = v.expanded;
+}
+
+// K1's sharded variant: every lane of the D shards' pops, reading the
+// unpacked circular queue rows (expand.cu expand_sharded_kernel); block
+// may be null.
+extern "C" void host_expand_sharded(const void* layout, const int32_t* queue,
+                                    long long qrows, int qcap,
+                                    const long long* qhead,
+                                    const long long* npop, int D, int ck,
+                                    int deferred, uint32_t* packed,
+                                    uint8_t* flags, int32_t* action,
+                                    int32_t* fields, uint32_t* block,
+                                    unsigned long long* gen) {
+  const KubeLayout& Y = *(const KubeLayout*)layout;
+  const long long per = (long long)ck * Y.L, ncand = per * D;
+  for (long long idx = 0; idx < ncand; idx++) {
+    const int d = (int)(idx / per);
+    const int row = (int)((idx % per) / Y.L), lane = (int)(idx % Y.L);
+    const int32_t* src =
+        queue + ((size_t)d * qrows + (size_t)((qhead[d] + row) % qcap)) * Y.F;
+    u32* dst = packed + (size_t)idx * Y.W;
+    int32_t* fo = fields + (size_t)idx * Y.F;
+    LaneOut o =
+        deferred ? kube_expand_fields<true>(Y, src, row < npop[d], lane, dst, fo)
+                 : kube_expand_fields<false>(Y, src, row < npop[d], lane, dst,
+                                             fo);
+    flags[idx] = o.valid;
+    flags[ncand + idx] = o.afail;
+    flags[2 * ncand + idx] = o.ovf;
+    flags[3 * ncand + idx] = o.bad_typeok;
+    flags[4 * ncand + idx] = o.bad_onlyone;
+    action[idx] = o.action;
+    if (block != nullptr && lane == 0)
+      kube_pack(Y, src, block + ((size_t)d * ck + row) * Y.W);
+    if (o.valid) gen[(size_t)d * KUBE_N_LABELS + o.action]++;
+  }
+}
+
+// K7's owner-side variant over received rows [N, F].
+extern "C" void host_deferred_check_rows(const void* layout,
+                                         const int32_t* rows_in,
+                                         long long rows, const uint8_t* fresh,
+                                         const int64_t* c_idx, long long* viol,
+                                         int32_t* state) {
+  const KubeLayout& Y = *(const KubeLayout*)layout;
+  int bad[DEFERRED_N_CODES];
+  for (int k = 0; k < DEFERRED_N_CODES; k++) bad[k] = -1;
+  for (long long i = 0; i < rows; i++) {
+    if (!fresh[i]) continue;
+    int32_t s[KUBE_MAXF];
+    const int bits = kube_row_bits(Y, rows_in, c_idx[i], s);
+    for (int k = 0; k < DEFERRED_N_CODES; k++)
+      if (!(bits & (1 << k))) bad[k] = std::max(bad[k], (int)c_idx[i]);
+  }
+  kube_deferred_pick_rows(Y, rows_in, bad, viol, state);
+}
+
+// K11: the stable counting sort of each source shard's lanes by owner key
+// and the payload scatter, sequentially (xvalid zeroed by the caller).
+extern "C" void host_route_scatter(const uint32_t* hi, const uint32_t* lo,
+                                   const uint8_t* valid, const int32_t* fields,
+                                   long long ncand, int D, int B, int F,
+                                   int32_t* order, int32_t* s_own,
+                                   int32_t* s_pos, uint8_t* s_valid,
+                                   int32_t* xrows, uint32_t* xlo,
+                                   uint32_t* xhi, uint8_t* xvalid,
+                                   uint8_t* route_ovf) {
+  for (int s = 0; s < D; s++) {
+    std::vector<long long> total(D + 1, 0), start(D + 1, 0), seen(D + 1, 0);
+    const size_t b = (size_t)s * ncand;
+    for (long long i = 0; i < ncand; i++)
+      total[route_key(hi[b + i], valid[b + i] != 0, D)]++;
+    for (int k = 1; k <= D; k++) start[k] = start[k - 1] + total[k - 1];
+    for (long long i = 0; i < ncand; i++) {
+      const int key = route_key(hi[b + i], valid[b + i] != 0, D);
+      const long long pos = seen[key]++;
+      const size_t out = b + (size_t)(start[key] + pos);
+      order[out] = (int32_t)i;
+      s_own[out] = key;
+      s_pos[out] = (int32_t)pos;
+      s_valid[out] = key < D;
+      if (key == D) continue;
+      if (pos < B) {
+        const size_t slot = ((size_t)key * D + s) * B + pos;
+        for (int j = 0; j < F; j++)
+          xrows[slot * F + j] = fields[(b + i) * F + j];
+        xlo[slot] = lo[b + i];
+        xhi[slot] = hi[b + i];
+        xvalid[slot] = 1;
+      } else {
+        route_ovf[s] = 1;
+      }
+    }
+  }
+}
+
+// K12: the verdict fold of every source shard, sequentially.
+extern "C" void host_verdict_fold(const uint8_t* verd, const int32_t* s_own,
+                                  const int32_t* s_pos,
+                                  const uint8_t* s_valid,
+                                  const int32_t* order, const int32_t* faction,
+                                  const long long* npop, long long ncand,
+                                  int D, int B, int chunk, int L,
+                                  int n_labels, long long* outdeg,
+                                  long long* act_dist) {
+  for (int s = 0; s < D; s++) {
+    std::vector<int> deg(chunk, 0);
+    const size_t b = (size_t)s * ncand;
+    for (long long g = 0; g < ncand; g++) {
+      const bool got = route_got(verd, D, B, s, s_own[b + g], s_pos[b + g],
+                                 s_valid[b + g] != 0);
+      const long long lane = order[b + g];
+      act_dist[(size_t)s * (n_labels + 1) + (got ? faction[b + lane]
+                                                  : n_labels)]++;
+      if (got) deg[lane / L]++;
+    }
+    for (int r = 0; r < chunk; r++)
+      outdeg[(size_t)s * (L + 2) + (r < npop[s] ? deg[r] : L + 1)]++;
+  }
+}
+
+// K13: the owner-side enqueue of every owner's received rows.
+extern "C" void host_shard_enqueue(int32_t* queue, long long qrows, int qcap,
+                                   const uint8_t* is_new,
+                                   const long long* cum,
+                                   const long long* qtail,
+                                   const uint8_t* q_full,
+                                   const int32_t* xrows,
+                                   const uint8_t* xvalid, long long n, int D,
+                                   int F) {
+  for (int o = 0; o < D; o++)
+    for (long long i = 0; i < n; i++) {
+      const size_t k = (size_t)o * n + i;
+      const long long tgt =
+          enqueue_target(is_new[k] != 0, q_full[o] != 0, qtail[o], cum[k],
+                         cum[(size_t)o * n + n - 1], i, n, qcap);
+      if (tgt < 0) continue;
+      for (int j = 0; j < F; j++)
+        queue[((size_t)o * qrows + (size_t)tgt) * F + j] =
+            xvalid[k] ? xrows[k * F + j] : 0;
+    }
 }

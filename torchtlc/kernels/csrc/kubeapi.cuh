@@ -491,13 +491,12 @@ HD void kube_server_list(const KubeLayout& Y, const int32_t* f, int c,
 
 // -- one (state, lane) ------------------------------------------------------
 
-// The canonical successor of lane `lane` of the packed row `row` (popped:
-// the row is inside the pop mask), as F raw int32 fields in `s` - the
-// reference's pre-pack `flat` row.  bad_typeok/bad_onlyone are left false.
-HD LaneOut kube_succ_lane(const KubeLayout& Y, const u32* row, bool popped,
-                          int lane, int32_t* s) {
-  int32_t f[KUBE_MAXF];
-  kube_unpack(Y, row, f);
+// The canonical successor of lane `lane` of the state whose F raw fields
+// are `f` (popped: the row is inside the pop mask), as F raw int32 fields
+// in `s` - the reference's pre-pack `flat` row.  bad_typeok/bad_onlyone
+// are left false.
+HD LaneOut kube_succ_fields(const KubeLayout& Y, const int32_t* f,
+                            bool popped, int lane, int32_t* s) {
   for (int j = 0; j < Y.F; j++) s[j] = f[j];
   LaneOut o;
   o.valid = o.afail = o.ovf = o.bad_typeok = o.bad_onlyone = false;
@@ -524,6 +523,14 @@ HD LaneOut kube_succ_lane(const KubeLayout& Y, const u32* row, bool popped,
   return o;
 }
 
+// The same for lane `lane` of the packed row `row`.
+HD LaneOut kube_succ_lane(const KubeLayout& Y, const u32* row, bool popped,
+                          int lane, int32_t* s) {
+  int32_t f[KUBE_MAXF];
+  kube_unpack(Y, row, f);
+  return kube_succ_fields(Y, f, popped, lane, s);
+}
+
 // Expand lane `lane` of the packed row `row`; writes the packed canonical
 // successor to `out` (W words).  kDeferred skips the invariants (the
 // reference's deferred=True expand stage, jaxtlc/engine/backend.py:228):
@@ -540,5 +547,25 @@ HD LaneOut kube_expand_lane(const KubeLayout& Y, const u32* row, bool popped,
     o.bad_onlyone = o.valid && !(bits & 2);
   }
   kube_pack(Y, s, out);
+  return o;
+}
+
+// Expand lane `lane` of the state whose F raw fields are `f` (the sharded
+// engine's queue holds unpacked rows): the packed canonical successor to
+// `out` (W words) and its F raw fields to `fields_out`, the reference's
+// pre-pack `flat` row that the route payload carries.
+template <bool kDeferred>
+HD LaneOut kube_expand_fields(const KubeLayout& Y, const int32_t* f,
+                              bool popped, int lane, u32* out,
+                              int32_t* fields_out) {
+  int32_t s[KUBE_MAXF];
+  LaneOut o = kube_succ_fields(Y, f, popped, lane, s);
+  if (!kDeferred) {
+    int bits = kube_invariants(Y, s);
+    o.bad_typeok = o.valid && !(bits & 1);
+    o.bad_onlyone = o.valid && !(bits & 2);
+  }
+  kube_pack(Y, s, out);
+  for (int j = 0; j < Y.F; j++) fields_out[j] = s[j];
   return o;
 }

@@ -18,6 +18,10 @@
 // plane, the n_cov site counters after (cov_new) and before (cov_old) the
 // body join the wrap test too (no column: the counters ride the carry).
 // __syncthreads separates the reads of phase 1 from the writes of 2 and 3.
+// `entry` (the sharded engine's pipelined ring, jaxtlc/engine/sharded.py:
+// 800-817) writes the counters as they were BEFORE the body into the row -
+// gen_old, dist_old, bodies, expanded and the act_gen half of acts_old -
+// while the wrap test and the updates stay those of the body.
 //
 // Bound: latency.  It moves a few hundred bytes (one ring column of
 // slots + 1 words, 2 (n_labels + 1) counters and their snapshot, one row).
@@ -37,7 +41,7 @@ __global__ void __launch_bounds__(RING_THREADS)
                 const long long* acts_old, const long long* spill_new,
                 const long long* spill_old, int n_acts, int n_labels,
                 const long long* cov_new, const long long* cov_old,
-                int n_cov) {
+                int n_cov, int entry) {
   __shared__ unsigned int s_over;
   const int tid = threadIdx.x;
   if (tid == 0) s_over = 0u;
@@ -62,18 +66,18 @@ __global__ void __launch_bounds__(RING_THREADS)
   __syncthreads();
   RingScalars v;
   v.level = *level;
-  v.generated = *gen_new;
-  v.distinct = *dist_new;
+  v.generated = entry ? *gen_old : *gen_new;
+  v.distinct = entry ? *dist_old : *dist_new;
   v.queue = *queue_n;
-  v.bodies = b0 + 1;
-  v.expanded = e0 + n_pop;
+  v.bodies = entry ? b0 : b0 + 1;
+  v.expanded = entry ? e0 : e0 + n_pop;
   v.overflow = s_over;
   v.spill = spill_new != nullptr ? *spill_new : 0;
   const long long h = *head;
   const long long row = flip ? h % slots : slots;
   for (int col = tid; col < cols; col += blockDim.x)
     ring[(size_t)row * cols + col] =
-        ring_cell(v, act_gen, act_dist, n_labels, col);
+        ring_cell(v, entry ? acts_old : act_gen, act_dist, n_labels, col);
   __syncthreads();
   if (tid == 0) {
     *head = h + (flip ? 1 : 0);
@@ -91,7 +95,7 @@ extern "C" int tt_ring_row(void* ring, int slots, int cols, void* head,
                            const void* acts_old, const void* spill_new,
                            const void* spill_old, int n_acts, int n_labels,
                            const void* cov_new, const void* cov_old, int n_cov,
-                           void* stream) {
+                           int entry, void* stream) {
   ring_kernel<<<1, RING_THREADS, 0, (cudaStream_t)stream>>>(
       (uint32_t*)ring, slots, cols, (long long*)head, (long long*)bodies,
       (long long*)expanded, n_pop, flip, (const long long*)level,
@@ -100,6 +104,7 @@ extern "C" int tt_ring_row(void* ring, int slots, int cols, void* head,
       (const long long*)queue_n, (const long long*)act_gen,
       (const long long*)act_dist, (const long long*)acts_old,
       (const long long*)spill_new, (const long long*)spill_old, n_acts,
-      n_labels, (const long long*)cov_new, (const long long*)cov_old, n_cov);
+      n_labels, (const long long*)cov_new, (const long long*)cov_old, n_cov,
+      entry);
   return (int)cudaGetLastError();
 }

@@ -22,7 +22,8 @@ from . import build as _build
 KERNELS = ("expand", "fp64", "fpset_key", "fpset_probe", "fpset_claim",
            "fpset_walk", "commit", "slab_scatter", "slab_resolve",
            "slab_compact", "slab_order", "slab_mark", "deferred_check",
-           "ring_row", "fpset_member", "coverage_count")
+           "ring_row", "fpset_member", "coverage_count", "route_scatter",
+           "verdict_fold", "shard_enqueue")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -31,6 +32,8 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "tt_layout_words": ("expand", []),
     "tt_expand": ("expand", [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P]),
+    "tt_expand_sharded": ("expand", [_P, _P, _LL, _I, _P, _P, _I, _I, _I, _P,
+                                     _P, _P, _P, _P, _P, _P]),
     "tt_fp64": ("fp64", [_P, _LL, _I, _I, _P, _P, _P, _P]),
     "tt_fpset_key": ("fpset", [_P, _P, _P, _LL, _P, _P]),
     "tt_fpset_probe": ("fpset", [_P, _I, _P, _I, _P, _P, _LL, _P, _P]),
@@ -49,11 +52,19 @@ _SIGNATURES = {
     "tt_slab_mark": ("slab", [_P, _P, _P, _I, _P, _LL, _P, _P, _P]),
     "tt_deferred_check": ("deferred", [_P, _P, _LL, _P, _P, _P, _P, _P, _P,
                                        _P, _P]),
+    "tt_deferred_check_rows": ("deferred", [_P, _P, _LL, _P, _P, _P, _P, _P,
+                                            _P]),
     "tt_coverage_words": ("coverage", []),
     "tt_coverage_count": ("coverage", [_P, _P, _I, _I, _P, _P, _P]),
     "tt_ring_row": ("ring", [_P, _I, _I, _P, _P, _P, _LL, _I, _P, _P, _P, _P,
                              _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
-                             _P]),
+                             _I, _P]),
+    "tt_route_scatter": ("route", [_P, _P, _P, _P, _LL, _I, _I, _I, _P, _P,
+                                   _P, _P, _P, _P, _P, _P, _P, _P, _P]),
+    "tt_verdict_fold": ("route", [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
+                                  _I, _I, _P, _P, _P, _P]),
+    "tt_shard_enqueue": ("route", [_P, _LL, _I, _P, _P, _P, _P, _P, _P, _LL,
+                                   _I, _I, _P]),
 }
 
 
@@ -153,6 +164,39 @@ def expand(cfg, block: torch.Tensor, n: int, deferred: bool = False):
                          _stream())
     _launched("expand", rc)
     return packed, flags, action, gen
+
+
+def expand_sharded(cfg, queue: torch.Tensor, qhead: torch.Tensor,
+                   npop: torch.Tensor, ck: int, deferred: bool = False,
+                   with_block: bool = False):
+    """K1 over the pops of all D shards of the sharded engine: -> (packed
+    [D*ck*L, W] int32, flags [5, D*ck*L] uint8, action [D*ck*L] int32, gen
+    [D, n_labels] int64, fields [D*ck*L, F] int32, block [D*ck, W] int32 or
+    None); see engine.sharded.expand_sharded_plain."""
+    from ..spec.labels import LABELS
+
+    lay = _layout(cfg)
+    L, F, W = int(lay[28]), int(lay[24]), int(lay[25])
+    D, qrows = queue.shape[0], queue.shape[1]
+    _need(queue, "queue", torch.int32, (D, qrows, F))
+    _need(qhead, "qhead", torch.int64, (D,))
+    _need(npop, "npop", torch.int64, (D,))
+    dev = queue.device
+    ncand = D * ck * L
+    packed = torch.empty(ncand, W, dtype=torch.int32, device=dev)
+    flags = torch.empty(5, ncand, dtype=torch.uint8, device=dev)
+    action = torch.empty(ncand, dtype=torch.int32, device=dev)
+    fields = torch.empty(ncand, F, dtype=torch.int32, device=dev)
+    block = (torch.empty(D * ck, W, dtype=torch.int32, device=dev)
+             if with_block else None)
+    gen = torch.zeros(D, len(LABELS), dtype=torch.int64, device=dev)
+    rc = lib().tt_expand_sharded(
+        lay.ctypes.data_as(_P), _ptr(queue), qrows, qrows - 1, _ptr(qhead),
+        _ptr(npop), D, ck, int(deferred), _ptr(packed), _ptr(flags),
+        _ptr(action), _ptr(fields), None if block is None else _ptr(block),
+        _ptr(gen), _stream())
+    _launched("expand", rc)
+    return packed, flags, action, gen, fields, block
 
 
 # ---------------------------------------------------------------------------
@@ -419,6 +463,28 @@ def deferred_check(cfg, block: torch.Tensor, fresh: torch.Tensor,
     return viol, state, vaction
 
 
+def deferred_check_rows(cfg, rows_in: torch.Tensor, fresh: torch.Tensor,
+                        c_idx: torch.Tensor, rows: int):
+    """K7 over received rows [N, F] int32 -> (viol 0-dim int64, state [F]
+    int32); see engine.sharded.deferred_check_rows_plain."""
+    lay = _layout(cfg)
+    F = int(lay[24])
+    n = fresh.shape[0]
+    _need(rows_in, "rows_in", torch.int32, (n, F))
+    if not 0 < rows <= n:
+        raise ValueError(f"rows {rows} outside (0, {n}]")
+    _need(fresh, "fresh", torch.bool, (n,))
+    _need(c_idx, "c_idx", torch.int64, (n,))
+    dev = rows_in.device
+    scratch = torch.full((3,), -1, dtype=torch.int32, device=dev)
+    viol = torch.empty((), dtype=torch.int64, device=dev)
+    state = torch.empty(F, dtype=torch.int32, device=dev)
+    _launched("deferred_check", lib().tt_deferred_check_rows(
+        lay.ctypes.data_as(_P), _ptr(rows_in), rows, _ptr(fresh),
+        _ptr(c_idx), _ptr(scratch), _ptr(viol), _ptr(state), _stream()))
+    return viol, state
+
+
 # ---------------------------------------------------------------------------
 # K8 ring row
 # ---------------------------------------------------------------------------
@@ -427,9 +493,11 @@ def deferred_check(cfg, block: torch.Tensor, fresh: torch.Tensor,
 def ring_row(ring, head, bodies, expanded, n_pop: int, flip: bool, level,
              gen_new, gen_old, dist_new, dist_old, queue_n, act_gen,
              act_dist, acts_old, n_labels: int, spill_new=None,
-             spill_old=None, cov_new=None, cov_old=None) -> None:
+             spill_old=None, cov_new=None, cov_old=None,
+             entry: bool = False) -> None:
     """One ring row; see obs.counters.ring_row_plain (spill_new and
-    spill_old, cov_new and cov_old: both or neither)."""
+    spill_old, cov_new and cov_old: both or neither; entry writes the
+    counters as they were before the body)."""
     slots, cols = ring.shape[0] - 1, ring.shape[1]
     _need(ring, "ring", torch.int32)
     if slots < 1 or cols != 10 + 2 * n_labels:
@@ -467,7 +535,8 @@ def ring_row(ring, head, bodies, expanded, n_pop: int, flip: bool, level,
         None if spill_new is None else _ptr(spill_new),
         None if spill_old is None else _ptr(spill_old), n_acts, n_labels,
         None if cov_new is None else _ptr(cov_new),
-        None if cov_old is None else _ptr(cov_old), n_cov, _stream()))
+        None if cov_old is None else _ptr(cov_old), n_cov, int(entry),
+        _stream()))
 
 
 # ---------------------------------------------------------------------------
@@ -503,3 +572,89 @@ def coverage_count(cfg, block: torch.Tensor, n: int,
         params.ctypes.data_as(_P), _ptr(block), ck, n, _ptr(valid),
         _ptr(out), _stream()))
     return out
+
+
+# ---------------------------------------------------------------------------
+# K11 route, K12 verdict fold, K13 shard enqueue
+# ---------------------------------------------------------------------------
+
+
+def route_scatter(hi, lo, valid, fields, D: int, B: int, out) -> None:
+    """K11 over every source shard (its two grid launches, route_count and
+    route_scatter, count as one): hi, lo [D*ncand] int32, valid [D*ncand]
+    uint8, fields [D*ncand, F] int32; `out` (engine.sharded.RouteOut)
+    receives the sorted-order words and the exchange planes - xvalid and
+    route_ovf are zeroed here first.  See engine.sharded.route_plain."""
+    N = hi.shape[0]
+    if N % D:
+        raise ValueError("lanes must split evenly over the shards")
+    ncand = N // D
+    F = fields.shape[1]
+    _need(hi, "hi", torch.int32, (N,))
+    _need(lo, "lo", torch.int32, (N,))
+    _need(valid, "valid", torch.uint8, (N,))
+    _need(fields, "fields", torch.int32, (N, F))
+    for name, dt, shape in (
+            ("order", torch.int32, (D, ncand)),
+            ("s_own", torch.int32, (D, ncand)),
+            ("s_pos", torch.int32, (D, ncand)),
+            ("s_valid", torch.bool, (D, ncand)),
+            ("xrows", torch.int32, (D, D, B, F)),
+            ("xlo", torch.int32, (D, D, B)), ("xhi", torch.int32, (D, D, B)),
+            ("xvalid", torch.bool, (D, D, B)),
+            ("route_ovf", torch.bool, (D,))):
+        _need(getattr(out, name), name, dt, shape)
+    out.xvalid.zero_()
+    out.route_ovf.zero_()
+    ntiles = -(-ncand // 1024)
+    counts = torch.empty(D, ntiles, D + 1, dtype=torch.int32,
+                         device=hi.device)
+    rc = lib().tt_route_scatter(
+        _ptr(hi), _ptr(lo), _ptr(valid), _ptr(fields), ncand, D, B, F,
+        _ptr(counts), _ptr(out.order), _ptr(out.s_own), _ptr(out.s_pos),
+        _ptr(out.s_valid), _ptr(out.xrows), _ptr(out.xlo), _ptr(out.xhi),
+        _ptr(out.xvalid), _ptr(out.route_ovf), _stream())
+    _launched("route_scatter", rc)
+
+
+def verdict_fold(verd, s_own, s_pos, s_valid, order, faction, npop, chunk: int,
+                 L: int, n_labels: int, outdeg, act_dist) -> None:
+    """K12: fold every source shard's verdicts (verd [D, D, B] uint8, the
+    owners' is_new buckets) into outdeg [D, L+2] and act_dist [D, n_labels+1]
+    (int64, in place); see engine.sharded.verdict_fold_plain."""
+    D, _, B = verd.shape
+    ncand = s_own.shape[1]
+    _need(verd, "verd", torch.uint8, (D, D, B))
+    for name, t, dt in (("s_own", s_own, torch.int32),
+                        ("s_pos", s_pos, torch.int32),
+                        ("s_valid", s_valid, torch.bool),
+                        ("order", order, torch.int32),
+                        ("faction", faction, torch.int32)):
+        _need(t, name, dt, (D, ncand))
+    _need(npop, "npop", torch.int64, (D,))
+    _need(outdeg, "outdeg", torch.int64, (D, L + 2))
+    _need(act_dist, "act_dist", torch.int64, (D, n_labels + 1))
+    rowdeg = torch.zeros(D * chunk + 1, dtype=torch.int32, device=verd.device)
+    _launched("verdict_fold", lib().tt_verdict_fold(
+        _ptr(verd), _ptr(s_own), _ptr(s_pos), _ptr(s_valid), _ptr(order),
+        _ptr(faction), _ptr(npop), ncand, D, B, chunk, L, n_labels,
+        _ptr(rowdeg), _ptr(outdeg), _ptr(act_dist), _stream()))
+
+
+def shard_enqueue(queue, is_new, cum, qtail, q_full, xrows, xvalid) -> None:
+    """K13: every owner's fresh received rows into its circular queue
+    ([D, qcap + 1, F] int32, in place); is_new [D, n] bool, cum [D, n]
+    int64 inclusive counts, qtail [D] int64, q_full [D] bool, xrows [D, n,
+    F] int32, xvalid [D, n] bool.  See engine.sharded.shard_enqueue_plain."""
+    D, qrows, F = queue.shape
+    n = is_new.shape[1]
+    _need(queue, "queue", torch.int32)
+    _need(is_new, "is_new", torch.bool, (D, n))
+    _need(cum, "cum", torch.int64, (D, n))
+    _need(qtail, "qtail", torch.int64, (D,))
+    _need(q_full, "q_full", torch.bool, (D,))
+    _need(xrows, "xrows", torch.int32, (D, n, F))
+    _need(xvalid, "xvalid", torch.bool, (D, n))
+    _launched("shard_enqueue", lib().tt_shard_enqueue(
+        _ptr(queue), qrows, qrows - 1, _ptr(is_new), _ptr(cum), _ptr(qtail),
+        _ptr(q_full), _ptr(xrows), _ptr(xvalid), n, D, F, _stream()))

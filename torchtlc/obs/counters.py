@@ -127,13 +127,16 @@ def ring_row_plain(ring, head, bodies, expanded, n_pop: int, flip: bool,
                    level, gen_new, gen_old, dist_new, dist_old, queue_n,
                    act_gen, act_dist, acts_old, n_labels: int,
                    spill_new=None, spill_old=None, cov_new=None,
-                   cov_old=None) -> None:
+                   cov_old=None, entry: bool = False) -> None:
     """Torch version of kernel K8: the row of one engine body, after its
     commit.  act_gen / act_dist are the [n_labels + 1] counters after the
     body, acts_old their concatenation before it; bodies and expanded are
     advanced by 1 and n_pop; spill_new / spill_old (spill mode) are the
     spill_hits counter after and before the body, cov_new / cov_old (with
-    the coverage plane) the [n_sites] site counters.  Updates ring, head,
+    the coverage plane) the [n_sites] site counters.  `entry` (the sharded
+    engine's pipelined ring) writes the counters as they were before the
+    body - gen_old, dist_old, bodies, expanded, the act_gen half of
+    acts_old - with the same wrap test and updates.  Updates ring, head,
     bodies and expanded in place."""
     n_acts = act_gen.shape[0]
     b1 = bodies + 1
@@ -147,8 +150,10 @@ def ring_row_plain(ring, head, bodies, expanded, n_pop: int, flip: bool,
         pairs.append((spill_new, spill_old))
     if cov_new is not None:
         pairs.append((cov_new, cov_old))
-    row = pack_row(level, gen_new, dist_new, queue_n, b1, e1,
-                   act_gen[:n_labels], act_dist[:n_labels],
+    vals = ((gen_old, dist_old, bodies, expanded, acts_old[:n_labels])
+            if entry else (gen_new, dist_new, b1, e1, act_gen[:n_labels]))
+    row = pack_row(level, vals[0], vals[1], queue_n, vals[2], vals[3],
+                   vals[4], act_dist[:n_labels],
                    overflow=sticky_overflow(ring, wrapped_any(pairs)),
                    spill=spill_new)
     ring_update(ring, head, row, flip)
@@ -159,11 +164,13 @@ def ring_row_plain(ring, head, bodies, expanded, n_pop: int, flip: bool,
 def ring_row(ring, head, bodies, expanded, n_pop: int, flip: bool, level,
              gen_new, gen_old, dist_new, dist_old, queue_n, act_gen,
              act_dist, acts_old, n_labels: int, spill_new=None,
-             spill_old=None, cov_new=None, cov_old=None) -> None:
+             spill_old=None, cov_new=None, cov_old=None,
+             entry: bool = False) -> None:
     """Kernel K8 on CUDA tensors, the plain version on CPU tensors."""
     args = (ring, head, bodies, expanded, n_pop, flip, level, gen_new,
             gen_old, dist_new, dist_old, queue_n, act_gen, act_dist,
-            acts_old, n_labels, spill_new, spill_old, cov_new, cov_old)
+            acts_old, n_labels, spill_new, spill_old, cov_new, cov_old,
+            entry)
     if not ring.is_cuda:
         return ring_row_plain(*args)
     from ..kernels import ops
@@ -222,3 +229,24 @@ def rows_from_ring(
             }
         out.append(row)
     return out
+
+
+def shard_rows_from_ring(
+    ring: np.ndarray,
+    head: np.ndarray,
+    labels: Optional[Sequence[str]] = None,
+    since: int = 0,
+    fp_capacity_total: int = 0,
+) -> List[Dict]:
+    """The sharded decode (jaxtlc/obs/counters.py:210): every shard flips
+    levels in lock-step (the level fence is a sum over the shards), so row
+    k of each shard's ring describes the same level with partial counters
+    - sum them; the level column is the max."""
+    ring = np.asarray(ring)  # [D, slots + 1, cols]
+    if ring.dtype == np.int32:
+        ring = ring.view(np.uint32)
+    h = int(np.asarray(head).min())
+    summed = ring.astype(np.int64).sum(axis=0)
+    summed[:, COL_LEVEL] = ring[:, :, COL_LEVEL].max(axis=0)
+    return rows_from_ring(summed, h, labels=labels, since=since,
+                          fp_capacity=fp_capacity_total)

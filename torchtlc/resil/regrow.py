@@ -1,5 +1,5 @@
 """Carry migration between engine geometries, the core of auto-regrow
-(port of jaxtlc/resil/regrow.py, single-device half).
+(port of jaxtlc/resil/regrow.py).
 
 A capacity halt leaves a poisoned carry: the step that saturated popped a
 chunk whose successors were discarded.  The supervisor therefore regrows
@@ -22,8 +22,11 @@ import torch
 from ..engine.bfs import (
     VIOL_FPSET_FULL,
     VIOL_QUEUE_FULL,
+    VIOL_ROUTE_OVERFLOW,
     EngineCarry,
+    read_bundle,
     resolve_device,
+    staged_block,
 )
 from ..engine.interop import STAGED
 from ..engine.fpset import (
@@ -38,13 +41,16 @@ from ..engine.fpset import (
 GROWABLE = {
     VIOL_FPSET_FULL: "fp_capacity",
     VIOL_QUEUE_FULL: "queue_capacity",
+    VIOL_ROUTE_OVERFLOW: "route_factor",
 }
 
 
 def grown(params: Dict, resource: str) -> Dict:
-    """The parameter dict with `resource` doubled."""
+    """The parameter dict with `resource` doubled (capacities stay powers
+    of two; route_factor is a float multiplier)."""
     out = dict(params)
-    out[resource] = int(out[resource]) * 2
+    out[resource] = (out[resource] * 2.0 if resource == "route_factor"
+                     else int(out[resource]) * 2)
     return out
 
 
@@ -96,7 +102,10 @@ def migrate_engine_carry(carry: EngineCarry, old_params: Dict,
     pipelined carry's staged block (st_cov with it) travel verbatim: the
     replayed segment commits the staged candidates against the regrown
     table and queue.  The staged block's popped rows are rows of the
-    current level, which the new queue keeps at the same positions."""
+    current level, which the new queue keeps at the same positions; its
+    whole pop window as it stood in the old queue rides along as st_block,
+    from which interop derives the reference's st_flat (the reference
+    carries that leaf over verbatim)."""
     dev = carry.queue.device
     chunk = (carry.queue.shape[1] - int(old_params["queue_capacity"])) // 2
     if new_chunk is not None:
@@ -137,4 +146,70 @@ def migrate_engine_carry(carry: EngineCarry, old_params: Dict,
         spill_hits=copy(carry.spill_hits),
         cov_counts=copy(carry.cov_counts),
         **{f: copy(getattr(carry, f)) for f in STAGED + ("st_cov",)},
+        st_block=staged_window(carry, chunk),
     )
+
+
+def staged_window(carry: EngineCarry, chunk: int):
+    """The pop window of a pipelined carry's staged block ([chunk, W], a
+    copy), as interop reads it (None on unpipelined carries)."""
+    if carry.st_n is None:
+        return None
+    if carry.st_block is not None:
+        return carry.st_block.clone()
+    return staged_block(carry, read_bundle(carry), chunk).clone()
+
+
+def migrate_shard_carry(carry, old_params: Dict, new_params: Dict):
+    """Rebuild a ShardCarry inside the new geometry, on its own device
+    (jaxtlc/resil/regrow.py:219; capacities are PER SHARD, and ownership -
+    hi & (D - 1) - does not depend on them, so no entry changes shard).
+    Each shard's table is re-inserted through the production insert path;
+    a grown queue is renumbered to qhead = 0 in pop order.  A route_factor
+    change resizes only the bucket width: a pipelined carry's pending
+    verdicts are then folded on the host (sharded.drain_pending_host) and
+    its pending-verdict buffer re-seated empty at the new width.  Every
+    other leaf travels verbatim."""
+    from ..engine.sharded import (
+        drain_pending_host,
+        route_bucket_width,
+    )
+
+    dev = carry.queue.device
+    D = carry.qhead.shape[0]
+    carry = carry._replace(bundle=None)
+    if carry.pv_n is not None:
+        old_B = carry.pv_send.shape[2]
+        ncand = carry.pv_sown.shape[1]
+        L = carry.outdeg_hist.shape[1] - 2
+        new_B = route_bucket_width(
+            ncand // L, L, D, float(new_params.get("route_factor", 2.0)))
+        if new_B != old_B:
+            carry = drain_pending_host(carry)
+            carry = carry._replace(pv_send=torch.zeros(
+                D, D, new_B, dtype=torch.uint8, device=dev))
+    qcap = int(old_params["queue_capacity"])
+    qcap2 = int(new_params["queue_capacity"])
+    fp_cap2 = int(new_params["fp_capacity"])
+    out = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+           for k, v in carry._asdict().items()}
+    if fp_cap2 != int(old_params["fp_capacity"]):
+        table = carry.table.cpu().numpy()
+        out["table"] = torch.stack([
+            migrate_table(table[d], fp_cap2, device=dev).table
+            for d in range(D)])
+    if qcap2 != qcap:
+        F = carry.queue.shape[2]
+        qhead, qtail = carry.qhead.tolist(), carry.qtail.tolist()
+        queue2 = torch.zeros(D, qcap2 + 1, F, dtype=torch.int32, device=dev)
+        qtail2 = []
+        for d in range(D):
+            cnt = qtail[d] - qhead[d]
+            assert cnt <= qcap2, "regrown queue still too small"
+            idx = (qhead[d] + torch.arange(cnt, device=dev)) % qcap
+            queue2[d, :cnt] = carry.queue[d, idx]
+            qtail2.append(cnt)
+        out.update(queue=queue2, qhead=torch.zeros_like(carry.qhead),
+                   qtail=torch.tensor(qtail2, dtype=torch.int64, device=dev),
+                   level_end=carry.level_end - carry.qhead)
+    return type(carry)(**out)

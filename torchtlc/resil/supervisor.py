@@ -1,5 +1,5 @@
-"""The run supervisor: self-healing single-device runs (port of
-jaxtlc/resil/supervisor.py, single-device half).
+"""The run supervisor: self-healing runs of the single-device and the
+sharded engine (port of jaxtlc/resil/supervisor.py).
 
 It wraps the segmented engine (segments of ``ckpt_every`` step bodies,
 bfs.make_segment) in a loop that turns capacity halts, preemption and
@@ -34,6 +34,11 @@ injected transient faults into events:
 * **The pipelined engine** (``pipeline=True``) runs the same ladder
   without the spill and chunk-shrink rungs: its staged block has no spill
   composition and cannot be re-seated at another pop width.
+* **The sharded engine** (``ShardedAdapter``, ``check_sharded_supervised``;
+  capacities per shard) also regrows its route buckets (VIOL_ROUTE_OVERFLOW
+  doubles route_factor).  It has no spill or chunk-shrink rung here: a
+  denied regrow ends with a checkpoint and exit 75, where the reference
+  takes its sharded spill tier (ROADMAP Queue C).
 
 The engine updates its carry in place, so every segment runs on a copy
 of the last good carry (bfs.clone_carry): retries and regrows replay
@@ -322,6 +327,109 @@ class SingleDeviceAdapter:
         )._replace(actual_fp_collision=fpset_actual_collision(carry.fps))
 
 
+class ShardedAdapter:
+    """The supervision seam over the sharded engine (D shards in one
+    process, on the card unless `device` says otherwise; the reference's
+    ShardedAdapter, jaxtlc/resil/supervisor.py:515-650).  Capacities are
+    PER SHARD; growable: queue_capacity, fp_capacity, route_factor.  No
+    spill tier (the sharded spill runtime is a later slice) and no chunk
+    shrink, as in the reference."""
+
+    kind = "sharded"
+    GEOM_KEYS = ("queue_capacity", "fp_capacity", "route_factor")
+    FIXED_KEYS = ("format", "config", "devices", "fp_highwater",
+                  "pipeline", "obs_slots", "coverage", "sort_free",
+                  "deferred", "symmetry", "por")
+
+    def __init__(self, cfg, n_shards: int, chunk: int = 512,
+                 meta_config: dict = None, pipeline: bool = False,
+                 obs_slots: int = 0, coverage: bool = False,
+                 sort_free: bool = None, deferred: bool = None, device=None,
+                 fp_index: int = DEFAULT_FP_INDEX):
+        from ..engine.sharded import ShardMesh
+
+        self.cfg = cfg
+        self.chunk = chunk
+        self.sort_free = resolve_sort_free(sort_free, chunk)
+        self.deferred = resolve_deferred(deferred, chunk)
+        self.backend = kubeapi_backend(cfg, coverage=coverage)
+        self.coverage = self.backend.coverage is not None
+        self.meta_config = meta_config
+        self.fp_highwater = FP_HIGHWATER
+        self.pipeline = bool(pipeline)
+        self.obs_slots = obs_slots
+        self.fp_index = fp_index
+        self.device = resolve_device(device)
+        self.mesh = ShardMesh(n_shards, self.device)
+
+    def build(self, params: dict, ckpt_every: int):
+        from ..engine.sharded import make_sharded_engine
+
+        init_fn, seg_fn = make_sharded_engine(
+            self.cfg, self.mesh, self.chunk, params["queue_capacity"],
+            params["fp_capacity"], fp_index=self.fp_index,
+            route_factor=params["route_factor"], segment=ckpt_every,
+            backend=self.backend, fp_highwater=self.fp_highwater,
+            pipeline=self.pipeline, obs_slots=self.obs_slots,
+            sort_free=self.sort_free, deferred=self.deferred)
+        return init_fn(), seg_fn
+
+    def meta(self, params: dict) -> dict:
+        return ckpt._meta(
+            self.cfg, meta_config=self.meta_config, chunk=self.chunk,
+            devices=self.mesh.n_shards, fp_highwater=self.fp_highwater,
+            pipeline=self.pipeline, obs_slots=self.obs_slots,
+            coverage=self.coverage, sort_free=self.sort_free,
+            deferred=self.deferred, symmetry=False, por=False, **params)
+
+    def cov_sites(self):
+        plane = self.backend.coverage
+        return plane.sites if plane is not None else None
+
+    def viol(self, carry) -> int:
+        from ..engine.sharded import read_bundle as shard_bundle
+
+        return shard_bundle(carry).viol
+
+    def done(self, carry) -> bool:
+        from ..engine.sharded import carry_done as shard_done
+
+        return shard_done(carry)
+
+    def progress(self, carry):
+        from ..engine.sharded import result_from_shard_carry
+
+        r = result_from_shard_carry(carry, 0.0)
+        return r.depth, r.generated, r.distinct, r.queue_left
+
+    def obs_rows(self, carry, since: int, params: dict):
+        from ..engine.sharded import obs_rows_sharded
+
+        return obs_rows_sharded(
+            carry, since=since,
+            fp_capacity_total=params["fp_capacity"] * self.mesh.n_shards)
+
+    def supports_spill(self) -> bool:
+        return False
+
+    def can_shrink(self, floor: int = MIN_CHUNK) -> bool:
+        return False
+
+    def migrate(self, carry, old_params: dict, new_params: dict):
+        from .regrow import migrate_shard_carry
+
+        return migrate_shard_carry(carry, old_params, new_params)
+
+    def result(self, carry, wall: float, segments: int,
+               params: dict) -> CheckResult:
+        from ..engine.sharded import result_from_shard_carry
+
+        return result_from_shard_carry(
+            carry, wall, iterations=segments, labels=self.backend.labels,
+            fp_capacity_total=params["fp_capacity"] * self.mesh.n_shards,
+            sites=self.cov_sites())
+
+
 def _params_from_meta(adapter, meta: dict, params: dict) -> dict:
     """Resume geometry: fixed keys must match what this process would
     write; growable keys are taken from the checkpoint."""
@@ -401,8 +509,9 @@ def _probe_grow(resource: str, new_value, faults, device) -> Optional[str]:
     bytes on the carry's device (torch.empty) before migrating.  None
     when it fits, else the denial; the allocator's cache is emptied after
     a denial, so the next rung does not count on memory it lacks."""
-    nbytes = {"fp_capacity": 8, "queue_capacity": 64}.get(resource, 8) * int(
-        new_value)
+    # route_factor: the buckets are too small to probe (the reference's)
+    nbytes = {"fp_capacity": 8, "queue_capacity": 64,
+              "route_factor": 0}.get(resource, 8) * int(new_value)
     dev = torch.device(device)
     try:
         faults.alloc_probe()
@@ -822,3 +931,35 @@ def check_supervised(
         {"queue_capacity": queue_capacity, "fp_capacity": fp_capacity},
         opts)
 
+
+
+def check_sharded_supervised(
+    cfg,
+    n_shards: int,
+    chunk: int = 512,
+    queue_capacity: int = 1 << 14,
+    fp_capacity: int = 1 << 18,
+    route_factor: float = 2.0,
+    meta_config: dict = None,
+    pipeline: bool = False,
+    obs_slots: int = 0,
+    coverage: bool = False,
+    sort_free: bool = None,
+    deferred: bool = None,
+    opts: SupervisorOptions = None,
+    device=None,
+    fp_index: int = DEFAULT_FP_INDEX,
+) -> SupervisedResult:
+    """Supervised sharded exhaustive check over `n_shards` shards on
+    `device` (None = the card); capacities PER SHARD
+    (jaxtlc/resil/supervisor.py:1348)."""
+    adapter = ShardedAdapter(
+        cfg, n_shards, chunk=chunk, meta_config=meta_config,
+        pipeline=pipeline, obs_slots=obs_slots, coverage=coverage,
+        sort_free=sort_free, deferred=deferred, device=device,
+        fp_index=fp_index)
+    return supervise(
+        adapter,
+        {"queue_capacity": queue_capacity, "fp_capacity": fp_capacity,
+         "route_factor": route_factor},
+        opts)
