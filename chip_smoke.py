@@ -27,8 +27,9 @@ behind kernels K11-K13: ``torchtlc.entry.dryrun_multichip(8)`` on Model_1
 with the reference's shard-table digest and FF at 1, 2 and 8 shards (12),
 the scaled 2x1 workload on 4 shards against the single-device table's
 fingerprint set, unpipelined and pipelined in turns (12b), and ``check
-MC.cfg -sharded 4`` - clean, a table regrow, a route-bucket regrow, and
--pipeline through SIGTERM -> exit 75 -> -recover (12c).  It checks every
+MC.cfg -sharded 4`` - clean, a table regrow, a route-bucket regrow
+unpipelined and pipelined, -coverage, and -pipeline through SIGTERM ->
+exit 75 -> -recover (12c).  It checks every
 result against its pinned value, holds each kernel bitwise against its
 plain torch version on the card, and prints:
 
@@ -298,7 +299,7 @@ def main() -> int:
             "cov_scaled", "pipe_m1", "pipe_m1_auto", "pipe_scaled",
             "pipe_scaled_65536", "pipe_regrow", "shard_m1", "shard_scaled",
             "shard_scaled_pipe", "shard_cmd", "shard_cmd_fp",
-            "shard_cmd_route")
+            "shard_cmd_route", "shard_cmd_pipe_route", "shard_cmd_cov")
     launches = {k: sum(runs[r]["launches"][k] for r in main)
                 for k in ops.KERNELS}
     kernels = phase_kernels(torch, ops, runs, launches)
@@ -1234,14 +1235,17 @@ def sharded_kernel_checks(torch, ops, tag, cfg, kw, D, bodies, runs,
     need(err == 0, f"K11 route_scatter differs from its plain version "
          f"({tag})")
     fit = int(xv.sum())
-    ntiles = -(-ncand // 1024)
+    # the function's own traffic, once: every lane's hi and valid read and
+    # its sorted-order words written (order, s_own, s_pos: 4 B each;
+    # s_valid 1 B); each routed lane's fields and lo read, its row, lo and
+    # hi written; the xvalid plane and the overflow flags written
     record("route_scatter", err,
            cuda_ms(torch, lambda _: ts.route(hi, lo, valid, fields, D, B,
                                              rk), 20),
            cuda_ms(torch, lambda _: ts.route_plain(hi, lo, valid, fields, D,
                                                    B, rp), 3),
-           D * ncand * (5 + 5 + 4 + 13) + fit * (2 * F * 4 + 9)
-           + 2 * D * ntiles * (D + 1) * 4 + D * D * B)
+           D * ncand * (4 + 1 + 13) + fit * (F * 4 + F * 4 + 4 + 8)
+           + D * D * B + D)
     keys = torch.where(valid.view(D, ncand).bool(),
                        hi.view(D, ncand).to(torch.int64) & (D - 1), D)
     # the library yardstick: the owner order alone, one stable argsort
@@ -1302,8 +1306,7 @@ def sharded_kernel_checks(torch, ops, tag, cfg, kw, D, bodies, runs,
                    fresh_counters),
            cuda_ms(torch, lambda st: fold(ts.verdict_fold_plain, st), 3,
                    fresh_counters),
-           D * ncand * 13 + nvalid + got_n * 4 + 2 * D * chunk * 4
-           + D * (L + 2 + 23) * 16)
+           D * ncand * 13 + nvalid + got_n * 4 + D * (L + 2 + 23) * 16)
 
     # K7 on received rows: owner 0's batch, and the same rows with every
     # other fresh claimant doctored to hold identity 0 twice
@@ -1491,13 +1494,29 @@ def phase_sharded_command(ops, cfg, tmp, card):
     """Phase 12c: `check MC.cfg -sharded 4` on Model_1 - clean (exit 0, the
     transcript's counts), -fpcap 16384 (table regrows through
     migrate_shard_carry), -routefactor 0.25 (VIOL_ROUTE_OVERFLOW and a
-    route-factor regrow), all in this process; then -pipeline -checkpoint
-    P -checkpointevery 32 -faults sigterm@3 -> exit 75, -recover -pipeline
+    route-factor regrow), the same pipelined (the pending verdicts folded
+    by K12 on the card before the bucket width changes), -coverage (K10
+    per shard: the dump's pinned digest, the journal's site vector the
+    pinned one), all in this process; then -pipeline -checkpoint P
+    -checkpointevery 32 -faults sigterm@3 -> exit 75, -recover -pipeline
     -> exit 0 (subprocesses)."""
+    import numpy as np
+
+    from torchtlc.config import MODEL_1
+    from torchtlc.obs.coverage import coverage_from_events
+    from torchtlc.obs.journal import read as read_journal
+    from torchtlc.spec.coverage_device import site_table
+
     out, lines = {}, []
-    for key, extra in (("shard_cmd", []), ("shard_cmd_fp", ["-fpcap",
-                                                             "16384"]),
-                       ("shard_cmd_route", ["-routefactor", "0.25"])):
+    ck_cov = os.path.join(tmp, "shard_cov.ckpt")
+    route = "regrowing route_factor"
+    for key, extra, grow in (
+            ("shard_cmd", [], None),
+            ("shard_cmd_fp", ["-fpcap", "16384"], "regrowing fp_capacity"),
+            ("shard_cmd_route", ["-routefactor", "0.25"], route),
+            ("shard_cmd_pipe_route", ["-pipeline", "-routefactor", "0.25"],
+             route),
+            ("shard_cmd_cov", ["-coverage", "-checkpoint", ck_cov], None)):
         rc, text, launches, wall = command_here(
             ops, [cfg, "-noTool", "-sharded", "4", *extra])
         need(rc == 0, f"`check -sharded 4 {' '.join(extra)}` exited {rc}")
@@ -1506,14 +1525,35 @@ def phase_sharded_command(ops, cfg, tmp, card):
         need("Model checking completed. No error has been found" in text,
              "the sharded command did not report success")
         grows = [x.strip() for x in text.splitlines() if "regrowing" in x]
-        want = {"-fpcap": "regrowing fp_capacity",
-                "-routefactor": "regrowing route_factor"}
-        need(bool(grows) == bool(extra) and all(
-            want[extra[0]] in x for x in grows),
+        need(bool(grows) == bool(grow) and all(grow in x for x in grows),
              f"`-sharded 4 {' '.join(extra)}`: regrows {grows}")
         out[key] = {"launches": launches}
-        lines.append(f"{' '.join(extra) or 'clean'}: exit 0, "
-                     f"{len(grows)} regrows {grows[:3]}, {wall:.2f} s")
+        note = ""
+        if key == "shard_cmd_pipe_route":
+            need(launches.get("verdict_fold", 0) > 0,
+                 "the pipelined sharded run launched no K12")
+        if key == "shard_cmd_cov":
+            need(launches.get("coverage_count", 0) > 0,
+                 "the sharded -coverage run launched no K10")
+            dump = coverage_dump(text)
+            dump_sha = hashlib.sha256("\n".join(dump).encode()).hexdigest()
+            need(dump_sha == M1_COVERAGE_DUMP_SHA256,
+                 f"the sharded dump's digest {dump_sha[:16]} is not the "
+                 "reference's")
+            folded = coverage_from_events(
+                read_journal(ck_cov + ".journal.jsonl"))
+            need(folded is not None, "the sharded run journaled no coverage")
+            vec = np.array([folded["sites"].get(x.key, 0)
+                            for x in site_table(MODEL_1)], dtype="<u4")
+            sha = hashlib.sha256(vec.tobytes()).hexdigest()
+            need(sha == M1_COVERAGE_SHA256,
+                 f"the sharded run's site vector {sha[:16]} is not the "
+                 "pinned one")
+            note = (f", dump and site vector equal to the pinned ones "
+                    f"({len(dump)} lines, {folded['visited']} sites)")
+        label = " ".join(extra).replace(ck_cov, "P") or "clean"
+        lines.append(f"{label}: exit 0, "
+                     f"{len(grows)} regrows {grows[:3]}{note}, {wall:.2f} s")
     ck = os.path.join(tmp, "shard.ckpt")
     base = [cfg, "-noTool", "-sharded", "4", "-pipeline", "-checkpoint", ck,
             "-checkpointevery", "32"]

@@ -469,7 +469,8 @@ def test_check_with_checkpoints_resumes_the_reference_file(tmp_path):
 def test_migrate_shard_carry_equals_reference():
     """A pipelined 4-shard carry migrated to twice the table, twice the
     queue and twice the route factor (B changes: the pending verdicts are
-    folded on the host and the buffer re-seated) equals the reference's
+    folded by K12 on the carry's device and the buffer re-seated) equals
+    the reference's
     migration, and one more segment at the new geometry too."""
     (j_init, j_seg), (t_init, t_seg) = _engines(4, segment=20, pipeline=True)
     jc, tc = jax.block_until_ready(j_seg(j_init())), t_seg(t_init())
@@ -593,14 +594,19 @@ def _both(model_dir, tmp_path, extra):
     return out
 
 
-@pytest.mark.parametrize("case", ["plain", "fp-regrow", "route-overflow"])
+@pytest.mark.parametrize("case", ["plain", "fp-regrow", "route-overflow",
+                                  "pipelined-route-overflow", "coverage"])
 def test_sharded_command_equals_reference(model_dir, tmp_path, case):
     """`check MC.cfg -sharded 2 -checkpoint P` (supervised): exit 0, the
     transcript equal to jaxtlc's after masking, and the journal's events
     equal without walls - the regrow journal of an under-sized table and
-    of route buckets small enough to overflow included."""
+    of route buckets small enough to overflow included, pipelined too (the
+    pending verdicts folded before the bucket width changes), and the
+    coverage dump and coverage events of a -coverage run."""
     extra = {"plain": [], "fp-regrow": ["-fpcap", "2048"],
-             "route-overflow": ["-routefactor", "0.3"]}[case]
+             "route-overflow": ["-routefactor", "0.3"],
+             "pipelined-route-overflow": ["-pipeline", "-routefactor", "0.3"],
+             "coverage": ["-coverage"]}[case]
     out = _both(model_dir, tmp_path, extra)
     assert out["ref"][0] == out["port"][0] == 0
     assert "17020" in out["port"][1] and "8203" in out["port"][1]
@@ -608,7 +614,11 @@ def test_sharded_command_equals_reference(model_dir, tmp_path, case):
     assert out["port"][2] == out["ref"][2]
     grows = [e["resource"] for e in out["port"][2] if e["event"] == "regrow"]
     assert grows == {"plain": [], "fp-regrow": ["fp_capacity"] * 3,
-                     "route-overflow": ["route_factor"]}[case]
+                     "route-overflow": ["route_factor"],
+                     "pipelined-route-overflow": ["route_factor"],
+                     "coverage": []}[case]
+    if case == "coverage":
+        assert any(e["event"] == "coverage" for e in out["port"][2])
 
 
 def test_sharded_pipeline_sigterm_then_recover(model_dir, tmp_path):

@@ -88,8 +88,6 @@ from .fingerprint import DEFAULT_FP_INDEX, fp64_words
 from .fpset import FPSet, fpset_insert_dedup, host_insert
 
 MASK32 = 0xFFFFFFFF
-PV_FIELDS = ("pv_send", "pv_sown", "pv_pos", "pv_svalid", "pv_order",
-             "pv_faction", "pv_n")
 
 
 class ShardBundle(NamedTuple):
@@ -818,23 +816,22 @@ def cov_totals_local(carry: ShardCarry):
 
 
 def drain_pending_host(carry: ShardCarry) -> ShardCarry:
-    """Apply a pipelined carry's pending verdict statistics on the host
-    (jaxtlc/engine/sharded.py:1439): K12's plain version over the pv_*
-    leaves, then the pending buffers emptied.  Unpipelined carries pass
-    through."""
+    """Apply a pipelined carry's pending verdict statistics
+    (jaxtlc/engine/sharded.py:1439, there a numpy replay on the host): K12
+    over the pv_* leaves on the carry's own device, into copies of
+    outdeg_hist and act_dist, then the pending buffers emptied.
+    Unpipelined carries pass through."""
     if carry.pv_n is None:
         return carry
-    cpu = {f: getattr(carry, f).cpu() for f in PV_FIELDS}
-    outdeg = carry.outdeg_hist.cpu().clone()
-    act_dist = carry.act_dist.cpu().clone()
+    outdeg = carry.outdeg_hist.clone()
+    act_dist = carry.act_dist.clone()
     L = outdeg.shape[1] - 2
-    verdict_fold_plain(cpu["pv_send"], cpu["pv_sown"], cpu["pv_pos"],
-                       cpu["pv_svalid"], cpu["pv_order"], cpu["pv_faction"],
-                       cpu["pv_n"], cpu["pv_sown"].shape[1] // L, L,
-                       act_dist.shape[1] - 1, outdeg, act_dist)
-    dev = carry.queue.device
+    verdict_fold(carry.pv_send, carry.pv_sown, carry.pv_pos, carry.pv_svalid,
+                 carry.pv_order, carry.pv_faction, carry.pv_n,
+                 carry.pv_sown.shape[1] // L, L, act_dist.shape[1] - 1,
+                 outdeg, act_dist)
     return carry._replace(
-        outdeg_hist=outdeg.to(dev), act_dist=act_dist.to(dev),
+        outdeg_hist=outdeg, act_dist=act_dist,
         pv_send=torch.zeros_like(carry.pv_send),
         pv_svalid=torch.zeros_like(carry.pv_svalid),
         pv_n=torch.zeros_like(carry.pv_n), bundle=None)

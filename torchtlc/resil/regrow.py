@@ -167,8 +167,9 @@ def migrate_shard_carry(carry, old_params: Dict, new_params: Dict):
     Each shard's table is re-inserted through the production insert path;
     a grown queue is renumbered to qhead = 0 in pop order.  A route_factor
     change resizes only the bucket width: a pipelined carry's pending
-    verdicts are then folded on the host (sharded.drain_pending_host) and
-    its pending-verdict buffer re-seated empty at the new width.  Every
+    verdicts are then folded through K12 on the carry's device
+    (sharded.drain_pending_host) and its pending-verdict buffer re-seated
+    empty at the new width.  Every
     other leaf travels verbatim."""
     from ..engine.sharded import (
         drain_pending_host,
