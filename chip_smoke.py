@@ -29,7 +29,13 @@ the scaled 2x1 workload on 4 shards against the single-device table's
 fingerprint set, unpipelined and pipelined in turns (12b), and ``check
 MC.cfg -sharded 4`` - clean, a table regrow, a route-bucket regrow
 unpipelined and pipelined, -coverage, and -pipeline through SIGTERM ->
-exit 75 -> -recover (12c).  It checks every
+exit 75 -> -recover (12c) - and through its host spill tier, a denied
+regrow and -spill (12d); then temporal properties behind kernels K14-K16:
+``check MC.cfg`` with PROPERTY ReconcileCompletes and CleansUpProperly on
+Model_1 (the host path, exit 13, the reference's lasso digest; 13),
+Model_1 on the device path against the host graph (13b), scaled 2x1 on
+the device path at full width with oracle-replayed lassos (13c) and its
+fixpoints again on 4 shards (13d).  It checks every
 result against its pinned value, holds each kernel bitwise against its
 plain torch version on the card, and prints:
 
@@ -38,8 +44,9 @@ plain torch version on the card, and prints:
 * a JSON line {"kernels": [...]} with each kernel's launches on the main
   paths (the two Model_1 and the two scaled engine runs, the in-process
   command, regrow, spill and violation runs, the three covered engine
-  runs, and the four pipelined engine runs and the pipelined regrow; each
-  path's counts are reset just before it and read just after),
+  runs, the four pipelined engine runs and the pipelined regrow, the
+  sharded command runs, the sharded spill runs and the liveness runs;
+  each path's counts are reset just before it and read just after),
   its error against the plain
   version, its time, the plain version's time, its bound on this card
   and, where one PyTorch call computes the same function, that call's
@@ -52,7 +59,8 @@ result.  The build's ptxas report goes to torchtlc/kernels/_build/ptxas.txt.
 ``--phases 7,8`` runs phase 1 and the named later phases only (for
 iterating on the card; the contract run takes no arguments); ``2c`` names
 K10's check against its plain version, untimed; ``--phases 11,11b,11c`` is
-the pipelined slice alone, ``--phases 12,12b,12c`` the sharded one.
+the pipelined slice alone, ``--phases 12,12b,12c`` the sharded one,
+``--phases 12d,13,13b,13c`` the sharded spill and liveness slice.
 """
 
 from __future__ import annotations
@@ -183,6 +191,18 @@ SCALED_SPILL_KW = dict(chunk=8192, queue_capacity=1 << 21,
                        fp_capacity=1 << 24)
 SPILL_N = 8192 * 12  # K9's lanes at the scaled spill step
 
+# temporal properties: the two KubeAPI properties (KubeAPI.tla:798-808);
+# the SHA-256 of the verdict and lasso lines (liveness_text) of `python -m
+# jaxtlc.cli check MC.cfg -noTool` on the Model_1 pair with both PROPERTY
+# lines in MC.cfg (the reference's host path on the CPU; exit 13)
+LIVE_PROPS = ["ReconcileCompletes", "CleansUpProperly"]
+M1_LIVENESS_SHA256 = ("d1860e2d0ac11d3da42d8ad33ab2b667"
+                      "38b59acca798ec8d4d2e59c3cbf4912b")
+# the scaled 2x1 capture: 65,536 states a sweep (786,432 lanes), the
+# 19,359,985 states in a 2^25-row array and a 2^25-slot table
+SCALED_LIVE_KW = dict(chunk=1 << 16, state_capacity=1 << 25,
+                      fp_capacity=1 << 25)
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 SEED = 20261017
 
@@ -286,8 +306,16 @@ def main() -> int:
             runs.update(phase_sharded_scaled(torch, ops, card, runs))
         if want("12c"):
             runs.update(phase_sharded_command(ops, model, tmp, card))
+        if want("12d"):
+            runs.update(phase_sharded_spill(ops, model, tmp, card))
+        if want("13"):
+            runs.update(phase_liveness_command(ops, tmp, card))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    if want("13b"):
+        runs.update(phase_liveness_model1(torch, ops, card, runs))
+    if want("13c"):
+        runs.update(phase_liveness_scaled(torch, ops, card, runs))
     if only is not None and "2" in only:
         check_member(torch, ops, runs, lambda *a: None)
     if only is not None:
@@ -299,7 +327,9 @@ def main() -> int:
             "cov_scaled", "pipe_m1", "pipe_m1_auto", "pipe_scaled",
             "pipe_scaled_65536", "pipe_regrow", "shard_m1", "shard_scaled",
             "shard_scaled_pipe", "shard_cmd", "shard_cmd_fp",
-            "shard_cmd_route", "shard_cmd_pipe_route", "shard_cmd_cov")
+            "shard_cmd_route", "shard_cmd_pipe_route", "shard_cmd_cov",
+            "shard_spill", "shard_spill_first", "live_cmd", "live_m1",
+            "live_scaled", "live_scaled_4")
     launches = {k: sum(runs[r]["launches"][k] for r in main)
                 for k in ops.KERNELS}
     kernels = phase_kernels(torch, ops, runs, launches)
@@ -1574,6 +1604,332 @@ def phase_sharded_command(ops, cfg, tmp, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 12d: the sharded spill tier; phases 13-13d: temporal properties
+# ---------------------------------------------------------------------------
+
+
+def phase_sharded_spill(ops, cfg, tmp, card):
+    """Phase 12d: `check MC.cfg -sharded 4` on Model_1 through the sharded
+    spill tier (engine.sharded.ShardedSpillRuntime), in this process: a
+    table of 2^16 slots a shard whose regrow is denied (-faults
+    alloc_fail@1) takes the spill rung and exits 0, then -spill (the
+    spill-first policy); MC.out's counts, flushes and host hits from the
+    journal, K9 launched on the owners' received rows."""
+    from torchtlc.obs.journal import read as read_journal
+
+    out, lines = {}, []
+    for key, extra in (("shard_spill", ["-faults", "alloc_fail@1"]),
+                       ("shard_spill_first", ["-spill"])):
+        ck = os.path.join(tmp, key + ".ckpt")
+        rc, text, launches, wall = command_here(
+            ops, [cfg, "-noTool", "-sharded", "4", "-fpcap", "65536",
+                  "-checkpoint", ck, *extra])
+        need(rc == 0, f"`check -sharded 4 {' '.join(extra)}` exited {rc}")
+        need(final_counts(text) == M1_COUNTS,
+             f"`-sharded 4 {' '.join(extra)}` counts {final_counts(text)}")
+        need("Host fingerprint spill tier activated" in text,
+             f"`-sharded 4 {' '.join(extra)}` did not take the spill rung")
+        evs = [e for e in read_journal(ck + ".journal.jsonl")
+               if e["event"] == "spill"]
+        flushes = [e for e in evs if e["phase"] == "flush"]
+        need(flushes and flushes[-1]["hits"] > 0,
+             f"`-sharded 4 {' '.join(extra)}`: no flush or no host hit")
+        need(launches["fpset_member"] > 0, "K9 was not launched on the "
+             "owners' received rows")
+        out[key] = {"launches": launches}
+        lines.append(
+            f"{' '.join(extra)}: exit 0, {len(flushes)} flushes "
+            f"({sum(e['flushed_tables'] for e in flushes)} tables), "
+            f"{flushes[-1]['spilled']} fingerprints spilled, spill_hits "
+            f"{flushes[-1]['hits']} at the last flush, "
+            f"{flushes[-1]['probes']} host probes, K9 launches "
+            f"{launches['fpset_member']}, flush walls "
+            f"{sum(e['wall_s'] for e in flushes):.3f} s, wall {wall:.2f} s")
+    print(f"phase 12d sharded spill `check MC.cfg -sharded 4 -fpcap 65536`: "
+          f"{'; '.join(lines)}; {M1_COUNTS} on {card}", flush=True)
+    return out
+
+
+def liveness_text(text):
+    """The liveness verdict and lasso lines of a transcript."""
+    return [x for x in text.splitlines()
+            if x.startswith(("Temporal propert", "State ", "/\\ ",
+                             "-- The following"))]
+
+
+def lasso_lengths(results):
+    return [(r.name, r.holds) if r.holds else
+            (r.name, len(r.prefix), len(r.cycle)) for r in results]
+
+
+def phase_liveness_command(ops, tmp, card):
+    """Phase 13: Model_1 through `check MC.cfg` with PROPERTY
+    ReconcileCompletes and CleansUpProperly in its MC.cfg (in this
+    process): the host liveness path (163,408 states, under the device
+    path's threshold) exits 13 with the reference's verdicts and lassos
+    (their lines' pinned digest)."""
+    cfg = write_model(tmp, "Model_1_live", True, True)
+    with open(cfg, "a") as f:
+        f.write("PROPERTY ReconcileCompletes\nPROPERTY CleansUpProperly\n")
+    rc, text, launches, wall = command_here(ops, [cfg, "-noTool"])
+    need(rc == 13, f"`check MC.cfg` with PROPERTY exited {rc}, not 13")
+    need(final_counts(text) == M1_COUNTS, "the liveness run's counts")
+    need("(host liveness engine)" in text, "the host path did not run")
+    lines = liveness_text(text)
+    sha = hashlib.sha256("\n".join(lines).encode()).hexdigest()
+    need(sha == M1_LIVENESS_SHA256,
+         f"the liveness lines' digest {sha[:16]} is not the reference's")
+    verdicts = [x for x in lines if x.startswith("Temporal propert")]
+    print(f"phase 13 liveness command (Model_1, PROPERTY in MC.cfg): exit "
+          f"13, {verdicts}, {len(lines)} verdict and lasso lines, digest "
+          f"{sha[:16]} = jaxtlc's, {wall:.2f} s on {card}", flush=True)
+    return {"live_cmd": {"launches": launches}}
+
+
+def phase_liveness_model1(torch, ops, card, runs):
+    """Phase 13b: Model_1 on the device path (check_properties_device):
+    the captured states equal the host graph's state for state, and the
+    verdicts and lassos equal the host path's; K14-K16 against their plain
+    versions on Model_1 shapes."""
+    import numpy as np
+
+    from torchtlc.config import MODEL_1
+    from torchtlc.engine.liveness import build_graph, check_properties
+    from torchtlc.live.check import capture_kube_graph, check_properties_device
+    from torchtlc.spec.codec import get_codec
+
+    t = {}
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    graph = capture_kube_graph(MODEL_1, chunk=1024, state_capacity=1 << 18,
+                               fp_capacity=1 << 19, timings=t)
+    res = check_properties_device(MODEL_1, LIVE_PROPS, graph=graph,
+                                  timings=t)
+    wall = time.time() - t0
+    launches = dict(ops.LAUNCHES)
+    need(t["raw_edges"] == M1_COUNTS[0] - graph.init_count,
+         f"Model_1 raw edges {t['raw_edges']}")
+    t0 = time.time()
+    host = build_graph(MODEL_1)
+    host_wall = time.time() - t0
+    cdc = get_codec(MODEL_1)
+    packed = cdc.pack(torch.from_numpy(host.states.astype(np.int32)))
+    need(graph.n_states == host.states.shape[0] == M1_COUNTS[1],
+         "Model_1 captured state count")
+
+    def rows_sorted(a):
+        return a[np.lexsort(a.T[::-1])]
+
+    need(np.array_equal(rows_sorted(packed.numpy().view(np.uint32)),
+                        rows_sorted(graph.states)),
+         "the captured states are not the host graph's")
+    href = check_properties(MODEL_1, LIVE_PROPS, graph=host)
+    need([(r.name, r.holds) for r in res]
+         == [(r.name, r.holds) for r in href],
+         "device and host verdicts differ")
+    live_kernel_checks(torch, ops, "model1", MODEL_1, graph, runs)
+    fx = ", ".join(f"{f['name']} {f['sweeps']} sweeps {f['wall_s']:.3f} s"
+                   for f in t["fixpoints"])
+    print(f"phase 13b liveness Model_1, device path: {graph.n_states} "
+          f"captured states = the host graph's, {t['raw_edges']} raw / "
+          f"{len(graph.src)} deduplicated edges; verdicts "
+          f"{lasso_lengths(res)} = the host path's; enumerate "
+          f"{t['enumerate_s']:.3f} s ({t['enum_bodies']} bodies), capture "
+          f"{t['capture_s']:.3f} s, dedup {t['dedup_s']:.3f} s, masks "
+          f"{t['masks_s']:.3f} s, fixpoints {fx}; check {wall:.2f} s, host "
+          f"graph {host_wall:.2f} s on {card}; launches {launches}",
+          flush=True)
+    return {"live_m1": {"launches": launches}}
+
+
+def phase_liveness_scaled(torch, ops, card, runs):
+    """Phase 13c: scaled 2x1 on the device path at full width: 19,359,985
+    captured states, both verdicts with oracle-replayed lassos, the walls
+    of each stage; 13d: every fixpoint again on 4 shards (the same alive
+    set and sweep count); K14-K16 against their plain versions on blocks of
+    this capture."""
+    import numpy as np
+
+    from torchtlc.config import scaled_config
+    from torchtlc.engine.sharded import ShardMesh
+    from torchtlc.live.capture import state_masks
+    from torchtlc.live.check import capture_kube_graph, check_properties_device
+    from torchtlc.live.fixpoint import has_nonself, surviving_set
+
+    cfg, _ = scaled_config()
+    t = {}
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    graph = capture_kube_graph(cfg, **SCALED_LIVE_KW, timings=t)
+    res = check_properties_device(cfg, LIVE_PROPS, graph=graph, timings=t)
+    wall = time.time() - t0
+    launches = dict(ops.LAUNCHES)
+    need(graph.n_states == SCALED_COUNTS[1],
+         f"scaled captured {graph.n_states} states")
+    need(t["raw_edges"] == SCALED_COUNTS[0] - graph.init_count,
+         f"scaled raw edges {t['raw_edges']}")
+    fx = ", ".join(f"{f['name']} {f['sweeps']} sweeps {f['wall_s']:.3f} s "
+                   f"({f['in_h']} in H, {f['alive']} alive)"
+                   for f in t["fixpoints"])
+    print(f"phase 13c liveness scaled 2x1, device path: {graph.n_states} "
+          f"captured states, {t['raw_edges']} raw / {len(graph.src)} "
+          f"deduplicated edges; verdicts {lasso_lengths(res)} (every lasso "
+          f"replayed through the oracle); enumerate {t['enumerate_s']:.3f} s "
+          f"({t['enum_bodies']} bodies), capture {t['capture_s']:.3f} s, "
+          f"dedup {t['dedup_s']:.3f} s, masks {t['masks_s']:.3f} s, "
+          f"fixpoints {fx}; check {wall:.2f} s on {card}; launches "
+          f"{launches}", flush=True)
+    out = {"live_scaled": {"launches": launches}}
+
+    # 13d: the same fixpoints over 4 edge slices
+    masks = state_masks(cfg, torch.from_numpy(graph.states.view(
+        np.int32)).cuda()).cpu().numpy().astype(bool)
+    nr = cfg.n_reconcilers
+    zones = [masks[k] for k in range(nr)] + [
+        ~masks[k] & masks[nr + k] for k in range(nr)]
+    nonself = has_nonself(graph)
+    ones = [surviving_set(graph, in_h, nonself=nonself) for in_h in zones]
+    ops.reset_counts()
+    t0 = time.time()
+    fours = [surviving_set(graph, in_h, mesh=ShardMesh(4), nonself=nonself)
+             for in_h in zones]
+    wall4 = time.time() - t0
+    out["live_scaled_4"] = {"launches": dict(ops.LAUNCHES)}
+    lines = []
+    for k, (one, four) in enumerate(zip(ones, fours)):
+        need(np.array_equal(one[0], four[0]) and one[1] == four[1],
+             f"zone {k}: the 4-shard fixpoint differs")
+        lines.append(f"zone {k}: {one[1]} sweeps, {int(one[0].sum())} of "
+                     f"{int(zones[k].sum())} alive")
+    print(f"phase 13d scaled fixpoints on 4 shards = on one device "
+          f"({'; '.join(lines)}); the 4-shard fixpoints {wall4:.2f} s on "
+          f"{card}", flush=True)
+    live_kernel_checks(torch, ops, "scaled", cfg, graph, runs,
+                       zone=max(zones, key=lambda z: int(z.sum())))
+    return out
+
+
+def live_kernel_checks(torch, ops, tag, cfg, graph, runs, zone=None):
+    """K14, K15 and K16 against their plain versions on the card, timed, on
+    a capture's own data: K14 on the sweep block in the middle of the
+    states, K15 over all states, K16 one sweep over the largest zone's
+    edges (or `zone`).  Rows go to runs["live_rows"], the library calls'
+    times to runs["live_library"]."""
+    import numpy as np
+
+    from torchtlc.engine.backend import FLAG_VALID, expand_block
+    from torchtlc.engine.fingerprint import fp64_words
+    from torchtlc.live import capture, fixpoint
+    from torchtlc.spec.codec import get_codec
+    from torchtlc.spec.kernel import lane_layout
+
+    rows = runs.setdefault("live_rows", {})
+    library = runs.setdefault("live_library", {})
+
+    def record(name, err, ms, pms, nbytes):
+        rows.setdefault(name, []).append(dict(
+            shape=tag, max_abs_err=err, ms=ms, plain_ms=pms,
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3))
+
+    def err_of(a, b):
+        if a.shape != b.shape:
+            return 1 << 31
+        a, b = a.to(torch.int64), b.to(torch.int64)
+        return int((a - b).abs().max()) if a.numel() else 0
+
+    cdc = get_codec(cfg)
+    _, L = lane_layout(cfg)
+    V = graph.n_states
+    states = torch.from_numpy(graph.states.view(np.int32)).cuda()
+    lo, hi = fp64_words(states, cdc.nbits)
+    s_hi, s_lo, perm = capture.sorted_ids(lo, hi)
+
+    # K14 on one capture sweep block
+    ck = SCALED_LIVE_KW["chunk"] if tag == "scaled" else 1024
+    off = (V // 2) // ck * ck
+    packed, flags, action, _ = expand_block(
+        cfg, states[off:off + ck].contiguous(), ck, deferred=True)
+    q_lo, q_hi = fp64_words(packed, cdc.nbits)
+    valid = flags[FLAG_VALID].contiguous()
+    args = (s_hi, s_lo, perm, q_hi, q_lo, valid, action, off, L)
+    got, ref = ops.edge_capture(*args), capture.edge_capture_plain(*args)
+    err = max(err_of(got[0], ref[0]), int(bool(got[1]) != bool(ref[1])))
+    need(err == 0 and not bool(got[1]),
+         f"K14 edge_capture differs from its plain version ({tag})")
+    N, nv = q_hi.shape[0], got[0].shape[0]
+
+    def key(h, lo_):
+        return (((h.to(torch.int64) & 0xFFFFFFFF) - (1 << 31)) * (1 << 32)
+                + (lo_.to(torch.int64) & 0xFFFFFFFF))
+
+    s_key, q_key = key(s_hi, s_lo), key(q_hi, q_lo)
+    lib_idx = torch.searchsorted(s_key, q_key)
+    need(torch.equal(perm[lib_idx.clamp(max=V - 1)][valid.bool()],
+                     got[0][:, 1]), f"searchsorted disagrees with K14 ({tag})")
+    record("edge_capture", err,
+           cuda_ms(torch, lambda _: ops.edge_capture(*args), 10),
+           cuda_ms(torch, lambda _: capture.edge_capture_plain(*args), 3),
+           V * 12 + N * 13 + nv * 16)
+    library["edge_capture"] = cuda_ms(
+        torch, lambda _: torch.searchsorted(s_key, q_key), 10)
+
+    # K15 over every state
+    params = capture.mask_params(cfg)
+    got = ops.state_masks(params, states)
+    ref = capture.state_masks_plain(cfg, states)
+    err = err_of(got, ref)
+    need(err == 0, f"K15 state_masks differs from its plain version ({tag})")
+    record("state_masks", err,
+           cuda_ms(torch, lambda _: ops.state_masks(params, states), 10),
+           cuda_ms(torch, lambda _: capture.state_masks_plain(cfg, states),
+                   2),
+           V * cdc.n_words * 4 + got.shape[0] * V)
+    if zone is None:
+        m = got.cpu().numpy().astype(bool)
+        nr = cfg.n_reconcilers
+        zone = max([m[k] for k in range(nr)]
+                   + [~m[k] & m[nr + k] for k in range(nr)],
+                   key=lambda z: int(z.sum()))
+    del got, ref
+
+    # K16: the first sweep over the zone's edges
+    keep = graph.changed & zone[graph.src] & zone[graph.dst]
+    src = torch.from_numpy(np.ascontiguousarray(graph.src[keep])).cuda()
+    dst = torch.from_numpy(np.ascontiguousarray(graph.dst[keep])).cuda()
+    alive = torch.from_numpy(zone.astype(np.uint8)).cuda()
+    term = torch.from_numpy((zone & ~fixpoint.has_nonself(graph))
+                            .astype(np.uint8)).cuda()
+    got = ops.survive_sweep(src, dst, 1, alive, term)
+    ref = fixpoint.survive_sweep_plain(src, dst, 1, alive, term)
+    err = max(err_of(got[0], ref[0]), int(bool(got[1]) != bool(ref[1])))
+    need(err == 0, f"K16 survive_sweep differs from its plain version "
+         f"({tag})")
+    E = src.shape[0]
+    record("survive_sweep", err,
+           cuda_ms(torch, lambda _: ops.survive_sweep(src, dst, 1, alive,
+                                                      term), 10),
+           cuda_ms(torch, lambda _: fixpoint.survive_sweep_plain(
+               src, dst, 1, alive, term), 3),
+           E * 8 + V * 3)
+    # the support scatter as one library call (its gathered values and
+    # int64 indices prepared outside the timed call)
+    src64, vals = src.to(torch.int64), alive[dst.to(torch.int64)]
+    library["survive_sweep"] = cuda_ms(
+        torch, lambda _: torch.zeros(V, dtype=torch.uint8, device="cuda")
+        .scatter_reduce_(0, src64, vals, "amax"), 10)
+    times = "; ".join(
+        f"{k} {r[-1]['ms']:.4f} ms (bound {r[-1]['bound_ms']:.4f}, plain "
+        f"{r[-1]['plain_ms']:.3f}, library {library.get(k, '-')})"
+        for k, r in rows.items())
+    print(f"phase 13 kernels vs plain ({tag}): K14 on {N} lanes ({nv} "
+          f"edges) of the block at {off}, K15 over {V} states, K16 over "
+          f"{E} edges of a {int(zone.sum())}-state zone: all bitwise "
+          f"equal; torch.searchsorted agrees with K14; {times}", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 2: each kernel against its plain version, at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -1803,10 +2159,17 @@ def phase_kernels(torch, ops, runs, launches):
                          "jaxtlc/engine/sharded.py:701"),
         "shard_enqueue": ("torchtlc/kernels/csrc/route.cu",
                           "jaxtlc/engine/sharded.py:685"),
+        "edge_capture": ("torchtlc/kernels/csrc/liveness.cu",
+                         "jaxtlc/live/capture.py:117"),
+        "state_masks": ("torchtlc/kernels/csrc/liveness.cu",
+                        "jaxtlc/live/capture.py:252"),
+        "survive_sweep": ("torchtlc/kernels/csrc/liveness.cu",
+                          "jaxtlc/live/fixpoint.py:41"),
     }
-    for name, got in runs.get("sharded_rows", {}).items():
-        rows.setdefault(name, []).extend(got)
-    library.update(runs.get("sharded_library", {}))
+    for key in ("sharded", "live"):
+        for name, got in runs.get(f"{key}_rows", {}).items():
+            rows.setdefault(name, []).extend(got)
+        library.update(runs.get(f"{key}_library", {}))
     first = {name: rows[name][0] for name in rows}
     out = []
     for name in ops.KERNELS:

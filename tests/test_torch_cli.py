@@ -163,9 +163,7 @@ FLAG_VALUES = {
     "coverage": ["-coverage"],
     "sharded": ["-sharded", "4"], "fpset": ["-fpset", "DiskFPSet"],
     "symmetry": ["-symmetry"], "por": ["-por"], "simulate": ["-simulate"],
-    "infer": ["-infer"], "liveness": ["-liveness"],
-    "liveness_host": ["-liveness-host"],
-    "fairness": ["-fairness", "wf_process"], "serve": ["-serve", "8080"],
+    "infer": ["-infer"], "serve": ["-serve", "8080"],
     "phasetiming": ["-phase-timing"], "traceout": ["-trace-out", "t.json"],
     "narrow": ["-narrow"], "analyze": ["-analyze"],
     "frontend": ["-frontend", "struct"],

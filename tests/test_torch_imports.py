@@ -319,3 +319,37 @@ def test_sharded_copies_equal_reference():
             assert tc.shard_rows_from_ring(
                 r, heads, labels=labels, since=since,
                 fp_capacity_total=1 << 12) == want
+
+
+def test_liveness_copies_equal_reference():
+    """The liveness plane's copies of jax-free reference modules: the
+    oracle the lassos are replayed through and the lasso builder keep the
+    reference's code below their docstrings, and the oracle's initial
+    states and successors equal the reference's on FF."""
+    import inspect
+
+    from jaxtlc.config import ModelConfig as JConfig
+    from jaxtlc.live import lasso as jlasso
+    from jaxtlc.spec import oracle as joracle
+    from torchtlc.config import ModelConfig
+    from torchtlc.live import lasso as tlasso
+    from torchtlc.spec import oracle as toracle
+
+    def body(mod):
+        src = inspect.getsource(mod)
+        return src[src.index("from __future__"):]
+
+    assert body(toracle) == body(joracle)
+    assert body(tlasso) == body(jlasso)
+    tcfg, jcfg = ModelConfig(False, False), JConfig(False, False)
+    inits = toracle.initial_states(tcfg)
+    assert inits == joracle.initial_states(jcfg)
+    frontier = list(inits)
+    for _ in range(12):
+        nxt = []
+        for st in frontier:
+            got = [(x.label, x.state) for x in toracle.successors(st, tcfg)]
+            assert got == [(x.label, x.state)
+                           for x in joracle.successors(st, jcfg)]
+            nxt += [s for _, s in got]
+        frontier = nxt[:64]

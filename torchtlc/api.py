@@ -11,10 +11,13 @@ print the counterexample; with -coverage, the engine carries the device
 coverage plane and the success transcript the host coverage walker's
 per-expression dump (MC.out:44-1092); with -pipeline, the engines run the
 pipelined body; with -sharded N, the sharded engine over N fingerprint-
-space shards in one process (capacities per shard).  Exit codes are the reference's: 0
-no error, 12
-safety violation, 75 interrupted or capacity-exhausted with a final
-checkpoint, 1 usage or configuration error.
+space shards in one process (capacities per shard).  After a clean run
+with -liveness or a PROPERTY in MC.cfg / the launch file, the temporal
+properties are checked (the host graph, or above 1M distinct states the
+device capture and fixpoint).  Exit codes are the reference's: 0 no
+error, 12 safety violation, 13 temporal property violated, 75
+interrupted or capacity-exhausted with a final checkpoint, 1 usage or
+configuration error.
 
 The run goes to the card unless ``workers`` is "cpu".  The reference's
 preflight analysis (its jaxpr audits) is not part of the port.
@@ -60,11 +63,6 @@ def _run_check(args) -> int:
     if unknown:
         print(f"Error: unknown PROPERTY {', '.join(unknown)} "
               f"(supported: {', '.join(KNOWN_PROPERTIES)})", file=sys.stderr)
-        return 1
-    if spec.properties:
-        print(f"Error: PROPERTY {', '.join(spec.properties)}: liveness "
-              "checking is not ported yet (ROADMAP Queue A item 13)",
-              file=sys.stderr)
         return 1
     if args.mutation:
         spec.model = dataclasses.replace(spec.model, mutation=args.mutation)
@@ -127,6 +125,9 @@ def _run_check(args) -> int:
     )
 
     violated = r.violation != 0
+    liveness_violated = False
+    if not violated and (args.liveness or spec.properties):
+        liveness_violated = _check_liveness(args, spec, r, log, device)
     if violated:
         if r.violation == VIOL_TYPEOK and "TypeOK" in spec.invariants:
             log.invariant_violated("TypeOK")
@@ -141,7 +142,7 @@ def _run_check(args) -> int:
             log.msg(1000, f"Run stopped: {r.violation_name}", severity=1)
         _print_trace(log, spec.model, args.chunk,
                      check_deadlock=spec.check_deadlock, device=device)
-    else:
+    elif not liveness_violated:
         log.success(r.generated, r.distinct, r.actual_fp_collision,
                     occupancy=r.fp_occupancy)
         if args.coverage:
@@ -161,8 +162,65 @@ def _run_check(args) -> int:
     if r.outdegree is not None:
         log.outdegree(*r.outdegree)
     log.finished(int((time.time() - t0) * 1000))
-    _finish_journal(args, r=r, sup=sup, wall_s=time.time() - t0)
-    return 12 if violated else 0
+    _finish_journal(args, r=r, sup=sup, wall_s=time.time() - t0,
+                    verdict="liveness_violation" if liveness_violated
+                    else None)
+    if violated:
+        return 12
+    return 13 if liveness_violated else 0  # TLC's liveness exit code
+
+
+def _check_liveness(args, spec, r, log, device) -> bool:
+    """The temporal properties after a clean run (jaxtlc/api.py:329-382):
+    the MC.cfg / launch PROPERTY list, or both KubeAPI properties with
+    -liveness; the device path (live.check) above HOST_PATH_MAX distinct
+    states under wf_next, the host graph (engine.liveness) otherwise.
+    Prints a verdict a property, with the lasso of a violated one; returns
+    whether one was violated."""
+    from .live.check import check_properties_device, use_device_path
+    from .spec.codec import get_codec
+    from .spec.pretty import state_to_tla
+
+    props = spec.properties or ["ReconcileCompletes", "CleansUpProperly"]
+    device_path = use_device_path(r.distinct, args.fairness,
+                                  args.liveness_host)
+    log.checking_temporal(r.distinct, "device" if device_path else "host")
+    if device_path:
+        mesh = None
+        if args.sharded:
+            from .engine.sharded import ShardMesh
+
+            mesh = ShardMesh(args.sharded, device)
+        results = check_properties_device(
+            spec.model, props, chunk=args.chunk, state_capacity=args.fpcap,
+            fp_capacity=args.fpcap, mesh=mesh,
+            spill_path=args.checkpoint or None, device=device)
+    else:
+        from .engine.liveness import build_graph, check_properties
+
+        graph = build_graph(spec.model, chunk=args.chunk, device=device)
+        results = check_properties(spec.model, props, graph=graph,
+                                   fairness=args.fairness)
+    decode = get_codec(spec.model).decode
+    violated = False
+    for res in results:
+        if res.holds:
+            log.msg(1000, f"Temporal property {res.name} holds "
+                          f"(fairness: {args.fairness}).")
+            continue
+        violated = True
+        log.msg(2116, f"Temporal properties were violated: {res.name} "
+                      f"(fairness: {args.fairness})", severity=1)
+        idx = 1
+        for enc, act in zip(res.prefix, res.prefix_actions):
+            log.trace_state(idx, act, state_to_tla(decode(enc), spec.model))
+            idx += 1
+        log.msg(1000, "-- The following states form a cycle "
+                      "(back to the first of them) --")
+        for enc, act in zip(res.cycle, res.cycle_actions):
+            log.trace_state(idx, act, state_to_tla(decode(enc), spec.model))
+            idx += 1
+    return violated
 
 
 def _dispatch_check(args, spec, log, device):
@@ -281,9 +339,12 @@ def _open_journal(args, workload: str, device: str, params: dict):
     return j
 
 
-def _finish_journal(args, r=None, sup=None, wall_s: float = 0.0) -> None:
-    """The violation record and, when the supervisor did not write one,
-    the final event; then close the journal."""
+def _finish_journal(args, r=None, sup=None, wall_s: float = 0.0,
+                    verdict: str = None) -> None:
+    """The violation record (a safety violation's, or exit 13's for a
+    violated temporal property: verdict "liveness_violation") and, when
+    the supervisor did not write one, the final event; then close the
+    journal."""
     j = getattr(args, "_journal", None)
     if j is None:
         return
@@ -291,9 +352,13 @@ def _finish_journal(args, r=None, sup=None, wall_s: float = 0.0) -> None:
         if r is not None and r.violation != 0:
             j.event("violation", code=int(r.violation),
                     name=r.violation_name)
+        if verdict == "liveness_violation":
+            j.event("violation", code=13,
+                    name="Temporal properties were violated")
         if sup is None and r is not None:
             j.event("final",
-                    verdict="violation" if r.violation != 0 else "ok",
+                    verdict=verdict or ("violation" if r.violation != 0
+                                        else "ok"),
                     generated=r.generated, distinct=r.distinct,
                     depth=r.depth, queue=r.queue_left,
                     wall_s=round(wall_s, 6), interrupted=False)

@@ -5,12 +5,14 @@ jaxtlc/cli.py on the KubeAPI path.
         [-workers cpu] [-chunk 1024] [-qcap N] [-fpcap N] \\
         [-checkpoint PATH [-checkpointevery N] [-recover]] \\
         [-no-auto-grow] [-spill | -no-spill] [-coverage] [-pipeline] \\
-        [-sharded N [-routefactor F]] [-noTool] ...
+        [-sharded N [-routefactor F]] [-liveness [-liveness-host]
+        [-fairness wf_next|wf_process]] [-noTool] ...
 
 Reads MC.cfg with its sibling MC.tla (and a toolbox .launch if present),
 runs the exhaustive check on the card - on the CPU only with -workers cpu
 - and writes the TLC structured transcript.  Exit codes: 0 no error, 12
-safety violation (with the counterexample trace), 75 interrupted or
+safety violation (with the counterexample trace), 13 temporal property
+violated (with the lasso), 75 interrupted or
 capacity-exhausted with a final checkpoint (resume with -recover), 1
 usage or configuration error, 2 a flag of a path the port does not run
 yet (the error names the slice that will port it).
@@ -37,12 +39,6 @@ UNPORTED = {
                  "the simulation plane (ROADMAP Queue A item 13)"),
     "infer": (False, "-infer (invariant inference) is ported with the "
               "inference plane (ROADMAP Queue A item 13)"),
-    "liveness": (False, "-liveness is ported with the liveness plane "
-                 "(ROADMAP Queue A item 13)"),
-    "liveness_host": (False, "-liveness-host is ported with the liveness "
-                      "plane (ROADMAP Queue A item 13)"),
-    "fairness": ("wf_next", "-fairness is ported with the liveness plane "
-                 "(ROADMAP Queue A item 13)"),
     "serve": (0, "-serve (the live monitor server) is ported with the "
               "serving plane (ROADMAP Queue A item 13)"),
     "phasetiming": (False, "-phase-timing (measured per-level expand/commit "
@@ -177,10 +173,17 @@ def _parser() -> argparse.ArgumentParser:
     c.add_argument("-sim-seed", dest="simseed", type=int, default=0)
     c.add_argument("-infer", action="store_true")
     c.add_argument("-infer-budget", dest="inferbudget", type=int, default=64)
-    c.add_argument("-liveness", action="store_true")
+    c.add_argument("-liveness", action="store_true",
+                   help="check the KubeAPI temporal properties after a "
+                        "clean run even when MC.cfg lists none; above 1M "
+                        "distinct states on the device path")
     c.add_argument("-liveness-host", dest="liveness_host",
-                   action="store_true")
-    c.add_argument("-fairness", default="wf_next")
+                   action="store_true",
+                   help="force the host liveness path (explicit graph)")
+    c.add_argument("-fairness", default="wf_next",
+                   choices=["wf_next", "wf_process"],
+                   help="wf_next = the spec's WF_vars(Next); wf_process = "
+                        "per-process weak fairness (host path)")
     c.add_argument("-serve", type=int, default=0, metavar="PORT")
     c.add_argument("-phase-timing", dest="phasetiming", action="store_true")
     c.add_argument("-trace-out", dest="traceout", default="")
@@ -205,10 +208,6 @@ def unported(args) -> list:
     errs = [msg for dest, (off, msg) in UNPORTED.items()
             if getattr(args, dest) != off
             and not (dest == "frontend" and args.frontend == "hand")]
-    if args.sharded and args.spill == "on":
-        errs.append("-spill with -sharded (the sharded engine's host spill "
-                    "tier) is ported in the sharded-spill slice (ROADMAP "
-                    "Queue A item 10b)")
     if not args.simulate and (args.depth, args.walkers, args.simseed) != (
             100, 256, 0):
         errs.append(UNPORTED["simulate"][1].replace(

@@ -80,6 +80,8 @@ from ..obs.coverage import site_totals_dict
 from ..spec.invariants import make_invariant_kernel
 from ..spec.labels import LABELS
 from .backend import (
+    FLAG_OVF,
+    FLAG_VALID,
     OK,
     ExpandOut,
     VIOL_ASSERT,
@@ -90,6 +92,7 @@ from .backend import (
     VIOL_ROUTE_OVERFLOW,
     VIOL_SLOT_OVERFLOW,
     VIOL_TYPEOK,
+    expand_block,
     kubeapi_backend,
     make_deferred_checker,
     make_expand_stage,
@@ -112,7 +115,8 @@ __all__ = [
     "outdegree_from_hist", "commit_block", "commit_block_plain",
     "enqueue_order", "resolve_device", "resolve_sort_free",
     "resolve_deferred", "obs_rows", "make_segment", "carry_done",
-    "clone_carry", "cov_totals", "staged_block",
+    "clone_carry", "cov_totals", "staged_block", "EnumCarry",
+    "make_enumerator",
 ]
 
 VIOLATION_NAMES = {
@@ -855,3 +859,105 @@ def result_from_carry(carry: EngineCarry, wall_s: float, iterations: int = -1,
         site_coverage=(None if totals is None or sites is None
                        else site_totals_dict(sites, totals)),
     )
+
+
+# ---------------------------------------------------------------------------
+# the append-only state enumerator (liveness capture, pass 1)
+# ---------------------------------------------------------------------------
+
+
+class EnumCarry(NamedTuple):
+    """Carry of the state enumerator (jaxtlc/engine/bfs.py:1108).  `states`
+    is APPEND-ONLY: a state's row is its permanent id (BFS append order),
+    the ids the liveness edge capture (live.capture) speaks of.  Rows past
+    `tail` are padding left by the A-wide appends."""
+
+    fps: FPSet
+    states: torch.Tensor  # [cap + A, W] int32 packed states, id = row
+    head: int  # next id to expand
+    tail: int  # distinct states stored
+    viol: int  # OK or a capacity / overflow code
+
+
+def make_enumerator(backend, chunk: int = 1024,
+                    state_capacity: int = 1 << 20,
+                    fp_capacity: int = 1 << 20,
+                    fp_index: int = DEFAULT_FP_INDEX,
+                    fp_highwater: float = FP_HIGHWATER, device=None):
+    """(init_fn, run_fn) of the distinct-state enumerator
+    (jaxtlc/engine/bfs.py:1128 make_enumerator, without its optional ring).
+
+    A body pops up to `chunk` rows at `head` from the states array itself,
+    expands them (kernel K1), fingerprints the candidates (K2), inserts
+    them with the sorted path at probe and claim width R = min(2*chunk,
+    ncand) (K3), and appends the new rows at `tail` in candidate-lane order
+    in A-wide segments (K4, its queue being the states array and its
+    counters scratch).  It halts with VIOL_SLOT_OVERFLOW, VIOL_FPSET_FULL
+    (the body's candidate width over the high-water mark) or
+    VIOL_QUEUE_FULL (more than `state_capacity` states), as the reference
+    does.  run_fn.steps counts the bodies of its last call."""
+    cfg = backend.cfg
+    cdc = backend.cdc
+    L = backend.n_lanes
+    n_labels = len(backend.labels)
+    cap = state_capacity
+    ncand = chunk * L
+    R = min(2 * chunk, ncand)
+    A = R
+    fp_limit = int(fp_capacity * fp_highwater)
+    dev = resolve_device(device)
+    # K4's counters, not read: the enumerator keeps no statistics
+    scratch = (torch.zeros(n_labels, dtype=torch.int64, device=dev),
+               torch.zeros(L + 2, dtype=torch.int64, device=dev))
+
+    def init_fn() -> EnumCarry:
+        inits = torch.from_numpy(np.asarray(backend.initial_vectors(),
+                                            np.int32))
+        n0 = inits.shape[0]
+        assert n0 <= chunk and n0 <= cap, "raise chunk/state_capacity"
+        packed0 = cdc.pack(inits).to(dev)
+        states = torch.zeros(cap + A, cdc.n_words, dtype=torch.int32,
+                             device=dev)
+        states[:n0] = packed0
+        lo, hi = fp64_words(packed0, cdc.nbits, fp_index)
+        fps = fpset_new(fp_capacity, dev)
+        fpset_insert_sorted(fps, lo, hi, torch.ones(n0, dtype=torch.bool,
+                                                    device=dev))
+        return EnumCarry(fps=fps, states=states, head=0, tail=n0, viol=OK)
+
+    def body(c: EnumCarry) -> EnumCarry:
+        n = min(chunk, c.tail - c.head)
+        block = c.states[c.head:c.head + chunk]
+        packed, flags, action, _ = expand_block(cfg, block, n, deferred=True)
+        fvalid = flags[FLAG_VALID].bool()
+        lo, hi = fp64_words(packed, cdc.nbits, fp_index)
+        fp_full = c.tail + ncand > fp_limit
+        mask = torch.zeros_like(fvalid) if fp_full else fvalid
+        fps, is_new_c, c_idx, nreps = fpset_insert_sorted(
+            c.fps, lo, hi, mask, probe_width=R, claim_width=R)
+        e_idx, n_new = enqueue_order(is_new_c, c_idx, nreps, R)
+        commit_block(c.states[None], 0, c.tail, cap, e_idx, n_new, packed,
+                     action, n, *scratch, A, L, n_labels)
+        new, ovf, anyv = torch.stack([n_new, flags[FLAG_OVF].any(),
+                                      fvalid.any()]).tolist()
+        s_full = c.tail + new > cap
+        viol = c.viol
+        if ovf and viol == OK:
+            viol = VIOL_SLOT_OVERFLOW
+        if fp_full and anyv and viol == OK:
+            viol = VIOL_FPSET_FULL
+        if s_full and viol == OK:
+            viol = VIOL_QUEUE_FULL
+        return EnumCarry(fps=fps, states=c.states, head=c.head + n,
+                         tail=c.tail if s_full else c.tail + new, viol=viol)
+
+    def run_fn(c: EnumCarry) -> EnumCarry:
+        steps = 0
+        while c.head < c.tail and c.viol == OK:
+            c = body(c)
+            steps += 1
+        run_fn.steps = steps
+        return c
+
+    run_fn.steps = 0
+    return init_fn, run_fn

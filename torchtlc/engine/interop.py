@@ -244,6 +244,7 @@ SHARD_DTYPES = {
     "obs_head": np.int32, "obs_bodies": np.uint32,
     "obs_expanded": np.uint32, "obs_pl_level": np.int32,
     "obs_pl_flag": np.bool_, "cov_counts": np.uint32,
+    "spill_hits": np.uint32,
 }
 SHARD_LEAF_ORDER = tuple(SHARD_DTYPES)
 # the port's dtype of each leaf: int32 words, bool/uint8 flags, int64

@@ -1,5 +1,6 @@
 """The sharded BFS engine (port of jaxtlc/engine/sharded.py:119-959,
-1324-1487, 1560-1688): D fingerprint-space shards in one process.
+1035-1321, 1324-1557, 1560-1688): D fingerprint-space shards in one
+process.
 
 Each shard owns the states whose fingerprint's ``hi & (D - 1)`` is its
 index: its own table, circular frontier queue of unpacked ``[F]`` rows and
@@ -37,6 +38,13 @@ sort-free mode, each owner's claimant count for the slab fallback).  Every
 carry word - tables, queues (the dump row included), counters, ring,
 coverage and the pipelined ``pv_*`` leaves - equals the reference's at the
 same geometry (tests/test_torch_sharded.py).
+
+The body is its two halves composed (``run_fn.halves``: the expand half,
+steps 1-2, and the commit half, step 3); ``ShardedSpillRuntime`` runs
+them apart with a host spill-store probe between them (each owner's
+received lanes filtered by kernel K9 first) when a table cannot grow.
+``sharded_survive_fixpoint`` is the liveness fixpoint of live.fixpoint
+over D edge slices (kernel K16).
 
 The capacities are PER SHARD, as in the reference.  A segment engine
 (``segment > 0``) runs exactly ``segment`` bodies, finished or not: a body
@@ -85,9 +93,12 @@ from .bfs import (
     resolve_sort_free,
 )
 from .fingerprint import DEFAULT_FP_INDEX, fp64_words
-from .fpset import FPSet, fpset_insert_dedup, host_insert
+from .fpset import FPSet, fpset_insert_dedup, fpset_member, host_insert
 
 MASK32 = 0xFFFFFFFF
+# the spill mode's owner-side membership walk cap (K9), the reference's
+# SPILL_MEMBER_ROUNDS: an unresolved lane safely asks the host store
+SPILL_MEMBER_ROUNDS = 4
 
 
 class ShardBundle(NamedTuple):
@@ -144,6 +155,9 @@ class ShardCarry(NamedTuple):
     obs_pl_level: torch.Tensor = None  # [D]
     obs_pl_flag: torch.Tensor = None  # [D] bool
     cov_counts: torch.Tensor = None  # [D, n_sites] int64 partials
+    # spill mode (ShardedSpillRuntime): candidates each owner's host veto
+    # deduplicated
+    spill_hits: torch.Tensor = None  # [D] int64
     # scalars above as of the body that made this carry (None: read them)
     bundle: ShardBundle = None
 
@@ -159,6 +173,26 @@ class ShardMesh(NamedTuple):
         identity: K11 writes source s's bucket for owner o at [o, s] of
         each plane, which is where owner o receives it."""
         return planes
+
+
+class ShardEx(NamedTuple):
+    """The expand half's output, what the commit half reads besides K11's
+    sorted-order words (the reference's ShardEx,
+    jaxtlc/engine/sharded.py:468)."""
+
+    n: list  # rows popped by each shard
+    npop: torch.Tensor  # [D] int64
+    flags: torch.Tensor  # [5, D*ncand] uint8
+    action: torch.Tensor  # [D*ncand] int32
+    gen: torch.Tensor  # [D, n_labels] int64
+    fields: torch.Tensor  # [D*ncand, F] int32
+    block: torch.Tensor  # [D*chunk, W] int32 (coverage only) or None
+    xrows: torch.Tensor  # [D owner, D source, B, F] received rows
+    xlo: torch.Tensor  # [D, D, B] int32
+    xhi: torch.Tensor  # [D, D, B] int32
+    xvalid: torch.Tensor  # [D, D, B] bool
+    # spill mode: each owner's K9 membership of its received lanes
+    member: torch.Tensor = None  # [D, D*B] bool
 
 
 class RouteOut(NamedTuple):
@@ -550,8 +584,12 @@ def make_sharded_engine(
         first = vmask.to(torch.uint8).argmax(1)
         return vmask.any(1), states_of(first)
 
-    def body(c: ShardCarry, h: ShardBundle) -> ShardCarry:
-        # ---- expand (every source shard) ----
+    def expand_half(c: ShardCarry, h: ShardBundle,
+                    with_member: bool = False) -> ShardEx:
+        """Pop, expand, fingerprint and route every source shard
+        (jaxtlc/engine/sharded.py:468); with_member, each owner's K9
+        membership walk over its received lanes (the spill mode's filter,
+        at most SPILL_MEMBER_ROUNDS rows)."""
         if pipeline:
             verdict_fold(c.pv_send, c.pv_sown, c.pv_pos, c.pv_svalid,
                          c.pv_order, c.pv_faction, c.pv_n, chunk, L,
@@ -566,15 +604,42 @@ def make_sharded_engine(
         route(hi, lo, flags[FLAG_VALID], fields, D, B, rt)
         xrows, xlo, xhi, xvalid = mesh.exchange(rt.xrows, rt.xlo, rt.xhi,
                                                 rt.xvalid)
+        member = None
+        if with_member:
+            member = torch.stack([
+                fpset_member(FPSet(c.table[o]), xlo[o].view(DB),
+                             xhi[o].view(DB), xvalid[o].view(DB),
+                             max_rounds=SPILL_MEMBER_ROUNDS)
+                for o in range(D)])
+        return ShardEx(n=n, npop=npop, flags=flags, action=action, gen=gen,
+                       fields=fields, block=block, xrows=xrows,
+                       xlo=xlo, xhi=xhi, xvalid=xvalid, member=member)
+
+    def commit_half(c: ShardCarry, h: ShardBundle, ex: ShardEx,
+                    veto: torch.Tensor = None) -> ShardCarry:
+        """Insert, enqueue, fold the verdicts, fence the level
+        (jaxtlc/engine/sharded.py:631).  `veto` ([D, D*B] bool, the
+        received candidates the host spill store holds) turns on the spill
+        mode: a vetoed candidate dedups like a table hit, the fp-full halt
+        is off, and spill_hits counts the vetoed valid lanes."""
+        n, npop, flags, action = ex.n, ex.npop, ex.flags, ex.action
+        gen, fields, block = ex.gen, ex.fields, ex.block
+        xrows, xlo, xhi, xvalid = ex.xrows, ex.xlo, ex.xhi, ex.xvalid
+        spill = veto is not None
 
         # ---- commit (every owner) ----
         is_new = torch.zeros(D, DB + 1, dtype=torch.bool, device=dev)
         d_viol = [None] * D
         d_state = [None] * D
-        fp_full = [h.distinct[o] + DB > fp_limit for o in range(D)]
+        # the spill runtime flushes a table before it could fill
+        fp_full = [not spill and h.distinct[o] + DB > fp_limit
+                   for o in range(D)]
         for o in range(D):
             r_valid = xvalid[o].view(DB)
-            mask = torch.zeros_like(r_valid) if fp_full[o] else r_valid
+            if spill:
+                mask = r_valid & ~veto[o]
+            else:
+                mask = torch.zeros_like(r_valid) if fp_full[o] else r_valid
             _, is_new_c, c_idx, _, fell = fpset_insert_dedup(
                 FPSet(c.table[o]), xlo[o].view(DB), xhi[o].view(DB), mask,
                 probe_width=SRW if sort_free else 0, sort_free=sort_free)
@@ -703,6 +768,9 @@ def make_sharded_engine(
                              act_gen[d], c.act_dist[d],
                              torch.cat([c.act_gen[d], c.act_dist[d]]),
                              n_labels)
+        spill_hits = c.spill_hits
+        if spill:
+            spill_hits = spill_hits + (veto & xvalid.view(D, DB)).sum(1)
         pv = {}
         if pipeline:
             cont = cont | (sum(n) > 0)
@@ -715,8 +783,12 @@ def make_sharded_engine(
             depth=depth2, generated=generated, distinct=distinct,
             act_gen=act_gen, viol=global_viol.clone(),
             viol_state=viol_state, viol_local=viol_local, cont=cont,
-            cov_counts=cov_counts, bundle=None, **pv, **obs)
+            cov_counts=cov_counts, spill_hits=spill_hits, bundle=None, **pv,
+            **obs)
         return out._replace(bundle=read_bundle(out))
+
+    def body(c: ShardCarry, h: ShardBundle) -> ShardCarry:
+        return commit_half(c, h, expand_half(c, h))
 
     def run_fn(c: ShardCarry) -> ShardCarry:
         steps = 0
@@ -737,6 +809,7 @@ def make_sharded_engine(
     run_fn.steps = 0
     run_fn.geometry = dict(D=D, B=B, ncand=ncand, F=F, L=L, chunk=chunk,
                            SRW=SRW, sort_free=sort_free, deferred=deferred)
+    run_fn.halves = (expand_half, commit_half)
     return init_fn, run_fn
 
 
@@ -842,6 +915,165 @@ def drain_pending_host(carry: ShardCarry) -> ShardCarry:
 # ---------------------------------------------------------------------------
 
 
+class ShardedSpillRuntime:
+    """Spill-mode execution of the sharded engine (port of
+    jaxtlc/engine/sharded.py:1035-1321, the D shards in one process); the
+    supervisor swaps its segment function for ``segment_fn`` when the
+    ladder turns the host tier on for a sharded run.  Each chunk step runs
+    the engine's own halves with a host probe between them::
+
+        expand + route + each owner's K9 filter of its received lanes
+          -> one device-to-host read of the probable-new lanes
+          -> SpillStore.probe (host) -> commit with the host veto
+
+    One SpillStore holds every shard's spilled fingerprints: the owners'
+    fingerprint spaces are disjoint (owner = hi & (D - 1)), so one store is
+    exact for all of them.  Before a step that could take some table past
+    the high-water load (each table's occupancy, measured; the reference's
+    pmax is a max over the shard axis), the tables over the mark - and only
+    those - are unmixed into the store and start empty; a fingerprint lives
+    in its owner's table or in the store, never in both.  A vetoed
+    candidate dedups like an owner-table hit, so counters and verdict equal
+    a correctly sized clean sharded run's.  ``on_event(kind, info)``
+    receives the `spill` journal events; ``spill_write_hook`` is the fault
+    seam called before every flush; ``flushes``, ``probes`` and
+    ``store_s`` describe the host tier's work."""
+
+    def __init__(self, cfg, mesh: ShardMesh, chunk: int, queue_capacity: int,
+                 fp_capacity: int, fp_index: int = DEFAULT_FP_INDEX,
+                 route_factor: float = 2.0, backend=None,
+                 fp_highwater: float = None, obs_slots: int = 0,
+                 sort_free: bool = None, deferred: bool = None, store=None,
+                 on_event=None, spill_write_hook=None):
+        from .spill import SpillStore
+
+        if fp_highwater is None:
+            fp_highwater = FP_HIGHWATER
+        init_fn, run_fn = make_sharded_engine(
+            cfg, mesh, chunk, queue_capacity, fp_capacity,
+            fp_index=fp_index, route_factor=route_factor, backend=backend,
+            fp_highwater=fp_highwater, pipeline=False, obs_slots=obs_slots,
+            sort_free=sort_free, deferred=deferred)
+        self._base_init = init_fn
+        self._expand, self._commit = run_fn.halves
+        self.D = mesh.n_shards
+        self.DB = self.D * run_fn.geometry["B"]
+        self.fp_capacity = fp_capacity
+        self.fp_highwater = fp_highwater
+        self.store = store if store is not None else SpillStore()
+        self.on_event = on_event
+        self.spill_write_hook = spill_write_hook
+        self.flushes = 0
+        self.probes = 0  # candidates that paid the host round trip
+        self.store_s = 0.0  # seconds in the host store
+
+    def init_fn(self) -> ShardCarry:
+        """A fresh spill-mode carry (also the checkpoint template)."""
+        return self.adopt(self._base_init())
+
+    def adopt(self, carry: ShardCarry) -> ShardCarry:
+        """Enter spill mode: add the spill_hits leaf (idempotent).  The
+        saturated tables stay; the first step's residency test flushes
+        them."""
+        assert carry.pv_n is None, \
+            "spill mode runs unpipelined sharded carries only"
+        if carry.spill_hits is None:
+            carry = carry._replace(spill_hits=torch.zeros(
+                self.D, dtype=torch.int64, device=carry.queue.device))
+        return carry
+
+    def _emit(self, kind: str, **info) -> None:
+        if self.on_event is not None:
+            self.on_event(kind, info)
+
+    @staticmethod
+    def _occupancy(carry: ShardCarry) -> list:
+        """Occupied slots of each shard's table (a slot is a (lo, hi) word
+        pair, empty when both are 0)."""
+        D = carry.table.shape[0]
+        return (carry.table.view(D, -1, 2) != 0).any(2).sum(1).tolist()
+
+    def _flush(self, carry: ShardCarry, needy) -> ShardCarry:
+        """Move the tables of the shards in `needy` into the store and
+        start them empty; SpillWriteError when the write seam fails."""
+        from .fpset import unmix_host
+        from .spill import SpillWriteError
+
+        try:
+            if self.spill_write_hook is not None:
+                self.spill_write_hook()
+        except OSError as e:
+            raise SpillWriteError(str(e)) from e
+        t0 = time.time()
+        table = carry.table.clone()
+        resident = 0
+        for d in range(self.D):
+            t = table[d].cpu().numpy().view(np.uint32)
+            lo = t[:, 0::2].reshape(-1)
+            hi = t[:, 1::2].reshape(-1)
+            occ = (lo != 0) | (hi != 0)
+            if d not in needy:
+                # an under-water table keeps its fingerprints resident
+                resident += int(occ.sum())
+                continue
+            self.store.insert_batch(*unmix_host(lo[occ], hi[occ]))
+            table[d].zero_()
+        self.flushes += 1
+        wall = time.time() - t0
+        self.store_s += wall
+        carry = carry._replace(table=table)
+        self._emit("spill", phase="flush", resident=resident,
+                   spilled=self.store.count, capacity=self.store.capacity,
+                   hits=int(carry.spill_hits.sum()), probes=self.probes,
+                   flushed_tables=len(needy), wall_s=round(wall, 6))
+        return carry
+
+    def step(self, carry: ShardCarry, h: ShardBundle) -> ShardCarry:
+        """One chunk step (the caller has flushed where needed)."""
+        ex = self._expand(carry, h, with_member=True)
+        D, DB = self.D, self.DB
+        probable = ex.xvalid.view(D, DB) & ~ex.member
+        veto = torch.zeros_like(probable)
+        lanes = torch.nonzero(probable.view(-1)).flatten()
+        if lanes.numel():
+            # the one device-to-host read of the probable-new lanes
+            words = torch.stack([ex.xlo.view(-1)[lanes],
+                                 ex.xhi.view(-1)[lanes]]).cpu().numpy()
+            words = words.view(np.uint32)
+            self.probes += lanes.numel()
+            t0 = time.time()
+            held = self.store.probe(words[0], words[1])
+            self.store_s += time.time() - t0
+            if held.any():
+                veto.view(-1)[lanes[torch.from_numpy(held).to(
+                    lanes.device)]] = True
+        return self._commit(carry, h, ex, veto)
+
+    def segment_fn(self, ckpt_every: int):
+        """seg(carry) -> the carry after up to `ckpt_every` chunk steps,
+        stopping early at the end of the run or at a violation.  The pop
+        sequence is the fused sharded body's, step for step."""
+        highwater_slots = int(self.fp_capacity * self.fp_highwater)
+
+        def seg(carry: ShardCarry) -> ShardCarry:
+            for _ in range(ckpt_every):
+                h = read_bundle(carry)
+                if not h.cont:
+                    break
+                # measured, not derived from the distinct counters: a
+                # rolled-back carry whose failed attempt flushed stays exact
+                needy = {d for d, occ in enumerate(self._occupancy(carry))
+                         if occ + self.DB > highwater_slots}
+                if needy:
+                    carry = self._flush(carry, needy)
+                carry = self.step(carry, h)
+                if carry.bundle.viol != OK:
+                    break
+            return carry
+
+        return seg
+
+
 def _sync(carry: ShardCarry) -> None:
     if carry.queue.is_cuda:
         torch.cuda.synchronize(carry.queue.device)
@@ -930,3 +1162,32 @@ def check_sharded_with_checkpoints(
     return result_from_shard_carry(
         carry, time.time() - t0, iterations=segments, labels=backend.labels,
         fp_capacity_total=fp_capacity * mesh.n_shards)
+
+
+# ---------------------------------------------------------------------------
+# the liveness fixpoint over the shard axis
+# ---------------------------------------------------------------------------
+
+
+def sharded_survive_fixpoint(mesh: ShardMesh, n_states: int, src: np.ndarray,
+                             dst: np.ndarray, in_h: np.ndarray,
+                             terminal: np.ndarray):
+    """The survive-set fixpoint of live.fixpoint with the edge relation
+    cut into D equal slices, one a shard (jaxtlc/engine/sharded.py:1490):
+    each sweep of kernel K16 marks every slice's support partial and sums
+    the partials over the shard axis where the reference uses a psum; the
+    alive plane is replicated.  Padding edges carry src = V and are
+    dropped.  Caller contract: (src, dst) are the state-changing edges
+    internal to H.  Returns (alive bool [V], sweeps)."""
+    from ..live.fixpoint import survive_fixpoint
+
+    D = mesh.n_shards
+    V = int(n_states)
+    E = len(src)
+    Ep = max(-(-max(E, 1) // D) * D, D)
+    src_p = np.full(Ep, V, np.int32)
+    dst_p = np.zeros(Ep, np.int32)
+    src_p[:E] = src
+    dst_p[:E] = dst
+    return survive_fixpoint(src_p, dst_p, in_h, terminal, D=D,
+                            device=mesh.device)

@@ -232,6 +232,18 @@ class TLCLog:
                 f"col {len(name) + 6} of module KubeAPI>: {d}:{g}",
             )
 
+    def checking_temporal(self, distinct: int, path: str = "host") -> None:
+        """TLC's 2192 liveness-phase banner, naming the liveness engine that
+        runs: `host` (explicit graph) or `device` (edge capture and the
+        survive-set fixpoint)."""
+        self.msg(
+            2192,
+            f"Checking temporal properties for the complete state space "
+            f"with {distinct} total distinct states at "
+            f"{time.strftime('%Y-%m-%d %H:%M:%S')} "
+            f"({path} liveness engine)",
+        )
+
     def final_counts(self, generated: int, distinct: int, queue: int) -> None:
         self.msg(
             2199,

@@ -1,5 +1,6 @@
-// CPU build of the per-lane logic of K1, K3, K5-K13, for the host tests
-// (tests/test_torch_kernels_host.py, tests/test_torch_sharded.py).  g++ compiles the same
+// CPU build of the per-lane logic of K1, K3, K5-K16, for the host tests
+// (tests/test_torch_kernels_host.py, tests/test_torch_sharded.py,
+// tests/test_torch_live.py).  g++ compiles the same
 // __host__ __device__ headers nvcc builds the kernels from; these loops
 // stand in for the grids, the straggler walk runs the walk kernel's
 // rounds (read, rank, claim-or-advance) sequentially, and std::stable_sort
@@ -10,12 +11,14 @@
 #include "coverage.cuh"
 #include "deferred.cuh"
 #include "fpset.cuh"
+#include "liveness.cuh"
 #include "ring.cuh"
 #include "route.cuh"
 #include "slab.cuh"
 
 extern "C" int tt_layout_words() { return sizeof(KubeLayout) / 4; }
 extern "C" int tt_coverage_words() { return sizeof(CovParams) / 4; }
+extern "C" int tt_mask_words() { return sizeof(MaskParams) / 4; }
 
 // K10: every row's site contributions, added into out[COV_N_SITES]
 struct HostEmit {
@@ -396,4 +399,56 @@ extern "C" void host_shard_enqueue(int32_t* queue, long long qrows, int qcap,
         queue[((size_t)o * qrows + (size_t)tgt) * F + j] =
             xvalid[k] ? xrows[k * F + j] : 0;
     }
+}
+
+// K14: both passes over N lanes, the inclusive counts summed in between;
+// returns the number of edges written, or -1 when a valid lane's
+// fingerprint is missing.
+extern "C" long long host_edge_capture(const uint32_t* s_hi,
+                                       const uint32_t* s_lo,
+                                       const int32_t* perm, int n, int rounds,
+                                       const uint32_t* q_hi,
+                                       const uint32_t* q_lo,
+                                       const uint8_t* valid,
+                                       const int32_t* action, long long N,
+                                       int L, int offset, int32_t* edges) {
+  std::vector<int32_t> dst(N);
+  std::vector<uint8_t> changed(N);
+  std::vector<long long> cum(N);
+  bool missing = false;
+  long long c = 0;
+  for (long long i = 0; i < N; i++) {
+    missing |= edge_search_lane(i, s_hi, s_lo, perm, n, rounds, q_hi, q_lo,
+                                valid, L, offset, dst.data(), changed.data());
+    c += valid[i] != 0;
+    cum[i] = c;
+  }
+  for (long long i = 0; i < N; i++)
+    edge_compact_lane(i, valid, cum.data(), L, offset, dst.data(),
+                      changed.data(), action, edges);
+  return missing ? -1 : c;
+}
+
+// K15: every state's predicate rows.
+extern "C" void host_state_masks(const void* params, const uint32_t* states,
+                                 long long V, uint8_t* out) {
+  const MaskParams& p = *(const MaskParams*)params;
+  for (long long v = 0; v < V; v++)
+    state_masks_row(p, states + (size_t)v * p.W, v, V, out);
+}
+
+// K16: one sweep; returns whether a state died.
+extern "C" int host_survive_sweep(const int32_t* src, const int32_t* dst,
+                                  long long E, long long slice, int D,
+                                  const uint8_t* alive, const uint8_t* term,
+                                  long long V, uint8_t* alive2) {
+  std::vector<uint8_t> support((size_t)D * V, 0);
+  for (long long e = 0; e < E; e++)
+    survive_scatter_edge(e, src, dst, alive, slice, V, support.data());
+  int changed = 0;
+  for (long long v = 0; v < V; v++) {
+    alive2[v] = survive_update_state(v, alive, term, support.data(), D, V);
+    changed |= alive2[v] != alive[v];
+  }
+  return changed;
 }

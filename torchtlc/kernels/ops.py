@@ -23,7 +23,8 @@ KERNELS = ("expand", "fp64", "fpset_key", "fpset_probe", "fpset_claim",
            "fpset_walk", "commit", "slab_scatter", "slab_resolve",
            "slab_compact", "slab_order", "slab_mark", "deferred_check",
            "ring_row", "fpset_member", "coverage_count", "route_scatter",
-           "verdict_fold", "shard_enqueue")
+           "verdict_fold", "shard_enqueue", "edge_capture", "state_masks",
+           "survive_sweep")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -65,6 +66,14 @@ _SIGNATURES = {
                                   _I, _I, _P, _P, _P, _P]),
     "tt_shard_enqueue": ("route", [_P, _LL, _I, _P, _P, _P, _P, _P, _P, _LL,
                                    _I, _I, _P]),
+    "tt_edge_search": ("liveness", [_P, _P, _P, _I, _I, _P, _P, _P, _LL, _I,
+                                    _I, _P, _P, _P, _P]),
+    "tt_edge_compact": ("liveness", [_P, _P, _LL, _I, _I, _P, _P, _P, _P,
+                                     _P]),
+    "tt_mask_words": ("liveness", []),
+    "tt_state_masks": ("liveness", [_P, _P, _LL, _P, _P]),
+    "tt_survive_sweep": ("liveness", [_P, _P, _LL, _LL, _I, _P, _P, _LL, _P,
+                                      _P, _P, _P]),
 }
 
 
@@ -658,3 +667,89 @@ def shard_enqueue(queue, is_new, cum, qtail, q_full, xrows, xvalid) -> None:
     _launched("shard_enqueue", lib().tt_shard_enqueue(
         _ptr(queue), qrows, qrows - 1, _ptr(is_new), _ptr(cum), _ptr(qtail),
         _ptr(q_full), _ptr(xrows), _ptr(xvalid), n, D, F, _stream()))
+
+
+# ---------------------------------------------------------------------------
+# K14 edge capture, K15 state masks, K16 survive sweep
+# ---------------------------------------------------------------------------
+
+
+def edge_capture(s_hi, s_lo, perm, q_hi, q_lo, valid, action, offset: int,
+                 L: int):
+    """K14 (its two launches, edge_search and edge_compact, count as one):
+    the valid lanes' edges [nv, 4] int32 (src, dst, action, changed) in
+    lane order and the `missing` flag (0-dim bool); see
+    live.capture.edge_capture_plain.  s_hi, s_lo [V] int32 fingerprint
+    words sorted as unsigned (hi, lo) pairs, perm [V] int32 their ids;
+    q_hi, q_lo [N] int32, valid [N] uint8, action [N] int32."""
+    V = s_hi.shape[0]
+    N = q_hi.shape[0]
+    if not 0 < V < 1 << 31:
+        raise ValueError(f"{V} states do not fit the int32 ids")
+    for name, t, dt, n in (("s_hi", s_hi, torch.int32, V),
+                           ("s_lo", s_lo, torch.int32, V),
+                           ("perm", perm, torch.int32, V),
+                           ("q_hi", q_hi, torch.int32, N),
+                           ("q_lo", q_lo, torch.int32, N),
+                           ("valid", valid, torch.uint8, N),
+                           ("action", action, torch.int32, N)):
+        _need(t, name, dt, (n,))
+    dev = q_hi.device
+    rounds = max(1, (V - 1).bit_length())
+    dst = torch.empty(N, dtype=torch.int32, device=dev)
+    chg = torch.empty(N, dtype=torch.uint8, device=dev)
+    missing = torch.zeros(1, dtype=torch.int32, device=dev)
+    rc = lib().tt_edge_search(_ptr(s_hi), _ptr(s_lo), _ptr(perm), V, rounds,
+                              _ptr(q_hi), _ptr(q_lo), _ptr(valid), N, L,
+                              offset, _ptr(dst), _ptr(chg), _ptr(missing),
+                              _stream())
+    if rc != 0:
+        raise RuntimeError(f"kernel edge_capture: launch failed, CUDA error "
+                           f"{rc}")
+    cum = torch.cumsum(valid, 0, dtype=torch.int64)
+    nv = int(cum[-1]) if N else 0
+    edges = torch.empty(nv, 4, dtype=torch.int32, device=dev)
+    _launched("edge_capture", lib().tt_edge_compact(
+        _ptr(valid), _ptr(cum), N, L, offset, _ptr(dst), _ptr(chg),
+        _ptr(action), _ptr(edges), _stream()))
+    return edges, missing[0] != 0
+
+
+def state_masks(params: np.ndarray, states: torch.Tensor) -> torch.Tensor:
+    """K15: the predicate rows [nr + n_sec, V] uint8 of packed states [V, W]
+    int32; params: live.capture.mask_params.  See
+    live.capture.state_masks_plain."""
+    n = lib().tt_mask_words()
+    if params.shape != (n,) or params.dtype != np.int32:
+        raise ValueError(f"MaskParams: expected {n} int32 words")
+    V, W = states.shape
+    if W != int(params[0]):
+        raise ValueError(f"states hold {W} words, params say {params[0]}")
+    _need(states, "states", torch.int32)
+    out = torch.empty(int(params[6]) + int(params[7]), V, dtype=torch.uint8,
+                      device=states.device)
+    _launched("state_masks", lib().tt_state_masks(
+        params.ctypes.data_as(_P), _ptr(states), V, _ptr(out), _stream()))
+    return out
+
+
+def survive_sweep(src: torch.Tensor, dst: torch.Tensor, D: int,
+                  alive: torch.Tensor, term: torch.Tensor):
+    """K16: one Jacobi sweep over E edges in D equal slices -> (alive2 [V]
+    uint8, changed 0-dim bool); see live.fixpoint.survive_sweep_plain."""
+    E = src.shape[0]
+    V = alive.shape[0]
+    if E % D:
+        raise ValueError("edges must split evenly over the slices")
+    _need(src, "src", torch.int32, (E,))
+    _need(dst, "dst", torch.int32, (E,))
+    _need(alive, "alive", torch.uint8, (V,))
+    _need(term, "term", torch.uint8, (V,))
+    dev = alive.device
+    support = torch.empty(D, V, dtype=torch.uint8, device=dev)
+    alive2 = torch.empty(V, dtype=torch.uint8, device=dev)
+    changed = torch.empty(1, dtype=torch.int32, device=dev)
+    _launched("survive_sweep", lib().tt_survive_sweep(
+        _ptr(src), _ptr(dst), E, max(E // D, 1), D, _ptr(alive), _ptr(term),
+        V, _ptr(support), _ptr(alive2), _ptr(changed), _stream()))
+    return alive2, changed[0] != 0

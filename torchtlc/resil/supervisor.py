@@ -36,9 +36,9 @@ injected transient faults into events:
   composition and cannot be re-seated at another pop width.
 * **The sharded engine** (``ShardedAdapter``, ``check_sharded_supervised``;
   capacities per shard) also regrows its route buckets (VIOL_ROUTE_OVERFLOW
-  doubles route_factor).  It has no spill or chunk-shrink rung here: a
-  denied regrow ends with a checkpoint and exit 75, where the reference
-  takes its sharded spill tier (ROADMAP Queue C).
+  doubles route_factor).  Unpipelined, its spill rung is the sharded
+  spill runtime (engine.sharded.ShardedSpillRuntime); it has no
+  chunk-shrink rung, as in the reference.
 
 The engine updates its carry in place, so every segment runs on a copy
 of the last good carry (bfs.clone_carry): retries and regrows replay
@@ -331,9 +331,9 @@ class ShardedAdapter:
     """The supervision seam over the sharded engine (D shards in one
     process, on the card unless `device` says otherwise; the reference's
     ShardedAdapter, jaxtlc/resil/supervisor.py:515-650).  Capacities are
-    PER SHARD; growable: queue_capacity, fp_capacity, route_factor.  No
-    spill tier (the sharded spill runtime is a later slice) and no chunk
-    shrink, as in the reference."""
+    PER SHARD; growable: queue_capacity, fp_capacity, route_factor.  The
+    spill tier when unpipelined (ShardedSpillRuntime) and no chunk shrink,
+    as in the reference."""
 
     kind = "sharded"
     GEOM_KEYS = ("queue_capacity", "fp_capacity", "route_factor")
@@ -410,7 +410,22 @@ class ShardedAdapter:
             fp_capacity_total=params["fp_capacity"] * self.mesh.n_shards)
 
     def supports_spill(self) -> bool:
-        return False
+        # the spill runtime runs the unpipelined halves; a pipelined
+        # carry's pending verdicts have no spill composition
+        return not self.pipeline
+
+    def build_spill(self, params: dict, store, on_event=None,
+                    spill_write_hook=None):
+        """A ShardedSpillRuntime over this adapter's backend and geometry."""
+        from ..engine.sharded import ShardedSpillRuntime
+
+        return ShardedSpillRuntime(
+            self.cfg, self.mesh, self.chunk, params["queue_capacity"],
+            params["fp_capacity"], fp_index=self.fp_index,
+            route_factor=params["route_factor"], backend=self.backend,
+            fp_highwater=self.fp_highwater, obs_slots=self.obs_slots,
+            sort_free=self.sort_free, deferred=self.deferred, store=store,
+            on_event=on_event, spill_write_hook=spill_write_hook)
 
     def can_shrink(self, floor: int = MIN_CHUNK) -> bool:
         return False
@@ -891,7 +906,7 @@ def supervise(adapter, params: dict,
           interrupted=interrupted)
     spill_hits = 0
     if spill_rt is not None and carry.spill_hits is not None:
-        spill_hits = int(carry.spill_hits)
+        spill_hits = int(carry.spill_hits.sum())  # over the shards
     return SupervisedResult(
         result=result, params=params, regrows=regrows, retries=retries_used,
         interrupted=interrupted, segments=segments, ckpt_writes=ckpt_writes,
