@@ -33,9 +33,11 @@ exit 75 -> -recover (12c) - and through its host spill tier, a denied
 regrow and -spill (12d); then temporal properties behind kernels K14-K16:
 ``check MC.cfg`` with PROPERTY ReconcileCompletes and CleansUpProperly on
 Model_1 (the host path, exit 13, the reference's lasso digest; 13),
-Model_1 on the device path against the host graph (13b), scaled 2x1 on
-the device path at full width with oracle-replayed lassos (13c) and its
-fixpoints again on 4 shards (13d).  It checks every
+Model_1 on the device path against the host graph and the reference's
+lassos (13b), scaled 2x1 on the device path at full width with
+oracle-replayed lassos (13c) and its fixpoints again on 4 shards (13d);
+K16 is also swept to a fixpoint where states die (a seeded random H), on
+one slice and on 4, against its plain version.  It checks every
 result against its pinned value, holds each kernel bitwise against its
 plain torch version on the card, and prints:
 
@@ -198,6 +200,11 @@ SPILL_N = 8192 * 12  # K9's lanes at the scaled spill step
 LIVE_PROPS = ["ReconcileCompletes", "CleansUpProperly"]
 M1_LIVENESS_SHA256 = ("d1860e2d0ac11d3da42d8ad33ab2b667"
                       "38b59acca798ec8d4d2e59c3cbf4912b")
+# lasso_digest of jaxtlc.live.check.check_properties_device(MODEL_1,
+# LIVE_PROPS) on the CPU (the reference's device path; both violated,
+# lassos of 10 + 15 and 42 + 5 states)
+M1_DEVICE_LASSO_SHA256 = ("b2370440012e6979f2eaf0a1532a643a"
+                          "68d72eb1217f3249c2481d51ec3eedbd")
 # the scaled 2x1 capture: 65,536 states a sweep (786,432 lanes), the
 # 19,359,985 states in a 2^25-row array and a 2^25-slot table
 SCALED_LIVE_KW = dict(chunk=1 << 16, state_capacity=1 << 25,
@@ -1686,33 +1693,114 @@ def phase_liveness_command(ops, tmp, card):
     return {"live_cmd": {"launches": launches}}
 
 
+def lasso_digest(results):
+    """SHA-256 of liveness results: each verdict and, for a violation, its
+    prefix and cycle states (int32 fields) and their action names."""
+    import numpy as np
+
+    h = hashlib.sha256()
+    for r in results:
+        h.update(f"{r.name} {r.holds}\n".encode())
+        if r.holds:
+            continue
+        for part in (r.prefix, r.cycle):
+            h.update(f"{len(part)}\n".encode())
+            for st in part:
+                h.update(np.asarray(st, np.int32).tobytes())
+        h.update(repr((list(r.prefix_actions),
+                       list(r.cycle_actions))).encode())
+    return h.hexdigest()
+
+
+def staged_capture(torch, cfg, kw):
+    """capture_kube_graph's three stages, each timed on the host clock
+    after a device sync: (graph, raw edge count, walls)."""
+    from torchtlc.engine.backend import kubeapi_backend
+    from torchtlc.live.capture import (captured_graph, enumerate_states,
+                                       sweep_edges)
+
+    backend = kubeapi_backend(cfg)
+    t0 = time.time()
+    states = enumerate_states(backend, **kw)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    raw = sweep_edges(backend, states, chunk=kw["chunk"])
+    t2 = time.time()
+    graph = captured_graph(backend, states, raw)
+    walls = dict(enumerate_s=t1 - t0, capture_s=t2 - t1,
+                 dedup_s=time.time() - t2)
+    return graph, len(raw), walls
+
+
+def timed_fixpoints(torch, cfg, graph, mesh=None):
+    """The K15 masks of a captured graph and the survive fixpoint of each
+    zone of the two properties (live.check's zones), timed: (zones,
+    masks_s, [(alive, sweeps, wall_s)])."""
+    import numpy as np
+
+    from torchtlc.live.capture import state_masks
+    from torchtlc.live.fixpoint import has_nonself, surviving_set
+
+    t0 = time.time()
+    masks = state_masks(cfg, torch.from_numpy(graph.states.view(
+        np.int32)).cuda()).cpu().numpy().astype(bool)
+    masks_s = time.time() - t0
+    nr = cfg.n_reconcilers
+    zones = [masks[k] for k in range(nr)] + [
+        ~masks[k] & masks[nr + k] for k in range(nr)]
+    nonself = has_nonself(graph)
+    out = []
+    for in_h in zones:
+        t0 = time.time()
+        alive, sweeps = surviving_set(graph, in_h, mesh=mesh,
+                                      nonself=nonself)
+        out.append((alive, sweeps, time.time() - t0))
+    return zones, masks_s, out
+
+
+def fixpoint_text(zones, fixes):
+    return ", ".join(f"zone {k}: {sw} sweeps {wall:.3f} s ({int(h.sum())} "
+                     f"in H, {int(alive.sum())} alive)"
+                     for k, (h, (alive, sw, wall)) in enumerate(
+                         zip(zones, fixes)))
+
+
 def phase_liveness_model1(torch, ops, card, runs):
-    """Phase 13b: Model_1 on the device path (check_properties_device):
-    the captured states equal the host graph's state for state, and the
-    verdicts and lassos equal the host path's; K14-K16 against their plain
-    versions on Model_1 shapes."""
+    """Phase 13b: Model_1 through check_properties_device (capture and
+    all): its verdicts equal the host path's and its lassos (states and
+    actions) the reference's device path's (pinned digest); then the
+    capture's stages again, timed: the raw edges are the generated
+    successors of non-initial states, the captured states equal the host
+    graph's state for state; K14-K16 against their plain versions on
+    Model_1 shapes."""
     import numpy as np
 
     from torchtlc.config import MODEL_1
     from torchtlc.engine.liveness import build_graph, check_properties
-    from torchtlc.live.check import capture_kube_graph, check_properties_device
+    from torchtlc.live.check import check_properties_device
     from torchtlc.spec.codec import get_codec
 
-    t = {}
+    kw = dict(chunk=1024, state_capacity=1 << 18, fp_capacity=1 << 19)
     ops.reset_counts()
     torch.cuda.synchronize()
     t0 = time.time()
-    graph = capture_kube_graph(MODEL_1, chunk=1024, state_capacity=1 << 18,
-                               fp_capacity=1 << 19, timings=t)
-    res = check_properties_device(MODEL_1, LIVE_PROPS, graph=graph,
-                                  timings=t)
+    res = check_properties_device(MODEL_1, LIVE_PROPS, **kw)
     wall = time.time() - t0
     launches = dict(ops.LAUNCHES)
-    need(t["raw_edges"] == M1_COUNTS[0] - graph.init_count,
-         f"Model_1 raw edges {t['raw_edges']}")
+    digest = lasso_digest(res)
+    need(digest == M1_DEVICE_LASSO_SHA256, f"the device path's lassos "
+         f"(digest {digest[:16]}) are not the reference's")
     t0 = time.time()
     host = build_graph(MODEL_1)
     host_wall = time.time() - t0
+    href = check_properties(MODEL_1, LIVE_PROPS, graph=host)
+    need([(r.name, r.holds) for r in res]
+         == [(r.name, r.holds) for r in href],
+         "device and host verdicts differ")
+
+    graph, n_raw, walls = staged_capture(torch, MODEL_1, kw)
+    need(n_raw == M1_COUNTS[0] - graph.init_count,
+         f"Model_1 raw edges {n_raw}")
     cdc = get_codec(MODEL_1)
     packed = cdc.pack(torch.from_numpy(host.states.astype(np.int32)))
     need(graph.n_states == host.states.shape[0] == M1_COUNTS[1],
@@ -1724,88 +1812,71 @@ def phase_liveness_model1(torch, ops, card, runs):
     need(np.array_equal(rows_sorted(packed.numpy().view(np.uint32)),
                         rows_sorted(graph.states)),
          "the captured states are not the host graph's")
-    href = check_properties(MODEL_1, LIVE_PROPS, graph=host)
-    need([(r.name, r.holds) for r in res]
-         == [(r.name, r.holds) for r in href],
-         "device and host verdicts differ")
+    zones, masks_s, fixes = timed_fixpoints(torch, MODEL_1, graph)
     live_kernel_checks(torch, ops, "model1", MODEL_1, graph, runs)
-    fx = ", ".join(f"{f['name']} {f['sweeps']} sweeps {f['wall_s']:.3f} s"
-                   for f in t["fixpoints"])
-    print(f"phase 13b liveness Model_1, device path: {graph.n_states} "
-          f"captured states = the host graph's, {t['raw_edges']} raw / "
-          f"{len(graph.src)} deduplicated edges; verdicts "
-          f"{lasso_lengths(res)} = the host path's; enumerate "
-          f"{t['enumerate_s']:.3f} s ({t['enum_bodies']} bodies), capture "
-          f"{t['capture_s']:.3f} s, dedup {t['dedup_s']:.3f} s, masks "
-          f"{t['masks_s']:.3f} s, fixpoints {fx}; check {wall:.2f} s, host "
-          f"graph {host_wall:.2f} s on {card}; launches {launches}",
-          flush=True)
+    print(f"phase 13b liveness Model_1, device path: verdicts "
+          f"{lasso_lengths(res)} = the host path's, lassos = the "
+          f"reference's device path's (digest {digest[:16]}); check "
+          f"{wall:.2f} s, host graph {host_wall:.2f} s; stages: "
+          f"{graph.n_states} captured states = the host graph's, {n_raw} "
+          f"raw / {len(graph.src)} deduplicated edges, enumerate "
+          f"{walls['enumerate_s']:.3f} s, capture {walls['capture_s']:.3f} "
+          f"s, dedup {walls['dedup_s']:.3f} s, masks {masks_s:.3f} s, "
+          f"fixpoints {fixpoint_text(zones, fixes)} on {card}; launches "
+          f"{launches}", flush=True)
     return {"live_m1": {"launches": launches}}
 
 
 def phase_liveness_scaled(torch, ops, card, runs):
-    """Phase 13c: scaled 2x1 on the device path at full width: 19,359,985
-    captured states, both verdicts with oracle-replayed lassos, the walls
-    of each stage; 13d: every fixpoint again on 4 shards (the same alive
-    set and sweep count); K14-K16 against their plain versions on blocks of
-    this capture."""
+    """Phase 13c: scaled 2x1 on the device path at full width: the
+    capture's stages (timed) and check_properties_device on its graph -
+    19,359,985 captured states, the raw edges the generated successors of
+    non-initial states, both verdicts with oracle-replayed lassos; the
+    masks and each fixpoint timed.  13d: every fixpoint again on 4 shards
+    (the same alive set and sweep count).  K14-K16 against their plain
+    versions on blocks of this capture, and the fixpoint, on one device
+    and on 4 slices, where states die."""
     import numpy as np
 
     from torchtlc.config import scaled_config
     from torchtlc.engine.sharded import ShardMesh
-    from torchtlc.live.capture import state_masks
-    from torchtlc.live.check import capture_kube_graph, check_properties_device
-    from torchtlc.live.fixpoint import has_nonself, surviving_set
+    from torchtlc.live.check import check_properties_device
 
     cfg, _ = scaled_config()
-    t = {}
     ops.reset_counts()
     torch.cuda.synchronize()
     t0 = time.time()
-    graph = capture_kube_graph(cfg, **SCALED_LIVE_KW, timings=t)
-    res = check_properties_device(cfg, LIVE_PROPS, graph=graph, timings=t)
+    graph, n_raw, walls = staged_capture(torch, cfg, SCALED_LIVE_KW)
+    t1 = time.time()
+    res = check_properties_device(cfg, LIVE_PROPS, graph=graph)
+    check_s = time.time() - t1
     wall = time.time() - t0
     launches = dict(ops.LAUNCHES)
     need(graph.n_states == SCALED_COUNTS[1],
          f"scaled captured {graph.n_states} states")
-    need(t["raw_edges"] == SCALED_COUNTS[0] - graph.init_count,
-         f"scaled raw edges {t['raw_edges']}")
-    fx = ", ".join(f"{f['name']} {f['sweeps']} sweeps {f['wall_s']:.3f} s "
-                   f"({f['in_h']} in H, {f['alive']} alive)"
-                   for f in t["fixpoints"])
-    print(f"phase 13c liveness scaled 2x1, device path: {graph.n_states} "
-          f"captured states, {t['raw_edges']} raw / {len(graph.src)} "
-          f"deduplicated edges; verdicts {lasso_lengths(res)} (every lasso "
-          f"replayed through the oracle); enumerate {t['enumerate_s']:.3f} s "
-          f"({t['enum_bodies']} bodies), capture {t['capture_s']:.3f} s, "
-          f"dedup {t['dedup_s']:.3f} s, masks {t['masks_s']:.3f} s, "
-          f"fixpoints {fx}; check {wall:.2f} s on {card}; launches "
-          f"{launches}", flush=True)
+    need(n_raw == SCALED_COUNTS[0] - graph.init_count,
+         f"scaled raw edges {n_raw}")
     out = {"live_scaled": {"launches": launches}}
+    zones, masks_s, ones = timed_fixpoints(torch, cfg, graph)
+    print(f"phase 13c liveness scaled 2x1, device path: {graph.n_states} "
+          f"captured states, {n_raw} raw / {len(graph.src)} deduplicated "
+          f"edges; verdicts {lasso_lengths(res)} (every lasso replayed "
+          f"through the oracle); enumerate {walls['enumerate_s']:.3f} s, "
+          f"capture {walls['capture_s']:.3f} s, dedup "
+          f"{walls['dedup_s']:.3f} s, check_properties_device {check_s:.2f} "
+          f"s ({wall:.2f} s in all); again outside it: masks "
+          f"{masks_s:.3f} s, fixpoints {fixpoint_text(zones, ones)} on "
+          f"{card}; launches {launches}", flush=True)
 
     # 13d: the same fixpoints over 4 edge slices
-    masks = state_masks(cfg, torch.from_numpy(graph.states.view(
-        np.int32)).cuda()).cpu().numpy().astype(bool)
-    nr = cfg.n_reconcilers
-    zones = [masks[k] for k in range(nr)] + [
-        ~masks[k] & masks[nr + k] for k in range(nr)]
-    nonself = has_nonself(graph)
-    ones = [surviving_set(graph, in_h, nonself=nonself) for in_h in zones]
     ops.reset_counts()
-    t0 = time.time()
-    fours = [surviving_set(graph, in_h, mesh=ShardMesh(4), nonself=nonself)
-             for in_h in zones]
-    wall4 = time.time() - t0
+    _, _, fours = timed_fixpoints(torch, cfg, graph, mesh=ShardMesh(4))
     out["live_scaled_4"] = {"launches": dict(ops.LAUNCHES)}
-    lines = []
     for k, (one, four) in enumerate(zip(ones, fours)):
         need(np.array_equal(one[0], four[0]) and one[1] == four[1],
              f"zone {k}: the 4-shard fixpoint differs")
-        lines.append(f"zone {k}: {one[1]} sweeps, {int(one[0].sum())} of "
-                     f"{int(zones[k].sum())} alive")
-    print(f"phase 13d scaled fixpoints on 4 shards = on one device "
-          f"({'; '.join(lines)}); the 4-shard fixpoints {wall4:.2f} s on "
-          f"{card}", flush=True)
+    print(f"phase 13d scaled fixpoints on 4 shards = on one device: "
+          f"{fixpoint_text(zones, fours)} on {card}", flush=True)
     live_kernel_checks(torch, ops, "scaled", cfg, graph, runs,
                        zone=max(zones, key=lambda z: int(z.sum())))
     return out
@@ -1828,10 +1899,10 @@ def live_kernel_checks(torch, ops, tag, cfg, graph, runs, zone=None):
     rows = runs.setdefault("live_rows", {})
     library = runs.setdefault("live_library", {})
 
-    def record(name, err, ms, pms, nbytes):
+    def record(name, err, ms, pms, nbytes, **extra):
         rows.setdefault(name, []).append(dict(
             shape=tag, max_abs_err=err, ms=ms, plain_ms=pms,
-            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3))
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, **extra))
 
     def err_of(a, b):
         if a.shape != b.shape:
@@ -1868,10 +1939,25 @@ def live_kernel_checks(torch, ops, tag, cfg, graph, runs, zone=None):
     lib_idx = torch.searchsorted(s_key, q_key)
     need(torch.equal(perm[lib_idx.clamp(max=V - 1)][valid.bool()],
                      got[0][:, 1]), f"searchsorted disagrees with K14 ({tag})")
-    record("edge_capture", err,
-           cuda_ms(torch, lambda _: ops.edge_capture(*args), 10),
+    # K14's time: its two launches on device events, the inclusive count
+    # and the edge buffer made outside the timed call (the wrapper reads
+    # the count to the host between them: timed apart as wrapper_ms)
+    cum = torch.cumsum(valid, 0, dtype=torch.int64)
+    buf = torch.empty(nv, 4, dtype=torch.int32, device=valid.device)
+
+    def launches_only(_):
+        dst, chg, _m = ops.edge_search(s_hi, s_lo, perm, q_hi, q_lo, valid,
+                                       off, L)
+        ops.edge_compact(valid, cum, off, L, dst, chg, action, buf)
+
+    launches_only(None)
+    need(torch.equal(buf, ref[0]), f"K14's launches alone differ ({tag})")
+    cumsum_ms = cuda_ms(torch, lambda _: torch.cumsum(
+        valid, 0, dtype=torch.int64), 10)
+    record("edge_capture", err, cuda_ms(torch, launches_only, 10),
            cuda_ms(torch, lambda _: capture.edge_capture_plain(*args), 3),
-           V * 12 + N * 13 + nv * 16)
+           V * 12 + N * 13 + nv * 16,
+           wrapper_ms=cuda_ms(torch, lambda _: ops.edge_capture(*args), 10))
     library["edge_capture"] = cuda_ms(
         torch, lambda _: torch.searchsorted(s_key, q_key), 10)
 
@@ -1919,6 +2005,7 @@ def live_kernel_checks(torch, ops, tag, cfg, graph, runs, zone=None):
     library["survive_sweep"] = cuda_ms(
         torch, lambda _: torch.zeros(V, dtype=torch.uint8, device="cuda")
         .scatter_reduce_(0, src64, vals, "amax"), 10)
+    dying = dying_fixpoints(torch, ops, tag, graph)
     times = "; ".join(
         f"{k} {r[-1]['ms']:.4f} ms (bound {r[-1]['bound_ms']:.4f}, plain "
         f"{r[-1]['plain_ms']:.3f}, library {library.get(k, '-')})"
@@ -1926,7 +2013,71 @@ def live_kernel_checks(torch, ops, tag, cfg, graph, runs, zone=None):
     print(f"phase 13 kernels vs plain ({tag}): K14 on {N} lanes ({nv} "
           f"edges) of the block at {off}, K15 over {V} states, K16 over "
           f"{E} edges of a {int(zone.sum())}-state zone: all bitwise "
-          f"equal; torch.searchsorted agrees with K14; {times}", flush=True)
+          f"equal; torch.searchsorted agrees with K14; {times}; K14's "
+          f"wrapper {rows['edge_capture'][-1]['wrapper_ms']:.4f} ms (its "
+          f"torch.cumsum {cumsum_ms:.4f} ms and the host read of the count "
+          f"included); {dying}", flush=True)
+
+
+def dying_fixpoints(torch, ops, tag, graph):
+    """K16 held against its plain version where states die: H a seeded
+    random half of the captured states, so that H-states lose their
+    support sweep after sweep.  Both routes sweep in lockstep from the
+    same alive plane, on one slice and on 4 (the padded slices of
+    engine.sharded.sharded_survive_fixpoint), each sweep bitwise equal;
+    then live.fixpoint.surviving_set on one device and on a 4-shard mesh
+    reach the same alive set in the same number of sweeps.  Needs more
+    than one sweep and a state removed by the first."""
+    import numpy as np
+
+    from torchtlc.engine.sharded import ShardMesh
+    from torchtlc.live import fixpoint
+
+    V = graph.n_states
+    in_h = np.random.default_rng(SEED + 14).random(V) < 0.5
+    term = in_h & ~fixpoint.has_nonself(graph)
+    keep = graph.changed & in_h[graph.src] & in_h[graph.dst]
+    src, dst = graph.src[keep], graph.dst[keep]
+    E = len(src)
+    out = []
+    for D in (1, 4):
+        Ep = max(-(-max(E, 1) // D) * D, D)
+        src_p = np.full(Ep, V, np.int32)
+        dst_p = np.zeros(Ep, np.int32)
+        src_p[:E], dst_p[:E] = src, dst
+        s_t = torch.from_numpy(src_p).cuda()
+        d_t = torch.from_numpy(dst_p).cuda()
+        term_t = torch.from_numpy(term.astype(np.uint8)).cuda()
+        alive = torch.from_numpy(in_h.astype(np.uint8)).cuda()
+        sweeps, removed = 0, []
+        while True:
+            got = ops.survive_sweep(s_t, d_t, D, alive, term_t)
+            ref = fixpoint.survive_sweep_plain(s_t, d_t, D, alive, term_t)
+            need(torch.equal(got[0], ref[0])
+                 and bool(got[1]) == bool(ref[1]),
+                 f"K16 differs from its plain version at sweep {sweeps} of "
+                 f"the random-H fixpoint, {D} slices ({tag})")
+            removed.append(int((alive != got[0]).sum()))
+            sweeps += 1
+            alive = got[0]
+            if not bool(got[1]):
+                break
+        need(sweeps > 1 and removed[0] > 0,
+             f"the random-H fixpoint ({tag}) removed {removed[0]} states "
+             f"in its first sweep and ended after {sweeps}")
+        out.append((alive.cpu().numpy().astype(bool), sweeps, removed))
+    one = fixpoint.surviving_set(graph, in_h)
+    four = fixpoint.surviving_set(graph, in_h, mesh=ShardMesh(4))
+    for D, (alive, sweeps, _) in zip((1, 4), out):
+        need(np.array_equal(alive, one[0]) and sweeps == one[1]
+             and np.array_equal(four[0], one[0]) and four[1] == one[1],
+             f"the random-H fixpoints differ ({tag}, {D} slices)")
+    return (f"K16 where states die (a seeded half of the states as H, {E} "
+            f"edges): {one[1]} sweeps on 1 and on 4 slices, each bitwise "
+            f"equal to the plain version, {out[0][2][0]} states removed by "
+            f"the first sweep, {int(in_h.sum())} in H, "
+            f"{int(one[0].sum())} alive; surviving_set on 1 device = on 4 "
+            f"shards")
 
 
 # ---------------------------------------------------------------------------
@@ -2184,6 +2335,8 @@ def phase_kernels(torch, ops, runs, launches):
             "model1": {k: first[name][k]
                        for k in ("shape", "ms", "plain_ms", "bound_ms")},
         })
+        if "wrapper_ms" in big:  # K14: the wrapper, its host read included
+            out[-1]["wrapper_ms"] = big["wrapper_ms"]
         for var in rows:  # the variants measured under this kernel
             if var.startswith(name + "/"):
                 out[-1].setdefault("variants", {})[var.split("/", 1)[1]] = [

@@ -21,6 +21,7 @@ import torch
 from jax import lax
 from jax.sharding import Mesh
 
+from jaxtlc.config import MODEL_1 as J_M1
 from jaxtlc.config import ModelConfig as JConfig
 from jaxtlc.config import make_scaled as j_make_scaled
 from jaxtlc.engine import bfs as jbfs
@@ -30,7 +31,7 @@ from jaxtlc.live import capture as jcap
 from jaxtlc.live import check as jchk
 from jaxtlc.live import fixpoint as jfix
 from jaxtlc.spec.codec import get_codec as j_codec
-from torchtlc.config import ModelConfig, make_scaled
+from torchtlc.config import MODEL_1, ModelConfig, make_scaled
 from torchtlc.engine import bfs as tbfs
 from torchtlc.engine import sharded as tsh
 from torchtlc.engine.backend import FLAG_VALID, expand_plain, kubeapi_backend
@@ -396,6 +397,17 @@ def test_check_properties_device_equals_reference(graphs, shards):
                                        device="cpu")
     _assert_results_equal(got, want)
     assert not any(r.holds for r in got)
+
+
+def test_model1_device_path_equals_reference():
+    """Model_1 (163,408 states) on the device path, the plain versions on
+    the CPU: verdicts and lassos, states and actions, equal the
+    reference's device path's (chip_smoke.py pins their digest on the
+    card)."""
+    want = jchk.check_properties_device(J_M1, PROPS)
+    got = tchk.check_properties_device(MODEL_1, PROPS, device="cpu")
+    _assert_results_equal(got, want)
+    assert [len(r.prefix) for r in got] == [10, 42]
 
 
 def test_device_dispatch_rule_equals_reference():

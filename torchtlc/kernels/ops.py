@@ -674,14 +674,12 @@ def shard_enqueue(queue, is_new, cum, qtail, q_full, xrows, xvalid) -> None:
 # ---------------------------------------------------------------------------
 
 
-def edge_capture(s_hi, s_lo, perm, q_hi, q_lo, valid, action, offset: int,
-                 L: int):
-    """K14 (its two launches, edge_search and edge_compact, count as one):
-    the valid lanes' edges [nv, 4] int32 (src, dst, action, changed) in
-    lane order and the `missing` flag (0-dim bool); see
-    live.capture.edge_capture_plain.  s_hi, s_lo [V] int32 fingerprint
-    words sorted as unsigned (hi, lo) pairs, perm [V] int32 their ids;
-    q_hi, q_lo [N] int32, valid [N] uint8, action [N] int32."""
+def edge_search(s_hi, s_lo, perm, q_hi, q_lo, valid, offset: int, L: int):
+    """K14's first launch: each lane's id dst [N] int32 and changed flag
+    [N] uint8, and the `missing` flag [1] int32.  s_hi, s_lo [V] int32
+    fingerprint words sorted as unsigned (hi, lo) pairs, perm [V] int32
+    their ids; q_hi, q_lo [N] int32, valid [N] uint8.  Counted with
+    edge_compact, the launch that completes K14."""
     V = s_hi.shape[0]
     N = q_hi.shape[0]
     if not 0 < V < 1 << 31:
@@ -691,27 +689,56 @@ def edge_capture(s_hi, s_lo, perm, q_hi, q_lo, valid, action, offset: int,
                            ("perm", perm, torch.int32, V),
                            ("q_hi", q_hi, torch.int32, N),
                            ("q_lo", q_lo, torch.int32, N),
-                           ("valid", valid, torch.uint8, N),
-                           ("action", action, torch.int32, N)):
+                           ("valid", valid, torch.uint8, N)):
         _need(t, name, dt, (n,))
     dev = q_hi.device
-    rounds = max(1, (V - 1).bit_length())
     dst = torch.empty(N, dtype=torch.int32, device=dev)
     chg = torch.empty(N, dtype=torch.uint8, device=dev)
     missing = torch.zeros(1, dtype=torch.int32, device=dev)
-    rc = lib().tt_edge_search(_ptr(s_hi), _ptr(s_lo), _ptr(perm), V, rounds,
-                              _ptr(q_hi), _ptr(q_lo), _ptr(valid), N, L,
-                              offset, _ptr(dst), _ptr(chg), _ptr(missing),
-                              _stream())
+    rc = lib().tt_edge_search(_ptr(s_hi), _ptr(s_lo), _ptr(perm), V,
+                              max(1, (V - 1).bit_length()), _ptr(q_hi),
+                              _ptr(q_lo), _ptr(valid), N, L, offset,
+                              _ptr(dst), _ptr(chg), _ptr(missing), _stream())
     if rc != 0:
         raise RuntimeError(f"kernel edge_capture: launch failed, CUDA error "
                            f"{rc}")
-    cum = torch.cumsum(valid, 0, dtype=torch.int64)
-    nv = int(cum[-1]) if N else 0
-    edges = torch.empty(nv, 4, dtype=torch.int32, device=dev)
+    return dst, chg, missing
+
+
+def edge_compact(valid, cum, offset: int, L: int, dst, chg, action,
+                 edges) -> None:
+    """K14's second launch: the valid lanes' (src, dst, action, changed)
+    rows into edges [nv, 4] int32 in lane order, each at its inclusive
+    count cum [N] int64 of valid; dst, chg from edge_search, action [N]
+    int32."""
+    N = valid.shape[0]
+    _need(valid, "valid", torch.uint8, (N,))
+    _need(cum, "cum", torch.int64, (N,))
+    _need(dst, "dst", torch.int32, (N,))
+    _need(chg, "chg", torch.uint8, (N,))
+    _need(action, "action", torch.int32, (N,))
+    _need(edges, "edges", torch.int32)
+    if edges.dim() != 2 or edges.shape[1] != 4:
+        raise ValueError(f"edges: expected shape [nv, 4], got "
+                         f"{tuple(edges.shape)}")
     _launched("edge_capture", lib().tt_edge_compact(
         _ptr(valid), _ptr(cum), N, L, offset, _ptr(dst), _ptr(chg),
         _ptr(action), _ptr(edges), _stream()))
+
+
+def edge_capture(s_hi, s_lo, perm, q_hi, q_lo, valid, action, offset: int,
+                 L: int):
+    """K14 (its two launches, edge_search and edge_compact, count as one):
+    the valid lanes' edges [nv, 4] int32 (src, dst, action, changed) in
+    lane order and the `missing` flag (0-dim bool); see
+    live.capture.edge_capture_plain.  The edge count nv is read to the
+    host between the launches."""
+    dst, chg, missing = edge_search(s_hi, s_lo, perm, q_hi, q_lo, valid,
+                                    offset, L)
+    cum = torch.cumsum(valid, 0, dtype=torch.int64)
+    nv = int(cum[-1]) if valid.shape[0] else 0
+    edges = torch.empty(nv, 4, dtype=torch.int32, device=valid.device)
+    edge_compact(valid, cum, offset, L, dst, chg, action, edges)
     return edges, missing[0] != 0
 
 

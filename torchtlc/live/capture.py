@@ -166,55 +166,49 @@ def edge_capture(s_hi, s_lo, perm, q_hi, q_lo, valid, action, offset: int,
                             offset, L)
 
 
-def capture_edges(backend, chunk: int = 1024, state_capacity: int = 1 << 20,
-                  fp_capacity: int = 1 << 20,
-                  fp_index: int = DEFAULT_FP_INDEX,
-                  spill_path: Optional[str] = None, ram_edges: int = 1 << 26,
-                  device=None, timings: Optional[dict] = None
-                  ) -> CapturedGraph:
-    """Enumerate the reachable set and capture its edge relation, on the
-    card unless `device` says otherwise.  `timings`, when given, receives
-    the walls (host clock, synchronised) of the enumeration, the capture
-    sweep and the host dedup, and the raw edge count."""
-    import time
-
-    dev = resolve_device(device)
-    cfg = backend.cfg
-    cdc = backend.cdc
-    L = backend.n_lanes
-    init_count = int(np.asarray(backend.initial_vectors()).shape[0])
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    # ---- pass 1: enumeration (ids = append order) ----
-    t0 = time.time()
+def enumerate_states(backend, chunk: int = 1024,
+                     state_capacity: int = 1 << 20,
+                     fp_capacity: int = 1 << 20,
+                     fp_index: int = DEFAULT_FP_INDEX,
+                     device=None) -> torch.Tensor:
+    """Pass 1: the reachable set as packed states [V, W] int32 on the
+    device, in the enumerator's append order (row = state id)."""
     init_fn, run_fn = make_enumerator(
         backend, chunk=chunk, state_capacity=state_capacity,
-        fp_capacity=fp_capacity, fp_index=fp_index, device=dev)
+        fp_capacity=fp_capacity, fp_index=fp_index,
+        device=resolve_device(device))
     carry = run_fn(init_fn())
     if carry.viol != OK:
         raise RuntimeError(
             f"liveness enumeration halted: {VIOLATION_NAMES[carry.viol]}")
-    V = carry.tail
-    states = carry.states[:V]
-    del carry
-    sync()
-    t1 = time.time()
+    return carry.states[:carry.tail]
 
-    # ---- the fingerprint-sorted id map ----
+
+def sweep_edges(backend, states: torch.Tensor, chunk: int = 1024,
+                fp_index: int = DEFAULT_FP_INDEX,
+                spill_path: Optional[str] = None,
+                ram_edges: int = 1 << 26) -> np.ndarray:
+    """Pass 2: every state of `states` expanded again, its successors
+    resolved to ids (K14): the raw edges [n, 4] int32 (src, dst, action,
+    changed) in lane order, parallel edges included."""
+    cdc = backend.cdc
+    L = backend.n_lanes
+    V = states.shape[0]
+
+    # the fingerprint-sorted id map
     lo, hi = fp64_words(states, cdc.nbits, fp_index)
     s_hi, s_lo, perm = sorted_ids(lo, hi)
 
     # states padded to whole sweep chunks
     Vp = -(-V // chunk) * chunk
-    pad = torch.zeros(Vp, cdc.n_words, dtype=torch.int32, device=dev)
+    pad = torch.zeros(Vp, cdc.n_words, dtype=torch.int32,
+                      device=states.device)
     pad[:V] = states
     spillway = _EdgeSpill(spill_path, ram_edges=ram_edges)
     for off in range(0, Vp, chunk):
         packed, flags, action, _ = expand_block(
-            cfg, pad[off:off + chunk], min(chunk, V - off), deferred=True)
+            backend.cfg, pad[off:off + chunk], min(chunk, V - off),
+            deferred=True)
         q_lo, q_hi = fp64_words(packed, cdc.nbits, fp_index)
         edges, missing = edge_capture(s_hi, s_lo, perm, q_hi, q_lo,
                                       flags[FLAG_VALID], action, off, L)
@@ -223,13 +217,16 @@ def capture_edges(backend, chunk: int = 1024, state_capacity: int = 1 << 20,
                 "edge capture found a successor outside the enumerated set "
                 "(enumeration/capture disagree - checker bug)")
         spillway.append(edges.cpu().numpy())
-    raw = spillway.finalize()
-    states_np = states.cpu().numpy().view(np.uint32)
-    t2 = time.time()
+    return spillway.finalize()
 
-    # dedup parallel (src, dst, action) triples; `changed` is determined
-    # by (src, dst), so it survives the dedup
-    n_raw = len(raw)
+
+def captured_graph(backend, states: torch.Tensor,
+                   raw: np.ndarray) -> CapturedGraph:
+    """The CapturedGraph of the enumerated states and their raw edges,
+    parallel (src, dst, action) triples dropped on the host in first-seen
+    order; `changed` is determined by (src, dst), so it survives the
+    dedup."""
+    V = states.shape[0]
     if len(raw):
         n_act = int(raw[:, 2].max()) + 1
         key = (raw[:, 0].astype(np.int64) * V
@@ -237,14 +234,28 @@ def capture_edges(backend, chunk: int = 1024, state_capacity: int = 1 << 20,
             + raw[:, 2].astype(np.int64)
         _, uniq = np.unique(key, return_index=True)
         raw = raw[np.sort(uniq)]
-    if timings is not None:
-        timings.update(enumerate_s=t1 - t0, capture_s=t2 - t1,
-                       dedup_s=time.time() - t2, raw_edges=n_raw,
-                       enum_bodies=run_fn.steps)
     return CapturedGraph(
-        n_states=V, init_count=init_count, states=states_np,
+        n_states=V,
+        init_count=int(np.asarray(backend.initial_vectors()).shape[0]),
+        states=states.cpu().numpy().view(np.uint32),
         src=raw[:, 0].astype(np.int32), dst=raw[:, 1].astype(np.int32),
         action=raw[:, 2].astype(np.int32), changed=raw[:, 3].astype(bool))
+
+
+def capture_edges(backend, chunk: int = 1024, state_capacity: int = 1 << 20,
+                  fp_capacity: int = 1 << 20,
+                  fp_index: int = DEFAULT_FP_INDEX,
+                  spill_path: Optional[str] = None, ram_edges: int = 1 << 26,
+                  device=None) -> CapturedGraph:
+    """Enumerate the reachable set and capture its edge relation, on the
+    card unless `device` says otherwise: enumerate_states, sweep_edges,
+    captured_graph."""
+    states = enumerate_states(
+        backend, chunk=chunk, state_capacity=state_capacity,
+        fp_capacity=fp_capacity, fp_index=fp_index, device=device)
+    raw = sweep_edges(backend, states, chunk=chunk, fp_index=fp_index,
+                      spill_path=spill_path, ram_edges=ram_edges)
+    return captured_graph(backend, states, raw)
 
 
 # ---------------------------------------------------------------------------

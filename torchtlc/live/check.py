@@ -16,7 +16,6 @@ of the generic frontend, comes with the gen path: ROADMAP Queue A item
 
 from __future__ import annotations
 
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -56,14 +55,13 @@ def _violation(graph, alive, in_h, trigger, labels, decode, is_initial,
 def capture_kube_graph(cfg, chunk: int = 1024,
                        state_capacity: int = 1 << 20,
                        fp_capacity: int = 1 << 20,
-                       spill_path: Optional[str] = None, device=None,
-                       timings: Optional[dict] = None) -> CapturedGraph:
+                       spill_path: Optional[str] = None,
+                       device=None) -> CapturedGraph:
     from ..engine.backend import kubeapi_backend
 
     return capture_edges(
         kubeapi_backend(cfg), chunk=chunk, state_capacity=state_capacity,
-        fp_capacity=fp_capacity, spill_path=spill_path, device=device,
-        timings=timings)
+        fp_capacity=fp_capacity, spill_path=spill_path, device=device)
 
 
 def check_properties_device(
@@ -76,12 +74,10 @@ def check_properties_device(
     graph: Optional[CapturedGraph] = None,
     spill_path: Optional[str] = None,
     device=None,
-    timings: Optional[dict] = None,
 ) -> List[KubeLivenessResult]:
     """Device-path analog of engine.liveness.check_properties (wf_next).
     With a ShardMesh of D > 1 shards each fixpoint runs over D edge
-    slices.  `timings`, when given, also receives the walls of the masks
-    and of each fixpoint with its sweep count."""
+    slices."""
     from ..spec import oracle
     from ..spec.codec import get_codec
     from ..spec.labels import LABELS
@@ -92,18 +88,13 @@ def check_properties_device(
     if graph is None:
         graph = capture_kube_graph(
             cfg, chunk=chunk, state_capacity=state_capacity,
-            fp_capacity=fp_capacity, spill_path=spill_path, device=device,
-            timings=timings)
+            fp_capacity=fp_capacity, spill_path=spill_path, device=device)
     nonself = has_nonself(graph)
 
     # every predicate row in one K15 pass: sr[k] for k < nr, then the k-th
     # reconciler's secret present
-    t0 = time.time()
     masks = state_masks(cfg, torch.from_numpy(graph.states.view(
         np.int32)).to(resolve_device(device))).cpu().numpy().astype(bool)
-    if timings is not None:
-        timings["masks_s"] = time.time() - t0
-        timings["fixpoints"] = []
     nr = cfg.n_reconcilers
 
     def decode_fields(i):
@@ -136,13 +127,8 @@ def check_properties_device(
         res = None
         for in_h in zones:
             trigger = in_h
-            t1 = time.time()
-            alive, sweeps = surviving_set(graph, in_h, mesh=mesh,
-                                          nonself=nonself, device=device)
-            if timings is not None:
-                timings["fixpoints"].append(
-                    dict(name=name, sweeps=sweeps, wall_s=time.time() - t1,
-                         alive=int(alive.sum()), in_h=int(in_h.sum())))
+            alive, _ = surviving_set(graph, in_h, mesh=mesh,
+                                     nonself=nonself, device=device)
             bad = trigger & alive
             if not bad.any():
                 res = KubeLivenessResult(name, True, None, None)
