@@ -37,7 +37,16 @@ Model_1 on the device path against the host graph and the reference's
 lassos (13b), scaled 2x1 on the device path at full width with
 oracle-replayed lassos (13c) and its fixpoints again on 4 shards (13d);
 K16 is also swept to a fixpoint where states die (a seeded random H), on
-one slice and on 4, against its plain version.  It checks every
+one slice and on 4, against its plain version; then struct specs through
+the structural frontend behind kernels K17 and K18: ``check_struct`` on
+TwoPhase Model_1, Model_sym and RaftReplication Model_1 in both mode sets,
+pinned to the reference's CPU runs, with K17 and K18 held against their
+plain versions on popped blocks, one of them violating an invariant (14),
+the real-size TwoPhase with RM of 8 at chunk 16,384 - 1,745,408 distinct
+states, its wall, busy share and K17's time (14b) - and ``check MC.cfg``
+on struct specs: transcripts equal to the reference's, auto-regrow,
+SIGTERM -> exit 75 -> -recover at the real size and a generic-subset spec
+refused with exit 2 (14c).  It checks every
 result against its pinned value, holds each kernel bitwise against its
 plain torch version on the card, and prints:
 
@@ -47,7 +56,8 @@ plain torch version on the card, and prints:
   paths (the two Model_1 and the two scaled engine runs, the in-process
   command, regrow, spill and violation runs, the three covered engine
   runs, the four pipelined engine runs and the pipelined regrow, the
-  sharded command runs, the sharded spill runs and the liveness runs;
+  sharded command runs, the sharded spill runs, the liveness runs and the
+  struct engine and command runs of phases 14-14c;
   each path's counts are reset just before it and read just after),
   its error against the plain
   version, its time, the plain version's time, its bound on this card
@@ -62,7 +72,8 @@ result.  The build's ptxas report goes to torchtlc/kernels/_build/ptxas.txt.
 iterating on the card; the contract run takes no arguments); ``2c`` names
 K10's check against its plain version, untimed; ``--phases 11,11b,11c`` is
 the pipelined slice alone, ``--phases 12,12b,12c`` the sharded one,
-``--phases 12d,13,13b,13c`` the sharded spill and liveness slice.
+``--phases 12d,13,13b,13c`` the sharded spill and liveness slice,
+``--phases 14,14b,14c`` the struct slice.
 """
 
 from __future__ import annotations
@@ -210,6 +221,65 @@ M1_DEVICE_LASSO_SHA256 = ("b2370440012e6979f2eaf0a1532a643a"
 SCALED_LIVE_KW = dict(chunk=1 << 16, state_capacity=1 << 25,
                       fp_capacity=1 << 25)
 
+# phases 14-14c: struct specs.  STRUCT_PINS are jaxtlc.struct.engine.
+# check_struct(model, check_deadlock=False, capture_fps=True) on the CPU at
+# phase 14's geometries - counts, per-action counts, outdegree and the
+# SHA-256 of the final table words (little-endian uint32) - the same in the
+# sorted immediate modes and in the slab deferred modes with obs_slots=64
+STRUCT_PINS = {
+    "TwoPhase/Model_1": dict(
+        counts=[114, 56, 8], outdegree=[1, 0, 5, 3],
+        act_gen={"CallOff": 16, "Collect": 16, "Decide": 1, "ObeyAbort": 36,
+                 "ObeyCommit": 4, "Renege": 20, "Vote": 20},
+        act_dist={"CallOff": 16, "Collect": 5, "Decide": 1, "ObeyAbort": 20,
+                  "ObeyCommit": 3, "Renege": 5, "Vote": 5},
+        sha=("340d063eaf4282e4958e56ef13d5fc53"
+             "d7eb72b925b039d6fd01437985cdaf00")),
+    "TwoPhase/Model_sym": dict(
+        counts=[810, 288, 11], outdegree=[1, 0, 7, 3],
+        act_gen={"CallOff": 64, "Collect": 96, "Decide": 1, "ObeyAbort": 324,
+                 "ObeyCommit": 12, "Renege": 156, "Vote": 156},
+        act_dist={"CallOff": 64, "Collect": 21, "Decide": 1, "ObeyAbort": 152,
+                  "ObeyCommit": 7, "Renege": 21, "Vote": 21},
+        sha=("0f19f2ff994bbca770a401de97252263"
+             "18570ca886c568acda73692b3eb036a1")),
+    "RaftReplication/Model_1": dict(
+        counts=[17431, 7279, 14], outdegree=[1, 0, 6, 3],
+        act_gen={"AdvanceCommit": 3078, "ClientRequest": 1185, "Elect": 3321,
+                 "LearnCommit": 3030, "Replicate": 6816},
+        act_dist={"AdvanceCommit": 1179, "ClientRequest": 1185, "Elect": 2230,
+                  "LearnCommit": 1395, "Replicate": 1289},
+        sha=("dd8de4ae707a1fc77721763c6a08e873"
+             "3ae0edcf4053544f1f5b97d94a066870")),
+}
+RAFT_COUNTS = (17431, 7279, 14)
+# TwoPhase with RM of 8: the reference's counts, and the table words of its
+# CPU run at TP8_KW in the default modes (slab dedup, deferred invariants)
+TP8_CFG = """CONSTANT RM = {r1, r2, r3, r4, r5, r6, r7, r8}
+SPECIFICATION
+Spec
+INVARIANT
+TypeOK
+Agreement
+CommitVoted
+"""
+TP8_KW = dict(chunk=1 << 14, queue_capacity=1 << 20, fp_capacity=1 << 22)
+TP8_COUNTS = (11788290, 1745408, 26)
+TP8_TABLE_SHA256 = ("09b38acd39fd7df0e187db218c38297b"
+                    "0d703f92ca041da72c9da8aec6dc4f89")
+# SHA-256 of the masked -noTool transcripts (struct_masked) of `python -m
+# jaxtlc.cli check MC.cfg -noTool -workers cpu -no-preflight
+# -no-artifact-cache`: TwoPhase Model_1 (deadlock), with -nodeadlock
+# (clean), and the stale-leader RaftReplication with -nodeadlock -chunk 256
+STRUCT_TRANSCRIPT_SHA256 = {
+    "deadlock": ("d651e70d075e2dbc891f7aa4e1bd40ba"
+                 "21b10382a8686e17c20a1b266e60bed6"),
+    "clean": ("215bfaa136de5ad82a81eaf187cae0ac"
+              "bc30a4eafe444d6f83dca1e992d0da16"),
+    "stale": ("266c699457e5d9cd7c16800c3a6bd0e0"
+              "9efa0cdb3aa7ad9f37412f266f50bf2f"),
+}
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 SEED = 20261017
 
@@ -317,6 +387,12 @@ def main() -> int:
             runs.update(phase_sharded_spill(ops, model, tmp, card))
         if want("13"):
             runs.update(phase_liveness_command(ops, tmp, card))
+        if want("14") or want("14b") or want("14c"):
+            runs.update(phase_struct(torch, ops, card, runs, tmp))
+        if want("14b"):
+            runs.update(phase_struct_real(torch, ops, card, runs))
+        if want("14c"):
+            runs.update(phase_struct_command(ops, card, runs, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if want("13b"):
@@ -336,7 +412,11 @@ def main() -> int:
             "shard_scaled_pipe", "shard_cmd", "shard_cmd_fp",
             "shard_cmd_route", "shard_cmd_pipe_route", "shard_cmd_cov",
             "shard_spill", "shard_spill_first", "live_cmd", "live_m1",
-            "live_scaled", "live_scaled_4")
+            "live_scaled", "live_scaled_4") + tuple(
+                f"struct_{name}_{mode}" for name, _, _ in
+                _struct_geometries() for mode in ("sorted", "slab")) + (
+                "struct_tp8", "struct_cmd_deadlock", "struct_cmd_clean",
+                "struct_cmd_stale", "struct_cmd_regrow")
     launches = {k: sum(runs[r]["launches"][k] for r in main)
                 for k in ops.KERNELS}
     kernels = phase_kernels(torch, ops, runs, launches)
@@ -2316,8 +2396,12 @@ def phase_kernels(torch, ops, runs, launches):
                         "jaxtlc/live/capture.py:252"),
         "survive_sweep": ("torchtlc/kernels/csrc/liveness.cu",
                           "jaxtlc/live/fixpoint.py:41"),
+        "struct_expand": ("torchtlc/kernels/csrc/struct_expand.cuh",
+                          "jaxtlc/struct/backend.py:169"),
+        "struct_inv_rows": ("torchtlc/kernels/csrc/struct_expand.cuh",
+                            "jaxtlc/engine/backend.py:325"),
     }
-    for key in ("sharded", "live"):
+    for key in ("sharded", "live", "struct"):
         for name, got in runs.get(f"{key}_rows", {}).items():
             rows.setdefault(name, []).extend(got)
         library.update(runs.get(f"{key}_library", {}))
@@ -3017,6 +3101,405 @@ def check_new_kernels(torch, ops, rng, tag, cfg, block, n, record, runs,
     print(f"phase 2 slice-2 kernels vs plain ({tag}, chunk {ck}, {n} popped, "
           f"{ncand} candidates, R {R}): all bitwise equal; "
           + "; ".join(lines) + f"; library sort {lib_ms}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phases 14-14c: struct specs through the structural frontend (K17, K18)
+# ---------------------------------------------------------------------------
+
+
+def _struct_geometries():
+    """(name, MC.cfg, engine geometry) of phase 14's shipped models."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    tb = os.path.join(here, "specs")
+    return [
+        ("TwoPhase/Model_1", os.path.join(tb, "TwoPhase.toolbox", "Model_1",
+                                          "MC.cfg"),
+         dict(chunk=64, queue_capacity=512, fp_capacity=4096)),
+        ("TwoPhase/Model_sym", os.path.join(tb, "TwoPhase.toolbox",
+                                            "Model_sym", "MC.cfg"),
+         dict(chunk=64, queue_capacity=1024, fp_capacity=4096)),
+        ("RaftReplication/Model_1", os.path.join(
+            tb, "RaftReplication.toolbox", "Model_1", "MC.cfg"),
+         dict(chunk=256, queue_capacity=1 << 13, fp_capacity=1 << 15)),
+    ]
+
+
+def write_struct_models(tmp):
+    """The two derived models of phases 14-14c in `tmp`: the stale-leader
+    RaftReplication (Elect without its up-to-dateness restriction,
+    tests/test_raft_replication.py:49-60) and TwoPhase with RM of 8.
+    Returns (stale MC.cfg, TwoPhase-8 MC.cfg)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    raft = os.path.join(here, "specs", "RaftReplication.toolbox", "Model_1")
+    two = os.path.join(here, "specs", "TwoPhase.toolbox", "Model_1")
+    src = open(os.path.join(raft, "RaftReplication.tla")).read()
+    needle = ("/\\ 2 * Cardinality({m \\in Nodes : UpToDate(n, m)}) "
+              "> NodeCount\n            ")
+    need(needle in src, "the stale-leader needle is not in the spec")
+    out = []
+    for name, files in (
+            ("stale", {"RaftReplication.tla": src.replace(needle, "", 1),
+                       "MC.cfg": open(os.path.join(raft, "MC.cfg")).read()}),
+            ("tp8", {"TwoPhase.tla": open(os.path.join(
+                two, "TwoPhase.tla")).read(), "MC.cfg": TP8_CFG})):
+        d = os.path.join(tmp, name)
+        os.makedirs(d)
+        for fname, text in files.items():
+            with open(os.path.join(d, fname), "w") as f:
+                f.write(text)
+        out.append(os.path.join(d, "MC.cfg"))
+    return tuple(out)
+
+
+def struct_digest(table) -> str:
+    import numpy as np
+
+    return hashlib.sha256(np.asarray(table).astype("<u4").tobytes()
+                          ).hexdigest()
+
+
+def struct_run(ops, model, kw, modes):
+    """check_struct on the card with the launch counts reset just before
+    and read just after: (result, launches)."""
+    from torchtlc.struct.engine import check_struct
+
+    ops.reset_counts()
+    r = check_struct(model, check_deadlock=False, capture_fps=True, **kw,
+                     **modes)
+    return r, dict(ops.LAUNCHES)
+
+
+def struct_pinned(tag, r, pin):
+    need([r.generated, r.distinct, r.depth] == pin["counts"],
+         f"{tag} counts {(r.generated, r.distinct, r.depth)}")
+    need(r.violation == 0 and r.queue_left == 0, f"{tag} verdict")
+    need(r.action_generated == pin["act_gen"], f"{tag} per-action generated")
+    need(r.action_distinct == pin["act_dist"], f"{tag} per-action distinct")
+    need(list(r.outdegree) == pin["outdegree"], f"{tag} outdegree")
+    need(struct_digest(r.fp_table) == pin["sha"], f"{tag} table words")
+
+
+def struct_block(torch, backend, kw, until):
+    """A real popped block of a sorted, immediate run: the rows the engine
+    pops in the first step for which until(carry) holds after it, and the
+    count it pops.  Returns (block, n, carry after the step)."""
+    from torchtlc.engine import bfs
+
+    init_fn, _, step_fn = bfs.make_backend_engine(
+        backend, kw["chunk"], kw["queue_capacity"], kw["fp_capacity"],
+        sort_free=False, deferred=False)
+    c = init_fn()
+    while True:
+        h = bfs.read_bundle(c)
+        need(bfs._running(h), "the run ended before the wanted block")
+        block = c.queue[h.parity, h.qhead:h.qhead + kw["chunk"]].clone()
+        n = min(h.level_n - h.qhead, kw["chunk"])
+        c = step_fn(c)
+        if until(c):
+            return block, n, c
+
+
+def struct_kernel_checks(torch, ops, tag, prog, block, n, record,
+                         want_viol=False, reps=20):
+    """K17 (both modes) and K18 against their plain versions on the card,
+    on one popped block: bitwise, and timed when `record` is given.  K18's
+    claimants are the block's real ones: K17's deferred output through
+    the fingerprints (K2) and the slab dedup into a fresh table.  Returns
+    K18's verdict."""
+    from torchtlc.engine import fpset
+    from torchtlc.engine.fingerprint import fp64_words
+
+    def err_of(a, b):
+        if a is None:
+            return 0
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
+            if a.numel() else 0
+
+    ck = block.shape[0]
+    ncand = ck * prog.L
+    for deferred in (False, True):
+        got = ops.struct_expand(prog, block, n, deferred)
+        ref = prog.expand_plain(block, n, deferred)
+        err = max(err_of(a, b) for a, b in zip(got, ref))
+        need(err == 0, f"K17 struct_expand differs from its plain version "
+             f"({tag}, deferred={deferred})")
+        if not deferred:
+            bad = int(got[1][3:].sum())
+            need(bad > 0 if want_viol else bad == 0,
+                 f"K17 invariant flags ({tag}): {bad} failing lanes")
+            if record is not None:
+                nbytes = (ck * prog.W * 4 + prog.K.size * 4 + ncand * (
+                    prog.W * 4 + 3 + prog.n_inv + 4) + prog.n_labels * 8)
+                record("struct_expand", tag, err,
+                       cuda_ms(torch, lambda _: ops.struct_expand(
+                           prog, block, n, False), reps),
+                       cuda_ms(torch, lambda _: prog.expand_plain(
+                           block, n, False), 2), nbytes)
+    packed, flags, action, _, flat = got
+    valid = flags[0].bool()
+    lo, hi = fp64_words(packed, prog.cdc.nbits)
+    R = min(2 * ck, ncand)
+    fps = fpset.fpset_new(max(1 << 10, 1 << (4 * ncand - 1).bit_length()),
+                          block.device)
+    _, is_new_c, c_idx, nreps, fell_back = fpset.fpset_insert_dedup(
+        fps, lo, hi, valid, probe_width=R, claim_width=R, sort_free=True)
+    rows = R if not fell_back else ncand
+    got = ops.struct_inv_rows(prog, flat, is_new_c, c_idx, action, rows)
+    ref = prog.inv_rows_plain(flat, is_new_c, c_idx, action, rows)
+    err = max(err_of(a, b) for a, b in zip(got, ref))
+    need(err == 0, f"K18 struct_inv_rows differs from its plain version "
+         f"({tag})")
+    viol = int(got[0])
+    need(viol >= 100 if want_viol else viol == 0, f"K18 verdict {viol} "
+         f"({tag})")
+    if record is not None:
+        fresh = int(is_new_c[:rows].sum())
+        record("struct_inv_rows", tag, err,
+               cuda_ms(torch, lambda _: ops.struct_inv_rows(
+                   prog, flat, is_new_c, c_idx, action, rows), reps),
+               cuda_ms(torch, lambda _: prog.inv_rows_plain(
+                   flat, is_new_c, c_idx, action, rows), 2),
+               rows * 9 + fresh * prog.F * 4 + prog.K.size * 4
+               + prog.F * 4 + 16)
+    return viol
+
+
+def phase_struct(torch, ops, card, runs, tmp):
+    """Phase 14: check_struct on TwoPhase Model_1, Model_sym and
+    RaftReplication Model_1 in the sorted immediate modes and in the slab
+    deferred modes with the counter ring, every result pinned to the
+    reference's CPU run at the same geometry (counts, per-action counts,
+    outdegree, table words); K17 and K18 bitwise against their plain
+    versions on real popped blocks of each, and on the block where the
+    stale-leader RaftReplication violates an invariant."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torchtlc.struct.cache import get_backend
+    from torchtlc.struct.loader import load
+
+    stale, tp8 = write_struct_models(tmp)
+    models = {name: (load(cfg), kw) for name, cfg, kw in
+              _struct_geometries()}
+    models["stale"] = (load(stale), _struct_geometries()[2][2])
+    models["TwoPhase/RM8"] = (load(tp8), TP8_KW)
+    progs = {name: get_backend(m, False).kernels.prog
+             for name, (m, _) in models.items()}
+    t0 = time.time()
+    with ThreadPoolExecutor(len(progs)) as pool:  # one nvcc per spec
+        list(pool.map(ops.struct_lib, progs.values()))
+    print(f"phase 14 build: {len(progs)} struct kernel libraries (K17, "
+          f"K18) with nvcc in {time.time() - t0:.1f} s; lane IR "
+          + "; ".join(f"{k} {p.stats()['step']['elements']}+"
+                      f"{p.stats()['invariants']['elements']} elements, "
+                      f"largest node {p.stats()['step']['largest_node']}, "
+                      f"table {p.K.size}" for k, p in progs.items()),
+          flush=True)
+    rows = {}
+
+    def record(name, shape, err, ms, plain_ms, nbytes):
+        rows.setdefault(name, []).append(dict(
+            shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3))
+
+    out = {}
+    for name, cfg, kw in _struct_geometries():
+        m = models[name][0]
+        for mode, modes in (("sorted", SORTED),
+                            ("slab", dict(sort_free=True, deferred=True,
+                                          obs_slots=64))):
+            r, launches = struct_run(ops, m, kw, modes)
+            struct_pinned(f"{name} {mode}", r, STRUCT_PINS[name])
+            out[f"struct_{name}_{mode}"] = {"launches": launches}
+            print(f"phase 14 {name} {mode}: {r.generated} / {r.distinct} / "
+                  f"{r.depth}, outdegree {r.outdegree}, table sha256 "
+                  f"{struct_digest(r.fp_table)[:16]} = the reference's, "
+                  f"{r.iterations} steps in {r.wall_s:.3f} s; K17 "
+                  f"{launches['struct_expand']}, K18 "
+                  f"{launches['struct_inv_rows']} launches", flush=True)
+        backend = get_backend(m, False)
+        half = STRUCT_PINS[name]["counts"][2] // 2
+        block, n, _ = struct_block(torch, backend, kw,
+                                   lambda c, h=half: int(c.level) > h)
+        struct_kernel_checks(torch, ops, name, progs[name], block, n,
+                             record if name.startswith("Raft") else None)
+    m, kw = models["stale"]
+    block, n, c = struct_block(torch, get_backend(m, False), kw,
+                               lambda c: int(c.viol) != 0)
+    viol = struct_kernel_checks(torch, ops, "stale", progs["stale"], block,
+                                n, None, want_viol=True)
+    print(f"phase 14 K17/K18 vs plain: bitwise equal on a popped block of "
+          f"each model (sorted and deferred); the stale-leader block "
+          f"({n} rows) fails an invariant in K17's flags and K18 reports "
+          f"code {viol}; RaftReplication step (chunk {kw['chunk']}): "
+          + ", ".join(f"{k} {v[-1]['ms']:.4f} ms (plain "
+                      f"{v[-1]['plain_ms']:.3f} ms, bound "
+                      f"{v[-1]['bound_ms']:.5f} ms)"
+                      for k, v in rows.items()) + f" on {card}", flush=True)
+    out["struct_rows"] = rows
+    out["struct_models"] = models
+    out["struct_progs"] = progs
+    out["struct_cfgs"] = dict(stale=stale, tp8=tp8)
+    return out
+
+
+def device_busy(torch, fn):
+    """fn() once under torch.profiler: (its result, traced wall, device
+    busy seconds, {kernel name: device seconds})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    by_name = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0) + us / 1e6
+    return res, wall, sum(by_name.values()), by_name
+
+
+def phase_struct_real(torch, ops, card, runs):
+    """Phase 14b: TwoPhase with RM of 8 (r1..r8) at chunk 16,384 in the
+    modes the reference resolves there (slab dedup, deferred invariants):
+    the reference's counts and table words at the same geometry; the wall,
+    distinct states per second, the device's busy share (torch.profiler)
+    and K17's device time; K17 and K18 against their plain versions on a
+    popped block of the run, timed."""
+    m, kw = runs["struct_models"]["TwoPhase/RM8"]
+    prog = runs["struct_progs"]["TwoPhase/RM8"]
+    r, launches = struct_run(ops, m, kw, {})
+    need((r.generated, r.distinct, r.depth) == TP8_COUNTS,
+         f"TwoPhase-8 counts {(r.generated, r.distinct, r.depth)}")
+    need(r.violation == 0 and r.queue_left == 0, "TwoPhase-8 verdict")
+    need(struct_digest(r.fp_table) == TP8_TABLE_SHA256,
+         "TwoPhase-8 table words")
+    (r2, _), traced, busy, by_name = device_busy(
+        torch, lambda: struct_run(ops, m, kw, {}))
+    need(r2.distinct == TP8_COUNTS[1], "TwoPhase-8 traced run")
+    k17_s = sum(v for k, v in by_name.items() if "struct_expand" in k)
+    k18_s = sum(v for k, v in by_name.items() if "struct_inv_rows" in k)
+    rows = runs["struct_rows"]
+
+    def record(name, shape, err, ms, plain_ms, nbytes):
+        rows.setdefault(name, []).append(dict(
+            shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3))
+
+    from torchtlc.struct.cache import get_backend
+
+    block, n, _ = struct_block(torch, get_backend(m, False), kw,
+                               lambda c: int(c.qhead) > 0
+                               and int(c.level_n) >= kw["chunk"] * 4)
+    struct_kernel_checks(torch, ops, "TwoPhase-8", prog, block, n, record,
+                         reps=10)
+    print(f"phase 14b TwoPhase-8 (chunk {kw['chunk']}, qcap "
+          f"{kw['queue_capacity']}, fp {kw['fp_capacity']}, slab + "
+          f"deferred): {r.generated} / {r.distinct} / {r.depth}, table "
+          f"sha256 {struct_digest(r.fp_table)[:16]} = the reference's; wall "
+          f"{r.wall_s:.3f} s, {r.distinct / r.wall_s:.0f} distinct states/s; "
+          f"traced wall {traced:.3f} s, device busy {busy:.3f} s "
+          f"({busy / traced:.1%}); K17 {launches['struct_expand']} launches, "
+          f"{k17_s * 1e3:.1f} ms on the device; K18 "
+          f"{launches['struct_inv_rows']} launches, {k18_s * 1e3:.1f} ms; "
+          f"step block: K17 {rows['struct_expand'][-1]['ms']:.3f} ms "
+          f"(plain {rows['struct_expand'][-1]['plain_ms']:.1f} ms, bound "
+          f"{rows['struct_expand'][-1]['bound_ms']:.4f} ms), K18 "
+          f"{rows['struct_inv_rows'][-1]['ms']:.4f} ms (plain "
+          f"{rows['struct_inv_rows'][-1]['plain_ms']:.1f} ms) on {card}",
+          flush=True)
+    return {"struct_tp8": {"launches": launches}}
+
+
+def struct_masked(text, cfg):
+    """A transcript without the lines naming the program and the device,
+    with the model directory, dates, walls and rates masked (the form the
+    pinned reference transcripts were digested in)."""
+    import re
+
+    lines = [ln for ln in text.splitlines()
+             if not ln.startswith(("jaxtlc ", "torchtlc ",
+                                   "Running breadth-first search"))]
+    text = "\n".join(lines).replace(
+        os.path.dirname(os.path.abspath(cfg)), "MODEL")
+    text = re.sub(r"\d{4}-\d\d-\d\d \d\d:\d\d:\d\d", "DATE", text)
+    text = re.sub(r"Finished in \d+ms", "Finished in Nms", text)
+    return re.sub(r"\([\d,]+ (s|ds)/min\)", r"(N \1/min)", text)
+
+
+def phase_struct_command(ops, card, runs, tmp):
+    """Phase 14c: `python -m torchtlc.cli check` on struct specs - TwoPhase
+    Model_1 (a deadlock, exit 12) and with -nodeadlock (exit 0), the
+    stale-leader RaftReplication (exit 12), each transcript equal to the
+    reference's (its digest pinned); auto-regrow from -fpcap 4096;
+    SIGTERM -> exit 75 -> -recover -> exit 0 on TwoPhase-8; a generic-subset
+    spec under -frontend auto exits 2."""
+    two = _struct_geometries()[0][1]
+    raft = _struct_geometries()[2][1]
+    cfgs = runs["struct_cfgs"]
+    out = {}
+    for tag, cfg, extra, rc_want in (
+            ("deadlock", two, [], 12), ("clean", two, ["-nodeadlock"], 0),
+            ("stale", cfgs["stale"], ["-nodeadlock", "-chunk", "256"], 12)):
+        rc, text, launches, wall = command_here(ops, [cfg, "-noTool"]
+                                                + extra)
+        need(rc == rc_want, f"struct command {tag} exited {rc}")
+        sha = hashlib.sha256(struct_masked(text, cfg).encode()).hexdigest()
+        need(sha == STRUCT_TRANSCRIPT_SHA256[tag],
+             f"struct command {tag}: the transcript differs from the "
+             "reference's")
+        out[f"struct_cmd_{tag}"] = {"launches": launches}
+        print(f"phase 14c check {os.path.basename(os.path.dirname(cfg))} "
+              f"{' '.join(extra)}: exit {rc}, transcript = the reference's "
+              f"({wall:.2f} s)", flush=True)
+    rc, text, launches, wall = command_here(
+        ops, [raft, "-noTool", "-nodeadlock", "-chunk", "64", "-fpcap",
+              "4096"])
+    regrow_counts = final_counts(text)
+    need(rc == 0 and regrow_counts == RAFT_COUNTS,
+         f"struct regrow: exit {rc}, {regrow_counts}")
+    need("fp_capacity" in text, "struct regrow: no regrow banner")
+    out["struct_cmd_regrow"] = {"launches": launches}
+    ck = os.path.join(tmp, "tp8.ckpt")
+    base = [cfgs["tp8"], "-noTool", "-nodeadlock", "-chunk",
+            str(TP8_KW["chunk"]), "-qcap", str(TP8_KW["queue_capacity"]),
+            "-fpcap", str(TP8_KW["fp_capacity"]), "-checkpoint", ck,
+            "-checkpointevery", "32"]
+    t0 = time.time()
+    rc, text = command(base + ["-faults", "sigterm@3"])
+    wall_term = time.time() - t0
+    need(rc == 75 and "Run interrupted by signal" in text,
+         f"TwoPhase-8 SIGTERM run exited {rc}")
+    t0 = time.time()
+    rc, text2 = command(base + ["-recover"])
+    need(rc == 0 and final_counts(text2) == TP8_COUNTS,
+         f"TwoPhase-8 -recover exited {rc}, {final_counts(text2)}")
+    need("Starting recovery from checkpoint" in text2, "no recovery banner")
+    wall_rec = time.time() - t0
+    from torchtlc.cli import main as cli_main
+
+    gen = os.path.join(os.path.dirname(os.path.abspath(__file__)), "specs",
+                       "RaftElection.toolbox", "Model_1", "MC.cfg")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli_main(["check", gen])
+    need(rc == 2 and "item 12" in err.getvalue(),
+         f"generic-subset spec exited {rc}")
+    print(f"phase 14c auto-regrow from -fpcap 4096: exit 0, "
+          f"{regrow_counts} ({wall:.2f} s); TwoPhase-8 "
+          f"sigterm@3 -> exit 75 ({final_counts(text)[:2]} checkpointed, "
+          f"{wall_term:.1f} s), -recover -> exit 0, {TP8_COUNTS} "
+          f"({wall_rec:.1f} s; subprocesses); RaftElection under auto -> "
+          "exit 2 (the generic frontend, item 12)", flush=True)
+    return out
 
 
 if __name__ == "__main__":

@@ -353,3 +353,25 @@ def test_liveness_copies_equal_reference():
                            for x in joracle.successors(st, jcfg)]
             nxt += [s for _, s in got]
         frontier = nxt[:64]
+
+
+COPIED = ("struct/parser.py", "struct/eval.py", "struct/actions.py",
+          "struct/shapes.py", "struct/loader.py", "struct/oracle.py",
+          "gen/tla_parse.py", "gen/ir.py", "spec/texpr.py")
+
+
+def _code_after_docstring(path):
+    src = open(path).read()
+    body = ast.parse(src).body
+    start = body[1].lineno if isinstance(body[0], ast.Expr) else 1
+    return "\n".join(src.splitlines()[start - 1:]).replace("torchtlc",
+                                                           "jaxtlc")
+
+
+@pytest.mark.parametrize("rel", COPIED)
+def test_struct_frontend_copies_equal_reference_source(rel):
+    """The port's copies of the structural frontend's jax-free modules
+    (and of the generic subset's parser, used for -frontend auto) are the
+    reference's code, line for line below the module docstring."""
+    assert (_code_after_docstring(os.path.join(ROOT, "torchtlc", rel))
+            == _code_after_docstring(os.path.join(ROOT, "jaxtlc", rel)))

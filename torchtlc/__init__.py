@@ -1,5 +1,5 @@
-"""torchtlc: the PyTorch/CUDA port of jaxtlc's exhaustive KubeAPI model
-checker, for one NVIDIA H100.
+"""torchtlc: the PyTorch/CUDA port of jaxtlc's exhaustive model checker,
+for one NVIDIA H100.
 
 Layers, from the entry point down:
 
@@ -17,6 +17,11 @@ Layers, from the entry point down:
 * ``spec`` - the KubeAPI codec, next-state function and invariants in
   plain torch; the device coverage plane (``spec.coverage_device``) and
   the host coverage walker (``spec.coverage``) behind ``-coverage``;
+* ``struct`` - the structural frontend: copies of the reference's parser,
+  evaluator, shape inference, loader and oracle, the LaneCompiler on a
+  lane IR (torch-evaluated: the plain version) and its C++ emission, the
+  body of kernels K17/K18 (``struct.engine.check_struct``); ``gen`` - the
+  generic subset's parser, used only to resolve ``-frontend auto``;
 * ``kernels`` - the hand-written CUDA kernels (``csrc/``), their nvcc build
   and ctypes wrappers.
 

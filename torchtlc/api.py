@@ -19,6 +19,11 @@ error, 12 safety violation, 13 temporal property violated, 75
 interrupted or capacity-exhausted with a final checkpoint, 1 usage or
 configuration error.
 
+A spec the structural frontend takes (frontend.model.StructRunSpec) runs
+through ``_run_check_struct`` (jaxtlc/api.py:982, 1737): the struct
+backend on the same engine and supervisor, plain ``P ~> Q`` PROPERTY
+lines on the host graph, a violation's trace from the host oracle.
+
 The run goes to the card unless ``workers`` is "cpu".  The reference's
 preflight analysis (its jaxpr audits) is not part of the port.
 """
@@ -52,13 +57,21 @@ def _device_name(device) -> str:
 
 
 def _run_check(args) -> int:
+    from .frontend.model import StructRunSpec, UnportedFrontend
+
     try:
         spec: RunSpec = resolve(args.config, workers=args.workers,
                                 fp_index=args.fp,
-                                check_deadlock=not args.nodeadlock)
+                                check_deadlock=not args.nodeadlock,
+                                frontend=args.frontend)
+    except UnportedFrontend as e:
+        print(f"torchtlc: error: {e}", file=sys.stderr)
+        return 2
     except (ValueError, OSError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
+    if isinstance(spec, StructRunSpec):
+        return _run_check_struct(args, spec)
     unknown = [q for q in spec.properties if q not in KNOWN_PROPERTIES]
     if unknown:
         print(f"Error: unknown PROPERTY {', '.join(unknown)} "
@@ -388,6 +401,8 @@ def _resume_command(args) -> str:
         parts += ["-coverage"]  # the covered carry is a different layout
     if args.workers == "cpu":
         parts += ["-workers", "cpu"]
+    if args.frontend != "auto":
+        parts += ["-frontend", args.frontend]
     if not args.checkpoint:
         return ("re-run from scratch (no -checkpoint was set): "
                 + " ".join(parts))
@@ -447,3 +462,177 @@ def _print_trace(log: TLCLog, model, chunk: int, check_deadlock: bool = True,
         return
     for i, (st, act) in enumerate(found[1], start=1):
         log.trace_state(i, act, state_to_tla(st, model))
+
+
+# flags of paths the struct frontend does not run yet (exit 2), besides the
+# ones the CLI refuses for every spec
+STRUCT_UNPORTED = (
+    ("coverage", "-coverage on a struct spec (the device coverage plane, "
+     "jaxtlc/struct/compile.py build_cov, and its site table) is not "
+     "ported yet (ROADMAP Queue A item 11)"),
+    ("sharded", "-sharded on a struct spec (the sharded engine over the "
+     "struct backend) is not ported yet (ROADMAP Queue A item 11)"),
+    ("pipeline", "-pipeline on a struct spec (the pipelined body over the "
+     "struct backend) is not ported yet (ROADMAP Queue A item 11)"),
+    ("spill", "-spill on a struct spec (the host spill tier over the "
+     "struct backend) is not ported yet (ROADMAP Queue A item 11)"),
+)
+
+
+def _struct_unported(args) -> list:
+    on = dict(coverage=args.coverage, sharded=bool(args.sharded),
+              pipeline=args.pipeline, spill=args.spill == "on")
+    return [msg for flag, msg in STRUCT_UNPORTED if on[flag]]
+
+
+def _run_check_struct(args, spec) -> int:
+    """Check a structural-frontend spec (jaxtlc/api.py:982
+    _run_check_struct with _run_check_interp, :1737): the struct backend
+    (kernels K17, K18) on the engine - supervised when -auto-grow (the
+    default) or -checkpoint is in play - the host graph for plain
+    ``P ~> Q`` PROPERTY lines, and the host oracle's re-run for a
+    violation's trace.  Same transcript and exit codes."""
+    from .struct import oracle as so
+    from .struct.backend import struct_meta_config
+    from .struct.cache import get_backend
+
+    errs = _struct_unported(args)
+    if errs:
+        for e in errs:
+            print(f"torchtlc: error: {e}", file=sys.stderr)
+        return 2
+    sm = spec.structmodel
+    system = sm.system
+    if args.recover and not args.checkpoint:
+        print("Error: -recover requires -checkpoint PATH", file=sys.stderr)
+        return 1
+    unsupported = [flag for flag, on in (
+        ("-mutation", args.mutation),
+        ("-fairness wf_process", args.fairness == "wf_process"),
+    ) if on]
+    if unsupported:
+        print(f"Error: {', '.join(unsupported)} not supported for "
+              "structural-frontend specs yet", file=sys.stderr)
+        return 1
+    device = _device(args)
+    try:
+        device_name = _device_name(device)
+    except RuntimeError as e:  # no card and no -workers cpu
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    log = TLCLog(tool_mode=not args.noTool)
+    log.version(__version__)
+    log.banner(spec.fp_index, DEFAULT_SEED, spec.workers, device_name)
+    log.sany(*_sany_inputs(args.config, spec.spec_name))
+    log.starting()
+    log.computing_init()
+    _open_journal(args, workload=spec.spec_name, device=device_name,
+                  params=dict(chunk=args.chunk, queue_capacity=args.qcap,
+                              fp_capacity=args.fpcap, sharded=0,
+                              pipeline=False, frontend="structural",
+                              sort_free=_sort_free(args),
+                              deferred=_deferred(args), symmetry=False,
+                              por=False, obs_slots=_obs_slots(args)))
+    backend = get_backend(sm, spec.check_deadlock)
+    t0 = time.time()
+    from .resil.supervisor import EXIT_INTERRUPTED, SlotOverflowError
+
+    try:
+        if args.checkpoint or args.autogrow:
+            from .resil.supervisor import check_supervised
+
+            sup = check_supervised(
+                None, chunk=args.chunk, queue_capacity=args.qcap,
+                fp_capacity=args.fpcap, obs_slots=_obs_slots(args),
+                sort_free=args.sortfree, deferred=args.deferredinv,
+                opts=_sup_opts(args, log), device=device,
+                fp_index=spec.fp_index, backend=backend,
+                meta_config=struct_meta_config(sm))
+            r = sup.result
+        else:
+            from .struct.engine import check_struct
+
+            r, sup = check_struct(
+                sm, chunk=args.chunk, queue_capacity=args.qcap,
+                fp_capacity=args.fpcap, fp_index=spec.fp_index,
+                check_deadlock=spec.check_deadlock,
+                obs_slots=_obs_slots(args), sort_free=args.sortfree,
+                deferred=args.deferredinv, device=device), None
+    except SlotOverflowError as e:
+        log.msg(1000, f"Run stopped: {e}", severity=1)
+        _finish_journal(args)
+        return 1
+    except FileNotFoundError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        _finish_journal(args)
+        return 1
+    n_init = len(system.initial_states())
+    log.init_done(n_init)
+    if sup is not None and sup.interrupted:
+        log.progress(r.depth, r.generated, r.distinct, r.queue_left)
+        log.final_counts(r.generated, r.distinct, r.queue_left)
+        _finish_journal(args, r=None, sup=sup)
+        return EXIT_INTERRUPTED
+    violated = r.violation != 0
+    liveness_violated = False
+    if not violated and spec.properties:
+        log.checking_temporal(r.distinct, "host")
+        for name in spec.properties:
+            ast = sm.properties[name]
+            if ast[0] != "leadsto" or ast[1][0] == "box":
+                log.msg(1000, f"Temporal property {name} skipped: only "
+                              "plain P ~> Q is checked on the structural "
+                              "path.", severity=1)
+                continue
+            res = so.check_leads_to(system, ast[1], ast[2], name)
+            if res.holds:
+                log.msg(1000, f"Temporal property {name} holds "
+                              "(fairness: wf_next).")
+                continue
+            liveness_violated = True
+            log.msg(2116, f"Temporal properties were violated: {name}",
+                    severity=1)
+            idx = 1
+            for st in list(res.lasso_prefix) + [None] + list(
+                    res.lasso_cycle):
+                if st is None:
+                    log.msg(1000, "-- The following states form a cycle "
+                                  "(back to the first of them) --")
+                    continue
+                log.trace_state(idx, None, so.state_to_tla(system, st))
+                idx += 1
+    if violated:
+        log.msg(2110 if r.violation >= 100 else 1000, r.violation_name,
+                severity=1)
+        found = so.violation_trace(system, sm.invariants,
+                                   check_deadlock=spec.check_deadlock)
+        if found is None:
+            log.msg(1000, "Violation was not reproducible in host mode",
+                    severity=1)
+        else:
+            for i, (st, act) in enumerate(found[1], start=1):
+                head = (f"State {i}: <Initial predicate>" if act is None
+                        else f"State {i}: <{act}>")
+                log.msg(2217, head + "\n" + so.state_to_tla(system, st),
+                        severity=1)
+    elif not liveness_violated:
+        log.success(r.generated, r.distinct, r.actual_fp_collision,
+                    occupancy=r.fp_occupancy)
+        # per-action lines in module-definition (MC.out) order, zero-fire
+        # actions printed 0:0 as TLC does
+        names = set(backend.labels)
+        order = [n for n in sm.module.def_order if n in names]
+        order += [n for n in sorted(names) if n not in order]
+        log.coverage_generic(spec.spec_name, n_init,
+                             {a: r.action_generated.get(a, 0) for a in order},
+                             {a: r.action_distinct.get(a, 0) for a in order})
+    log.progress(r.depth, r.generated, r.distinct, r.queue_left)
+    log.final_counts(r.generated, r.distinct, r.queue_left)
+    log.depth(r.depth)
+    log.finished(int((time.time() - t0) * 1000))
+    _finish_journal(args, r=r, sup=sup, wall_s=time.time() - t0,
+                    verdict="liveness_violation" if liveness_violated
+                    else None)
+    if violated:
+        return 12
+    return 13 if liveness_violated else 0

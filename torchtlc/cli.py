@@ -10,7 +10,10 @@ jaxtlc/cli.py on the KubeAPI path.
 
 Reads MC.cfg with its sibling MC.tla (and a toolbox .launch if present),
 runs the exhaustive check on the card - on the CPU only with -workers cpu
-- and writes the TLC structured transcript.  Exit codes: 0 no error, 12
+- and writes the TLC structured transcript.  The KubeAPI root spec runs
+on its hand-written path; a spec outside the generic subset (TwoPhase,
+RaftReplication) on the structural frontend, as does any spec with
+-frontend struct.  Exit codes: 0 no error, 12
 safety violation (with the counterexample trace), 13 temporal property
 violated (with the lasso), 75 interrupted or
 capacity-exhausted with a final checkpoint (resume with -recover), 1
@@ -47,16 +50,17 @@ UNPORTED = {
                     "included, where the reference ignores it"),
     "traceout": ("", "-trace-out (the Chrome-trace export) is ported with "
                  "the serving plane (ROADMAP Queue A item 13)"),
-    "narrow": (False, "-narrow (the certified narrowed codec) is ported "
-               "with the struct path (ROADMAP Queue A item 11)"),
+    "narrow": (False, "-narrow (the certified narrowed codec of the struct "
+               "path, jaxtlc/struct/backend.py make_cert_check) is not "
+               "ported yet (ROADMAP Queue A item 11)"),
     "analyze": (False, "-analyze (the preflight jaxpr audits) is not part "
                 "of the port yet (ROADMAP Queue C, Queue A item 13)"),
-    "frontend": ("auto", "-frontend gen/struct (the generic and structural "
-                 "frontends) are ported in their own slices (ROADMAP Queue "
-                 "A items 11, 12)"),
-    "traceExpressions": ("", "-traceExpressions is ported with the struct "
-                         "path's expression evaluator (ROADMAP Queue A "
-                         "item 11)"),
+    "frontend": ("auto", "-frontend gen (the generic frontend) is not "
+                 "ported yet (ROADMAP Queue A item 12); -frontend struct "
+                 "runs any spec on the structural path"),
+    "traceExpressions": ("", "-traceExpressions (the trace explorer's "
+                         "expression re-evaluation, jaxtlc/spec/texpr.py) "
+                         "is not ported yet (ROADMAP Queue A item 11)"),
     "xprof": ("", "-xprof is the JAX profiler; the port's profiler is "
               "python3 -m torchtlc.profile"),
     "compilecache": ("", "-compile-cache is XLA's; the port builds its "
@@ -152,8 +156,12 @@ def _parser() -> argparse.ArgumentParser:
                    help="sharded route bucket size as a multiple of the "
                         "mean per-owner share (auto-grow doubles it on a "
                         "bucket overflow)")
+    c.add_argument("-frontend", default="auto",
+                   help="auto picks the frontend as the reference does "
+                        "(KubeAPI: hand; other specs: struct, or the "
+                        "generic frontend, not ported yet); struct runs "
+                        "any spec on the structural path")
     # the flags of paths the port does not run yet: parsed, then refused
-    c.add_argument("-frontend", default="auto")
     c.add_argument("-fpset", default="JaxFPSet")
     c.add_argument("-pipeline", dest="pipeline", action="store_true",
                    default=False,
@@ -207,7 +215,8 @@ def unported(args) -> list:
     """The errors of the flags given for paths not ported yet."""
     errs = [msg for dest, (off, msg) in UNPORTED.items()
             if getattr(args, dest) != off
-            and not (dest == "frontend" and args.frontend == "hand")]
+            and not (dest == "frontend" and args.frontend in ("hand",
+                                                              "struct"))]
     if not args.simulate and (args.depth, args.walkers, args.simseed) != (
             100, 256, 0):
         errs.append(UNPORTED["simulate"][1].replace(

@@ -56,18 +56,42 @@ FLAG_VALID, FLAG_AFAIL, FLAG_OVF, FLAG_BAD_TYPEOK, FLAG_BAD_ONLYONE = range(5)
 
 
 class SpecBackend(NamedTuple):
-    """What the engine needs from the KubeAPI frontend (the fields of the
-    reference SpecBackend that KubeAPI uses)."""
+    """What the engines need from a spec frontend (the reference's
+    SpecBackend, jaxtlc/engine/backend.py:50-91).  kernels holds the
+    backend's own kernel routes for the expand stage and the deferred
+    check - KubeAPI's K1 and K7 (KubeKernels), a struct spec's K17 and K18
+    (struct.backend.StructKernels): the port's counterpart of the
+    reference's step, lane_action and expand override, which those
+    kernels (and their plain versions) implement."""
 
-    cfg: ModelConfig
-    cdc: object  # Codec
+    cdc: object  # pack / unpack / n_fields / n_words / nbits
     n_lanes: int
+    inv_check: object  # fields [N, F] -> [N] int32, bit k = invariant k holds
     inv_codes: tuple  # invariant bit k failing reports this code
     initial_vectors: object  # () -> [n0, F] numpy int32
     labels: tuple  # action id -> display name
+    viol_names: dict  # code -> name overrides (VIOLATION_NAMES fallback)
+    check_deadlock: bool = True  # TLC's -deadlock switch
+    kernels: object = None  # .expand(block, n, deferred), .deferred(...)
     # the device coverage plane (obs.coverage.CoveragePlane) or None: pure
     # telemetry, so coverage-on results are coverage-off results
     coverage: object = None
+    cfg: ModelConfig = None  # the KubeAPI model (None for other specs)
+
+
+class KubeKernels(NamedTuple):
+    """KubeAPI's kernel routes: K1 (expand_block) and K7 (deferred_check),
+    each on a CUDA tensor, its plain version on a CPU tensor."""
+
+    cfg: ModelConfig
+
+    def expand(self, block, n: int, deferred: bool = False):
+        """-> (packed, flags [5, ck*L], action, gen, flat=None)."""
+        return (*expand_block(self.cfg, block, n, deferred), None)
+
+    def deferred(self, ex, is_new_c, c_idx, rows: int):
+        return deferred_check(self.cfg, ex.block, is_new_c, c_idx,
+                              ex.action, rows)
 
 
 def kubeapi_backend(cfg: ModelConfig, coverage: bool = False) -> SpecBackend:
@@ -78,13 +102,16 @@ def kubeapi_backend(cfg: ModelConfig, coverage: bool = False) -> SpecBackend:
 
         plane = kubeapi_coverage_plane(cfg)
     return SpecBackend(
-        cfg=cfg,
         cdc=cdc,
         n_lanes=lane_layout(cfg)[1],
+        inv_check=make_invariant_kernel(cfg),
         inv_codes=(VIOL_TYPEOK, VIOL_ONLYONEVERSION),
         initial_vectors=lambda: initial_vectors(cfg),
         labels=LABELS,
+        viol_names={},
+        kernels=KubeKernels(cfg),
         coverage=plane,
+        cfg=cfg,
     )
 
 
@@ -158,69 +185,81 @@ class ExpandOut(NamedTuple):
     # [n_sites] int32 (uint32 words): this block's coverage site increments
     # (None without a coverage plane)
     cov: torch.Tensor = None
+    # [ck*L, F] int32 raw successor fields, in deferred mode on backends
+    # whose deferred check reads them (struct; the reference's
+    # ExpandOut.flat), else None
+    flat: torch.Tensor = None
 
 
 def make_expand_stage(backend: SpecBackend, chunk: int,
                       deferred: bool = False,
                       fp_index: int = DEFAULT_FP_INDEX):
-    """expand(block [chunk, W] int32, n) -> ExpandOut: kernel K1, the
-    deadlock mask, fingerprints (kernel K2) and the first-wins violation
-    (TypeOK > OnlyOneVersion > assert > deadlock > slot overflow; with
-    deferred=True the invariants are not evaluated here, so the reduce
-    covers assert > deadlock > slot overflow).
+    """expand(block [chunk, W] int32, n) -> ExpandOut: the backend's
+    expand kernel (K1 for KubeAPI, K17 for a struct spec), the deadlock
+    mask, fingerprints (kernel K2) and the first-wins violation
+    (invariants in inv_codes order > assert > deadlock > slot overflow;
+    with deferred=True the invariants are not evaluated here, so the
+    reduce covers assert > deadlock > slot overflow).
 
     The violating state is carried packed (viol_words); the engine unpacks
     it on the host once a violation is read back.  With a coverage plane
     the stage also counts the block's site increments (ExpandOut.cov) on
-    K1's valid flags, which already carry the pop mask."""
-    cfg = backend.cfg
+    the valid flags, which already carry the pop mask."""
     cdc = backend.cdc
     L = backend.n_lanes
     nbits = cdc.nbits
-    # the reduce below stacks its candidates in code order
-    assert (VIOL_TYPEOK, VIOL_ONLYONEVERSION, VIOL_ASSERT, VIOL_DEADLOCK,
-            VIOL_SLOT_OVERFLOW) == (1, 2, 3, 4, 5)
+    n_inv = len(backend.inv_codes)
+    kernels = backend.kernels
+    # the candidates of the reduce, in priority order: the invariant rows
+    # of the flags (3 + k), assert, deadlock, slot overflow
+    codes = torch.tensor(backend.inv_codes + (VIOL_ASSERT, VIOL_DEADLOCK,
+                                              VIOL_SLOT_OVERFLOW))
+    codes_on = {}  # device -> codes there
+    lane_rows = list(range(3, 3 + n_inv)) + [FLAG_AFAIL, FLAG_OVF]
 
     def expand(block: torch.Tensor, n: int) -> ExpandOut:
         dev = block.device
-        packed, flags, action, gen = expand_block(cfg, block, n, deferred)
+        packed, flags, action, gen, flat = kernels.expand(block, n, deferred)
         valid = flags[FLAG_VALID].bool()
         cov = None
         if backend.coverage is not None:
             cov = backend.coverage.count(block, n, flags[FLAG_VALID])
         # deadlock: a popped state with no valid successor (TLC's
-        # -deadlock check, always on for KubeAPI)
+        # -deadlock check)
         dead = ~valid.view(chunk, L).any(1)
         dead[n:] = False
+        if not backend.check_deadlock:
+            dead[:] = False
         # first hit per mask, in priority order
-        lane_masks = flags[[FLAG_BAD_TYPEOK, FLAG_BAD_ONLYONE, FLAG_AFAIL,
-                            FLAG_OVF]]
+        lane_masks = flags[lane_rows]
         lane_first = lane_masks.argmax(1)
         lane_any = lane_masks.amax(1) > 0
         d_first = dead.to(torch.uint8).argmax()
-        hits = torch.stack([lane_any[0], lane_any[1], lane_any[2],
-                            dead.any(), lane_any[3]])
+        hits = torch.cat([lane_any[:n_inv + 1], dead.any().view(1),
+                          lane_any[n_inv + 1:]])
         # gathers with 1-D device indices: indexing with a 0-dim CUDA
         # tensor would read it back to the host
         words = torch.cat([
-            packed.index_select(0, lane_first[:2]),
+            packed.index_select(0, lane_first[:n_inv]),
             block.index_select(0, torch.stack([
-                lane_first[2] // L, d_first, lane_first[3] // L])),
+                lane_first[n_inv] // L, d_first, lane_first[n_inv + 1] // L])),
         ])
         acts = torch.cat([
-            action.index_select(0, lane_first[:3]),
+            action.index_select(0, lane_first[:n_inv + 1]),
             torch.full((1,), -1, dtype=torch.int32, device=dev),
-            action.index_select(0, lane_first[3:]),
+            action.index_select(0, lane_first[n_inv + 1:]),
         ]).to(torch.int64)
         k = hits.to(torch.uint8).argmax().view(1)
         hit = hits.any()
         lo, hi = fp64_words(packed, nbits, fp_index)
+        if dev not in codes_on:
+            codes_on[dev] = codes.to(dev)
         return ExpandOut(
             packed=packed, lo=lo, hi=hi, valid=valid, action=action, gen=gen,
-            viol=torch.where(hit, k[0] + 1, OK),
+            viol=torch.where(hit, codes_on[dev].index_select(0, k)[0], OK),
             viol_words=words.index_select(0, k)[0],
             viol_action=torch.where(hit, acts.index_select(0, k)[0], -1),
-            block=block, cov=cov,
+            block=block, cov=cov, flat=flat,
         )
 
     return expand
@@ -277,20 +316,21 @@ def deferred_check(cfg: ModelConfig, block, fresh, c_idx, action,
 
 def make_deferred_checker(backend: SpecBackend):
     """The commit-stage invariant check over the fresh-insert claimants
-    (jaxtlc/engine/backend.py:325).  TLC checks a state when it is first
+    (jaxtlc/engine/backend.py:325), through the backend's kernel (K7 for
+    KubeAPI, K18 for a struct spec).  TLC checks a state when it is first
     generated, and first generation is the fresh insert, so the verdict is
     the immediate mode's; the reported state is the violating fresh
     claimant with the HIGHEST candidate lane (the reference's pinned
-    attribution rule).  KubeAPI has no certificate check.
+    attribution rule), first wins across the invariants in inv_codes
+    order.
 
-    Returns check(block [ck, W], action [ck*L], is_new_c, c_idx, rows) ->
-    (viol, viol_state [F], viol_action); `rows` bounds the rows that can
-    be fresh (R on the slab path, the whole batch on the sorted one)."""
-    cfg = backend.cfg
-    assert backend.inv_codes == (VIOL_TYPEOK, VIOL_ONLYONEVERSION)
+    Returns check(ex: ExpandOut, is_new_c, c_idx, rows) -> (viol,
+    viol_state [F], viol_action); `rows` bounds the rows that can be fresh
+    (R on the slab path, the whole batch on the sorted one)."""
+    kernels = backend.kernels
 
-    def check(block, action, is_new_c, c_idx, rows: int):
-        return deferred_check(cfg, block, is_new_c, c_idx, action, rows)
+    def check(ex, is_new_c, c_idx, rows: int):
+        return kernels.deferred(ex, is_new_c, c_idx, rows)
 
     return check
 

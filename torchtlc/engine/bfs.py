@@ -77,7 +77,6 @@ import torch
 from ..config import ModelConfig
 from ..obs.counters import ring_new, ring_row, rows_from_ring
 from ..obs.coverage import site_totals_dict
-from ..spec.invariants import make_invariant_kernel
 from ..spec.labels import LABELS
 from .backend import (
     FLAG_OVF,
@@ -228,6 +227,9 @@ class CheckResult(NamedTuple):
     actual_fp_collision: float = None  # MC.out:42
     fp_occupancy: float = None  # distinct / fp_capacity
     site_coverage: dict = None  # {site key: visits}; None without coverage
+    # the final fingerprint table ([cap/8, 16] uint32 words), when the
+    # caller asked for it on a clean verdict (struct.engine.check_struct)
+    fp_table: np.ndarray = None
 
 
 def resolve_device(device) -> torch.device:
@@ -464,8 +466,8 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
         viol, viol_state = c.viol, c.viol_state
         viol_action = c.viol_action
         if checker is not None:
-            d_viol, d_state, d_action = checker(ex.block, ex.action, is_new_c,
-                                                c_idx, fresh_rows)
+            d_viol, d_state, d_action = checker(ex, is_new_c, c_idx,
+                                                fresh_rows)
             hit_d = (d_viol != OK) & (viol == OK)
             viol = torch.where(hit_d, d_viol, viol)
             viol_state = torch.where(hit_d, d_state, viol_state)
@@ -600,7 +602,7 @@ def make_backend_engine(
         fps, is_new_c, _, _ = fpset_insert_sorted(
             fpset_new(fp_capacity, dev), lo, hi,
             torch.ones(n0, dtype=torch.bool, device=dev))
-        inv0 = make_invariant_kernel(backend.cfg)(inits)
+        inv0 = backend.inv_check(inits)
         viol, viol_state = OK, torch.zeros(F, dtype=torch.int32)
         for k, code in enumerate(backend.inv_codes):
             bad = (inv0 & (1 << k)) == 0
@@ -830,9 +832,11 @@ def cov_totals(carry) -> "np.ndarray | None":
 
 def result_from_carry(carry: EngineCarry, wall_s: float, iterations: int = -1,
                       fp_capacity: int = 0, labels: tuple = LABELS,
-                      sites: tuple = None) -> CheckResult:
+                      sites: tuple = None,
+                      viol_names: dict = None) -> CheckResult:
     """Pull a finished (or interrupted) carry to the host; `sites` (the
-    coverage plane's table) keys site_coverage."""
+    coverage plane's table) keys site_coverage; `viol_names` (the
+    backend's) override VIOLATION_NAMES."""
     act_gen = carry.act_gen.cpu().numpy()[: len(labels)]
     act_dist = carry.act_dist.cpu().numpy()[: len(labels)]
     hist = carry.outdeg_hist.cpu().numpy()[:-1]  # drop the dump row
@@ -847,7 +851,8 @@ def result_from_carry(carry: EngineCarry, wall_s: float, iterations: int = -1,
                     + int(carry.next_n)
                     + (int(carry.st_n) if carry.st_n is not None else 0)),
         violation=viol,
-        violation_name=VIOLATION_NAMES.get(viol, f"violation {viol}"),
+        violation_name=((viol_names or {}).get(viol)
+                        or VIOLATION_NAMES.get(viol, f"violation {viol}")),
         violation_state=carry.viol_state.cpu().numpy(),
         violation_action=int(carry.viol_action),
         action_generated={labels[i]: int(v) for i, v in enumerate(act_gen) if v},

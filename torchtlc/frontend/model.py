@@ -1,11 +1,15 @@
 """Model resolution: MC.cfg + MC.tla (+ .launch) -> a run spec (port of
-jaxtlc/frontend/model.py, KubeAPI path).
+jaxtlc/frontend/model.py).
 
 The three config layers a Toolbox model has - the .launch file (Toolbox
-knobs), MC.cfg (the TLC DSL) and MC.tla (constant definitions) - are
-resolved against the KubeAPI spec, the one root spec the port executes
-so far.  A model of another root spec is refused with an error: the
-generic and structural frontends come with their own slices of the port.
+knobs), MC.cfg (the TLC DSL) and MC.tla (constant definitions) - resolve
+to one of the reference's frontends, as its ``-frontend auto`` does: the
+KubeAPI root spec goes to the hand-written KubeAPI path (``RunSpec``), a
+module inside the PlusCal-translation subset to the generic frontend, any
+other module to the structural frontend (``StructRunSpec``).  The generic
+frontend is not ported yet: a spec ``auto`` resolves there raises
+``UnportedFrontend`` (the command's exit 2), and ``-frontend struct``
+runs it on the structural path, as the reference's does.
 """
 
 from __future__ import annotations
@@ -23,14 +27,33 @@ from .mc_tla import eval_constant, parse_mc_tla_file
 KNOWN_INVARIANTS = ("TypeOK", "OnlyOneVersion")
 KNOWN_PROPERTIES = ("ReconcileCompletes", "CleansUpProperly")
 
-OTHER_SPEC = ("the port runs only the KubeAPI root spec so far; the gen "
-              "and struct frontends are ported later (ROADMAP Queue A "
-              "items 11, 12)")
+GEN_UNPORTED = ("the generic frontend (the PlusCal-translation subset "
+                "compiler) is not ported yet (ROADMAP Queue A item 12); "
+                "-frontend struct runs this spec on the structural path")
+
+
+class UnportedFrontend(ValueError):
+    """The spec resolves to a frontend the port does not run yet."""
 
 
 @dataclasses.dataclass
 class RunSpec:
     model: ModelConfig
+    invariants: List[str]
+    properties: List[str]
+    check_deadlock: bool
+    workers: str
+    fp_index: int
+    spec_name: str
+    model_name: str
+
+
+@dataclasses.dataclass
+class StructRunSpec:
+    """A resolved run for the structural frontend (struct.loader.load's
+    StructModel with the run's knobs)."""
+
+    structmodel: object
     invariants: List[str]
     properties: List[str]
     check_deadlock: bool
@@ -47,9 +70,16 @@ def resolve(
     fp_index: Optional[int] = None,
     check_deadlock: bool = True,
     const_overrides: Optional[dict] = None,
-) -> RunSpec:
-    """Resolve a run from an MC.cfg (with sibling MC.tla) as TLC would;
-    ValueError for anything the KubeAPI path cannot run."""
+    frontend: str = "auto",
+):
+    """Resolve a run from an MC.cfg (with sibling MC.tla) as TLC would:
+    a RunSpec (KubeAPI) or a StructRunSpec.  frontend "auto" picks as the
+    reference does, "hand" forces the KubeAPI path, "struct" the
+    structural one (it runs any spec); UnportedFrontend for a spec the
+    generic frontend would take, ValueError for anything else that cannot
+    run."""
+    if frontend not in ("auto", "hand", "struct"):
+        raise ValueError(f"unknown -frontend {frontend!r}")
     cfg: TLCConfig = parse_cfg_file(cfg_path)
     model_dir = os.path.dirname(os.path.abspath(cfg_path))
     mc_tla_path = os.path.join(model_dir, "MC.tla")
@@ -96,8 +126,36 @@ def resolve(
                 f"ambiguous root spec: several .tla modules next to the "
                 f"config ({', '.join(cands)}); add a .launch file or an "
                 "MC.tla naming the root module")
+    if frontend == "struct" or (
+        frontend == "auto" and spec_name not in ("", "KubeAPI")
+        and not os.path.exists(os.path.join(model_dir, f"{spec_name}.tla"))
+        and os.path.exists(mc_tla_path)
+    ):
+        # forced structural path, or a non-KubeAPI MC whose root module
+        # resolves through EXTENDS rather than a sibling file
+        return _resolve_struct(cfg_path, cfg, launch, spec_name,
+                               check_deadlock, workers, fp_index, model_dir,
+                               const_overrides)
+    if frontend == "hand" and spec_name not in ("", "KubeAPI"):
+        raise ValueError(f"-frontend hand supports only the KubeAPI root "
+                         f"spec, not {spec_name!r}")
     if spec_name not in ("", "KubeAPI"):
-        raise ValueError(f"root spec {spec_name!r}: {OTHER_SPEC}")
+        tla_path = os.path.join(model_dir, f"{spec_name}.tla")
+        if not os.path.exists(tla_path):
+            raise ValueError(
+                f"root spec {spec_name!r}: no {spec_name}.tla next to the "
+                "config")
+        from ..gen.tla_parse import SpecParseError, load_genspec
+
+        try:
+            load_genspec(tla_path, consts, list(cfg.invariants),
+                         list(cfg.properties))
+        except SpecParseError:
+            # outside the generic subset: the structural frontend
+            return _resolve_struct(cfg_path, cfg, launch, spec_name,
+                                   check_deadlock, workers, fp_index,
+                                   model_dir, const_overrides)
+        raise UnportedFrontend(f"root spec {spec_name!r}: {GEN_UNPORTED}")
     if cfg.specification not in (None, "Spec"):
         raise ValueError(f"unsupported SPECIFICATION {cfg.specification!r}")
 
@@ -136,4 +194,31 @@ def resolve(
         spec_name=spec_name or "KubeAPI",
         model_name=(launch.model_name if launch
                     else os.path.basename(model_dir)),
+    )
+
+
+def _resolve_struct(cfg_path, cfg, launch, spec_name, check_deadlock,
+                    workers, fp_index, model_dir,
+                    const_overrides=None) -> StructRunSpec:
+    from ..struct.loader import StructLoadError, load as load_struct
+    from ..struct.parser import StructParseError
+
+    try:
+        sm = load_struct(cfg_path, const_overrides=const_overrides)
+    except (StructLoadError, StructParseError) as e:
+        raise ValueError(f"root spec {spec_name!r}: structural frontend "
+                         f"cannot load the module: {e}")
+    if launch:
+        check_deadlock = launch.check_deadlock
+        if fp_index is None:
+            fp_index = launch.fp_index
+    return StructRunSpec(
+        structmodel=sm,
+        invariants=list(cfg.invariants),
+        properties=list(cfg.properties),
+        check_deadlock=check_deadlock,
+        workers=workers,
+        fp_index=DEFAULT_FP_INDEX if fp_index is None else fp_index,
+        spec_name=sm.root_name or spec_name,
+        model_name=os.path.basename(model_dir),
     )

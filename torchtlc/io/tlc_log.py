@@ -232,6 +232,21 @@ class TLCLog:
                 f"col {len(name) + 6} of module KubeAPI>: {d}:{g}",
             )
 
+    def coverage_generic(self, module: str, init_count: int,
+                         act_gen: Dict[str, int],
+                         act_dist: Dict[str, int]) -> None:
+        """Per-action coverage of a struct-frontend spec: the module's own
+        action names with TLC's distinct:generated counts."""
+        self.msg(
+            2201,
+            f"The coverage statistics at {time.strftime('%Y-%m-%d %H:%M:%S')}",
+        )
+        self.msg(2773, f"<Init of module {module}>: "
+                       f"{init_count}:{init_count}")
+        for name, g in act_gen.items():
+            d = act_dist.get(name, 0)
+            self.msg(2772, f"<{name} of module {module}>: {d}:{g}")
+
     def checking_temporal(self, distinct: int, path: str = "host") -> None:
         """TLC's 2192 liveness-phase banner, naming the liveness engine that
         runs: `host` (explicit graph) or `device` (edge capture and the

@@ -6,6 +6,12 @@ digest covers every source and header and the flags: a library is built at
 first use and reused while nothing changed.  The libraries export C
 functions (``tt_*``) that launch on the stream they are given and return
 ``cudaGetLastError()``; torchtlc/kernels/ops.py loads them with ctypes.
+
+The second route, ``build_struct``, builds one spec's kernels K17 and K18:
+the C++ that torchtlc.struct.emit prints around the struct_*.cuh templates
+goes to ``_build/struct/<digest>/spec.cu``, where the digest covers the
+text, the templates and the flags; nvcc builds it into ``libstruct.so``
+for the card, or g++ into ``libstruct_host.so`` for the host tests.
 """
 
 from __future__ import annotations
@@ -76,3 +82,40 @@ def build(ptxas_report: bool = False) -> BuildInfo:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return BuildInfo(libs, logs)
+
+
+STRUCT_TEMPLATES = ("common.cuh", "struct_prelude.cuh", "struct_codec.cuh",
+                    "struct_expand.cuh")
+HOST_FLAGS = ["-x", "c++", "-O1", "-std=c++17", "-shared", "-fPIC"]
+
+
+def build_struct(text: str, host: bool = False) -> str:
+    """Build (or find) one spec's K17/K18 library from its emitted text:
+    nvcc for sm_90a, or g++ with host=True.  Returns the library path;
+    raises with the compiler's output when the build fails."""
+    flags = HOST_FLAGS if host else NVCC_FLAGS
+    h = hashlib.sha256(" ".join(flags).encode() + text.encode())
+    for name in STRUCT_TEMPLATES:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + f.read())
+    out_dir = os.path.join(BUILD_DIR, "struct", h.hexdigest()[:16])
+    lib = os.path.join(out_dir,
+                       "libstruct_host.so" if host else "libstruct.so")
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(out_dir, "spec.cu")
+    tmp_src = f"{src}.{os.getpid()}.tmp"
+    with open(tmp_src, "w") as f:
+        f.write(text)
+    os.replace(tmp_src, src)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cc = "g++" if host else nvcc()
+    proc = subprocess.run([cc, *flags, "-I", CSRC, "-o", tmp, src],
+                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cc} failed on {src} (rc {proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib

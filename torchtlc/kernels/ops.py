@@ -24,7 +24,7 @@ KERNELS = ("expand", "fp64", "fpset_key", "fpset_probe", "fpset_claim",
            "slab_compact", "slab_order", "slab_mark", "deferred_check",
            "ring_row", "fpset_member", "coverage_count", "route_scatter",
            "verdict_fold", "shard_enqueue", "edge_capture", "state_masks",
-           "survive_sweep")
+           "survive_sweep", "struct_expand", "struct_inv_rows")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -780,3 +780,84 @@ def survive_sweep(src: torch.Tensor, dst: torch.Tensor, D: int,
         _ptr(src), _ptr(dst), E, max(E // D, 1), D, _ptr(alive), _ptr(term),
         V, _ptr(support), _ptr(alive2), _ptr(changed), _stream()))
     return alive2, changed[0] != 0
+
+
+# ---------------------------------------------------------------------------
+# K17 struct_expand, K18 struct_inv_rows: one library per spec
+# ---------------------------------------------------------------------------
+
+_STRUCT_LIBS = {}
+
+
+def struct_lib(prog):
+    """The K17/K18 library of a compiled spec (struct.backend.StructProgram),
+    built from its emitted text at first use and loaded once per text."""
+    lib_ = _STRUCT_LIBS.get(prog.text)
+    if lib_ is None:
+        dll = ctypes.CDLL(_build.build_struct(prog.text))
+        for fn, argtypes in (
+                ("tt_struct_dims", [_P]),
+                ("tt_struct_expand", [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                                      _P]),
+                ("tt_struct_inv_rows", [_P, _P, _LL, _P, _P, _P, _I, _P, _P,
+                                        _P, _P, _P])):
+            getattr(dll, fn).argtypes = argtypes
+            getattr(dll, fn).restype = ctypes.c_int
+        dims = (ctypes.c_int * 6)()
+        dll.tt_struct_dims(dims)
+        if tuple(dims[:5]) != (prog.F, prog.W, prog.L, prog.n_inv,
+                               prog.n_labels):
+            raise RuntimeError(f"struct library dims {tuple(dims)} do not "
+                               "match the compiled spec")
+        _STRUCT_LIBS[prog.text] = lib_ = dll
+    return lib_
+
+
+def struct_expand(prog, block: torch.Tensor, n: int, deferred: bool = False):
+    """K17 -> (packed [ck*L, W] int32, flags [3 + n_inv, ck*L] uint8, action
+    [ck*L] int32, gen [n_labels] int64, flat [ck*L, F] int32 in deferred
+    mode else None); see struct.backend.StructProgram.expand_plain."""
+    ck = block.shape[0]
+    _need(block, "block", torch.int32, (ck, prog.W))
+    dev = block.device
+    ncand = ck * prog.L
+    packed = torch.empty(ncand, prog.W, dtype=torch.int32, device=dev)
+    flags = torch.empty(3 + prog.n_inv, ncand, dtype=torch.uint8, device=dev)
+    action = torch.empty(ncand, dtype=torch.int32, device=dev)
+    gen = torch.zeros(prog.n_labels, dtype=torch.int64, device=dev)
+    flat = (torch.empty(ncand, prog.F, dtype=torch.int32, device=dev)
+            if deferred else None)
+    K = prog.constants(dev)
+    rc = struct_lib(prog).tt_struct_expand(
+        _ptr(K), _ptr(block), ck, n, int(deferred), _ptr(packed),
+        _ptr(flags), _ptr(action), _ptr(flat) if deferred else None,
+        _ptr(gen), _stream())
+    _launched("struct_expand", rc)
+    return packed, flags, action, gen, flat
+
+
+def struct_inv_rows(prog, flat: torch.Tensor, fresh: torch.Tensor,
+                    c_idx: torch.Tensor, action: torch.Tensor, rows: int):
+    """K18 -> (viol 0-dim int64, state [F] int32, action 0-dim int64); see
+    struct.backend.StructProgram.inv_rows_plain."""
+    from ..struct.backend import VIOL_INVARIANT_BASE
+
+    ncand = flat.shape[0]
+    _need(flat, "flat", torch.int32, (ncand, prog.F))
+    n = fresh.shape[0]
+    if not 0 < rows <= n:
+        raise ValueError(f"rows {rows} outside (0, {n}]")
+    _need(fresh, "fresh", torch.bool, (n,))
+    _need(c_idx, "c_idx", torch.int64, (n,))
+    _need(action, "action", torch.int32, (ncand,))
+    dev = flat.device
+    scratch = torch.full((prog.n_inv + 1,), -1, dtype=torch.int32,
+                         device=dev)
+    viol = torch.empty((), dtype=torch.int64, device=dev)
+    state = torch.empty(prog.F, dtype=torch.int32, device=dev)
+    vaction = torch.empty((), dtype=torch.int64, device=dev)
+    _launched("struct_inv_rows", struct_lib(prog).tt_struct_inv_rows(
+        _ptr(prog.constants(dev)), _ptr(flat), rows, _ptr(fresh),
+        _ptr(c_idx), _ptr(action), VIOL_INVARIANT_BASE, _ptr(scratch),
+        _ptr(viol), _ptr(state), _ptr(vaction), _stream()))
+    return viol, state, vaction

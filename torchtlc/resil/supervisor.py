@@ -223,11 +223,15 @@ class SingleDeviceAdapter:
     def __init__(self, cfg, chunk: int = 1024, obs_slots: int = 0,
                  sort_free: bool = None, deferred: bool = None,
                  device=None, fp_index: int = DEFAULT_FP_INDEX,
-                 coverage: bool = False, pipeline: bool = False):
+                 coverage: bool = False, pipeline: bool = False,
+                 backend=None, meta_config: dict = None):
         self.cfg = cfg
         # one backend for the engine, the spill runtime, the site table and
-        # the meta's `coverage` flag
-        self.backend = kubeapi_backend(cfg, coverage=coverage)
+        # the meta's `coverage` flag: KubeAPI's for a ModelConfig, else the
+        # given one (a struct spec's, with its meta_config stanza)
+        self.backend = (backend if backend is not None
+                        else kubeapi_backend(cfg, coverage=coverage))
+        self.meta_config = meta_config
         self.coverage = self.backend.coverage is not None
         self.chunk = chunk
         self.pipeline = bool(pipeline)
@@ -252,7 +256,8 @@ class SingleDeviceAdapter:
 
     def meta(self, params: dict) -> dict:
         return ckpt._meta(
-            self.cfg, chunk=self.chunk, fp_index=self.fp_index,
+            self.cfg, meta_config=self.meta_config, chunk=self.chunk,
+            fp_index=self.fp_index,
             seed=DEFAULT_SEED, fp_highwater=self.fp_highwater,
             pipeline=self.pipeline, obs_slots=self.obs_slots,
             coverage=self.coverage,
@@ -288,8 +293,9 @@ class SingleDeviceAdapter:
     def supports_spill(self) -> bool:
         # the spill runtime runs the unpipelined stages; a pipelined
         # carry's staged block has no spill composition (the ladder
-        # degrades those runs to the next rung instead)
-        return not self.pipeline
+        # degrades those runs to the next rung instead).  The struct
+        # backend's spill rung is not ported yet (ROADMAP Queue A item 11)
+        return not self.pipeline and self.backend.cfg is not None
 
     def build_spill(self, params: dict, store, on_event=None,
                     spill_write_hook=None):
@@ -324,6 +330,7 @@ class SingleDeviceAdapter:
         return result_from_carry(
             carry, wall, iterations=segments,
             fp_capacity=params["fp_capacity"], sites=self.cov_sites(),
+            labels=self.backend.labels, viol_names=self.backend.viol_names,
         )._replace(actual_fp_collision=fpset_actual_collision(carry.fps))
 
 
@@ -932,15 +939,22 @@ def check_supervised(
     fp_index: int = DEFAULT_FP_INDEX,
     coverage: bool = False,
     pipeline: bool = False,
+    backend=None,
+    meta_config: dict = None,
 ) -> SupervisedResult:
     """Supervised single-device exhaustive check of a KubeAPI
     configuration on `device` (None = the card); coverage=True carries the
     device coverage plane and journals its `coverage` events;
-    pipeline=True runs the pipelined body."""
+    pipeline=True runs the pipelined body.  With cfg None, `backend` (a
+    struct spec's, struct.cache.get_backend) is checked instead and
+    `meta_config` is the checkpoint's `config` stanza
+    (struct.backend.struct_meta_config), as the reference's
+    check_supervised(None, backend=..., meta_config=...)."""
     adapter = SingleDeviceAdapter(
         cfg, chunk=chunk, obs_slots=obs_slots, sort_free=sort_free,
         deferred=deferred, device=device, fp_index=fp_index,
-        coverage=coverage, pipeline=pipeline)
+        coverage=coverage, pipeline=pipeline, backend=backend,
+        meta_config=meta_config)
     return supervise(
         adapter,
         {"queue_capacity": queue_capacity, "fp_capacity": fp_capacity},

@@ -1,0 +1,262 @@
+"""Struct-compiled specs as a SpecBackend of the port's engines (port of
+jaxtlc/struct/backend.py).
+
+``struct_backend(model)`` runs parse -> shape inference -> lane compile
+(struct.compile on the lane IR) once, and returns the backend the engines
+consume.  Its kernel routes are ``StructKernels``:
+
+* ``expand(block, n, deferred)`` - kernel K17 ``struct_expand`` on a CUDA
+  block, its plain version (the lane IR evaluated by torch, composed as
+  the reference composes its expand stage) on a CPU block;
+* ``deferred(ex, is_new_c, c_idx, rows)`` - kernel K18 ``struct_inv_rows``
+  over the fresh claimants' raw successors (``ExpandOut.flat``), or its
+  plain version.
+
+The emitted C++ of the step and the invariants (struct.emit) is built
+into a shared library at the first launch on the card (kernels.build,
+``_build/struct/<digest>/``); the constant tables are uploaded to the
+card once per backend and device.  Lane labels come from one IR build:
+no data run.  The reference's narrowed codec (``-narrow``), device
+coverage plane and symmetry/POR reduction are not ported yet (ROADMAP
+Queue A items 11, 13).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from ..engine.backend import OK, VIOL_ASSERT, SpecBackend
+from . import lanes
+from .codec import StructCodec
+from .compile import LaneCompiler
+from .emit import spec_source
+from .loader import StructModel
+from .shapes import infer_shapes, typeok_hints
+
+VIOL_INVARIANT_BASE = 100
+
+
+def struct_viol_names(model: StructModel) -> Dict[int, str]:
+    """Violation-code name overrides for a struct model (invariants by
+    cfg order + the PlusCal assertion channel)."""
+    names = {VIOL_ASSERT: "Failure of PlusCal assertion"}
+    for k, name in enumerate(model.invariants):
+        names[VIOL_INVARIANT_BASE + k] = f"Invariant {name} is violated"
+    return names
+
+
+class StructProgram:
+    """A compiled spec: the lane-IR graphs of its step and invariants,
+    their torch evaluation (the plain versions) and the emitted C++ with
+    its constant table."""
+
+    def __init__(self, step_outputs, inv_outputs, cdc: StructCodec,
+                 lane_action: np.ndarray, n_labels: int, title: str):
+        self.step_outputs = tuple(step_outputs)
+        self.inv_outputs = tuple(inv_outputs)
+        self.cdc = cdc
+        self.F = cdc.n_fields
+        self.W = cdc.n_words
+        self.L = int(self.step_outputs[0].shape[1])
+        self.n_inv = len(self.inv_outputs)
+        self.n_labels = n_labels
+        self.lane_action = np.asarray(lane_action, np.int32)
+        self.text, self.K = spec_source(
+            self.step_outputs, self.inv_outputs, n_fields=self.F,
+            widths=cdc.widths, n_words=self.W, lane_action=self.lane_action,
+            n_labels=n_labels, title=title)
+        self._K_dev: Dict[str, torch.Tensor] = {}
+
+    def constants(self, device) -> torch.Tensor:
+        """K on `device` (uploaded once per device)."""
+        key = str(device)
+        t = self._K_dev.get(key)
+        if t is None:
+            t = torch.from_numpy(self.K).to(device)
+            self._K_dev[key] = t
+        return t
+
+    def stats(self) -> dict:
+        """Sizes of the step and invariant graphs (lanes.stats)."""
+        return dict(step=lanes.stats(self.step_outputs),
+                    invariants=lanes.stats(self.inv_outputs),
+                    K=int(self.K.size))
+
+    # -- the plain versions ----------------------------------------------
+
+    def step_plain(self, fields: torch.Tensor):
+        """fields [B, F] -> (succ [B, L, F] int32, valid, ovf, afail
+        [B, L] bool): the step graph evaluated by torch."""
+        B = fields.shape[0]
+        out = lanes.evaluate(self.step_outputs, fields)
+        return tuple(t.expand((B,) + tuple(t.shape[1:]))
+                     .reshape((B,) + tuple(t.shape[2:])) for t in out)
+
+    def inv_bits_plain(self, fields: torch.Tensor) -> torch.Tensor:
+        """fields [N, F] -> [N] int32, bit k set when invariant k holds."""
+        N = fields.shape[0]
+        bits = torch.zeros(N, dtype=torch.int32, device=fields.device)
+        if self.n_inv:
+            oks = lanes.evaluate(self.inv_outputs, fields)
+            for k, ok in enumerate(oks):
+                bits |= ok.reshape(-1).expand(N).to(torch.int32) << k
+        return bits
+
+    def expand_plain(self, block: torch.Tensor, n: int,
+                     deferred: bool = False):
+        """Torch version of kernel K17: (packed [ck*L, W] int32, flags
+        [3 + n_inv, ck*L] uint8, action [ck*L] int32, gen [n_labels]
+        int64, flat [ck*L, F] int32 in deferred mode else None)."""
+        ck = block.shape[0]
+        dev = block.device
+        succ, valid, ovf, afail = self.step_plain(self.cdc.unpack(block))
+        mask = torch.arange(ck, device=dev) < n
+        valid = valid & mask[:, None]
+        afail = afail & valid
+        ovf = ovf & valid
+        flat = succ.reshape(-1, self.F)
+        fvalid = valid.reshape(-1)
+        rows = [fvalid, afail.reshape(-1), ovf.reshape(-1)]
+        if deferred:
+            rows += [torch.zeros_like(fvalid)] * self.n_inv
+        else:
+            bits = self.inv_bits_plain(flat)
+            rows += [fvalid & (((bits >> k) & 1) == 0)
+                     for k in range(self.n_inv)]
+        la = torch.from_numpy(self.lane_action).to(dev)
+        action = la.repeat(ck)
+        gen = torch.zeros(self.n_labels, dtype=torch.int64, device=dev)
+        gen.index_add_(0, la.to(torch.int64), valid.sum(0))
+        flags = torch.stack(rows).to(torch.uint8)
+        return (self.cdc.pack(flat), flags, action, gen,
+                flat if deferred else None)
+
+    def inv_rows_plain(self, flat: torch.Tensor, fresh: torch.Tensor,
+                       c_idx: torch.Tensor, action: torch.Tensor, rows: int,
+                       code_base: int = VIOL_INVARIANT_BASE):
+        """Torch version of kernel K18: the invariants of the fresh
+        claimants among the first `rows` rows of an insert's (is_new_c,
+        c_idx), read from their raw successors flat[c_idx].  First wins
+        across the invariants; within one the highest violating lane.
+        Returns (viol 0-dim int64, state [F] int32, action 0-dim int64);
+        (OK, zeros, -1) when every fresh claimant passes."""
+        dev = flat.device
+        lanes_ = c_idx[:rows][fresh[:rows].bool()]
+        viol, state, vaction = OK, torch.zeros(self.F, dtype=torch.int32,
+                                                device=dev), -1
+        if lanes_.numel():
+            bits = self.inv_bits_plain(flat[lanes_])
+            for k in range(self.n_inv):
+                bad = ((bits >> k) & 1) == 0
+                if bad.any():
+                    lane = int(lanes_[bad].max())
+                    viol, state = code_base + k, flat[lane].to(torch.int32)
+                    vaction = int(action[lane])
+                    break
+
+        def i64(v):
+            return torch.tensor(v, dtype=torch.int64, device=dev)
+
+        return i64(viol), state, i64(vaction)
+
+
+class StructKernels:
+    """The struct backend's kernel routes (SpecBackend.kernels): K17 and
+    K18 on CUDA tensors, their plain versions on CPU tensors."""
+
+    def __init__(self, prog: StructProgram):
+        self.prog = prog
+
+    def expand(self, block: torch.Tensor, n: int, deferred: bool = False):
+        if not block.is_cuda:
+            return self.prog.expand_plain(block, n, deferred)
+        from ..kernels import ops
+
+        return ops.struct_expand(self.prog, block, n, deferred)
+
+    def deferred(self, ex, is_new_c, c_idx, rows: int):
+        if not ex.flat.is_cuda:
+            return self.prog.inv_rows_plain(ex.flat, is_new_c, c_idx,
+                                            ex.action, rows)
+        from ..kernels import ops
+
+        return ops.struct_inv_rows(self.prog, ex.flat, is_new_c, c_idx,
+                                   ex.action, rows)
+
+
+def compile_model(model: StructModel):
+    """(codec, LaneCompiler, step outputs, invariant outputs) of a model:
+    shape inference with the TypeOK hints, then one build of the step
+    and of each invariant on ``lanes.input_node(F)``."""
+    system = model.system
+    hints = typeok_hints(system.ev, model.invariants, system.variables)
+    var_shapes = infer_shapes(system.ev, system.variables, system.init_ast,
+                              system.next_ast, hints=hints)
+    cdc = StructCodec(system.variables, var_shapes)
+    compiler = LaneCompiler(system.ev, system.variables, var_shapes, cdc)
+    inp = lanes.input_node(cdc.n_fields)
+    step_outputs = compiler.build_step(system.next_ast)(inp)
+    inv_outputs = [compiler.build_invariant(ast)(inp)
+                   for ast in model.invariants.values()]
+    return cdc, compiler, step_outputs, inv_outputs
+
+
+def struct_backend(model: StructModel,
+                   check_deadlock: bool = True) -> SpecBackend:
+    """Compile `model` into a SpecBackend (the pipeline struct.cache
+    memoizes in-process)."""
+    system = model.system
+    cdc, compiler, step_outputs, inv_outputs = compile_model(model)
+    labels: List[str] = list(compiler.labels)
+    action_names: Tuple[str, ...] = tuple(sorted(set(labels)))
+    lane_action = np.asarray([action_names.index(x) for x in labels],
+                             np.int32)
+    prog = StructProgram(step_outputs, inv_outputs, cdc, lane_action,
+                         len(action_names),
+                         title=f"{model.root_name} ({model.source_digest})")
+
+    def initial_vectors():
+        inits = system.initial_states()
+        return np.stack([cdc.encode(st) for st in inits])
+
+    return SpecBackend(
+        cdc=cdc,
+        n_lanes=len(labels),
+        inv_check=prog.inv_bits_plain,
+        inv_codes=tuple(VIOL_INVARIANT_BASE + k
+                        for k in range(len(model.invariants))),
+        initial_vectors=initial_vectors,
+        labels=action_names,
+        viol_names=struct_viol_names(model),
+        check_deadlock=check_deadlock,
+        kernels=StructKernels(prog),
+    )
+
+
+def canonical_constants(model: StructModel) -> dict:
+    """JSON-stable rendering of the model's resolved constants (the
+    checkpoint-meta / cache-key form; frozensets sort, everything else
+    goes through repr so model values and numbers stay distinct)."""
+    out = {}
+    for k in sorted(model.constants):
+        v = model.constants[k]
+        out[k] = (sorted(map(repr, v)) if isinstance(v, frozenset)
+                  else repr(v))
+    return out
+
+
+def struct_meta_config(model: StructModel) -> dict:
+    """The checkpoint `config` stanza for struct runs: digest + canonical
+    constants + invariant list - everything that shapes the compiled
+    step, so a -recover against a different spec text or overrides is a
+    loud mismatch, never a silent misrun."""
+    return {
+        "frontend": "struct",
+        "root": model.root_name,
+        "digest": model.source_digest,
+        "constants": canonical_constants(model),
+        "invariants": list(model.invariants),
+    }

@@ -1,0 +1,329 @@
+"""Print lane IR (struct.lanes) as ``__host__ __device__`` C++.
+
+The emitted text is the per-spec body of kernels K17 ``struct_expand``
+and K18 ``struct_inv_rows``: one function for the step, one per
+invariant, the spec's constants as macros, and the constant tables as one
+int32 array ``K`` the caller uploads once (device memory on the card, a
+host array for the g++ build).  torchtlc/kernels/csrc/struct_expand.cuh is
+the hand-written kernel template around it; struct.build compiles the
+pair with nvcc for the card and with g++ for the host tests.
+
+Every node is fully unrolled into per-element scalar statements (the
+graphs are small: a few thousand elements per row for the shipped specs),
+so nothing lands in local memory: data-movement nodes (reshape,
+broadcast, stack, index, slice, take) cost no code at all, they only
+rename elements.  Constants of up to ``INLINE_CONST`` elements are
+literals; larger ones, and every gather table, live in ``K``.  The
+semantics are struct.lanes.evaluate's: wrapping int32 arithmetic (through
+uint32), floor division and modulo, first-index argmax/argmin, gathers
+that wrap a negative index once and clamp.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence
+
+import numpy as np
+
+from . import lanes
+from .lanes import Node, bool_, row_size
+
+INLINE_CONST = 64
+
+_BIN = {
+    "add": "tt_add({}, {})", "sub": "tt_sub({}, {})",
+    "mul": "tt_mul({}, {})", "floordiv": "tt_floordiv({}, {})",
+    "mod": "tt_mod({}, {})", "shr": "({} >> {})", "shl": "tt_shl({}, {})",
+    "max": "tt_max({}, {})", "min": "tt_min({}, {})",
+    "eq": "({} == {})", "ne": "({} != {})", "lt": "({} < {})",
+    "le": "({} <= {})", "gt": "({} > {})", "ge": "({} >= {})",
+    "and": "({} & {})", "or": "({} | {})", "xor": "({} ^ {})",
+}
+
+
+class EmitError(ValueError):
+    pass
+
+
+def _lit(v, dtype) -> str:
+    if dtype == bool_:
+        return "true" if v else "false"
+    v = int(v)
+    if v == -(1 << 31):
+        return "(-2147483647 - 1)"
+    return f"({v})" if v < 0 else str(v)
+
+
+def _bmap(src_shape, out_shape) -> np.ndarray:
+    """For each element of out_shape, the flat index of the element of
+    src_shape that numpy broadcasting reads."""
+    nd = len(out_shape)
+    src = (1,) * (nd - len(src_shape)) + tuple(src_shape)
+    idx = np.arange(row_size(src_shape), dtype=np.int64).reshape(src)
+    return np.broadcast_to(idx, tuple(out_shape)).ravel()
+
+
+class Program:
+    """The constant table ``K`` shared by every function of one spec,
+    and the emitted functions."""
+
+    def __init__(self):
+        self._chunks: List[np.ndarray] = []
+        self._offsets: Dict[int, int] = {}
+        self._keep: List[Node] = []
+        self.size = 0
+        self.functions: List[str] = []
+
+    def table(self, n: Node) -> int:
+        """Offset of constant n's values in K (added at first use)."""
+        off = self._offsets.get(id(n))
+        if off is None:
+            off = self.size
+            vals = np.asarray(n.value).astype(np.int32).ravel()
+            self._chunks.append(vals)
+            self._offsets[id(n)] = off
+            self._keep.append(n)
+            self.size += vals.size
+        return off
+
+    def constants(self) -> np.ndarray:
+        """K: every table, int32 (bools as 0/1); one element at least."""
+        if not self._chunks:
+            return np.zeros(1, np.int32)
+        return np.concatenate(self._chunks).astype(np.int32)
+
+    # -- functions --------------------------------------------------------
+
+    def function(self, head: str, outputs: Sequence[Node], tail) -> None:
+        """Emit ``head { <graph of outputs> <tail(exprs)> }``; tail gets
+        each output's per-element C expressions and returns the lines
+        that store them."""
+        body = _Body(self)
+        exprs = body.run(outputs)
+        lines = [head + " {"] + ["  " + s for s in body.lines]
+        lines += ["  " + s for s in tail(exprs)]
+        lines.append("}")
+        self.functions.append("\n".join(lines))
+
+
+class _Body:
+    def __init__(self, prog: Program):
+        self.prog = prog
+        self.lines: List[str] = []
+        self.n = 0
+
+    def var(self, dtype, expr: str) -> str:
+        name = f"v{self.n}"
+        self.n += 1
+        ctype = "bool" if dtype == bool_ else "int32_t"
+        self.lines.append(f"const {ctype} {name} = {expr};")
+        return name
+
+    def run(self, outputs: Sequence[Node]) -> List[List[str]]:
+        E: Dict[int, List[str]] = {}
+        for n in lanes.topo(outputs):
+            E[id(n)] = self.node(n, E)
+        return [E[id(n)] for n in outputs]
+
+    def node(self, n: Node, E) -> List[str]:
+        op, size = n.op, row_size(n.shape)
+        if op == "input":
+            return [f"f[{j}]" for j in range(n.attr[0])]
+        if op == "const":
+            vals = np.asarray(n.value).ravel()
+            if vals.size <= INLINE_CONST:
+                return [_lit(v, n.dtype) for v in vals]
+            off = self.prog.table(n)
+            cast = "(K[{}] != 0)" if n.dtype == bool_ else "K[{}]"
+            return [cast.format(off + i) for i in range(vals.size)]
+        a = [E[id(x)] for x in n.args]
+        if op in _BIN:
+            ma = _bmap(n.args[0].shape, n.shape)
+            mb = _bmap(n.args[1].shape, n.shape)
+            return [self.var(n.dtype, _BIN[op].format(a[0][ma[i]],
+                                                      a[1][mb[i]]))
+                    for i in range(size)]
+        if op == "not":
+            return [self.var(n.dtype, f"!{x}") for x in a[0]]
+        if op == "bnot":
+            return [self.var(n.dtype, f"~{x}") for x in a[0]]
+        if op == "cast":
+            fmt = "({} != 0)" if n.dtype == bool_ else "(int32_t){}"
+            return [self.var(n.dtype, fmt.format(x)) for x in a[0]]
+        if op == "where":
+            ms = [_bmap(x.shape, n.shape) for x in n.args]
+            return [self.var(n.dtype, "({} ? {} : {})".format(
+                *(a[k][ms[k][i]] for k in range(3)))) for i in range(size)]
+        if op == "gather":
+            tab, idx = n.args
+            off = self.prog.table(tab)
+            fmt = ("(K[{} + tt_clampidx({}, {})] != 0)" if n.dtype == bool_
+                   else "K[{} + tt_clampidx({}, {})]")
+            return [self.var(n.dtype, fmt.format(off, x, tab.value.size))
+                    for x in a[1]]
+        if op in ("sum", "any", "all", "argmax", "argmin", "cumsum"):
+            return self.reduce(n, a[0])
+        if op == "remask":
+            t = np.asarray(n.args[1].value)
+            U, V = t.size, n.attr[0]
+            rows = size // V if V else 0
+            out = []
+            for r in range(rows):
+                for v in range(V):
+                    terms = [a[0][r * U + u] for u in range(U) if t[u] == v]
+                    out.append(self.var(n.dtype, _sum(terms)))
+            return out
+        # data movement: each output element names one input element
+        src = n.args[0]
+        if op == "reshape":
+            return list(a[0])
+        if op == "broadcast":
+            m = _bmap(src.shape, n.shape)
+            return [a[0][i] for i in m]
+        if op == "stack":
+            ax = n.attr[0]
+            common = n.shape[:ax] + n.shape[ax + 1:]
+            cols = [[a[k][i] for i in _bmap(x.shape, common)]
+                    for k, x in enumerate(n.args)]
+            grid = np.stack([np.arange(row_size(common)).reshape(common)
+                             + k * row_size(common)
+                             for k in range(len(cols))], axis=ax).ravel()
+            flat = [e for col in cols for e in col]
+            return [flat[i] for i in grid]
+        idx = np.arange(row_size(src.shape)).reshape(src.shape)
+        if op == "index":
+            ax, i = n.attr
+            sel = np.take(idx, i, axis=ax)
+        elif op == "slice":
+            ax, s0, e0 = n.attr
+            sel = np.take(idx, np.arange(s0, e0), axis=ax)
+        elif op == "take":
+            ax, ids = n.attr
+            sel = np.take(idx, np.asarray(ids, np.int64), axis=ax)
+        else:
+            raise EmitError(f"no C++ for lane op {op}")
+        return [a[0][i] for i in np.asarray(sel).ravel()]
+
+    def reduce(self, n: Node, x: List[str]) -> List[str]:
+        src = n.args[0]
+        ax = n.attr[0]
+        idx = np.moveaxis(np.arange(row_size(src.shape)).reshape(src.shape),
+                          ax, -1)
+        k = src.shape[ax]
+        groups = idx.reshape(-1, k) if k else np.zeros((row_size(n.shape), 0),
+                                                        np.int64)
+        op = n.op
+        if op == "cumsum":
+            out = np.empty(idx.shape, object)
+            flat_out = out.reshape(-1, k)
+            for g, grp in enumerate(groups):
+                acc = None
+                for j, e in enumerate(grp):
+                    acc = self.var(n.dtype, f"(int32_t){x[e]}" if acc is None
+                                   else f"tt_add({acc}, {x[e]})")
+                    flat_out[g, j] = acc
+            return list(np.moveaxis(out, -1, ax).ravel())
+        out = []
+        for grp in groups:
+            terms = [x[e] for e in grp]
+            if op == "sum":
+                out.append(self.var(n.dtype, _sum(terms)))
+            elif op == "any":
+                out.append(self.var(n.dtype, " | ".join(terms) or "false"))
+            elif op == "all":
+                out.append(self.var(n.dtype, " & ".join(terms) or "true"))
+            else:
+                if not terms:
+                    out.append("0")
+                    continue
+                best = self.var_mut("int32_t", terms[0])
+                arg = self.var_mut("int32_t", "0")
+                cmp = ">" if op == "argmax" else "<"
+                for j in range(1, len(terms)):
+                    self.lines.append(
+                        f"if ({terms[j]} {cmp} {best}) {{ {best} = "
+                        f"{terms[j]}; {arg} = {j}; }}")
+                out.append(self.var(n.dtype, arg))
+        return out
+
+    def var_mut(self, ctype: str, expr: str) -> str:
+        name = f"v{self.n}"
+        self.n += 1
+        self.lines.append(f"{ctype} {name} = {expr};")
+        return name
+
+
+def _sum(terms: List[str]) -> str:
+    if not terms:
+        return "0"
+    return "(int32_t)(" + " + ".join(f"(uint32_t){t}" for t in terms) + ")"
+
+
+# ---------------------------------------------------------------------------
+# the spec's translation unit
+# ---------------------------------------------------------------------------
+
+
+def spec_source(step_outputs, inv_outputs, *, n_fields: int,
+                widths: Sequence[int], n_words: int, lane_action,
+                n_labels: int, title: str):
+    """(source text, K constants) of one spec: the macros and functions
+    torchtlc/kernels/csrc/struct_expand.cuh builds K17 and K18 around.
+
+    step_outputs are build_step's (succs [1, L, F], valid, ovf, afail
+    [1, L]) on ``lanes.input_node(F)``, inv_outputs one ok [1] node per
+    invariant."""
+    succs, valid, ovf, afail = step_outputs
+    L = succs.shape[1]
+    F = n_fields
+    if succs.shape != (1, L, F) or any(x.shape != (1, L)
+                                       for x in (valid, ovf, afail)):
+        raise EmitError(f"step shapes {[x.shape for x in step_outputs]}")
+    prog = Program()
+
+    def store_step(ex):
+        out = [f"succ[{i}] = {e};" for i, e in enumerate(ex[0])]
+        for name, col in (("valid", ex[1]), ("ovf", ex[2]),
+                          ("afail", ex[3])):
+            out += [f"{name}[{i}] = {e};" for i, e in enumerate(col)]
+        return out
+
+    prog.function(
+        "HD void st_step(const int32_t* __restrict__ f, "
+        "const int32_t* __restrict__ K, int32_t* succ, bool* valid, "
+        "bool* ovf, bool* afail)",
+        [succs, valid, ovf, afail], store_step)
+    for k, ok in enumerate(inv_outputs):
+        if ok.shape != (1,):
+            raise EmitError(f"invariant {k} of shape {ok.shape}")
+        prog.function(
+            f"HD bool st_inv_{k}(const int32_t* __restrict__ f, "
+            "const int32_t* __restrict__ K)", [ok],
+            lambda ex: [f"return {ex[0][0]};"])
+    bits = " | ".join(f"((uint32_t)st_inv_{k}(f, K) << {k})"
+                      for k in range(len(inv_outputs))) or "0u"
+    prog.function("HD uint32_t st_inv_bits(const int32_t* __restrict__ f, "
+                  "const int32_t* __restrict__ K)", [],
+                  lambda ex: [f"return {bits};"])
+    K = prog.constants()
+    head = [
+        f"// {title}",
+        "// Emitted by torchtlc.struct.emit from the spec's lane IR: the",
+        "// per-spec body of kernels K17 struct_expand and K18",
+        "// struct_inv_rows (torchtlc/kernels/csrc/struct_expand.cuh).",
+        "#include \"struct_prelude.cuh\"",
+        "",
+        f"#define ST_F {F}",
+        f"#define ST_W {n_words}",
+        f"#define ST_L {L}",
+        f"#define ST_NINV {len(inv_outputs)}",
+        f"#define ST_NLABELS {n_labels}",
+        f"#define ST_NK {K.size}",
+        "#define ST_WIDTHS " + ", ".join(str(int(w)) for w in widths),
+        "#define ST_LANE_ACTION " + ", ".join(str(int(a))
+                                              for a in lane_action),
+        "",
+    ]
+    text = "\n".join(head) + "\n\n".join(prog.functions) + (
+        "\n\n#include \"struct_expand.cuh\"\n")
+    return text, K

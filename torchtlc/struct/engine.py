@@ -1,0 +1,70 @@
+"""Exhaustive checking of struct-compiled specs on the port's engine (port
+of jaxtlc/struct/engine.py, single device).
+
+The struct backend (struct.backend) plugs into the same engine the
+KubeAPI path uses (engine.bfs.make_backend_engine): its expand stage is
+kernel K17 and its deferred invariant check kernel K18, everything else -
+fingerprints, the fingerprint set in both dedup modes, the enqueue, the
+counter ring - is the engine's.  Runs on the card unless ``device`` says
+otherwise.  The reference's mesh-sharded struct engine
+(``check_struct_sharded``), the pipelined body and the narrowed, covered
+and reduced engines are not ported yet (ROADMAP Queue A items 11, 13).
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from ..engine.bfs import CheckResult, make_backend_engine, result_from_carry
+from ..engine.fingerprint import DEFAULT_FP_INDEX
+from ..engine.fpset import fpset_actual_collision
+from .cache import get_backend
+from .loader import StructModel
+
+
+def check_struct(
+    model: StructModel,
+    chunk: int = 1024,
+    queue_capacity: int = 1 << 15,
+    fp_capacity: int = 1 << 20,
+    fp_index: int = DEFAULT_FP_INDEX,
+    check_deadlock: bool = True,
+    obs_slots: int = 0,
+    sort_free: bool = None,
+    deferred: bool = None,
+    capture_fps: bool = False,
+    device=None,
+) -> CheckResult:
+    """Exhaustive check of a struct-compiled spec on `device` (None = the
+    card).  sort_free and deferred are tri-state (None = auto: on at
+    chunk >= 2048, as the reference resolves them); obs_slots > 0 carries
+    the counter ring; capture_fps reads the final fingerprint table back
+    to the host on a clean verdict (CheckResult.fp_table).  wall_s times
+    the run only: the backend is compiled and its kernels built before
+    it."""
+    backend = get_backend(model, check_deadlock)
+    init_fn, run_fn, _ = make_backend_engine(
+        backend, chunk, queue_capacity, fp_capacity, obs_slots=obs_slots,
+        sort_free=sort_free, deferred=deferred, device=device,
+        fp_index=fp_index)
+    carry = init_fn()
+    if carry.queue.is_cuda:
+        from ..kernels import ops
+
+        ops.struct_lib(backend.kernels.prog)  # built before the clock
+        torch.cuda.synchronize()
+    t0 = time.time()
+    carry = run_fn(carry)
+    if carry.queue.is_cuda:
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    result = result_from_carry(
+        carry, wall, iterations=run_fn.steps, fp_capacity=fp_capacity,
+        labels=backend.labels, viol_names=backend.viol_names,
+    )._replace(actual_fp_collision=fpset_actual_collision(carry.fps))
+    if capture_fps and result.violation == 0:
+        result = result._replace(
+            fp_table=carry.fps.table.cpu().numpy().view("uint32"))
+    return result
