@@ -45,8 +45,17 @@ plain versions on popped blocks, one of them violating an invariant (14),
 the real-size TwoPhase with RM of 8 at chunk 16,384 - 1,745,408 distinct
 states, its wall, busy share and K17's time (14b) - and ``check MC.cfg``
 on struct specs: transcripts equal to the reference's, auto-regrow,
-SIGTERM -> exit 75 -> -recover at the real size and a generic-subset spec
-refused with exit 2 (14c).  It checks every
+SIGTERM -> exit 75 -> -recover at the real size (14c); then generic-subset
+specs through the generic frontend behind kernels K19 and K20: the gen
+engine on RaftElection, Reconciler and ServiceMesh pinned to the
+reference's CPU runs, K19 and K20 held against their plain versions on
+popped blocks, one of them failing an invariant (15), Reconciler with 5
+controllers and MaxGen 4 at chunk 16,384 - 2,881,185 distinct states, its
+wall, busy share, K19's time and K20's on every enumerated state (15b) -
+and ``check MC.cfg`` on generic specs: the three shipped models and an
+invariant violation with transcripts equal to the reference's, and
+Reconciler-5 with its five Converges properties on the device liveness
+path (15c).  It checks every
 result against its pinned value, holds each kernel bitwise against its
 plain torch version on the card, and prints:
 
@@ -56,8 +65,9 @@ plain torch version on the card, and prints:
   paths (the two Model_1 and the two scaled engine runs, the in-process
   command, regrow, spill and violation runs, the three covered engine
   runs, the four pipelined engine runs and the pipelined regrow, the
-  sharded command runs, the sharded spill runs, the liveness runs and the
-  struct engine and command runs of phases 14-14c;
+  sharded command runs, the sharded spill runs, the liveness runs, the
+  struct engine and command runs of phases 14-14c and the gen engine and
+  command runs of phases 15-15c;
   each path's counts are reset just before it and read just after),
   its error against the plain
   version, its time, the plain version's time, its bound on this card
@@ -73,7 +83,8 @@ iterating on the card; the contract run takes no arguments); ``2c`` names
 K10's check against its plain version, untimed; ``--phases 11,11b,11c`` is
 the pipelined slice alone, ``--phases 12,12b,12c`` the sharded one,
 ``--phases 12d,13,13b,13c`` the sharded spill and liveness slice,
-``--phases 14,14b,14c`` the struct slice.
+``--phases 14,14b,14c`` the struct slice, ``--phases 15,15b,15c`` the
+generic slice.
 """
 
 from __future__ import annotations
@@ -393,6 +404,12 @@ def main() -> int:
             runs.update(phase_struct_real(torch, ops, card, runs))
         if want("14c"):
             runs.update(phase_struct_command(ops, card, runs, tmp))
+        if want("15") or want("15b") or want("15c"):
+            runs.update(phase_gen(torch, ops, card, runs, tmp))
+        if want("15b"):
+            runs.update(phase_gen_real(torch, ops, card, runs))
+        if want("15c"):
+            runs.update(phase_gen_command(ops, card, runs, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if want("13b"):
@@ -416,7 +433,10 @@ def main() -> int:
                 f"struct_{name}_{mode}" for name, _, _ in
                 _struct_geometries() for mode in ("sorted", "slab")) + (
                 "struct_tp8", "struct_cmd_deadlock", "struct_cmd_clean",
-                "struct_cmd_stale", "struct_cmd_regrow")
+                "struct_cmd_stale", "struct_cmd_regrow") + tuple(
+                    f"gen_{name}" for name in GEN_NAMES) + (
+                "gen_r5",) + tuple(
+                    f"gen_cmd_{tag}" for tag in GEN_NAMES + ("never", "r5"))
     launches = {k: sum(runs[r]["launches"][k] for r in main)
                 for k in ops.KERNELS}
     kernels = phase_kernels(torch, ops, runs, launches)
@@ -2400,8 +2420,12 @@ def phase_kernels(torch, ops, runs, launches):
                           "jaxtlc/struct/backend.py:169"),
         "struct_inv_rows": ("torchtlc/kernels/csrc/struct_expand.cuh",
                             "jaxtlc/engine/backend.py:325"),
+        "gen_expand": ("torchtlc/kernels/csrc/gen_expand.cuh",
+                       "jaxtlc/gen/engine.py:130"),
+        "gen_state_masks": ("torchtlc/kernels/csrc/gen_masks.cuh",
+                            "jaxtlc/live/check.py:205"),
     }
-    for key in ("sharded", "live", "struct"):
+    for key in ("sharded", "live", "struct", "gen"):
         for name, got in runs.get(f"{key}_rows", {}).items():
             rows.setdefault(name, []).extend(got)
         library.update(runs.get(f"{key}_library", {}))
@@ -2414,7 +2438,8 @@ def phase_kernels(torch, ops, runs, launches):
             "replaces": source[name][1], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": big["ms"], "plain_ms": big["plain_ms"],
-            "bound_ms": big["bound_ms"], "bound_by": "bytes",
+            "bound_ms": big["bound_ms"],
+            "bound_by": big.get("bound_by", "bytes"),
             "library_ms": library.get(name),
             "model1": {k: first[name][k]
                        for k in ("shape", "ms", "plain_ms", "bound_ms")},
@@ -3440,8 +3465,7 @@ def phase_struct_command(ops, card, runs, tmp):
     Model_1 (a deadlock, exit 12) and with -nodeadlock (exit 0), the
     stale-leader RaftReplication (exit 12), each transcript equal to the
     reference's (its digest pinned); auto-regrow from -fpcap 4096;
-    SIGTERM -> exit 75 -> -recover -> exit 0 on TwoPhase-8; a generic-subset
-    spec under -frontend auto exits 2."""
+    SIGTERM -> exit 75 -> -recover -> exit 0 on TwoPhase-8."""
     two = _struct_geometries()[0][1]
     raft = _struct_geometries()[2][1]
     cfgs = runs["struct_cfgs"]
@@ -3484,23 +3508,428 @@ def phase_struct_command(ops, card, runs, tmp):
          f"TwoPhase-8 -recover exited {rc}, {final_counts(text2)}")
     need("Starting recovery from checkpoint" in text2, "no recovery banner")
     wall_rec = time.time() - t0
-    from torchtlc.cli import main as cli_main
-
-    gen = os.path.join(os.path.dirname(os.path.abspath(__file__)), "specs",
-                       "RaftElection.toolbox", "Model_1", "MC.cfg")
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        rc = cli_main(["check", gen])
-    need(rc == 2 and "item 12" in err.getvalue(),
-         f"generic-subset spec exited {rc}")
     print(f"phase 14c auto-regrow from -fpcap 4096: exit 0, "
           f"{regrow_counts} ({wall:.2f} s); TwoPhase-8 "
           f"sigterm@3 -> exit 75 ({final_counts(text)[:2]} checkpointed, "
           f"{wall_term:.1f} s), -recover -> exit 0, {TP8_COUNTS} "
-          f"({wall_rec:.1f} s; subprocesses); RaftElection under auto -> "
-          "exit 2 (the generic frontend, item 12)", flush=True)
+          f"({wall_rec:.1f} s; subprocesses)", flush=True)
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# phases 15-15c: generic-frontend specs (kernels K19, K20)
+# ---------------------------------------------------------------------------
+
+GEN_NAMES = ("RaftElection", "Reconciler", "ServiceMesh")
+# the NeverObserves edit of Reconciler.tla (the reference's
+# tests/test_gen.py:116): an invariant that the first Observe breaks
+NEVER_OBSERVES = ("NeverObserves == \\A self \\in Controllers : "
+                  "observed[self] = 0\n====")
+# Reconciler scaled as its users scale it: 5 controllers, MaxGen 4 (F 16,
+# a 43-bit state in two words, 17 lanes), at full width
+R5_CFG = """CONSTANT Controllers = {c1, c2, c3, c4, c5}
+CONSTANT MaxGen = 4
+SPECIFICATION Spec
+INVARIANT TypeOK
+INVARIANT AppliedBounded
+INVARIANT ObservedBounded
+PROPERTY Converges
+"""
+R5_KW = dict(chunk=1 << 14, queue_capacity=1 << 21, fp_capacity=1 << 22)
+R5_COUNTS = (13994838, 2881185, 30)
+# GEN_PINS: jaxtlc.gen.engine.make_gen_engine(spec, **GEN_KW) run on the
+# CPU for each shipped MC.cfg (the command's default geometry) - counts,
+# per-action counts and the SHA-256 of the final table words (little-
+# endian uint32); R5_PIN the same at R5_KW (tests/test_torch_gen_engine.py
+# re-derives the shipped ones)
+GEN_KW = dict(chunk=1024, queue_capacity=1 << 15, fp_capacity=1 << 20)
+GEN_PINS = {
+    "RaftElection": dict(
+        counts=[1223, 492, 8],
+        act_gen={"Terminating": 190, "Timeout": 414, "BecomeLeader": 270,
+                 "HandleVote": 348},
+        act_dist={"Timeout": 155, "BecomeLeader": 171, "HandleVote": 165},
+        sha=("af99c142455f81de0417d60d4150fc0a"
+             "846effc6224477ac78b1352d7cb39d42")),
+    "Reconciler": dict(
+        counts=[155, 81, 13],
+        act_gen={"Bump": 17, "Terminating": 1, "Wake": 40, "Observe": 40,
+                 "Apply": 56},
+        act_dist={"Bump": 17, "Wake": 19, "Observe": 29, "Apply": 15},
+        sha=("a104813e66b5320758ad8f57765d5358"
+             "0826c1e3bdf2ea22a466504659531f59")),
+    "ServiceMesh": dict(
+        counts=[6421, 1444, 17],
+        act_gen={"Terminating": 36, "Fail": 1444, "Recover": 1444,
+                 "Send": 1216, "Succeed": 608, "Timeout": 608, "Probe": 1064},
+        act_dist={"Fail": 385, "Recover": 496, "Send": 220, "Succeed": 74,
+                  "Timeout": 268},
+        sha=("751e357aee78b3fd8f9d5e1db72da420"
+             "d5e8758d0ee90b369e03852fac01af3a")),
+}
+R5_PIN = dict(
+    counts=[13994838, 2881185, 30],
+    act_gen={"Bump": 405086, "Terminating": 1, "Wake": 3077075,
+             "Observe": 3077075, "Apply": 7435600},
+    act_dist={"Bump": 365852, "Wake": 811346, "Observe": 1358642,
+              "Apply": 345344},
+    sha=("387662821a85aaaba54f58d522b9f76c"
+         "d1517eccdca8c5e28a7276c060a5f7df"))
+# SHA-256 of the masked -noTool transcripts (struct_masked) of `python -m
+# jaxtlc.cli check MC.cfg -noTool -workers cpu -no-preflight` with
+# JAXTLC_ARTIFACT_CACHE=off: the three shipped models and the
+# NeverObserves edit
+GEN_TRANSCRIPT_SHA256 = {
+    "RaftElection": ("1e5a653cbc647e15c466da538494b0b9"
+                     "e66286bb3986eca4a9526a0d4757113e"),
+    "Reconciler": ("e25bed2ddec9c0c3740bd65ac895276e"
+                   "5b9aef9fd6cdee16625395e027dd645f"),
+    "ServiceMesh": ("eb95808f0342a13225229e8165e6c9f0"
+                    "77af699db2a8a10dbff121b27d577277"),
+    "never": ("b5d2437fb5e6bbd54872a3b7e33aeb09"
+              "0d5b7777a9698eb072a4480b08d8a40b"),
+}
+# jaxtlc.live.check.check_leads_to_device on the CPU for each Converges
+# binding of Reconciler-5, on one capture (jaxtlc.live.capture.
+# capture_edges at R5_KW's chunk, 2^22 state rows and table slots: 2,881,185
+# states, 13,994,837 distinct edges): every binding holds
+R5_VERDICTS = {f"Converges[c{i}]": True for i in range(1, 6)}
+
+
+def write_gen_models(tmp):
+    """The two derived generic models of phases 15-15c in `tmp`: the
+    NeverObserves edit of Reconciler (MC.cfg lists it) and Reconciler-5.
+    Returns (never MC.cfg, Reconciler-5 MC.cfg)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    rec = os.path.join(here, "specs", "Reconciler.toolbox", "Model_1")
+    src = open(os.path.join(rec, "Reconciler.tla")).read()
+    cfg = open(os.path.join(rec, "MC.cfg")).read()
+    out = []
+    for name, files in (
+            ("never", {"Reconciler.tla": src.replace("====",
+                                                     NEVER_OBSERVES, 1),
+                       "MC.cfg": cfg + "INVARIANT NeverObserves\n"}),
+            ("r5", {"Reconciler.tla": src, "MC.cfg": R5_CFG})):
+        d = os.path.join(tmp, name)
+        os.makedirs(d)
+        for fname, text in files.items():
+            with open(os.path.join(d, fname), "w") as f:
+                f.write(text)
+        out.append(os.path.join(d, "MC.cfg"))
+    return tuple(out)
+
+
+def gen_run(torch, ops, prog, kw, deadlock=True):
+    """The gen engine on the card (kernels built first), its launch counts
+    reset just before the run and read just after: (carry, result,
+    launches)."""
+    from torchtlc.gen.engine import make_gen_engine, result_from_gen_carry
+
+    init_fn, run_fn, _, _ = make_gen_engine(prog.spec, **kw, prog=prog,
+                                            check_deadlock=deadlock)
+    c = init_fn()
+    ops.gen_lib(prog)
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.time()
+    c = run_fn(c)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    r = result_from_gen_carry(prog.spec, c, time.time() - t0, run_fn.steps)
+    return c, r, launches
+
+
+def gen_pinned(tag, c, r, pin):
+    need([r.generated, r.distinct, r.depth] == pin["counts"],
+         f"{tag} counts {(r.generated, r.distinct, r.depth)}")
+    need(r.violation == 0 and r.queue_left == 0, f"{tag} verdict")
+    need(r.action_generated == pin["act_gen"], f"{tag} per-action generated")
+    need(r.action_distinct == pin["act_dist"], f"{tag} per-action distinct")
+    need(struct_digest(c.fps.table.cpu().numpy().view("uint32"))
+         == pin["sha"], f"{tag} table words")
+
+
+def gen_block(torch, prog, kw, until):
+    """A real popped block of a gen engine run on the card: the rows the
+    body pops when until(carry after it) first holds, and their count."""
+    from torchtlc.gen.engine import make_gen_engine
+
+    init_fn, run_fn, _, _ = make_gen_engine(prog.spec, **kw, prog=prog)
+    c = init_fn()
+    while True:
+        need((c.qhead < c.level_n or c.next_n > 0) and c.viol == 0,
+             "the run ended before the wanted block")
+        block = c.queue[c.parity, c.qhead:c.qhead + kw["chunk"]].clone()
+        n = min(c.level_n - c.qhead, kw["chunk"])
+        c = run_fn.body(c)
+        if until(c):
+            return block, n
+
+
+INT_OPS_PER_S = 67e12  # the card's non-tensor peak (float32 rate)
+
+
+def gen_recorder(rows):
+    """record(name, shape, err, ms, plain_ms, bound_ms, bound_by) appending
+    one measured row to rows[name]."""
+    def record(name, shape, err, ms, plain_ms, bound_ms, bound_by):
+        rows.setdefault(name, []).append(dict(
+            shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by))
+    return record
+
+
+def gen_bound_ms(nbytes, ops_):
+    """(bound ms, bound_by): the larger of bytes over the memory rate and
+    integer operations over the non-tensor peak."""
+    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / INT_OPS_PER_S * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def gen_kernel_checks(torch, ops, tag, prog, masks, block, n, record,
+                      want=None, reps=20):
+    """K19 (both invariant modes) and K20 against their plain versions on
+    the card, on one popped block: bitwise, and timed when `record` is
+    given.  want names the fold entry (invariant k, n_inv = overflow,
+    n_inv + 1 = deadlock) that must fire, None for a clean block."""
+    def err_of(a, b):
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
+            if a.numel() else 0
+
+    for inv in (False, True):
+        got = ops.gen_expand(prog, block, n, inv, True)
+        ref = prog.expand_plain(block, n, inv, True)
+        err = max(err_of(a, b) for a, b in zip(got, ref))
+        need(err == 0, f"K19 gen_expand differs from its plain version "
+             f"({tag}, inv={inv})")
+    fired = [k for k, v in enumerate(got[4].tolist()) if v != 0x7FFFFFFF]
+    need(want in fired if want is not None else not fired,
+         f"K19 verdict fold ({tag}): entries {fired} fired")
+    planes = masks.masks(block)
+    err = err_of(planes, masks.masks_plain(block))
+    need(err == 0, f"K20 gen_state_masks differs from its plain version "
+         f"({tag})")
+    if record is not None:
+        stats = prog.stats()
+        ncand = block.shape[0] * prog.L
+        n_valid = int(got[1][0].sum())
+        nbytes = (block.shape[0] * prog.W * 4 + prog.K.size * 4 + ncand * (
+            prog.W * 4 + 3 + prog.n_inv + 4) + prog.n_labels * 8
+            + (prog.n_inv + 2) * 4)
+        record("gen_expand", tag, 0,
+               cuda_ms(torch, lambda _: ops.gen_expand(prog, block, n), reps),
+               cuda_ms(torch, lambda _: prog.expand_plain(block, n), 2),
+               *gen_bound_ms(nbytes, stats["step"]["elements"] * n
+                             + stats["invariants"]["elements"] * n_valid))
+    return fired
+
+
+def gen_masks_row(torch, ops, tag, masks, states, record, reps=20):
+    """K20 on `states` against its plain version, timed into `record`."""
+    from torchtlc.struct import lanes
+
+    planes = ops.gen_state_masks(masks, states)
+    err = int((planes.to(torch.int64) - masks.masks_plain(states).to(
+        torch.int64)).abs().max())
+    need(err == 0, f"K20 gen_state_masks differs from its plain version "
+         f"({tag})")
+    V = states.shape[0]
+    elements = lanes.stats(masks.preds)["elements"]
+    record("gen_state_masks", tag, err,
+           cuda_ms(torch, lambda _: ops.gen_state_masks(masks, states), reps),
+           cuda_ms(torch, lambda _: masks.masks_plain(states), 2),
+           *gen_bound_ms(V * masks.W * 4 + V * masks.n_pred
+                         + masks.K.size * 4, elements * V))
+    return planes
+
+
+def phase_gen(torch, ops, card, runs, tmp):
+    """Phase 15: the gen engine on RaftElection, Reconciler and ServiceMesh
+    at the command's geometry, each pinned to the reference's CPU run
+    (counts, per-action counts, table words); K19 and K20 bitwise against
+    their plain versions on a popped block of each, and on the block where
+    the NeverObserves edit fails its invariant."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torchtlc.frontend.model import resolve
+    from torchtlc.gen.program import GenProgram
+    from torchtlc.live.check import gen_operand_masks
+
+    never, r5 = write_gen_models(tmp)
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfgs = {name: os.path.join(here, "specs", f"{name}.toolbox", "Model_1",
+                               "MC.cfg") for name in GEN_NAMES}
+    cfgs.update(never=never, r5=r5)
+    specs = {k: resolve(v, workers="gpu").genspec for k, v in cfgs.items()}
+    progs = {k: GenProgram(g) for k, g in specs.items()}
+    # K20's programs: each spec's first property; and every property of
+    # Reconciler-5, whose texts the command builds in phase 15c
+    masks, prebuilt = {}, []
+    for k, g in specs.items():
+        for name, (p, q) in g.properties.items():
+            m = gen_operand_masks(g, progs[k].cdc, p, q, title=name)
+            masks.setdefault(k, m)
+            if k == "r5":
+                prebuilt.append(m)
+    t0 = time.time()
+    with ThreadPoolExecutor(8) as pool:  # one nvcc per text
+        list(pool.map(ops.gen_lib, progs.values()))
+        # one build per distinct text (two specs may share one)
+        texts = {m.text: m for m in list(masks.values()) + prebuilt}
+        list(pool.map(ops.gen_masks_lib, texts.values()))
+    print(f"phase 15 build: {len(progs)} K19 and {len(texts)} K20 "
+          f"libraries with nvcc in {time.time() - t0:.1f} s; lane IR "
+          + "; ".join(f"{k} F {p.F} / W {p.W} / L {p.L}, "
+                      f"{p.stats()['step']['elements']}+"
+                      f"{p.stats()['invariants']['elements']} elements"
+                      for k, p in progs.items()), flush=True)
+    rows = {}
+    record = gen_recorder(rows)
+
+    out = {}
+    for name in GEN_NAMES:
+        c, r, launches = gen_run(torch, ops, progs[name], GEN_KW)
+        gen_pinned(name, c, r, GEN_PINS[name])
+        out[f"gen_{name}"] = {"launches": launches}
+        print(f"phase 15 {name}: {r.generated} / {r.distinct} / {r.depth}, "
+              f"table sha256 {GEN_PINS[name]['sha'][:16]} = the "
+              f"reference's, {r.iterations} bodies in {r.wall_s:.3f} s; K19 "
+              f"{launches['gen_expand']} launches", flush=True)
+        half = GEN_PINS[name]["counts"][2] // 2
+        block, n = gen_block(torch, progs[name], GEN_KW,
+                             lambda c, h=half: c.level > h)
+        gen_kernel_checks(torch, ops, name, progs[name], masks[name], block,
+                          n, record if name == "ServiceMesh" else None)
+    prog = progs["never"]
+    block, n = gen_block(torch, prog, GEN_KW, lambda c: c.viol != 0)
+    fired = gen_kernel_checks(torch, ops, "never", prog, masks["never"],
+                              block, n, None, want=prog.n_inv - 1)
+    print(f"phase 15 K19/K20 vs plain: bitwise equal on a popped block of "
+          f"each model; the NeverObserves block ({n} rows) fires fold "
+          f"entries {fired}; ServiceMesh step (chunk {GEN_KW['chunk']}): "
+          + ", ".join(f"{k} {v[-1]['ms']:.4f} ms (plain "
+                      f"{v[-1]['plain_ms']:.3f} ms, bound "
+                      f"{v[-1]['bound_ms']:.5f} ms by {v[-1]['bound_by']})"
+                      for k, v in rows.items()) + f" on {card}", flush=True)
+    out.update(gen_rows=rows, gen_progs=progs, gen_masks=masks,
+               gen_cfgs=cfgs)
+    return out
+
+
+def phase_gen_real(torch, ops, card, runs):
+    """Phase 15b: Reconciler-5 at full width (chunk 16,384, qcap 2^21, fp
+    2^22): the reference's counts and table words; wall, distinct states
+    per second and the device busy share (torch.profiler); K19 against
+    its plain version on a full-width popped block, timed; K20 on the
+    2,881,185 enumerated states (the liveness path's shape), timed."""
+    from torchtlc.engine.backend import gen_backend
+    from torchtlc.live.capture import enumerate_states
+
+    prog = runs["gen_progs"]["r5"]
+    c, r, launches = gen_run(torch, ops, prog, R5_KW)
+    need((r.generated, r.distinct, r.depth) == R5_COUNTS,
+         f"Reconciler-5 counts {(r.generated, r.distinct, r.depth)}")
+    gen_pinned("Reconciler-5", c, r, R5_PIN)
+    del c
+    (res, traced, busy, by_name) = device_busy(
+        torch, lambda: gen_run(torch, ops, prog, R5_KW))
+    need(res[1].distinct == R5_COUNTS[1], "Reconciler-5 traced run")
+    k19_s = sum(v for k, v in by_name.items() if "gen_expand" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    rows = runs["gen_rows"]
+    record = gen_recorder(rows)
+
+    masks = runs["gen_masks"]["r5"]
+    block, n = gen_block(torch, prog, R5_KW,
+                         lambda c: c.qhead > 0
+                         and c.level_n >= R5_KW["chunk"] * 4)
+    gen_kernel_checks(torch, ops, "Reconciler-5", prog, masks, block, n,
+                      record, reps=10)
+    t0 = time.time()
+    states = enumerate_states(gen_backend(prog.spec, prog=prog),
+                              chunk=R5_KW["chunk"],
+                              state_capacity=R5_KW["fp_capacity"],
+                              fp_capacity=R5_KW["fp_capacity"])
+    torch.cuda.synchronize()
+    t_enum = time.time() - t0
+    need(states.shape[0] == R5_COUNTS[1], "Reconciler-5 enumeration")
+    gen_masks_row(torch, ops, "Reconciler-5 states", masks, states, record)
+    k19 = rows["gen_expand"][-1]
+    k20 = rows["gen_state_masks"][-1]
+    print(f"phase 15b Reconciler-5 (chunk {R5_KW['chunk']}, qcap "
+          f"{R5_KW['queue_capacity']}, fp {R5_KW['fp_capacity']}): "
+          f"{r.generated} / {r.distinct} / {r.depth}, table sha256 "
+          f"{R5_PIN['sha'][:16]} = the reference's; wall {r.wall_s:.3f} s, "
+          f"{r.distinct / r.wall_s:.0f} distinct states/s, {r.iterations} "
+          f"bodies; traced wall {traced:.3f} s, device busy {busy:.3f} s "
+          f"({busy / traced:.1%}); top device items "
+          + ", ".join(f"{k[:40]} {v * 1e3:.1f} ms" for k, v in top)
+          + f"; K19 {launches['gen_expand']} launches, {k19_s * 1e3:.1f} ms "
+          f"on the device; step block ({n} rows): K19 {k19['ms']:.4f} ms "
+          f"(plain {k19['plain_ms']:.1f} ms, bound {k19['bound_ms']:.5f} ms "
+          f"by {k19['bound_by']}); enumeration {t_enum:.2f} s; K20 on "
+          f"{states.shape[0]} states {k20['ms']:.4f} ms (plain "
+          f"{k20['plain_ms']:.1f} ms, bound {k20['bound_ms']:.5f} ms by "
+          f"{k20['bound_by']}) on {card}", flush=True)
+    return {"gen_r5": {"launches": launches}}
+
+
+def phase_gen_command(ops, card, runs, tmp):
+    """Phase 15c: `python -m torchtlc.cli check` on generic specs (in this
+    process): the three shipped MC.cfgs (exit 13, 0, 13: transcripts and
+    lassos equal to the reference's, their digests pinned), the
+    NeverObserves edit (exit 12 with the host oracle's trace, digest
+    pinned), Reconciler-5 with its five Converges properties on the device
+    liveness path (K14, K20, K16 at 2,881,185 states; the verdicts of the
+    reference's check_leads_to_device), and -pipeline refused (item 12b)."""
+    cfgs = runs["gen_cfgs"]
+    out = {}
+    for tag, rc_want in (("RaftElection", 13), ("Reconciler", 0),
+                         ("ServiceMesh", 13), ("never", 12)):
+        rc, text, launches, wall = command_here(ops, [cfgs[tag], "-noTool"])
+        need(rc == rc_want, f"gen command {tag} exited {rc}")
+        sha = hashlib.sha256(struct_masked(text, cfgs[tag]).encode()
+                             ).hexdigest()
+        need(sha == GEN_TRANSCRIPT_SHA256[tag],
+             f"gen command {tag}: the transcript differs from the "
+             "reference's")
+        out[f"gen_cmd_{tag}"] = {"launches": launches}
+        lasso = sum(1 for x in liveness_text(text) if x.startswith("State "))
+        print(f"phase 15c check {tag}: exit {rc}, transcript = the "
+              f"reference's ({lasso} lasso or trace states, {wall:.2f} s)",
+              flush=True)
+    rc, text, launches, wall = command_here(
+        ops, [cfgs["r5"], "-noTool", "-chunk", str(R5_KW["chunk"]), "-qcap",
+              str(R5_KW["queue_capacity"]), "-fpcap",
+              str(R5_KW["fp_capacity"])])
+    need(rc == 0, f"Reconciler-5 command exited {rc}")
+    need(final_counts(text) == R5_COUNTS, "Reconciler-5 command counts")
+    need("(device liveness engine)" in text,
+         "the device liveness path did not run")
+    verdicts = {}
+    for line in text.splitlines():
+        m = line.startswith("Temporal property ") and line.split()
+        if m and line.endswith("(fairness: wf_next)."):
+            verdicts[m[2]] = m[3] == "holds"
+    need(verdicts == R5_VERDICTS, f"Reconciler-5 verdicts {verdicts}")
+    need(launches["gen_state_masks"] == len(R5_VERDICTS),
+         f"K20 launches {launches['gen_state_masks']}")
+    out["gen_cmd_r5"] = {"launches": launches}
+    from torchtlc.cli import main as cli_main
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli_main(["check", cfgs["RaftElection"], "-pipeline"])
+    need(rc == 2 and "item 12b" in err.getvalue(),
+         f"-pipeline on a generic spec exited {rc}")
+    print(f"phase 15c Reconciler-5 with PROPERTY Converges: exit 0, "
+          f"{R5_COUNTS}, {len(verdicts)} properties hold on the device path "
+          f"= the reference's verdicts; K19 {launches['gen_expand']}, K14 "
+          f"{launches['edge_capture']}, K20 {launches['gen_state_masks']}, "
+          f"K16 {launches['survive_sweep']} launches; {wall:.1f} s on {card}; "
+          "-pipeline on RaftElection -> exit 2 (item 12b)", flush=True)
+    return out
 
 if __name__ == "__main__":
     try:

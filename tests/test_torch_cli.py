@@ -166,7 +166,6 @@ FLAG_VALUES = {
     "infer": ["-infer"], "serve": ["-serve", "8080"],
     "phasetiming": ["-phase-timing"], "traceout": ["-trace-out", "t.json"],
     "narrow": ["-narrow"], "analyze": ["-analyze"],
-    "frontend": ["-frontend", "gen"],
     "traceExpressions": ["-traceExpressions", "te.txt"],
     "xprof": ["-xprof", "prof"], "compilecache": ["-compile-cache", "c"],
     "artifactcache": ["-artifact-cache", "a"],

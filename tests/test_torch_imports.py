@@ -357,7 +357,8 @@ def test_liveness_copies_equal_reference():
 
 COPIED = ("struct/parser.py", "struct/eval.py", "struct/actions.py",
           "struct/shapes.py", "struct/loader.py", "struct/oracle.py",
-          "gen/tla_parse.py", "gen/ir.py", "spec/texpr.py")
+          "gen/tla_parse.py", "gen/ir.py", "spec/texpr.py",
+          "gen/oracle.py")
 
 
 def _code_after_docstring(path):
@@ -370,8 +371,57 @@ def _code_after_docstring(path):
 
 @pytest.mark.parametrize("rel", COPIED)
 def test_struct_frontend_copies_equal_reference_source(rel):
-    """The port's copies of the structural frontend's jax-free modules
-    (and of the generic subset's parser, used for -frontend auto) are the
-    reference's code, line for line below the module docstring."""
+    """The port's copies of the structural and generic frontends' jax-free
+    modules are the reference's code, line for line below the module
+    docstring."""
     assert (_code_after_docstring(os.path.join(ROOT, "torchtlc", rel))
             == _code_after_docstring(os.path.join(ROOT, "jaxtlc", rel)))
+
+
+@pytest.mark.parametrize("name", ["RaftElection", "Reconciler",
+                                  "ServiceMesh"])
+def test_gen_codec_layout_equals_reference(name):
+    """GenCodec (torchtlc.gen.codec keeps the reference's layout code and
+    writes pack/unpack in torch): every layout field, field for field, and
+    the gen engine's violation names."""
+    from jaxtlc.frontend.model import resolve as j_resolve
+    from jaxtlc.gen import engine as jeng
+    from jaxtlc.gen.codec import GenCodec as JCodec
+    from torchtlc.frontend.model import resolve
+    from torchtlc.gen import engine as teng
+    from torchtlc.gen.codec import GenCodec
+
+    cfg = os.path.join(ROOT, "specs", f"{name}.toolbox", "Model_1",
+                       "MC.cfg")
+    jspec = j_resolve(cfg, workers="cpu").genspec
+    tspec = resolve(cfg, workers="cpu").genspec
+    jc, tc = JCodec(jspec), GenCodec(tspec)
+    for field in ("strings", "sid", "components", "offsets", "widths",
+                  "n_fields", "nbits", "n_words"):
+        assert getattr(tc, field) == getattr(jc, field), field
+    assert {k: v.tolist() for k, v in tc.value_tables.items()} == {
+        k: v.tolist() for k, v in jc.value_tables.items()}
+    assert teng.VIOL_INVARIANT_BASE == jeng.VIOL_INVARIANT_BASE
+    for code in (0, 4, 5, 6, 7, 100, 101, 102, 109):
+        assert (teng.violation_name(tspec, code)
+                == jeng.violation_name(jspec, code))
+
+
+def _code_without_docstrings(path):
+    """The module's syntax tree with every docstring removed."""
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree).replace("torchtlc", "jaxtlc")
+
+
+def test_gen_coverage_copy_equals_reference_code():
+    """torchtlc/gen/coverage.py is the reference's code statement for
+    statement (its docstrings differ: one drops a history note)."""
+    rel = os.path.join("gen", "coverage.py")
+    assert (_code_without_docstrings(os.path.join(ROOT, "torchtlc", rel))
+            == _code_without_docstrings(os.path.join(ROOT, "jaxtlc", rel)))

@@ -4,6 +4,7 @@ encoded initial states, the host oracle's counts, the generic subset's
 parser (used only for -frontend auto) and the frontend each spec under
 specs/ resolves to."""
 
+import dataclasses
 import glob
 import os
 
@@ -17,7 +18,8 @@ from jaxtlc.struct.codec import StructCodec as JCodec
 from jaxtlc.struct.loader import load as j_load
 from jaxtlc.struct.shapes import infer_shapes as j_infer
 from jaxtlc.struct.shapes import typeok_hints as j_hints
-from torchtlc.frontend.model import StructRunSpec, UnportedFrontend, resolve
+from torchtlc.frontend.model import GenRunSpec as TGenRun
+from torchtlc.frontend.model import StructRunSpec, resolve
 from torchtlc.struct import oracle
 from torchtlc.struct.codec import StructCodec
 from torchtlc.struct.loader import load
@@ -97,20 +99,22 @@ def test_oracle_counts_equal_reference(rel):
 @pytest.mark.parametrize("rel", SPECS)
 def test_auto_resolution_follows_reference(rel):
     """auto: the reference's struct specs resolve to StructRunSpec, its
-    generic-subset specs to the port's exit-2 refusal; -frontend struct
-    runs every spec."""
+    generic-subset specs to GenRunSpec, each with the reference's run
+    knobs; -frontend struct runs every spec."""
     ref = j_resolve(_cfg(rel), workers="cpu")
+    got = resolve(_cfg(rel), workers="cpu")
     if isinstance(ref, GenRunSpec):
-        with pytest.raises(UnportedFrontend, match="item 12"):
-            resolve(_cfg(rel), workers="cpu")
+        assert isinstance(got, TGenRun)
+        assert (dataclasses.astuple(got.genspec)
+                == dataclasses.astuple(ref.genspec))
+        assert os.path.samefile(got.tla_path, ref.tla_path)
     else:
         assert isinstance(ref, JStructRun)
-        got = resolve(_cfg(rel), workers="cpu")
         assert isinstance(got, StructRunSpec)
-        assert (got.spec_name, got.model_name, got.check_deadlock,
-                got.fp_index, got.invariants, got.properties) == (
-            ref.spec_name, ref.model_name, ref.check_deadlock,
-            ref.fp_index, ref.invariants, ref.properties)
+    assert (got.spec_name, got.model_name, got.check_deadlock,
+            got.fp_index, got.invariants, got.properties) == (
+        ref.spec_name, ref.model_name, ref.check_deadlock,
+        ref.fp_index, ref.invariants, ref.properties)
     forced = resolve(_cfg(rel), workers="cpu", frontend="struct")
     jforced = j_resolve(_cfg(rel), workers="cpu", frontend="struct")
     assert isinstance(forced, StructRunSpec)

@@ -20,8 +20,11 @@ Layers, from the entry point down:
 * ``struct`` - the structural frontend: copies of the reference's parser,
   evaluator, shape inference, loader and oracle, the LaneCompiler on a
   lane IR (torch-evaluated: the plain version) and its C++ emission, the
-  body of kernels K17/K18 (``struct.engine.check_struct``); ``gen`` - the
-  generic subset's parser, used only to resolve ``-frontend auto``;
+  body of kernels K17/K18 (``struct.engine.check_struct``);
+* ``gen`` - the generic frontend: copies of the reference's subset parser,
+  IR, oracle and coverage walker, the gen compiler on the same lane IR,
+  emitted as kernels K19/K20, and the gen engine
+  (``gen.engine.check_gen``);
 * ``kernels`` - the hand-written CUDA kernels (``csrc/``), their nvcc build
   and ctypes wrappers.
 

@@ -22,7 +22,13 @@ configuration error.
 A spec the structural frontend takes (frontend.model.StructRunSpec) runs
 through ``_run_check_struct`` (jaxtlc/api.py:982, 1737): the struct
 backend on the same engine and supervisor, plain ``P ~> Q`` PROPERTY
-lines on the host graph, a violation's trace from the host oracle.
+lines on the host graph, a violation's trace from the host oracle.  A
+spec of the generic frontend (frontend.model.GenRunSpec) runs through
+``_run_check_gen`` (jaxtlc/api.py:851 with the parts of :1737 it uses):
+the gen engine (kernel K19), its PROPERTY lines on the host oracle's graph
+or, above 1M distinct states, on the device path (kernels K14, K20, K16),
+a violation's trace from the host oracle, ``-traceExpressions`` over its
+states and ``-coverage`` from the host walker.
 
 The run goes to the card unless ``workers`` is "cpu".  The reference's
 preflight analysis (its jaxpr audits) is not part of the port.
@@ -57,19 +63,22 @@ def _device_name(device) -> str:
 
 
 def _run_check(args) -> int:
-    from .frontend.model import StructRunSpec, UnportedFrontend
+    from .frontend.model import GenRunSpec, StructRunSpec
 
     try:
         spec: RunSpec = resolve(args.config, workers=args.workers,
                                 fp_index=args.fp,
                                 check_deadlock=not args.nodeadlock,
                                 frontend=args.frontend)
-    except UnportedFrontend as e:
-        print(f"torchtlc: error: {e}", file=sys.stderr)
-        return 2
     except (ValueError, OSError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
+    if isinstance(spec, GenRunSpec):
+        return _run_check_gen(args, spec)
+    if args.traceExpressions:
+        print(f"torchtlc: error: {TRACE_EXPRESSIONS_UNPORTED}",
+              file=sys.stderr)
+        return 2
     if isinstance(spec, StructRunSpec):
         return _run_check_struct(args, spec)
     unknown = [q for q in spec.properties if q not in KNOWN_PROPERTIES]
@@ -464,6 +473,11 @@ def _print_trace(log: TLCLog, model, chunk: int, check_deadlock: bool = True,
         log.trace_state(i, act, state_to_tla(st, model))
 
 
+TRACE_EXPRESSIONS_UNPORTED = (
+    "-traceExpressions on a KubeAPI or struct spec (the trace explorer's "
+    "expression re-evaluation over their states) is not ported yet "
+    "(ROADMAP Queue A item 11); generic-frontend specs take it")
+
 # flags of paths the struct frontend does not run yet (exit 2), besides the
 # ones the CLI refuses for every spec
 STRUCT_UNPORTED = (
@@ -631,6 +645,198 @@ def _run_check_struct(args, spec) -> int:
     log.depth(r.depth)
     log.finished(int((time.time() - t0) * 1000))
     _finish_journal(args, r=r, sup=sup, wall_s=time.time() - t0,
+                    verdict="liveness_violation" if liveness_violated
+                    else None)
+    if violated:
+        return 12
+    return 13 if liveness_violated else 0
+
+
+# flags of paths the generic frontend does not run yet (exit 2): the
+# reference runs each on its sharded engine over a 1-device mesh
+GEN_UNPORTED = (
+    ("sharded", "-sharded on a generic spec (the sharded engine over the "
+     "generic backend) is not ported yet (ROADMAP Queue A item 12b)"),
+    ("checkpoint", "-checkpoint/-recover on a generic spec (checkpoints of "
+     "the sharded engine over the generic backend) are not ported yet "
+     "(ROADMAP Queue A item 12b)"),
+    ("pipeline", "-pipeline on a generic spec (the pipelined sharded body "
+     "over the generic backend) is not ported yet (ROADMAP Queue A item "
+     "12b)"),
+)
+
+
+def _gen_unported(args) -> list:
+    on = dict(sharded=bool(args.sharded),
+              checkpoint=bool(args.checkpoint or args.recover),
+              pipeline=args.pipeline)
+    return [msg for flag, msg in GEN_UNPORTED if on[flag]]
+
+
+def _gen_coverage_lines(spec, g):
+    """The generic frontend's -coverage dump (jaxtlc/api.py:963): the host
+    walker over the module's source lines."""
+    from .gen.coverage import coverage_walk, render_coverage
+
+    text = ""
+    if spec.tla_path:
+        try:
+            with open(spec.tla_path) as f:
+                text = f.read()
+        except OSError:
+            pass
+    init_count, cov = coverage_walk(g, text)
+    return render_coverage(spec.spec_name, init_count, cov,
+                           time.strftime("%Y-%m-%d %H:%M:%S"))
+
+
+def _gen_trace_text(args, log, g, found):
+    """The trace states' text, each with the -traceExpressions values
+    evaluated over its state_env (the reference's trace-explorer pass)."""
+    from .gen import oracle as go
+
+    expr_rows = None
+    if args.traceExpressions:
+        from .spec.texpr import TexprError, eval_over_envs, parse_expressions
+
+        try:
+            with open(args.traceExpressions) as f:
+                exprs = parse_expressions(f.read())
+            expr_rows = eval_over_envs(
+                exprs, [go.state_env(g, st) for st, _ in found[1]])
+        except (OSError, TexprError) as e:
+            log.msg(1000, f"Trace expressions skipped: {e}", severity=1)
+    out = []
+    for i, (st, _) in enumerate(found[1]):
+        text = go.state_to_tla(g, st)
+        if expr_rows is not None:
+            from .spec.pretty import value_to_tla
+
+            text += "".join(
+                f"\n/\\ {res.name} = "
+                + (f"<evaluation failed: {res.value}>" if res.failed
+                   else value_to_tla(res.value))
+                for res in expr_rows[i])
+        out.append(text)
+    return out
+
+
+def _run_check_gen(args, spec) -> int:
+    """Check a generic-frontend spec (jaxtlc/api.py:851 _run_check_gen
+    with the parts of _run_check_interp, :1737, that it uses): the gen
+    engine (gen.engine.check_gen, kernel K19) for safety, its PROPERTY
+    lines on the host oracle's graph or, above HOST_PATH_MAX distinct
+    states under wf_next, on the device path (live.check
+    check_leads_to_device), the host oracle's re-run for a violation's
+    trace.  Same transcript, journal and exit codes."""
+    from .gen import oracle as go
+    from .gen.engine import check_gen
+    from .live.check import (
+        capture_gen_graph,
+        check_leads_to_device,
+        use_device_path,
+    )
+
+    errs = _gen_unported(args)
+    if errs:
+        for e in errs:
+            print(f"torchtlc: error: {e}", file=sys.stderr)
+        return 2
+    unsupported = [flag for flag, on in (
+        ("-fpset DiskFPSet", args.fpset != "JaxFPSet"),
+        ("-mutation", args.mutation),
+    ) if on]
+    if unsupported:
+        print(f"Error: {', '.join(unsupported)} not supported for "
+              "generic-frontend specs yet", file=sys.stderr)
+        return 1
+    g = spec.genspec
+    device = _device(args)
+    try:
+        device_name = _device_name(device)
+    except RuntimeError as e:  # no card and no -workers cpu
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    log = TLCLog(tool_mode=not args.noTool)
+    log.version(__version__)
+    log.banner(spec.fp_index, DEFAULT_SEED, spec.workers, device_name)
+    log.sany(*_sany_inputs(args.config, spec.spec_name))
+    log.starting()
+    log.computing_init()
+    _open_journal(args, workload=spec.spec_name, device=device_name,
+                  params=dict(chunk=args.chunk, queue_capacity=args.qcap,
+                              fp_capacity=args.fpcap, sharded=0,
+                              pipeline=False, frontend="generic",
+                              sort_free=_sort_free(args),
+                              deferred=_deferred(args), symmetry=False,
+                              por=False, obs_slots=_obs_slots(args)))
+    t0 = time.time()
+    r = check_gen(g, chunk=args.chunk, queue_capacity=args.qcap,
+                  fp_capacity=args.fpcap, fp_index=spec.fp_index,
+                  check_deadlock=spec.check_deadlock, device=device)
+    n_init = 1  # generic Init is deterministic: one state
+    log.init_done(n_init)
+    violated = r.violation != 0
+    liveness_violated = False
+    if not violated and spec.properties:
+        on_device = use_device_path(r.distinct, args.fairness,
+                                    args.liveness_host)
+        log.checking_temporal(r.distinct, "device" if on_device else "host")
+        graph = None  # captured once for every property
+        for name, (p_ast, q_ast) in g.properties.items():
+            if on_device:
+                if graph is None:
+                    graph = capture_gen_graph(
+                        g, chunk=args.chunk, state_capacity=args.fpcap,
+                        fp_capacity=args.fpcap, device=device)
+                res = check_leads_to_device(g, p_ast, q_ast, name,
+                                            graph=graph, device=device)
+            else:
+                res = go.check_leads_to(g, p_ast, q_ast, name,
+                                        fairness=args.fairness)
+            if res.holds:
+                log.msg(1000, f"Temporal property {name} holds "
+                              f"(fairness: {args.fairness}).")
+                continue
+            liveness_violated = True
+            log.msg(2116, f"Temporal properties were violated: {name}",
+                    severity=1)
+            idx = 1
+            for st in res.lasso_prefix:
+                log.trace_state(idx, None, go.state_to_tla(g, st))
+                idx += 1
+            log.msg(1000, "-- The following states form a cycle "
+                          "(back to the first of them) --")
+            for st in res.lasso_cycle:
+                log.trace_state(idx, None, go.state_to_tla(g, st))
+                idx += 1
+    if violated:
+        log.msg(2110 if r.violation >= 100 else 1000, r.violation_name,
+                severity=1)
+        found = go.violation_trace(g, check_deadlock=spec.check_deadlock)
+        if found is None:
+            log.msg(1000, "Violation was not reproducible in host mode",
+                    severity=1)
+        else:
+            texts = _gen_trace_text(args, log, g, found)
+            for i, ((_, act), text) in enumerate(zip(found[1], texts),
+                                                 start=1):
+                head = (f"State {i}: <Initial predicate>" if act is None
+                        else f"State {i}: <{act}>")
+                log.msg(2217, head + "\n" + text, severity=1)
+    elif not liveness_violated:
+        log.success(r.generated, r.distinct, r.actual_fp_collision,
+                    occupancy=r.fp_occupancy)
+        if args.coverage:
+            log.coverage_gen_dump(_gen_coverage_lines(spec, g))
+        else:
+            log.coverage_generic(spec.spec_name, n_init, r.action_generated,
+                                 r.action_distinct)
+    log.progress(r.depth, r.generated, r.distinct, r.queue_left)
+    log.final_counts(r.generated, r.distinct, r.queue_left)
+    log.depth(r.depth)
+    log.finished(int((time.time() - t0) * 1000))
+    _finish_journal(args, r=r, wall_s=time.time() - t0,
                     verdict="liveness_violation" if liveness_violated
                     else None)
     if violated:

@@ -11,9 +11,11 @@ jaxtlc/cli.py on the KubeAPI path.
 Reads MC.cfg with its sibling MC.tla (and a toolbox .launch if present),
 runs the exhaustive check on the card - on the CPU only with -workers cpu
 - and writes the TLC structured transcript.  The KubeAPI root spec runs
-on its hand-written path; a spec outside the generic subset (TwoPhase,
-RaftReplication) on the structural frontend, as does any spec with
--frontend struct.  Exit codes: 0 no error, 12
+on its hand-written path; a spec inside the PlusCal-translation subset
+(RaftElection, Reconciler, ServiceMesh) on the generic frontend, as does
+any spec with -frontend gen; a spec outside it (TwoPhase, RaftReplication)
+on the structural frontend, as does any spec with -frontend struct.  Exit
+codes: 0 no error, 12
 safety violation (with the counterexample trace), 13 temporal property
 violated (with the lasso), 75 interrupted or
 capacity-exhausted with a final checkpoint (resume with -recover), 1
@@ -26,7 +28,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from .api import _run_check
+from .api import TRACE_EXPRESSIONS_UNPORTED, _run_check
 
 # flags of paths not ported yet: dest -> (the value that means "not
 # given", what the error says)
@@ -55,12 +57,8 @@ UNPORTED = {
                "ported yet (ROADMAP Queue A item 11)"),
     "analyze": (False, "-analyze (the preflight jaxpr audits) is not part "
                 "of the port yet (ROADMAP Queue C, Queue A item 13)"),
-    "frontend": ("auto", "-frontend gen (the generic frontend) is not "
-                 "ported yet (ROADMAP Queue A item 12); -frontend struct "
-                 "runs any spec on the structural path"),
-    "traceExpressions": ("", "-traceExpressions (the trace explorer's "
-                         "expression re-evaluation, jaxtlc/spec/texpr.py) "
-                         "is not ported yet (ROADMAP Queue A item 11)"),
+    # refused after resolution, on the KubeAPI and struct paths only
+    "traceExpressions": ("", TRACE_EXPRESSIONS_UNPORTED),
     "xprof": ("", "-xprof is the JAX profiler; the port's profiler is "
               "python3 -m torchtlc.profile"),
     "compilecache": ("", "-compile-cache is XLA's; the port builds its "
@@ -158,9 +156,10 @@ def _parser() -> argparse.ArgumentParser:
                         "bucket overflow)")
     c.add_argument("-frontend", default="auto",
                    help="auto picks the frontend as the reference does "
-                        "(KubeAPI: hand; other specs: struct, or the "
-                        "generic frontend, not ported yet); struct runs "
-                        "any spec on the structural path")
+                        "(KubeAPI: hand; a PlusCal-translation-subset "
+                        "spec: gen; any other spec: struct); gen forces "
+                        "the generic frontend, struct runs any spec on "
+                        "the structural path")
     # the flags of paths the port does not run yet: parsed, then refused
     c.add_argument("-fpset", default="JaxFPSet")
     c.add_argument("-pipeline", dest="pipeline", action="store_true",
@@ -214,9 +213,7 @@ def _parser() -> argparse.ArgumentParser:
 def unported(args) -> list:
     """The errors of the flags given for paths not ported yet."""
     errs = [msg for dest, (off, msg) in UNPORTED.items()
-            if getattr(args, dest) != off
-            and not (dest == "frontend" and args.frontend in ("hand",
-                                                              "struct"))]
+            if getattr(args, dest) != off and dest != "traceExpressions"]
     if not args.simulate and (args.depth, args.walkers, args.simseed) != (
             100, 256, 0):
         errs.append(UNPORTED["simulate"][1].replace(

@@ -60,7 +60,8 @@ class SpecBackend(NamedTuple):
     SpecBackend, jaxtlc/engine/backend.py:50-91).  kernels holds the
     backend's own kernel routes for the expand stage and the deferred
     check - KubeAPI's K1 and K7 (KubeKernels), a struct spec's K17 and K18
-    (struct.backend.StructKernels): the port's counterpart of the
+    (struct.backend.StructKernels), a generic spec's K19 (the expand route
+    only: gen.program.GenKernels): the port's counterpart of the
     reference's step, lane_action and expand override, which those
     kernels (and their plain versions) implement."""
 
@@ -77,6 +78,33 @@ class SpecBackend(NamedTuple):
     # telemetry, so coverage-on results are coverage-off results
     coverage: object = None
     cfg: ModelConfig = None  # the KubeAPI model (None for other specs)
+
+
+def gen_backend(spec, prog=None) -> SpecBackend:
+    """Generic-frontend backend (jaxtlc/engine/backend.py:480): the spec's
+    compiled program (gen.program.GenProgram, built here unless given)
+    and codec behind the SpecBackend seam, its expand route kernel K19.
+    The liveness enumerator and capture take it; the sharded engine will
+    (ROADMAP Queue A item 12b)."""
+    from ..gen.engine import VIOL_INVARIANT_BASE
+    from ..gen.kernel import initial_field_vectors
+    from ..gen.program import GenKernels, GenProgram
+
+    prog = prog or GenProgram(spec)
+    inv_names = list(spec.invariants.keys())
+    return SpecBackend(
+        cdc=prog.cdc,
+        n_lanes=prog.L,
+        inv_check=prog.inv_bits_plain,
+        inv_codes=tuple(VIOL_INVARIANT_BASE + k
+                        for k in range(len(inv_names))),
+        initial_vectors=lambda: np.asarray(
+            initial_field_vectors(spec, prog.cdc)),
+        labels=tuple(a.name for a in spec.actions),
+        viol_names={VIOL_INVARIANT_BASE + k: f"Invariant {n} is violated"
+                    for k, n in enumerate(inv_names)},
+        kernels=GenKernels(prog),
+    )
 
 
 class KubeKernels(NamedTuple):

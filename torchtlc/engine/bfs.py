@@ -91,7 +91,6 @@ from .backend import (
     VIOL_ROUTE_OVERFLOW,
     VIOL_SLOT_OVERFLOW,
     VIOL_TYPEOK,
-    expand_block,
     kubeapi_backend,
     make_deferred_checker,
     make_expand_stage,
@@ -893,15 +892,15 @@ def make_enumerator(backend, chunk: int = 1024,
     (jaxtlc/engine/bfs.py:1128 make_enumerator, without its optional ring).
 
     A body pops up to `chunk` rows at `head` from the states array itself,
-    expands them (kernel K1), fingerprints the candidates (K2), inserts
-    them with the sorted path at probe and claim width R = min(2*chunk,
-    ncand) (K3), and appends the new rows at `tail` in candidate-lane order
-    in A-wide segments (K4, its queue being the states array and its
-    counters scratch).  It halts with VIOL_SLOT_OVERFLOW, VIOL_FPSET_FULL
+    expands them through the backend's expand route (kernel K1 for
+    KubeAPI, K19 for a generic spec), fingerprints the candidates (K2),
+    inserts them with the sorted path at probe and claim width R =
+    min(2*chunk, ncand) (K3), and appends the new rows at `tail` in
+    candidate-lane order in A-wide segments (K4, its queue being the
+    states array and its counters scratch).  It halts with VIOL_SLOT_OVERFLOW, VIOL_FPSET_FULL
     (the body's candidate width over the high-water mark) or
     VIOL_QUEUE_FULL (more than `state_capacity` states), as the reference
     does.  run_fn.steps counts the bodies of its last call."""
-    cfg = backend.cfg
     cdc = backend.cdc
     L = backend.n_lanes
     n_labels = len(backend.labels)
@@ -933,7 +932,8 @@ def make_enumerator(backend, chunk: int = 1024,
     def body(c: EnumCarry) -> EnumCarry:
         n = min(chunk, c.tail - c.head)
         block = c.states[c.head:c.head + chunk]
-        packed, flags, action, _ = expand_block(cfg, block, n, deferred=True)
+        packed, flags, action, _, _ = backend.kernels.expand(block, n,
+                                                             deferred=True)
         fvalid = flags[FLAG_VALID].bool()
         lo, hi = fp64_words(packed, cdc.nbits, fp_index)
         fp_full = c.tail + ncand > fp_limit

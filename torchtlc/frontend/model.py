@@ -5,11 +5,11 @@ The three config layers a Toolbox model has - the .launch file (Toolbox
 knobs), MC.cfg (the TLC DSL) and MC.tla (constant definitions) - resolve
 to one of the reference's frontends, as its ``-frontend auto`` does: the
 KubeAPI root spec goes to the hand-written KubeAPI path (``RunSpec``), a
-module inside the PlusCal-translation subset to the generic frontend, any
-other module to the structural frontend (``StructRunSpec``).  The generic
-frontend is not ported yet: a spec ``auto`` resolves there raises
-``UnportedFrontend`` (the command's exit 2), and ``-frontend struct``
-runs it on the structural path, as the reference's does.
+module inside the PlusCal-translation subset to the generic frontend
+(``GenRunSpec``), any other module to the structural frontend
+(``StructRunSpec``).  ``-frontend gen`` forces the generic frontend (a
+module outside the subset is an error), ``-frontend struct`` the
+structural one, which runs any spec.
 """
 
 from __future__ import annotations
@@ -27,15 +27,6 @@ from .mc_tla import eval_constant, parse_mc_tla_file
 KNOWN_INVARIANTS = ("TypeOK", "OnlyOneVersion")
 KNOWN_PROPERTIES = ("ReconcileCompletes", "CleansUpProperly")
 
-GEN_UNPORTED = ("the generic frontend (the PlusCal-translation subset "
-                "compiler) is not ported yet (ROADMAP Queue A item 12); "
-                "-frontend struct runs this spec on the structural path")
-
-
-class UnportedFrontend(ValueError):
-    """The spec resolves to a frontend the port does not run yet."""
-
-
 @dataclasses.dataclass
 class RunSpec:
     model: ModelConfig
@@ -46,6 +37,22 @@ class RunSpec:
     fp_index: int
     spec_name: str
     model_name: str
+
+
+@dataclasses.dataclass
+class GenRunSpec:
+    """A resolved run for the generic frontend (non-KubeAPI root spec
+    inside the PlusCal-translation subset)."""
+
+    genspec: object  # gen.ir.GenSpec
+    invariants: List[str]
+    properties: List[str]
+    check_deadlock: bool
+    workers: str
+    fp_index: int
+    spec_name: str
+    model_name: str
+    tla_path: str = ""  # module source (coverage line numbers)
 
 
 @dataclasses.dataclass
@@ -73,12 +80,11 @@ def resolve(
     frontend: str = "auto",
 ):
     """Resolve a run from an MC.cfg (with sibling MC.tla) as TLC would:
-    a RunSpec (KubeAPI) or a StructRunSpec.  frontend "auto" picks as the
-    reference does, "hand" forces the KubeAPI path, "struct" the
-    structural one (it runs any spec); UnportedFrontend for a spec the
-    generic frontend would take, ValueError for anything else that cannot
-    run."""
-    if frontend not in ("auto", "hand", "struct"):
+    a RunSpec (KubeAPI), a GenRunSpec or a StructRunSpec.  frontend
+    "auto" picks as the reference does, "hand" forces the KubeAPI path,
+    "gen" the generic one, "struct" the structural one (it runs any
+    spec); ValueError for anything that cannot run."""
+    if frontend not in ("auto", "hand", "gen", "struct"):
         raise ValueError(f"unknown -frontend {frontend!r}")
     cfg: TLCConfig = parse_cfg_file(cfg_path)
     model_dir = os.path.dirname(os.path.abspath(cfg_path))
@@ -139,23 +145,43 @@ def resolve(
     if frontend == "hand" and spec_name not in ("", "KubeAPI"):
         raise ValueError(f"-frontend hand supports only the KubeAPI root "
                          f"spec, not {spec_name!r}")
-    if spec_name not in ("", "KubeAPI"):
+    if spec_name not in ("", "KubeAPI") or frontend == "gen":
+        # the generic frontend: a PlusCal-translation-subset module next
+        # to the config; outside the subset, the structural frontend
         tla_path = os.path.join(model_dir, f"{spec_name}.tla")
         if not os.path.exists(tla_path):
             raise ValueError(
                 f"root spec {spec_name!r}: no {spec_name}.tla next to the "
-                "config")
+                "config (the generic frontend loads the module from there)")
         from ..gen.tla_parse import SpecParseError, load_genspec
 
         try:
-            load_genspec(tla_path, consts, list(cfg.invariants),
-                         list(cfg.properties))
-        except SpecParseError:
-            # outside the generic subset: the structural frontend
+            genspec = load_genspec(tla_path, consts, list(cfg.invariants),
+                                   list(cfg.properties))
+        except SpecParseError as e:
+            if frontend == "gen":
+                raise ValueError(
+                    f"root spec {spec_name!r} is outside the supported "
+                    f"PlusCal-translation subset: {e}")
             return _resolve_struct(cfg_path, cfg, launch, spec_name,
                                    check_deadlock, workers, fp_index,
                                    model_dir, const_overrides)
-        raise UnportedFrontend(f"root spec {spec_name!r}: {GEN_UNPORTED}")
+        if launch:
+            # launch-file knobs apply as on the KubeAPI path
+            check_deadlock = launch.check_deadlock
+            if fp_index is None:
+                fp_index = launch.fp_index
+        return GenRunSpec(
+            genspec=genspec,
+            invariants=list(cfg.invariants),
+            properties=list(cfg.properties),
+            check_deadlock=check_deadlock,
+            workers=workers,
+            fp_index=DEFAULT_FP_INDEX if fp_index is None else fp_index,
+            spec_name=spec_name,
+            model_name=os.path.basename(model_dir),
+            tla_path=tla_path,
+        )
     if cfg.specification not in (None, "Spec"):
         raise ValueError(f"unsupported SPECIFICATION {cfg.specification!r}")
 

@@ -1,5 +1,7 @@
-"""The generic frontend's parser and IR (copies of jaxtlc/gen/tla_parse.py
-and jaxtlc/gen/ir.py).  The port uses them only to resolve ``-frontend
-auto`` as the reference does: a spec inside the generic subset goes to the
-generic frontend, which is not ported yet (ROADMAP Queue A item 12).
+"""The generic frontend (port of jaxtlc/gen): specs written in the
+PlusCal-translation subset.  A module parser and finite-domain IR
+(``tla_parse``, ``ir``: copies), the host interpreter and coverage walker
+(``oracle``, ``coverage``: copies), the codec (``codec``), the AST ->
+lane-IR compiler (``kernel``), its emission as kernels K19 and K20
+(``program``) and the gen engine's own exhaustive BFS (``engine``).
 """

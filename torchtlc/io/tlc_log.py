@@ -247,6 +247,13 @@ class TLCLog:
             d = act_dist.get(name, 0)
             self.msg(2772, f"<{name} of module {module}>: {d}:{g}")
 
+    def coverage_gen_dump(self, lines) -> None:
+        """Per-expression coverage block for generic specs (the
+        gen.coverage renderer's lines, TLC message framing added)."""
+        self.msg(2201, lines[0])
+        for ln in lines[1:]:
+            self.msg(2772, ln)
+
     def checking_temporal(self, distinct: int, path: str = "host") -> None:
         """TLC's 2192 liveness-phase banner, naming the liveness engine that
         runs: `host` (explicit graph) or `device` (edge capture and the

@@ -7,11 +7,14 @@ first use and reused while nothing changed.  The libraries export C
 functions (``tt_*``) that launch on the stream they are given and return
 ``cudaGetLastError()``; torchtlc/kernels/ops.py loads them with ctypes.
 
-The second route, ``build_struct``, builds one spec's kernels K17 and K18:
-the C++ that torchtlc.struct.emit prints around the struct_*.cuh templates
-goes to ``_build/struct/<digest>/spec.cu``, where the digest covers the
-text, the templates and the flags; nvcc builds it into ``libstruct.so``
-for the card, or g++ into ``libstruct_host.so`` for the host tests.
+The second route, ``build_struct``, builds one spec's emitted kernels -
+K17 and K18 of a struct spec, K19 of a generic one, K20 of a generic
+spec's temporal operands: the C++ that torchtlc.struct.emit prints around
+a hand-written template (struct_expand.cuh, gen_expand.cuh,
+gen_masks.cuh) goes to ``_build/struct/<digest>/spec.cu``, where the
+digest covers the text, the templates and the flags; nvcc builds it into
+``libstruct.so`` for the card, or g++ into ``libstruct_host.so`` for the
+host tests.
 """
 
 from __future__ import annotations
@@ -85,14 +88,14 @@ def build(ptxas_report: bool = False) -> BuildInfo:
 
 
 STRUCT_TEMPLATES = ("common.cuh", "struct_prelude.cuh", "struct_codec.cuh",
-                    "struct_expand.cuh")
+                    "struct_expand.cuh", "gen_expand.cuh", "gen_masks.cuh")
 HOST_FLAGS = ["-x", "c++", "-O1", "-std=c++17", "-shared", "-fPIC"]
 
 
 def build_struct(text: str, host: bool = False) -> str:
-    """Build (or find) one spec's K17/K18 library from its emitted text:
-    nvcc for sm_90a, or g++ with host=True.  Returns the library path;
-    raises with the compiler's output when the build fails."""
+    """Build (or find) one emitted library (K17/K18, K19 or K20) from its
+    text: nvcc for sm_90a, or g++ with host=True.  Returns the library
+    path; raises with the compiler's output when the build fails."""
     flags = HOST_FLAGS if host else NVCC_FLAGS
     h = hashlib.sha256(" ".join(flags).encode() + text.encode())
     for name in STRUCT_TEMPLATES:

@@ -24,7 +24,8 @@ KERNELS = ("expand", "fp64", "fpset_key", "fpset_probe", "fpset_claim",
            "slab_compact", "slab_order", "slab_mark", "deferred_check",
            "ring_row", "fpset_member", "coverage_count", "route_scatter",
            "verdict_fold", "shard_enqueue", "edge_capture", "state_masks",
-           "survive_sweep", "struct_expand", "struct_inv_rows")
+           "survive_sweep", "struct_expand", "struct_inv_rows",
+           "gen_expand", "gen_state_masks")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -783,34 +784,40 @@ def survive_sweep(src: torch.Tensor, dst: torch.Tensor, D: int,
 
 
 # ---------------------------------------------------------------------------
-# K17 struct_expand, K18 struct_inv_rows: one library per spec
+# emitted kernels, one library per text: K17 struct_expand and K18
+# struct_inv_rows of a struct spec, K19 gen_expand of a generic spec, K20
+# gen_state_masks of a generic spec's temporal operands
 # ---------------------------------------------------------------------------
 
-_STRUCT_LIBS = {}
+_EMITTED_LIBS = {}
+
+
+def _emitted_lib(text: str, dims_fn: str, signatures, dims):
+    """Load the library built from an emitted text (once per text) and
+    check its compiled dimensions against `dims`."""
+    lib_ = _EMITTED_LIBS.get(text)
+    if lib_ is None:
+        dll = ctypes.CDLL(_build.build_struct(text))
+        for fn, argtypes in ((dims_fn, [_P]),) + tuple(signatures):
+            getattr(dll, fn).argtypes = argtypes
+            getattr(dll, fn).restype = ctypes.c_int
+        got = (ctypes.c_int * 6)()
+        getattr(dll, dims_fn)(got)
+        if tuple(got[:len(dims)]) != tuple(dims):
+            raise RuntimeError(f"emitted library dims {tuple(got)} do not "
+                               f"match {tuple(dims)}")
+        _EMITTED_LIBS[text] = lib_ = dll
+    return lib_
 
 
 def struct_lib(prog):
     """The K17/K18 library of a compiled spec (struct.backend.StructProgram),
     built from its emitted text at first use and loaded once per text."""
-    lib_ = _STRUCT_LIBS.get(prog.text)
-    if lib_ is None:
-        dll = ctypes.CDLL(_build.build_struct(prog.text))
-        for fn, argtypes in (
-                ("tt_struct_dims", [_P]),
-                ("tt_struct_expand", [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-                                      _P]),
-                ("tt_struct_inv_rows", [_P, _P, _LL, _P, _P, _P, _I, _P, _P,
-                                        _P, _P, _P])):
-            getattr(dll, fn).argtypes = argtypes
-            getattr(dll, fn).restype = ctypes.c_int
-        dims = (ctypes.c_int * 6)()
-        dll.tt_struct_dims(dims)
-        if tuple(dims[:5]) != (prog.F, prog.W, prog.L, prog.n_inv,
-                               prog.n_labels):
-            raise RuntimeError(f"struct library dims {tuple(dims)} do not "
-                               "match the compiled spec")
-        _STRUCT_LIBS[prog.text] = lib_ = dll
-    return lib_
+    return _emitted_lib(prog.text, "tt_struct_dims", (
+        ("tt_struct_expand", [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
+        ("tt_struct_inv_rows", [_P, _P, _LL, _P, _P, _P, _I, _P, _P, _P, _P,
+                                _P])),
+        (prog.F, prog.W, prog.L, prog.n_inv, prog.n_labels))
 
 
 def struct_expand(prog, block: torch.Tensor, n: int, deferred: bool = False):
@@ -861,3 +868,57 @@ def struct_inv_rows(prog, flat: torch.Tensor, fresh: torch.Tensor,
         _ptr(c_idx), _ptr(action), VIOL_INVARIANT_BASE, _ptr(scratch),
         _ptr(viol), _ptr(state), _ptr(vaction), _stream()))
     return viol, state, vaction
+
+
+def gen_lib(prog):
+    """The K19 library of a compiled generic spec (gen.program.GenProgram),
+    built from its emitted text at first use."""
+    return _emitted_lib(prog.text, "tt_gen_dims", (
+        ("tt_gen_expand", [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),),
+        (prog.F, prog.W, prog.L, prog.n_inv, prog.n_labels))
+
+
+def gen_expand(prog, block: torch.Tensor, n: int, inv: bool = True,
+               deadlock: bool = True):
+    """K19 -> (packed [ck*L, W] int32, flags [3 + n_inv, ck*L] uint8,
+    action [ck*L] int32, gen [n_labels] int64, first [n_inv + 2] int32);
+    see gen.program.GenProgram.expand_plain."""
+    from ..gen.program import GEN_NONE
+
+    ck = block.shape[0]
+    _need(block, "block", torch.int32, (ck, prog.W))
+    ncand = ck * prog.L
+    if ncand >= GEN_NONE:
+        raise ValueError("gen_expand: chunk * lanes must fit 31 bits")
+    dev = block.device
+    packed = torch.empty(ncand, prog.W, dtype=torch.int32, device=dev)
+    flags = torch.empty(3 + prog.n_inv, ncand, dtype=torch.uint8, device=dev)
+    action = torch.empty(ncand, dtype=torch.int32, device=dev)
+    gen = torch.zeros(prog.n_labels, dtype=torch.int64, device=dev)
+    first = torch.full((prog.n_inv + 2,), GEN_NONE, dtype=torch.int32,
+                       device=dev)
+    _launched("gen_expand", gen_lib(prog).tt_gen_expand(
+        _ptr(prog.constants(dev)), _ptr(block), ck, n, int(inv),
+        int(deadlock), _ptr(packed), _ptr(flags), _ptr(action), _ptr(gen),
+        _ptr(first), _stream()))
+    return packed, flags, action, gen, first
+
+
+def gen_masks_lib(masks):
+    """The K20 library of a predicate list (gen.program.GenMasks)."""
+    return _emitted_lib(masks.text, "tt_gen_masks_dims", (
+        ("tt_gen_state_masks", [_P, _P, _LL, _P, _P]),),
+        (masks.F, masks.W, masks.n_pred))
+
+
+def gen_state_masks(masks, states: torch.Tensor) -> torch.Tensor:
+    """K20: the predicate planes [n_pred, V] uint8 of packed states [V, W]
+    int32; see gen.program.GenMasks.masks_plain."""
+    V = states.shape[0]
+    _need(states, "states", torch.int32, (V, masks.W))
+    out = torch.empty(masks.n_pred, V, dtype=torch.uint8,
+                      device=states.device)
+    _launched("gen_state_masks", gen_masks_lib(masks).tt_gen_state_masks(
+        _ptr(masks.constants(states.device)), _ptr(states), V, _ptr(out),
+        _stream()))
+    return out

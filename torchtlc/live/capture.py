@@ -3,7 +3,9 @@ jaxtlc/live/capture.py).
 
 Pass 1 (engine.bfs.make_enumerator) leaves the reachable set on the card
 as an append-only packed-state array whose row is the state id.  Pass 2
-expands every state again (kernels K1, K2), resolves each successor's id
+expands every state again through the backend's expand route (kernel K1
+for KubeAPI, K19 for a generic spec) and fingerprints the successors
+(K2), resolves each successor's id
 by a binary search over the fingerprint-sorted states and compacts the
 valid lanes into (src, dst, action, changed) int32 edges in lane order
 (kernel K14), one chunk a launch.  The host keeps the drained chunks in
@@ -14,7 +16,8 @@ are then dropped on the host (``np.unique``), as in the reference.
 
 The per-state property operands of the KubeAPI temporal properties (the
 ``sr`` bits and "the reconciler's secret is present") come from kernel
-K15 over the packed states (``state_masks``).
+K15 over the packed states (``state_masks``); a generic spec's come from
+kernel K20 (gen.program.GenMasks).
 
 Exactness: ids are resolved by 64-bit fingerprint, the collision risk the
 exhaustive engine already accepts; a successor whose fingerprint is not
@@ -30,7 +33,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..engine.backend import FLAG_VALID, expand_block
+from ..engine.backend import FLAG_VALID
 from ..engine.bfs import OK, VIOLATION_NAMES, make_enumerator, resolve_device
 from ..engine.fingerprint import DEFAULT_FP_INDEX, fp64_words
 
@@ -206,9 +209,8 @@ def sweep_edges(backend, states: torch.Tensor, chunk: int = 1024,
     pad[:V] = states
     spillway = _EdgeSpill(spill_path, ram_edges=ram_edges)
     for off in range(0, Vp, chunk):
-        packed, flags, action, _ = expand_block(
-            backend.cfg, pad[off:off + chunk], min(chunk, V - off),
-            deferred=True)
+        packed, flags, action, _, _ = backend.kernels.expand(
+            pad[off:off + chunk], min(chunk, V - off), deferred=True)
         q_lo, q_hi = fp64_words(packed, cdc.nbits, fp_index)
         edges, missing = edge_capture(s_hi, s_lo, perm, q_hi, q_lo,
                                       flags[FLAG_VALID], action, off, L)

@@ -1,17 +1,22 @@
 """Device liveness orchestration: capture -> fixpoint -> replayed lasso
-(port of the KubeAPI half of jaxtlc/live/check.py).
+(port of jaxtlc/live/check.py).
 
-``check_properties_device(cfg, props)`` gives the same results as the host
-path's engine.liveness.check_properties under WF_vars(Next), so the
-command renders both alike.  ``wf_process`` stays on the host path.  Every
-violation is replayed through the host oracle (spec.oracle) before it is
-returned (live.lasso.replay_lasso).
+Two frontend entry points, each giving the same results as its host-path
+counterpart under WF_vars(Next), so the command renders both alike:
+
+* ``check_properties_device(cfg, props)`` - the KubeAPI family
+  (engine.liveness.LivenessResult), its operands from kernel K15;
+* ``check_leads_to_device(genspec, p, q)`` - generic-frontend specs
+  (gen.oracle.LivenessResult), its operands compiled from the spec by
+  gen.kernel.compile_expr and evaluated by kernel K20.
+
+``wf_process`` stays on the host path.  Every violation is replayed
+through the host oracle (spec.oracle, gen.oracle) before it is returned
+(live.lasso.replay_lasso).
 
 The device path is taken above HOST_PATH_MAX distinct states, where the
 host path's per-state Python dict becomes the bottleneck; -liveness-host
-forces the host path.  (The reference's check_leads_to_device, for specs
-of the generic frontend, comes with the gen path: ROADMAP Queue A item
-12.)
+forces the host path.
 """
 
 from __future__ import annotations
@@ -141,3 +146,94 @@ def check_properties_device(
             break
         out.append(res)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Generic frontend
+# ---------------------------------------------------------------------------
+
+
+def capture_gen_graph(spec, chunk: int = 1024,
+                      state_capacity: int = 1 << 20,
+                      fp_capacity: int = 1 << 20,
+                      spill_path: Optional[str] = None, device=None,
+                      backend=None) -> CapturedGraph:
+    """The captured graph of a generic spec, through its backend's expand
+    route (kernel K19)."""
+    from ..engine.backend import gen_backend
+
+    return capture_edges(
+        backend or gen_backend(spec), chunk=chunk,
+        state_capacity=state_capacity, fp_capacity=fp_capacity,
+        spill_path=spill_path, device=device)
+
+
+def gen_operand_masks(spec, cdc, p_ast, q_ast, title: str = ""):
+    """Kernel K20's program of a property's operands p and q, each
+    compiled by gen.kernel.compile_expr (a non-boolean operand raises)."""
+    from ..gen.kernel import _Ctx, compile_expr
+    from ..gen.program import GenMasks
+
+    ctx = _Ctx(codec=cdc, consts=dict(spec.constants), binding={}, at=None)
+    fns = []
+    for ast in (p_ast, q_ast):
+        kind, fn = compile_expr(ast, ctx)
+        if kind != "bool":
+            raise ValueError(f"property operand is not BOOLEAN: {ast!r}")
+        fns.append(fn)
+    return GenMasks(cdc, fns, title=title or f"operands of {spec.name}")
+
+
+def check_leads_to_device(
+    spec,
+    p_ast,
+    q_ast,
+    name: str = "",
+    chunk: int = 1024,
+    state_capacity: int = 1 << 20,
+    fp_capacity: int = 1 << 20,
+    mesh=None,
+    graph: Optional[CapturedGraph] = None,
+    spill_path: Optional[str] = None,
+    device=None,
+):
+    """Device-path analog of gen.oracle.check_leads_to (wf_next): p ~> q
+    holds unless a p-state survives the greatest fixpoint of the ~q zone.
+    With a ShardMesh of D > 1 shards the fixpoint runs over D edge
+    slices."""
+    from ..engine.backend import gen_backend
+    from ..gen import oracle as go
+
+    if mesh is not None:
+        device = mesh.device
+    backend = gen_backend(spec)
+    cdc = backend.cdc
+    if graph is None:
+        graph = capture_gen_graph(
+            spec, chunk=chunk, state_capacity=state_capacity,
+            fp_capacity=fp_capacity, spill_path=spill_path, device=device,
+            backend=backend)
+    masks = gen_operand_masks(spec, cdc, p_ast, q_ast, title=name)
+    states = torch.from_numpy(graph.states.view(np.int32)).to(
+        resolve_device(device))
+    p_mask, q_mask = masks.masks(states).cpu().numpy().astype(bool)
+    in_h = ~q_mask
+    alive, _ = surviving_set(graph, in_h, mesh=mesh, device=device)
+    bad = p_mask & alive
+    if not bad.any():
+        return go.LivenessResult(name, True, None, None)
+
+    init = go.initial_state(spec)
+
+    def decode(i):
+        row = torch.from_numpy(graph.states[i][None].view(np.int32))
+        return cdc.decode(cdc.unpack(row)[0].numpy())
+
+    def is_transition(sa, sb):
+        return any(nxt == sb and changed
+                   for _, nxt, changed in go.successors(spec, sa))
+
+    _, _, prefix, cycle, _, _ = _violation(
+        graph, alive, in_h, bad, backend.labels, decode,
+        lambda s: s == init, is_transition)
+    return go.LivenessResult(name, False, prefix, cycle)

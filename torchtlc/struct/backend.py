@@ -54,7 +54,8 @@ class StructProgram:
     its constant table."""
 
     def __init__(self, step_outputs, inv_outputs, cdc: StructCodec,
-                 lane_action: np.ndarray, n_labels: int, title: str):
+                 lane_action: np.ndarray, n_labels: int, title: str,
+                 template: str = "struct_expand.cuh"):
         self.step_outputs = tuple(step_outputs)
         self.inv_outputs = tuple(inv_outputs)
         self.cdc = cdc
@@ -67,7 +68,7 @@ class StructProgram:
         self.text, self.K = spec_source(
             self.step_outputs, self.inv_outputs, n_fields=self.F,
             widths=cdc.widths, n_words=self.W, lane_action=self.lane_action,
-            n_labels=n_labels, title=title)
+            n_labels=n_labels, title=title, template=template)
         self._K_dev: Dict[str, torch.Tensor] = {}
 
     def constants(self, device) -> torch.Tensor:

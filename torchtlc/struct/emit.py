@@ -266,9 +266,12 @@ def _sum(terms: List[str]) -> str:
 
 def spec_source(step_outputs, inv_outputs, *, n_fields: int,
                 widths: Sequence[int], n_words: int, lane_action,
-                n_labels: int, title: str):
+                n_labels: int, title: str,
+                template: str = "struct_expand.cuh"):
     """(source text, K constants) of one spec: the macros and functions
-    torchtlc/kernels/csrc/struct_expand.cuh builds K17 and K18 around.
+    the kernel template builds its kernels around -
+    torchtlc/kernels/csrc/struct_expand.cuh (K17 and K18) for a struct
+    spec, gen_expand.cuh (K19) for a generic one.
 
     step_outputs are build_step's (succs [1, L, F], valid, ovf, afail
     [1, L]) on ``lanes.input_node(F)``, inv_outputs one ok [1] node per
@@ -309,8 +312,7 @@ def spec_source(step_outputs, inv_outputs, *, n_fields: int,
     head = [
         f"// {title}",
         "// Emitted by torchtlc.struct.emit from the spec's lane IR: the",
-        "// per-spec body of kernels K17 struct_expand and K18",
-        "// struct_inv_rows (torchtlc/kernels/csrc/struct_expand.cuh).",
+        f"// per-spec body of torchtlc/kernels/csrc/{template}.",
         "#include \"struct_prelude.cuh\"",
         "",
         f"#define ST_F {F}",
@@ -325,5 +327,38 @@ def spec_source(step_outputs, inv_outputs, *, n_fields: int,
         "",
     ]
     text = "\n".join(head) + "\n\n".join(prog.functions) + (
-        "\n\n#include \"struct_expand.cuh\"\n")
+        f"\n\n#include \"{template}\"\n")
+    return text, K
+
+
+def masks_source(preds, *, n_fields: int, widths: Sequence[int],
+                 n_words: int, title: str):
+    """(source text, K constants) of kernel K20 gen_state_masks
+    (torchtlc/kernels/csrc/gen_masks.cuh): ``st_preds`` evaluates every
+    predicate of `preds` (ok [1] nodes on ``lanes.input_node(F)``) on one
+    state's fields."""
+    for k, p in enumerate(preds):
+        if p.shape != (1,) or p.dtype != bool_:
+            raise EmitError(f"predicate {k} of shape {p.shape}, {p.dtype}")
+    prog = Program()
+    prog.function(
+        "HD void st_preds(const int32_t* __restrict__ f, "
+        "const int32_t* __restrict__ K, bool* out)", list(preds),
+        lambda ex: [f"out[{k}] = {e[0]};" for k, e in enumerate(ex)])
+    K = prog.constants()
+    head = [
+        f"// {title}",
+        "// Emitted by torchtlc.struct.emit from the predicates' lane IR:",
+        "// the per-spec body of torchtlc/kernels/csrc/gen_masks.cuh.",
+        "#include \"struct_prelude.cuh\"",
+        "",
+        f"#define ST_F {n_fields}",
+        f"#define ST_W {n_words}",
+        f"#define ST_NPRED {len(preds)}",
+        f"#define ST_NK {K.size}",
+        "#define ST_WIDTHS " + ", ".join(str(int(w)) for w in widths),
+        "",
+    ]
+    text = "\n".join(head) + "\n\n".join(prog.functions) + (
+        "\n\n#include \"gen_masks.cuh\"\n")
     return text, K
