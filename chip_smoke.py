@@ -55,7 +55,19 @@ wall, busy share, K19's time and K20's on every enumerated state (15b) -
 and ``check MC.cfg`` on generic specs: the three shipped models and an
 invariant violation with transcripts equal to the reference's, and
 Reconciler-5 with its five Converges properties on the device liveness
-path (15c).  It checks every
+path (15c); then the sharded engine over the emitted backends behind
+kernel K21 (and K18 on received rows): the six shipped struct and generic
+models on 4 shards (1 too for the generic ones) in the default modes,
+pipelined and deferred, against the reference's counts and the single-
+device table set, K21 and K18 bitwise against their plain versions on a
+popped 4-shard block of each (16), TwoPhase-8 and Reconciler-5 on 4
+shards at 4,096 rows a shard, timed in turns against the single-device
+runs, with the device busy share and K21/K18 on a full-width block (16b),
+and the commands - gen -sharded 4, -checkpoint with sigterm@3 then
+-recover, unpipelined and pipelined, -sharded 4 -pipeline, -pipeline
+alone, struct -sharded 4 and its table regrow, Reconciler-5's Converges
+properties under -sharded 4 - against the reference's pinned transcripts
+(16c).  It checks every
 result against its pinned value, holds each kernel bitwise against its
 plain torch version on the card, and prints:
 
@@ -66,8 +78,9 @@ plain torch version on the card, and prints:
   command, regrow, spill and violation runs, the three covered engine
   runs, the four pipelined engine runs and the pipelined regrow, the
   sharded command runs, the sharded spill runs, the liveness runs, the
-  struct engine and command runs of phases 14-14c and the gen engine and
-  command runs of phases 15-15c;
+  struct engine and command runs of phases 14-14c, the gen engine and
+  command runs of phases 15-15c and the sharded emitted runs and commands
+  of phases 16-16c;
   each path's counts are reset just before it and read just after),
   its error against the plain
   version, its time, the plain version's time, its bound on this card
@@ -84,7 +97,8 @@ K10's check against its plain version, untimed; ``--phases 11,11b,11c`` is
 the pipelined slice alone, ``--phases 12,12b,12c`` the sharded one,
 ``--phases 12d,13,13b,13c`` the sharded spill and liveness slice,
 ``--phases 14,14b,14c`` the struct slice, ``--phases 15,15b,15c`` the
-generic slice.
+generic slice, ``--phases 16,16b,16c`` the sharded engine over the
+emitted backends.
 """
 
 from __future__ import annotations
@@ -279,16 +293,17 @@ TP8_COUNTS = (11788290, 1745408, 26)
 TP8_TABLE_SHA256 = ("09b38acd39fd7df0e187db218c38297b"
                     "0d703f92ca041da72c9da8aec6dc4f89")
 # SHA-256 of the masked -noTool transcripts (struct_masked) of `python -m
-# jaxtlc.cli check MC.cfg -noTool -workers cpu -no-preflight
-# -no-artifact-cache`: TwoPhase Model_1 (deadlock), with -nodeadlock
-# (clean), and the stale-leader RaftReplication with -nodeadlock -chunk 256
+# jaxtlc.cli check MC.cfg -noTool -workers cpu -no-artifact-cache` (the
+# default preflight on: each prints the unreduced-symmetry warning):
+# TwoPhase Model_1 (deadlock), with -nodeadlock (clean), and the
+# stale-leader RaftReplication with -nodeadlock -chunk 256
 STRUCT_TRANSCRIPT_SHA256 = {
-    "deadlock": ("d651e70d075e2dbc891f7aa4e1bd40ba"
-                 "21b10382a8686e17c20a1b266e60bed6"),
-    "clean": ("215bfaa136de5ad82a81eaf187cae0ac"
-              "bc30a4eafe444d6f83dca1e992d0da16"),
-    "stale": ("266c699457e5d9cd7c16800c3a6bd0e0"
-              "9efa0cdb3aa7ad9f37412f266f50bf2f"),
+    "deadlock": ("0bb79f45c02f993ec7b7e2f58aace7e3"
+                 "2b969172bf1ea503b458c594d3651d84"),
+    "clean": ("eefe00acd60e917601998f0e625a8637"
+              "8650aa48a6267d7d7a0f1582f85ba49a"),
+    "stale": ("c835d93314ccfdcf4c33f7fbc040d2c0"
+              "63843a3334698f2700d602ac0ab816c0"),
 }
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
@@ -328,7 +343,7 @@ def main() -> int:
     card = f"{torch.cuda.get_device_name(0)} ({smi})"
 
     # -- phase 1: build ----------------------------------------------------
-    t0 = time.time()
+    t_start = t0 = time.time()
     info = ops.load(ptxas_report=True)
     with open(os.path.join(BUILD_DIR, "ptxas.txt"), "w") as f:
         for stem, log in info.logs.items():
@@ -410,6 +425,12 @@ def main() -> int:
             runs.update(phase_gen_real(torch, ops, card, runs))
         if want("15c"):
             runs.update(phase_gen_command(ops, card, runs, tmp))
+        if want("16") or want("16b") or want("16c"):
+            runs.update(phase_shard16(torch, ops, card, runs, tmp))
+        if want("16b"):
+            runs.update(phase_shard16_real(torch, ops, card, runs))
+        if want("16c"):
+            runs.update(phase_shard16_command(ops, card, runs, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if want("13b"):
@@ -419,6 +440,8 @@ def main() -> int:
     if only is not None and "2" in only:
         check_member(torch, ops, runs, lambda *a: None)
     if only is not None:
+        print(f"chip_smoke: {time.time() - t_start:.1f} s in all",
+              flush=True)
         print(f"chip_smoke: phases {sorted(only)} passed (a partial run "
               "prints no contract lines)", flush=True)
         return 0
@@ -436,7 +459,10 @@ def main() -> int:
                 "struct_cmd_stale", "struct_cmd_regrow") + tuple(
                     f"gen_{name}" for name in GEN_NAMES) + (
                 "gen_r5",) + tuple(
-                    f"gen_cmd_{tag}" for tag in GEN_NAMES + ("never", "r5"))
+                    f"gen_cmd_{tag}" for tag in GEN_NAMES + ("never", "r5")
+                ) + tuple(k for k, v in runs.items()
+                          if k.startswith("shard16") and isinstance(v, dict)
+                          and "launches" in v)
     launches = {k: sum(runs[r]["launches"][k] for r in main)
                 for k in ops.KERNELS}
     kernels = phase_kernels(torch, ops, runs, launches)
@@ -447,6 +473,7 @@ def main() -> int:
               f"{runs[r]['per_body']:.1f}", flush=True)
     for k, v in launches.items():
         need(v > 0, f"kernel {k} was not launched on the main path")
+    print(f"chip_smoke: {time.time() - t_start:.1f} s in all", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2418,14 +2445,16 @@ def phase_kernels(torch, ops, runs, launches):
                           "jaxtlc/live/fixpoint.py:41"),
         "struct_expand": ("torchtlc/kernels/csrc/struct_expand.cuh",
                           "jaxtlc/struct/backend.py:169"),
-        "struct_inv_rows": ("torchtlc/kernels/csrc/struct_expand.cuh",
+        "struct_inv_rows": ("torchtlc/kernels/csrc/struct_inv_rows.cuh",
                             "jaxtlc/engine/backend.py:325"),
         "gen_expand": ("torchtlc/kernels/csrc/gen_expand.cuh",
                        "jaxtlc/gen/engine.py:130"),
         "gen_state_masks": ("torchtlc/kernels/csrc/gen_masks.cuh",
                             "jaxtlc/live/check.py:205"),
+        "emitted_expand_sharded": ("torchtlc/kernels/csrc/emitted_sharded.cuh",
+                                   "jaxtlc/engine/sharded.py:510"),
     }
-    for key in ("sharded", "live", "struct", "gen"):
+    for key in ("sharded", "live", "struct", "gen", "shard16"):
         for name, got in runs.get(f"{key}_rows", {}).items():
             rows.setdefault(name, []).extend(got)
         library.update(runs.get(f"{key}_library", {}))
@@ -3254,7 +3283,7 @@ def struct_kernel_checks(torch, ops, tag, prog, block, n, record,
             need(bad > 0 if want_viol else bad == 0,
                  f"K17 invariant flags ({tag}): {bad} failing lanes")
             if record is not None:
-                nbytes = (ck * prog.W * 4 + prog.K.size * 4 + ncand * (
+                nbytes = (ck * prog.W * 4 + ncand * (
                     prog.W * 4 + 3 + prog.n_inv + 4) + prog.n_labels * 8)
                 record("struct_expand", tag, err,
                        cuda_ms(torch, lambda _: ops.struct_expand(
@@ -3285,8 +3314,7 @@ def struct_kernel_checks(torch, ops, tag, prog, block, n, record,
                    prog, flat, is_new_c, c_idx, action, rows), reps),
                cuda_ms(torch, lambda _: prog.inv_rows_plain(
                    flat, is_new_c, c_idx, action, rows), 2),
-               rows * 9 + fresh * prog.F * 4 + prog.K.size * 4
-               + prog.F * 4 + 16)
+               inv_rows_bytes(prog, rows, fresh))
     return viol
 
 
@@ -3370,12 +3398,13 @@ def phase_struct(torch, ops, card, runs, tmp):
 
 def device_busy(torch, fn):
     """fn() once under torch.profiler: (its result, traced wall, device
-    busy seconds, {kernel name: device seconds})."""
+    busy seconds, {kernel name: device seconds}).  Only the device's
+    activity is traced: recording every host-side op of a sharded run
+    made the profiler's own bookkeeping take half a minute a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         res = fn()
         torch.cuda.synchronize()
@@ -3389,6 +3418,7 @@ def device_busy(torch, fn):
             us = ev.self_cuda_time_total
         if us > 0:
             by_name[ev.key] = by_name.get(ev.key, 0) + us / 1e6
+    need(by_name, "the profiler recorded no device time")
     return res, wall, sum(by_name.values()), by_name
 
 
@@ -3577,9 +3607,9 @@ R5_PIN = dict(
     sha=("387662821a85aaaba54f58d522b9f76c"
          "d1517eccdca8c5e28a7276c060a5f7df"))
 # SHA-256 of the masked -noTool transcripts (struct_masked) of `python -m
-# jaxtlc.cli check MC.cfg -noTool -workers cpu -no-preflight` with
-# JAXTLC_ARTIFACT_CACHE=off: the three shipped models and the
-# NeverObserves edit
+# jaxtlc.cli check MC.cfg -noTool -workers cpu` with
+# JAXTLC_ARTIFACT_CACHE=off (the default preflight finds nothing here):
+# the three shipped models and the NeverObserves edit
 GEN_TRANSCRIPT_SHA256 = {
     "RaftElection": ("1e5a653cbc647e15c466da538494b0b9"
                      "e66286bb3986eca4a9526a0d4757113e"),
@@ -3682,9 +3712,18 @@ def gen_recorder(rows):
 
 def gen_bound_ms(nbytes, ops_):
     """(bound ms, bound_by): the larger of bytes over the memory rate and
-    integer operations over the non-tensor peak."""
+    integer operations over the non-tensor peak.  The emitted kernels'
+    bytes leave their constant table K out: a body reads only the entries
+    it indexes, and which those are depends on the data."""
     b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / INT_OPS_PER_S * 1e3
     return (b, "bytes") if b >= o else (o, "operations")
+
+
+def inv_rows_bytes(prog, rows, n_fresh):
+    """K18's bytes over `rows` claimant rows of which n_fresh are fresh: a
+    fresh byte a row, then each fresh claimant's c_idx word and the F
+    fields of its row, and the verdict out."""
+    return rows + n_fresh * (8 + prog.F * 4) + prog.F * 4 + 16
 
 
 def gen_kernel_checks(torch, ops, tag, prog, masks, block, n, record,
@@ -3714,7 +3753,7 @@ def gen_kernel_checks(torch, ops, tag, prog, masks, block, n, record,
         stats = prog.stats()
         ncand = block.shape[0] * prog.L
         n_valid = int(got[1][0].sum())
-        nbytes = (block.shape[0] * prog.W * 4 + prog.K.size * 4 + ncand * (
+        nbytes = (block.shape[0] * prog.W * 4 + ncand * (
             prog.W * 4 + 3 + prog.n_inv + 4) + prog.n_labels * 8
             + (prog.n_inv + 2) * 4)
         record("gen_expand", tag, 0,
@@ -3739,8 +3778,7 @@ def gen_masks_row(torch, ops, tag, masks, states, record, reps=20):
     record("gen_state_masks", tag, err,
            cuda_ms(torch, lambda _: ops.gen_state_masks(masks, states), reps),
            cuda_ms(torch, lambda _: masks.masks_plain(states), 2),
-           *gen_bound_ms(V * masks.W * 4 + V * masks.n_pred
-                         + masks.K.size * 4, elements * V))
+           *gen_bound_ms(V * masks.W * 4 + V * masks.n_pred, elements * V))
     return planes
 
 
@@ -3882,7 +3920,7 @@ def phase_gen_command(ops, card, runs, tmp):
     NeverObserves edit (exit 12 with the host oracle's trace, digest
     pinned), Reconciler-5 with its five Converges properties on the device
     liveness path (K14, K20, K16 at 2,881,185 states; the verdicts of the
-    reference's check_leads_to_device), and -pipeline refused (item 12b)."""
+    reference's check_leads_to_device)."""
     cfgs = runs["gen_cfgs"]
     out = {}
     for tag, rc_want in (("RaftElection", 13), ("Reconciler", 0),
@@ -3916,20 +3954,570 @@ def phase_gen_command(ops, card, runs, tmp):
     need(launches["gen_state_masks"] == len(R5_VERDICTS),
          f"K20 launches {launches['gen_state_masks']}")
     out["gen_cmd_r5"] = {"launches": launches}
-    from torchtlc.cli import main as cli_main
-
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        rc = cli_main(["check", cfgs["RaftElection"], "-pipeline"])
-    need(rc == 2 and "item 12b" in err.getvalue(),
-         f"-pipeline on a generic spec exited {rc}")
     print(f"phase 15c Reconciler-5 with PROPERTY Converges: exit 0, "
           f"{R5_COUNTS}, {len(verdicts)} properties hold on the device path "
           f"= the reference's verdicts; K19 {launches['gen_expand']}, K14 "
           f"{launches['edge_capture']}, K20 {launches['gen_state_masks']}, "
-          f"K16 {launches['survive_sweep']} launches; {wall:.1f} s on {card}; "
-          "-pipeline on RaftElection -> exit 2 (item 12b)", flush=True)
+          f"K16 {launches['survive_sweep']} launches; {wall:.1f} s on {card}",
+          flush=True)
     return out
+
+# ---------------------------------------------------------------------------
+# phases 16-16c: the sharded engine over the emitted backends (K21, K18)
+# ---------------------------------------------------------------------------
+
+SHARD16_D = 4
+# jaxtlc.engine.sharded.make_sharded_engine on the CPU (4 virtual devices,
+# GEN_KW) over the NeverObserves edit: its violation code, counts and
+# state in the default and pipelined modes (the single-device run's too)
+# and in the slab deferred mode, where the owner's received-rows check
+# reports the highest violating lane
+NEVER16_PIN = dict(code=103, counts=[13, 10, 4],
+                   state=dict(first=[1, 1, 0, 0, 0, 0, 1],
+                              deferred=[1, 0, 1, 0, 0, 1, 0]))
+# phase 16b: 4,096 rows a shard on 4 shards (16,384 in all, the single-
+# device chunk of 14b and 15b); per-shard table and queue sized so that no
+# regrow fires (the busiest shard of either stays under 0.45 of its table)
+TP8_SHARDED_KW = dict(chunk=1 << 12, queue_capacity=1 << 19,
+                      fp_capacity=1 << 21)
+R5_SHARDED_KW = dict(chunk=1 << 12, queue_capacity=1 << 19,
+                     fp_capacity=1 << 21)
+# phase 16c: (exit code, SHA-256 of the masked -noTool transcript,
+# struct_masked) of `python -m jaxtlc.cli check MC.cfg -noTool -workers cpu
+# <flags>` with JAXTLC_ARTIFACT_CACHE=off - the reference's CPU runs, the
+# default preflight on
+SHARD16_COMMANDS = {
+    "gen_sharded": ("RaftElection", ["-sharded", "4"]),
+    "gen_sharded_pipe": ("ServiceMesh", ["-sharded", "4", "-pipeline"]),
+    "gen_ckpt": ("Reconciler", ["-checkpoint", "CK1", "-checkpointevery",
+                                "2", "-faults", "sigterm@3"]),
+    "gen_ckpt_recover": ("Reconciler", ["-checkpoint", "CK1",
+                                        "-checkpointevery", "2",
+                                        "-recover"]),
+    "gen_ckpt_pipe": ("Reconciler", ["-checkpoint", "CK2",
+                                     "-checkpointevery", "2", "-faults",
+                                     "sigterm@3", "-pipeline"]),
+    "gen_ckpt_pipe_recover": ("Reconciler", ["-checkpoint", "CK2",
+                                             "-checkpointevery", "2",
+                                             "-recover", "-pipeline"]),
+    "struct_sharded": ("TwoPhase", ["-sharded", "4"]),
+    "struct_sharded_regrow": ("TwoPhase", ["-sharded", "4", "-nodeadlock",
+                                           "-fpcap", "64", "-chunk", "16"]),
+    "gen_pipeline_alone": ("RaftElection", ["-pipeline"]),
+}
+SHARD16_TRANSCRIPT = {
+    "gen_sharded": (13, "1e5a653cbc647e15c466da538494b0b9"
+                       "e66286bb3986eca4a9526a0d4757113e"),
+    "gen_sharded_pipe": (13, "eb95808f0342a13225229e8165e6c9f0"
+                            "77af699db2a8a10dbff121b27d577277"),
+    "gen_ckpt": (0, "fc2de2e4afdb8d6cf824dae853b83e4e"
+                    "aa85636fcb97e2a25f144972d4aa7a66"),
+    "gen_ckpt_recover": (0, "fc2de2e4afdb8d6cf824dae853b83e4e"
+                            "aa85636fcb97e2a25f144972d4aa7a66"),
+    "gen_ckpt_pipe": (0, "fc2de2e4afdb8d6cf824dae853b83e4e"
+                         "aa85636fcb97e2a25f144972d4aa7a66"),
+    "gen_ckpt_pipe_recover": (0, "fc2de2e4afdb8d6cf824dae853b83e4e"
+                                 "aa85636fcb97e2a25f144972d4aa7a66"),
+    "struct_sharded": (12, "0bb79f45c02f993ec7b7e2f58aace7e3"
+                          "2b969172bf1ea503b458c594d3651d84"),
+    "struct_sharded_regrow": (0, "826af8c71b3bca8997739c9ecb59157d"
+                                 "f19ff59708796075a26241ceb7ba01e2"),
+    "gen_pipeline_alone": (13, "1e5a653cbc647e15c466da538494b0b9"
+                              "e66286bb3986eca4a9526a0d4757113e"),
+}
+
+
+def shard16_models(ops, tmp):
+    """The shipped emitted models of phase 16 and the full-width ones of
+    16b: {name: (kind, backend, program, single-device geometry, pin)},
+    every emitted library built first (one nvcc per text, in parallel;
+    each holds K21 and K18 beside K17 or K19)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torchtlc.engine.backend import gen_backend
+    from torchtlc.frontend.model import resolve
+    from torchtlc.gen.program import GenProgram
+    from torchtlc.struct.cache import get_backend
+    from torchtlc.struct.loader import load
+
+    d = os.path.join(tmp, "p16")
+    os.makedirs(d, exist_ok=True)
+    _, tp8 = write_struct_models(d)
+    never, r5 = write_gen_models(d)
+    models = {}
+    for name, cfg, kw in _struct_geometries():
+        backend = get_backend(load(cfg), False)
+        models[name] = ("struct", backend, backend.kernels.prog, kw,
+                        STRUCT_PINS[name])
+    backend = get_backend(load(tp8), False)
+    models["TwoPhase-8"] = ("struct", backend, backend.kernels.prog, TP8_KW,
+                            dict(counts=list(TP8_COUNTS)))
+    here = os.path.dirname(os.path.abspath(__file__))
+    for name, cfg, kw, pin in [
+            (n, os.path.join(here, "specs", f"{n}.toolbox", "Model_1",
+                             "MC.cfg"), GEN_KW, GEN_PINS[n])
+            for n in GEN_NAMES] + [("Reconciler-5", r5, R5_KW, R5_PIN),
+                                   ("never", never, GEN_KW, NEVER16_PIN)]:
+        prog = GenProgram(resolve(cfg, workers="gpu").genspec)
+        models[name] = ("gen", gen_backend(prog.spec, prog=prog), prog, kw,
+                        pin)
+    t0 = time.time()
+    with ThreadPoolExecutor(len(models)) as pool:
+        list(pool.map(lambda m: ops.emitted_lib(m[2]), models.values()))
+    print(f"phase 16 build: {len(models)} emitted libraries (K17 or K19, "
+          f"K18, K21) in {time.time() - t0:.1f} s", flush=True)
+    return models
+
+
+def single_table_keys(torch, ops, kind, backend, prog, kw):
+    """The single-device run of a model at `kw` (check_struct or the gen
+    engine, default modes): (result, its table's sorted fingerprint keys,
+    table digest)."""
+    if kind == "struct":
+        from torchtlc.engine.bfs import make_backend_engine, result_from_carry
+
+        init_fn, run_fn, _ = make_backend_engine(
+            backend, kw["chunk"], kw["queue_capacity"], kw["fp_capacity"])
+        c = init_fn()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        c = run_fn(c)
+        torch.cuda.synchronize()
+        r = result_from_carry(c, time.time() - t0, iterations=run_fn.steps,
+                              fp_capacity=kw["fp_capacity"],
+                              labels=backend.labels,
+                              viol_names=backend.viol_names)
+    else:
+        c, r, _ = gen_run(torch, ops, prog, kw)
+    table = c.fps.table
+    return (r, _stored_keys(torch, table),
+            struct_digest(table.cpu().numpy().view("uint32")))
+
+
+def shard16_run(torch, ops, backend, D, kw, **modes):
+    """The sharded engine over an emitted backend, its launch counts reset
+    just before the run and read just after: (carry, result, launches,
+    bodies)."""
+    from torchtlc.engine import sharded as ts
+
+    init_fn, run_fn = ts.make_sharded_engine(None, ts.ShardMesh(D),
+                                             backend=backend, **kw, **modes)
+    carry = init_fn()
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.time()
+    carry = run_fn(carry)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(ops.LAUNCHES)
+    r = ts.result_from_shard_carry(carry, wall, iterations=run_fn.steps,
+                                   labels=backend.labels,
+                                   viol_names=backend.viol_names,
+                                   fp_capacity_total=D * kw["fp_capacity"])
+    return carry, r, launches, run_fn.steps
+
+
+def shard16_union(torch, tag, carry, ref_keys):
+    """Every stored fingerprint on its owner shard, and the union of the
+    shard tables equal to the single-device table's set."""
+    D = carry.table.shape[0]
+    keys = []
+    for d in range(D):
+        k = _stored_keys(torch, carry.table[d])
+        need(bool(((k >> 32) & (D - 1) == d).all()),
+             f"{tag}: a fingerprint off its owner shard {d}")
+        keys.append(k)
+    union = torch.sort(torch.cat(keys)).values
+    need(union.shape == ref_keys.shape and bool((union == ref_keys).all()),
+         f"{tag}: the shard tables' fingerprints differ from the single-"
+         "device table's")
+
+
+def shard16_block(torch, backend, D, kw, full=False, viol=False):
+    """A carry of a deferred sharded run on the card and the pops of its
+    next body: the first body where every shard pops a whole chunk (full),
+    the body that finds the run's violation (viol), else the body of the
+    run whose pops reach the most shards (then the most rows).  Returns
+    (carry, bundle, npop, expand half)."""
+    from torchtlc.engine import sharded as ts
+
+    init_fn, run_fn = ts.make_sharded_engine(
+        None, ts.ShardMesh(D), backend=backend, **kw, segment=1,
+        deferred=True)
+
+    def pops(h):
+        return [min(kw["chunk"], min(e, t) - q)
+                for q, t, e in zip(h.qhead, h.qtail, h.level_end)]
+
+    target = None
+    if not full:  # a first pass picks the body
+        c, i, best = init_fn(), 0, (0, 0)
+        while ts.read_bundle(c).cont:
+            n = pops(ts.read_bundle(c))
+            score = (sum(x > 0 for x in n), sum(n))
+            if score > best and not viol:
+                best, target = score, i
+            c = run_fn(c)
+            if viol and ts.read_bundle(c).viol != 0:
+                target = i
+                break
+            i += 1
+        need(target is not None, "the sharded run popped nothing" if not
+             viol else "the sharded run found no violation")
+    c, i = init_fn(), 0
+    while True:
+        h = ts.read_bundle(c)
+        need(h.cont, "the sharded run ended before the wanted block")
+        n = pops(h)
+        if (min(n) == kw["chunk"]) if full else i == target:
+            npop = torch.tensor(n, dtype=torch.int64, device=c.queue.device)
+            return c, h, npop, run_fn.halves[0]
+        c = run_fn(c)
+        i += 1
+
+
+def shard16_kernel_checks(torch, ops, tag, prog, backend, D, kw, record,
+                          full=False, reps=20, want_viol=0):
+    """K21 (both invariant modes, with the popped block) and K18 on one
+    owner's received rows bitwise against their plain versions on the
+    card; timed into `record` when given.  With want_viol (a violation
+    code) the block is the body that finds the run's violation: K21's
+    immediate invariant rows flag a lane, and K18 on the received rows of
+    an owner that holds the violating claimant reports that code with
+    action -1.  Returns (popped rows, fresh claimants checked)."""
+    from torchtlc.engine.fpset import FPSet, fpset_insert_dedup
+
+    def err_of(a, b):
+        if a is None:
+            return 0
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
+            if a.numel() else 0
+
+    c, h, npop, expand_half = shard16_block(torch, backend, D, kw, full,
+                                            viol=bool(want_viol))
+    need(bool((npop > 0).any()), f"an empty block ({tag})")
+    ck = kw["chunk"]
+    for deferred in (False, True):
+        got = ops.emitted_expand_sharded(prog, c.queue, c.qhead, npop, ck,
+                                         deferred, True)
+        ref = prog.expand_sharded_plain(c.queue, c.qhead, npop, ck,
+                                        deferred, True)
+        err = max(err_of(a, b) for a, b in zip(got, ref))
+        need(err == 0, f"K21 emitted_expand_sharded differs from its plain "
+             f"version ({tag}, deferred={deferred})")
+        bad = int(got[1][3:].sum())
+        need(bad == 0 if deferred or not want_viol else bad > 0,
+             f"K21 invariant rows ({tag}, deferred={deferred}): {bad} "
+             "failing lanes")
+    popped = int(npop.sum())
+    if record is not None:
+        stats = prog.stats()
+        ncand = D * ck * prog.L
+        got = ops.emitted_expand_sharded(prog, c.queue, c.qhead, npop, ck)
+        n_valid = int(got[1][0].sum())
+        nbytes = (popped * prog.F * 4 + ncand * (
+            prog.W * 4 + prog.F * 4 + 3 + prog.n_inv + 4)
+            + D * prog.n_labels * 8)
+        record("emitted_expand_sharded", tag, 0,
+               cuda_ms(torch, lambda _: ops.emitted_expand_sharded(
+                   prog, c.queue, c.qhead, npop, ck), reps),
+               cuda_ms(torch, lambda _: prog.expand_sharded_plain(
+                   c.queue, c.qhead, npop, ck), 2),
+               *gen_bound_ms(nbytes, stats["step"]["elements"] * popped
+                             + stats["invariants"]["elements"] * n_valid))
+    # K18 on the received rows of the owner with the most fresh claimants
+    ex = expand_half(c, h)
+    DB = ex.xvalid.shape[1] * ex.xvalid.shape[2]
+    claims = []
+    for o in range(D):
+        _, fresh, c_idx, _, _ = fpset_insert_dedup(
+            FPSet(c.table[o].clone()), ex.xlo[o].view(DB),
+            ex.xhi[o].view(DB), ex.xvalid[o].view(DB), probe_width=0,
+            sort_free=False)
+        claims.append((int(fresh.sum()), o, fresh, c_idx))
+    if want_viol:  # the owners whose fresh claimants violate
+        claims = [x for x in claims if int(prog.inv_rows_plain(
+            ex.xrows[x[1]].view(DB, prog.F), x[2], x[3], None, DB)[0])]
+        need(claims, f"no owner's received rows violate ({tag})")
+    _, o, fresh, c_idx = max(claims, key=lambda x: (x[0], -x[1]))
+    rows_in = ex.xrows[o].view(DB, prog.F)
+    got = ops.struct_inv_rows(prog, rows_in, fresh, c_idx, None, DB)
+    ref = prog.inv_rows_plain(rows_in, fresh, c_idx, None, DB)
+    err = max(err_of(a, b) for a, b in zip(got, ref))
+    need(err == 0, f"K18 on received rows differs from its plain version "
+         f"({tag})")
+    need(int(got[0]) == want_viol and int(got[2]) == -1,
+         f"K18 verdict {int(got[0])}, action {int(got[2])} ({tag})")
+    n_fresh = int(fresh.sum())
+    need(n_fresh > 0, f"no fresh claimant among the received rows ({tag})")
+    if record is not None:
+        record("struct_inv_rows/received", tag, err,
+               cuda_ms(torch, lambda _: ops.struct_inv_rows(
+                   prog, rows_in, fresh, c_idx, None, DB), reps),
+               cuda_ms(torch, lambda _: prog.inv_rows_plain(
+                   rows_in, fresh, c_idx, None, DB), 2),
+               *gen_bound_ms(inv_rows_bytes(prog, DB, n_fresh),
+                             prog.stats()["invariants"]["elements"]
+                             * n_fresh))
+    return popped, n_fresh
+
+
+def shard16_never(torch, ops, models, D, out, lines):
+    """Phase 16's violating model, the NeverObserves edit of Reconciler, at
+    D shards in the default, pipelined and slab deferred modes (where K18
+    on the received rows finds the violation): the violation code and
+    counts of the single-device run and the reference's state; K21 and
+    K18 bitwise against their plain versions on the body that finds it."""
+    _, backend, prog, kw, pin = models["never"]
+    _, r1, _ = gen_run(torch, ops, prog, kw)
+    need(r1.violation == pin["code"]
+         and [int(x) for x in r1.violation_state] == pin["state"]["first"],
+         f"never: single-device verdict {r1.violation}")
+    for mode, modes in (("default", {}), ("pipelined", dict(pipeline=True)),
+                        ("deferred", dict(sort_free=True, deferred=True))):
+        tag = f"never D{D} {mode}"
+        carry, r, launches, bodies = shard16_run(torch, ops, backend, D, kw,
+                                                 **modes)
+        state = pin["state"]["deferred" if mode == "deferred" else "first"]
+        need(r.violation == r1.violation
+             and [r.generated, r.distinct, r.depth] == pin["counts"]
+             and [int(x) for x in r.violation_state] == state,
+             f"{tag}: verdict {r.violation}, counts "
+             f"{(r.generated, r.distinct, r.depth)}, state "
+             f"{[int(x) for x in r.violation_state]}")
+        if mode == "deferred":
+            need(launches["struct_inv_rows"] > 0,
+                 f"{tag}: K18 never ran on received rows")
+        out[f"shard16_never_D{D}_{mode}"] = {"launches": launches}
+        lines.append(f"never D{D} {mode} {bodies} bodies {r.wall_s:.3f} s")
+        del carry
+    popped, fresh = shard16_kernel_checks(torch, ops, "never", prog, backend,
+                                          D, kw, None, want_viol=pin["code"])
+    print(f"phase 16 never: violation {pin['code']} at "
+          f"{tuple(pin['counts'])} on {D} shards in every mode, the state the "
+          f"single-device run's (the reference's deferred one in the "
+          f"deferred mode); K21 bitwise = plain on the violating body "
+          f"({popped} rows), K18 on the violating owner's received rows "
+          f"({fresh} fresh claimants) bitwise = plain, code "
+          f"{pin['code']}, action -1", flush=True)
+
+
+def phase_shard16(torch, ops, card, runs, tmp):
+    """Phase 16: the sharded engine over the six shipped emitted models -
+    TwoPhase Model_1 and Model_sym, RaftReplication (struct backends: K21
+    over the struct step, K18), RaftElection, Reconciler and ServiceMesh
+    (generic backends: K21 over the gen step, K18) - at 4 shards in the
+    default modes, pipelined and in the deferred slab modes (K18 on every
+    owner's received rows), the generic ones also on 1 shard (the
+    -checkpoint path's mesh): the reference's counts, per-action generated
+    counts and depth; every shard's table fingerprints on their owner and
+    their union the single-device run's table set (whose words are the
+    reference's, phases 14 and 15); K21 and K18 on received rows bitwise
+    against their plain versions on a popped 4-shard block of each."""
+    models = shard16_models(ops, tmp)
+    rows = {}
+    record = gen_recorder(rows)
+    out, lines = {}, []
+    D = SHARD16_D
+    for name in [n for n, _, _ in _struct_geometries()] + list(GEN_NAMES):
+        kind, backend, prog, kw, pin = models[name]
+        r1, ref_keys, sha = single_table_keys(torch, ops, kind, backend,
+                                              prog, kw)
+        need(sha == pin["sha"], f"{name}: the single-device table words")
+        cases = [(D, "default", {}), (D, "pipelined", dict(pipeline=True)),
+                 (D, "deferred", dict(sort_free=True, deferred=True))]
+        if kind == "gen":
+            cases += [(1, "default", {}), (1, "pipelined",
+                                           dict(pipeline=True))]
+        for n_sh, mode, modes in cases:
+            tag = f"{name} D{n_sh} {mode}"
+            carry, r, launches, bodies = shard16_run(torch, ops, backend,
+                                                     n_sh, kw, **modes)
+            need([r.generated, r.distinct, r.depth] == pin["counts"],
+                 f"{tag} counts {(r.generated, r.distinct, r.depth)}")
+            need(r.violation == 0 and r.queue_left == 0, f"{tag} verdict")
+            need(r.action_generated == pin["act_gen"],
+                 f"{tag} per-action generated")
+            shard16_union(torch, tag, carry, ref_keys)
+            need(launches["emitted_expand_sharded"] == bodies,
+                 f"{tag}: K21 launches {launches['emitted_expand_sharded']}"
+                 f" != bodies {bodies}")
+            if mode == "deferred":
+                need(launches["struct_inv_rows"] > 0,
+                     f"{tag}: K18 never ran on received rows")
+            out[f"shard16_{name}_D{n_sh}_{mode}"] = {"launches": launches}
+            lines.append(f"{name} D{n_sh} {mode} {bodies} bodies "
+                         f"{r.wall_s:.3f} s")
+            del carry
+        popped, fresh = shard16_kernel_checks(
+            torch, ops, name, prog, backend, D, kw,
+            record if name in ("RaftReplication/Model_1", "ServiceMesh")
+            else None)
+        print(f"phase 16 {name}: {tuple(pin['counts'])} and the per-action "
+              f"generated counts at 1/4 shards in every mode, the shard "
+              f"tables' union = the single-device table ({ref_keys.shape[0]}"
+              f" fingerprints, sha256 {sha[:16]} = the reference's); K21 "
+              f"bitwise = plain on a 4-shard block ({popped} rows), K18 on "
+              f"an owner's received rows ({fresh} fresh claimants) bitwise "
+              f"= plain", flush=True)
+    shard16_never(torch, ops, models, D, out, lines)
+    print("phase 16 walls: " + "; ".join(lines) + " ; step times: "
+          + ", ".join(f"{k} {v[-1]['shape']} {v[-1]['ms']:.4f} ms (plain "
+                      f"{v[-1]['plain_ms']:.3f} ms, bound "
+                      f"{v[-1]['bound_ms']:.5f} ms by {v[-1]['bound_by']})"
+                      for k, v in rows.items()) + f" on {card}", flush=True)
+    out.update(shard16_rows=rows, shard16_models=models)
+    return out
+
+
+def phase_shard16_real(torch, ops, card, runs):
+    """Phase 16b: TwoPhase-8 and Reconciler-5 on 4 shards at 4,096 rows a
+    shard (the 16,384 rows of 14b / 15b in all) in the default modes,
+    which resolve to the slab dedup and deferred invariants there (K18 on
+    every owner's received rows): the reference's counts, the union of
+    the shard tables equal to the single-device table set; the sharded
+    and single-device walls in turns (single, sharded, sharded, single),
+    bodies, launches a body, the device busy share of a sharded run
+    (torch.profiler); K21 and K18 on received rows timed on a full-width
+    block against their bound and plain versions."""
+    models = runs["shard16_models"]
+    rows = runs["shard16_rows"]
+    record = gen_recorder(rows)
+    out = {}
+    D = SHARD16_D
+    for name, skw, counts in (("TwoPhase-8", TP8_SHARDED_KW, TP8_COUNTS),
+                              ("Reconciler-5", R5_SHARDED_KW, R5_COUNTS)):
+        kind, backend, prog, kw, pin = models[name]
+        walls = {"single": [], "sharded": []}
+        ref_keys = None
+        for which in ("single", "sharded", "sharded", "single"):
+            if which == "single":
+                r, keys, _ = single_table_keys(torch, ops, kind, backend,
+                                               prog, kw)
+                if ref_keys is None:
+                    ref_keys = keys
+                del keys
+                walls["single"].append((r.wall_s, r.iterations))
+            else:
+                carry, r, launches, bodies = shard16_run(torch, ops, backend,
+                                                         D, skw)
+                if not walls["sharded"]:
+                    shard16_union(torch, name, carry, ref_keys)
+                    out[f"shard16b_{name}"] = {"launches": launches}
+                    per_body = _per_body(launches, bodies)
+                    k21, k18 = (launches["emitted_expand_sharded"],
+                                launches["struct_inv_rows"])
+                walls["sharded"].append((r.wall_s, bodies))
+                del carry
+            need((r.generated, r.distinct, r.depth) == counts,
+                 f"{name} {which} counts {(r.generated, r.distinct, r.depth)}")
+            need(r.violation == 0 and r.queue_left == 0,
+                 f"{name} {which} verdict")
+            torch.cuda.empty_cache()
+        t_prof = time.time()
+        (res, traced, busy, by_name) = device_busy(
+            torch, lambda: shard16_run(torch, ops, backend, D, skw))
+        t_prof = time.time() - t_prof
+        need(res[1].distinct == counts[1], f"{name} traced sharded run")
+        del res
+        torch.cuda.empty_cache()
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        popped, fresh = shard16_kernel_checks(
+            torch, ops, f"{name} full width", prog, backend, D, skw, record,
+            full=True, reps=10)
+        a = rows["emitted_expand_sharded"][-1]
+        b = rows["struct_inv_rows/received"][-1]
+        print(f"phase 16b {name} on {D} shards (chunk {skw['chunk']}, qcap "
+              f"{skw['queue_capacity']}, fp {skw['fp_capacity']} per shard, "
+              f"slab + deferred): {counts}, the shard tables' union = the "
+              f"single-device table ({ref_keys.shape[0]} fingerprints); "
+              f"walls in turns (s, bodies or steps): single "
+              f"{[(round(w, 4), n) for w, n in walls['single']]}, sharded "
+              f"{[(round(w, 4), n) for w, n in walls['sharded']]}; "
+              f"{per_body:.1f} launches a body (K21 {k21}, K18 {k18}); "
+              f"traced wall {traced:.3f} s, device busy {busy:.3f} s "
+              f"({busy / traced:.1%}; the profiled call {t_prof:.1f} s); "
+              "top device items "
+              + ", ".join(f"{k[:40]} {v * 1e3:.1f} ms" for k, v in top)
+              + f"; full-width block ({popped} rows, {fresh} fresh "
+              f"received claimants): K21 {a['ms']:.4f} ms (plain "
+              f"{a['plain_ms']:.1f} ms, bound {a['bound_ms']:.5f} ms by "
+              f"{a['bound_by']}), K18 {b['ms']:.4f} ms (plain "
+              f"{b['plain_ms']:.1f} ms, bound {b['bound_ms']:.5f} ms by "
+              f"{b['bound_by']}) on {card}", flush=True)
+    return out
+
+
+def phase_shard16_command(ops, card, runs, tmp):
+    """Phase 16c: `python -m torchtlc.cli check` through the sharded engine
+    over emitted backends, in this process: a generic spec with -sharded
+    4, -sharded 4 -pipeline, -checkpoint with -faults sigterm@3 (the
+    reference's generic checkpoint path has no supervisor, so the run
+    completes) then -recover, unpipelined and pipelined, -pipeline alone
+    (the gen engine, as the reference); TwoPhase with -sharded 4 (a
+    deadlock, exit 12) and with a small -fpcap (table regrows on the
+    shards) - each exit code and transcript equal to the reference's
+    (digests pinned); the default transcript shows the preflight warning;
+    and Reconciler-5 with PROPERTY Converges under -sharded 4 (the device
+    liveness path, its fixpoint over 4 edge slices): the reference's
+    counts and verdicts."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out, lines = {}, []
+    cks = {"CK1": os.path.join(tmp, "g16a.ckpt"),
+           "CK2": os.path.join(tmp, "g16b.ckpt")}
+    for tag, (spec, extra) in SHARD16_COMMANDS.items():
+        cfg = os.path.join(here, "specs", f"{spec}.toolbox", "Model_1",
+                           "MC.cfg")
+        argv = [cfg, "-noTool"] + [cks.get(x, x) for x in extra]
+        rc, text, launches, wall = command_here(ops, argv)
+        rc_want, sha_want = SHARD16_TRANSCRIPT[tag]
+        need(rc == rc_want, f"command {tag} exited {rc}")
+        sha = hashlib.sha256(struct_masked(text, cfg).encode()).hexdigest()
+        need(sha == sha_want, f"command {tag}: the transcript differs from "
+             "the reference's")
+        if tag.startswith("struct"):
+            need("Preflight warning [spec/unreduced-symmetry]" in text,
+                 f"command {tag}: no preflight warning")
+        if ("-sharded" in extra or "-checkpoint" in extra) \
+                and "-recover" not in extra:  # a resumed run may be done
+            need(launches["emitted_expand_sharded"] > 0,
+                 f"command {tag}: K21 never ran")
+        if tag == "struct_sharded_regrow":
+            need("regrowing fp_capacity" in text,
+                 "the sharded struct command did not regrow")
+        out[f"shard16_cmd_{tag}"] = {"launches": launches}
+        lines.append(f"{tag} exit {rc} ({wall:.2f} s)")
+    r5 = os.path.join(tmp, "p16", "r5", "MC.cfg")
+    rc, text, launches, wall = command_here(
+        ops, [r5, "-noTool", "-sharded", "4", "-chunk",
+              str(R5_SHARDED_KW["chunk"]), "-qcap",
+              str(R5_SHARDED_KW["queue_capacity"]), "-fpcap",
+              str(1 << 22)])
+    need(rc == 0, f"Reconciler-5 -sharded 4 exited {rc}")
+    need(final_counts(text) == R5_COUNTS,
+         f"Reconciler-5 -sharded 4 counts {final_counts(text)}")
+    need("(device liveness engine)" in text,
+         "the device liveness path did not run")
+    verdicts = {}
+    for line in text.splitlines():
+        m = line.startswith("Temporal property ") and line.split()
+        if m and line.endswith("(fairness: wf_next)."):
+            verdicts[m[2]] = m[3] == "holds"
+    need(verdicts == R5_VERDICTS, f"Reconciler-5 -sharded 4 verdicts "
+         f"{verdicts}")
+    need(launches["survive_sweep"] > 0, "K16 never ran")
+    out["shard16_cmd_r5"] = {"launches": launches}
+    print("phase 16c commands, transcripts = the reference's: "
+          + "; ".join(lines) + f"; Reconciler-5 -sharded 4 with PROPERTY "
+          f"Converges: exit 0, {R5_COUNTS}, {len(verdicts)} properties hold "
+          f"on the device path (fixpoint over 4 edge slices) = the "
+          f"reference's verdicts; K21 {launches['emitted_expand_sharded']}, "
+          f"K18 {launches['struct_inv_rows']}, K19 "
+          f"{launches['gen_expand']}, K14 {launches['edge_capture']}, K16 "
+          f"{launches['survive_sweep']} launches; {wall:.1f} s on {card}",
+          flush=True)
+    return out
+
 
 if __name__ == "__main__":
     try:

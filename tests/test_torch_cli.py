@@ -81,8 +81,8 @@ def reference_runs(model_dir):
                         ("violation", ["-mutation", "delete_noop"])):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            rc = j_main(["check", str(model_dir / "MC.cfg"), "-noTool",
-                         "-no-preflight"] + SMALL + extra)
+            rc = j_main(["check", str(model_dir / "MC.cfg"), "-noTool"]
+                        + SMALL + extra)
         out[name] = (rc, buf.getvalue())
     return out
 
@@ -215,7 +215,7 @@ def test_pipeline_transcript_equals_reference(model_dir, capsys):
     rc, out = _run(main, argv + SMALL, capsys)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        ref_rc = j_main(argv + ["-no-preflight"] + SMALL)
+        ref_rc = j_main(argv + SMALL)
     assert rc == ref_rc == 0
     assert "17020 states generated, 8203 distinct" in out
     assert masked(out) == masked(buf.getvalue())

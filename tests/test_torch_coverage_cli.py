@@ -49,7 +49,7 @@ def _run(fn, argv):
 def test_coverage_transcript_equals_reference(model_dir):
     argv = ["check", str(model_dir / "MC.cfg"), "-noTool", "-coverage"]
     rc, out = _run(main, argv + SMALL)
-    ref_rc, ref = _run(j_main, argv + ["-no-preflight"] + SMALL)
+    ref_rc, ref = _run(j_main, argv + SMALL)
     assert rc == ref_rc == 0
     assert "17020 states generated, 8203 distinct" in out
     dump = chip_smoke.coverage_dump(out)

@@ -7,7 +7,9 @@ seeded invariant violation and a deadlock (exit 12 with the host oracle's
 trace, with and without -traceExpressions), -coverage's per-expression
 dump, -fairness wf_process; -frontend gen on a spec outside the subset
 (exit 1, the reference's error), the KubeAPI-only flags (exit 1) and the
-flags whose generic path is not ported yet (exit 2, ROADMAP item 12b)."""
+flags of the sharded engine over the generic backend (-sharded,
+-checkpoint, -recover) and -pipeline, which run as the reference's.  The
+reference runs its default preflight as the port does."""
 
 import contextlib
 import io
@@ -57,7 +59,7 @@ def _both(cfg, extra, tmp_path=None):
     """(rc, stdout, journal) of the port, then of the reference."""
     out = []
     for name, fn, own in (("port", main, []),
-                          ("ref", j_main, ["-no-preflight"])):
+                          ("ref", j_main, [])):
         argv = ["check", cfg, "-noTool", "-workers", "cpu"] + extra + own
         jpath = None
         if tmp_path is not None:
@@ -175,7 +177,7 @@ def _errors(fn, argv):
 def test_frontend_gen_outside_subset_exits_1_as_reference():
     argv = ["check", _cfg("TwoPhase"), "-workers", "cpu", "-frontend", "gen"]
     rc, err = _errors(main, argv)
-    j_rc, j_err = _errors(j_main, argv + ["-no-preflight"])
+    j_rc, j_err = _errors(j_main, argv)
     assert (rc, j_rc) == (1, 1)
     assert "outside the supported PlusCal-translation subset" in err
     assert err == j_err
@@ -185,7 +187,7 @@ def test_kubeapi_only_flag_exits_1_as_reference():
     argv = ["check", _cfg("Reconciler"), "-workers", "cpu", "-mutation",
             "delete_noop"]
     rc, err = _errors(main, argv)
-    j_rc, j_err = _errors(j_main, argv + ["-no-preflight"])
+    j_rc, j_err = _errors(j_main, argv)
     assert (rc, j_rc) == (1, 1)
     assert "not supported for generic-frontend specs yet" in err
     assert err == j_err
@@ -198,8 +200,28 @@ GEN_REFUSED = [["-sharded", "2"], ["-checkpoint", "ck"],
 @pytest.mark.parametrize("flags", GEN_REFUSED,
                          ids=["-".join(f).strip("-") for f in GEN_REFUSED])
 def test_unported_gen_flags_exit_2(flags, tmp_path):
-    flags = [str(tmp_path / f) if f == "ck" else f for f in flags]
-    rc, err = _errors(main, ["check", _cfg("ServiceMesh"), "-workers",
-                             "cpu"] + flags)
-    assert rc == 2
-    assert "item 12b" in err and "torchtlc: error:" in err
+    """The flags the port once refused on a generic spec (exit 2) now run
+    as the reference's: -sharded 2 and -checkpoint on the sharded engine
+    over the generic backend, -checkpoint -recover with no checkpoint
+    exits 1 naming the file, -pipeline alone runs the gen engine - the
+    exit code, the transcript and the error output equal to the
+    reference's."""
+    outs = []
+    for name, fn in (("port", main), ("ref", j_main)):
+        d = tmp_path / name
+        d.mkdir()
+        argv = ["check", _cfg("ServiceMesh"), "-noTool", "-workers", "cpu"] \
+            + [str(d / f) if f == "ck" else f for f in flags]
+        buf, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            rc = fn(argv)
+        outs.append((rc, masked(buf.getvalue()),
+                     err.getvalue().replace(str(d), "DIR")))
+    (rc, out, err), (j_rc, ref, j_err) = outs
+    assert rc == j_rc == (1 if "-recover" in flags else 13)
+    assert out == ref
+    if rc == 1:
+        assert "Error: no checkpoint at" in err
+        assert err.splitlines()[-1] == j_err.splitlines()[-1]
+    else:
+        assert "6421 states generated, 1444 distinct states found" in out

@@ -135,7 +135,7 @@ def test_device_path_command_equals_reference(name, rc, monkeypatch):
     monkeypatch.setattr(jchk, "HOST_PATH_MAX", 0)
     monkeypatch.setattr(tchk, "HOST_PATH_MAX", 0)
     outs = []
-    for fn, own in ((main, []), (j_main, ["-no-preflight"])):
+    for fn, own in ((main, []), (j_main, [])):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             got = fn(["check", _cfg(name), "-noTool", "-workers", "cpu",

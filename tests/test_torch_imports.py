@@ -425,3 +425,59 @@ def test_gen_coverage_copy_equals_reference_code():
     rel = os.path.join("gen", "coverage.py")
     assert (_code_without_docstrings(os.path.join(ROOT, "torchtlc", rel))
             == _code_without_docstrings(os.path.join(ROOT, "jaxtlc", rel)))
+
+
+def test_analysis_copies_equal_reference():
+    """torchtlc.analysis keeps its own copies of the reference's preflight
+    pieces: the severities and the exit code, Finding and AnalysisReport
+    field for field, sorted_findings' order, the counter-width arithmetic
+    at the saturation edge, and the text report and banner of one report
+    rendered by each package."""
+    import random
+
+    from jaxtlc import analysis as ja
+    from jaxtlc.analysis import engine_audit as jea, report as jr
+    from torchtlc import analysis as ta
+    from torchtlc.analysis import engine_audit as tea, report as tr
+
+    for name in ("SEV_ERROR", "SEV_WARNING", "SEV_INFO", "_SEV_RANK",
+                 "EXIT_PREFLIGHT"):
+        assert getattr(ta, name) == getattr(ja, name), name
+    for cls in ("Finding", "AnalysisReport"):
+        assert ([(f.name, f.type) for f in dataclasses.fields(
+            getattr(ta, cls))] == [(f.name, f.type) for f in
+                                   dataclasses.fields(getattr(ja, cls))])
+    rng = random.Random(11)
+    fields = [(rng.choice(("error", "warning", "info")),
+               rng.choice(("spec", "engine")), rng.choice("abc"),
+               rng.choice("xyz"), f"detail {i}") for i in range(24)]
+
+    def findings(pkg):
+        return [pkg.Finding(layer=la, check=ch, severity=sev, subject=su,
+                            detail=de) for sev, la, ch, su, de in fields]
+
+    assert ([dataclasses.astuple(f) for f in ta.sorted_findings(
+        findings(ta))] == [dataclasses.astuple(f) for f in
+                           ja.sorted_findings(findings(ja))])
+    for cap, lanes in ((1 << 20, 12), (1 << 28, 16), (1 << 28, 15),
+                       (1 << 32, 1)):
+        assert ([dataclasses.astuple(f) for f in tea.audit_counter_width(
+            "s", cap, lanes)] == [dataclasses.astuple(f) for f in
+                                  jea.audit_counter_width("s", cap, lanes)])
+
+    class Log:
+        def __init__(self):
+            self.lines = []
+
+        def msg(self, code, text, severity=0):
+            self.lines.append((code, text, severity))
+
+    out = []
+    for pkg, rep in ((ta, tr), (ja, jr)):
+        report = pkg.AnalysisReport(name="r", findings=findings(pkg))
+        log = Log()
+        rep.render_banner(log, report)
+        out.append((rep.render_report(report), log.lines,
+                    report.exit_code, len(report.errors),
+                    len(report.warnings), report.max_severity))
+    assert out[0] == out[1]

@@ -151,7 +151,7 @@ def _journal(path):
 def _both(model_dir, tmp_path, extra):
     """(rc, masked transcript, journal) of the reference and the port."""
     out = {}
-    for name, fn, own in (("ref", j_main, ["-no-preflight"]),
+    for name, fn, own in (("ref", j_main, []),
                           ("port", t_main, ["-workers", "cpu"])):
         d = tmp_path / name
         d.mkdir(exist_ok=True)
@@ -201,6 +201,6 @@ def test_liveness_command_equals_reference(model_dirs, tmp_path,
 def test_unknown_property_still_refused(model_dirs, capsys):
     """A PROPERTY the port does not know exits 1, as the reference's."""
     argv = ["check", str(model_dirs["unknown"] / "MC.cfg"), "-workers", "cpu"]
-    for fn, own in ((t_main, []), (j_main, ["-no-preflight"])):
+    for fn, own in ((t_main, []), (j_main, [])):
         assert fn(argv + own) == 1
         assert "unknown PROPERTY Eventually" in capsys.readouterr().err

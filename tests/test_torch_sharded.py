@@ -583,7 +583,7 @@ def _journal(path):
 def _both(model_dir, tmp_path, extra):
     """(rc, masked transcript, journal) of the reference and the port."""
     out = {}
-    for name, fn, own in (("ref", j_main, ["-no-preflight"]),
+    for name, fn, own in (("ref", j_main, []),
                           ("port", t_main, ["-workers", "cpu"])):
         d = tmp_path / name
         d.mkdir(exist_ok=True)

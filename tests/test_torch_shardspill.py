@@ -162,7 +162,7 @@ def _run(fn, argv):
 def _both(model_dir, tmp_path, extra):
     """(rc, masked transcript, journal) of the reference and the port."""
     out = {}
-    for name, fn, own in (("ref", j_main, ["-no-preflight"]),
+    for name, fn, own in (("ref", j_main, []),
                           ("port", t_main, ["-workers", "cpu"])):
         d = tmp_path / name
         d.mkdir(exist_ok=True)
@@ -205,7 +205,7 @@ def test_recover_across_packages_through_the_spill_sibling(model_dir,
     """A spilling sharded run stopped by SIGTERM (exit 75) leaves a
     checkpoint with its host-store sibling; the other package's -recover
     restores both and finishes with the FF counts and exit 0."""
-    mains = {"ref": (j_main, ["-no-preflight"]),
+    mains = {"ref": (j_main, []),
              "port": (t_main, ["-workers", "cpu"])}
     p = str(tmp_path / "p")
     base = ["check", str(model_dir / "MC.cfg"), "-noTool", *SMALL,

@@ -30,8 +30,17 @@ or, above 1M distinct states, on the device path (kernels K14, K20, K16),
 a violation's trace from the host oracle, ``-traceExpressions`` over its
 states and ``-coverage`` from the host walker.
 
-The run goes to the card unless ``workers`` is "cpu".  The reference's
-preflight analysis (its jaxpr audits) is not part of the port.
+Before the check each path runs the reference's preflight in its lite
+mode (torchtlc.analysis: the struct spec lints, the unreduced-symmetry
+nudge, the counter-width arithmetic); its findings print as TLC warning
+lines and journal as ``analysis`` events, and an error-severity finding
+aborts the run (``-no-preflight`` skips it).  With ``-sharded N`` a struct
+spec runs on the sharded engine (supervised unless ``-no-auto-grow``); a
+generic spec runs there whenever ``-sharded`` or ``-checkpoint`` is given,
+over one shard without ``-sharded`` (jaxtlc/api.py:868-915), pipelined
+with ``-pipeline``.
+
+The run goes to the card unless ``workers`` is "cpu".
 """
 
 from __future__ import annotations
@@ -91,10 +100,7 @@ def _run_check(args) -> int:
     if args.recover and not args.checkpoint:
         print("Error: -recover requires -checkpoint PATH", file=sys.stderr)
         return 1
-    if args.sharded and (args.sharded & (args.sharded - 1) or
-                         args.sharded > 8):
-        print(f"Error: -sharded {args.sharded}: the shard count must be a "
-              "power of two, at most 8", file=sys.stderr)
+    if not _check_shard_count(args):
         return 1
     device = _device(args)
     try:
@@ -117,6 +123,16 @@ def _run_check(args) -> int:
                               sort_free=_sort_free(args),
                               deferred=_deferred(args),
                               obs_slots=_obs_slots(args)))
+
+    def kubeapi_preflight():
+        from .analysis.preflight import preflight_kubeapi
+
+        return preflight_kubeapi(spec.model, fp_capacity=args.fpcap,
+                                 chunk=args.chunk, queue_capacity=args.qcap)
+
+    rc = _preflight_gate(args, log, kubeapi_preflight)
+    if rc is not None:
+        return rc
     t0 = time.time()
     from .resil.supervisor import EXIT_INTERRUPTED, SlotOverflowError
 
@@ -295,6 +311,55 @@ def _dispatch_sharded(args, spec, log, device):
         spec.model, ShardMesh(args.sharded, device),
         backend=kubeapi_backend(spec.model, coverage=args.coverage),
         **kw), None
+
+
+def _preflight_gate(args, log, build_report):
+    """The preflight before a check (jaxtlc/api.py:553-597): -no-preflight
+    skips it; the findings journal as `analysis` events and print as TLC
+    warning lines (derived views of the same events); a clean preflight is
+    silent.  Returns the nonzero exit code on error-severity findings
+    (after the `final` event), None to proceed.  A lint that raises never
+    blocks a run."""
+    if not args.preflight:
+        return None
+    from .analysis.report import emit_to_journal
+    from .obs.schema import SCHEMA_VERSION
+    from .obs.views import render_tlc_event
+
+    try:
+        report = build_report()
+    except Exception as e:  # a broken lint must never block a run
+        log.msg(1000, f"Preflight analysis skipped: {e}", severity=1)
+        return None
+    journal = getattr(args, "_journal", None)
+
+    def on_event(kind, info):
+        render_tlc_event(log, {"v": SCHEMA_VERSION, "t": time.time(),
+                               "event": kind, **info})
+
+    emit_to_journal(journal, report, on_event=on_event)
+    if report.errors:
+        if journal is not None:
+            journal.event("final", verdict="error", generated=0,
+                          distinct=0, depth=0, queue=0, wall_s=0.0,
+                          interrupted=False)
+        log.msg(1000, "Preflight analysis found error-severity findings; "
+                      "run aborted (-no-preflight to override).",
+                severity=1)
+        _finish_journal(args)
+        return report.exit_code
+    return None
+
+
+def _check_shard_count(args) -> bool:
+    """Whether -sharded N is usable (0, or a power of two up to 8);
+    prints the error when it is not."""
+    if args.sharded and (args.sharded & (args.sharded - 1) or
+                         args.sharded > 8):
+        print(f"Error: -sharded {args.sharded}: the shard count must be a "
+              "power of two, at most 8", file=sys.stderr)
+        return False
+    return True
 
 
 def _sup_opts(args, log):
@@ -484,26 +549,28 @@ STRUCT_UNPORTED = (
     ("coverage", "-coverage on a struct spec (the device coverage plane, "
      "jaxtlc/struct/compile.py build_cov, and its site table) is not "
      "ported yet (ROADMAP Queue A item 11)"),
-    ("sharded", "-sharded on a struct spec (the sharded engine over the "
-     "struct backend) is not ported yet (ROADMAP Queue A item 11)"),
-    ("pipeline", "-pipeline on a struct spec (the pipelined body over the "
-     "struct backend) is not ported yet (ROADMAP Queue A item 11)"),
+    ("pipeline", "-pipeline on a single-device struct run (the pipelined "
+     "body over the struct backend, whose staged block has no raw "
+     "successors for the deferred check) is not ported yet (ROADMAP Queue "
+     "A item 11); -sharded N -pipeline runs"),
     ("spill", "-spill on a struct spec (the host spill tier over the "
      "struct backend) is not ported yet (ROADMAP Queue A item 11)"),
 )
 
 
 def _struct_unported(args) -> list:
-    on = dict(coverage=args.coverage, sharded=bool(args.sharded),
-              pipeline=args.pipeline, spill=args.spill == "on")
+    on = dict(coverage=args.coverage,
+              pipeline=args.pipeline and not args.sharded,
+              spill=args.spill == "on")
     return [msg for flag, msg in STRUCT_UNPORTED if on[flag]]
 
 
 def _run_check_struct(args, spec) -> int:
     """Check a structural-frontend spec (jaxtlc/api.py:982
-    _run_check_struct with _run_check_interp, :1737): the struct backend
-    (kernels K17, K18) on the engine - supervised when -auto-grow (the
-    default) or -checkpoint is in play - the host graph for plain
+    _run_check_struct with _run_check_interp, :1737): the preflight, the
+    struct backend (kernels K17, K18) on the engine - supervised when
+    -auto-grow (the default) or -checkpoint is in play - or with -sharded
+    N on the sharded engine (kernels K21, K18), the host graph for plain
     ``P ~> Q`` PROPERTY lines, and the host oracle's re-run for a
     violation's trace.  Same transcript and exit codes."""
     from .struct import oracle as so
@@ -528,6 +595,8 @@ def _run_check_struct(args, spec) -> int:
         print(f"Error: {', '.join(unsupported)} not supported for "
               "structural-frontend specs yet", file=sys.stderr)
         return 1
+    if not _check_shard_count(args):
+        return 1
     device = _device(args)
     try:
         device_name = _device_name(device)
@@ -542,36 +611,63 @@ def _run_check_struct(args, spec) -> int:
     log.computing_init()
     _open_journal(args, workload=spec.spec_name, device=device_name,
                   params=dict(chunk=args.chunk, queue_capacity=args.qcap,
-                              fp_capacity=args.fpcap, sharded=0,
-                              pipeline=False, frontend="structural",
+                              fp_capacity=args.fpcap, sharded=args.sharded,
+                              pipeline=args.pipeline, frontend="structural",
                               sort_free=_sort_free(args),
                               deferred=_deferred(args), symmetry=False,
                               por=False, obs_slots=_obs_slots(args)))
+
+    def struct_preflight():
+        from .analysis.preflight import preflight_struct
+
+        return preflight_struct(
+            sm, fp_capacity=args.fpcap, chunk=args.chunk,
+            queue_capacity=args.qcap, check_deadlock=spec.check_deadlock)
+
+    rc = _preflight_gate(args, log, struct_preflight)
+    if rc is not None:
+        return rc
     backend = get_backend(sm, spec.check_deadlock)
     t0 = time.time()
     from .resil.supervisor import EXIT_INTERRUPTED, SlotOverflowError
 
+    kw = dict(chunk=args.chunk, queue_capacity=args.qcap,
+              fp_capacity=args.fpcap, obs_slots=_obs_slots(args),
+              sort_free=args.sortfree, deferred=args.deferredinv)
     try:
-        if args.checkpoint or args.autogrow:
+        if args.sharded and (args.checkpoint or args.autogrow):
+            from .resil.supervisor import check_sharded_supervised
+
+            sup = check_sharded_supervised(
+                None, args.sharded, backend=backend,
+                meta_config=struct_meta_config(sm),
+                route_factor=args.routefactor, pipeline=args.pipeline,
+                opts=_sup_opts(args, log), device=device, **kw)
+            r = sup.result
+        elif args.sharded:
+            from .engine.sharded import ShardMesh
+            from .struct.engine import check_struct_sharded
+
+            r, sup = check_struct_sharded(
+                sm, ShardMesh(args.sharded, device),
+                route_factor=args.routefactor,
+                check_deadlock=spec.check_deadlock, pipeline=args.pipeline,
+                **kw), None
+        elif args.checkpoint or args.autogrow:
             from .resil.supervisor import check_supervised
 
             sup = check_supervised(
-                None, chunk=args.chunk, queue_capacity=args.qcap,
-                fp_capacity=args.fpcap, obs_slots=_obs_slots(args),
-                sort_free=args.sortfree, deferred=args.deferredinv,
-                opts=_sup_opts(args, log), device=device,
+                None, opts=_sup_opts(args, log), device=device,
                 fp_index=spec.fp_index, backend=backend,
-                meta_config=struct_meta_config(sm))
+                meta_config=struct_meta_config(sm), **kw)
             r = sup.result
         else:
             from .struct.engine import check_struct
 
             r, sup = check_struct(
-                sm, chunk=args.chunk, queue_capacity=args.qcap,
-                fp_capacity=args.fpcap, fp_index=spec.fp_index,
-                check_deadlock=spec.check_deadlock,
-                obs_slots=_obs_slots(args), sort_free=args.sortfree,
-                deferred=args.deferredinv, device=device), None
+                sm, fp_index=spec.fp_index,
+                check_deadlock=spec.check_deadlock, device=device,
+                **kw), None
     except SlotOverflowError as e:
         log.msg(1000, f"Run stopped: {e}", severity=1)
         _finish_journal(args)
@@ -652,25 +748,48 @@ def _run_check_struct(args, spec) -> int:
     return 13 if liveness_violated else 0
 
 
-# flags of paths the generic frontend does not run yet (exit 2): the
-# reference runs each on its sharded engine over a 1-device mesh
-GEN_UNPORTED = (
-    ("sharded", "-sharded on a generic spec (the sharded engine over the "
-     "generic backend) is not ported yet (ROADMAP Queue A item 12b)"),
-    ("checkpoint", "-checkpoint/-recover on a generic spec (checkpoints of "
-     "the sharded engine over the generic backend) are not ported yet "
-     "(ROADMAP Queue A item 12b)"),
-    ("pipeline", "-pipeline on a generic spec (the pipelined sharded body "
-     "over the generic backend) is not ported yet (ROADMAP Queue A item "
-     "12b)"),
-)
+def _gen_check(args, spec, device):
+    """The safety check of a generic spec (jaxtlc/api.py:868-915): the gen
+    engine unless -sharded or -checkpoint is given (-pipeline alone runs
+    it too), else the sharded engine over the generic backend - over
+    args.sharded shards, or one - with whole-carry checkpoints when
+    -checkpoint is given (the checkpoint's `config` stanza names the spec
+    and its sorted constants)."""
+    from .engine.backend import gen_backend
+    from .engine.sharded import (
+        ShardMesh,
+        check_sharded,
+        check_sharded_with_checkpoints,
+    )
+    from .gen.engine import check_gen
 
+    g = spec.genspec
+    if not (args.sharded or args.checkpoint):
+        return check_gen(g, chunk=args.chunk, queue_capacity=args.qcap,
+                         fp_capacity=args.fpcap, fp_index=spec.fp_index,
+                         check_deadlock=spec.check_deadlock, device=device)
+    mesh = ShardMesh(args.sharded or 1, device)
+    backend = gen_backend(g)
+    if mesh.device != "cpu":
+        from .kernels import ops
 
-def _gen_unported(args) -> list:
-    on = dict(sharded=bool(args.sharded),
-              checkpoint=bool(args.checkpoint or args.recover),
-              pipeline=args.pipeline)
-    return [msg for flag, msg in GEN_UNPORTED if on[flag]]
+        ops.gen_lib(backend.kernels.prog)  # built before the clock
+    kw = dict(chunk=args.chunk, queue_capacity=args.qcap,
+              fp_capacity=args.fpcap, route_factor=args.routefactor,
+              backend=backend, pipeline=args.pipeline,
+              obs_slots=_obs_slots(args), sort_free=args.sortfree,
+              deferred=args.deferredinv)
+    if args.checkpoint:
+        meta_config = {
+            "spec": spec.spec_name,
+            "constants": {k: sorted(v) if isinstance(v, frozenset) else v
+                          for k, v in g.constants.items()},
+        }
+        return check_sharded_with_checkpoints(
+            None, mesh, ckpt_path=args.checkpoint,
+            ckpt_every=args.checkpointevery, resume=args.recover,
+            meta_config=meta_config, **kw)
+    return check_sharded(None, mesh, **kw)
 
 
 def _gen_coverage_lines(spec, g):
@@ -723,32 +842,35 @@ def _gen_trace_text(args, log, g, found):
 
 def _run_check_gen(args, spec) -> int:
     """Check a generic-frontend spec (jaxtlc/api.py:851 _run_check_gen
-    with the parts of _run_check_interp, :1737, that it uses): the gen
-    engine (gen.engine.check_gen, kernel K19) for safety, its PROPERTY
-    lines on the host oracle's graph or, above HOST_PATH_MAX distinct
-    states under wf_next, on the device path (live.check
-    check_leads_to_device), the host oracle's re-run for a violation's
-    trace.  Same transcript, journal and exit codes."""
+    with the parts of _run_check_interp, :1737, that it uses): the
+    preflight, then for safety the gen engine (gen.engine.check_gen,
+    kernel K19) - or, whenever -sharded or -checkpoint is given, the
+    sharded engine over the generic backend (kernels K21, K18; one shard
+    without -sharded; whole-carry checkpoints with -checkpoint, resumed
+    with -recover; pipelined with -pipeline) - its PROPERTY lines on the
+    host oracle's graph or, above HOST_PATH_MAX distinct states under
+    wf_next, on the device path (live.check check_leads_to_device, its
+    fixpoint over the shards with -sharded), the host oracle's re-run for
+    a violation's trace.  Same transcript, journal and exit codes."""
     from .gen import oracle as go
-    from .gen.engine import check_gen
     from .live.check import (
         capture_gen_graph,
         check_leads_to_device,
         use_device_path,
     )
 
-    errs = _gen_unported(args)
-    if errs:
-        for e in errs:
-            print(f"torchtlc: error: {e}", file=sys.stderr)
-        return 2
     unsupported = [flag for flag, on in (
         ("-fpset DiskFPSet", args.fpset != "JaxFPSet"),
         ("-mutation", args.mutation),
+        # the reference's sharded gen engine always checks deadlock
+        ("-nodeadlock with -sharded/-checkpoint",
+         (args.sharded or args.checkpoint) and not spec.check_deadlock),
     ) if on]
     if unsupported:
         print(f"Error: {', '.join(unsupported)} not supported for "
               "generic-frontend specs yet", file=sys.stderr)
+        return 1
+    if not _check_shard_count(args):
         return 1
     g = spec.genspec
     device = _device(args)
@@ -765,15 +887,33 @@ def _run_check_gen(args, spec) -> int:
     log.computing_init()
     _open_journal(args, workload=spec.spec_name, device=device_name,
                   params=dict(chunk=args.chunk, queue_capacity=args.qcap,
-                              fp_capacity=args.fpcap, sharded=0,
-                              pipeline=False, frontend="generic",
+                              fp_capacity=args.fpcap, sharded=args.sharded,
+                              pipeline=args.pipeline, frontend="generic",
                               sort_free=_sort_free(args),
                               deferred=_deferred(args), symmetry=False,
                               por=False, obs_slots=_obs_slots(args)))
+
+    def gen_preflight():
+        from .analysis.preflight import preflight_gen
+
+        return preflight_gen(g, fp_capacity=args.fpcap)
+
+    rc = _preflight_gate(args, log, gen_preflight)
+    if rc is not None:
+        return rc
     t0 = time.time()
-    r = check_gen(g, chunk=args.chunk, queue_capacity=args.qcap,
-                  fp_capacity=args.fpcap, fp_index=spec.fp_index,
-                  check_deadlock=spec.check_deadlock, device=device)
+    from .resil.supervisor import SlotOverflowError
+
+    try:
+        r = _gen_check(args, spec, device)
+    except SlotOverflowError as e:
+        log.msg(1000, f"Run stopped: {e}", severity=1)
+        _finish_journal(args)
+        return 1
+    except FileNotFoundError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        _finish_journal(args)
+        return 1
     n_init = 1  # generic Init is deterministic: one state
     log.init_done(n_init)
     violated = r.violation != 0
@@ -783,14 +923,21 @@ def _run_check_gen(args, spec) -> int:
                                     args.liveness_host)
         log.checking_temporal(r.distinct, "device" if on_device else "host")
         graph = None  # captured once for every property
+        mesh = None
+        if on_device and args.sharded:
+            from .engine.sharded import ShardMesh
+
+            mesh = ShardMesh(args.sharded, device)
         for name, (p_ast, q_ast) in g.properties.items():
             if on_device:
                 if graph is None:
                     graph = capture_gen_graph(
                         g, chunk=args.chunk, state_capacity=args.fpcap,
-                        fp_capacity=args.fpcap, device=device)
+                        fp_capacity=args.fpcap,
+                        spill_path=args.checkpoint or None, device=device)
                 res = check_leads_to_device(g, p_ast, q_ast, name,
-                                            graph=graph, device=device)
+                                            graph=graph, mesh=mesh,
+                                            device=device)
             else:
                 res = go.check_leads_to(g, p_ast, q_ast, name,
                                         fairness=args.fairness)

@@ -138,8 +138,9 @@ def _parser() -> argparse.ArgumentParser:
                         "CHECKPOINT.journal.jsonl with -checkpoint)")
     c.add_argument("-no-preflight", dest="preflight", action="store_false",
                    default=True,
-                   help="accepted for compatibility: the port runs no "
-                        "preflight analysis")
+                   help="skip the preflight analysis (the spec lints, the "
+                        "unreduced-symmetry warning and the counter-width "
+                        "arithmetic that run before every check)")
     c.add_argument("-nodeadlock", action="store_true")
     c.add_argument("-noTool", action="store_true",
                    help="plain text output (no @!@!@ framing)")

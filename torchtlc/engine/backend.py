@@ -60,10 +60,13 @@ class SpecBackend(NamedTuple):
     SpecBackend, jaxtlc/engine/backend.py:50-91).  kernels holds the
     backend's own kernel routes for the expand stage and the deferred
     check - KubeAPI's K1 and K7 (KubeKernels), a struct spec's K17 and K18
-    (struct.backend.StructKernels), a generic spec's K19 (the expand route
-    only: gen.program.GenKernels): the port's counterpart of the
-    reference's step, lane_action and expand override, which those
-    kernels (and their plain versions) implement."""
+    (struct.backend.StructKernels), a generic spec's K19
+    (gen.program.GenKernels) - and for the sharded engine's expand and
+    received-rows check (``expand_sharded``, ``deferred_rows``: K1's and
+    K7's sharded variants, or K21 and K18 on an emitted backend): the
+    port's counterpart of the reference's step, inv_check, lane_action and
+    expand override, which those kernels (and their plain versions)
+    implement."""
 
     cdc: object  # pack / unpack / n_fields / n_words / nbits
     n_lanes: int
@@ -73,7 +76,9 @@ class SpecBackend(NamedTuple):
     labels: tuple  # action id -> display name
     viol_names: dict  # code -> name overrides (VIOLATION_NAMES fallback)
     check_deadlock: bool = True  # TLC's -deadlock switch
-    kernels: object = None  # .expand(block, n, deferred), .deferred(...)
+    # .expand(block, n, deferred), .deferred(...), .expand_sharded(...),
+    # .deferred_rows(...)
+    kernels: object = None
     # the device coverage plane (obs.coverage.CoveragePlane) or None: pure
     # telemetry, so coverage-on results are coverage-off results
     coverage: object = None
@@ -83,9 +88,9 @@ class SpecBackend(NamedTuple):
 def gen_backend(spec, prog=None) -> SpecBackend:
     """Generic-frontend backend (jaxtlc/engine/backend.py:480): the spec's
     compiled program (gen.program.GenProgram, built here unless given)
-    and codec behind the SpecBackend seam, its expand route kernel K19.
-    The liveness enumerator and capture take it; the sharded engine will
-    (ROADMAP Queue A item 12b)."""
+    and codec behind the SpecBackend seam, its routes kernel K19 (the
+    liveness enumerator and capture) and K21 and K18 (the sharded
+    engine)."""
     from ..gen.engine import VIOL_INVARIANT_BASE
     from ..gen.kernel import initial_field_vectors
     from ..gen.program import GenKernels, GenProgram
@@ -109,7 +114,8 @@ def gen_backend(spec, prog=None) -> SpecBackend:
 
 class KubeKernels(NamedTuple):
     """KubeAPI's kernel routes: K1 (expand_block) and K7 (deferred_check),
-    each on a CUDA tensor, its plain version on a CPU tensor."""
+    and the sharded engine's K1 and K7 variants, each on a CUDA tensor,
+    its plain version on a CPU tensor."""
 
     cfg: ModelConfig
 
@@ -120,6 +126,20 @@ class KubeKernels(NamedTuple):
     def deferred(self, ex, is_new_c, c_idx, rows: int):
         return deferred_check(self.cfg, ex.block, is_new_c, c_idx,
                               ex.action, rows)
+
+    def expand_sharded(self, queue, qhead, npop, ck: int,
+                       deferred: bool = False, with_block: bool = False):
+        """The sharded engine's expand: K1's sharded variant."""
+        from .sharded import expand_sharded
+
+        return expand_sharded(self.cfg, queue, qhead, npop, ck, deferred,
+                              with_block)
+
+    def deferred_rows(self, rows_in, fresh, c_idx, rows: int):
+        """The sharded engine's received-rows check: K7's variant."""
+        from .sharded import deferred_check_rows
+
+        return deferred_check_rows(self.cfg, rows_in, fresh, c_idx, rows)
 
 
 def kubeapi_backend(cfg: ModelConfig, coverage: bool = False) -> SpecBackend:

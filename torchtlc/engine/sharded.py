@@ -10,8 +10,10 @@ axis (``ShardCarry``).  One body, all shards in step:
 1. **expand** (every source shard): the pending verdicts of the last body
    are folded first in the pipelined mode (kernel K12); then each shard
    pops up to ``chunk`` rows at ``(qhead + r) % qcap``, and one launch of
-   kernel K1's sharded variant expands the pops of all shards (successors
-   packed and as raw fields), kernel K2 fingerprints them, and kernel K11
+   the backend's sharded expand - kernel K1's sharded variant for
+   KubeAPI, kernel K21 for a struct or generic spec's emitted step -
+   expands the pops of all shards (successors packed and as raw fields,
+   with ``3 + n_inv`` flag rows), kernel K2 fingerprints them, and kernel K11
    routes them: a stable counting sort by owner and the payload scatter
    into the ``[D owner, D source, B]`` exchange planes;
 2. **exchange** (``ShardMesh.exchange``): with the shards in one process
@@ -21,7 +23,8 @@ axis (``ShardCarry``).  One body, all shards in step:
 3. **commit** (every owner): the fp-full test, the insert of the received
    fingerprints (``fpset_insert_dedup``: kernel K3, or the slab path's
    K5/K6/K3, at width ``SRW = min(4*chunk, D*B)``), the deferred
-   invariants of the fresh claimants (kernel K7's received-rows variant),
+   invariants of the fresh claimants (the backend's received-rows check:
+   kernel K7's variant, or K18 on an emitted backend),
    the circular enqueue (kernel K13), the verdict return and fold into the
    source shards' outdegree and per-action distinct counters (kernel K12;
    one body later in the pipelined mode), the violation order (invariants,
@@ -68,8 +71,6 @@ from ..spec.kernel import make_kernel
 from ..spec.labels import LABELS
 from .backend import (
     FLAG_AFAIL,
-    FLAG_BAD_ONLYONE,
-    FLAG_BAD_TYPEOK,
     FLAG_OVF,
     FLAG_VALID,
     OK,
@@ -485,7 +486,9 @@ def make_sharded_engine(
     modes resolve against the per-shard chunk as the reference's do;
     pipeline=True folds each body's verdicts one body later (and runs one
     drain body); obs_slots > 0 carries the per-shard counter ring; a
-    backend with a coverage plane carries ``cov_counts``."""
+    backend with a coverage plane carries ``cov_counts``.  `backend` is any
+    SpecBackend whose kernels have the sharded routes (KubeAPI's, a struct
+    or a generic spec's); `cfg` is only read when it is None."""
     D = mesh.n_shards
     assert D & (D - 1) == 0, "device count must be a power of two"
     assert D <= 8, "the route kernels take at most 8 shards"
@@ -507,9 +510,12 @@ def make_sharded_engine(
     deferred = resolve_deferred(deferred, chunk)
     SRW = min(4 * chunk, DB)
     fp_limit = int(fp_capacity * fp_highwater)
+    kernels = backend.kernels
+    n_inv = len(backend.inv_codes)
     checking = deferred and bool(backend.inv_codes)
     imm_codes = () if deferred else backend.inv_codes
-    imm_flags = (FLAG_BAD_TYPEOK, FLAG_BAD_ONLYONE)
+    # flag row 3 + k: invariant k fails (K1's TypeOK, OnlyOneVersion rows)
+    imm_flags = tuple(range(3, 3 + n_inv))
     rt = route_out_new(D, ncand, B, F, dev)
     shards = torch.arange(D, device=dev)
 
@@ -597,8 +603,8 @@ def make_sharded_engine(
         n = [min(chunk, min(e, t) - q) if h.viol == OK else 0
              for q, t, e in zip(h.qhead, h.qtail, h.level_end)]
         npop = i64(n)
-        packed, flags, action, gen, fields, block = expand_sharded(
-            cfg, c.queue, c.qhead, npop, chunk, deferred,
+        packed, flags, action, gen, fields, block = kernels.expand_sharded(
+            c.queue, c.qhead, npop, chunk, deferred,
             with_block=backend.coverage is not None)
         lo, hi = fp64_words(packed, cdc.nbits, fp_index)
         route(hi, lo, flags[FLAG_VALID], fields, D, B, rt)
@@ -645,8 +651,8 @@ def make_sharded_engine(
                 probe_width=SRW if sort_free else 0, sort_free=sort_free)
             is_new[o, c_idx] = is_new_c  # the slab sentinel lane DB drops
             if checking:
-                d_viol[o], d_state[o] = deferred_check_rows(
-                    cfg, xrows[o].view(DB, F), is_new_c, c_idx,
+                d_viol[o], d_state[o] = kernels.deferred_rows(
+                    xrows[o].view(DB, F), is_new_c, c_idx,
                     SRW if sort_free and not fell else DB)
         is_new = is_new[:, :DB].contiguous()
         cum = torch.cumsum(is_new, 1)
@@ -683,7 +689,7 @@ def make_sharded_engine(
             new_viol = torch.where(hit, dv, new_viol)
             new_vstate = torch.where(hit[:, None], torch.stack(d_state),
                                      new_vstate)
-        fl = flags.view(5, D, ncand)
+        fl = flags.view(3 + n_inv, D, ncand)
         qh = c.qhead
 
         def lane_rows(first):  # the popped row of a lane
@@ -692,8 +698,12 @@ def make_sharded_engine(
         def row_rows(first):
             return c.queue[shards, (qh + first) % qcap]
 
+        # deadlock: a popped state with no valid successor, when the
+        # backend checks it (TLC's -deadlock switch)
         dead = (~fl[FLAG_VALID].view(D, chunk, L).bool().any(2)
                 & (torch.arange(chunk, device=dev)[None] < npop[:, None]))
+        if not backend.check_deadlock:
+            dead = torch.zeros_like(dead)
         fv = fields.view(D, ncand, F)
         cands = [(code, fl[f].bool(), lambda i: fv[shards, i])
                  for code, f in zip(imm_codes, imm_flags)]
@@ -1100,7 +1110,7 @@ def check_sharded(cfg: ModelConfig, mesh: ShardMesh, chunk: int = 512,
     _sync(out)
     return result_from_shard_carry(
         out, time.time() - t0, iterations=run_fn.steps,
-        labels=backend.labels,
+        labels=backend.labels, viol_names=backend.viol_names,
         fp_capacity_total=fp_capacity * mesh.n_shards,
         sites=backend.coverage.sites if backend.coverage else None)
 
@@ -1161,6 +1171,7 @@ def check_sharded_with_checkpoints(
             save_checkpoint(ckpt_path, carry, meta)
     return result_from_shard_carry(
         carry, time.time() - t0, iterations=segments, labels=backend.labels,
+        viol_names=backend.viol_names,
         fp_capacity_total=fp_capacity * mesh.n_shards)
 
 

@@ -17,7 +17,9 @@ on every captured state.
 ``GenKernels`` are the kernel routes: ``step`` is the gen engine's (the
 verdict fold included), ``expand`` the SpecBackend route the liveness
 enumerator and capture take; each runs K19 on a CUDA block and the plain
-version on a CPU block.
+version on a CPU block.  ``expand_sharded`` and ``deferred_rows`` are the
+sharded engine's (kernel K21 over the shards' raw queue rows, kernel K18
+on one owner's received rows; both in the emitted text beside K19).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 
 from ..engine.backend import FLAG_OVF, FLAG_VALID
 from ..struct import lanes
-from ..struct.backend import StructProgram
+from ..struct.backend import EmittedRows, StructProgram
 from ..struct.emit import masks_source
 from .codec import GenCodec
 from .ir import GenSpec
@@ -140,12 +142,10 @@ class GenMasks:
         return ops.gen_state_masks(self, states)
 
 
-class GenKernels:
-    """The generic backend's kernel routes: K19 on CUDA tensors, its plain
-    version on CPU tensors."""
-
-    def __init__(self, prog: GenProgram):
-        self.prog = prog
+class GenKernels(EmittedRows):
+    """The generic backend's kernel routes: K19, and the sharded engine's
+    K21 and K18 on received rows (EmittedRows), on CUDA tensors, their
+    plain versions on CPU tensors."""
 
     def _run(self, block: torch.Tensor, n: int, inv: bool, deadlock: bool):
         if not block.is_cuda:

@@ -8,11 +8,13 @@ functions (``tt_*``) that launch on the stream they are given and return
 ``cudaGetLastError()``; torchtlc/kernels/ops.py loads them with ctypes.
 
 The second route, ``build_struct``, builds one spec's emitted kernels -
-K17 and K18 of a struct spec, K19 of a generic one, K20 of a generic
-spec's temporal operands: the C++ that torchtlc.struct.emit prints around
-a hand-written template (struct_expand.cuh, gen_expand.cuh,
-gen_masks.cuh) goes to ``_build/struct/<digest>/spec.cu``, where the
-digest covers the text, the templates and the flags; nvcc builds it into
+K17 of a struct spec or K19 of a generic one, each with K18 and K21
+(struct_inv_rows.cuh, emitted_sharded.cuh, which both templates
+include), and K20 of a generic spec's temporal operands: the C++ that
+torchtlc.struct.emit prints around a hand-written template
+(struct_expand.cuh, gen_expand.cuh, gen_masks.cuh) goes to
+``_build/struct/<digest>/spec.cu``, where the digest covers the text,
+the templates and the flags; nvcc builds it into
 ``libstruct.so`` for the card, or g++ into ``libstruct_host.so`` for the
 host tests.
 """
@@ -88,7 +90,8 @@ def build(ptxas_report: bool = False) -> BuildInfo:
 
 
 STRUCT_TEMPLATES = ("common.cuh", "struct_prelude.cuh", "struct_codec.cuh",
-                    "struct_expand.cuh", "gen_expand.cuh", "gen_masks.cuh")
+                    "struct_expand.cuh", "gen_expand.cuh", "gen_masks.cuh",
+                    "struct_inv_rows.cuh", "emitted_sharded.cuh")
 HOST_FLAGS = ["-x", "c++", "-O1", "-std=c++17", "-shared", "-fPIC"]
 
 

@@ -183,3 +183,7 @@ extern "C" int host_gen_expand(const void* K, const void* block, int ck,
   return 0;
 }
 #endif
+
+// the kernels both emitted templates share
+#include "struct_inv_rows.cuh"
+#include "emitted_sharded.cuh"

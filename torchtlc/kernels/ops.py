@@ -25,7 +25,7 @@ KERNELS = ("expand", "fp64", "fpset_key", "fpset_probe", "fpset_claim",
            "ring_row", "fpset_member", "coverage_count", "route_scatter",
            "verdict_fold", "shard_enqueue", "edge_capture", "state_masks",
            "survive_sweep", "struct_expand", "struct_inv_rows",
-           "gen_expand", "gen_state_masks")
+           "gen_expand", "gen_state_masks", "emitted_expand_sharded")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -784,9 +784,10 @@ def survive_sweep(src: torch.Tensor, dst: torch.Tensor, D: int,
 
 
 # ---------------------------------------------------------------------------
-# emitted kernels, one library per text: K17 struct_expand and K18
-# struct_inv_rows of a struct spec, K19 gen_expand of a generic spec, K20
-# gen_state_masks of a generic spec's temporal operands
+# emitted kernels, one library per text: K17 struct_expand of a struct
+# spec or K19 gen_expand of a generic spec, each with K18 struct_inv_rows
+# and K21 emitted_expand_sharded; K20 gen_state_masks of a generic spec's
+# temporal operands
 # ---------------------------------------------------------------------------
 
 _EMITTED_LIBS = {}
@@ -810,14 +811,30 @@ def _emitted_lib(text: str, dims_fn: str, signatures, dims):
     return lib_
 
 
+# K18 and K21, which both emitted templates include
+_ROWS_SIGNATURES = (
+    ("tt_struct_inv_rows", [_P, _P, _LL, _P, _P, _P, _I, _P, _P, _P, _P,
+                            _P]),
+    ("tt_emitted_expand_sharded", [_P, _P, _LL, _P, _P, _I, _I, _I, _P, _P,
+                                   _P, _P, _P, _P, _P]),
+)
+
+
 def struct_lib(prog):
-    """The K17/K18 library of a compiled spec (struct.backend.StructProgram),
-    built from its emitted text at first use and loaded once per text."""
+    """The K17/K18/K21 library of a compiled spec
+    (struct.backend.StructProgram), built from its emitted text at first
+    use and loaded once per text."""
     return _emitted_lib(prog.text, "tt_struct_dims", (
         ("tt_struct_expand", [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
-        ("tt_struct_inv_rows", [_P, _P, _LL, _P, _P, _P, _I, _P, _P, _P, _P,
-                                _P])),
+        *_ROWS_SIGNATURES),
         (prog.F, prog.W, prog.L, prog.n_inv, prog.n_labels))
+
+
+def emitted_lib(prog):
+    """The library of an emitted program, struct or generic: each exports
+    K18 and K21."""
+    return gen_lib(prog) if prog.template == "gen_expand.cuh" \
+        else struct_lib(prog)
 
 
 def struct_expand(prog, block: torch.Tensor, n: int, deferred: bool = False):
@@ -844,9 +861,10 @@ def struct_expand(prog, block: torch.Tensor, n: int, deferred: bool = False):
 
 
 def struct_inv_rows(prog, flat: torch.Tensor, fresh: torch.Tensor,
-                    c_idx: torch.Tensor, action: torch.Tensor, rows: int):
+                    c_idx: torch.Tensor, action, rows: int):
     """K18 -> (viol 0-dim int64, state [F] int32, action 0-dim int64); see
-    struct.backend.StructProgram.inv_rows_plain."""
+    struct.backend.StructProgram.inv_rows_plain.  `prog` is a struct or a
+    generic program; action None (received rows) reports -1."""
     from ..struct.backend import VIOL_INVARIANT_BASE
 
     ncand = flat.shape[0]
@@ -856,25 +874,60 @@ def struct_inv_rows(prog, flat: torch.Tensor, fresh: torch.Tensor,
         raise ValueError(f"rows {rows} outside (0, {n}]")
     _need(fresh, "fresh", torch.bool, (n,))
     _need(c_idx, "c_idx", torch.int64, (n,))
-    _need(action, "action", torch.int32, (ncand,))
+    if action is not None:
+        _need(action, "action", torch.int32, (ncand,))
     dev = flat.device
     scratch = torch.full((prog.n_inv + 1,), -1, dtype=torch.int32,
                          device=dev)
     viol = torch.empty((), dtype=torch.int64, device=dev)
     state = torch.empty(prog.F, dtype=torch.int32, device=dev)
     vaction = torch.empty((), dtype=torch.int64, device=dev)
-    _launched("struct_inv_rows", struct_lib(prog).tt_struct_inv_rows(
+    _launched("struct_inv_rows", emitted_lib(prog).tt_struct_inv_rows(
         _ptr(prog.constants(dev)), _ptr(flat), rows, _ptr(fresh),
-        _ptr(c_idx), _ptr(action), VIOL_INVARIANT_BASE, _ptr(scratch),
-        _ptr(viol), _ptr(state), _ptr(vaction), _stream()))
+        _ptr(c_idx), None if action is None else _ptr(action),
+        VIOL_INVARIANT_BASE, _ptr(scratch), _ptr(viol), _ptr(state),
+        _ptr(vaction), _stream()))
     return viol, state, vaction
 
 
+def emitted_expand_sharded(prog, queue: torch.Tensor, qhead: torch.Tensor,
+                           npop: torch.Tensor, ck: int,
+                           deferred: bool = False, with_block: bool = False):
+    """K21 over the pops of all D shards -> (packed [D*ck*L, W] int32,
+    flags [3 + n_inv, D*ck*L] uint8, action [D*ck*L] int32, gen [D,
+    n_labels] int64, fields [D*ck*L, F] int32, block [D*ck, W] int32 or
+    None); see struct.backend.StructProgram.expand_sharded_plain."""
+    D, qrows = queue.shape[0], queue.shape[1]
+    L, F, W = prog.L, prog.F, prog.W
+    _need(queue, "queue", torch.int32, (D, qrows, F))
+    _need(qhead, "qhead", torch.int64, (D,))
+    _need(npop, "npop", torch.int64, (D,))
+    dev = queue.device
+    ncand = D * ck * L
+    packed = torch.empty(ncand, W, dtype=torch.int32, device=dev)
+    flags = torch.empty(3 + prog.n_inv, ncand, dtype=torch.uint8,
+                        device=dev)
+    action = torch.empty(ncand, dtype=torch.int32, device=dev)
+    fields = torch.empty(ncand, F, dtype=torch.int32, device=dev)
+    block = (torch.empty(D * ck, W, dtype=torch.int32, device=dev)
+             if with_block else None)
+    gen = torch.zeros(D, prog.n_labels, dtype=torch.int64, device=dev)
+    _launched("emitted_expand_sharded",
+              emitted_lib(prog).tt_emitted_expand_sharded(
+                  _ptr(prog.constants(dev)), _ptr(queue), qrows, _ptr(qhead),
+                  _ptr(npop), D, ck, int(deferred), _ptr(packed),
+                  _ptr(flags), _ptr(action), _ptr(fields),
+                  None if block is None else _ptr(block), _ptr(gen),
+                  _stream()))
+    return packed, flags, action, gen, fields, block
+
+
 def gen_lib(prog):
-    """The K19 library of a compiled generic spec (gen.program.GenProgram),
-    built from its emitted text at first use."""
+    """The K19/K18/K21 library of a compiled generic spec
+    (gen.program.GenProgram), built from its emitted text at first use."""
     return _emitted_lib(prog.text, "tt_gen_dims", (
-        ("tt_gen_expand", [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),),
+        ("tt_gen_expand", [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
+        *_ROWS_SIGNATURES),
         (prog.F, prog.W, prog.L, prog.n_inv, prog.n_labels))
 
 

@@ -4,8 +4,8 @@ jaxtlc/obs/views.py the `check` command uses).
 ``render_tlc_event`` renders one supervisor event as its TLC
 structured-log banner - the 2200 Progress line, the checkpoint (2195),
 recovery (2196) and regrow (2198) banners, the retry, spill, degrade,
-interrupt and exhaustion messages - so the transcript is a view of the
-journal and cannot disagree with it.  ``interval_rates`` is the per-minute
+interrupt and exhaustion messages, the preflight's finding lines - so the
+transcript is a view of the journal and cannot disagree with it.  ``interval_rates`` is the per-minute
 rate arithmetic of the Progress line.
 """
 
@@ -34,6 +34,16 @@ def render_tlc_event(log, ev: dict, resume_cmd: str = "") -> None:
     if kind == "progress":
         log.progress(ev["depth"], ev["generated"], ev["distinct"],
                      ev["queue"])
+    elif kind == "analysis":
+        log.msg(1000, f"Preflight {ev['severity']} "
+                      f"[{ev['layer']}/{ev['check']}] {ev['subject']}: "
+                      f"{ev['detail']}", severity=1)
+    elif kind == "analysis_summary":
+        if ev["findings"]:
+            log.msg(1000, f"Preflight analysis: {ev['errors']} error(s), "
+                          f"{ev['warnings']} warning(s) "
+                          f"({ev['findings']} finding(s) total).",
+                    severity=1)
     elif kind == "level" and ev.get("counter_overflow"):
         # the ring's sticky COL_OVERFLOW flag: warn once per run
         if not getattr(log, "_warned_counter_overflow", False):

@@ -352,14 +352,17 @@ class ShardedAdapter:
                  meta_config: dict = None, pipeline: bool = False,
                  obs_slots: int = 0, coverage: bool = False,
                  sort_free: bool = None, deferred: bool = None, device=None,
-                 fp_index: int = DEFAULT_FP_INDEX):
+                 fp_index: int = DEFAULT_FP_INDEX, backend=None):
         from ..engine.sharded import ShardMesh
 
         self.cfg = cfg
         self.chunk = chunk
         self.sort_free = resolve_sort_free(sort_free, chunk)
         self.deferred = resolve_deferred(deferred, chunk)
-        self.backend = kubeapi_backend(cfg, coverage=coverage)
+        # KubeAPI's backend for a ModelConfig, else the given one (a struct
+        # spec's, with its meta_config stanza)
+        self.backend = (backend if backend is not None
+                        else kubeapi_backend(cfg, coverage=coverage))
         self.coverage = self.backend.coverage is not None
         self.meta_config = meta_config
         self.fp_highwater = FP_HIGHWATER
@@ -406,7 +409,7 @@ class ShardedAdapter:
     def progress(self, carry):
         from ..engine.sharded import result_from_shard_carry
 
-        r = result_from_shard_carry(carry, 0.0)
+        r = result_from_shard_carry(carry, 0.0, labels=self.backend.labels)
         return r.depth, r.generated, r.distinct, r.queue_left
 
     def obs_rows(self, carry, since: int, params: dict):
@@ -418,8 +421,10 @@ class ShardedAdapter:
 
     def supports_spill(self) -> bool:
         # the spill runtime runs the unpipelined halves; a pipelined
-        # carry's pending verdicts have no spill composition
-        return not self.pipeline
+        # carry's pending verdicts have no spill composition.  The spill
+        # rung of the emitted backends is not ported yet (ROADMAP Queue A
+        # item 11), as on the single-device adapter
+        return not self.pipeline and self.backend.cfg is not None
 
     def build_spill(self, params: dict, store, on_event=None,
                     spill_write_hook=None):
@@ -448,6 +453,7 @@ class ShardedAdapter:
 
         return result_from_shard_carry(
             carry, wall, iterations=segments, labels=self.backend.labels,
+            viol_names=self.backend.viol_names,
             fp_capacity_total=params["fp_capacity"] * self.mesh.n_shards,
             sites=self.cov_sites())
 
@@ -978,15 +984,17 @@ def check_sharded_supervised(
     opts: SupervisorOptions = None,
     device=None,
     fp_index: int = DEFAULT_FP_INDEX,
+    backend=None,
 ) -> SupervisedResult:
     """Supervised sharded exhaustive check over `n_shards` shards on
     `device` (None = the card); capacities PER SHARD
-    (jaxtlc/resil/supervisor.py:1348)."""
+    (jaxtlc/resil/supervisor.py:1348).  `backend` (cfg None, with
+    `meta_config`) runs a struct spec's backend instead of KubeAPI's."""
     adapter = ShardedAdapter(
         cfg, n_shards, chunk=chunk, meta_config=meta_config,
         pipeline=pipeline, obs_slots=obs_slots, coverage=coverage,
         sort_free=sort_free, deferred=deferred, device=device,
-        fp_index=fp_index)
+        fp_index=fp_index, backend=backend)
     return supervise(
         adapter,
         {"queue_capacity": queue_capacity, "fp_capacity": fp_capacity,

@@ -10,7 +10,12 @@ consume.  Its kernel routes are ``StructKernels``:
   the reference composes its expand stage) on a CPU block;
 * ``deferred(ex, is_new_c, c_idx, rows)`` - kernel K18 ``struct_inv_rows``
   over the fresh claimants' raw successors (``ExpandOut.flat``), or its
-  plain version.
+  plain version;
+* ``expand_sharded(queue, qhead, npop, ck, deferred, with_block)`` and
+  ``deferred_rows(rows_in, fresh, c_idx, rows)`` - the sharded engine's
+  routes (``EmittedRows``, shared with the generic backend): kernel K21
+  ``emitted_expand_sharded`` over the D shards' raw queue rows and K18 on
+  one owner's received rows, or their plain versions.
 
 The emitted C++ of the step and the invariants (struct.emit) is built
 into a shared library at the first launch on the card (kernels.build,
@@ -65,6 +70,7 @@ class StructProgram:
         self.n_inv = len(self.inv_outputs)
         self.n_labels = n_labels
         self.lane_action = np.asarray(lane_action, np.int32)
+        self.template = template
         self.text, self.K = spec_source(
             self.step_outputs, self.inv_outputs, n_fields=self.F,
             widths=cdc.widths, n_words=self.W, lane_action=self.lane_action,
@@ -135,15 +141,58 @@ class StructProgram:
         return (self.cdc.pack(flat), flags, action, gen,
                 flat if deferred else None)
 
+    def expand_sharded_plain(self, queue: torch.Tensor, qhead: torch.Tensor,
+                             npop: torch.Tensor, ck: int,
+                             deferred: bool = False,
+                             with_block: bool = False):
+        """Torch version of kernel K21: the pops of all D shards of the
+        sharded engine's raw-field queues [D, qrows, F] (row r of shard d
+        at (qhead[d] + r) % (qrows - 1), live while r < npop[d]) -> (packed
+        [D*ck*L, W] int32, flags [3 + n_inv, D*ck*L] uint8 - valid, afail
+        and ovf masked by validity, the invariant rows zero when deferred
+        - , action [D*ck*L] int32, gen [D, n_labels] int64, fields
+        [D*ck*L, F] int32, the packed popped rows [D*ck, W] or None).  The
+        reference's expand half over an emitted backend
+        (jaxtlc/engine/sharded.py:510-556)."""
+        from ..engine.sharded import popped_rows
+
+        D = queue.shape[0]
+        dev = queue.device
+        rows = popped_rows(queue, qhead, ck).reshape(D * ck, self.F)
+        succ, valid, ovf, afail = self.step_plain(rows)
+        live = (torch.arange(ck, device=dev)[None]
+                < npop[:, None]).reshape(-1)
+        valid = valid & live[:, None]
+        afail = afail & valid
+        ovf = ovf & valid
+        flat = succ.reshape(-1, self.F).to(torch.int32)
+        fvalid = valid.reshape(-1)
+        out = [fvalid, afail.reshape(-1), ovf.reshape(-1)]
+        if deferred:
+            out += [torch.zeros_like(fvalid)] * self.n_inv
+        else:
+            bits = self.inv_bits_plain(flat)
+            out += [fvalid & (((bits >> k) & 1) == 0)
+                    for k in range(self.n_inv)]
+        la = torch.from_numpy(self.lane_action).to(dev)
+        gen = torch.zeros(D, self.n_labels, dtype=torch.int64, device=dev)
+        gen.index_add_(1, la.to(torch.int64),
+                       valid.view(D, ck, self.L).sum(1))
+        return (self.cdc.pack(flat), torch.stack(out).to(torch.uint8),
+                la.repeat(D * ck), gen, flat,
+                self.cdc.pack(rows) if with_block else None)
+
     def inv_rows_plain(self, flat: torch.Tensor, fresh: torch.Tensor,
-                       c_idx: torch.Tensor, action: torch.Tensor, rows: int,
+                       c_idx: torch.Tensor, action, rows: int,
                        code_base: int = VIOL_INVARIANT_BASE):
         """Torch version of kernel K18: the invariants of the fresh
         claimants among the first `rows` rows of an insert's (is_new_c,
-        c_idx), read from their raw successors flat[c_idx].  First wins
-        across the invariants; within one the highest violating lane.
-        Returns (viol 0-dim int64, state [F] int32, action 0-dim int64);
-        (OK, zeros, -1) when every fresh claimant passes."""
+        c_idx), read from their raw successors flat[c_idx] (the expand
+        stage's, or one owner's received rows on the sharded engine).
+        First wins across the invariants; within one the highest violating
+        lane.  Returns (viol 0-dim int64, state [F] int32, action 0-dim
+        int64 - -1 when `action` is None); (OK, zeros, -1) when every
+        fresh claimant passes."""
         dev = flat.device
         lanes_ = c_idx[:rows][fresh[:rows].bool()]
         viol, state, vaction = OK, torch.zeros(self.F, dtype=torch.int32,
@@ -155,7 +204,7 @@ class StructProgram:
                 if bad.any():
                     lane = int(lanes_[bad].max())
                     viol, state = code_base + k, flat[lane].to(torch.int32)
-                    vaction = int(action[lane])
+                    vaction = -1 if action is None else int(action[lane])
                     break
 
         def i64(v):
@@ -164,12 +213,43 @@ class StructProgram:
         return i64(viol), state, i64(vaction)
 
 
-class StructKernels:
-    """The struct backend's kernel routes (SpecBackend.kernels): K17 and
-    K18 on CUDA tensors, their plain versions on CPU tensors."""
+class EmittedRows:
+    """The routes every emitted backend shares (struct and generic): the
+    sharded engine's expand, kernel K21, and the deferred check of received
+    rows, kernel K18 - on CUDA tensors, their plain versions on CPU
+    tensors."""
 
     def __init__(self, prog: StructProgram):
         self.prog = prog
+
+    def expand_sharded(self, queue, qhead, npop, ck: int,
+                       deferred: bool = False, with_block: bool = False):
+        if not queue.is_cuda:
+            return self.prog.expand_sharded_plain(queue, qhead, npop, ck,
+                                                  deferred, with_block)
+        from ..kernels import ops
+
+        return ops.emitted_expand_sharded(self.prog, queue, qhead, npop, ck,
+                                          deferred, with_block)
+
+    def deferred_rows(self, rows_in, fresh, c_idx, rows: int):
+        """-> (viol, state): the fresh claimants' invariants over received
+        rows (no action plane)."""
+        if not rows_in.is_cuda:
+            viol, state, _ = self.prog.inv_rows_plain(rows_in, fresh, c_idx,
+                                                      None, rows)
+        else:
+            from ..kernels import ops
+
+            viol, state, _ = ops.struct_inv_rows(self.prog, rows_in, fresh,
+                                                 c_idx, None, rows)
+        return viol, state
+
+
+class StructKernels(EmittedRows):
+    """The struct backend's kernel routes (SpecBackend.kernels): K17 and
+    K18, and the sharded engine's K21 and K18 on received rows, on CUDA
+    tensors, their plain versions on CPU tensors."""
 
     def expand(self, block: torch.Tensor, n: int, deferred: bool = False):
         if not block.is_cuda:

@@ -6,9 +6,12 @@ KubeAPI path uses (engine.bfs.make_backend_engine): its expand stage is
 kernel K17 and its deferred invariant check kernel K18, everything else -
 fingerprints, the fingerprint set in both dedup modes, the enqueue, the
 counter ring - is the engine's.  Runs on the card unless ``device`` says
-otherwise.  The reference's mesh-sharded struct engine
-(``check_struct_sharded``), the pipelined body and the narrowed, covered
-and reduced engines are not ported yet (ROADMAP Queue A items 11, 13).
+otherwise.  ``check_struct_sharded`` runs the same backend on the sharded
+engine (engine.sharded: D fingerprint-space shards in one process, kernel
+K21 for the emitted step over the shards' raw queue rows and K18 on each
+owner's received rows).  The single-device pipelined body and the
+narrowed, covered and reduced engines are not ported yet (ROADMAP Queue A
+items 11, 13).
 """
 
 from __future__ import annotations
@@ -68,3 +71,35 @@ def check_struct(
         result = result._replace(
             fp_table=carry.fps.table.cpu().numpy().view("uint32"))
     return result
+
+
+def check_struct_sharded(
+    model: StructModel,
+    mesh,
+    chunk: int = 512,
+    queue_capacity: int = 1 << 14,
+    fp_capacity: int = 1 << 18,
+    route_factor: float = 2.0,
+    check_deadlock: bool = True,
+    pipeline: bool = False,
+    obs_slots: int = 0,
+    sort_free: bool = None,
+    deferred: bool = None,
+) -> CheckResult:
+    """Exhaustive sharded check of a struct-compiled spec over `mesh`
+    (engine.sharded.ShardMesh; jaxtlc/struct/engine.py:108): capacities
+    PER SHARD, the modes resolved against the per-shard chunk.  wall_s
+    times the run only: the backend's kernels are built before it."""
+    from ..engine.bfs import resolve_device
+    from ..engine.sharded import check_sharded
+
+    backend = get_backend(model, check_deadlock)
+    if resolve_device(mesh.device).type == "cuda":
+        from ..kernels import ops
+
+        ops.struct_lib(backend.kernels.prog)  # built before the clock
+    return check_sharded(
+        None, mesh, chunk=chunk, queue_capacity=queue_capacity,
+        fp_capacity=fp_capacity, route_factor=route_factor,
+        backend=backend, pipeline=pipeline, obs_slots=obs_slots,
+        sort_free=sort_free, deferred=deferred)
