@@ -67,7 +67,17 @@ and the commands - gen -sharded 4, -checkpoint with sigterm@3 then
 -recover, unpipelined and pipelined, -sharded 4 -pipeline, -pipeline
 alone, struct -sharded 4 and its table regrow, Reconciler-5's Converges
 properties under -sharded 4 - against the reference's pinned transcripts
-(16c).  It checks every
+(16c); then the device coverage plane of struct specs behind kernel K22:
+the three shipped struct models with coverage in both mode sets, the
+site vector pinned to the reference's, K22 bitwise against its plain
+version on a popped block of each (17), TwoPhase-8 with and without
+coverage in turns, K22 beside K17 on a full-width block and on 4 shards
+(17b), TwoPhase-8 pipelined against unpipelined in turns and spilling at a
+2^20-slot table (17c), and the commands - the denied-regrow TwoPhase run
+(the spill rung) on one device and on -sharded 4, -coverage with the
+device dump, -pipeline through SIGTERM and -recover, pinned to the
+reference's transcripts, and -phase-timing on TwoPhase-8 and Model_1
+(17d).  It checks every
 result against its pinned value, holds each kernel bitwise against its
 plain torch version on the card, and prints:
 
@@ -79,8 +89,9 @@ plain torch version on the card, and prints:
   runs, the four pipelined engine runs and the pipelined regrow, the
   sharded command runs, the sharded spill runs, the liveness runs, the
   struct engine and command runs of phases 14-14c, the gen engine and
-  command runs of phases 15-15c and the sharded emitted runs and commands
-  of phases 16-16c;
+  command runs of phases 15-15c, the sharded emitted runs and commands
+  of phases 16-16c and the covered, pipelined, spilling and command runs
+  of phases 17-17d;
   each path's counts are reset just before it and read just after),
   its error against the plain
   version, its time, the plain version's time, its bound on this card
@@ -98,7 +109,8 @@ the pipelined slice alone, ``--phases 12,12b,12c`` the sharded one,
 ``--phases 12d,13,13b,13c`` the sharded spill and liveness slice,
 ``--phases 14,14b,14c`` the struct slice, ``--phases 15,15b,15c`` the
 generic slice, ``--phases 16,16b,16c`` the sharded engine over the
-emitted backends.
+emitted backends, ``--phases 17,17b,17c,17d`` the struct coverage,
+pipeline, spill and phase-timing slice.
 """
 
 from __future__ import annotations
@@ -431,6 +443,14 @@ def main() -> int:
             runs.update(phase_shard16_real(torch, ops, card, runs))
         if want("16c"):
             runs.update(phase_shard16_command(ops, card, runs, tmp))
+        if want("17") or want("17b") or want("17c"):
+            runs.update(phase_cov17(torch, ops, card, runs, tmp))
+        if want("17b"):
+            runs.update(phase_cov17_real(torch, ops, card, runs))
+        if want("17c"):
+            runs.update(phase_struct17c(torch, ops, card, runs))
+        if want("17d"):
+            runs.update(phase_command17(ops, card, runs, tmp, model))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if want("13b"):
@@ -461,8 +481,8 @@ def main() -> int:
                 "gen_r5",) + tuple(
                     f"gen_cmd_{tag}" for tag in GEN_NAMES + ("never", "r5")
                 ) + tuple(k for k, v in runs.items()
-                          if k.startswith("shard16") and isinstance(v, dict)
-                          and "launches" in v)
+                          if k.startswith(("shard16", "p17"))
+                          and isinstance(v, dict) and "launches" in v)
     launches = {k: sum(runs[r]["launches"][k] for r in main)
                 for k in ops.KERNELS}
     kernels = phase_kernels(torch, ops, runs, launches)
@@ -2453,8 +2473,10 @@ def phase_kernels(torch, ops, runs, launches):
                             "jaxtlc/live/check.py:205"),
         "emitted_expand_sharded": ("torchtlc/kernels/csrc/emitted_sharded.cuh",
                                    "jaxtlc/engine/sharded.py:510"),
+        "struct_cov_count": ("torchtlc/kernels/csrc/struct_cov.cuh",
+                             "jaxtlc/struct/compile.py:2224"),
     }
-    for key in ("sharded", "live", "struct", "gen", "shard16"):
+    for key in ("sharded", "live", "struct", "gen", "shard16", "p17"):
         for name, got in runs.get(f"{key}_rows", {}).items():
             rows.setdefault(name, []).extend(got)
         library.update(runs.get(f"{key}_library", {}))
@@ -4007,9 +4029,9 @@ SHARD16_COMMANDS = {
 }
 SHARD16_TRANSCRIPT = {
     "gen_sharded": (13, "1e5a653cbc647e15c466da538494b0b9"
-                       "e66286bb3986eca4a9526a0d4757113e"),
+                        "e66286bb3986eca4a9526a0d4757113e"),
     "gen_sharded_pipe": (13, "eb95808f0342a13225229e8165e6c9f0"
-                            "77af699db2a8a10dbff121b27d577277"),
+                             "77af699db2a8a10dbff121b27d577277"),
     "gen_ckpt": (0, "fc2de2e4afdb8d6cf824dae853b83e4e"
                     "aa85636fcb97e2a25f144972d4aa7a66"),
     "gen_ckpt_recover": (0, "fc2de2e4afdb8d6cf824dae853b83e4e"
@@ -4019,11 +4041,11 @@ SHARD16_TRANSCRIPT = {
     "gen_ckpt_pipe_recover": (0, "fc2de2e4afdb8d6cf824dae853b83e4e"
                                  "aa85636fcb97e2a25f144972d4aa7a66"),
     "struct_sharded": (12, "0bb79f45c02f993ec7b7e2f58aace7e3"
-                          "2b969172bf1ea503b458c594d3651d84"),
+                           "2b969172bf1ea503b458c594d3651d84"),
     "struct_sharded_regrow": (0, "826af8c71b3bca8997739c9ecb59157d"
                                  "f19ff59708796075a26241ceb7ba01e2"),
     "gen_pipeline_alone": (13, "1e5a653cbc647e15c466da538494b0b9"
-                              "e66286bb3986eca4a9526a0d4757113e"),
+                               "e66286bb3986eca4a9526a0d4757113e"),
 }
 
 
@@ -4516,6 +4538,388 @@ def phase_shard16_command(ops, card, runs, tmp):
           f"{launches['gen_expand']}, K14 {launches['edge_capture']}, K16 "
           f"{launches['survive_sweep']} launches; {wall:.1f} s on {card}",
           flush=True)
+    return out
+
+
+
+# ---------------------------------------------------------------------------
+# phases 17-17d: struct -coverage behind kernel K22, the pipelined and the
+# spilling struct runs, -phase-timing and the slice's commands
+# ---------------------------------------------------------------------------
+
+# SHA-256 of the site vector ("key count" lines in site-table order) and
+# the table's size, of the reference's covered check_struct runs on the
+# CPU at phase 14's geometries (the same in the sorted immediate and in the
+# slab deferred modes with obs_slots=64)
+STRUCT_COV_PINS = {
+    "TwoPhase/Model_1": ("03f433214a05fce7fedc415ac3e9a731"
+                         "f82edc74a344d7a0fb1441d65d478ee0", 37),
+    "TwoPhase/Model_sym": ("3cc0ca7112f404a6521681a5fdf8d744"
+                           "21e62e5b47676de4ef4a25a247f2bf78", 37),
+    "RaftReplication/Model_1": ("582597a73f70f005c5dd5ff832255d41"
+                                "4d18e3f35ceee06928dba82f1d5d1140", 36),
+}
+# the same for TwoPhase-8 at TP8_KW in the default modes
+TP8_COV_SHA256 = ("c054b0d7bfd318a01bd36604c48d4451"
+                  "0b83f1eae63030eddc6bb3a1a53ba8b6")
+# the table words of the reference's pipelined TwoPhase-8 run at TP8_KW
+TP8_PIPE_TABLE_SHA256 = ("fb0e5d787dc068a2cee75f3e39f66371"
+                         "9156419307d658f1febb952c3d8a0e39")
+# phase 17c's spilling run: a table that cannot hold the 1,745,408 states
+TP8_SPILL_FPCAP = 1 << 20
+# (exit code, SHA-256 of the cmd17_masked transcript) of `python -m
+# jaxtlc.cli check MC.cfg -noTool -workers cpu <flags>` with
+# JAXTLC_ARTIFACT_CACHE=off, the checkpoint family in a temporary
+# directory (CK) - the reference's CPU runs
+CMD17_SMALL = ["-nodeadlock", "-chunk", "16", "-qcap", "256", "-fpcap", "64",
+               "-faults", "alloc_fail@1"]
+CMD17 = {
+    "denied": ("Model_1", CMD17_SMALL + ["-checkpoint", "CK/d"]),
+    "denied_sharded": ("Model_1", CMD17_SMALL + ["-checkpoint", "CK/s",
+                                                 "-sharded", "4"]),
+    "coverage": ("Model_1", ["-nodeadlock", "-coverage"]),
+    "pipe_term": ("Model_sym", ["-nodeadlock", "-chunk", "16", "-pipeline",
+                                "-checkpoint", "CK/p", "-checkpointevery",
+                                "4", "-faults", "sigterm@3"]),
+    "pipe_recover": ("Model_sym", ["-nodeadlock", "-chunk", "16",
+                                   "-pipeline", "-checkpoint", "CK/p",
+                                   "-checkpointevery", "4", "-recover"]),
+}
+CMD17_TRANSCRIPT = {
+    "denied": (0, "5ac62b785a89ec2f4fda8538bac493bc"
+                  "b0bc54cc9266862bc8bb717d52134145"),
+    "denied_sharded": (0, "ddf10b01bd620af61ca7aab43ef3e4ad"
+                          "1e90e4c1d23b8315cf65f86bed19f321"),
+    "coverage": (0, "1c9e4a665aeb2045e9e9b89e7253392c"
+                    "bdc76ea8512517b821bb2d4c082a56aa"),
+    "pipe_term": (75, "dd7d5a7554becd6634737d6bebe07077"
+                      "d090cca27a6a0b6c1ee09d630b1d560b"),
+    "pipe_recover": (0, "65cfcc04a5c27b1e9652744c8ae89501"
+                        "6acbe45263c21255f36e416ca7108f58"),
+}
+
+
+def site_digest(sites, site_coverage) -> str:
+    return hashlib.sha256("\n".join(
+        f"{s.key} {site_coverage[s.key]}" for s in sites).encode()
+    ).hexdigest()
+
+
+def cmd17_masked(text, cfg, ckdir):
+    """struct_masked with the checkpoint directory masked and the resume
+    hint (which names the program) dropped."""
+    lines = [ln for ln in text.replace(ckdir, "CK").splitlines()
+             if not ln.startswith("Resume with: ")]
+    return struct_masked("\n".join(lines), cfg)
+
+
+def cov17_models(ops, tmp):
+    """The covered struct backends of phases 17-17c - the three shipped
+    models at phase 14's geometries and TwoPhase-8 - with their emitted
+    libraries (K17/K18/K21 and K22) built, one nvcc per text, in
+    parallel: {name: (model, backend, geometry)}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torchtlc.struct.cache import get_backend
+    from torchtlc.struct.loader import load
+
+    d = os.path.join(tmp, "p17")
+    os.makedirs(d, exist_ok=True)
+    _, tp8 = write_struct_models(d)
+    models = {}
+    for name, cfg, kw in _struct_geometries() + [("TwoPhase-8", tp8,
+                                                   TP8_KW)]:
+        m = load(cfg)
+        models[name] = (m, get_backend(m, False, coverage=True), kw)
+    texts = {}
+    for _, b, _ in models.values():
+        texts[b.kernels.prog.text] = (ops.struct_lib, b.kernels.prog)
+        texts[b.kernels.cov.text] = (ops.struct_cov_lib, b.kernels.cov)
+    t0 = time.time()
+    with ThreadPoolExecutor(len(texts)) as pool:
+        list(pool.map(lambda fa: fa[0](fa[1]), texts.values()))
+    print(f"phase 17 build: {len(texts)} emitted libraries (K17/K18/K21, "
+          f"K22) in {time.time() - t0:.1f} s; coverage conditions "
+          + "; ".join(f"{k} {b.kernels.cov.M} conditions, "
+                      f"{b.kernels.cov.stats()['elements']} elements, "
+                      f"{b.kernels.cov.n_sites} sites"
+                      for k, (_, b, _) in models.items()), flush=True)
+    return models
+
+
+def cov17_check(torch, ops, tag, backend, block, n, record=None, reps=20):
+    """K22 bitwise against its plain version on one popped block (the
+    packed rows and K17's valid flags for them); timed into `record`
+    beside K17 (deferred, as the run's default modes) on the same block
+    when given.  Returns (sites the block visits, K22 ms, K17 ms)."""
+    prog, cov = backend.kernels.prog, backend.kernels.cov
+    valid = ops.struct_expand(prog, block, n)[1][0]
+    got = ops.struct_cov_count(cov, block, n, valid)
+    ref = cov.count_plain(block, n, valid)
+    err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+    need(err == 0, f"K22 struct_cov_count differs from its plain version "
+         f"({tag})")
+    fine = got[cov.n_labels:]
+    need(bool((fine != 0).any()), f"K22 ({tag}): no fine site visited")
+    k22_ms = k17_ms = None
+    if record is not None:
+        ck = block.shape[0]
+        k22_ms = cuda_ms(torch, lambda _: ops.struct_cov_count(
+            cov, block, n, valid), reps)
+        k17_ms = cuda_ms(torch, lambda _: ops.struct_expand(
+            prog, block, n, True), reps)
+        # K22 reads the W words of the n live rows alone, the valid flags of
+        # every row of the block, and writes each site once
+        nbytes = n * cov.W * 4 + ck * cov.L + cov.n_sites * 4
+        record("struct_cov_count", tag, err, k22_ms,
+               cuda_ms(torch, lambda _: cov.count_plain(block, n, valid), 2),
+               *gen_bound_ms(nbytes, cov.stats()["elements"] * n))
+    return int((got != 0).sum()), k22_ms, k17_ms
+
+
+def phase_cov17(torch, ops, card, runs, tmp):
+    """Phase 17: check_struct with coverage on TwoPhase Model_1, Model_sym
+    and RaftReplication Model_1 at phase 14's geometries, sorted immediate
+    and slab deferred (ring on): the site vector equal to the reference's
+    CPU run (its digest pinned), counts, per-action counts, outdegree and
+    table words unchanged from the coverage-off pins; K22 bitwise against
+    its plain version on a popped block of each model."""
+    models = cov17_models(ops, tmp)
+    rows = {}
+    record = gen_recorder(rows)
+    out, lines = {}, []
+    for name, _, kw in _struct_geometries():
+        m, backend, _ = models[name]
+        sites = backend.coverage.sites
+        sha, n_sites = STRUCT_COV_PINS[name]
+        need(len(sites) == n_sites, f"{name}: {len(sites)} sites")
+        for mode, modes in (("sorted", SORTED),
+                            ("slab", dict(sort_free=True, deferred=True,
+                                          obs_slots=64))):
+            r, launches = struct_run(ops, m, kw, dict(modes, coverage=True))
+            struct_pinned(f"{name} {mode} coverage", r, STRUCT_PINS[name])
+            need(site_digest(sites, r.site_coverage) == sha,
+                 f"{name} {mode}: the site vector differs from the "
+                 "reference's")
+            need(launches["struct_cov_count"] == r.iterations,
+                 f"{name} {mode}: K22 launches "
+                 f"{launches['struct_cov_count']} != steps {r.iterations}")
+            out[f"p17_{name}_{mode}"] = {"launches": launches}
+            lines.append(f"{name} {mode} {r.iterations} steps "
+                         f"{r.wall_s:.3f} s")
+        half = STRUCT_PINS[name]["counts"][2] // 2
+        block, n, _ = struct_block(torch, backend, kw,
+                                   lambda c, h=half: int(c.level) > h)
+        hit, _, _ = cov17_check(torch, ops, name, backend, block, n,
+                                record if name.startswith("Raft") else None)
+        lines.append(f"{name} K22 block {n} rows, {hit} sites visited")
+    k = rows["struct_cov_count"][-1]
+    print(f"phase 17 coverage: the reference's site vector (sha256 pinned) "
+          f"and the coverage-off pins on every model in both mode sets; K22 "
+          f"bitwise = plain on a popped block of each; " + "; ".join(lines)
+          + f"; RaftReplication block: K22 {k['ms']:.4f} ms (plain "
+          f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.6f} ms by "
+          f"{k['bound_by']}) on {card}", flush=True)
+    out.update(p17_rows=rows, p17_models=models)
+    return out
+
+
+def phase_cov17_real(torch, ops, card, runs):
+    """Phase 17b: TwoPhase-8 at chunk 16,384 (default modes) with and
+    without coverage in turns (off, on, on, off): the reference's counts
+    and table words in both, the site vector of the reference's covered CPU
+    run; K22 and K17 timed on a full-width block, K22 against its bound
+    and plain version; TwoPhase-8 on 4 shards (16b's geometry) with
+    coverage: the summed shard vectors equal the single-device vector."""
+    m, backend, kw = runs["p17_models"]["TwoPhase-8"]
+    rows = runs["p17_rows"]
+    record = gen_recorder(rows)
+    sites = backend.coverage.sites
+    walls = {"off": [], "on": []}
+    vec = None
+    out = {}
+    for which in ("off", "on", "on", "off"):
+        r, launches = struct_run(ops, m, kw, dict(coverage=which == "on"))
+        need((r.generated, r.distinct, r.depth) == TP8_COUNTS,
+             f"TwoPhase-8 coverage {which}: counts")
+        need(r.violation == 0 and struct_digest(r.fp_table)
+             == TP8_TABLE_SHA256, f"TwoPhase-8 coverage {which}: table")
+        if which == "on":
+            need(site_digest(sites, r.site_coverage) == TP8_COV_SHA256,
+                 "TwoPhase-8: the site vector differs from the reference's")
+            need(launches["struct_cov_count"] == r.iterations,
+                 "TwoPhase-8: K22 not once a step")
+            vec = r.site_coverage
+            out["p17b_tp8"] = {"launches": launches}
+        walls[which].append(round(r.wall_s, 4))
+        del r
+        torch.cuda.empty_cache()
+    block, n, _ = struct_block(torch, backend, kw,
+                               lambda c: int(c.qhead) > 0
+                               and int(c.level_n) >= kw["chunk"] * 4)
+    hit, k22_ms, k17_ms = cov17_check(torch, ops, "TwoPhase-8", backend,
+                                      block, n, record, reps=10)
+    carry, r4, launches4, bodies = shard16_run(torch, ops, backend,
+                                               SHARD16_D, TP8_SHARDED_KW)
+    need((r4.generated, r4.distinct, r4.depth) == TP8_COUNTS,
+         "TwoPhase-8 on 4 shards with coverage: counts")
+    summed = (carry.cov_counts.sum(0) & 0xFFFFFFFF).tolist()
+    need(summed == [vec[s.key] & 0xFFFFFFFF for s in sites],
+         "TwoPhase-8 on 4 shards: the summed shard vectors differ from the "
+         "single-device vector")
+    need(launches4["struct_cov_count"] == SHARD16_D * bodies,
+         "TwoPhase-8 on 4 shards: K22 not once a shard a body")
+    out["p17b_tp8_sharded"] = {"launches": launches4}
+    del carry
+    torch.cuda.empty_cache()
+    k = rows["struct_cov_count"][-1]
+    print(f"phase 17b TwoPhase-8 (chunk {kw['chunk']}, slab + deferred): "
+          f"{TP8_COUNTS}, table words = the reference's with and without "
+          f"coverage, the site vector = the reference's ({len(sites)} "
+          f"sites); walls in turns (off, on, on, off): off {walls['off']} "
+          f"s, on {walls['on']} s; full-width block ({n} rows, {hit} sites "
+          f"visited): K22 {k22_ms:.4f} ms (plain {k['plain_ms']:.1f} ms, "
+          f"bound {k['bound_ms']:.5f} ms by {k['bound_by']}) beside K17 "
+          f"{k17_ms:.4f} ms; 4 shards ({TP8_SHARDED_KW['chunk']} rows a "
+          f"shard): {bodies} bodies, {launches4['struct_cov_count']} K22 "
+          f"launches, summed shard vectors = the single-device vector, "
+          f"{r4.wall_s:.3f} s on {card}", flush=True)
+    return out
+
+
+def phase_struct17c(torch, ops, card, runs):
+    """Phase 17c: TwoPhase-8 pipelined against unpipelined in turns
+    (unpipelined, pipelined, pipelined, unpipelined; default modes): the
+    reference's counts, the unpipelined table words of phase 14b's pin and
+    the pipelined ones of the reference's pipelined run; bodies and walls.
+    Then TwoPhase-8 under the supervisor with -spill at -fpcap 2^20, a
+    table that cannot hold its 1,745,408 states: the host store takes the
+    rest (K9 filters each step's candidates); counts, host-store seconds
+    and K9 launches."""
+    from torchtlc.resil.supervisor import SupervisorOptions, check_supervised
+    from torchtlc.struct.backend import struct_meta_config
+    from torchtlc.struct.cache import get_backend
+
+    m, _, kw = runs["p17_models"]["TwoPhase-8"]
+    walls = {"unpipelined": [], "pipelined": []}
+    out = {}
+    for which in ("unpipelined", "pipelined", "pipelined", "unpipelined"):
+        r, launches = struct_run(ops, m, kw,
+                                 dict(pipeline=which == "pipelined"))
+        need((r.generated, r.distinct, r.depth) == TP8_COUNTS,
+             f"TwoPhase-8 {which}: counts")
+        need(r.violation == 0 and struct_digest(r.fp_table) == (
+            TP8_PIPE_TABLE_SHA256 if which == "pipelined"
+            else TP8_TABLE_SHA256), f"TwoPhase-8 {which}: table words")
+        if which == "pipelined" and not walls["pipelined"]:
+            out["p17c_tp8_pipe"] = {"launches": launches}
+        walls[which].append((round(r.wall_s, 4), r.iterations))
+        del r
+        torch.cuda.empty_cache()
+    flushes = []
+    opts = SupervisorOptions(
+        spill="on", ckpt_every=32,
+        on_event=lambda k, i: flushes.append(i)
+        if k == "spill" and i["phase"] == "flush" else None)
+    backend = get_backend(m, False)
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.time()
+    sup = check_supervised(
+        None, chunk=kw["chunk"], queue_capacity=kw["queue_capacity"],
+        fp_capacity=TP8_SPILL_FPCAP, opts=opts, backend=backend,
+        meta_config=struct_meta_config(m))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(ops.LAUNCHES)
+    r = sup.result
+    need((r.generated, r.distinct, r.depth) == TP8_COUNTS,
+         f"TwoPhase-8 spill counts {(r.generated, r.distinct, r.depth)}")
+    need(r.violation == 0 and r.queue_left == 0, "TwoPhase-8 spill verdict")
+    need(sup.spilled > 0 and launches["fpset_member"] > 0,
+         "TwoPhase-8 did not spill")
+    out["p17c_tp8_spill"] = {"launches": launches}
+    print(f"phase 17c TwoPhase-8 pipelined vs unpipelined in turns (wall s, "
+          f"bodies or steps): unpipelined {walls['unpipelined']}, "
+          f"pipelined {walls['pipelined']}; table words = the reference's "
+          f"in both; -spill at fp {TP8_SPILL_FPCAP}: {TP8_COUNTS}, wall "
+          f"{wall:.2f} s, host store {sup.spill_store_s:.2f} s "
+          f"({sum(f['wall_s'] for f in flushes):.2f} s in "
+          f"{sup.spill_flushes} flushes, the rest probes), {sup.spilled} "
+          f"fingerprints spilled, {sup.spill_hits} host hits, K9 "
+          f"{launches['fpset_member']} launches, {sup.segments} segments "
+          f"on {card}", flush=True)
+    return out
+
+
+def phase_command17(ops, card, runs, tmp, m1_cfg):
+    """Phase 17d: `python -m torchtlc.cli check` in this process - the
+    denied-regrow TwoPhase command (the spill rung, exit 0) on one device
+    and on -sharded 4, -coverage on TwoPhase Model_1 with the device dump,
+    -pipeline through SIGTERM (exit 75) and -recover -pipeline on
+    Model_sym - each exit code and transcript equal to the reference's
+    (digests pinned); then -phase-timing -checkpoint P on TwoPhase-8 and on
+    the KubeAPI Model_1 pair: the journal's level rows cover every level,
+    the counts unchanged, the per-level expand and commit sums beside the
+    same command's wall without the flag."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    ckdir = os.path.join(tmp, "ck17")
+    os.makedirs(ckdir)
+    out, lines = {}, []
+    for tag, (model, extra) in CMD17.items():
+        cfg = os.path.join(here, "specs", "TwoPhase.toolbox", model,
+                           "MC.cfg")
+        argv = [cfg, "-noTool"] + [x.replace("CK", ckdir) for x in extra]
+        rc, text, launches, wall = command_here(ops, argv)
+        rc_want, sha_want = CMD17_TRANSCRIPT[tag]
+        need(rc == rc_want, f"command {tag} exited {rc}")
+        sha = hashlib.sha256(cmd17_masked(text, cfg, ckdir).encode()
+                             ).hexdigest()
+        need(sha == sha_want, f"command {tag}: the transcript differs from "
+             "the reference's")
+        if tag.startswith("denied"):
+            need("Capacity ladder [spill] fp_capacity: activate" in text,
+                 f"command {tag}: the spill rung was not taken")
+        if tag == "coverage":
+            need(launches["struct_cov_count"] > 0, "-coverage: K22 never ran")
+        out[f"p17d_{tag}"] = {"launches": launches}
+        lines.append(f"{tag} exit {rc} ({wall:.2f} s)")
+    tp8 = os.path.join(tmp, "p17", "tp8", "MC.cfg")
+    if not os.path.exists(tp8):  # 17d alone
+        os.makedirs(os.path.join(tmp, "p17"), exist_ok=True)
+        write_struct_models(os.path.join(tmp, "p17"))
+    phased = []
+    for tag, cfg, extra, counts in (
+            ("TwoPhase-8", tp8, ["-nodeadlock", "-chunk",
+                                 str(TP8_KW["chunk"]), "-qcap",
+                                 str(TP8_KW["queue_capacity"]), "-fpcap",
+                                 str(TP8_KW["fp_capacity"])], TP8_COUNTS),
+            ("Model_1", m1_cfg, [], M1_COUNTS)):
+        walls = {}
+        for flag in ("-phase-timing", None):
+            ck = os.path.join(ckdir, f"pt_{tag}_{bool(flag)}")
+            argv = [cfg, "-noTool", *extra, "-checkpoint", ck] + (
+                [flag] if flag else [])
+            rc, text, launches, wall = command_here(ops, argv)
+            need(rc == 0 and final_counts(text) == counts,
+                 f"{tag} {flag}: exit {rc}, {final_counts(text)}")
+            walls[flag] = wall
+            if flag:
+                evs = [json.loads(x) for x in open(ck + ".journal.jsonl")]
+                lv = [e for e in evs if e["event"] == "phase"
+                      and e["scope"] == "level"]
+                need({e["index"] for e in lv} == set(range(1, counts[2] + 1)),
+                     f"{tag} -phase-timing: the level rows miss a level")
+                sums = {p: sum(e["wall_s"] for e in lv if e["phase"] == p)
+                        for p in ("expand", "commit")}
+                out[f"p17d_phases_{tag}"] = {"launches": launches}
+        phased.append(f"{tag}: expand {sums['expand']:.3f} s + commit "
+                      f"{sums['commit']:.3f} s over {counts[2]} levels, "
+                      f"fenced command {walls['-phase-timing']:.2f} s, "
+                      f"unfenced {walls[None]:.2f} s")
+    print("phase 17d commands, transcripts = the reference's: "
+          + "; ".join(lines) + "; -phase-timing " + "; ".join(phased)
+          + f" on {card}", flush=True)
     return out
 
 

@@ -164,7 +164,7 @@ FLAG_VALUES = {
     "sharded": ["-sharded", "4"], "fpset": ["-fpset", "DiskFPSet"],
     "symmetry": ["-symmetry"], "por": ["-por"], "simulate": ["-simulate"],
     "infer": ["-infer"], "serve": ["-serve", "8080"],
-    "phasetiming": ["-phase-timing"], "traceout": ["-trace-out", "t.json"],
+    "traceout": ["-trace-out", "t.json"],
     "narrow": ["-narrow"], "analyze": ["-analyze"],
     "traceExpressions": ["-traceExpressions", "te.txt"],
     "xprof": ["-xprof", "prof"], "compilecache": ["-compile-cache", "c"],

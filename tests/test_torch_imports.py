@@ -259,6 +259,80 @@ def test_phases_copy_equals_reference():
         assert tp.segment_phases(*args) == jp.segment_phases(*args)
 
 
+def test_site_dump_copies_equal_reference():
+    """The port's copies of render_site_dump and zero_sites
+    (obs.coverage): line for line, site for site, with and without an
+    order and distinct counts, the `?` group of a site with no action
+    prefix included."""
+    import numpy as np
+
+    from jaxtlc.obs import coverage as jc
+    from torchtlc.obs import coverage as tc
+
+    def table(mod):
+        return tuple(mod.action_site_table("M", ("B", "A"))) + (
+            mod.Site("A.g0", "guard", "A"), mod.Site("B.w0", "effect", "B",
+                                                     "x' :="),
+            mod.Site("?.e0", "quant", "?", "\\E p"))
+
+    counts = np.array([5, 0, 3, 0, 7], np.uint32)
+    for kw in ({}, dict(init_count=2, act_gen={"A": 9},
+                        act_dist={"A": 4, "B": 1}, order=["A", "B"])):
+        assert (tc.render_site_dump(table(tc), counts, "M", "STAMP", **kw)
+                == jc.render_site_dump(table(jc), counts, "M", "STAMP",
+                                       **kw))
+    assert ([tuple(s) for s in tc.zero_sites(table(tc), counts)]
+            == [tuple(s) for s in jc.zero_sites(table(jc), counts)])
+
+
+def test_phase_recorder_copy_equals_reference():
+    """The port's PhaseRecorder (obs.phases): the same rows from the same
+    steps, drained oldest level first, expand before commit, and nothing
+    after a reset."""
+    from jaxtlc.obs import phases as jp
+    from torchtlc.obs import phases as tp
+
+    steps = [(1, 0.25, 0.5), (2, 0.125, 1.0), (2, 0.0625, 0.03125),
+             (3, 1e-7, 2e-7)]
+    rows = []
+    for mod in (tp, jp):
+        rec = mod.PhaseRecorder()
+        for st in steps:
+            rec.step(*st)
+        rows.append(rec.drain())
+        assert rec.drain() == []
+        rec.step(4, 1.0, 1.0)
+        rec.reset()
+        assert rec.drain() == []
+    assert rows[0] == rows[1] and len(rows[0]) == 6
+
+
+def test_cov_collector_copy_equals_reference():
+    """The port's CovCollector (struct.compile): the same site keys,
+    ordinals and table from the same registrations, identity-keyed (one
+    AST node registered twice is one site), and hits recorded only
+    between begin and end."""
+    from jaxtlc.struct.compile import CovCollector as JCov
+    from torchtlc.struct.compile import CovCollector as TCov
+
+    assert TCov._TAG == JCov._TAG
+    a, b, c = ("cmp", 1), ("cmp", 2), ("exists", 3)
+    regs = [("Vote", "guard", a, ""), ("Vote", "guard", b, ""),
+            ("Vote", "guard", a, ""), (None, "quant", c, "\\E r"),
+            ("Vote", "effect", b, "x' :="), ("Vote", "branch", c, "THEN")]
+    out = []
+    for cls in (TCov, JCov):
+        cov = cls()
+        cov.hit(0, "dropped")
+        cov.begin()
+        idxs = [cov.site(*r) for r in regs]
+        for i in idxs:
+            cov.hit(i, f"cond{i}")
+        out.append((idxs, list(cov.sites), cov.end(), cov.active))
+    assert out[0] == out[1]
+    assert out[0][1][2] == ("?.e0", "quant", "?", "\\E r")
+
+
 def test_table_and_ring_constructors_default_to_the_card():
     """fpset_new and ring_new, like the engines, run on the card unless
     the caller names the CPU: without a card the default raises."""

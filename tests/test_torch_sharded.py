@@ -641,13 +641,13 @@ def test_sharded_pipeline_sigterm_then_recover(model_dir, tmp_path):
 @pytest.mark.parametrize("argv,rc,needle", [
     (["-sharded", "3"], 1, "power of two"),
     (["-sharded", "2", "-fairness", "wf_all"], 2, "invalid choice"),
-    (["-phase-timing"], 2, "item 7b"),
 ])
 def test_sharded_flag_errors(model_dir, capsys, argv, rc, needle):
     """A shard count that is not a power of two exits 1, as the reference's
     assertion does; an unknown -fairness exits 2 as argparse's refusal
-    does in the reference, and -phase-timing exits 2 naming the ROADMAP
-    item that ports it."""
+    does in the reference.  (-phase-timing, once refused here, runs:
+    tests/test_torch_phases.py holds it to the reference, ignored under
+    -sharded as there.)"""
     try:
         got = t_main(["check", str(model_dir / "MC.cfg"), "-workers", "cpu",
                       *argv])

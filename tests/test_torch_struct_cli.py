@@ -5,7 +5,9 @@ a clean run, a deadlock, an invariant violation with its trace, a
 violated PROPERTY with its lasso and an auto-regrow, the default
 preflight on in both; -pipeline on a generic-subset spec under -frontend
 auto (the gen engine, as the reference's); every flag of a struct path
-the port does not run yet exits 2 naming its ROADMAP item."""
+the port does not run yet exits 2 naming its ROADMAP item (-coverage,
+-pipeline and -spill run now: tests/test_torch_struct_coverage_cli.py,
+test_torch_struct_pipeline.py, test_torch_struct_spill.py)."""
 
 import contextlib
 import io
@@ -127,9 +129,7 @@ def test_generic_subset_spec_under_auto_exits_2(spec, capsys):
 
 
 STRUCT_REFUSED = [
-    (["-coverage"], "item 11"), (["-narrow"], "item 11"),
-    (["-sharded", "2", "-coverage"], "item 11"), (["-pipeline"], "item 11"),
-    (["-spill"], "item 11"), (["-symmetry"], "item 13"),
+    (["-narrow"], "item 11"), (["-symmetry"], "item 13"),
     (["-por"], "item 13"), (["-simulate"], "item 13"),
     (["-infer"], "item 13"), (["-artifact-cache", "x"], "item 13"),
     (["-traceExpressions", "x.txt"], "item 11"),

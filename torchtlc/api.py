@@ -385,7 +385,7 @@ def _sup_opts(args, log):
         auto_grow=args.autogrow, max_regrow=args.maxregrow,
         retries=args.retry, ckpt_path=args.checkpoint or None,
         ckpt_every=args.checkpointevery, resume=args.recover,
-        spill=args.spill,
+        spill=args.spill, phase_timing=args.phasetiming,
         faults=FaultPlan.parse(args.faults) if args.faults else None,
         on_event=on_event)
 
@@ -543,28 +543,6 @@ TRACE_EXPRESSIONS_UNPORTED = (
     "expression re-evaluation over their states) is not ported yet "
     "(ROADMAP Queue A item 11); generic-frontend specs take it")
 
-# flags of paths the struct frontend does not run yet (exit 2), besides the
-# ones the CLI refuses for every spec
-STRUCT_UNPORTED = (
-    ("coverage", "-coverage on a struct spec (the device coverage plane, "
-     "jaxtlc/struct/compile.py build_cov, and its site table) is not "
-     "ported yet (ROADMAP Queue A item 11)"),
-    ("pipeline", "-pipeline on a single-device struct run (the pipelined "
-     "body over the struct backend, whose staged block has no raw "
-     "successors for the deferred check) is not ported yet (ROADMAP Queue "
-     "A item 11); -sharded N -pipeline runs"),
-    ("spill", "-spill on a struct spec (the host spill tier over the "
-     "struct backend) is not ported yet (ROADMAP Queue A item 11)"),
-)
-
-
-def _struct_unported(args) -> list:
-    on = dict(coverage=args.coverage,
-              pipeline=args.pipeline and not args.sharded,
-              spill=args.spill == "on")
-    return [msg for flag, msg in STRUCT_UNPORTED if on[flag]]
-
-
 def _run_check_struct(args, spec) -> int:
     """Check a structural-frontend spec (jaxtlc/api.py:982
     _run_check_struct with _run_check_interp, :1737): the preflight, the
@@ -572,16 +550,13 @@ def _run_check_struct(args, spec) -> int:
     -auto-grow (the default) or -checkpoint is in play - or with -sharded
     N on the sharded engine (kernels K21, K18), the host graph for plain
     ``P ~> Q`` PROPERTY lines, and the host oracle's re-run for a
-    violation's trace.  Same transcript and exit codes."""
+    violation's trace; with -coverage the device coverage plane (kernel
+    K22) on every route, its end-of-run dump and the dead-site lint.  Same
+    transcript and exit codes."""
     from .struct import oracle as so
     from .struct.backend import struct_meta_config
     from .struct.cache import get_backend
 
-    errs = _struct_unported(args)
-    if errs:
-        for e in errs:
-            print(f"torchtlc: error: {e}", file=sys.stderr)
-        return 2
     sm = spec.structmodel
     system = sm.system
     if args.recover and not args.checkpoint:
@@ -627,7 +602,7 @@ def _run_check_struct(args, spec) -> int:
     rc = _preflight_gate(args, log, struct_preflight)
     if rc is not None:
         return rc
-    backend = get_backend(sm, spec.check_deadlock)
+    backend = get_backend(sm, spec.check_deadlock, coverage=args.coverage)
     t0 = time.time()
     from .resil.supervisor import EXIT_INTERRUPTED, SlotOverflowError
 
@@ -652,14 +627,15 @@ def _run_check_struct(args, spec) -> int:
                 sm, ShardMesh(args.sharded, device),
                 route_factor=args.routefactor,
                 check_deadlock=spec.check_deadlock, pipeline=args.pipeline,
-                **kw), None
+                coverage=args.coverage, **kw), None
         elif args.checkpoint or args.autogrow:
             from .resil.supervisor import check_supervised
 
             sup = check_supervised(
                 None, opts=_sup_opts(args, log), device=device,
                 fp_index=spec.fp_index, backend=backend,
-                meta_config=struct_meta_config(sm), **kw)
+                meta_config=struct_meta_config(sm), pipeline=args.pipeline,
+                **kw)
             r = sup.result
         else:
             from .struct.engine import check_struct
@@ -667,6 +643,7 @@ def _run_check_struct(args, spec) -> int:
             r, sup = check_struct(
                 sm, fp_index=spec.fp_index,
                 check_deadlock=spec.check_deadlock, device=device,
+                coverage=args.coverage, pipeline=args.pipeline,
                 **kw), None
     except SlotOverflowError as e:
         log.msg(1000, f"Run stopped: {e}", severity=1)
@@ -733,9 +710,14 @@ def _run_check_struct(args, spec) -> int:
         names = set(backend.labels)
         order = [n for n in sm.module.def_order if n in names]
         order += [n for n in sorted(names) if n not in order]
-        log.coverage_generic(spec.spec_name, n_init,
-                             {a: r.action_generated.get(a, 0) for a in order},
-                             {a: r.action_distinct.get(a, 0) for a in order})
+        if args.coverage and r.site_coverage is not None:
+            _struct_coverage_dump(args, log, spec, sm, backend, r, n_init,
+                                  order)
+        else:
+            log.coverage_generic(
+                spec.spec_name, n_init,
+                {a: r.action_generated.get(a, 0) for a in order},
+                {a: r.action_distinct.get(a, 0) for a in order})
     log.progress(r.depth, r.generated, r.distinct, r.queue_left)
     log.final_counts(r.generated, r.distinct, r.queue_left)
     log.depth(r.depth)
@@ -746,6 +728,81 @@ def _run_check_struct(args, spec) -> int:
     if violated:
         return 12
     return 13 if liveness_violated else 0
+
+
+def _struct_coverage_dump(args, log, spec, sm, backend, r, n_init: int,
+                          order) -> None:
+    """The device coverage plane's end-of-run dump (jaxtlc/api.py:1112-1127
+    and :1979-2011): MC.out-format lines straight off the carry's counts;
+    an unsupervised run journals its cumulative table as one `coverage`
+    event; then the dead-site lint's events, journaled and rendered."""
+    from .obs.coverage import render_site_dump
+    from .obs.views import render_tlc_event
+
+    plane = backend.coverage
+    counts = [r.site_coverage.get(s.key, 0) for s in plane.sites]
+    log.coverage_site_dump(render_site_dump(
+        plane.sites, counts, plane.module or spec.spec_name,
+        time.strftime("%Y-%m-%d %H:%M:%S"), init_count=n_init,
+        act_gen=r.action_generated, act_dist=r.action_distinct,
+        order=order))
+    j = getattr(args, "_journal", None)
+    if j is not None and not any(e["event"] == "coverage"
+                                 for e in j.events):
+        j.event("coverage",
+                visited=sum(1 for v in r.site_coverage.values() if v),
+                sites=len(r.site_coverage),
+                delta={k: v for k, v in r.site_coverage.items() if v})
+    for info in _struct_dead_sites(sm, plane, counts):
+        if j is not None:
+            ev = j.event("analysis", **info)
+        else:
+            from .obs.schema import SCHEMA_VERSION
+
+            ev = {"v": SCHEMA_VERSION, "t": time.time(),
+                  "event": "analysis", **info}
+        render_tlc_event(log, ev)
+
+
+def _struct_dead_sites(sm, plane, counts) -> list:
+    """The dead-site lint (jaxtlc/api.py:1626-1673): at the final verdict,
+    sites with zero visits are cross-checked against speclint's
+    unreachable-action findings - a statically-REACHABLE site that never
+    fired becomes a warning-severity `analysis` event.  Returns the
+    (layer, check, severity, subject, detail) event dicts."""
+    from .analysis.speclint import analyze_spec
+    from .obs.coverage import zero_sites
+
+    dead = zero_sites(plane.sites, counts)
+    if not dead:
+        return []
+    try:
+        static_dead = {
+            f.subject for f in analyze_spec(sm).findings
+            if f.check == "unreachable-action"
+        }
+    except Exception:  # a broken lint must never block the verdict
+        static_dead = set()
+    events = []
+    reachable_dead = [s for s in dead if s.action not in static_dead]
+    for s in reachable_dead[:20]:
+        what = s.loc or s.kind
+        events.append(dict(
+            layer="spec", check="dead-site", severity="warning",
+            subject=s.key,
+            detail=(f"site never fired in this run ({s.action}: {what})"
+                    " although the action is statically reachable; the"
+                    " configuration may be too small to exercise it"),
+        ))
+    if len(reachable_dead) > 20:
+        events.append(dict(
+            layer="spec", check="dead-site", severity="warning",
+            subject=sm.root_name,
+            detail=(f"{len(reachable_dead) - 20} further zero-visit "
+                    "sites suppressed (see /coverage for the full "
+                    "table)"),
+        ))
+    return events
 
 
 def _gen_check(args, spec, device):

@@ -46,10 +46,6 @@ UNPORTED = {
               "inference plane (ROADMAP Queue A item 13)"),
     "serve": (0, "-serve (the live monitor server) is ported with the "
               "serving plane (ROADMAP Queue A item 13)"),
-    "phasetiming": (False, "-phase-timing (measured per-level expand/commit "
-                    "walls) is not ported yet (ROADMAP Queue A item 7b); "
-                    "until then it is refused in every mode, -pipeline "
-                    "included, where the reference ignores it"),
     "traceout": ("", "-trace-out (the Chrome-trace export) is ported with "
                  "the serving plane (ROADMAP Queue A item 13)"),
     "narrow": (False, "-narrow (the certified narrowed codec of the struct "
@@ -193,7 +189,13 @@ def _parser() -> argparse.ArgumentParser:
                    help="wf_next = the spec's WF_vars(Next); wf_process = "
                         "per-process weak fairness (host path)")
     c.add_argument("-serve", type=int, default=0, metavar="PORT")
-    c.add_argument("-phase-timing", dest="phasetiming", action="store_true")
+    c.add_argument("-phase-timing", dest="phasetiming", action="store_true",
+                   help="measured per-level expand/commit walls: the "
+                        "supervisor swaps the fused segment for a "
+                        "host-fenced step loop built from the same stage "
+                        "closures, journaling `phase` events of scope "
+                        "level (unpipelined single-device runs; ignored "
+                        "elsewhere, as the reference ignores it)")
     c.add_argument("-trace-out", dest="traceout", default="")
     c.add_argument("-xprof", default="")
     c.add_argument("-narrow", dest="narrow", action="store_true",

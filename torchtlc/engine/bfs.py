@@ -207,6 +207,11 @@ class EngineCarry(NamedTuple):
     # reference carries its pre-pack `st_flat` leaf over from the old
     # queue, so interop derives that leaf from these rows
     st_block: torch.Tensor = None
+    # the staged block's pre-pack successor fields ([chunk*L, F] int32):
+    # carried in the deferred mode over an emitted backend, whose deferred
+    # check (K18) reads them at the commit; KubeAPI's K7 derives them
+    # again from the staged rows, so its carries hold None here
+    st_flat: torch.Tensor = None
 
 
 class CheckResult(NamedTuple):
@@ -566,7 +571,9 @@ def make_backend_engine(
     a coverage plane carries ``cov_counts``.  After a run,
     run_fn.steps counts its bodies, run_fn.steps_by_width maps each body
     width to its bodies and run_fn.slab_fallbacks each width to its
-    sorted fallbacks (cumulative over the engine's life)."""
+    sorted fallbacks (cumulative over the engine's life); run_fn.pick(h)
+    returns the unpipelined body's (width, (pop_expand, commit)) for the
+    bundle h, the choice obs.phases.PhasedRuntime fences around."""
     sort_free, deferred = _resolve_modes(chunk, sort_free, deferred, pipeline)
     dev = resolve_device(device)
     cdc = backend.cdc
@@ -582,6 +589,9 @@ def make_backend_engine(
     big_stages = make_stage_pair(backend, chunk, **kw)
     small_stages = make_stage_pair(backend, small, **kw) if small else None
     widths = {chunk: big_stages} | ({small: small_stages} if small else {})
+    # a pipelined deferred carry over an emitted backend stages the raw
+    # successors its deferred check (K18) reads at the commit
+    stage_flat = pipeline and deferred and backend.cfg is None
 
     def i64(v):
         return torch.full((), v, dtype=torch.int64, device=dev)
@@ -633,6 +643,8 @@ def make_backend_engine(
                 st_viol_action=i64(-1))
             if backend.coverage is not None:
                 extra["st_cov"] = zeros(backend.coverage.n_sites)
+            if stage_flat:
+                extra["st_flat"] = zeros(ncand, F)
         return EngineCarry(
             fps=fps, queue=queue, parity=i64(0), qhead=i64(0),
             level_n=i64(n0), next_n=i64(0), level=i64(1), depth=i64(1),
@@ -644,13 +656,16 @@ def make_backend_engine(
             **extra,
         )
 
-    def fused_body(c: EngineCarry, h: Bundle) -> EngineCarry:
-        # break-even: the big body only when the level remainder mostly
-        # fills it
+    def pick(h: Bundle):
+        # (width, stage pair) of the next unpipelined body; break-even:
+        # the big body only when the level remainder mostly fills it
         width = chunk
         if small and h.level_n - h.qhead < chunk // 2:
             width = small
-        pop_expand, commit = widths[width]
+        return width, widths[width]
+
+    def fused_body(c: EngineCarry, h: Bundle) -> EngineCarry:
+        width, (pop_expand, commit) = pick(h)
         run_fn.steps_by_width[width] += 1
         ex, n = pop_expand(c, h)
         return commit(c, ex, n, h.qhead + n, h.qhead + n, h)
@@ -661,7 +676,7 @@ def make_backend_engine(
             packed=c.st_packed, lo=c.st_lo, hi=c.st_hi, valid=c.st_valid,
             action=c.st_action, gen=c.st_gen, viol=c.st_viol,
             viol_words=c.st_viol_state, viol_action=c.st_viol_action,
-            block=staged_block(c, h, chunk), cov=c.st_cov)
+            block=staged_block(c, h, chunk), cov=c.st_cov, flat=c.st_flat)
 
     def with_staged(c: EngineCarry, ex: ExpandOut, n: int) -> EngineCarry:
         # rebinds the expand stage's outputs, which are fresh tensors of
@@ -672,7 +687,8 @@ def make_backend_engine(
             st_hi=ex.hi, st_valid=ex.valid, st_action=ex.action,
             st_gen=ex.gen, st_n=i64(n), st_viol=ex.viol,
             st_viol_state=ex.viol_words, st_viol_action=ex.viol_action,
-            st_cov=ex.cov, st_block=None,
+            st_cov=ex.cov, st_flat=ex.flat if stage_flat else None,
+            st_block=None,
             bundle=h._replace(qhead=h.qhead + n, st_n=n))
 
     def pipelined_body(c: EngineCarry, h: Bundle) -> EngineCarry:
@@ -714,6 +730,7 @@ def make_backend_engine(
     run_fn.steps = 0
     run_fn.steps_by_width = {w: 0 for w in widths}
     run_fn.slab_fallbacks = {w: 0 for w in widths}
+    run_fn.pick = pick
     return init_fn, run_fn, step_fn
 
 

@@ -11,8 +11,9 @@ and the meta's ``devices``) - plus a JSON
 manifest of every leaf, written to a temporary file, fsync'd and renamed.
 So a checkpoint written by either package loads in the other, and a
 resumed run equals an uninterrupted one: the engine is a function of its
-carry.  A pipelined carry converts with its ModelConfig (the `cfg`
-argument of the save and load functions); the meta records ``pipeline``,
+carry.  A pipelined carry converts with its codec (the `codec` argument
+of the save and load functions, or KubeAPI's from the ModelConfig
+`cfg`); the meta records ``pipeline``,
 and a resume in the other mode is refused before any engine is built.
 
 ``check_with_checkpoints`` is the checkpointed driver: the host loop
@@ -98,12 +99,12 @@ def fsync_replace(tmp: str, path: str, f=None) -> None:
         os.close(dirfd)
 
 
-def _leaves(carry, cfg=None, deferred: bool = False) -> list:
+def _leaves(carry, cfg=None, deferred: bool = False, codec=None) -> list:
     """The carry's leaves as numpy arrays in the reference's order: an
     EngineCarry through interop, a dict in sorted key order (a pytree
     dict's order)."""
     if isinstance(carry, EngineCarry):
-        d = carry_to_numpy(carry, cfg=cfg, deferred=deferred)
+        d = carry_to_numpy(carry, cfg=cfg, deferred=deferred, codec=codec)
         return [d[k] for k in LEAF_ORDER if k in d]
     if isinstance(carry, ShardCarry):
         d = shard_carry_to_numpy(carry)
@@ -111,7 +112,8 @@ def _leaves(carry, cfg=None, deferred: bool = False) -> list:
     return [np.asarray(carry[k]) for k in sorted(carry)]
 
 
-def _leaf_specs(carry, cfg=None, deferred: bool = False) -> list:
+def _leaf_specs(carry, cfg=None, deferred: bool = False,
+                codec=None) -> list:
     """[(name, shape, dtype)] of the leaves _leaves(carry) gives, without
     copying the carry off its device."""
     if isinstance(carry, ShardCarry):
@@ -128,11 +130,11 @@ def _leaf_specs(carry, cfg=None, deferred: bool = False) -> list:
     shapes = {}
     if carry.st_n is not None:
         # the leaves the port holds in another form (interop docstring)
-        from ..spec.codec import get_codec
+        from .interop import staged_codec
 
-        F = get_codec(cfg).n_fields
+        F = staged_codec(cfg, codec).n_fields
         shapes["st_viol_state"] = (F,)
-        if deferred:
+        if deferred and carry.st_flat is None:
             shapes["st_flat"] = (carry.st_packed.shape[0], F)
     out = []
     for name in LEAF_ORDER:
@@ -147,12 +149,13 @@ def _leaf_specs(carry, cfg=None, deferred: bool = False) -> list:
     return out
 
 
-def save_checkpoint(path: str, carry, meta: dict, cfg=None) -> None:
+def save_checkpoint(path: str, carry, meta: dict, cfg=None,
+                    codec=None) -> None:
     """Crash-consistent snapshot: leaves as npz + JSON meta with a
     per-leaf CRC32 manifest, through an fsync'd temporary file.  A
-    pipelined carry needs its ModelConfig `cfg`."""
+    pipelined carry needs its `codec` or its ModelConfig `cfg`."""
     arrays = {f"leaf_{i}": a for i, a in enumerate(
-        _leaves(carry, cfg, bool(meta.get("deferred"))))}
+        _leaves(carry, cfg, bool(meta.get("deferred")), codec))}
     manifest = {k: zlib.crc32(np.ascontiguousarray(a).tobytes())
                 for k, a in arrays.items()}
     meta = {**meta, "manifest": manifest}
@@ -172,10 +175,10 @@ def read_checkpoint_meta(path: str) -> dict:
         raise CheckpointCorruptError(f"unreadable checkpoint {path!r}: {e}")
 
 
-def load_checkpoint(path: str, template, cfg=None):
+def load_checkpoint(path: str, template, cfg=None, codec=None):
     """Load + verify a snapshot into the structure of `template` (a carry
     of the same engine geometry, or a dict; a pipelined template needs its
-    ModelConfig `cfg`).  Returns (meta, carry); the carry lands on the
+    `codec` or its ModelConfig `cfg`).  Returns (meta, carry); the carry lands on the
     template's device.  CheckpointCorruptError on a torn file or a CRC
     mismatch, ValueError on a geometry mismatch."""
     if not os.path.exists(path):
@@ -197,7 +200,7 @@ def load_checkpoint(path: str, template, cfg=None):
                 raise CheckpointCorruptError(
                     f"checkpoint {path!r} leaf_{i} CRC mismatch "
                     f"({got} != {want}) - torn write or bit rot")
-    specs = _leaf_specs(template, cfg, bool(meta.get("deferred")))
+    specs = _leaf_specs(template, cfg, bool(meta.get("deferred")), codec)
     if len(leaves) != len(specs):
         raise ValueError(
             f"checkpoint has {len(leaves)} leaves, engine expects "
@@ -214,7 +217,8 @@ def load_checkpoint(path: str, template, cfg=None):
     named = dict(zip((name for name, _, _ in specs), leaves))
     if isinstance(template, EngineCarry):
         return meta, carry_from_numpy(named, device=template.queue.device,
-                                      cfg=cfg)
+                                      cfg=cfg, codec=codec,
+                                      flat=template.st_flat is not None)
     if isinstance(template, ShardCarry):
         return meta, shard_carry_from_numpy(named,
                                             device=template.queue.device)
@@ -240,13 +244,14 @@ def list_generations(base: str):
 
 
 def save_generation(base: str, carry, meta: dict, keep: int = 2,
-                    cfg=None) -> str:
+                    cfg=None, codec=None) -> str:
     """Write the next generation of `base`, then prune to the newest
     `keep` (a generation's host-tier sibling goes with it)."""
     gens = list_generations(base)
     gen = (gens[-1][0] + 1) if gens else 1
     path = generation_path(base, gen)
-    save_checkpoint(path, carry, {**meta, "generation": gen}, cfg=cfg)
+    save_checkpoint(path, carry, {**meta, "generation": gen}, cfg=cfg,
+                    codec=codec)
     for _, old_path in gens[: max(0, len(gens) - (keep - 1))]:
         for victim in (old_path, old_path + ".spill"):
             try:
@@ -256,14 +261,14 @@ def save_generation(base: str, carry, meta: dict, keep: int = 2,
     return path
 
 
-def load_latest_generation(base: str, template, cfg=None):
+def load_latest_generation(base: str, template, cfg=None, codec=None):
     """The newest generation that passes verification: (path, meta,
     carry).  A corrupt file falls back to its predecessor; a geometry
     mismatch raises; FileNotFoundError when none loads."""
     last_err = None
     for _, path in reversed(list_generations(base)):
         try:
-            meta, carry = load_checkpoint(path, template, cfg)
+            meta, carry = load_checkpoint(path, template, cfg, codec)
             return path, meta, carry
         except CheckpointCorruptError as e:
             last_err = e

@@ -11,8 +11,9 @@ spill-mode carry adds ``spill_hits`` (uint32), a covered carry its
 ``cov_counts`` ([n_sites] uint32).
 A pipelined carry adds the staged block (``STAGED``, in the reference's
 dtypes; ``st_cov`` with coverage and, in the deferred mode, ``st_flat``)
-and needs its ModelConfig (`cfg`) both ways, for the two leaves the port
-does not hold in the reference's form:
+and needs its codec both ways (`codec`, or KubeAPI's from its
+ModelConfig `cfg`) for the two leaves the port does not hold in the
+reference's form:
 
 * ``st_viol_state``: the reference's [F] int32 state, zeros when
   ``st_viol`` is OK; the port stages it packed ([W] words), so it is
@@ -25,7 +26,10 @@ does not hold in the reference's form:
   migrated, on that window as it stood in the old queue (``st_block``) -;
   on the way in it is dropped.
   ``unpack(st_packed)`` is not that leaf: it differs on disabled lanes of
-  rows past the level (fields out of their packed range).
+  rows past the level (fields out of their packed range).  A carry that
+  stages the leaf itself (a deferred pipelined carry over an emitted
+  backend, whose deferred check, K18, reads it) writes it verbatim, and
+  ``flat=True`` reads it back.
 
 ``carry_from_numpy(d)`` takes such a
 dict - or any object with those attributes, such as a reference carry whose
@@ -88,14 +92,23 @@ def _get(d, name):
     return np.asarray(v)
 
 
-def _staged_to_numpy(c: EngineCarry, cfg, deferred: bool) -> dict:
+def staged_codec(cfg, codec=None):
+    """The codec a pipelined carry's staged leaves convert with: `codec`,
+    else KubeAPI's of the ModelConfig `cfg`."""
+    if codec is not None:
+        return codec
+    if cfg is None:
+        raise ValueError("a pipelined carry converts with its codec "
+                         "(codec=...) or its ModelConfig (cfg=...)")
     from ..spec.codec import get_codec
+
+    return get_codec(cfg)
+
+
+def _staged_to_numpy(c: EngineCarry, cfg, codec, deferred: bool) -> dict:
     from ..spec.kernel import lane_layout, make_kernel
 
-    if cfg is None:
-        raise ValueError("a pipelined carry converts with its ModelConfig "
-                         "(cfg=...)")
-    cdc = get_codec(cfg)
+    cdc = staged_codec(cfg, codec)
     out = {
         "st_packed": c.st_packed.cpu().numpy().view(np.uint32),
         "st_lo": c.st_lo.cpu().numpy().view(np.uint32),
@@ -111,7 +124,9 @@ def _staged_to_numpy(c: EngineCarry, cfg, deferred: bool) -> dict:
             c.st_viol_state.cpu()[None])[0].numpy().astype(np.int32)
     else:
         out["st_viol_state"] = np.zeros(cdc.n_fields, np.int32)
-    if deferred:
+    if deferred and c.st_flat is not None:
+        out["st_flat"] = c.st_flat.cpu().numpy().astype(np.int32)
+    elif deferred:
         chunk = c.st_packed.shape[0] // lane_layout(cfg)[1]
         if int(c.qhead) == 0 and int(c.level_n) > 0:
             # no body has run (every body leaves the cursor past its pop
@@ -129,9 +144,11 @@ def _staged_to_numpy(c: EngineCarry, cfg, deferred: bool) -> dict:
     return out
 
 
-def carry_to_numpy(c: EngineCarry, cfg=None, deferred: bool = False) -> dict:
+def carry_to_numpy(c: EngineCarry, cfg=None, deferred: bool = False,
+                   codec=None) -> dict:
     """The reference's leaves of a port carry; a pipelined carry needs its
-    `cfg`, and `deferred` adds st_flat."""
+    `codec` or its ModelConfig `cfg`, and `deferred` adds st_flat (derived
+    through `cfg` when the carry does not stage it)."""
     out = {
         "fps": c.fps.table.cpu().numpy().view(np.uint32),
         "queue": c.queue.cpu().numpy().view(np.uint32),
@@ -155,13 +172,15 @@ def carry_to_numpy(c: EngineCarry, cfg=None, deferred: bool = False) -> dict:
         out["cov_counts"] = (c.cov_counts.cpu().numpy() & 0xFFFFFFFF).astype(
             np.uint32)
     if c.st_n is not None:
-        out.update(_staged_to_numpy(c, cfg, deferred))
+        out.update(_staged_to_numpy(c, cfg, codec, deferred))
     return out
 
 
-def carry_from_numpy(d, device=None, cfg=None) -> EngineCarry:
+def carry_from_numpy(d, device=None, cfg=None, codec=None,
+                     flat: bool = False) -> EngineCarry:
     """The port's carry from reference leaves; a pipelined one (with
-    st_n) needs its `cfg`."""
+    st_n) needs its `codec` or its ModelConfig `cfg`, and keeps the
+    st_flat leaf when `flat` (a carry that stages it)."""
     dev = resolve_device(device)
 
     def words(a):  # a copy: the engine updates its carry in place
@@ -185,7 +204,8 @@ def carry_from_numpy(d, device=None, cfg=None) -> EngineCarry:
         vals["cov_counts"] = torch.from_numpy(
             _get(d, "cov_counts").astype(np.int64)).to(dev)
     if _has(d, "st_n"):
-        vals.update(_staged_from_numpy(d, cfg, dev, words))
+        vals.update(_staged_from_numpy(d, staged_codec(cfg, codec), flat,
+                                       dev, words))
     return EngineCarry(
         fps=FPSet(words(_get(d, "fps"))),
         queue=words(_get(d, "queue")),
@@ -195,14 +215,7 @@ def carry_from_numpy(d, device=None, cfg=None) -> EngineCarry:
     )
 
 
-def _staged_from_numpy(d, cfg, dev, words) -> dict:
-    from ..spec.codec import get_codec
-
-    if cfg is None:
-        raise ValueError("a pipelined carry converts with its ModelConfig "
-                         "(cfg=...)")
-    cdc = get_codec(cfg)
-
+def _staged_from_numpy(d, cdc, flat: bool, dev, words) -> dict:
     def t(name, dtype):
         return torch.from_numpy(np.array(_get(d, name)).astype(dtype)).to(dev)
 
@@ -223,6 +236,8 @@ def _staged_from_numpy(d, cfg, dev, words) -> dict:
     }
     if _has(d, "st_cov"):
         out["st_cov"] = words(_get(d, "st_cov"))
+    if flat:
+        out["st_flat"] = t("st_flat", np.int32)
     return out
 
 

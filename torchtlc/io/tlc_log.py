@@ -254,6 +254,15 @@ class TLCLog:
         for ln in lines[1:]:
             self.msg(2772, ln)
 
+    def coverage_site_dump(self, lines) -> None:
+        """The DEVICE coverage plane's end-of-run dump (obs.coverage.
+        render_site_dump lines) in MC.out's message framing: the 2201
+        banner, 2772 action-header lines, 2221 indented span lines -
+        exactly the codes TLC uses for its own coverage section."""
+        self.msg(2201, lines[0])
+        for ln in lines[1:]:
+            self.msg(2221 if ln.startswith("  ") else 2772, ln)
+
     def checking_temporal(self, distinct: int, path: str = "host") -> None:
         """TLC's 2192 liveness-phase banner, naming the liveness engine that
         runs: `host` (explicit graph) or `device` (edge capture and the

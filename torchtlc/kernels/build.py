@@ -10,9 +10,10 @@ functions (``tt_*``) that launch on the stream they are given and return
 The second route, ``build_struct``, builds one spec's emitted kernels -
 K17 of a struct spec or K19 of a generic one, each with K18 and K21
 (struct_inv_rows.cuh, emitted_sharded.cuh, which both templates
-include), and K20 of a generic spec's temporal operands: the C++ that
-torchtlc.struct.emit prints around a hand-written template
-(struct_expand.cuh, gen_expand.cuh, gen_masks.cuh) goes to
+include), K20 of a generic spec's temporal operands and K22 of a struct
+spec's coverage conditions: the C++ that torchtlc.struct.emit prints
+around a hand-written template (struct_expand.cuh, gen_expand.cuh,
+gen_masks.cuh, struct_cov.cuh) goes to
 ``_build/struct/<digest>/spec.cu``, where the digest covers the text,
 the templates and the flags; nvcc builds it into
 ``libstruct.so`` for the card, or g++ into ``libstruct_host.so`` for the
@@ -91,12 +92,13 @@ def build(ptxas_report: bool = False) -> BuildInfo:
 
 STRUCT_TEMPLATES = ("common.cuh", "struct_prelude.cuh", "struct_codec.cuh",
                     "struct_expand.cuh", "gen_expand.cuh", "gen_masks.cuh",
-                    "struct_inv_rows.cuh", "emitted_sharded.cuh")
+                    "struct_inv_rows.cuh", "emitted_sharded.cuh",
+                    "struct_cov.cuh")
 HOST_FLAGS = ["-x", "c++", "-O1", "-std=c++17", "-shared", "-fPIC"]
 
 
 def build_struct(text: str, host: bool = False) -> str:
-    """Build (or find) one emitted library (K17/K18, K19 or K20) from its
+    """Build (or find) one emitted library (K17/K18, K19, K20 or K22) from its
     text: nvcc for sm_90a, or g++ with host=True.  Returns the library
     path; raises with the compiler's output when the build fails."""
     flags = HOST_FLAGS if host else NVCC_FLAGS

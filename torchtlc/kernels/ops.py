@@ -25,7 +25,8 @@ KERNELS = ("expand", "fp64", "fpset_key", "fpset_probe", "fpset_claim",
            "ring_row", "fpset_member", "coverage_count", "route_scatter",
            "verdict_fold", "shard_enqueue", "edge_capture", "state_masks",
            "survive_sweep", "struct_expand", "struct_inv_rows",
-           "gen_expand", "gen_state_masks", "emitted_expand_sharded")
+           "gen_expand", "gen_state_masks", "emitted_expand_sharded",
+           "struct_cov_count")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -974,4 +975,28 @@ def gen_state_masks(masks, states: torch.Tensor) -> torch.Tensor:
     _launched("gen_state_masks", gen_masks_lib(masks).tt_gen_state_masks(
         _ptr(masks.constants(states.device)), _ptr(states), V, _ptr(out),
         _stream()))
+    return out
+
+
+def struct_cov_lib(cov):
+    """The K22 library of a struct spec's coverage conditions
+    (struct.backend.StructCoverage)."""
+    return _emitted_lib(cov.text, "tt_struct_cov_dims", (
+        ("tt_struct_cov_count", [_P, _P, _I, _I, _P, _P, _P]),),
+        (cov.F, cov.W, cov.L, cov.M, cov.n_sites, cov.n_labels))
+
+
+def struct_cov_count(cov, block: torch.Tensor, n: int,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """K22 -> [n_sites] int32 (uint32 words): the site increments of the
+    first n rows of a popped block; see
+    struct.backend.StructCoverage.count_plain.  valid: the expand stage's
+    [ck * L] uint8 lane flags."""
+    ck = block.shape[0]
+    _need(block, "block", torch.int32, (ck, cov.W))
+    _need(valid, "valid", torch.uint8, (ck * cov.L,))
+    out = torch.zeros(cov.n_sites, dtype=torch.int32, device=block.device)
+    _launched("struct_cov_count", struct_cov_lib(cov).tt_struct_cov_count(
+        _ptr(cov.constants(block.device)), _ptr(block), ck, n, _ptr(valid),
+        _ptr(out), _stream()))
     return out

@@ -1,5 +1,6 @@
 """The coverage plane's shared vocabulary (the port's own copy of what it
-uses from jaxtlc/obs/coverage.py:43-140, which imports no jax).
+uses from jaxtlc/obs/coverage.py:43-140 and :177-228, which imports no
+jax).
 
 * ``Site`` / ``CoveragePlane`` - what a SpecBackend exposes: an ordered
   site table plus a per-block ``count`` hook whose ``[n_sites]`` uint32
@@ -10,16 +11,19 @@ uses from jaxtlc/obs/coverage.py:43-140, which imports no jax).
 * ``coverage_delta_event`` / ``coverage_from_events`` - the supervisor
   journals per-segment deltas as ``coverage`` events; folding them back
   gives the cumulative totals.
+* ``render_site_dump`` / ``zero_sites`` - the struct path's end-of-run
+  device dump in MC.out's format, and the dead-site lint's input.
 
 The port's ``CoveragePlane.count`` takes the popped block as the engine
 holds it - ``count(block [ck, W] int32 packed, n, valid [ck*L] uint8)`` -
-and runs kernel K10 on a CUDA tensor (spec.coverage_device); the
-reference's takes the unpacked fields and the pop mask.
+and runs kernel K10 (KubeAPI, spec.coverage_device) or K22 (a struct
+spec, struct.backend.StructCoverage) on a CUDA tensor; the reference's
+takes the unpacked fields and the pop mask.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 
@@ -128,3 +132,62 @@ def coverage_from_events(events) -> Optional[dict]:
         "n_sites": n_sites or len(totals),
         "saturated_at_level": saturated_at,
     }
+
+
+# ---------------------------------------------------------------------------
+# MC.out-format rendering
+# ---------------------------------------------------------------------------
+
+
+def render_site_dump(sites: Sequence[Site], counts,
+                     module: str, stamp: str,
+                     init_count: int = 0,
+                     act_gen: Optional[Dict[str, int]] = None,
+                     act_dist: Optional[Dict[str, int]] = None,
+                     order: Optional[Sequence[str]] = None,
+                     ) -> List[str]:
+    """The end-of-run device coverage dump in MC.out's format/order:
+    the 2201 banner text, one 2772-style action header per action (its
+    prefix "action" site carries the generated count; `act_dist` fills
+    TLC's distinct:generated pair), and one indented span line per
+    fine-grained site under its action, rendered with the site's source
+    loc when the table has one and the stable key otherwise.  Message
+    framing (STARTMSG/ENDMSG) is added by TLCLog.coverage_site_dump."""
+    counts = np.asarray(counts)
+    act_gen = act_gen or {}
+    act_dist = act_dist or {}
+    by_action: Dict[str, List] = {}
+    # header order: the caller's (module-definition / MC.out) order
+    # when given, the site table's otherwise; actions the order list
+    # does not know render after it
+    order = list(order) if order is not None else []
+    for s, c in zip(sites, counts):
+        if s.kind == "action":
+            if s.action not in order:
+                order.append(s.action)
+            continue
+        by_action.setdefault(s.action, []).append((s, int(c)))
+    for s in sites:  # actions that only have fine-grained sites
+        if s.kind != "action" and s.action not in order:
+            order.append(s.action)
+    lines = [f"The coverage statistics at {stamp}"]
+    lines.append(f"<Init of module {module}>: {init_count}:{init_count}")
+    idx = {s.key: i for i, s in enumerate(sites)}
+    for a in order:
+        g = act_gen.get(a)
+        if g is None:
+            i = idx.get(a)
+            g = int(counts[i]) if i is not None else 0
+        d = act_dist.get(a, 0)
+        lines.append(f"<{a} of module {module}>: {d}:{g}")
+        for s, c in by_action.get(a, []):
+            where = s.loc or s.key
+            lines.append(f"  |{where} of module {module}: {c}")
+    return lines
+
+
+def zero_sites(sites: Sequence[Site], counts) -> List[Site]:
+    """Sites with zero cumulative visits (the dead-site lint's input);
+    action-prefix sites included."""
+    counts = np.asarray(counts)
+    return [s for s, c in zip(sites, counts) if int(c) == 0]

@@ -104,8 +104,8 @@ def migrate_engine_carry(carry: EngineCarry, old_params: Dict,
     table and queue.  The staged block's popped rows are rows of the
     current level, which the new queue keeps at the same positions; its
     whole pop window as it stood in the old queue rides along as st_block,
-    from which interop derives the reference's st_flat (the reference
-    carries that leaf over verbatim)."""
+    from which interop derives KubeAPI's st_flat (the reference carries
+    that leaf over verbatim, as the port does over an emitted backend)."""
     dev = carry.queue.device
     chunk = (carry.queue.shape[1] - int(old_params["queue_capacity"])) // 2
     if new_chunk is not None:
@@ -145,7 +145,8 @@ def migrate_engine_carry(carry: EngineCarry, old_params: Dict,
         obs_expanded=copy(carry.obs_expanded),
         spill_hits=copy(carry.spill_hits),
         cov_counts=copy(carry.cov_counts),
-        **{f: copy(getattr(carry, f)) for f in STAGED + ("st_cov",)},
+        **{f: copy(getattr(carry, f))
+           for f in STAGED + ("st_cov", "st_flat")},
         st_block=staged_window(carry, chunk),
     )
 

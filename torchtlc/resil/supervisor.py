@@ -30,7 +30,11 @@ injected transient faults into events:
   totals, so the stream continues across -recover.
 * **Phases.**  Each segment fence ends with two ``phase`` events of scope
   "segment" (obs.phases): the device wall (dispatch to fence) and the
-  host readback wall (progress, ring and coverage reads).
+  host readback wall (progress, ring and coverage reads).  With
+  ``phase_timing`` (``-phase-timing``) an unpipelined single-device run
+  steps through obs.phases.PhasedRuntime instead - the same stage
+  closures, fenced between the halves - and each fence also journals the
+  measured per-level expand/commit walls (scope "level").
 * **The pipelined engine** (``pipeline=True``) runs the same ladder
   without the spill and chunk-shrink rungs: its staged block has no spill
   composition and cannot be re-seated at another pop width.
@@ -152,6 +156,9 @@ class SupervisorOptions:
     spill: str = "auto"
     spill_capacity: int = 1 << 15
     min_chunk: int = MIN_CHUNK
+    # measured per-level expand/commit walls through the host-fenced step
+    # loop (obs.phases.PhasedRuntime), where the adapter supports it
+    phase_timing: bool = False
     # on_event(kind, info): checkpoint / ckpt_write_failed / ckpt_fallback
     # / recovery / regrow / retry / interrupted / progress / level /
     # coverage / phase / segment / spill / degrade / exhausted / final
@@ -291,11 +298,10 @@ class SingleDeviceAdapter:
         return migrate_engine_carry(carry, old_params, new_params)
 
     def supports_spill(self) -> bool:
-        # the spill runtime runs the unpipelined stages; a pipelined
-        # carry's staged block has no spill composition (the ladder
-        # degrades those runs to the next rung instead).  The struct
-        # backend's spill rung is not ported yet (ROADMAP Queue A item 11)
-        return not self.pipeline and self.backend.cfg is not None
+        # the spill runtime runs the unpipelined stages of any backend; a
+        # pipelined carry's staged block has no spill composition (the
+        # ladder degrades those runs to the next rung instead)
+        return not self.pipeline
 
     def build_spill(self, params: dict, store, on_event=None,
                     spill_write_hook=None):
@@ -309,6 +315,24 @@ class SingleDeviceAdapter:
             deferred=self.deferred, store=store, on_event=on_event,
             spill_write_hook=spill_write_hook, device=self.device,
             fp_index=self.fp_index)
+
+    def supports_phase_timing(self) -> bool:
+        # fencing the pipelined body would serialize the overlap it exists
+        # to create; the segment-scope rows still apply there
+        return not self.pipeline
+
+    def build_phased(self, params: dict, ckpt_every: int, recorder):
+        """(template, seg_fn) through obs.phases.PhasedRuntime: the
+        host-fenced expand/commit step loop with measured per-level walls,
+        the fused segment's carry step for step."""
+        from ..obs.phases import PhasedRuntime
+
+        rt = PhasedRuntime(
+            self.backend, self.chunk, params["queue_capacity"],
+            params["fp_capacity"], obs_slots=self.obs_slots,
+            sort_free=self.sort_free, deferred=self.deferred,
+            device=self.device, fp_index=self.fp_index, recorder=recorder)
+        return rt.init_fn(), rt.segment_fn(ckpt_every)
 
     def can_shrink(self, floor: int = MIN_CHUNK) -> bool:
         # the staged block is chunk-shaped: a pipelined carry is never
@@ -420,11 +444,10 @@ class ShardedAdapter:
             fp_capacity_total=params["fp_capacity"] * self.mesh.n_shards)
 
     def supports_spill(self) -> bool:
-        # the spill runtime runs the unpipelined halves; a pipelined
-        # carry's pending verdicts have no spill composition.  The spill
-        # rung of the emitted backends is not ported yet (ROADMAP Queue A
-        # item 11), as on the single-device adapter
-        return not self.pipeline and self.backend.cfg is not None
+        # the spill runtime runs the unpipelined halves of any backend
+        # (K1 and K7, or K21 and K18 on received rows); a pipelined
+        # carry's pending verdicts have no spill composition
+        return not self.pipeline
 
     def build_spill(self, params: dict, store, on_event=None,
                     spill_write_hook=None):
@@ -483,7 +506,7 @@ def _emit(opts: SupervisorOptions, kind: str, **info) -> None:
 
 
 def _resume(adapter, params: dict, opts: SupervisorOptions,
-            make_spill_runtime):
+            make_spill_runtime, build):
     """Load the newest verifiable checkpoint of the family ckpt_path
     (generations first, then the plain file), rebuilding the engine with
     the recorded geometry; a checkpoint whose meta records an active
@@ -520,9 +543,10 @@ def _resume(adapter, params: dict, opts: SupervisorOptions,
             template = spill_rt.init_fn()
             seg_fn = spill_rt.segment_fn(opts.ckpt_every)
         else:
-            template, seg_fn = adapter.build(new_params, opts.ckpt_every)
+            template, seg_fn = build(new_params)
         try:
-            _, carry = ckpt.load_checkpoint(path, template, adapter.cfg)
+            _, carry = ckpt.load_checkpoint(path, template, adapter.cfg,
+                                            adapter.backend.cdc)
         except ckpt.CheckpointCorruptError as e:
             last_err = e
             _emit(opts, "ckpt_fallback", path=path, error=str(e))
@@ -580,6 +604,22 @@ def supervise(adapter, params: dict,
         return adapter.build_spill(p, store, on_event=emit_info,
                                    spill_write_hook=faults.spill_write)
 
+    # -phase-timing: measured per-level expand/commit walls through the
+    # host-fenced step loop, where the adapter supports it (unpipelined
+    # single-device); every run gets the segment-scope rows regardless
+    phase_rec = None
+    if (opts.phase_timing
+            and callable(getattr(adapter, "build_phased", None))
+            and adapter.supports_phase_timing()):
+        from ..obs.phases import PhaseRecorder
+
+        phase_rec = PhaseRecorder()
+
+    def build_engine(p):
+        if phase_rec is not None:
+            return adapter.build_phased(p, opts.ckpt_every, phase_rec)
+        return adapter.build(p, opts.ckpt_every)
+
     def rebuild(p):
         """(template, seg_fn) for geometry p in the current mode."""
         nonlocal spill_rt
@@ -590,18 +630,18 @@ def supervise(adapter, params: dict,
             spill_rt.probes = old.probes
             spill_rt.store_s = old.store_s
             return spill_rt.init_fn(), spill_rt.segment_fn(opts.ckpt_every)
-        return adapter.build(p, opts.ckpt_every)
+        return build_engine(p)
 
     if opts.resume:
         if not opts.ckpt_path:
             raise ValueError("resume requires a checkpoint path")
         params, template, seg_fn, carry, path, spill_rt = _resume(
-            adapter, params, opts, make_spill_runtime)
+            adapter, params, opts, make_spill_runtime, build_engine)
         prog = adapter.progress(carry)
         _emit(opts, "recovery", path=path, depth=prog[0],
               generated=prog[1], distinct=prog[2], queue=prog[3])
     else:
-        template, seg_fn = adapter.build(params, opts.ckpt_every)
+        template, seg_fn = build_engine(params)
         carry = template
     t0 = time.time()
 
@@ -617,7 +657,8 @@ def supervise(adapter, params: dict,
                              "capacity": int(store_snap.table.shape[0])}
         path = ckpt.save_generation(opts.ckpt_path, carry_to_save, meta,
                                     keep=opts.keep_generations,
-                                    cfg=adapter.cfg)
+                                    cfg=adapter.cfg,
+                                    codec=adapter.backend.cdc)
         heads = [(path, opts.ckpt_path)]
         if spill_rt is not None and store_snap is not None:
             from ..engine.spill import save_snapshot, spill_sibling
@@ -694,6 +735,10 @@ def supervise(adapter, params: dict,
             while True:
                 try:
                     faults.segment_start(segments)
+                    if phase_rec is not None:
+                        # a replayed segment re-measures; timings of the
+                        # failed attempt must not double-count
+                        phase_rec.reset()
                     t_dispatch = time.time()
                     carry2 = seg_fn(clone_carry(good))
                     flush_save()
@@ -723,7 +768,8 @@ def supervise(adapter, params: dict,
                             opts.ckpt_path):
                         try:
                             _, _, good = ckpt.load_latest_generation(
-                                opts.ckpt_path, template, adapter.cfg)
+                                opts.ckpt_path, template, adapter.cfg,
+                                adapter.backend.cdc)
                         except FileNotFoundError:
                             pass
 
@@ -884,6 +930,9 @@ def supervise(adapter, params: dict,
             for row in segment_phases(segments - 1, t_fence - t_dispatch,
                                       readback_s=time.time() - t_readback):
                 _emit(opts, "phase", **row)
+            if phase_rec is not None:
+                for row in phase_rec.drain():
+                    _emit(opts, "phase", **row)
 
         if interrupted:
             pending_save = None  # superseded by the final generation

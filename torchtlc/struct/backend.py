@@ -17,13 +17,18 @@ consume.  Its kernel routes are ``StructKernels``:
   ``emitted_expand_sharded`` over the D shards' raw queue rows and K18 on
   one owner's received rows, or their plain versions.
 
+With ``coverage=True`` the backend also carries the device coverage plane
+(``StructCoverage``): the site table of the reference (the per-action
+prefix, then the walk's sites in registration order) and a ``count`` that
+runs kernel K22 ``struct_cov_count`` on a CUDA block, its plain version
+on a CPU block.
+
 The emitted C++ of the step and the invariants (struct.emit) is built
 into a shared library at the first launch on the card (kernels.build,
 ``_build/struct/<digest>/``); the constant tables are uploaded to the
 card once per backend and device.  Lane labels come from one IR build:
-no data run.  The reference's narrowed codec (``-narrow``), device
-coverage plane and symmetry/POR reduction are not ported yet (ROADMAP
-Queue A items 11, 13).
+no data run.  The reference's narrowed codec (``-narrow``) and
+symmetry/POR reduction are not ported yet (ROADMAP Queue A items 11, 13).
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from ..engine.backend import OK, VIOL_ASSERT, SpecBackend
 from . import lanes
 from .codec import StructCodec
 from .compile import LaneCompiler
-from .emit import spec_source
+from .emit import cov_source, spec_source
 from .loader import StructModel
 from .shapes import infer_shapes, typeok_hints
 
@@ -53,7 +58,21 @@ def struct_viol_names(model: StructModel) -> Dict[int, str]:
     return names
 
 
-class StructProgram:
+class _Constants:
+    """The constant table K of an emitted text, uploaded once per
+    device."""
+
+    def constants(self, device) -> torch.Tensor:
+        """K on `device` (uploaded once per device)."""
+        key = str(device)
+        t = self._K_dev.get(key)
+        if t is None:
+            t = torch.from_numpy(self.K).to(device)
+            self._K_dev[key] = t
+        return t
+
+
+class StructProgram(_Constants):
     """A compiled spec: the lane-IR graphs of its step and invariants,
     their torch evaluation (the plain versions) and the emitted C++ with
     its constant table."""
@@ -76,15 +95,6 @@ class StructProgram:
             widths=cdc.widths, n_words=self.W, lane_action=self.lane_action,
             n_labels=n_labels, title=title, template=template)
         self._K_dev: Dict[str, torch.Tensor] = {}
-
-    def constants(self, device) -> torch.Tensor:
-        """K on `device` (uploaded once per device)."""
-        key = str(device)
-        t = self._K_dev.get(key)
-        if t is None:
-            t = torch.from_numpy(self.K).to(device)
-            self._K_dev[key] = t
-        return t
 
     def stats(self) -> dict:
         """Sizes of the step and invariant graphs (lanes.stats)."""
@@ -249,7 +259,12 @@ class EmittedRows:
 class StructKernels(EmittedRows):
     """The struct backend's kernel routes (SpecBackend.kernels): K17 and
     K18, and the sharded engine's K21 and K18 on received rows, on CUDA
-    tensors, their plain versions on CPU tensors."""
+    tensors, their plain versions on CPU tensors; `cov` is the coverage
+    plane's StructCoverage (K22) when the backend carries one."""
+
+    def __init__(self, prog: StructProgram, cov=None):
+        super().__init__(prog)
+        self.cov = cov
 
     def expand(self, block: torch.Tensor, n: int, deferred: bool = False):
         if not block.is_cuda:
@@ -266,6 +281,69 @@ class StructKernels(EmittedRows):
 
         return ops.struct_inv_rows(self.prog, ex.flat, is_new_c, c_idx,
                                    ex.action, rows)
+
+
+class StructCoverage(_Constants):
+    """The coverage conditions of a compiled struct spec (build_cov's lane
+    IR), their torch evaluation (the plain version of kernel K22) and the
+    emitted C++ around torchtlc/kernels/csrc/struct_cov.cuh."""
+
+    def __init__(self, conds, cond_sites, cdc: StructCodec,
+                 lane_action: np.ndarray, n_labels: int, n_sites: int,
+                 title: str):
+        self.conds = tuple(conds)
+        self.cond_sites = np.asarray(cond_sites, np.int64)
+        self.cdc = cdc
+        self.F = cdc.n_fields
+        self.W = cdc.n_words
+        self.lane_action = np.asarray(lane_action, np.int32)
+        self.L = len(self.lane_action)
+        self.M = len(self.conds)
+        self.n_labels = n_labels
+        self.n_sites = n_sites
+        self.text, self.K = cov_source(
+            self.conds, self.cond_sites, n_sites=n_sites, n_fields=self.F,
+            widths=cdc.widths, n_words=self.W, lane_action=self.lane_action,
+            n_labels=n_labels, title=title)
+        self._K_dev: Dict[str, torch.Tensor] = {}
+
+    def stats(self) -> dict:
+        """Size of the conditions' graph (lanes.stats)."""
+        return dict(conditions=self.M, **lanes.stats(self.conds))
+
+    def count_plain(self, block: torch.Tensor, n: int,
+                    valid: torch.Tensor) -> torch.Tensor:
+        """Torch version of kernel K22: block [ck, W] packed rows, valid
+        [ck*L] uint8 -> [n_sites] int32 (uint32 words).  The action prefix
+        is each action's valid lanes over every row; then each condition,
+        evaluated by torch, counts the rows below n where it holds (the
+        reference's stack, masked matvec and index-add), in int64 masked
+        to 32 bits."""
+        ck = block.shape[0]
+        dev = block.device
+        out = torch.zeros(self.n_sites, dtype=torch.int64, device=dev)
+        la = torch.from_numpy(self.lane_action).to(dev, torch.int64)
+        out.index_add_(0, la, valid.view(ck, self.L).to(torch.int64).sum(0))
+        if self.M:
+            mask = (torch.arange(ck, device=dev) < n).to(torch.int64)
+            cols = lanes.evaluate(self.conds, self.cdc.unpack(block))
+            stack = torch.stack([c.reshape(-1).expand(ck) for c in cols])
+            sums = (stack.to(torch.int64) * mask).sum(1)
+            out.index_add_(0, torch.from_numpy(self.cond_sites).to(dev),
+                           sums)
+        out &= 0xFFFFFFFF
+        return torch.where(out >= 1 << 31, out - (1 << 32),
+                           out).to(torch.int32)
+
+    def count(self, block: torch.Tensor, n: int,
+              valid: torch.Tensor) -> torch.Tensor:
+        """The coverage plane's count: K22 on a CUDA block, the plain
+        version on a CPU block."""
+        if not block.is_cuda:
+            return self.count_plain(block, n, valid)
+        from ..kernels import ops
+
+        return ops.struct_cov_count(self, block, n, valid)
 
 
 def compile_model(model: StructModel):
@@ -285,10 +363,34 @@ def compile_model(model: StructModel):
     return cdc, compiler, step_outputs, inv_outputs
 
 
-def struct_backend(model: StructModel,
-                   check_deadlock: bool = True) -> SpecBackend:
+def coverage_plane(model: StructModel, cdc: StructCodec,
+                   compiler: LaneCompiler, lane_action: np.ndarray,
+                   action_names: Tuple[str, ...]):
+    """The device coverage plane (jaxtlc/struct/backend.py:189-226): the
+    site table is the per-action prefix, then the walk's sites; count
+    returns the action-prefix counts, then the site increments (K22)."""
+    from ..obs.coverage import CoveragePlane, Site, action_site_table
+
+    cov_fn = compiler.build_cov(model.system.next_ast)
+    idxs, conds = cov_fn(lanes.input_node(cdc.n_fields))
+    fine_sites = tuple(Site(key=k, kind=kind, action=a, loc=desc)
+                       for k, kind, a, desc in compiler.cov.sites)
+    sites = tuple(action_site_table(model.root_name, action_names)
+                  ) + fine_sites
+    n_act = len(action_names)
+    cov = StructCoverage(
+        conds, [n_act + i for i in idxs], cdc, lane_action, n_act,
+        len(sites), title=f"{model.root_name} ({model.source_digest}) "
+        "coverage")
+    plane = CoveragePlane(sites=sites, count=cov.count,
+                          module=model.root_name)
+    return plane, cov
+
+
+def struct_backend(model: StructModel, check_deadlock: bool = True,
+                   coverage: bool = False) -> SpecBackend:
     """Compile `model` into a SpecBackend (the pipeline struct.cache
-    memoizes in-process)."""
+    memoizes in-process); `coverage` adds the device coverage plane."""
     system = model.system
     cdc, compiler, step_outputs, inv_outputs = compile_model(model)
     labels: List[str] = list(compiler.labels)
@@ -303,6 +405,10 @@ def struct_backend(model: StructModel,
         inits = system.initial_states()
         return np.stack([cdc.encode(st) for st in inits])
 
+    plane = cov = None
+    if coverage:
+        plane, cov = coverage_plane(model, cdc, compiler, lane_action,
+                                    action_names)
     return SpecBackend(
         cdc=cdc,
         n_lanes=len(labels),
@@ -313,7 +419,8 @@ def struct_backend(model: StructModel,
         labels=action_names,
         viol_names=struct_viol_names(model),
         check_deadlock=check_deadlock,
-        kernels=StructKernels(prog),
+        kernels=StructKernels(prog, cov),
+        coverage=plane,
     )
 
 

@@ -2,7 +2,8 @@
 
 Compiling a struct spec - parse, shape inference, the lane-IR build and
 the C++ emission - is a pure function of the spec's meaning (source
-digest, canonical constants, invariant list) and the deadlock switch, so
+digest, canonical constants, invariant list), the deadlock switch and the
+coverage switch, so
 one process builds each backend once; the memo keeps the 64 most recently
 used.  The reference's persistent XLA cache has its counterpart in the
 build directory of the emitted kernel libraries, ``torchtlc/kernels/
@@ -34,14 +35,15 @@ def model_key(model) -> tuple:
     )
 
 
-def get_backend(model, check_deadlock: bool = True):
+def get_backend(model, check_deadlock: bool = True, coverage: bool = False):
     """Memoized struct_backend."""
     from .backend import struct_backend
 
-    key = (model_key(model), bool(check_deadlock))
+    key = (model_key(model), bool(check_deadlock), bool(coverage))
     hit = _BACKENDS.get(key)
     if hit is None:
-        hit = struct_backend(model, check_deadlock=check_deadlock)
+        hit = struct_backend(model, check_deadlock=check_deadlock,
+                             coverage=coverage)
         _BACKENDS[key] = hit
         while len(_BACKENDS) > MEMO_CAP:
             _BACKENDS.popitem(last=False)

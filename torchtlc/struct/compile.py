@@ -35,8 +35,9 @@ imported here under the reference's ``jnp`` name) instead of jnp arrays.
 A step or invariant function called on ``lanes.input_node(F)`` returns the
 graph; struct.lanes.evaluate runs it with torch (the plain version) and
 struct.emit prints it as the C++ body of kernels K17 and K18.  The device
-coverage plane (the reference's ``CovCollector``, ``build_cov`` and the
-walk's site hooks) is not ported yet (ROADMAP Queue A item 11).
+coverage plane keeps the reference's ``CovCollector`` site table and the
+walk's site hooks; ``build_cov`` returns the visit conditions as lane-IR
+nodes, which struct.emit prints as the body of kernel K22.
 """
 
 from __future__ import annotations
@@ -84,6 +85,70 @@ class TrapPolicy:
 
 class CompileError(ValueError):
     pass
+
+
+class CovCollector:
+    """Site table + per-trace visit conditions for the device coverage
+    plane (obs.coverage).
+
+    The lane walker already visits every guard conjunct, IF/CASE arm,
+    action-position binder and update conjunct while fanning the
+    nondeterminism into lanes; with a collector attached it REGISTERS a
+    stable site for each (action label, construct) pair on first
+    encounter - keyed by the AST node's identity, which is stable for
+    the lifetime of the parsed module, so repeated walks resolve to the
+    same table - and records, per walk, the lane condition under which
+    that site is visited.  build_cov returns the conditions; the
+    coverage plane stacks them into one ``[n_sites] uint32``
+    visit-increment vector per block (kernel K22), and the engines
+    accumulate it exactly like the obs ring (pure telemetry, no control
+    flow).
+
+    Visit semantics (the device analogue of TLC's evaluation counts):
+    a guard conjunct is visited once per state whose enumeration path
+    reaches it (the guard-so-far at that point - TLC's short-circuit),
+    a branch arm once per state selecting it, a binder body once per
+    (state, binding) with the binding live, and an update conjunct once
+    per state in which its lane fires (the completed successor path)."""
+
+    def __init__(self):
+        self.sites: List[tuple] = []  # (key, kind, action, desc)
+        self._index: Dict = {}  # (label, kind, id(ast)) -> site idx
+        self._ordinals: Dict = {}  # (label, kind) -> next ordinal
+        self._kept = []  # keep registered AST nodes alive (id() keys)
+        self.active = False
+        self._contribs = None  # per-walk [(idx, cond LB/LC)]
+
+    _TAG = {"guard": "g", "branch": "b", "quant": "e", "effect": "w",
+            "unchanged": "u"}
+
+    def site(self, label, kind, ast, desc="") -> int:
+        label = label or "?"
+        key3 = (label, kind, id(ast))
+        idx = self._index.get(key3)
+        if idx is None:
+            n = self._ordinals.get((label, kind), 0)
+            self._ordinals[(label, kind)] = n + 1
+            key = f"{label}.{self._TAG[kind]}{n}"
+            idx = len(self.sites)
+            self.sites.append((key, kind, label, desc))
+            self._index[key3] = idx
+            self._kept.append(ast)
+        return idx
+
+    def hit(self, idx: int, cond) -> None:
+        if self._contribs is not None:
+            self._contribs.append((idx, cond))
+
+    def begin(self):
+        self.active = True
+        self._contribs = []
+
+    def end(self):
+        out = self._contribs
+        self.active = False
+        self._contribs = None
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -226,6 +291,10 @@ class LaneCompiler:
         self._trans_tables: Dict = {}
         self._pred_tables: Dict = {}
         self.trap = None  # LB set when a guard-unreachable encode happens
+        # device coverage plane (obs.coverage): a CovCollector while a
+        # build_cov walk is running, None otherwise - build_step's own
+        # walks never record (self.cov.active gates every hook)
+        self.cov: Optional[CovCollector] = None
 
     # -- tables ------------------------------------------------------------
 
@@ -1866,8 +1935,17 @@ class LaneCompiler:
             return
         self._walk_seq([ast], 0, env, ctx, label, out)
 
+    def _cov_on(self) -> bool:
+        return self.cov is not None and self.cov.active
+
     def _walk_seq(self, items, i, env, ctx, label, out):
         if i == len(items):
+            if self._cov_on():
+                # update-conjunct sites log once per completed
+                # successor path: the lane's full guard is exactly
+                # "this path fires for this state"
+                for idx in ctx.cov_effects:
+                    self.cov.hit(idx, ctx.guard)
             out.append(Lane(label or "?", env, ctx))
             return
         ast = items[i]
@@ -1890,10 +1968,18 @@ class LaneCompiler:
                 self._walk_seq([ast[2] if cond.value else ast[3]] + rest,
                                0, env, ctx, label, out)
                 return
-            for guard, branch in ((cond, ast[2]),
-                                  (self._lnot(cond), ast[3])):
+            for guard, branch, arm in ((cond, ast[2], "THEN"),
+                                       (self._lnot(cond), ast[3],
+                                        "ELSE")):
                 c2 = ctx.fork()
                 c2.guard = self._land(c2.guard, guard)
+                if self._cov_on():
+                    # branch-arm site: visited once per state whose
+                    # path selects this arm (reach AND the arm guard)
+                    self.cov.hit(
+                        self.cov.site(label, "branch", branch, arm),
+                        c2.guard,
+                    )
                 self._walk_seq([branch] + rest, 0, dict(env), c2, label,
                                out)
             return
@@ -1928,6 +2014,10 @@ class LaneCompiler:
             for v in expand_unchanged(ast[1], self.ev.defs,
                                       set(self.variables)):
                 env2[("'", v)] = "passthrough"
+            if self._cov_on():
+                ctx.cov_effects.append(self.cov.site(
+                    label, "unchanged", ast,
+                    "UNCHANGED " + ", ".join(ast[1])))
             self._walk_seq(rest, 0, env2, ctx, label, out)
             return
         if op == "cmp" and ast[1] == "=" and ast[2][0] == "prime":
@@ -1941,9 +2031,15 @@ class LaneCompiler:
                 ctx.guard = self._land(ctx.guard, self.eq(prev_lv, val))
             else:
                 env2[key] = val
+            if self._cov_on():
+                ctx.cov_effects.append(self.cov.site(
+                    label, "effect", ast, f"{name}' :="))
             self._walk_seq(rest, 0, env2, ctx, label, out)
             return
-        # plain guard conjunct
+        # plain guard conjunct: the site logs at the reach of THIS
+        # conjunct (the guard-so-far, TLC's short-circuit discipline)
+        if self._cov_on():
+            self.cov.hit(self.cov.site(label, "guard", ast), ctx.guard)
         g = self.comp(ast, env, ctx)
         if isinstance(g, LC):
             if g.value is True:
@@ -2003,11 +2099,18 @@ class LaneCompiler:
             raise CompileError("multi-binder \\E in action position")
         name = names[0]
         desc = self._dom_descriptor(dom_ast, env, ctx)
+        cov_idx = None
+        if self._cov_on():
+            # binder-body site: one visit per (state, live binding) -
+            # the quantifier-body count of TLC's dump
+            cov_idx = self.cov.site(label, "quant", ast, f"\\E {name}")
         if desc[0] == "const":
             for v in desc[1]:
                 env2 = dict(env)
                 env2[name] = LC(v)
                 c2 = ctx.fork()
+                if cov_idx is not None:
+                    self.cov.hit(cov_idx, c2.guard)
                 self._walk_seq([body] + rest, 0, env2, c2,
                                label, out)
             return
@@ -2020,6 +2123,8 @@ class LaneCompiler:
                 env2[name] = LC(v)
                 c2 = ctx.fork()
                 c2.guard = self._land(c2.guard, LB(m.bits[..., i], 0))
+                if cov_idx is not None:
+                    self.cov.hit(cov_idx, c2.guard)
                 self._walk_seq([body] + rest, 0, env2, c2, label, out)
             return
         # record-universe set: k-th set-bit slot lanes.  A certified
@@ -2053,6 +2158,8 @@ class LaneCompiler:
             )
             c2 = ctx.fork()
             c2.guard = self._land(c2.guard, LB(has, 0))
+            if cov_idx is not None:
+                self.cov.hit(cov_idx, c2.guard)
             if not proven:
                 c2.ovf = self._lor(c2.ovf, LB(total > slot_cap, 0))
             self._walk_seq([body] + rest, 0, env2, c2, label, out)
@@ -2126,6 +2233,50 @@ class LaneCompiler:
             raise CompileError("lane guard kept a lift axis")
         return jnp.broadcast_to(_to_b(g.arr, B), (B,))
 
+    def build_cov(self, next_ast):
+        """The device coverage plane's visit conditions:
+        ``cov_fn(fields [B,F]) -> (idxs, conds)``, one bool [B] node per
+        contribution and its site index (the reference's cov_fn,
+        jaxtlc/struct/compile.py:2224, before its stack, masked matvec and
+        scatter-add, which the coverage plane and kernel K22 do).
+
+        The instrumented walk re-derives only the lane GUARD structure
+        (no successor encode), from the same pure functions of the state
+        fields the step evaluates (the hash-consed lane IR shares their
+        nodes); the site table is discovered on the first walk
+        (self.cov.sites) and stable across walks."""
+        self.cov = CovCollector()
+
+        def cov_fn(fields):
+            B = fields.shape[0]
+            saved = (self.trap_sites, self.elided_traps,
+                     self.reduced_slot_lanes)
+            self.cov.begin()
+            try:
+                env0 = dict(self.decode_state(fields))
+                self.walk_lanes(next_ast, env0)
+            finally:
+                contribs = self.cov.end()
+                (self.trap_sites, self.elided_traps,
+                 self.reduced_slot_lanes) = saved
+            idxs, conds = [], []
+            for idx, cond in contribs:
+                if isinstance(cond, LC):
+                    if not cond.value:
+                        continue
+                    arr = jnp.full((B,), True)
+                else:
+                    if cond.depth != 0:
+                        raise CompileError(
+                            "coverage condition kept a lift axis"
+                        )
+                    arr = jnp.broadcast_to(_to_b(cond.arr, B), (B,))
+                idxs.append(idx)
+                conds.append(arr)
+            return idxs, conds
+
+        return cov_fn
+
     def build_invariant(self, ast):
         """inv(fields [B,F]) -> ok [B] bool."""
 
@@ -2145,6 +2296,9 @@ class LaneCtx:
         self.ovf = LC(False)
         self.afail = LC(False)
         self.trap = LC(False)
+        # coverage: update-conjunct site ids pending this path's
+        # completion (resolved against the final lane guard)
+        self.cov_effects: List[int] = []
 
     def fork(self) -> "LaneCtx":
         c = LaneCtx()
@@ -2152,6 +2306,7 @@ class LaneCtx:
         c.ovf = self.ovf
         c.afail = self.afail
         c.trap = self.trap
+        c.cov_effects = list(self.cov_effects)
         return c
 
 

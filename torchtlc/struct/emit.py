@@ -362,3 +362,49 @@ def masks_source(preds, *, n_fields: int, widths: Sequence[int],
     text = "\n".join(head) + "\n\n".join(prog.functions) + (
         "\n\n#include \"gen_masks.cuh\"\n")
     return text, K
+
+
+def cov_source(conds, sites, *, n_sites: int, n_fields: int,
+               widths: Sequence[int], n_words: int, lane_action,
+               n_labels: int, title: str):
+    """(source text, K constants) of kernel K22 struct_cov_count
+    (torchtlc/kernels/csrc/struct_cov.cuh): ``st_cov_conds`` evaluates the
+    M visit conditions of struct.compile's build_cov (bool [1] nodes on
+    ``lanes.input_node(F)``) on one state's fields; ST_COND_SITE holds each
+    condition's site index, ST_LANE_ACTION each lane's action site."""
+    for k, c in enumerate(conds):
+        if c.shape != (1,) or c.dtype != bool_:
+            raise EmitError(f"condition {k} of shape {c.shape}, {c.dtype}")
+    if len(sites) != len(conds):
+        raise EmitError(f"{len(sites)} sites for {len(conds)} conditions")
+    prog = Program()
+    prog.function(
+        "HD void st_cov_conds(const int32_t* __restrict__ f, "
+        "const int32_t* __restrict__ K, bool* out)", list(conds),
+        lambda ex: [f"out[{k}] = {e[0]};" for k, e in enumerate(ex)])
+    K = prog.constants()
+    head = [
+        f"// {title}",
+        "// Emitted by torchtlc.struct.emit from the coverage conditions'",
+        "// lane IR: the per-spec body of torchtlc/kernels/csrc/",
+        "// struct_cov.cuh.",
+        "#include \"struct_prelude.cuh\"",
+        "",
+        f"#define ST_F {n_fields}",
+        f"#define ST_W {n_words}",
+        f"#define ST_L {len(lane_action)}",
+        f"#define ST_NLABELS {n_labels}",
+        f"#define ST_NCOND {len(conds)}",
+        f"#define ST_NSITES {n_sites}",
+        f"#define ST_NK {K.size}",
+        "#define ST_WIDTHS " + ", ".join(str(int(w)) for w in widths),
+        "#define ST_LANE_ACTION " + ", ".join(str(int(a))
+                                              for a in lane_action),
+        # one padding entry keeps the array nonempty when M is 0
+        "#define ST_COND_SITE " + ", ".join(
+            [str(int(s)) for s in sites] + ["0"]),
+        "",
+    ]
+    text = "\n".join(head) + "\n\n".join(prog.functions) + (
+        "\n\n#include \"struct_cov.cuh\"\n")
+    return text, K

@@ -9,9 +9,10 @@ counter ring - is the engine's.  Runs on the card unless ``device`` says
 otherwise.  ``check_struct_sharded`` runs the same backend on the sharded
 engine (engine.sharded: D fingerprint-space shards in one process, kernel
 K21 for the emitted step over the shards' raw queue rows and K18 on each
-owner's received rows).  The single-device pipelined body and the
-narrowed, covered and reduced engines are not ported yet (ROADMAP Queue A
-items 11, 13).
+owner's received rows).  ``coverage=True`` carries the device coverage
+plane (kernel K22 per popped block, CheckResult.site_coverage) on both
+engines; ``pipeline=True`` runs the pipelined body.  The narrowed and
+reduced engines are not ported yet (ROADMAP Queue A items 11, 13).
 """
 
 from __future__ import annotations
@@ -22,9 +23,18 @@ import torch
 
 from ..engine.bfs import CheckResult, make_backend_engine, result_from_carry
 from ..engine.fingerprint import DEFAULT_FP_INDEX
-from ..engine.fpset import fpset_actual_collision
 from .cache import get_backend
 from .loader import StructModel
+
+
+def build_kernels(backend) -> None:
+    """Build (or load) a struct backend's emitted libraries: K17/K18/K21,
+    and K22 when it carries the coverage plane."""
+    from ..kernels import ops
+
+    ops.struct_lib(backend.kernels.prog)
+    if backend.kernels.cov is not None:
+        ops.struct_cov_lib(backend.kernels.cov)
 
 
 def check_struct(
@@ -39,24 +49,25 @@ def check_struct(
     deferred: bool = None,
     capture_fps: bool = False,
     device=None,
+    coverage: bool = False,
+    pipeline: bool = False,
 ) -> CheckResult:
     """Exhaustive check of a struct-compiled spec on `device` (None = the
     card).  sort_free and deferred are tri-state (None = auto: on at
     chunk >= 2048, as the reference resolves them); obs_slots > 0 carries
     the counter ring; capture_fps reads the final fingerprint table back
-    to the host on a clean verdict (CheckResult.fp_table).  wall_s times
-    the run only: the backend is compiled and its kernels built before
-    it."""
-    backend = get_backend(model, check_deadlock)
+    to the host on a clean verdict (CheckResult.fp_table); coverage
+    carries the device coverage plane (CheckResult.site_coverage);
+    pipeline runs the pipelined body.  wall_s times the run only: the
+    backend is compiled and its kernels built before it."""
+    backend = get_backend(model, check_deadlock, coverage=coverage)
     init_fn, run_fn, _ = make_backend_engine(
         backend, chunk, queue_capacity, fp_capacity, obs_slots=obs_slots,
         sort_free=sort_free, deferred=deferred, device=device,
-        fp_index=fp_index)
+        fp_index=fp_index, pipeline=pipeline)
     carry = init_fn()
     if carry.queue.is_cuda:
-        from ..kernels import ops
-
-        ops.struct_lib(backend.kernels.prog)  # built before the clock
+        build_kernels(backend)  # before the clock
         torch.cuda.synchronize()
     t0 = time.time()
     carry = run_fn(carry)
@@ -66,7 +77,8 @@ def check_struct(
     result = result_from_carry(
         carry, wall, iterations=run_fn.steps, fp_capacity=fp_capacity,
         labels=backend.labels, viol_names=backend.viol_names,
-    )._replace(actual_fp_collision=fpset_actual_collision(carry.fps))
+        sites=backend.coverage.sites if backend.coverage else None,
+    )
     if capture_fps and result.violation == 0:
         result = result._replace(
             fp_table=carry.fps.table.cpu().numpy().view("uint32"))
@@ -85,6 +97,7 @@ def check_struct_sharded(
     obs_slots: int = 0,
     sort_free: bool = None,
     deferred: bool = None,
+    coverage: bool = False,
 ) -> CheckResult:
     """Exhaustive sharded check of a struct-compiled spec over `mesh`
     (engine.sharded.ShardMesh; jaxtlc/struct/engine.py:108): capacities
@@ -93,11 +106,9 @@ def check_struct_sharded(
     from ..engine.bfs import resolve_device
     from ..engine.sharded import check_sharded
 
-    backend = get_backend(model, check_deadlock)
+    backend = get_backend(model, check_deadlock, coverage=coverage)
     if resolve_device(mesh.device).type == "cuda":
-        from ..kernels import ops
-
-        ops.struct_lib(backend.kernels.prog)  # built before the clock
+        build_kernels(backend)  # before the clock
     return check_sharded(
         None, mesh, chunk=chunk, queue_capacity=queue_capacity,
         fp_capacity=fp_capacity, route_factor=route_factor,
