@@ -77,7 +77,19 @@ coverage in turns, K22 beside K17 on a full-width block and on 4 shards
 (the spill rung) on one device and on -sharded 4, -coverage with the
 device dump, -pipeline through SIGTERM and -recover, pinned to the
 reference's transcripts, and -phase-timing on TwoPhase-8 and Model_1
-(17d).  It checks every
+(17d); then struct -narrow behind kernel K23 (the runtime certificate,
+inside K17 and K18): the three shipped struct models narrowed in both mode
+sets, pinned to the reference's narrowed CPU runs, K17's kCert form, K18
+with the certificate and K23 bitwise against their plain versions and K23
+on doctored blocks (18), RaftReplication with five nodes narrowed (2
+packed words) and not (3) in turns at chunk 16,384 - 1,205,891 distinct
+states - with K17 with and without kCert and K23 alone on a full-width
+block, and TwoPhase-8 with and without -narrow (18b), and the commands:
+-narrow with the preflight's bound findings, -coverage, -pipeline,
+-sharded 4, SIGTERM and -recover -narrow (and its refusal without
+-narrow), the spill rung, the cardinality lie (exit 1), -narrow ignored on
+Reconciler and the KubeAPI pair, and -traceExpressions on a KubeAPI and a
+struct violation (18c).  It checks every
 result against its pinned value, holds each kernel bitwise against its
 plain torch version on the card, and prints:
 
@@ -90,8 +102,9 @@ plain torch version on the card, and prints:
   sharded command runs, the sharded spill runs, the liveness runs, the
   struct engine and command runs of phases 14-14c, the gen engine and
   command runs of phases 15-15c, the sharded emitted runs and commands
-  of phases 16-16c and the covered, pipelined, spilling and command runs
-  of phases 17-17d;
+  of phases 16-16c, the covered, pipelined, spilling and command runs
+  of phases 17-17d and the narrowed engine and command runs of phases
+  18-18c;
   each path's counts are reset just before it and read just after),
   its error against the plain
   version, its time, the plain version's time, its bound on this card
@@ -110,7 +123,8 @@ the pipelined slice alone, ``--phases 12,12b,12c`` the sharded one,
 ``--phases 14,14b,14c`` the struct slice, ``--phases 15,15b,15c`` the
 generic slice, ``--phases 16,16b,16c`` the sharded engine over the
 emitted backends, ``--phases 17,17b,17c,17d`` the struct coverage,
-pipeline, spill and phase-timing slice.
+pipeline, spill and phase-timing slice, ``--phases 18,18b,18c`` the
+struct -narrow slice.
 """
 
 from __future__ import annotations
@@ -451,6 +465,12 @@ def main() -> int:
             runs.update(phase_struct17c(torch, ops, card, runs))
         if want("17d"):
             runs.update(phase_command17(ops, card, runs, tmp, model))
+        if want("18") or want("18b"):
+            runs.update(phase_narrow18(torch, ops, card, runs, tmp))
+        if want("18b"):
+            runs.update(phase_narrow18_real(torch, ops, card, runs))
+        if want("18c"):
+            runs.update(phase_command18(ops, card, runs, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if want("13b"):
@@ -481,13 +501,17 @@ def main() -> int:
                 "gen_r5",) + tuple(
                     f"gen_cmd_{tag}" for tag in GEN_NAMES + ("never", "r5")
                 ) + tuple(k for k, v in runs.items()
-                          if k.startswith(("shard16", "p17"))
+                          if k.startswith(("shard16", "p17", "p18"))
                           and isinstance(v, dict) and "launches" in v)
     launches = {k: sum(runs[r]["launches"][k] for r in main)
                 for k in ops.KERNELS}
     kernels = phase_kernels(torch, ops, runs, launches)
     print(f"phase 6 launches on the main paths ({', '.join(main)}): "
           f"{launches}", flush=True)
+    cert = {h: sum(runs[r].get("cert", {}).get(h, 0) for r in main)
+            for h in ops.CERT_LAUNCHES}
+    print(f"phase 6 K23 struct_cert_check's {launches['struct_cert_check']} "
+          f"launches on the main paths by where it ran: {cert}", flush=True)
     for r in ("shard_m1", "shard_scaled", "shard_scaled_pipe"):
         print(f"phase 6 {r}: {runs[r]['bodies']} bodies, launches per body "
               f"{runs[r]['per_body']:.1f}", flush=True)
@@ -2475,8 +2499,10 @@ def phase_kernels(torch, ops, runs, launches):
                                    "jaxtlc/engine/sharded.py:510"),
         "struct_cov_count": ("torchtlc/kernels/csrc/struct_cov.cuh",
                              "jaxtlc/struct/compile.py:2224"),
+        "struct_cert_check": ("torchtlc/kernels/csrc/struct_cert.cuh",
+                              "jaxtlc/struct/backend.py:46"),
     }
-    for key in ("sharded", "live", "struct", "gen", "shard16", "p17"):
+    for key in ("sharded", "live", "struct", "gen", "shard16", "p17", "p18"):
         for name, got in runs.get(f"{key}_rows", {}).items():
             rows.setdefault(name, []).extend(got)
         library.update(runs.get(f"{key}_library", {}))
@@ -3120,10 +3146,16 @@ def check_new_kernels(torch, ops, rng, tag, cfg, block, n, record, runs,
     cov_old = torch.arange(311, dtype=torch.int64, device=dev) * 1000
     cov_old[57] = top
     cov_pair = (cov_old + 5, cov_old)
-    for name, wrap, sp, cv in (("", False, (None, None), (None, None)),
-                               ("/wrap", True, (None, None), (None, None)),
-                               ("/spill", False, spill, (None, None)),
-                               ("/coverage", False, (None, None), cov_pair)):
+    # cert: the carry's sticky certificate flag of a narrowed struct run,
+    # set (COL_CERT)
+    cert = torch.ones((), dtype=torch.bool, device=dev)
+    none2 = (None, None)
+    for name, wrap, sp, cv, ce in (("", False, none2, none2, None),
+                                   ("/wrap", True, none2, none2, None),
+                                   ("/spill", False, spill, none2, None),
+                                   ("/coverage", False, none2, cov_pair,
+                                    None),
+                                   ("/cert", False, none2, none2, cert)):
         outs = []
         for fn in (counters.ring_row, counters.ring_row_plain):
             ring = carry.obs_ring.clone()
@@ -3139,7 +3171,7 @@ def check_new_kernels(torch, ops, rng, tag, cfg, block, n, record, runs,
             fn(ring, head, bodies, exp_, ck, True, carry.level, g_old + 9,
                g_old, d_old + 7, d_old, carry.level_n,
                acts_old[:n_acts] + 5, acts_old[n_acts:] + 5, acts_old,
-               n_labels, *sp, *cv)
+               n_labels, *sp, *cv, cert=ce)
             outs.append((ring, head, bodies, exp_))
         err = max(err_of(a, b) for a, b in zip(*outs))
         need(err == 0, f"K8 ring_row differs from its plain version ({tag}"
@@ -3152,6 +3184,9 @@ def check_new_kernels(torch, ops, rng, tag, cfg, block, n, record, runs,
             need(int(outs[0][0][int(carry.obs_head) % SCALED_OBS_SLOTS,
                                 counters.COL_SPILL]) == 123457,
                  "K8 did not write spill_hits into COL_SPILL")
+        need(int(outs[0][0][int(carry.obs_head) % SCALED_OBS_SLOTS,
+                            counters.COL_CERT]) == int(ce is not None),
+             f"K8's COL_CERT ({tag}{name})")
 
         def ring_args(fn):
             def run(st):
@@ -3160,7 +3195,7 @@ def check_new_kernels(torch, ops, rng, tag, cfg, block, n, record, runs,
                    carry.distinct, carry.level_n, carry.act_gen,
                    carry.act_dist, torch.cat([carry.act_gen,
                                               carry.act_dist]), n_labels,
-                   *sp, *cv)
+                   *sp, *cv, cert=ce)
             return run
 
         def ring_setup():
@@ -3173,7 +3208,8 @@ def check_new_kernels(torch, ops, rng, tag, cfg, block, n, record, runs,
                cuda_ms(torch, ring_args(counters.ring_row_plain), 3,
                        ring_setup),
                (slots1 * 4 + 4 * (n_labels + 1) * 8 + cols * 4 + 10 * 8
-                + (311 * 16 if cv[0] is not None else 0)))
+                + (311 * 16 if cv[0] is not None else 0)
+                + (1 if ce is not None else 0)))
     print(f"phase 2 slice-2 kernels vs plain ({tag}, chunk {ck}, {n} popped, "
           f"{ncand} candidates, R {R}): all bitwise equal; "
           + "; ".join(lines) + f"; library sort {lib_ms}", flush=True)
@@ -4920,6 +4956,525 @@ def phase_command17(ops, card, runs, tmp, m1_cfg):
     print("phase 17d commands, transcripts = the reference's: "
           + "; ".join(lines) + "; -phase-timing " + "; ".join(phased)
           + f" on {card}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 18-18c: struct -narrow, the runtime certificate (K23) and
+# -traceExpressions
+# ---------------------------------------------------------------------------
+
+# (packed words, SHA-256 of the final table words) of jaxtlc.struct.engine.
+# check_struct(model, check_deadlock=False, capture_fps=True, bounds=
+# jaxtlc.analysis.absint.analyze_bounds(model)) on the CPU at phase 14's
+# geometries - the same in the sorted immediate and the slab deferred modes
+# with obs_slots=64; the counts, per-action counts and outdegree are
+# STRUCT_PINS's (narrowing changes no count).  TwoPhase's certified bounds
+# are its inferred shapes: the same codec, the un-narrowed table words
+NARROW_PINS = {
+    "TwoPhase/Model_1": (1, STRUCT_PINS["TwoPhase/Model_1"]["sha"]),
+    "TwoPhase/Model_sym": (1, STRUCT_PINS["TwoPhase/Model_sym"]["sha"]),
+    "RaftReplication/Model_1": (1, "38930dbe3f7454723a35a9d4acae9ed8"
+                                   "2ff97495722bc7857ef7158ed7102020"),
+}
+# RaftReplication with five nodes, the standard Raft deployment
+RR5_CFG = """CONSTANT Nodes = {n1, n2, n3, n4, n5}
+CONSTANT MaxLog = 2
+CONSTANT MaxTerm = 3
+SPECIFICATION
+Spec
+INVARIANT
+TypeOK
+AtMostOneLeader
+CommitWithinLog
+CommittedAgree
+"""
+RR5_KW = dict(chunk=1 << 14, queue_capacity=1 << 21, fp_capacity=1 << 22)
+RR5_COUNTS = (4376601, 1205891, 21)
+# (packed words, table SHA-256) of the reference's CPU check_struct at
+# RR5_KW in the default modes (slab dedup, deferred invariants), narrowed
+# (67 -> 53 bits) and not
+RR5_PINS = {"narrow": (2, "5232abe47e65c05cac3511a79584cbcb"
+                          "4024501c50a78aa7fbf4918c8e3d9fed"),
+            "base": (3, "3ff352e052b1cebf35b4ef15f59c0fdd"
+                        "2dbea9a03f1dd5025d01778ec394f096")}
+# the slot-count synthetic of the reference's tests/test_absint.py:97-111,
+# whose cardinality lie (|msgs| <= 1) only the runtime certificate catches
+SLOTC_TLA = """---- MODULE SlotC ----
+EXTENDS Naturals, FiniteSets
+CONSTANTS RM
+VARIABLES msgs, n
+Init == /\\ msgs = {} /\\ n = 0
+Send == /\\ n < 2
+        /\\ \\E r \\in RM : msgs' = msgs \\cup {[kind |-> "a", from |-> r]}
+        /\\ n' = n + 1
+Drop == /\\ \\E m \\in msgs : msgs' = msgs \\ {m}
+        /\\ UNCHANGED n
+Next == Send \\/ Drop
+TypeOK == /\\ \\A m \\in msgs : m.from \\in RM /\\ n \\in 0..5
+====
+"""
+SLOTC_CFG = ("CONSTANT RM = {r1, r2, r3, r4, r5, r6, r7, r8, r9, "
+             "ra, rb, rc, rd}\nINVARIANT\nTypeOK\n")
+# -traceExpressions files of phase 18c (written into the checkpoint
+# directory, which the transcripts mask as CK)
+TEXPR_FF = 'NObjects == Cardinality(apiState)\nClientPC == pc["Client"]\n'
+TEXPR_TWO = "Prepared == Cardinality(tmPrepared)\nTM == tmState\n"
+RAFT_256 = ["-nodeadlock", "-narrow", "-chunk", "256"]
+# phase 18c: model key -> argv after the MC.cfg (CK: the checkpoint
+# directory); the keys of models18c
+CMD18 = {
+    "raft": ("raft", RAFT_256),
+    "rr5": ("rr5", ["-nodeadlock", "-narrow", "-chunk", str(RR5_KW["chunk"]),
+                    "-qcap", str(RR5_KW["queue_capacity"]), "-fpcap",
+                    str(RR5_KW["fp_capacity"])]),
+    "twophase": ("two", ["-nodeadlock", "-narrow"]),
+    "coverage": ("raft", RAFT_256 + ["-coverage"]),
+    "pipeline": ("raft", RAFT_256 + ["-pipeline"]),
+    "sharded": ("raft", RAFT_256 + ["-sharded", "4"]),
+    "term": ("raft", RAFT_256 + ["-checkpoint", "CK/r", "-checkpointevery",
+                                 "4", "-faults", "sigterm@3"]),
+    "recover": ("raft", RAFT_256 + ["-checkpoint", "CK/r",
+                                    "-checkpointevery", "4", "-recover"]),
+    "spill": ("two", ["-nodeadlock", "-narrow", "-chunk", "16", "-qcap",
+                      "256", "-fpcap", "64", "-faults", "alloc_fail@1",
+                      "-checkpoint", "CK/s"]),
+    "lie": ("slotc", ["-frontend", "struct", "-narrow", "-nodeadlock",
+                      "-chunk", "64", "-checkpoint", "CK/l"]),
+    "reconciler": ("recon", ["-narrow"]),
+    "kubeapi": ("ff", ["-narrow", "-chunk", "128"]),
+    "texpr_ff": ("ff", ["-mutation", "delete_noop", "-chunk", "128",
+                        "-traceExpressions", "CK/te_ff.txt"]),
+    "texpr_struct": ("two", ["-traceExpressions", "CK/te_two.txt"]),
+}
+# (exit code, SHA-256 of cmd17_masked) of `python -m jaxtlc.cli check
+# <MC.cfg> -noTool <argv> -workers cpu` in one process, in CMD18's order,
+# the reference's 8 virtual CPU devices for -sharded, the lie through
+# jaxtlc.struct.cache.get_bounds returning the lying report
+CMD18_TRANSCRIPT = {
+    "raft": (0, "47906c7b48ea4b9a2d71f61f2e986c95"
+             "04995bbb5b22e27c0caae59aaa8a7777"),
+    "rr5": (0, "64fe2672274fd42c3fd5155672cc9225"
+            "de6bc6b9fb9818584a5673d4fb4a69f2"),
+    "twophase": (0, "eefe00acd60e917601998f0e625a8637"
+                 "8650aa48a6267d7d7a0f1582f85ba49a"),
+    "coverage": (0, "1b2f3e56216f9426d3a81b5ec4b10193"
+                 "f99e2bc3a415cfdb07ac2ac17d1341f4"),
+    "pipeline": (0, "47906c7b48ea4b9a2d71f61f2e986c95"
+                 "04995bbb5b22e27c0caae59aaa8a7777"),
+    "sharded": (0, "4d3a2a05e2a5c67e5018955b6a1172f1"
+                "219fba89a68b1505351c16f48187ba21"),
+    "term": (75, "df1005ee6e50f13b11574da6472c85fe"
+             "960af6c42c9af0f270b1029a33bdaebf"),
+    "recover": (0, "9074a67ce2ef6a2c565c52a6724eb8e4"
+                "07b409dcfbd1440ccf96e44466d6504e"),
+    "spill": (0, "3228a7147a3f3269f7afe5746304b190"
+              "47f4ca89ad022fc0b2050182eb907d9a"),
+    "lie": (1, "5c516ad7c82486a73f8572d90beda087"
+            "e777a6af3b2a5e30a1376a3e76b63c03"),
+    "reconciler": (0, "e25bed2ddec9c0c3740bd65ac895276e"
+                   "5b9aef9fd6cdee16625395e027dd645f"),
+    "kubeapi": (0, "c20393cb8e8dd988887dea062d04c820"
+                "de8c90c04988422077711953e6055417"),
+    "texpr_ff": (12, "b782dcdabb9b9021f5c95822afe9b6ce"
+                 "9f31b664a32432c2341e5c477edbbcb7"),
+    "texpr_struct": (12, "b93771cefbbee58ae2366512da23ce8d"
+                     "1e6b434f4a391dd094ca297eb998d90e"),
+}
+
+
+def models18(tmp):
+    """The model files of phases 18-18c in `tmp`/p18: {key: MC.cfg}."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    specs = os.path.join(here, "specs")
+    d = os.path.join(tmp, "p18")
+    os.makedirs(d, exist_ok=True)
+    out = {"two": os.path.join(specs, "TwoPhase.toolbox", "Model_1",
+                               "MC.cfg"),
+           "raft": os.path.join(specs, "RaftReplication.toolbox", "Model_1",
+                                "MC.cfg"),
+           "recon": os.path.join(specs, "Reconciler.toolbox", "Model_1",
+                                 "MC.cfg")}
+    for key, files in (
+            ("rr5", {"RaftReplication.tla": open(os.path.join(
+                os.path.dirname(out["raft"]), "RaftReplication.tla")).read(),
+                "MC.cfg": RR5_CFG}),
+            ("slotc", {"SlotC.tla": SLOTC_TLA, "SlotC.cfg": SLOTC_CFG}),
+            ("tp8", {"TwoPhase.tla": open(os.path.join(
+                os.path.dirname(out["two"]), "TwoPhase.tla")).read(),
+                "MC.cfg": TP8_CFG})):
+        os.makedirs(os.path.join(d, key), exist_ok=True)
+        for fname, text in files.items():
+            with open(os.path.join(d, key, fname), "w") as f:
+                f.write(text)
+        out[key] = os.path.join(d, key, "MC.cfg" if key != "slotc"
+                                else "SlotC.cfg")
+    if not os.path.exists(os.path.join(d, "Model_FF")):
+        write_model(d, "Model_FF", False, False)
+    out["ff"] = os.path.join(d, "Model_FF", "MC.cfg")
+    return out
+
+
+def card_lie(report):
+    """The reference test's cardinality lie: |msgs| <= 1."""
+    import dataclasses
+
+    return dataclasses.replace(
+        report, card_bounds={**report.card_bounds, "msgs": 1})
+
+
+def narrow18_backends(ops, tmp):
+    """The narrowed struct backends of phases 18-18c and their emitted
+    libraries, built one nvcc per text, in parallel: {name: (model,
+    report, backend, geometry)} for phase 14's models, RaftReplication
+    with five nodes (and its baseline backend as "RR5/base"), TwoPhase-8
+    and the slot-count synthetic under its cardinality lie; plus the
+    texts phase 18c's commands build (-sharded: every trap kept, no
+    certificate; -coverage: K22)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torchtlc.struct.cache import get_backend, get_bounds
+    from torchtlc.struct.loader import load
+
+    cfgs = models18(tmp)
+    out = {}
+    for name, cfg, kw in _struct_geometries() + [
+            ("RR5", cfgs["rr5"], RR5_KW), ("TwoPhase-8", cfgs["tp8"], TP8_KW),
+            ("SlotC/lie", cfgs["slotc"], dict(chunk=64, queue_capacity=1024,
+                                              fp_capacity=8192))]:
+        m = load(cfg)
+        rep = get_bounds(m)
+        need(rep.certified, f"{name}: the bound report is not certified")
+        if name == "SlotC/lie":
+            rep = card_lie(rep)
+        out[name] = (m, rep, get_backend(m, False, bounds=rep), kw)
+    m, _, _, _ = out["RR5"]
+    out["RR5/base"] = (m, None, get_backend(m, False), RR5_KW)
+    m8 = out["TwoPhase-8"][0]
+    out["TwoPhase-8/base"] = (m8, None, get_backend(m8, False), TP8_KW)
+    mr, rr, _, _ = out["RaftReplication/Model_1"]
+    texts = {}
+    for _, _, b, _ in out.values():
+        texts[b.kernels.prog.text] = (ops.struct_lib, b.kernels.prog)
+    for b in (get_backend(mr, False, bounds=rr, elide=False),
+              get_backend(mr, False, bounds=rr, coverage=True)):
+        texts[b.kernels.prog.text] = (ops.struct_lib, b.kernels.prog)
+        if b.kernels.cov is not None:
+            texts[b.kernels.cov.text] = (ops.struct_cov_lib, b.kernels.cov)
+    t0 = time.time()
+    with ThreadPoolExecutor(len(texts)) as pool:
+        list(pool.map(lambda fa: fa[0](fa[1]), texts.values()))
+    print(f"phase 18 build: {len(texts)} emitted libraries (K17/K18/K21/K23, "
+          f"K22) in {time.time() - t0:.1f} s; narrowed codecs "
+          + "; ".join(f"{k} {r.baseline_nbits} -> {r.narrowed_nbits} bits, "
+                      f"{b.cdc.n_words} words, traps {b.cdc.trap_stats}"
+                      for k, (_, r, b, _) in out.items() if r is not None),
+          flush=True)
+    return out, cfgs
+
+
+def struct_run18(ops, model, kw, modes):
+    """struct_run with the certificate's launch breakdown: (result,
+    launches, K23 launches by the kernel it rode in)."""
+    r, launches = struct_run(ops, model, kw, modes)
+    return r, launches, dict(ops.CERT_LAUNCHES)
+
+
+def cert_rows_bytes_ops(prog, N, n_valid):
+    """K23's bytes and integer operations over N rows of which n_valid are
+    valid: a valid byte a row, the F words of each valid row (an invalid
+    row's fields are not needed), the flag; two compares a field and, per
+    bounded mask field, a popcount and an add, one compare a mask, on each
+    valid row."""
+    specs = prog.cert[1]
+    nbytes = N + n_valid * prog.F * 4 + 4
+    ops_ = n_valid * (2 * prog.F + sum(2 * nf + 1 for _, nf, _ in specs))
+    return nbytes, ops_
+
+
+def k23_check(torch, ops, tag, prog, rows, valid, record=None, reps=20):
+    """K23 bitwise against its plain version on raw rows [N, F] under
+    valid [N]: clean, then doctored - a field past its maximum code and a
+    negative field in a valid row (tripped), the same rows marked invalid
+    (clean), and with a cardinality-bounded mask, bound + 1 bits in it
+    (tripped).  Timed into `record` when given.  Returns the cases."""
+    max_code, specs = prog.cert
+    i = int(torch.nonzero(valid).flatten()[0])
+    j = max(range(len(max_code)), key=lambda k: max_code[k])
+    cases = {"clean": (rows, valid, False)}
+    r = rows.clone()
+    r[i, j] = max_code[j] + 1
+    cases["past-max"] = (r, valid, True)
+    r = rows.clone()
+    r[i, 0] = -1
+    cases["negative"] = (r, valid, True)
+    v = valid.clone()
+    v[i] = False
+    cases["invalid"] = (cases["past-max"][0], v, False)
+    if specs:
+        off, nf, bound = specs[0]
+        r = rows.clone()
+        r[i, off:off + nf] = 0
+        r[i, off] = (1 << (bound + 1)) - 1
+        cases["mask-over-bound"] = (r, valid, True)
+    for case, (rr, vv, want) in cases.items():
+        got = bool(ops.struct_cert_check(prog, rr, vv))
+        plain = bool(prog.cert_plain(rr, vv))
+        need(got == plain == want, f"K23 ({tag}, {case}): kernel {got}, "
+             f"plain {plain}, want {want}")
+    if record is not None:
+        N = rows.shape[0]
+        record("struct_cert_check", tag, 0,
+               cuda_ms(torch, lambda _: ops.struct_cert_check(
+                   prog, rows, valid), reps),
+               cuda_ms(torch, lambda _: prog.cert_plain(rows, valid), 2),
+               *gen_bound_ms(*cert_rows_bytes_ops(prog, N,
+                                                  int(valid.sum()))))
+    return sorted(cases)
+
+
+def kcert_check(torch, ops, tag, prog, block, n, want):
+    """K17's kCert form and K18 with the certificate against their plain
+    versions on one popped block (K18's claimants: every valid lane, all
+    fresh); the certificate must read `want`.  Returns K17's raw
+    successors and valid flags (the deferred form's)."""
+    got = ops.struct_expand(prog, block, n, False, True)
+    ref = prog.expand_plain(block, n, False, cert=True)
+    for a, b in zip(got, ref):
+        if a is not None:
+            need(torch.equal(a.to(torch.int64), b.to(torch.int64)),
+                 f"K17 kCert ({tag}) differs from its plain version")
+    need(bool(got[5]) == want, f"K17 kCert ({tag}): certificate "
+         f"{bool(got[5])}, want {want}")
+    _, flags, action, _, flat = ops.struct_expand(prog, block, n, True)
+    valid = flags[0].bool()
+    lanes_ = torch.nonzero(valid).flatten().to(torch.int64)
+    fresh = torch.ones(lanes_.numel(), dtype=torch.bool, device=block.device)
+    k18 = ops.struct_inv_rows(prog, flat, fresh, lanes_, action,
+                              max(1, lanes_.numel()), cert=True)
+    p18 = prog.inv_rows_plain(flat, fresh, lanes_, action,
+                              max(1, lanes_.numel()), cert=True)
+    need(all(torch.equal(a.to(torch.int64), b.to(torch.int64))
+             for a, b in zip(k18, p18)) and bool(k18[3]) == want,
+         f"K18 with the certificate ({tag}) differs from its plain version")
+    return flat, valid
+
+
+def phase_narrow18(torch, ops, card, runs, tmp):
+    """Phase 18: check_struct with -narrow (a certified bound report) on
+    TwoPhase Model_1, Model_sym and RaftReplication Model_1 at phase 14's
+    geometries, sorted immediate and slab deferred (ring on): the counts,
+    per-action counts and outdegree of the un-narrowed pins, the narrowed
+    codec's packed words (RaftReplication 1 against 2), the table words of
+    the reference's narrowed CPU run, the certificate clean; K23 inside K17
+    (immediate) and K18 (deferred).  K17's kCert form, K18 with the
+    certificate and K23 bitwise against their plain versions on a popped
+    block, and K23 on doctored blocks (the cardinality lie's synthetic for
+    a mask over its bound)."""
+    backends, cfgs = narrow18_backends(ops, tmp)
+    rows = {}
+    record = gen_recorder(rows)
+    out, lines = {}, []
+    for name, _, kw in _struct_geometries():
+        m, rep, backend, _ = backends[name]
+        words, sha = NARROW_PINS[name]
+        need(backend.cdc.n_words == words and backend.cert_check is not None,
+             f"{name}: {backend.cdc.n_words} packed words")
+        for mode, modes in (("sorted", SORTED),
+                            ("slab", dict(sort_free=True, deferred=True,
+                                          obs_slots=64))):
+            r, launches, cert = struct_run18(ops, m, kw,
+                                             dict(modes, bounds=rep))
+            struct_pinned(f"{name} {mode} narrowed", r,
+                          dict(STRUCT_PINS[name], sha=sha))
+            need(r.cert_violated is False, f"{name} {mode}: certificate "
+                 f"{r.cert_violated}")
+            host = "struct_expand" if mode == "sorted" else "struct_inv_rows"
+            need(cert[host] == launches[host] > 0
+                 and launches["struct_cert_check"] == cert[host],
+                 f"{name} {mode}: K23 rode in {cert}, launches {launches}")
+            out[f"p18_{name}_{mode}"] = {"launches": launches, "cert": cert}
+            lines.append(f"{name} {mode} {r.iterations} steps "
+                         f"{r.wall_s:.3f} s")
+    # the kernels on popped blocks
+    m, rep, backend, kw = backends["RaftReplication/Model_1"]
+    prog = backend.kernels.prog
+    block, n, _ = struct_block(torch, backend, kw,
+                               lambda c: int(c.level) > 7)
+    flat, valid = kcert_check(torch, ops, "RaftReplication", prog, block, n,
+                              False)
+    k23_cases = k23_check(torch, ops, "RaftReplication", prog, flat, valid,
+                          record)
+    k23_n = flat.shape[0]
+    _, _, lie, kwl = backends["SlotC/lie"]
+    lprog = lie.kernels.prog
+    block, n, _ = struct_block(torch, lie, kwl, lambda c: True)
+    flat, valid = kcert_check(torch, ops, "SlotC lie, Init block", lprog,
+                              block, n, False)
+    lie_cases = k23_check(torch, ops, "SlotC lie", lprog, flat, valid)
+    block, n, _ = struct_block(torch, lie, kwl, lambda c: int(c.level) > 2)
+    kcert_check(torch, ops, "SlotC lie, level 3", lprog, block, n, True)
+    k = rows["struct_cert_check"][-1]
+    print(f"phase 18 -narrow: the un-narrowed counts and the reference's "
+          f"narrowed table words on every model in both mode sets, "
+          f"RaftReplication on 1 packed word (2 un-narrowed), certificate "
+          f"clean, K23 once a step inside K17 (immediate) or K18 "
+          f"(deferred); " + "; ".join(lines) + f"; K17 kCert, K18 and K23 "
+          f"bitwise = plain on a popped RaftReplication block, K23 on "
+          f"doctored blocks {k23_cases} and (the lie's synthetic) "
+          f"{lie_cases}, K17 kCert tripped by the lie at level 3; K23 "
+          f"{k['ms']:.4f} ms on a RaftReplication block of {k23_n} rows "
+          f"(plain {k['plain_ms']:.3f} ms, bound {k['bound_ms']:.6f} ms by "
+          f"{k['bound_by']}) on {card}", flush=True)
+    out.update(p18_rows=rows, p18_backends=backends, p18_cfgs=cfgs)
+    return out
+
+
+def phase_narrow18_real(torch, ops, card, runs):
+    """Phase 18b: RaftReplication with five nodes at chunk 16,384 (default
+    modes), narrowed (2 packed words) and not (3) in turns (narrowed,
+    baseline, baseline, narrowed): the reference's counts and each
+    variant's table words, the certificate clean; walls and distinct
+    states per second.  On a full-width block of raw successors: K17 with
+    and without kCert, K23 alone, its bound and plain version.  TwoPhase-8
+    with and without -narrow in turns (certified, nothing narrowed: the
+    same table words)."""
+    backends = runs["p18_backends"]
+    rows = runs["p18_rows"]
+    record = gen_recorder(rows)
+    out = {}
+    m, rep, narrow, kw = backends["RR5"]
+    base = backends["RR5/base"][2]
+    walls = {"narrow": [], "base": []}
+    for which in ("narrow", "base", "base", "narrow"):
+        words, sha = RR5_PINS[which]
+        b = narrow if which == "narrow" else base
+        need(b.cdc.n_words == words, f"RR5 {which}: {b.cdc.n_words} words")
+        r, launches, cert = struct_run18(
+            ops, m, kw, dict(bounds=rep if which == "narrow" else None))
+        need((r.generated, r.distinct, r.depth) == RR5_COUNTS
+             and r.violation == 0, f"RR5 {which}: "
+             f"{(r.generated, r.distinct, r.depth)}, {r.violation}")
+        need(struct_digest(r.fp_table) == sha, f"RR5 {which}: table words")
+        need(r.cert_violated is (False if which == "narrow" else None),
+             f"RR5 {which}: certificate {r.cert_violated}")
+        if which == "narrow":
+            need(cert["struct_inv_rows"] == launches["struct_inv_rows"] > 0,
+                 f"RR5 narrowed: K23 inside K18 {cert}")
+        out.setdefault(f"p18b_rr5_{which}", {"launches": launches,
+                                             "cert": cert})
+        walls[which].append((round(r.wall_s, 4),
+                             int(r.distinct / r.wall_s)))
+        del r
+        torch.cuda.empty_cache()
+    prog, bprog = narrow.kernels.prog, base.kernels.prog
+    block, n, _ = struct_block(torch, narrow, kw,
+                               lambda c: int(c.qhead) > 0
+                               and int(c.level_n) >= kw["chunk"] * 4)
+    need(n == kw["chunk"], f"RR5 block of {n} rows")
+    flat, valid = kcert_check(torch, ops, "RR5", prog, block, n, False)
+    k17_cert = cuda_ms(torch, lambda _: ops.struct_expand(
+        prog, block, n, False, True), 10)
+    k17_plain = cuda_ms(torch, lambda _: ops.struct_expand(
+        prog, block, n, False), 10)
+    k23_check(torch, ops, "RR5", prog, flat, valid, record, reps=10)
+    k = rows["struct_cert_check"][-1]
+    m8, rep8, tp8, kw8 = backends["TwoPhase-8"]
+    need(tp8.cdc.n_words == backends["TwoPhase-8/base"][2].cdc.n_words,
+         "TwoPhase-8: -narrow changed the packed words")
+    walls8 = {"narrow": [], "base": []}
+    for which in ("narrow", "base", "base", "narrow"):
+        r, launches, cert = struct_run18(
+            ops, m8, kw8, dict(bounds=rep8 if which == "narrow" else None))
+        need((r.generated, r.distinct, r.depth) == TP8_COUNTS
+             and struct_digest(r.fp_table) == TP8_TABLE_SHA256,
+             f"TwoPhase-8 {which}: counts or table words")
+        need(r.cert_violated is (False if which == "narrow" else None),
+             f"TwoPhase-8 {which}: certificate {r.cert_violated}")
+        out.setdefault(f"p18b_tp8_{which}", {"launches": launches,
+                                             "cert": cert})
+        walls8[which].append(round(r.wall_s, 4))
+        del r
+        torch.cuda.empty_cache()
+    print(f"phase 18b RR5 (Nodes n1..n5, MaxLog 2, MaxTerm 3; chunk "
+          f"{kw['chunk']}, slab + deferred): {RR5_COUNTS} narrowed on "
+          f"{prog.W} words and on {bprog.W} un-narrowed, each variant's "
+          f"table words = the reference's, certificate clean; (wall s, "
+          f"distinct/s) in turns: narrowed {walls['narrow']}, baseline "
+          f"{walls['base']}; full-width block ({n} rows, {flat.shape[0]} "
+          f"raw successors): K17 {k17_plain:.4f} ms, with kCert "
+          f"{k17_cert:.4f} ms; K23 alone {k['ms']:.4f} ms (plain "
+          f"{k['plain_ms']:.1f} ms, bound {k['bound_ms']:.5f} ms by "
+          f"{k['bound_by']}); TwoPhase-8 walls in turns: -narrow "
+          f"{walls8['narrow']} s, without {walls8['base']} s (same table "
+          f"words) on {card}", flush=True)
+    out["p18b_k17"] = dict(k17_ms=k17_plain, k17_cert_ms=k17_cert,
+                           rows=flat.shape[0])
+    return out
+
+
+def phase_command18(ops, card, runs, tmp):
+    """Phase 18c: `python -m torchtlc.cli check` in this process with
+    -narrow - RaftReplication Model_1, RR5 and TwoPhase (the preflight's
+    bound findings), -coverage, -pipeline, -sharded 4 (the narrowed text
+    through K21, traps kept), SIGTERM (exit 75) then -recover -narrow, the
+    spill rung on TwoPhase, the cardinality lie (exit 1 and the banner),
+    Reconciler and the KubeAPI pair (ignored) - and -traceExpressions on
+    the FF violation and on TwoPhase's deadlock (exit 12): each exit code
+    and transcript equal to the reference's (digests pinned).  -recover
+    without -narrow on the narrowed checkpoint is refused (its bound
+    digest), as the reference refuses it."""
+    from torchtlc.struct import cache
+
+    cfgs = (runs["p18_cfgs"] if "p18_cfgs" in runs else models18(tmp))
+    ckdir = os.path.join(tmp, "ck18")
+    os.makedirs(ckdir)
+    with open(os.path.join(ckdir, "te_ff.txt"), "w") as f:
+        f.write(TEXPR_FF)
+    with open(os.path.join(ckdir, "te_two.txt"), "w") as f:
+        f.write(TEXPR_TWO)
+    out, lines = {}, []
+    for tag, (key, extra) in CMD18.items():
+        cfg = cfgs[key]
+        argv = [cfg, "-noTool"] + [x.replace("CK", ckdir) for x in extra]
+        if tag == "recover":  # first without -narrow: refused
+            try:
+                command_here(ops, [a for a in argv if a != "-narrow"])
+            except ValueError as e:
+                need("checkpoint config mismatch" in str(e)
+                     and "bound_digest" in str(e),
+                     f"-recover without -narrow: {e}")
+            else:
+                raise SmokeFailure("-recover without -narrow resumed a "
+                                   "narrowed checkpoint")
+        real = cache.get_bounds
+        if tag == "lie":
+            cache.get_bounds = lambda mdl: card_lie(real(mdl))
+        try:
+            rc, text, launches, wall = command_here(ops, argv)
+        finally:
+            cache.get_bounds = real
+        rc_want, sha_want = CMD18_TRANSCRIPT[tag]
+        need(rc == rc_want, f"command {tag} exited {rc}")
+        sha = hashlib.sha256(cmd17_masked(text, cfg, ckdir).encode()
+                             ).hexdigest()
+        need(sha == sha_want, f"command {tag}: the transcript differs from "
+             "the reference's")
+        if tag == "lie":
+            need(text.count("ERROR: runtime certificate violation - ") == 1,
+                 "the lie's banner is not there once")
+        if tag == "coverage":
+            need(launches["struct_cov_count"] > 0, "-coverage: K22 never ran")
+        if tag == "sharded":
+            need(launches["emitted_expand_sharded"] > 0
+                 and launches["struct_cert_check"] == 0,
+                 "-sharded 4: K21 never ran, or a certificate did")
+        out[f"p18c_{tag}"] = {"launches": launches,
+                              "cert": dict(ops.CERT_LAUNCHES)}
+        lines.append(f"{tag} exit {rc} ({wall:.2f} s)")
+    print("phase 18c commands, transcripts = the reference's: "
+          + "; ".join(lines) + "; -recover without -narrow refused (bound "
+          f"digest) on {card}", flush=True)
     return out
 
 

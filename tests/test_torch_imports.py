@@ -82,6 +82,24 @@ def test_every_module_imports_with_jax_blocked():
     assert int(out.stdout.strip()) >= 16  # every module of the slices
 
 
+def test_absint_copy_is_the_reference_line_for_line():
+    """torchtlc/analysis/absint.py is jaxtlc/analysis/absint.py with a note
+    added to its docstring and nothing else (its BoundReport digest is the
+    checkpoint meta's bound_digest in both packages)."""
+    import difflib
+
+    mine = open(os.path.join(ROOT, "torchtlc", "analysis",
+                             "absint.py")).read().splitlines()
+    ref = open(os.path.join(ROOT, "jaxtlc", "analysis",
+                            "absint.py")).read().splitlines()
+    ops = [op for op in difflib.SequenceMatcher(None, ref, mine,
+                                                autojunk=False).get_opcodes()
+           if op[0] != "equal"]
+    assert [op[0] for op in ops] == ["insert"]
+    added = mine[ops[0][3]:ops[0][4]]
+    assert len(added) <= 6 and "port's copy" in " ".join(added)
+
+
 def test_config_copy_equals_reference():
     from jaxtlc import config as jc
     from torchtlc import config as tc

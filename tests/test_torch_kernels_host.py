@@ -45,6 +45,7 @@ def host_lib(tmp_path_factory):
     lib.host_deferred_check.argtypes = [P, P, LL, P, P, P, P, P, P]
     lib.host_ring_row.argtypes = [P, I, I, P, P, P, LL, I, LL, LL, LL, LL, LL,
                                   LL, P, P, P, P, P, I, I, P, P, I]
+    lib.host_ring_row_cert.argtypes = lib.host_ring_row.argtypes + [P]
     return lib
 
 
@@ -310,3 +311,47 @@ def test_ring_header_equals_plain(host_lib, near_wrap, flip):
                         torch.from_numpy(old), n_labels)
     assert (host == ring.numpy()).all()
     assert hb.tolist() == [int(head), int(bodies), int(expanded)]
+
+
+@pytest.mark.parametrize("cert", [False, True])
+def test_ring_header_cert_column_equals_plain(host_lib, cert):
+    """K8 with the carry's certificate flag (a narrowed struct run): the
+    g++ build of ring.cuh and ring_row_plain write the same row, COL_CERT
+    the flag (0 or 1), the reference's pack_row the same words."""
+    from jaxtlc.obs import counters as jcnt
+    from torchtlc.obs import counters as tcnt
+
+    rng = np.random.default_rng(int(cert))
+    n_labels, slots = 5, 4
+    cols = tcnt.ring_cols(n_labels)
+    ring0 = rng.integers(-2**31, 2**31, (slots + 1, cols)).astype(np.int32)
+    ring0[:, tcnt.COL_OVERFLOW] = 0
+    old = rng.integers(100, 120, 2 * (n_labels + 1))
+    new = old + rng.integers(0, 40, old.shape)
+    a_gen = np.ascontiguousarray(new[:n_labels + 1])
+    a_dist = np.ascontiguousarray(new[n_labels + 1:])
+    flag = np.array([cert], np.bool_)
+    host = ring0.copy()
+    hb = np.array([6, 3, 700], np.int64)  # head, bodies, expanded
+    host_lib.host_ring_row_cert(host.ctypes.data, slots, cols, hb.ctypes.data,
+                                hb[1:].ctypes.data, hb[2:].ctypes.data, 64, 1,
+                                9, 500, 480, 200, 190, 33, a_gen.ctypes.data,
+                                a_dist.ctypes.data, old.ctypes.data, None,
+                                None, n_labels + 1, n_labels, None, None, 0,
+                                flag.ctypes.data)
+    ring = torch.from_numpy(ring0.copy())
+    head, bodies, expanded = (torch.tensor(v) for v in (6, 3, 700))
+    t = torch.tensor
+    tcnt.ring_row_plain(ring, head, bodies, expanded, 64, True, t(9),
+                        t(500), t(480), t(200), t(190), t(33),
+                        torch.from_numpy(a_gen), torch.from_numpy(a_dist),
+                        torch.from_numpy(old), n_labels, cert=t(cert))
+    assert (host == ring.numpy()).all()
+    row = host[6 % slots].view(np.uint32)
+    assert row[tcnt.COL_CERT] == int(cert)
+    want = jcnt.pack_row(
+        *map(np.int64, (9, 500, 200, 33, 4, 764)),
+        a_gen[:n_labels].astype(np.uint32),
+        a_dist[:n_labels].astype(np.uint32), overflow=row[tcnt.COL_OVERFLOW],
+        cert=np.bool_(cert))
+    assert (np.asarray(want) == row).all()

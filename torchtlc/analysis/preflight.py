@@ -2,9 +2,9 @@
 jaxtlc/analysis/preflight.py with ``deep=False``): what the CLI runs
 before a check.  It costs milliseconds: the spec-layer lints (struct
 specs - host Python over the IR) and the static counter-width
-arithmetic.  The deep mode (``-analyze``: the reference's jaxpr trace of
-the engine) and the certified bound report (``-narrow``) are not ported
-yet (ROADMAP Queue A items 13 and 11).
+arithmetic - and, with ``-narrow``, the certified bound report's
+findings (analysis.absint).  The deep mode (``-analyze``: the reference's
+jaxpr trace of the engine) is not ported yet (ROADMAP Queue A item 13).
 """
 
 from __future__ import annotations
@@ -16,12 +16,15 @@ from .engine_audit import audit_counter_width
 
 
 def preflight_struct(model, *, fp_capacity: int, chunk: int,
-                     queue_capacity: int,
-                     check_deadlock: bool = True) -> AnalysisReport:
+                     queue_capacity: int, check_deadlock: bool = True,
+                     bounds=None, narrow: bool = False) -> AnalysisReport:
     """Struct-path preflight: spec lints + engine-layer arithmetic (the
     reference's signature; chunk, queue_capacity and check_deadlock serve
     its deep mode only).  The unreduced-symmetry nudge always runs: the
-    port has no -symmetry yet."""
+    port has no -symmetry yet.  `bounds` (an absint.BoundReport) adds the
+    bound report section and its findings (jaxtlc/analysis/preflight.py:
+    50-72); `narrow` marks that the run asked for the narrowed codec,
+    which turns an uncertified report into a `narrow-refused` warning."""
     from .speclint import analyze_spec
     from .symfind import unreduced_symmetry_findings
 
@@ -33,6 +36,22 @@ def preflight_struct(model, *, fp_capacity: int, chunk: int,
     # the spec qualifies for orbit dedup but the run is not taking it: one
     # warning per SYMMETRY-eligible constant set
     report.extend(unreduced_symmetry_findings(model))
+    if bounds is not None:
+        report.bound_lines = bounds.render_lines()
+        report.extend(bounds.findings())
+        if narrow and not bounds.certified:
+            # the -narrow request could not be honored; the run proceeds
+            # on the baseline layout - say so loudly enough that the user
+            # notices the flag did nothing
+            from . import SEV_WARNING, Finding
+
+            report.findings.append(Finding(
+                layer="spec", check="narrow-refused",
+                severity=SEV_WARNING, subject=model.root_name,
+                detail=("-narrow requested but the bound report is "
+                        "not certified; running with the baseline "
+                        "(un-narrowed) codec"),
+            ))
     # lite bound without building the backend: every action branch is at
     # least one lane, action-position binders multiply - use the branch
     # count as the static lower bound

@@ -28,7 +28,19 @@ spec of the generic frontend (frontend.model.GenRunSpec) runs through
 the gen engine (kernel K19), its PROPERTY lines on the host oracle's graph
 or, above 1M distinct states, on the device path (kernels K14, K20, K16),
 a violation's trace from the host oracle, ``-traceExpressions`` over its
-states and ``-coverage`` from the host walker.
+states and ``-coverage`` from the host walker.  ``-traceExpressions``
+evaluates its expressions over the trace states on every frontend
+(spec.texpr.eval_over_envs over the state environments of spec.texpr,
+struct.oracle or gen.oracle).
+
+``-narrow`` narrows a struct spec's codec to the certified reachable
+bounds (analysis.absint through struct.cache.get_bounds; only a certified
+report narrows): the narrowed backend on every struct route - with the
+runtime certificate (kernel K23) on one device, every trap kept on the
+sharded engine - the preflight's bound findings, the checkpoint meta's
+bound digest, and a tripped certificate's error verdict and exit 1.  The
+KubeAPI and generic paths ignore it, as the reference does (its resume
+command still repeats it).
 
 Before the check each path runs the reference's preflight in its lite
 mode (torchtlc.analysis: the struct spec lints, the unreduced-symmetry
@@ -84,10 +96,6 @@ def _run_check(args) -> int:
         return 1
     if isinstance(spec, GenRunSpec):
         return _run_check_gen(args, spec)
-    if args.traceExpressions:
-        print(f"torchtlc: error: {TRACE_EXPRESSIONS_UNPORTED}",
-              file=sys.stderr)
-        return 2
     if isinstance(spec, StructRunSpec):
         return _run_check_struct(args, spec)
     unknown = [q for q in spec.properties if q not in KNOWN_PROPERTIES]
@@ -179,6 +187,7 @@ def _run_check(args) -> int:
         else:
             log.msg(1000, f"Run stopped: {r.violation_name}", severity=1)
         _print_trace(log, spec.model, args.chunk,
+                     trace_expr_file=args.traceExpressions,
                      check_deadlock=spec.check_deadlock, device=device)
     elif not liveness_violated:
         log.success(r.generated, r.distinct, r.actual_fp_collision,
@@ -471,6 +480,8 @@ def _resume_command(args) -> str:
     if args.deferredinv is not None:
         parts += ["-deferred-inv" if args.deferredinv
                   else "-no-deferred-inv"]
+    if args.narrow:
+        parts += ["-narrow"]  # the narrowed codec is a different layout
     if args.coverage:
         parts += ["-coverage"]  # the covered carry is a different layout
     if args.workers == "cpu":
@@ -521,10 +532,13 @@ def _sany_inputs(cfg_path: str, spec_name: str):
     return files, modules
 
 
-def _print_trace(log: TLCLog, model, chunk: int, check_deadlock: bool = True,
-                 device=None) -> None:
-    """The trace-explorer re-run: the host driver finds the violation
-    again and the trace prints with the PlusCal action labels."""
+def _print_trace(log: TLCLog, model, chunk: int, trace_expr_file: str = "",
+                 check_deadlock: bool = True, device=None) -> None:
+    """The trace-explorer re-run (jaxtlc/api.py:2060-2090): the host re-run
+    (engine.trace) finds the violation again and the trace prints with the PlusCal action
+    labels; with `trace_expr_file` each state also shows the user's
+    expressions evaluated in it (a missing or bad file skips them, never
+    the trace)."""
     from .engine.trace import find_violation_trace
     from .spec.pretty import state_to_tla
 
@@ -534,14 +548,47 @@ def _print_trace(log: TLCLog, model, chunk: int, check_deadlock: bool = True,
         log.msg(1000, "Violation was not reproducible in host mode",
                 severity=1)
         return
-    for i, (st, act) in enumerate(found[1], start=1):
-        log.trace_state(i, act, state_to_tla(st, model))
+    trace = found[1]
+    expr_rows = None
+    if trace_expr_file:
+        from .spec.texpr import state_env
+
+        expr_rows = _trace_expr_rows(trace_expr_file, log,
+                                     [state_env(st, model) for st, _ in trace])
+    for i, (st, act) in enumerate(trace, start=1):
+        text = state_to_tla(st, model)
+        if expr_rows is not None:
+            text += _expr_conjuncts(expr_rows[i - 1])
+        log.trace_state(i, act, text)
 
 
-TRACE_EXPRESSIONS_UNPORTED = (
-    "-traceExpressions on a KubeAPI or struct spec (the trace explorer's "
-    "expression re-evaluation over their states) is not ported yet "
-    "(ROADMAP Queue A item 11); generic-frontend specs take it")
+def _expr_conjuncts(rows) -> str:
+    """One trace state's -traceExpressions values as extra conjuncts."""
+    from .spec.pretty import value_to_tla
+
+    return "".join(
+        f"\n/\\ {res.name} = "
+        + (f"<evaluation failed: {res.value}>" if res.failed
+           else value_to_tla(res.value))
+        for res in rows)
+
+
+def _trace_expr_rows(path: str, log, envs):
+    """The values of the -traceExpressions file `path` over a trace's state
+    environments (spec.texpr.eval_over_envs), or None without a file or
+    when it is missing or bad (then a "Trace expressions skipped" line)."""
+    if not path:
+        return None
+    from .spec.texpr import TexprError, eval_over_envs, parse_expressions
+
+    try:
+        with open(path) as f:
+            exprs = parse_expressions(f.read())
+        return eval_over_envs(exprs, envs)
+    except (OSError, TexprError) as e:
+        log.msg(1000, f"Trace expressions skipped: {e}", severity=1)
+        return None
+
 
 def _run_check_struct(args, spec) -> int:
     """Check a structural-frontend spec (jaxtlc/api.py:982
@@ -551,8 +598,12 @@ def _run_check_struct(args, spec) -> int:
     N on the sharded engine (kernels K21, K18), the host graph for plain
     ``P ~> Q`` PROPERTY lines, and the host oracle's re-run for a
     violation's trace; with -coverage the device coverage plane (kernel
-    K22) on every route, its end-of-run dump and the dead-site lint.  Same
-    transcript and exit codes."""
+    K22) on every route, its end-of-run dump and the dead-site lint; with
+    -narrow the narrowed backend (a certified bound report only: with the
+    runtime certificate, kernel K23, on one device, every trap kept on the
+    sharded routes), the certificate's error verdict, and
+    -traceExpressions over the violation trace.  Same transcript and exit
+    codes."""
     from .struct import oracle as so
     from .struct.backend import struct_meta_config
     from .struct.cache import get_backend
@@ -578,6 +629,15 @@ def _run_check_struct(args, spec) -> int:
     except RuntimeError as e:  # no card and no -workers cpu
         print(f"Error: {e}", file=sys.stderr)
         return 1
+    # -narrow: the certified-bound narrowed codec (jaxtlc/api.py:1011-1021);
+    # only a certified report narrows, an uncertified one keeps the
+    # baseline layout (the preflight says so)
+    report = bounds = None
+    if args.narrow:
+        from .struct.cache import get_bounds
+
+        report = get_bounds(sm)
+        bounds = report if report.certified else None
     log = TLCLog(tool_mode=not args.noTool)
     log.version(__version__)
     log.banner(spec.fp_index, DEFAULT_SEED, spec.workers, device_name)
@@ -597,12 +657,17 @@ def _run_check_struct(args, spec) -> int:
 
         return preflight_struct(
             sm, fp_capacity=args.fpcap, chunk=args.chunk,
-            queue_capacity=args.qcap, check_deadlock=spec.check_deadlock)
+            queue_capacity=args.qcap, check_deadlock=spec.check_deadlock,
+            bounds=report, narrow=args.narrow)
 
     rc = _preflight_gate(args, log, struct_preflight)
     if rc is not None:
         return rc
-    backend = get_backend(sm, spec.check_deadlock, coverage=args.coverage)
+    # the sharded routes narrow the codec with every trap kept and carry
+    # no certificate (jaxtlc/api.py:1040-1093)
+    backend = get_backend(sm, spec.check_deadlock, bounds=bounds,
+                          elide=not args.sharded, coverage=args.coverage)
+    meta_config = struct_meta_config(sm, bounds=bounds)
     t0 = time.time()
     from .resil.supervisor import EXIT_INTERRUPTED, SlotOverflowError
 
@@ -615,7 +680,7 @@ def _run_check_struct(args, spec) -> int:
 
             sup = check_sharded_supervised(
                 None, args.sharded, backend=backend,
-                meta_config=struct_meta_config(sm),
+                meta_config=meta_config,
                 route_factor=args.routefactor, pipeline=args.pipeline,
                 opts=_sup_opts(args, log), device=device, **kw)
             r = sup.result
@@ -627,15 +692,14 @@ def _run_check_struct(args, spec) -> int:
                 sm, ShardMesh(args.sharded, device),
                 route_factor=args.routefactor,
                 check_deadlock=spec.check_deadlock, pipeline=args.pipeline,
-                coverage=args.coverage, **kw), None
+                coverage=args.coverage, bounds=bounds, **kw), None
         elif args.checkpoint or args.autogrow:
             from .resil.supervisor import check_supervised
 
             sup = check_supervised(
                 None, opts=_sup_opts(args, log), device=device,
                 fp_index=spec.fp_index, backend=backend,
-                meta_config=struct_meta_config(sm), pipeline=args.pipeline,
-                **kw)
+                meta_config=meta_config, pipeline=args.pipeline, **kw)
             r = sup.result
         else:
             from .struct.engine import check_struct
@@ -644,7 +708,7 @@ def _run_check_struct(args, spec) -> int:
                 sm, fp_index=spec.fp_index,
                 check_deadlock=spec.check_deadlock, device=device,
                 coverage=args.coverage, pipeline=args.pipeline,
-                **kw), None
+                bounds=bounds, **kw), None
     except SlotOverflowError as e:
         log.msg(1000, f"Run stopped: {e}", severity=1)
         _finish_journal(args)
@@ -660,6 +724,8 @@ def _run_check_struct(args, spec) -> int:
         log.final_counts(r.generated, r.distinct, r.queue_left)
         _finish_journal(args, r=None, sup=sup)
         return EXIT_INTERRUPTED
+    if r.cert_violated:
+        return _cert_violated(args, log, spec, r, t0)
     violated = r.violation != 0
     liveness_violated = False
     if not violated and spec.properties:
@@ -697,11 +763,16 @@ def _run_check_struct(args, spec) -> int:
             log.msg(1000, "Violation was not reproducible in host mode",
                     severity=1)
         else:
+            expr_rows = _trace_expr_rows(
+                args.traceExpressions, log,
+                [so.state_env(system, st) for st, _ in found[1]])
             for i, (st, act) in enumerate(found[1], start=1):
                 head = (f"State {i}: <Initial predicate>" if act is None
                         else f"State {i}: <{act}>")
-                log.msg(2217, head + "\n" + so.state_to_tla(system, st),
-                        severity=1)
+                text = so.state_to_tla(system, st)
+                if expr_rows is not None:
+                    text += _expr_conjuncts(expr_rows[i - 1])
+                log.msg(2217, head + "\n" + text, severity=1)
     elif not liveness_violated:
         log.success(r.generated, r.distinct, r.actual_fp_collision,
                     occupancy=r.fp_occupancy)
@@ -728,6 +799,28 @@ def _run_check_struct(args, spec) -> int:
     if violated:
         return 12
     return 13 if liveness_violated else 0
+
+
+def _cert_violated(args, log, spec, r, t0: float) -> int:
+    """A tripped runtime certificate (jaxtlc/api.py:1874-1890): a reachable
+    state broke a bound the certified abstract interpretation claimed, so
+    every count of the narrowed run is untrustworthy - the structured
+    record, an error verdict and exit 1 (the ring's banner, when the run
+    journals levels, already fired)."""
+    detail = ("runtime certificate violation: a reachable state lies "
+              "outside the certified bounds the narrowed codec was built "
+              "from; re-run with -no-narrow and report the spec (the bound "
+              "certification is unsound)")
+    j = getattr(args, "_journal", None)
+    if j is not None:
+        j.event("analysis", layer="spec", check="bound-certificate",
+                severity="error", subject=spec.spec_name, detail=detail)
+        j.event("final", verdict="error", generated=r.generated,
+                distinct=r.distinct, depth=r.depth, queue=r.queue_left,
+                wall_s=round(time.time() - t0, 6), interrupted=False)
+    log.msg(1000, f"ERROR: {detail}", severity=1)
+    _finish_journal(args)
+    return 1
 
 
 def _struct_coverage_dump(args, log, spec, sm, backend, r, n_init: int,
@@ -871,28 +964,13 @@ def _gen_trace_text(args, log, g, found):
     evaluated over its state_env (the reference's trace-explorer pass)."""
     from .gen import oracle as go
 
-    expr_rows = None
-    if args.traceExpressions:
-        from .spec.texpr import TexprError, eval_over_envs, parse_expressions
-
-        try:
-            with open(args.traceExpressions) as f:
-                exprs = parse_expressions(f.read())
-            expr_rows = eval_over_envs(
-                exprs, [go.state_env(g, st) for st, _ in found[1]])
-        except (OSError, TexprError) as e:
-            log.msg(1000, f"Trace expressions skipped: {e}", severity=1)
+    expr_rows = _trace_expr_rows(args.traceExpressions, log,
+                                 [go.state_env(g, st) for st, _ in found[1]])
     out = []
     for i, (st, _) in enumerate(found[1]):
         text = go.state_to_tla(g, st)
         if expr_rows is not None:
-            from .spec.pretty import value_to_tla
-
-            text += "".join(
-                f"\n/\\ {res.name} = "
-                + (f"<evaluation failed: {res.value}>" if res.failed
-                   else value_to_tla(res.value))
-                for res in expr_rows[i])
+            text += _expr_conjuncts(expr_rows[i])
         out.append(text)
     return out
 

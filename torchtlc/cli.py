@@ -28,7 +28,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from .api import TRACE_EXPRESSIONS_UNPORTED, _run_check
+from .api import _run_check
 
 # flags of paths not ported yet: dest -> (the value that means "not
 # given", what the error says)
@@ -48,13 +48,8 @@ UNPORTED = {
               "serving plane (ROADMAP Queue A item 13)"),
     "traceout": ("", "-trace-out (the Chrome-trace export) is ported with "
                  "the serving plane (ROADMAP Queue A item 13)"),
-    "narrow": (False, "-narrow (the certified narrowed codec of the struct "
-               "path, jaxtlc/struct/backend.py make_cert_check) is not "
-               "ported yet (ROADMAP Queue A item 11)"),
     "analyze": (False, "-analyze (the preflight jaxpr audits) is not part "
                 "of the port yet (ROADMAP Queue C, Queue A item 13)"),
-    # refused after resolution, on the KubeAPI and struct paths only
-    "traceExpressions": ("", TRACE_EXPRESSIONS_UNPORTED),
     "xprof": ("", "-xprof is the JAX profiler; the port's profiler is "
               "python3 -m torchtlc.profile"),
     "compilecache": ("", "-compile-cache is XLA's; the port builds its "
@@ -216,7 +211,7 @@ def _parser() -> argparse.ArgumentParser:
 def unported(args) -> list:
     """The errors of the flags given for paths not ported yet."""
     errs = [msg for dest, (off, msg) in UNPORTED.items()
-            if getattr(args, dest) != off and dest != "traceExpressions"]
+            if getattr(args, dest) != off]
     if not args.simulate and (args.depth, args.walkers, args.simseed) != (
             100, 256, 0):
         errs.append(UNPORTED["simulate"][1].replace(

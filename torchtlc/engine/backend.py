@@ -83,6 +83,13 @@ class SpecBackend(NamedTuple):
     # telemetry, so coverage-on results are coverage-off results
     coverage: object = None
     cfg: ModelConfig = None  # the KubeAPI model (None for other specs)
+    # the runtime certificate of a narrowed (certified-bound) struct
+    # backend, or None: fn(rows [N, F] int32, valid [N] bool) -> 0-dim
+    # bool, some valid row violates a claimed bound (kernel K23, its plain
+    # version on CPU tensors).  The engines take it from the expand and
+    # deferred routes (K17 and K18 evaluate it); it feeds only the sticky
+    # certificate leaf and ring column, no arbitration
+    cert_check: object = None
 
 
 def gen_backend(spec, prog=None) -> SpecBackend:
@@ -120,12 +127,14 @@ class KubeKernels(NamedTuple):
     cfg: ModelConfig
 
     def expand(self, block, n: int, deferred: bool = False):
-        """-> (packed, flags [5, ck*L], action, gen, flat=None)."""
-        return (*expand_block(self.cfg, block, n, deferred), None)
+        """-> (packed, flags [5, ck*L], action, gen, flat=None,
+        cert=None)."""
+        return (*expand_block(self.cfg, block, n, deferred), None, None)
 
     def deferred(self, ex, is_new_c, c_idx, rows: int):
-        return deferred_check(self.cfg, ex.block, is_new_c, c_idx,
-                              ex.action, rows)
+        """-> (viol, state, action, cert=None)."""
+        return (*deferred_check(self.cfg, ex.block, is_new_c, c_idx,
+                                ex.action, rows), None)
 
     def expand_sharded(self, queue, qhead, npop, ck: int,
                        deferred: bool = False, with_block: bool = False):
@@ -237,6 +246,9 @@ class ExpandOut(NamedTuple):
     # whose deferred check reads them (struct; the reference's
     # ExpandOut.flat), else None
     flat: torch.Tensor = None
+    # 0-dim bool: some valid successor of this block violated a certified
+    # bound (immediate mode of a backend with a certificate, else None)
+    cert: torch.Tensor = None
 
 
 def make_expand_stage(backend: SpecBackend, chunk: int,
@@ -267,7 +279,8 @@ def make_expand_stage(backend: SpecBackend, chunk: int,
 
     def expand(block: torch.Tensor, n: int) -> ExpandOut:
         dev = block.device
-        packed, flags, action, gen, flat = kernels.expand(block, n, deferred)
+        packed, flags, action, gen, flat, cert = kernels.expand(block, n,
+                                                                deferred)
         valid = flags[FLAG_VALID].bool()
         cov = None
         if backend.coverage is not None:
@@ -307,7 +320,7 @@ def make_expand_stage(backend: SpecBackend, chunk: int,
             viol=torch.where(hit, codes_on[dev].index_select(0, k)[0], OK),
             viol_words=words.index_select(0, k)[0],
             viol_action=torch.where(hit, acts.index_select(0, k)[0], -1),
-            block=block, cov=cov, flat=flat,
+            block=block, cov=cov, flat=flat, cert=cert,
         )
 
     return expand
@@ -373,8 +386,11 @@ def make_deferred_checker(backend: SpecBackend):
     order.
 
     Returns check(ex: ExpandOut, is_new_c, c_idx, rows) -> (viol,
-    viol_state [F], viol_action); `rows` bounds the rows that can be fresh
-    (R on the slab path, the whole batch on the sorted one)."""
+    viol_state [F], viol_action, cert); `rows` bounds the rows that can be
+    fresh (R on the slab path, the whole batch on the sorted one).  cert
+    is the fresh claimants' certificate (K23 inside K18) on a backend that
+    carries one, else None: in the deferred mode only fresh claimants are
+    certified (jaxtlc/engine/backend.py:335-341)."""
     kernels = backend.kernels
 
     def check(ex, is_new_c, c_idx, rows: int):

@@ -21,6 +21,14 @@ The frontier is a ping-pong pair of level buffers of packed states
 7. with ``obs_slots > 0``, writes the body's row of the counter ring
    (obs.counters.ring_row: kernel K8).
 
+A backend with a runtime certificate (a narrowed struct backend,
+``SpecBackend.cert_check``) carries the sticky ``cert_viol`` leaf: the
+expand stage's certificate of the block's valid successors (K23 inside
+K17) in the immediate mode, the deferred checker's of the fresh claimants
+(K23 inside K18) in the deferred mode, ORed in every commit and written
+to the ring's COL_CERT (jaxtlc/engine/bfs.py:602-610).  It feeds no
+arbitration: counts and table words equal the uncertified run's.
+
 With a coverage plane on the backend (``backend.kubeapi_backend(cfg,
 coverage=True)``), the expand stage also counts the block's site
 increments (kernel K10) and the commit folds them into the carry's
@@ -212,6 +220,11 @@ class EngineCarry(NamedTuple):
     # check (K18) reads them at the commit; KubeAPI's K7 derives them
     # again from the staged rows, so its carries hold None here
     st_flat: torch.Tensor = None
+    # the runtime certificate (None without a backend cert_check): sticky
+    # 0-dim bool, some generated state violated a certified bound; and the
+    # staged block's certificate (pipelined immediate-mode carries)
+    cert_viol: torch.Tensor = None
+    st_cert: torch.Tensor = None
 
 
 class CheckResult(NamedTuple):
@@ -234,6 +247,11 @@ class CheckResult(NamedTuple):
     # the final fingerprint table ([cap/8, 16] uint32 words), when the
     # caller asked for it on a clean verdict (struct.engine.check_struct)
     fp_table: np.ndarray = None
+    # the runtime certificate of a narrowed run: None = no certificate
+    # carried; False = every generated state satisfied the certified
+    # bounds; True = a claimed bound was violated (the run's counts are not
+    # to be trusted)
+    cert_violated: bool = None
 
 
 def resolve_device(device) -> torch.device:
@@ -469,9 +487,10 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
         # stage > capacity
         viol, viol_state = c.viol, c.viol_state
         viol_action = c.viol_action
+        d_cert = None
         if checker is not None:
-            d_viol, d_state, d_action = checker(ex, is_new_c, c_idx,
-                                                fresh_rows)
+            d_viol, d_state, d_action, d_cert = checker(ex, is_new_c, c_idx,
+                                                        fresh_rows)
             hit_d = (d_viol != OK) & (viol == OK)
             viol = torch.where(hit_d, d_viol, viol)
             viol_state = torch.where(hit_d, d_state, viol_state)
@@ -499,6 +518,12 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
         spill_hits = c.spill_hits
         if spill:
             spill_hits = c.spill_hits + (veto & ex.valid).sum()
+        cert_viol = c.cert_viol
+        cert_src = d_cert if deferred else ex.cert
+        if cert_src is not None and cert_viol is not None:
+            # sticky: once a block's certificate fired, every later carry
+            # and ring row carries the flag
+            cert_viol = cert_viol | cert_src
         if obs_slots:
             # one telemetry row per body (post-commit cumulative counters;
             # non-flip bodies write the dump row)
@@ -508,7 +533,8 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
                      n_labels, spill_hits if spill else None,
                      c.spill_hits if spill else None,
                      cov_counts if ex.cov is not None else None,
-                     c.cov_counts if ex.cov is not None else None)
+                     c.cov_counts if ex.cov is not None else None,
+                     cert=cert_viol)
 
         vals = torch.stack([parity, qhead, level_n, next_n, distinct, viol,
                             hit_ex.to(torch.int64)]).tolist()
@@ -521,7 +547,8 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
             next_n=next_n, level=level, depth=depth, generated=generated,
             distinct=distinct, viol=viol, viol_state=viol_state,
             viol_action=viol_action, spill_hits=spill_hits,
-            cov_counts=cov_counts, bundle=Bundle(*vals[:6]),
+            cov_counts=cov_counts, cert_viol=cert_viol,
+            bundle=Bundle(*vals[:6]),
         )
 
     commit.slab_fallbacks = 0
@@ -592,6 +619,10 @@ def make_backend_engine(
     # a pipelined deferred carry over an emitted backend stages the raw
     # successors its deferred check (K18) reads at the commit
     stage_flat = pipeline and deferred and backend.cfg is None
+    # a pipelined immediate-mode carry stages its block's certificate; the
+    # deferred checker derives it at the commit from st_flat
+    has_cert = backend.cert_check is not None
+    stage_cert = pipeline and has_cert and not deferred
 
     def i64(v):
         return torch.full((), v, dtype=torch.int64, device=dev)
@@ -645,6 +676,12 @@ def make_backend_engine(
                 extra["st_cov"] = zeros(backend.coverage.n_sites)
             if stage_flat:
                 extra["st_flat"] = zeros(ncand, F)
+            if stage_cert:
+                extra["st_cert"] = torch.zeros((), dtype=torch.bool,
+                                               device=dev)
+        if has_cert:
+            extra["cert_viol"] = torch.zeros((), dtype=torch.bool,
+                                             device=dev)
         return EngineCarry(
             fps=fps, queue=queue, parity=i64(0), qhead=i64(0),
             level_n=i64(n0), next_n=i64(0), level=i64(1), depth=i64(1),
@@ -676,7 +713,8 @@ def make_backend_engine(
             packed=c.st_packed, lo=c.st_lo, hi=c.st_hi, valid=c.st_valid,
             action=c.st_action, gen=c.st_gen, viol=c.st_viol,
             viol_words=c.st_viol_state, viol_action=c.st_viol_action,
-            block=staged_block(c, h, chunk), cov=c.st_cov, flat=c.st_flat)
+            block=staged_block(c, h, chunk), cov=c.st_cov, flat=c.st_flat,
+            cert=c.st_cert)
 
     def with_staged(c: EngineCarry, ex: ExpandOut, n: int) -> EngineCarry:
         # rebinds the expand stage's outputs, which are fresh tensors of
@@ -688,7 +726,7 @@ def make_backend_engine(
             st_gen=ex.gen, st_n=i64(n), st_viol=ex.viol,
             st_viol_state=ex.viol_words, st_viol_action=ex.viol_action,
             st_cov=ex.cov, st_flat=ex.flat if stage_flat else None,
-            st_block=None,
+            st_cert=ex.cert if stage_cert else None, st_block=None,
             bundle=h._replace(qhead=h.qhead + n, st_n=n))
 
     def pipelined_body(c: EngineCarry, h: Bundle) -> EngineCarry:
@@ -858,6 +896,7 @@ def result_from_carry(carry: EngineCarry, wall_s: float, iterations: int = -1,
     hist = carry.outdeg_hist.cpu().numpy()[:-1]  # drop the dump row
     viol = int(carry.viol)
     totals = cov_totals(carry)
+    cert = getattr(carry, "cert_viol", None)
     return CheckResult(
         generated=int(carry.generated),
         distinct=int(carry.distinct),
@@ -879,6 +918,7 @@ def result_from_carry(carry: EngineCarry, wall_s: float, iterations: int = -1,
         fp_occupancy=int(carry.distinct) / fp_capacity if fp_capacity else None,
         site_coverage=(None if totals is None or sites is None
                        else site_totals_dict(sites, totals)),
+        cert_violated=None if cert is None else bool(cert),
     )
 
 
@@ -949,8 +989,8 @@ def make_enumerator(backend, chunk: int = 1024,
     def body(c: EnumCarry) -> EnumCarry:
         n = min(chunk, c.tail - c.head)
         block = c.states[c.head:c.head + chunk]
-        packed, flags, action, _, _ = backend.kernels.expand(block, n,
-                                                             deferred=True)
+        packed, flags, action = backend.kernels.expand(block, n,
+                                                       deferred=True)[:3]
         fvalid = flags[FLAG_VALID].bool()
         lo, hi = fp64_words(packed, cdc.nbits, fp_index)
         fp_full = c.tail + ncand > fp_limit

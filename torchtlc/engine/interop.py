@@ -8,7 +8,9 @@ reference's dtype; the fingerprint set appears as ``fps``, its
 (``OBS_FIELDS``: the ring as uint32 words, its head as int32, the bodies
 and expanded counters as uint32) appear when the carry has them.  A
 spill-mode carry adds ``spill_hits`` (uint32), a covered carry its
-``cov_counts`` ([n_sites] uint32).
+``cov_counts`` ([n_sites] uint32), a carry with the runtime certificate (a
+narrowed struct run) its sticky ``cert_viol`` (bool) and, pipelined in the
+immediate mode, the staged block's ``st_cert`` (bool).
 A pipelined carry adds the staged block (``STAGED``, in the reference's
 dtypes; ``st_cov`` with coverage and, in the deferred mode, ``st_flat``)
 and needs its codec both ways (`codec`, or KubeAPI's from its
@@ -72,12 +74,14 @@ STAGED_DTYPES = {
     "st_valid": np.bool_, "st_action": np.int32, "st_gen": np.uint32,
     "st_n": np.int32, "st_viol": np.int32, "st_viol_state": np.int32,
     "st_viol_action": np.int32, "st_flat": np.int32, "st_cov": np.uint32,
+    "st_cert": np.bool_,
 }
 # the reference carry's leaf order (jax.tree_util.tree_leaves of an
-# EngineCarry: NamedTuple field order, None fields dropped; KubeAPI has
-# no certificate, symmetry or POR leaves)
+# EngineCarry: NamedTuple field order, None fields dropped; the port has
+# no symmetry or POR leaves)
 LEAF_ORDER = (FIELDS + STAGED + OBS_FIELDS
-              + ("spill_hits", "st_flat", "cov_counts", "st_cov"))
+              + ("spill_hits", "cert_viol", "st_cert", "st_flat",
+                 "cov_counts", "st_cov"))
 
 
 def _has(d, name) -> bool:
@@ -141,6 +145,8 @@ def _staged_to_numpy(c: EngineCarry, cfg, codec, deferred: bool) -> dict:
                 np.int32)
     if c.st_cov is not None:
         out["st_cov"] = c.st_cov.cpu().numpy().view(np.uint32)
+    if c.st_cert is not None:
+        out["st_cert"] = np.asarray(bool(c.st_cert), np.bool_)
     return out
 
 
@@ -171,6 +177,8 @@ def carry_to_numpy(c: EngineCarry, cfg=None, deferred: bool = False,
     if c.cov_counts is not None:
         out["cov_counts"] = (c.cov_counts.cpu().numpy() & 0xFFFFFFFF).astype(
             np.uint32)
+    if c.cert_viol is not None:
+        out["cert_viol"] = np.asarray(bool(c.cert_viol), np.bool_)
     if c.st_n is not None:
         out.update(_staged_to_numpy(c, cfg, codec, deferred))
     return out
@@ -203,6 +211,9 @@ def carry_from_numpy(d, device=None, cfg=None, codec=None,
     if _has(d, "cov_counts"):
         vals["cov_counts"] = torch.from_numpy(
             _get(d, "cov_counts").astype(np.int64)).to(dev)
+    if _has(d, "cert_viol"):
+        vals["cert_viol"] = torch.tensor(bool(_get(d, "cert_viol")),
+                                         device=dev)
     if _has(d, "st_n"):
         vals.update(_staged_from_numpy(d, staged_codec(cfg, codec), flat,
                                        dev, words))
@@ -236,6 +247,8 @@ def _staged_from_numpy(d, cdc, flat: bool, dev, words) -> dict:
     }
     if _has(d, "st_cov"):
         out["st_cov"] = words(_get(d, "st_cov"))
+    if _has(d, "st_cert"):
+        out["st_cert"] = torch.tensor(bool(_get(d, "st_cert")), device=dev)
     if flat:
         out["st_flat"] = t("st_flat", np.int32)
     return out

@@ -10,7 +10,8 @@ functions (``tt_*``) that launch on the stream they are given and return
 The second route, ``build_struct``, builds one spec's emitted kernels -
 K17 of a struct spec or K19 of a generic one, each with K18 and K21
 (struct_inv_rows.cuh, emitted_sharded.cuh, which both templates
-include), K20 of a generic spec's temporal operands and K22 of a struct
+include) and K23 (struct_cert.cuh, which struct_inv_rows.cuh includes:
+the runtime certificate of a narrowed struct spec), K20 of a generic spec's temporal operands and K22 of a struct
 spec's coverage conditions: the C++ that torchtlc.struct.emit prints
 around a hand-written template (struct_expand.cuh, gen_expand.cuh,
 gen_masks.cuh, struct_cov.cuh) goes to
@@ -93,7 +94,7 @@ def build(ptxas_report: bool = False) -> BuildInfo:
 STRUCT_TEMPLATES = ("common.cuh", "struct_prelude.cuh", "struct_codec.cuh",
                     "struct_expand.cuh", "gen_expand.cuh", "gen_masks.cuh",
                     "struct_inv_rows.cuh", "emitted_sharded.cuh",
-                    "struct_cov.cuh")
+                    "struct_cov.cuh", "struct_cert.cuh")
 HOST_FLAGS = ["-x", "c++", "-O1", "-std=c++17", "-shared", "-fPIC"]
 
 

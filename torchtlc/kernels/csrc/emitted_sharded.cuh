@@ -30,18 +30,20 @@
 // The lane body K17 and K21 share, for one row's fields f: run the
 // emitted step over its L lanes, mask the lanes by the pop (live) and
 // afail/ovf by validity, then per lane evaluate the invariants (their
-// rows stay 0 with kDeferred), pack the candidate, write its action and
-// count it.  The raw successor fields go to `fields` with kDeferred (K17's
-// flat) or kFields (K21's rows for the route).  idx0 is the row's first
-// candidate, ncand the flag-row stride; count(a) adds one generated
-// successor of action a.
-template <bool kDeferred, bool kFields, typename Count>
+// rows stay 0 with kDeferred), fold the raw candidate into the runtime
+// certificate (cert(s, valid): K23's st_cert_row under K17's kCert, a
+// no-op otherwise), pack it, write its action and count it.  The raw
+// successor fields go to `fields` with kDeferred (K17's flat) or kFields
+// (K21's rows for the route).  idx0 is the row's first candidate, ncand
+// the flag-row stride; count(a) adds one generated successor of action a.
+template <bool kDeferred, bool kFields, typename Count, typename Cert>
 HD void st_lanes_row(const int32_t* __restrict__ K, const int32_t* f,
                      bool live, long long idx0, long long ncand,
                      uint32_t* __restrict__ packed,
                      uint8_t* __restrict__ flags,
                      int32_t* __restrict__ action,
-                     int32_t* __restrict__ fields, Count& count) {
+                     int32_t* __restrict__ fields, Count& count,
+                     Cert& cert) {
   int32_t succ[ST_L * ST_F];
   bool valid[ST_L], ovf[ST_L], afail[ST_L];
   st_step(f, K, succ, valid, ovf, afail);
@@ -62,6 +64,7 @@ HD void st_lanes_row(const int32_t* __restrict__ K, const int32_t* f,
     }
     if (kDeferred || kFields)
       for (int j = 0; j < ST_F; j++) fields[idx * ST_F + j] = s[j];
+    cert(s, v);  // before the pack, which would wrap an escaped value
     st_pack(s, packed + idx * ST_W);
     action[idx] = lane_action[l];
     if (v) count(lane_action[l]);
@@ -104,9 +107,10 @@ __global__ void emitted_expand_sharded_kernel(
     emitted_sharded_pop(queue, qrows, qhead[d], d, r, f);
     const long long row = (long long)d * ck + r;
     EsSharedHist count{hist};
+    StCert<false> none;
     st_lanes_row<kDeferred, true>(K, f, r < npop[d], row * ST_L,
                                   (long long)gridDim.y * ck * ST_L, packed,
-                                  flags, action, fields, count);
+                                  flags, action, fields, count, none);
     if (block) st_pack(f, block + row * ST_W);
   }
   __syncthreads();
@@ -153,6 +157,7 @@ extern "C" int host_emitted_expand_sharded(const void* K, const void* queue,
   const long long ncand = (long long)D * ck * ST_L;
   for (int d = 0; d < D; d++) {
     EsHostGen count{(unsigned long long*)gen + (size_t)d * ST_NLABELS};
+    StCert<false> none;
     for (int r = 0; r < ck; r++) {
       int32_t f[ST_F];
       emitted_sharded_pop((const int32_t*)queue, qrows,
@@ -162,11 +167,13 @@ extern "C" int host_emitted_expand_sharded(const void* K, const void* queue,
       if (deferred)
         st_lanes_row<true, true>((const int32_t*)K, f, live, row * ST_L,
                                  ncand, (uint32_t*)packed, (uint8_t*)flags,
-                                 (int32_t*)action, (int32_t*)fields, count);
+                                 (int32_t*)action, (int32_t*)fields, count,
+                                 none);
       else
         st_lanes_row<false, true>((const int32_t*)K, f, live, row * ST_L,
                                   ncand, (uint32_t*)packed, (uint8_t*)flags,
-                                  (int32_t*)action, (int32_t*)fields, count);
+                                  (int32_t*)action, (int32_t*)fields, count,
+                                  none);
       if (block) st_pack(f, (uint32_t*)block + row * ST_W);
     }
   }

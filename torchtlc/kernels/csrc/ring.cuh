@@ -2,7 +2,7 @@
 // __host__ __device__ functions.
 //
 // Replaces jaxtlc/obs/counters.py:pack_row (:106, with COL_SPILL from
-// :32-35), wrapped_any (:150, over the pairs jaxtlc/engine/bfs.py:632-645
+// :32-35 and the sticky COL_CERT of :36-42, 105-121), wrapped_any (:150, over the pairs jaxtlc/engine/bfs.py:632-645
 // gives it, the coverage counters' included) and
 // the row layout of the module docstring: 10 fixed uint32 columns, then
 // the per-action generated and distinct counters.  The port's counters are
@@ -34,6 +34,7 @@ struct RingScalars {
   long long level, generated, distinct, queue, bodies, expanded;
   uint32_t overflow;
   long long spill;  // spill_hits in spill mode, else 0
+  uint32_t cert;    // the carry's sticky certificate flag, else 0
 };
 
 // column `col` of the row; act_gen / act_dist hold n_labels counters
@@ -48,7 +49,8 @@ HD uint32_t ring_cell(const RingScalars& v, const long long* act_gen,
     case 5: return ring_lo32(v.expanded);
     case RING_COL_OVERFLOW: return v.overflow;
     case 7: return ring_lo32(v.spill);
-    case 8: case 9: return 0u;  // cert, sym: not carried
+    case 8: return v.cert;
+    case 9: return 0u;  // sym: not carried
     default: break;
   }
   const int k = col - RING_N_FIXED;

@@ -27,7 +27,13 @@
 // K18 (its deferred invariant check, struct_inv_rows.cuh) and K21 (the
 // sharded engine's expand, emitted_sharded.cuh, which also holds the lane
 // body K17 runs after its unpack) are included before it: the generic
-// template includes them too.
+// template includes them too.  K23 (the runtime certificate of a narrowed
+// spec, struct_cert.cuh) comes with K18.  Under the kCert template flag
+// (the immediate mode of a backend with a certificate) K17 calls K23's
+// st_cert_row on each valid successor before it packs it, as the
+// reference checks the raw fields (jaxtlc/struct/backend.py:48-50), and
+// ORs the block's result into the zeroed int32 `cert` with
+// __syncthreads_or and one atomicOr.
 //
 // Bound: operations.  A row's step is straight-line integer code
 // (the unrolled lane IR, a few hundred to a few thousand statements per
@@ -47,18 +53,19 @@
 
 // K17's work for one popped row: idx0 = row * ST_L is its first candidate,
 // ncand = ck * ST_L the flag-row stride; count(a) adds one generated
-// successor of action a.
-template <bool kDeferred, typename Count>
+// successor of action a, cert(s, valid) folds a successor into the
+// certificate (StCert).
+template <bool kDeferred, typename Count, typename Cert>
 HD void st_expand_row(const int32_t* __restrict__ K,
                       const uint32_t* __restrict__ src, bool live,
                       long long idx0, long long ncand,
                       uint32_t* __restrict__ packed, uint8_t* __restrict__ flags,
                       int32_t* __restrict__ action, int32_t* __restrict__ flat,
-                      Count& count) {
+                      Count& count, Cert& cert) {
   int32_t f[ST_F];
   st_unpack(src, f);
   st_lanes_row<kDeferred, false>(K, f, live, idx0, ncand, packed, flags,
-                                 action, flat, count);
+                                 action, flat, count, cert);
 }
 
 extern "C" int tt_struct_dims(int* out) {
@@ -79,7 +86,7 @@ struct StSharedHist {
   __device__ void operator()(int a) { atomicAdd(&h[a], 1u); }
 };
 
-template <bool kDeferred>
+template <bool kDeferred, bool kCert>
 __global__ void struct_expand_kernel(const int32_t* __restrict__ K,
                                      const uint32_t* __restrict__ block,
                                      int ck, int n,
@@ -87,40 +94,45 @@ __global__ void struct_expand_kernel(const int32_t* __restrict__ K,
                                      uint8_t* __restrict__ flags,
                                      int32_t* __restrict__ action,
                                      int32_t* __restrict__ flat,
-                                     unsigned long long* __restrict__ gen) {
+                                     unsigned long long* __restrict__ gen,
+                                     int* __restrict__ cert) {
   __shared__ unsigned int hist[ST_NLABELS];
   for (int t = threadIdx.x; t < ST_NLABELS; t += blockDim.x) hist[t] = 0;
   __syncthreads();
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  StCert<kCert> c;
   if (row < ck) {
     StSharedHist count{hist};
     st_expand_row<kDeferred>(K, block + (size_t)row * ST_W, row < n,
                              (long long)row * ST_L, (long long)ck * ST_L,
-                             packed, flags, action, flat, count);
+                             packed, flags, action, flat, count, c);
   }
-  __syncthreads();
+  if (kCert) {
+    if (__syncthreads_or(c.bad) && threadIdx.x == 0) atomicOr(cert, 1);
+  } else {
+    __syncthreads();
+  }
   for (int t = threadIdx.x; t < ST_NLABELS; t += blockDim.x)
     if (hist[t]) atomicAdd(&gen[t], (unsigned long long)hist[t]);
 }
 
 // gen must hold ST_NLABELS zeroed (or accumulating) counters; flat is
-// written in deferred mode only ([ck*ST_L, ST_F] int32)
+// written in deferred mode only ([ck*ST_L, ST_F] int32); cert (immediate
+// mode only) is NULL, or one zeroed int32 that K23 sets (kCert)
 extern "C" int tt_struct_expand(const void* K, const void* block, int ck,
                                 int n, int deferred, void* packed,
                                 void* flags, void* action, void* flat,
-                                void* gen, void* stream) {
+                                void* gen, void* cert, void* stream) {
   const int threads = 128;
   const int blocks = (ck + threads - 1) / threads;
-  if (blocks > 0 && deferred)
-    struct_expand_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  auto kernel = deferred ? struct_expand_kernel<true, false>
+                : cert   ? struct_expand_kernel<false, true>
+                         : struct_expand_kernel<false, false>;
+  if (blocks > 0)
+    kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const int32_t*)K, (const uint32_t*)block, ck, n, (uint32_t*)packed,
         (uint8_t*)flags, (int32_t*)action, (int32_t*)flat,
-        (unsigned long long*)gen);
-  else if (blocks > 0)
-    struct_expand_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)K, (const uint32_t*)block, ck, n, (uint32_t*)packed,
-        (uint8_t*)flags, (int32_t*)action, (int32_t*)flat,
-        (unsigned long long*)gen);
+        (unsigned long long*)gen, (int*)cert);
   return (int)cudaGetLastError();
 }
 
@@ -131,11 +143,16 @@ struct StHostGen {
   void operator()(int a) { g[a]++; }
 };
 
-extern "C" int host_struct_expand(const void* K, const void* block, int ck,
-                                  int n, int deferred, void* packed,
-                                  void* flags, void* action, void* flat,
-                                  void* gen) {
+// cert (immediate mode only): NULL, or one int32 set to 1 when a valid
+// successor breaks a certified bound (K17's kCert form)
+extern "C" int host_struct_expand_cert(const void* K, const void* block,
+                                       int ck, int n, int deferred,
+                                       void* packed, void* flags,
+                                       void* action, void* flat, void* gen,
+                                       void* cert) {
   StHostGen count{(unsigned long long*)gen};
+  StCert<false> none;
+  StCert<true> c;
   const long long ncand = (long long)ck * ST_L;
   for (int row = 0; row < ck; row++) {
     const uint32_t* src = (const uint32_t*)block + (size_t)row * ST_W;
@@ -143,14 +160,28 @@ extern "C" int host_struct_expand(const void* K, const void* block, int ck,
       st_expand_row<true>((const int32_t*)K, src, row < n,
                           (long long)row * ST_L, ncand, (uint32_t*)packed,
                           (uint8_t*)flags, (int32_t*)action, (int32_t*)flat,
-                          count);
+                          count, none);
+    else if (cert)
+      st_expand_row<false>((const int32_t*)K, src, row < n,
+                           (long long)row * ST_L, ncand, (uint32_t*)packed,
+                           (uint8_t*)flags, (int32_t*)action,
+                           (int32_t*)flat, count, c);
     else
       st_expand_row<false>((const int32_t*)K, src, row < n,
                            (long long)row * ST_L, ncand, (uint32_t*)packed,
                            (uint8_t*)flags, (int32_t*)action,
-                           (int32_t*)flat, count);
+                           (int32_t*)flat, count, none);
   }
+  if (cert && c.bad) *(int*)cert = 1;
   return 0;
+}
+
+extern "C" int host_struct_expand(const void* K, const void* block, int ck,
+                                  int n, int deferred, void* packed,
+                                  void* flags, void* action, void* flat,
+                                  void* gen) {
+  return host_struct_expand_cert(K, block, ck, n, deferred, packed, flags,
+                                 action, flat, gen, nullptr);
 }
 
 #endif

@@ -26,8 +26,13 @@ KERNELS = ("expand", "fp64", "fpset_key", "fpset_probe", "fpset_claim",
            "verdict_fold", "shard_enqueue", "edge_capture", "state_masks",
            "survive_sweep", "struct_expand", "struct_inv_rows",
            "gen_expand", "gen_state_masks", "emitted_expand_sharded",
-           "struct_cov_count")
+           "struct_cov_count", "struct_cert_check")
 LAUNCHES = {name: 0 for name in KERNELS}
+# K23's certificate runs standalone (its own wrapper) or inside K17 (kCert)
+# and K18: each launch that evaluates it adds one to
+# LAUNCHES["struct_cert_check"] and one here under the kernel it rode in
+CERT_LAUNCHES = {"struct_cert_check": 0, "struct_expand": 0,
+                 "struct_inv_rows": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,7 +66,7 @@ _SIGNATURES = {
     "tt_coverage_count": ("coverage", [_P, _P, _I, _I, _P, _P, _P]),
     "tt_ring_row": ("ring", [_P, _I, _I, _P, _P, _P, _LL, _I, _P, _P, _P, _P,
                              _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
-                             _I, _P]),
+                             _I, _P, _P]),
     "tt_route_scatter": ("route", [_P, _P, _P, _P, _LL, _I, _I, _I, _P, _P,
                                    _P, _P, _P, _P, _P, _P, _P, _P, _P]),
     "tt_verdict_fold": ("route", [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
@@ -107,8 +112,15 @@ def lib() -> _Lib:
 
 
 def reset_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, CERT_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _cert_launched(host: str) -> None:
+    """One launch that evaluated K23's certificate, inside `host`."""
+    LAUNCHES["struct_cert_check"] += 1
+    CERT_LAUNCHES[host] += 1
 
 
 def _launched(name: str, rc: int) -> None:
@@ -505,10 +517,11 @@ def ring_row(ring, head, bodies, expanded, n_pop: int, flip: bool, level,
              gen_new, gen_old, dist_new, dist_old, queue_n, act_gen,
              act_dist, acts_old, n_labels: int, spill_new=None,
              spill_old=None, cov_new=None, cov_old=None,
-             entry: bool = False) -> None:
+             entry: bool = False, cert=None) -> None:
     """One ring row; see obs.counters.ring_row_plain (spill_new and
     spill_old, cov_new and cov_old: both or neither; entry writes the
-    counters as they were before the body)."""
+    counters as they were before the body; cert, the carry's 0-dim bool
+    certificate flag, fills COL_CERT)."""
     slots, cols = ring.shape[0] - 1, ring.shape[1]
     _need(ring, "ring", torch.int32)
     if slots < 1 or cols != 10 + 2 * n_labels:
@@ -538,6 +551,8 @@ def ring_row(ring, head, bodies, expanded, n_pop: int, flip: bool, level,
     _need(act_gen, "act_gen", torch.int64, (n_acts,))
     _need(act_dist, "act_dist", torch.int64, (n_acts,))
     _need(acts_old, "acts_old", torch.int64, (2 * n_acts,))
+    if cert is not None:
+        _need(cert, "cert", torch.bool, ())
     _launched("ring_row", lib().tt_ring_row(
         _ptr(ring), slots, cols, _ptr(head), _ptr(bodies), _ptr(expanded),
         n_pop, int(flip), _ptr(level), _ptr(gen_new), _ptr(gen_old),
@@ -547,7 +562,7 @@ def ring_row(ring, head, bodies, expanded, n_pop: int, flip: bool, level,
         None if spill_old is None else _ptr(spill_old), n_acts, n_labels,
         None if cov_new is None else _ptr(cov_new),
         None if cov_old is None else _ptr(cov_old), n_cov, int(entry),
-        _stream()))
+        None if cert is None else _ptr(cert), _stream()))
 
 
 # ---------------------------------------------------------------------------
@@ -812,10 +827,12 @@ def _emitted_lib(text: str, dims_fn: str, signatures, dims):
     return lib_
 
 
-# K18 and K21, which both emitted templates include
+# K18 and K21, which both emitted templates include (and K23, which K18's
+# header includes)
 _ROWS_SIGNATURES = (
     ("tt_struct_inv_rows", [_P, _P, _LL, _P, _P, _P, _I, _P, _P, _P, _P,
-                            _P]),
+                            _P, _P]),
+    ("tt_struct_cert_check", [_P, _P, _LL, _P, _P]),
     ("tt_emitted_expand_sharded", [_P, _P, _LL, _P, _P, _I, _I, _I, _P, _P,
                                    _P, _P, _P, _P, _P]),
 )
@@ -826,7 +843,8 @@ def struct_lib(prog):
     (struct.backend.StructProgram), built from its emitted text at first
     use and loaded once per text."""
     return _emitted_lib(prog.text, "tt_struct_dims", (
-        ("tt_struct_expand", [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
+        ("tt_struct_expand", [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                              _P]),
         *_ROWS_SIGNATURES),
         (prog.F, prog.W, prog.L, prog.n_inv, prog.n_labels))
 
@@ -838,10 +856,17 @@ def emitted_lib(prog):
         else struct_lib(prog)
 
 
-def struct_expand(prog, block: torch.Tensor, n: int, deferred: bool = False):
+def struct_expand(prog, block: torch.Tensor, n: int, deferred: bool = False,
+                  cert: bool = False):
     """K17 -> (packed [ck*L, W] int32, flags [3 + n_inv, ck*L] uint8, action
     [ck*L] int32, gen [n_labels] int64, flat [ck*L, F] int32 in deferred
-    mode else None); see struct.backend.StructProgram.expand_plain."""
+    mode else None); with `cert` (immediate mode of a program that carries
+    the runtime certificate: the kCert form, K23 inside K17) a sixth
+    output, the block's 0-dim bool certificate; see
+    struct.backend.StructProgram.expand_plain."""
+    if cert and (deferred or prog.cert is None):
+        raise ValueError("struct_expand: the certificate runs in the "
+                         "immediate mode of a narrowed program")
     ck = block.shape[0]
     _need(block, "block", torch.int32, (ck, prog.W))
     dev = block.device
@@ -852,20 +877,30 @@ def struct_expand(prog, block: torch.Tensor, n: int, deferred: bool = False):
     gen = torch.zeros(prog.n_labels, dtype=torch.int64, device=dev)
     flat = (torch.empty(ncand, prog.F, dtype=torch.int32, device=dev)
             if deferred else None)
+    flag = torch.zeros((), dtype=torch.int32, device=dev) if cert else None
     K = prog.constants(dev)
     rc = struct_lib(prog).tt_struct_expand(
         _ptr(K), _ptr(block), ck, n, int(deferred), _ptr(packed),
         _ptr(flags), _ptr(action), _ptr(flat) if deferred else None,
-        _ptr(gen), _stream())
+        _ptr(gen), _ptr(flag) if cert else None, _stream())
     _launched("struct_expand", rc)
-    return packed, flags, action, gen, flat
+    if not cert:
+        return packed, flags, action, gen, flat
+    _cert_launched("struct_expand")
+    return packed, flags, action, gen, flat, flag.bool()
 
 
 def struct_inv_rows(prog, flat: torch.Tensor, fresh: torch.Tensor,
-                    c_idx: torch.Tensor, action, rows: int):
+                    c_idx: torch.Tensor, action, rows: int,
+                    cert: bool = False):
     """K18 -> (viol 0-dim int64, state [F] int32, action 0-dim int64); see
     struct.backend.StructProgram.inv_rows_plain.  `prog` is a struct or a
-    generic program; action None (received rows) reports -1."""
+    generic program; action None (received rows) reports -1.  With `cert`
+    (a program that carries the runtime certificate: K23 inside K18) a
+    fourth output, the fresh claimants' 0-dim bool certificate."""
+    if cert and prog.cert is None:
+        raise ValueError("struct_inv_rows: the program carries no "
+                         "certificate")
     from ..struct.backend import VIOL_INVARIANT_BASE
 
     ncand = flat.shape[0]
@@ -883,12 +918,35 @@ def struct_inv_rows(prog, flat: torch.Tensor, fresh: torch.Tensor,
     viol = torch.empty((), dtype=torch.int64, device=dev)
     state = torch.empty(prog.F, dtype=torch.int32, device=dev)
     vaction = torch.empty((), dtype=torch.int64, device=dev)
+    flag = torch.zeros((), dtype=torch.int32, device=dev) if cert else None
     _launched("struct_inv_rows", emitted_lib(prog).tt_struct_inv_rows(
         _ptr(prog.constants(dev)), _ptr(flat), rows, _ptr(fresh),
         _ptr(c_idx), None if action is None else _ptr(action),
         VIOL_INVARIANT_BASE, _ptr(scratch), _ptr(viol), _ptr(state),
-        _ptr(vaction), _stream()))
-    return viol, state, vaction
+        _ptr(vaction), _ptr(flag) if cert else None, _stream()))
+    if not cert:
+        return viol, state, vaction
+    _cert_launched("struct_inv_rows")
+    return viol, state, vaction, flag.bool()
+
+
+def struct_cert_check(prog, rows: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """K23 standalone -> 0-dim bool: some valid row of rows [N, F] int32
+    breaks a bound the program's certificate claims; see
+    struct.backend.StructProgram.cert_plain.  valid: [N] bool."""
+    if prog.cert is None:
+        raise ValueError("struct_cert_check: the program carries no "
+                         "certificate")
+    N = rows.shape[0]
+    _need(rows, "rows", torch.int32, (N, prog.F))
+    _need(valid, "valid", torch.bool, (N,))
+    flag = torch.zeros((), dtype=torch.int32, device=rows.device)
+    rc = struct_lib(prog).tt_struct_cert_check(_ptr(rows), _ptr(valid), N,
+                                               _ptr(flag), _stream())
+    _launched("struct_cert_check", rc)
+    CERT_LAUNCHES["struct_cert_check"] += 1
+    return flag.bool()
 
 
 def emitted_expand_sharded(prog, queue: torch.Tensor, qhead: torch.Tensor,

@@ -209,8 +209,8 @@ def sweep_edges(backend, states: torch.Tensor, chunk: int = 1024,
     pad[:V] = states
     spillway = _EdgeSpill(spill_path, ram_edges=ram_edges)
     for off in range(0, Vp, chunk):
-        packed, flags, action, _, _ = backend.kernels.expand(
-            pad[off:off + chunk], min(chunk, V - off), deferred=True)
+        packed, flags, action = backend.kernels.expand(
+            pad[off:off + chunk], min(chunk, V - off), deferred=True)[:3]
         q_lo, q_hi = fp64_words(packed, cdc.nbits, fp_index)
         edges, missing = edge_capture(s_hi, s_lo, perm, q_hi, q_lo,
                                       flags[FLAG_VALID], action, off, L)

@@ -44,6 +44,23 @@ def render_tlc_event(log, ev: dict, resume_cmd: str = "") -> None:
                           f"{ev['warnings']} warning(s) "
                           f"({ev['findings']} finding(s) total).",
                     severity=1)
+    elif kind == "level" and ev.get("cert_violation"):
+        # the ring's sticky COL_CERT flag: a generated state violated a
+        # bound the certified abstract interpretation claimed - loud once
+        # per run; the command escalates the verdict to error
+        if not getattr(log, "_warned_cert_violation", False):
+            log._warned_cert_violation = True
+            log.msg(
+                1000,
+                "ERROR: runtime certificate violation - a reachable "
+                "state lies outside the certified bounds the narrowed "
+                "codec was built from (jaxtlc.analysis.absint); the "
+                "narrowed run's results are NOT trustworthy.  Re-run "
+                "with -no-narrow and report the spec.",
+                severity=1,
+            )
+        if ev.get("counter_overflow"):
+            render_tlc_event(log, {**ev, "cert_violation": False})
     elif kind == "level" and ev.get("counter_overflow"):
         # the ring's sticky COL_OVERFLOW flag: warn once per run
         if not getattr(log, "_warned_counter_overflow", False):

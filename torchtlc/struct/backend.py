@@ -27,8 +27,20 @@ The emitted C++ of the step and the invariants (struct.emit) is built
 into a shared library at the first launch on the card (kernels.build,
 ``_build/struct/<digest>/``); the constant tables are uploaded to the
 card once per backend and device.  Lane labels come from one IR build:
-no data run.  The reference's narrowed codec (``-narrow``) and
-symmetry/POR reduction are not ported yet (ROADMAP Queue A items 11, 13).
+no data run.
+
+``struct_backend(model, bounds=...)`` with a certified bound report
+(analysis.absint, ``-narrow``) builds the narrowed compile
+(jaxtlc/struct/backend.py:74-187): the certified shapes feed the codec,
+the compiler drops the range traps and slot lanes the bounds prove safe,
+and the backend carries the runtime certificate - kernel K23
+``struct_cert_check`` (torchtlc/kernels/csrc/struct_cert.cuh): every
+valid generated state's raw fields against the codec's maximum codes,
+every cardinality-bounded mask's popcount against its bound.  On the
+engine K17 evaluates it on each valid successor before packing it
+(immediate mode) and K18 on the fresh claimants (deferred mode); the
+plain version is ``StructProgram.cert_plain``.  Symmetry and POR
+reduction are not ported yet (ROADMAP Queue A item 13).
 """
 
 from __future__ import annotations
@@ -38,10 +50,10 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from ..engine.backend import OK, VIOL_ASSERT, SpecBackend
+from ..engine.backend import OK, VIOL_ASSERT, VIOL_SLOT_OVERFLOW, SpecBackend
 from . import lanes
-from .codec import StructCodec
-from .compile import LaneCompiler
+from .codec import MaskLeaf, StructCodec
+from .compile import LaneCompiler, TrapPolicy
 from .emit import cov_source, spec_source
 from .loader import StructModel
 from .shapes import infer_shapes, typeok_hints
@@ -56,6 +68,26 @@ def struct_viol_names(model: StructModel) -> Dict[int, str]:
     for k, name in enumerate(model.invariants):
         names[VIOL_INVARIANT_BASE + k] = f"Invariant {name} is violated"
     return names
+
+
+def _card_specs(cdc: StructCodec, variables, card_bounds) -> list:
+    """(field offset, field count, bound) triples for the mask-layout
+    variables whose certified cardinality bound actually constrains
+    (jaxtlc/struct/backend.py:74)."""
+    out = []
+    for v, lay in zip(variables, cdc.layouts):
+        bound = (card_bounds or {}).get(v)
+        if bound is None or not isinstance(lay, MaskLeaf):
+            continue
+        if bound < lay.n_bits:
+            out.append((cdc.offsets[v], lay.n_fields, bound))
+    return out
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Bit count of the low 32 bits of each int64 element."""
+    x = x & 0xFFFFFFFF
+    return sum((x >> b) & 1 for b in range(32))
 
 
 class _Constants:
@@ -79,7 +111,13 @@ class StructProgram(_Constants):
 
     def __init__(self, step_outputs, inv_outputs, cdc: StructCodec,
                  lane_action: np.ndarray, n_labels: int, title: str,
-                 template: str = "struct_expand.cuh"):
+                 template: str = "struct_expand.cuh", card_specs=None):
+        """`card_specs` (a list, possibly empty) makes the program carry
+        the runtime certificate over the codec's maximum codes and these
+        (offset, fields, bound) mask bounds; None carries none."""
+        self.cert = None if card_specs is None else (
+            tuple(int(c) for c in cdc.max_codes()),
+            tuple(tuple(int(x) for x in spec) for spec in card_specs))
         self.step_outputs = tuple(step_outputs)
         self.inv_outputs = tuple(inv_outputs)
         self.cdc = cdc
@@ -93,7 +131,8 @@ class StructProgram(_Constants):
         self.text, self.K = spec_source(
             self.step_outputs, self.inv_outputs, n_fields=self.F,
             widths=cdc.widths, n_words=self.W, lane_action=self.lane_action,
-            n_labels=n_labels, title=title, template=template)
+            n_labels=n_labels, title=title, template=template,
+            cert=self.cert)
         self._K_dev: Dict[str, torch.Tensor] = {}
 
     def stats(self) -> dict:
@@ -122,11 +161,28 @@ class StructProgram(_Constants):
                 bits |= ok.reshape(-1).expand(N).to(torch.int32) << k
         return bits
 
+    def cert_plain(self, rows: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+        """Torch version of kernel K23 (the reference's make_cert_check,
+        jaxtlc/struct/backend.py:46-71): rows [N, F] int32 raw fields,
+        valid [N] bool -> 0-dim bool, some valid row holds a field outside
+        [0, its maximum code] or a cardinality-bounded mask whose popcount
+        (its fields as uint32) exceeds the bound."""
+        max_code, specs = self.cert
+        mc = torch.tensor(max_code, dtype=torch.int32, device=rows.device)
+        viol = ((rows < 0) | (rows > mc)).any(1)
+        for off, nf, bound in specs:
+            pc = _popcount32(rows[:, off:off + nf].to(torch.int64)).sum(1)
+            viol = viol | (pc > bound)
+        return (viol & valid.bool()).any()
+
     def expand_plain(self, block: torch.Tensor, n: int,
-                     deferred: bool = False):
+                     deferred: bool = False, cert: bool = False):
         """Torch version of kernel K17: (packed [ck*L, W] int32, flags
         [3 + n_inv, ck*L] uint8, action [ck*L] int32, gen [n_labels]
-        int64, flat [ck*L, F] int32 in deferred mode else None)."""
+        int64, flat [ck*L, F] int32 in deferred mode else None); with
+        `cert` (its kCert form) a sixth output, the 0-dim bool certificate
+        of the valid successors (cert_plain before packing)."""
         ck = block.shape[0]
         dev = block.device
         succ, valid, ovf, afail = self.step_plain(self.cdc.unpack(block))
@@ -148,8 +204,9 @@ class StructProgram(_Constants):
         gen = torch.zeros(self.n_labels, dtype=torch.int64, device=dev)
         gen.index_add_(0, la.to(torch.int64), valid.sum(0))
         flags = torch.stack(rows).to(torch.uint8)
-        return (self.cdc.pack(flat), flags, action, gen,
-                flat if deferred else None)
+        out = (self.cdc.pack(flat), flags, action, gen,
+               flat if deferred else None)
+        return out + (self.cert_plain(flat, fvalid),) if cert else out
 
     def expand_sharded_plain(self, queue: torch.Tensor, qhead: torch.Tensor,
                              npop: torch.Tensor, ck: int,
@@ -194,7 +251,8 @@ class StructProgram(_Constants):
 
     def inv_rows_plain(self, flat: torch.Tensor, fresh: torch.Tensor,
                        c_idx: torch.Tensor, action, rows: int,
-                       code_base: int = VIOL_INVARIANT_BASE):
+                       code_base: int = VIOL_INVARIANT_BASE,
+                       cert: bool = False):
         """Torch version of kernel K18: the invariants of the fresh
         claimants among the first `rows` rows of an insert's (is_new_c,
         c_idx), read from their raw successors flat[c_idx] (the expand
@@ -202,9 +260,15 @@ class StructProgram(_Constants):
         First wins across the invariants; within one the highest violating
         lane.  Returns (viol 0-dim int64, state [F] int32, action 0-dim
         int64 - -1 when `action` is None); (OK, zeros, -1) when every
-        fresh claimant passes."""
+        fresh claimant passes.  With `cert` a fourth output: the 0-dim
+        bool certificate of the fresh claimants' rows (cert_plain)."""
         dev = flat.device
         lanes_ = c_idx[:rows][fresh[:rows].bool()]
+        cert_bad = None
+        if cert:
+            cert_bad = self.cert_plain(
+                flat[lanes_], torch.ones(lanes_.numel(), dtype=torch.bool,
+                                         device=dev))
         viol, state, vaction = OK, torch.zeros(self.F, dtype=torch.int32,
                                                 device=dev), -1
         if lanes_.numel():
@@ -220,7 +284,8 @@ class StructProgram(_Constants):
         def i64(v):
             return torch.tensor(v, dtype=torch.int64, device=dev)
 
-        return i64(viol), state, i64(vaction)
+        out = (i64(viol), state, i64(vaction))
+        return out + (cert_bad,) if cert else out
 
 
 class EmittedRows:
@@ -267,20 +332,40 @@ class StructKernels(EmittedRows):
         self.cov = cov
 
     def expand(self, block: torch.Tensor, n: int, deferred: bool = False):
+        """-> (packed, flags, action, gen, flat, cert): cert is the block's
+        certificate (K17's kCert form) in the immediate mode of a backend
+        that carries one, else None."""
+        cert = self.prog.cert is not None and not deferred
         if not block.is_cuda:
-            return self.prog.expand_plain(block, n, deferred)
-        from ..kernels import ops
+            out = self.prog.expand_plain(block, n, deferred, cert)
+        else:
+            from ..kernels import ops
 
-        return ops.struct_expand(self.prog, block, n, deferred)
+            out = ops.struct_expand(self.prog, block, n, deferred, cert)
+        return out if cert else out + (None,)
 
     def deferred(self, ex, is_new_c, c_idx, rows: int):
+        """-> (viol, state, action, cert): cert is the fresh claimants'
+        certificate when the backend carries one, else None."""
+        cert = self.prog.cert is not None
         if not ex.flat.is_cuda:
-            return self.prog.inv_rows_plain(ex.flat, is_new_c, c_idx,
-                                            ex.action, rows)
+            out = self.prog.inv_rows_plain(ex.flat, is_new_c, c_idx,
+                                           ex.action, rows, cert=cert)
+        else:
+            from ..kernels import ops
+
+            out = ops.struct_inv_rows(self.prog, ex.flat, is_new_c, c_idx,
+                                      ex.action, rows, cert=cert)
+        return out if cert else out + (None,)
+
+    def cert(self, rows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        """The certificate of raw rows [N, F] under valid [N]: kernel K23
+        on CUDA tensors, its plain version on CPU tensors."""
+        if not rows.is_cuda:
+            return self.prog.cert_plain(rows, valid)
         from ..kernels import ops
 
-        return ops.struct_inv_rows(self.prog, ex.flat, is_new_c, c_idx,
-                                   ex.action, rows)
+        return ops.struct_cert_check(self.prog, rows, valid)
 
 
 class StructCoverage(_Constants):
@@ -346,18 +431,27 @@ class StructCoverage(_Constants):
         return ops.struct_cov_count(self, block, n, valid)
 
 
-def compile_model(model: StructModel):
+def compile_model(model: StructModel, var_shapes=None,
+                  trap_policy: TrapPolicy = None):
     """(codec, LaneCompiler, step outputs, invariant outputs) of a model:
-    shape inference with the TypeOK hints, then one build of the step
-    and of each invariant on ``lanes.input_node(F)``."""
+    shape inference with the TypeOK hints (or the given `var_shapes`, a
+    certified bound report's), then one build of the step and of each
+    invariant on ``lanes.input_node(F)``.  The compiler's ``trap_stats``
+    are the step's (range-trap sites, elided traps, reduced slot lanes),
+    as the reference reads them after its step trace."""
     system = model.system
-    hints = typeok_hints(system.ev, model.invariants, system.variables)
-    var_shapes = infer_shapes(system.ev, system.variables, system.init_ast,
-                              system.next_ast, hints=hints)
+    if var_shapes is None:
+        hints = typeok_hints(system.ev, model.invariants, system.variables)
+        var_shapes = infer_shapes(system.ev, system.variables,
+                                  system.init_ast, system.next_ast,
+                                  hints=hints)
     cdc = StructCodec(system.variables, var_shapes)
-    compiler = LaneCompiler(system.ev, system.variables, var_shapes, cdc)
+    compiler = LaneCompiler(system.ev, system.variables, var_shapes, cdc,
+                            trap_policy=trap_policy)
     inp = lanes.input_node(cdc.n_fields)
     step_outputs = compiler.build_step(system.next_ast)(inp)
+    compiler.trap_stats = (compiler.trap_sites, compiler.elided_traps,
+                           compiler.reduced_slot_lanes)
     inv_outputs = [compiler.build_invariant(ast)(inp)
                    for ast in model.invariants.values()]
     return cdc, compiler, step_outputs, inv_outputs
@@ -388,18 +482,41 @@ def coverage_plane(model: StructModel, cdc: StructCodec,
 
 
 def struct_backend(model: StructModel, check_deadlock: bool = True,
+                   bounds=None, elide: bool = True,
                    coverage: bool = False) -> SpecBackend:
     """Compile `model` into a SpecBackend (the pipeline struct.cache
-    memoizes in-process); `coverage` adds the device coverage plane."""
+    memoizes in-process); `coverage` adds the device coverage plane.
+
+    `bounds` (a CERTIFIED analysis.absint.BoundReport) swaps the widened
+    inferred shapes for the certified reachable bounds, so the codec
+    packs fewer bits; with `elide` (the default) the compiler drops the
+    range traps and slot lanes the bounds prove safe and the backend
+    carries the runtime certificate (kernel K23 inside K17 and K18), so an
+    unsound bound turns the verdict loud instead of narrowing real states
+    away.  `elide=False` narrows the codec, keeps every trap and carries
+    no certificate (the sharded engines, which have no certificate
+    column).  An uncertified report narrows nothing."""
     system = model.system
-    cdc, compiler, step_outputs, inv_outputs = compile_model(model)
+    var_shapes = trap_policy = card_specs = None
+    if bounds is not None and getattr(bounds, "certified", False):
+        var_shapes = {v: bounds.bounds[v] for v in system.variables}
+        if elide:
+            trap_policy = TrapPolicy(elide_range=True,
+                                     card_bounds=dict(bounds.card_bounds))
+    else:
+        bounds = None
+    cdc, compiler, step_outputs, inv_outputs = compile_model(
+        model, var_shapes, trap_policy)
+    if trap_policy is not None:
+        card_specs = _card_specs(cdc, system.variables, bounds.card_bounds)
     labels: List[str] = list(compiler.labels)
     action_names: Tuple[str, ...] = tuple(sorted(set(labels)))
     lane_action = np.asarray([action_names.index(x) for x in labels],
                              np.int32)
     prog = StructProgram(step_outputs, inv_outputs, cdc, lane_action,
                          len(action_names),
-                         title=f"{model.root_name} ({model.source_digest})")
+                         title=f"{model.root_name} ({model.source_digest})",
+                         card_specs=card_specs)
 
     def initial_vectors():
         inits = system.initial_states()
@@ -409,6 +526,18 @@ def struct_backend(model: StructModel, check_deadlock: bool = True,
     if coverage:
         plane, cov = coverage_plane(model, cdc, compiler, lane_action,
                                     action_names)
+    viol_names = struct_viol_names(model)
+    if bounds is not None:
+        viol_names[VIOL_SLOT_OVERFLOW] = (
+            "Codec slot overflow / certified-bound escape (narrowed "
+            "codec: a value left the certified reachable range - "
+            "re-run with -no-narrow; if that passes, report the spec: "
+            "the bound certification is unsound)"
+        )
+    kernels = StructKernels(prog, cov)
+    # trap-audit surface (range-trap sites, elided traps, reduced slot
+    # lanes), as the reference's backend.cdc.trap_stats
+    cdc.trap_stats = compiler.trap_stats
     return SpecBackend(
         cdc=cdc,
         n_lanes=len(labels),
@@ -417,10 +546,11 @@ def struct_backend(model: StructModel, check_deadlock: bool = True,
                         for k in range(len(model.invariants))),
         initial_vectors=initial_vectors,
         labels=action_names,
-        viol_names=struct_viol_names(model),
+        viol_names=viol_names,
         check_deadlock=check_deadlock,
-        kernels=StructKernels(prog, cov),
+        kernels=kernels,
         coverage=plane,
+        cert_check=kernels.cert if card_specs is not None else None,
     )
 
 
@@ -436,15 +566,20 @@ def canonical_constants(model: StructModel) -> dict:
     return out
 
 
-def struct_meta_config(model: StructModel) -> dict:
+def struct_meta_config(model: StructModel, bounds=None) -> dict:
     """The checkpoint `config` stanza for struct runs: digest + canonical
     constants + invariant list - everything that shapes the compiled
     step, so a -recover against a different spec text or overrides is a
-    loud mismatch, never a silent misrun."""
-    return {
+    loud mismatch, never a silent misrun.  A narrowed run also records
+    its bound digest: a narrowed checkpoint resumed without -narrow is a
+    different carry layout and mismatches loudly."""
+    out = {
         "frontend": "struct",
         "root": model.root_name,
         "digest": model.source_digest,
         "constants": canonical_constants(model),
         "invariants": list(model.invariants),
     }
+    if bounds is not None:
+        out["bound_digest"] = bounds.digest()
+    return out

@@ -2,13 +2,15 @@
 
 Compiling a struct spec - parse, shape inference, the lane-IR build and
 the C++ emission - is a pure function of the spec's meaning (source
-digest, canonical constants, invariant list), the deadlock switch and the
-coverage switch, so
-one process builds each backend once; the memo keeps the 64 most recently
-used.  The reference's persistent XLA cache has its counterpart in the
-build directory of the emitted kernel libraries, ``torchtlc/kernels/
-_build/struct/<digest>/``: a second process checking the same spec finds
-its library there and skips nvcc.  The port builds no engine ahead of
+digest, canonical constants, invariant list), the deadlock switch, the
+certified bound report's digest with the trap-elision switch (``-narrow``)
+and the coverage switch, so one process builds each backend once; the memo
+keeps the 64 most recently used.  The certified bound reports
+(analysis.absint) are memoized the same way, by the spec's meaning.  The
+reference's persistent XLA cache has its counterpart in the build
+directory of the emitted kernel libraries, ``torchtlc/kernels/_build/
+struct/<digest>/``: a second process checking the same spec finds its
+library there and skips nvcc.  The port builds no engine ahead of
 time (PyTorch runs eagerly), so there is no engine memo.
 """
 
@@ -18,6 +20,19 @@ from collections import OrderedDict
 
 MEMO_CAP = 64
 _BACKENDS: OrderedDict = OrderedDict()
+_BOUNDS: OrderedDict = OrderedDict()
+
+
+def _memo(memo: OrderedDict, key, build):
+    """memo[key], built by build() at the first miss; least recently used
+    entries beyond MEMO_CAP go."""
+    hit = memo.get(key)
+    if hit is None:
+        hit = memo[key] = build()
+        while len(memo) > MEMO_CAP:
+            memo.popitem(last=False)
+    memo.move_to_end(key)
+    return hit
 
 
 def model_key(model) -> tuple:
@@ -35,17 +50,26 @@ def model_key(model) -> tuple:
     )
 
 
-def get_backend(model, check_deadlock: bool = True, coverage: bool = False):
-    """Memoized struct_backend."""
+def get_bounds(model):
+    """Memoized certified bound report (analysis.absint) for a struct model
+    (jaxtlc/struct/cache.py:161): the backend memo and the checkpoint meta
+    derive their keys from this one report."""
+    from ..analysis.absint import analyze_bounds
+
+    return _memo(_BOUNDS, model_key(model), lambda: analyze_bounds(model))
+
+
+def get_backend(model, check_deadlock: bool = True, bounds=None,
+                elide: bool = True, coverage: bool = False):
+    """Memoized struct_backend.  `bounds` (a certified BoundReport) selects
+    the narrowed compile, a distinct entry keyed on its digest; `elide`
+    False keeps every trap and carries no certificate (the sharded
+    routes)."""
     from .backend import struct_backend
 
-    key = (model_key(model), bool(check_deadlock), bool(coverage))
-    hit = _BACKENDS.get(key)
-    if hit is None:
-        hit = struct_backend(model, check_deadlock=check_deadlock,
-                             coverage=coverage)
-        _BACKENDS[key] = hit
-        while len(_BACKENDS) > MEMO_CAP:
-            _BACKENDS.popitem(last=False)
-    _BACKENDS.move_to_end(key)
-    return hit
+    key = (model_key(model), bool(check_deadlock),
+           "" if bounds is None else bounds.digest(), bool(elide),
+           bool(coverage))
+    return _memo(_BACKENDS, key, lambda: struct_backend(
+        model, check_deadlock=check_deadlock, bounds=bounds, elide=elide,
+        coverage=coverage))

@@ -267,7 +267,7 @@ def _sum(terms: List[str]) -> str:
 def spec_source(step_outputs, inv_outputs, *, n_fields: int,
                 widths: Sequence[int], n_words: int, lane_action,
                 n_labels: int, title: str,
-                template: str = "struct_expand.cuh"):
+                template: str = "struct_expand.cuh", cert=None):
     """(source text, K constants) of one spec: the macros and functions
     the kernel template builds its kernels around -
     torchtlc/kernels/csrc/struct_expand.cuh (K17 and K18) for a struct
@@ -275,7 +275,10 @@ def spec_source(step_outputs, inv_outputs, *, n_fields: int,
 
     step_outputs are build_step's (succs [1, L, F], valid, ovf, afail
     [1, L]) on ``lanes.input_node(F)``, inv_outputs one ok [1] node per
-    invariant."""
+    invariant.  `cert` - (the [F] maximum codes, the (offset, fields,
+    bound) mask triples) of a narrowed backend's runtime certificate -
+    prints the tables of kernel K23 (struct_cert.cuh): ST_CERT 1,
+    ST_MAX_CODE, ST_NCARD and ST_CARD_SPECS; None prints ST_CERT 0."""
     succs, valid, ovf, afail = step_outputs
     L = succs.shape[1]
     F = n_fields
@@ -324,8 +327,21 @@ def spec_source(step_outputs, inv_outputs, *, n_fields: int,
         "#define ST_WIDTHS " + ", ".join(str(int(w)) for w in widths),
         "#define ST_LANE_ACTION " + ", ".join(str(int(a))
                                               for a in lane_action),
-        "",
     ]
+    if cert is None:
+        head.append("#define ST_CERT 0")
+    else:
+        max_code, card_specs = cert
+        if len(max_code) != F:
+            raise EmitError(f"{len(max_code)} maximum codes for {F} fields")
+        head += ["#define ST_CERT 1",
+                 "#define ST_MAX_CODE " + ", ".join(str(int(c))
+                                                    for c in max_code),
+                 f"#define ST_NCARD {len(card_specs)}"]
+        if card_specs:
+            head.append("#define ST_CARD_SPECS " + ", ".join(
+                str(int(x)) for spec in card_specs for x in spec))
+    head.append("")
     text = "\n".join(head) + "\n\n".join(prog.functions) + (
         f"\n\n#include \"{template}\"\n")
     return text, K

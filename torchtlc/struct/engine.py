@@ -11,8 +11,12 @@ engine (engine.sharded: D fingerprint-space shards in one process, kernel
 K21 for the emitted step over the shards' raw queue rows and K18 on each
 owner's received rows).  ``coverage=True`` carries the device coverage
 plane (kernel K22 per popped block, CheckResult.site_coverage) on both
-engines; ``pipeline=True`` runs the pipelined body.  The narrowed and
-reduced engines are not ported yet (ROADMAP Queue A items 11, 13).
+engines; ``pipeline=True`` runs the pipelined body.  ``bounds`` (a
+certified analysis.absint.BoundReport, ``-narrow``) runs the narrowed
+compile: on one device with the runtime certificate (kernel K23 inside
+K17 and K18, CheckResult.cert_violated), on the sharded engine with every
+trap kept and no certificate, as the reference.  The reduced engines are
+not ported yet (ROADMAP Queue A item 13).
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ def check_struct(
     device=None,
     coverage: bool = False,
     pipeline: bool = False,
+    bounds=None,
 ) -> CheckResult:
     """Exhaustive check of a struct-compiled spec on `device` (None = the
     card).  sort_free and deferred are tri-state (None = auto: on at
@@ -58,9 +63,12 @@ def check_struct(
     the counter ring; capture_fps reads the final fingerprint table back
     to the host on a clean verdict (CheckResult.fp_table); coverage
     carries the device coverage plane (CheckResult.site_coverage);
-    pipeline runs the pipelined body.  wall_s times the run only: the
-    backend is compiled and its kernels built before it."""
-    backend = get_backend(model, check_deadlock, coverage=coverage)
+    pipeline runs the pipelined body; bounds (a certified BoundReport)
+    runs the narrowed engine with the runtime certificate on.  wall_s
+    times the run only: the backend is compiled and its kernels built
+    before it."""
+    backend = get_backend(model, check_deadlock, bounds=bounds,
+                          coverage=coverage)
     init_fn, run_fn, _ = make_backend_engine(
         backend, chunk, queue_capacity, fp_capacity, obs_slots=obs_slots,
         sort_free=sort_free, deferred=deferred, device=device,
@@ -98,15 +106,19 @@ def check_struct_sharded(
     sort_free: bool = None,
     deferred: bool = None,
     coverage: bool = False,
+    bounds=None,
 ) -> CheckResult:
     """Exhaustive sharded check of a struct-compiled spec over `mesh`
     (engine.sharded.ShardMesh; jaxtlc/struct/engine.py:108): capacities
-    PER SHARD, the modes resolved against the per-shard chunk.  wall_s
-    times the run only: the backend's kernels are built before it."""
+    PER SHARD, the modes resolved against the per-shard chunk.  `bounds`
+    narrows the codec with every trap kept (elide=False): the sharded
+    engine carries no certificate.  wall_s times the run only: the
+    backend's kernels are built before it."""
     from ..engine.bfs import resolve_device
     from ..engine.sharded import check_sharded
 
-    backend = get_backend(model, check_deadlock, coverage=coverage)
+    backend = get_backend(model, check_deadlock, bounds=bounds, elide=False,
+                          coverage=coverage)
     if resolve_device(mesh.device).type == "cuda":
         build_kernels(backend)  # before the clock
     return check_sharded(
