@@ -89,7 +89,22 @@ block, and TwoPhase-8 with and without -narrow (18b), and the commands:
 -sharded 4, SIGTERM and -recover -narrow (and its refusal without
 -narrow), the spill rung, the cardinality lie (exit 1), -narrow ignored on
 Reconciler and the KubeAPI pair, and -traceExpressions on a KubeAPI and a
-struct violation (18c).  It checks every
+struct violation (18c); then -symmetry and -por behind kernels K24 (orbit
+canonicalization, inside K17 and K21), K25 (the runtime orbit
+certificate, once a body) and K26 (singleton ample sets, inside K17 and
+K21): TwoPhase Model_sym, RaftReplication Model_1, TwoPhase with RM of 4
+and the two-counter POR spec reduced in both mode sets (Model_sym also
+pipelined and on 4 shards, RaftReplication also narrowed), pinned to the
+reference's CPU runs, K17 with K24 / K26, K24, K25 and K26 bitwise
+against their plain versions, the lying plan tripping K25 and COL_SYM
+(19); RaftReplication with four servers (MaxTerm 7) reduced and not in
+turns at chunk 16,384 - 172,222 against 3,564,961 distinct states - with
+K17 with and without K24 on a 589,824-candidate block, K24, K25 and K26
+alone (19b); and the commands: Model_sym with and without -symmetry, -por,
+SymV's exit-12 trace with and without -symmetry, SIGTERM and -recover
+-symmetry (and its refusal without the flag), the spill rung, -sharded 4,
+-phase-timing, the lie (exit 1), the flags ignored on Reconciler and the
+KubeAPI pair, and RaftReplication with four servers (19c).  It checks every
 result against its pinned value, holds each kernel bitwise against its
 plain torch version on the card, and prints:
 
@@ -103,8 +118,8 @@ plain torch version on the card, and prints:
   struct engine and command runs of phases 14-14c, the gen engine and
   command runs of phases 15-15c, the sharded emitted runs and commands
   of phases 16-16c, the covered, pipelined, spilling and command runs
-  of phases 17-17d and the narrowed engine and command runs of phases
-  18-18c;
+  of phases 17-17d, the narrowed engine and command runs of phases
+  18-18c and the reduced engine and command runs of phases 19-19c;
   each path's counts are reset just before it and read just after),
   its error against the plain
   version, its time, the plain version's time, its bound on this card
@@ -124,7 +139,7 @@ the pipelined slice alone, ``--phases 12,12b,12c`` the sharded one,
 generic slice, ``--phases 16,16b,16c`` the sharded engine over the
 emitted backends, ``--phases 17,17b,17c,17d`` the struct coverage,
 pipeline, spill and phase-timing slice, ``--phases 18,18b,18c`` the
-struct -narrow slice.
+struct -narrow slice, ``--phases 19,19b,19c`` the -symmetry / -por slice.
 """
 
 from __future__ import annotations
@@ -471,6 +486,12 @@ def main() -> int:
             runs.update(phase_narrow18_real(torch, ops, card, runs))
         if want("18c"):
             runs.update(phase_command18(ops, card, runs, tmp))
+        if want("19") or want("19b"):
+            runs.update(phase_reduce19(torch, ops, card, runs, tmp))
+        if want("19b"):
+            runs.update(phase_reduce19_real(torch, ops, card, runs))
+        if want("19c"):
+            runs.update(phase_command19(ops, card, runs, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if want("13b"):
@@ -501,7 +522,7 @@ def main() -> int:
                 "gen_r5",) + tuple(
                     f"gen_cmd_{tag}" for tag in GEN_NAMES + ("never", "r5")
                 ) + tuple(k for k, v in runs.items()
-                          if k.startswith(("shard16", "p17", "p18"))
+                          if k.startswith(("shard16", "p17", "p18", "p19"))
                           and isinstance(v, dict) and "launches" in v)
     launches = {k: sum(runs[r]["launches"][k] for r in main)
                 for k in ops.KERNELS}
@@ -2501,8 +2522,15 @@ def phase_kernels(torch, ops, runs, launches):
                              "jaxtlc/struct/compile.py:2224"),
         "struct_cert_check": ("torchtlc/kernels/csrc/struct_cert.cuh",
                               "jaxtlc/struct/backend.py:46"),
+        "struct_canon": ("torchtlc/kernels/csrc/struct_reduce.cuh",
+                         "jaxtlc/engine/reduce.py:205"),
+        "struct_orbit_check": ("torchtlc/kernels/csrc/struct_reduce.cuh",
+                               "jaxtlc/engine/reduce.py:327"),
+        "struct_por_keep": ("torchtlc/kernels/csrc/struct_reduce.cuh",
+                            "jaxtlc/engine/reduce.py:376"),
     }
-    for key in ("sharded", "live", "struct", "gen", "shard16", "p17", "p18"):
+    for key in ("sharded", "live", "struct", "gen", "shard16", "p17", "p18",
+                "p19"):
         for name, got in runs.get(f"{key}_rows", {}).items():
             rows.setdefault(name, []).extend(got)
         library.update(runs.get(f"{key}_library", {}))
@@ -3348,7 +3376,7 @@ def struct_kernel_checks(torch, ops, tag, prog, block, n, record,
                            prog, block, n, False), reps),
                        cuda_ms(torch, lambda _: prog.expand_plain(
                            block, n, False), 2), nbytes)
-    packed, flags, action, _, flat = got
+    packed, flags, action, _, flat = got[:5]
     valid = flags[0].bool()
     lo, hi = fp64_words(packed, prog.cdc.nbits)
     R = min(2 * ck, ncand)
@@ -3637,14 +3665,14 @@ GEN_PINS = {
         counts=[1223, 492, 8],
         act_gen={"Terminating": 190, "Timeout": 414, "BecomeLeader": 270,
                  "HandleVote": 348},
-        act_dist={"Timeout": 155, "BecomeLeader": 171, "HandleVote": 165},
+        act_dist={'Timeout': 155, 'BecomeLeader': 171, 'HandleVote': 165},
         sha=("af99c142455f81de0417d60d4150fc0a"
              "846effc6224477ac78b1352d7cb39d42")),
     "Reconciler": dict(
         counts=[155, 81, 13],
         act_gen={"Bump": 17, "Terminating": 1, "Wake": 40, "Observe": 40,
                  "Apply": 56},
-        act_dist={"Bump": 17, "Wake": 19, "Observe": 29, "Apply": 15},
+        act_dist={'Bump': 17, 'Wake': 19, 'Observe': 29, 'Apply': 15},
         sha=("a104813e66b5320758ad8f57765d5358"
              "0826c1e3bdf2ea22a466504659531f59")),
     "ServiceMesh": dict(
@@ -5246,7 +5274,7 @@ def kcert_check(torch, ops, tag, prog, block, n, want):
                  f"K17 kCert ({tag}) differs from its plain version")
     need(bool(got[5]) == want, f"K17 kCert ({tag}): certificate "
          f"{bool(got[5])}, want {want}")
-    _, flags, action, _, flat = ops.struct_expand(prog, block, n, True)
+    _, flags, action, _, flat = ops.struct_expand(prog, block, n, True)[:5]
     valid = flags[0].bool()
     lanes_ = torch.nonzero(valid).flatten().to(torch.int64)
     fresh = torch.ones(lanes_.numel(), dtype=torch.bool, device=block.device)
@@ -5475,6 +5503,729 @@ def phase_command18(ops, card, runs, tmp):
     print("phase 18c commands, transcripts = the reference's: "
           + "; ".join(lines) + "; -recover without -narrow refused (bound "
           f"digest) on {card}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 19-19c: -symmetry and -por (kernels K24, K25, K26)
+# ---------------------------------------------------------------------------
+
+TP4_CFG = TP8_CFG.replace("r1, r2, r3, r4, r5, r6, r7, r8", "r1, r2, r3, r4")
+# the reference's two-counter POR spec (tests/test_reduce.py:203-234), its
+# counters bounded by {N}: 4 shipped, 128 for the full-width block of 19b
+PORV_TLA = """---- MODULE PorV ----
+EXTENDS Naturals
+VARIABLES x, y
+
+Init == x = 0 /\\ y = 0
+
+IncX == /\\ x < {N}
+        /\\ x' = x + 1
+        /\\ UNCHANGED <<y>>
+
+IncY == /\\ y < {N}
+        /\\ y' = y + 1
+        /\\ UNCHANGED <<x>>
+
+Next == IncX \\/ IncY
+
+Spec == Init /\\ [][Next]_<<x, y>>
+
+InRange == x <= {N}
+====
+"""
+PORV_CFG = "SPECIFICATION\nSpec\nINVARIANT\nInRange\n"
+PORW_N = 128  # 128 x 128 = 16,384 states: one full-width block
+# the reference's exit-12 symmetric spec (tests/test_reduce.py:147-160)
+SYMV_TLA = """---- MODULE SymV ----
+EXTENDS Naturals, FiniteSets
+CONSTANTS RM
+VARIABLES voted, n
+Init == voted = {} /\\ n = 0
+Vote == /\\ \\E r \\in RM \\ voted : voted' = voted \\cup {r}
+        /\\ n' = n + 1
+Next == Vote
+Small == n < 2
+====
+"""
+SYMV_CFG = "CONSTANT RM = {r1, r2, r3}\nINVARIANT\nSmall\n"
+# RaftReplication with four servers declared SYMMETRY: 4! = 24 permutations,
+# the largest group the reduction admits (analysis.symfind PERM_LIMIT)
+RR4_CFG = RR5_CFG.replace("n1, n2, n3, n4, n5", "n1, n2, n3, n4").replace(
+    "MaxTerm = 3", "MaxTerm = 7")
+RR4_KW = dict(chunk=1 << 14, queue_capacity=1 << 21)
+RR4_FP = {"sym": 1 << 21, "base": 1 << 23}
+# the reference's CPU runs (generated, distinct, depth)
+RR4_COUNTS = {"sym": (531900, 172222, 22), "base": (10959821, 3564961, 22)}
+SYM_KW = dict(chunk=64, queue_capacity=1024, fp_capacity=4096)
+RAFT_SYM_KW = dict(chunk=256, queue_capacity=1 << 13, fp_capacity=1 << 15)
+# (name, model key, geometry, reduction, modes) of phase 19's engine runs
+P19_RUNS = (
+    ("TwoPhase/Model_sym", "sym", SYM_KW, dict(symmetry=True),
+     ("sorted", "slab", "pipeline")),
+    ("RaftReplication/Model_1", "raft", RAFT_SYM_KW, dict(symmetry=True),
+     ("sorted", "slab", "narrow")),
+    ("TwoPhase/RM4", "tp4", dict(chunk=64, queue_capacity=2048,
+                                 fp_capacity=8192), dict(symmetry=True),
+     ("sorted", "slab")),
+    ("PorV", "porv", dict(chunk=4, queue_capacity=64, fp_capacity=256),
+     dict(por=True), ("sorted", "slab")),
+)
+P19_MODES = {"sorted": SORTED,
+             "slab": dict(sort_free=True, deferred=True, obs_slots=64),
+             "pipeline": dict(SORTED, pipeline=True, obs_slots=64),
+             "narrow": SORTED}
+# the reference's CPU check_struct of each P19_RUNS run (sym: the orbit
+# check, pruned: the POR count), the same in every mode but the narrowed
+# codec's table words
+_P19_RUN_PINS = {
+    "TwoPhase/Model_sym": dict(
+        counts=[228, 80, 11], outdegree=[1, 0, 3, 3],
+        act_gen={"CallOff": 20, "Collect": 30, "Decide": 1, "ObeyAbort": 84,
+                 "ObeyCommit": 6, "Renege": 43, "Vote": 43},
+        act_dist={"CallOff": 20, "Collect": 10, "Decide": 1, "ObeyAbort": 36,
+                  "ObeyCommit": 3, "Renege": 3, "Vote": 6},
+        sym=False, pruned=None,
+        sha=("f642e254d10975153d14cc65e12d46cb"
+             "6767f38edc92c03ad03d59969b9c4c89")),
+    "RaftReplication/Model_1": dict(
+        counts=[3169, 1320, 14], outdegree=[1, 0, 4, 3],
+        act_gen={"AdvanceCommit": 552, "ClientRequest": 219, "Elect": 635,
+                 "LearnCommit": 560, "Replicate": 1202},
+        act_dist={"AdvanceCommit": 176, "ClientRequest": 219, "Elect": 456,
+                  "LearnCommit": 232, "Replicate": 236},
+        sym=False, pruned=None,
+        sha=("df6fdd5d23334590d2fe9ed02d6c1aa6"
+             "5e3b74800b98d4715b5b66a1868a27eb")),
+    "PorV": dict(
+        counts=[9, 9, 9], outdegree=[1, 0, 1, 1],
+        act_gen={"IncX": 4, "IncY": 4}, act_dist={"IncX": 4, "IncY": 4},
+        sym=None, pruned=4,
+        sha=("7ddff4a79ee6edfaa52c641880e2e298"
+             "b0745f8e9540caf8b35c48430cf00f48")),
+}
+P19_PINS = {f"{name}/{mode}": _P19_RUN_PINS[name]
+            for name, _, _, _, modes in P19_RUNS for mode in modes
+            if name in _P19_RUN_PINS}
+P19_PINS["RaftReplication/Model_1/narrow"] = dict(
+    _P19_RUN_PINS["RaftReplication/Model_1"],
+    sha=("b567dc3fdfd2138a21d63f6de7bfb25c"
+         "370da7f260ab095ba7f11ea94a65f0f8"))
+
+
+def models19(tmp):
+    """The model files of phases 19-19c in `tmp`/p19: {key: MC.cfg}."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    specs = os.path.join(here, "specs")
+    d = os.path.join(tmp, "p19")
+    os.makedirs(d, exist_ok=True)
+    out = {"sym": os.path.join(specs, "TwoPhase.toolbox", "Model_sym",
+                               "MC.cfg"),
+           "raft": os.path.join(specs, "RaftReplication.toolbox", "Model_1",
+                                "MC.cfg"),
+           "recon": os.path.join(specs, "Reconciler.toolbox", "Model_1",
+                                 "MC.cfg")}
+    two = open(os.path.join(specs, "TwoPhase.toolbox", "Model_1",
+                            "TwoPhase.tla")).read()
+    raft = open(os.path.join(os.path.dirname(out["raft"]),
+                             "RaftReplication.tla")).read()
+    for key, files, cfg in (
+            ("tp4", {"TwoPhase.tla": two, "MC.cfg": TP4_CFG}, "MC.cfg"),
+            ("porv", {"PorV.tla": PORV_TLA.replace("{N}", "4"),
+                      "PorV.cfg": PORV_CFG}, "PorV.cfg"),
+            ("porw", {"PorV.tla": PORV_TLA.replace("{N}", str(PORW_N)),
+                      "PorV.cfg": PORV_CFG}, "PorV.cfg"),
+            ("symv", {"SymV.tla": SYMV_TLA, "SymV.cfg": SYMV_CFG},
+             "SymV.cfg"),
+            ("rr4", {"RaftReplication.tla": raft, "MC.cfg": RR4_CFG},
+             "MC.cfg"),
+            # Model_sym with a comment appended: another digest, so the
+            # lying plan's backend is a memo entry of its own
+            ("lie", {"TwoPhase.tla": open(os.path.join(
+                os.path.dirname(out["sym"]), "TwoPhase.tla")).read()
+                + "\n\\* orbit-lie copy\n", "MC.cfg": open(out["sym"]).read()},
+             "MC.cfg")):
+        os.makedirs(os.path.join(d, key), exist_ok=True)
+        for fname, text in files.items():
+            with open(os.path.join(d, key, fname), "w") as f:
+                f.write(text)
+        out[key] = os.path.join(d, key, cfg)
+    if not os.path.exists(os.path.join(d, "Model_FF")):
+        write_model(d, "Model_FF", False, False)
+    out["ff"] = os.path.join(d, "Model_FF", "MC.cfg")
+    return out
+
+
+def ptxas_lines(prog, kernels):
+    """Registers, stack frame and spills of the named kernels (and of the
+    out-of-line st_canon_row) from the `-Xptxas -v` report of a program's
+    emitted library."""
+    from torchtlc.kernels.build import build_struct
+
+    log = os.path.join(os.path.dirname(build_struct(prog.text)), "nvcc.log")
+    out, entry = {}, None
+    for line in open(log).read().splitlines():
+        if "Function properties for " in line:
+            entry = line.split("Function properties for ")[1].strip()
+        elif entry and "stack frame" in line:
+            out.setdefault(entry, {})["frame"] = line.strip()
+        elif "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and "Used" in line and "registers" in line:
+            out.setdefault(entry, {})["regs"] = line.split("Used")[1].split(
+                ",")[0].strip()
+    return {k: v for k, v in out.items()
+            if any(n in k for n in kernels + ("st_canon_row",))}
+
+
+def backends19(ops, tmp):
+    """The reduced struct backends of phases 19-19c and their emitted
+    libraries, built one nvcc per text, in parallel: {name: backend} -
+    every P19_RUNS model reduced (RaftReplication also narrowed), the POR
+    spec and its widened form with and without -por, RaftReplication with
+    four servers with and without -symmetry, SymV, and the lying plan
+    (TORCHTLC_DEBUG_SYM_LIE=1 while its backend is built, on a copy of
+    Model_sym: phase 19c's command finds it in the memo)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torchtlc.struct.cache import get_backend, get_bounds
+    from torchtlc.struct.loader import load
+
+    cfgs = models19(tmp)
+    models = {k: load(cfgs[k]) for k in ("sym", "raft", "tp4", "porv",
+                                         "porw", "symv", "rr4", "lie")}
+    out = {}
+    for name, key, _, red, modes in P19_RUNS:
+        out[name] = get_backend(models[key], False, **red)
+        if "narrow" in modes:
+            out[name + "/narrow"] = get_backend(
+                models[key], False, bounds=get_bounds(models[key]), **red)
+    out["PorV/base"] = get_backend(models["porv"], False)
+    out["PorW"] = get_backend(models["porw"], False, por=True)
+    out["PorW/base"] = get_backend(models["porw"], False)
+    out["RR4"] = get_backend(models["rr4"], False, symmetry=True)
+    out["RR4/base"] = get_backend(models["rr4"], False)
+    out["SymV"] = get_backend(models["symv"], True, symmetry=True)
+    os.environ["TORCHTLC_DEBUG_SYM_LIE"] = "1"
+    try:
+        out["lie"] = get_backend(models["lie"], False, symmetry=True)
+    finally:
+        del os.environ["TORCHTLC_DEBUG_SYM_LIE"]
+    texts = {b.kernels.prog.text: b.kernels.prog for b in out.values()}
+    t0 = time.time()
+    with ThreadPoolExecutor(len(texts)) as pool:
+        list(pool.map(ops.struct_lib, texts.values()))
+    prog = out["RR4"].kernels.prog
+    print(f"phase 19 build: {len(texts)} emitted libraries (K17/K18/K21 "
+          f"with K24-K26) in {time.time() - t0:.1f} s; RR4 F {prog.F}, L "
+          f"{prog.L}, {len(prog.sym_programs)} programs, K {prog.K.size} "
+          f"words; ptxas (RR4 -symmetry): " + "; ".join(
+              f"{k[:60]}: {v.get('regs', '-')}, "
+              f"{v.get('frame', '-')}" for k, v in ptxas_lines(
+                  prog, ("struct_expand_kernel", "struct_canon_kernel",
+                         "struct_orbit_check_kernel",
+                         "emitted_expand_sharded_kernel")).items()),
+          flush=True)
+    return out, models, cfgs
+
+
+def struct_run19(ops, model, kw, modes):
+    """struct_run with the reduction's launch breakdown: (result, launches,
+    {K24 / K26: launches by the kernel they rode in})."""
+    r, launches = struct_run(ops, model, kw, modes)
+    return r, launches, {k: dict(v) for k, v in ops.REDUCE_LAUNCHES.items()}
+
+
+def canon_bytes_ops(prog, N):
+    """K24's bytes and integer operations over N rows: F words in and out
+    a row; a program's gather (F), its remap tables (a clip, a read, a
+    guard, a select: 4 each), its mask bits (a shift, a mask and an or:
+    3 each) and the F-wide lexicographic compare and select (3F)."""
+    per = sum(prog.F + 4 * len(p.tables) + 3 * sum(len(m[2])
+                                                   for m in p.masks)
+              + 3 * prog.F for p in prog.sym_programs)
+    return N * prog.F * 8, N * per
+
+
+def k24_check(torch, ops, tag, prog, rows, record=None, reps=20):
+    """K24 bitwise against its plain version on raw rows [N, F] - and on
+    seeded rows with codes out of range, which go through the same
+    clipped lookups; timed into `record` when given."""
+    import numpy as np
+
+    got = ops.struct_canon(prog, rows)
+    want = prog.plan.canon(rows)
+    need(torch.equal(got, want), f"K24 ({tag}) differs from its plain "
+         "version")
+    mc = np.asarray(prog.cdc.max_codes(), np.int64)
+    rnd = torch.from_numpy(np.random.default_rng(SEED).integers(
+        -2, mc + 3, size=(4096, prog.F)).astype(np.int32)).to(rows.device)
+    need(torch.equal(ops.struct_canon(prog, rnd), prog.plan.canon(rnd)),
+         f"K24 ({tag}, out-of-range codes) differs from its plain version")
+    if record is not None:
+        N = rows.shape[0]
+        record("struct_canon", tag, 0,
+               cuda_ms(torch, lambda _: ops.struct_canon(prog, rows), reps),
+               cuda_ms(torch, lambda _: prog.plan.canon(rows), 2),
+               *gen_bound_ms(*canon_bytes_ops(prog, N)))
+    return got
+
+
+def k17_red_check(torch, ops, tag, prog, block, n):
+    """K17 with K24 / K26 inside (both modes) and K25 after it against
+    their plain versions on one popped block: every output bitwise, the
+    pruned count and the orbit check included.  Returns (deferred flat,
+    valid flags, the orbit check)."""
+    for deferred in (False, True):
+        got = ops.struct_expand(prog, block, n, deferred)
+        ref = prog.expand_red_plain(block, n, deferred)
+        pairs = zip(got[:5] + got[6:], ref[:5] + ref[7:])  # cert: None
+        for i, (a, b) in enumerate(pairs):
+            need((a is None) == (b is None) and (
+                a is None or torch.equal(a.to(torch.int64),
+                                         b.to(torch.int64))),
+                 f"K17 with K24/K26 ({tag}, deferred={deferred}) output {i} "
+                 "differs from its plain version")
+        if prog.sym_programs:
+            k25 = bool(ops.struct_orbit_check(prog, block, got[1][0]))
+            need(k25 == bool(ref[6]), f"K25 ({tag}): kernel {k25}, plain "
+                 f"{bool(ref[6])}")
+    return got[4], got[1][0], bool(ref[6]) if ref[6] is not None else None
+
+
+def plain_pin19(model, kw, modes):
+    """The pin of a run the reference's CPU engine could not give in
+    minutes (TwoPhase with RM of 4: its XLA program of 23 mask programs):
+    the port's plain run on the host, whose plan CPU tests hold against
+    the reference's program for program."""
+    from torchtlc.struct.engine import check_struct
+
+    r = check_struct(model, check_deadlock=False, capture_fps=True,
+                     device="cpu", **kw, **modes)
+    return dict(counts=[r.generated, r.distinct, r.depth],
+                outdegree=list(r.outdegree), act_gen=r.action_generated,
+                act_dist=r.action_distinct, sha=struct_digest(r.fp_table),
+                sym=r.sym_violated, pruned=r.por_pruned)
+
+
+def phase_reduce19(torch, ops, card, runs, tmp):
+    """Phase 19: check_struct reduced at the shipped sizes - TwoPhase
+    Model_sym and RaftReplication Model_1 (-symmetry), TwoPhase with RM of
+    4 (24 permutations, the mask programs), the two-counter spec (-por),
+    sorted immediate and slab deferred (ring on), Model_sym pipelined,
+    RaftReplication narrowed and reduced together: the reference's counts,
+    per-action counts, outdegree and table words (TwoPhase-4: the plain
+    run's on the host), the orbit check clean,
+    the POR count 4; K24 in every K17 launch, K25 once a body, K26 in
+    K17.  Model_sym on 4 shards (K24 in K21).  K17 with K24 / K26 and K25
+    bitwise against their plain versions on popped blocks, K24 on raw and
+    out-of-range rows, K26 on random masks; the lying plan trips K25 (and
+    its plain version) and latches the carry's flag and the ring's COL_SYM
+    (K8 against its plain version)."""
+    import numpy as np
+
+    from torchtlc.engine import bfs
+    from torchtlc.engine.sharded import ShardMesh
+    from torchtlc.obs import counters
+    from torchtlc.struct.engine import check_struct_sharded
+
+    backends, models, cfgs = backends19(ops, tmp)
+    rows = {}
+    record = gen_recorder(rows)
+    out, lines = {}, []
+    for name, key, kw, red, modes in P19_RUNS:
+        for mode in modes:
+            extra = dict(P19_MODES[mode], **red)
+            if mode == "narrow":
+                from torchtlc.struct.cache import get_bounds
+
+                extra["bounds"] = get_bounds(models[key])
+            r, launches, rl = struct_run19(ops, models[key], kw, extra)
+            pin = P19_PINS.get(f"{name}/{mode}")
+            if pin is None:  # TwoPhase/RM4: the plain run on the host
+                pin = plain_pin19(models[key], kw, extra)
+            struct_pinned(f"{name} {mode}", r, pin)
+            need(r.sym_violated == pin["sym"]
+                 and r.por_pruned == pin["pruned"],
+                 f"{name} {mode}: orbit check {r.sym_violated}, pruned "
+                 f"{r.por_pruned}")
+            k17 = launches["struct_expand"]
+            if red.get("symmetry"):
+                # K24 rides in every K17 launch, and once alone on the
+                # Init seeds
+                need(rl["struct_canon"]["struct_expand"] == k17 > 0
+                     and launches["struct_orbit_check"] == k17
+                     and rl["struct_canon"]["struct_canon"] == 1,
+                     f"{name} {mode}: K24 / K25 launches {rl}, {launches}")
+            if red.get("por"):
+                need(rl["struct_por_keep"]["struct_expand"] == k17 > 0,
+                     f"{name} {mode}: K26 launches {rl}")
+            out[f"p19_{name}_{mode}"] = {"launches": launches}
+            lines.append(f"{name} {mode} {r.iterations} steps "
+                         f"{r.wall_s:.3f} s")
+    # Model_sym on 4 shards: K24 inside K21, canonical seeds
+    ops.reset_counts()
+    r = check_struct_sharded(models["sym"], ShardMesh(4, "cuda"),
+                             check_deadlock=False, symmetry=True, **SYM_KW)
+    pin = P19_PINS["TwoPhase/Model_sym/sorted"]
+    need([r.generated, r.distinct, r.depth] == pin["counts"]
+         and r.action_generated == pin["act_gen"] and r.violation == 0,
+         f"Model_sym on 4 shards: {(r.generated, r.distinct, r.depth)}")
+    need(ops.REDUCE_LAUNCHES["struct_canon"]["emitted_expand_sharded"]
+         == ops.LAUNCHES["emitted_expand_sharded"] > 0,
+         "Model_sym on 4 shards: K24 did not ride in K21")
+    out["p19_sym_sharded"] = {"launches": dict(ops.LAUNCHES)}
+    # the kernels on popped blocks
+    checks = []
+    for name, kw in (("RaftReplication/Model_1", RAFT_SYM_KW),
+                     ("TwoPhase/RM4", P19_RUNS[2][2])):
+        b = backends[name]
+        prog = b.kernels.prog
+        block, n, _ = struct_block(torch, b, kw, lambda c: int(c.level) > 5)
+        flat, valid, k25 = k17_red_check(torch, ops, name, prog, block, n)
+        raw = prog.step_plain(prog.cdc.unpack(block))[0].reshape(
+            -1, prog.F).to(torch.int32).contiguous()  # the raw successors
+        k24_check(torch, ops, name, prog, raw, record)
+        record("struct_orbit_check", name, 0,
+               cuda_ms(torch, lambda _: ops.struct_orbit_check(
+                   prog, block, valid), 20),
+               cuda_ms(torch, lambda _: prog.plan.orbit_check(
+                   flat, valid.bool()), 2),
+               *gen_bound_ms(int(torch.nonzero(valid)[0]) + 1
+                             + prog.W * 4 + 4,
+                             canon_bytes_ops(prog, 1 + len(
+                                 prog.sym_programs))[1]))
+        checks.append(f"{name} block of {n} rows: K17 (both modes) and K25 "
+                      f"= plain, orbit check {k25}")
+    pb = backends["PorV"]
+    pprog = pb.kernels.prog
+    block, n, _ = struct_block(torch, pb, P19_RUNS[3][2], lambda c: True)
+    k17_red_check(torch, ops, "PorV", pprog, block, n)
+    rng = np.random.default_rng(SEED)
+    for B, dens in ((1, 0.5), (4097, 0.4), (16384, 0.9)):
+        v = torch.from_numpy(rng.random((B, pprog.L)) < dens).cuda()
+        need(torch.equal(ops.struct_por_keep(pprog, v),
+                         pb.kernels.por_keep(v.cpu()).cuda()),
+             f"K26 on a random [{B}, {pprog.L}] mask differs from its "
+             "plain version")
+    # the lie: K25 trips (kernel and plain), the flag and COL_SYM latch
+    lb = backends["lie"]
+    lprog = lb.kernels.prog
+    init_fn, run_fn, _ = bfs.make_backend_engine(
+        lb, obs_slots=8, sort_free=False, deferred=False,
+        **dict(SYM_KW, chunk=32))
+    c = run_fn(init_fn())
+    rows_ = bfs.obs_rows(c)[0]
+    need(bool(c.sym_viol) and rows_ and rows_[-1].get("sym_violation"),
+         "the lying plan did not latch the orbit flag and COL_SYM")
+    tripped = 0
+    init_fn, _, step_fn = bfs.make_backend_engine(
+        lb, sort_free=False, deferred=False, **dict(SYM_KW, chunk=8))
+    c2 = init_fn()
+    while not bfs.carry_done(c2) and tripped == 0:
+        h = bfs.read_bundle(c2)
+        blk = c2.queue[h.parity, h.qhead:h.qhead + 8].clone()
+        k = min(h.level_n - h.qhead, 8)
+        _, _, k25 = k17_red_check(torch, ops, "lie", lprog, blk, k)
+        tripped += int(k25)
+        c2 = step_fn(c2)
+    need(tripped, "K25 never tripped on the lying plan's blocks")
+    ring = c.obs_ring.clone()
+    hb = [x.clone() for x in (c.obs_head, c.obs_bodies, c.obs_expanded)]
+    outs = []
+    for fn in (counters.ring_row, counters.ring_row_plain):
+        rr = ring.clone()
+        st = [x.clone() for x in hb]
+        fn(rr, *st, 8, True, c.level, c.generated, c.generated, c.distinct,
+           c.distinct, c.level_n, c.act_gen, c.act_dist,
+           torch.cat([c.act_gen, c.act_dist]), len(lb.labels),
+           sym=c.sym_viol)
+        outs.append(rr)
+    need(torch.equal(outs[0], outs[1])
+         and int(outs[0][int(c.obs_head) % 8, counters.COL_SYM]) == 1,
+         "K8's COL_SYM differs from its plain version")
+    print(f"phase 19 -symmetry / -por: the reference's counts, per-action "
+          f"counts, outdegree and table words on every run, orbit check "
+          f"clean, K24 in every K17 launch, K25 once a body, POR pruned 4; "
+          + "; ".join(lines) + f"; Model_sym on 4 shards {r.distinct} "
+          f"distinct, K24 in K21; " + "; ".join(checks) + "; K26 = plain "
+          f"on random masks; the lie latched COL_SYM (K8 = plain) and "
+          f"tripped K25 on a block; K24 {rows['struct_canon'][0]['ms']:.4f} "
+          f"ms on {rows['struct_canon'][0]['shape']} (plain "
+          f"{rows['struct_canon'][0]['plain_ms']:.3f} ms), K25 "
+          f"{rows['struct_orbit_check'][0]['ms']:.4f} ms on {card}",
+          flush=True)
+    out.update(p19_rows=rows, p19_backends=backends, p19_models=models,
+               p19_cfgs=cfgs)
+    return out
+
+
+def full_block(torch, backend, kw):
+    """The first full-width block of a sorted immediate run: the `chunk`
+    rows the engine is about to pop when a level holds at least that many
+    more.  Returns (block, chunk)."""
+    from torchtlc.engine import bfs
+
+    ck = kw["chunk"]
+    init_fn, _, step_fn = bfs.make_backend_engine(
+        backend, ck, kw["queue_capacity"], kw["fp_capacity"],
+        sort_free=False, deferred=False)
+    c = init_fn()
+    while True:
+        h = bfs.read_bundle(c)
+        need(bfs._running(h), "the run ended before a full-width block")
+        if h.level_n - h.qhead >= ck:
+            return c.queue[h.parity, h.qhead:h.qhead + ck].clone(), ck
+        c = step_fn(c)
+
+
+def phase_reduce19_real(torch, ops, card, runs):
+    """Phase 19b: RaftReplication with four servers (MaxLog 2, MaxTerm 7)
+    at chunk 16,384 in the default modes, reduced (fp 2^21) and not (fp
+    2^23) in turns (reduced, full, full, reduced): the reference's counts,
+    the orbit check clean, each variant's table words the same in both of
+    its runs; walls, distinct states per second, the reduction factor, the
+    device's busy share of a reduced run (torch.profiler).  On a
+    16,384-row block (589,824 candidates): K17 with K24 (the reduced text)
+    and without (the full one), K24 alone on the block's raw successors,
+    K25; on a full-width block of the widened POR spec (16,384 live rows):
+    K17 with K26 and without, K26 alone."""
+    import numpy as np
+
+    backends = runs["p19_backends"]
+    models = runs["p19_models"]
+    rows = runs["p19_rows"]
+    record = gen_recorder(rows)
+    out = {}
+    walls = {"sym": [], "base": []}
+    shas = {"sym": set(), "base": set()}
+    m = models["rr4"]
+    for which in ("sym", "base", "base", "sym"):
+        kw = dict(RR4_KW, fp_capacity=RR4_FP[which])
+        r, launches, rl = struct_run19(ops, m, kw, dict(
+            symmetry=which == "sym"))
+        need((r.generated, r.distinct, r.depth) == RR4_COUNTS[which]
+             and r.violation == 0, f"RR4 {which}: "
+             f"{(r.generated, r.distinct, r.depth)}, {r.violation}")
+        need(r.sym_violated is (False if which == "sym" else None),
+             f"RR4 {which}: orbit check {r.sym_violated}")
+        shas[which].add(struct_digest(r.fp_table))
+        if which == "sym":
+            need(launches["struct_orbit_check"] == launches["struct_expand"]
+                 == rl["struct_canon"]["struct_expand"] > 0,
+                 f"RR4: K24 / K25 launches {rl}, {launches}")
+        out.setdefault(f"p19b_rr4_{which}", {"launches": launches})
+        walls[which].append((round(r.wall_s, 4),
+                             int(r.distinct / r.wall_s)))
+        del r
+        torch.cuda.empty_cache()
+    need(len(shas["sym"]) == len(shas["base"]) == 1,
+         "RR4: a variant's table words differ between its two runs")
+    kw = dict(RR4_KW, fp_capacity=RR4_FP["sym"])
+    (r, _, _), traced, busy, by_name = device_busy(
+        torch, lambda: struct_run19(ops, m, kw, dict(symmetry=True)))
+    k17_s = sum(v for k, v in by_name.items() if "struct_expand" in k)
+    k25_s = sum(v for k, v in by_name.items() if "orbit_check" in k)
+    prog = backends["RR4"].kernels.prog
+    bprog = backends["RR4/base"].kernels.prog
+    block, n = full_block(torch, backends["RR4"], kw)
+    flat19, valid, _ = k17_red_check(torch, ops, "RR4", prog, block, n)
+    raw = ops.struct_expand(bprog, block, n, True)[4]
+    k24_check(torch, ops, "RR4", prog, raw, record, reps=10)
+    t_sym = cuda_ms(torch, lambda _: ops.struct_expand(prog, block, n, True),
+                    10)
+    t_base = cuda_ms(torch, lambda _: ops.struct_expand(bprog, block, n,
+                                                        True), 10)
+    t25 = cuda_ms(torch, lambda _: ops.struct_orbit_check(prog, block,
+                                                          valid), 10)
+    record("struct_orbit_check", "RR4", 0, t25,
+           cuda_ms(torch, lambda _: prog.plan.orbit_check(
+               flat19, valid.bool()), 2),
+           *gen_bound_ms(int(torch.nonzero(valid)[0]) + 1 + prog.W * 4 + 4,
+                         canon_bytes_ops(prog, 1 + len(prog.sym_programs))[1]
+                         ))
+    # K26 on a full-width block of the widened POR spec: every (x, y)
+    pw = backends["PorW"].kernels.prog
+    pwb = backends["PorW/base"].kernels.prog
+    states = [(x, y) for x in range(PORW_N) for y in range(PORW_N)]
+    wblock = pw.cdc.pack(torch.from_numpy(np.stack(
+        [pw.cdc.encode(st) for st in states]).astype(np.int32))).cuda()
+    wn = wblock.shape[0]
+    got = k17_red_check(torch, ops, "PorW", pw, wblock, wn)
+    t_por = cuda_ms(torch, lambda _: ops.struct_expand(pw, wblock, wn, True),
+                    20)
+    t_nopor = cuda_ms(torch, lambda _: ops.struct_expand(pwb, wblock, wn,
+                                                         True), 20)
+    wvalid = ops.struct_expand(pwb, wblock, wn, True)[1][0].bool().view(
+        wn, pw.L).contiguous()
+    need(torch.equal(ops.struct_por_keep(pw, wvalid),
+                     backends["PorW"].kernels.por_keep(wvalid.cpu()).cuda()),
+         "K26 on the widened block differs from its plain version")
+    B, L = wvalid.shape
+    record("struct_por_keep", "PorW", 0,
+           cuda_ms(torch, lambda _: ops.struct_por_keep(pw, wvalid), 20),
+           cuda_ms(torch, lambda _: backends["PorW"].kernels.prog._pruned(
+               wvalid), 3),
+           *gen_bound_ms(2 * B * L, 4 * B * L))
+    pruned = int(ops.struct_expand(pw, wblock, wn, True)[6])
+    k24 = rows["struct_canon"][-1]
+    k25 = rows["struct_orbit_check"][-1]
+    k26 = rows["struct_por_keep"][-1]
+    print(f"phase 19b RR4 (Nodes n1..n4, MaxLog 2, MaxTerm 7; chunk "
+          f"{kw['chunk']}, slab + deferred): reduced {RR4_COUNTS['sym']}, "
+          f"full {RR4_COUNTS['base']} (the reference's counts), factor "
+          f"{RR4_COUNTS['base'][1] / RR4_COUNTS['sym'][1]:.2f}, orbit check "
+          f"clean; (wall s, distinct/s) in turns: reduced {walls['sym']}, "
+          f"full {walls['base']}; reduced run under torch.profiler: wall "
+          f"{traced:.3f} s, device busy {busy:.3f} s ({busy / traced:.1%}), "
+          f"K17 {k17_s:.3f} s, K25 {k25_s:.4f} s; 16,384-row block "
+          f"({raw.shape[0]} candidates): K17 with K24 {t_sym:.4f} ms, "
+          f"without {t_base:.4f} ms; K24 alone {k24['ms']:.4f} ms (plain "
+          f"{k24['plain_ms']:.2f} ms, bound {k24['bound_ms']:.5f} ms by "
+          f"{k24['bound_by']}); K25 {k25['ms']:.4f} ms a body (plain "
+          f"{k25['plain_ms']:.2f} ms); widened POR block ({wn} rows, "
+          f"{wn * pw.L} candidates, {pruned} pruned): K17 with K26 "
+          f"{t_por:.4f} ms, without {t_nopor:.4f} ms; K26 alone "
+          f"{k26['ms']:.4f} ms (plain {k26['plain_ms']:.3f} ms, bound "
+          f"{k26['bound_ms']:.6f} ms) on {card}", flush=True)
+    out["p19b_k17"] = dict(k17_ms=t_base, k17_sym_ms=t_sym, k25_ms=t25,
+                           k17_por_ms=t_por, k17_nopor_ms=t_nopor,
+                           busy=busy / traced, walls=walls)
+    return out
+
+
+SYM19 = ["-symmetry", "-nodeadlock"]
+TERM19 = SYM19 + ["-chunk", "4", "-checkpoint", "CK/s", "-checkpointevery",
+                  "2"]
+# phase 19c: tag -> (model key of models19, argv after the MC.cfg; CK: the
+# checkpoint directory)
+CMD19 = {
+    "sym": ("sym", SYM19),
+    "nosym": ("sym", ["-no-symmetry", "-nodeadlock"]),
+    "porv": ("porv", ["-por", "-nodeadlock", "-frontend", "struct", "-chunk",
+                      "4"]),
+    "symv": ("symv", ["-symmetry", "-frontend", "struct", "-chunk", "64"]),
+    "symv_full": ("symv", ["-no-symmetry", "-frontend", "struct", "-chunk",
+                           "64"]),
+    "term": ("sym", TERM19 + ["-faults", "sigterm@3"]),
+    "recover": ("sym", TERM19 + ["-recover"]),
+    "spill": ("sym", SYM19 + ["-chunk", "16", "-qcap", "256", "-fpcap", "64",
+                              "-faults", "alloc_fail@1", "-checkpoint",
+                              "CK/sp"]),
+    "sharded": ("sym", SYM19 + ["-sharded", "4"]),
+    "phase_timing": ("sym", SYM19 + ["-phase-timing"]),
+    "lie": ("lie", SYM19),
+    "reconciler": ("recon", ["-symmetry", "-por"]),
+    "kubeapi": ("ff", ["-symmetry", "-por", "-chunk", "128"]),
+    "rr4": ("rr4", SYM19 + ["-chunk", str(RR4_KW["chunk"]), "-qcap",
+                            str(RR4_KW["queue_capacity"]), "-fpcap",
+                            str(RR4_FP["sym"])]),
+}
+# (exit code, SHA-256 of cmd17_masked) of `python -m jaxtlc.cli check
+# <MC.cfg> -noTool <argv> -workers cpu` in one process, in CMD19's order,
+# the reference's 8 virtual CPU devices for -sharded, JAXTLC_DEBUG_SYM_LIE=1
+# for the lie; RR4: its counts are checked instead (RR4_COUNTS)
+CMD19_TRANSCRIPT = {
+    'sym': (0, '8b0d8cde456bcaf5ca802996f87050b6'
+            '2794f960c8dd3488f556375b4d0bc8e5'),
+    'nosym': (0, 'ec88180cb75aa1ea3eef95a397a93bf0'
+              'f8685dab0774402f05ebbbd7d26935b1'),
+    'porv': (0, 'ad6c5daa2888235092e1a1e7fe76dfc1'
+             'f32582ddec6ef8d1a74a8e6b0c1aa15d'),
+    'symv': (12, '9e1af10bc4f0cd46f1c7ac0c0db1981c'
+             '2a43c1ef351168e3301b23079c4f79db'),
+    'symv_full': (12, '5fbca144b87406e6aa58626867971468'
+                  '56859ada0383f8232dea30570f3966ae'),
+    'term': (75, '1d4f7a9804819d76a5692625746176a7'
+             '199a138d290e5ff2fc263f1f67843c9e'),
+    'recover': (0, '978ac605360d8f028a5e0808e4c8f963'
+                'ae5118054e15b17c814c2087722ccddc'),
+    'spill': (0, 'd2dd600c992e9d04ba58ded2ce854b90'
+              '33d53d6dd646541cf93b4c8cce21bab9'),
+    'sharded': (0, '20f3f128f446e28022710ddde69be76f'
+                '726832179747e7d50113a7730fef7c49'),
+    'phase_timing': (0, '8b0d8cde456bcaf5ca802996f87050b6'
+                     '2794f960c8dd3488f556375b4d0bc8e5'),
+    'lie': (1, '343bf14fd0dc468ebe55c30ff1a87910'
+            '9bb4063f7271dbb9fb4df2130a96598e'),
+    'reconciler': (0, 'e25bed2ddec9c0c3740bd65ac895276e'
+                   '5b9aef9fd6cdee16625395e027dd645f'),
+    'kubeapi': (0, 'c20393cb8e8dd988887dea062d04c820'
+                'de8c90c04988422077711953e6055417'),
+    'rr4': (0, None),
+}
+
+
+def phase_command19(ops, card, runs, tmp):
+    """Phase 19c: `python -m torchtlc.cli check` in this process with
+    -symmetry / -por - Model_sym with and without -symmetry, the POR spec,
+    SymV's exit-12 trace with and without -symmetry (the same trace from
+    the banner to the Progress line), SIGTERM (exit 75) then -recover
+    -symmetry (and -recover without the flag refused: the checkpoint's
+    symmetry key), the spill rung, -sharded 4, -phase-timing, the lying
+    plan (exit 1, its banner once), Reconciler and the KubeAPI pair (the
+    flags ignored): each exit code and transcript equal to the
+    reference's (digests pinned); RR4 with -symmetry: the reference's
+    counts."""
+    cfgs = runs["p19_cfgs"] if "p19_cfgs" in runs else models19(tmp)
+    ckdir = os.path.join(tmp, "ck19")
+    os.makedirs(ckdir)
+    out, lines, texts = {}, [], {}
+    for tag, (key, extra) in CMD19.items():
+        cfg = cfgs[key]
+        argv = [cfg, "-noTool"] + [x.replace("CK", ckdir) for x in extra]
+        if tag == "recover":  # first without -symmetry: refused
+            try:
+                command_here(ops, [a for a in argv if a != "-symmetry"])
+            except ValueError as e:
+                need("checkpoint symmetry mismatch" in str(e),
+                     f"-recover without -symmetry: {e}")
+            else:
+                raise SmokeFailure("-recover without -symmetry resumed a "
+                                   "reduced checkpoint")
+        if tag == "lie":
+            os.environ["TORCHTLC_DEBUG_SYM_LIE"] = "1"
+        try:
+            rc, text, launches, wall = command_here(ops, argv)
+        finally:
+            os.environ.pop("TORCHTLC_DEBUG_SYM_LIE", None)
+        rc_want, sha_want = CMD19_TRANSCRIPT[tag]
+        need(rc == rc_want, f"command {tag} exited {rc}")
+        if sha_want is None:  # RR4: the reference's counts
+            need(final_counts(text) == RR4_COUNTS["sym"],
+                 f"command {tag}: {final_counts(text)}")
+        else:
+            sha = hashlib.sha256(cmd17_masked(text, cfg, ckdir).encode()
+                                 ).hexdigest()
+            need(sha == sha_want, f"command {tag}: the transcript differs "
+                 "from the reference's")
+        red = {k: dict(v) for k, v in ops.REDUCE_LAUNCHES.items()}
+        if tag == "lie":
+            need(text.count("ERROR: runtime orbit-certificate violation - ")
+                 == 1 and "orbit-certificate violation: the symmetry"
+                 in text, "the lie's banner and verdict")
+        if tag == "sharded":
+            need(red["struct_canon"]["emitted_expand_sharded"]
+                 == launches["emitted_expand_sharded"] > 0
+                 and launches["struct_orbit_check"] == 0,
+                 "-sharded 4: K24 did not ride in K21, or K25 ran")
+        if tag in ("reconciler", "kubeapi"):
+            need(launches["struct_canon"] == launches["struct_por_keep"]
+                 == launches["struct_orbit_check"] == 0,
+                 f"{tag}: a reduction kernel ran")
+        if tag in ("sym", "rr4", "phase_timing", "spill"):
+            need(launches["struct_orbit_check"] > 0
+                 and red["struct_canon"]["struct_expand"] > 0,
+                 f"{tag}: K24 / K25 never ran")
+        texts[tag] = text
+        out[f"p19c_{tag}"] = {"launches": launches}
+        lines.append(f"{tag} exit {rc} ({wall:.2f} s)")
+    traces = [t[t.index("Invariant Small is violated"):t.index("Progress(")]
+              for t in (texts["symv"], texts["symv_full"])]
+    need(traces[0] == traces[1], "SymV: the trace differs with -symmetry")
+    print("phase 19c commands, transcripts = the reference's: "
+          + "; ".join(lines) + "; -recover without -symmetry refused; SymV's "
+          f"trace the same with and without -symmetry on {card}", flush=True)
     return out
 
 

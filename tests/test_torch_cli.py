@@ -176,9 +176,10 @@ FLAG_VALUES = {
 
 # flags refused once and run since they were ported: their cases keep
 # their ids and hold the run to the reference's exit code and transcript
-# (-narrow is ignored on KubeAPI specs, as the reference ignores it; the
-# clean run prints no trace for -traceExpressions to annotate)
-PORTED = ("narrow", "traceExpressions")
+# (-narrow, -symmetry and -por are ignored on KubeAPI specs, as the
+# reference ignores them; the clean run prints no trace for
+# -traceExpressions to annotate)
+PORTED = ("narrow", "traceExpressions", "symmetry", "por")
 
 
 @pytest.mark.parametrize("dest", sorted(set(UNPORTED) | set(PORTED)))

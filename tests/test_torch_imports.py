@@ -573,3 +573,30 @@ def test_analysis_copies_equal_reference():
                     report.exit_code, len(report.errors),
                     len(report.warnings), report.max_severity))
     assert out[0] == out[1]
+
+
+def test_reduce_copy_equals_reference():
+    """torchtlc/engine/reduce.py is the reference's reduction plan with its
+    array seam swapped: the same names, the same NamedTuple fields, the
+    same atom permutation of evaluator values, and each package's own lie
+    variable."""
+    from jaxtlc.engine import reduce as jr
+    from torchtlc.engine import reduce as tr
+
+    for name in ("RejectSet", "permute_value", "_PermProgram", "_enum_table",
+                 "_mask_sigma", "_emit", "_apply_program", "ReducePlan",
+                 "build_plan", "por_keep", "ReduceOps"):
+        assert hasattr(tr, name) and hasattr(jr, name), name
+    assert tr._PermProgram._fields == jr._PermProgram._fields
+    assert tr.ReduceOps._fields == jr.ReduceOps._fields
+    assert tr.ReduceOps().orbit_factor == jr.ReduceOps().orbit_factor == 1
+    for name in ("_build", "_inject_lie", "_canon", "canon", "canon_host",
+                 "orbit_check"):
+        assert hasattr(tr.ReducePlan, name), name
+    pmap = {"a": "b", "b": "a"}
+    for v in ("a", "c", frozenset({"a", "c"}), ("a", "b", 3),
+              (("a", 1), ("b", frozenset({"b"}))), ()):
+        assert tr.permute_value(v, pmap) == jr.permute_value(v, pmap)
+    src = open(os.path.join(ROOT, "torchtlc", "engine", "reduce.py")).read()
+    assert "TORCHTLC_DEBUG_SYM_LIE" in src
+    assert 'os.environ.get("JAXTLC_DEBUG_SYM_LIE"' not in src

@@ -17,14 +17,16 @@ from .engine_audit import audit_counter_width
 
 def preflight_struct(model, *, fp_capacity: int, chunk: int,
                      queue_capacity: int, check_deadlock: bool = True,
-                     bounds=None, narrow: bool = False) -> AnalysisReport:
+                     bounds=None, narrow: bool = False,
+                     symmetry: bool = False) -> AnalysisReport:
     """Struct-path preflight: spec lints + engine-layer arithmetic (the
     reference's signature; chunk, queue_capacity and check_deadlock serve
-    its deep mode only).  The unreduced-symmetry nudge always runs: the
-    port has no -symmetry yet.  `bounds` (an absint.BoundReport) adds the
-    bound report section and its findings (jaxtlc/analysis/preflight.py:
-    50-72); `narrow` marks that the run asked for the narrowed codec,
-    which turns an uncertified report into a `narrow-refused` warning."""
+    its deep mode only).  `bounds` (an absint.BoundReport) adds the bound
+    report section and its findings (jaxtlc/analysis/preflight.py:50-72);
+    `narrow` marks that the run asked for the narrowed codec, which turns
+    an uncertified report into a `narrow-refused` warning; `symmetry`
+    marks that the run reduces by symmetry, which silences the
+    unreduced-symmetry nudge (:32-34)."""
     from .speclint import analyze_spec
     from .symfind import unreduced_symmetry_findings
 
@@ -33,9 +35,10 @@ def preflight_struct(model, *, fp_capacity: int, chunk: int,
     spec = analyze_spec(model, dynamic_consts=frozenset(), const_hints=None)
     report.spec = spec
     report.extend(spec.findings)
-    # the spec qualifies for orbit dedup but the run is not taking it: one
-    # warning per SYMMETRY-eligible constant set
-    report.extend(unreduced_symmetry_findings(model))
+    if not symmetry:
+        # the spec qualifies for orbit dedup but the run is not taking
+        # it: one warning per SYMMETRY-eligible constant set
+        report.extend(unreduced_symmetry_findings(model))
     if bounds is not None:
         report.bound_lines = bounds.render_lines()
         report.extend(bounds.findings())

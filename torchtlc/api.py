@@ -42,6 +42,16 @@ bound digest, and a tripped certificate's error verdict and exit 1.  The
 KubeAPI and generic paths ignore it, as the reference does (its resume
 command still repeats it).
 
+``-symmetry`` and ``-por`` (tri-state, auto off) run a struct spec's
+reduced backend on every struct route: every successor canonicalized to
+its orbit representative (kernel K24) and pruned to singleton ample sets
+(K26), the runtime orbit certificate (K25) on one device, the journal's
+``reduce`` event, the checkpoint meta's symmetry / por keys, and a
+tripped orbit certificate's error verdict and exit 1; the preflight drops
+its unreduced-symmetry nudge under -symmetry.  The KubeAPI and generic
+paths ignore both, as the reference does (the journal's params and the
+resume command still carry them).
+
 Before the check each path runs the reference's preflight in its lite
 mode (torchtlc.analysis: the struct spec lints, the unreduced-symmetry
 nudge, the counter-width arithmetic); its findings print as TLC warning
@@ -410,6 +420,20 @@ def _sort_free(args) -> bool:
     return resolve_sort_free(args.sortfree, args.chunk)
 
 
+def _symmetry(args) -> bool:
+    """The resolved -symmetry mode (journal params record the fact)."""
+    from .engine.bfs import resolve_symmetry
+
+    return resolve_symmetry(args.symmetry, args.chunk)
+
+
+def _por(args) -> bool:
+    """The resolved -por mode."""
+    from .engine.bfs import resolve_por
+
+    return resolve_por(args.por, args.chunk)
+
+
 def _deferred(args) -> bool:
     from .engine.bfs import resolve_deferred
 
@@ -482,6 +506,11 @@ def _resume_command(args) -> str:
                   else "-no-deferred-inv"]
     if args.narrow:
         parts += ["-narrow"]  # the narrowed codec is a different layout
+    # the reduced carries and frontiers differ (checkpoint meta keys)
+    if args.symmetry is not None:
+        parts += ["-symmetry" if args.symmetry else "-no-symmetry"]
+    if args.por is not None:
+        parts += ["-por" if args.por else "-no-por"]
     if args.coverage:
         parts += ["-coverage"]  # the covered carry is a different layout
     if args.workers == "cpu":
@@ -649,8 +678,9 @@ def _run_check_struct(args, spec) -> int:
                               fp_capacity=args.fpcap, sharded=args.sharded,
                               pipeline=args.pipeline, frontend="structural",
                               sort_free=_sort_free(args),
-                              deferred=_deferred(args), symmetry=False,
-                              por=False, obs_slots=_obs_slots(args)))
+                              deferred=_deferred(args),
+                              symmetry=_symmetry(args), por=_por(args),
+                              obs_slots=_obs_slots(args)))
 
     def struct_preflight():
         from .analysis.preflight import preflight_struct
@@ -658,15 +688,17 @@ def _run_check_struct(args, spec) -> int:
         return preflight_struct(
             sm, fp_capacity=args.fpcap, chunk=args.chunk,
             queue_capacity=args.qcap, check_deadlock=spec.check_deadlock,
-            bounds=report, narrow=args.narrow)
+            bounds=report, narrow=args.narrow, symmetry=_symmetry(args))
 
     rc = _preflight_gate(args, log, struct_preflight)
     if rc is not None:
         return rc
     # the sharded routes narrow the codec with every trap kept and carry
     # no certificate (jaxtlc/api.py:1040-1093)
+    sym, por = _symmetry(args), _por(args)
     backend = get_backend(sm, spec.check_deadlock, bounds=bounds,
-                          elide=not args.sharded, coverage=args.coverage)
+                          elide=not args.sharded, coverage=args.coverage,
+                          symmetry=sym, por=por)
     meta_config = struct_meta_config(sm, bounds=bounds)
     t0 = time.time()
     from .resil.supervisor import EXIT_INTERRUPTED, SlotOverflowError
@@ -692,7 +724,8 @@ def _run_check_struct(args, spec) -> int:
                 sm, ShardMesh(args.sharded, device),
                 route_factor=args.routefactor,
                 check_deadlock=spec.check_deadlock, pipeline=args.pipeline,
-                coverage=args.coverage, bounds=bounds, **kw), None
+                coverage=args.coverage, bounds=bounds, symmetry=sym,
+                por=por, **kw), None
         elif args.checkpoint or args.autogrow:
             from .resil.supervisor import check_supervised
 
@@ -708,7 +741,7 @@ def _run_check_struct(args, spec) -> int:
                 sm, fp_index=spec.fp_index,
                 check_deadlock=spec.check_deadlock, device=device,
                 coverage=args.coverage, pipeline=args.pipeline,
-                bounds=bounds, **kw), None
+                bounds=bounds, symmetry=sym, por=por, **kw), None
     except SlotOverflowError as e:
         log.msg(1000, f"Run stopped: {e}", severity=1)
         _finish_journal(args)
@@ -724,6 +757,10 @@ def _run_check_struct(args, spec) -> int:
         log.final_counts(r.generated, r.distinct, r.queue_left)
         _finish_journal(args, r=None, sup=sup)
         return EXIT_INTERRUPTED
+    if sym or por:
+        _reduce_event(args, backend.reduce, r, sym, por)
+    if r.sym_violated:
+        return _sym_violated(args, log, spec, r, t0)
     if r.cert_violated:
         return _cert_violated(args, log, spec, r, t0)
     violated = r.violation != 0
@@ -799,6 +836,46 @@ def _run_check_struct(args, spec) -> int:
     if violated:
         return 12
     return 13 if liveness_violated else 0
+
+
+def _reduce_event(args, red, r, sym: bool, por: bool) -> None:
+    """The journal's `reduce` event (jaxtlc/api.py:1831-1849 with its
+    static half reduce_info, :1135-1155): what the reduction resolved for
+    the run and what it bought - states_pruned, the POR count, and
+    ample_hit_rate = pruned / (generated + pruned)."""
+    j = getattr(args, "_journal", None)
+    if j is None or red is None:
+        return
+    pruned = int(r.por_pruned or 0)
+    total = int(r.generated) + pruned
+    j.event("reduce", states_pruned=pruned,
+            ample_hit_rate=round(pruned / total, 6) if total else 0.0,
+            generated=int(r.generated), distinct=int(r.distinct),
+            symmetry=sym, por=por, orbit_factor=red.orbit_factor,
+            symmetric_sets={k: list(v) for k, v in red.sym_sets},
+            dropped_sets=dict(red.dropped_sets),
+            safe_actions=len(red.safe_ids))
+
+
+def _sym_violated(args, log, spec, r, t0: float) -> int:
+    """A tripped runtime orbit certificate (jaxtlc/api.py:1851-1869): the
+    canonicalization was not constant on some reachable orbit, so the
+    reduced dedup may have merged states it had no right to merge - the
+    structured record, an error verdict and exit 1."""
+    detail = ("runtime orbit-certificate violation: the symmetry "
+              "canonicalization is not orbit-invariant on a reachable "
+              "state; re-run with -no-symmetry and report the spec (the "
+              "symmetry verification is unsound)")
+    j = getattr(args, "_journal", None)
+    if j is not None:
+        j.event("analysis", layer="spec", check="orbit-certificate",
+                severity="error", subject=spec.spec_name, detail=detail)
+        j.event("final", verdict="error", generated=r.generated,
+                distinct=r.distinct, depth=r.depth, queue=r.queue_left,
+                wall_s=round(time.time() - t0, 6), interrupted=False)
+    log.msg(1000, f"ERROR: {detail}", severity=1)
+    _finish_journal(args)
+    return 1
 
 
 def _cert_violated(args, log, spec, r, t0: float) -> int:
@@ -1025,8 +1102,9 @@ def _run_check_gen(args, spec) -> int:
                               fp_capacity=args.fpcap, sharded=args.sharded,
                               pipeline=args.pipeline, frontend="generic",
                               sort_free=_sort_free(args),
-                              deferred=_deferred(args), symmetry=False,
-                              por=False, obs_slots=_obs_slots(args)))
+                              deferred=_deferred(args),
+                              symmetry=_symmetry(args), por=_por(args),
+                              obs_slots=_obs_slots(args)))
 
     def gen_preflight():
         from .analysis.preflight import preflight_gen

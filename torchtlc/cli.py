@@ -5,7 +5,8 @@ jaxtlc/cli.py on the KubeAPI path.
         [-workers cpu] [-chunk 1024] [-qcap N] [-fpcap N] \\
         [-checkpoint PATH [-checkpointevery N] [-recover]] \\
         [-no-auto-grow] [-spill | -no-spill] [-coverage] [-pipeline] \\
-        [-sharded N [-routefactor F]] [-liveness [-liveness-host]
+        [-sharded N [-routefactor F]] [-symmetry] [-por]
+        [-liveness [-liveness-host]
         [-fairness wf_next|wf_process]] [-noTool] ...
 
 Reads MC.cfg with its sibling MC.tla (and a toolbox .launch if present),
@@ -35,11 +36,6 @@ from .api import _run_check
 UNPORTED = {
     "fpset": ("JaxFPSet", "-fpset DiskFPSet (the native disk tier) is "
               "ported with the capacity tiers (ROADMAP Queue A item 13)"),
-    "symmetry": (None, "-symmetry/-no-symmetry (state-space reduction) is "
-                 "ported with the reduction plane (ROADMAP Queue A item "
-                 "13)"),
-    "por": (None, "-por/-no-por (partial-order pruning) is ported with the "
-            "reduction plane (ROADMAP Queue A item 13)"),
     "simulate": (False, "-simulate (random-walk simulation) is ported with "
                  "the simulation plane (ROADMAP Queue A item 13)"),
     "infer": (False, "-infer (invariant inference) is ported with the "
@@ -161,11 +157,32 @@ def _parser() -> argparse.ArgumentParser:
                         "(the same counts; a checkpoint records the mode "
                         "and -recover must repeat it)")
     c.add_argument("-no-pipeline", dest="pipeline", action="store_false")
-    for flag, dest in (("symmetry", "symmetry"), ("por", "por")):
-        c.add_argument(f"-{flag}", dest=dest, action="store_const",
-                       const=True, default=None)
-        c.add_argument(f"-no-{flag}", dest=dest, action="store_const",
-                       const=False)
+    c.add_argument("-symmetry", dest="symmetry", action="store_const",
+                   const=True, default=None,
+                   help="symmetry reduction on struct specs: the CONSTANT "
+                        "sets the spec treats as fully permutation-"
+                        "symmetric (verified against the spec text) are "
+                        "reduced by canonicalizing every successor to "
+                        "its orbit representative before fingerprinting "
+                        "(kernel K24); same verdict and trace, fewer "
+                        "distinct states; a runtime orbit certificate "
+                        "(K25) on one device makes a wrong "
+                        "canonicalization an error verdict.  Default "
+                        "off; ignored on KubeAPI and generic specs; a "
+                        "checkpoint records the mode")
+    c.add_argument("-no-symmetry", dest="symmetry", action="store_const",
+                   const=False, help="the unreduced state space")
+    c.add_argument("-por", dest="por", action="store_const",
+                   const=True, default=None,
+                   help="partial-order pruning on struct specs: where a "
+                        "provably safe action is enabled, expand only its "
+                        "transitions (singleton ample sets, kernel K26); "
+                        "same verdict, fewer states; the journal's "
+                        "`reduce` event counts the pruned transitions.  "
+                        "Default off; ignored on KubeAPI and generic "
+                        "specs; a checkpoint records the mode")
+    c.add_argument("-no-por", dest="por", action="store_const",
+                   const=False, help="full interleaving expansion")
     c.add_argument("-simulate", action="store_true")
     c.add_argument("-depth", type=int, default=100)
     c.add_argument("-walkers", type=int, default=256)

@@ -90,6 +90,11 @@ class SpecBackend(NamedTuple):
     # deferred routes (K17 and K18 evaluate it); it feeds only the sticky
     # certificate leaf and ring column, no arbitration
     cert_check: object = None
+    # the state-space reduction of a struct backend (engine.reduce.
+    # ReduceOps: a symmetry plan and/or POR-safe action ids), or None.  The
+    # expand route runs it (K24-K26 inside K17 and K21, K25 after K17):
+    # ExpandOut.sym and ExpandOut.pruned
+    reduce: object = None
 
 
 def gen_backend(spec, prog=None) -> SpecBackend:
@@ -128,8 +133,9 @@ class KubeKernels(NamedTuple):
 
     def expand(self, block, n: int, deferred: bool = False):
         """-> (packed, flags [5, ck*L], action, gen, flat=None,
-        cert=None)."""
-        return (*expand_block(self.cfg, block, n, deferred), None, None)
+        cert=None, sym=None, pruned=None)."""
+        return (*expand_block(self.cfg, block, n, deferred), None, None,
+                None, None)
 
     def deferred(self, ex, is_new_c, c_idx, rows: int):
         """-> (viol, state, action, cert=None)."""
@@ -249,6 +255,12 @@ class ExpandOut(NamedTuple):
     # 0-dim bool: some valid successor of this block violated a certified
     # bound (immediate mode of a backend with a certificate, else None)
     cert: torch.Tensor = None
+    # 0-dim bool: the block's orbit check failed (K25; a backend with a
+    # symmetry plan, else None)
+    sym: torch.Tensor = None
+    # 0-dim int64: candidate lanes the POR ample sets pruned in this block
+    # (K26 inside K17; a backend that prunes, else None)
+    pruned: torch.Tensor = None
 
 
 def make_expand_stage(backend: SpecBackend, chunk: int,
@@ -264,7 +276,10 @@ def make_expand_stage(backend: SpecBackend, chunk: int,
     The violating state is carried packed (viol_words); the engine unpacks
     it on the host once a violation is read back.  With a coverage plane
     the stage also counts the block's site increments (ExpandOut.cov) on
-    the valid flags, which already carry the pop mask."""
+    the valid flags, which already carry the pop mask.  A reduced backend's
+    expand route returns the block's orbit check (ExpandOut.sym, K25) and
+    pruned count (ExpandOut.pruned, K26 inside K17); its valid flags are
+    the lanes K26 kept and its candidates canonical (K24 inside K17)."""
     cdc = backend.cdc
     L = backend.n_lanes
     nbits = cdc.nbits
@@ -279,14 +294,17 @@ def make_expand_stage(backend: SpecBackend, chunk: int,
 
     def expand(block: torch.Tensor, n: int) -> ExpandOut:
         dev = block.device
-        packed, flags, action, gen, flat, cert = kernels.expand(block, n,
-                                                                deferred)
+        packed, flags, action, gen, flat, cert, sym, pruned = kernels.expand(
+            block, n, deferred)
         valid = flags[FLAG_VALID].bool()
         cov = None
         if backend.coverage is not None:
             cov = backend.coverage.count(block, n, flags[FLAG_VALID])
         # deadlock: a popped state with no valid successor (TLC's
-        # -deadlock check)
+        # -deadlock check).  Under POR the valid flags are the lanes K26
+        # kept, and that is still the pre-pruning test: a row with a valid
+        # lane always keeps one (the lowest-id safe enabled action is
+        # enabled), so pruning never makes or hides a deadlock
         dead = ~valid.view(chunk, L).any(1)
         dead[n:] = False
         if not backend.check_deadlock:
@@ -320,7 +338,8 @@ def make_expand_stage(backend: SpecBackend, chunk: int,
             viol=torch.where(hit, codes_on[dev].index_select(0, k)[0], OK),
             viol_words=words.index_select(0, k)[0],
             viol_action=torch.where(hit, acts.index_select(0, k)[0], -1),
-            block=block, cov=cov, flat=flat, cert=cert,
+            block=block, cov=cov, flat=flat, cert=cert, sym=sym,
+            pruned=pruned,
         )
 
     return expand

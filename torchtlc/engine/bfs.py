@@ -29,6 +29,16 @@ K17) in the immediate mode, the deferred checker's of the fresh claimants
 to the ring's COL_CERT (jaxtlc/engine/bfs.py:602-610).  It feeds no
 arbitration: counts and table words equal the uncertified run's.
 
+A backend with the state-space reduction (``SpecBackend.reduce``, a
+struct backend built with symmetry or POR) canonicalizes its Init seeds
+(kernel K24) and carries, with a symmetry plan, the sticky ``sym_viol``
+leaf - the expand stage's orbit check of each block (K25), ORed in every
+commit and written to the ring's COL_SYM - and, under POR, the cumulative
+``por_pruned`` count of the lanes K26 pruned (jaxtlc/engine/bfs.py:
+155-168, 612-619); the pipelined carry stages both (``st_sym``,
+``st_pruned``).  Canonicalization and pruning themselves run inside the
+expand kernel, so every later stage sees reduced candidates.
+
 With a coverage plane on the backend (``backend.kubeapi_backend(cfg,
 coverage=True)``), the expand stage also counts the block's site
 increments (kernel K10) and the commit folds them into the carry's
@@ -122,7 +132,7 @@ __all__ = [
     "enqueue_order", "resolve_device", "resolve_sort_free",
     "resolve_deferred", "obs_rows", "make_segment", "carry_done",
     "clone_carry", "cov_totals", "staged_block", "EnumCarry",
-    "make_enumerator",
+    "make_enumerator", "resolve_symmetry", "resolve_por",
 ]
 
 VIOLATION_NAMES = {
@@ -225,6 +235,16 @@ class EngineCarry(NamedTuple):
     # staged block's certificate (pipelined immediate-mode carries)
     cert_viol: torch.Tensor = None
     st_cert: torch.Tensor = None
+    # the state-space reduction (None without backend.reduce): the sticky
+    # orbit-certificate flag (0-dim bool, K25 every body; the ring's
+    # COL_SYM) and the staged block's bit (pipelined carries); the
+    # cumulative count of candidate lanes the POR ample sets pruned (0-dim
+    # int64, whose low 32 bits are the reference's wrapping uint32) and
+    # the staged block's count
+    sym_viol: torch.Tensor = None
+    st_sym: torch.Tensor = None
+    por_pruned: torch.Tensor = None
+    st_pruned: torch.Tensor = None
 
 
 class CheckResult(NamedTuple):
@@ -252,6 +272,13 @@ class CheckResult(NamedTuple):
     # bounds; True = a claimed bound was violated (the run's counts are not
     # to be trusted)
     cert_violated: bool = None
+    # the runtime orbit certificate of a symmetry-reduced run: None = no
+    # symmetry plan; True = some body's orbit check failed (the run's
+    # dedup is not to be trusted)
+    sym_violated: bool = None
+    # candidate lanes the POR ample sets pruned (uint32, wrapping as the
+    # reference's); None without POR
+    por_pruned: int = None
 
 
 def resolve_device(device) -> torch.device:
@@ -287,6 +314,23 @@ def resolve_deferred(deferred, chunk: int) -> bool:
     if deferred is not None:
         return bool(deferred)
     return chunk >= DEFERRED_AUTO_CHUNK
+
+
+def resolve_symmetry(symmetry, chunk: int = 0) -> bool:
+    """The tri-state -symmetry flag (None = auto: OFF - orbit dedup shrinks
+    the distinct count, so it is opted into; `chunk` keeps the resolver
+    shape of resolve_sort_free)."""
+    if symmetry is not None:
+        return bool(symmetry)
+    return False
+
+
+def resolve_por(por, chunk: int = 0) -> bool:
+    """The tri-state -por flag (None = auto: OFF - ample-set pruning
+    changes the explored counts, not the verdicts)."""
+    if por is not None:
+        return bool(por)
+    return False
 
 
 def staged_block(c: EngineCarry, h: Bundle, chunk: int) -> torch.Tensor:
@@ -524,6 +568,14 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
             # sticky: once a block's certificate fired, every later carry
             # and ring row carries the flag
             cert_viol = cert_viol | cert_src
+        sym_viol, por_pruned = c.sym_viol, c.por_pruned
+        if ex.sym is not None and sym_viol is not None:
+            # the orbit check (K25) latches the same way; it ran at the
+            # expand on canonical fields, so the deferred mode has no
+            # commit-side variant
+            sym_viol = sym_viol | ex.sym
+        if ex.pruned is not None and por_pruned is not None:
+            por_pruned = por_pruned + ex.pruned
         if obs_slots:
             # one telemetry row per body (post-commit cumulative counters;
             # non-flip bodies write the dump row)
@@ -534,7 +586,7 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
                      c.spill_hits if spill else None,
                      cov_counts if ex.cov is not None else None,
                      c.cov_counts if ex.cov is not None else None,
-                     cert=cert_viol)
+                     cert=cert_viol, sym=sym_viol)
 
         vals = torch.stack([parity, qhead, level_n, next_n, distinct, viol,
                             hit_ex.to(torch.int64)]).tolist()
@@ -547,8 +599,8 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
             next_n=next_n, level=level, depth=depth, generated=generated,
             distinct=distinct, viol=viol, viol_state=viol_state,
             viol_action=viol_action, spill_hits=spill_hits,
-            cov_counts=cov_counts, cert_viol=cert_viol,
-            bundle=Bundle(*vals[:6]),
+            cov_counts=cov_counts, cert_viol=cert_viol, sym_viol=sym_viol,
+            por_pruned=por_pruned, bundle=Bundle(*vals[:6]),
         )
 
     commit.slab_fallbacks = 0
@@ -623,6 +675,11 @@ def make_backend_engine(
     # deferred checker derives it at the commit from st_flat
     has_cert = backend.cert_check is not None
     stage_cert = pipeline and has_cert and not deferred
+    # the state-space reduction: the plan and the POR rights decide the
+    # carry leaves, as the expand route decides ExpandOut.sym / .pruned
+    red = backend.reduce
+    has_sym = red is not None and red.plan is not None
+    has_por = red is not None and red.por_on
 
     def i64(v):
         return torch.full((), v, dtype=torch.int64, device=dev)
@@ -632,6 +689,10 @@ def make_backend_engine(
         if inits is None:
             inits = backend.initial_vectors()
         inits = torch.as_tensor(np.asarray(inits, dtype=np.int32))
+        if has_sym:
+            # orbit-representative seeds (K24 on the card): Init is closed
+            # under the verified permutations, so no orbit is lost
+            inits = backend.kernels.canon(inits.to(dev)).cpu()
         n0 = inits.shape[0]
         assert n0 <= chunk and n0 <= qcap, "raise chunk/queue_capacity"
         packed0 = cdc.pack(inits)
@@ -679,9 +740,18 @@ def make_backend_engine(
             if stage_cert:
                 extra["st_cert"] = torch.zeros((), dtype=torch.bool,
                                                device=dev)
+            if has_sym:
+                extra["st_sym"] = torch.zeros((), dtype=torch.bool,
+                                              device=dev)
+            if has_por:
+                extra["st_pruned"] = i64(0)
         if has_cert:
             extra["cert_viol"] = torch.zeros((), dtype=torch.bool,
                                              device=dev)
+        if has_sym:
+            extra["sym_viol"] = torch.zeros((), dtype=torch.bool, device=dev)
+        if has_por:
+            extra["por_pruned"] = i64(0)
         return EngineCarry(
             fps=fps, queue=queue, parity=i64(0), qhead=i64(0),
             level_n=i64(n0), next_n=i64(0), level=i64(1), depth=i64(1),
@@ -714,7 +784,7 @@ def make_backend_engine(
             action=c.st_action, gen=c.st_gen, viol=c.st_viol,
             viol_words=c.st_viol_state, viol_action=c.st_viol_action,
             block=staged_block(c, h, chunk), cov=c.st_cov, flat=c.st_flat,
-            cert=c.st_cert)
+            cert=c.st_cert, sym=c.st_sym, pruned=c.st_pruned)
 
     def with_staged(c: EngineCarry, ex: ExpandOut, n: int) -> EngineCarry:
         # rebinds the expand stage's outputs, which are fresh tensors of
@@ -727,6 +797,8 @@ def make_backend_engine(
             st_viol_state=ex.viol_words, st_viol_action=ex.viol_action,
             st_cov=ex.cov, st_flat=ex.flat if stage_flat else None,
             st_cert=ex.cert if stage_cert else None, st_block=None,
+            st_sym=ex.sym if has_sym else None,
+            st_pruned=ex.pruned if has_por else None,
             bundle=h._replace(qhead=h.qhead + n, st_n=n))
 
     def pipelined_body(c: EngineCarry, h: Bundle) -> EngineCarry:
@@ -897,6 +969,11 @@ def result_from_carry(carry: EngineCarry, wall_s: float, iterations: int = -1,
     viol = int(carry.viol)
     totals = cov_totals(carry)
     cert = getattr(carry, "cert_viol", None)
+    sym = getattr(carry, "sym_viol", None)
+    pruned = getattr(carry, "por_pruned", None)
+    if pruned is not None:
+        # a ShardCarry holds per-shard partials
+        pruned = int(pruned.sum()) & 0xFFFFFFFF
     return CheckResult(
         generated=int(carry.generated),
         distinct=int(carry.distinct),
@@ -919,6 +996,8 @@ def result_from_carry(carry: EngineCarry, wall_s: float, iterations: int = -1,
         site_coverage=(None if totals is None or sites is None
                        else site_totals_dict(sites, totals)),
         cert_violated=None if cert is None else bool(cert),
+        sym_violated=None if sym is None else bool(sym),
+        por_pruned=pruned,
     )
 
 

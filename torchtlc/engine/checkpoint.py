@@ -50,6 +50,7 @@ from .interop import (
     COUNTERS,
     LEAF_ORDER,
     OBS_SCALARS,
+    REDUCE_DTYPES,
     SCALARS,
     STAGED_DTYPES,
     SHARD_DTYPES,
@@ -125,7 +126,8 @@ def _leaf_specs(carry, cfg=None, deferred: bool = False,
                 for k in sorted(carry)]
     dtypes = {"fps": np.uint32, "queue": np.uint32, "viol_state": np.int32,
               "obs_ring": np.uint32, "spill_hits": np.uint32,
-              "cov_counts": np.uint32, "cert_viol": np.bool_, **SCALARS, **STAGED_DTYPES,
+              "cov_counts": np.uint32, "cert_viol": np.bool_,
+              **REDUCE_DTYPES, **SCALARS, **STAGED_DTYPES,
               **OBS_SCALARS, **{k: np.uint32 for k in COUNTERS}}
     shapes = {}
     if carry.st_n is not None:

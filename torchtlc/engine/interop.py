@@ -10,7 +10,10 @@ and expanded counters as uint32) appear when the carry has them.  A
 spill-mode carry adds ``spill_hits`` (uint32), a covered carry its
 ``cov_counts`` ([n_sites] uint32), a carry with the runtime certificate (a
 narrowed struct run) its sticky ``cert_viol`` (bool) and, pipelined in the
-immediate mode, the staged block's ``st_cert`` (bool).
+immediate mode, the staged block's ``st_cert`` (bool); a reduced carry
+(``REDUCE_DTYPES``) its sticky orbit flag ``sym_viol`` (bool) and POR
+count ``por_pruned`` (uint32), pipelined the staged ``st_sym`` and
+``st_pruned``.
 A pipelined carry adds the staged block (``STAGED``, in the reference's
 dtypes; ``st_cov`` with coverage and, in the deferred mode, ``st_flat``)
 and needs its codec both ways (`codec`, or KubeAPI's from its
@@ -74,14 +77,16 @@ STAGED_DTYPES = {
     "st_valid": np.bool_, "st_action": np.int32, "st_gen": np.uint32,
     "st_n": np.int32, "st_viol": np.int32, "st_viol_state": np.int32,
     "st_viol_action": np.int32, "st_flat": np.int32, "st_cov": np.uint32,
-    "st_cert": np.bool_,
+    "st_cert": np.bool_, "st_sym": np.bool_, "st_pruned": np.uint32,
 }
+# the state-space reduction's leaves (jaxtlc/engine/bfs.py:162-168)
+REDUCE_DTYPES = {"sym_viol": np.bool_, "st_sym": np.bool_,
+                 "por_pruned": np.uint32, "st_pruned": np.uint32}
 # the reference carry's leaf order (jax.tree_util.tree_leaves of an
-# EngineCarry: NamedTuple field order, None fields dropped; the port has
-# no symmetry or POR leaves)
+# EngineCarry: NamedTuple field order, None fields dropped)
 LEAF_ORDER = (FIELDS + STAGED + OBS_FIELDS
               + ("spill_hits", "cert_viol", "st_cert", "st_flat",
-                 "cov_counts", "st_cov"))
+                 "cov_counts", "st_cov") + tuple(REDUCE_DTYPES))
 
 
 def _has(d, name) -> bool:
@@ -179,6 +184,10 @@ def carry_to_numpy(c: EngineCarry, cfg=None, deferred: bool = False,
             np.uint32)
     if c.cert_viol is not None:
         out["cert_viol"] = np.asarray(bool(c.cert_viol), np.bool_)
+    for name, dt in REDUCE_DTYPES.items():
+        v = getattr(c, name)
+        if v is not None:  # a flag, or a counter's low 32 bits
+            out[name] = np.asarray(int(v) & 0xFFFFFFFF, np.uint32).astype(dt)
     if c.st_n is not None:
         out.update(_staged_to_numpy(c, cfg, codec, deferred))
     return out
@@ -214,6 +223,12 @@ def carry_from_numpy(d, device=None, cfg=None, codec=None,
     if _has(d, "cert_viol"):
         vals["cert_viol"] = torch.tensor(bool(_get(d, "cert_viol")),
                                          device=dev)
+    for name, dt in REDUCE_DTYPES.items():
+        if _has(d, name):
+            vals[name] = (torch.tensor(bool(_get(d, name)), device=dev)
+                          if dt is np.bool_ else
+                          torch.tensor(int(_get(d, name)), dtype=torch.int64,
+                                       device=dev))
     if _has(d, "st_n"):
         vals.update(_staged_from_numpy(d, staged_codec(cfg, codec), flat,
                                        dev, words))

@@ -527,6 +527,11 @@ def make_sharded_engine(
 
     def init_fn() -> ShardCarry:
         inits = np.asarray(backend.initial_vectors(), np.int32)
+        red = backend.reduce
+        if red is not None and red.plan is not None:
+            # orbit-canonical seeds, the host twin of K24 (jaxtlc/engine/
+            # sharded.py:381-386): Init is closed under the permutations
+            inits = red.plan.canon_host(inits)
         packed = cdc.pack(torch.from_numpy(inits))
         lo, hi = fp64_words(packed, cdc.nbits, fp_index)
         own = owner_of(hi).numpy()
@@ -1129,6 +1134,7 @@ def check_sharded_with_checkpoints(
     import os
 
     from .checkpoint import _meta, load_checkpoint, save_checkpoint
+    from .reduce import reduce_flags
 
     if backend is None:
         backend = kubeapi_backend(cfg)
@@ -1142,7 +1148,8 @@ def check_sharded_with_checkpoints(
     meta = _meta(cfg, meta_config=meta_config, queue_capacity=queue_capacity,
                  fp_capacity=fp_capacity, devices=mesh.n_shards,
                  pipeline=pipeline, obs_slots=obs_slots, sort_free=sort_free,
-                 deferred=deferred, symmetry=False, por=False)
+                 deferred=deferred, **dict(zip(("symmetry", "por"),
+                                               reduce_flags(backend))))
     template = init_fn()
     t0 = time.time()
     if resume:

@@ -161,9 +161,10 @@ class GenKernels(EmittedRows):
     def expand(self, block: torch.Tensor, n: int, deferred: bool = False):
         """The SpecBackend route (the reference's generic expand stage over
         gen_backend's step): (packed, flags, action, gen, flat=None,
-        cert=None), the invariant rows zero when deferred, the overflow row
-        masked by validity as that stage masks it."""
+        cert=None, sym=None, pruned=None), the invariant rows zero when
+        deferred, the overflow row masked by validity as that stage masks
+        it."""
         packed, flags, action, gen, _ = self._run(block, n, not deferred,
                                                   False)
         flags[FLAG_OVF] &= flags[FLAG_VALID]
-        return packed, flags, action, gen, None, None
+        return packed, flags, action, gen, None, None, None, None

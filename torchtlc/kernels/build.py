@@ -11,7 +11,9 @@ The second route, ``build_struct``, builds one spec's emitted kernels -
 K17 of a struct spec or K19 of a generic one, each with K18 and K21
 (struct_inv_rows.cuh, emitted_sharded.cuh, which both templates
 include) and K23 (struct_cert.cuh, which struct_inv_rows.cuh includes:
-the runtime certificate of a narrowed struct spec), K20 of a generic spec's temporal operands and K22 of a struct
+the runtime certificate of a narrowed struct spec) and K24-K26
+(struct_reduce.cuh, which emitted_sharded.cuh includes: the symmetry and
+POR reduction), K20 of a generic spec's temporal operands and K22 of a struct
 spec's coverage conditions: the C++ that torchtlc.struct.emit prints
 around a hand-written template (struct_expand.cuh, gen_expand.cuh,
 gen_masks.cuh, struct_cov.cuh) goes to
@@ -94,15 +96,17 @@ def build(ptxas_report: bool = False) -> BuildInfo:
 STRUCT_TEMPLATES = ("common.cuh", "struct_prelude.cuh", "struct_codec.cuh",
                     "struct_expand.cuh", "gen_expand.cuh", "gen_masks.cuh",
                     "struct_inv_rows.cuh", "emitted_sharded.cuh",
-                    "struct_cov.cuh", "struct_cert.cuh")
+                    "struct_cov.cuh", "struct_cert.cuh", "struct_reduce.cuh")
 HOST_FLAGS = ["-x", "c++", "-O1", "-std=c++17", "-shared", "-fPIC"]
 
 
 def build_struct(text: str, host: bool = False) -> str:
     """Build (or find) one emitted library (K17/K18, K19, K20 or K22) from its
     text: nvcc for sm_90a, or g++ with host=True.  Returns the library
-    path; raises with the compiler's output when the build fails."""
-    flags = HOST_FLAGS if host else NVCC_FLAGS
+    path; raises with the compiler's output when the build fails.  nvcc
+    runs with ``-Xptxas -v``: its report (each kernel's registers, stack
+    frame and spills) is kept beside the library as ``nvcc.log``."""
+    flags = HOST_FLAGS if host else NVCC_FLAGS + ["-Xptxas", "-v"]
     h = hashlib.sha256(" ".join(flags).encode() + text.encode())
     for name in STRUCT_TEMPLATES:
         with open(os.path.join(CSRC, name), "rb") as f:
@@ -126,5 +130,8 @@ def build_struct(text: str, host: bool = False) -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"{cc} failed on {src} (rc {proc.returncode}):\n"
                            f"{proc.stdout}{proc.stderr}")
+    if not host:
+        with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
+            f.write(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib

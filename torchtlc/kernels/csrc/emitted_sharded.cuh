@@ -21,40 +21,67 @@
 // [D*ck*L, F], and the packed popped rows block [D*ck, W] when the caller
 // passes one.
 //
+// Under symmetry and POR reduction (the spec's text prints ST_SYM 1 /
+// ST_POR 1, struct_reduce.cuh) K21 prunes each row's lanes (K26's
+// st_por_prune, after afail, ovf and the deadlock-relevant valid flags of
+// the pre-pruning lanes) and canonicalizes every candidate (K24's
+// st_canon_row) before it checks, writes and packs it, as the reference's
+// sharded expand does (jaxtlc/engine/sharded.py:527-542); it counts no
+// pruned lanes and runs no orbit check (the reference's sharded engine
+// carries neither).
+//
 // Bound: operations.  A row's step is the unrolled lane IR (a few hundred
 // to a few thousand integer statements); the bytes - F fields in, L * (W
 // + F words + 3 + ST_NINV flag bytes + an action) out - are small beside
 // it.  Every intermediate stays in registers; K is read through the cache.
 #pragma once
 
+#include "struct_reduce.cuh"
+
 // The lane body K17 and K21 share, for one row's fields f: run the
 // emitted step over its L lanes, mask the lanes by the pop (live) and
-// afail/ovf by validity, then per lane evaluate the invariants (their
-// rows stay 0 with kDeferred), fold the raw candidate into the runtime
-// certificate (cert(s, valid): K23's st_cert_row under K17's kCert, a
-// no-op otherwise), pack it, write its action and count it.  The raw
-// successor fields go to `fields` with kDeferred (K17's flat) or kFields
-// (K21's rows for the route).  idx0 is the row's first candidate, ncand
-// the flag-row stride; count(a) adds one generated successor of action a.
-template <bool kDeferred, bool kFields, typename Count, typename Cert>
-HD void st_lanes_row(const int32_t* __restrict__ K, const int32_t* f,
-                     bool live, long long idx0, long long ncand,
-                     uint32_t* __restrict__ packed,
-                     uint8_t* __restrict__ flags,
-                     int32_t* __restrict__ action,
-                     int32_t* __restrict__ fields, Count& count,
-                     Cert& cert) {
+// afail/ovf by validity, prune the valid lanes (K26, kPor: afail and ovf
+// keep the pre-pruning lanes, so a pruned trapping lane still halts),
+// then per lane canonicalize the candidate (K24, kSym: every lane, valid
+// or not), evaluate the invariants (their rows stay 0 with kDeferred),
+// fold the candidate into the runtime certificate (cert(s, valid): K23's
+// st_cert_row under K17's kCert, a no-op otherwise), pack it, write its
+// action and count it.  The successor fields go to `fields` with
+// kDeferred (K17's flat) or kFields (K21's rows for the route).  idx0 is
+// the row's first candidate, ncand the flag-row stride; count(a) adds one
+// generated successor of action a.  Returns the lanes K26 pruned.
+template <bool kDeferred, bool kFields, bool kSym, bool kPor, typename Count,
+          typename Cert>
+HD int st_lanes_row(const int32_t* __restrict__ K, const int32_t* f,
+                    bool live, long long idx0, long long ncand,
+                    uint32_t* __restrict__ packed,
+                    uint8_t* __restrict__ flags,
+                    int32_t* __restrict__ action,
+                    int32_t* __restrict__ fields, Count& count, Cert& cert) {
   int32_t succ[ST_L * ST_F];
   bool valid[ST_L], ovf[ST_L], afail[ST_L];
   st_step(f, K, succ, valid, ovf, afail);
   const int lane_action[ST_L] = {ST_LANE_ACTION};
+  bool keep[ST_L];
+  for (int l = 0; l < ST_L; l++) keep[l] = valid[l] && live;
+  for (int l = 0; l < ST_L; l++) {
+    const long long idx = idx0 + l;
+    flags[ncand + idx] = afail[l] && keep[l];
+    flags[2 * ncand + idx] = ovf[l] && keep[l];
+  }
+  const int pruned = kPor ? st_por_prune(keep) : 0;
   for (int l = 0; l < ST_L; l++) {
     const long long idx = idx0 + l;
     const int32_t* s = succ + l * ST_F;
-    const bool v = valid[l] && live;
+    int32_t canon[ST_F];
+    if (kSym) {
+      int32_t raw[ST_F];
+      for (int j = 0; j < ST_F; j++) raw[j] = s[j];
+      st_canon_row(K, raw, canon);
+      s = canon;
+    }
+    const bool v = keep[l];
     flags[idx] = v;
-    flags[ncand + idx] = afail[l] && v;
-    flags[2 * ncand + idx] = ovf[l] && v;
     if (kDeferred) {
       for (int k = 0; k < ST_NINV; k++) flags[(3 + k) * ncand + idx] = 0;
     } else {
@@ -69,6 +96,7 @@ HD void st_lanes_row(const int32_t* __restrict__ K, const int32_t* f,
     action[idx] = lane_action[l];
     if (v) count(lane_action[l]);
   }
+  return pruned;
 }
 
 // queue row r of shard d, copied: queue [D, qrows, F], row qrows - 1 the dump
@@ -108,9 +136,9 @@ __global__ void emitted_expand_sharded_kernel(
     const long long row = (long long)d * ck + r;
     EsSharedHist count{hist};
     StCert<false> none;
-    st_lanes_row<kDeferred, true>(K, f, r < npop[d], row * ST_L,
-                                  (long long)gridDim.y * ck * ST_L, packed,
-                                  flags, action, fields, count, none);
+    st_lanes_row<kDeferred, true, (bool)ST_SYM, (bool)ST_POR>(
+        K, f, r < npop[d], row * ST_L, (long long)gridDim.y * ck * ST_L,
+        packed, flags, action, fields, count, none);
     if (block) st_pack(f, block + row * ST_W);
   }
   __syncthreads();
@@ -165,15 +193,15 @@ extern "C" int host_emitted_expand_sharded(const void* K, const void* queue,
       const long long row = (long long)d * ck + r;
       const bool live = r < ((const long long*)npop)[d];
       if (deferred)
-        st_lanes_row<true, true>((const int32_t*)K, f, live, row * ST_L,
-                                 ncand, (uint32_t*)packed, (uint8_t*)flags,
-                                 (int32_t*)action, (int32_t*)fields, count,
-                                 none);
+        st_lanes_row<true, true, (bool)ST_SYM, (bool)ST_POR>(
+            (const int32_t*)K, f, live, row * ST_L, ncand, (uint32_t*)packed,
+            (uint8_t*)flags, (int32_t*)action, (int32_t*)fields, count,
+            none);
       else
-        st_lanes_row<false, true>((const int32_t*)K, f, live, row * ST_L,
-                                  ncand, (uint32_t*)packed, (uint8_t*)flags,
-                                  (int32_t*)action, (int32_t*)fields, count,
-                                  none);
+        st_lanes_row<false, true, (bool)ST_SYM, (bool)ST_POR>(
+            (const int32_t*)K, f, live, row * ST_L, ncand, (uint32_t*)packed,
+            (uint8_t*)flags, (int32_t*)action, (int32_t*)fields, count,
+            none);
       if (block) st_pack(f, (uint32_t*)block + row * ST_W);
     }
   }

@@ -219,7 +219,8 @@ extern "C" void host_deferred_check(const void* layout, const uint32_t* block,
 
 // One ring row (K8): the same reads, row and updates, sequentially;
 // spill_new / spill_old null outside spill mode, cert null without the
-// runtime certificate, as in tt_ring_row.
+// runtime certificate, sym null without symmetry reduction, as in
+// tt_ring_row.
 static void host_ring_row_impl(uint32_t* ring, int slots, int cols,
                                long long* head, long long* bodies,
                                long long* expanded, long long n_pop, int flip,
@@ -233,7 +234,7 @@ static void host_ring_row_impl(uint32_t* ring, int slots, int cols,
                                const long long* spill_old, int n_acts,
                                int n_labels, const long long* cov_new,
                                const long long* cov_old, int n_cov,
-                               const bool* cert) {
+                               const bool* cert, const bool* sym) {
   uint32_t m = 0u;
   for (int r = 0; r <= slots; r++)
     m = std::max(m, ring[(size_t)r * cols + RING_COL_OVERFLOW]);
@@ -255,6 +256,7 @@ static void host_ring_row_impl(uint32_t* ring, int slots, int cols,
   v.overflow = std::max(m, wrap ? 1u : 0u);
   v.spill = spill_new != nullptr ? *spill_new : 0;
   v.cert = cert != nullptr && *cert ? 1u : 0u;
+  v.sym = sym != nullptr && *sym ? 1u : 0u;
   const long long row = flip ? *head % slots : slots;
   for (int c = 0; c < cols; c++)
     ring[(size_t)row * cols + c] = ring_cell(v, act_gen, act_dist, n_labels, c);
@@ -279,7 +281,8 @@ extern "C" void host_ring_row(uint32_t* ring, int slots, int cols,
   host_ring_row_impl(ring, slots, cols, head, bodies, expanded, n_pop, flip,
                      level, gen_new, gen_old, dist_new, dist_old, queue_n,
                      act_gen, act_dist, acts_old, spill_new, spill_old,
-                     n_acts, n_labels, cov_new, cov_old, n_cov, nullptr);
+                     n_acts, n_labels, cov_new, cov_old, n_cov, nullptr,
+                     nullptr);
 }
 
 // the same with the carry's certificate flag in COL_CERT
@@ -295,7 +298,24 @@ extern "C" void host_ring_row_cert(
   host_ring_row_impl(ring, slots, cols, head, bodies, expanded, n_pop, flip,
                      level, gen_new, gen_old, dist_new, dist_old, queue_n,
                      act_gen, act_dist, acts_old, spill_new, spill_old,
-                     n_acts, n_labels, cov_new, cov_old, n_cov, cert);
+                     n_acts, n_labels, cov_new, cov_old, n_cov, cert,
+                     nullptr);
+}
+
+// the same with the carry's orbit-certificate flag in COL_SYM too
+extern "C" void host_ring_row_sym(
+    uint32_t* ring, int slots, int cols, long long* head, long long* bodies,
+    long long* expanded, long long n_pop, int flip, long long level,
+    long long gen_new, long long gen_old, long long dist_new,
+    long long dist_old, long long queue_n, const long long* act_gen,
+    const long long* act_dist, const long long* acts_old,
+    const long long* spill_new, const long long* spill_old, int n_acts,
+    int n_labels, const long long* cov_new, const long long* cov_old,
+    int n_cov, const bool* cert, const bool* sym) {
+  host_ring_row_impl(ring, slots, cols, head, bodies, expanded, n_pop, flip,
+                     level, gen_new, gen_old, dist_new, dist_old, queue_n,
+                     act_gen, act_dist, acts_old, spill_new, spill_old,
+                     n_acts, n_labels, cov_new, cov_old, n_cov, cert, sym);
 }
 
 // K1's sharded variant: every lane of the D shards' pops, reading the

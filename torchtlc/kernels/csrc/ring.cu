@@ -20,6 +20,8 @@
 // With the runtime certificate (a narrowed struct run) the row's COL_CERT
 // is the carry's sticky flag `cert` (a bool the commit has already ORed,
 // jaxtlc/engine/bfs.py:602-610); null otherwise, and the column is 0.
+// With symmetry reduction the row's COL_SYM is the carry's sticky orbit
+// flag `sym` (jaxtlc/engine/bfs.py:611-617) the same way.
 // __syncthreads separates the reads of phase 1 from the writes of 2 and 3.
 // `entry` (the sharded engine's pipelined ring, jaxtlc/engine/sharded.py:
 // 800-817) writes the counters as they were BEFORE the body into the row -
@@ -44,7 +46,7 @@ __global__ void __launch_bounds__(RING_THREADS)
                 const long long* acts_old, const long long* spill_new,
                 const long long* spill_old, int n_acts, int n_labels,
                 const long long* cov_new, const long long* cov_old,
-                int n_cov, int entry, const bool* cert) {
+                int n_cov, int entry, const bool* cert, const bool* sym) {
   __shared__ unsigned int s_over;
   const int tid = threadIdx.x;
   if (tid == 0) s_over = 0u;
@@ -77,6 +79,7 @@ __global__ void __launch_bounds__(RING_THREADS)
   v.overflow = s_over;
   v.spill = spill_new != nullptr ? *spill_new : 0;
   v.cert = cert != nullptr && *cert ? 1u : 0u;
+  v.sym = sym != nullptr && *sym ? 1u : 0u;
   const long long h = *head;
   const long long row = flip ? h % slots : slots;
   for (int col = tid; col < cols; col += blockDim.x)
@@ -99,7 +102,8 @@ extern "C" int tt_ring_row(void* ring, int slots, int cols, void* head,
                            const void* acts_old, const void* spill_new,
                            const void* spill_old, int n_acts, int n_labels,
                            const void* cov_new, const void* cov_old, int n_cov,
-                           int entry, const void* cert, void* stream) {
+                           int entry, const void* cert, const void* sym,
+                           void* stream) {
   ring_kernel<<<1, RING_THREADS, 0, (cudaStream_t)stream>>>(
       (uint32_t*)ring, slots, cols, (long long*)head, (long long*)bodies,
       (long long*)expanded, n_pop, flip, (const long long*)level,
@@ -109,6 +113,6 @@ extern "C" int tt_ring_row(void* ring, int slots, int cols, void* head,
       (const long long*)act_dist, (const long long*)acts_old,
       (const long long*)spill_new, (const long long*)spill_old, n_acts,
       n_labels, (const long long*)cov_new, (const long long*)cov_old, n_cov,
-      entry, (const bool*)cert);
+      entry, (const bool*)cert, (const bool*)sym);
   return (int)cudaGetLastError();
 }

@@ -35,6 +35,7 @@ struct RingScalars {
   uint32_t overflow;
   long long spill;  // spill_hits in spill mode, else 0
   uint32_t cert;    // the carry's sticky certificate flag, else 0
+  uint32_t sym;     // the carry's sticky orbit-certificate flag, else 0
 };
 
 // column `col` of the row; act_gen / act_dist hold n_labels counters
@@ -50,7 +51,7 @@ HD uint32_t ring_cell(const RingScalars& v, const long long* act_gen,
     case RING_COL_OVERFLOW: return v.overflow;
     case 7: return ring_lo32(v.spill);
     case 8: return v.cert;
-    case 9: return 0u;  // sym: not carried
+    case 9: return v.sym;
     default: break;
   }
   const int k = col - RING_N_FIXED;

@@ -28,12 +28,16 @@
 // sharded engine's expand, emitted_sharded.cuh, which also holds the lane
 // body K17 runs after its unpack) are included before it: the generic
 // template includes them too.  K23 (the runtime certificate of a narrowed
-// spec, struct_cert.cuh) comes with K18.  Under the kCert template flag
+// spec, struct_cert.cuh) comes with K18, and K24-K26 (the symmetry and
+// POR reduction, struct_reduce.cuh) with K21.  Under the kCert template flag
 // (the immediate mode of a backend with a certificate) K17 calls K23's
 // st_cert_row on each valid successor before it packs it, as the
 // reference checks the raw fields (jaxtlc/struct/backend.py:48-50), and
 // ORs the block's result into the zeroed int32 `cert` with
-// __syncthreads_or and one atomicOr.
+// __syncthreads_or and one atomicOr.  Under kSym and kPor (the text's
+// ST_SYM and ST_POR) every lane is canonicalized (K24) and each row's
+// lanes are pruned (K26) inside st_lanes_row; the block sums the pruned
+// lanes in shared memory and adds them to `pruned` with one atomicAdd.
 //
 // Bound: operations.  A row's step is straight-line integer code
 // (the unrolled lane IR, a few hundred to a few thousand statements per
@@ -54,18 +58,18 @@
 // K17's work for one popped row: idx0 = row * ST_L is its first candidate,
 // ncand = ck * ST_L the flag-row stride; count(a) adds one generated
 // successor of action a, cert(s, valid) folds a successor into the
-// certificate (StCert).
-template <bool kDeferred, typename Count, typename Cert>
-HD void st_expand_row(const int32_t* __restrict__ K,
-                      const uint32_t* __restrict__ src, bool live,
-                      long long idx0, long long ncand,
-                      uint32_t* __restrict__ packed, uint8_t* __restrict__ flags,
-                      int32_t* __restrict__ action, int32_t* __restrict__ flat,
-                      Count& count, Cert& cert) {
+// certificate (StCert).  Returns the lanes K26 pruned (kPor).
+template <bool kDeferred, bool kSym, bool kPor, typename Count, typename Cert>
+HD int st_expand_row(const int32_t* __restrict__ K,
+                     const uint32_t* __restrict__ src, bool live,
+                     long long idx0, long long ncand,
+                     uint32_t* __restrict__ packed, uint8_t* __restrict__ flags,
+                     int32_t* __restrict__ action, int32_t* __restrict__ flat,
+                     Count& count, Cert& cert) {
   int32_t f[ST_F];
   st_unpack(src, f);
-  st_lanes_row<kDeferred, false>(K, f, live, idx0, ncand, packed, flags,
-                                 action, flat, count, cert);
+  return st_lanes_row<kDeferred, false, kSym, kPor>(
+      K, f, live, idx0, ncand, packed, flags, action, flat, count, cert);
 }
 
 extern "C" int tt_struct_dims(int* out) {
@@ -86,7 +90,7 @@ struct StSharedHist {
   __device__ void operator()(int a) { atomicAdd(&h[a], 1u); }
 };
 
-template <bool kDeferred, bool kCert>
+template <bool kDeferred, bool kCert, bool kSym, bool kPor>
 __global__ void struct_expand_kernel(const int32_t* __restrict__ K,
                                      const uint32_t* __restrict__ block,
                                      int ck, int n,
@@ -95,17 +99,21 @@ __global__ void struct_expand_kernel(const int32_t* __restrict__ K,
                                      int32_t* __restrict__ action,
                                      int32_t* __restrict__ flat,
                                      unsigned long long* __restrict__ gen,
-                                     int* __restrict__ cert) {
+                                     int* __restrict__ cert,
+                                     unsigned long long* __restrict__ pruned) {
   __shared__ unsigned int hist[ST_NLABELS];
+  __shared__ unsigned int s_pruned;
   for (int t = threadIdx.x; t < ST_NLABELS; t += blockDim.x) hist[t] = 0;
+  if (threadIdx.x == 0) s_pruned = 0u;
   __syncthreads();
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   StCert<kCert> c;
   if (row < ck) {
     StSharedHist count{hist};
-    st_expand_row<kDeferred>(K, block + (size_t)row * ST_W, row < n,
-                             (long long)row * ST_L, (long long)ck * ST_L,
-                             packed, flags, action, flat, count, c);
+    const int pr = st_expand_row<kDeferred, kSym, kPor>(
+        K, block + (size_t)row * ST_W, row < n, (long long)row * ST_L,
+        (long long)ck * ST_L, packed, flags, action, flat, count, c);
+    if (kPor && pr) atomicAdd(&s_pruned, (unsigned int)pr);
   }
   if (kCert) {
     if (__syncthreads_or(c.bad) && threadIdx.x == 0) atomicOr(cert, 1);
@@ -114,25 +122,32 @@ __global__ void struct_expand_kernel(const int32_t* __restrict__ K,
   }
   for (int t = threadIdx.x; t < ST_NLABELS; t += blockDim.x)
     if (hist[t]) atomicAdd(&gen[t], (unsigned long long)hist[t]);
+  if (kPor && threadIdx.x == 0 && s_pruned)
+    atomicAdd(pruned, (unsigned long long)s_pruned);
 }
 
 // gen must hold ST_NLABELS zeroed (or accumulating) counters; flat is
 // written in deferred mode only ([ck*ST_L, ST_F] int32); cert (immediate
-// mode only) is NULL, or one zeroed int32 that K23 sets (kCert)
+// mode only) is NULL, or one zeroed int32 that K23 sets (kCert); pruned
+// is one zeroed counter K26 adds the pruned lanes to (a text with ST_POR
+// 1), else NULL.  kSym and kPor are the text's ST_SYM and ST_POR.
 extern "C" int tt_struct_expand(const void* K, const void* block, int ck,
                                 int n, int deferred, void* packed,
                                 void* flags, void* action, void* flat,
-                                void* gen, void* cert, void* stream) {
+                                void* gen, void* cert, void* pruned,
+                                void* stream) {
   const int threads = 128;
   const int blocks = (ck + threads - 1) / threads;
-  auto kernel = deferred ? struct_expand_kernel<true, false>
-                : cert   ? struct_expand_kernel<false, true>
-                         : struct_expand_kernel<false, false>;
+  constexpr bool kSym = ST_SYM, kPor = ST_POR;
+  if (kPor && pruned == nullptr) return (int)cudaErrorInvalidValue;
+  auto kernel = deferred ? struct_expand_kernel<true, false, kSym, kPor>
+                : cert   ? struct_expand_kernel<false, true, kSym, kPor>
+                         : struct_expand_kernel<false, false, kSym, kPor>;
   if (blocks > 0)
     kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const int32_t*)K, (const uint32_t*)block, ck, n, (uint32_t*)packed,
         (uint8_t*)flags, (int32_t*)action, (int32_t*)flat,
-        (unsigned long long*)gen, (int*)cert);
+        (unsigned long long*)gen, (int*)cert, (unsigned long long*)pruned);
   return (int)cudaGetLastError();
 }
 
@@ -144,44 +159,57 @@ struct StHostGen {
 };
 
 // cert (immediate mode only): NULL, or one int32 set to 1 when a valid
-// successor breaks a certified bound (K17's kCert form)
+// successor breaks a certified bound (K17's kCert form); pruned: NULL, or
+// one counter the pruned lanes are added to (a text with ST_POR 1)
+extern "C" int host_struct_expand_red(const void* K, const void* block,
+                                      int ck, int n, int deferred,
+                                      void* packed, void* flags, void* action,
+                                      void* flat, void* gen, void* cert,
+                                      void* pruned) {
+  constexpr bool kSym = ST_SYM, kPor = ST_POR;
+  StHostGen count{(unsigned long long*)gen};
+  StCert<false> none;
+  StCert<true> c;
+  const long long ncand = (long long)ck * ST_L;
+  unsigned long long pr = 0;
+  for (int row = 0; row < ck; row++) {
+    const uint32_t* src = (const uint32_t*)block + (size_t)row * ST_W;
+    if (deferred)
+      pr += st_expand_row<true, kSym, kPor>(
+          (const int32_t*)K, src, row < n, (long long)row * ST_L, ncand,
+          (uint32_t*)packed, (uint8_t*)flags, (int32_t*)action,
+          (int32_t*)flat, count, none);
+    else if (cert)
+      pr += st_expand_row<false, kSym, kPor>(
+          (const int32_t*)K, src, row < n, (long long)row * ST_L, ncand,
+          (uint32_t*)packed, (uint8_t*)flags, (int32_t*)action,
+          (int32_t*)flat, count, c);
+    else
+      pr += st_expand_row<false, kSym, kPor>(
+          (const int32_t*)K, src, row < n, (long long)row * ST_L, ncand,
+          (uint32_t*)packed, (uint8_t*)flags, (int32_t*)action,
+          (int32_t*)flat, count, none);
+  }
+  if (cert && c.bad) *(int*)cert = 1;
+  if (pruned) *(unsigned long long*)pruned += pr;
+  return 0;
+}
+
 extern "C" int host_struct_expand_cert(const void* K, const void* block,
                                        int ck, int n, int deferred,
                                        void* packed, void* flags,
                                        void* action, void* flat, void* gen,
                                        void* cert) {
-  StHostGen count{(unsigned long long*)gen};
-  StCert<false> none;
-  StCert<true> c;
-  const long long ncand = (long long)ck * ST_L;
-  for (int row = 0; row < ck; row++) {
-    const uint32_t* src = (const uint32_t*)block + (size_t)row * ST_W;
-    if (deferred)
-      st_expand_row<true>((const int32_t*)K, src, row < n,
-                          (long long)row * ST_L, ncand, (uint32_t*)packed,
-                          (uint8_t*)flags, (int32_t*)action, (int32_t*)flat,
-                          count, none);
-    else if (cert)
-      st_expand_row<false>((const int32_t*)K, src, row < n,
-                           (long long)row * ST_L, ncand, (uint32_t*)packed,
-                           (uint8_t*)flags, (int32_t*)action,
-                           (int32_t*)flat, count, c);
-    else
-      st_expand_row<false>((const int32_t*)K, src, row < n,
-                           (long long)row * ST_L, ncand, (uint32_t*)packed,
-                           (uint8_t*)flags, (int32_t*)action,
-                           (int32_t*)flat, count, none);
-  }
-  if (cert && c.bad) *(int*)cert = 1;
-  return 0;
+  return host_struct_expand_red(K, block, ck, n, deferred, packed, flags,
+                                action, flat, gen, cert, nullptr);
 }
 
 extern "C" int host_struct_expand(const void* K, const void* block, int ck,
                                   int n, int deferred, void* packed,
                                   void* flags, void* action, void* flat,
                                   void* gen) {
-  return host_struct_expand_cert(K, block, ck, n, deferred, packed, flags,
-                                 action, flat, gen, nullptr);
+  return host_struct_expand_red(K, block, ck, n, deferred, packed, flags,
+                                action, flat, gen, nullptr, nullptr);
 }
 
 #endif

@@ -2,7 +2,8 @@
 // __host__ __device__ helpers, for the C++ that torchtlc.struct.emit
 // prints: wrapping arithmetic (through uint32), floor division and
 // modulo, and the gather index rule (a negative index wraps once, then
-// clamps), each as jax.numpy computes it.
+// clamps), each as jax.numpy computes it; and tt_clip, jnp.clip(i, 0, hi)
+// of a symmetry program's table lookup (struct_reduce.cuh).
 #pragma once
 #include "common.cuh"
 
@@ -31,4 +32,7 @@ HD int32_t tt_min(int32_t a, int32_t b) { return a < b ? a : b; }
 HD int32_t tt_clampidx(int32_t i, int32_t n) {
   if (i < 0) i += n;
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
+}
+HD int32_t tt_clip(int32_t i, int32_t hi) {
+  return i < 0 ? 0 : (i > hi ? hi : i);
 }

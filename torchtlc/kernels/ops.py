@@ -26,13 +26,21 @@ KERNELS = ("expand", "fp64", "fpset_key", "fpset_probe", "fpset_claim",
            "verdict_fold", "shard_enqueue", "edge_capture", "state_masks",
            "survive_sweep", "struct_expand", "struct_inv_rows",
            "gen_expand", "gen_state_masks", "emitted_expand_sharded",
-           "struct_cov_count", "struct_cert_check")
+           "struct_cov_count", "struct_cert_check", "struct_canon",
+           "struct_orbit_check", "struct_por_keep")
 LAUNCHES = {name: 0 for name in KERNELS}
 # K23's certificate runs standalone (its own wrapper) or inside K17 (kCert)
 # and K18: each launch that evaluates it adds one to
 # LAUNCHES["struct_cert_check"] and one here under the kernel it rode in
 CERT_LAUNCHES = {"struct_cert_check": 0, "struct_expand": 0,
                  "struct_inv_rows": 0}
+# K24's canonicalization and K26's pruning run standalone (their own
+# wrappers) or inside K17 and K21 (a text with ST_SYM / ST_POR 1): each
+# launch that runs them adds one to LAUNCHES[kernel] and one here under
+# the kernel it rode in
+REDUCE_LAUNCHES = {
+    k: {k: 0, "struct_expand": 0, "emitted_expand_sharded": 0}
+    for k in ("struct_canon", "struct_por_keep")}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -66,7 +74,7 @@ _SIGNATURES = {
     "tt_coverage_count": ("coverage", [_P, _P, _I, _I, _P, _P, _P]),
     "tt_ring_row": ("ring", [_P, _I, _I, _P, _P, _P, _LL, _I, _P, _P, _P, _P,
                              _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
-                             _I, _P, _P]),
+                             _I, _P, _P, _P]),
     "tt_route_scatter": ("route", [_P, _P, _P, _P, _LL, _I, _I, _I, _P, _P,
                                    _P, _P, _P, _P, _P, _P, _P, _P, _P]),
     "tt_verdict_fold": ("route", [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
@@ -112,7 +120,7 @@ def lib() -> _Lib:
 
 
 def reset_counts() -> None:
-    for counts in (LAUNCHES, CERT_LAUNCHES):
+    for counts in (LAUNCHES, CERT_LAUNCHES, *REDUCE_LAUNCHES.values()):
         for k in counts:
             counts[k] = 0
 
@@ -121,6 +129,16 @@ def _cert_launched(host: str) -> None:
     """One launch that evaluated K23's certificate, inside `host`."""
     LAUNCHES["struct_cert_check"] += 1
     CERT_LAUNCHES[host] += 1
+
+
+def _reduce_launched(prog, host: str) -> None:
+    """One launch of `host` over `prog`'s text: K24 and K26 ride in it
+    when the text carries the symmetry plan / the POR flags."""
+    for kernel, on in (("struct_canon", prog.sym_programs),
+                       ("struct_por_keep", prog.por_safe is not None)):
+        if on:
+            LAUNCHES[kernel] += 1
+            REDUCE_LAUNCHES[kernel][host] += 1
 
 
 def _launched(name: str, rc: int) -> None:
@@ -517,11 +535,12 @@ def ring_row(ring, head, bodies, expanded, n_pop: int, flip: bool, level,
              gen_new, gen_old, dist_new, dist_old, queue_n, act_gen,
              act_dist, acts_old, n_labels: int, spill_new=None,
              spill_old=None, cov_new=None, cov_old=None,
-             entry: bool = False, cert=None) -> None:
+             entry: bool = False, cert=None, sym=None) -> None:
     """One ring row; see obs.counters.ring_row_plain (spill_new and
     spill_old, cov_new and cov_old: both or neither; entry writes the
     counters as they were before the body; cert, the carry's 0-dim bool
-    certificate flag, fills COL_CERT)."""
+    certificate flag, fills COL_CERT, sym, its orbit-certificate flag,
+    COL_SYM)."""
     slots, cols = ring.shape[0] - 1, ring.shape[1]
     _need(ring, "ring", torch.int32)
     if slots < 1 or cols != 10 + 2 * n_labels:
@@ -551,8 +570,9 @@ def ring_row(ring, head, bodies, expanded, n_pop: int, flip: bool, level,
     _need(act_gen, "act_gen", torch.int64, (n_acts,))
     _need(act_dist, "act_dist", torch.int64, (n_acts,))
     _need(acts_old, "acts_old", torch.int64, (2 * n_acts,))
-    if cert is not None:
-        _need(cert, "cert", torch.bool, ())
+    for name, flag in (("cert", cert), ("sym", sym)):
+        if flag is not None:
+            _need(flag, name, torch.bool, ())
     _launched("ring_row", lib().tt_ring_row(
         _ptr(ring), slots, cols, _ptr(head), _ptr(bodies), _ptr(expanded),
         n_pop, int(flip), _ptr(level), _ptr(gen_new), _ptr(gen_old),
@@ -562,7 +582,8 @@ def ring_row(ring, head, bodies, expanded, n_pop: int, flip: bool, level,
         None if spill_old is None else _ptr(spill_old), n_acts, n_labels,
         None if cov_new is None else _ptr(cov_new),
         None if cov_old is None else _ptr(cov_old), n_cov, int(entry),
-        None if cert is None else _ptr(cert), _stream()))
+        None if cert is None else _ptr(cert),
+        None if sym is None else _ptr(sym), _stream()))
 
 
 # ---------------------------------------------------------------------------
@@ -835,6 +856,9 @@ _ROWS_SIGNATURES = (
     ("tt_struct_cert_check", [_P, _P, _LL, _P, _P]),
     ("tt_emitted_expand_sharded", [_P, _P, _LL, _P, _P, _I, _I, _I, _P, _P,
                                    _P, _P, _P, _P, _P]),
+    ("tt_struct_canon", [_P, _P, _LL, _P, _P]),
+    ("tt_struct_orbit_check", [_P, _P, _P, _LL, _P, _P]),
+    ("tt_struct_por_keep", [_P, _LL, _P, _P]),
 )
 
 
@@ -844,7 +868,7 @@ def struct_lib(prog):
     use and loaded once per text."""
     return _emitted_lib(prog.text, "tt_struct_dims", (
         ("tt_struct_expand", [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                              _P]),
+                              _P, _P]),
         *_ROWS_SIGNATURES),
         (prog.F, prog.W, prog.L, prog.n_inv, prog.n_labels))
 
@@ -860,10 +884,13 @@ def struct_expand(prog, block: torch.Tensor, n: int, deferred: bool = False,
                   cert: bool = False):
     """K17 -> (packed [ck*L, W] int32, flags [3 + n_inv, ck*L] uint8, action
     [ck*L] int32, gen [n_labels] int64, flat [ck*L, F] int32 in deferred
-    mode else None); with `cert` (immediate mode of a program that carries
-    the runtime certificate: the kCert form, K23 inside K17) a sixth
-    output, the block's 0-dim bool certificate; see
-    struct.backend.StructProgram.expand_plain."""
+    mode else None, cert, pruned): cert is the block's 0-dim bool
+    certificate with `cert` (immediate mode of a program that carries the
+    runtime certificate: the kCert form, K23 inside K17), else None;
+    pruned the 0-dim int64 count of the lanes K26 pruned inside K17 when
+    the program's text carries the POR flags, else None.  On a text with
+    the symmetry plan every candidate comes out canonical (K24 inside
+    K17); see struct.backend.StructProgram.expand_plain."""
     if cert and (deferred or prog.cert is None):
         raise ValueError("struct_expand: the certificate runs in the "
                          "immediate mode of a narrowed program")
@@ -878,16 +905,20 @@ def struct_expand(prog, block: torch.Tensor, n: int, deferred: bool = False,
     flat = (torch.empty(ncand, prog.F, dtype=torch.int32, device=dev)
             if deferred else None)
     flag = torch.zeros((), dtype=torch.int32, device=dev) if cert else None
+    por = prog.por_safe is not None
+    pruned = torch.zeros((), dtype=torch.int64, device=dev) if por else None
     K = prog.constants(dev)
     rc = struct_lib(prog).tt_struct_expand(
         _ptr(K), _ptr(block), ck, n, int(deferred), _ptr(packed),
         _ptr(flags), _ptr(action), _ptr(flat) if deferred else None,
-        _ptr(gen), _ptr(flag) if cert else None, _stream())
+        _ptr(gen), _ptr(flag) if cert else None,
+        _ptr(pruned) if por else None, _stream())
     _launched("struct_expand", rc)
-    if not cert:
-        return packed, flags, action, gen, flat
-    _cert_launched("struct_expand")
-    return packed, flags, action, gen, flat, flag.bool()
+    _reduce_launched(prog, "struct_expand")
+    if cert:
+        _cert_launched("struct_expand")
+    return (packed, flags, action, gen, flat,
+            flag.bool() if cert else None, pruned)
 
 
 def struct_inv_rows(prog, flat: torch.Tensor, fresh: torch.Tensor,
@@ -978,7 +1009,58 @@ def emitted_expand_sharded(prog, queue: torch.Tensor, qhead: torch.Tensor,
                   _ptr(flags), _ptr(action), _ptr(fields),
                   None if block is None else _ptr(block), _ptr(gen),
                   _stream()))
+    _reduce_launched(prog, "emitted_expand_sharded")
     return packed, flags, action, gen, fields, block
+
+
+def struct_canon(prog, rows: torch.Tensor) -> torch.Tensor:
+    """K24 standalone -> [N, F] int32: the orbit-canonical form of each row
+    of rows [N, F] int32; see engine.reduce.ReducePlan.canon."""
+    if not prog.sym_programs:
+        raise ValueError("struct_canon: the program carries no symmetry "
+                         "plan")
+    N = rows.shape[0]
+    _need(rows, "rows", torch.int32, (N, prog.F))
+    out = torch.empty_like(rows)
+    _launched("struct_canon", struct_lib(prog).tt_struct_canon(
+        _ptr(prog.constants(rows.device)), _ptr(rows), N, _ptr(out),
+        _stream()))
+    REDUCE_LAUNCHES["struct_canon"]["struct_canon"] += 1
+    return out
+
+
+def struct_orbit_check(prog, block: torch.Tensor,
+                       valid: torch.Tensor) -> torch.Tensor:
+    """K25 -> 0-dim bool: the first valid candidate of the popped rows
+    block [ck, W] int32 (valid: K17's [ck*L] uint8 valid flags), recomputed
+    and canonicalized, fails the orbit check; see engine.reduce.
+    ReducePlan.orbit_check."""
+    if not prog.sym_programs:
+        raise ValueError("struct_orbit_check: the program carries no "
+                         "symmetry plan")
+    ck = block.shape[0]
+    _need(block, "block", torch.int32, (ck, prog.W))
+    _need(valid, "valid", torch.uint8, (ck * prog.L,))
+    flag = torch.zeros((), dtype=torch.int32, device=block.device)
+    _launched("struct_orbit_check", struct_lib(prog).tt_struct_orbit_check(
+        _ptr(prog.constants(block.device)), _ptr(block), _ptr(valid),
+        ck * prog.L, _ptr(flag), _stream()))
+    return flag.bool()
+
+
+def struct_por_keep(prog, valid: torch.Tensor) -> torch.Tensor:
+    """K26 standalone -> [B, L] bool: the valid mask [B, L] (bool) after
+    the singleton ample-set pruning; see engine.reduce.por_keep."""
+    if prog.por_safe is None:
+        raise ValueError("struct_por_keep: the program carries no POR "
+                         "flags")
+    B = valid.shape[0]
+    _need(valid, "valid", torch.bool, (B, prog.L))
+    keep = torch.empty(B, prog.L, dtype=torch.uint8, device=valid.device)
+    _launched("struct_por_keep", struct_lib(prog).tt_struct_por_keep(
+        _ptr(valid), B, _ptr(keep), _stream()))
+    REDUCE_LAUNCHES["struct_por_keep"]["struct_por_keep"] += 1
+    return keep.bool()
 
 
 def gen_lib(prog):

@@ -33,7 +33,8 @@ pair joins that wrap test (jaxtlc/engine/bfs.py:641-642).  A carry with
 the runtime certificate (a narrowed struct run) writes its sticky
 ``cert_viol`` flag into COL_CERT (jaxtlc/obs/counters.py:105-121): the
 flag is ORed into the carry by every commit, so once set every later row
-carries it.
+carries it.  A symmetry-reduced carry writes its sticky ``sym_viol`` flag
+(the runtime orbit certificate, kernel K25) into COL_SYM the same way.
 
 ``ring_row`` writes one row: kernel K8 (torchtlc/kernels/csrc/ring.cu) on a
 CUDA tensor, ``ring_row_plain`` - the composition of ``pack_row``,
@@ -83,17 +84,19 @@ def _word(v: torch.Tensor) -> torch.Tensor:
 
 
 def pack_row(level, generated, distinct, queue, bodies, expanded, act_gen,
-             act_dist, overflow=None, spill=None, cert=None) -> torch.Tensor:
+             act_dist, overflow=None, spill=None, cert=None,
+             sym=None) -> torch.Tensor:
     """One ring row ([cols] int32) from the counters (0-dim int64 tensors;
-    act_gen / act_dist [n_labels]); spill (the spill_hits counter) and
-    cert (the carry's 0-dim bool certificate flag) write 0 when None, sym
-    always 0."""
+    act_gen / act_dist [n_labels]); spill (the spill_hits counter), cert
+    (the carry's 0-dim bool certificate flag) and sym (its orbit-
+    certificate flag) write 0 when None."""
     zero = torch.zeros((), dtype=torch.int64, device=act_gen.device)
     fixed = torch.stack([
         level, generated, distinct, queue, bodies, expanded,
         zero if overflow is None else overflow,
         zero if spill is None else spill,
-        zero if cert is None else cert.to(torch.int64), zero,
+        zero if cert is None else cert.to(torch.int64),
+        zero if sym is None else sym.to(torch.int64),
     ]).to(torch.int64)
     return _word(torch.cat([fixed, act_gen.to(torch.int64),
                             act_dist.to(torch.int64)]))
@@ -133,7 +136,8 @@ def ring_row_plain(ring, head, bodies, expanded, n_pop: int, flip: bool,
                    level, gen_new, gen_old, dist_new, dist_old, queue_n,
                    act_gen, act_dist, acts_old, n_labels: int,
                    spill_new=None, spill_old=None, cov_new=None,
-                   cov_old=None, entry: bool = False, cert=None) -> None:
+                   cov_old=None, entry: bool = False, cert=None,
+                   sym=None) -> None:
     """Torch version of kernel K8: the row of one engine body, after its
     commit.  act_gen / act_dist are the [n_labels + 1] counters after the
     body, acts_old their concatenation before it; bodies and expanded are
@@ -143,7 +147,8 @@ def ring_row_plain(ring, head, bodies, expanded, n_pop: int, flip: bool,
     engine's pipelined ring) writes the counters as they were before the
     body - gen_old, dist_old, bodies, expanded, the act_gen half of
     acts_old - with the same wrap test and updates.  `cert` (the carry's
-    0-dim bool certificate flag after the body) fills COL_CERT.  Updates
+    0-dim bool certificate flag after the body) fills COL_CERT and `sym`
+    (its orbit-certificate flag) COL_SYM.  Updates
     ring, head, bodies and expanded in place."""
     n_acts = act_gen.shape[0]
     b1 = bodies + 1
@@ -162,7 +167,7 @@ def ring_row_plain(ring, head, bodies, expanded, n_pop: int, flip: bool,
     row = pack_row(level, vals[0], vals[1], queue_n, vals[2], vals[3],
                    vals[4], act_dist[:n_labels],
                    overflow=sticky_overflow(ring, wrapped_any(pairs)),
-                   spill=spill_new, cert=cert)
+                   spill=spill_new, cert=cert, sym=sym)
     ring_update(ring, head, row, flip)
     bodies.copy_(b1)
     expanded.copy_(e1)
@@ -172,12 +177,12 @@ def ring_row(ring, head, bodies, expanded, n_pop: int, flip: bool, level,
              gen_new, gen_old, dist_new, dist_old, queue_n, act_gen,
              act_dist, acts_old, n_labels: int, spill_new=None,
              spill_old=None, cov_new=None, cov_old=None,
-             entry: bool = False, cert=None) -> None:
+             entry: bool = False, cert=None, sym=None) -> None:
     """Kernel K8 on CUDA tensors, the plain version on CPU tensors."""
     args = (ring, head, bodies, expanded, n_pop, flip, level, gen_new,
             gen_old, dist_new, dist_old, queue_n, act_gen, act_dist,
             acts_old, n_labels, spill_new, spill_old, cov_new, cov_old,
-            entry, cert)
+            entry, cert, sym)
     if not ring.is_cuda:
         return ring_row_plain(*args)
     from ..kernels import ops

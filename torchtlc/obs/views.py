@@ -6,7 +6,9 @@ structured-log banner - the 2200 Progress line, the checkpoint (2195),
 recovery (2196) and regrow (2198) banners, the retry, spill, degrade,
 interrupt and exhaustion messages, the preflight's finding lines - so the
 transcript is a view of the journal and cannot disagree with it.  ``interval_rates`` is the per-minute
-rate arithmetic of the Progress line.
+rate arithmetic of the Progress line; ``reduce_gauges`` the state-space
+reduction's gauges of a run (the reference's ``jaxtlc_reduce_*``,
+jaxtlc/obs/views.py:268-278).
 """
 
 from __future__ import annotations
@@ -27,6 +29,20 @@ def interval_rates(prev: Optional[Tuple[float, int, int]],
             int((distinct - prev[2]) * 60 / dt))
 
 
+def reduce_gauges(events) -> dict:
+    """The gauges of the newest `reduce` event: the transitions the ample
+    sets pruned, their hit rate, the orbit factor and the distinct states
+    of the reduced run; {} without one."""
+    red = next((e for e in reversed(list(events))
+                if e.get("event") == "reduce"), None)
+    if red is None:
+        return {}
+    return {"reduce_states_pruned": red["states_pruned"],
+            "reduce_ample_hit_rate": red["ample_hit_rate"],
+            "reduce_orbit_factor": red["orbit_factor"],
+            "reduce_distinct": red["distinct"]}
+
+
 def render_tlc_event(log, ev: dict, resume_cmd: str = "") -> None:
     """Render one journal event as its TLC banner; kinds without one
     (segments, levels without a flag, flushes, final) render nothing."""
@@ -44,6 +60,24 @@ def render_tlc_event(log, ev: dict, resume_cmd: str = "") -> None:
                           f"{ev['warnings']} warning(s) "
                           f"({ev['findings']} finding(s) total).",
                     severity=1)
+    elif kind == "level" and ev.get("sym_violation"):
+        # the ring's sticky COL_SYM flag: the runtime orbit check (K25)
+        # caught the canonicalization NOT constant on a reachable orbit -
+        # loud once per run; the command escalates the verdict to error
+        if not getattr(log, "_warned_sym_violation", False):
+            log._warned_sym_violation = True
+            log.msg(
+                1000,
+                "ERROR: runtime orbit-certificate violation - the "
+                "symmetry canonicalization mapped members of one "
+                "reachable orbit to different representatives "
+                "(jaxtlc.engine.reduce); the reduced run's results "
+                "are NOT trustworthy.  Re-run with -no-symmetry and "
+                "report the spec.",
+                severity=1,
+            )
+        if ev.get("cert_violation") or ev.get("counter_overflow"):
+            render_tlc_event(log, {**ev, "sym_violation": False})
     elif kind == "level" and ev.get("cert_violation"):
         # the ring's sticky COL_CERT flag: a generated state violated a
         # bound the certified abstract interpretation claimed - loud once

@@ -99,8 +99,9 @@ def migrate_engine_carry(carry: EngineCarry, old_params: Dict,
     ladder's chunk shrink: counts and verdict are kept, in-batch
     attribution may shift; unpipelined carries only, the staged block is
     chunk-shaped).  The ring, spill_hits, the coverage counters, the
-    runtime certificate's sticky flag and a pipelined carry's staged
-    block (st_cov and st_cert with it) travel verbatim: the
+    runtime certificate's sticky flag, the reduction's orbit flag and POR
+    count and a pipelined carry's staged block (st_cov, st_cert, st_sym
+    and st_pruned with it) travel verbatim: the
     replayed segment commits the staged candidates against the regrown
     table and queue.  The staged block's popped rows are rows of the
     current level, which the new queue keeps at the same positions; its
@@ -146,9 +147,11 @@ def migrate_engine_carry(carry: EngineCarry, old_params: Dict,
         obs_expanded=copy(carry.obs_expanded),
         spill_hits=copy(carry.spill_hits),
         cov_counts=copy(carry.cov_counts),
-        cert_viol=copy(carry.cert_viol),
+        cert_viol=copy(carry.cert_viol), sym_viol=copy(carry.sym_viol),
+        por_pruned=copy(carry.por_pruned),
         **{f: copy(getattr(carry, f))
-           for f in STAGED + ("st_cov", "st_flat", "st_cert")},
+           for f in STAGED + ("st_cov", "st_flat", "st_cert", "st_sym",
+                              "st_pruned")},
         st_block=staged_window(carry, chunk),
     )
 

@@ -62,6 +62,7 @@ import torch
 
 from ..engine import checkpoint as ckpt
 from ..engine.backend import kubeapi_backend
+from ..engine.reduce import reduce_flags
 from ..engine.bfs import (
     FP_HIGHWATER,
     OK,
@@ -240,6 +241,9 @@ class SingleDeviceAdapter:
                         else kubeapi_backend(cfg, coverage=coverage))
         self.meta_config = meta_config
         self.coverage = self.backend.coverage is not None
+        # the reduction flags the engine runs (checkpoint meta keys): a
+        # resume across a -symmetry / -por change mismatches loudly
+        self.symmetry, self.por = reduce_flags(self.backend)
         self.chunk = chunk
         self.pipeline = bool(pipeline)
         self.fp_index = fp_index
@@ -269,7 +273,7 @@ class SingleDeviceAdapter:
             pipeline=self.pipeline, obs_slots=self.obs_slots,
             coverage=self.coverage,
             sort_free=self.sort_free, deferred=self.deferred,
-            symmetry=False, por=False, **params)
+            symmetry=self.symmetry, por=self.por, **params)
 
     def viol(self, carry) -> int:
         return read_bundle(carry).viol
@@ -388,6 +392,7 @@ class ShardedAdapter:
         self.backend = (backend if backend is not None
                         else kubeapi_backend(cfg, coverage=coverage))
         self.coverage = self.backend.coverage is not None
+        self.symmetry, self.por = reduce_flags(self.backend)
         self.meta_config = meta_config
         self.fp_highwater = FP_HIGHWATER
         self.pipeline = bool(pipeline)
@@ -414,7 +419,8 @@ class ShardedAdapter:
             devices=self.mesh.n_shards, fp_highwater=self.fp_highwater,
             pipeline=self.pipeline, obs_slots=self.obs_slots,
             coverage=self.coverage, sort_free=self.sort_free,
-            deferred=self.deferred, symmetry=False, por=False, **params)
+            deferred=self.deferred, symmetry=self.symmetry, por=self.por,
+            **params)
 
     def cov_sites(self):
         plane = self.backend.coverage

@@ -39,8 +39,16 @@ valid generated state's raw fields against the codec's maximum codes,
 every cardinality-bounded mask's popcount against its bound.  On the
 engine K17 evaluates it on each valid successor before packing it
 (immediate mode) and K18 on the fresh claimants (deferred mode); the
-plain version is ``StructProgram.cert_plain``.  Symmetry and POR
-reduction are not ported yet (ROADMAP Queue A item 13).
+plain version is ``StructProgram.cert_plain``.
+
+``struct_backend(model, symmetry=True, por=True)`` attaches the state-space
+reduction (engine.reduce, jaxtlc/struct/backend.py:228-257): the program's
+emitted text then carries the symmetry plan's field programs and the POR
+flags, so K17 and K21 canonicalize every candidate (kernel K24
+``struct_canon``) and prune each row to a singleton ample set (kernel K26
+``struct_por_keep``), and every single-device body runs the orbit check
+(kernel K25 ``struct_orbit_check``, torchtlc/kernels/csrc/
+struct_reduce.cuh).  Their plain versions are engine.reduce's.
 """
 
 from __future__ import annotations
@@ -111,13 +119,22 @@ class StructProgram(_Constants):
 
     def __init__(self, step_outputs, inv_outputs, cdc: StructCodec,
                  lane_action: np.ndarray, n_labels: int, title: str,
-                 template: str = "struct_expand.cuh", card_specs=None):
+                 template: str = "struct_expand.cuh", card_specs=None,
+                 plan=None, safe_ids=None):
         """`card_specs` (a list, possibly empty) makes the program carry
         the runtime certificate over the codec's maximum codes and these
-        (offset, fields, bound) mask bounds; None carries none."""
+        (offset, fields, bound) mask bounds; None carries none.  `plan`
+        (an engine.reduce.ReducePlan) makes its text canonicalize every
+        candidate (K24) and carry the orbit check (K25); `safe_ids` (the
+        action ids POR may take, a nonempty tuple) makes it prune (K26).
+        None carries neither."""
         self.cert = None if card_specs is None else (
             tuple(int(c) for c in cdc.max_codes()),
             tuple(tuple(int(x) for x in spec) for spec in card_specs))
+        self.plan = plan
+        self.sym_programs = tuple(plan.programs) if plan is not None else ()
+        self.por_safe = None if not safe_ids else tuple(
+            a in safe_ids for a in range(n_labels))
         self.step_outputs = tuple(step_outputs)
         self.inv_outputs = tuple(inv_outputs)
         self.cdc = cdc
@@ -132,7 +149,8 @@ class StructProgram(_Constants):
             self.step_outputs, self.inv_outputs, n_fields=self.F,
             widths=cdc.widths, n_words=self.W, lane_action=self.lane_action,
             n_labels=n_labels, title=title, template=template,
-            cert=self.cert)
+            cert=self.cert, sym=self.sym_programs or None,
+            por=self.por_safe)
         self._K_dev: Dict[str, torch.Tensor] = {}
 
     def stats(self) -> dict:
@@ -176,13 +194,38 @@ class StructProgram(_Constants):
             viol = viol | (pc > bound)
         return (viol & valid.bool()).any()
 
-    def expand_plain(self, block: torch.Tensor, n: int,
-                     deferred: bool = False, cert: bool = False):
-        """Torch version of kernel K17: (packed [ck*L, W] int32, flags
-        [3 + n_inv, ck*L] uint8, action [ck*L] int32, gen [n_labels]
-        int64, flat [ck*L, F] int32 in deferred mode else None); with
-        `cert` (its kCert form) a sixth output, the 0-dim bool certificate
-        of the valid successors (cert_plain before packing)."""
+    def _pruned(self, valid: torch.Tensor):
+        """K26's plain version on valid [B, L]: (kept lanes, the 0-dim
+        int64 count pruned), or (valid, None) without POR flags."""
+        if self.por_safe is None:
+            return valid, None
+        from ..engine.reduce import por_keep
+
+        dev = valid.device
+        keep = por_keep(valid, torch.from_numpy(self.lane_action).to(dev),
+                        torch.tensor(self.por_safe, device=dev),
+                        self.n_labels)
+        return keep, (valid & ~keep).sum()
+
+    def _canonical(self, flat: torch.Tensor) -> torch.Tensor:
+        """K24's plain version on every candidate (identity without a
+        symmetry plan)."""
+        return flat if self.plan is None else self.plan.canon(flat)
+
+    def expand_red_plain(self, block: torch.Tensor, n: int,
+                         deferred: bool = False, cert: bool = False):
+        """Torch version of kernel K17 with K23-K26 around it, composed as
+        the reference's expand stage composes them (jaxtlc/engine/
+        backend.py:195-268): (packed [ck*L, W] int32, flags [3 + n_inv,
+        ck*L] uint8, action [ck*L] int32, gen [n_labels] int64, flat
+        [ck*L, F] int32 in deferred mode else None, cert, sym, pruned).
+        afail and ovf are taken from the pre-pruning lanes; the valid
+        flags, gen, the invariants and the certificate from the lanes K26
+        kept; every candidate is canonical (K24).  cert is the 0-dim bool
+        certificate of the valid successors with `cert` (K17's kCert
+        form), else None; sym the orbit check of the block (K25) with a
+        symmetry plan, else None; pruned the 0-dim int64 count of the
+        lanes K26 pruned with POR flags, else None."""
         ck = block.shape[0]
         dev = block.device
         succ, valid, ovf, afail = self.step_plain(self.cdc.unpack(block))
@@ -190,7 +233,8 @@ class StructProgram(_Constants):
         valid = valid & mask[:, None]
         afail = afail & valid
         ovf = ovf & valid
-        flat = succ.reshape(-1, self.F)
+        valid, pruned = self._pruned(valid)
+        flat = self._canonical(succ.reshape(-1, self.F))
         fvalid = valid.reshape(-1)
         rows = [fvalid, afail.reshape(-1), ovf.reshape(-1)]
         if deferred:
@@ -204,9 +248,23 @@ class StructProgram(_Constants):
         gen = torch.zeros(self.n_labels, dtype=torch.int64, device=dev)
         gen.index_add_(0, la.to(torch.int64), valid.sum(0))
         flags = torch.stack(rows).to(torch.uint8)
-        out = (self.cdc.pack(flat), flags, action, gen,
-               flat if deferred else None)
-        return out + (self.cert_plain(flat, fvalid),) if cert else out
+        sym = (None if self.plan is None
+               else self.plan.orbit_check(flat, fvalid))
+        return (self.cdc.pack(flat), flags, action, gen,
+                flat if deferred else None,
+                self.cert_plain(flat, fvalid) if cert else None, sym,
+                pruned)
+
+    def expand_plain(self, block: torch.Tensor, n: int,
+                     deferred: bool = False, cert: bool = False):
+        """Torch version of kernel K17: (packed [ck*L, W] int32, flags
+        [3 + n_inv, ck*L] uint8, action [ck*L] int32, gen [n_labels]
+        int64, flat [ck*L, F] int32 in deferred mode else None); with
+        `cert` (its kCert form) a sixth output, the 0-dim bool certificate
+        of the valid successors (cert_plain before packing).  The first
+        outputs of expand_red_plain."""
+        out = self.expand_red_plain(block, n, deferred, cert)
+        return out[:6] if cert else out[:5]
 
     def expand_sharded_plain(self, queue: torch.Tensor, qhead: torch.Tensor,
                              npop: torch.Tensor, ck: int,
@@ -220,7 +278,9 @@ class StructProgram(_Constants):
         - , action [D*ck*L] int32, gen [D, n_labels] int64, fields
         [D*ck*L, F] int32, the packed popped rows [D*ck, W] or None).  The
         reference's expand half over an emitted backend
-        (jaxtlc/engine/sharded.py:510-556)."""
+        (jaxtlc/engine/sharded.py:510-556): under POR the lanes are pruned
+        after afail and ovf are taken, under symmetry every candidate is
+        canonicalized, and nothing is counted or orbit-checked."""
         from ..engine.sharded import popped_rows
 
         D = queue.shape[0]
@@ -232,7 +292,9 @@ class StructProgram(_Constants):
         valid = valid & live[:, None]
         afail = afail & valid
         ovf = ovf & valid
-        flat = succ.reshape(-1, self.F).to(torch.int32)
+        # K26 and K24, uncounted (jaxtlc/engine/sharded.py:527-542)
+        valid = self._pruned(valid)[0]
+        flat = self._canonical(succ.reshape(-1, self.F).to(torch.int32))
         fvalid = valid.reshape(-1)
         out = [fvalid, afail.reshape(-1), ovf.reshape(-1)]
         if deferred:
@@ -332,17 +394,24 @@ class StructKernels(EmittedRows):
         self.cov = cov
 
     def expand(self, block: torch.Tensor, n: int, deferred: bool = False):
-        """-> (packed, flags, action, gen, flat, cert): cert is the block's
-        certificate (K17's kCert form) in the immediate mode of a backend
-        that carries one, else None."""
-        cert = self.prog.cert is not None and not deferred
+        """-> (packed, flags, action, gen, flat, cert, sym, pruned): cert
+        is the block's certificate (K17's kCert form) in the immediate mode
+        of a backend that carries one, else None; sym the block's orbit
+        check (K25 after K17) with a symmetry plan, else None; pruned the
+        lanes K26 pruned inside K17 under POR, else None."""
+        prog = self.prog
+        cert = prog.cert is not None and not deferred
         if not block.is_cuda:
-            out = self.prog.expand_plain(block, n, deferred, cert)
-        else:
-            from ..kernels import ops
+            return prog.expand_red_plain(block, n, deferred, cert)
+        from ..kernels import ops
 
-            out = ops.struct_expand(self.prog, block, n, deferred, cert)
-        return out if cert else out + (None,)
+        out = ops.struct_expand(prog, block, n, deferred, cert)
+        sym = None
+        if prog.plan is not None:
+            sym = (ops.struct_orbit_check(prog, block, out[1][0])
+                   if prog.sym_programs
+                   else torch.zeros((), dtype=torch.bool, device=block.device))
+        return out[:6] + (sym, out[6])
 
     def deferred(self, ex, is_new_c, c_idx, rows: int):
         """-> (viol, state, action, cert): cert is the fresh claimants'
@@ -357,6 +426,26 @@ class StructKernels(EmittedRows):
             out = ops.struct_inv_rows(self.prog, ex.flat, is_new_c, c_idx,
                                       ex.action, rows, cert=cert)
         return out if cert else out + (None,)
+
+    def canon(self, rows: torch.Tensor) -> torch.Tensor:
+        """The orbit-canonical form of rows [N, F] int32 (a program with a
+        symmetry plan): kernel K24 on CUDA tensors, its plain version on
+        CPU tensors."""
+        if not rows.is_cuda or not self.prog.sym_programs:
+            return self.prog.plan.canon(rows)
+        from ..kernels import ops
+
+        return ops.struct_canon(self.prog, rows)
+
+    def por_keep(self, valid: torch.Tensor) -> torch.Tensor:
+        """valid [B, L] bool after the singleton ample-set pruning (a
+        program with POR flags): kernel K26 on CUDA tensors, its plain
+        version on CPU tensors."""
+        if not valid.is_cuda:
+            return self.prog._pruned(valid)[0]
+        from ..kernels import ops
+
+        return ops.struct_por_keep(self.prog, valid)
 
     def cert(self, rows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         """The certificate of raw rows [N, F] under valid [N]: kernel K23
@@ -431,6 +520,15 @@ class StructCoverage(_Constants):
         return ops.struct_cov_count(self, block, n, valid)
 
 
+def model_shapes(model: StructModel) -> dict:
+    """The inferred variable shapes of a model (the TypeOK hints, then
+    shape inference)."""
+    system = model.system
+    hints = typeok_hints(system.ev, model.invariants, system.variables)
+    return infer_shapes(system.ev, system.variables, system.init_ast,
+                        system.next_ast, hints=hints)
+
+
 def compile_model(model: StructModel, var_shapes=None,
                   trap_policy: TrapPolicy = None):
     """(codec, LaneCompiler, step outputs, invariant outputs) of a model:
@@ -441,10 +539,7 @@ def compile_model(model: StructModel, var_shapes=None,
     as the reference reads them after its step trace."""
     system = model.system
     if var_shapes is None:
-        hints = typeok_hints(system.ev, model.invariants, system.variables)
-        var_shapes = infer_shapes(system.ev, system.variables,
-                                  system.init_ast, system.next_ast,
-                                  hints=hints)
+        var_shapes = model_shapes(model)
     cdc = StructCodec(system.variables, var_shapes)
     compiler = LaneCompiler(system.ev, system.variables, var_shapes, cdc,
                             trap_policy=trap_policy)
@@ -481,9 +576,39 @@ def coverage_plane(model: StructModel, cdc: StructCodec,
     return plane, cov
 
 
+def reduce_ops(model: StructModel, cdc: StructCodec, var_shapes: dict,
+               action_names: Tuple[str, ...], symmetry: bool, por: bool):
+    """The reduction capability of a backend (jaxtlc/struct/backend.py:
+    228-257): the symmetric sets analysis.symfind verifies over the
+    (possibly narrowed) shapes, the plan engine.reduce.build_plan realises
+    over the codec (dropping, with reasons, sets it cannot), and the action
+    ids POR may take; None when neither is asked for."""
+    if not (symmetry or por):
+        return None
+    from ..analysis.speclint import analyze_spec
+    from ..analysis.symfind import analyze_reduction
+    from ..engine.reduce import ReduceOps, build_plan
+
+    rep = analyze_reduction(model, analyze_spec(model, var_shapes=var_shapes))
+    plan, dropped = (None, {})
+    if symmetry:
+        plan, dropped = build_plan(cdc, rep.symmetric_sets)
+    safe_ids: Tuple[int, ...] = ()
+    if por:
+        safe_ids = tuple(action_names.index(a) for a in rep.safe_actions
+                         if a in action_names)
+    return ReduceOps(
+        plan=plan, safe_ids=safe_ids, por=bool(por),
+        sym_sets=(tuple(sorted(plan.sym_sets.items()))
+                  if plan is not None else ()),
+        dropped_sets=tuple(sorted({**rep.rejected_sets,
+                                   **dropped}.items())))
+
+
 def struct_backend(model: StructModel, check_deadlock: bool = True,
                    bounds=None, elide: bool = True,
-                   coverage: bool = False) -> SpecBackend:
+                   coverage: bool = False, symmetry: bool = False,
+                   por: bool = False) -> SpecBackend:
     """Compile `model` into a SpecBackend (the pipeline struct.cache
     memoizes in-process); `coverage` adds the device coverage plane.
 
@@ -495,9 +620,15 @@ def struct_backend(model: StructModel, check_deadlock: bool = True,
     unsound bound turns the verdict loud instead of narrowing real states
     away.  `elide=False` narrows the codec, keeps every trap and carries
     no certificate (the sharded engines, which have no certificate
-    column).  An uncertified report narrows nothing."""
+    column).  An uncertified report narrows nothing.
+
+    `symmetry` / `por` (resolved bools) attach the state-space reduction
+    (``SpecBackend.reduce``, an engine.reduce.ReduceOps): the program's
+    text then canonicalizes every candidate and carries the orbit check
+    (K24, K25) when a symmetric set survives, and prunes to singleton
+    ample sets (K26) when some action is POR-safe."""
     system = model.system
-    var_shapes = trap_policy = card_specs = None
+    trap_policy = card_specs = None
     if bounds is not None and getattr(bounds, "certified", False):
         var_shapes = {v: bounds.bounds[v] for v in system.variables}
         if elide:
@@ -505,6 +636,7 @@ def struct_backend(model: StructModel, check_deadlock: bool = True,
                                      card_bounds=dict(bounds.card_bounds))
     else:
         bounds = None
+        var_shapes = model_shapes(model)
     cdc, compiler, step_outputs, inv_outputs = compile_model(
         model, var_shapes, trap_policy)
     if trap_policy is not None:
@@ -513,10 +645,14 @@ def struct_backend(model: StructModel, check_deadlock: bool = True,
     action_names: Tuple[str, ...] = tuple(sorted(set(labels)))
     lane_action = np.asarray([action_names.index(x) for x in labels],
                              np.int32)
+    red = reduce_ops(model, cdc, var_shapes, action_names, symmetry, por)
     prog = StructProgram(step_outputs, inv_outputs, cdc, lane_action,
                          len(action_names),
                          title=f"{model.root_name} ({model.source_digest})",
-                         card_specs=card_specs)
+                         card_specs=card_specs,
+                         plan=None if red is None else red.plan,
+                         safe_ids=(red.safe_ids if red is not None
+                                   and red.por_on else None))
 
     def initial_vectors():
         inits = system.initial_states()
@@ -551,6 +687,7 @@ def struct_backend(model: StructModel, check_deadlock: bool = True,
         kernels=kernels,
         coverage=plane,
         cert_check=kernels.cert if card_specs is not None else None,
+        reduce=red,
     )
 
 

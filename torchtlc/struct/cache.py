@@ -3,8 +3,8 @@
 Compiling a struct spec - parse, shape inference, the lane-IR build and
 the C++ emission - is a pure function of the spec's meaning (source
 digest, canonical constants, invariant list), the deadlock switch, the
-certified bound report's digest with the trap-elision switch (``-narrow``)
-and the coverage switch, so one process builds each backend once; the memo
+certified bound report's digest with the trap-elision switch (``-narrow``),
+the coverage switch and the reduction switches (``-symmetry``, ``-por``), so one process builds each backend once; the memo
 keeps the 64 most recently used.  The certified bound reports
 (analysis.absint) are memoized the same way, by the spec's meaning.  The
 reference's persistent XLA cache has its counterpart in the build
@@ -60,16 +60,19 @@ def get_bounds(model):
 
 
 def get_backend(model, check_deadlock: bool = True, bounds=None,
-                elide: bool = True, coverage: bool = False):
+                elide: bool = True, coverage: bool = False,
+                symmetry: bool = False, por: bool = False):
     """Memoized struct_backend.  `bounds` (a certified BoundReport) selects
     the narrowed compile, a distinct entry keyed on its digest; `elide`
     False keeps every trap and carries no certificate (the sharded
-    routes)."""
+    routes); `symmetry` / `por` (resolved bools) attach the state-space
+    reduction - distinct entries, since a reduced backend's text, carry
+    and checkpoints differ."""
     from .backend import struct_backend
 
     key = (model_key(model), bool(check_deadlock),
            "" if bounds is None else bounds.digest(), bool(elide),
-           bool(coverage))
+           bool(coverage), bool(symmetry), bool(por))
     return _memo(_BACKENDS, key, lambda: struct_backend(
         model, check_deadlock=check_deadlock, bounds=bounds, elide=elide,
-        coverage=coverage))
+        coverage=coverage, symmetry=symmetry, por=por))

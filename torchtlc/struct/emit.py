@@ -86,6 +86,18 @@ class Program:
             self.size += vals.size
         return off
 
+    def words(self, vals) -> int:
+        """Offset in K of an int32 table that is no lane-IR constant (a
+        symmetry program's remap table); equal tables share one copy."""
+        vals = np.asarray(vals, np.int32).ravel()
+        key = ("words", vals.tobytes())
+        off = self._offsets.get(key)
+        if off is None:
+            off = self._offsets[key] = self.size
+            self._chunks.append(vals)
+            self.size += vals.size
+        return off
+
     def constants(self) -> np.ndarray:
         """K: every table, int32 (bools as 0/1); one element at least."""
         if not self._chunks:
@@ -260,6 +272,60 @@ def _sum(terms: List[str]) -> str:
 
 
 # ---------------------------------------------------------------------------
+# the symmetry group's field programs (kernel K24)
+# ---------------------------------------------------------------------------
+
+
+def _sym_program(prog: Program, p, n_fields: int,
+                 mask_bits: int) -> List[str]:
+    """The statements of one field program (engine.reduce._PermProgram,
+    applied as engine.reduce._apply_program applies it): c = f gathered
+    through src, then each remap table in order - a guarded one reads its
+    guard columns as they stand at that point -, then each mask's bit
+    permutation.  Tables live in K, read at the code clipped to the
+    table."""
+    src = p.src
+    out = [f"c[{j}] = f[{j if src is None else int(src[j])}];"
+           for j in range(n_fields)]
+    for field, tbl, guards in p.tables:
+        look = f"K[{prog.words(tbl)} + tt_clip(c[{field}], {len(tbl) - 1})]"
+        if guards:
+            cond = " && ".join(
+                f"(c[{g[1]}] > {int(g[2])})" if g[0] == "len"
+                else f"(c[{g[1]}] != 0)" for g in guards)
+            out.append(f"c[{field}] = ({cond}) ? {look} : c[{field}];")
+        else:
+            out.append(f"c[{field}] = {look};")
+    for off, widths, sigma in p.masks:
+        out.append("{")
+        out += [f"  int32_t m{fi} = 0;" for fi in range(len(widths))]
+        for i, d in enumerate(sigma):
+            out.append(
+                f"  m{d // mask_bits} |= ((c[{off + i // mask_bits}] >> "
+                f"{i % mask_bits}) & 1) << {d % mask_bits};")
+        out += [f"  c[{off + fi}] = m{fi};" for fi in range(len(widths))]
+        out.append("}")
+    return out
+
+
+def sym_function(prog: Program, programs, n_fields: int) -> str:
+    """``st_sym_prog(p, f, K, c)``: field program p of the group applied
+    to the row f, into c (kernel K24's permutations, struct_reduce.cuh)."""
+    from .codec import MASK_BITS_PER_FIELD
+
+    lines = ["HD void st_sym_prog(int p, const int32_t* __restrict__ f, "
+             "const int32_t* __restrict__ K, int32_t* __restrict__ c) {",
+             "  switch (p) {"]
+    for k, p in enumerate(programs):
+        lines.append(f"  case {k}: {{")
+        lines += ["    " + x for x in _sym_program(prog, p, n_fields,
+                                                   MASK_BITS_PER_FIELD)]
+        lines.append("  } break;")
+    lines += ["  default: break;", "  }", "}"]
+    return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
 # the spec's translation unit
 # ---------------------------------------------------------------------------
 
@@ -267,7 +333,8 @@ def _sum(terms: List[str]) -> str:
 def spec_source(step_outputs, inv_outputs, *, n_fields: int,
                 widths: Sequence[int], n_words: int, lane_action,
                 n_labels: int, title: str,
-                template: str = "struct_expand.cuh", cert=None):
+                template: str = "struct_expand.cuh", cert=None,
+                sym=None, por=None):
     """(source text, K constants) of one spec: the macros and functions
     the kernel template builds its kernels around -
     torchtlc/kernels/csrc/struct_expand.cuh (K17 and K18) for a struct
@@ -278,7 +345,13 @@ def spec_source(step_outputs, inv_outputs, *, n_fields: int,
     invariant.  `cert` - (the [F] maximum codes, the (offset, fields,
     bound) mask triples) of a narrowed backend's runtime certificate -
     prints the tables of kernel K23 (struct_cert.cuh): ST_CERT 1,
-    ST_MAX_CODE, ST_NCARD and ST_CARD_SPECS; None prints ST_CERT 0."""
+    ST_MAX_CODE, ST_NCARD and ST_CARD_SPECS; None prints ST_CERT 0.
+    `sym` - the field programs of a symmetry plan (engine.reduce.
+    ReducePlan.programs, at least one) - prints ST_SYM 1, ST_SYM_NPROG and
+    ``st_sym_prog`` with its remap tables in K (kernels K24 and K25,
+    struct_reduce.cuh); `por` - one bool per label, the actions POR may
+    take as singleton ample sets - prints ST_POR 1 and ST_POR_SAFE (kernel
+    K26).  None prints ST_SYM 0 / ST_POR 0."""
     succs, valid, ovf, afail = step_outputs
     L = succs.shape[1]
     F = n_fields
@@ -311,6 +384,8 @@ def spec_source(step_outputs, inv_outputs, *, n_fields: int,
     prog.function("HD uint32_t st_inv_bits(const int32_t* __restrict__ f, "
                   "const int32_t* __restrict__ K)", [],
                   lambda ex: [f"return {bits};"])
+    if sym:
+        prog.functions.append(sym_function(prog, sym, F))
     K = prog.constants()
     head = [
         f"// {title}",
@@ -341,6 +416,15 @@ def spec_source(step_outputs, inv_outputs, *, n_fields: int,
         if card_specs:
             head.append("#define ST_CARD_SPECS " + ", ".join(
                 str(int(x)) for spec in card_specs for x in spec))
+    head += (["#define ST_SYM 1", f"#define ST_SYM_NPROG {len(sym)}"]
+             if sym else ["#define ST_SYM 0"])
+    if por is not None:
+        if len(por) != n_labels:
+            raise EmitError(f"{len(por)} POR flags for {n_labels} labels")
+        head += ["#define ST_POR 1", "#define ST_POR_SAFE " + ", ".join(
+            "1" if x else "0" for x in por)]
+    else:
+        head.append("#define ST_POR 0")
     head.append("")
     text = "\n".join(head) + "\n\n".join(prog.functions) + (
         f"\n\n#include \"{template}\"\n")

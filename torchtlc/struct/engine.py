@@ -15,8 +15,11 @@ engines; ``pipeline=True`` runs the pipelined body.  ``bounds`` (a
 certified analysis.absint.BoundReport, ``-narrow``) runs the narrowed
 compile: on one device with the runtime certificate (kernel K23 inside
 K17 and K18, CheckResult.cert_violated), on the sharded engine with every
-trap kept and no certificate, as the reference.  The reduced engines are
-not ported yet (ROADMAP Queue A item 13).
+trap kept and no certificate, as the reference.  ``symmetry`` and ``por``
+(tri-state, auto OFF: engine.bfs.resolve_symmetry / resolve_por) run the
+reduced backend: every candidate canonicalized (kernel K24 inside K17 and
+K21) and pruned to singleton ample sets (K26), the orbit check (K25) on
+one device - CheckResult.sym_violated and por_pruned.
 """
 
 from __future__ import annotations
@@ -56,6 +59,8 @@ def check_struct(
     coverage: bool = False,
     pipeline: bool = False,
     bounds=None,
+    symmetry: bool = None,
+    por: bool = None,
 ) -> CheckResult:
     """Exhaustive check of a struct-compiled spec on `device` (None = the
     card).  sort_free and deferred are tri-state (None = auto: on at
@@ -64,11 +69,15 @@ def check_struct(
     to the host on a clean verdict (CheckResult.fp_table); coverage
     carries the device coverage plane (CheckResult.site_coverage);
     pipeline runs the pipelined body; bounds (a certified BoundReport)
-    runs the narrowed engine with the runtime certificate on.  wall_s
-    times the run only: the backend is compiled and its kernels built
-    before it."""
+    runs the narrowed engine with the runtime certificate on; symmetry and
+    por (tri-state, auto off) the reduced one.  wall_s times the run only:
+    the backend is compiled and its kernels built before it."""
+    from ..engine.bfs import resolve_por, resolve_symmetry
+
     backend = get_backend(model, check_deadlock, bounds=bounds,
-                          coverage=coverage)
+                          coverage=coverage,
+                          symmetry=resolve_symmetry(symmetry, chunk),
+                          por=resolve_por(por, chunk))
     init_fn, run_fn, _ = make_backend_engine(
         backend, chunk, queue_capacity, fp_capacity, obs_slots=obs_slots,
         sort_free=sort_free, deferred=deferred, device=device,
@@ -107,18 +116,24 @@ def check_struct_sharded(
     deferred: bool = None,
     coverage: bool = False,
     bounds=None,
+    symmetry: bool = None,
+    por: bool = None,
 ) -> CheckResult:
     """Exhaustive sharded check of a struct-compiled spec over `mesh`
     (engine.sharded.ShardMesh; jaxtlc/struct/engine.py:108): capacities
     PER SHARD, the modes resolved against the per-shard chunk.  `bounds`
     narrows the codec with every trap kept (elide=False): the sharded
-    engine carries no certificate.  wall_s times the run only: the
+    engine carries no certificate.  `symmetry` / `por` (tri-state, auto
+    off) canonicalize and prune before routing, with no orbit check and no
+    pruned count, as the reference.  wall_s times the run only: the
     backend's kernels are built before it."""
-    from ..engine.bfs import resolve_device
+    from ..engine.bfs import resolve_device, resolve_por, resolve_symmetry
     from ..engine.sharded import check_sharded
 
     backend = get_backend(model, check_deadlock, bounds=bounds, elide=False,
-                          coverage=coverage)
+                          coverage=coverage,
+                          symmetry=resolve_symmetry(symmetry, chunk),
+                          por=resolve_por(por, chunk))
     if resolve_device(mesh.device).type == "cuda":
         build_kernels(backend)  # before the clock
     return check_sharded(
