@@ -104,7 +104,16 @@ alone (19b); and the commands: Model_sym with and without -symmetry, -por,
 SymV's exit-12 trace with and without -symmetry, SIGTERM and -recover
 -symmetry (and its refusal without the flag), the spill rung, -sharded 4,
 -phase-timing, the lie (exit 1), the flags ignored on Reconciler and the
-KubeAPI pair, and RaftReplication with four servers (19c).  It checks every
+KubeAPI pair, and RaftReplication with four servers (19c); then -simulate
+behind kernels K27 (the walk's round, one thread a walker) and K28 (its
+fold, one block): the CPU tests' walks and TwoPhase Model_sym on the card,
+each final carry pinned to the reference's CPU run, K27 (kInit, step,
+packed rows) and K28 bitwise against their plain versions mid-walk, one
+round violating and one deadlocking (20); RaftReplication with five
+servers and MaxTerm 6 at 65,536 walkers to depth 100 - the reference's
+counts, the wall, transitions per second, the busy share, K27 and K28 a
+round (20b); and the commands: that walk, SimViol's exit-12 trace,
+five servers' deadlock, SIGTERM and -recover, a lasso (20c).  It checks every
 result against its pinned value, holds each kernel bitwise against its
 plain torch version on the card, and prints:
 
@@ -119,7 +128,8 @@ plain torch version on the card, and prints:
   command runs of phases 15-15c, the sharded emitted runs and commands
   of phases 16-16c, the covered, pipelined, spilling and command runs
   of phases 17-17d, the narrowed engine and command runs of phases
-  18-18c and the reduced engine and command runs of phases 19-19c;
+  18-18c, the reduced engine and command runs of phases 19-19c and the
+  walks and commands of phases 20-20c;
   each path's counts are reset just before it and read just after),
   its error against the plain
   version, its time, the plain version's time, its bound on this card
@@ -139,7 +149,8 @@ the pipelined slice alone, ``--phases 12,12b,12c`` the sharded one,
 generic slice, ``--phases 16,16b,16c`` the sharded engine over the
 emitted backends, ``--phases 17,17b,17c,17d`` the struct coverage,
 pipeline, spill and phase-timing slice, ``--phases 18,18b,18c`` the
-struct -narrow slice, ``--phases 19,19b,19c`` the -symmetry / -por slice.
+struct -narrow slice, ``--phases 19,19b,19c`` the -symmetry / -por slice,
+``--phases 20,20b,20c`` the -simulate slice.
 """
 
 from __future__ import annotations
@@ -492,6 +503,12 @@ def main() -> int:
             runs.update(phase_reduce19_real(torch, ops, card, runs))
         if want("19c"):
             runs.update(phase_command19(ops, card, runs, tmp))
+        if want("20") or want("20b"):
+            runs.update(phase_sim20(torch, ops, card, runs, tmp))
+        if want("20b"):
+            runs.update(phase_sim20_real(torch, ops, card, runs))
+        if want("20c"):
+            runs.update(phase_command20(ops, card, runs, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if want("13b"):
@@ -522,7 +539,8 @@ def main() -> int:
                 "gen_r5",) + tuple(
                     f"gen_cmd_{tag}" for tag in GEN_NAMES + ("never", "r5")
                 ) + tuple(k for k, v in runs.items()
-                          if k.startswith(("shard16", "p17", "p18", "p19"))
+                          if k.startswith(("shard16", "p17", "p18", "p19",
+                                           "p20"))
                           and isinstance(v, dict) and "launches" in v)
     launches = {k: sum(runs[r]["launches"][k] for r in main)
                 for k in ops.KERNELS}
@@ -2528,9 +2546,13 @@ def phase_kernels(torch, ops, runs, launches):
                                "jaxtlc/engine/reduce.py:327"),
         "struct_por_keep": ("torchtlc/kernels/csrc/struct_reduce.cuh",
                             "jaxtlc/engine/reduce.py:376"),
+        "struct_sim_step": ("torchtlc/kernels/csrc/emitted_sim.cuh",
+                            "jaxtlc/sim/engine.py:232"),
+        "sim_fold": ("torchtlc/kernels/csrc/emitted_sim.cuh",
+                     "jaxtlc/sim/engine.py:264"),
     }
     for key in ("sharded", "live", "struct", "gen", "shard16", "p17", "p18",
-                "p19"):
+                "p19", "p20"):
         for name, got in runs.get(f"{key}_rows", {}).items():
             rows.setdefault(name, []).extend(got)
         library.update(runs.get(f"{key}_library", {}))
@@ -6226,6 +6248,582 @@ def phase_command19(ops, card, runs, tmp):
     print("phase 19c commands, transcripts = the reference's: "
           + "; ".join(lines) + "; -recover without -symmetry refused; SymV's "
           f"trace the same with and without -symmetry on {card}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 20-20c: -simulate behind K27 struct_sim_step and K28 sim_fold
+# ---------------------------------------------------------------------------
+
+# the reference's sim models (tests/test_sim.py:33-101) and its lasso model
+# (tests/test_infer.py:74-94)
+SIM_TINY_TLA = """---- MODULE SimTiny ----
+EXTENDS Naturals
+CONSTANTS MAX
+VARIABLES x, y
+
+Init == /\\ x = 0
+        /\\ y = 0
+
+Up == /\\ x < MAX
+      /\\ x' = x + 1
+      /\\ y' = y
+
+Down == /\\ x > 0
+        /\\ x' = x - 1
+        /\\ y' = y
+
+Flip == /\\ x > 0
+        /\\ y' = 1 - y
+        /\\ x' = x
+
+Next == Up \\/ Down \\/ Flip
+
+Spec == Init /\\ [][Next]_<<x, y>>
+
+InRange == x <= MAX
+====
+"""
+SIM_TINY_CFG = "CONSTANT MAX = 4\nSPECIFICATION\nSpec\nINVARIANT\nInRange\n"
+SIM_STEP_TLA = """---- MODULE {name} ----
+EXTENDS Naturals
+VARIABLES x
+
+Init == x = 0
+
+Step == /\\ x < 3
+        /\\ x' = x + 1
+
+Next == Step
+
+Spec == Init /\\ [][Next]_x
+{inv}====
+"""
+SIM_VIOL_CFG = "SPECIFICATION\nSpec\nINVARIANT\nNotOne\n"
+LIVE_TLA = """---- MODULE LiveTiny ----
+EXTENDS Naturals
+VARIABLES x
+
+Init == x = 0
+
+Inc == /\\ x < 3
+       /\\ x' = x + 1
+
+Stay == /\\ x = 3
+        /\\ x' = x
+
+Next == Inc \\/ Stay
+
+Spec == Init /\\ [][Next]_x
+
+Unreached == (x = 1) ~> (x = 5)
+====
+"""
+# RaftReplication with five servers and MaxTerm 6 ("RR5T6"): F 18, 3
+# packed words, L 55, 5 actions, 4 invariants
+RR5T6_CFG = RR5_CFG.replace("MaxTerm = 3", "MaxTerm = 6")
+# phase 20: name -> (model key, check_deadlock, walkers, depth, fp
+# capacity, seed)
+SIM20 = {
+    "SimTiny": ("tiny", False, 256, 64, 1 << 16, 7),
+    "SimViol": ("viol", True, 256, 64, 1 << 16, 5),
+    "SimDead": ("dead", True, 256, 64, 1 << 16, 1),
+    "TwoPhase/Model_1": ("two", True, 256, 64, 1 << 16, 3),
+    "TwoPhase/Model_1/nodeadlock": ("two", False, 256, 64, 1 << 16, 3),
+    "RaftReplication/Model_1": ("raft", False, 256, 64, 1 << 16, 7),
+    "TwoPhase/Model_sym": ("sym", False, 256, 64, 1 << 16, 11),
+}
+# phase 20b: RR5T6 at full width (the reference's counts, run on the CPU)
+RR5T6_KW = dict(seed=7, walkers=65536, depth=100, fp_capacity=1 << 22,
+                check_deadlock=False)
+RR5T6_COUNTS = dict(steps=36, generated=6521172, transitions=1593840,
+                    distinct=750018, fp_saturated=False, violation=0,
+                    halted=65536)
+
+
+def models20(tmp):
+    """The model files of phases 20-20c in `tmp`/p20: {key: MC.cfg}."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    specs = os.path.join(here, "specs")
+    d = os.path.join(tmp, "p20")
+    out = {"two": os.path.join(specs, "TwoPhase.toolbox", "Model_1",
+                               "MC.cfg"),
+           "sym": os.path.join(specs, "TwoPhase.toolbox", "Model_sym",
+                               "MC.cfg"),
+           "raft": os.path.join(specs, "RaftReplication.toolbox", "Model_1",
+                                "MC.cfg")}
+    raft = open(os.path.join(os.path.dirname(out["raft"]),
+                             "RaftReplication.tla")).read()
+    for key, files, cfg in (
+            ("tiny", {"SimTiny.tla": SIM_TINY_TLA,
+                      "SimTiny.cfg": SIM_TINY_CFG}, "SimTiny.cfg"),
+            ("viol", {"SimViol.tla": SIM_STEP_TLA.format(
+                name="SimViol", inv="\nNotOne == x # 1\n"),
+                "SimViol.cfg": SIM_VIOL_CFG}, "SimViol.cfg"),
+            ("dead", {"SimDead.tla": SIM_STEP_TLA.format(name="SimDead",
+                                                         inv=""),
+                      "SimDead.cfg": "SPECIFICATION\nSpec\n"}, "SimDead.cfg"),
+            ("live", {"LiveTiny.tla": LIVE_TLA, "LiveTiny.cfg":
+                      "SPECIFICATION\nSpec\nPROPERTY\nUnreached\n"},
+             "LiveTiny.cfg"),
+            ("rr5", {"RaftReplication.tla": raft, "MC.cfg": RR5_CFG},
+             "MC.cfg"),
+            ("rr5t6", {"RaftReplication.tla": raft, "MC.cfg": RR5T6_CFG},
+             "MC.cfg")):
+        os.makedirs(os.path.join(d, key), exist_ok=True)
+        for fname, text in files.items():
+            with open(os.path.join(d, key, fname), "w") as f:
+                f.write(text)
+        out[key] = os.path.join(d, key, cfg)
+    return out
+
+
+def sim_sha(leaves) -> str:
+    """SHA-256 of a walk carry's leaves in the reference's order: each
+    leaf's dtype, shape and bytes (the form the pins were digested in)."""
+    import numpy as np
+
+    h = hashlib.sha256()
+    for a in map(np.asarray, leaves):
+        h.update(f"{a.dtype.str}{tuple(a.shape)}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+# the reference's final carries on the CPU (jaxtlc.sim.engine
+# get_sim_engine's run_fn after jit(init_fn)(seed), SIM20's geometry):
+# (steps, generated, transitions, distinct, violation, sim_sha)
+SIM20_PINS = {
+    'SimTiny': (64, 43425, 16384, 10, 0,
+        'ea2dfc6b352001ffae9e536c72fdbed0'
+        'dadb0521adfaa660f8fe8135b877b873'),
+    'SimViol': (1, 512, 256, 2, 100,
+        'd272d616f5032fa52f7692146eb3ed95'
+        '0b2b2e13612855fee568ac0767144193'),
+    'SimDead': (4, 1024, 768, 4, 4,
+        '499db222eae8fad2444367b4e5bff8a2'
+        'd54e20ba4ccff0e14f88521508ef1c53'),
+    'TwoPhase/Model_1': (4, 3560, 941, 36, 4,
+        'e0fee2d8fde281bf45228afa46638d34'
+        '9391ab89bbeee14eec1d1e8aeb1dcc67'),
+    'TwoPhase/Model_1/nodeadlock': (14, 3875, 1114, 54, 0,
+        'cfa8a68ba18f24c7ce6552589898bf64'
+        'afc3826380738c2cb84cd38fc80b47d9'),
+    'RaftReplication/Model_1': (18, 9437, 3606, 1414, 0,
+        '032ae1e46ac66baeac41772f41cd1d5d'
+        '4e7680d20d7ae81efea9d5ee7f53a23a'),
+    'TwoPhase/Model_sym': (20, 7028, 1568, 224, 0,
+        '783f619f7cc58e414652d6304fa27663'
+        '9275d6105b1740cf082be5b33688c9e7'),
+}
+
+
+def backends20(ops, tmp):
+    """The struct backends of phases 20-20c with their emitted libraries
+    (K17/K18/K21 and K27/K28), one nvcc per text, in parallel:
+    (cfgs, models, {key: backend})."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torchtlc.struct.cache import get_backend
+    from torchtlc.struct.loader import load
+
+    cfgs = models20(tmp)
+    models = {k: load(c) for k, c in cfgs.items()}
+    out = {}
+    for key, dl, *_ in SIM20.values():
+        out[key, dl] = get_backend(models[key], dl)
+    for key, dl in (("rr5t6", False), ("rr5", True), ("live", True)):
+        out[key, dl] = get_backend(models[key], dl)
+    texts = {b.kernels.prog.text: b.kernels.prog for b in out.values()}
+    t0 = time.time()
+    with ThreadPoolExecutor(len(texts)) as pool:
+        list(pool.map(ops.struct_lib, texts.values()))
+    prog = out["rr5t6", False].kernels.prog
+    print(f"phase 20 build: {len(texts)} emitted libraries (K17/K18/K21 "
+          f"with K27/K28) in {time.time() - t0:.1f} s; RR5T6 F {prog.F}, "
+          f"W {prog.W}, L {prog.L}, {prog.n_labels} actions, {prog.n_inv} "
+          f"invariants; ptxas: {ptxas_kernels(prog, ('sim_step', 'sim_fold'))}",
+          flush=True)
+    return cfgs, models, out
+
+
+def ptxas_kernels(prog, names):
+    """{kernel entry: 'N registers, S bytes stack, spills'} of the entries
+    of a spec's library whose mangled names hold one of `names`, from the
+    ptxas report nvcc left beside it."""
+    from torchtlc.kernels.build import build_struct
+
+    log = os.path.join(os.path.dirname(build_struct(prog.text)), "nvcc.log")
+    out, cur = {}, None
+    for line in open(log).read().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            cur = name if any(n in name for n in names) else None
+            if cur:
+                out[cur] = []
+        elif cur and ("stack frame" in line or "Used" in line):
+            out[cur].append(line.split(":")[-1].strip())
+    import re
+
+    def short(mangled):  # struct_sim_step_kernel<0,1>: its bool flags
+        base = re.match(r"_Z\d+(\w+?kernel)", mangled).group(1)
+        flags = re.findall(r"Lb(\d)E", mangled)
+        return base + (f"<{','.join(flags)}>" if flags else "")
+
+    return {short(k): "; ".join(v) for k, v in out.items()}
+
+
+def clone_carry(c):
+    from torchtlc.engine.fpset import FPSet
+
+    return c._replace(**{
+        f: (FPSet(v.table.clone()) if f == "fps" else v.clone())
+        for f, v in c._asdict().items() if v is not None})
+
+
+def clone_buffers(b):
+    return b._replace(**{f: v.clone() for f, v in b._asdict().items()
+                         if v is not None})
+
+
+def sim_lane_ops(prog) -> int:
+    """K27's integer operations a live lane: the statements of the emitted
+    step and invariants (one operation each), the enabled count and the
+    pick (2 a lane), three threefry2x32 (20 rounds of 3 operations plus
+    the key schedule: ~80 each), the pack (~4 a field)."""
+    body = prog.text.split("HD void st_step(", 1)[1]
+    body = body.split("#include", 1)[0]
+    return body.count(";") + 2 * prog.L + 3 * 80 + 4 * prog.F
+
+
+def k27_bytes(prog, n_live, W) -> int:
+    """K27's bytes once: the alive flag of every lane; of a live lane its
+    F fields in and out, its steps_taken word, its packed row and take
+    flag; the scratch."""
+    return W * 2 + n_live * (prog.F * 8 + 4 + prog.W * 4 + 1) + 4 * (
+        prog.n_inv + 6 + prog.n_labels)
+
+
+def k27_k28_check(torch, ops, tag, prog, c, check_deadlock, depth,
+                  record=None, reps=10):
+    """K27 (its step form, with the packed rows) and then K28 against
+    their plain versions on copies of the carry `c` and of fresh buffers:
+    states, alive, steps_taken, the scratch, the packed rows and take
+    flags, the old rows and actions at every class lane; then every leaf
+    of the carry, the go flag and the reset scratch after K28.  Timed with
+    `record`.  Returns the violation code K28 set."""
+    from torchtlc.sim.engine import (SIM_MIN, SIM_NONE, carry_to_reference,
+                                     sim_buffers)
+
+    W = c.states.shape[0]
+    base = sim_buffers(prog, W, "cuda", True)
+    base.go.fill_(1)
+    outs = []
+    for kernel in (True, False):
+        cc, bb = clone_carry(c), clone_buffers(base)
+        if kernel:
+            ops.struct_sim_step(prog, bb, cc.key, cc.step_i, cc.states,
+                                cc.alive, cc.steps_taken, check_deadlock)
+        else:
+            prog.sim_step_plain(bb, cc.key, cc.step_i, cc.states, cc.alive,
+                                cc.steps_taken, check_deadlock)
+        outs.append((cc, bb))
+    (ck, bk), (cp, bp) = outs
+    for name in ("states", "alive", "steps_taken"):
+        need(torch.equal(getattr(ck, name), getattr(cp, name)),
+             f"K27 {name} differs from its plain version ({tag})")
+    for name in ("scratch", "packed", "take"):
+        need(torch.equal(getattr(bk, name), getattr(bp, name)),
+             f"K27 {name} differs from its plain version ({tag})")
+    mins = bk.scratch[SIM_MIN:SIM_MIN + prog.n_inv + 3].tolist()
+    for lane in {m for m in mins if m != SIM_NONE}:
+        need(torch.equal(bk.vact[lane], bp.vact[lane])
+             and torch.equal(bk.vold[lane], bp.vold[lane]),
+             f"K27 lane {lane}'s saved row or action ({tag})")
+    ops.sim_fold(prog, bk, ck, depth)
+    prog.sim_fold_plain(bp, cp, depth)
+    for a, b in zip(carry_to_reference(ck), carry_to_reference(cp)):
+        need(a.shape == b.shape and (a == b).all(),
+             f"K28 differs from its plain version ({tag})")
+    need(torch.equal(bk.go, bp.go) and torch.equal(bk.scratch, bp.scratch),
+         f"K28 go / reset scratch differ from the plain version ({tag})")
+    if record is not None:
+        n_live = int(c.alive.sum())
+
+        def setup():
+            return clone_carry(c), clone_buffers(base)
+
+        def k27(a):
+            ops.struct_sim_step(prog, a[1], a[0].key, a[0].step_i,
+                                a[0].states, a[0].alive, a[0].steps_taken,
+                                check_deadlock)
+
+        def k27_plain(a):
+            prog.sim_step_plain(a[1], a[0].key, a[0].step_i, a[0].states,
+                                a[0].alive, a[0].steps_taken, check_deadlock)
+
+        def setup28():  # K28's input: a carry and scratch K27 stepped
+            cc, bb = clone_carry(c), clone_buffers(base)
+            k27((cc, bb))
+            return cc, bb
+
+        record("struct_sim_step", tag, 0, cuda_ms(torch, k27, reps, setup),
+               cuda_ms(torch, k27_plain, 2, setup),
+               *gen_bound_ms(k27_bytes(prog, n_live, W),
+                             n_live * sim_lane_ops(prog)))
+        S = bk.scratch.numel()
+        record("sim_fold", tag, 0,
+               cuda_ms(torch, lambda a: ops.sim_fold(prog, a[1], a[0],
+                                                     depth), reps, setup28),
+               cuda_ms(torch, lambda a: prog.sim_fold_plain(a[1], a[0],
+                                                            depth), 2,
+                       setup28),
+               *gen_bound_ms(8 * S + 4 * prog.n_labels * 2 + 8 * prog.F
+                             + 64, S + prog.n_labels + prog.F))
+    return int(ck.viol)
+
+
+def k27_init_check(torch, ops, tag, prog, backend, W, seed):
+    """K27's kInit form against its plain version: the chosen Init states,
+    the scratch, the packed rows and take flags."""
+    import numpy as np
+
+    from torchtlc.sim import threefry
+    from torchtlc.sim.engine import sim_buffers, u32_tensor
+
+    inits = torch.from_numpy(np.ascontiguousarray(np.asarray(
+        backend.initial_vectors(), np.int32))).cuda()
+    key = u32_tensor(threefry.prng_key(seed), "cuda")
+    outs = []
+    for kernel in (True, False):
+        b = sim_buffers(prog, W, "cuda", True)
+        st = torch.zeros(W, prog.F, dtype=torch.int32, device="cuda")
+        if kernel:
+            ops.struct_sim_init(prog, b, key, inits, st)
+        else:
+            prog.sim_init_plain(b, key, inits, st)
+        outs.append((st, b))
+    (sk, bk), (sp, bp) = outs
+    need(torch.equal(sk, sp) and torch.equal(bk.scratch, bp.scratch)
+         and torch.equal(bk.packed, bp.packed)
+         and torch.equal(bk.take, bp.take),
+         f"K27's kInit form differs from its plain version ({tag})")
+
+
+def sim_run20(torch, ops, backend, W, D, cap, dl, seed):
+    """One walk on the card through make_sim_engine's init_fn and run_fn,
+    its launch counts reset just before and read just after: (carry, wall
+    of run_fn, launches, engine)."""
+    from torchtlc.sim.engine import make_sim_engine
+
+    eng = make_sim_engine(backend, W, D, fp_capacity=cap, check_deadlock=dl)
+    ops.reset_counts()
+    c = eng[0](seed)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    c = eng[1](c)
+    torch.cuda.synchronize()
+    return c, time.time() - t0, dict(ops.LAUNCHES), eng
+
+
+def phase_sim20(torch, ops, card, runs, tmp):
+    """Phase 20: the walks of the CPU tests' models and TwoPhase Model_sym
+    on the card through make_sim_engine (K27 and K28 every round, K2 and
+    the sorted insert feeding the sampling filter): every final carry's
+    leaves digested and pinned to the reference's CPU run.  K27 (kInit,
+    the step with the packed rows) and K28 bitwise against their plain
+    versions on walkers mid-walk - RaftReplication at round 5, a step
+    where SimViol's lanes break NotOne and one where SimDead's deadlock."""
+    from torchtlc.sim.engine import carry_to_reference
+
+    cfgs, models, backends = backends20(ops, tmp)
+    rows = {}
+    record = gen_recorder(rows)
+    out, lines = {}, []
+    for name, (key, dl, W, D, cap, seed) in SIM20.items():
+        b = backends[key, dl]
+        c, wall, launches, eng = sim_run20(torch, ops, b, W, D, cap, dl, seed)
+        leaves = carry_to_reference(c)
+        steps, gen, trans, distinct, viol, sha = SIM20_PINS[name]
+        got = (int(leaves[2]), int(leaves[5]), int(leaves[6]),
+               int(leaves[14]), int(leaves[8]))
+        need(got == (steps, gen, trans, distinct, viol),
+             f"{name}: (steps, generated, transitions, distinct, viol) "
+             f"{got}, the reference's {(steps, gen, trans, distinct, viol)}")
+        need(sim_sha(leaves) == sha,
+             f"{name}: the final carry differs from the reference's")
+        # kInit and a round each (run_fn stops at most GO_READ_EVERY - 1
+        # identity rounds after the walk's condition turns false)
+        need(launches["struct_sim_step"] == launches["sim_fold"] > steps,
+             f"{name}: K27 / K28 launches {launches}")
+        out[f"p20_{name}"] = {"launches": launches}
+        lines.append(f"{name} {steps} steps, {gen} generated, viol {viol} "
+                     f"({wall:.3f} s)")
+    checks = []
+    for name, key, dl, seed, k, want in (
+            ("RaftReplication/Model_1", "raft", False, 7, 5, 0),
+            ("SimViol", "viol", True, 5, 0, 100),
+            ("SimDead", "dead", True, 1, 3, 4)):
+        b = backends[key, dl]
+        prog = b.kernels.prog
+        k27_init_check(torch, ops, name, prog, b, 256, seed)
+        init_fn, _, step_fn = sim_run20(torch, ops, b, 256, 64, 1 << 16, dl,
+                                        seed)[3]
+        c = init_fn(seed)
+        for _ in range(k):
+            c = step_fn(c)
+        got = k27_k28_check(torch, ops, name, prog, c, dl, 64,
+                            record if key == "raft" else None)
+        need(got == want, f"{name}: round {k + 1} set violation {got}")
+        checks.append(f"{name} round {k + 1} (violation {got})")
+    print("phase 20 -simulate: every final carry = the reference's "
+          "(digests pinned): " + "; ".join(lines) + "; K27 (kInit, step, "
+          "packed rows) and K28 = plain on " + ", ".join(checks) +
+          f"; K27 {rows['struct_sim_step'][0]['ms']:.4f} ms, K28 "
+          f"{rows['sim_fold'][0]['ms']:.4f} ms at 256 walkers on {card}",
+          flush=True)
+    out.update(p20_rows=rows, p20_cfgs=cfgs, p20_models=models,
+               p20_backends=backends)
+    return out
+
+
+def phase_sim20_real(torch, ops, card, runs):
+    """Phase 20b: RR5T6 at full width - 65,536 walkers, depth 100, seed 7,
+    fp capacity 2^22, deadlock off - through torchtlc.sim.driver.run_sim:
+    the reference's counts; the execution-only wall and transitions per
+    second, the device's busy share (torch.profiler); K27 and K28 a round
+    at 65,536 walkers mid-walk against their plain versions, timed, with
+    their bounds."""
+    from torchtlc.sim.driver import run_sim
+
+    models, backends = runs["p20_models"], runs["p20_backends"]
+    rows = runs["p20_rows"]
+    record = gen_recorder(rows)
+    m = models["rr5t6"]
+    walls = []
+    out = {}
+    for i in range(2):
+        ops.reset_counts()
+        r = run_sim(m, **RR5T6_KW)
+        got = {k: getattr(r, k) for k in RR5T6_COUNTS}
+        need(got == RR5T6_COUNTS, f"RR5T6: {got}, the reference's "
+             f"{RR5T6_COUNTS}")
+        walls.append(round(r.wall_s, 4))
+        out[f"p20b_rr5t6_{i}"] = {"launches": dict(ops.LAUNCHES)}
+    r, traced, busy, by_name = device_busy(
+        torch, lambda: run_sim(m, **RR5T6_KW))
+    k27_s = sum(v for k, v in by_name.items() if "sim_step" in k)
+    k28_s = sum(v for k, v in by_name.items() if "sim_fold" in k)
+    b = backends["rr5t6", False]
+    prog = b.kernels.prog
+    from torchtlc.sim.engine import make_sim_engine
+
+    init_fn, _, step_fn = make_sim_engine(
+        b, 65536, 100, fp_capacity=1 << 22, check_deadlock=False)
+    c = init_fn(7)
+    for _ in range(10):
+        c = step_fn(c)
+    k27_k28_check(torch, ops, "RR5T6", prog, c, False, 100, record, reps=10)
+    k27, k28 = rows["struct_sim_step"][-1], rows["sim_fold"][-1]
+    print(f"phase 20b RR5T6 (Nodes n1..n5, MaxLog 2, MaxTerm 6; 65,536 "
+          f"walkers, depth 100, seed 7, fp 2^22): {RR5T6_COUNTS} (the "
+          f"reference's counts); execution walls {walls} s, "
+          f"{RR5T6_COUNTS['transitions'] / min(walls):,.0f} transitions/s; "
+          f"under torch.profiler: wall {traced:.3f} s, device busy "
+          f"{busy:.3f} s ({busy / traced:.1%}), K27 {k27_s:.3f} s, K28 "
+          f"{k28_s:.4f} s; a round at round 11: K27 {k27['ms']:.4f} ms "
+          f"(plain {k27['plain_ms']:.1f} ms, bound {k27['bound_ms']:.5f} ms "
+          f"by {k27['bound_by']}), K28 {k28['ms']:.4f} ms (plain "
+          f"{k28['plain_ms']:.2f} ms, bound {k28['bound_ms']:.7f} ms) on "
+          f"{card}", flush=True)
+    out["p20b_rr5t6"] = dict(walls=walls, busy=busy / traced,
+                             k27_ms=k27["ms"], k28_ms=k28["ms"])
+    return out
+
+
+SIM20_CMD = ["-simulate", "-walkers", "256", "-depth", "64"]
+TERM20 = SIM20_CMD + ["-nodeadlock", "-sim-seed", "11", "-checkpoint",
+                      "CK/s", "-checkpointevery", "4"]
+# phase 20c: tag -> (model key of models20, argv after the MC.cfg; CK: the
+# checkpoint directory)
+CMD20 = {
+    "rr5t6": ("rr5t6", ["-simulate", "-walkers", "65536", "-depth", "100",
+                        "-sim-seed", "7", "-fpcap", str(1 << 22),
+                        "-nodeadlock"]),
+    "viol": ("viol", ["-simulate", "-walkers", "4", "-depth", "8",
+                      "-sim-seed", "5", "-nodeadlock"]),
+    "rr5_deadlock": ("rr5", ["-simulate", "-walkers", "8192", "-depth",
+                             "100", "-sim-seed", "7"]),
+    "clean": ("sym", TERM20[:-4] + ["-checkpoint", "CK/c"]),
+    "term": ("sym", TERM20 + ["-faults", "sigterm@2"]),
+    "recover": ("sym", TERM20 + ["-recover"]),
+    "lasso": ("live", ["-simulate", "-walkers", "4", "-depth", "16"]),
+}
+# (exit code, SHA-256 of cmd17_masked) of `python -m jaxtlc.cli check
+# <MC.cfg> -noTool <argv> -workers cpu` in one process, in CMD20's order;
+# rr5t6: the reference's counts are checked instead (RR5T6_COUNTS)
+CMD20_TRANSCRIPT = {
+    'rr5t6': (0, None),
+    'viol': (12, '1144414854b0039a56c35d9b8ab1543a'
+        'a6d42009cc06a3e4d28549f2c726273b'),
+    'rr5_deadlock': (12, '08b06dae8a30c92fa9cc44a30eafe58f'
+        '4f7d76d789f0bb4a429a72369d3de297'),
+    'clean': (0, 'e956ad72f5bae8a3f763e2cdae5a4f42'
+        '327e88a9ceb4ff8f049fc4528417a572'),
+    'term': (75, 'd57aa31988eaed91df793069fd38f4dc'
+        '1f0ecdb67fb9100fe4473733ecf91cb8'),
+    'recover': (0, '8ae7fde46903c3953c6f0b3fecc79324'
+        'b9eab6ddc1695ed2b67146412f4f9367'),
+    'lasso': (13, 'ae8c152e88f1b073c4d24a71733bf7e2'
+        '5f082035906d83b1238eedafd26e21f8'),
+}
+
+
+def phase_command20(ops, card, runs, tmp):
+    """Phase 20c: `python -m torchtlc.cli check ... -simulate` in this
+    process - RR5T6 at 65,536 walkers (the reference's counts), SimViol's
+    exit-12 trace, RaftReplication with five servers and deadlock on
+    ("Deadlock reached" and its replayed trace, exit 12), Model_sym
+    clean, stopped by sigterm@2 (exit 75) and resumed with -recover to the
+    clean run's counts, and LiveTiny's lasso (exit 13): each exit code
+    and transcript equal to the reference's (digests pinned)."""
+    cfgs = runs["p20_cfgs"] if "p20_cfgs" in runs else models20(tmp)
+    ckdir = os.path.join(tmp, "ck20")
+    os.makedirs(ckdir)
+    out, lines, texts = {}, [], {}
+    for tag, (key, extra) in CMD20.items():
+        cfg = cfgs[key]
+        argv = [cfg, "-noTool"] + [x.replace("CK", ckdir) for x in extra]
+        rc, text, launches, wall = command_here(ops, argv)
+        rc_want, sha_want = CMD20_TRANSCRIPT[tag]
+        need(rc == rc_want, f"command {tag} exited {rc}")
+        if sha_want is None:  # RR5T6: the reference's counts
+            c = RR5T6_COUNTS
+            need(f"Simulation complete: 65536 walks, {c['transitions']} "
+                 f"transitions taken to depth {c['steps']}, "
+                 f"~{c['distinct']} distinct states sampled." in text
+                 and f"{c['generated']} states generated, {c['distinct']} "
+                 "distinct states found, 0 states left on queue." in text,
+                 f"command {tag}: the counts differ from the reference's")
+        else:
+            sha = hashlib.sha256(cmd17_masked(text, cfg, ckdir).encode()
+                                 ).hexdigest()
+            need(sha == sha_want, f"command {tag}: the transcript differs "
+                 "from the reference's")
+        need(launches["struct_sim_step"] > 0 and launches["sim_fold"] > 0
+             or tag == "recover", f"command {tag}: K27 / K28 never ran")
+        texts[tag] = text
+        out[f"p20c_{tag}"] = {"launches": launches}
+        lines.append(f"{tag} exit {rc} ({wall:.2f} s)")
+    need("Deadlock reached" in texts["rr5_deadlock"]
+         and "State 1: <Initial predicate>" in texts["rr5_deadlock"],
+         "RR5 with deadlock: no replayed deadlock trace")
+    need(final_counts(texts["recover"])[:2] == final_counts(
+        texts["clean"])[:2], "the resumed walk's counts differ from the "
+         "uninterrupted run's")
+    print("phase 20c commands, transcripts = the reference's: "
+          + "; ".join(lines) + f"; the resumed walk = the clean one on "
+          f"{card}", flush=True)
     return out
 
 

@@ -178,13 +178,21 @@ FLAG_VALUES = {
 # their ids and hold the run to the reference's exit code and transcript
 # (-narrow, -symmetry and -por are ignored on KubeAPI specs, as the
 # reference ignores them; the clean run prints no trace for
-# -traceExpressions to annotate)
-PORTED = ("narrow", "traceExpressions", "symmetry", "por")
+# -traceExpressions to annotate; -simulate runs on struct specs only, so
+# on the KubeAPI pair both packages exit 1 with the same error)
+PORTED = ("narrow", "traceExpressions", "symmetry", "por", "simulate")
 
 
 @pytest.mark.parametrize("dest", sorted(set(UNPORTED) | set(PORTED)))
 def test_unported_flag_refused(model_dir, capsys, dest):
     argv = ["check", str(model_dir / "MC.cfg")] + FLAG_VALUES[dest]
+    if dest == "simulate":
+        rc = main(argv + ["-workers", "cpu"])
+        err = capsys.readouterr().err
+        ref_rc = j_main(argv)
+        assert rc == ref_rc == 1 and err == capsys.readouterr().err
+        assert "-simulate requires the structural frontend" in err
+        return
     if dest in PORTED:
         assert dest not in UNPORTED
         rc, out = _run(main, argv + ["-noTool"] + SMALL, capsys)

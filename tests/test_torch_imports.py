@@ -82,6 +82,15 @@ def test_every_module_imports_with_jax_blocked():
     assert int(out.stdout.strip()) >= 16  # every module of the slices
 
 
+def test_sim_package_is_checked():
+    """The simulation plane (torchtlc/sim) is among the files the import
+    checks above walk, every module of it."""
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in ("__init__", "threefry", "engine", "replay", "driver",
+                "liveness"):
+        assert os.path.join("torchtlc", "sim", f"{mod}.py") in names
+
+
 def test_absint_copy_is_the_reference_line_for_line():
     """torchtlc/analysis/absint.py is jaxtlc/analysis/absint.py with a note
     added to its docstring and nothing else (its BoundReport digest is the

@@ -131,11 +131,12 @@ def test_generic_subset_spec_under_auto_exits_2(spec, capsys):
 
 
 # item None: the flag runs since it was ported (-narrow, -traceExpressions:
-# here with a missing expression file; -symmetry, -por); its case keeps its
-# id and holds the run to the reference's exit code and transcript
+# here with a missing expression file; -symmetry, -por; -simulate, whose
+# walks deadlock too); its case keeps its id and holds the run to the
+# reference's exit code and transcript
 STRUCT_REFUSED = [
     (["-narrow"], None), (["-symmetry"], None),
-    (["-por"], None), (["-simulate"], "item 13"),
+    (["-por"], None), (["-simulate"], None),
     (["-infer"], "item 13"), (["-artifact-cache", "x"], "item 13"),
     (["-traceExpressions", "x.txt"], None),
 ]

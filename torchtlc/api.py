@@ -52,6 +52,14 @@ its unreduced-symmetry nudge under -symmetry.  The KubeAPI and generic
 paths ignore both, as the reference does (the journal's params and the
 resume command still carry them).
 
+``-simulate`` on a struct spec runs ``_run_sim_struct`` (jaxtlc/api.py:
+1187-1420) instead of the exhaustive check: random walks through the
+struct backend's kernels K27 and K28 (torchtlc.sim), a violating lane
+replayed from its seed into the exit-12 trace, lassos on the walks for
+plain ``P ~> Q`` properties (exit 13), checkpoints, SIGTERM and
+``-recover`` (exit 75); on any other spec it exits 1, as the reference's
+does.
+
 Before the check each path runs the reference's preflight in its lite
 mode (torchtlc.analysis: the struct spec lints, the unreduced-symmetry
 nudge, the counter-width arithmetic); its findings print as TLC warning
@@ -103,6 +111,12 @@ def _run_check(args) -> int:
                                 frontend=args.frontend)
     except (ValueError, OSError) as e:
         print(f"Error: {e}", file=sys.stderr)
+        return 1
+    if args.simulate and not isinstance(spec, StructRunSpec):
+        # the simulation tier rides the struct frontend (jaxtlc/api.py:
+        # 219-226); -frontend struct runs any spec
+        print("Error: -simulate requires the structural frontend "
+              "(re-run with -frontend struct)", file=sys.stderr)
         return 1
     if isinstance(spec, GenRunSpec):
         return _run_check_gen(args, spec)
@@ -440,9 +454,12 @@ def _deferred(args) -> bool:
     return resolve_deferred(args.deferredinv, args.chunk)
 
 
-def _open_journal(args, workload: str, device: str, params: dict):
+def _open_journal(args, workload: str, device: str, params: dict,
+                  engine: str = None):
     """The run journal: -journal PATH, else PATH.journal.jsonl beside a
-    -checkpoint, else in memory.  A -recover run appends to it."""
+    -checkpoint, else in memory.  A -recover run appends to it.  `engine`
+    names the run_start's engine (default: sharded or single, from the
+    params)."""
     from .obs.journal import RunJournal
 
     path = args.journal or (
@@ -453,7 +470,8 @@ def _open_journal(args, workload: str, device: str, params: dict):
         j.event("run_resume", version=__version__, path=path)
     else:
         j.event("run_start", version=__version__, workload=workload,
-                engine="sharded" if params.get("sharded") else "single",
+                engine=engine or ("sharded" if params.get("sharded")
+                                  else "single"),
                 device=device, params=params)
     args._journal = j
     return j
@@ -513,6 +531,12 @@ def _resume_command(args) -> str:
         parts += ["-por" if args.por else "-no-por"]
     if args.coverage:
         parts += ["-coverage"]  # the covered carry is a different layout
+    if args.simulate:
+        # a walk is a pure function of (seed, walkers, depth): the resume
+        # must repeat all three or the cursor meta mismatches
+        parts += ["-simulate", "-depth", str(args.depth),
+                  "-walkers", str(args.walkers),
+                  "-sim-seed", str(args.simseed)]
     if args.workers == "cpu":
         parts += ["-workers", "cpu"]
     if args.frontend != "auto":
@@ -642,6 +666,8 @@ def _run_check_struct(args, spec) -> int:
     if args.recover and not args.checkpoint:
         print("Error: -recover requires -checkpoint PATH", file=sys.stderr)
         return 1
+    if args.simulate:
+        return _run_sim_struct(args, spec)
     unsupported = [flag for flag, on in (
         ("-mutation", args.mutation),
         ("-fairness wf_process", args.fairness == "wf_process"),
@@ -833,6 +859,226 @@ def _run_check_struct(args, spec) -> int:
     _finish_journal(args, r=r, sup=sup, wall_s=time.time() - t0,
                     verdict="liveness_violation" if liveness_violated
                     else None)
+    if violated:
+        return 12
+    return 13 if liveness_violated else 0
+
+
+def _run_sim_struct(args, spec) -> int:
+    """The simulation tier (jaxtlc/api.py:1187-1420 _run_sim_struct): W
+    random walks of depth N through the struct backend's walk kernels
+    (K27, K28), supervised (segments, checkpoints, SIGTERM, -recover),
+    with seed-exact host replay of a violation's lane into the exit-12
+    trace and plain ``P ~> Q`` PROPERTY lines checked for lassos on the
+    sampled walks.  The same banner, journal, preflight and trace plumbing
+    as the exhaustive struct path; the success message says smoke, not
+    "model checking completed"."""
+    from .resil.faults import FaultPlan
+    from .resil.supervisor import EXIT_INTERRUPTED
+    from .sim.driver import run_sim_supervised
+    from .sim.liveness import expressible as _live_expressible
+    from .sim.replay import replay_lane, walk_trace
+    from .struct import oracle as so
+    from .struct.cache import get_backend
+
+    sm = spec.structmodel
+    unsupported = [
+        flag for flag, on in (
+            ("-sharded", args.sharded),
+            ("-pipeline", args.pipeline),
+            ("-liveness", args.liveness),
+            ("-coverage", args.coverage),
+            ("-narrow", args.narrow),
+            ("-phase-timing", args.phasetiming),
+            ("-mutation", args.mutation),
+            ("-symmetry", args.symmetry),
+            ("-por", args.por),
+            ("-fpset DiskFPSet", args.fpset != "JaxFPSet"),
+        ) if on
+    ]
+    if unsupported:
+        print(f"Error: {', '.join(unsupported)} not supported with "
+              "-simulate (walks carry no frontier/liveness machinery)",
+              file=sys.stderr)
+        return 1
+    device = _device(args)
+    try:
+        device_name = _device_name(device)
+    except RuntimeError as e:  # no card and no -workers cpu
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    log = TLCLog(tool_mode=not args.noTool)
+    log.version(__version__)
+    log.banner(spec.fp_index, DEFAULT_SEED, spec.workers, device_name)
+    log.sany(*_sany_inputs(args.config, spec.spec_name))
+    log.starting()
+    log.computing_init()
+    _open_journal(
+        args, workload=spec.spec_name, engine="sim", device=device_name,
+        params=dict(walkers=args.walkers, depth=args.depth,
+                    sim_seed=args.simseed, fp_capacity=args.fpcap,
+                    frontend="struct"))
+    j = getattr(args, "_journal", None)
+    # the reference journals an artifact-cache bypass here when a store is
+    # configured; the port has no artifact cache yet (its flags exit 2)
+
+    def struct_preflight():
+        from .analysis.preflight import preflight_struct
+
+        return preflight_struct(
+            sm, fp_capacity=args.fpcap, chunk=args.chunk,
+            queue_capacity=args.qcap, check_deadlock=spec.check_deadlock,
+            symmetry=_symmetry(args))
+
+    rc = _preflight_gate(args, log, struct_preflight)
+    if rc is not None:
+        return rc
+    log.msg(1000, f"Running random simulation: {args.walkers} walks "
+                  f"to depth {args.depth} (seed {args.simseed}).")
+    live_props = []
+    for name in spec.properties:
+        # plain P ~> Q is checked on the sampled behaviors after the walk;
+        # shapes the trace checker cannot express keep the skip notice
+        skip = _live_expressible(sm.properties[name])
+        if skip is not None:
+            log.msg(1000, f"Temporal property {name} skipped: {skip}.",
+                    severity=1)
+        else:
+            live_props.append(name)
+    t0 = time.time()
+    resume_cmd = _resume_command(args)
+
+    def on_event(kind, info):
+        from .obs.schema import SCHEMA_VERSION
+        from .obs.views import render_tlc_event
+
+        if j is not None:
+            ev = j.event(kind, **info)
+        else:
+            ev = {"v": SCHEMA_VERSION, "t": time.time(), "event": kind,
+                  **info}
+        render_tlc_event(log, ev, resume_cmd=resume_cmd)
+
+    try:
+        sup = run_sim_supervised(
+            sm, seed=args.simseed, walkers=args.walkers, depth=args.depth,
+            fp_capacity=args.fpcap, check_deadlock=spec.check_deadlock,
+            ckpt_path=args.checkpoint or None,
+            ckpt_every=args.checkpointevery, resume=args.recover,
+            faults=FaultPlan.parse(args.faults) if args.faults else None,
+            on_event=on_event, device=device)
+    except (FileNotFoundError, ValueError) as e:
+        print(f"Error: {e}", file=sys.stderr)
+        _finish_journal(args)
+        return 1
+    r = sup.result
+    log.init_done(len(sm.system.initial_states()))
+    if j is not None:
+        j.event("sim", phase="summary", walkers=r.walkers, depth=r.depth,
+                steps=r.steps, transitions=r.transitions, seed=r.seed,
+                distinct_est=r.distinct, fp_saturated=r.fp_saturated,
+                halted=r.halted,
+                depth_hist=[list(p) for p in r.depth_hist],
+                violation=r.violation)
+    if sup.interrupted:
+        if j is not None:
+            j.event("final", verdict="interrupted", generated=r.generated,
+                    distinct=r.distinct, depth=r.steps, queue=0,
+                    wall_s=round(time.time() - t0, 6), interrupted=True)
+        _finish_journal(args)
+        return EXIT_INTERRUPTED
+    violated = r.violation != 0
+    if violated:
+        log.msg(2110 if r.violation >= 100 else 1000, r.violation_name,
+                severity=1)
+        # seed-exact replay: the lane's walk is the counterexample,
+        # re-derived from (seed, lane) alone on the run's device (K17 and
+        # K18 on one row, not the walk's K27)
+        backend = get_backend(sm, spec.check_deadlock)
+        walk = replay_lane(backend, r.seed, r.violation_lane,
+                           max(r.violation_step, 0),
+                           check_deadlock=spec.check_deadlock,
+                           device=device)
+        if j is not None:
+            j.event("sim", phase="replay", walkers=r.walkers,
+                    depth=r.depth, steps=len(walk.fields) - 1,
+                    transitions=len(walk.fields) - 1,
+                    lane=r.violation_lane, seed=r.seed,
+                    violation=walk.violation)
+        if walk.violation != r.violation:
+            log.msg(1000, "Violation was not reproducible in host "
+                          "replay", severity=1)
+        else:
+            for i, (st, act) in enumerate(walk_trace(walk, backend.cdc),
+                                          start=1):
+                head = (f"State {i}: <Initial predicate>" if act is None
+                        else f"State {i}: <{act}>")
+                log.msg(2217, head + "\n" + so.state_to_tla(sm.system, st),
+                        severity=1)
+    else:
+        sat = " (sampling filter saturated: estimate is a floor)" \
+            if r.fp_saturated else ""
+        log.msg(1000, f"Simulation complete: {r.walkers} walks, "
+                      f"{r.transitions} transitions taken to depth "
+                      f"{r.steps}, ~{r.distinct} distinct states "
+                      f"sampled{sat}.")
+        log.msg(1000, "No violation found in the sampled behaviors "
+                      "(simulation is NOT exhaustive - this is a "
+                      "smoke verdict).")
+    liveness_violated = False
+    if not violated and live_props:
+        # lassos on the walks, re-derived from the seed (a lane is a pure
+        # function of (seed, lane), as the safety trace's replay)
+        from .sim.liveness import check_walk_leads_to, walk_trajectories
+
+        trajs = walk_trajectories(sm, args.walkers, args.depth,
+                                  args.simseed,
+                                  check_deadlock=spec.check_deadlock,
+                                  device=device)
+        for name in live_props:
+            ast = sm.properties[name]
+            res = check_walk_leads_to(sm, ast[1], ast[2], name, trajs)
+            if j is not None:
+                j.event("sim", phase="liveness", walkers=args.walkers,
+                        depth=args.depth, steps=r.steps,
+                        transitions=r.transitions, property=name,
+                        lassos=res.lassos, holds=res.holds)
+            if res.holds:
+                log.msg(1000, f"Temporal property {name}: no violating "
+                              f"lasso in the sampled behaviors "
+                              f"({res.lassos} lasso(s) examined; sampling "
+                              f"is NOT exhaustive).")
+                continue
+            liveness_violated = True
+            log.msg(2116, f"Temporal properties were violated: {name}",
+                    severity=1)
+            idx = 1
+            for st in res.prefix:
+                log.trace_state(idx, None, so.state_to_tla(sm.system, st))
+                idx += 1
+            log.msg(1000, "-- The following states form a cycle "
+                          "(back to the first of them) --")
+            for st in res.cycle:
+                log.trace_state(idx, None, so.state_to_tla(sm.system, st))
+                idx += 1
+    log.progress(r.steps, r.generated, r.distinct, 0)
+    log.final_counts(r.generated, r.distinct, 0)
+    log.finished(int((time.time() - t0) * 1000))
+    if j is not None:
+        if violated:
+            j.event("violation", code=int(r.violation),
+                    name=r.violation_name)
+        elif liveness_violated:
+            j.event("violation", code=13,
+                    name="Temporal properties were violated")
+        j.event("final",
+                verdict=("violation" if violated else
+                         "liveness_violation" if liveness_violated
+                         else "ok"),
+                generated=r.generated, distinct=r.distinct, depth=r.steps,
+                queue=0, wall_s=round(time.time() - t0, 6),
+                interrupted=False)
+    _finish_journal(args)
     if violated:
         return 12
     return 13 if liveness_violated else 0

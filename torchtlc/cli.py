@@ -6,6 +6,7 @@ jaxtlc/cli.py on the KubeAPI path.
         [-checkpoint PATH [-checkpointevery N] [-recover]] \\
         [-no-auto-grow] [-spill | -no-spill] [-coverage] [-pipeline] \\
         [-sharded N [-routefactor F]] [-symmetry] [-por]
+        [-simulate [-walkers W] [-depth N] [-sim-seed S]]
         [-liveness [-liveness-host]
         [-fairness wf_next|wf_process]] [-noTool] ...
 
@@ -15,7 +16,8 @@ runs the exhaustive check on the card - on the CPU only with -workers cpu
 on its hand-written path; a spec inside the PlusCal-translation subset
 (RaftElection, Reconciler, ServiceMesh) on the generic frontend, as does
 any spec with -frontend gen; a spec outside it (TwoPhase, RaftReplication)
-on the structural frontend, as does any spec with -frontend struct.  Exit
+on the structural frontend, as does any spec with -frontend struct;
+-simulate runs random walks on a struct spec instead.  Exit
 codes: 0 no error, 12
 safety violation (with the counterexample trace), 13 temporal property
 violated (with the lasso), 75 interrupted or
@@ -36,8 +38,6 @@ from .api import _run_check
 UNPORTED = {
     "fpset": ("JaxFPSet", "-fpset DiskFPSet (the native disk tier) is "
               "ported with the capacity tiers (ROADMAP Queue A item 13)"),
-    "simulate": (False, "-simulate (random-walk simulation) is ported with "
-                 "the simulation plane (ROADMAP Queue A item 13)"),
     "infer": (False, "-infer (invariant inference) is ported with the "
               "inference plane (ROADMAP Queue A item 13)"),
     "serve": (0, "-serve (the live monitor server) is ported with the "
@@ -183,10 +183,25 @@ def _parser() -> argparse.ArgumentParser:
                         "specs; a checkpoint records the mode")
     c.add_argument("-no-por", dest="por", action="store_const",
                    const=False, help="full interleaving expansion")
-    c.add_argument("-simulate", action="store_true")
-    c.add_argument("-depth", type=int, default=100)
-    c.add_argument("-walkers", type=int, default=256)
-    c.add_argument("-sim-seed", dest="simseed", type=int, default=0)
+    c.add_argument("-simulate", action="store_true",
+                   help="randomized simulation instead of exhaustive BFS "
+                        "(struct specs; -frontend struct runs any spec): "
+                        "-walkers W random walks of depth -depth N on the "
+                        "card (kernels K27, K28), each lane a pure "
+                        "function of (-sim-seed, lane) - a violation "
+                        "replays from the seed and renders the exit-12 "
+                        "trace, plain P ~> Q properties are checked for "
+                        "lassos on the walks.  A clean result is a smoke "
+                        "verdict (sampled, not exhaustive).  Composes "
+                        "with -checkpoint/-recover and -faults")
+    c.add_argument("-depth", type=int, default=100,
+                   help="simulation walk depth (transitions per walker; "
+                        "TLC's -depth)")
+    c.add_argument("-walkers", type=int, default=256,
+                   help="simulation walker lanes, one thread each")
+    c.add_argument("-sim-seed", dest="simseed", type=int, default=0,
+                   help="simulation run seed: every walk (and any "
+                        "violation it finds) is a pure function of it")
     c.add_argument("-infer", action="store_true")
     c.add_argument("-infer-budget", dest="inferbudget", type=int, default=64)
     c.add_argument("-liveness", action="store_true",
@@ -229,10 +244,6 @@ def unported(args) -> list:
     """The errors of the flags given for paths not ported yet."""
     errs = [msg for dest, (off, msg) in UNPORTED.items()
             if getattr(args, dest) != off]
-    if not args.simulate and (args.depth, args.walkers, args.simseed) != (
-            100, 256, 0):
-        errs.append(UNPORTED["simulate"][1].replace(
-            "-simulate", "-depth/-walkers/-sim-seed"))
     if args.inferbudget != 64:
         errs.append(UNPORTED["infer"][1].replace("-infer", "-infer-budget"))
     return errs

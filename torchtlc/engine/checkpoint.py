@@ -6,7 +6,9 @@ leaves ``leaf_i`` - in the reference carry's leaf order and dtypes
 staged block, the observability ring, in spill mode ``spill_hits`` and
 with the coverage plane ``cov_counts``; for the sharded engine's
 ShardCarry, interop.SHARD_LEAF_ORDER with every leaf's leading shard axis
-and the meta's ``devices``) - plus a JSON
+and the meta's ``devices``; for the random walk's SimCarry its own
+protocol, sim.engine's ``checkpoint_leaves`` in the order of the
+reference's pytree leaves) - plus a JSON
 ``__meta__`` with the engine geometry, the ModelConfig stanza and a CRC32
 manifest of every leaf, written to a temporary file, fsync'd and renamed.
 So a checkpoint written by either package loads in the other, and a
@@ -110,6 +112,8 @@ def _leaves(carry, cfg=None, deferred: bool = False, codec=None) -> list:
     if isinstance(carry, ShardCarry):
         d = shard_carry_to_numpy(carry)
         return [d[k] for k in SHARD_LEAF_ORDER if k in d]
+    if hasattr(carry, "checkpoint_leaves"):  # sim.engine.SimCarry
+        return carry.checkpoint_leaves()
     return [np.asarray(carry[k]) for k in sorted(carry)]
 
 
@@ -121,6 +125,8 @@ def _leaf_specs(carry, cfg=None, deferred: bool = False,
         return [(k, tuple(getattr(carry, k).shape), np.dtype(dt))
                 for k, dt in SHARD_DTYPES.items()
                 if getattr(carry, k) is not None]
+    if hasattr(carry, "checkpoint_specs"):
+        return carry.checkpoint_specs()
     if not isinstance(carry, EngineCarry):
         return [(k, np.shape(carry[k]), np.asarray(carry[k]).dtype)
                 for k in sorted(carry)]
@@ -224,6 +230,8 @@ def load_checkpoint(path: str, template, cfg=None, codec=None):
     if isinstance(template, ShardCarry):
         return meta, shard_carry_from_numpy(named,
                                             device=template.queue.device)
+    if hasattr(template, "from_checkpoint"):
+        return meta, template.from_checkpoint(named)
     return meta, named
 
 

@@ -13,8 +13,10 @@ K17 of a struct spec or K19 of a generic one, each with K18 and K21
 include) and K23 (struct_cert.cuh, which struct_inv_rows.cuh includes:
 the runtime certificate of a narrowed struct spec) and K24-K26
 (struct_reduce.cuh, which emitted_sharded.cuh includes: the symmetry and
-POR reduction), K20 of a generic spec's temporal operands and K22 of a struct
-spec's coverage conditions: the C++ that torchtlc.struct.emit prints
+POR reduction) and, in a struct spec's, K27 and K28 (emitted_sim.cuh with
+threefry.cuh, which struct_expand.cuh includes: the random walk's round),
+K20 of a generic spec's temporal operands and K22 of a struct spec's
+coverage conditions: the C++ that torchtlc.struct.emit prints
 around a hand-written template (struct_expand.cuh, gen_expand.cuh,
 gen_masks.cuh, struct_cov.cuh) goes to
 ``_build/struct/<digest>/spec.cu``, where the digest covers the text,
@@ -96,7 +98,8 @@ def build(ptxas_report: bool = False) -> BuildInfo:
 STRUCT_TEMPLATES = ("common.cuh", "struct_prelude.cuh", "struct_codec.cuh",
                     "struct_expand.cuh", "gen_expand.cuh", "gen_masks.cuh",
                     "struct_inv_rows.cuh", "emitted_sharded.cuh",
-                    "struct_cov.cuh", "struct_cert.cuh", "struct_reduce.cuh")
+                    "struct_cov.cuh", "struct_cert.cuh", "struct_reduce.cuh",
+                    "emitted_sim.cuh", "threefry.cuh")
 HOST_FLAGS = ["-x", "c++", "-O1", "-std=c++17", "-shared", "-fPIC"]
 
 

@@ -27,7 +27,8 @@ KERNELS = ("expand", "fp64", "fpset_key", "fpset_probe", "fpset_claim",
            "survive_sweep", "struct_expand", "struct_inv_rows",
            "gen_expand", "gen_state_masks", "emitted_expand_sharded",
            "struct_cov_count", "struct_cert_check", "struct_canon",
-           "struct_orbit_check", "struct_por_keep")
+           "struct_orbit_check", "struct_por_keep", "struct_sim_step",
+           "sim_fold")
 LAUNCHES = {name: 0 for name in KERNELS}
 # K23's certificate runs standalone (its own wrapper) or inside K17 (kCert)
 # and K18: each launch that evaluates it adds one to
@@ -822,9 +823,10 @@ def survive_sweep(src: torch.Tensor, dst: torch.Tensor, D: int,
 
 # ---------------------------------------------------------------------------
 # emitted kernels, one library per text: K17 struct_expand of a struct
-# spec or K19 gen_expand of a generic spec, each with K18 struct_inv_rows
-# and K21 emitted_expand_sharded; K20 gen_state_masks of a generic spec's
-# temporal operands
+# spec (with the random walk's K27 struct_sim_step and K28 sim_fold) or K19
+# gen_expand of a generic spec, each with K18 struct_inv_rows and K21
+# emitted_expand_sharded; K20 gen_state_masks of a generic spec's temporal
+# operands
 # ---------------------------------------------------------------------------
 
 _EMITTED_LIBS = {}
@@ -869,6 +871,10 @@ def struct_lib(prog):
     return _emitted_lib(prog.text, "tt_struct_dims", (
         ("tt_struct_expand", [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                               _P, _P]),
+        ("tt_struct_sim_step", [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+                                _I, _P, _P, _P, _P, _P, _P]),
+        ("tt_sim_fold", [_I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P, _P, _P, _P, _P]),
         *_ROWS_SIGNATURES),
         (prog.F, prog.W, prog.L, prog.n_inv, prog.n_labels))
 
@@ -1061,6 +1067,101 @@ def struct_por_keep(prog, valid: torch.Tensor) -> torch.Tensor:
         _ptr(valid), B, _ptr(keep), _stream()))
     REDUCE_LAUNCHES["struct_por_keep"]["struct_por_keep"] += 1
     return keep.bool()
+
+
+def _sim_buffers(prog, buf, W: int) -> None:
+    """Check the walk's scratch buffers (sim.engine.SimBuffers) of W
+    walkers."""
+    from ..sim.engine import scratch_words
+
+    _need(buf.go, "go", torch.int32, (1,))
+    _need(buf.scratch, "scratch", torch.int32,
+          (scratch_words(prog.n_inv, prog.n_labels),))
+    _need(buf.vold, "vold", torch.int32, (W, prog.F))
+    _need(buf.vact, "vact", torch.int32, (W,))
+    if buf.packed is not None:
+        _need(buf.packed, "packed", torch.int32, (W, prog.W))
+        _need(buf.take, "take", torch.bool, (W,))
+
+
+def _opt(t):
+    return None if t is None else _ptr(t)
+
+
+def struct_sim_init(prog, buf, key: torch.Tensor, inits: torch.Tensor,
+                    states: torch.Tensor) -> None:
+    """K27's kInit form, round 0 of the walk: each of the W rows of states
+    [W, F] int32 becomes Init vector bits % n0 of inits [n0, F] int32
+    (bits the threefry draw of (lane, 0) under key [2] uint32); its
+    invariant classes go to buf.scratch, its packed row and a set take flag
+    to buf.packed / buf.take when the buffers carry them; see
+    struct.backend.StructProgram.sim_init_plain."""
+    W, n0 = states.shape[0], inits.shape[0]
+    _need(states, "states", torch.int32, (W, prog.F))
+    _need(inits, "inits", torch.int32, (n0, prog.F))
+    _need(key, "key", torch.uint32, (2,))
+    if n0 < 1:
+        raise ValueError("struct_sim_init: no Init vector")
+    _sim_buffers(prog, buf, W)
+    dev = states.device
+    _launched("struct_sim_step", struct_lib(prog).tt_struct_sim_step(
+        _ptr(prog.constants(dev)), _ptr(buf.go), _ptr(key), None,
+        _ptr(inits), n0, _ptr(states), None, None, W, 1, 0,
+        _opt(buf.packed), _opt(buf.take), _ptr(buf.vold), _ptr(buf.vact),
+        _ptr(buf.scratch), _stream()))
+
+
+def struct_sim_step(prog, buf, key: torch.Tensor, step_i: torch.Tensor,
+                    states: torch.Tensor, alive: torch.Tensor,
+                    steps_taken: torch.Tensor, check_deadlock: bool) -> None:
+    """K27, one transition round of the W walkers (a no-op while buf.go is
+    0): states [W, F] int32, alive [W] bool and steps_taken [W] int32 are
+    updated in place; the block partials go to buf.scratch, the old rows
+    and actions of the violating lanes to buf.vold / buf.vact, the packed
+    chosen rows and take flags to buf.packed / buf.take when the buffers
+    carry them.  key [2] uint32, step_i 0-dim int32 (the round is step_i +
+    1).  See struct.backend.StructProgram.sim_step_plain."""
+    W = states.shape[0]
+    _need(states, "states", torch.int32, (W, prog.F))
+    _need(alive, "alive", torch.bool, (W,))
+    _need(steps_taken, "steps_taken", torch.int32, (W,))
+    _need(key, "key", torch.uint32, (2,))
+    _need(step_i, "step_i", torch.int32, ())
+    _sim_buffers(prog, buf, W)
+    dev = states.device
+    _launched("struct_sim_step", struct_lib(prog).tt_struct_sim_step(
+        _ptr(prog.constants(dev)), _ptr(buf.go), _ptr(key), _ptr(step_i),
+        None, 0, _ptr(states), _ptr(alive), _ptr(steps_taken), W, 0,
+        int(bool(check_deadlock)), _opt(buf.packed), _opt(buf.take),
+        _ptr(buf.vold), _ptr(buf.vact), _ptr(buf.scratch), _stream()))
+
+
+def sim_fold(prog, buf, carry, depth: int, init: bool = False) -> None:
+    """K28, one block: fold K27's partials in buf.scratch into the walk
+    carry (sim.engine.SimCarry) in place - the first-wins violation, the
+    uint32 counters (generated, transitions 0-dim, act_taken [n_labels]),
+    step_i - reset the scratch and write buf.go; a no-op while buf.go is 0
+    unless `init` (round 0: no counters, step_i stays 0, no action).  See
+    struct.backend.StructProgram.sim_fold_plain."""
+    from ..struct.backend import VIOL_INVARIANT_BASE
+
+    W = carry.states.shape[0]
+    _need(carry.states, "states", torch.int32, (W, prog.F))
+    for name in ("step_i", "viol", "viol_lane", "viol_step", "viol_action"):
+        _need(getattr(carry, name), name, torch.int32, ())
+    _need(carry.viol_state, "viol_state", torch.int32, (prog.F,))
+    _need(carry.generated, "generated", torch.uint32, ())
+    _need(carry.transitions, "transitions", torch.uint32, ())
+    _need(carry.act_taken, "act_taken", torch.uint32, (prog.n_labels,))
+    _sim_buffers(prog, buf, W)
+    _launched("sim_fold", struct_lib(prog).tt_sim_fold(
+        int(bool(init)), _ptr(buf.go), _ptr(buf.scratch), int(depth),
+        VIOL_INVARIANT_BASE, _ptr(carry.step_i), _ptr(carry.viol),
+        _ptr(carry.viol_lane), _ptr(carry.viol_step),
+        _ptr(carry.viol_state), _ptr(carry.viol_action),
+        _ptr(carry.generated), _ptr(carry.transitions),
+        _ptr(carry.act_taken), _ptr(carry.states), _ptr(buf.vold),
+        _ptr(buf.vact), _stream()))
 
 
 def gen_lib(prog):

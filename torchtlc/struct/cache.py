@@ -23,13 +23,13 @@ _BACKENDS: OrderedDict = OrderedDict()
 _BOUNDS: OrderedDict = OrderedDict()
 
 
-def _memo(memo: OrderedDict, key, build):
+def _memo(memo: OrderedDict, key, build, cap: int = MEMO_CAP):
     """memo[key], built by build() at the first miss; least recently used
-    entries beyond MEMO_CAP go."""
+    entries beyond `cap` go."""
     hit = memo.get(key)
     if hit is None:
         hit = memo[key] = build()
-        while len(memo) > MEMO_CAP:
+        while len(memo) > cap:
             memo.popitem(last=False)
     memo.move_to_end(key)
     return hit
