@@ -113,7 +113,19 @@ round violating and one deadlocking (20); RaftReplication with five
 servers and MaxTerm 6 at 65,536 walkers to depth 100 - the reference's
 counts, the wall, transitions per second, the busy share, K27 and K28 a
 round (20b); and the commands: that walk, SimViol's exit-12 trace,
-five servers' deadlock, SIGTERM and -recover, a lasso (20c).  It checks every
+five servers' deadlock, SIGTERM and -recover, a lasso (20c); then -infer
+behind kernels K29 (the predicates x states filter, one thread a row; its
+matrix and fold forms) and K30 (the certify pass, one thread a row): the
+CPU tests' engines on the card - TwoPhase (32), RaftElection (64 and its
+whole pool of 1,446), RaftReplication (64 and 157) - each report pinned
+to the reference's CPU run, K29 and K30 bitwise against their plain
+versions on each exact evidence set (21); RR5T6 with its whole pool of 419
+on sampled evidence at 65,536 walkers to depth 100 - the reference's
+report, the walls of the build, walk, filter and certify, predicate
+evaluations a second, the busy share, K29 and K30 over the union of the
+sampled rounds (21b); and the commands: TwoPhase, RaftElection's whole
+pool, that walk, a refuted cfg invariant (exit 12) and the refusals
+(21c).  It checks every
 result against its pinned value, holds each kernel bitwise against its
 plain torch version on the card, and prints:
 
@@ -128,8 +140,9 @@ plain torch version on the card, and prints:
   command runs of phases 15-15c, the sharded emitted runs and commands
   of phases 16-16c, the covered, pipelined, spilling and command runs
   of phases 17-17d, the narrowed engine and command runs of phases
-  18-18c, the reduced engine and command runs of phases 19-19c and the
-  walks and commands of phases 20-20c;
+  18-18c, the reduced engine and command runs of phases 19-19c, the
+  walks and commands of phases 20-20c and the inference runs and
+  commands of phases 21-21c;
   each path's counts are reset just before it and read just after),
   its error against the plain
   version, its time, the plain version's time, its bound on this card
@@ -150,7 +163,8 @@ generic slice, ``--phases 16,16b,16c`` the sharded engine over the
 emitted backends, ``--phases 17,17b,17c,17d`` the struct coverage,
 pipeline, spill and phase-timing slice, ``--phases 18,18b,18c`` the
 struct -narrow slice, ``--phases 19,19b,19c`` the -symmetry / -por slice,
-``--phases 20,20b,20c`` the -simulate slice.
+``--phases 20,20b,20c`` the -simulate slice, ``--phases 21,21b,21c`` the
+-infer slice.
 """
 
 from __future__ import annotations
@@ -509,6 +523,12 @@ def main() -> int:
             runs.update(phase_sim20_real(torch, ops, card, runs))
         if want("20c"):
             runs.update(phase_command20(ops, card, runs, tmp))
+        if want("21") or want("21b"):
+            runs.update(phase_infer21(torch, ops, card, runs, tmp))
+        if want("21b"):
+            runs.update(phase_infer21_real(torch, ops, card, runs))
+        if want("21c"):
+            runs.update(phase_command21(ops, card, runs, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if want("13b"):
@@ -540,7 +560,7 @@ def main() -> int:
                     f"gen_cmd_{tag}" for tag in GEN_NAMES + ("never", "r5")
                 ) + tuple(k for k, v in runs.items()
                           if k.startswith(("shard16", "p17", "p18", "p19",
-                                           "p20"))
+                                           "p20", "p21"))
                           and isinstance(v, dict) and "launches" in v)
     launches = {k: sum(runs[r]["launches"][k] for r in main)
                 for k in ops.KERNELS}
@@ -2550,9 +2570,15 @@ def phase_kernels(torch, ops, runs, launches):
                             "jaxtlc/sim/engine.py:232"),
         "sim_fold": ("torchtlc/kernels/csrc/emitted_sim.cuh",
                      "jaxtlc/sim/engine.py:264"),
+        "struct_pred_matrix": ("torchtlc/kernels/csrc/struct_infer.cuh",
+                               "jaxtlc/infer/filter.py:71"),
+        "struct_pred_alive": ("torchtlc/kernels/csrc/struct_infer.cuh",
+                              "jaxtlc/infer/filter.py:71"),
+        "struct_certify": ("torchtlc/kernels/csrc/struct_infer.cuh",
+                           "jaxtlc/infer/certify.py:38"),
     }
     for key in ("sharded", "live", "struct", "gen", "shard16", "p17", "p18",
-                "p19", "p20"):
+                "p19", "p20", "p21"):
         for name, got in runs.get(f"{key}_rows", {}).items():
             rows.setdefault(name, []).extend(got)
         library.update(runs.get(f"{key}_library", {}))
@@ -6824,6 +6850,438 @@ def phase_command20(ops, card, runs, tmp):
     print("phase 20c commands, transcripts = the reference's: "
           + "; ".join(lines) + f"; the resumed walk = the clean one on "
           f"{card}", flush=True)
+    return out
+
+
+
+# -- phases 21-21c: invariant inference (K29, K30) ---------------------------
+
+# x climbs to 3; Small says it never passes 1: exact evidence refutes it
+INFER_VIOL_TLA = """---- MODULE InferViol ----
+EXTENDS Naturals
+VARIABLES x
+
+Init == x = 0
+
+Next == /\\ x < 3
+        /\\ x' = x + 1
+
+Spec == Init /\\ [][Next]_x
+
+Small == x <= 1
+====
+"""
+INFER_VIOL_CFG = "SPECIFICATION\nSpec\nINVARIANT\nSmall\n"
+# phase 21: name -> (model key, budget); every run at seed 0 with the
+# engine's defaults (64 walkers, depth 64, deadlock on, host BFS to 50,000)
+INFER21 = {
+    "TwoPhase/32": ("two", 32),
+    "RaftElection/64": ("elect", 64),
+    "RaftElection/1446": ("elect", 1446),
+    "RaftReplication/64": ("repl", 64),
+    "RaftReplication/157": ("repl", 157),
+}
+# phase 21b: RR5T6 (RaftReplication, Nodes n1..n5, MaxLog 2, MaxTerm 6),
+# its whole pool, sampled evidence at full width, deadlock off
+RR5T6_INFER_KW = dict(budget=419, walkers=65536, depth=100,
+                      check_deadlock=False)
+RR5T6_INFER_SEED = 7
+
+
+def models21(tmp):
+    """The model files of phases 21-21c in `tmp`/p21: {key: MC.cfg}."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    specs = os.path.join(here, "specs")
+    out = {key: os.path.join(specs, f"{name}.toolbox", "Model_1", "MC.cfg")
+           for key, name in (("two", "TwoPhase"), ("elect", "RaftElection"),
+                             ("repl", "RaftReplication"))}
+    raft = open(os.path.join(os.path.dirname(out["repl"]),
+                             "RaftReplication.tla")).read()
+    d = os.path.join(tmp, "p21")
+    for key, files, cfg in (
+            ("viol", {"InferViol.tla": INFER_VIOL_TLA,
+                      "InferViol.cfg": INFER_VIOL_CFG}, "InferViol.cfg"),
+            ("rr5t6", {"RaftReplication.tla": raft, "MC.cfg": RR5T6_CFG},
+             "MC.cfg")):
+        os.makedirs(os.path.join(d, key), exist_ok=True)
+        for fname, text in files.items():
+            with open(os.path.join(d, key, fname), "w") as f:
+                f.write(text)
+        out[key] = os.path.join(d, key, cfg)
+    return out
+
+
+def infer_summary(rep) -> tuple:
+    """(candidates, dropped, evidence, n_states, round sizes, killed,
+    survivors, certified, SHA-256 of every field but the walls) of an
+    InferReport: the form the reference's reports were pinned in."""
+    whole = dict(
+        candidates=rep.candidates, dropped=rep.dropped,
+        uncompiled=list(rep.uncompiled), evidence=rep.evidence,
+        exact=bool(rep.exact), n_states=int(rep.n_states),
+        rounds=[dict(r) for r in rep.rounds], killed=int(rep.killed),
+        survivors=[c.name for c in rep.survivors],
+        certified=[c.name for c in rep.certified],
+        cert_basis=list(rep.cert_basis), cfg_killed=list(rep.cfg_killed),
+        seed=int(rep.seed))
+    sha = hashlib.sha256(json.dumps(whole, sort_keys=True).encode())
+    return (rep.candidates, rep.dropped, rep.evidence, int(rep.n_states),
+            tuple(int(r["n_states"]) for r in rep.rounds), int(rep.killed),
+            len(rep.survivors), len(rep.certified), sha.hexdigest())
+
+
+# the reference's reports on the CPU (jaxtlc.infer.driver.InferEngine,
+# JAXTLC_ARTIFACT_CACHE=off, .run(seed)): infer_summary's tuple
+INFER21_PINS = {
+    'TwoPhase/32': (5, 0, 'bfs', 56, (56,), 0, 5, 5,
+        'f66e240f9ef2b79ec717c0e05acc5bc9'
+        '1c4d577ee35497666206d23c5a674c6b'),
+    'RaftElection/64': (64, 1382, 'bfs', 492, (492,), 56, 8, 8,
+        '1c5381805c8d606728e3c8e03de7ed35'
+        '511250b8b503b39cab53e5178723645e'),
+    'RaftElection/1446': (1446, 0, 'bfs', 492, (492,), 1368, 78, 78,
+        'b5a7363803a6d9d5c9ecffa7cdcf66b6'
+        '33f5d6e2fb389177b1914f012bb38d83'),
+    'RaftReplication/64': (64, 93, 'bfs', 7279, (7279,), 50, 14, 14,
+        'ba14f98bd880bc3d536e4eb7e9e3aff8'
+        'b71a8ae8bf58b01e2cb02c84c59dfafa'),
+    'RaftReplication/157': (157, 0, 'bfs', 7279, (7279,), 141, 16, 16,
+        'c77744f7dd7c7bab2b0136579b73cd7f'
+        '0df7e3b6f563078b732e932b14d6e356'),
+}
+RR5T6_INFER_PIN = (
+    419, 0, 'sim', 791410, (748613, 17369, 12714, 12714), 395, 24, 15,
+    'ee2e09647573c39c819b2a8f9783fce4'
+    '40387ffd318084d9c73ecbff7f9cb87b')
+# RR5T6's survivors and certified candidates in the reference's report
+RR5T6_INFER_NAMES = (
+    ['TypeOK', 'AtMostOneLeader', 'CommitWithinLog', 'CommittedAgree']
+    + [f"B{k}" for k in range(15)] + ['I1', 'I85', 'I169', 'I253', 'I337'],
+    [f"B{k}" for k in range(15)])
+
+
+def pred_stmts(prog) -> int:
+    """The statements of the P emitted predicate bodies (st_pred_k), one
+    integer operation each."""
+    body = prog.text.split("HD bool st_pred_0(", 1)[-1]
+    return body.split("HDN uint32_t st_pred_word_0(", 1)[0].count(";")
+
+
+def step_stmts(prog) -> int:
+    """The statements of the emitted step (st_step)."""
+    body = prog.text.split("HD void st_step(", 1)[1]
+    return body.split("HD bool st_pred_0(", 1)[0].count(";")
+
+
+def valid_lanes(torch, prog, rows, chunk=1 << 14) -> int:
+    """The valid successors of rows [S, F] (the step graph by torch)."""
+    n = 0
+    for s in range(0, rows.shape[0], chunk):
+        n += int(prog.step_prog.step_plain(rows[s:s + chunk])[1].sum())
+    return n
+
+
+def infer_kernel_checks(torch, ops, tag, prog, rows, record=None, reps=10,
+                        plain_rows=1 << 14):
+    """K29 (matrix and fold forms) and K30 bitwise against their plain
+    versions on the evidence rows [S, F] on the card; timed with
+    `record` (the plain versions `plain_rows` rows a call).  Returns the
+    K30 escape bits."""
+    from torchtlc.infer.program import words_to_bits
+
+    S, P = rows.shape[0], prog.P
+    mat = ops.struct_pred_matrix(prog, rows)
+    mat_p = prog.matrix_plain(rows, rows=plain_rows)
+    need(torch.equal(mat, mat_p), f"K29 matrix differs from its plain "
+         f"version ({tag})")
+    alive = words_to_bits(ops.struct_pred_alive(prog, rows), P)
+    need(torch.equal(alive, mat_p.bool().all(1)),
+         f"K29 fold differs from its plain version ({tag})")
+    esc = words_to_bits(ops.struct_certify(prog, rows), P)
+    esc_p = prog.certify_plain(rows, rows=plain_rows)
+    need(torch.equal(esc, esc_p), f"K30 differs from its plain version "
+         f"({tag})")
+    if record is not None:
+        n_pred, n_step = pred_stmts(prog), step_stmts(prog)
+        n_valid = valid_lanes(torch, prog, rows)
+        inb = S * prog.F * 4
+        shape = f"{tag}: S {S}, P {P}, F {prog.F}, L {prog.L}"
+        record("struct_pred_matrix", shape, 0,
+               cuda_ms(torch, lambda _: ops.struct_pred_matrix(prog, rows),
+                       reps),
+               cuda_ms(torch, lambda _: prog.matrix_plain(
+                   rows, rows=plain_rows), 1),
+               *gen_bound_ms(inb + P * S, S * (n_pred + P)))
+        record("struct_pred_alive", shape, 0,
+               cuda_ms(torch, lambda _: ops.struct_pred_alive(prog, rows),
+                       reps),
+               cuda_ms(torch, lambda _: prog.alive_plain(
+                   rows, rows=plain_rows), 1),
+               *gen_bound_ms(inb + 4 * prog.NPW, S * (n_pred + P)))
+        record("struct_certify", shape + f", {n_valid} valid successors",
+               0, cuda_ms(torch, lambda _: ops.struct_certify(prog, rows),
+                          reps),
+               cuda_ms(torch, lambda _: prog.certify_plain(
+                   rows, rows=plain_rows), 1),
+               *gen_bound_ms(inb + 4 * prog.NPW,
+                             S * (n_pred + n_step + P)
+                             + n_valid * (n_pred + 2 * prog.NPW)))
+    return esc
+
+
+def infer_programs21(ops, models):
+    """The inference programs of phases 21 and 21b with their emitted
+    libraries (K29/K30), one nvcc per text, all started together:
+    ({name: InferProgram}, {name: nvcc wall s})."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torchtlc.infer.candidates import conjecture
+    from torchtlc.infer.filter import (compile_predicates, infer_program,
+                                       predicate_compiler)
+    from torchtlc.struct.cache import get_backend, get_bounds
+
+    progs = {}
+    for name, (key, budget, dl) in {
+            **{n: (k, b, True) for n, (k, b) in INFER21.items()},
+            "RR5T6/419": ("rr5t6", RR5T6_INFER_KW["budget"],
+                          RR5T6_INFER_KW["check_deadlock"])}.items():
+        m = models[key]
+        backend = get_backend(m, dl)
+        cands, _ = conjecture(m, bounds=get_bounds(m), budget=budget)
+        fns, _ = compile_predicates(predicate_compiler(m, backend), cands)
+        progs[name] = infer_program(backend, fns)
+    walls = {}
+
+    def build(name):
+        t0 = time.time()
+        ops.infer_lib(progs[name])
+        walls[name] = time.time() - t0
+
+    with ThreadPoolExecutor(len(progs)) as pool:
+        list(pool.map(build, progs))
+    return progs, walls
+
+
+def phase_infer21(torch, ops, card, runs, tmp):
+    """Phase 21: the CPU tests' inference engines on the card (K29's fold
+    form kills, its matrix form gives Init => cand, K30 the closure bits):
+    every InferReport pinned to the reference's CPU run - TwoPhase (32),
+    RaftElection (64 and its whole pool of 1,446), RaftReplication (64 and
+    157); K29 (both forms) and K30 bitwise against their plain versions on
+    each model's exact evidence."""
+    from torchtlc.infer.driver import InferEngine
+    from torchtlc.struct.loader import load
+
+    cfgs = models21(tmp)
+    models = {k: load(c) for k, c in cfgs.items()}
+    t0 = time.time()
+    progs, nvcc = infer_programs21(ops, models)
+    build = time.time() - t0
+    rows = {}
+    record = gen_recorder(rows)
+    out, lines = {}, []
+    for name, (key, budget) in INFER21.items():
+        t0 = time.time()
+        eng = InferEngine(models[key], budget=budget)
+        wall_build = time.time() - t0
+        need(eng.program is progs[name], f"{name}: a second program")
+        ops.reset_counts()
+        rep = eng.run(seed=0)
+        launches = dict(ops.LAUNCHES)
+        got = infer_summary(rep)
+        need(got == INFER21_PINS[name], f"{name}: {got}, the reference's "
+             f"{INFER21_PINS[name]}")
+        need(launches["struct_pred_alive"] == len(rep.rounds)
+             and launches["struct_pred_matrix"] == 1
+             and launches["struct_certify"] == 1,
+             f"{name}: K29 / K30 launches {launches}")
+        out[f"p21_{name}"] = {"launches": launches}
+        infer_kernel_checks(torch, ops, name, eng.program, eng._exact_rows,
+                            record if name == "RaftElection/1446" else None)
+        lines.append(f"{name}: {got[0]} candidates, {got[5]} killed, "
+                     f"{got[7]} certified over {got[3]} states (engine "
+                     f"{wall_build:.2f} s, run {rep.wall_s:.4f} s)")
+    k29 = rows["struct_pred_alive"][0]
+    k30 = rows["struct_certify"][0]
+    print(f"phase 21 build: {len(progs)} K29/K30 libraries with nvcc in "
+          f"{build:.1f} s (each: " + ", ".join(
+              f"{n} P {progs[n].P} {w:.1f} s" for n, w in nvcc.items())
+          + "); ptxas (RaftElection/1446, RR5T6/419): " + str([{
+              k: "; ".join(v.split("; ")[:2])  # the entry's own lines
+              for k, v in ptxas_kernels(progs[n], (
+                  "pred_matrix", "pred_alive", "certify")).items()}
+              for n in ("RaftElection/1446", "RR5T6/419")]), flush=True)
+    print("phase 21 -infer: every report = the reference's (pinned): "
+          + "; ".join(lines) + "; K29 (matrix, fold) and K30 = plain on "
+          f"every exact evidence set; RaftElection/1446: K29 fold "
+          f"{k29['ms']:.4f} ms (plain {k29['plain_ms']:.2f} ms), K30 "
+          f"{k30['ms']:.4f} ms (plain {k30['plain_ms']:.2f} ms) on {card}",
+          flush=True)
+    out.update(p21_rows=rows, p21_cfgs=cfgs, p21_models=models,
+               p21_progs=progs, p21_nvcc=nvcc)
+    return out
+
+
+def phase_infer21_real(torch, ops, card, runs):
+    """Phase 21b: RR5T6 (Nodes n1..n5, MaxLog 2, MaxTerm 6) with its whole
+    pool of 419 candidates on sampled evidence at full width - 65,536
+    walkers, depth 100, seed 7, deadlock off: the report pinned to the
+    reference's CPU run (survivor and certified names too); the walls of
+    the engine's build, the evidence walk, the filter and the certify
+    pass; predicate evaluations a second; the device's busy share
+    (torch.profiler); K29 and K30 a launch over the union of the sampled
+    rounds, bitwise against their plain versions, timed with their
+    bounds."""
+    from torchtlc.infer.certify import certify_closed
+    from torchtlc.infer.driver import InferEngine
+    from torchtlc.infer.filter import sim_fields
+
+    m = runs["p21_models"]["rr5t6"]
+    rows = runs["p21_rows"]
+    record = gen_recorder(rows)
+    kw = dict(RR5T6_INFER_KW)
+    t0 = time.time()
+    eng = InferEngine(m, **kw)
+    wall_build = time.time() - t0 + runs["p21_nvcc"]["RR5T6/419"]
+    need(eng.evidence == "sim", f"RR5T6: evidence {eng.evidence}")
+    out, walls = {}, []
+    for i in range(2):
+        ops.reset_counts()
+        rep = eng.run(seed=RR5T6_INFER_SEED)
+        out[f"p21b_rr5t6_{i}"] = {"launches": dict(ops.LAUNCHES)}
+        got = infer_summary(rep)
+        need(got == RR5T6_INFER_PIN, f"RR5T6 infer: {got}, the "
+             f"reference's {RR5T6_INFER_PIN}")
+        need(([c.name for c in rep.survivors],
+              [c.name for c in rep.certified]) == RR5T6_INFER_NAMES,
+             "RR5T6 infer: the survivors / certified names differ")
+        walls.append((rep.wall_s, rep.filter_wall_s, rep.certify_wall_s))
+    need(set(rep.cert_basis) == {"absint"}, "RR5T6: a certificate that is "
+         "not absint on sampled evidence")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    chunks = sim_fields(m, kw["walkers"], kw["depth"], RR5T6_INFER_SEED,
+                        check_deadlock=kw["check_deadlock"])
+    torch.cuda.synchronize()
+    walk = time.time() - t0
+    rep2, traced, busy, by_name = device_busy(
+        torch, lambda: eng.run(seed=RR5T6_INFER_SEED))
+    need(infer_summary(rep2) == RR5T6_INFER_PIN, "RR5T6 under the profiler")
+    k_s = {k: sum(v for n, v in by_name.items() if k in n)
+           for k in ("pred_alive", "pred_matrix", "certify", "sim_step")}
+    union = torch.cat(chunks)
+    prog = eng.program
+    esc = infer_kernel_checks(torch, ops, "RR5T6 sampled union", prog, union,
+                              record)
+    t0 = time.time()
+    closed = certify_closed(eng.certify_fn, union, prog.P)
+    torch.cuda.synchronize()
+    need((~closed == esc.cpu().numpy()).all(),
+         "certify_closed differs from K30's bits")
+    S, P = union.shape[0], prog.P
+    best = min(walls)
+    m29 = rows["struct_pred_alive"][-1]
+    m29m = rows["struct_pred_matrix"][-1]
+    m30 = rows["struct_certify"][-1]
+    print(f"phase 21b RR5T6 -infer (Nodes n1..n5, MaxLog 2, MaxTerm 6; "
+          f"budget 419, 65,536 walkers, depth 100, seed 7, deadlock off): "
+          f"{RR5T6_INFER_PIN[:8]} (the reference's report); engine build "
+          f"{wall_build:.1f} s with nvcc; walls (run, filter, certify) "
+          f"{[tuple(round(x, 4) for x in w) for w in walls]} s; the walk "
+          f"alone {walk:.3f} s; {P * S / best[1]:,.0f} predicate "
+          f"evaluations/s in the filter ({P} x {S:,}); under "
+          f"torch.profiler: wall {traced:.3f} s, device busy {busy:.3f} s "
+          f"({busy / traced:.1%}), K27 {k_s['sim_step']:.3f} s, K29 fold "
+          f"{k_s['pred_alive']:.4f} s, K29 matrix {k_s['pred_matrix']:.4f} "
+          f"s; over the union ({S:,} rows): K29 matrix {m29m['ms']:.3f} ms "
+          f"(plain {m29m['plain_ms']:.1f} ms, bound {m29m['bound_ms']:.4f} "
+          f"ms by {m29m['bound_by']}), K29 fold {m29['ms']:.3f} ms (plain "
+          f"{m29['plain_ms']:.1f} ms, bound {m29['bound_ms']:.4f} ms by "
+          f"{m29['bound_by']}), K30 {m30['ms']:.3f} ms through "
+          f"certify_closed {time.time() - t0:.3f} s (plain "
+          f"{m30['plain_ms']:.1f} ms, bound {m30['bound_ms']:.4f} ms by "
+          f"{m30['bound_by']}); {int((~closed).sum())} of {P} escape on "
+          f"{card}", flush=True)
+    out["p21b_rr5t6"] = dict(walls=walls, busy=busy / traced, walk=walk,
+                             build=wall_build)
+    return out
+
+
+# phase 21c: tag -> (model key of models21, argv after the MC.cfg)
+CMD21 = {
+    "twophase": ("two", ["-infer"]),
+    "raftelection-1446": ("elect", ["-frontend", "struct", "-infer",
+                                    "-infer-budget", "1446"]),
+    "rr5t6": ("rr5t6", ["-infer", "-infer-budget", "419", "-walkers",
+                        "65536", "-depth", "100", "-sim-seed", "7",
+                        "-nodeadlock"]),
+    "refuted": ("viol", ["-infer"]),
+}
+# (exit code, SHA-256 of struct_masked) of `python -m jaxtlc.cli check
+# <MC.cfg> -noTool <argv> -workers cpu` in one process, in CMD21's order
+CMD21_TRANSCRIPT = {
+    'twophase': (0, '39d136cfea1ebf46a8f307bc7e0facf0'
+        'dd5f1ed1555696573c7b9772977fb83c'),
+    'raftelection-1446': (0, '13e71d245100d4ffcdf211b715db82e8'
+        '2dad8b9eed8e58769c006e5cf4bb007f'),
+    'rr5t6': (0, '32cae85f4ef45db47e6f92dfc6b4f9e3'
+        '3b8fc9f95c3bf2c6fa252a2c881ff94f'),
+    'refuted': (12, '4e259ae5b1d51e7b139a91a75b1788c5'
+        '1f559546e983ba0940eff11079f14fee'),
+}
+# the refusals: (argv after the MC.cfg of a model key, the error's text)
+REFUSE21 = {
+    "simulate": ("two", ["-infer", "-simulate"],
+                 "Error: -infer and -simulate are distinct job classes "
+                 "(pick one)"),
+    "kubeapi": ("kube", ["-infer"], "Error: -infer requires the "
+                "structural frontend (re-run with -frontend struct)"),
+    "sharded": ("two", ["-infer", "-sharded", "2"],
+                "Error: -sharded not supported with -infer (inference "
+                "carries no frontier/checkpoint machinery)"),
+    "checkpoint": ("two", ["-infer", "-checkpoint", "CK/i"],
+                   "Error: -checkpoint not supported with -infer "
+                   "(inference carries no frontier/checkpoint machinery)"),
+}
+
+
+def phase_command21(ops, card, runs, tmp):
+    """Phase 21c: `python -m torchtlc.cli check ... -infer` in this
+    process - TwoPhase, RaftElection's whole pool under -frontend struct,
+    the RR5T6 walk of phase 21b and the module whose named invariant is
+    refuted (exit 12) - each exit code and transcript equal to the
+    reference's (digests pinned); and the refusals, exit 1 with the
+    reference's error."""
+    cfgs = dict(runs["p21_cfgs"] if "p21_cfgs" in runs else models21(tmp))
+    cfgs["kube"] = write_model(tmp, "Model_FF21", False, False)
+    ckdir = os.path.join(tmp, "ck21")
+    os.makedirs(ckdir)
+    out, lines = {}, []
+    for tag, (key, extra) in CMD21.items():
+        cfg = cfgs[key]
+        rc, text, launches, wall = command_here(ops, [cfg, "-noTool",
+                                                      *extra])
+        rc_want, sha_want = CMD21_TRANSCRIPT[tag]
+        need(rc == rc_want, f"command {tag} exited {rc}")
+        sha = hashlib.sha256(struct_masked(text, cfg).encode()).hexdigest()
+        need(sha == sha_want, f"command {tag}: the transcript differs from "
+             "the reference's")
+        need(launches["struct_pred_alive"] > 0
+             and launches["struct_pred_matrix"] > 0,
+             f"command {tag}: K29 never ran")
+        out[f"p21c_{tag}"] = {"launches": launches}
+        lines.append(f"{tag} exit {rc} ({wall:.2f} s)")
+    for tag, (key, extra, want) in REFUSE21.items():
+        argv = [cfgs[key], "-noTool"] + [x.replace("CK", ckdir)
+                                         for x in extra]
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc, _, _, _ = command_here(ops, argv)
+        need(rc == 1 and err.getvalue().strip() == want,
+             f"refusal {tag}: exit {rc}, {err.getvalue()!r}")
+        lines.append(f"{tag} refused (exit 1)")
+    print("phase 21c commands, transcripts = the reference's: "
+          + "; ".join(lines) + f" on {card}", flush=True)
     return out
 
 

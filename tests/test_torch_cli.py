@@ -178,20 +178,23 @@ FLAG_VALUES = {
 # their ids and hold the run to the reference's exit code and transcript
 # (-narrow, -symmetry and -por are ignored on KubeAPI specs, as the
 # reference ignores them; the clean run prints no trace for
-# -traceExpressions to annotate; -simulate runs on struct specs only, so
-# on the KubeAPI pair both packages exit 1 with the same error)
-PORTED = ("narrow", "traceExpressions", "symmetry", "por", "simulate")
+# -traceExpressions to annotate; -simulate and -infer run on struct specs
+# only, so on the KubeAPI pair both packages exit 1 with the same error)
+PORTED = ("narrow", "traceExpressions", "symmetry", "por", "simulate",
+          "infer")
+STRUCT_ONLY = {"simulate": "-simulate requires the structural frontend",
+               "infer": "-infer requires the structural frontend"}
 
 
 @pytest.mark.parametrize("dest", sorted(set(UNPORTED) | set(PORTED)))
 def test_unported_flag_refused(model_dir, capsys, dest):
     argv = ["check", str(model_dir / "MC.cfg")] + FLAG_VALUES[dest]
-    if dest == "simulate":
+    if dest in STRUCT_ONLY:
         rc = main(argv + ["-workers", "cpu"])
         err = capsys.readouterr().err
         ref_rc = j_main(argv)
         assert rc == ref_rc == 1 and err == capsys.readouterr().err
-        assert "-simulate requires the structural frontend" in err
+        assert STRUCT_ONLY[dest] in err
         return
     if dest in PORTED:
         assert dest not in UNPORTED

@@ -91,6 +91,20 @@ def test_sim_package_is_checked():
         assert os.path.join("torchtlc", "sim", f"{mod}.py") in names
 
 
+def test_infer_package_is_checked():
+    """The inference plane (torchtlc/infer) is among the files the import
+    checks above walk, every module of it, and none of them names jax or
+    jaxtlc."""
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in ("__init__", "candidates", "program", "filter", "certify",
+                "driver"):
+        path = os.path.join("torchtlc", "infer", f"{mod}.py")
+        assert path in names
+        bad = [m for m in _named_imports(os.path.join(ROOT, path))
+               if _forbidden(m)]
+        assert not bad, f"{path} imports {bad}"
+
+
 def test_absint_copy_is_the_reference_line_for_line():
     """torchtlc/analysis/absint.py is jaxtlc/analysis/absint.py with a note
     added to its docstring and nothing else (its BoundReport digest is the

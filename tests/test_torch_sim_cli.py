@@ -12,8 +12,8 @@ replay and liveness events included).
   boxed shape skipped;
 - sigterm@2 -> exit 75 -> -recover, across the two packages;
 - the flags -simulate refuses, a generic-subset spec without -frontend
-  struct (exit 1), -infer still exit 2 in the port, -depth accepted
-  without -simulate."""
+  struct (exit 1), -infer running as the reference's (exit 0), -depth
+  accepted without -simulate."""
 
 import os
 
@@ -150,9 +150,10 @@ def test_non_struct_spec_exits_1_and_infer_stays_unported(models, capsys):
     assert t_main(argv + ["-workers", "cpu"]) == j_main(argv) == 1
     err = capsys.readouterr().err
     assert "-simulate requires the structural frontend" in err
-    assert t_main(["check", models["tiny"], "-noTool", "-infer",
-                   "-workers", "cpu"]) == 2
-    assert "-infer" in capsys.readouterr().err
+    # -infer runs since it was ported: the same exit code as the reference
+    argv = ["check", models["tiny"], "-noTool", "-infer"]
+    assert t_main(argv + ["-workers", "cpu"]) == j_main(argv) == 0
+    assert "Inference complete" in capsys.readouterr().out
 
 
 def test_depth_without_simulate_is_accepted(tmp_path):

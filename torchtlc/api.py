@@ -58,7 +58,11 @@ struct backend's kernels K27 and K28 (torchtlc.sim), a violating lane
 replayed from its seed into the exit-12 trace, lassos on the walks for
 plain ``P ~> Q`` properties (exit 13), checkpoints, SIGTERM and
 ``-recover`` (exit 75); on any other spec it exits 1, as the reference's
-does.
+does.  ``-infer`` on a struct spec runs ``_run_infer_struct`` (jaxtlc/api.py:
+1428-1584): invariant inference through torchtlc.infer (kernels K29 and
+K30), the certified transcript, exit 12 when exact evidence refutes a
+cfg-named invariant; with -simulate or on any other spec it exits 1, as
+the reference's does.
 
 Before the check each path runs the reference's preflight in its lite
 mode (torchtlc.analysis: the struct spec lints, the unreduced-symmetry
@@ -118,6 +122,18 @@ def _run_check(args) -> int:
         print("Error: -simulate requires the structural frontend "
               "(re-run with -frontend struct)", file=sys.stderr)
         return 1
+    if args.infer:
+        # jaxtlc/api.py:227-237: inference conjectures over the struct
+        # IR's shapes; like -simulate this is a spelling, not a
+        # capability, gap
+        if args.simulate:
+            print("Error: -infer and -simulate are distinct job "
+                  "classes (pick one)", file=sys.stderr)
+            return 1
+        if not isinstance(spec, StructRunSpec):
+            print("Error: -infer requires the structural frontend "
+                  "(re-run with -frontend struct)", file=sys.stderr)
+            return 1
     if isinstance(spec, GenRunSpec):
         return _run_check_gen(args, spec)
     if isinstance(spec, StructRunSpec):
@@ -668,6 +684,8 @@ def _run_check_struct(args, spec) -> int:
         return 1
     if args.simulate:
         return _run_sim_struct(args, spec)
+    if args.infer:
+        return _run_infer_struct(args, spec)
     unsupported = [flag for flag, on in (
         ("-mutation", args.mutation),
         ("-fairness wf_process", args.fairness == "wf_process"),
@@ -1082,6 +1100,162 @@ def _run_sim_struct(args, spec) -> int:
     if violated:
         return 12
     return 13 if liveness_violated else 0
+
+
+def _run_infer_struct(args, spec) -> int:
+    """The inference job class (jaxtlc/api.py:1428-1584
+    _run_infer_struct): conjecture candidate invariants over the struct
+    IR, kill the ones reachable evidence refutes (kernel K29), certify
+    the survivors inductive (kernel K30) - the same banner/journal/
+    preflight plumbing as a check, but the product is a transcript of
+    CERTIFIED candidate invariants (and an honest "consistent with
+    evidence only" list), not a pass/fail verdict about the spec.  The
+    run exits 12 only when EXACT evidence kills a cfg-named invariant - a
+    real reachable violation."""
+    from .infer.driver import run_infer
+
+    sm = spec.structmodel
+    unsupported = [
+        flag for flag, on in (
+            ("-sharded", args.sharded),
+            ("-pipeline", args.pipeline),
+            ("-liveness", args.liveness),
+            ("-coverage", args.coverage),
+            ("-narrow", args.narrow),
+            ("-phase-timing", args.phasetiming),
+            ("-mutation", args.mutation),
+            ("-checkpoint", args.checkpoint),
+            ("-recover", args.recover),
+            ("-faults", args.faults),
+            ("-symmetry", args.symmetry),
+            ("-por", args.por),
+            ("-fpset DiskFPSet", args.fpset != "JaxFPSet"),
+        ) if on
+    ]
+    if unsupported:
+        print(f"Error: {', '.join(unsupported)} not supported with "
+              "-infer (inference carries no frontier/checkpoint "
+              "machinery)", file=sys.stderr)
+        return 1
+    device = _device(args)
+    try:
+        device_name = _device_name(device)
+    except RuntimeError as e:  # no card and no -workers cpu
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    log = TLCLog(tool_mode=not args.noTool)
+    log.version(__version__)
+    log.banner(spec.fp_index, DEFAULT_SEED, spec.workers, device_name)
+    log.sany(*_sany_inputs(args.config, spec.spec_name))
+    log.starting()
+    log.computing_init()
+    _open_journal(
+        args, workload=spec.spec_name, engine="infer", device=device_name,
+        params=dict(budget=args.inferbudget, walkers=args.walkers,
+                    depth=args.depth, sim_seed=args.simseed,
+                    frontend="struct"))
+    j = getattr(args, "_journal", None)
+    # the reference journals an artifact-cache bypass here when a store is
+    # configured; the port has no artifact cache yet (its flags exit 2)
+
+    def struct_preflight():
+        from .analysis.preflight import preflight_struct
+
+        return preflight_struct(
+            sm, fp_capacity=args.fpcap, chunk=args.chunk,
+            queue_capacity=args.qcap, check_deadlock=spec.check_deadlock,
+            symmetry=_symmetry(args))
+
+    rc = _preflight_gate(args, log, struct_preflight)
+    if rc is not None:
+        return rc
+    log.msg(1000, f"Running invariant inference: budget "
+                  f"{args.inferbudget} candidates "
+                  f"(walk geometry {args.walkers}x{args.depth}, "
+                  f"seed {args.simseed}).")
+    t0 = time.time()
+    resume_cmd = _resume_command(args)
+
+    def on_event(kind, info):
+        from .obs.schema import SCHEMA_VERSION
+        from .obs.views import render_tlc_event
+
+        if j is not None:
+            ev = j.event(kind, **info)
+        else:
+            ev = {"v": SCHEMA_VERSION, "t": time.time(), "event": kind,
+                  **info}
+        render_tlc_event(log, ev, resume_cmd=resume_cmd)
+
+    running = {"killed": 0}
+
+    def on_round(row):
+        running["killed"] += row["killed"]
+        on_event("infer", dict(
+            phase="round",
+            candidates=row["survivors"] + running["killed"],
+            killed=running["killed"], survivors=row["survivors"],
+            certified=0, round=row["round"],
+            evidence=row["evidence"], n_states=row["n_states"],
+        ))
+
+    try:
+        rep = run_infer(
+            sm, budget=args.inferbudget, walkers=args.walkers,
+            depth=args.depth, seed=args.simseed,
+            check_deadlock=spec.check_deadlock, on_round=on_round,
+            device=device)
+    except (FileNotFoundError, ValueError) as e:
+        print(f"Error: {e}", file=sys.stderr)
+        _finish_journal(args)
+        return 1
+    log.init_done(len(sm.system.initial_states()))
+    on_event("infer", dict(
+        phase="summary", candidates=rep.candidates, killed=rep.killed,
+        survivors=len(rep.survivors), certified=len(rep.certified),
+        certified_names=[c.name for c in rep.certified],
+        evidence=rep.evidence, n_states=rep.n_states,
+        dropped=rep.dropped,
+    ))
+    violated = bool(rep.cfg_killed)
+    if violated:
+        for name in rep.cfg_killed:
+            log.msg(2110, f"Invariant {name} is violated (refuted by "
+                          f"a reachable state in the exact evidence "
+                          f"set).", severity=1)
+    evid = (f"exact {rep.evidence} evidence ({rep.n_states} states)"
+            if rep.exact else
+            f"sampled walk evidence ({rep.n_states} states - "
+            f"NOT exhaustive)")
+    log.msg(1000, f"Inference complete: {rep.candidates} candidates "
+                  f"({rep.dropped} beyond budget), {rep.killed} killed "
+                  f"by {evid}.")
+    for c, basis in zip(rep.certified, rep.cert_basis):
+        line = c.name if c.source == "cfg" else f"{c.name} == {c.text}"
+        log.msg(1000, f"Certified inductive invariant [{basis}]: "
+                      f"{line}")
+    uncert = [c for c in rep.survivors if c not in rep.certified]
+    for c in uncert:
+        line = c.name if c.source == "cfg" else f"{c.name} == {c.text}"
+        log.msg(1000, f"Consistent with evidence only (NOT certified): "
+                      f"{line}", severity=1)
+    for name in rep.uncompiled:
+        log.msg(1000, f"Candidate {name} skipped: outside the lane-"
+                      f"compilable subset.", severity=1)
+    log.progress(0, rep.n_states, rep.n_states, 0)
+    log.final_counts(rep.n_states, rep.n_states, 0)
+    log.finished(int((time.time() - t0) * 1000))
+    if j is not None:
+        if violated:
+            j.event("violation", code=100,
+                    name=f"Invariant {rep.cfg_killed[0]} is violated.")
+        j.event("final",
+                verdict="violation" if violated else "ok",
+                generated=rep.n_states, distinct=rep.n_states,
+                depth=0, queue=0,
+                wall_s=round(time.time() - t0, 6), interrupted=False)
+    _finish_journal(args)
+    return 12 if violated else 0
 
 
 def _reduce_event(args, red, r, sym: bool, por: bool) -> None:

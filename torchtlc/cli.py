@@ -7,6 +7,7 @@ jaxtlc/cli.py on the KubeAPI path.
         [-no-auto-grow] [-spill | -no-spill] [-coverage] [-pipeline] \\
         [-sharded N [-routefactor F]] [-symmetry] [-por]
         [-simulate [-walkers W] [-depth N] [-sim-seed S]]
+        [-infer [-infer-budget N] [-walkers W -depth N -sim-seed S]]
         [-liveness [-liveness-host]
         [-fairness wf_next|wf_process]] [-noTool] ...
 
@@ -17,7 +18,8 @@ on its hand-written path; a spec inside the PlusCal-translation subset
 (RaftElection, Reconciler, ServiceMesh) on the generic frontend, as does
 any spec with -frontend gen; a spec outside it (TwoPhase, RaftReplication)
 on the structural frontend, as does any spec with -frontend struct;
--simulate runs random walks on a struct spec instead.  Exit
+-simulate runs random walks on a struct spec instead, -infer invariant
+inference.  Exit
 codes: 0 no error, 12
 safety violation (with the counterexample trace), 13 temporal property
 violated (with the lasso), 75 interrupted or
@@ -38,8 +40,6 @@ from .api import _run_check
 UNPORTED = {
     "fpset": ("JaxFPSet", "-fpset DiskFPSet (the native disk tier) is "
               "ported with the capacity tiers (ROADMAP Queue A item 13)"),
-    "infer": (False, "-infer (invariant inference) is ported with the "
-              "inference plane (ROADMAP Queue A item 13)"),
     "serve": (0, "-serve (the live monitor server) is ported with the "
               "serving plane (ROADMAP Queue A item 13)"),
     "traceout": ("", "-trace-out (the Chrome-trace export) is ported with "
@@ -202,8 +202,24 @@ def _parser() -> argparse.ArgumentParser:
     c.add_argument("-sim-seed", dest="simseed", type=int, default=0,
                    help="simulation run seed: every walk (and any "
                         "violation it finds) is a pure function of it")
-    c.add_argument("-infer", action="store_true")
-    c.add_argument("-infer-budget", dest="inferbudget", type=int, default=64)
+    c.add_argument("-infer", action="store_true",
+                   help="inductive invariant inference instead of "
+                        "checking: conjecture up to -infer-budget "
+                        "candidate predicates over the spec's shapes, "
+                        "kill the ones reachable evidence refutes in one "
+                        "predicates-x-states kernel, certify the "
+                        "survivors inductive over the reachable set's "
+                        "one-step successors.  Exact evidence comes from "
+                        "a host BFS; intractable configs sample -walkers "
+                        "x -depth walk states (survivors are then "
+                        "'consistent with evidence only').  Exits 12 "
+                        "only when exact evidence refutes a cfg-named "
+                        "invariant; requires the structural frontend")
+    c.add_argument("-infer-budget", dest="inferbudget", type=int,
+                   default=64,
+                   help="candidate pool cap for -infer (conjectures "
+                        "beyond it are counted as dropped in the "
+                        "journal)")
     c.add_argument("-liveness", action="store_true",
                    help="check the KubeAPI temporal properties after a "
                         "clean run even when MC.cfg lists none; above 1M "
@@ -242,11 +258,8 @@ def _parser() -> argparse.ArgumentParser:
 
 def unported(args) -> list:
     """The errors of the flags given for paths not ported yet."""
-    errs = [msg for dest, (off, msg) in UNPORTED.items()
+    return [msg for dest, (off, msg) in UNPORTED.items()
             if getattr(args, dest) != off]
-    if args.inferbudget != 64:
-        errs.append(UNPORTED["infer"][1].replace("-infer", "-infer-budget"))
-    return errs
 
 
 def main(argv=None) -> int:

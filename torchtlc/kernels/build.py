@@ -15,10 +15,11 @@ the runtime certificate of a narrowed struct spec) and K24-K26
 (struct_reduce.cuh, which emitted_sharded.cuh includes: the symmetry and
 POR reduction) and, in a struct spec's, K27 and K28 (emitted_sim.cuh with
 threefry.cuh, which struct_expand.cuh includes: the random walk's round),
-K20 of a generic spec's temporal operands and K22 of a struct spec's
-coverage conditions: the C++ that torchtlc.struct.emit prints
+K20 of a generic spec's temporal operands, K22 of a struct spec's
+coverage conditions and K29 / K30 of an inference run's candidate
+predicates: the C++ that torchtlc.struct.emit prints
 around a hand-written template (struct_expand.cuh, gen_expand.cuh,
-gen_masks.cuh, struct_cov.cuh) goes to
+gen_masks.cuh, struct_cov.cuh, struct_infer.cuh) goes to
 ``_build/struct/<digest>/spec.cu``, where the digest covers the text,
 the templates and the flags; nvcc builds it into
 ``libstruct.so`` for the card, or g++ into ``libstruct_host.so`` for the
@@ -99,16 +100,17 @@ STRUCT_TEMPLATES = ("common.cuh", "struct_prelude.cuh", "struct_codec.cuh",
                     "struct_expand.cuh", "gen_expand.cuh", "gen_masks.cuh",
                     "struct_inv_rows.cuh", "emitted_sharded.cuh",
                     "struct_cov.cuh", "struct_cert.cuh", "struct_reduce.cuh",
-                    "emitted_sim.cuh", "threefry.cuh")
+                    "emitted_sim.cuh", "threefry.cuh", "struct_infer.cuh")
 HOST_FLAGS = ["-x", "c++", "-O1", "-std=c++17", "-shared", "-fPIC"]
 
 
 def build_struct(text: str, host: bool = False) -> str:
-    """Build (or find) one emitted library (K17/K18, K19, K20 or K22) from its
-    text: nvcc for sm_90a, or g++ with host=True.  Returns the library
-    path; raises with the compiler's output when the build fails.  nvcc
-    runs with ``-Xptxas -v``: its report (each kernel's registers, stack
-    frame and spills) is kept beside the library as ``nvcc.log``."""
+    """Build (or find) one emitted library (K17/K18, K19, K20, K22 or
+    K29/K30) from its text: nvcc for sm_90a, or g++ with host=True.
+    Returns the library path; raises with the compiler's output when the
+    build fails.  nvcc runs with ``-Xptxas -v``: its report (each kernel's
+    registers, stack frame and spills) is kept beside the library as
+    ``nvcc.log``."""
     flags = HOST_FLAGS if host else NVCC_FLAGS + ["-Xptxas", "-v"]
     h = hashlib.sha256(" ".join(flags).encode() + text.encode())
     for name in STRUCT_TEMPLATES:

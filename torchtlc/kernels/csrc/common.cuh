@@ -15,3 +15,10 @@
 #endif
 
 #define HD __host__ __device__ inline
+// a function both compilers keep out of line: an emitted body that every
+// caller shares instead of inlining (struct_infer.cuh's predicate words)
+#if defined(__CUDACC__)
+#define HDN __host__ __device__ __noinline__
+#else
+#define HDN __attribute__((noinline))
+#endif

@@ -28,7 +28,8 @@ KERNELS = ("expand", "fp64", "fpset_key", "fpset_probe", "fpset_claim",
            "gen_expand", "gen_state_masks", "emitted_expand_sharded",
            "struct_cov_count", "struct_cert_check", "struct_canon",
            "struct_orbit_check", "struct_por_keep", "struct_sim_step",
-           "sim_fold")
+           "sim_fold", "struct_pred_matrix", "struct_pred_alive",
+           "struct_certify")
 LAUNCHES = {name: 0 for name in KERNELS}
 # K23's certificate runs standalone (its own wrapper) or inside K17 (kCert)
 # and K18: each launch that evaluates it adds one to
@@ -1241,3 +1242,66 @@ def struct_cov_count(cov, block: torch.Tensor, n: int,
         _ptr(cov.constants(block.device)), _ptr(block), ck, n, _ptr(valid),
         _ptr(out), _stream()))
     return out
+
+
+# K29 struct_pred_matrix (its matrix and fold forms) and K30 struct_certify:
+# one library per inference program (infer.program.InferProgram), the
+# spec's step and the candidate predicates
+# ---------------------------------------------------------------------------
+
+
+def infer_lib(prog):
+    """The K29/K30 library of an inference program, built from its emitted
+    text at first use and loaded once per text."""
+    return _emitted_lib(prog.text, "tt_struct_infer_dims", (
+        ("tt_struct_pred_matrix", [_P, _P, _LL, _P, _P]),
+        ("tt_struct_pred_alive", [_P, _P, _LL, _P, _P]),
+        ("tt_struct_certify", [_P, _P, _LL, _P, _P])),
+        (prog.F, prog.L, prog.P))
+
+
+def _infer_rows(prog, fields: torch.Tensor) -> int:
+    if prog.P == 0:
+        raise ValueError("an inference program of no candidate launches "
+                         "nothing")
+    S = fields.shape[0]
+    _need(fields, "fields", torch.int32, (S, prog.F))
+    return S
+
+
+def struct_pred_matrix(prog, fields: torch.Tensor) -> torch.Tensor:
+    """K29, matrix form -> [P, S] uint8: predicate k on row i of the
+    decoded evidence fields [S, F] int32; see
+    infer.program.InferProgram.matrix_plain."""
+    S = _infer_rows(prog, fields)
+    out = torch.empty(prog.P, S, dtype=torch.uint8, device=fields.device)
+    _launched("struct_pred_matrix", infer_lib(prog).tt_struct_pred_matrix(
+        _ptr(prog.constants(fields.device)), _ptr(fields), S, _ptr(out),
+        _stream()))
+    return out
+
+
+def struct_pred_alive(prog, fields: torch.Tensor) -> torch.Tensor:
+    """K29, fold form -> [NPW] int32 (uint32 words): bit k % 32 of word
+    k // 32 set when predicate k holds on every row of fields [S, F] int32
+    (the matrix's all over the rows, never written out); see
+    infer.program.InferProgram.alive_plain."""
+    S = _infer_rows(prog, fields)
+    words = torch.full((prog.NPW,), -1, dtype=torch.int32,
+                       device=fields.device)
+    _launched("struct_pred_alive", infer_lib(prog).tt_struct_pred_alive(
+        _ptr(prog.constants(fields.device)), _ptr(fields), S, _ptr(words),
+        _stream()))
+    return words
+
+
+def struct_certify(prog, fields: torch.Tensor) -> torch.Tensor:
+    """K30 -> [NPW] int32 (uint32 words): bit k set when some row of
+    fields [S, F] int32 satisfies predicate k and has a valid successor
+    that does not; see infer.program.InferProgram.certify_plain."""
+    S = _infer_rows(prog, fields)
+    words = torch.zeros(prog.NPW, dtype=torch.int32, device=fields.device)
+    _launched("struct_certify", infer_lib(prog).tt_struct_certify(
+        _ptr(prog.constants(fields.device)), _ptr(fields), S, _ptr(words),
+        _stream()))
+    return words

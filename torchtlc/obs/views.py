@@ -152,6 +152,18 @@ def render_tlc_event(log, ev: dict, resume_cmd: str = "") -> None:
             f"(store capacity {ev['capacity']:,}, auto-grows).",
             severity=1,
         )
+    elif kind == "infer" and ev.get("phase") == "round":
+        # inference filter rounds: one banner per evidence round (the
+        # summary row stays journal-only; the API path renders its own
+        # verdict lines with the certified invariant texts)
+        log.msg(
+            1000,
+            f"Inference round {ev.get('round', '?')}: "
+            f"{ev['killed']} of {ev['candidates']} candidates killed "
+            f"against {ev.get('n_states', 0):,} "
+            f"{ev.get('evidence', '')} evidence states "
+            f"({ev['survivors']} survive).",
+        )
     elif kind == "exhausted":
         log.msg(
             1000,

@@ -330,6 +330,30 @@ def sym_function(prog: Program, programs, n_fields: int) -> str:
 # ---------------------------------------------------------------------------
 
 
+def _step_function(prog: Program, step_outputs, n_fields: int) -> int:
+    """Emit ``st_step`` from build_step's (succs [1, L, F], valid, ovf,
+    afail [1, L]) on ``lanes.input_node(F)``; returns L."""
+    succs, valid, ovf, afail = step_outputs
+    L = succs.shape[1]
+    if succs.shape != (1, L, n_fields) or any(x.shape != (1, L)
+                                              for x in (valid, ovf, afail)):
+        raise EmitError(f"step shapes {[x.shape for x in step_outputs]}")
+
+    def store_step(ex):
+        out = [f"succ[{i}] = {e};" for i, e in enumerate(ex[0])]
+        for name, col in (("valid", ex[1]), ("ovf", ex[2]),
+                          ("afail", ex[3])):
+            out += [f"{name}[{i}] = {e};" for i, e in enumerate(col)]
+        return out
+
+    prog.function(
+        "HD void st_step(const int32_t* __restrict__ f, "
+        "const int32_t* __restrict__ K, int32_t* succ, bool* valid, "
+        "bool* ovf, bool* afail)",
+        [succs, valid, ovf, afail], store_step)
+    return L
+
+
 def spec_source(step_outputs, inv_outputs, *, n_fields: int,
                 widths: Sequence[int], n_words: int, lane_action,
                 n_labels: int, title: str,
@@ -352,26 +376,9 @@ def spec_source(step_outputs, inv_outputs, *, n_fields: int,
     struct_reduce.cuh); `por` - one bool per label, the actions POR may
     take as singleton ample sets - prints ST_POR 1 and ST_POR_SAFE (kernel
     K26).  None prints ST_SYM 0 / ST_POR 0."""
-    succs, valid, ovf, afail = step_outputs
-    L = succs.shape[1]
     F = n_fields
-    if succs.shape != (1, L, F) or any(x.shape != (1, L)
-                                       for x in (valid, ovf, afail)):
-        raise EmitError(f"step shapes {[x.shape for x in step_outputs]}")
     prog = Program()
-
-    def store_step(ex):
-        out = [f"succ[{i}] = {e};" for i, e in enumerate(ex[0])]
-        for name, col in (("valid", ex[1]), ("ovf", ex[2]),
-                          ("afail", ex[3])):
-            out += [f"{name}[{i}] = {e};" for i, e in enumerate(col)]
-        return out
-
-    prog.function(
-        "HD void st_step(const int32_t* __restrict__ f, "
-        "const int32_t* __restrict__ K, int32_t* succ, bool* valid, "
-        "bool* ovf, bool* afail)",
-        [succs, valid, ovf, afail], store_step)
+    L = _step_function(prog, step_outputs, F)
     for k, ok in enumerate(inv_outputs):
         if ok.shape != (1,):
             raise EmitError(f"invariant {k} of shape {ok.shape}")
@@ -507,4 +514,60 @@ def cov_source(conds, sites, *, n_sites: int, n_fields: int,
     ]
     text = "\n".join(head) + "\n\n".join(prog.functions) + (
         "\n\n#include \"struct_cov.cuh\"\n")
+    return text, K
+
+
+def infer_source(step_outputs, preds, *, n_fields: int,
+                 widths: Sequence[int], n_words: int, title: str):
+    """(source text, K constants) of the inference kernels K29
+    struct_pred_matrix and K30 struct_certify
+    (torchtlc/kernels/csrc/struct_infer.cuh): the spec's ``st_step`` as
+    spec_source prints it, one ``st_pred_k`` a candidate predicate (ok [1]
+    nodes on ``lanes.input_node(F)``; a constant one prints as a literal),
+    and ``st_preds(f, K, out)``, which writes the P predicates of one row
+    as bits into ``ST_NPW`` uint32 words, bit k % 32 of word k / 32.  Each
+    word is one ``st_pred_word_g`` that nvcc keeps out of line (HDN), so
+    no function grows with P and the kernels call one body each."""
+    for k, p in enumerate(preds):
+        if p.shape != (1,) or p.dtype != bool_:
+            raise EmitError(f"predicate {k} of shape {p.shape}, {p.dtype}")
+    prog = Program()
+    L = _step_function(prog, step_outputs, n_fields)
+    for k, p in enumerate(preds):
+        prog.function(
+            f"HD bool st_pred_{k}(const int32_t* __restrict__ f, "
+            "const int32_t* __restrict__ K)", [p],
+            lambda ex: [f"return {ex[0][0]};"])
+    n_words_p = (len(preds) + 31) // 32
+    for g in range(n_words_p):
+        ks = range(32 * g, min(32 * g + 32, len(preds)))
+        bits = " | ".join(f"((uint32_t)st_pred_{k}(f, K) << {k % 32})"
+                          for k in ks)
+        prog.function(f"HDN uint32_t st_pred_word_{g}(const int32_t* "
+                      "__restrict__ f, const int32_t* __restrict__ K)", [],
+                      lambda ex, bits=bits: [f"return {bits};"])
+    prog.function(
+        "HD void st_preds(const int32_t* __restrict__ f, "
+        "const int32_t* __restrict__ K, uint32_t* out)", [],
+        lambda ex: [f"out[{g}] = st_pred_word_{g}(f, K);"
+                    for g in range(n_words_p)])
+    K = prog.constants()
+    head = [
+        f"// {title}",
+        "// Emitted by torchtlc.struct.emit from the spec's step and the",
+        "// candidate predicates' lane IR: the per-spec body of",
+        "// torchtlc/kernels/csrc/struct_infer.cuh.",
+        "#include \"struct_prelude.cuh\"",
+        "",
+        f"#define ST_F {n_fields}",
+        f"#define ST_W {n_words}",
+        f"#define ST_L {L}",
+        f"#define ST_NPRED {len(preds)}",
+        f"#define ST_NPW {n_words_p}",
+        f"#define ST_NK {K.size}",
+        "#define ST_WIDTHS " + ", ".join(str(int(w)) for w in widths),
+        "",
+    ]
+    text = "\n".join(head) + "\n\n".join(prog.functions) + (
+        "\n\n#include \"struct_infer.cuh\"\n")
     return text, K
