@@ -125,7 +125,28 @@ report, the walls of the build, walk, filter and certify, predicate
 evaluations a second, the busy share, K29 and K30 over the union of the
 sampled rounds (21b); and the commands: TwoPhase, RaftElection's whole
 pool, that walk, a refuted cfg invariant (exit 12) and the refusals
-(21c).  It checks every
+(21c); then the native disk tier (-fpset DiskFPSet, engine.hybrid) on K1's
+sharded variant at D = 1 and K2: FF, Model_1 and Model_1 on 4 partitions
+with every result and the store and queue files pinned to the reference's
+CPU run, a checkpointed Model_1 stopped and resumed to the same digests,
+K1 and K2 bitwise against their plain versions on a Model_1 block (22);
+the scaled 2x1 workload through the disk tier at chunk 131,072 - the
+free space, the wall, distinct states a second, the wall's split and the
+busy share (22b); and the commands: -fpset DiskFPSet alone, with
+-sharded 4 -checkpoint then -recover, -sharded 16, -sharded 3 and -infer
+-fpset DiskFPSet (exit 1) (22c); then the artifact cache behind kernel K31
+(the invariant re-check, one thread a stored row): the CPU tests' cases on
+ArtTiny through the command - a verdict hit with no launch and no nvcc,
+an invariant-only edit and a seeded violation through K31, corrupt
+artifacts, -recheck - and K31 bitwise against its plain version on the
+reachable sets of TwoPhase and RaftReplication with seeded rows (23);
+TwoPhase with RM of 8 in a temporary store - the inversion, write and
+read seconds, the artifacts' bytes, the verdict hit's wall, K31 over
+1,745,408 stored rows, the seeded violation against the full run - and
+RaftReplication with five nodes narrowed through the reach tier and
+un-narrowed through the verdict tier only (23b); and the commands on
+TwoPhase: -artifact-cache DIR, -recheck, -no-artifact-cache, -infer with
+artifact evidence and -simulate's bypass event (23c).  It checks every
 result against its pinned value, holds each kernel bitwise against its
 plain torch version on the card, and prints:
 
@@ -141,8 +162,9 @@ plain torch version on the card, and prints:
   of phases 16-16c, the covered, pipelined, spilling and command runs
   of phases 17-17d, the narrowed engine and command runs of phases
   18-18c, the reduced engine and command runs of phases 19-19c, the
-  walks and commands of phases 20-20c and the inference runs and
-  commands of phases 21-21c;
+  walks and commands of phases 20-20c, the inference runs and
+  commands of phases 21-21c, the disk-tier runs and commands of phases
+  22-22c and the artifact-cache commands of phases 23-23c;
   each path's counts are reset just before it and read just after),
   its error against the plain
   version, its time, the plain version's time, its bound on this card
@@ -164,7 +186,10 @@ emitted backends, ``--phases 17,17b,17c,17d`` the struct coverage,
 pipeline, spill and phase-timing slice, ``--phases 18,18b,18c`` the
 struct -narrow slice, ``--phases 19,19b,19c`` the -symmetry / -por slice,
 ``--phases 20,20b,20c`` the -simulate slice, ``--phases 21,21b,21c`` the
--infer slice.
+-infer slice, ``--phases 22,22b,22c`` the disk tier, ``--phases
+23,23b,23c`` the artifact cache.  Every run but those of phases 23-23c
+has the artifact cache off (TORCHTLC_ARTIFACT_CACHE=off); those use
+temporary stores.
 """
 
 from __future__ import annotations
@@ -396,6 +421,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # every run answers from its engines: the artifact cache is off except
+    # where phases 23-23c point a run at a temporary store
+    os.environ["TORCHTLC_ARTIFACT_CACHE"] = "off"
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     import torchtlc  # noqa: F401  (fails alone, outside the repository)
@@ -529,6 +557,18 @@ def main() -> int:
             runs.update(phase_infer21_real(torch, ops, card, runs))
         if want("21c"):
             runs.update(phase_command21(ops, card, runs, tmp))
+        if want("22"):
+            runs.update(phase_hybrid22(torch, ops, card, runs, tmp))
+        if want("22b"):
+            runs.update(phase_hybrid22_real(torch, ops, card, runs, tmp))
+        if want("22c"):
+            runs.update(phase_command22(ops, card, runs, tmp))
+        if want("23") or want("23b"):
+            runs.update(phase_art23(torch, ops, card, runs, tmp))
+        if want("23b"):
+            runs.update(phase_art23_real(torch, ops, card, runs, tmp))
+        if want("23c"):
+            runs.update(phase_command23(ops, card, runs, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if want("13b"):
@@ -560,7 +600,7 @@ def main() -> int:
                     f"gen_cmd_{tag}" for tag in GEN_NAMES + ("never", "r5")
                 ) + tuple(k for k, v in runs.items()
                           if k.startswith(("shard16", "p17", "p18", "p19",
-                                           "p20", "p21"))
+                                           "p20", "p21", "p22", "p23"))
                           and isinstance(v, dict) and "launches" in v)
     launches = {k: sum(runs[r]["launches"][k] for r in main)
                 for k in ops.KERNELS}
@@ -571,6 +611,13 @@ def main() -> int:
             for h in ops.CERT_LAUNCHES}
     print(f"phase 6 K23 struct_cert_check's {launches['struct_cert_check']} "
           f"launches on the main paths by where it ran: {cert}", flush=True)
+    for pre, what, names in (("p22", "the disk tier", ("expand", "fp64")),
+                             ("p23", "the artifact cache",
+                              ("struct_recheck",))):
+        got = {k: sum(runs[r]["launches"][k] for r in main
+                      if r.startswith(pre)) for k in names}
+        print(f"phase 6 launches on the {pre}* paths ({what}): {got}",
+              flush=True)
     for r in ("shard_m1", "shard_scaled", "shard_scaled_pipe"):
         print(f"phase 6 {r}: {runs[r]['bodies']} bodies, launches per body "
               f"{runs[r]['per_body']:.1f}", flush=True)
@@ -2576,9 +2623,11 @@ def phase_kernels(torch, ops, runs, launches):
                               "jaxtlc/infer/filter.py:71"),
         "struct_certify": ("torchtlc/kernels/csrc/struct_infer.cuh",
                            "jaxtlc/infer/certify.py:38"),
+        "struct_recheck": ("torchtlc/kernels/csrc/struct_recheck.cuh",
+                           "jaxtlc/struct/artifacts.py:722"),
     }
     for key in ("sharded", "live", "struct", "gen", "shard16", "p17", "p18",
-                "p19", "p20", "p21"):
+                "p19", "p20", "p21", "p22", "p23"):
         for name, got in runs.get(f"{key}_rows", {}).items():
             rows.setdefault(name, []).extend(got)
         library.update(runs.get(f"{key}_library", {}))
@@ -7283,6 +7332,899 @@ def phase_command21(ops, card, runs, tmp):
     print("phase 21c commands, transcripts = the reference's: "
           + "; ".join(lines) + f" on {card}", flush=True)
     return out
+
+
+# phases 22-22c: the native disk tier (-fpset DiskFPSet, engine.hybrid:
+# K1's sharded variant at D = 1 and K2 on the card, the store and queue
+# on the host).  HYB22_PINS are jaxtlc.engine.hybrid.check_hybrid(cfg,
+# chunk, fp_partitions=D, fp_path=..., queue_path=...) on the CPU: the
+# counts, the hybrid's own outdegree (first-lane attribution), the
+# per-action counts, the chunks, and the SHA-256 of the store file(s)
+# (concatenated in partition order) and of the queue file
+HYB22_PINS = {
+    'ff': dict(
+        counts=[17020, 8203, 109], outdegree=[1, 0, 3, 2],
+        iterations=109,
+        act_gen={'APIStart': 2284, 'C1': 546, 'C10': 546, 'C11': 365, 'C13':
+                 547, 'C2': 81, 'C3': 56, 'C4': 51, 'C5': 132, 'C6': 27, 'C7':
+                 22, 'C8': 56, 'CStart': 1224, 'DoListReply': 1584,
+                 'DoListRequest': 1271, 'DoReply': 1799, 'DoRequest': 2313,
+                 'PVCDone': 319, 'PVCHavePVCs': 770, 'PVCListedPVCs': 1528,
+                 'PVCStart': 1132, 'c12': 365},
+        act_dist={'APIStart': 1655, 'C1': 338, 'C10': 338, 'C11': 234, 'C13':
+                  335, 'C2': 42, 'C3': 30, 'C4': 29, 'C5': 71, 'C6': 14, 'C7':
+                  13, 'C8': 30, 'CStart': 437, 'DoListReply': 570,
+                  'DoListRequest': 338, 'DoReply': 1085, 'DoRequest': 992,
+                  'PVCDone': 165, 'PVCHavePVCs': 210, 'PVCListedPVCs': 540,
+                  'PVCStart': 501, 'c12': 234},
+        store_sha=('6312ebc979e653f33c18b444429f7f74'
+                   '6d3d74e4c0ace9b761b97f23522e4454'),
+        queue_sha=('a7421e42de2a175c0822f218c5e9e6f0'
+                   '070f4c4af32a63a858981de3c0456ff7')),
+    'm1': dict(
+        counts=[577736, 163408, 124], outdegree=[1, 0, 3, 2],
+        iterations=237,
+        act_gen={'APIStart': 27059, 'C1': 13373, 'C10': 6257, 'C11': 8877,
+                 'C13': 12302, 'C2': 770, 'C3': 1346, 'C4': 483, 'C5': 1253,
+                 'C6': 426, 'C7': 708, 'C8': 673, 'CStart': 54342,
+                 'DoListReply': 70584, 'DoListRequest': 82416, 'DoReply':
+                 67334, 'DoRequest': 149766, 'PVCDone': 4523, 'PVCHavePVCs':
+                 13459, 'PVCListedPVCs': 33946, 'PVCStart': 25217, 'c12': 2620},
+        act_dist={'APIStart': 17759, 'C1': 8345, 'C10': 3937, 'C11': 5518,
+                  'C13': 6771, 'C2': 430, 'C3': 748, 'C4': 271, 'C5': 615,
+                  'C6': 238, 'C7': 396, 'C8': 377, 'CStart': 17188,
+                  'DoListReply': 14371, 'DoListRequest': 10804, 'DoReply':
+                  22595, 'DoRequest': 21066, 'PVCDone': 1565, 'PVCHavePVCs':
+                  4085, 'PVCListedPVCs': 13623, 'PVCStart': 11123, 'c12': 1581},
+        store_sha=('deb476b120577ccdc9b95606452d8495'
+                   '8b4a1c543bb4f2c3dca2f7d62a1661fc'),
+        queue_sha=('ae18409081501357cc799dab859bf203'
+                   '1f82382ec27b97a37317cf350b4a76a3')),
+    'm1_4': dict(
+        counts=[577736, 163408, 124], outdegree=[1, 0, 3, 2],
+        iterations=237,
+        act_gen={'APIStart': 27059, 'C1': 13373, 'C10': 6257, 'C11': 8877,
+                 'C13': 12302, 'C2': 770, 'C3': 1346, 'C4': 483, 'C5': 1253,
+                 'C6': 426, 'C7': 708, 'C8': 673, 'CStart': 54342,
+                 'DoListReply': 70584, 'DoListRequest': 82416, 'DoReply':
+                 67334, 'DoRequest': 149766, 'PVCDone': 4523, 'PVCHavePVCs':
+                 13459, 'PVCListedPVCs': 33946, 'PVCStart': 25217, 'c12': 2620},
+        act_dist={'APIStart': 17759, 'C1': 8345, 'C10': 3937, 'C11': 5518,
+                  'C13': 6771, 'C2': 430, 'C3': 748, 'C4': 271, 'C5': 615,
+                  'C6': 238, 'C7': 396, 'C8': 377, 'CStart': 17188,
+                  'DoListReply': 14371, 'DoListRequest': 10804, 'DoReply':
+                  22595, 'DoRequest': 21066, 'PVCDone': 1565, 'PVCHavePVCs':
+                  4085, 'PVCListedPVCs': 13623, 'PVCStart': 11123, 'c12': 1581},
+        store_sha=('8687ffcf369e5785791a11a1c48d2ab6'
+                   '19d5486785929e120606400ca2ab038d'),
+        queue_sha=('ae18409081501357cc799dab859bf203'
+                   '1f82382ec27b97a37317cf350b4a76a3')),
+}
+HYB22_CFGS = {"ff": (False, False, 256, 1), "m1": (True, True, 1024, 1),
+              "m1_4": (True, True, 1024, 4)}
+HYB22_CKPT = dict(ckpt_every=32, max_chunks=100)
+# phase 22c: (exit code, SHA-256 of struct_masked, stderr) of `python -m
+# jaxtlc.cli check <MC.cfg> <argv>` on the Model_1 pair (the -infer row on
+# TwoPhase Model_1), in one process in this order
+CMD22 = {
+    "disk": ["-noTool", "-fpset", "DiskFPSet"],
+    "ckpt": ["-noTool", "-fpset", "DiskFPSet", "-sharded", "4",
+             "-checkpoint", "CK/h", "-checkpointevery", "32"],
+    "recover": ["-noTool", "-fpset", "DiskFPSet", "-sharded", "4",
+                "-checkpoint", "CK/h", "-recover"],
+    "p16": ["-noTool", "-fpset", "DiskFPSet", "-sharded", "16"],
+    "p3": ["-noTool", "-fpset", "DiskFPSet", "-sharded", "3"],
+    "infer": ["-noTool", "-infer", "-fpset", "DiskFPSet"],
+}
+CMD22_TRANSCRIPT = {
+    'disk': (0, 'be940ce6df34a1b9d701ef0291dc7c34'
+            'f3a2f1df01e9dbb2750548ffb977980d',
+            ''),
+    'ckpt': (0, 'be940ce6df34a1b9d701ef0291dc7c34'
+            'f3a2f1df01e9dbb2750548ffb977980d',
+            ''),
+    'recover': (0, 'be940ce6df34a1b9d701ef0291dc7c34'
+               'f3a2f1df01e9dbb2750548ffb977980d',
+               ''),
+    'p16': (0, 'be940ce6df34a1b9d701ef0291dc7c34'
+           'f3a2f1df01e9dbb2750548ffb977980d',
+           ''),
+    'p3': (1, '77a6651c193f2438517b35c36fb48235'
+          '8201d7685ff2307ed0138c0955a9393c',
+          'Error: -sharded with -fpset DiskFPSet needs a power-of-two partition count, got 3\n'),
+    'infer': (1, 'e3b0c44298fc1c149afbf4c8996fb924'
+             '27ae41e4649b934ca495991b7852b855',
+             'Error: -fpset DiskFPSet not supported with -infer (inference carries no frontier/checkpoint machinery)\n'),
+}
+
+
+def hybrid22_run(torch, ops, cfg, chunk, d, D=1, **kw):
+    """check_hybrid on the card with its store and queue files in d, the
+    launch counts reset just before and read just after: (result,
+    launches)."""
+    from torchtlc.engine.hybrid import check_hybrid
+
+    os.makedirs(d, exist_ok=True)
+    ops.reset_counts()
+    r = check_hybrid(cfg, chunk=chunk, fp_partitions=D,
+                     fp_path=os.path.join(d, "s.fps"),
+                     queue_path=os.path.join(d, "q.sq"), **kw)
+    torch.cuda.synchronize()
+    return r, dict(ops.LAUNCHES)
+
+
+def file_sha(path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for buf in iter(lambda: f.read(1 << 24), b""):
+            h.update(buf)
+    return h.hexdigest()
+
+
+def hybrid22_digests(d):
+    """(store SHA-256 over the partition files in order, queue SHA-256)."""
+    h = hashlib.sha256()
+    for name in sorted(n for n in os.listdir(d) if n.startswith("s.fps")):
+        with open(os.path.join(d, name), "rb") as f:
+            h.update(f.read())
+    return h.hexdigest(), file_sha(os.path.join(d, "q.sq"))
+
+
+def hybrid22_pinned(tag, r, d, pin):
+    got = dict(counts=[r.generated, r.distinct, r.depth],
+               outdegree=list(r.outdegree), act_gen=r.action_generated,
+               act_dist=r.action_distinct, iterations=r.iterations)
+    for k, v in got.items():
+        need(v == pin[k], f"hybrid {tag}: {k} {v}, the reference's {pin[k]}")
+    need(r.violation == 0 and r.queue_left == 0, f"hybrid {tag}: verdict")
+    need(hybrid22_digests(d) == (pin["store_sha"], pin["queue_sha"]),
+         f"hybrid {tag}: the store or queue file differs from the "
+         "reference's")
+
+
+def hybrid22_kernel_checks(torch, ops, tag, cfg, rows, n, chunk, record):
+    """K1's sharded variant at D = 1 over the staged block and K2 on its
+    packed words, bitwise against their plain versions on the card (every
+    lane, the rows past n included), timed."""
+    from torchtlc.engine import sharded as ts
+    from torchtlc.engine.fingerprint import fp64_words, fp64_words_plain
+    from torchtlc.spec.codec import get_codec
+    from torchtlc.spec.kernel import lane_layout
+
+    cdc = get_codec(cfg)
+    F, W, nbits = cdc.n_fields, cdc.n_words, cdc.nbits
+    _, L = lane_layout(cfg)
+    dev = torch.device("cuda")
+    stage = torch.zeros((1, chunk + 1, F), dtype=torch.int32, device=dev)
+    stage[0, :rows.shape[0]] = torch.from_numpy(rows).to(dev)
+    qhead = torch.zeros(1, dtype=torch.int64, device=dev)
+    npop = torch.full((1,), n, dtype=torch.int64, device=dev)
+
+    def err_of(a, b):
+        if a is None or b is None:
+            return 0 if a is b else 1 << 62
+        a, b = a.to(torch.int64), b.to(torch.int64)
+        return int((a - b).abs().max()) if a.numel() else 0
+
+    got = ts.expand_sharded(cfg, stage, qhead, npop, chunk)
+    ref = ts.expand_sharded_plain(cfg, stage, qhead, npop, chunk)
+    err = max(err_of(a, b) for a, b in zip(got, ref))
+    need(err == 0, f"K1 (D = 1) differs from its plain version ({tag})")
+    ncand = chunk * L
+    record("expand/hybrid", f"{tag}: chunk {chunk}, {n} popped", err,
+           cuda_ms(torch, lambda _: ts.expand_sharded(
+               cfg, stage, qhead, npop, chunk), 20),
+           cuda_ms(torch, lambda _: ts.expand_sharded_plain(
+               cfg, stage, qhead, npop, chunk), 2),
+           *gen_bound_ms(chunk * F * 4 + ncand * (W * 4 + 5 + 4 + F * 4),
+                         0))
+    packed = got[0]
+    lo, hi = fp64_words(packed, nbits)
+    lo2, hi2 = fp64_words_plain(packed, nbits)
+    err = max(err_of(lo, lo2), err_of(hi, hi2))
+    need(err == 0, f"K2 differs from its plain version ({tag})")
+    record("fp64/hybrid", f"{tag}: {ncand} lanes", err,
+           cuda_ms(torch, lambda _: fp64_words(packed, nbits), 20),
+           cuda_ms(torch, lambda _: fp64_words_plain(packed, nbits), 2),
+           *gen_bound_ms(ncand * (W * 4 + 8), 0))
+    return int(got[1][0].sum())
+
+
+def phase_hybrid22(torch, ops, card, runs, tmp):
+    """Phase 22: check_hybrid on the card - FF at chunk 256, Model_1 at
+    chunk 1024 and on 4 partitions - each result and the store and queue
+    files pinned to the reference's CPU run; Model_1 checkpointed every 32
+    chunks, stopped at chunk 100 and resumed to the same digests; K1 (D =
+    1) and K2 bitwise against their plain versions on a Model_1 block."""
+    import numpy as np
+
+    from torchtlc.config import ModelConfig
+
+    print(f"phase 22 numpy {np.__version__}, torch {torch.__version__} "
+          f"(CUDA {torch.version.cuda})", flush=True)
+    rows = {}
+    record = gen_recorder(rows)
+    out, lines = {}, []
+    d0 = os.path.join(tmp, "p22")
+    for tag, (fail, to, chunk, D) in HYB22_CFGS.items():
+        cfg = ModelConfig(fail, to)
+        d = os.path.join(d0, tag)
+        r, launches = hybrid22_run(torch, ops, cfg, chunk, d, D)
+        hybrid22_pinned(tag, r, d, HYB22_PINS[tag])
+        need(launches["expand"] == r.iterations
+             and launches["fp64"] == r.iterations + 1,
+             f"hybrid {tag}: launches {launches}")
+        out[f"p22_{tag}"] = {"launches": launches}
+        lines.append(f"{tag} (chunk {chunk}, D {D}): {r.generated} / "
+                     f"{r.distinct} / {r.depth}, outdegree {r.outdegree}, "
+                     f"{r.iterations} chunks in {r.wall_s:.2f} s")
+    # checkpoint every 32 chunks, stop at 100, resume
+    m1 = ModelConfig(True, True)
+    d = os.path.join(d0, "ckpt")
+    ck = os.path.join(d, "h")
+    part, l1 = hybrid22_run(torch, ops, m1, 1024, d, ckpt_path=ck,
+                            **HYB22_CKPT)
+    need(part.iterations == HYB22_CKPT["max_chunks"]
+         and part.queue_left > 0, f"hybrid ckpt: {part.iterations} chunks")
+    r, l2 = hybrid22_run(torch, ops, m1, 1024, d, ckpt_path=ck,
+                         ckpt_every=32, resume=True)
+    hybrid22_pinned("m1 resumed", r, d, HYB22_PINS["m1"])
+    out["p22_ckpt"] = {"launches": {k: l1[k] + l2[k] for k in l1}}
+    lines.append(f"m1 checkpointed every 32 chunks, stopped at "
+                 f"{part.iterations} and resumed to the same digests")
+    # K1 (D = 1) and K2 on a Model_1 block: 1,000 rows popped of 1,024
+    q = np.fromfile(os.path.join(d0, "m1", "q.sq"), dtype=np.int32)
+    from torchtlc.spec.codec import get_codec
+
+    q = q.reshape(-1, get_codec(m1).n_fields)
+    nvalid = hybrid22_kernel_checks(torch, ops, "model1", m1,
+                                    np.ascontiguousarray(q[50000:51024]),
+                                    1000, 1024, record)
+    k1, k2 = rows["expand/hybrid"][0], rows["fp64/hybrid"][0]
+    print("phase 22 -fpset DiskFPSet (check_hybrid), every result and file "
+          "= the reference's (pinned): " + "; ".join(lines)
+          + f"; on a Model_1 block ({nvalid} valid lanes) K1 (D = 1) "
+          f"{k1['ms']:.4f} ms (plain {k1['plain_ms']:.2f} ms, bound "
+          f"{k1['bound_ms']:.4f} ms), K2 {k2['ms']:.4f} ms (plain "
+          f"{k2['plain_ms']:.2f} ms, bound {k2['bound_ms']:.4f} ms), both "
+          f"bitwise = plain, on {card}", flush=True)
+    out["p22_rows"] = rows
+    return out
+
+
+def phase_hybrid22_real(torch, ops, card, runs, tmp):
+    """Phase 22b: the scaled 2x1 workload through the disk tier at chunk
+    131,072 - 62,014,325 / 19,359,985 / 186, a queue file of every
+    distinct state (136 B each, 2.63 GB) and a store grown to 2^25 slots
+    (256 MiB): the temporary directory's free space first, then the wall,
+    distinct states a second, the wall's split (K1 and K2, the copies,
+    the store inserts, the queue's push and pop, the numpy statistics),
+    and the device's busy share under torch.profiler."""
+    from torchtlc.config import scaled_config
+
+    cfg, _ = scaled_config()
+    d = os.path.join(tmp, "p22b")
+    os.makedirs(d, exist_ok=True)
+    free = shutil.disk_usage(d).free
+    print(f"phase 22b temporary directory: {free / 2**30:.1f} GiB free",
+          flush=True)
+    timing = {}
+    (r, launches), traced, busy, by_name = device_busy(
+        torch, lambda: hybrid22_run(torch, ops, cfg, 1 << 17, d,
+                                    timing=timing))
+    need((r.generated, r.distinct, r.depth) == SCALED_COUNTS,
+         f"hybrid scaled: {(r.generated, r.distinct, r.depth)}")
+    need(r.violation == 0 and r.queue_left == 0, "hybrid scaled: verdict")
+    from torchtlc.spec.codec import get_codec
+
+    F = get_codec(cfg).n_fields
+    qbytes = os.path.getsize(os.path.join(d, "q.sq"))
+    sbytes = os.path.getsize(os.path.join(d, "s.fps"))
+    need(qbytes == r.distinct * F * 4, f"hybrid scaled: queue {qbytes} B")
+    need(sbytes == 32 + 8 * (1 << 25), f"hybrid scaled: store {sbytes} B")
+    k1 = sum(v for n, v in by_name.items() if "expand" in n)
+    k2 = sum(v for n, v in by_name.items() if "fp64" in n)
+    split = ", ".join(f"{k} {v:.3f} s" for k, v in sorted(
+        timing.items(), key=lambda kv: -kv[1]))
+    print(f"phase 22b scaled 2x1 through the disk tier (chunk 131,072): "
+          f"{r.generated} / {r.distinct} / {r.depth}, outdegree "
+          f"{r.outdegree}, {r.iterations} chunks; wall {r.wall_s:.3f} s "
+          f"(traced), {r.distinct / r.wall_s:,.0f} distinct states/s; "
+          f"split: {split} (sum {sum(timing.values()):.3f} s); queue file "
+          f"{qbytes:,} B, store {sbytes:,} B; device busy {busy:.3f} s "
+          f"({busy / traced:.1%} of {traced:.3f} s): K1 {k1:.3f} s, K2 "
+          f"{k2:.3f} s on {card}", flush=True)
+    shutil.rmtree(d, ignore_errors=True)
+    return {"p22b_scaled": {"launches": launches, "wall": r.wall_s,
+                            "split": timing, "busy": busy / traced}}
+
+
+def phase_command22(ops, card, runs, tmp):
+    """Phase 22c: `python -m torchtlc.cli check MC.cfg -fpset DiskFPSet` on
+    the Model_1 pair in this process - alone, with -sharded 4 -checkpoint
+    -checkpointevery 32 then -recover, with -sharded 16 (16 partitions,
+    past the sharded engine's limit of 8) and -sharded 3 (exit 1) - and
+    -infer -fpset DiskFPSet on TwoPhase (exit 1): exit codes, transcripts
+    and errors equal to the reference's (pinned)."""
+    d = os.path.join(tmp, "p22c")
+    ckdir = os.path.join(d, "ck")
+    os.makedirs(ckdir)
+    m1 = write_model(d, "Model_1", True, True)
+    two = os.path.join(os.path.dirname(os.path.abspath(__file__)), "specs",
+                       "TwoPhase.toolbox", "Model_1", "MC.cfg")
+    out, lines = {}, []
+    for tag, extra in CMD22.items():
+        cfg = two if tag == "infer" else m1
+        argv = [cfg] + [x.replace("CK", ckdir) for x in extra]
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc, text, launches, wall = command_here(ops, argv)
+        rc_want, sha_want, err_want = CMD22_TRANSCRIPT[tag]
+        sha = hashlib.sha256(struct_masked(text, cfg).encode()).hexdigest()
+        need(rc == rc_want and sha == sha_want and err.getvalue()
+             == err_want, f"command {tag}: exit {rc}, {err.getvalue()!r}, "
+             "the transcript or error differs from the reference's")
+        if rc == 0 and tag != "recover":
+            # (-recover resumes from the final snapshot: its queue is
+            # empty, so it expands nothing)
+            need(launches["expand"] > 0 and launches["fp64"] > 0,
+                 f"command {tag}: K1 / K2 never ran")
+            out[f"p22c_{tag}"] = {"launches": launches}
+        lines.append(f"{tag} exit {rc} ({wall:.2f} s)")
+    print("phase 22c -fpset DiskFPSet commands, transcripts = the "
+          "reference's: " + "; ".join(lines) + f" on {card}", flush=True)
+    return out
+
+
+# phases 23-23c: the artifact cache (struct.artifacts) and kernel K31
+# struct_recheck.  ArtTiny is the reference's artifact-test spec; the
+# TwoPhase copies of phase 23b carry two more definitions that no action
+# references (so the behavior digest, the reach key, is TwoPhase's): a
+# satisfied one for the invariant-only edit and one violated in two steps
+ART23_TLA = """---- MODULE ArtTiny ----
+EXTENDS Naturals
+CONSTANTS MAX
+VARIABLES x, y
+
+Init == /\\ x = 0
+        /\\ y = 0
+
+Up == /\\ x < MAX
+      /\\ x' = x + 1
+      /\\ y' = y
+
+Flip == /\\ x > 0
+        /\\ y' = 1 - y
+        /\\ x' = x
+
+Reset == /\\ x = MAX
+         /\\ x' = 0
+         /\\ y' = y
+
+Next == Up \\/ Flip \\/ Reset
+
+Spec == Init /\\ [][Next]_<<x, y>>
+
+InRange == x <= MAX
+YBit == y <= 1
+YNonNeg == y >= 0
+NoTop == x < MAX
+====
+"""
+TP23_DEFS = ("PreparedKnown == tmPrepared \\subseteq RM\n"
+             "TMRunning == tmState = \"running\"\n")
+ART23_GEOM = ["-chunk", "64", "-qcap", "1024", "-fpcap", "4096"]
+TP23_GEOM = ["-chunk", str(TP8_KW["chunk"]), "-qcap",
+             str(TP8_KW["queue_capacity"]), "-fpcap",
+             str(TP8_KW["fp_capacity"])]
+RR23_GEOM = ["-chunk", str(RR5_KW["chunk"]), "-qcap",
+             str(RR5_KW["queue_capacity"]), "-fpcap",
+             str(RR5_KW["fp_capacity"])]
+_A = ["-frontend", "struct", "-noTool", "-artifact-cache", "STORE"]
+# phase 23's steps on one store (tag -> (model key, argv after the
+# MC.cfg, whether the process store is pointed at STORE)), and phase 23c's
+# on TwoPhase Model_1; ART23_TRANSCRIPT / CMD23_TRANSCRIPT are (exit code,
+# SHA-256 of struct_masked) of `python -m jaxtlc.cli check <MC.cfg> <argv>`
+# on the CPU running the same steps in this order on a store of its own
+ART23_STEPS = {
+    "fresh": ("base", _A + ART23_GEOM, False),
+    "hit": ("base", _A + ART23_GEOM, False),
+    "edit": ("edit", _A + ART23_GEOM, False),
+    "seeded": ("seeded", _A + ART23_GEOM, False),
+    "full": ("seeded", ["-frontend", "struct", "-noTool",
+                        "-no-artifact-cache"] + ART23_GEOM, False),
+}
+ART23_TRANSCRIPT = {
+    'fresh': (0, '20c493d22b8d11ef44cb7a6193e9554d'
+              'a49b9af8d38070b01a256964fbfe3027'),
+    'hit': (0, '4f6d9cd06d6eb8a09c529a23aea32cd8'
+            'b64db3ccb7e1c8dca458497566c1624b'),
+    'edit': (0, '0e46dec1c4adb0730d92cf96eecec828'
+             'd0135bf992255c2753b71f0adc47945c'),
+    'seeded': (12, '14ec87f6f0be4df82659430cdfbe8b45'
+               '89111326e1d941d62d2610645f627449'),
+    'full': (12, '07814fdccfaff09a083da203cffea047'
+             '955beb304284c582fc1cc5f494febb77'),
+}
+_T = ["-noTool", "-nodeadlock"]
+CMD23 = {
+    "fresh": ("two", _T + ["-artifact-cache", "STORE"], False),
+    "hit": ("two", _T + ["-artifact-cache", "STORE"], False),
+    "recheck": ("two", _T + ["-artifact-cache", "STORE", "-recheck"],
+                False),
+    "noart": ("two", _T + ["-no-artifact-cache"], False),
+    "infer": ("two", _T + ["-infer"], True),
+    "sim": ("two", _T + ["-simulate", "-walkers", "16", "-depth", "12",
+                         "-artifact-cache", "STORE"], False),
+}
+CMD23_TRANSCRIPT = {
+    'fresh': (0, 'eefe00acd60e917601998f0e625a8637'
+              '8650aa48a6267d7d7a0f1582f85ba49a'),
+    'hit': (0, 'cc7c01fc20a5db8539d442db02c385db'
+            '22a466edda380be99465f21595dbcc97'),
+    'recheck': (0, 'eefe00acd60e917601998f0e625a8637'
+                '8650aa48a6267d7d7a0f1582f85ba49a'),
+    'noart': (0, 'eefe00acd60e917601998f0e625a8637'
+              '8650aa48a6267d7d7a0f1582f85ba49a'),
+    'infer': (0, '9146e22c13c7239b1e802b4b4a7a5957'
+              '0eff88bad606ffd76dde9a94974a382a'),
+    'sim': (0, '9d682f8726143798cdbdcc9b3921f698'
+            '2bcce36e1dc2df31079432b42793861d'),
+}
+
+
+def models23(tmp):
+    """The model files of phases 23-23c in `tmp`/p23: {key: MC.cfg}."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    specs = os.path.join(here, "specs")
+    two = os.path.join(specs, "TwoPhase.toolbox", "Model_1")
+    raft = os.path.join(specs, "RaftReplication.toolbox", "Model_1")
+    d = os.path.join(tmp, "p23")
+    out = {"two": os.path.join(two, "MC.cfg"),
+           "raft": os.path.join(raft, "MC.cfg")}
+    tp_tla = open(os.path.join(two, "TwoPhase.tla")).read().replace(
+        "\n====", "\n" + TP23_DEFS + "====")
+    rr_tla = open(os.path.join(raft, "RaftReplication.tla")).read()
+
+    def cfg(*invs, **consts):
+        return "".join(f"CONSTANT {k} = {v}\n" for k, v in consts.items()) \
+            + "SPECIFICATION\nSpec\nINVARIANT\n" + "\n".join(invs) + "\n"
+
+    tp8 = dict(RM="{r1, r2, r3, r4, r5, r6, r7, r8}")
+    rr5 = dict(Nodes="{n1, n2, n3, n4, n5}", MaxLog="2", MaxTerm="3")
+    files = {
+        "base": ("ArtTiny", ART23_TLA, cfg("InRange", "YBit", MAX="4")),
+        "edit": ("ArtTiny", ART23_TLA, cfg("InRange", "YBit", "YNonNeg",
+                                           MAX="4")),
+        "seeded": ("ArtTiny", ART23_TLA, cfg("InRange", "YBit", "NoTop",
+                                             MAX="4")),
+        "tp8": ("TwoPhase", tp_tla, cfg("TypeOK", "Agreement",
+                                        "CommitVoted", **tp8)),
+        "tp8_edit": ("TwoPhase", tp_tla, cfg(
+            "TypeOK", "Agreement", "CommitVoted", "PreparedKnown", **tp8)),
+        "tp8_seeded": ("TwoPhase", tp_tla, cfg(
+            "TypeOK", "Agreement", "TMRunning", "CommitVoted", **tp8)),
+        "rr5_3": ("RaftReplication", rr_tla, cfg(
+            "TypeOK", "AtMostOneLeader", "CommitWithinLog", **rr5)),
+        "rr5_4": ("RaftReplication", rr_tla, cfg(
+            "TypeOK", "AtMostOneLeader", "CommitWithinLog",
+            "CommittedAgree", **rr5)),
+    }
+    for key, (mod, tla, text) in files.items():
+        os.makedirs(os.path.join(d, key), exist_ok=True)
+        with open(os.path.join(d, key, f"{mod}.tla"), "w") as f:
+            f.write(tla)
+        with open(os.path.join(d, key, "MC.cfg"), "w") as f:
+            f.write(text)
+        out[key] = os.path.join(d, key, "MC.cfg")
+    return out
+
+
+@contextlib.contextmanager
+def counted_nvcc():
+    """Count the compiler runs of the kernel builds inside the block:
+    yields a list that gets one entry per nvcc resolution (every build,
+    the libraries' and the emitted texts', asks for nvcc first)."""
+    from torchtlc.kernels import build
+
+    calls, real = [], build.nvcc
+
+    def nvcc():
+        calls.append(1)
+        return real()
+
+    build.nvcc = nvcc
+    try:
+        yield calls
+    finally:
+        build.nvcc = real
+
+
+@contextlib.contextmanager
+def artifact_timers():
+    """Seconds spent in the artifact store's inversion, writes and reads
+    inside the block: yields {name: [seconds, ...]}."""
+    from torchtlc.struct import artifacts as ta
+
+    spent = {}
+    saved = {}
+
+    def wrap(owner, name, key):
+        real = getattr(owner, name)
+        saved[(owner, name)] = real
+
+        def timed(*a, **k):
+            t0 = time.time()
+            try:
+                return real(*a, **k)
+            finally:
+                spent.setdefault(key, []).append(time.time() - t0)
+
+        setattr(owner, name, timed)
+
+    wrap(ta, "states_from_table", "inversion")
+    for name in ("put_verdict", "put_reach", "lookup_verdict",
+                 "lookup_reach"):
+        wrap(ta.ArtifactStore, name, name)
+    try:
+        yield spent
+    finally:
+        for (owner, name), real in saved.items():
+            setattr(owner, name, real)
+
+
+def journal_cache(path):
+    with open(path) as f:
+        return [(e["tier"], e["outcome"]) for e in map(json.loads, f)
+                if e["event"] == "cache"]
+
+
+def art23_steps(ops, cfgs, steps, pins, store, tag0):
+    """Run `steps` through the command in this process on `store`, each
+    exit code and masked transcript against the reference's: {tag: (rc,
+    text, launches, wall, nvcc runs, journal events)}."""
+    out = {}
+    for tag, (key, extra, env) in steps.items():
+        cfg = cfgs[key]
+        journal = os.path.join(os.path.dirname(store), f"{tag0}_{tag}.jsonl")
+        argv = [cfg] + [x.replace("STORE", store) for x in extra] + [
+            "-journal", journal]
+        saved = os.environ.get("TORCHTLC_ARTIFACT_CACHE")
+        if env:
+            os.environ["TORCHTLC_ARTIFACT_CACHE"] = store
+        try:
+            with counted_nvcc() as nv:
+                rc, text, launches, wall = command_here(ops, argv)
+        finally:
+            os.environ["TORCHTLC_ARTIFACT_CACHE"] = saved
+        sha = hashlib.sha256(struct_masked(text, cfg).encode()).hexdigest()
+        need([rc, sha] == list(pins[tag]), f"{tag0} {tag}: exit {rc}, the "
+             "transcript differs from the reference's")
+        out[tag] = (rc, text, launches, wall, len(nv),
+                    journal_cache(journal))
+    return out
+
+
+def violation_section(text):
+    lines = text.splitlines()
+    start = next(i for i, ln in enumerate(lines) if "is violated" in ln)
+    end = next(i for i, ln in enumerate(lines) if ln.startswith("Progress("))
+    return lines[start:end]
+
+
+def recheck_row_ops(prog) -> int:
+    """K31's integer operations a stored row: the statements of the
+    emitted invariants (st_inv_k and st_inv_bits, one operation each) and
+    three a field for the unpack (a shift, a mask and an or)."""
+    body = prog.text.split("HD bool st_inv_0(", 1)[-1]
+    return body.split('#include "struct_expand.cuh"', 1)[0].count(";") \
+        + 3 * prog.F
+
+
+def k31_check(torch, ops, tag, prog, words, record=None, reps=20):
+    """K31 bitwise against its plain version on stored rows [N, W] on the
+    card (the bits and the first failing row); timed with `record`.
+    Returns (bits, first)."""
+    bits, first = ops.struct_recheck(prog, words)
+    bits_p, first_p = prog.recheck_plain(words)
+    need(torch.equal(bits, bits_p) and int(first) == int(first_p),
+         f"K31 differs from its plain version ({tag})")
+    if record is not None:
+        N = words.shape[0]
+        record("struct_recheck", f"{tag}: {N:,} rows, W {prog.W}, "
+               f"{prog.n_inv} invariants, {recheck_row_ops(prog)} "
+               "operations a row", 0,
+               cuda_ms(torch, lambda _: ops.struct_recheck(prog, words),
+                       reps),
+               cuda_ms(torch, lambda _: prog.recheck_plain(words), 2),
+               *gen_bound_ms(N * (prog.W * 4 + 4),
+                             N * recheck_row_ops(prog)))
+    return bits, first
+
+
+def art23_reach_sets(torch, ops, cfgs, record):
+    """K31 bitwise against its plain version on the reachable sets of
+    TwoPhase and RaftReplication Model_1 (clean check_struct runs on the
+    card, recovered from their final tables), alone and with seeded random
+    rows appended."""
+    import numpy as np
+
+    from torchtlc.engine.fingerprint import DEFAULT_FP_INDEX, DEFAULT_SEED
+    from torchtlc.struct import artifacts as ta
+    from torchtlc.struct.cache import get_backend
+    from torchtlc.struct.engine import check_struct
+    from torchtlc.struct.loader import load
+
+    rng = np.random.default_rng(SEED)
+    lines = []
+    for name, key in (("TwoPhase", "two"), ("RaftReplication", "raft")):
+        m = load(cfgs[key])
+        be = get_backend(m, False)
+        prog = be.kernels.prog
+        r = check_struct(m, check_deadlock=False, capture_fps=True,
+                         chunk=256, fp_capacity=1 << 15)
+        st = ta.states_from_table(r.fp_table, be.cdc.nbits,
+                                  DEFAULT_FP_INDEX, DEFAULT_SEED)
+        need(st is not None and st.shape[0] == r.distinct,
+             f"{name}: the table did not invert")
+        words = torch.from_numpy(st.view(np.int32)).cuda()
+        _, first = k31_check(torch, ops, name, prog, words)
+        need(int(first) == st.shape[0], f"{name}: a reachable state fails")
+        rnd = rng.integers(0, 2 ** 32, size=(4096, prog.W), dtype=np.uint64)
+        rnd = rnd.astype(np.uint32)
+        if prog.cdc.nbits % 32:
+            rnd[:, -1] &= np.uint32((1 << (prog.cdc.nbits % 32)) - 1)
+        seeded = torch.cat([words, torch.from_numpy(
+            rnd.view(np.int32)).cuda()])
+        bits, first = k31_check(torch, ops, f"{name} seeded", prog, seeded,
+                                record)
+        lines.append(f"{name} {st.shape[0]} states (+4,096 seeded rows: "
+                     f"first failing row {int(first)})")
+    return lines
+
+
+def phase_art23(torch, ops, card, runs, tmp):
+    """Phase 23: the CPU tests' artifact cases on the card, ArtTiny through
+    the command on a temporary store - a fresh run writes both tiers, the
+    verdict hit makes no launch and starts no nvcc, the invariant-only
+    edit is a reach hit through one K31 launch, the seeded violation exits
+    12 with the violation section of the full run, each transcript equal
+    to the reference's (pinned); corrupt artifacts are loud misses that
+    heal; -recheck bypasses the read; K31 bitwise against its plain
+    version on the reachable sets of TwoPhase and RaftReplication with
+    seeded rows."""
+    from torchtlc.struct import artifacts as ta
+    from torchtlc.struct.loader import load
+
+    cfgs = models23(tmp)
+    rows = {}
+    record = gen_recorder(rows)
+    store = os.path.join(tmp, "p23", "tiny_store")
+    res = art23_steps(ops, cfgs, ART23_STEPS, ART23_TRANSCRIPT, store,
+                      "art23")
+    need(sorted(os.listdir(store)) == ["reach", "verdict"],
+         "ArtTiny: the fresh run wrote no artifacts")
+    _, text, launches, _, nv, evs = res["hit"]
+    need(not any(launches.values()) and nv == 0
+         and evs == [("verdict", "hit")]
+         and "Incremental re-check: verdict replayed" in text,
+         f"ArtTiny verdict hit: launches {launches}, {nv} nvcc runs, {evs}")
+    for tag in ("edit", "seeded"):
+        launches, evs = res[tag][2], res[tag][5]
+        need(launches["struct_recheck"] == 1
+             and sum(launches.values()) == 1 and ("reach", "hit") in evs,
+             f"ArtTiny {tag}: launches {launches}, {evs}")
+    need(res["seeded"][0] == res["full"][0] == 12
+         and violation_section(res["seeded"][1])
+         == violation_section(res["full"][1]),
+         "ArtTiny seeded: the violation differs from the full run's")
+    out = {f"p23_{t}": {"launches": r[2]} for t, r in res.items()}
+    st = ta.ArtifactStore(store)
+    m = load(cfgs["base"])
+    for p in (st._path("verdict", ta.verdict_key(m)),
+              st._path("reach", ta.reach_key(m))):
+        raw = open(p, "rb").read()
+        with open(p, "wb") as f:
+            f.write(raw[:-5] + bytes(5))
+    heal = {"corrupt": ("base", _A + ART23_GEOM, False),
+            "recheck": ("base", _A + ART23_GEOM + ["-recheck"], False)}
+    for tag, (key, extra, _) in heal.items():
+        journal = os.path.join(tmp, "p23", f"{tag}.jsonl")
+        rc, text, launches, _ = command_here(ops, [cfgs[key]] + [
+            x.replace("STORE", store) for x in extra] + ["-journal",
+                                                         journal])
+        evs = journal_cache(journal)
+        need(rc == 0 and final_counts(text) == final_counts(
+            res["fresh"][1]), f"ArtTiny {tag}: exit {rc}")
+        if tag == "corrupt":
+            need(text.count("corrupt") >= 2 and {
+                ("verdict", "corrupt"), ("reach", "corrupt"),
+                ("verdict", "write"), ("reach", "write")} <= set(evs)
+                and all(r["ok"] for r in st.verify()),
+                f"ArtTiny corrupt: {evs}")
+        else:
+            need(evs == [("verdict", "bypass"), ("verdict", "write")],
+                 f"ArtTiny -recheck: {evs}")
+        out[f"p23_{tag}"] = {"launches": launches}
+    lines = art23_reach_sets(torch, ops, cfgs, record)
+    k31 = rows["struct_recheck"][-1]
+    print("phase 23 artifact cache (ArtTiny through the command, "
+          "transcripts = the reference's): fresh wrote both tiers, verdict "
+          "hit with 0 launches and 0 nvcc runs, invariant-only edit and "
+          "seeded violation (exit 12, the full run's violation) through one "
+          "K31 launch each, corrupt artifacts healed, -recheck bypassed; "
+          "K31 bitwise = plain on " + "; ".join(lines)
+          + f" (RaftReplication seeded: {k31['ms']:.4f} ms, plain "
+          f"{k31['plain_ms']:.2f} ms) on {card}", flush=True)
+    out.update(p23_rows=rows, p23_cfgs=cfgs)
+    return out
+
+
+def phase_art23_real(torch, ops, card, runs, tmp):
+    """Phase 23b: TwoPhase with RM of 8 (1,745,408 distinct states) in a
+    temporary store - the fresh run writes both tiers (the inversion, write
+    and read seconds, the artifacts' bytes), the verdict hit (its wall, no
+    launch, no nvcc), the invariant-only edit a reach hit through K31 over
+    the 1,745,408 stored rows (K31 timed a launch against its bound), the
+    seeded violation exit 12 with the port's full run's trace; then
+    RaftReplication with five nodes narrowed (53 bits) through the reach
+    tier and un-narrowed (67 bits) through the verdict tier only."""
+    import numpy as np
+
+    from torchtlc.struct import artifacts as ta
+    from torchtlc.struct.cache import get_backend, get_bounds
+    from torchtlc.struct.loader import load
+
+    cfgs = runs.get("p23_cfgs") or models23(tmp)
+    rows = runs.setdefault("p23_rows", {})
+    record = gen_recorder(rows)
+    out, lines = {}, []
+    nvcc_s = prebuild23(ops, cfgs)
+    store = os.path.join(tmp, "p23", "tp8_store")
+    tp = ["-noTool", "-nodeadlock", "-artifact-cache", store] + TP23_GEOM
+
+    def step(tag, key, extra):
+        path = os.path.join(tmp, "p23", f"tp8_{tag}.jsonl")
+        with counted_nvcc() as nv:
+            rc, text, launches, wall = command_here(
+                ops, [cfgs[key]] + extra + ["-journal", path])
+        out[f"p23b_{tag}"] = {"launches": launches}
+        return rc, text, launches, wall, len(nv), journal_cache(path)
+
+    with artifact_timers() as spent:
+        rc, fresh, _, wall_fresh, _, evs = step("fresh", "tp8", tp)
+    need(rc == 0 and final_counts(fresh) == TP8_COUNTS
+         and ("reach", "write") in evs, f"TwoPhase-8 fresh: {rc}, {evs}")
+    nbytes = {t: sum(os.path.getsize(os.path.join(store, t, f))
+                     for f in os.listdir(os.path.join(store, t)))
+              for t in ("verdict", "reach")}
+    with artifact_timers() as spent_hit:
+        rc, text, launches, wall_hit, nv, evs = step("hit", "tp8", tp)
+    need(rc == 0 and final_counts(text) == TP8_COUNTS and nv == 0
+         and not any(launches.values()) and evs == [("verdict", "hit")],
+         f"TwoPhase-8 verdict hit: {launches}, {nv} nvcc runs, {evs}")
+    with artifact_timers() as spent_edit:
+        rc, text, launches, wall_edit, _, evs = step("edit", "tp8_edit", tp)
+    need(rc == 0 and final_counts(text) == TP8_COUNTS
+         and launches["struct_recheck"] == 1 and ("reach", "hit") in evs,
+         f"TwoPhase-8 edit: {rc}, {launches}, {evs}")
+    m = load(cfgs["tp8_edit"])
+    states, _ = ta.ArtifactStore(store).lookup_reach(ta.reach_key(m, False))
+    prog = get_backend(m, False).kernels.prog
+    words = torch.from_numpy(states.view(np.int32)).cuda()
+    _, first = k31_check(torch, ops, "TwoPhase-8", prog, words, record)
+    need(int(first) == TP8_COUNTS[1], "TwoPhase-8: a stored state fails")
+    rc, seeded, launches, wall_seed, _, evs = step("seeded", "tp8_seeded",
+                                                   tp)
+    need(rc == 12 and launches["struct_recheck"] == 1,
+         f"TwoPhase-8 seeded: exit {rc}, {launches}")
+    rc_full, full, _, wall_full, _, _ = step(
+        "full", "tp8_seeded", ["-noTool", "-nodeadlock",
+                               "-no-artifact-cache"] + TP23_GEOM)
+    need(rc_full == 12 and violation_section(seeded)
+         == violation_section(full),
+         "TwoPhase-8 seeded: the trace differs from the full run's")
+    k31 = rows["struct_recheck"][-1]
+    lines.append(
+        f"TwoPhase-8: fresh {wall_fresh:.2f} s (inversion "
+        f"{sum(spent['inversion']):.3f} s, writes "
+        f"{sum(spent.get('put_verdict', [])) + sum(spent['put_reach']):.3f}"
+        f" s; artifacts {nbytes['verdict']:,} B verdict, "
+        f"{nbytes['reach']:,} B reach), verdict hit {wall_hit:.3f} s (read "
+        f"{sum(spent_hit['lookup_verdict']):.4f} s, 0 launches, 0 nvcc), "
+        f"edit {wall_edit:.3f} s (reach read "
+        f"{sum(spent_edit['lookup_reach']):.3f} s; K31 {k31['ms']:.4f} ms "
+        f"a launch over {TP8_COUNTS[1]:,} rows, plain "
+        f"{k31['plain_ms']:.2f} ms, bound {k31['bound_ms']:.4f} ms by "
+        f"{k31['bound_by']}: {k31['shape']}), "
+        f"seeded exit 12 in {wall_seed:.2f} s = the full run's trace "
+        f"({wall_full:.2f} s)")
+    # RaftReplication with five nodes: narrowed through the reach tier,
+    # un-narrowed through the verdict tier only
+    m5 = load(cfgs["rr5_4"])
+    need(get_backend(m5, False).cdc.nbits == 67 and get_backend(
+        m5, False, bounds=get_bounds(m5)).cdc.nbits == 53,
+        "RR5: the codec widths changed")
+    for mode, flags in (("narrow", ["-narrow"]), ("base", [])):
+        store = os.path.join(tmp, "p23", f"rr5_{mode}_store")
+        rr = ["-noTool", "-nodeadlock", "-artifact-cache", store] + flags \
+            + RR23_GEOM
+        rc, text, _, wall_a, _, evs_a = step(f"rr5_{mode}", "rr5_3", rr)
+        need(rc == 0 and final_counts(text) == RR5_COUNTS,
+             f"RR5 {mode} fresh: exit {rc}, {final_counts(text)}")
+        if mode == "base":
+            # no affine inverse at 67 bits: the verdict tier only
+            reach_dir = os.path.join(store, "reach")
+            need(("reach", "skip") in evs_a and not (
+                os.path.isdir(reach_dir) and os.listdir(reach_dir)),
+                f"RR5 base: {evs_a}")
+            lines.append(f"RR5 base: fresh {wall_a:.2f} s {evs_a}")
+            continue
+        rc, text, launches, wall_b, _, evs_b = step(f"rr5_{mode}_edit",
+                                                    "rr5_4", rr)
+        need(rc == 0 and final_counts(text) == RR5_COUNTS
+             and ("reach", "write") in evs_a and ("reach", "hit") in evs_b
+             and launches["struct_recheck"] == 1,
+             f"RR5 narrowed: exit {rc}, {evs_a}, {evs_b}, {launches}")
+        lines.append(f"RR5 {mode}: fresh {wall_a:.2f} s {evs_a}, "
+                     f"invariant-only edit {wall_b:.2f} s {evs_b}")
+    print(f"phase 23b artifact cache at the real size (the six spec "
+          f"libraries built first, nvcc in parallel {nvcc_s:.1f} s): "
+          + "; ".join(lines) + f" on {card}", flush=True)
+    return out
+
+
+def prebuild23(ops, cfgs) -> float:
+    """Build the libraries the commands of phase 23b load (one nvcc a
+    text, all started together), so that each step's wall is its run's:
+    the TwoPhase-8 copies and RaftReplication-5 narrowed and not.
+    Returns the build's wall seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torchtlc.struct.cache import get_backend, get_bounds
+    from torchtlc.struct.loader import load
+
+    progs = []
+    for key, narrow in (("tp8", False), ("tp8_edit", False),
+                        ("tp8_seeded", False), ("rr5_3", True),
+                        ("rr5_4", True), ("rr5_3", False)):
+        m = load(cfgs[key])
+        b = get_backend(m, False, bounds=get_bounds(m) if narrow else None)
+        progs.append(b.kernels.prog)
+    t0 = time.time()
+    with ThreadPoolExecutor(len(progs)) as pool:
+        list(pool.map(ops.struct_lib, progs))
+    return time.time() - t0
+
+
+def phase_command23(ops, card, runs, tmp):
+    """Phase 23c: the commands on TwoPhase Model_1 with a temporary store -
+    -artifact-cache DIR fresh and hit, -recheck, -no-artifact-cache,
+    -infer reading exact evidence from the stored artifact, and -simulate's
+    bypass event - exit codes and transcripts equal to the reference's
+    (pinned), the journal's cache events as the reference's."""
+    cfgs = runs.get("p23_cfgs") or models23(tmp)
+    store = os.path.join(tmp, "p23", "cmd_store")
+    res = art23_steps(ops, cfgs, CMD23, CMD23_TRANSCRIPT, store, "cmd23")
+    want = {"fresh": [("verdict", "miss"), ("reach", "miss"),
+                      ("verdict", "write"), ("reach", "write")],
+            "hit": [("verdict", "hit")],
+            "recheck": [("verdict", "bypass"), ("verdict", "write")],
+            "noart": [], "infer": [("verdict", "bypass")],
+            "sim": [("verdict", "bypass")]}
+    for tag, evs in want.items():
+        need(res[tag][5] == evs, f"command {tag}: cache events "
+             f"{res[tag][5]}")
+    need(not any(res["hit"][2].values()) and res["hit"][4] == 0,
+         "command hit: launches or nvcc")
+    need("exact artifact evidence" in res["infer"][1],
+         "command -infer: no artifact evidence")
+    print("phase 23c artifact-cache commands, transcripts and cache events "
+          "= the reference's: " + "; ".join(
+              f"{t} exit {r[0]} ({r[3]:.2f} s)" for t, r in res.items())
+          + f" on {card}", flush=True)
+    return {f"p23c_{t}": {"launches": r[2]} for t, r in res.items()
+            if r[0] in (0, 12)}
 
 
 if __name__ == "__main__":

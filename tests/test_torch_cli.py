@@ -3,8 +3,8 @@ jaxtlc.cli on the FF corner: exit 0 with the FF counts and a transcript
 equal to the reference's; tool-mode framing; delete_noop exits 12 with
 the reference's counterexample; -checkpoint / -recover; a failing spill
 write exits 75 and resumes; every flag of a path not ported yet is
-refused by name (-narrow and -traceExpressions, refused once, now run as
-the reference's).
+refused by name (the flags refused once - -narrow, -traceExpressions,
+-fpset DiskFPSet, the artifact cache's - now run as the reference's).
 
 Transcripts are compared after masking the dates, times and rates and
 the two lines that name the program and the device (2262, 2187)."""
@@ -179,9 +179,12 @@ FLAG_VALUES = {
 # (-narrow, -symmetry and -por are ignored on KubeAPI specs, as the
 # reference ignores them; the clean run prints no trace for
 # -traceExpressions to annotate; -simulate and -infer run on struct specs
-# only, so on the KubeAPI pair both packages exit 1 with the same error)
+# only, so on the KubeAPI pair both packages exit 1 with the same error;
+# -fpset DiskFPSet runs the native disk tier; the artifact cache's three
+# flags act on struct specs only, so the KubeAPI run ignores them in both
+# packages)
 PORTED = ("narrow", "traceExpressions", "symmetry", "por", "simulate",
-          "infer")
+          "infer", "fpset", "artifactcache", "noartifactcache", "recheck")
 STRUCT_ONLY = {"simulate": "-simulate requires the structural frontend",
                "infer": "-infer requires the structural frontend"}
 

@@ -34,6 +34,7 @@ DROP = ("t", "wall_s", "path", "version", "device")
 @pytest.fixture(autouse=True)
 def _no_reference_artifact_cache(monkeypatch):
     monkeypatch.setenv("JAXTLC_ARTIFACT_CACHE", "off")
+    monkeypatch.setenv("TORCHTLC_ARTIFACT_CACHE", "off")
 
 
 def masked(text: str) -> str:

@@ -39,6 +39,7 @@ NEVER_LEADS = ("NeverLeads == \\A self \\in Nodes : state[self] # "
 @pytest.fixture(autouse=True)
 def _no_reference_artifact_cache(monkeypatch):
     monkeypatch.setenv("JAXTLC_ARTIFACT_CACHE", "off")
+    monkeypatch.setenv("TORCHTLC_ARTIFACT_CACHE", "off")
 
 
 def _cfg(name):

@@ -26,6 +26,7 @@ one_thread()
 @pytest.fixture(autouse=True)
 def _no_reference_artifact_cache(monkeypatch):
     monkeypatch.setenv("JAXTLC_ARTIFACT_CACHE", "off")
+    monkeypatch.setenv("TORCHTLC_ARTIFACT_CACHE", "off")
 
 
 def _gen_meta(D, pipeline):

@@ -105,6 +105,21 @@ def test_infer_package_is_checked():
         assert not bad, f"{path} imports {bad}"
 
 
+def test_capacity_and_recheck_modules_are_checked():
+    """The native disk tier (torchtlc/native, torchtlc/engine/hybrid.py)
+    and the artifact cache (torchtlc/struct/artifacts.py) are among the
+    files the import checks above walk, and none of them names jax or
+    jaxtlc."""
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for path in (os.path.join("torchtlc", "native", "__init__.py"),
+                 os.path.join("torchtlc", "engine", "hybrid.py"),
+                 os.path.join("torchtlc", "struct", "artifacts.py")):
+        assert path in names
+        bad = [m for m in _named_imports(os.path.join(ROOT, path))
+               if _forbidden(m)]
+        assert not bad, f"{path} imports {bad}"
+
+
 def test_absint_copy_is_the_reference_line_for_line():
     """torchtlc/analysis/absint.py is jaxtlc/analysis/absint.py with a note
     added to its docstring and nothing else (its BoundReport digest is the

@@ -52,6 +52,7 @@ INFER_VIOL_CFG = "SPECIFICATION\nSpec\nINVARIANT\nSmall\n"
 @pytest.fixture(autouse=True)
 def _no_reference_artifact_cache(monkeypatch):
     monkeypatch.setenv("JAXTLC_ARTIFACT_CACHE", "off")
+    monkeypatch.setenv("TORCHTLC_ARTIFACT_CACHE", "off")
 
 
 @pytest.fixture(scope="module")

@@ -152,6 +152,7 @@ def ff_cfg(tmp_path_factory):
 @pytest.fixture(autouse=True)
 def _no_reference_artifact_cache(monkeypatch):
     monkeypatch.setenv("JAXTLC_ARTIFACT_CACHE", "off")
+    monkeypatch.setenv("TORCHTLC_ARTIFACT_CACHE", "off")
 
 
 def _masked(text: str, tmp: str = "") -> str:

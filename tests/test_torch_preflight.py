@@ -49,6 +49,7 @@ DROP = ("t", "wall_s", "t_dispatch", "t_fence", "seconds", "path", "version",
 @pytest.fixture(autouse=True)
 def _no_reference_artifact_cache(monkeypatch):
     monkeypatch.setenv("JAXTLC_ARTIFACT_CACHE", "off")
+    monkeypatch.setenv("TORCHTLC_ARTIFACT_CACHE", "off")
 
 
 def _cfg(spec, model="Model_1"):

@@ -55,6 +55,7 @@ SYMV_CFG = "CONSTANT RM = {r1, r2, r3}\nINVARIANT\nSmall\n"
 @pytest.fixture(autouse=True)
 def _no_reference_artifact_cache(monkeypatch):
     monkeypatch.setenv("JAXTLC_ARTIFACT_CACHE", "off")
+    monkeypatch.setenv("TORCHTLC_ARTIFACT_CACHE", "off")
 
 
 @pytest.fixture(scope="module")

@@ -45,6 +45,7 @@ SIM = ["-simulate", "-walkers", "8", "-depth", "16"]
 @pytest.fixture(autouse=True)
 def _no_reference_artifact_cache(monkeypatch):
     monkeypatch.setenv("JAXTLC_ARTIFACT_CACHE", "off")
+    monkeypatch.setenv("TORCHTLC_ARTIFACT_CACHE", "off")
 
 
 @pytest.fixture(scope="module")

@@ -36,6 +36,7 @@ TWO = os.path.join(ROOT, "specs", "TwoPhase.toolbox", "Model_1", "MC.cfg")
 @pytest.fixture(autouse=True)
 def _no_reference_artifact_cache(monkeypatch):
     monkeypatch.setenv("JAXTLC_ARTIFACT_CACHE", "off")
+    monkeypatch.setenv("TORCHTLC_ARTIFACT_CACHE", "off")
 
 
 def stale_leader(tmp_path):

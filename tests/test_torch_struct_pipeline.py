@@ -131,6 +131,7 @@ def test_pipelined_struct_checkpoint_resumes_across_packages(tmp_path, first,
 @pytest.fixture(autouse=True)
 def _no_reference_artifact_cache(monkeypatch):
     monkeypatch.setenv("JAXTLC_ARTIFACT_CACHE", "off")
+    monkeypatch.setenv("TORCHTLC_ARTIFACT_CACHE", "off")
 
 
 def _masked(text: str, tmp: str = "") -> str:

@@ -51,6 +51,7 @@ DROP = ("t", "wall_s", "t_dispatch", "t_fence", "seconds", "path",
 @pytest.fixture(autouse=True)
 def _no_reference_artifact_cache(monkeypatch):
     monkeypatch.setenv("JAXTLC_ARTIFACT_CACHE", "off")
+    monkeypatch.setenv("TORCHTLC_ARTIFACT_CACHE", "off")
 
 
 def _masked(text: str, tmp: str) -> str:

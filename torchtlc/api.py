@@ -17,7 +17,10 @@ properties are checked (the host graph, or above 1M distinct states the
 device capture and fixpoint).  Exit codes are the reference's: 0 no
 error, 12 safety violation, 13 temporal property violated, 75
 interrupted or capacity-exhausted with a final checkpoint, 1 usage or
-configuration error.
+configuration error.  With ``-fpset DiskFPSet`` the KubeAPI path runs the
+native disk tier instead (engine.hybrid: kernels K1 and K2 on the card,
+the fingerprint store and frontier queue on the host, bounded by the
+disk; ``-sharded N`` is then N fingerprint partitions).
 
 A spec the structural frontend takes (frontend.model.StructRunSpec) runs
 through ``_run_check_struct`` (jaxtlc/api.py:982, 1737): the struct
@@ -32,6 +35,14 @@ states and ``-coverage`` from the host walker.  ``-traceExpressions``
 evaluates its expressions over the trace states on every frontend
 (spec.texpr.eval_over_envs over the state environments of spec.texpr,
 struct.oracle or gen.oracle).
+
+A struct check consults the artifact cache first (struct.artifacts,
+jaxtlc/api.py:1587-1625, :1780-1800, :2033-2049): a verdict hit replays
+the stored result before the preflight and any engine build, a
+reachable-set hit re-checks the stored states' invariants in one launch
+of kernel K31 instead of a BFS, and a clean verdict writes both tiers;
+``-artifact-cache DIR``, ``-no-artifact-cache`` and ``-recheck`` steer it,
+and the simulation and inference routes journal a ``cache`` bypass.
 
 ``-narrow`` narrows a struct spec's codec to the certified reachable
 bounds (analysis.absint through struct.cache.get_bounds; only a certified
@@ -148,7 +159,10 @@ def _run_check(args) -> int:
     if args.recover and not args.checkpoint:
         print("Error: -recover requires -checkpoint PATH", file=sys.stderr)
         return 1
-    if not _check_shard_count(args):
+    # under -fpset DiskFPSet, -sharded N counts host partitions (any power
+    # of two, checked by the dispatch as the reference checks it)
+    disk = args.fpset == "DiskFPSet"
+    if not disk and not _check_shard_count(args):
         return 1
     device = _device(args)
     try:
@@ -165,6 +179,7 @@ def _run_check(args) -> int:
     log.starting()
     log.computing_init()
     _open_journal(args, workload=spec.spec_name, device=device_name,
+                  engine="hybrid" if disk else None,
                   params=dict(chunk=args.chunk, queue_capacity=args.qcap,
                               fp_capacity=args.fpcap, sharded=args.sharded,
                               pipeline=args.pipeline,
@@ -311,10 +326,25 @@ def _check_liveness(args, spec, r, log, device) -> bool:
 
 
 def _dispatch_check(args, spec, log, device):
-    """The KubeAPI engine the flags pick: the supervised segmented engine
-    when -auto-grow (default) or -checkpoint is in play, else the plain
-    engine; the sharded ones with -sharded N.  Returns (CheckResult,
-    SupervisedResult or None)."""
+    """The KubeAPI engine the flags pick (jaxtlc/api.py:446-539): the
+    native disk tier with -fpset DiskFPSet (engine.hybrid; -sharded N is
+    then N fingerprint partitions, -checkpoint / -recover its snapshots);
+    the supervised segmented engine when -auto-grow (default) or
+    -checkpoint is in play, else the plain engine; the sharded ones with
+    -sharded N.  Returns (CheckResult, SupervisedResult or None)."""
+    if args.fpset == "DiskFPSet":
+        from .engine.hybrid import check_hybrid
+
+        nparts = max(args.sharded, 1)
+        if nparts & (nparts - 1):
+            raise FileNotFoundError(
+                "-sharded with -fpset DiskFPSet needs a power-of-two "
+                f"partition count, got {nparts}")
+        return check_hybrid(
+            spec.model, chunk=args.chunk, fp_index=spec.fp_index,
+            fp_partitions=nparts, ckpt_path=args.checkpoint or None,
+            ckpt_every=args.checkpointevery, resume=args.recover,
+            device=device), None
     if args.sharded:
         return _dispatch_sharded(args, spec, log, device)
     if args.checkpoint or args.autogrow:
@@ -687,6 +717,7 @@ def _run_check_struct(args, spec) -> int:
     if args.infer:
         return _run_infer_struct(args, spec)
     unsupported = [flag for flag, on in (
+        ("-fpset DiskFPSet", args.fpset != "JaxFPSet"),
         ("-mutation", args.mutation),
         ("-fairness wf_process", args.fairness == "wf_process"),
     ) if on]
@@ -734,9 +765,18 @@ def _run_check_struct(args, spec) -> int:
             queue_capacity=args.qcap, check_deadlock=spec.check_deadlock,
             bounds=report, narrow=args.narrow, symmetry=_symmetry(args))
 
-    rc = _preflight_gate(args, log, struct_preflight)
-    if rc is not None:
-        return rc
+    # the artifact cache (jaxtlc/api.py:1783-1800): both tiers are tried
+    # BEFORE the preflight and any engine build; a verdict hit replays the
+    # cached result (and attests the temporal properties), a reach hit
+    # swaps the BFS for the invariant re-check (kernel K31)
+    plan = _artifact_plan(args, spec, sm, bounds, device)
+    fast = (plan.fast_check(getattr(args, "_journal", None), log)
+            if plan is not None else None)
+    cache_tier = fast[0] if fast is not None else None
+    if cache_tier != "verdict":
+        rc = _preflight_gate(args, log, struct_preflight)
+        if rc is not None:
+            return rc
     # the sharded routes narrow the codec with every trap kept and carry
     # no certificate (jaxtlc/api.py:1040-1093)
     sym, por = _symmetry(args), _por(args)
@@ -744,6 +784,12 @@ def _run_check_struct(args, spec) -> int:
                           elide=not args.sharded, coverage=args.coverage,
                           symmetry=sym, por=por)
     meta_config = struct_meta_config(sm, bounds=bounds)
+    # per-action lines in module-definition (MC.out) order, zero-fire
+    # actions printed 0:0 as TLC does
+    names = set(backend.labels)
+    order = [n for n in sm.module.def_order if n in names]
+    order += [n for n in sorted(names) if n not in order]
+    capture = plan is not None and not args.sharded
     t0 = time.time()
     from .resil.supervisor import EXIT_INTERRUPTED, SlotOverflowError
 
@@ -751,7 +797,9 @@ def _run_check_struct(args, spec) -> int:
               fp_capacity=args.fpcap, obs_slots=_obs_slots(args),
               sort_free=args.sortfree, deferred=args.deferredinv)
     try:
-        if args.sharded and (args.checkpoint or args.autogrow):
+        if fast is not None:
+            r, sup = fast[1]()
+        elif args.sharded and (args.checkpoint or args.autogrow):
             from .resil.supervisor import check_sharded_supervised
 
             sup = check_sharded_supervised(
@@ -773,8 +821,10 @@ def _run_check_struct(args, spec) -> int:
         elif args.checkpoint or args.autogrow:
             from .resil.supervisor import check_supervised
 
+            opts = _sup_opts(args, log)
+            opts.capture_fps = capture
             sup = check_supervised(
-                None, opts=_sup_opts(args, log), device=device,
+                None, opts=opts, device=device,
                 fp_index=spec.fp_index, backend=backend,
                 meta_config=meta_config, pipeline=args.pipeline, **kw)
             r = sup.result
@@ -785,7 +835,8 @@ def _run_check_struct(args, spec) -> int:
                 sm, fp_index=spec.fp_index,
                 check_deadlock=spec.check_deadlock, device=device,
                 coverage=args.coverage, pipeline=args.pipeline,
-                bounds=bounds, symmetry=sym, por=por, **kw), None
+                bounds=bounds, symmetry=sym, por=por, capture_fps=capture,
+                **kw), None
     except SlotOverflowError as e:
         log.msg(1000, f"Run stopped: {e}", severity=1)
         _finish_journal(args)
@@ -794,7 +845,7 @@ def _run_check_struct(args, spec) -> int:
         print(f"Error: {e}", file=sys.stderr)
         _finish_journal(args)
         return 1
-    n_init = len(system.initial_states())
+    n_init = fast[2] if fast is not None else len(system.initial_states())
     log.init_done(n_init)
     if sup is not None and sup.interrupted:
         log.progress(r.depth, r.generated, r.distinct, r.queue_left)
@@ -818,7 +869,13 @@ def _run_check_struct(args, spec) -> int:
                               "plain P ~> Q is checked on the structural "
                               "path.", severity=1)
                 continue
-            res = so.check_leads_to(system, ast[1], ast[2], name)
+            if cache_tier == "verdict":
+                # the cached clean verdict attests every selected property
+                from .struct.artifacts import _PropertyHolds
+
+                res = _PropertyHolds()
+            else:
+                res = so.check_leads_to(system, ast[1], ast[2], name)
             if res.holds:
                 log.msg(1000, f"Temporal property {name} holds "
                               "(fairness: wf_next).")
@@ -857,11 +914,6 @@ def _run_check_struct(args, spec) -> int:
     elif not liveness_violated:
         log.success(r.generated, r.distinct, r.actual_fp_collision,
                     occupancy=r.fp_occupancy)
-        # per-action lines in module-definition (MC.out) order, zero-fire
-        # actions printed 0:0 as TLC does
-        names = set(backend.labels)
-        order = [n for n in sm.module.def_order if n in names]
-        order += [n for n in sorted(names) if n not in order]
         if args.coverage and r.site_coverage is not None:
             _struct_coverage_dump(args, log, spec, sm, backend, r, n_init,
                                   order)
@@ -874,12 +926,58 @@ def _run_check_struct(args, spec) -> int:
     log.final_counts(r.generated, r.distinct, r.queue_left)
     log.depth(r.depth)
     log.finished(int((time.time() - t0) * 1000))
+    if (plan is not None and not violated and not liveness_violated
+            and (sup is None or not (sup.interrupted or sup.exhausted))):
+        # the clean-final-verdict write point (jaxtlc/api.py:2033-2049);
+        # record() re-checks the violation and the certificate itself
+        try:
+            plan.record(r, n_init=n_init,
+                        journal=getattr(args, "_journal", None),
+                        action_order=order)
+        except OSError as e:  # a full disk must not fail the verdict
+            log.msg(1000, f"Warning: artifact cache write failed: {e}",
+                    severity=1)
     _finish_journal(args, r=r, sup=sup, wall_s=time.time() - t0,
                     verdict="liveness_violation" if liveness_violated
                     else None)
     if violated:
         return 12
     return 13 if liveness_violated else 0
+
+
+def _artifact_plan(args, spec, sm, bounds, device):
+    """The artifact cache's plan for a struct run (jaxtlc/api.py:1587-1625),
+    or None when the run is ineligible: resume/fault/mutation runs exist
+    to exercise the engines, coverage/phase-timing runs produce
+    run-shaped artifacts a cached verdict cannot, a reduced run's table
+    is the reduced set, and -no-artifact-cache (or
+    TORCHTLC_ARTIFACT_CACHE=off) disables the store outright.  A re-check
+    runs on `device`."""
+    if (args.recover or args.faults or args.mutation or args.coverage
+            or args.phasetiming or args.simulate or args.infer):
+        return None
+    if _symmetry(args) or _por(args):
+        return None
+    from .struct import artifacts as _arts
+
+    store = _arts.store_for(args)
+    if store is None:
+        return None
+    return _arts.ArtifactPlan(
+        store, sm, check_deadlock=spec.check_deadlock,
+        properties=tuple(spec.properties), fp_capacity=args.fpcap,
+        bounds=bounds, fp_index=spec.fp_index,
+        bypass_read=bool(args.recheck), device=device)
+
+
+def _cache_bypass(args, j, reason: str) -> None:
+    """The `cache` bypass event of a run that never publishes a verdict
+    (simulation, inference), when a store is configured."""
+    from .struct import artifacts as _arts
+
+    if _arts.store_for(args) is not None and j is not None:
+        j.event("cache", tier="verdict", outcome="bypass", key="",
+                reason=reason)
 
 
 def _run_sim_struct(args, spec) -> int:
@@ -937,8 +1035,10 @@ def _run_sim_struct(args, spec) -> int:
                     sim_seed=args.simseed, fp_capacity=args.fpcap,
                     frontend="struct"))
     j = getattr(args, "_journal", None)
-    # the reference journals an artifact-cache bypass here when a store is
-    # configured; the port has no artifact cache yet (its flags exit 2)
+    # jaxtlc/api.py:1243-1250: a poisoned verdict tier would answer later
+    # exhaustive queries with an incomplete-search verdict
+    _cache_bypass(args, j, "simulation verdicts are from incomplete "
+                           "search and never publish")
 
     def struct_preflight():
         from .analysis.preflight import preflight_struct
@@ -1155,8 +1255,11 @@ def _run_infer_struct(args, spec) -> int:
                     depth=args.depth, sim_seed=args.simseed,
                     frontend="struct"))
     j = getattr(args, "_journal", None)
-    # the reference journals an artifact-cache bypass here when a store is
-    # configured; the port has no artifact cache yet (its flags exit 2)
+    # jaxtlc/api.py:1484-1490: inference READS the reachable-set tier as
+    # filter evidence but its verdict is about candidates, not the stated
+    # invariants - it never publishes to the verdict tier
+    _cache_bypass(args, j, "inference verdicts are about candidate "
+                           "invariants and never publish")
 
     def struct_preflight():
         from .analysis.preflight import preflight_struct

@@ -8,7 +8,8 @@ jaxtlc/cli.py on the KubeAPI path.
         [-sharded N [-routefactor F]] [-symmetry] [-por]
         [-simulate [-walkers W] [-depth N] [-sim-seed S]]
         [-infer [-infer-budget N] [-walkers W -depth N -sim-seed S]]
-        [-liveness [-liveness-host]
+        [-fpset DiskFPSet] [-artifact-cache DIR | -no-artifact-cache]
+        [-recheck] [-liveness [-liveness-host]
         [-fairness wf_next|wf_process]] [-noTool] ...
 
 Reads MC.cfg with its sibling MC.tla (and a toolbox .launch if present),
@@ -19,7 +20,8 @@ on its hand-written path; a spec inside the PlusCal-translation subset
 any spec with -frontend gen; a spec outside it (TwoPhase, RaftReplication)
 on the structural frontend, as does any spec with -frontend struct;
 -simulate runs random walks on a struct spec instead, -infer invariant
-inference.  Exit
+inference; -fpset DiskFPSet runs the native disk tier on KubeAPI specs,
+and struct checks consult the artifact cache.  Exit
 codes: 0 no error, 12
 safety violation (with the counterexample trace), 13 temporal property
 violated (with the lasso), 75 interrupted or
@@ -38,8 +40,6 @@ from .api import _run_check
 # flags of paths not ported yet: dest -> (the value that means "not
 # given", what the error says)
 UNPORTED = {
-    "fpset": ("JaxFPSet", "-fpset DiskFPSet (the native disk tier) is "
-              "ported with the capacity tiers (ROADMAP Queue A item 13)"),
     "serve": (0, "-serve (the live monitor server) is ported with the "
               "serving plane (ROADMAP Queue A item 13)"),
     "traceout": ("", "-trace-out (the Chrome-trace export) is ported with "
@@ -50,12 +50,6 @@ UNPORTED = {
               "python3 -m torchtlc.profile"),
     "compilecache": ("", "-compile-cache is XLA's; the port builds its "
                      "kernels once into torchtlc/kernels/_build"),
-    "artifactcache": ("", "-artifact-cache is ported with the struct "
-                      "path's artifact cache (ROADMAP Queue A item 13)"),
-    "noartifactcache": (False, "-no-artifact-cache is ported with the "
-                        "artifact cache (ROADMAP Queue A item 13)"),
-    "recheck": (False, "-recheck is ported with the artifact cache "
-                "(ROADMAP Queue A item 13)"),
 }
 
 
@@ -148,8 +142,12 @@ def _parser() -> argparse.ArgumentParser:
                         "spec: gen; any other spec: struct); gen forces "
                         "the generic frontend, struct runs any spec on "
                         "the structural path")
-    # the flags of paths the port does not run yet: parsed, then refused
-    c.add_argument("-fpset", default="JaxFPSet")
+    c.add_argument("-fpset", default="JaxFPSet",
+                   choices=["JaxFPSet", "DiskFPSet"],
+                   help="JaxFPSet = device-resident fingerprint table; "
+                        "DiskFPSet = native host tier (disk-bounded, the "
+                        "OffHeapDiskFPSet analog; -sharded N = N "
+                        "fingerprint partitions, a power of two)")
     c.add_argument("-pipeline", dest="pipeline", action="store_true",
                    default=False,
                    help="the pipelined body: each step commits the "
@@ -249,10 +247,27 @@ def _parser() -> argparse.ArgumentParser:
     c.add_argument("-compile-cache", dest="compilecache", default="")
     c.add_argument("-no-compile-cache", dest="compilecache",
                    action="store_const", const="off")
-    c.add_argument("-artifact-cache", dest="artifactcache", default="")
+    c.add_argument("-artifact-cache", dest="artifactcache", default="",
+                   metavar="DIR",
+                   help="incremental re-checking artifact store "
+                        "(struct frontend): cached verdicts keyed on the "
+                        "spec's semantic digest (an unchanged spec "
+                        "returns its verdict without building an "
+                        "engine) and cached reachable sets keyed on the "
+                        "behavior digest (an invariant-only edit skips "
+                        "BFS and re-evaluates just the invariants, "
+                        "kernel K31).  Default ~/.cache/torchtlc/"
+                        "artifacts, or $TORCHTLC_ARTIFACT_CACHE (=off "
+                        "disables); artifacts are CRC-verified and "
+                        "written only on clean verdicts")
     c.add_argument("-no-artifact-cache", dest="noartifactcache",
-                   action="store_true")
-    c.add_argument("-recheck", action="store_true")
+                   action="store_true",
+                   help="disable the artifact cache (both tiers) for "
+                        "this run")
+    c.add_argument("-recheck", action="store_true",
+                   help="force a full re-check: bypass the artifact "
+                        "cache on read (the run still refreshes the "
+                        "artifacts it produces)")
     return p
 
 

@@ -7,8 +7,8 @@ certify kernel (K30), and the exact evidence are all built ONCE per
 (model, budget, walk geometry) class, so `run()` is launches only.
 
 Evidence-mode resolution happens at build time (the reachable set is a
-pure function of the model): a stored artifact wins (the port has no
-artifact store yet, ROADMAP Queue A item 13), a host-BFS within budget
+pure function of the model): a stored reachable-set artifact wins
+(struct.artifacts), a host-BFS within budget
 is the exact fallback, and anything bigger samples walk states - per
 run, because sampled evidence is seed-dependent.  Exact evidence is
 cached on the engine (and on its device) and the host BFS's rows in

@@ -8,10 +8,9 @@ from its kill decisions (`alive = matrix.all(axis=states)`).
 
 Evidence comes from three sources, strongest first:
 
-* **artifact**: a reachable-set artifact of a clean exhaustive run -
-  exact: any reachable refutation kills the candidate.  The port has no
-  artifact store yet (ROADMAP Queue A item 13), so this source always
-  misses.
+* **artifact**: a reachable-set artifact of a clean exhaustive run
+  (struct.artifacts) - exact: any reachable refutation kills the
+  candidate.
 * **bfs**: a host-oracle BFS when the state space fits a budget -
   exact, and also the reference the device filter is pinned against.
 * **sim**: random-walk lane states streamed out of the sim engine's
@@ -165,10 +164,26 @@ def host_filter(system, candidates, states: list) -> np.ndarray:
 def artifact_fields(model, backend,
                     check_deadlock: bool = True
                     ) -> Optional[np.ndarray]:
-    """Exact reachable evidence from the artifact store - always None:
-    the port has no artifact store until the artifact cache is ported
-    (ROADMAP Queue A item 13)."""
-    return None
+    """Exact reachable evidence from the artifact store (struct.artifacts,
+    the process store of ``TORCHTLC_ARTIFACT_CACHE``), as decoded field
+    vectors [N, F] int32 - None on miss (no store, no artifact, or a
+    codec that does not match this backend's)."""
+    from ..struct import artifacts as arts
+
+    store = arts.get_store()
+    if store is None:
+        return None
+    hit = store.lookup_reach(arts.reach_key(model, check_deadlock))
+    if hit is None:
+        return None
+    states, meta = hit
+    codec = meta.get("codec_digest")
+    if codec != arts.codec_digest(backend.cdc):
+        return None  # narrowed-run artifact: packed under another codec
+    if states.shape[1] * 32 < backend.cdc.nbits:
+        return None
+    words = torch.from_numpy(np.ascontiguousarray(states).view(np.int32))
+    return backend.cdc.unpack(words).numpy()
 
 
 def bfs_fields(model, backend, check_deadlock: bool = True,

@@ -14,7 +14,9 @@ include) and K23 (struct_cert.cuh, which struct_inv_rows.cuh includes:
 the runtime certificate of a narrowed struct spec) and K24-K26
 (struct_reduce.cuh, which emitted_sharded.cuh includes: the symmetry and
 POR reduction) and, in a struct spec's, K27 and K28 (emitted_sim.cuh with
-threefry.cuh, which struct_expand.cuh includes: the random walk's round),
+threefry.cuh, which struct_expand.cuh includes: the random walk's round)
+and K31 (struct_recheck.cuh, which struct_expand.cuh includes: the
+artifact cache's invariant re-check),
 K20 of a generic spec's temporal operands, K22 of a struct spec's
 coverage conditions and K29 / K30 of an inference run's candidate
 predicates: the C++ that torchtlc.struct.emit prints
@@ -100,7 +102,8 @@ STRUCT_TEMPLATES = ("common.cuh", "struct_prelude.cuh", "struct_codec.cuh",
                     "struct_expand.cuh", "gen_expand.cuh", "gen_masks.cuh",
                     "struct_inv_rows.cuh", "emitted_sharded.cuh",
                     "struct_cov.cuh", "struct_cert.cuh", "struct_reduce.cuh",
-                    "emitted_sim.cuh", "threefry.cuh", "struct_infer.cuh")
+                    "emitted_sim.cuh", "threefry.cuh", "struct_infer.cuh",
+                    "struct_recheck.cuh")
 HOST_FLAGS = ["-x", "c++", "-O1", "-std=c++17", "-shared", "-fPIC"]
 
 

@@ -1,7 +1,7 @@
 // Kernel K17 "struct_expand": the expand stage of a struct-compiled spec
-// (with K18 "struct_inv_rows", K21 "emitted_expand_sharded" and the random
-// walk's K27 "struct_sim_step" and K28 "sim_fold" from the headers it
-// includes).
+// (with K18 "struct_inv_rows", K21 "emitted_expand_sharded", the random
+// walk's K27 "struct_sim_step" and K28 "sim_fold" and the artifact cache's
+// K31 "struct_recheck" from the headers it includes).
 //
 // This is the hand-written template; the per-spec part - st_step, the
 // invariants st_inv_k / st_inv_bits and the macros ST_F, ST_W, ST_L,
@@ -57,6 +57,8 @@
 #include "emitted_sharded.cuh"
 // the random walk's round (K27, K28), written against the emitted names only
 #include "emitted_sim.cuh"
+// the artifact cache's invariant re-check over stored rows (K31)
+#include "struct_recheck.cuh"
 
 // K17's work for one popped row: idx0 = row * ST_L is its first candidate,
 // ncand = ck * ST_L the flag-row stride; count(a) adds one generated

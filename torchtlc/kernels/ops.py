@@ -29,7 +29,7 @@ KERNELS = ("expand", "fp64", "fpset_key", "fpset_probe", "fpset_claim",
            "struct_cov_count", "struct_cert_check", "struct_canon",
            "struct_orbit_check", "struct_por_keep", "struct_sim_step",
            "sim_fold", "struct_pred_matrix", "struct_pred_alive",
-           "struct_certify")
+           "struct_certify", "struct_recheck")
 LAUNCHES = {name: 0 for name in KERNELS}
 # K23's certificate runs standalone (its own wrapper) or inside K17 (kCert)
 # and K18: each launch that evaluates it adds one to
@@ -867,8 +867,8 @@ _ROWS_SIGNATURES = (
 
 def struct_lib(prog):
     """The K17/K18/K21 library of a compiled spec
-    (struct.backend.StructProgram), built from its emitted text at first
-    use and loaded once per text."""
+    (struct.backend.StructProgram; with K23-K28 and K31), built from its
+    emitted text at first use and loaded once per text."""
     return _emitted_lib(prog.text, "tt_struct_dims", (
         ("tt_struct_expand", [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                               _P, _P]),
@@ -876,6 +876,7 @@ def struct_lib(prog):
                                 _I, _P, _P, _P, _P, _P, _P]),
         ("tt_sim_fold", [_I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P, _P, _P, _P]),
+        ("tt_struct_recheck", [_P, _P, _LL, _P, _P, _P]),
         *_ROWS_SIGNATURES),
         (prog.F, prog.W, prog.L, prog.n_inv, prog.n_labels))
 
@@ -966,6 +967,22 @@ def struct_inv_rows(prog, flat: torch.Tensor, fresh: torch.Tensor,
         return viol, state, vaction
     _cert_launched("struct_inv_rows")
     return viol, state, vaction, flag.bool()
+
+
+def struct_recheck(prog, words: torch.Tensor):
+    """K31 over stored rows words [N, W] int32 (packed under the program's
+    codec) -> (bits [N] int32, bit k set where invariant k holds; first
+    0-dim int64, the lowest row index whose bits are not all set, N when
+    none); see struct.backend.StructProgram.recheck_plain."""
+    N = words.shape[0]
+    _need(words, "words", torch.int32, (N, prog.W))
+    dev = words.device
+    bits = torch.empty(N, dtype=torch.int32, device=dev)
+    first = torch.full((), N, dtype=torch.int64, device=dev)
+    _launched("struct_recheck", struct_lib(prog).tt_struct_recheck(
+        _ptr(prog.constants(dev)), _ptr(words), N, _ptr(bits), _ptr(first),
+        _stream()))
+    return bits, first
 
 
 def struct_cert_check(prog, rows: torch.Tensor,

@@ -8,7 +8,9 @@ interrupt and exhaustion messages, the preflight's finding lines - so the
 transcript is a view of the journal and cannot disagree with it.  ``interval_rates`` is the per-minute
 rate arithmetic of the Progress line; ``reduce_gauges`` the state-space
 reduction's gauges of a run (the reference's ``jaxtlc_reduce_*``,
-jaxtlc/obs/views.py:268-278).
+jaxtlc/obs/views.py:268-278); ``cache_gauges`` its artifact-cache hits
+and misses (:207-216), whose hits also render as the "Incremental
+re-check" line (:447-460).
 """
 
 from __future__ import annotations
@@ -41,6 +43,19 @@ def reduce_gauges(events) -> dict:
             "reduce_ample_hit_rate": red["ample_hit_rate"],
             "reduce_orbit_factor": red["orbit_factor"],
             "reduce_distinct": red["distinct"]}
+
+
+def cache_gauges(events) -> dict:
+    """A run's artifact-cache decisions as counters (the reference's
+    jaxtlc_artifact_cache_*, jaxtlc/obs/views.py:207-216): hits and misses
+    of its `cache` events; {} without one."""
+    evs = [e for e in events if e.get("event") == "cache"]
+    if not evs:
+        return {}
+    return {"artifact_cache_hit_total": sum(
+                1 for e in evs if e.get("outcome") == "hit"),
+            "artifact_cache_miss_total": sum(
+                1 for e in evs if e.get("outcome") == "miss")}
 
 
 def render_tlc_event(log, ev: dict, resume_cmd: str = "") -> None:
@@ -106,6 +121,19 @@ def render_tlc_event(log, ev: dict, resume_cmd: str = "") -> None:
                 "distinct totals beyond this level may have wrapped.",
                 severity=1,
             )
+    elif kind == "cache" and ev.get("outcome") == "hit":
+        # loud when a run was answered (or BFS-skipped) from the artifact
+        # cache - misses, writes and bypasses stay journal-only
+        what = ("verdict replayed from the artifact cache (no engine "
+                "was built)" if ev["tier"] == "verdict" else
+                "reachable set loaded from the artifact cache; "
+                "re-evaluating invariants only (BFS skipped)")
+        log.msg(
+            1000,
+            f"Incremental re-check: {what}  [key "
+            f"{ev['key'][:12]}..., -recheck forces a full run]",
+            severity=1,
+        )
     elif kind == "checkpoint":
         log.checkpoint_saved(ev["path"])
     elif kind == "recovery":

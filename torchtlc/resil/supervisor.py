@@ -160,6 +160,10 @@ class SupervisorOptions:
     # measured per-level expand/commit walls through the host-fenced step
     # loop (obs.phases.PhasedRuntime), where the adapter supports it
     phase_timing: bool = False
+    # read the final fingerprint table back to the host on a clean,
+    # unspilled single-device verdict (CheckResult.fp_table: the artifact
+    # cache's reachable-set source; the adapter's CAPTURES_FPS gates it)
+    capture_fps: bool = False
     # on_event(kind, info): checkpoint / ckpt_write_failed / ckpt_fallback
     # / recovery / regrow / retry / interrupted / progress / level /
     # coverage / phase / segment / spill / degrade / exhausted / final
@@ -223,6 +227,7 @@ class SingleDeviceAdapter:
     queue_capacity, fp_capacity."""
 
     kind = "single"
+    CAPTURES_FPS = True
     GEOM_KEYS = ("queue_capacity", "fp_capacity")
     FIXED_KEYS = ("format", "config", "chunk", "fp_index", "seed",
                   "fp_highwater", "pipeline", "obs_slots", "coverage",
@@ -968,6 +973,12 @@ def supervise(adapter, params: dict,
     verdict = ("exhausted" if exhausted
                else "interrupted" if interrupted
                else "violation" if result.violation != OK else "ok")
+    if (opts.capture_fps and verdict == "ok" and spill_rt is None
+            and getattr(adapter, "CAPTURES_FPS", False)):
+        # one host copy of the final table (a spilled run's device table
+        # is partial), as jaxtlc/resil/supervisor.py:1273-1281
+        result = result._replace(
+            fp_table=carry.fps.table.cpu().numpy().view("uint32"))
     _emit(opts, "final", verdict=verdict, generated=result.generated,
           distinct=result.distinct, depth=result.depth,
           queue=result.queue_left, wall_s=round(wall, 6),

@@ -20,7 +20,11 @@ consume.  Its kernel routes are ``StructKernels``:
   (sim.engine): kernel K27 ``struct_sim_step`` (its kInit form for round
   0) and K28 ``sim_fold`` (torchtlc/kernels/csrc/emitted_sim.cuh), or
   their plain versions ``StructProgram.sim_init_plain``,
-  ``sim_step_plain`` and ``sim_fold_plain``.
+  ``sim_step_plain`` and ``sim_fold_plain``;
+* ``recheck(words)`` - the artifact cache's invariant re-check over
+  stored packed rows (struct.artifacts.run_recheck): kernel K31
+  ``struct_recheck`` (torchtlc/kernels/csrc/struct_recheck.cuh) on CUDA
+  rows, ``StructProgram.recheck_plain`` on CPU rows.
 
 With ``coverage=True`` the backend also carries the device coverage plane
 (``StructCoverage``): the site table of the reference (the per-action
@@ -184,6 +188,19 @@ class StructProgram(_Constants):
             for k, ok in enumerate(oks):
                 bits |= ok.reshape(-1).expand(N).to(torch.int32) << k
         return bits
+
+    def recheck_plain(self, words: torch.Tensor):
+        """Torch version of kernel K31 (the reference's _recheck_fn,
+        jaxtlc/struct/artifacts.py:722): stored rows words [N, W] int32 ->
+        (bits [N] int32 from cdc.unpack and the lane-IR invariants,
+        first 0-dim int64: the lowest row whose bits are not all set, N
+        when none)."""
+        N = words.shape[0]
+        bits = self.inv_bits_plain(self.cdc.unpack(words))
+        full = (1 << self.n_inv) - 1
+        bad = torch.nonzero((bits & full) != full).reshape(-1)
+        first = bad[0] if bad.numel() else torch.tensor(N)
+        return bits, first.to(torch.int64)
 
     def cert_plain(self, rows: torch.Tensor,
                    valid: torch.Tensor) -> torch.Tensor:
@@ -591,6 +608,15 @@ class StructKernels(EmittedRows):
         from ..kernels import ops
 
         return ops.struct_por_keep(self.prog, valid)
+
+    def recheck(self, words: torch.Tensor):
+        """Kernel K31 on CUDA stored rows, the plain version on CPU ones:
+        (bits [N] int32, first 0-dim int64)."""
+        if words.is_cuda:
+            from ..kernels import ops
+
+            return ops.struct_recheck(self.prog, words)
+        return self.prog.recheck_plain(words)
 
     def cert(self, rows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         """The certificate of raw rows [N, F] under valid [N]: kernel K23
