@@ -146,7 +146,23 @@ read seconds, the artifacts' bytes, the verdict hit's wall, K31 over
 RaftReplication with five nodes narrowed through the reach tier and
 un-narrowed through the verdict tier only (23b); and the commands on
 TwoPhase: -artifact-cache DIR, -recheck, -no-artifact-cache, -infer with
-artifact evidence and -simulate's bypass event (23c).  It checks every
+artifact evidence and -simulate's bypass event (23c); then the serving
+plane behind kernels K32 (the batched expand, rows x lanes), K33 (the
+fingerprint insert over stacked tables), K34 (the batched walk round,
+lane x walker) and K35 (its fold, one block a lane): TwoPhaseB with MAXR
+over [0, 2] in one dispatch, each lane's counts and table words pinned to
+the reference's CPU run and equal to its sequential run, K32-K35 against
+their plain versions (24); RaftReplication with four servers over MaxTerm
+[4, 7] in one dispatch at chunk 16,384 - the MaxTerm 7 lane's full-run
+counts, every lane bit-equal to its sequential run and count-equal to its
+baked-constant check, the walls in turns, the busy share, K32 and K33 at
+full width (24b); RR5T6's seeds 7-10 at 65,536 walkers in one dispatch,
+each lane equal to its single-lane walk, a seeds x configs batch, K34 and
+K35 a round (24c); and the service on the card - sweep, smoke, pooled,
+infer, supervised and cached jobs, warm resubmits with no build and no
+load, SSE, /metrics, priority preemption resumed through -recover, a
+running deadline, a cancel, a 429 - and `check -trace-out` / `-serve` on
+TwoPhase (pinned) and Model_1 (24d).  It checks every
 result against its pinned value, holds each kernel bitwise against its
 plain torch version on the card, and prints:
 
@@ -164,7 +180,8 @@ plain torch version on the card, and prints:
   18-18c, the reduced engine and command runs of phases 19-19c, the
   walks and commands of phases 20-20c, the inference runs and
   commands of phases 21-21c, the disk-tier runs and commands of phases
-  22-22c and the artifact-cache commands of phases 23-23c;
+  22-22c, the artifact-cache commands of phases 23-23c and the batched
+  sweeps, walks, jobs and commands of phases 24-24d;
   each path's counts are reset just before it and read just after),
   its error against the plain
   version, its time, the plain version's time, its bound on this card
@@ -187,9 +204,11 @@ pipeline, spill and phase-timing slice, ``--phases 18,18b,18c`` the
 struct -narrow slice, ``--phases 19,19b,19c`` the -symmetry / -por slice,
 ``--phases 20,20b,20c`` the -simulate slice, ``--phases 21,21b,21c`` the
 -infer slice, ``--phases 22,22b,22c`` the disk tier, ``--phases
-23,23b,23c`` the artifact cache.  Every run but those of phases 23-23c
-has the artifact cache off (TORCHTLC_ARTIFACT_CACHE=off); those use
-temporary stores.
+23,23b,23c`` the artifact cache, ``--phases 24,24b,24c,24d`` the serving
+plane (constants-class sweeps and smoke batches in one dispatch, kernels
+K32-K35; the service; -serve and -trace-out).  Every run but those of
+phases 23-23c and 24d's cached job has the artifact cache off
+(TORCHTLC_ARTIFACT_CACHE=off); those use temporary stores.
 """
 
 from __future__ import annotations
@@ -569,6 +588,14 @@ def main() -> int:
             runs.update(phase_art23_real(torch, ops, card, runs, tmp))
         if want("23c"):
             runs.update(phase_command23(ops, card, runs, tmp))
+        if want("24") or want("24b") or want("24c") or want("24d"):
+            runs.update(phase_sweep24(torch, ops, card, runs, tmp))
+        if want("24b"):
+            runs.update(phase_sweep24_real(torch, ops, card, runs, tmp))
+        if want("24c"):
+            runs.update(phase_smoke24_real(torch, ops, card, runs, tmp))
+        if want("24d"):
+            runs.update(phase_service24(torch, ops, card, runs, tmp, model))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if want("13b"):
@@ -600,7 +627,8 @@ def main() -> int:
                     f"gen_cmd_{tag}" for tag in GEN_NAMES + ("never", "r5")
                 ) + tuple(k for k, v in runs.items()
                           if k.startswith(("shard16", "p17", "p18", "p19",
-                                           "p20", "p21", "p22", "p23"))
+                                           "p20", "p21", "p22", "p23",
+                                           "p24"))
                           and isinstance(v, dict) and "launches" in v)
     launches = {k: sum(runs[r]["launches"][k] for r in main)
                 for k in ops.KERNELS}
@@ -2625,9 +2653,19 @@ def phase_kernels(torch, ops, runs, launches):
                            "jaxtlc/infer/certify.py:38"),
         "struct_recheck": ("torchtlc/kernels/csrc/struct_recheck.cuh",
                            "jaxtlc/struct/artifacts.py:722"),
+        "emitted_expand_batched": (
+            "torchtlc/kernels/csrc/emitted_batched.cuh",
+            "jaxtlc/serve/sweep.py:260"),
+        "fpset_insert_batched": ("torchtlc/kernels/csrc/fpset_batched.cu",
+                                 "jaxtlc/serve/sweep.py:260"),
+        "struct_sim_step_batched": (
+            "torchtlc/kernels/csrc/emitted_batched.cuh",
+            "jaxtlc/sim/engine.py:477"),
+        "sim_fold_batched": ("torchtlc/kernels/csrc/emitted_batched.cuh",
+                             "jaxtlc/sim/engine.py:477"),
     }
     for key in ("sharded", "live", "struct", "gen", "shard16", "p17", "p18",
-                "p19", "p20", "p21", "p22", "p23"):
+                "p19", "p20", "p21", "p22", "p23", "p24"):
         for name, got in runs.get(f"{key}_rows", {}).items():
             rows.setdefault(name, []).extend(got)
         library.update(runs.get(f"{key}_library", {}))
@@ -6444,7 +6482,13 @@ def models20(tmp):
             ("rr5", {"RaftReplication.tla": raft, "MC.cfg": RR5_CFG},
              "MC.cfg"),
             ("rr5t6", {"RaftReplication.tla": raft, "MC.cfg": RR5T6_CFG},
-             "MC.cfg")):
+             "MC.cfg"),
+            ("tpb1", {"TwoPhaseB.tla": TPB24_TLA,
+                      "TwoPhaseB.cfg": TPB24_CFG.replace("MAXR = 2",
+                                                         "MAXR = 1")},
+             "TwoPhaseB.cfg"),
+            ("chain", {"LoadChain.tla": CHAIN24_TLA,
+                       "LoadChain.cfg": CHAIN24_CFG}, "LoadChain.cfg")):
         os.makedirs(os.path.join(d, key), exist_ok=True)
         for fname, text in files.items():
             with open(os.path.join(d, key, fname), "w") as f:
@@ -6951,7 +6995,13 @@ def models21(tmp):
             ("viol", {"InferViol.tla": INFER_VIOL_TLA,
                       "InferViol.cfg": INFER_VIOL_CFG}, "InferViol.cfg"),
             ("rr5t6", {"RaftReplication.tla": raft, "MC.cfg": RR5T6_CFG},
-             "MC.cfg")):
+             "MC.cfg"),
+            ("tpb1", {"TwoPhaseB.tla": TPB24_TLA,
+                      "TwoPhaseB.cfg": TPB24_CFG.replace("MAXR = 2",
+                                                         "MAXR = 1")},
+             "TwoPhaseB.cfg"),
+            ("chain", {"LoadChain.tla": CHAIN24_TLA,
+                       "LoadChain.cfg": CHAIN24_CFG}, "LoadChain.cfg")):
         os.makedirs(os.path.join(d, key), exist_ok=True)
         for fname, text in files.items():
             with open(os.path.join(d, key, fname), "w") as f:
@@ -8225,6 +8275,873 @@ def phase_command23(ops, card, runs, tmp):
           + f" on {card}", flush=True)
     return {f"p23c_{t}": {"launches": r[2]} for t, r in res.items()
             if r[0] in (0, 12)}
+
+
+# ---------------------------------------------------------------------------
+# phases 24-24d: the serving plane - constants-class sweeps and batched
+# smoke walks in one dispatch (K32-K35), the warm pool, the scheduler and
+# its HTTP service, -serve and -trace-out
+# ---------------------------------------------------------------------------
+
+# TwoPhase with a bounded renege count MAXR, the reference's sweep spec
+# (tests/test_service.py _TPB): MAXR swept over [0, 2]
+TPB24_TLA = """---- MODULE TwoPhaseB ----
+EXTENDS Naturals, FiniteSets, TLC
+
+CONSTANTS RM, MAXR
+
+VARIABLES rmState, tmState, tmPrepared, msgs, reneged
+
+vars == <<rmState, tmState, tmPrepared, msgs, reneged>>
+
+Init == /\\ rmState = [r \\in RM |-> "working"]
+        /\\ tmState = "running"
+        /\\ tmPrepared = {}
+        /\\ msgs = {}
+        /\\ reneged = 0
+
+Vote(r) == /\\ rmState[r] = "working"
+           /\\ rmState' = [rmState EXCEPT ![r] = "prepared"]
+           /\\ msgs' = msgs \\cup {[kind |-> "vote", from |-> r]}
+           /\\ UNCHANGED <<tmState, tmPrepared, reneged>>
+
+Renege(r) == /\\ rmState[r] = "working"
+             /\\ reneged < MAXR
+             /\\ reneged' = reneged + 1
+             /\\ rmState' = [rmState EXCEPT ![r] = "aborted"]
+             /\\ UNCHANGED <<tmState, tmPrepared, msgs>>
+
+Collect(r) == /\\ tmState = "running"
+              /\\ [kind |-> "vote", from |-> r] \\in msgs
+              /\\ tmPrepared' = tmPrepared \\cup {r}
+              /\\ UNCHANGED <<rmState, tmState, msgs, reneged>>
+
+Decide == /\\ tmState = "running"
+          /\\ tmPrepared = RM
+          /\\ tmState' = "committed"
+          /\\ msgs' = msgs \\cup {[kind |-> "commit"]}
+          /\\ UNCHANGED <<rmState, tmPrepared, reneged>>
+
+CallOff == /\\ tmState = "running"
+           /\\ tmState' = "aborted"
+           /\\ msgs' = msgs \\cup {[kind |-> "stop"]}
+           /\\ UNCHANGED <<rmState, tmPrepared, reneged>>
+
+ObeyCommit(r) == /\\ [kind |-> "commit"] \\in msgs
+                 /\\ rmState[r] = "prepared"
+                 /\\ rmState' = [rmState EXCEPT ![r] = "committed"]
+                 /\\ UNCHANGED <<tmState, tmPrepared, msgs, reneged>>
+
+ObeyAbort(r) == /\\ [kind |-> "stop"] \\in msgs
+                /\\ rmState[r] # "committed"
+                /\\ rmState[r] # "aborted"
+                /\\ rmState' = [rmState EXCEPT ![r] = "aborted"]
+                /\\ UNCHANGED <<tmState, tmPrepared, msgs, reneged>>
+
+Next == \\/ Decide
+        \\/ CallOff
+        \\/ \\E r \\in RM : \\/ Vote(r)
+                         \\/ Renege(r)
+                         \\/ Collect(r)
+                         \\/ ObeyCommit(r)
+                         \\/ ObeyAbort(r)
+
+Spec == /\\ Init
+        /\\ [][Next]_vars
+
+Agreement == \\A r1, r2 \\in RM : ~(/\\ rmState[r1] = "aborted"
+                                  /\\ rmState[r2] = "committed")
+
+CommitVoted == tmState = "committed" => tmPrepared = RM
+====
+"""
+TPB24_CFG = ("CONSTANT RM = {r1, r2}\nCONSTANT MAXR = 2\nSPECIFICATION\n"
+             "Spec\nINVARIANT\nAgreement\nCommitVoted\n")
+TPB24_PARAMS = {"MAXR": (0, 2)}
+TPB24_KW = dict(chunk=64, queue_capacity=1 << 10, fp_capacity=1 << 12,
+                check_deadlock=False, width=3)
+# (generated, distinct, depth, Renege fires) per MAXR, and the SHA-256 of
+# each lane's final table words: the reference's SweepEngine.run on the
+# CPU at TPB24_KW
+TPB24_COUNTS = {0: (81, 49, 8, 0), 1: (119, 66, 8, 18), 2: (124, 68, 8, 22)}
+TPB24_TABLES = (
+    "e3803467e86c082d76cfc8a7698fd3407b8e532d839afd9b923b124e39fd31dc",
+    "59db59af65d02f74ffd48a79fcd13420bda0d6c965595c86dd079315d2fae60e",
+    "44f9d256c7f4a7ed7c8b1b081ad5c2cb63bbb646c4e6f0194b023f080c3fee89")
+# RaftReplication with four servers over its term bound: MaxTerm swept over
+# [4, 7] (anchor 7) at phase 19b's geometry.  TypeOK leaves the cfg: its
+# `currentTerm \in [Nodes -> 0..MaxTerm]` sizes a range, which no swept
+# field can (the reference's class compile raises "dynamic .. range" on
+# it, as the port's does); it holds on every state, so the counts are the
+# full run's
+RR4S_CFG = RR4_CFG.replace("TypeOK\n", "")
+RR4S_PARAMS = {"MaxTerm": (4, 7)}
+RR4S_KW = dict(chunk=1 << 14, queue_capacity=1 << 21, fp_capacity=1 << 23,
+               check_deadlock=False, width=4)
+# phase 24c: RR5T6's seeds 7-10 at phase 20b's geometry in one dispatch
+RR5T6_SEEDS = (7, 8, 9, 10)
+# phase 24d: a long chain for the preemption flows (tests/test_service.py
+# _CHAIN_SPEC at MAX 2,000)
+CHAIN24_TLA = """---- MODULE LoadChain ----
+EXTENDS Naturals
+CONSTANTS MAX
+VARIABLES x
+
+Init == x = 0
+
+Up == /\\ x < MAX
+      /\\ x' = x + 1
+
+Next == Up
+
+Spec == Init /\\ [][Next]_x
+
+InRange == x <= MAX
+====
+"""
+CHAIN24_CFG = "CONSTANT MAX = 2000\nSPECIFICATION\nSpec\nINVARIANT\nInRange\n"
+CHAIN24_OPTS = dict(chunk=16, qcap=256, fpcap=1024, nodeadlock=True,
+                    checkpointevery=8, noartifactcache=True)
+SWEEP24 = {"const": "MAXR", "lo": 0, "hi": 2}
+OPTS24 = dict(chunk=64, qcap=1 << 10, fpcap=1 << 12, nodeadlock=True)
+SIM24 = dict(simulate=True, walkers=8, depth=12, fpcap=1 << 10,
+             nodeadlock=True)
+# `check TwoPhase/Model_1/MC.cfg -noTool -nodeadlock -no-artifact-cache
+# -journal J` with -trace-out P (P masked as TRACE) or -serve PORT: the
+# reference's exit code, the SHA-256 of struct_masked(transcript) and its
+# journal's event kinds, on the CPU
+TWO24_EVENTS = ["run_start", "analysis", "analysis_summary", "segment"] + [
+    "level"] * 8 + ["phase", "phase", "final"]
+TWO24_PINS = {
+    "traceout": (0, "48d49d63c1856c6db1362da08bf32d5b"
+                    "7eb361c6798e4a92e2c3149452f42668",
+                 TWO24_EVENTS + ["trace_export"]),
+    "serve": (0, "eefe00acd60e917601998f0e625a8637"
+                 "8650aa48a6267d7d7a0f1582f85ba49a", TWO24_EVENTS),
+}
+
+
+def models24(tmp):
+    """The model files of phases 24-24d in `tmp`/p24: {key: MC.cfg}."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    raft = open(os.path.join(here, "specs", "RaftReplication.toolbox",
+                             "Model_1", "RaftReplication.tla")).read()
+    out = {}
+    for key, files, cfg in (
+            ("tpb", {"TwoPhaseB.tla": TPB24_TLA,
+                     "TwoPhaseB.cfg": TPB24_CFG}, "TwoPhaseB.cfg"),
+            ("rr4s", {"RaftReplication.tla": raft, "MC.cfg": RR4S_CFG},
+             "MC.cfg"),
+            ("rr5t6", {"RaftReplication.tla": raft, "MC.cfg": RR5T6_CFG},
+             "MC.cfg"),
+            ("tpb1", {"TwoPhaseB.tla": TPB24_TLA,
+                      "TwoPhaseB.cfg": TPB24_CFG.replace("MAXR = 2",
+                                                         "MAXR = 1")},
+             "TwoPhaseB.cfg"),
+            ("chain", {"LoadChain.tla": CHAIN24_TLA,
+                       "LoadChain.cfg": CHAIN24_CFG}, "LoadChain.cfg")):
+        d = os.path.join(tmp, "p24", key)
+        os.makedirs(d, exist_ok=True)
+        for name, text in files.items():
+            with open(os.path.join(d, name), "w") as f:
+                f.write(text)
+        out[key] = os.path.join(d, cfg)
+    out["two"] = os.path.join(here, "specs", "TwoPhase.toolbox", "Model_1",
+                              "MC.cfg")
+    return out
+
+
+def prebuild24(ops, cfgs):
+    """Every emitted library phases 24-24d run, built at once (one nvcc a
+    text, in parallel): the TwoPhaseB and RR4 classes, RR4's four
+    baked-constant checks, RR5T6, and the texts of 24d's jobs and
+    commands (a library is found again by its text).  Returns the seconds
+    it took and the number of texts."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torchtlc.serve.sweep import load_anchored, sweep_backend
+    from torchtlc.struct.cache import get_backend
+    from torchtlc.struct.loader import load
+
+    # the batched texts (K32, K34, K35 beside K17): the two classes and
+    # the smoke batches of one configuration
+    progs = [sweep_backend(load_anchored(cfgs["tpb"], TPB24_PARAMS),
+                           TPB24_PARAMS, False).kernels.prog,
+             sweep_backend(load_anchored(cfgs["rr4s"], RR4S_PARAMS),
+                           RR4S_PARAMS, False).kernels.prog,
+             sweep_backend(load(cfgs["rr5t6"]), {}, False).kernels.prog,
+             sweep_backend(load(cfgs["tpb"]), {}, False).kernels.prog]
+    models = [load(cfgs["rr4s"], const_overrides={"MaxTerm": v})
+              for v in (4, 5, 6, 7)]
+    models += [load(cfgs[k]) for k in ("tpb", "tpb1", "chain", "two")]
+    progs += [get_backend(m, False).kernels.prog for m in models]
+    texts = {p.text: p for p in progs}
+    t0 = time.time()
+    with ThreadPoolExecutor(len(texts)) as pool:
+        list(pool.map(ops.struct_lib, texts.values()))
+    return time.time() - t0, len(texts)
+
+
+def step_row_ops(prog) -> int:
+    """K32's integer operations a popped row: the statements of the
+    emitted step (one operation each) and three a field for the unpack
+    and the pack of each lane's successor."""
+    body = prog.text.split("HD void st_step(", 1)[1].split("#include", 1)[0]
+    return body.count(";") + 3 * prog.F * (1 + prog.L)
+
+
+def sweep_lane_words(carries):
+    """The interop words of each lane carry (the reference's leaf names)."""
+    from torchtlc.engine.interop import carry_to_numpy
+
+    return [carry_to_numpy(c) for c in carries]
+
+
+def words_equal(a, b) -> bool:
+    return set(a) == set(b) and all(
+        a[k].dtype == b[k].dtype and (a[k] == b[k]).all() for k in a)
+
+
+def sweep_pops(b, C):
+    """The [K, 4] pops K32 takes at the next body of batched carry `b`
+    (the engine's own rule: two-tier width, frozen lanes 0)."""
+    from torchtlc.engine.bfs import _running
+
+    pops = []
+    small = C // 16 if C >= 1 << 14 else 0
+    for c in b.lanes:
+        h = c.bundle
+        if not _running(h):
+            pops.append([0, 0, 0, 0])
+            continue
+        w = small if small and h.level_n - h.qhead < C // 2 else C
+        pops.append([h.parity, h.qhead, min(max(h.level_n - h.qhead, 0), w),
+                     w])
+    return pops
+
+
+def k32_k33_check(torch, ops, tag, eng, b, record, reps=10):
+    """K32 on the batched carry `b`'s next pops and K33 on that block's
+    valid candidates (each lane's table), against their plain versions:
+    bitwise; timed with `record`, K33's library time being the one sort
+    over (lane, key) at that shape."""
+    import numpy as np
+
+    from torchtlc.engine import fpset
+    from torchtlc.engine.fingerprint import fp64_words
+
+    prog = eng.backend.kernels.prog
+    C, L = eng.chunk, prog.L
+    pops = sweep_pops(b, C)
+    pop = torch.tensor(pops, dtype=torch.int64)
+    deferred = eng.deferred
+    got = ops.emitted_expand_batched(prog, b.queue, pop.cuda(), C, deferred)
+    ref = prog.expand_batched_plain(b.queue, pop, C, deferred)
+    for k, (_, _, _, ck) in enumerate(pops):
+        m = ck * L
+        nf = (3 + prog.n_inv) * m
+        for i, cut in ((0, m), (1, nf), (2, m), (4, m)):
+            if got[i] is not None:
+                need(torch.equal(got[i][k, :cut], ref[i][k, :cut]),
+                     f"K32 output {i} differs from its plain version "
+                     f"({tag}, lane {k})")
+        need(torch.equal(got[3][k], ref[3][k]), f"K32 gen ({tag}, lane {k})")
+    # K33 on the widest lanes' candidates (lanes of one body may differ)
+    w = max(p[3] for p in pops)
+    live = [k for k, p in enumerate(pops) if p[3] == w]
+    rows_popped = sum(p[2] for p in pops)
+    record("emitted_expand_batched", f"{tag}: {len(pops)} lanes, "
+           f"{rows_popped:,} rows popped, L {L}, W {prog.W}", 0,
+           cuda_ms(torch, lambda _: ops.emitted_expand_batched(
+               prog, b.queue, pop.cuda(), C, deferred), reps),
+           cuda_ms(torch, lambda _: prog.expand_batched_plain(
+               b.queue, pop, C, deferred), 2),
+           *gen_bound_ms(rows_popped * prog.W * 4 + sum(
+               p[3] for p in pops) * L * (prog.W * 4 + 3 + prog.n_inv + 4
+                                          + (prog.F * 4 if deferred else 0)),
+               rows_popped * step_row_ops(prog)))
+    n = w * L
+    lo, hi = fp64_words(got[0][live, :n].reshape(-1, prog.W),
+                        prog.cdc.nbits)
+    lo, hi = lo.view(len(live), n), hi.view(len(live), n)
+    mask = got[1][live, :n].bool()
+    R = min(2 * w, n)
+    tables = b.table.clone()
+    res = fpset.fpset_insert_sorted_batched(tables, live, lo, hi, mask,
+                                            probe_width=R, claim_width=R)
+    plain_tables = b.table.clone()
+    ref = fpset.fpset_insert_sorted_batched(
+        plain_tables, live, lo, hi, mask, probe_width=R, claim_width=R,
+        plain=True)
+    for a, r in zip(res, ref):
+        need(torch.equal(a, r), f"K33 differs from its plain version "
+             f"({tag})")
+    need(torch.equal(tables, plain_tables), f"K33 table words ({tag})")
+    keys = fpset.fpset_key_batched(lo, hi, mask)
+    n_valid = int(mask.sum())
+    nreps = int(res[2].sum())
+    record("fpset_insert_batched", f"{tag}: {len(live)} lanes x {n:,} "
+           f"candidates, {n_valid:,} valid, {nreps:,} distinct, R {R:,}", 0,
+           cuda_ms(torch, lambda t: fpset.fpset_insert_sorted_batched(
+               t, live, lo, hi, mask, probe_width=R, claim_width=R), reps,
+               lambda: b.table.clone()),
+           cuda_ms(torch, lambda t: fpset.fpset_insert_sorted_batched(
+               t, live, lo, hi, mask, probe_width=R, claim_width=R,
+               plain=True), 1, lambda: b.table.clone()),
+           *gen_bound_ms(len(live) * n * (8 + 9) + nreps * 64 * 2,
+                         len(live) * n * 40))
+    lib = cuda_ms(torch, lambda _: torch.sort(keys, dim=1, stable=True),
+                  reps)
+    return lib
+
+
+def k34_k35_check(torch, ops, tag, be, init, run, seeds, inits, depth,
+                  record, rounds=3, reps=10, dl=False):
+    """K34 / K35 on the card against their plain versions over a batched
+    walk: `rounds` rounds from round 0 of the kernel route beside the plain
+    route on the same stacked carry, every leaf equal after each; then one
+    round of each kernel timed mid-walk with `record`."""
+    from torchtlc.sim import engine as se
+
+    prog = be.kernels.prog
+    c = init(seeds, inits)
+    buf = init.buffers
+    for r in range(rounds):
+        c = run(c, 1)
+    K, W = c.states.shape[:2]
+    outs = []
+    for kernel in (True, False):
+        cc, bb = clone_carry(c), clone_buffers(buf)
+        bb.go.copy_(((cc.step_i < depth) & (cc.viol == 0)
+                     & cc.alive.any(1)).to(torch.int32))
+        if kernel:
+            ops.struct_sim_step_batched(prog, bb, cc, dl)
+        else:
+            prog.sim_step_batched_plain(bb, cc, dl)
+        outs.append((cc, bb))
+    (ck, bk), (cp, bp) = outs
+    for name in ("states", "alive", "steps_taken"):
+        need(torch.equal(getattr(ck, name), getattr(cp, name)),
+             f"K34 {name} differs from its plain version ({tag})")
+    for name in ("scratch", "packed", "take"):
+        if getattr(bk, name) is not None:
+            need(torch.equal(getattr(bk, name), getattr(bp, name)),
+                 f"K34 {name} differs from its plain version ({tag})")
+    ops.sim_fold_batched(prog, bk, ck, depth)
+    prog.sim_fold_batched_plain(bp, cp, depth)
+    for k in range(K):
+        for a, b in zip(se.carry_to_reference(se.lane_carry(ck, k)),
+                        se.carry_to_reference(se.lane_carry(cp, k))):
+            need(a.shape == b.shape and (a == b).all(),
+                 f"K35 differs from its plain version ({tag}, lane {k})")
+    need(torch.equal(bk.go, bp.go) and torch.equal(bk.scratch, bp.scratch),
+         f"K35 go / reset scratch ({tag})")
+
+    def setup():
+        cc, bb = clone_carry(c), clone_buffers(buf)
+        bb.go.copy_(((cc.step_i < depth) & (cc.viol == 0)
+                     & cc.alive.any(1)).to(torch.int32))
+        return cc, bb
+
+    def setup35():
+        cc, bb = setup()
+        ops.struct_sim_step_batched(prog, bb, cc, dl)
+        return cc, bb
+
+    n_live = int(c.alive.sum())
+    record("struct_sim_step_batched", f"{tag}: {K} lanes x {W:,} walkers "
+           f"({n_live:,} live) at round {rounds + 1}", 0,
+           cuda_ms(torch, lambda a: ops.struct_sim_step_batched(
+               prog, a[1], a[0], dl), reps, setup),
+           cuda_ms(torch, lambda a: prog.sim_step_batched_plain(
+               a[1], a[0], dl), 1, setup),
+           *gen_bound_ms(k27_bytes(prog, n_live, K * W),
+                         n_live * sim_lane_ops(prog)))
+    S = bk.scratch.shape[1]
+    record("sim_fold_batched", f"{tag}: {K} lanes", 0,
+           cuda_ms(torch, lambda a: ops.sim_fold_batched(
+               prog, a[1], a[0], depth), reps, setup35),
+           cuda_ms(torch, lambda a: prog.sim_fold_batched_plain(
+               a[1], a[0], depth), 1, setup35),
+           *gen_bound_ms(K * (8 * S + 4 * prog.n_labels * 2 + 8 * prog.F
+                              + 64), K * (S + prog.n_labels + prog.F)))
+    return c
+
+
+def phase_sweep24(torch, ops, card, runs, tmp):
+    """Phase 24: the shipped sweep - TwoPhaseB with MAXR over [0, 2] at
+    width 3 in one dispatch: each lane's counts and table words against
+    the reference's CPU run (pinned), each lane bit-equal to its
+    sequential run on the card; K32 and K33 against their plain versions
+    on that class mid-run, K34 and K35 on a 256-walker smoke batch."""
+    from torchtlc.serve.sweep import SweepEngine, config_inits, load_anchored
+    from torchtlc.sim.engine import make_batched_sim
+
+    cfgs = models24(tmp)
+    build_s, n_texts = prebuild24(ops, cfgs)
+    print(f"phase 24 build: {n_texts} emitted libraries (K17-K18, K21, "
+          f"K27-K28, K31 in each; K32, K34-K35 in the four batched texts) "
+          f"in {build_s:.1f} s", flush=True)
+    rows = {}
+    record = gen_recorder(rows)
+    m = load_anchored(cfgs["tpb"], TPB24_PARAMS)
+    eng = SweepEngine(m, TPB24_PARAMS, **TPB24_KW)
+    prog = eng.backend.kernels.prog
+    ops.struct_lib(prog)  # built before the timed and counted run
+    configs = [{"MAXR": v} for v in (0, 1, 2)]
+    ops.reset_counts()
+    carries, wall = eng.run_carries(configs)
+    launches = dict(ops.LAUNCHES)
+    for k, v in enumerate((0, 1, 2)):
+        r = eng._result(carries[k], wall)
+        got = (r.generated, r.distinct, r.depth,
+               r.action_generated.get("Renege", 0))
+        need(got == TPB24_COUNTS[v], f"TwoPhaseB MAXR {v}: {got}")
+        need(table_sha256(carries[k].fps.table) == TPB24_TABLES[k],
+             f"TwoPhaseB MAXR {v}: table words differ from the reference's")
+    batched = sweep_lane_words(carries)
+    seq = eng.sequential_carries(configs)
+    for k, (c, _, _) in enumerate(seq):
+        need(words_equal(batched[k], sweep_lane_words([c])[0]),
+             f"TwoPhaseB lane {k} differs from its sequential run")
+    b = eng._stack_fn([eng.carry_for(v) for v in configs])
+    for _ in range(3):
+        b = eng._brun.body(b)
+    lib33 = k32_k33_check(torch, ops, "TwoPhaseB class, body 4", eng, b,
+                          record)
+    # K34 / K35: a 256-walker smoke batch of the class, seeds x configs
+    be = eng.backend
+    init, run = make_batched_sim(be, 3, walkers=256, depth=24,
+                                 fp_capacity=1 << 12, check_deadlock=False)
+    inits = [config_inits(m, TPB24_PARAMS, v, be.cdc) for v in configs]
+    ops.reset_counts()
+    run(init([1, 2, 3], inits))
+    sim_launches = dict(ops.LAUNCHES)
+    k34_k35_check(torch, ops, "TwoPhaseB smoke", be, init, run, [1, 2, 3],
+                  inits, 24, record)
+    k32, k33 = rows["emitted_expand_batched"][-1], \
+        rows["fpset_insert_batched"][-1]
+    print(f"phase 24 shipped sweep (TwoPhaseB, MAXR [0, 2], width 3, one "
+          f"dispatch of {eng._brun.bodies} bodies, {wall:.3f} s): counts "
+          f"{[TPB24_COUNTS[v] for v in (0, 1, 2)]} and table words = the "
+          f"reference's, every lane = its sequential run; K32 "
+          f"{k32['ms']:.4f} ms, K33 {k33['ms']:.4f} ms (sort {lib33:.4f} "
+          f"ms), K34 / K35 = plain on 3 x 256 walkers; launches "
+          f"{ {k: v for k, v in launches.items() if v} } on {card}",
+          flush=True)
+    return {"p24_tpb": {"launches": launches},
+            "p24_smoke": {"launches": sim_launches}, "p24_rows": rows,
+            "p24_library": {"fpset_insert_batched": lib33},
+            "p24_cfgs": cfgs}
+
+
+def phase_sweep24_real(torch, ops, card, runs, tmp):
+    """Phase 24b: RaftReplication with four servers over MaxTerm [4, 7]
+    (anchor 7, width 4) in one dispatch at phase 19b's geometry (chunk
+    16,384, qcap 2^21, fp 2^23 a lane: two-tier, sort-free and deferred
+    all live): the MaxTerm 7 lane gives the full run's counts, every lane
+    is bit-equal (carry leaf for leaf, table words included) to its
+    sequential run and count-equal to the baked-constant check of its
+    MaxTerm; the dispatch's wall against the four sequential runs' in
+    turns; busy share and top device items under torch.profiler; K32 and
+    K33 against their plain versions at full width mid-run."""
+    from torchtlc.serve.sweep import SweepEngine, load_anchored
+    from torchtlc.struct.engine import check_struct
+    from torchtlc.struct.loader import load
+
+    cfgs = runs.get("p24_cfgs") or models24(tmp)
+    rows = runs.setdefault("p24_rows", {})
+    record = gen_recorder(rows)
+    m = load_anchored(cfgs["rr4s"], RR4S_PARAMS)
+    eng = SweepEngine(m, RR4S_PARAMS, **RR4S_KW)
+    ops.struct_lib(eng.backend.kernels.prog)
+    configs = [{"MaxTerm": v} for v in (4, 5, 6, 7)]
+    walls = {"batched": [], "sequential": []}
+    out = {}
+    for turn in range(2):
+        ops.reset_counts()
+        carries, wall = eng.run_carries(configs)
+        out[f"p24b_rr4_{turn}"] = {"launches": dict(ops.LAUNCHES)}
+        walls["batched"].append(round(wall, 4))
+        if turn == 0:
+            results = [eng._result(c, wall) for c in carries]
+            counts = [(r.generated, r.distinct, r.depth) for r in results]
+            need(counts[3] == RR4_COUNTS["base"], f"RR4 MaxTerm 7 lane: "
+                 f"{counts[3]}, the full run's {RR4_COUNTS['base']}")
+            batched = sweep_lane_words(carries)
+            bodies, lane_bodies = eng._brun.bodies, eng._brun.lane_bodies
+        del carries
+        seq = eng.sequential_carries(configs)
+        walls["sequential"].append(round(sum(w for _, w, _ in seq), 4))
+        if turn == 0:
+            for k, (c, _, _) in enumerate(seq):
+                need(words_equal(batched[k], sweep_lane_words([c])[0]),
+                     f"RR4 lane {k} differs from its sequential run")
+        del seq
+    del batched
+    for k, v in enumerate((4, 5, 6, 7)):
+        base = load(cfgs["rr4s"], const_overrides={"MaxTerm": v})
+        r = check_struct(base, check_deadlock=False,
+                         **{k2: v2 for k2, v2 in RR4S_KW.items()
+                            if k2 not in ("width", "check_deadlock")})
+        need((r.generated, r.distinct, r.depth) == counts[k],
+             f"RR4 MaxTerm {v}: {counts[k]}, the baked check's "
+             f"{(r.generated, r.distinct, r.depth)}")
+    _, traced, busy, by_name = device_busy(
+        torch, lambda: eng.run_carries(configs))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    b = eng._stack_fn([eng.carry_for(v) for v in configs])
+    for _ in range(60):
+        b = eng._brun.body(b)
+    lib33 = k32_k33_check(torch, ops, "RR4 class, body 61", eng, b, record,
+                          reps=5)
+    del b
+    k32, k33 = rows["emitted_expand_batched"][-1], \
+        rows["fpset_insert_batched"][-1]
+    print(f"phase 24b RR4 class (Nodes n1..n4, MaxLog 2, MaxTerm [4, 7], "
+          f"width 4, chunk 16,384, fp 2^23 a lane): counts {counts} in one "
+          f"dispatch of {bodies} bodies ({lane_bodies} lane bodies), the "
+          f"MaxTerm 7 lane = the full run's, every lane = its sequential "
+          f"run leaf for leaf and = its baked-constant check's counts; "
+          f"walls in turns: batched {walls['batched']} s, the four "
+          f"sequential runs {walls['sequential']} s; under torch.profiler: "
+          f"wall {traced:.3f} s, device busy {busy:.3f} s "
+          f"({busy / traced:.1%}), top {[(k[:40], round(v, 4)) for k, v in top]}; "
+          f"K32 {k32['ms']:.4f} ms (plain {k32['plain_ms']:.1f} ms, bound "
+          f"{k32['bound_ms']:.4f} ms by {k32['bound_by']}), K33 "
+          f"{k33['ms']:.4f} ms (plain {k33['plain_ms']:.1f} ms, its sort "
+          f"{lib33:.4f} ms); the dispatch's launches "
+          f"{ {k: v for k, v in out['p24b_rr4_0']['launches'].items() if v} } "
+          f"on {card}", flush=True)
+    out["p24b_rr4"] = dict(walls=walls, busy=busy / traced, top=top)
+    out["p24_library"] = {"fpset_insert_batched": lib33}
+    return out
+
+
+def phase_smoke24_real(torch, ops, card, runs, tmp):
+    """Phase 24c: RR5T6 at 65,536 walkers, depth 100, fp 2^22, deadlock
+    off, seeds 7-10 in one dispatch: lane 7 gives phase 20b's pinned counts, every
+    lane is bit-equal (walk carry leaf for leaf) to the single-lane engine
+    of its seed; then a seeds x configs batch over the RR4 MaxTerm class
+    against its single-lane runs; K34 and K35 a round at 4 x 65,536
+    walkers against their plain versions, timed."""
+    from torchtlc.serve.sweep import config_inits, load_anchored
+    from torchtlc.sim.engine import SimEngine, carry_to_reference
+    from torchtlc.struct.loader import load
+
+    cfgs = runs.get("p24_cfgs") or models24(tmp)
+    rows = runs.setdefault("p24_rows", {})
+    record = gen_recorder(rows)
+    kw = dict(walkers=65536, depth=100, fp_capacity=1 << 22,
+              check_deadlock=False, width=4)
+    eng = SimEngine(load(cfgs["rr5t6"]), **kw)
+    ops.struct_lib(eng.backend.kernels.prog)
+    items = [(s, None) for s in RR5T6_SEEDS]
+    ops.reset_counts()
+    carries, wall = eng.run_carries(items)
+    out = {"p24c_rr5t6": {"launches": dict(ops.LAUNCHES)}}
+    res = [eng._result(c, wall, s) for c, s in zip(carries, RR5T6_SEEDS)]
+    got = {k: getattr(res[0], k) for k in RR5T6_COUNTS}
+    need(got == RR5T6_COUNTS, f"RR5T6 seed 7 lane: {got}")
+    lanes = [carry_to_reference(c) for c in carries]
+    del carries
+    for k, s in enumerate(RR5T6_SEEDS):
+        c = eng._run_fn(eng.carry_for(s))
+        for a, b in zip(carry_to_reference(c), lanes[k]):
+            need(a.shape == b.shape and (a == b).all(),
+                 f"RR5T6 seed {s}: the lane differs from its single-lane run")
+    # the walls in turns: one dispatch of the four seeds, the four
+    # single-lane walks (execution only, each after its carry's init)
+    walls = {"batched": [], "sequential": []}
+    for _ in range(2):
+        walls["batched"].append(round(eng.run_carries(items)[1], 4))
+        walls["sequential"].append(round(sum(
+            r.wall_s for r in eng.run_sequential(items)), 4))
+    # seeds x configs over the RR4 MaxTerm class
+    m4 = load_anchored(cfgs["rr4s"], RR4S_PARAMS)
+    e4 = SimEngine(m4, params=RR4S_PARAMS, **kw)
+    ops.struct_lib(e4.backend.kernels.prog)
+    items4 = [(7, {"MaxTerm": 4}), (8, {"MaxTerm": 5}), (7, {"MaxTerm": 7}),
+              (9, {"MaxTerm": 7})]
+    ops.reset_counts()
+    r4 = e4.run(items4)
+    out["p24c_rr4"] = {"launches": dict(ops.LAUNCHES)}
+    s4 = e4.run_sequential(items4)
+    fields = ("steps", "generated", "transitions", "distinct", "violation",
+              "depth_hist", "action_generated", "halted")
+    for a, b in zip(r4, s4):
+        need([getattr(a, f) for f in fields] == [getattr(b, f)
+                                                 for f in fields],
+             "RR4 seeds x configs: a lane differs from its single-lane run")
+    inits = [eng.backend.initial_vectors()] * 4
+    k34_k35_check(torch, ops, "RR5T6 smoke batch", eng.backend, eng._binit,
+                  eng._brun, list(RR5T6_SEEDS), inits, 100, record,
+                  rounds=10, reps=5)
+    k34, k35 = rows["struct_sim_step_batched"][-1], rows["sim_fold_batched"][-1]
+    print(f"phase 24c RR5T6 smoke batch (65,536 walkers, depth 100, fp "
+          f"2^22, seeds {list(RR5T6_SEEDS)}; walls in turns: one dispatch "
+          f"{walls['batched']} s, the four single-lane walks "
+          f"{walls['sequential']} s): seed "
+          f"7 lane = {RR5T6_COUNTS}, lanes {[(r.steps, r.generated, r.transitions, r.distinct) for r in res]}, "
+          f"every lane = its single-lane run leaf for leaf; RR4 MaxTerm "
+          f"class seeds x configs {[(r.steps, r.generated, r.distinct) for r in r4]} "
+          f"= single-lane; a round at round 11: K34 {k34['ms']:.4f} ms "
+          f"(plain {k34['plain_ms']:.1f} ms, bound {k34['bound_ms']:.5f} ms "
+          f"by {k34['bound_by']}), K35 {k35['ms']:.4f} ms (plain "
+          f"{k35['plain_ms']:.2f} ms) on {card}", flush=True)
+    out["p24c"] = dict(walls=walls)
+    return out
+
+
+def phase_service24(torch, ops, card, runs, tmp, model):
+    """Phase 24d: the service in-process on the card - the TwoPhaseB trio
+    (one batched dispatch), a smoke job, a pooled job, an infer job, a
+    large supervised job and a cached re-submit; a warm resubmit that
+    meters 0 builds and 0 loads; an SSE stream to `final`; /metrics;
+    priority preemption resumed through -recover to the uninterrupted
+    run's counts; a running deadline, a running cancel, a 429; then `check
+    ... -trace-out` and `-serve` on TwoPhase (transcripts and journal
+    events pinned to the reference's CPU runs) and on Model_1 (counts, the
+    trace's events, the monitor answering mid-run)."""
+    import threading
+    import urllib.request
+
+    from torchtlc.obs import journal as obs_journal
+    from torchtlc.serve import client
+    from torchtlc.serve.pool import builds, loads
+    from torchtlc.serve.server import start_server
+
+    cfgs = runs.get("p24_cfgs") or models24(tmp)
+    root = os.path.join(tmp, "p24", "serve")
+    t0 = time.time()
+    srv = start_server(root, sweep_width=3)
+    out = {}
+    try:
+        url = srv.url
+        tpb = TPB24_TLA
+        cfg2 = TPB24_CFG
+        cfg1 = cfg2.replace("MAXR = 2", "MAXR = 1")
+        ops.reset_counts()
+        ids = {v: client.submit(url, tpb, cfg2, name=f"tpb{v}",
+                                constants={"MAXR": v}, sweep=SWEEP24,
+                                options=OPTS24) for v in (0, 1, 2)}
+        ids["smoke"] = client.submit(url, tpb, cfg2, name="smoke",
+                                     options=dict(SIM24, simseed=1))
+        ids["pool"] = client.submit(url, tpb, cfg2, name="pool",
+                                    options=OPTS24)
+        ids["infer"] = client.submit(url, tpb, cfg2, name="infer",
+                                     options=dict(infer=True, inferbudget=16,
+                                                  nodeadlock=True))
+        ids["large"] = client.submit(url, tpb, cfg1, name="large",
+                                     options=dict(OPTS24, fpcap=1 << 17,
+                                                  noartifactcache=True))
+        st = {k: client.wait(url, i, timeout=120) for k, i in ids.items()}
+        out["p24d_jobs"] = {"launches": dict(ops.LAUNCHES)}
+        for v in (0, 1, 2):
+            r = st[v]["result"]
+            need(st[v]["state"] == "done" and r["engine"] == "sweep"
+                 and (r["generated"], r["distinct"], r["depth"],
+                      r["action_generated"].get("Renege", 0))
+                 == TPB24_COUNTS[v], f"service sweep job {v}: {st[v]}")
+        need(st["smoke"]["result"]["engine"] == "sim"
+             and st["smoke"]["result"]["sim"]["transitions"] > 0,
+             f"service smoke job: {st['smoke']}")
+        need(st["pool"]["result"]["engine"] == "pool"
+             and st["pool"]["result"]["distinct"] == TPB24_COUNTS[2][1],
+             f"service pooled job: {st['pool']}")
+        need(st["infer"]["result"]["engine"] == "infer"
+             and st["infer"]["result"]["infer"]["exact"],
+             f"service infer job: {st['infer']}")
+        need(st["large"]["result"]["engine"] == "supervised"
+             and st["large"]["result"]["distinct"] == TPB24_COUNTS[1][1],
+             f"service large job: {st['large']}")
+        # warm resubmits: 0 builds, 0 library loads
+        warm = {}
+        for name, kw in (("pool", dict(options=OPTS24)),
+                         ("sweep", dict(constants={"MAXR": 1},
+                                        sweep=SWEEP24, options=OPTS24)),
+                         ("smoke", dict(options=dict(SIM24, simseed=2)))):
+            pre = builds(), loads()
+            s = client.check(url, tpb, cfg2, name=f"warm-{name}",
+                             timeout=300, **kw)
+            warm[name] = (builds() - pre[0], loads() - pre[1])
+            need(s["result"]["pool_hit"] is True and warm[name] == (0, 0),
+                 f"warm {name} resubmit: {warm[name]} builds, loads")
+        # the cached re-submit, through a temporary artifact store
+        os.environ["TORCHTLC_ARTIFACT_CACHE"] = os.path.join(root, "arts")
+        try:
+            first = client.check(url, tpb, cfg1, name="cache-fresh",
+                                 options=OPTS24, timeout=300)
+            hit = client.check(url, tpb, cfg1, name="cache-hit",
+                               options=OPTS24, timeout=300)
+        finally:
+            os.environ["TORCHTLC_ARTIFACT_CACHE"] = "off"
+        need(first["result"]["engine"] == "pool"
+             and hit["result"]["engine"] == "cache"
+             and hit["result"]["distinct"] == first["result"]["distinct"],
+             f"cached re-submit: {hit['result']}")
+        events = list(client.stream(url, ids[1], timeout=120))
+        need(events[0]["event"] == "run_start"
+             and events[-1]["event"] == "final"
+             and events[-1]["distinct"] == TPB24_COUNTS[1][1],
+             "the job's SSE stream did not end at its final event")
+        with urllib.request.urlopen(f"{url}/metrics?run={ids[1]}",
+                                    timeout=60) as r:
+            metrics = r.read().decode()
+        need("jaxtlc_distinct_total 66" in metrics, "/metrics")
+        # priority preemption, resumed through -recover
+        ck = os.path.join(root, "ck")
+        os.makedirs(ck, exist_ok=True)
+        ref = client.check(url, CHAIN24_TLA, CHAIN24_CFG, name="chain-ref",
+                           options=dict(CHAIN24_OPTS, checkpoint=os.path.join(
+                               ck, "ref.npz")), timeout=300)
+        low = {}
+        for attempt in range(3):
+            lo = client.submit(url, CHAIN24_TLA, CHAIN24_CFG,
+                               name=f"lo{attempt}", options=dict(
+                                   CHAIN24_OPTS, priority=0,
+                                   checkpoint=os.path.join(
+                                       ck, f"lo{attempt}.npz")))
+            deadline = time.time() + 120
+            while client.status(url, lo)["state"] == "queued":
+                need(time.time() < deadline, "the low job never started")
+                time.sleep(0.005)
+            hi = client.submit(url, CHAIN24_TLA, CHAIN24_CFG,
+                               name=f"hi{attempt}", options=dict(
+                                   CHAIN24_OPTS, priority=10,
+                                   checkpoint=os.path.join(
+                                       ck, f"hi{attempt}.npz")))
+            low = client.wait(url, lo, timeout=300)
+            client.wait(url, hi, timeout=300)
+            if low.get("requeues", 0) >= 1:
+                break
+        need(low.get("requeues", 0) >= 1 and low["state"] == "done"
+             and all(low["result"][k] == ref["result"][k] for k in (
+                 "generated", "distinct", "depth", "action_generated")),
+             f"preemption: {low.get('requeues')} requeues, {low['result']}")
+        dl = client.check(url, CHAIN24_TLA, CHAIN24_CFG, name="deadline",
+                          options=dict(CHAIN24_OPTS, deadline_s=0.3,
+                                       checkpoint=os.path.join(ck,
+                                                               "dl.npz")),
+                          timeout=300)
+        need(dl["state"] == "expired" and dl["result"]["exit_code"] == 75,
+             f"running deadline: {dl['state']}")
+        cx = client.submit(url, CHAIN24_TLA, CHAIN24_CFG, name="cancel",
+                           options=dict(CHAIN24_OPTS, checkpoint=os.path.join(
+                               ck, "cx.npz")))
+        while client.status(url, cx)["state"] == "queued":
+            time.sleep(0.005)
+        client.cancel(url, cx)
+        cx = client.wait(url, cx, timeout=300)
+        need(cx["state"] == "canceled", f"running cancel: {cx['state']}")
+    finally:
+        srv.shutdown()
+    # admission: a server whose queue holds one job
+    small = start_server(os.path.join(root, "small"), queue_bound=1)
+    try:
+        busy = client.submit(small.url, CHAIN24_TLA, CHAIN24_CFG,
+                             name="busy", options=dict(
+                                 CHAIN24_OPTS, checkpoint=os.path.join(
+                                     root, "busy.npz")))
+        while client.status(small.url, busy)["state"] == "queued":
+            time.sleep(0.005)
+        client.submit(small.url, CHAIN24_TLA, CHAIN24_CFG, name="queued",
+                      options=dict(CHAIN24_OPTS, checkpoint=os.path.join(
+                          root, "q.npz")))
+        try:
+            client._post(small.url + "/jobs", dict(
+                spec=CHAIN24_TLA, cfg=CHAIN24_CFG, name="over"))
+            rejected = None
+        except client.ClientError as e:
+            rejected = (e.code, e.retry_after)
+        need(rejected is not None and rejected[0] == 429
+             and rejected[1] >= 1, f"admission: {rejected}")
+        small.scheduler.drain(timeout=300)
+    finally:
+        small.shutdown()
+    svc_wall = time.time() - t0
+    # the commands: -trace-out and -serve on TwoPhase and Model_1
+    two = cfgs["two"]
+    cmd = {}
+    for tag in ("traceout", "serve"):
+        d = os.path.join(tmp, "p24", f"cmd_{tag}")
+        os.makedirs(d, exist_ok=True)
+        journal = os.path.join(d, "run.journal.jsonl")
+        trace = os.path.join(d, "t.json")
+        extra = (["-trace-out", trace] if tag == "traceout"
+                 else ["-serve", str(free_port())])
+        rc, text, launches, wall = command_here(ops, [
+            two, "-noTool", "-nodeadlock", "-no-artifact-cache", "-journal",
+            journal] + extra)
+        sha = hashlib.sha256(struct_masked(text.replace(trace, "TRACE"),
+                                           two).encode()).hexdigest()
+        kinds = [e["event"] for e in obs_journal.read(journal,
+                                                      validate=False)]
+        need((rc, sha, kinds) == TWO24_PINS[tag],
+             f"TwoPhase -{tag}: exit {rc}, transcript or journal events "
+             f"differ from the reference's ({kinds})")
+        cmd[f"two_{tag}"] = (rc, wall)
+        out[f"p24d_two_{tag}"] = {"launches": launches}
+    d = os.path.join(tmp, "p24", "m1")
+    os.makedirs(d, exist_ok=True)
+    trace = os.path.join(d, "t.json")
+    journal = os.path.join(d, "run.journal.jsonl")
+    rc, text, launches, wall = command_here(
+        ops, [model, "-noTool", "-trace-out", trace, "-journal", journal])
+    with open(trace) as f:
+        n_trace = len(json.load(f)["traceEvents"])
+    exp = [e for e in obs_journal.read(journal, validate=False)
+           if e["event"] == "trace_export"]
+    need(rc == 0 and final_counts(text) == M1_COUNTS and len(exp) == 1
+         and exp[0]["events"] == n_trace
+         and f"Timeline trace written to {trace} ({n_trace} events"
+         in text, f"Model_1 -trace-out: exit {rc}")
+    cmd["m1_traceout"] = (rc, wall)
+    out["p24d_m1_traceout"] = {"launches": launches}
+    port = free_port()
+    seen = []
+
+    def scrape():
+        deadline = time.time() + 120
+        while time.time() < deadline and not seen:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/metrics", timeout=5) as r:
+                    seen.append(r.read().decode())
+            except OSError:
+                time.sleep(0.01)
+
+    th = threading.Thread(target=scrape, daemon=True)
+    th.start()
+    rc, text, launches, wall = command_here(
+        ops, [model, "-noTool", "-serve", str(port), "-journal",
+              os.path.join(d, "serve.journal.jsonl")])
+    th.join(timeout=130)
+    need(rc == 0 and final_counts(text) == M1_COUNTS and seen
+         and "jaxtlc_run_info" in seen[0],
+         f"Model_1 -serve: exit {rc}, monitor answered {bool(seen)}")
+    cmd["m1_serve"] = (rc, wall)
+    out["p24d_m1_serve"] = {"launches": launches}
+    print(f"phase 24d service on the card ({svc_wall:.1f} s): the TwoPhaseB "
+          f"trio in batched dispatches, smoke, pooled, infer, supervised "
+          f"large and cached jobs with the reference's counts; warm "
+          f"resubmits (builds, loads) {warm}; SSE to final, /metrics; "
+          f"priority preemption resumed through -recover to the "
+          f"uninterrupted counts ({low['requeues']} requeue), a running "
+          f"deadline expired, a running cancel, a 429; commands "
+          f"{ {k: (v[0], round(v[1], 2)) for k, v in cmd.items()} } "
+          f"(TwoPhase transcripts and journal events = the reference's, "
+          f"Model_1 {M1_COUNTS} with {n_trace} trace events and the monitor "
+          f"answering mid-run) on {card}", flush=True)
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 if __name__ == "__main__":

@@ -11,6 +11,7 @@ the two lines that name the program and the device (2262, 2187)."""
 
 import os
 import re
+import socket
 
 import pytest
 
@@ -182,16 +183,29 @@ FLAG_VALUES = {
 # only, so on the KubeAPI pair both packages exit 1 with the same error;
 # -fpset DiskFPSet runs the native disk tier; the artifact cache's three
 # flags act on struct specs only, so the KubeAPI run ignores them in both
-# packages)
+# packages; -serve serves the run's journal while it runs and -trace-out
+# writes its Chrome trace, each at a path or port of the test's own)
 PORTED = ("narrow", "traceExpressions", "symmetry", "por", "simulate",
-          "infer", "fpset", "artifactcache", "noartifactcache", "recheck")
+          "infer", "fpset", "artifactcache", "noartifactcache", "recheck",
+          "serve", "traceout")
 STRUCT_ONLY = {"simulate": "-simulate requires the structural frontend",
                "infer": "-infer requires the structural frontend"}
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 @pytest.mark.parametrize("dest", sorted(set(UNPORTED) | set(PORTED)))
-def test_unported_flag_refused(model_dir, capsys, dest):
-    argv = ["check", str(model_dir / "MC.cfg")] + FLAG_VALUES[dest]
+def test_unported_flag_refused(model_dir, capsys, dest, tmp_path):
+    flags = FLAG_VALUES[dest]
+    if dest == "serve":
+        flags = ["-serve", str(_free_port())]
+    elif dest == "traceout":
+        flags = ["-trace-out", str(tmp_path / "t.json")]
+    argv = ["check", str(model_dir / "MC.cfg")] + flags
     if dest in STRUCT_ONLY:
         rc = main(argv + ["-workers", "cpu"])
         err = capsys.readouterr().err

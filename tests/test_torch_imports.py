@@ -638,3 +638,85 @@ def test_reduce_copy_equals_reference():
     src = open(os.path.join(ROOT, "torchtlc", "engine", "reduce.py")).read()
     assert "TORCHTLC_DEBUG_SYM_LIE" in src
     assert 'os.environ.get("JAXTLC_DEBUG_SYM_LIE"' not in src
+
+
+def test_serving_plane_modules_are_checked():
+    """The serving plane (torchtlc/serve, the monitor and trace of
+    torchtlc/obs, the batched engine) is among the files the import
+    checks above walk, and none of them names jax or jaxtlc."""
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    paths = [os.path.join("torchtlc", "serve", f"{m}.py")
+             for m in ("__init__", "__main__", "client", "pool",
+                       "scheduler", "server", "sweep")]
+    paths += [os.path.join("torchtlc", "obs", f"{m}.py")
+              for m in ("serve", "trace", "tlcstat", "views")]
+    paths += [os.path.join("torchtlc", "engine", "batched.py"),
+              os.path.join("torchtlc", "struct", "cache.py"),
+              os.path.join("torchtlc", "api.py")]
+    for path in paths:
+        assert path in names, path
+        bad = [m for m in _named_imports(os.path.join(ROOT, path))
+               if _forbidden(m)]
+        assert not bad, f"{path} imports {bad}"
+
+
+def test_serving_plane_copies_equal_reference():
+    """The port's copies of the serving plane's jax-free reference
+    modules, field for field: the scheduler's job model and policy
+    constants, the client, the monitor's and the trace's constants, the
+    memo and the request / outcome records."""
+    from jaxtlc import api as ja
+    from jaxtlc.obs import serve as jos, trace as jtr
+    from jaxtlc.serve import client as jcl, scheduler as jsch
+    from jaxtlc.serve import sweep as jsw
+    from jaxtlc.sim import engine as jse
+    from jaxtlc.struct import cache as jcache
+    from torchtlc import api as ta
+    from torchtlc.obs import serve as tos, trace as ttr
+    from torchtlc.serve import client as tcl, scheduler as tsch
+    from torchtlc.serve import sweep as tsw
+    from torchtlc.sim import engine as tse
+    from torchtlc.struct import cache as tcache
+
+    for name in ("JOB_FSYNC_EVERY", "DEFAULT_LARGE_FPCAP", "DEFAULT_CHUNK",
+                 "DEFAULT_QCAP", "DEFAULT_FPCAP", "DEFAULT_SIM_WALKERS",
+                 "DEFAULT_SIM_DEPTH", "DEFAULT_QUEUE_BOUND",
+                 "DEFAULT_JOB_RETRIES", "DEFAULT_BREAKER_THRESHOLD",
+                 "DEFAULT_BREAKER_COOLDOWN_S", "RETRY_BACKOFF_BASE_S",
+                 "RETRY_BACKOFF_CAP_S", "REAPER_PERIOD_S", "TERMINAL_STATES",
+                 "_REQUEST_OPTIONS", "_HEAVY_OPTIONS", "_SCHED_OPTIONS"):
+        assert getattr(tsch, name) == getattr(jsch, name), name
+    assert tsw.DEFAULT_WIDTH == jsw.DEFAULT_WIDTH
+    assert tse.DEFAULT_SIM_WIDTH == jse.DEFAULT_SIM_WIDTH
+    for name in ("JOURNAL_SUFFIX", "POLL_S", "_VERDICT_RANK"):
+        assert getattr(tos, name) == getattr(jos, name), name
+    for name in ("PID_DEVICE", "PID_HOST", "POD_PID_BASE", "TID_SEGMENT",
+                 "TID_EXPAND", "TID_COMMIT", "TID_CKPT", "TID_REGROW"):
+        assert getattr(ttr, name) == getattr(jtr, name), name
+    assert [n for n in dir(tcl) if not n.startswith("__")] == [
+        n for n in dir(jcl) if not n.startswith("__")]
+    kw = dict(constants={"N": 2, "M": [1, 2]},
+              sweep={"const": "N", "lo": 0, "hi": 3},
+              options={"chunk": 64, "simulate": True, "simseed": 4,
+                       "priority": 3, "deadline_s": 5.0}, tenant="ci")
+    tj = tsch.Job("---- MODULE M ----\n====\n", "CONSTANT N = 2\n", **kw)
+    jj = jsch.Job("---- MODULE M ----\n====\n", "CONSTANT N = 2\n", **kw)
+    assert tj.batch_signature() == jj.batch_signature()
+    assert tj.digest == jj.digest and tj.sweep_params() == jj.sweep_params()
+    for f in ("is_smoke", "is_infer"):
+        assert getattr(tj, f)() == getattr(jj, f)()
+    assert tj.is_large(1 << 16) == jj.is_large(1 << 16)
+    assert tsch._loader_constants(kw["constants"]) == \
+        jsch._loader_constants(kw["constants"])
+    memos = (tcache._LRUMemo(2), jcache._LRUMemo(2))
+    for m in memos:
+        for k in ("a", "b", "a", "c", "b"):
+            if m.get(k) is None:
+                m.put(k, k)
+    assert memos[0].stats() == memos[1].stats()
+    assert list(memos[0]._d) == list(memos[1]._d)
+    assert set(f.name for f in dataclasses.fields(ja.CheckRequest)) <= set(
+        f.name for f in dataclasses.fields(ta.CheckRequest))
+    assert ta.VERDICT_BY_EXIT == ja.VERDICT_BY_EXIT
+    assert ([f.name for f in dataclasses.fields(ta.CheckOutcome)]
+            == [f.name for f in dataclasses.fields(ja.CheckOutcome)])

@@ -94,11 +94,151 @@ import dataclasses
 import os
 import sys
 import time
+from typing import Optional, TextIO
 
 from . import __version__
 from .engine.fingerprint import DEFAULT_SEED
 from .frontend.model import KNOWN_PROPERTIES, RunSpec, resolve
 from .io.tlc_log import TLCLog
+
+
+@dataclasses.dataclass
+class CheckRequest:
+    """One check, fully specified - the library form of the CLI flag set
+    (jaxtlc/api.py:38-155).  Field names match the argparse dests, and
+    every default mirrors the flag's (torchtlc/cli.py), so the flags'
+    meaning is documented once, in the CLI."""
+
+    config: str
+    workers: str = "gpu"
+    frontend: str = "auto"
+    fpset: str = "JaxFPSet"
+    fp: Optional[int] = None
+    sharded: int = 0
+    chunk: int = 1024
+    pipeline: bool = False
+    # tri-state modes: None = auto (resolved against the chunk)
+    sortfree: Optional[bool] = None
+    deferredinv: Optional[bool] = None
+    symmetry: Optional[bool] = None
+    por: Optional[bool] = None
+    routefactor: float = 2.0
+    qcap: int = 1 << 15
+    fpcap: int = 1 << 20
+    checkpoint: str = ""
+    checkpointevery: int = 256
+    recover: bool = False
+    autogrow: bool = True
+    spill: str = "auto"
+    maxregrow: int = 8
+    retry: int = 2
+    faults: str = ""
+    obs: bool = True
+    obsslots: int = 256
+    journal: str = ""
+    serve: int = 0
+    phasetiming: bool = False
+    traceout: str = ""
+    xprof: str = ""
+    analyze: bool = False
+    preflight: bool = True
+    narrow: bool = False
+    coverage: bool = False
+    liveness: bool = False
+    liveness_host: bool = False
+    fairness: str = "wf_next"
+    nodeadlock: bool = False
+    noTool: bool = False
+    traceExpressions: str = ""
+    mutation: str = ""
+    compilecache: str = ""
+    artifactcache: str = ""
+    noartifactcache: bool = False
+    recheck: bool = False
+    simulate: bool = False
+    depth: int = 100
+    walkers: int = 256
+    simseed: int = 0
+    infer: bool = False
+    inferbudget: int = 64
+    # -- library-only knobs (no CLI flag) -------------------------------
+    # MC.cfg-style constant overrides on top of the config's values (the
+    # serve path: a job's constants shape the checked configuration on
+    # every route, the supervised one included)
+    constants: dict = dataclasses.field(default_factory=dict)
+    # programmatic drain request: a threading.Event the caller sets to
+    # preempt THIS run at the next segment boundary - the in-process twin
+    # of SIGTERM, riding the same checkpoint + exit-75 path
+    # (resil.supervisor, sim.driver).  The serve scheduler's deadline,
+    # priority and cancel preemptions go through it
+    drain: Optional[object] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    # transcript / error sinks; None = the process stdout / stderr (the
+    # CLI path)
+    out: Optional[TextIO] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    err: Optional[TextIO] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    @classmethod
+    def from_args(cls, args) -> "CheckRequest":
+        """A request from an argparse namespace (unknown request fields
+        keep their defaults, extra namespace attributes are ignored)."""
+        kw = {}
+        for f in dataclasses.fields(cls):
+            if f.name in ("out", "err"):
+                continue
+            if hasattr(args, f.name):
+                kw[f.name] = getattr(args, f.name)
+        return cls(**kw)
+
+
+VERDICT_BY_EXIT = {
+    0: "ok",
+    1: "error",
+    12: "violation",
+    13: "liveness_violation",
+    75: "interrupted",
+}
+
+
+@dataclasses.dataclass
+class CheckOutcome:
+    """What a check did: the exit code, its verdict word, the engine-level
+    result (None when resolution or the preflight failed before any
+    engine ran) and where the run journal landed."""
+
+    exit_code: int
+    verdict: str
+    result: object = None  # CheckResult, SimResult or InferReport
+    journal_path: str = ""
+
+
+def run_check(req: CheckRequest) -> CheckOutcome:
+    """Run one check end to end - everything the CLI's `check` does
+    (resolution, preflight, dispatch, liveness, traces, journal) - against
+    the request's sinks instead of the process streams."""
+    rc = _run_check(req)
+    return CheckOutcome(
+        exit_code=rc,
+        verdict=VERDICT_BY_EXIT.get(rc, f"exit_{rc}"),
+        result=getattr(req, "_result", None),
+        journal_path=getattr(req, "_journal_path", "") or "",
+    )
+
+
+def _err(args) -> TextIO:
+    return getattr(args, "err", None) or sys.stderr
+
+
+def _out(args) -> TextIO:
+    return getattr(args, "out", None) or sys.stdout
+
+
+def _tlc_log(args, **kw) -> TLCLog:
+    """The run's transcript writer, on the request's sink."""
+    args._log = TLCLog(out=_out(args), tool_mode=not args.noTool, **kw)
+    return args._log
 
 
 def _device(args):
@@ -120,18 +260,19 @@ def _run_check(args) -> int:
     from .frontend.model import GenRunSpec, StructRunSpec
 
     try:
-        spec: RunSpec = resolve(args.config, workers=args.workers,
-                                fp_index=args.fp,
-                                check_deadlock=not args.nodeadlock,
-                                frontend=args.frontend)
+        spec: RunSpec = resolve(
+            args.config, workers=args.workers, fp_index=args.fp,
+            check_deadlock=not args.nodeadlock,
+            const_overrides=getattr(args, "constants", None) or None,
+            frontend=args.frontend)
     except (ValueError, OSError) as e:
-        print(f"Error: {e}", file=sys.stderr)
+        print(f"Error: {e}", file=_err(args))
         return 1
     if args.simulate and not isinstance(spec, StructRunSpec):
         # the simulation tier rides the struct frontend (jaxtlc/api.py:
         # 219-226); -frontend struct runs any spec
         print("Error: -simulate requires the structural frontend "
-              "(re-run with -frontend struct)", file=sys.stderr)
+              "(re-run with -frontend struct)", file=_err(args))
         return 1
     if args.infer:
         # jaxtlc/api.py:227-237: inference conjectures over the struct
@@ -139,11 +280,11 @@ def _run_check(args) -> int:
         # capability, gap
         if args.simulate:
             print("Error: -infer and -simulate are distinct job "
-                  "classes (pick one)", file=sys.stderr)
+                  "classes (pick one)", file=_err(args))
             return 1
         if not isinstance(spec, StructRunSpec):
             print("Error: -infer requires the structural frontend "
-                  "(re-run with -frontend struct)", file=sys.stderr)
+                  "(re-run with -frontend struct)", file=_err(args))
             return 1
     if isinstance(spec, GenRunSpec):
         return _run_check_gen(args, spec)
@@ -152,12 +293,12 @@ def _run_check(args) -> int:
     unknown = [q for q in spec.properties if q not in KNOWN_PROPERTIES]
     if unknown:
         print(f"Error: unknown PROPERTY {', '.join(unknown)} "
-              f"(supported: {', '.join(KNOWN_PROPERTIES)})", file=sys.stderr)
+              f"(supported: {', '.join(KNOWN_PROPERTIES)})", file=_err(args))
         return 1
     if args.mutation:
         spec.model = dataclasses.replace(spec.model, mutation=args.mutation)
     if args.recover and not args.checkpoint:
-        print("Error: -recover requires -checkpoint PATH", file=sys.stderr)
+        print("Error: -recover requires -checkpoint PATH", file=_err(args))
         return 1
     # under -fpset DiskFPSet, -sharded N counts host partitions (any power
     # of two, checked by the dispatch as the reference checks it)
@@ -168,11 +309,11 @@ def _run_check(args) -> int:
     try:
         device_name = _device_name(device)
     except RuntimeError as e:  # no card and no -workers cpu
-        print(f"Error: {e}", file=sys.stderr)
+        print(f"Error: {e}", file=_err(args))
         return 1
 
-    log = TLCLog(tool_mode=not args.noTool,
-                 **_render_sources(args.config, spec.spec_name))
+    log = _tlc_log(args, **_render_sources(args.config,
+                                          spec.spec_name))
     log.version(__version__)
     log.banner(spec.fp_index, DEFAULT_SEED, spec.workers, device_name)
     log.sany(*_sany_inputs(args.config, spec.spec_name))
@@ -201,12 +342,13 @@ def _run_check(args) -> int:
 
     try:
         r, sup = _dispatch_check(args, spec, log, device)
+        args._result = r
     except SlotOverflowError as e:
         log.msg(1000, f"Run stopped: {e}", severity=1)
         _finish_journal(args)
         return 1
     except FileNotFoundError as e:
-        print(f"Error: {e}", file=sys.stderr)
+        print(f"Error: {e}", file=_err(args))
         _finish_journal(args)
         return 1
     log.init_done(2 ** spec.model.n_reconcilers)
@@ -436,7 +578,7 @@ def _check_shard_count(args) -> bool:
     if args.sharded and (args.sharded & (args.sharded - 1) or
                          args.sharded > 8):
         print(f"Error: -sharded {args.sharded}: the shard count must be a "
-              "power of two, at most 8", file=sys.stderr)
+              "power of two, at most 8", file=_err(args))
         return False
     return True
 
@@ -466,7 +608,7 @@ def _sup_opts(args, log):
         ckpt_every=args.checkpointevery, resume=args.recover,
         spill=args.spill, phase_timing=args.phasetiming,
         faults=FaultPlan.parse(args.faults) if args.faults else None,
-        on_event=on_event)
+        drain=getattr(args, "drain", None), on_event=on_event)
 
 
 def _obs_slots(args) -> int:
@@ -510,6 +652,13 @@ def _open_journal(args, workload: str, device: str, params: dict,
 
     path = args.journal or (
         args.checkpoint + ".journal.jsonl" if args.checkpoint else "")
+    if not path and args.serve:
+        # the monitor serves journal FILES: an unjournaled -serve run gets
+        # one in the temporary directory (jaxtlc/api.py:692-700)
+        import tempfile
+
+        path = os.path.join(tempfile.gettempdir(),
+                            f"torchtlc-{os.getpid()}.journal.jsonl")
     resume = bool(args.recover and path and os.path.exists(path))
     j = RunJournal(path or None, resume=resume)
     if resume:
@@ -520,6 +669,16 @@ def _open_journal(args, workload: str, device: str, params: dict,
                                   else "single"),
                 device=device, params=params)
     args._journal = j
+    args._journal_path = path or ""
+    if args.serve:
+        # the live monitor - /metrics, /events (SSE), /runs - over the
+        # run's journal directory for the run's whole lifetime
+        from .obs.serve import start_server
+
+        args._server = start_server(
+            os.path.dirname(os.path.abspath(path)) or ".", port=args.serve)
+        print(f"torchtlc monitor at {args._server.url} "
+              "(/runs /metrics /events /journal)", file=_err(args))
     return j
 
 
@@ -546,9 +705,27 @@ def _finish_journal(args, r=None, sup=None, wall_s: float = 0.0,
                     generated=r.generated, distinct=r.distinct,
                     depth=r.depth, queue=r.queue_left,
                     wall_s=round(wall_s, 6), interrupted=False)
+        if args.traceout:
+            # the Chrome trace of the WHOLE journal file, so a resumed
+            # run's trace covers both attempts (jaxtlc/api.py:746-755)
+            from .obs.journal import read as read_journal
+            from .obs.trace import export_chrome_trace
+
+            events = read_journal(j.path, validate=False) if j.path \
+                else j.events
+            n = export_chrome_trace(events, args.traceout)
+            j.event("trace_export", path=args.traceout, events=n)
+            log = getattr(args, "_log", None)
+            if log is not None:
+                log.msg(1000, f"Timeline trace written to {args.traceout} "
+                              f"({n} events; open in ui.perfetto.dev).")
     finally:
         j.close()
         args._journal = None
+        server = getattr(args, "_server", None)
+        if server is not None:
+            server.shutdown()
+            args._server = None
 
 
 def _resume_command(args) -> str:
@@ -710,7 +887,7 @@ def _run_check_struct(args, spec) -> int:
     sm = spec.structmodel
     system = sm.system
     if args.recover and not args.checkpoint:
-        print("Error: -recover requires -checkpoint PATH", file=sys.stderr)
+        print("Error: -recover requires -checkpoint PATH", file=_err(args))
         return 1
     if args.simulate:
         return _run_sim_struct(args, spec)
@@ -723,7 +900,7 @@ def _run_check_struct(args, spec) -> int:
     ) if on]
     if unsupported:
         print(f"Error: {', '.join(unsupported)} not supported for "
-              "structural-frontend specs yet", file=sys.stderr)
+              "structural-frontend specs yet", file=_err(args))
         return 1
     if not _check_shard_count(args):
         return 1
@@ -731,7 +908,7 @@ def _run_check_struct(args, spec) -> int:
     try:
         device_name = _device_name(device)
     except RuntimeError as e:  # no card and no -workers cpu
-        print(f"Error: {e}", file=sys.stderr)
+        print(f"Error: {e}", file=_err(args))
         return 1
     # -narrow: the certified-bound narrowed codec (jaxtlc/api.py:1011-1021);
     # only a certified report narrows, an uncertified one keeps the
@@ -742,7 +919,7 @@ def _run_check_struct(args, spec) -> int:
 
         report = get_bounds(sm)
         bounds = report if report.certified else None
-    log = TLCLog(tool_mode=not args.noTool)
+    log = _tlc_log(args)
     log.version(__version__)
     log.banner(spec.fp_index, DEFAULT_SEED, spec.workers, device_name)
     log.sany(*_sany_inputs(args.config, spec.spec_name))
@@ -842,9 +1019,10 @@ def _run_check_struct(args, spec) -> int:
         _finish_journal(args)
         return 1
     except FileNotFoundError as e:
-        print(f"Error: {e}", file=sys.stderr)
+        print(f"Error: {e}", file=_err(args))
         _finish_journal(args)
         return 1
+    args._result = r
     n_init = fast[2] if fast is not None else len(system.initial_states())
     log.init_done(n_init)
     if sup is not None and sup.interrupted:
@@ -1015,15 +1193,15 @@ def _run_sim_struct(args, spec) -> int:
     if unsupported:
         print(f"Error: {', '.join(unsupported)} not supported with "
               "-simulate (walks carry no frontier/liveness machinery)",
-              file=sys.stderr)
+              file=_err(args))
         return 1
     device = _device(args)
     try:
         device_name = _device_name(device)
     except RuntimeError as e:  # no card and no -workers cpu
-        print(f"Error: {e}", file=sys.stderr)
+        print(f"Error: {e}", file=_err(args))
         return 1
-    log = TLCLog(tool_mode=not args.noTool)
+    log = _tlc_log(args)
     log.version(__version__)
     log.banner(spec.fp_index, DEFAULT_SEED, spec.workers, device_name)
     log.sany(*_sany_inputs(args.config, spec.spec_name))
@@ -1084,12 +1262,13 @@ def _run_sim_struct(args, spec) -> int:
             ckpt_path=args.checkpoint or None,
             ckpt_every=args.checkpointevery, resume=args.recover,
             faults=FaultPlan.parse(args.faults) if args.faults else None,
-            on_event=on_event, device=device)
+            on_event=on_event, device=device,
+            drain=getattr(args, "drain", None))
     except (FileNotFoundError, ValueError) as e:
-        print(f"Error: {e}", file=sys.stderr)
+        print(f"Error: {e}", file=_err(args))
         _finish_journal(args)
         return 1
-    r = sup.result
+    r = args._result = sup.result
     log.init_done(len(sm.system.initial_states()))
     if j is not None:
         j.event("sim", phase="summary", walkers=r.walkers, depth=r.depth,
@@ -1235,15 +1414,15 @@ def _run_infer_struct(args, spec) -> int:
     if unsupported:
         print(f"Error: {', '.join(unsupported)} not supported with "
               "-infer (inference carries no frontier/checkpoint "
-              "machinery)", file=sys.stderr)
+              "machinery)", file=_err(args))
         return 1
     device = _device(args)
     try:
         device_name = _device_name(device)
     except RuntimeError as e:  # no card and no -workers cpu
-        print(f"Error: {e}", file=sys.stderr)
+        print(f"Error: {e}", file=_err(args))
         return 1
-    log = TLCLog(tool_mode=not args.noTool)
+    log = _tlc_log(args)
     log.version(__version__)
     log.banner(spec.fp_index, DEFAULT_SEED, spec.workers, device_name)
     log.sany(*_sany_inputs(args.config, spec.spec_name))
@@ -1308,8 +1487,9 @@ def _run_infer_struct(args, spec) -> int:
             depth=args.depth, seed=args.simseed,
             check_deadlock=spec.check_deadlock, on_round=on_round,
             device=device)
+        args._result = rep
     except (FileNotFoundError, ValueError) as e:
-        print(f"Error: {e}", file=sys.stderr)
+        print(f"Error: {e}", file=_err(args))
         _finish_journal(args)
         return 1
     log.init_done(len(sm.system.initial_states()))
@@ -1603,7 +1783,7 @@ def _run_check_gen(args, spec) -> int:
     ) if on]
     if unsupported:
         print(f"Error: {', '.join(unsupported)} not supported for "
-              "generic-frontend specs yet", file=sys.stderr)
+              "generic-frontend specs yet", file=_err(args))
         return 1
     if not _check_shard_count(args):
         return 1
@@ -1612,9 +1792,9 @@ def _run_check_gen(args, spec) -> int:
     try:
         device_name = _device_name(device)
     except RuntimeError as e:  # no card and no -workers cpu
-        print(f"Error: {e}", file=sys.stderr)
+        print(f"Error: {e}", file=_err(args))
         return 1
-    log = TLCLog(tool_mode=not args.noTool)
+    log = _tlc_log(args)
     log.version(__version__)
     log.banner(spec.fp_index, DEFAULT_SEED, spec.workers, device_name)
     log.sany(*_sany_inputs(args.config, spec.spec_name))
@@ -1641,13 +1821,13 @@ def _run_check_gen(args, spec) -> int:
     from .resil.supervisor import SlotOverflowError
 
     try:
-        r = _gen_check(args, spec, device)
+        r = args._result = _gen_check(args, spec, device)
     except SlotOverflowError as e:
         log.msg(1000, f"Run stopped: {e}", severity=1)
         _finish_journal(args)
         return 1
     except FileNotFoundError as e:
-        print(f"Error: {e}", file=sys.stderr)
+        print(f"Error: {e}", file=_err(args))
         _finish_journal(args)
         return 1
     n_init = 1  # generic Init is deterministic: one state

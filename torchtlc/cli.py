@@ -10,7 +10,8 @@ jaxtlc/cli.py on the KubeAPI path.
         [-infer [-infer-budget N] [-walkers W -depth N -sim-seed S]]
         [-fpset DiskFPSet] [-artifact-cache DIR | -no-artifact-cache]
         [-recheck] [-liveness [-liveness-host]
-        [-fairness wf_next|wf_process]] [-noTool] ...
+        [-fairness wf_next|wf_process]] [-serve PORT] [-trace-out PATH]
+        [-noTool] ...
 
 Reads MC.cfg with its sibling MC.tla (and a toolbox .launch if present),
 runs the exhaustive check on the card - on the CPU only with -workers cpu
@@ -21,7 +22,9 @@ any spec with -frontend gen; a spec outside it (TwoPhase, RaftReplication)
 on the structural frontend, as does any spec with -frontend struct;
 -simulate runs random walks on a struct spec instead, -infer invariant
 inference; -fpset DiskFPSet runs the native disk tier on KubeAPI specs,
-and struct checks consult the artifact cache.  Exit
+and struct checks consult the artifact cache; -serve PORT serves the
+run's journal live (torchtlc.obs.serve) and -trace-out PATH writes its
+Chrome trace at the end (torchtlc.obs.trace).  Exit
 codes: 0 no error, 12
 safety violation (with the counterexample trace), 13 temporal property
 violated (with the lasso), 75 interrupted or
@@ -40,10 +43,6 @@ from .api import _run_check
 # flags of paths not ported yet: dest -> (the value that means "not
 # given", what the error says)
 UNPORTED = {
-    "serve": (0, "-serve (the live monitor server) is ported with the "
-              "serving plane (ROADMAP Queue A item 13)"),
-    "traceout": ("", "-trace-out (the Chrome-trace export) is ported with "
-                 "the serving plane (ROADMAP Queue A item 13)"),
     "analyze": (False, "-analyze (the preflight jaxpr audits) is not part "
                 "of the port yet (ROADMAP Queue C, Queue A item 13)"),
     "xprof": ("", "-xprof is the JAX profiler; the port's profiler is "
@@ -229,7 +228,9 @@ def _parser() -> argparse.ArgumentParser:
                    choices=["wf_next", "wf_process"],
                    help="wf_next = the spec's WF_vars(Next); wf_process = "
                         "per-process weak fairness (host path)")
-    c.add_argument("-serve", type=int, default=0, metavar="PORT")
+    c.add_argument("-serve", type=int, default=0, metavar="PORT",
+                   help="serve the run's journal live for its lifetime "
+                        "(/runs /metrics /events /journal)")
     c.add_argument("-phase-timing", dest="phasetiming", action="store_true",
                    help="measured per-level expand/commit walls: the "
                         "supervisor swaps the fused segment for a "
@@ -237,7 +238,10 @@ def _parser() -> argparse.ArgumentParser:
                         "closures, journaling `phase` events of scope "
                         "level (unpipelined single-device runs; ignored "
                         "elsewhere, as the reference ignores it)")
-    c.add_argument("-trace-out", dest="traceout", default="")
+    c.add_argument("-trace-out", dest="traceout", default="",
+                   metavar="PATH",
+                   help="write the run's Chrome / Perfetto trace (from "
+                        "its journal) at the end")
     c.add_argument("-xprof", default="")
     c.add_argument("-narrow", dest="narrow", action="store_true",
                    default=False)

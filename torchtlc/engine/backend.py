@@ -279,7 +279,10 @@ def make_expand_stage(backend: SpecBackend, chunk: int,
     the valid flags, which already carry the pop mask.  A reduced backend's
     expand route returns the block's orbit check (ExpandOut.sym, K25) and
     pruned count (ExpandOut.pruned, K26 inside K17); its valid flags are
-    the lanes K26 kept and its candidates canonical (K24 inside K17)."""
+    the lanes K26 kept and its candidates canonical (K24 inside K17).
+    expand.finish(block, n, *kernel outputs, lo=, hi=) is the stage after
+    the kernel, for a caller that ran the kernel itself (the serving
+    plane's batched engine, engine.batched)."""
     cdc = backend.cdc
     L = backend.n_lanes
     nbits = cdc.nbits
@@ -292,10 +295,13 @@ def make_expand_stage(backend: SpecBackend, chunk: int,
     codes_on = {}  # device -> codes there
     lane_rows = list(range(3, 3 + n_inv)) + [FLAG_AFAIL, FLAG_OVF]
 
-    def expand(block: torch.Tensor, n: int) -> ExpandOut:
+    def finish(block: torch.Tensor, n: int, packed, flags, action, gen,
+               flat=None, cert=None, sym=None, pruned=None, lo=None,
+               hi=None) -> ExpandOut:
+        # the stage after the backend's expand kernel; lo / hi when the
+        # caller fingerprinted the candidates already (the batched engine
+        # runs K2 once over every lane's block)
         dev = block.device
-        packed, flags, action, gen, flat, cert, sym, pruned = kernels.expand(
-            block, n, deferred)
         valid = flags[FLAG_VALID].bool()
         cov = None
         if backend.coverage is not None:
@@ -330,7 +336,8 @@ def make_expand_stage(backend: SpecBackend, chunk: int,
         ]).to(torch.int64)
         k = hits.to(torch.uint8).argmax().view(1)
         hit = hits.any()
-        lo, hi = fp64_words(packed, nbits, fp_index)
+        if lo is None:
+            lo, hi = fp64_words(packed, nbits, fp_index)
         if dev not in codes_on:
             codes_on[dev] = codes.to(dev)
         return ExpandOut(
@@ -342,6 +349,10 @@ def make_expand_stage(backend: SpecBackend, chunk: int,
             pruned=pruned,
         )
 
+    def expand(block: torch.Tensor, n: int) -> ExpandOut:
+        return finish(block, n, *kernels.expand(block, n, deferred))
+
+    expand.finish = finish
     return expand
 
 

@@ -469,7 +469,10 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
     sort_free commits through the hash-slab dedup, deferred checks the
     invariants on the fresh-insert claimants, obs_slots > 0 writes the
     counter ring.  commit.slab_fallbacks counts the commits whose slab
-    claimants exceeded R (the sorted fallback).
+    claimants exceeded R (the sorted fallback).  commit takes an insert's
+    results (``ins``) when the caller ran it (the batched engine's K33),
+    and with read=False returns (carry, its bundle tensor, ex) for the
+    caller to read many bundles at once and finish with commit.settle.
 
     spill=True builds the spill-mode commit (jaxtlc/engine/bfs.py:
     434-447, 598-600, 639-649): it takes `veto` ([ck * L] bool, the
@@ -494,20 +497,25 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
         block = c.queue[h.parity, h.qhead:h.qhead + ck]
         return expand(block, n), n
 
-    def commit(c: EngineCarry, ex, n: int, qhead_pop: int, qhead_out: int,
-               h: Bundle, veto=None) -> EngineCarry:
+    def insert_mask(ex, h: Bundle, veto=None):
+        """(fp_full, the candidates the body inserts)."""
         if spill:
             # the host driver keeps the table below the high-water mark;
             # a host-vetoed candidate dedups like a table hit
-            fp_full = False
-            insert_mask = ex.valid & ~veto
-        else:
-            # the body's own candidate width against the high-water mark
-            fp_full = h.distinct + ncand > fp_limit
-            insert_mask = torch.zeros_like(ex.valid) if fp_full else ex.valid
-        fps, is_new_c, c_idx, nreps, fell_back = fpset_insert_dedup(
-            c.fps, ex.lo, ex.hi, insert_mask, probe_width=R, claim_width=CW,
-            sort_free=sort_free)
+            return False, ex.valid & ~veto
+        # the body's own candidate width against the high-water mark
+        fp_full = h.distinct + ncand > fp_limit
+        return fp_full, (torch.zeros_like(ex.valid) if fp_full
+                         else ex.valid)
+
+    def commit(c: EngineCarry, ex, n: int, qhead_pop: int, qhead_out: int,
+               h: Bundle, veto=None, ins=None, read=True):
+        fp_full, mask = insert_mask(ex, h, veto)
+        if ins is None:
+            ins = fpset_insert_dedup(c.fps, ex.lo, ex.hi, mask,
+                                     probe_width=R, claim_width=CW,
+                                     sort_free=sort_free)
+        fps, is_new_c, c_idx, nreps, fell_back = ins
         commit.slab_fallbacks += fell_back
         # the slab layout's claimants sit in the first R rows
         fresh_rows = R if sort_free and not fell_back else ncand
@@ -588,22 +596,35 @@ def make_stage_pair(backend, ck: int, *, queue_capacity: int,
                      c.cov_counts if ex.cov is not None else None,
                      cert=cert_viol, sym=sym_viol)
 
-        vals = torch.stack([parity, qhead, level_n, next_n, distinct, viol,
-                            hit_ex.to(torch.int64)]).tolist()
-        if vals[6]:
-            # the expand stage's violating state, unpacked on the host
-            row = ex.viol_words.cpu()[None]
-            viol_state = cdc.unpack(row)[0].to(c.viol_state.device)
-        return c._replace(
+        vals_t = torch.stack([parity, qhead, level_n, next_n, distinct,
+                              viol, hit_ex.to(torch.int64)])
+        c = c._replace(
             fps=fps, parity=parity, qhead=qhead, level_n=level_n,
             next_n=next_n, level=level, depth=depth, generated=generated,
             distinct=distinct, viol=viol, viol_state=viol_state,
             viol_action=viol_action, spill_hits=spill_hits,
             cov_counts=cov_counts, cert_viol=cert_viol, sym_viol=sym_viol,
-            por_pruned=por_pruned, bundle=Bundle(*vals[:6]),
-        )
+            por_pruned=por_pruned)
+        if not read:
+            # the caller reads the bundles of many commits at once
+            # (engine.batched) and finishes each with settle()
+            return c, vals_t, ex
+        return settle(c, vals_t.tolist(), ex)
+
+    def settle(c: EngineCarry, vals, ex) -> EngineCarry:
+        """The carry with its host bundle; a hit of the expand stage's
+        violation unpacks its state on the host."""
+        if vals[6]:
+            row = ex.viol_words.cpu()[None]
+            c = c._replace(viol_state=cdc.unpack(row)[0].to(
+                c.viol_state.device))
+        return c._replace(bundle=Bundle(*vals[:6]))
 
     commit.slab_fallbacks = 0
+    commit.insert_mask = insert_mask
+    commit.settle = settle
+    commit.widths = (R, CW)
+    pop_expand.expand = expand
     return pop_expand, commit
 
 

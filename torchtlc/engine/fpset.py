@@ -40,6 +40,11 @@ chunk >= 2048) replaces the two full-width sorts with a hash slab:
    mask.  When the claimants exceed R the batch takes the sorted path
    wholesale, as the reference does.
 
+The batched insert (``fpset_insert_sorted_batched``, the serving
+plane's) runs the sorted insert of K batches into K stacked tables at
+once: one sort over (lane, key) and kernel K33 (fpset_batched.cu), each
+lane's result and table words equal to the single-table insert's.
+
 The membership walk (``fpset_member``, the host spill tier's device
 filter) reads the table only: per lane, mix + remap, then bucket rows
 ``b, b+1, ...`` until a word-exact match or a row with an empty slot.
@@ -498,6 +503,89 @@ def fpset_insert_sorted(
 
 
 # ---------------------------------------------------------------------------
+# the batched insert over stacked tables (kernel K33)
+# ---------------------------------------------------------------------------
+
+
+def dedup_compact_batched(key: torch.Tensor):
+    """dedup_compact of every row of key [K, n] (int64): one stable sort
+    over (row, key) - torch.sort along the rows - then each row's
+    representatives compacted to its front.  Row k of the results equals
+    dedup_compact(key[k])."""
+    s_key, s_idx = torch.sort(key, dim=1, stable=True)
+    K = key.shape[0]
+    last = torch.cat([s_key[:, 1:] != s_key[:, :-1],
+                      torch.ones(K, 1, dtype=torch.bool, device=key.device)],
+                     1)
+    rep = (s_key != KEY00) & last
+    ri = rep.to(torch.int64)
+    cr = torch.cumsum(ri, 1)
+    nreps = cr[:, -1].contiguous()
+    pos = torch.where(rep, cr - 1,
+                      nreps[:, None] + torch.cumsum(1 - ri, 1) - 1)
+    c_key = torch.empty_like(s_key).scatter_(1, pos, s_key)
+    c_idx = torch.empty_like(s_idx).scatter_(1, pos, s_idx)
+    return c_key, c_idx, nreps
+
+
+def fpset_key_batched(lo, hi, mask):
+    """fpset_key over any shape: K33's key stage on CUDA tensors."""
+    if not lo.is_cuda:
+        return fpset_key_plain(lo, hi, mask)
+    from ..kernels import ops
+
+    return ops.fpset_bkey(lo.contiguous(), hi.contiguous(),
+                          mask.contiguous())
+
+
+def fpset_insert_sorted_batched(tables: torch.Tensor, lanes, lo, hi, mask,
+                                probe_width: int = 0, claim_width: int = 0,
+                                plain: bool = False):
+    """The sorted insert-or-find of K batches into stacked tables (kernel
+    K33 on CUDA tensors, the plain probe segments lane by lane on CPU
+    ones, or on any device with `plain`): row k of lo/hi/mask [K, n] goes
+    to tables[lanes[k]] ([T, nb, 16] int32, updated in place).  Returns
+    (is_new_c [K, n] bool, c_idx [K, n] int64, nreps [K] int64): row k
+    equals fpset_insert_sorted's results on that table alone, and so do
+    the table words."""
+    K, n = lo.shape
+    R = min(probe_width or n, n)
+    C = min(claim_width or R, R)
+    dev = lo.device
+    c_key, c_idx, nreps = dedup_compact_batched(
+        fpset_key_plain(lo, hi, mask) if plain
+        else fpset_key_batched(lo, hi, mask))
+    nseg = (n + R - 1) // R
+    pad = nseg * R - n
+    if pad:
+        c_key = torch.cat([c_key, torch.full((K, pad), KEY00,
+                                             dtype=torch.int64, device=dev)],
+                          1)
+    is_new = torch.zeros(K, nseg * R, dtype=torch.uint8, device=dev)
+    if lo.is_cuda and not plain:
+        from ..kernels import ops
+
+        lane_t = torch.tensor(list(lanes), dtype=torch.int32, device=dev)
+        for seg in range(nseg):
+            out = torch.empty(K, R, dtype=torch.uint8, device=dev)
+            ops.fpset_probe_segment_batched(
+                tables, c_key[:, seg * R:(seg + 1) * R].contiguous(), nreps,
+                seg * R, C, out, lanes=lane_t)
+            is_new[:, seg * R:(seg + 1) * R] = out
+    else:
+        for k, t in enumerate(lanes):
+            nr = int(nreps[k])
+            for seg in range(nseg):
+                if seg * R >= nr:
+                    break
+                act = torch.arange(R, device=dev) + seg * R < nr
+                is_new[k, seg * R:(seg + 1) * R] = probe_segment_plain(
+                    tables[t], c_key[k, seg * R:(seg + 1) * R], act,
+                    C).to(torch.uint8)
+    return is_new[:, :n].bool(), c_idx, nreps
+
+
+# ---------------------------------------------------------------------------
 # sort-free path: hash-slab dedup (K5) + ordering (K6) + masked probe (K3)
 # ---------------------------------------------------------------------------
 
@@ -689,17 +777,27 @@ def fpset_insert_slab(
     if claimant_count(n_cand) > R:
         is_new_c, c_idx, nreps = _sorted_dedup_probe(s.table, key, R, C)
         return s, is_new_c, c_idx, nreps, True
+    return (s, *slab_probe(s.table, key, c_lane, n_cand, R, C), False)
+
+
+def slab_probe(table: torch.Tensor, key: torch.Tensor, c_lane, n_cand,
+               R: int, C: int):
+    """The slab path after its claimants fit R: order them (K6) and probe
+    the one segment (K3) - (is_new_c [n] bool, c_idx [n] int64, nreps
+    0-dim int64) in the slab layout."""
+    n = key.shape[0]
+    dev = key.device
     s_key, c_idx_r, active = _order_and_dedup(key, c_lane, n_cand, R)
-    is_new = torch.empty(R, dtype=torch.uint8, device=lo.device)
-    probe_segment(s.table, s_key, None, 0, C, is_new,
-                  torch.zeros(1, dtype=torch.int32, device=lo.device)
-                  if lo.is_cuda else None, active)
+    is_new = torch.empty(R, dtype=torch.uint8, device=dev)
+    probe_segment(table, s_key, None, 0, C, is_new,
+                  torch.zeros(1, dtype=torch.int32, device=dev)
+                  if key.is_cuda else None, active)
     nreps = active.sum(dtype=torch.int64)
     is_new_c = torch.cat([is_new.bool(), torch.zeros(
-        n - R, dtype=torch.bool, device=lo.device)])
+        n - R, dtype=torch.bool, device=dev)])
     c_idx = torch.cat([c_idx_r, torch.full((n - R,), n, dtype=torch.int64,
-                                           device=lo.device)])
-    return s, is_new_c, c_idx, nreps, False
+                                           device=dev)])
+    return is_new_c, c_idx, nreps
 
 
 def fpset_insert_dedup(

@@ -16,7 +16,9 @@ the runtime certificate of a narrowed struct spec) and K24-K26
 POR reduction) and, in a struct spec's, K27 and K28 (emitted_sim.cuh with
 threefry.cuh, which struct_expand.cuh includes: the random walk's round)
 and K31 (struct_recheck.cuh, which struct_expand.cuh includes: the
-artifact cache's invariant re-check),
+artifact cache's invariant re-check) and K32, K34 and K35
+(emitted_batched.cuh, which struct_expand.cuh includes last: the serving
+plane's batched expand and walk round),
 K20 of a generic spec's temporal operands, K22 of a struct spec's
 coverage conditions and K29 / K30 of an inference run's candidate
 predicates: the C++ that torchtlc.struct.emit prints
@@ -34,14 +36,30 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from typing import Dict, NamedTuple
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 SOURCES = ("expand.cu", "fp64.cu", "fpset.cu", "commit.cu", "slab.cu",
-           "deferred.cu", "ring.cu", "coverage.cu", "route.cu", "liveness.cu")
+           "deferred.cu", "ring.cu", "coverage.cu", "route.cu", "liveness.cu",
+           "fpset_batched.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+
+# what a warm serve submit must not pay for (serve.pool.CompileMeter):
+# "builds" counts compiler runs (nvcc or g++, here and in torchtlc.native),
+# LaneCompiler constructions and emitted texts (struct.compile,
+# struct.emit); "loads" counts shared-library loads (kernels.ops,
+# torchtlc.native).  Monotonic per process.
+METER = {"builds": 0, "loads": 0}
+_METER_LOCK = threading.Lock()
+
+
+def meter(kind: str, n: int = 1) -> None:
+    with _METER_LOCK:
+        METER[kind] += n
 
 
 class BuildInfo(NamedTuple):
@@ -82,6 +100,7 @@ def build(ptxas_report: bool = False) -> BuildInfo:
     for s in todo:
         stem = os.path.splitext(s)[0]
         tmp = f"{libs[stem]}.{os.getpid()}.tmp"
+        meter("builds")
         procs[stem] = (tmp, subprocess.Popen(
             [nvcc(), *flags, "-I", CSRC, "-o", tmp, os.path.join(CSRC, s)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
@@ -103,7 +122,7 @@ STRUCT_TEMPLATES = ("common.cuh", "struct_prelude.cuh", "struct_codec.cuh",
                     "struct_inv_rows.cuh", "emitted_sharded.cuh",
                     "struct_cov.cuh", "struct_cert.cuh", "struct_reduce.cuh",
                     "emitted_sim.cuh", "threefry.cuh", "struct_infer.cuh",
-                    "struct_recheck.cuh")
+                    "struct_recheck.cuh", "emitted_batched.cuh")
 HOST_FLAGS = ["-x", "c++", "-O1", "-std=c++17", "-shared", "-fPIC"]
 
 
@@ -132,6 +151,7 @@ def build_struct(text: str, host: bool = False) -> str:
     os.replace(tmp_src, src)
     tmp = f"{lib}.{os.getpid()}.tmp"
     cc = "g++" if host else nvcc()
+    meter("builds")
     proc = subprocess.run([cc, *flags, "-I", CSRC, "-o", tmp, src],
                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                           text=True)

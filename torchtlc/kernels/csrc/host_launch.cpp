@@ -150,6 +150,23 @@ extern "C" void host_fpset_probe_segment(uint32_t* table, int lognb,
   }
 }
 
+// K33's probe segment over stacked tables ([*, nb, 16]): row k's R keys at
+// keys + k * R against table lanes[k] (k when lanes is NULL), active lanes
+// act[k, :] or the prefix off + i < nreps[k]; is_new [K, R] bytes.
+extern "C" void host_fpset_insert_batched(uint32_t* table, int lognb,
+                                          const int64_t* keys, int K, int R,
+                                          const int* lanes,
+                                          const long long* nreps,
+                                          long long off, const uint8_t* act,
+                                          int C, uint8_t* is_new) {
+  for (int k = 0; k < K; k++)
+    host_fpset_probe_segment(
+        table + ((size_t)(lanes != nullptr ? lanes[k] : k) << lognb) * 16,
+        lognb, keys + (size_t)k * R, R, act != nullptr ? 0 : nreps[k], off,
+        act != nullptr ? act + (size_t)k * R : nullptr, C,
+        is_new + (size_t)k * R);
+}
+
 // The slab dedup of one batch (K5 then K6): keys [N] from host_fpset_key,
 // `passes` slab passes over 2^bits cells, claimants compacted to R rows,
 // ordered, marked.  Returns n_cand; c_idx [R] and active [R] are written

@@ -219,3 +219,10 @@ extern "C" int host_struct_expand(const void* K, const void* block, int ck,
 
 #endif
 
+
+// the serving plane's batched forms of K17, K27 and K28 (K32, K34, K35),
+// in the libraries of the texts that ask for them (a sweep or smoke class:
+// ST_BATCHED 1)
+#if defined(ST_BATCHED) && ST_BATCHED
+#include "emitted_batched.cuh"
+#endif

@@ -29,7 +29,9 @@ KERNELS = ("expand", "fp64", "fpset_key", "fpset_probe", "fpset_claim",
            "struct_cov_count", "struct_cert_check", "struct_canon",
            "struct_orbit_check", "struct_por_keep", "struct_sim_step",
            "sim_fold", "struct_pred_matrix", "struct_pred_alive",
-           "struct_certify", "struct_recheck")
+           "struct_certify", "struct_recheck", "emitted_expand_batched",
+           "fpset_insert_batched", "struct_sim_step_batched",
+           "sim_fold_batched")
 LAUNCHES = {name: 0 for name in KERNELS}
 # K23's certificate runs standalone (its own wrapper) or inside K17 (kCert)
 # and K18: each launch that evaluates it adds one to
@@ -60,6 +62,13 @@ _SIGNATURES = {
                                 _P]),
     "tt_fpset_member": ("fpset", [_P, _I, ctypes.c_uint, _P, _P, _P, _LL,
                                   _LL, _P, _P]),
+    "tt_fpset_bkey": ("fpset_batched", [_P, _P, _P, _LL, _P, _P]),
+    "tt_fpset_bprobe": ("fpset_batched", [_P, _I, _P, _I, _I, _P, _P, _P,
+                                          _LL, _P, _P]),
+    "tt_fpset_bclaim": ("fpset_batched", [_P, _I, _P, _I, _I, _P, _P, _P,
+                                          _I, _P, _P, _P, _P]),
+    "tt_fpset_bwalk": ("fpset_batched", [_P, _I, ctypes.c_uint, _P, _I, _I,
+                                         _P, _P, _P, _P, _P]),
     "tt_commit": ("commit", [_P, _I, _LL, _LL, _P, _LL, _P, _P, _P, _LL, _P,
                              _P, _I, _I, _I, _P]),
     "tt_slab_scatter": ("slab", [_P, _LL, _I, ctypes.c_uint, _P, _P, _P]),
@@ -98,6 +107,7 @@ class _Lib:
     def __init__(self, info: _build.BuildInfo):
         self.info = info
         dlls = {stem: ctypes.CDLL(path) for stem, path in info.libs.items()}
+        _build.meter("loads", len(dlls))
         for fn, (stem, argtypes) in _SIGNATURES.items():
             f = getattr(dlls[stem], fn)
             f.argtypes = argtypes
@@ -839,6 +849,7 @@ def _emitted_lib(text: str, dims_fn: str, signatures, dims):
     lib_ = _EMITTED_LIBS.get(text)
     if lib_ is None:
         dll = ctypes.CDLL(_build.build_struct(text))
+        _build.meter("loads")
         for fn, argtypes in ((dims_fn, [_P]),) + tuple(signatures):
             getattr(dll, fn).argtypes = argtypes
             getattr(dll, fn).restype = ctypes.c_int
@@ -865,10 +876,23 @@ _ROWS_SIGNATURES = (
 )
 
 
+# K32, K34 and K35, in the library of a batched text (ST_BATCHED 1)
+_BATCHED_SIGNATURES = (
+    ("tt_emitted_expand_batched", [_P, _P, _LL, _P, _I, _I, _I, _P, _P, _P,
+                                   _P, _P, _P]),
+    ("tt_struct_sim_step_batched", [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                    _P]),
+    ("tt_sim_fold_batched", [_I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _P, _P, _I, _I, _P]),
+)
+
+
 def struct_lib(prog):
     """The K17/K18/K21 library of a compiled spec
-    (struct.backend.StructProgram; with K23-K28 and K31), built from its
-    emitted text at first use and loaded once per text."""
+    (struct.backend.StructProgram; with K23-K28 and K31, and K32, K34 and
+    K35 when the program is batched), built from its emitted text at first
+    use and loaded once per text."""
     return _emitted_lib(prog.text, "tt_struct_dims", (
         ("tt_struct_expand", [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                               _P, _P]),
@@ -877,6 +901,7 @@ def struct_lib(prog):
         ("tt_sim_fold", [_I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P, _P, _P, _P]),
         ("tt_struct_recheck", [_P, _P, _LL, _P, _P, _P]),
+        *(_BATCHED_SIGNATURES if getattr(prog, "batched", False) else ()),
         *_ROWS_SIGNATURES),
         (prog.F, prog.W, prog.L, prog.n_inv, prog.n_labels))
 
@@ -1322,3 +1347,172 @@ def struct_certify(prog, fields: torch.Tensor) -> torch.Tensor:
         _ptr(prog.constants(fields.device)), _ptr(fields), S, _ptr(words),
         _stream()))
     return words
+
+
+# ---------------------------------------------------------------------------
+# the serving plane's batched kernels: K33 over K stacked tables, K32, K34
+# and K35 from each struct spec's library
+# ---------------------------------------------------------------------------
+
+
+def _need_batched(prog) -> None:
+    if not prog.batched:
+        raise ValueError("a batched kernel needs a batched program (its "
+                         "text prints ST_BATCHED 1: serve.sweep."
+                         "sweep_backend)")
+
+
+def fpset_bkey(lo: torch.Tensor, hi: torch.Tensor, mask: torch.Tensor):
+    """K33's key stage: mixed, remapped, masked sort keys of any shape
+    (int64), elementwise as K3's."""
+    _need(lo, "lo", torch.int32, mask.shape)
+    _need(hi, "hi", torch.int32, mask.shape)
+    _need(mask, "mask", torch.bool)
+    key = torch.empty(mask.shape, dtype=torch.int64, device=lo.device)
+    _launched("fpset_insert_batched", lib().tt_fpset_bkey(
+        _ptr(lo), _ptr(hi), _ptr(mask), mask.numel(), _ptr(key), _stream()))
+    return key
+
+
+def fpset_probe_segment_batched(table: torch.Tensor, keys: torch.Tensor,
+                                nreps, off: int, C: int,
+                                is_new_out: torch.Tensor, active=None,
+                                lanes=None) -> None:
+    """K33's probe segment over stacked tables ([T, nb, 16] int32): row k's
+    ascending keys [K, R] against table lanes[k] ([K] int32; row k's own
+    table when None), active where active[k, i] ([K, R] uint8) when given,
+    else where off + i < nreps[k] ([K] int64, read on the device).  Writes
+    is_new_out [K, R] uint8 and the tables in place: bprobe, bclaim, bwalk
+    (one block a row)."""
+    T, nb = table.shape[0], table.shape[1]
+    if nb & (nb - 1):
+        raise ValueError("table rows must be a power of two")
+    _need(table, "table", torch.int32, (T, nb, 16))
+    Kl, R = keys.shape
+    if lanes is None:
+        if Kl != T:
+            raise ValueError("without lanes, one key row per table")
+    else:
+        _need(lanes, "lanes", torch.int32, (Kl,))
+    _need(keys, "keys", torch.int64, (Kl, R))
+    _need(is_new_out, "is_new", torch.uint8, (Kl, R))
+    if active is None:
+        _need(nreps, "nreps", torch.int64, (Kl,))
+    else:
+        _need(active, "active", torch.uint8, (Kl, R))
+    lognb = nb.bit_length() - 1
+    dev = keys.device
+    slot = torch.empty(Kl, R, dtype=torch.int32, device=dev)
+    _launched("fpset_insert_batched", lib().tt_fpset_bprobe(
+        _ptr(table), lognb, _ptr(keys), Kl, R, _opt(lanes),
+        None if active is not None else _ptr(nreps),
+        None if active is None else _ptr(active), off, _ptr(slot),
+        _stream()))
+    cum = None
+    if C < R:  # each lane's claims beyond its first C wait for the walk
+        cum = torch.cumsum((slot >= 0).to(torch.int64), 1)
+    pending = torch.empty_like(is_new_out)
+    npend = torch.zeros(Kl, dtype=torch.int32, device=dev)
+    _launched("fpset_insert_batched", lib().tt_fpset_bclaim(
+        _ptr(table), lognb, _ptr(keys), Kl, R, _opt(lanes), _ptr(slot),
+        None if cum is None else _ptr(cum), C, _ptr(is_new_out),
+        _ptr(pending), _ptr(npend), _stream()))
+    _launched("fpset_insert_batched", lib().tt_fpset_bwalk(
+        _ptr(table), lognb, nb - 1, _ptr(keys), Kl, R, _opt(lanes),
+        _ptr(pending), _ptr(is_new_out), _ptr(npend), _stream()))
+
+
+def emitted_expand_batched(prog, queue: torch.Tensor, pop: torch.Tensor,
+                           C: int, deferred: bool = False):
+    """K32 over the stacked queue [K, 2, qrows, W] int32 at each lane's pop
+    (pop [K, 4] int64: parity, qhead, n, ck; ck = 0 freezes the lane):
+    (packed [K, C*L, W] int32, flags [K, (3 + n_inv) * C*L] uint8, action
+    [K, C*L] int32, gen [K, n_labels] int64, flat [K, C*L, F] int32 in the
+    deferred mode else None).  Lane k's slab holds K17's outputs at width
+    ck (batched.lane_view cuts them); see
+    struct.backend.StructProgram.expand_batched_plain."""
+    _need_batched(prog)
+    if prog.cert is not None or prog.plan is not None or \
+            prog.por_safe is not None:
+        raise ValueError("emitted_expand_batched: a batched class carries "
+                         "no certificate and no reduction")
+    Kl, _, qrows, W = queue.shape
+    _need(queue, "queue", torch.int32, (Kl, 2, qrows, prog.W))
+    _need(pop, "pop", torch.int64, (Kl, 4))
+    dev = queue.device
+    n = C * prog.L
+    packed = torch.empty(Kl, n, prog.W, dtype=torch.int32, device=dev)
+    flags = torch.empty(Kl, (3 + prog.n_inv) * n, dtype=torch.uint8,
+                        device=dev)
+    action = torch.empty(Kl, n, dtype=torch.int32, device=dev)
+    gen = torch.zeros(Kl, prog.n_labels, dtype=torch.int64, device=dev)
+    flat = (torch.empty(Kl, n, prog.F, dtype=torch.int32, device=dev)
+            if deferred else None)
+    _launched("emitted_expand_batched",
+              struct_lib(prog).tt_emitted_expand_batched(
+                  _ptr(prog.constants(dev)), _ptr(queue), qrows, _ptr(pop),
+                  Kl, C, int(deferred), _ptr(packed), _ptr(flags),
+                  _ptr(action), _opt(flat), _ptr(gen), _stream()))
+    return packed, flags, action, gen, flat
+
+
+def struct_sim_step_batched(prog, buf, carry, check_deadlock: bool,
+                            init: bool = False, inits=None, n0=None) -> None:
+    """K34, one round of every batch lane's W walkers (the identity on a
+    lane whose buf.go is 0), or with `init` round 0 over each lane's Init
+    vectors (inits [K, n0max, F] int32, n0 [K] int32).  `carry` and `buf`
+    are sim.engine's stacked BatchSimCarry and batched SimBuffers; see
+    struct.backend.StructProgram.sim_step_batched_plain."""
+    _need_batched(prog)
+    Kl, W = carry.states.shape[:2]
+    _need(carry.states, "states", torch.int32, (Kl, W, prog.F))
+    _need(carry.key, "key", torch.uint32, (Kl, 2))
+    _need(carry.step_i, "step_i", torch.int32, (Kl,))
+    _need(carry.alive, "alive", torch.bool, (Kl, W))
+    _need(carry.steps_taken, "steps_taken", torch.int32, (Kl, W))
+    _need(buf.go, "go", torch.int32, (Kl,))
+    _need(buf.vold, "vold", torch.int32, (Kl, W, prog.F))
+    _need(buf.vact, "vact", torch.int32, (Kl, W))
+    if buf.packed is not None:
+        _need(buf.packed, "packed", torch.int32, (Kl, W, prog.W))
+        _need(buf.take, "take", torch.bool, (Kl, W))
+    n0max = 0
+    if init:
+        n0max = inits.shape[1]
+        _need(inits, "inits", torch.int32, (Kl, n0max, prog.F))
+        _need(n0, "n0", torch.int32, (Kl,))
+    dev = carry.states.device
+    _launched("struct_sim_step_batched",
+              struct_lib(prog).tt_struct_sim_step_batched(
+                  _ptr(prog.constants(dev)), _ptr(buf.go), _ptr(carry.key),
+                  _ptr(carry.step_i), _opt(inits), n0max, _opt(n0),
+                  _ptr(carry.states), _ptr(carry.alive),
+                  _ptr(carry.steps_taken), W, Kl, int(bool(init)),
+                  int(bool(check_deadlock)), _opt(buf.packed),
+                  _opt(buf.take), _ptr(buf.vold), _ptr(buf.vact),
+                  _ptr(buf.scratch), _stream()))
+
+
+def sim_fold_batched(prog, buf, carry, depth: int,
+                     init: bool = False) -> None:
+    """K35, one block a batch lane: K28's fold of each lane's scratch into
+    its slice of the stacked carry, in place; see
+    struct.backend.StructProgram.sim_fold_batched_plain."""
+    from ..struct.backend import VIOL_INVARIANT_BASE
+
+    _need_batched(prog)
+    Kl, W = carry.states.shape[:2]
+    for name in ("step_i", "viol", "viol_lane", "viol_step", "viol_action"):
+        _need(getattr(carry, name), name, torch.int32, (Kl,))
+    _need(carry.viol_state, "viol_state", torch.int32, (Kl, prog.F))
+    _need(carry.generated, "generated", torch.uint32, (Kl,))
+    _need(carry.transitions, "transitions", torch.uint32, (Kl,))
+    _need(carry.act_taken, "act_taken", torch.uint32, (Kl, prog.n_labels))
+    _launched("sim_fold_batched", struct_lib(prog).tt_sim_fold_batched(
+        int(bool(init)), _ptr(buf.go), _ptr(buf.scratch), int(depth),
+        VIOL_INVARIANT_BASE, _ptr(carry.step_i), _ptr(carry.viol),
+        _ptr(carry.viol_lane), _ptr(carry.viol_step),
+        _ptr(carry.viol_state), _ptr(carry.viol_action),
+        _ptr(carry.generated), _ptr(carry.transitions),
+        _ptr(carry.act_taken), _ptr(carry.states), _ptr(buf.vold),
+        _ptr(buf.vact), W, Kl, _stream()))

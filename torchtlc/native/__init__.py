@@ -21,6 +21,8 @@ import tempfile
 
 import numpy as np
 
+from ..kernels.build import meter
+
 _SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 _SOURCES = ["fpstore.cpp", "squeue.cpp"]
 BUILD_DIR = os.path.join(os.path.dirname(_SRC_DIR), "kernels", "_build",
@@ -38,6 +40,7 @@ def _build() -> str:
                       f"torchtlc_native_{digest.hexdigest()[:16]}.so")
     if not os.path.exists(so):
         tmp = so + f".build{os.getpid()}"
+        meter("builds")
         subprocess.run(
             ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-o", tmp]
             + srcs,
@@ -55,6 +58,7 @@ def lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         _lib = ctypes.CDLL(_build())
+        meter("loads")
         _lib.fps_open.restype = ctypes.c_void_p
         _lib.fps_open.argtypes = [ctypes.c_char_p, ctypes.c_uint64]
         _lib.fps_insert_batch.restype = ctypes.c_int

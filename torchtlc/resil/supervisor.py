@@ -164,6 +164,14 @@ class SupervisorOptions:
     # unspilled single-device verdict (CheckResult.fp_table: the artifact
     # cache's reachable-set source; the adapter's CAPTURES_FPS gates it)
     capture_fps: bool = False
+    # programmatic drain request (jaxtlc/resil/supervisor.py:209-216): a
+    # threading.Event twin of _SignalCatcher for in-process preemption -
+    # the serve scheduler sets it to preempt ONE supervised job (deadline,
+    # priority, cancel) without signalling the server.  Checked at the
+    # same segment boundaries as sig.hit, so a drained run rides the same
+    # checkpoint and exit-75 path and its -recover resume is the
+    # uninterrupted run
+    drain: Optional[object] = None
     # on_event(kind, info): checkpoint / ckpt_write_failed / ckpt_fallback
     # / recovery / regrow / retry / interrupted / progress / level /
     # coverage / phase / segment / spill / degrade / exhausted / final
@@ -734,9 +742,10 @@ def supervise(adapter, params: dict,
         if spill_rt is not None and good_store is not None:
             spill_rt.store.restore(good_store)
 
+    drained = (lambda: opts.drain is not None and opts.drain.is_set())
     with _SignalCatcher() as sig:
         while not adapter.done(carry):
-            if sig.hit is not None:
+            if sig.hit is not None or drained():
                 interrupted = True
                 break
 
@@ -959,12 +968,12 @@ def supervise(adapter, params: dict,
                       path=path, generated=g, distinct=di, queue=q,
                       wall_s=round(time.time() - t0, 6))
             else:
-                # drained: the reference's programmatic drain request (its
-                # serving plane, not ported) - a signal here, always
+                # drained: the programmatic drain request (the serve
+                # scheduler's preemption) rather than a signal
                 _emit(opts, "interrupted",
                       signum=int(sig.hit) if sig.hit else None, path=path,
                       generated=g, distinct=di, queue=q,
-                      wall_s=round(time.time() - t0, 6), drained=False)
+                      wall_s=round(time.time() - t0, 6), drained=drained())
         else:
             flush_save()
 

@@ -35,12 +35,23 @@ uint32 and wrap: ``torch.uint32`` on the card (K28 adds to them), int64
 masked to 32 bits on the CPU (CPU ``torch.uint32`` has no arithmetic).
 
 Only struct backends carry the walk's kernels (``StructKernels.sim_*``);
-KubeAPI's and generic specs' walks, and the batched ``SimEngine`` of the
-serve plane, are ROADMAP Queue B / item 13.
+KubeAPI's and generic specs' walks are ROADMAP Queue B.
+
+``SimEngine`` (the serving plane's smoke class, jaxtlc/sim/engine.py:
+429-541) runs up to `width` (seed, config) lanes in one dispatch through
+``make_batched_sim``: the lanes' carries are stacked on a leading axis
+(``[K, W, F]`` states, ``[K]`` scalars, ``[K, cap/8, 16]`` sampling
+tables) and a round is one launch of K34 ``struct_sim_step_batched`` (K27
+over lane x walker, each lane with its own key, cursor, ``go`` and
+scratch), K2 over every lane's packed rows and the batched sorted insert
+(K33) for the sampling filter, and one launch of K35 ``sim_fold_batched``
+(K28 with one block a lane).  A lane whose ``go`` is 0 is the identity,
+so each lane's final carry is its single-lane run's (``run_sequential``).
 """
 
 from __future__ import annotations
 
+import time
 from collections import OrderedDict
 from typing import NamedTuple
 
@@ -50,12 +61,18 @@ import torch
 from ..engine.backend import OK, SpecBackend
 from ..engine.bfs import FP_HIGHWATER, VIOLATION_NAMES, resolve_device
 from ..engine.fingerprint import DEFAULT_FP_INDEX, DEFAULT_SEED, fp64_words
-from ..engine.fpset import FPSet, fpset_insert_sorted, fpset_new
+from ..engine.fpset import (
+    FPSet,
+    fpset_insert_sorted,
+    fpset_insert_sorted_batched,
+    fpset_new,
+)
 from ..spec.codec import to_i32
 from . import threefry
 
 DEFAULT_WALKERS = 256
 DEFAULT_DEPTH = 100
+DEFAULT_SIM_WIDTH = 4  # (seed, config) lanes per batched dispatch
 M32 = 0xFFFFFFFF
 # run_fn reads the device's `go` flag once this many rounds
 GO_READ_EVERY = 16
@@ -379,6 +396,159 @@ def make_sim_engine(
     return init_fn, run_fn, step_fn
 
 
+# ---------------------------------------------------------------------------
+# the batched walk (kernels K34, K35; the serving plane's smoke class)
+# ---------------------------------------------------------------------------
+
+
+def lane_carry(carry: SimCarry, k: int) -> SimCarry:
+    """Lane k of a stacked carry: views of its slices (0-dim scalars)."""
+    return SimCarry(**{
+        name: (None if v is None else FPSet(v.table[k]) if name == "fps"
+               else v[k])
+        for name, v in zip(LEAF_ORDER, carry)})
+
+
+def lane_buffers(buf: SimBuffers, k: int) -> SimBuffers:
+    """Lane k's slice of batched buffers (go [K] -> its [1] view)."""
+    return SimBuffers(
+        go=buf.go[k:k + 1], scratch=buf.scratch[k], vold=buf.vold[k],
+        vact=buf.vact[k],
+        packed=None if buf.packed is None else buf.packed[k],
+        take=None if buf.take is None else buf.take[k])
+
+
+def make_batched_sim(
+    backend: SpecBackend,
+    K: int,
+    walkers: int = DEFAULT_WALKERS,
+    depth: int = DEFAULT_DEPTH,
+    fp_capacity: int = 0,
+    fp_index: int = DEFAULT_FP_INDEX,
+    fp_seed: int = DEFAULT_SEED,
+    fp_highwater: float = FP_HIGHWATER,
+    check_deadlock: bool = None,
+    device=None,
+):
+    """``(init_fn, run_fn)`` of K walk lanes in one dispatch on `device`.
+
+    ``init_fn(seeds, inits)`` -> the stacked carry (SimCarry with a leading
+    lane axis on every leaf): lane k walks under seeds[k] from Init
+    vectors inits[k] ([n0_k, F]).  ``run_fn(carry)`` walks every lane to
+    its depth / first violation / all walkers halted; ``lane_carry(c, k)``
+    is lane k's carry, equal to make_sim_engine's run of the same seed and
+    Init set; ``run_fn(carry, rounds)`` launches at most `rounds` rounds.
+    run_fn.rounds counts the rounds of its last call."""
+    kern = backend.kernels
+    if getattr(kern, "sim_step_batched", None) is None:
+        raise NotImplementedError(
+            "the batched walk runs over struct backends (kernels K34, K35)")
+    prog = kern.prog
+    cdc = backend.cdc
+    F = cdc.n_fields
+    W = int(walkers)
+    depth = int(depth)
+    n_labels = len(backend.labels)
+    dev = resolve_device(device)
+    if check_deadlock is None:
+        check_deadlock = backend.check_deadlock
+    sample = fp_capacity > 0
+    limit = int(fp_capacity * fp_highwater)
+    scratch = torch.zeros(K, scratch_words(prog.n_inv, prog.n_labels),
+                          dtype=torch.int32, device=dev)
+    for k in range(K):
+        scratch_reset(scratch[k], prog.n_inv)
+    buf = SimBuffers(
+        go=torch.zeros(K, dtype=torch.int32, device=dev), scratch=scratch,
+        vold=torch.zeros(K, W, F, dtype=torch.int32, device=dev),
+        vact=torch.zeros(K, W, dtype=torch.int32, device=dev),
+        packed=(torch.zeros(K, W, prog.W, dtype=torch.int32, device=dev)
+                if sample else None),
+        take=torch.zeros(K, W, dtype=torch.bool, device=dev)
+        if sample else None)
+
+    def i32(v):
+        return torch.full((K,), v, dtype=torch.int32, device=dev)
+
+    def set_go(c: SimCarry) -> None:
+        buf.go.copy_(((c.step_i < depth) & (c.viol == OK)
+                      & c.alive.any(1)).to(torch.int32))
+
+    def sample_insert(c: SimCarry, go) -> SimCarry:
+        lo, hi = fp64_words(buf.packed.view(K * W, -1), cdc.nbits, fp_index,
+                            fp_seed)
+        would = (to_i32(c.distinct).to(torch.int64) + W) > limit
+        mask = buf.take
+        if go is not None:
+            would = would & go
+            mask = mask & go[:, None]
+        sat = c.fp_sat | would
+        is_new = fpset_insert_sorted_batched(
+            c.fps.table, range(K), lo.view(K, W), hi.view(K, W),
+            mask & ~sat[:, None])[0]
+        return c._replace(distinct=(c.distinct + is_new.sum(1)) & M32,
+                          fp_sat=sat)
+
+    def init_fn(seeds, inits) -> SimCarry:
+        n0 = [int(np.asarray(x).shape[0]) for x in inits]
+        stacked = np.zeros((K, max(n0), F), np.int32)
+        for k, x in enumerate(inits):
+            stacked[k, :n0[k]] = np.asarray(x, np.int32)
+        extra = {}
+        if sample:
+            extra = dict(
+                fps=FPSet(torch.zeros(K, fp_capacity // 8, 16,
+                                      dtype=torch.int32, device=dev)),
+                distinct=torch.zeros(K, dtype=torch.int64, device=dev),
+                fp_sat=torch.zeros(K, dtype=torch.bool, device=dev))
+        c = SimCarry(
+            key=u32_tensor(np.stack([threefry.prng_key(s) for s in seeds]),
+                           dev),
+            states=torch.empty(K, W, F, dtype=torch.int32, device=dev),
+            step_i=i32(0),
+            alive=torch.ones(K, W, dtype=torch.bool, device=dev),
+            steps_taken=torch.zeros(K, W, dtype=torch.int32, device=dev),
+            generated=u32_tensor(np.full(K, W), dev),
+            transitions=u32_tensor(np.zeros(K, np.int64), dev),
+            act_taken=u32_tensor(np.zeros((K, n_labels), np.int64), dev),
+            viol=i32(OK), viol_lane=i32(-1), viol_step=i32(0),
+            viol_state=torch.zeros(K, F, dtype=torch.int32, device=dev),
+            viol_action=i32(-1), **extra)
+        kern.sim_step_batched(buf, c, check_deadlock, init=True,
+                              inits=torch.from_numpy(stacked).to(dev),
+                              n0=torch.tensor(n0, dtype=torch.int32,
+                                              device=dev))
+        if sample:
+            c = sample_insert(c, None)
+        kern.sim_fold_batched(buf, c, depth, init=True)
+        return c
+
+    def round_(c: SimCarry) -> SimCarry:
+        kern.sim_step_batched(buf, c, check_deadlock)
+        if sample:
+            c = sample_insert(c, buf.go != 0)
+        kern.sim_fold_batched(buf, c, depth)
+        return c
+
+    def run_fn(c: SimCarry, rounds: int = None) -> SimCarry:
+        set_go(c)
+        left = max(depth - int(c.step_i.min()), 0)
+        if rounds is not None:
+            left = min(left, rounds)
+        rounds = 0
+        for i in range(left):
+            c = round_(c)
+            rounds += 1
+            if (i + 1) % GO_READ_EVERY == 0 and not bool(buf.go.any()):
+                break
+        run_fn.rounds = rounds
+        return c
+
+    run_fn.rounds = 0
+    init_fn.buffers = buf
+    return init_fn, run_fn
+
+
 def sim_done(carry: SimCarry, depth: int) -> bool:
     """Host-side termination check (the supervised driver's fence)."""
     if int(carry.viol) != OK:
@@ -465,3 +635,103 @@ def get_sim_engine(model, walkers: int, depth: int,
             device=device)
 
     return _memo(_SIM_MEMO, key, build, cap=SIM_MEMO_CAP)
+
+
+# ---------------------------------------------------------------------------
+# the smoke class's warm engine (jaxtlc/sim/engine.py:429-541)
+# ---------------------------------------------------------------------------
+
+
+class SimEngine:
+    """A warm smoke-class engine: one struct backend (its emitted library
+    built at the first launch) and the batched walk that runs up to
+    `width` (seed, config) lanes per dispatch - serve.sweep.SweepEngine's
+    shape applied to the seed axis.  `params` (swept constant domains)
+    promotes the swept CONSTANTs to state fields through the same sweep
+    compiler, so seeds x configs batch in one dispatch with one build per
+    class."""
+
+    def __init__(self, model, params=None, walkers: int = DEFAULT_WALKERS,
+                 depth: int = DEFAULT_DEPTH, fp_capacity: int = 0,
+                 check_deadlock: bool = True,
+                 width: int = DEFAULT_SIM_WIDTH, device=None):
+        self.model = model
+        self.params = (
+            {c: (int(lo), int(hi)) for c, (lo, hi) in params.items()}
+            if params else None
+        )
+        self.walkers = int(walkers)
+        self.depth = int(depth)
+        self.width = max(1, int(width))
+        self.fp_capacity = int(fp_capacity)
+        self.device = resolve_device(device)
+        from ..serve.sweep import sweep_backend
+
+        # the batched walk's kernels (K34, K35) live in a batched library:
+        # the class's sweep compile, or with no params the model's own step
+        self.backend = sweep_backend(model, self.params or {},
+                                     check_deadlock)
+        geo = dict(walkers=self.walkers, depth=self.depth,
+                   fp_capacity=self.fp_capacity,
+                   check_deadlock=check_deadlock, device=self.device)
+        self._init_fn, self._run_fn, _ = make_sim_engine(self.backend, **geo)
+        self._binit, self._brun = make_batched_sim(self.backend, self.width,
+                                                   **geo)
+
+    def _inits(self, values=None) -> np.ndarray:
+        if self.params:
+            from ..serve.sweep import config_inits
+
+            return config_inits(self.model, self.params, values or {},
+                                self.backend.cdc)
+        return self.backend.initial_vectors()
+
+    def carry_for(self, seed: int, values=None) -> SimCarry:
+        """A fresh single-lane walk carry for one (seed, config) lane."""
+        return self._init_fn(seed, self._inits(values))
+
+    def _result(self, carry: SimCarry, wall_s: float, seed: int):
+        return result_from_sim_carry(carry, wall_s, self.backend,
+                                     self.walkers, self.depth, seed)
+
+    def run_carries(self, items):
+        """(the K lane carries, pad lanes included, and the dispatch's wall)
+        of one batched dispatch of (seed, values-or-None) items."""
+        if not items:
+            raise ValueError("empty sim batch")
+        if len(items) > self.width:
+            raise ValueError(
+                f"{len(items)} sim lanes > width {self.width} "
+                "(the scheduler slices batches to width)")
+        pad = list(items) + [items[-1]] * (self.width - len(items))
+        c = self._binit([int(s) for s, _ in pad],
+                        [self._inits(v) for _, v in pad])
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.time()
+        c = self._brun(c)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return ([lane_carry(c, k) for k in range(self.width)],
+                time.time() - t0)
+
+    def run(self, items) -> list:
+        """Walk up to `width` (seed, config-values-or-None) lanes in ONE
+        dispatch; per-lane results in submission order."""
+        carries, wall = self.run_carries(items)
+        return [self._result(carries[k], wall, items[k][0])
+                for k in range(len(items))]
+
+    def run_sequential(self, items) -> list:
+        """The parity baseline: the same walk, one lane at a time (the
+        tests pin run() bit for bit against this, the sampling table
+        included)."""
+        out = []
+        for seed, values in items:
+            c = self.carry_for(seed, values)
+            t0 = time.time()
+            c = self._run_fn(c)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            out.append(self._result(c, time.time() - t0, seed))
+        return out

@@ -130,14 +130,15 @@ class StructProgram(_Constants):
     def __init__(self, step_outputs, inv_outputs, cdc: StructCodec,
                  lane_action: np.ndarray, n_labels: int, title: str,
                  template: str = "struct_expand.cuh", card_specs=None,
-                 plan=None, safe_ids=None):
+                 plan=None, safe_ids=None, batched: bool = False):
         """`card_specs` (a list, possibly empty) makes the program carry
         the runtime certificate over the codec's maximum codes and these
         (offset, fields, bound) mask bounds; None carries none.  `plan`
         (an engine.reduce.ReducePlan) makes its text canonicalize every
         candidate (K24) and carry the orbit check (K25); `safe_ids` (the
         action ids POR may take, a nonempty tuple) makes it prune (K26).
-        None carries neither."""
+        None carries neither.  `batched` adds the serving plane's batched
+        kernels (K32, K34, K35) to the text's library."""
         self.cert = None if card_specs is None else (
             tuple(int(c) for c in cdc.max_codes()),
             tuple(tuple(int(x) for x in spec) for spec in card_specs))
@@ -155,12 +156,13 @@ class StructProgram(_Constants):
         self.n_labels = n_labels
         self.lane_action = np.asarray(lane_action, np.int32)
         self.template = template
+        self.batched = bool(batched)
         self.text, self.K = spec_source(
             self.step_outputs, self.inv_outputs, n_fields=self.F,
             widths=cdc.widths, n_words=self.W, lane_action=self.lane_action,
             n_labels=n_labels, title=title, template=template,
             cert=self.cert, sym=self.sym_programs or None,
-            por=self.por_safe)
+            por=self.por_safe, batched=batched)
         self._K_dev: Dict[str, torch.Tensor] = {}
 
     def stats(self) -> dict:
@@ -511,6 +513,70 @@ class StructProgram(_Constants):
                          and int(sc[se.SIM_ANY]) != 0))
         se.scratch_reset(sc, self.n_inv)
 
+    # -- the serving plane's batched forms (K32, K34, K35) ----------------
+
+    def expand_batched_plain(self, queue: torch.Tensor, pop: torch.Tensor,
+                             C: int, deferred: bool = False):
+        """Torch version of kernel K32: lane k of the stacked queue [K, 2,
+        qrows, W] pops pop[k] = (parity, qhead, n, ck) rows (ck = 0: the
+        lane is frozen and its slab is left as allocated) and its slab of
+        the [K, C*L] outputs holds expand_red_plain's at width ck, the flag
+        rows at stride ck*L.  Returns (packed, flags, action, gen, flat)
+        as ops.emitted_expand_batched."""
+        Kl = queue.shape[0]
+        dev = queue.device
+        n_all = C * self.L
+        packed = torch.zeros(Kl, n_all, self.W, dtype=torch.int32,
+                             device=dev)
+        flags = torch.zeros(Kl, (3 + self.n_inv) * n_all, dtype=torch.uint8,
+                            device=dev)
+        action = torch.zeros(Kl, n_all, dtype=torch.int32, device=dev)
+        gen = torch.zeros(Kl, self.n_labels, dtype=torch.int64, device=dev)
+        flat = (torch.zeros(Kl, n_all, self.F, dtype=torch.int32,
+                            device=dev) if deferred else None)
+        for k, (parity, qhead, n, ck) in enumerate(pop.tolist()):
+            if not ck:
+                continue
+            block = queue[k, parity, qhead:qhead + ck]
+            p, f, a, g, fl = self.expand_red_plain(block, n, deferred)[:5]
+            m = ck * self.L
+            packed[k, :m] = p
+            flags[k, :f.numel()] = f.reshape(-1)
+            action[k, :m] = a
+            gen[k] = g
+            if deferred:
+                flat[k, :m] = fl
+        return packed, flags, action, gen, flat
+
+    def sim_step_batched_plain(self, buf, carry, check_deadlock: bool,
+                               init: bool = False, inits=None,
+                               n0=None) -> None:
+        """Torch version of kernel K34: sim_step_plain (or, with `init`,
+        sim_init_plain over lane k's first n0[k] rows of inits) on every
+        batch lane's slice of the stacked carry and buffers, in place."""
+        from ..sim.engine import lane_buffers
+
+        for k in range(carry.states.shape[0]):
+            b = lane_buffers(buf, k)
+            if init:
+                self.sim_init_plain(b, carry.key[k],
+                                    inits[k, :int(n0[k])], carry.states[k])
+            else:
+                self.sim_step_plain(b, carry.key[k], carry.step_i[k],
+                                    carry.states[k], carry.alive[k],
+                                    carry.steps_taken[k], check_deadlock)
+
+    def sim_fold_batched_plain(self, buf, carry, depth: int,
+                               init: bool = False) -> None:
+        """Torch version of kernel K35: sim_fold_plain on every batch
+        lane's slice of the stacked carry, in place."""
+        from ..sim.engine import lane_buffers, lane_carry
+
+        for k in range(carry.states.shape[0]):
+            self.sim_fold_plain(lane_buffers(buf, k), lane_carry(carry, k),
+                                depth, init)
+
+
 
 class EmittedRows:
     """The routes every emitted backend shares (struct and generic): the
@@ -654,6 +720,35 @@ class StructKernels(EmittedRows):
         from ..kernels import ops
 
         ops.sim_fold(self.prog, buf, carry, depth, init)
+
+    # the serving plane's batched routes: kernels K32, K34, K35 on CUDA
+    # tensors, their plain versions on CPU tensors
+
+    def expand_batched(self, queue, pop, C: int, deferred: bool = False):
+        if not queue.is_cuda:
+            return self.prog.expand_batched_plain(queue, pop, C, deferred)
+        from ..kernels import ops
+
+        return ops.emitted_expand_batched(self.prog, queue, pop.to(
+            queue.device), C, deferred)
+
+    def sim_step_batched(self, buf, carry, check_deadlock: bool,
+                         init: bool = False, inits=None, n0=None) -> None:
+        if not carry.states.is_cuda:
+            return self.prog.sim_step_batched_plain(
+                buf, carry, check_deadlock, init, inits, n0)
+        from ..kernels import ops
+
+        ops.struct_sim_step_batched(self.prog, buf, carry, check_deadlock,
+                                    init, inits, n0)
+
+    def sim_fold_batched(self, buf, carry, depth: int,
+                         init: bool = False) -> None:
+        if not carry.states.is_cuda:
+            return self.prog.sim_fold_batched_plain(buf, carry, depth, init)
+        from ..kernels import ops
+
+        ops.sim_fold_batched(self.prog, buf, carry, depth, init)
 
 
 class StructCoverage(_Constants):

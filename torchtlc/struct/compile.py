@@ -46,6 +46,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..kernels.build import meter
 from ..spec.labels import DEFAULT_INIT
 from . import lanes as jnp
 from .codec import EnumLeaf, MaskLeaf, RecNode, SeqNode, StructCodec, layout_of
@@ -270,6 +271,7 @@ class LaneCompiler:
                  var_shapes: Dict[str, Shape], codec: StructCodec,
                  sweep_vars: frozenset = frozenset(),
                  trap_policy: Optional[TrapPolicy] = None):
+        meter("builds")  # one lane compile (serve.pool.CompileMeter)
         self.ev = ev
         self.variables = variables
         self.var_shapes = var_shapes

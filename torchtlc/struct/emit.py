@@ -25,6 +25,7 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
+from ..kernels.build import meter
 from . import lanes
 from .lanes import Node, bool_, row_size
 
@@ -68,6 +69,7 @@ class Program:
     and the emitted functions."""
 
     def __init__(self):
+        meter("builds")  # one emitted text (serve.pool.CompileMeter)
         self._chunks: List[np.ndarray] = []
         self._offsets: Dict[int, int] = {}
         self._keep: List[Node] = []
@@ -358,7 +360,7 @@ def spec_source(step_outputs, inv_outputs, *, n_fields: int,
                 widths: Sequence[int], n_words: int, lane_action,
                 n_labels: int, title: str,
                 template: str = "struct_expand.cuh", cert=None,
-                sym=None, por=None):
+                sym=None, por=None, batched: bool = False):
     """(source text, K constants) of one spec: the macros and functions
     the kernel template builds its kernels around -
     torchtlc/kernels/csrc/struct_expand.cuh (K17 and K18) for a struct
@@ -375,7 +377,11 @@ def spec_source(step_outputs, inv_outputs, *, n_fields: int,
     ``st_sym_prog`` with its remap tables in K (kernels K24 and K25,
     struct_reduce.cuh); `por` - one bool per label, the actions POR may
     take as singleton ample sets - prints ST_POR 1 and ST_POR_SAFE (kernel
-    K26).  None prints ST_SYM 0 / ST_POR 0."""
+    K26).  None prints ST_SYM 0 / ST_POR 0.  `batched` prints ST_BATCHED
+    1: struct_expand.cuh then adds the serving plane's batched kernels
+    K32, K34 and K35 (emitted_batched.cuh) to the library, which only the
+    sweep and smoke classes build, so every other spec's nvcc compiles
+    K17's row body fewer times."""
     F = n_fields
     prog = Program()
     L = _step_function(prog, step_outputs, F)
@@ -432,6 +438,8 @@ def spec_source(step_outputs, inv_outputs, *, n_fields: int,
             "1" if x else "0" for x in por)]
     else:
         head.append("#define ST_POR 0")
+    if batched:
+        head.append("#define ST_BATCHED 1")
     head.append("")
     text = "\n".join(head) + "\n\n".join(prog.functions) + (
         f"\n\n#include \"{template}\"\n")
