@@ -12,7 +12,8 @@ deferred invariants; the scaled run with the counter ring) - then the
 user's command, ``python -m torchtlc.cli check MC.cfg``, on a Model_1
 MC.tla/MC.cfg pair written to a temporary directory: a clean run (phase 7),
 auto-regrow from -fpcap 65536 (7b), the host spill tier behind kernel K9 at
-Model_1 and at the scaled size (8, 8b), SIGTERM -> exit 75 -> -recover
+Model_1, after a failed allocation and through several flushes (8, 8b),
+SIGTERM -> exit 75 -> -recover
 (9) and a violation's counterexample (9b); then the device coverage plane
 behind kernel K10: Model_1 with coverage in both mode sets (10), the
 scaled 2x1 workload with coverage, timed against coverage off (10b), and
@@ -162,7 +163,18 @@ K35 a round (24c); and the service on the card - sweep, smoke, pooled,
 infer, supervised and cached jobs, warm resubmits with no build and no
 load, SSE, /metrics, priority preemption resumed through -recover, a
 running deadline, a cancel, a 429 - and `check -trace-out` / `-serve` on
-TwoPhase (pinned) and Model_1 (24d).  It checks every
+TwoPhase (pinned) and Model_1 (24d); then pods behind kernels K36 (the
+exchange's send buffer), K37 (the owner planes of the received buffer) and
+K38 (the gathered statistic and fence rows): `python -m torchtlc.dist
+--spawn 2 --devices-per-host 2` on this card over gloo - Model_1 with
+MC.out's counts and the in-process 4-shard engine's table words, K36-K38
+against their plain versions, K36's and K37's buffers through a one-rank
+NCCL group (25); the drills - SIGTERM through the launcher, resume, a
+refused width and --reshard, a table too small and the spill lifeboat -
+and FF with the counter ring and coverage folded from both journals
+(25b); scaled 2x1 on the 2 x 2 pod through init_pod / run_pod against the
+single-device fingerprint set, its wall in turns with the in-process
+4-shard engine and the collectives' share of it (25c).  It checks every
 result against its pinned value, holds each kernel bitwise against its
 plain torch version on the card, and prints:
 
@@ -181,7 +193,8 @@ plain torch version on the card, and prints:
   walks and commands of phases 20-20c, the inference runs and
   commands of phases 21-21c, the disk-tier runs and commands of phases
   22-22c, the artifact-cache commands of phases 23-23c and the batched
-  sweeps, walks, jobs and commands of phases 24-24d;
+  sweeps, walks, jobs and commands of phases 24-24d, and worker 0 of the
+  pods of phases 25 and 25c;
   each path's counts are reset just before it and read just after),
   its error against the plain
   version, its time, the plain version's time, its bound on this card
@@ -206,7 +219,8 @@ struct -narrow slice, ``--phases 19,19b,19c`` the -symmetry / -por slice,
 -infer slice, ``--phases 22,22b,22c`` the disk tier, ``--phases
 23,23b,23c`` the artifact cache, ``--phases 24,24b,24c,24d`` the serving
 plane (constants-class sweeps and smoke batches in one dispatch, kernels
-K32-K35; the service; -serve and -trace-out).  Every run but those of
+K32-K35; the service; -serve and -trace-out), ``--phases 25,25b,25c``
+the pods (kernels K36-K38).  Every run but those of
 phases 23-23c and 24d's cached job has the artifact cache off
 (TORCHTLC_ARTIFACT_CACHE=off); those use temporary stores.
 """
@@ -219,6 +233,7 @@ import io
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -334,10 +349,8 @@ INVARIANT OnlyOneVersion
 """
 # spill at Model_1: the reference's own setting (tests/test_spill.py:325)
 M1_SPILL_KW = dict(chunk=1024, queue_capacity=1 << 13, fp_capacity=1 << 17)
-# spill at the scaled size: the table saturates at ~14.2M of 19.36M
-SCALED_SPILL_KW = dict(chunk=8192, queue_capacity=1 << 21,
-                       fp_capacity=1 << 24)
-SPILL_N = 8192 * 12  # K9's lanes at the scaled spill step
+# K9's lanes at a scaled spill step (chunk 8192)
+SPILL_N = 8192 * 12
 
 # temporal properties: the two KubeAPI properties (KubeAPI.tla:798-808);
 # the SHA-256 of the verdict and lasso lines (liveness_text) of `python -m
@@ -502,7 +515,7 @@ def main() -> int:
         if want("8"):
             runs["spill_m1"] = phase_spill_model1(torch, ops, card)
         if want("8b"):
-            runs["spill_scaled"] = phase_spill_scaled(torch, ops, card)
+            runs["spill_flushes"] = phase_spill_flushes(torch, ops, card)
         if want("9"):
             phase_preempt(model, tmp)
         if want("9b"):
@@ -596,6 +609,11 @@ def main() -> int:
             runs.update(phase_smoke24_real(torch, ops, card, runs, tmp))
         if want("24d"):
             runs.update(phase_service24(torch, ops, card, runs, tmp, model))
+        if want("25"):
+            runs.update(phase_pod25(torch, ops, card, runs, tmp))
+        if want("25b") or want("25c"):
+            runs.update(phase_pod25bc(torch, ops, card, runs, tmp,
+                                      want("25b"), want("25c")))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if want("13b"):
@@ -611,7 +629,7 @@ def main() -> int:
               "prints no contract lines)", flush=True)
         return 0
     main = ("m1", "m1_auto", "scaled", "scaled_auto", "cmd", "regrow",
-            "spill_m1", "spill_scaled", "viol_cmd", "cov_m1", "cov_m1_auto",
+            "spill_m1", "spill_flushes", "viol_cmd", "cov_m1", "cov_m1_auto",
             "cov_scaled", "pipe_m1", "pipe_m1_auto", "pipe_scaled",
             "pipe_scaled_65536", "pipe_regrow", "shard_m1", "shard_scaled",
             "shard_scaled_pipe", "shard_cmd", "shard_cmd_fp",
@@ -628,7 +646,7 @@ def main() -> int:
                 ) + tuple(k for k, v in runs.items()
                           if k.startswith(("shard16", "p17", "p18", "p19",
                                            "p20", "p21", "p22", "p23",
-                                           "p24"))
+                                           "p24", "p25"))
                           and isinstance(v, dict) and "launches" in v)
     launches = {k: sum(runs[r]["launches"][k] for r in main)
                 for k in ops.KERNELS}
@@ -887,6 +905,19 @@ def command_here(ops, argv):
     return rc, out.getvalue(), dict(ops.LAUNCHES), time.time() - t0
 
 
+def command_inproc(argv):
+    """The command in this process (torchtlc.cli.main), both streams
+    captured: (rc, stdout, stderr).  For a -recover, which needs no signal
+    of its own: it skips an interpreter's start and torch's import (~11 s
+    a process on the card's machine)."""
+    from torchtlc.cli import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(["check", *argv])
+    return rc, out.getvalue(), err.getvalue()
+
+
 def final_counts(text):
     """(generated, distinct, depth) from a transcript's 2199/2194 lines."""
     g = d = depth = None
@@ -1014,41 +1045,42 @@ def phase_spill_model1(torch, ops, card):
     return {"launches": launches}
 
 
-def phase_spill_scaled(torch, ops, card):
-    """Phase 8b: the scaled 2x1 workload at chunk 8192 with a 2^24-slot
-    table and the spill tier preferred at the first saturation: phase 5's
-    counts, ~14M fingerprints in the host store."""
-    from torchtlc.config import scaled_config
+def phase_spill_flushes(torch, ops, card):
+    """Phase 8b: Model_1 with the spill tier preferred at the first
+    saturation of a 2^16-slot table (chunk 1024): phase 4's counts through
+    several flushes."""
+    from torchtlc.config import MODEL_1
     from torchtlc.resil.supervisor import SupervisorOptions
 
-    cfg, _ = scaled_config()
     flushes = []
     opts = SupervisorOptions(
         spill="on",
         on_event=lambda k, i: flushes.append(i)
         if k == "spill" and i["phase"] == "flush" else None)
-    sup, launches, wall = run_supervised(torch, ops, cfg, SCALED_SPILL_KW,
-                                         opts)
+    sup, launches, wall = run_supervised(
+        torch, ops, MODEL_1, dict(M1_SPILL_KW, fp_capacity=1 << 16), opts)
     r = sup.result
     flush_s = sum(f["wall_s"] for f in flushes)
-    print(f"phase 8b spill scaled 2x1 (chunk 8192, fp 2^24, -spill): "
+    print(f"phase 8b spill Model_1 (chunk 1024, fp 2^16, -spill): "
           f"{r.generated} / {r.distinct} / {r.depth}, wall {wall:.2f} s on "
           f"{card}; host store {sup.spill_store_s:.2f} s ({flush_s:.2f} s "
           f"in {sup.spill_flushes} flushes, the rest probes); "
           f"{sup.spilled} fingerprints spilled, {sup.spill_hits} host hits; "
           f"K9 launches {launches['fpset_member']}, {sup.segments} "
           f"segments", flush=True)
-    need((r.generated, r.distinct, r.depth) == SCALED_COUNTS,
-         "scaled spill counts")
-    need(r.violation == 0 and r.queue_left == 0, "scaled spill verdict")
-    need(sup.spilled > 0 and launches["fpset_member"] > 0,
-         "the scaled run did not spill")
+    need((r.generated, r.distinct, r.depth) == M1_COUNTS,
+         "Model_1 spill counts")
+    need(r.violation == 0 and r.queue_left == 0, "Model_1 spill verdict")
+    need(sup.spilled > 0 and sup.spill_flushes > 1
+         and launches["fpset_member"] > 0,
+         "the Model_1 run did not spill in several flushes")
     return {"launches": launches}
 
 
 def phase_preempt(cfg, tmp):
-    """Phase 9: SIGTERM at segment 3 -> exit 75 with a final checkpoint;
-    -recover -> exit 0 with the clean counts (both as subprocesses)."""
+    """Phase 9: SIGTERM at segment 3 -> exit 75 with a final checkpoint (a
+    subprocess); -recover -> exit 0 with the clean counts (in this
+    process)."""
     ck = os.path.join(tmp, "preempt.ckpt")
     base = [cfg, "-noTool", "-checkpoint", ck, "-checkpointevery", "32"]
     t0 = time.time()
@@ -1057,7 +1089,7 @@ def phase_preempt(cfg, tmp):
     need(rc == 75, f"the SIGTERM run exited {rc}, not 75")
     need("Run interrupted by signal" in out, "no interrupt banner")
     t0 = time.time()
-    rc, out2 = command(base + ["-recover"])
+    rc, out2, _ = command_inproc(base + ["-recover"])
     wall_recover = time.time() - t0
     need(rc == 0, f"the -recover run exited {rc}")
     need(final_counts(out2) == M1_COUNTS,
@@ -1065,8 +1097,9 @@ def phase_preempt(cfg, tmp):
     need("Starting recovery from checkpoint" in out2, "no recovery banner")
     print(f"phase 9 preemption: sigterm@3 -> exit 75 "
           f"({final_counts(out)[:2]} checkpointed, {wall_term:.2f} s), "
-          f"-recover -> exit 0, {M1_COUNTS} ({wall_recover:.2f} s; both "
-          f"walls are subprocesses, interpreter start included)", flush=True)
+          f"-recover -> exit 0, {M1_COUNTS} ({wall_recover:.2f} s; the first "
+          f"wall a subprocess, interpreter start included, the second in "
+          f"this process)", flush=True)
 
 
 def trace_text(text):
@@ -1264,8 +1297,8 @@ def phase_coverage_scaled(torch, ops, card, runs):
 
 
 def phase_coverage_command(cfg, tmp, card):
-    """Phase 10c: `python -m torchtlc.cli check MC.cfg -coverage` as a
-    subprocess on Model_1: exit 0, the dump lines equal to the reference's
+    """Phase 10c: `python -m torchtlc.cli check MC.cfg -coverage` on Model_1
+    (in this process): exit 0, the dump lines equal to the reference's
     (pinned digest), and the journal's coverage events folding to the
     final carry's totals (the checkpoint's cov_counts leaf)."""
     import numpy as np
@@ -1277,7 +1310,8 @@ def phase_coverage_command(cfg, tmp, card):
 
     ck = os.path.join(tmp, "cov.ckpt")
     t0 = time.time()
-    rc, out = command([cfg, "-noTool", "-coverage", "-checkpoint", ck])
+    rc, out, _ = command_inproc([cfg, "-noTool", "-coverage", "-checkpoint",
+                                 ck])
     wall = time.time() - t0
     need(rc == 0, f"the -coverage command exited {rc}")
     need(final_counts(out) == M1_COUNTS,
@@ -1303,7 +1337,7 @@ def phase_coverage_command(cfg, tmp, card):
           f"-coverage` exit 0, {M1_COUNTS}, {len(dump)} dump lines equal to "
           f"the reference's (sha256 {dump_sha[:16]}), {n_ev} coverage events "
           f"folding to the carry's {folded['visited']} visited sites; "
-          f"{wall:.1f} s as a subprocess on {card}", flush=True)
+          f"{wall:.1f} s in this process on {card}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1426,11 +1460,15 @@ def phase_pipeline_command(cfg, tmp, card):
     need(rc == 75, f"the -pipeline SIGTERM run exited {rc}, not 75")
     need(any("-recover" in x and "-pipeline" in x
              for x in out.splitlines()), "no -pipeline resume command")
-    rc, _, err = command_err(base + ["-recover"])
-    need(rc == 1 and "checkpoint pipeline mismatch" in err,
-         f"the wrong-mode -recover exited {rc}: {err[-300:]}")
+    try:  # the command's uncaught refusal (its process exits 1)
+        command_inproc(base + ["-recover"])
+        refusal = ""
+    except ValueError as e:
+        refusal = str(e)
+    need("checkpoint pipeline mismatch" in refusal,
+         f"the wrong-mode -recover was not refused: {refusal!r}")
     t0 = time.time()
-    rc, out = command(base + ["-pipeline", "-recover"])
+    rc, out, _ = command_inproc(base + ["-pipeline", "-recover"])
     wall_recover = time.time() - t0
     need(rc == 0, f"the -pipeline -recover run exited {rc}")
     need(final_counts(out) == M1_COUNTS,
@@ -1443,9 +1481,12 @@ def phase_pipeline_command(cfg, tmp, card):
                              for p in ("device", "readback")],
          f"segment phase rows {phases[:6]} for segments {segs[:3]}")
     print(f"phase 11b command: `check MC.cfg -pipeline` sigterm@3 -> exit 75 "
-          f"({wall_term:.2f} s), -recover without -pipeline refused (exit 1,"
-          f" checkpoint pipeline mismatch), -recover -pipeline -> exit 0, "
-          f"{M1_COUNTS} ({wall_recover:.2f} s; subprocesses); {len(segs)} "
+          f"({wall_term:.2f} s), -recover without -pipeline refused "
+          f"(ValueError: checkpoint pipeline mismatch), -recover -pipeline "
+          f"-> exit 0, "
+          f"{M1_COUNTS} ({wall_recover:.2f} s; the SIGTERM run a "
+          f"subprocess, the -recover runs in this process); "
+          f"{len(segs)} "
           f"segments in the journal, each with its device and readback "
           f"phase rows, on {card}", flush=True)
 
@@ -1840,8 +1881,8 @@ def phase_sharded_command(ops, cfg, tmp, card):
     by K12 on the card before the bucket width changes), -coverage (K10
     per shard: the dump's pinned digest, the journal's site vector the
     pinned one), all in this process; then -pipeline -checkpoint P
-    -checkpointevery 32 -faults sigterm@3 -> exit 75, -recover -pipeline
-    -> exit 0 (subprocesses)."""
+    -checkpointevery 32 -faults sigterm@3 -> exit 75 (a subprocess),
+    -recover -pipeline -> exit 0 (in this process)."""
     import numpy as np
 
     from torchtlc.config import MODEL_1
@@ -1904,14 +1945,15 @@ def phase_sharded_command(ops, cfg, tmp, card):
     wall_term = time.time() - t0
     need(rc == 75, f"the sharded -pipeline SIGTERM run exited {rc}, not 75")
     t0 = time.time()
-    rc, text = command(base + ["-recover"])
+    rc, text, _ = command_inproc(base + ["-recover"])
     need(rc == 0, f"the sharded -recover -pipeline run exited {rc}")
     need(final_counts(text) == M1_COUNTS,
          f"the resumed sharded counts {final_counts(text)}")
     print(f"phase 12c command `check MC.cfg -sharded 4`: {'; '.join(lines)};"
           f" -pipeline sigterm@3 -> exit 75 ({wall_term:.2f} s), -recover "
-          f"-pipeline -> exit 0, {M1_COUNTS} ({time.time() - t0:.2f} s; "
-          f"subprocesses) on {card}", flush=True)
+          f"-pipeline -> exit 0, {M1_COUNTS} ({time.time() - t0:.2f} s; the "
+          f"SIGTERM run a subprocess, -recover in this process) on {card}",
+          flush=True)
     return out
 
 
@@ -2663,9 +2705,15 @@ def phase_kernels(torch, ops, runs, launches):
             "jaxtlc/sim/engine.py:477"),
         "sim_fold_batched": ("torchtlc/kernels/csrc/emitted_batched.cuh",
                              "jaxtlc/sim/engine.py:477"),
+        "pod_exchange_pack": ("torchtlc/kernels/csrc/pod.cuh",
+                              "jaxtlc/engine/sharded.py:572"),
+        "pod_exchange_unpack": ("torchtlc/kernels/csrc/pod.cuh",
+                                "jaxtlc/engine/sharded.py:572"),
+        "pod_stats_pack": ("torchtlc/kernels/csrc/pod.cuh",
+                           "jaxtlc/dist/pod.py:224"),
     }
     for key in ("sharded", "live", "struct", "gen", "shard16", "p17", "p18",
-                "p19", "p20", "p21", "p22", "p23", "p24"):
+                "p19", "p20", "p21", "p22", "p23", "p24", "p25", "p25c"):
         for name, got in runs.get(f"{key}_rows", {}).items():
             rows.setdefault(name, []).extend(got)
         library.update(runs.get(f"{key}_library", {}))
@@ -3754,7 +3802,7 @@ def phase_struct_command(ops, card, runs, tmp):
     need(rc == 75 and "Run interrupted by signal" in text,
          f"TwoPhase-8 SIGTERM run exited {rc}")
     t0 = time.time()
-    rc, text2 = command(base + ["-recover"])
+    rc, text2, _ = command_inproc(base + ["-recover"])
     need(rc == 0 and final_counts(text2) == TP8_COUNTS,
          f"TwoPhase-8 -recover exited {rc}, {final_counts(text2)}")
     need("Starting recovery from checkpoint" in text2, "no recovery banner")
@@ -3763,7 +3811,8 @@ def phase_struct_command(ops, card, runs, tmp):
           f"{regrow_counts} ({wall:.2f} s); TwoPhase-8 "
           f"sigterm@3 -> exit 75 ({final_counts(text)[:2]} checkpointed, "
           f"{wall_term:.1f} s), -recover -> exit 0, {TP8_COUNTS} "
-          f"({wall_rec:.1f} s; subprocesses)", flush=True)
+          f"({wall_rec:.1f} s; the SIGTERM run a subprocess, -recover in "
+          f"this process)", flush=True)
     return out
 
 
@@ -9134,6 +9183,530 @@ def phase_service24(torch, ops, card, runs, tmp, model):
           f"Model_1 {M1_COUNTS} with {n_trace} trace events and the monitor "
           f"answering mid-run) on {card}", flush=True)
     return out
+
+
+# phases 25-25c: pods (torchtlc.dist).  Model_1 on a 2-process pod of 2
+# shards each at the sharded geometry of phase 12 with qcap 2^15; FF at
+# the geometry of the reference's two-process test
+# (tests/test_multihost.py:305-309)
+POD_M1_KW = dict(chunk=2048, queue_capacity=1 << 15, fp_capacity=1 << 19)
+POD_FF_ARGS = ["--ff", "--chunk", "128", "--queue-capacity", "4096",
+               "--fp-capacity", "16384"]
+POD_D, POD_H = 4, 2
+# the pod runs of phases 25b and 25c through the library's entry points
+# (init_pod, run_pod) in one pair of worker processes on this card - each
+# process start costs an interpreter and torch's import, ~11 s on the
+# card's machine.  "drills": after a preemption, the resume, a resume at
+# another width refused, --reshard, a table too small, the spill lifeboat;
+# "ffobs": FF with the counter ring and coverage; "scaled": scaled 2x1 (the
+# command has Model_1 and FF only, as the reference's does)
+POD_TASKS = r"""
+import json, sys
+import torch.distributed as dist
+from torchtlc.config import ModelConfig, scaled_config
+from torchtlc.dist.pod import init_pod, run_pod
+from torchtlc.kernels import ops
+port, rank, tasks = sys.argv[1], int(sys.argv[2]), json.loads(sys.argv[3])
+init_pod(f"127.0.0.1:{port}", 2, rank, collectives="gloo")
+ff = ModelConfig(False, False)
+geo = dict(chunk=128, queue_capacity=4096, fp_capacity=16384)
+
+
+def counts(pr):
+    r = pr.result
+    return [pr.exit_code, r.generated, r.distinct, r.depth, r.violation]
+
+
+out = {}
+if "drills" in tasks:
+    base, other = tasks["drills"]
+    pr = run_pod(ff, ckpt_path=base, resume=True, devices_per_host=2, **geo)
+    out["resume"] = counts(pr) + [pr.resumed]
+    try:
+        run_pod(ff, ckpt_path=other, resume=True, devices_per_host=1, **geo)
+        out["refused"] = ""
+    except ValueError as e:
+        out["refused"] = str(e)
+    pr = run_pod(ff, ckpt_path=other, resume=True, reshard=True,
+                 devices_per_host=1, **geo)
+    out["reshard"] = counts(pr) + [pr.resharded]
+    small = dict(geo, fp_capacity=2048, devices_per_host=1)
+    out["full"] = counts(run_pod(ff, **small))
+    pr = run_pod(ff, spill="on", spill_capacity=16384, **small)
+    out["spill"] = counts(pr) + [pr.spilled, pr.spill_flushes]
+if "ffobs" in tasks:
+    pr = run_pod(ff, devices_per_host=2, obs_slots=128, coverage=True,
+                 ckpt_path=tasks["ffobs"], ckpt_every=64, **geo)
+    out["ffobs"] = counts(pr) + [pr.result.action_generated]
+if "scaled" in tasks:
+    base, every, kw = tasks["scaled"]
+    ops.reset_counts()
+    pr = run_pod(scaled_config()[0], devices_per_host=2, ckpt_path=base,
+                 ckpt_every=every, **kw)
+    r = pr.result
+    out["scaled"] = dict(
+        counts=counts(pr), action_generated=r.action_generated,
+        segments=pr.segments, collective_s=pr.timing,
+        collectives=pr.collectives,
+        launches={k: v for k, v in ops.LAUNCHES.items() if v})
+dist.destroy_process_group()
+out["host"] = rank
+print("POD_RESULT " + json.dumps(out), flush=True)
+"""
+
+
+def pod_result(text):
+    """The POD_RESULT object of a worker's output, or None."""
+    for line in text.splitlines():
+        if line.startswith("POD_RESULT "):
+            return json.loads(line[len("POD_RESULT "):])
+    return None
+
+
+def pod_command(argv, timeout=600, sigterm_when=None):
+    """`python -m torchtlc.dist --spawn 2 ...` as a subprocess (both workers
+    on this card): (rc, output, POD_RESULT of worker 0, wall).  With
+    sigterm_when (a path), SIGTERM goes to the launcher once the path
+    exists."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    t0 = time.time()
+    p = subprocess.Popen([sys.executable, "-m", "torchtlc.dist", "--spawn",
+                          str(POD_H), *argv], cwd=here, env=env,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+    try:
+        if sigterm_when is not None:
+            while not os.path.exists(sigterm_when) and p.poll() is None \
+                    and time.time() - t0 < timeout:
+                time.sleep(0.02)
+            p.send_signal(signal.SIGTERM)
+        out, err = p.communicate(timeout=timeout)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+    text = out + err
+    if p.returncode not in (0, 12, 75):
+        print(text[-4000:], file=sys.stderr)
+    return p.returncode, text, pod_result(out), time.time() - t0
+
+
+def pod_worker_pair(script, args, timeout=900):
+    """`script` (POD_TASKS) as the two processes of a pod on this card,
+    each given a fresh port, its rank and `args`: (the two POD_RESULT
+    objects, wall)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    port = str(free_port())
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", script, port, str(r), *args], cwd=here,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(POD_H)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (out, err) in zip(procs, outs):
+        if p.returncode != 0:
+            print(err[-4000:], file=sys.stderr)
+        need(p.returncode == 0, f"a pod worker exited {p.returncode}")
+    return [pod_result(out) for out, _ in outs], time.time() - t0
+
+
+def pod_launches(ops, res):
+    """A worker's launch counts over every kernel (its POD_RESULT names the
+    ones it launched)."""
+    return {k: int(res.get("launches", {}).get(k, 0)) for k in ops.KERNELS}
+
+
+def pod_in_process(torch, ops, cfg, kw, D=POD_D):
+    """The same engine in one process at D shards (make_sharded_engine):
+    (carry, result, bodies)."""
+    carry, r, _, bodies = run_sharded(torch, ops, cfg, D, kw)
+    return carry, r, bodies
+
+
+def pod_tables(base):
+    """The full carry of a pod's per-host files (numpy leaves: the table
+    words [D, cap/8, 16] uint32 among them)."""
+    from torchtlc.dist.pod import load_pod_full
+
+    _, full = load_pod_full(base)
+    return full
+
+
+def pod_kernel_checks(torch, ops, tag, cfg, kw, bodies, record, library):
+    """K36, K37 and K38 against their plain versions on the buffers of a
+    2-process pod at body `bodies` - the in-process engine's planes, split
+    as the two processes hold them (the pod's words, as phases 25 and 25c
+    show) - and timed; K37's owner planes equal the in-process engine's.
+    Returns the K36 buffer of the whole engine (one process of D shards)
+    and its planes, for the NCCL check."""
+    import numpy as np
+
+    from torchtlc.engine import sharded as ts
+
+    D, H = POD_D, POD_H
+    S = D // H
+    init_fn, run_fn = ts.make_sharded_engine(cfg, ts.ShardMesh(D), **kw,
+                                             segment=bodies)
+    c = run_fn(init_fn())
+    expand_half, _ = run_fn.halves
+    ex = expand_half(c, ts.read_bundle(c))
+    planes = tuple(t.clone() for t in (ex.xrows, ex.xlo, ex.xhi, ex.xvalid))
+    B, F = planes[0].shape[2], planes[0].shape[3]
+    n_valid = int(planes[3].sum())
+    sends = []
+    for p in range(H):
+        mine = [t[:, p * S:(p + 1) * S].contiguous() for t in planes]
+        got = ops.pod_exchange_pack(*mine)
+        want = ts.pod_pack_plain(*mine)
+        err = int((got.to(torch.int64) - want).abs().max())
+        need(err == 0, f"K36 differs from its plain version ({tag})")
+        sends.append(got.view(H, -1))
+    lanes = D * S * B
+    nbytes = lanes * (F * 4 + 9) + lanes * (F + 3) * 4
+    v32 = mine[3].to(torch.int32)
+    record("pod_exchange_pack", f"{tag}: [{D}, {S}, {B}, {F}+3]", 0,
+           cuda_ms(torch, lambda _: ops.pod_exchange_pack(*mine), 20),
+           cuda_ms(torch, lambda _: ts.pod_pack_plain(*mine), 20),
+           *gen_bound_ms(nbytes, 0))
+    library["pod_exchange_pack"] = cuda_ms(torch, lambda _: torch.cat(
+        [mine[0], mine[1][..., None], mine[2][..., None], v32[..., None]],
+        -1), 20)
+    for q in range(H):
+        recv = torch.stack([sends[p][q] for p in range(H)]).view(
+            H, S, S, B, F + 3)
+        got = ops.pod_exchange_unpack(recv)
+        want = ts.pod_unpack_plain(recv)
+        own = [t[q * S:(q + 1) * S] for t in planes]
+        for g, w, o in zip(got, want, own):
+            need(torch.equal(g, w), f"K37 differs from its plain version "
+                 f"({tag})")
+            need(torch.equal(g, o), f"K37's planes differ from the "
+                 f"in-process engine's ({tag})")
+    record("pod_exchange_unpack", f"{tag}: [{H}, {S}, {S}, {B}, {F}+3]", 0,
+           cuda_ms(torch, lambda _: ops.pod_exchange_unpack(recv), 20),
+           cuda_ms(torch, lambda _: ts.pod_unpack_plain(recv), 20),
+           *gen_bound_ms(nbytes, 0))
+    library["pod_exchange_unpack"] = cuda_ms(
+        torch, lambda _: recv.transpose(0, 1).contiguous(), 20)
+    # K38: process 0's statistic leaves, and the body's fence columns
+    from torchtlc.dist.pod import _STAT_FIELDS
+
+    leaves = [getattr(c, f)[:S].contiguous() for f in _STAT_FIELDS
+              if getattr(c, f, None) is not None]
+    fence = [c.qhead[:S], c.qtail[:S], c.level_end[:S], c.viol[:S],
+             c.distinct[:S]]
+    for what, ls in (("stats", leaves), ("fence", fence)):
+        ls = [t.contiguous() for t in ls]
+        got = ops.pod_stats_pack(ls)
+        want = ts.pod_stats_plain(ls)
+        need(torch.equal(got, want), f"K38 ({what}) differs from its plain "
+             f"version ({tag})")
+    W = ts.pod_stats_plain(leaves).shape[1]
+    nbytes = sum(t.numel() * t.element_size() for t in leaves) + S * W * 8
+    record("pod_stats_pack", f"{tag}: {len(leaves)} leaves -> [{S}, {W}]", 0,
+           cuda_ms(torch, lambda _: ops.pod_stats_pack(leaves), 20),
+           cuda_ms(torch, lambda _: ts.pod_stats_plain(leaves), 20),
+           *gen_bound_ms(nbytes, 0))
+    whole = ops.pod_exchange_pack(*planes)
+    del c, ex
+    return whole, planes, n_valid
+
+
+def nccl_one_rank(torch, ops, whole, planes):
+    """The NCCL branch's calls on the card, in a one-rank group: K36's
+    buffer of the whole engine through all_to_all_single, K37 on what came
+    back (the in-process planes), a verdict plane, a K38 gather and the
+    vote's all_reduce."""
+    import torch.distributed as dist
+
+    from torchtlc.engine import sharded as ts
+
+    D, _, B, W = whole.shape
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = ts.ShardMesh(D, torch.device("cuda", 0), collectives="nccl")
+        got = mesh._all_to_all(whole.view(1, -1))
+        need(torch.equal(got.view(-1), whole.view(-1)),
+             "the NCCL all_to_all changed the buffer")
+        back = ops.pod_exchange_unpack(got.view(1, D, D, B, W))
+        for g, w in zip(back, planes):
+            need(torch.equal(g, w), "K37 after NCCL differs from the planes")
+        verd = planes[3].to(torch.uint8).view(D, 1, D, B).transpose(0, 1)
+        vgot = mesh._all_to_all(verd)
+        need(torch.equal(vgot.view(D, D, B), planes[3].to(torch.uint8)),
+             "the NCCL verdict all_to_all")
+        words = ops.pod_stats_pack([torch.arange(D, device="cuda")])
+        out = torch.empty_like(words)
+        ts._all_gather(out, words, group=None)
+        need(torch.equal(out, words), "the NCCL all_gather")
+        flag = torch.ones(1, dtype=torch.int32, device="cuda")
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        need(int(flag.item()) == 1, "the NCCL all_reduce")
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+
+
+def fold_pod_journals(base, hosts):
+    """(folded level rows, folded coverage) of a pod's per-host journals."""
+    from torchtlc.obs import journal as jr
+    from torchtlc.obs.coverage import coverage_from_events
+    from torchtlc.obs.views import fold_pod_levels, merge_journals
+
+    events = merge_journals(*(jr.read(f"{base}.h{h}.journal.jsonl",
+                                      validate=False)
+                              for h in range(hosts)))
+    levels = [e for e in fold_pod_levels(events)
+              if e.get("event") == "level"]
+    return levels, coverage_from_events(events), events
+
+
+def phase_pod25(torch, ops, card, runs, tmp):
+    """Phase 25: `python -m torchtlc.dist --spawn 2 --devices-per-host 2` on
+    this card (both workers over gloo): Model_1 at chunk 2048 a shard (slab
+    + deferred), qcap 2^15, fp 2^19 a shard - MC.out's counts and
+    per-action generated counts, the in-process 4-shard engine's outdegree,
+    per-action distinct counts and four table words; K36-K38 against their
+    plain versions on the pod's buffers and timed; K36's and K37's buffers
+    through a one-rank NCCL group."""
+    import numpy as np
+
+    from torchtlc.config import MODEL_1
+
+    from torchtlc.kernels import build
+
+    build.build()  # the workers' libraries, built once before they start
+    rows, library = {}, {}
+    record = gen_recorder(rows)
+    base = os.path.join(tmp, "m1pod")
+    rc, text, res, wall = pod_command([
+        "--devices-per-host", "2", "--chunk", str(POD_M1_KW["chunk"]),
+        "--queue-capacity", str(POD_M1_KW["queue_capacity"]),
+        "--fp-capacity", str(POD_M1_KW["fp_capacity"]), "--ckpt", base,
+        "--ckpt-every", "64"])
+    need(rc == 0 and res is not None, f"the Model_1 pod exited {rc}")
+    need(res["collectives"] == "gloo" and res["hosts"] == POD_H,
+         f"the Model_1 pod ran {res['hosts']} hosts over "
+         f"{res['collectives']}")
+    got = (res["generated"], res["distinct"], res["depth"])
+    need(got == M1_COUNTS, f"the Model_1 pod's counts {got}")
+    need(res["action_generated"] == MC_OUT_GENERATED,
+         "the Model_1 pod's per-action generated counts")
+    carry, r4, bodies = pod_in_process(torch, ops, MODEL_1, POD_M1_KW)
+    need((r4.generated, r4.distinct, r4.depth) == M1_COUNTS,
+         "in-process Model_1 at 4 shards")
+    need(tuple(res["outdegree"]) == tuple(float(v) for v in r4.outdegree),
+         f"the Model_1 pod's outdegree {res['outdegree']}")
+    need(res["action_distinct"] == r4.action_distinct,
+         "the Model_1 pod's per-action distinct counts")
+    full = pod_tables(base)
+    here_words = carry.table.cpu().numpy().view(np.uint32)
+    need(full.table.shape == here_words.shape
+         and np.array_equal(full.table, here_words),
+         "the Model_1 pod's shard tables differ from the in-process "
+         "engine's")
+    sha = hashlib.sha256(full.table.astype("<u4").tobytes()).hexdigest()
+    del carry
+    torch.cuda.empty_cache()
+    whole, planes, n_valid = pod_kernel_checks(
+        torch, ops, "Model_1 D4 body 60", MODEL_1, POD_M1_KW, 60, record,
+        library)
+    nccl_one_rank(torch, ops, whole, planes)
+    del whole, planes
+    k36, k37, k38 = (rows[k][-1] for k in (
+        "pod_exchange_pack", "pod_exchange_unpack", "pod_stats_pack"))
+    print(f"phase 25 pod: `python -m torchtlc.dist --spawn 2 "
+          f"--devices-per-host 2` on one card over gloo - Model_1 "
+          f"{M1_COUNTS} in {res['segments']} segments ({wall:.1f} s of "
+          f"command, {res['wall_s']:.3f} s of run; in-process 4 shards "
+          f"{r4.wall_s:.3f} s, {bodies} bodies; collectives "
+          f"{res['collective_s']}), MC.out's per-action generated counts, "
+          f"outdegree {res['outdegree']}, per-action distinct and the four "
+          f"shard tables (sha256 {sha[:16]}) = the in-process engine's; "
+          f"K36 {k36['ms']:.4f} ms (plain {k36['plain_ms']:.4f}, cat "
+          f"{library['pod_exchange_pack']:.4f}, bound {k36['bound_ms']:.4f}"
+          f"), K37 {k37['ms']:.4f} ms (plain {k37['plain_ms']:.4f}, "
+          f"transpose {library['pod_exchange_unpack']:.4f}, bound "
+          f"{k37['bound_ms']:.4f}), K38 {k38['ms']:.4f} ms (plain "
+          f"{k38['plain_ms']:.4f}) at body 60 ({n_valid} valid lanes); the "
+          f"NCCL branch on a one-rank group; launches (worker 0) "
+          f"{res['launches']} on {card}", flush=True)
+    return {"p25_m1": {"launches": pod_launches(ops, res)},
+            "p25_rows": rows, "p25_library": library}
+
+
+def phase_pod25bc(torch, ops, card, runs, tmp, drills, scaled):
+    """Phases 25b (`drills`) and 25c (`scaled`), their library runs in one
+    pair of worker processes (POD_TASKS).
+
+    25b: the reference's drills on FF - SIGTERM through the launcher ->
+    exit 75 with .h0 / .h1; then, in the pair, the resume of that snapshot
+    to the counts, a resume of a copy at 1 shard a process refused with
+    the --reshard hint, --reshard to the counts, a table too small -> exit
+    12 (VIOL_FPSET_FULL), the spill lifeboat with spilled states; and FF
+    with the counter ring and coverage, its two journals folded to 109
+    level rows and a site table equal to the per-action counts.
+
+    25c: scaled 2x1 on the 2 x 2 pod (SCALED_SHARDED_KW): the counts, the
+    single-device run's per-action generated counts, the union of the four
+    shard tables = the single-device table's fingerprint set; its wall in
+    turns with the in-process 4-shard engine (in-process, pod,
+    in-process); the collectives' share of the wall from the journals'
+    segment rows, and the exchange a body; K36-K38 against their plain
+    versions at this width."""
+    from torchtlc.config import scaled_config
+
+    t0 = time.time()
+    tasks, out, cmd = {}, {}, []
+    if drills:
+        base = os.path.join(tmp, "drill")
+        rc, text, res, w = pod_command(
+            ["--devices-per-host", "2", *POD_FF_ARGS, "--ckpt", base,
+             "--ckpt-every", "1"], sigterm_when=base + ".h1")
+        cmd.append(round(w, 1))
+        need(rc == 75 and res is not None and res["rc"] == 75,
+             f"SIGTERM through the launcher: exit {rc}")
+        need(os.path.exists(base + ".h0") and os.path.exists(base + ".h1"),
+             "the preempted pod left no per-host files")
+        stopped = (res["generated"], res["distinct"], res["depth"])
+        need(stopped != FF_COUNTS, "the preempted pod had finished")
+        other = os.path.join(tmp, "drill2")
+        for h in range(POD_H):
+            shutil.copy(f"{base}.h{h}", f"{other}.h{h}")
+        ffbase = os.path.join(tmp, "ffpod")
+        tasks.update(drills=[base, other], ffobs=ffbase)
+    if scaled:
+        cfg, kw1 = scaled_config()
+        single, rs, _, _ = run_engine(torch, ops, cfg, kw1, {})
+        ref_keys = _stored_keys(torch, single.fps.table)
+        del single
+        torch.cuda.empty_cache()
+        carry, r4, bodies = pod_in_process(torch, ops, cfg, SCALED_SHARDED_KW)
+        need((r4.generated, r4.distinct, r4.depth) == SCALED_COUNTS,
+             "in-process scaled at 4 shards")
+        walls = [("in-process", r4.wall_s)]
+        del carry
+        torch.cuda.empty_cache()
+        sbase = os.path.join(tmp, "scaledpod")
+        tasks["scaled"] = [sbase, bodies, SCALED_SHARDED_KW]
+    outs, w = pod_worker_pair(POD_TASKS, [json.dumps(tasks)])
+    cmd.append(round(w, 1))
+    ff = list(FF_COUNTS)
+    if drills:
+        for o in outs:
+            need(o["resume"] == [0, *ff, 0, True],
+                 f"the resume: {o['resume']}")
+            need("--reshard" in o["refused"],
+                 f"a resume at another width: {o['refused']!r}")
+            need(o["reshard"] == [0, *ff, 0, True],
+                 f"--reshard: {o['reshard']}")
+            need(o["full"][0] == 12 and o["full"][4] == 6,
+                 f"a table too small: {o['full']}")
+            need(o["spill"][:5] == [0, *ff, 0] and o["spill"][5] > 0,
+                 f"the spill lifeboat: {o['spill']}")
+            need(o["ffobs"][:5] == [0, *ff, 0], f"FF obs: {o['ffobs']}")
+        levels, cov, _ = fold_pod_journals(ffbase, POD_H)
+        need(len(levels) == FF_COUNTS[2], f"the FF pod's journals fold to "
+             f"{len(levels)} level rows")
+        need((levels[-1]["generated"], levels[-1]["distinct"])
+             == FF_COUNTS[:2], "the FF pod's last folded level row")
+        for name, g in outs[0]["ffobs"][5].items():
+            need(cov["sites"].get(name, 0) == g,
+                 f"the FF pod's coverage site {name}")
+        spill = outs[0]["spill"]
+        print(f"phase 25b drills on FF: SIGTERM through the launcher -> "
+              f"exit 75 at {stopped} with .h0/.h1 -> resume {FF_COUNTS}; at "
+              f"1 shard a process a plain resume refused with the --reshard "
+              f"hint -> reshard {FF_COUNTS}; fp 2048 a shard -> exit 12 "
+              f"(VIOL_FPSET_FULL) -> spill on {FF_COUNTS} with {spill[5]} "
+              f"spilled in {spill[6]} flushes (host 0); FF with ring and "
+              f"coverage {FF_COUNTS}, two journals fold to {len(levels)} "
+              f"levels and the per-action sites; walls (launcher, library "
+              f"pair) {cmd} s ({time.time() - t0:.1f} s in all) on {card}",
+              flush=True)
+    if not scaled:
+        return out
+    res = [o["scaled"] for o in outs]
+    for h, sres in enumerate(res):
+        need(sres["counts"] == [0, *SCALED_COUNTS, 0],
+             f"the scaled pod's counts on host {h}: {sres['counts']}")
+        need(sres["action_generated"] == rs.action_generated,
+             "the scaled pod's per-action generated counts")
+        need(sres["segments"] == 1 and sres["collectives"] == "gloo",
+             "the scaled pod's segments")
+    _, _, events = fold_pod_journals(sbase, POD_H)
+    segs = [e for e in events if e["event"] == "segment"]
+    seg_wall = max(e["wall_s"] for e in segs)
+    xch = {h: sum(e.get("exchange_us", 0) for e in segs
+                  if e.get("host") == h) / 1e6 for h in range(POD_H)}
+    gat = {h: sum(e.get("gather_us", 0) for e in segs
+                  if e.get("host") == h) / 1e6 for h in range(POD_H)}
+    walls.append(("pod", seg_wall))
+    carry, r4b, _ = pod_in_process(torch, ops, cfg, SCALED_SHARDED_KW)
+    walls.append(("in-process", r4b.wall_s))
+    del carry
+    torch.cuda.empty_cache()
+    full = pod_tables(sbase)
+    keys = []
+    for d in range(POD_D):
+        k = _stored_keys(torch, torch.from_numpy(
+            full.table[d].view("int32")).cuda())
+        need(bool(((k >> 32) & (POD_D - 1) == d).all()),
+             f"a fingerprint off its owner shard {d}")
+        keys.append(k)
+    union = torch.sort(torch.cat(keys)).values
+    need(union.shape == ref_keys.shape and bool((union == ref_keys).all()),
+         "the scaled pod's tables differ from the single-device table's "
+         "fingerprint set")
+    del full, keys, union
+    rows, library = {}, {}
+    pod_kernel_checks(torch, ops, "scaled D4 body 140", cfg,
+                      SCALED_SHARDED_KW, 140, gen_recorder(rows), library)
+    torch.cuda.empty_cache()
+    k36, k37, k38 = (rows[k][-1] for k in (
+        "pod_exchange_pack", "pod_exchange_unpack", "pod_stats_pack"))
+    B = route_bucket(SCALED_SHARDED_KW["chunk"], 12)
+    sent = POD_D * (POD_D // POD_H) * B * (34 + 3) * 4
+    share = {h: round((xch[h] + gat[h]) / seg_wall, 4) for h in xch}
+    print(f"phase 25c scaled 2x1 on the 2 x 2 pod: {SCALED_COUNTS}, the "
+          f"single-device per-action generated counts, every fingerprint on "
+          f"its owner and the union of the 4 tables = the single-device "
+          f"table ({ref_keys.shape[0]}); {bodies} bodies in one segment; "
+          f"walls in turns {[(k, round(v, 4)) for k, v in walls]} s; each "
+          f"process sends {sent / 2**20:.1f} MiB a body (half across the "
+          f"boundary); exchange s {xch}, fence gathers s {gat}, the "
+          f"collectives' share of the segment wall {share}; exchange a body "
+          f"{ {h: round(xch[h] / bodies * 1e3, 2) for h in xch} } ms; "
+          f"worker 0's collective seconds {res[0]['collective_s']}; at "
+          f"body 140 K36 {k36['ms']:.4f} ms (plain {k36['plain_ms']:.4f}, "
+          f"cat {library['pod_exchange_pack']:.4f}, bound "
+          f"{k36['bound_ms']:.4f}), K37 {k37['ms']:.4f} ms (plain "
+          f"{k37['plain_ms']:.4f}, transpose "
+          f"{library['pod_exchange_unpack']:.4f}, bound "
+          f"{k37['bound_ms']:.4f}), K38 {k38['ms']:.4f} ms (plain "
+          f"{k38['plain_ms']:.4f}, bound {k38['bound_ms']:.6f}) on {card}",
+          flush=True)
+    out.update(p25c_scaled={"launches": pod_launches(ops, res[0])},
+               p25c_rows=rows, p25c_library=library)
+    return out
+
+
+def route_bucket(chunk, lanes, D=POD_D, factor=2.0):
+    from torchtlc.engine.sharded import route_bucket_width
+
+    return route_bucket_width(chunk, lanes, D, factor)
 
 
 def free_port() -> int:

@@ -720,3 +720,39 @@ def test_serving_plane_copies_equal_reference():
     assert ta.VERDICT_BY_EXIT == ja.VERDICT_BY_EXIT
     assert ([f.name for f in dataclasses.fields(ta.CheckOutcome)]
             == [f.name for f in dataclasses.fields(ja.CheckOutcome)])
+
+
+def test_pod_modules_are_checked():
+    """The pod (torchtlc/dist) is among the files the import checks above
+    walk, every module of it, and none of them names jax or jaxtlc."""
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in ("__init__", "__main__", "pod"):
+        path = os.path.join("torchtlc", "dist", f"{mod}.py")
+        assert path in names, path
+        bad = [m for m in _named_imports(os.path.join(ROOT, path))
+               if _forbidden(m)]
+        assert not bad, f"{path} imports {bad}"
+
+
+def test_pod_copies_equal_reference():
+    """The port's copies of the pod module's constants, field for field:
+    the exit codes, the coordinator, the coverage saturation window, the
+    resume keys, the gathered statistic leaves, the PodResult fields the
+    reference has and the launcher's flags."""
+    from jaxtlc.dist import __main__ as jmain
+    from jaxtlc.dist import pod as jpod
+    from torchtlc.dist import __main__ as tmain
+    from torchtlc.dist import pod as tpod
+
+    for name in ("EXIT_OK", "EXIT_VIOLATION", "EXIT_PREEMPTED",
+                 "DEFAULT_COORDINATOR", "COVERAGE_SAT_LEVELS",
+                 "_ENGINE_KEYS", "_GEOM_KEYS", "_STAT_FIELDS"):
+        assert getattr(tpod, name) == getattr(jpod, name), name
+    assert tpod.PodResult._fields[:len(jpod.PodResult._fields)] == \
+        jpod.PodResult._fields
+    assert tmain._TRI == jmain._TRI
+    jflags = {a.dest: a.default for a in jmain._parser()._actions}
+    tflags = {a.dest: a.default for a in tmain._parser()._actions}
+    assert set(tflags) - set(jflags) == {"device", "collectives"}
+    for dest, default in jflags.items():
+        assert tflags[dest] == default, dest

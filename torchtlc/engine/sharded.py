@@ -35,7 +35,21 @@ axis (``ShardCarry``).  One body, all shards in step:
 
 Shards read each other's state only through the exchange planes and the
 axis-0 reductions, and every shard's expansion finishes before any commit,
-so the order the shards run in does not matter.  A host loop drives the
+so the order the shards run in does not matter.
+
+**Pods.**  ``ShardMesh`` may also span H processes of a
+``torch.distributed`` group (torchtlc.dist): process p holds only the S =
+D / H shard rows ``[p*S, (p+1)*S)`` of every carry leaf (the reference's
+process-major mesh).  K11 routes this process's S sources into [D, S, B]
+planes; ``exchange`` is then one ``all_to_all`` of the candidates (kernel
+K36 packs the planes into the reference's ``[F+3]``-word lanes, already
+grouped by destination process; kernel K37 unpacks the received buffer
+into the owner planes [S, D, B], global source order) and one of the
+verdicts; and every cross-shard reduction of the body - the global
+verdict, the level fence and the bundle - reads all D shards' values
+from one ``all_gather`` of each shard's fence columns (packed by kernel
+K38).  So each process computes what the in-process engine computes for
+its rows, and its tables hold the same words.  A host loop drives the
 bodies and reads one small bundle of scalars per body (plus, in the
 sort-free mode, each owner's claimant count for the slab fallback).  Every
 carry word - tables, queues (the dump row included), counters, ring,
@@ -159,56 +173,175 @@ class ShardCarry(NamedTuple):
     # spill mode (ShardedSpillRuntime): candidates each owner's host veto
     # deduplicated
     spill_hits: torch.Tensor = None  # [D] int64
-    # scalars above as of the body that made this carry (None: read them)
+    # scalars above as of the body that made this carry (None: read them);
+    # in a pod, every shard's, not only this process's
     bundle: ShardBundle = None
 
 
 class ShardMesh(NamedTuple):
-    """D logical shards on one device (None: the card)."""
+    """D logical shards on one device (None: the card) - in one process, or
+    split over the `hosts` processes of the torch.distributed `group` (a
+    pod, torchtlc.dist.pod_mesh), this one being `rank` and holding the
+    shard rows [row0, row0 + rows).  `collectives` names the group's
+    backend ("gloo": buffers staged through pinned host memory; "nccl":
+    on the card).  `timing` (a dict, or None) accumulates the seconds the
+    collectives take under "exchange_s" and "gather_s"."""
 
     n_shards: int
     device: object = None
+    group: object = None
+    rank: int = 0
+    hosts: int = 1
+    collectives: str = None
+    timing: dict = None
+
+    @property
+    def rows(self) -> int:
+        """Shard rows in this process (S)."""
+        return self.n_shards // self.hosts
+
+    @property
+    def row0(self) -> int:
+        return self.rank * self.rows
+
+    def local(self, full):
+        """This process's rows of a [D, ...] leaf."""
+        return full[self.row0:self.row0 + self.rows]
 
     def exchange(self, *planes):
-        """The candidate and verdict all_to_all.  In one process it is the
-        identity: K11 writes source s's bucket for owner o at [o, s] of
-        each plane, which is where owner o receives it."""
-        return planes
+        """The candidate all_to_all (rows [D, S, B, F], lo, hi [D, S, B],
+        valid [D, S, B] -> the owner planes [S, D, B, .]) and the verdict
+        all_to_all (one [S owner, D, B] uint8 plane -> [D, S source, B]).
+        In one process it is the identity: K11 writes source s's bucket for
+        owner o at [o, s] of each plane, which is where owner o receives
+        it."""
+        if self.hosts == 1:
+            return planes
+        t0 = time.time()
+        H, S = self.hosts, self.rows
+        if len(planes) == 4:
+            xrows = planes[0]
+            B, F = xrows.shape[2], xrows.shape[3]
+            recv = self._all_to_all(pod_pack(*planes).view(H, -1))
+            out = pod_unpack(recv.view(H, S, S, B, F + 3))
+        else:
+            (verd,) = planes
+            B = verd.shape[2]
+            send = verd.view(S, H, S, B).transpose(0, 1)
+            out = (self._all_to_all(send).view(H * S, S, B),)
+        self._timed("exchange_s", t0)
+        return out
+
+    def gather(self, words: torch.Tensor) -> torch.Tensor:
+        """Every process's [S, W] int64 rows -> the [D, W] rows of all
+        shards, on the host (one all_gather; the rows themselves in one
+        process)."""
+        if self.hosts == 1:
+            return words.cpu()
+        t0 = time.time()
+        if self.collectives == "nccl":
+            out = torch.empty((self.n_shards,) + tuple(words.shape[1:]),
+                              dtype=words.dtype, device=words.device)
+            _all_gather(out, words.contiguous(), group=self.group)
+            out = out.cpu()
+        else:
+            src = words.cpu()
+            out = torch.empty((self.n_shards,) + tuple(src.shape[1:]),
+                              dtype=src.dtype)
+            _all_gather(out, src, group=self.group)
+        self._timed("gather_s", t0)
+        return out
+
+    def any(self, flag: bool) -> bool:
+        """True on every process when any process's flag is (one
+        all_reduce MAX of one int32 word)."""
+        if self.hosts == 1:
+            return bool(flag)
+        import torch.distributed as dist
+
+        dev = (self.device if self.collectives == "nccl" else "cpu")
+        w = torch.tensor([1 if flag else 0], dtype=torch.int32, device=dev)
+        dist.all_reduce(w, op=dist.ReduceOp.MAX, group=self.group)
+        return bool(int(w.item()))
+
+    def _all_to_all(self, send: torch.Tensor) -> torch.Tensor:
+        """One all_to_all_single of a [H, ...] buffer (chunk q to process
+        q); under gloo a card tensor goes through pinned host buffers."""
+        import torch.distributed as dist
+
+        if self.collectives == "nccl" or not send.is_cuda:
+            send = send.contiguous()
+            recv = torch.empty_like(send)
+            dist.all_to_all_single(recv, send, group=self.group)
+            return recv
+        hs = _pinned("send", send.shape, send.dtype)
+        hs.copy_(send)
+        hr = _pinned("recv", send.shape, send.dtype)
+        dist.all_to_all_single(hr, hs, group=self.group)
+        return hr.to(send.device)
+
+    def _timed(self, key: str, t0: float) -> None:
+        if self.timing is not None:
+            self.timing[key] = self.timing.get(key, 0.0) + time.time() - t0
+
+
+_PINNED = {}
+
+
+def _all_gather(out, src, group):
+    """all_gather of equal-sized tensors into one (torch's name for it
+    changed across releases)."""
+    import torch.distributed as dist
+
+    fn = getattr(dist, "all_gather_single", None)
+    (fn or dist.all_gather_into_tensor)(out, src, group=group)
+
+
+def _pinned(role: str, shape, dtype) -> torch.Tensor:
+    """A pinned host buffer of this shape, reused across bodies."""
+    key = (role, tuple(shape), dtype)
+    if key not in _PINNED:
+        _PINNED[key] = torch.empty(tuple(shape), dtype=dtype,
+                                   pin_memory=True)
+    return _PINNED[key]
 
 
 class ShardEx(NamedTuple):
     """The expand half's output, what the commit half reads besides K11's
     sorted-order words (the reference's ShardEx,
-    jaxtlc/engine/sharded.py:468)."""
+    jaxtlc/engine/sharded.py:468).  S is the shard rows of this process (D
+    in one process)."""
 
-    n: list  # rows popped by each shard
-    npop: torch.Tensor  # [D] int64
-    flags: torch.Tensor  # [5, D*ncand] uint8
-    action: torch.Tensor  # [D*ncand] int32
-    gen: torch.Tensor  # [D, n_labels] int64
-    fields: torch.Tensor  # [D*ncand, F] int32
-    block: torch.Tensor  # [D*chunk, W] int32 (coverage only) or None
-    xrows: torch.Tensor  # [D owner, D source, B, F] received rows
-    xlo: torch.Tensor  # [D, D, B] int32
-    xhi: torch.Tensor  # [D, D, B] int32
-    xvalid: torch.Tensor  # [D, D, B] bool
+    n: list  # rows popped by each of this process's shards
+    npop: torch.Tensor  # [S] int64
+    flags: torch.Tensor  # [5, S*ncand] uint8
+    action: torch.Tensor  # [S*ncand] int32
+    gen: torch.Tensor  # [S, n_labels] int64
+    fields: torch.Tensor  # [S*ncand, F] int32
+    block: torch.Tensor  # [S*chunk, W] int32 (coverage only) or None
+    xrows: torch.Tensor  # [S owner, D source, B, F] received rows
+    xlo: torch.Tensor  # [S, D, B] int32
+    xhi: torch.Tensor  # [S, D, B] int32
+    xvalid: torch.Tensor  # [S, D, B] bool
     # spill mode: each owner's K9 membership of its received lanes
-    member: torch.Tensor = None  # [D, D*B] bool
+    member: torch.Tensor = None  # [S, D*B] bool
+    n_all: list = None  # rows popped by every shard (n in one process)
 
 
 class RouteOut(NamedTuple):
-    """K11's outputs: the sorted-order words of each source shard and the
-    exchange planes ([D owner, D source, B, ...])."""
+    """K11's outputs: the sorted-order words of each of the S source shards
+    of this process and the exchange planes ([D owner, S source, B, ...];
+    S = D in one process)."""
 
-    order: torch.Tensor  # [D, ncand] int32 owner-sort permutation
-    s_own: torch.Tensor  # [D, ncand] int32 owner per sorted lane (D: none)
-    s_pos: torch.Tensor  # [D, ncand] int32 position in the owner's bucket
-    s_valid: torch.Tensor  # [D, ncand] bool
-    xrows: torch.Tensor  # [D, D, B, F] int32 candidate fields
-    xlo: torch.Tensor  # [D, D, B] int32 fingerprint words
-    xhi: torch.Tensor  # [D, D, B] int32
-    xvalid: torch.Tensor  # [D, D, B] bool
-    route_ovf: torch.Tensor  # [D] bool: a valid lane past its bucket
+    order: torch.Tensor  # [S, ncand] int32 owner-sort permutation
+    s_own: torch.Tensor  # [S, ncand] int32 owner per sorted lane (D: none)
+    s_pos: torch.Tensor  # [S, ncand] int32 position in the owner's bucket
+    s_valid: torch.Tensor  # [S, ncand] bool
+    xrows: torch.Tensor  # [D, S, B, F] int32 candidate fields
+    xlo: torch.Tensor  # [D, S, B] int32 fingerprint words
+    xhi: torch.Tensor  # [D, S, B] int32
+    xvalid: torch.Tensor  # [D, S, B] bool
+    route_ovf: torch.Tensor  # [S] bool: a valid lane past its bucket
 
 
 def route_bucket_width(chunk: int, n_lanes: int, D: int,
@@ -218,15 +351,18 @@ def route_bucket_width(chunk: int, n_lanes: int, D: int,
     return ncand if D == 1 else min(ncand, int(route_factor * ncand / D) + 8)
 
 
-def route_out_new(D: int, ncand: int, B: int, F: int, device) -> RouteOut:
+def route_out_new(D: int, ncand: int, B: int, F: int, device,
+                  S: int = None) -> RouteOut:
+    S = D if S is None else S
+
     def z(*shape, dtype=torch.int32):
         return torch.zeros(*shape, dtype=dtype, device=device)
 
-    return RouteOut(order=z(D, ncand), s_own=z(D, ncand), s_pos=z(D, ncand),
-                    s_valid=z(D, ncand, dtype=torch.bool),
-                    xrows=z(D, D, B, F), xlo=z(D, D, B), xhi=z(D, D, B),
-                    xvalid=z(D, D, B, dtype=torch.bool),
-                    route_ovf=z(D, dtype=torch.bool))
+    return RouteOut(order=z(S, ncand), s_own=z(S, ncand), s_pos=z(S, ncand),
+                    s_valid=z(S, ncand, dtype=torch.bool),
+                    xrows=z(D, S, B, F), xlo=z(D, S, B), xhi=z(D, S, B),
+                    xvalid=z(D, S, B, dtype=torch.bool),
+                    route_ovf=z(S, dtype=torch.bool))
 
 
 # ---------------------------------------------------------------------------
@@ -297,17 +433,19 @@ def route_plain(hi, lo, valid, fields, D: int, B: int, out: RouteOut) -> None:
     """Torch version of K11, the reference's formulas
     (jaxtlc/engine/sharded.py:553-586): key = owner or D, a stable argsort,
     the bucket position by searchsorted, the payload of each valid lane
-    that fits into the planes at [owner, source, position].  `out` in
-    place (xvalid and route_ovf zeroed first; other plane slots keep their
+    that fits into the planes at [owner, source, position] - for the S =
+    out.order.shape[0] source shards of this process.  `out` in place
+    (xvalid and route_ovf zeroed first; other plane slots keep their
     words)."""
     N = hi.shape[0]
-    ncand = N // D
+    S = out.order.shape[0]
+    ncand = N // S
     F = fields.shape[1]
     out.xvalid.zero_()
     out.route_ovf.zero_()
     dev = hi.device
     ar = torch.arange(ncand, device=dev)
-    for s in range(D):
+    for s in range(S):
         sl = slice(s * ncand, (s + 1) * ncand)
         v = valid[sl].bool()
         key = torch.where(v, hi[sl].to(torch.int64) & (D - 1), D)
@@ -343,15 +481,16 @@ def verdict_fold_plain(verd, s_own, s_pos, s_valid, order, faction, npop,
                        chunk: int, L: int, n_labels: int, outdeg,
                        act_dist) -> None:
     """Torch version of K12, the reference's formulas
-    (jaxtlc/engine/sharded.py:485-505, 701-719): source s reads the verdict
-    of its sorted lane at [owner, s, position], scatters it to the lane's
-    original index, and adds the per-row new-degree histogram (unpopped
-    rows in bin L + 1) and the per-action distinct counts (non-new lanes in
-    column n_labels).  outdeg, act_dist in place."""
-    D, _, B = verd.shape
+    (jaxtlc/engine/sharded.py:485-505, 701-719): source s (of the S =
+    verd.shape[1] of this process) reads the verdict of its sorted lane at
+    [owner, s, position], scatters it to the lane's original index, and
+    adds the per-row new-degree histogram (unpopped rows in bin L + 1) and
+    the per-action distinct counts (non-new lanes in column n_labels).
+    outdeg, act_dist in place."""
+    D, S, B = verd.shape
     ncand = s_own.shape[1]
     dev = verd.device
-    for s in range(D):
+    for s in range(S):
         own = s_own[s].to(torch.int64)
         pos = s_pos[s].to(torch.int64)
         got = ((verd[own.clamp(0, D - 1), s, pos.clamp(0, B - 1)] == 1)
@@ -440,19 +579,75 @@ def deferred_check_rows(cfg, rows_in, fresh, c_idx, rows: int):
     return ops.deferred_check_rows(cfg, rows_in, fresh, c_idx, rows)
 
 
+def pod_pack_plain(xrows, xlo, xhi, xvalid) -> torch.Tensor:
+    """Torch version of K36: the [D, S, B, F+3] int32 send buffer - each
+    lane's F fields, lo, hi and valid (the reference's lane,
+    jaxtlc/engine/sharded.py:572-587)."""
+    return torch.cat([xrows, xlo[..., None], xhi[..., None],
+                      xvalid[..., None].to(torch.int32)], dim=-1)
+
+
+def pod_pack(xrows, xlo, xhi, xvalid) -> torch.Tensor:
+    """K36 on CUDA tensors, the plain version on CPU tensors."""
+    if not xrows.is_cuda:
+        return pod_pack_plain(xrows, xlo, xhi, xvalid)
+    from ..kernels import ops
+
+    return ops.pod_exchange_pack(xrows, xlo, xhi, xvalid)
+
+
+def pod_unpack_plain(recv: torch.Tensor):
+    """Torch version of K37: the received [H, S owner, S source, B, F+3]
+    buffer -> the owner planes [S, H*S, B, .] (xrows, xlo, xhi, xvalid),
+    global source p*S + s."""
+    H, S, _, B, W = recv.shape
+    planes = recv.transpose(0, 1).reshape(S, H * S, B, W)
+    return (planes[..., :W - 3].contiguous(), planes[..., W - 3].contiguous(),
+            planes[..., W - 2].contiguous(), planes[..., W - 1] != 0)
+
+
+def pod_unpack(recv: torch.Tensor):
+    """K37 on CUDA tensors, the plain version on CPU tensors."""
+    if not recv.is_cuda:
+        return pod_unpack_plain(recv)
+    from ..kernels import ops
+
+    return ops.pod_exchange_unpack(recv)
+
+
+def pod_stats_plain(leaves) -> torch.Tensor:
+    """Torch version of K38: leaves of S rows -> [S, W] int64, each leaf's
+    row words in order (int32 sign-extended, flags as 0 / 1)."""
+    S = leaves[0].shape[0]
+    return torch.cat([t.reshape(S, -1).to(torch.int64) for t in leaves], 1)
+
+
+def pod_stats(leaves) -> torch.Tensor:
+    """K38 on CUDA tensors, the plain version on CPU tensors."""
+    if not leaves[0].is_cuda:
+        return pod_stats_plain(leaves)
+    from ..kernels import ops
+
+    return ops.pod_stats_pack([t.contiguous() for t in leaves])
+
+
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
 
 
-def read_bundle(c: ShardCarry) -> ShardBundle:
+def read_bundle(c: ShardCarry, mesh: ShardMesh = None) -> ShardBundle:
+    """The carry's bundle; on a pod `mesh`, every shard's values (one
+    gather of the columns K38 packs)."""
     if c.bundle is not None:
         return c.bundle
-    D = c.qhead.shape[0]
     flag = (c.obs_pl_flag.to(torch.int64) if c.obs_pl_flag is not None
             else c.qhead * 0)
-    vals = torch.stack([c.qhead, c.qtail, c.level_end, c.viol, c.distinct,
-                        c.cont.to(torch.int64), flag]).tolist()
+    cols = [c.qhead, c.qtail, c.level_end, c.viol, c.distinct, c.cont, flag]
+    if mesh is not None and mesh.hosts > 1:
+        vals = mesh.gather(pod_stats(cols)).t().tolist()
+    else:
+        vals = torch.stack([t.to(torch.int64) for t in cols]).tolist()
     return ShardBundle(qhead=vals[0], qtail=vals[1], level_end=vals[2],
                        viol=max(vals[3]), distinct=vals[4],
                        cont=any(vals[5]), pl_flag=bool(vals[6][0]))
@@ -488,10 +683,15 @@ def make_sharded_engine(
     drain body); obs_slots > 0 carries the per-shard counter ring; a
     backend with a coverage plane carries ``cov_counts``.  `backend` is any
     SpecBackend whose kernels have the sharded routes (KubeAPI's, a struct
-    or a generic spec's); `cfg` is only read when it is None."""
+    or a generic spec's); `cfg` is only read when it is None.  On a pod
+    `mesh` the carries hold this process's S rows (unpipelined only)."""
     D = mesh.n_shards
+    S, r0 = mesh.rows, mesh.row0
+    pod = mesh.hosts > 1
     assert D & (D - 1) == 0, "device count must be a power of two"
     assert D <= 8, "the route kernels take at most 8 shards"
+    assert S * mesh.hosts == D, "the processes must split the shards evenly"
+    assert not (pod and pipeline), "pods run the unpipelined body"
     dev = resolve_device(mesh.device)
     if fp_highwater is None:
         fp_highwater = FP_HIGHWATER
@@ -516,8 +716,8 @@ def make_sharded_engine(
     imm_codes = () if deferred else backend.inv_codes
     # flag row 3 + k: invariant k fails (K1's TypeOK, OnlyOneVersion rows)
     imm_flags = tuple(range(3, 3 + n_inv))
-    rt = route_out_new(D, ncand, B, F, dev)
-    shards = torch.arange(D, device=dev)
+    rt = route_out_new(D, ncand, B, F, dev, S=S)
+    shards = torch.arange(S, device=dev)
 
     def owner_of(hi: torch.Tensor) -> torch.Tensor:
         return hi.to(torch.int64) & (D - 1)
@@ -574,7 +774,7 @@ def make_sharded_engine(
             if pipeline:
                 extra.update(obs_pl_level=z(D),
                              obs_pl_flag=z(D, dtype=torch.bool))
-        return ShardCarry(
+        c = ShardCarry(
             table=torch.from_numpy(table.view(np.int32)).to(dev),
             queue=torch.from_numpy(queue).to(dev), qhead=z(D),
             qtail=torch.from_numpy(qtail).to(dev),
@@ -588,6 +788,11 @@ def make_sharded_engine(
             viol_state=z(D, F, dtype=torch.int32),
             viol_local=z(D, dtype=torch.bool),
             cont=torch.ones(D, dtype=torch.bool, device=dev), **extra)
+        if pod:  # this process's rows of the whole carry
+            c = c._replace(**{f: mesh.local(v).contiguous()
+                              for f, v in c._asdict().items()
+                              if isinstance(v, torch.Tensor)})
+        return c
 
     def pick(vmask: torch.Tensor, states_of):
         """Per shard: any hit, and the state at the first hit
@@ -605,8 +810,9 @@ def make_sharded_engine(
             verdict_fold(c.pv_send, c.pv_sown, c.pv_pos, c.pv_svalid,
                          c.pv_order, c.pv_faction, c.pv_n, chunk, L,
                          n_labels, c.outdeg_hist, c.act_dist)
-        n = [min(chunk, min(e, t) - q) if h.viol == OK else 0
-             for q, t, e in zip(h.qhead, h.qtail, h.level_end)]
+        n_all = [min(chunk, min(e, t) - q) if h.viol == OK else 0
+                 for q, t, e in zip(h.qhead, h.qtail, h.level_end)]
+        n = n_all[r0:r0 + S]
         npop = i64(n)
         packed, flags, action, gen, fields, block = kernels.expand_sharded(
             c.queue, c.qhead, npop, chunk, deferred,
@@ -621,10 +827,11 @@ def make_sharded_engine(
                 fpset_member(FPSet(c.table[o]), xlo[o].view(DB),
                              xhi[o].view(DB), xvalid[o].view(DB),
                              max_rounds=SPILL_MEMBER_ROUNDS)
-                for o in range(D)])
+                for o in range(S)])
         return ShardEx(n=n, npop=npop, flags=flags, action=action, gen=gen,
                        fields=fields, block=block, xrows=xrows,
-                       xlo=xlo, xhi=xhi, xvalid=xvalid, member=member)
+                       xlo=xlo, xhi=xhi, xvalid=xvalid, member=member,
+                       n_all=n_all)
 
     def commit_half(c: ShardCarry, h: ShardBundle, ex: ShardEx,
                     veto: torch.Tensor = None) -> ShardCarry:
@@ -639,13 +846,13 @@ def make_sharded_engine(
         spill = veto is not None
 
         # ---- commit (every owner) ----
-        is_new = torch.zeros(D, DB + 1, dtype=torch.bool, device=dev)
-        d_viol = [None] * D
-        d_state = [None] * D
+        is_new = torch.zeros(S, DB + 1, dtype=torch.bool, device=dev)
+        d_viol = [None] * S
+        d_state = [None] * S
         # the spill runtime flushes a table before it could fill
-        fp_full = [not spill and h.distinct[o] + DB > fp_limit
-                   for o in range(D)]
-        for o in range(D):
+        fp_full = [not spill and h.distinct[r0 + o] + DB > fp_limit
+                   for o in range(S)]
+        for o in range(S):
             r_valid = xvalid[o].view(DB)
             if spill:
                 mask = r_valid & ~veto[o]
@@ -664,11 +871,11 @@ def make_sharded_engine(
         n_new = cum[:, -1]
         q_full = (c.qtail - c.qhead) + n_new > qcap
         shard_enqueue(c.queue, is_new, cum, c.qtail, q_full,
-                      xrows.view(D, DB, F), xvalid.view(D, DB))
-        (verd,) = mesh.exchange(is_new.view(D, D, B).to(torch.uint8))
+                      xrows.view(S, DB, F), xvalid.view(S, DB))
+        (verd,) = mesh.exchange(is_new.view(S, D, B).to(torch.uint8))
         if not pipeline:
             verdict_fold(verd, rt.s_own, rt.s_pos, rt.s_valid, rt.order,
-                         action.view(D, ncand), npop, chunk, L, n_labels,
+                         action.view(S, ncand), npop, chunk, L, n_labels,
                          c.outdeg_hist, c.act_dist)
         nvalid = gen.sum(1)
         generated = c.generated + nvalid
@@ -682,11 +889,11 @@ def make_sharded_engine(
                 backend.coverage.count(block[d * chunk:(d + 1) * chunk], n[d],
                                        flags[FLAG_VALID, d * ncand:
                                              (d + 1) * ncand])
-                for d in range(D)])
+                for d in range(S)])
             cov_counts = cov_counts + (cov.to(torch.int64) & MASK32)
 
         # ---- violations (local detect, global max) ----
-        new_viol = torch.zeros(D, dtype=torch.int64, device=dev)
+        new_viol = torch.zeros(S, dtype=torch.int64, device=dev)
         new_vstate = c.viol_state
         if checking:
             dv = torch.stack(d_viol)
@@ -694,7 +901,7 @@ def make_sharded_engine(
             new_viol = torch.where(hit, dv, new_viol)
             new_vstate = torch.where(hit[:, None], torch.stack(d_state),
                                      new_vstate)
-        fl = flags.view(3 + n_inv, D, ncand)
+        fl = flags.view(3 + n_inv, S, ncand)
         qh = c.qhead
 
         def lane_rows(first):  # the popped row of a lane
@@ -705,11 +912,11 @@ def make_sharded_engine(
 
         # deadlock: a popped state with no valid successor, when the
         # backend checks it (TLC's -deadlock switch)
-        dead = (~fl[FLAG_VALID].view(D, chunk, L).bool().any(2)
+        dead = (~fl[FLAG_VALID].view(S, chunk, L).bool().any(2)
                 & (torch.arange(chunk, device=dev)[None] < npop[:, None]))
         if not backend.check_deadlock:
             dead = torch.zeros_like(dead)
-        fv = fields.view(D, ncand, F)
+        fv = fields.view(S, ncand, F)
         cands = [(code, fl[f].bool(), lambda i: fv[shards, i])
                  for code, f in zip(imm_codes, imm_flags)]
         cands += [(VIOL_ASSERT, fl[FLAG_AFAIL].bool(), lane_rows),
@@ -722,14 +929,13 @@ def make_sharded_engine(
             new_vstate = torch.where(hit[:, None], st, new_vstate)
         new_viol = torch.where((new_viol == OK)
                                & torch.tensor(fp_full, device=dev)
-                               & xvalid.view(D, DB).any(1), VIOL_FPSET_FULL,
+                               & xvalid.view(S, DB).any(1), VIOL_FPSET_FULL,
                                new_viol)
         new_viol = torch.where((new_viol == OK) & q_full, VIOL_QUEUE_FULL,
                                new_viol)
         new_viol = torch.where((new_viol == OK) & rt.route_ovf,
                                VIOL_ROUTE_OVERFLOW, new_viol)
         viol = c.viol
-        global_viol = torch.where(viol == OK, new_viol, viol).max().expand(D)
         became = (viol == OK) & (new_viol != OK)
         viol_local = c.viol_local | became
         viol_state = torch.where(became[:, None], new_vstate, c.viol_state)
@@ -738,9 +944,25 @@ def make_sharded_engine(
         adv = viol == OK
         qhead = c.qhead + npop
         qtail = torch.where(q_full, c.qtail, c.qtail + n_new)
-        rem = torch.minimum(c.level_end, qtail) - qhead
-        level_done = rem.sum() == 0
-        more = (qtail - qhead).sum() > 0
+        fence = None
+        if pod:
+            # every shard's fence columns, from one gather (K38 packs them)
+            fence = mesh.gather(pod_stats([
+                qhead, qtail, c.level_end,
+                torch.where(viol == OK, new_viol, viol), distinct])).tolist()
+            g_viol = max(r[3] for r in fence)
+            g_done = sum(min(r[2], r[1]) - r[0] for r in fence) == 0
+            g_more = sum(r[1] - r[0] for r in fence) > 0
+            global_viol = torch.full((S,), g_viol, dtype=torch.int64,
+                                     device=dev)
+            level_done = torch.tensor(g_done, device=dev)
+            more = torch.tensor(g_more, device=dev)
+        else:
+            global_viol = torch.where(viol == OK, new_viol,
+                                      viol).max().expand(D)
+            rem = torch.minimum(c.level_end, qtail) - qhead
+            level_done = rem.sum() == 0
+            more = (qtail - qhead).sum() > 0
         level2 = torch.where(adv & level_done & more, c.level + 1, c.level)
         depth2 = torch.where(
             adv, torch.maximum(c.depth, torch.where(more, level2, c.level)),
@@ -750,7 +972,8 @@ def make_sharded_engine(
         # host twins of adv & level_done: the entry verdict and, since a
         # level's end never passes the tail, the popped rows
         adv_h = h.viol == OK
-        done_h = sum(e - q for q, e in zip(h.qhead, h.level_end)) == sum(n)
+        done_h = (sum(e - q for q, e in zip(h.qhead, h.level_end))
+                  == sum(ex.n_all))
         obs = {}
         if obs_slots:
             # acts_old pairs act_dist with itself: the reference's wrap
@@ -759,7 +982,7 @@ def make_sharded_engine(
                 # the last body's staged flip row, its act_dist completed
                 # by the fold at the top of this body
                 queue_n = c.qtail - c.qhead
-                for d in range(D):
+                for d in range(S):
                     ring_row(c.obs_ring[d], c.obs_head[d], c.obs_bodies[d],
                              c.obs_expanded[d], n[d], h.pl_flag,
                              c.obs_pl_level[d], generated[d], c.generated[d],
@@ -775,7 +998,7 @@ def make_sharded_engine(
                                            device=dev))
             else:
                 queue_n = qtail - qhead
-                for d in range(D):
+                for d in range(S):
                     ring_row(c.obs_ring[d], c.obs_head[d], c.obs_bodies[d],
                              c.obs_expanded[d], n[d], adv_h and done_h,
                              c.level[d], generated[d], c.generated[d],
@@ -785,14 +1008,14 @@ def make_sharded_engine(
                              n_labels)
         spill_hits = c.spill_hits
         if spill:
-            spill_hits = spill_hits + (veto & xvalid.view(D, DB)).sum(1)
+            spill_hits = spill_hits + (veto & xvalid.view(S, DB)).sum(1)
         pv = {}
         if pipeline:
             cont = cont | (sum(n) > 0)
             pv = dict(pv_send=verd, pv_sown=rt.s_own.clone(),
                       pv_pos=rt.s_pos.clone(), pv_svalid=rt.s_valid.clone(),
                       pv_order=rt.order.clone(),
-                      pv_faction=action.view(D, ncand), pv_n=npop)
+                      pv_faction=action.view(S, ncand), pv_n=npop)
         out = c._replace(
             qhead=qhead, qtail=qtail, level_end=level_end2, level=level2,
             depth=depth2, generated=generated, distinct=distinct,
@@ -800,14 +1023,21 @@ def make_sharded_engine(
             viol_state=viol_state, viol_local=viol_local, cont=cont,
             cov_counts=cov_counts, spill_hits=spill_hits, bundle=None, **pv,
             **obs)
-        return out._replace(bundle=read_bundle(out))
+        if fence is None:
+            return out._replace(bundle=read_bundle(out))
+        flip = adv_h and g_done
+        return out._replace(bundle=ShardBundle(
+            qhead=[r[0] for r in fence], qtail=[r[1] for r in fence],
+            level_end=[r[1] if flip else r[2] for r in fence], viol=g_viol,
+            distinct=[r[4] for r in fence],
+            cont=g_more and g_viol == OK))
 
     def body(c: ShardCarry, h: ShardBundle) -> ShardCarry:
         return commit_half(c, h, expand_half(c, h))
 
     def run_fn(c: ShardCarry) -> ShardCarry:
         steps = 0
-        h = read_bundle(c)
+        h = read_bundle(c, mesh)
         if segment > 0:
             for _ in range(segment):
                 c = body(c, h)
@@ -822,7 +1052,7 @@ def make_sharded_engine(
         return c
 
     run_fn.steps = 0
-    run_fn.geometry = dict(D=D, B=B, ncand=ncand, F=F, L=L, chunk=chunk,
+    run_fn.geometry = dict(D=D, S=S, B=B, ncand=ncand, F=F, L=L, chunk=chunk,
                            SRW=SRW, sort_free=sort_free, deferred=deferred)
     run_fn.halves = (expand_half, commit_half)
     return init_fn, run_fn
@@ -943,16 +1173,19 @@ class ShardedSpillRuntime:
 
     One SpillStore holds every shard's spilled fingerprints: the owners'
     fingerprint spaces are disjoint (owner = hi & (D - 1)), so one store is
-    exact for all of them.  Before a step that could take some table past
-    the high-water load (each table's occupancy, measured; the reference's
-    pmax is a max over the shard axis), the tables over the mark - and only
-    those - are unmixed into the store and start empty; a fingerprint lives
-    in its owner's table or in the store, never in both.  A vetoed
-    candidate dedups like an owner-table hit, so counters and verdict equal
-    a correctly sized clean sharded run's.  ``on_event(kind, info)``
-    receives the `spill` journal events; ``spill_write_hook`` is the fault
-    seam called before every flush; ``flushes``, ``probes`` and
-    ``store_s`` describe the host tier's work."""
+    exact for all of them - on a pod mesh, one store a process, for its own
+    rows (the reference's per-host lifeboat).  Before a step that could
+    take some table past the high-water load (each table's occupancy,
+    measured; the reference's pmax over the shard axis, on a pod one
+    all_reduce so that every process enters the flush on the same step),
+    the tables over the mark - and only those - are unmixed into the store
+    and start empty; a fingerprint lives in its owner's table or in the
+    store, never in both.  A vetoed candidate dedups like an owner-table
+    hit, so counters and verdict equal a correctly sized clean sharded
+    run's.  ``on_event(kind, info)`` receives the `spill` journal events;
+    ``spill_write_hook`` is the fault seam called before every flush;
+    ``flushes``, ``probes`` and ``store_s`` describe the host tier's
+    work."""
 
     def __init__(self, cfg, mesh: ShardMesh, chunk: int, queue_capacity: int,
                  fp_capacity: int, fp_index: int = DEFAULT_FP_INDEX,
@@ -971,7 +1204,9 @@ class ShardedSpillRuntime:
             sort_free=sort_free, deferred=deferred)
         self._base_init = init_fn
         self._expand, self._commit = run_fn.halves
+        self.mesh = mesh
         self.D = mesh.n_shards
+        self.S = mesh.rows
         self.DB = self.D * run_fn.geometry["B"]
         self.fp_capacity = fp_capacity
         self.fp_highwater = fp_highwater
@@ -994,7 +1229,7 @@ class ShardedSpillRuntime:
             "spill mode runs unpipelined sharded carries only"
         if carry.spill_hits is None:
             carry = carry._replace(spill_hits=torch.zeros(
-                self.D, dtype=torch.int64, device=carry.queue.device))
+                self.S, dtype=torch.int64, device=carry.queue.device))
         return carry
 
     def _emit(self, kind: str, **info) -> None:
@@ -1009,8 +1244,9 @@ class ShardedSpillRuntime:
         return (carry.table.view(D, -1, 2) != 0).any(2).sum(1).tolist()
 
     def _flush(self, carry: ShardCarry, needy) -> ShardCarry:
-        """Move the tables of the shards in `needy` into the store and
-        start them empty; SpillWriteError when the write seam fails."""
+        """Move the tables of this process's shards in `needy` (local row
+        indices) into the store and start them empty; SpillWriteError when
+        the write seam fails."""
         from .fpset import unmix_host
         from .spill import SpillWriteError
 
@@ -1022,7 +1258,7 @@ class ShardedSpillRuntime:
         t0 = time.time()
         table = carry.table.clone()
         resident = 0
-        for d in range(self.D):
+        for d in range(self.S):
             t = table[d].cpu().numpy().view(np.uint32)
             lo = t[:, 0::2].reshape(-1)
             hi = t[:, 1::2].reshape(-1)
@@ -1046,8 +1282,7 @@ class ShardedSpillRuntime:
     def step(self, carry: ShardCarry, h: ShardBundle) -> ShardCarry:
         """One chunk step (the caller has flushed where needed)."""
         ex = self._expand(carry, h, with_member=True)
-        D, DB = self.D, self.DB
-        probable = ex.xvalid.view(D, DB) & ~ex.member
+        probable = ex.xvalid.view(self.S, self.DB) & ~ex.member
         veto = torch.zeros_like(probable)
         lanes = torch.nonzero(probable.view(-1)).flatten()
         if lanes.numel():
@@ -1072,14 +1307,14 @@ class ShardedSpillRuntime:
 
         def seg(carry: ShardCarry) -> ShardCarry:
             for _ in range(ckpt_every):
-                h = read_bundle(carry)
+                h = read_bundle(carry, self.mesh)
                 if not h.cont:
                     break
                 # measured, not derived from the distinct counters: a
                 # rolled-back carry whose failed attempt flushed stays exact
                 needy = {d for d, occ in enumerate(self._occupancy(carry))
                          if occ + self.DB > highwater_slots}
-                if needy:
+                if self.mesh.any(bool(needy)):
                     carry = self._flush(carry, needy)
                 carry = self.step(carry, h)
                 if carry.bundle.viol != OK:

@@ -43,7 +43,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 SOURCES = ("expand.cu", "fp64.cu", "fpset.cu", "commit.cu", "slab.cu",
            "deferred.cu", "ring.cu", "coverage.cu", "route.cu", "liveness.cu",
-           "fpset_batched.cu")
+           "fpset_batched.cu", "pod.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

@@ -1,6 +1,6 @@
-// CPU build of the per-lane logic of K1, K3, K5-K16, for the host tests
-// (tests/test_torch_kernels_host.py, tests/test_torch_sharded.py,
-// tests/test_torch_live.py).  g++ compiles the same
+// CPU build of the per-lane logic of K1, K3, K5-K16 and K36-K38, for the
+// host tests (tests/test_torch_kernels_host.py, tests/test_torch_sharded.py,
+// tests/test_torch_live.py, tests/test_torch_pod.py).  g++ compiles the same
 // __host__ __device__ headers nvcc builds the kernels from; these loops
 // stand in for the grids, the straggler walk runs the walk kernel's
 // rounds (read, rank, claim-or-advance) sequentially, and std::stable_sort
@@ -12,6 +12,7 @@
 #include "deferred.cuh"
 #include "fpset.cuh"
 #include "liveness.cuh"
+#include "pod.cuh"
 #include "ring.cuh"
 #include "route.cuh"
 #include "slab.cuh"
@@ -391,16 +392,18 @@ extern "C" void host_deferred_check_rows(const void* layout,
 }
 
 // K11: the stable counting sort of each source shard's lanes by owner key
-// and the payload scatter, sequentially (xvalid zeroed by the caller).
-extern "C" void host_route_scatter(const uint32_t* hi, const uint32_t* lo,
-                                   const uint8_t* valid, const int32_t* fields,
-                                   long long ncand, int D, int B, int F,
-                                   int32_t* order, int32_t* s_own,
-                                   int32_t* s_pos, uint8_t* s_valid,
-                                   int32_t* xrows, uint32_t* xlo,
-                                   uint32_t* xhi, uint8_t* xvalid,
-                                   uint8_t* route_ovf) {
-  for (int s = 0; s < D; s++) {
+// and the payload scatter, sequentially (xvalid zeroed by the caller); S
+// source shards (D / H in a pod), D owners, planes [D, S, B, .].
+extern "C" void host_route_scatter_s(const uint32_t* hi, const uint32_t* lo,
+                                     const uint8_t* valid,
+                                     const int32_t* fields, long long ncand,
+                                     int D, int S, int B, int F,
+                                     int32_t* order, int32_t* s_own,
+                                     int32_t* s_pos, uint8_t* s_valid,
+                                     int32_t* xrows, uint32_t* xlo,
+                                     uint32_t* xhi, uint8_t* xvalid,
+                                     uint8_t* route_ovf) {
+  for (int s = 0; s < S; s++) {
     std::vector<long long> total(D + 1, 0), start(D + 1, 0), seen(D + 1, 0);
     const size_t b = (size_t)s * ncand;
     for (long long i = 0; i < ncand; i++)
@@ -416,7 +419,7 @@ extern "C" void host_route_scatter(const uint32_t* hi, const uint32_t* lo,
       s_valid[out] = key < D;
       if (key == D) continue;
       if (pos < B) {
-        const size_t slot = ((size_t)key * D + s) * B + pos;
+        const size_t slot = ((size_t)key * S + s) * B + pos;
         for (int j = 0; j < F; j++)
           xrows[slot * F + j] = fields[(b + i) * F + j];
         xlo[slot] = lo[b + i];
@@ -429,21 +432,35 @@ extern "C" void host_route_scatter(const uint32_t* hi, const uint32_t* lo,
   }
 }
 
-// K12: the verdict fold of every source shard, sequentially.
-extern "C" void host_verdict_fold(const uint8_t* verd, const int32_t* s_own,
-                                  const int32_t* s_pos,
-                                  const uint8_t* s_valid,
-                                  const int32_t* order, const int32_t* faction,
-                                  const long long* npop, long long ncand,
-                                  int D, int B, int chunk, int L,
-                                  int n_labels, long long* outdeg,
-                                  long long* act_dist) {
-  for (int s = 0; s < D; s++) {
+extern "C" void host_route_scatter(const uint32_t* hi, const uint32_t* lo,
+                                   const uint8_t* valid, const int32_t* fields,
+                                   long long ncand, int D, int B, int F,
+                                   int32_t* order, int32_t* s_own,
+                                   int32_t* s_pos, uint8_t* s_valid,
+                                   int32_t* xrows, uint32_t* xlo,
+                                   uint32_t* xhi, uint8_t* xvalid,
+                                   uint8_t* route_ovf) {
+  host_route_scatter_s(hi, lo, valid, fields, ncand, D, D, B, F, order, s_own,
+                       s_pos, s_valid, xrows, xlo, xhi, xvalid, route_ovf);
+}
+
+// K12: the verdict fold of every source shard, sequentially (verd [D, S,
+// B]).
+extern "C" void host_verdict_fold_s(const uint8_t* verd, const int32_t* s_own,
+                                    const int32_t* s_pos,
+                                    const uint8_t* s_valid,
+                                    const int32_t* order,
+                                    const int32_t* faction,
+                                    const long long* npop, long long ncand,
+                                    int D, int S, int B, int chunk, int L,
+                                    int n_labels, long long* outdeg,
+                                    long long* act_dist) {
+  for (int s = 0; s < S; s++) {
     std::vector<int> deg(chunk, 0);
     const size_t b = (size_t)s * ncand;
     for (long long g = 0; g < ncand; g++) {
-      const bool got = route_got(verd, D, B, s, s_own[b + g], s_pos[b + g],
-                                 s_valid[b + g] != 0);
+      const bool got = route_got_s(verd, D, S, B, s, s_own[b + g],
+                                   s_pos[b + g], s_valid[b + g] != 0);
       const long long lane = order[b + g];
       act_dist[(size_t)s * (n_labels + 1) + (got ? faction[b + lane]
                                                   : n_labels)]++;
@@ -452,6 +469,18 @@ extern "C" void host_verdict_fold(const uint8_t* verd, const int32_t* s_own,
     for (int r = 0; r < chunk; r++)
       outdeg[(size_t)s * (L + 2) + (r < npop[s] ? deg[r] : L + 1)]++;
   }
+}
+
+extern "C" void host_verdict_fold(const uint8_t* verd, const int32_t* s_own,
+                                  const int32_t* s_pos,
+                                  const uint8_t* s_valid,
+                                  const int32_t* order, const int32_t* faction,
+                                  const long long* npop, long long ncand,
+                                  int D, int B, int chunk, int L,
+                                  int n_labels, long long* outdeg,
+                                  long long* act_dist) {
+  host_verdict_fold_s(verd, s_own, s_pos, s_valid, order, faction, npop,
+                      ncand, D, D, B, chunk, L, n_labels, outdeg, act_dist);
 }
 
 // K13: the owner-side enqueue of every owner's received rows.
@@ -526,4 +555,46 @@ extern "C" int host_survive_sweep(const int32_t* src, const int32_t* dst,
     changed |= alive2[v] != alive[v];
   }
   return changed;
+}
+
+// K36: K11's planes into the [D, S, B, F + 3] send buffer, sequentially.
+extern "C" void host_pod_exchange_pack(const int32_t* xrows,
+                                       const int32_t* xlo, const int32_t* xhi,
+                                       const uint8_t* xvalid, long long lanes,
+                                       int F, int32_t* out) {
+  for (long long lane = 0; lane < lanes; lane++)
+    for (int j = 0; j < F + 3; j++)
+      out[lane * (F + 3) + j] = pod_pack_word(xrows, xlo, xhi, xvalid, lane,
+                                              F, j);
+}
+
+// K37: the received [H, S, S, B, F + 3] buffer into the owner planes.
+extern "C" void host_pod_exchange_unpack(const int32_t* recv, int H, int S,
+                                         int B, int F, int32_t* xrows,
+                                         int32_t* xlo, int32_t* xhi,
+                                         uint8_t* xvalid) {
+  const int w = F + 3;
+  for (int o = 0; o < S; o++)
+    for (int g = 0; g < H * S; g++)
+      for (int b = 0; b < B; b++) {
+        const long long lane = ((long long)o * H * S + g) * B + b;
+        const int32_t* src = recv + pod_unpack_src(S, B, o, g, b) * w;
+        for (int j = 0; j < F; j++) xrows[lane * F + j] = src[j];
+        xlo[lane] = src[F];
+        xhi[lane] = src[F + 1];
+        xvalid[lane] = src[F + 2] != 0;
+      }
+}
+
+// K38: n leaves of `rows` rows into [rows, W] int64 words; -1 on a bad
+// descriptor.
+extern "C" int host_pod_stats_pack(const void* const* ptrs, const int* widths,
+                                   const int* kinds, int n, int rows,
+                                   long long* out) {
+  PodPackDesc P;
+  if (pod_pack_desc(P, ptrs, widths, kinds, n) != 0) return -1;
+  for (int r = 0; r < rows; r++)
+    for (int c = 0; c < P.W; c++)
+      out[(size_t)r * P.W + c] = pod_stats_word(P, r, c);
+  return 0;
 }

@@ -48,7 +48,8 @@ __device__ __forceinline__ unsigned lanemask_lt() {
   return m;
 }
 
-// counts[s, t, k]: lanes of source s's tile t with key k
+// counts[s, t, k]: lanes of source s's tile t with key k (S sources, the
+// grid's rows; D owners)
 __global__ void __launch_bounds__(ROUTE_TILE)
     route_count_kernel(const uint32_t* __restrict__ hi,
                        const uint8_t* __restrict__ valid, long long ncand,
@@ -70,7 +71,7 @@ __global__ void __launch_bounds__(ROUTE_TILE)
 __global__ void __launch_bounds__(ROUTE_TILE) route_scatter_kernel(
     const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo,
     const uint8_t* __restrict__ valid, const int32_t* __restrict__ fields,
-    long long ncand, int D, int B, int F, int ntiles,
+    long long ncand, int D, int S, int B, int F, int ntiles,
     const int* __restrict__ counts, int32_t* __restrict__ order,
     int32_t* __restrict__ s_own, int32_t* __restrict__ s_pos,
     uint8_t* __restrict__ s_valid, int32_t* __restrict__ xrows,
@@ -136,7 +137,7 @@ __global__ void __launch_bounds__(ROUTE_TILE) route_scatter_kernel(
   s_valid[out] = key < D;
   if (key < D) {
     if (pos < B) {
-      const size_t slot = ((size_t)key * D + s) * B + pos;
+      const size_t slot = ((size_t)key * S + s) * B + pos;
       const int32_t* src = fields + g * F;
       int32_t* dst = xrows + slot * F;
       for (int j = 0; j < F; j++) dst[j] = src[j];
@@ -149,18 +150,19 @@ __global__ void __launch_bounds__(ROUTE_TILE) route_scatter_kernel(
   }
 }
 
-// counts: [D, ntiles, D + 1] int32 scratch
+// S source shards (D in one process, D / H in a pod), D owners; the
+// planes are [D, S, B, .]; counts: [S, ntiles, D + 1] int32 scratch
 extern "C" int tt_route_scatter(const void* hi, const void* lo,
                                 const void* valid, const void* fields,
-                                long long ncand, int D, int B, int F,
+                                long long ncand, int D, int S, int B, int F,
                                 void* counts, void* order, void* s_own,
                                 void* s_pos, void* s_valid, void* xrows,
                                 void* xlo, void* xhi, void* xvalid,
                                 void* route_ovf, void* stream) {
-  if (D < 1 || D > ROUTE_MAX_SHARDS || ncand < 1)
+  if (D < 1 || D > ROUTE_MAX_SHARDS || S < 1 || S > D || ncand < 1)
     return (int)cudaErrorInvalidValue;
   const int ntiles = (int)((ncand + ROUTE_TILE - 1) / ROUTE_TILE);
-  const dim3 grid((unsigned)ntiles, (unsigned)D);
+  const dim3 grid((unsigned)ntiles, (unsigned)S);
   cudaStream_t st = (cudaStream_t)stream;
   route_count_kernel<<<grid, ROUTE_TILE, 0, st>>>(
       (const uint32_t*)hi, (const uint8_t*)valid, ncand, D, ntiles,
@@ -169,21 +171,21 @@ extern "C" int tt_route_scatter(const void* hi, const void* lo,
   if (rc != 0) return rc;
   route_scatter_kernel<<<grid, ROUTE_TILE, 0, st>>>(
       (const uint32_t*)hi, (const uint32_t*)lo, (const uint8_t*)valid,
-      (const int32_t*)fields, ncand, D, B, F, ntiles, (const int*)counts,
+      (const int32_t*)fields, ncand, D, S, B, F, ntiles, (const int*)counts,
       (int32_t*)order, (int32_t*)s_own, (int32_t*)s_pos, (uint8_t*)s_valid,
       (int32_t*)xrows, (uint32_t*)xlo, (uint32_t*)xhi, (uint8_t*)xvalid,
       (uint8_t*)route_ovf);
   return (int)cudaGetLastError();
 }
 
-// rowdeg: [D * chunk + 1] zeroed int32 scratch (the last word counts the
-// finished blocks)
+// rowdeg: [S * chunk + 1] zeroed int32 scratch (the last word counts the
+// finished blocks); S source shards, D owners, verd [D, S, B]
 __global__ void __launch_bounds__(FOLD_THREADS) verdict_fold_kernel(
     const uint8_t* __restrict__ verd, const int32_t* __restrict__ s_own,
     const int32_t* __restrict__ s_pos, const uint8_t* __restrict__ s_valid,
     const int32_t* __restrict__ order, const int32_t* __restrict__ faction,
-    const long long* __restrict__ npop, long long ncand, int D, int B,
-    int chunk, int L, int n_labels, int* rowdeg,
+    const long long* __restrict__ npop, long long ncand, int D, int S,
+    int B, int chunk, int L, int n_labels, int* rowdeg,
     unsigned long long* outdeg, unsigned long long* act_dist) {
   __shared__ unsigned int hist[FOLD_MAX_LABELS];
   __shared__ unsigned int oh[FOLD_MAX_HIST];
@@ -194,8 +196,8 @@ __global__ void __launch_bounds__(FOLD_THREADS) verdict_fold_kernel(
   const long long g = (long long)blockIdx.x * blockDim.x + tid;
   if (g < ncand) {
     const size_t k = (size_t)s * ncand + g;
-    const bool got = route_got(verd, D, B, s, s_own[k], s_pos[k],
-                               s_valid[k] != 0);
+    const bool got = route_got_s(verd, D, S, B, s, s_own[k], s_pos[k],
+                                 s_valid[k] != 0);
     const long long lane = order[k];
     atomicAdd(&hist[got ? faction[(size_t)s * ncand + lane] : n_labels], 1u);
     if (got) atomicAdd(&rowdeg[(size_t)s * chunk + lane / L], 1);
@@ -208,41 +210,43 @@ __global__ void __launch_bounds__(FOLD_THREADS) verdict_fold_kernel(
   __threadfence();
   __syncthreads();
   const int nblocks = (int)(gridDim.x * gridDim.y);
-  int* done = rowdeg + (size_t)D * chunk;
+  int* done = rowdeg + (size_t)S * chunk;
   if (tid == 0) last = atomicAdd(done, 1) == nblocks - 1;
   __syncthreads();
   if (!last) return;
   // the last block: every row's new-degree into the outdegree histogram
   const int H = L + 2;
-  for (int c = tid; c < D * H; c += blockDim.x) oh[c] = 0;
+  for (int c = tid; c < S * H; c += blockDim.x) oh[c] = 0;
   __syncthreads();
   const volatile int* deg = rowdeg;
-  for (long long r = tid; r < (long long)D * chunk; r += blockDim.x) {
+  for (long long r = tid; r < (long long)S * chunk; r += blockDim.x) {
     const int d = (int)(r / chunk), row = (int)(r % chunk);
     const int bin = row < npop[d] ? deg[r] : L + 1;
     atomicAdd(&oh[d * H + bin], 1u);
   }
   __syncthreads();
-  for (int c = tid; c < D * H; c += blockDim.x)
+  for (int c = tid; c < S * H; c += blockDim.x)
     if (oh[c]) atomicAdd(&outdeg[c], (unsigned long long)oh[c]);
 }
 
 extern "C" int tt_verdict_fold(const void* verd, const void* s_own,
                                const void* s_pos, const void* s_valid,
                                const void* order, const void* faction,
-                               const void* npop, long long ncand, int D, int B,
-                               int chunk, int L, int n_labels, void* rowdeg,
+                               const void* npop, long long ncand, int D, int S,
+                               int B, int chunk, int L, int n_labels,
+                               void* rowdeg,
                                void* outdeg, void* act_dist, void* stream) {
-  if (D < 1 || D > ROUTE_MAX_SHARDS || n_labels + 1 > FOLD_MAX_LABELS ||
-      D * (L + 2) > FOLD_MAX_HIST || ncand < 1)
+  if (D < 1 || D > ROUTE_MAX_SHARDS || S < 1 || S > D ||
+      n_labels + 1 > FOLD_MAX_LABELS || S * (L + 2) > FOLD_MAX_HIST ||
+      ncand < 1)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((ncand + FOLD_THREADS - 1) / FOLD_THREADS),
-                  (unsigned)D);
+                  (unsigned)S);
   verdict_fold_kernel<<<grid, FOLD_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)verd, (const int32_t*)s_own, (const int32_t*)s_pos,
       (const uint8_t*)s_valid, (const int32_t*)order,
-      (const int32_t*)faction, (const long long*)npop, ncand, D, B, chunk, L,
-      n_labels, (int*)rowdeg, (unsigned long long*)outdeg,
+      (const int32_t*)faction, (const long long*)npop, ncand, D, S, B, chunk,
+      L, n_labels, (int*)rowdeg, (unsigned long long*)outdeg,
       (unsigned long long*)act_dist);
   return (int)cudaGetLastError();
 }

@@ -4,10 +4,12 @@
 // Replaces, in jaxtlc/engine/sharded.py: the owner and the route of
 // expand_half (:375, :553-578), the verdict return of commit_half
 // (:691-719, and its pipelined form :485-505) and the owner-side circular
-// enqueue (:685-689).  The shards live in one process: the all_to_all is a
+// enqueue (:685-689).  With the shards in one process the all_to_all is a
 // layout - source shard s writes its bucket for owner o at [o, s] of the
 // [D, D, B] exchange planes, so owner o's received batch [o].reshape(D*B)
-// is the reference's recv.reshape(D*B, .) row for row.
+// is the reference's recv.reshape(D*B, .) row for row.  In a pod of H
+// processes each routes its own S = D / H sources into [D, S, B] planes,
+// which the pod kernels (pod.cuh) carry across.
 #pragma once
 #include "common.cuh"
 
@@ -20,14 +22,21 @@ HD int route_key(uint32_t hi, bool valid, int D) {
 }
 
 // the verdict a source shard reads back for its sorted lane (owner `own`,
-// bucket position `pos`): the owner's is_new at [own, src, pos], clipped
-// as the reference clips its gather, and only for a valid lane that fit
-// its bucket
-HD bool route_got(const uint8_t* verd, int D, int B, int src, int own,
-                  int pos, bool svalid) {
+// bucket position `pos`): the owner's is_new at [own, src, pos] of the
+// [D owner, S source, B] plane, clipped as the reference clips its
+// gather, and only for a valid lane that fit its bucket.  S is the number
+// of source shards in this process: D in one process, D / H in a pod of
+// H processes (the received verdicts of this process's sources).
+HD bool route_got_s(const uint8_t* verd, int D, int S, int B, int src,
+                    int own, int pos, bool svalid) {
   const int o = own < 0 ? 0 : (own > D - 1 ? D - 1 : own);
   const int p = pos < 0 ? 0 : (pos > B - 1 ? B - 1 : pos);
-  return verd[((size_t)o * D + src) * B + p] == 1 && svalid && pos < B;
+  return verd[((size_t)o * S + src) * B + p] == 1 && svalid && pos < B;
+}
+
+HD bool route_got(const uint8_t* verd, int D, int B, int src, int own,
+                  int pos, bool svalid) {
+  return route_got_s(verd, D, D, B, src, own, pos, svalid);
 }
 
 // The owner-side enqueue of received row i (of n): a fresh row goes to

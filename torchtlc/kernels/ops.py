@@ -31,7 +31,8 @@ KERNELS = ("expand", "fp64", "fpset_key", "fpset_probe", "fpset_claim",
            "sim_fold", "struct_pred_matrix", "struct_pred_alive",
            "struct_certify", "struct_recheck", "emitted_expand_batched",
            "fpset_insert_batched", "struct_sim_step_batched",
-           "sim_fold_batched")
+           "sim_fold_batched", "pod_exchange_pack", "pod_exchange_unpack",
+           "pod_stats_pack")
 LAUNCHES = {name: 0 for name in KERNELS}
 # K23's certificate runs standalone (its own wrapper) or inside K17 (kCert)
 # and K18: each launch that evaluates it adds one to
@@ -86,10 +87,10 @@ _SIGNATURES = {
     "tt_ring_row": ("ring", [_P, _I, _I, _P, _P, _P, _LL, _I, _P, _P, _P, _P,
                              _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
                              _I, _P, _P, _P]),
-    "tt_route_scatter": ("route", [_P, _P, _P, _P, _LL, _I, _I, _I, _P, _P,
-                                   _P, _P, _P, _P, _P, _P, _P, _P, _P]),
+    "tt_route_scatter": ("route", [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P,
+                                   _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
     "tt_verdict_fold": ("route", [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
-                                  _I, _I, _P, _P, _P, _P]),
+                                  _I, _I, _I, _P, _P, _P, _P]),
     "tt_shard_enqueue": ("route", [_P, _LL, _I, _P, _P, _P, _P, _P, _P, _LL,
                                    _I, _I, _P]),
     "tt_edge_search": ("liveness", [_P, _P, _P, _I, _I, _P, _P, _P, _LL, _I,
@@ -100,6 +101,10 @@ _SIGNATURES = {
     "tt_state_masks": ("liveness", [_P, _P, _LL, _P, _P]),
     "tt_survive_sweep": ("liveness", [_P, _P, _LL, _LL, _I, _P, _P, _LL, _P,
                                       _P, _P, _P]),
+    "tt_pod_exchange_pack": ("pod", [_P, _P, _P, _P, _LL, _I, _P, _P]),
+    "tt_pod_exchange_unpack": ("pod", [_P, _I, _I, _I, _I, _P, _P, _P, _P,
+                                       _P]),
+    "tt_pod_stats_pack": ("pod", [_P, _P, _P, _I, _I, _P, _P]),
 }
 
 
@@ -639,37 +644,40 @@ def coverage_count(cfg, block: torch.Tensor, n: int,
 
 
 def route_scatter(hi, lo, valid, fields, D: int, B: int, out) -> None:
-    """K11 over every source shard (its two grid launches, route_count and
-    route_scatter, count as one): hi, lo [D*ncand] int32, valid [D*ncand]
-    uint8, fields [D*ncand, F] int32; `out` (engine.sharded.RouteOut)
-    receives the sorted-order words and the exchange planes - xvalid and
-    route_ovf are zeroed here first.  See engine.sharded.route_plain."""
+    """K11 over every source shard of this process (its two grid launches,
+    route_count and route_scatter, count as one): S = out.order.shape[0]
+    sources (D in one process, D / H in a pod), D owners; hi, lo [S*ncand]
+    int32, valid [S*ncand] uint8, fields [S*ncand, F] int32; `out`
+    (engine.sharded.RouteOut, planes [D, S, B, .]) receives the
+    sorted-order words and the exchange planes - xvalid and route_ovf are
+    zeroed here first.  See engine.sharded.route_plain."""
     N = hi.shape[0]
-    if N % D:
+    S = out.order.shape[0]
+    if N % S:
         raise ValueError("lanes must split evenly over the shards")
-    ncand = N // D
+    ncand = N // S
     F = fields.shape[1]
     _need(hi, "hi", torch.int32, (N,))
     _need(lo, "lo", torch.int32, (N,))
     _need(valid, "valid", torch.uint8, (N,))
     _need(fields, "fields", torch.int32, (N, F))
     for name, dt, shape in (
-            ("order", torch.int32, (D, ncand)),
-            ("s_own", torch.int32, (D, ncand)),
-            ("s_pos", torch.int32, (D, ncand)),
-            ("s_valid", torch.bool, (D, ncand)),
-            ("xrows", torch.int32, (D, D, B, F)),
-            ("xlo", torch.int32, (D, D, B)), ("xhi", torch.int32, (D, D, B)),
-            ("xvalid", torch.bool, (D, D, B)),
-            ("route_ovf", torch.bool, (D,))):
+            ("order", torch.int32, (S, ncand)),
+            ("s_own", torch.int32, (S, ncand)),
+            ("s_pos", torch.int32, (S, ncand)),
+            ("s_valid", torch.bool, (S, ncand)),
+            ("xrows", torch.int32, (D, S, B, F)),
+            ("xlo", torch.int32, (D, S, B)), ("xhi", torch.int32, (D, S, B)),
+            ("xvalid", torch.bool, (D, S, B)),
+            ("route_ovf", torch.bool, (S,))):
         _need(getattr(out, name), name, dt, shape)
     out.xvalid.zero_()
     out.route_ovf.zero_()
     ntiles = -(-ncand // 1024)
-    counts = torch.empty(D, ntiles, D + 1, dtype=torch.int32,
+    counts = torch.empty(S, ntiles, D + 1, dtype=torch.int32,
                          device=hi.device)
     rc = lib().tt_route_scatter(
-        _ptr(hi), _ptr(lo), _ptr(valid), _ptr(fields), ncand, D, B, F,
+        _ptr(hi), _ptr(lo), _ptr(valid), _ptr(fields), ncand, D, S, B, F,
         _ptr(counts), _ptr(out.order), _ptr(out.s_own), _ptr(out.s_pos),
         _ptr(out.s_valid), _ptr(out.xrows), _ptr(out.xlo), _ptr(out.xhi),
         _ptr(out.xvalid), _ptr(out.route_ovf), _stream())
@@ -678,25 +686,26 @@ def route_scatter(hi, lo, valid, fields, D: int, B: int, out) -> None:
 
 def verdict_fold(verd, s_own, s_pos, s_valid, order, faction, npop, chunk: int,
                  L: int, n_labels: int, outdeg, act_dist) -> None:
-    """K12: fold every source shard's verdicts (verd [D, D, B] uint8, the
-    owners' is_new buckets) into outdeg [D, L+2] and act_dist [D, n_labels+1]
-    (int64, in place); see engine.sharded.verdict_fold_plain."""
-    D, _, B = verd.shape
+    """K12: fold the verdicts of this process's S source shards (verd [D,
+    S, B] uint8, the owners' is_new buckets; S = D in one process) into
+    outdeg [S, L+2] and act_dist [S, n_labels+1] (int64, in place); see
+    engine.sharded.verdict_fold_plain."""
+    D, S, B = verd.shape
     ncand = s_own.shape[1]
-    _need(verd, "verd", torch.uint8, (D, D, B))
+    _need(verd, "verd", torch.uint8, (D, S, B))
     for name, t, dt in (("s_own", s_own, torch.int32),
                         ("s_pos", s_pos, torch.int32),
                         ("s_valid", s_valid, torch.bool),
                         ("order", order, torch.int32),
                         ("faction", faction, torch.int32)):
-        _need(t, name, dt, (D, ncand))
-    _need(npop, "npop", torch.int64, (D,))
-    _need(outdeg, "outdeg", torch.int64, (D, L + 2))
-    _need(act_dist, "act_dist", torch.int64, (D, n_labels + 1))
-    rowdeg = torch.zeros(D * chunk + 1, dtype=torch.int32, device=verd.device)
+        _need(t, name, dt, (S, ncand))
+    _need(npop, "npop", torch.int64, (S,))
+    _need(outdeg, "outdeg", torch.int64, (S, L + 2))
+    _need(act_dist, "act_dist", torch.int64, (S, n_labels + 1))
+    rowdeg = torch.zeros(S * chunk + 1, dtype=torch.int32, device=verd.device)
     _launched("verdict_fold", lib().tt_verdict_fold(
         _ptr(verd), _ptr(s_own), _ptr(s_pos), _ptr(s_valid), _ptr(order),
-        _ptr(faction), _ptr(npop), ncand, D, B, chunk, L, n_labels,
+        _ptr(faction), _ptr(npop), ncand, D, S, B, chunk, L, n_labels,
         _ptr(rowdeg), _ptr(outdeg), _ptr(act_dist), _stream()))
 
 
@@ -717,6 +726,79 @@ def shard_enqueue(queue, is_new, cum, qtail, q_full, xrows, xvalid) -> None:
     _launched("shard_enqueue", lib().tt_shard_enqueue(
         _ptr(queue), qrows, qrows - 1, _ptr(is_new), _ptr(cum), _ptr(qtail),
         _ptr(q_full), _ptr(xrows), _ptr(xvalid), n, D, F, _stream()))
+
+
+# ---------------------------------------------------------------------------
+# K36-K38 the pod's exchange and stats buffers
+# ---------------------------------------------------------------------------
+
+
+def pod_exchange_pack(xrows, xlo, xhi, xvalid) -> torch.Tensor:
+    """K36: K11's planes of this process's S sources (xrows [D, S, B, F],
+    xlo, xhi [D, S, B] int32, xvalid [D, S, B] bool) -> the [D, S, B, F+3]
+    int32 send buffer (fields, lo, hi, valid a lane; grouped by destination
+    process along D).  See engine.sharded.pod_pack_plain."""
+    D, S, B, F = xrows.shape
+    _need(xrows, "xrows", torch.int32)
+    for name, t, dt in (("xlo", xlo, torch.int32), ("xhi", xhi, torch.int32),
+                        ("xvalid", xvalid, torch.bool)):
+        _need(t, name, dt, (D, S, B))
+    out = torch.empty(D, S, B, F + 3, dtype=torch.int32, device=xrows.device)
+    _launched("pod_exchange_pack", lib().tt_pod_exchange_pack(
+        _ptr(xrows), _ptr(xlo), _ptr(xhi), _ptr(xvalid), D * S * B, F,
+        _ptr(out), _stream()))
+    return out
+
+
+def pod_exchange_unpack(recv: torch.Tensor):
+    """K37: the received [H, S owner, S source, B, F+3] int32 buffer ->
+    this process's owner planes (xrows [S, H*S, B, F], xlo, xhi [S, H*S, B]
+    int32, xvalid [S, H*S, B] bool), global source p*S + s.  See
+    engine.sharded.pod_unpack_plain."""
+    H, S, S2, B, W = recv.shape
+    if S2 != S:
+        raise ValueError("recv: expected [H, S, S, B, F+3]")
+    _need(recv, "recv", torch.int32)
+    F = W - 3
+    dev = recv.device
+    xrows = torch.empty(S, H * S, B, F, dtype=torch.int32, device=dev)
+    xlo = torch.empty(S, H * S, B, dtype=torch.int32, device=dev)
+    xhi = torch.empty_like(xlo)
+    xvalid = torch.empty(S, H * S, B, dtype=torch.bool, device=dev)
+    _launched("pod_exchange_unpack", lib().tt_pod_exchange_unpack(
+        _ptr(recv), H, S, B, F, _ptr(xrows), _ptr(xlo), _ptr(xhi),
+        _ptr(xvalid), _stream()))
+    return xrows, xlo, xhi, xvalid
+
+
+POD_PACK_KINDS = {torch.int64: 0, torch.int32: 1, torch.bool: 2,
+                  torch.uint8: 2}
+
+
+def pod_stats_pack(leaves) -> torch.Tensor:
+    """K38: leaves of S rows each (int64, int32, bool or uint8, any row
+    width; at most 24) -> one [S, W] int64 word row a shard, the leaves'
+    words in order.  See engine.sharded.pod_stats_plain."""
+    S = leaves[0].shape[0]
+    if not 1 <= len(leaves) <= 24:
+        raise ValueError("pod_stats_pack takes 1 to 24 leaves")
+    widths, kinds = [], []
+    for k, t in enumerate(leaves):
+        _need(t, f"leaf {k}", t.dtype)
+        if t.shape[0] != S or t.dtype not in POD_PACK_KINDS:
+            raise ValueError(f"leaf {k}: expected {S} rows of a packable "
+                             f"dtype, got {tuple(t.shape)} {t.dtype}")
+        widths.append(t[0].numel() if t.dim() > 1 else 1)
+        kinds.append(POD_PACK_KINDS[t.dtype])
+    n = len(leaves)
+    ptrs = (ctypes.c_void_p * n)(*(t.data_ptr() for t in leaves))
+    w = (ctypes.c_int * n)(*widths)
+    kd = (ctypes.c_int * n)(*kinds)
+    out = torch.empty(S, sum(widths), dtype=torch.int64,
+                      device=leaves[0].device)
+    _launched("pod_stats_pack", lib().tt_pod_stats_pack(
+        ptrs, w, kd, n, S, _ptr(out), _stream()))
+    return out
 
 
 # ---------------------------------------------------------------------------
