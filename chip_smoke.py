@@ -174,9 +174,21 @@ refused width and --reshard, a table too small and the spill lifeboat -
 and FF with the counter ring and coverage folded from both journals
 (25b); scaled 2x1 on the 2 x 2 pod through init_pod / run_pod against the
 single-device fingerprint set, its wall in turns with the in-process
-4-shard engine and the collectives' share of it (25c).  It checks every
-result against its pinned value, holds each kernel bitwise against its
-plain torch version on the card, and prints:
+4-shard engine and the collectives' share of it (25c); then the walk over
+the KubeAPI backend behind kernels K39 (kube_sim_step, one thread a
+walker) and K40 (kube_sim_fold, one block) and over the generic backend
+behind K27 / K28 built from each spec's walk text (gen_sim.cuh): FF,
+Model_1, RaftElection, Reconciler and ServiceMesh at 4,096 walkers to
+depth 64, seeds 0 and 7, each final carry pinned to the reference's CPU
+run, the kernels bitwise against their plain versions on the kInit form
+and round by round, FF under delete_noop (the assertion) and the
+NeverObserves edit (an invariant) pinned and re-walked by replay_lane on
+the card (26); the scaled 2x1 model and Model_1 at 65,536 walkers to depth
+256 and Reconciler-5 to depth 100 - the reference's counts, walls,
+transitions per second, the busy share, the kernels a round (26b); and
+the port's bench_sim price sheet, Model_1's walk against its BFS (26c).
+It checks every result against its pinned value, holds each kernel
+bitwise against its plain torch version on the card, and prints:
 
 * one line per phase;
 * a line with the card's name and power limit (nvidia-smi);
@@ -193,8 +205,8 @@ plain torch version on the card, and prints:
   walks and commands of phases 20-20c, the inference runs and
   commands of phases 21-21c, the disk-tier runs and commands of phases
   22-22c, the artifact-cache commands of phases 23-23c and the batched
-  sweeps, walks, jobs and commands of phases 24-24d, and worker 0 of the
-  pods of phases 25 and 25c;
+  sweeps, walks, jobs and commands of phases 24-24d, worker 0 of the
+  pods of phases 25 and 25c, and the walks of phases 26 and 26b;
   each path's counts are reset just before it and read just after),
   its error against the plain
   version, its time, the plain version's time, its bound on this card
@@ -220,13 +232,20 @@ struct -narrow slice, ``--phases 19,19b,19c`` the -symmetry / -por slice,
 23,23b,23c`` the artifact cache, ``--phases 24,24b,24c,24d`` the serving
 plane (constants-class sweeps and smoke batches in one dispatch, kernels
 K32-K35; the service; -serve and -trace-out), ``--phases 25,25b,25c``
-the pods (kernels K36-K38).  Every run but those of
-phases 23-23c and 24d's cached job has the artifact cache off
-(TORCHTLC_ARTIFACT_CACHE=off); those use temporary stores.
+the pods (kernels K36-K38), ``--phases 26,26b,26c`` the walks over
+KubeAPI and generic specs (kernels K39, K40 and the generic K27 / K28).
+Every run but those of phases 23-23c and 24d's cached job has the
+artifact cache off (TORCHTLC_ARTIFACT_CACHE=off); those use temporary
+stores.  The full run builds the emitted libraries of phases 16-21, 23b,
+24 and 26 in a second process (``--prebuild DIR``, two nvcc at a time, at
+the lowest priority) while phases 2-18 run, and waits for it before phase
+19; those phases' build lines then time finding and loading them, and the
+background build's own lines are printed at the wait.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import hashlib
 import io
@@ -491,6 +510,9 @@ def main() -> int:
         return only is None or phase in only
 
     runs = {}
+    # the full run builds the emitted libraries of phases 16-21, 23b, 24
+    # and 26 in a second process while phases 2-18 run
+    prebuild = start_prebuild() if only is None else None
     if only is None:
         runs["ff"] = phase_ff(torch, ops)
         phase_violation(torch)
@@ -571,6 +593,8 @@ def main() -> int:
             runs.update(phase_narrow18_real(torch, ops, card, runs))
         if want("18c"):
             runs.update(phase_command18(ops, card, runs, tmp))
+        if prebuild is not None:
+            wait_prebuild(*prebuild)
         if want("19") or want("19b"):
             runs.update(phase_reduce19(torch, ops, card, runs, tmp))
         if want("19b"):
@@ -614,6 +638,12 @@ def main() -> int:
         if want("25b") or want("25c"):
             runs.update(phase_pod25bc(torch, ops, card, runs, tmp,
                                       want("25b"), want("25c")))
+        if want("26"):
+            runs.update(phase_sim26(torch, ops, card, runs, tmp))
+        if want("26b"):
+            runs.update(phase_sim26_real(torch, ops, card, runs, tmp))
+        if want("26c"):
+            runs.update(phase_bench26(torch, ops, card, runs))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if want("13b"):
@@ -646,7 +676,7 @@ def main() -> int:
                 ) + tuple(k for k, v in runs.items()
                           if k.startswith(("shard16", "p17", "p18", "p19",
                                            "p20", "p21", "p22", "p23",
-                                           "p24", "p25"))
+                                           "p24", "p25", "p26"))
                           and isinstance(v, dict) and "launches" in v)
     launches = {k: sum(runs[r]["launches"][k] for r in main)
                 for k in ops.KERNELS}
@@ -2459,6 +2489,22 @@ def cuda_ms(torch, fn, reps, setup=None):
     return total / reps
 
 
+def cuda_ms_once(torch, fn):
+    """fn() once, its device time taken as cuda_ms takes a call's (a
+    spinning kernel queued ahead of the first event) but with no warm-up
+    call: (its result, ms).  For plain versions that take seconds a call,
+    whose warm-up would cost as much as the call."""
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    s.record()
+    out = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return out, s.elapsed_time(e)
+
+
 def phase_kernels(torch, ops, runs, launches):
     """Hold every kernel bitwise against its plain version on the card, at
     the Model_1 and the scaled step shapes, and time both."""
@@ -2711,9 +2757,18 @@ def phase_kernels(torch, ops, runs, launches):
                                 "jaxtlc/engine/sharded.py:572"),
         "pod_stats_pack": ("torchtlc/kernels/csrc/pod.cuh",
                            "jaxtlc/dist/pod.py:224"),
+        "kube_sim_step": ("torchtlc/kernels/csrc/kube_sim.cu",
+                          "jaxtlc/sim/engine.py:232"),
+        "kube_sim_fold": ("torchtlc/kernels/csrc/kube_sim.cu",
+                          "jaxtlc/sim/engine.py:264"),
+        "gen_sim_step": ("torchtlc/kernels/csrc/gen_sim.cuh",
+                         "jaxtlc/sim/engine.py:232"),
+        "gen_sim_fold": ("torchtlc/kernels/csrc/gen_sim.cuh",
+                         "jaxtlc/sim/engine.py:264"),
     }
     for key in ("sharded", "live", "struct", "gen", "shard16", "p17", "p18",
-                "p19", "p20", "p21", "p22", "p23", "p24", "p25", "p25c"):
+                "p19", "p20", "p21", "p22", "p23", "p24", "p25", "p25c",
+                "p26"):
         for name, got in runs.get(f"{key}_rows", {}).items():
             rows.setdefault(name, []).extend(got)
         library.update(runs.get(f"{key}_library", {}))
@@ -6615,15 +6670,24 @@ def backends20(ops, tmp):
     return cfgs, models, out
 
 
-def ptxas_kernels(prog, names):
+def ptxas_kernels(prog, names, text=None):
     """{kernel entry: 'N registers, S bytes stack, spills'} of the entries
-    of a spec's library whose mangled names hold one of `names`, from the
-    ptxas report nvcc left beside it."""
+    of a spec's library (built from `text`, by default the program's) whose
+    mangled names hold one of `names`, from the ptxas report nvcc left
+    beside it."""
     from torchtlc.kernels.build import build_struct
 
-    log = os.path.join(os.path.dirname(build_struct(prog.text)), "nvcc.log")
+    log = os.path.join(os.path.dirname(build_struct(text or prog.text)),
+                       "nvcc.log")
+    return ptxas_entries(open(log).read(), names)
+
+
+def ptxas_entries(log, names):
+    """ptxas_kernels' parse of one nvcc report."""
+    import re
+
     out, cur = {}, None
-    for line in open(log).read().splitlines():
+    for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
             cur = name if any(n in name for n in names) else None
@@ -6631,7 +6695,6 @@ def ptxas_kernels(prog, names):
                 out[cur] = []
         elif cur and ("stack frame" in line or "Used" in line):
             out[cur].append(line.split(":")[-1].strip())
-    import re
 
     def short(mangled):  # struct_sim_step_kernel<0,1>: its bool flags
         base = re.match(r"_Z\d+(\w+?kernel)", mangled).group(1)
@@ -7139,14 +7202,16 @@ def infer_kernel_checks(torch, ops, tag, prog, rows, record=None, reps=10,
 
     S, P = rows.shape[0], prog.P
     mat = ops.struct_pred_matrix(prog, rows)
-    mat_p = prog.matrix_plain(rows, rows=plain_rows)
+    mat_p, mat_p_ms = cuda_ms_once(
+        torch, lambda: prog.matrix_plain(rows, rows=plain_rows))
     need(torch.equal(mat, mat_p), f"K29 matrix differs from its plain "
          f"version ({tag})")
     alive = words_to_bits(ops.struct_pred_alive(prog, rows), P)
     need(torch.equal(alive, mat_p.bool().all(1)),
          f"K29 fold differs from its plain version ({tag})")
     esc = words_to_bits(ops.struct_certify(prog, rows), P)
-    esc_p = prog.certify_plain(rows, rows=plain_rows)
+    esc_p, esc_p_ms = cuda_ms_once(
+        torch, lambda: prog.certify_plain(rows, rows=plain_rows))
     need(torch.equal(esc, esc_p), f"K30 differs from its plain version "
          f"({tag})")
     if record is not None:
@@ -7156,21 +7221,17 @@ def infer_kernel_checks(torch, ops, tag, prog, rows, record=None, reps=10,
         shape = f"{tag}: S {S}, P {P}, F {prog.F}, L {prog.L}"
         record("struct_pred_matrix", shape, 0,
                cuda_ms(torch, lambda _: ops.struct_pred_matrix(prog, rows),
-                       reps),
-               cuda_ms(torch, lambda _: prog.matrix_plain(
-                   rows, rows=plain_rows), 1),
+                       reps), mat_p_ms,
                *gen_bound_ms(inb + P * S, S * (n_pred + P)))
         record("struct_pred_alive", shape, 0,
                cuda_ms(torch, lambda _: ops.struct_pred_alive(prog, rows),
                        reps),
-               cuda_ms(torch, lambda _: prog.alive_plain(
-                   rows, rows=plain_rows), 1),
+               cuda_ms_once(torch, lambda: prog.alive_plain(
+                   rows, rows=plain_rows))[1],
                *gen_bound_ms(inb + 4 * prog.NPW, S * (n_pred + P)))
         record("struct_certify", shape + f", {n_valid} valid successors",
                0, cuda_ms(torch, lambda _: ops.struct_certify(prog, rows),
-                          reps),
-               cuda_ms(torch, lambda _: prog.certify_plain(
-                   rows, rows=plain_rows), 1),
+                          reps), esc_p_ms,
                *gen_bound_ms(inb + 4 * prog.NPW,
                              S * (n_pred + n_step + P)
                              + n_valid * (n_pred + 2 * prog.NPW)))
@@ -8430,7 +8491,7 @@ RR4S_KW = dict(chunk=1 << 14, queue_capacity=1 << 21, fp_capacity=1 << 23,
 # phase 24c: RR5T6's seeds 7-10 at phase 20b's geometry in one dispatch
 RR5T6_SEEDS = (7, 8, 9, 10)
 # phase 24d: a long chain for the preemption flows (tests/test_service.py
-# _CHAIN_SPEC at MAX 2,000)
+# _CHAIN_SPEC, its MAX 2,000 cut to 400 for the script's time limit)
 CHAIN24_TLA = """---- MODULE LoadChain ----
 EXTENDS Naturals
 CONSTANTS MAX
@@ -8448,7 +8509,10 @@ Spec == Init /\\ [][Next]_x
 InRange == x <= MAX
 ====
 """
-CHAIN24_CFG = "CONSTANT MAX = 2000\nSPECIFICATION\nSpec\nINVARIANT\nInRange\n"
+# at MAX 400 each of 24d's chain jobs is ~400 bodies, still long enough to
+# be preempted, to expire its 0.3 s deadline, to be cancelled and to hold
+# the one-job queue while the 429 is provoked
+CHAIN24_CFG = "CONSTANT MAX = 400\nSPECIFICATION\nSpec\nINVARIANT\nInRange\n"
 CHAIN24_OPTS = dict(chunk=16, qcap=256, fpcap=1024, nodeadlock=True,
                     checkpointevery=8, noartifactcache=True)
 SWEEP24 = {"const": "MAXR", "lo": 0, "hi": 2}
@@ -9201,7 +9265,7 @@ POD_D, POD_H = 4, 2
 # "ffobs": FF with the counter ring and coverage; "scaled": scaled 2x1 (the
 # command has Model_1 and FF only, as the reference's does)
 POD_TASKS = r"""
-import json, sys
+import json, sys, time
 import torch.distributed as dist
 from torchtlc.config import ModelConfig, scaled_config
 from torchtlc.dist.pod import init_pod, run_pod
@@ -9218,6 +9282,7 @@ def counts(pr):
 
 
 out = {}
+t0 = time.time()
 if "drills" in tasks:
     base, other = tasks["drills"]
     pr = run_pod(ff, ckpt_path=base, resume=True, devices_per_host=2, **geo)
@@ -9232,13 +9297,19 @@ if "drills" in tasks:
     out["reshard"] = counts(pr) + [pr.resharded]
     small = dict(geo, fp_capacity=2048, devices_per_host=1)
     out["full"] = counts(run_pod(ff, **small))
+    t1 = time.time()
     pr = run_pod(ff, spill="on", spill_capacity=16384, **small)
     out["spill"] = counts(pr) + [pr.spilled, pr.spill_flushes]
+    out["walls"] = dict(drills=round(t1 - t0, 1),
+                        spill=round(time.time() - t1, 1))
 if "ffobs" in tasks:
+    t1 = time.time()
     pr = run_pod(ff, devices_per_host=2, obs_slots=128, coverage=True,
                  ckpt_path=tasks["ffobs"], ckpt_every=64, **geo)
     out["ffobs"] = counts(pr) + [pr.result.action_generated]
+    out.setdefault("walls", {})["ffobs"] = round(time.time() - t1, 1)
 if "scaled" in tasks:
+    t1 = time.time()
     base, every, kw = tasks["scaled"]
     ops.reset_counts()
     pr = run_pod(scaled_config()[0], devices_per_host=2, ckpt_path=base,
@@ -9249,6 +9320,7 @@ if "scaled" in tasks:
         segments=pr.segments, collective_s=pr.timing,
         collectives=pr.collectives,
         launches={k: v for k, v in ops.LAUNCHES.items() if v})
+    out.setdefault("walls", {})["scaled"] = round(time.time() - t1, 1)
 dist.destroy_process_group()
 out["host"] = rank
 print("POD_RESULT " + json.dumps(out), flush=True)
@@ -9634,7 +9706,8 @@ def phase_pod25bc(torch, ops, card, runs, tmp, drills, scaled):
               f"spilled in {spill[6]} flushes (host 0); FF with ring and "
               f"coverage {FF_COUNTS}, two journals fold to {len(levels)} "
               f"levels and the per-action sites; walls (launcher, library "
-              f"pair) {cmd} s ({time.time() - t0:.1f} s in all) on {card}",
+              f"pair) {cmd} s ({time.time() - t0:.1f} s in all; worker 0's "
+              f"tasks {outs[0].get('walls')} s) on {card}",
               flush=True)
     if not scaled:
         return out
@@ -9703,6 +9776,626 @@ def phase_pod25bc(torch, ops, card, runs, tmp, drills, scaled):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the full run's background build
+# ---------------------------------------------------------------------------
+
+PREBUILD_NVCC = 2  # nvcc processes of the background build at a time
+
+
+class BuildOnly:
+    """The `ops` that the build helpers of phases 16-21, 23b, 24 and 26
+    call, in the background build's process: each library is built into
+    torchtlc/kernels/_build (nvcc, at most PREBUILD_NVCC at a time) and
+    none is loaded; the phases then find them there by their texts."""
+
+    def __init__(self):
+        import threading
+
+        self.sem = threading.Semaphore(PREBUILD_NVCC)
+
+    def _build(self, text):
+        from torchtlc.kernels.build import build_struct
+
+        with self.sem:
+            build_struct(text)
+
+    def struct_lib(self, prog):
+        self._build(prog.text)
+
+    infer_lib = emitted_lib = struct_cov_lib = struct_lib
+
+    def gen_sim_lib(self, prog):
+        self._build(prog.sim_text)
+
+
+def prebuild_main(tmp) -> int:
+    """``chip_smoke.py --prebuild DIR``: the background build (the model
+    files written to DIR), at the lowest priority; the helpers' build
+    lines go to its log."""
+    from torchtlc.struct.loader import load
+
+    os.nice(19)
+    t_start = time.time()
+    ops = BuildOnly()
+    for phase, build in (
+            ("16", lambda: shard16_models(ops, tmp)),
+            ("17", lambda: cov17_models(ops, tmp)),
+            ("18", lambda: narrow18_backends(ops, tmp)),
+            ("19", lambda: backends19(ops, tmp)),
+            ("20", lambda: backends20(ops, tmp)),
+            ("21", lambda: infer_programs21(
+                ops, {k: load(c) for k, c in models21(tmp).items()})),
+            ("23b", lambda: prebuild23(ops, models23(tmp))),
+            ("24", lambda: prebuild24(ops, models24(tmp))),
+            ("26", lambda: backends26(ops, tmp))):
+        t0 = time.time()
+        build()
+        print(f"prebuild: phase {phase}'s libraries in {time.time() - t0:.1f}"
+              f" s", flush=True)
+    print(f"prebuild: done in {time.time() - t_start:.1f} s", flush=True)
+    return 0
+
+
+def start_prebuild():
+    """Start the background build; it is stopped and its directory removed
+    when the script exits.  Returns (process, log path, start time)."""
+    d = tempfile.mkdtemp(prefix="chip_smoke_pre_")
+    log_path = os.path.join(d, "prebuild.log")
+    log = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--prebuild", d],
+        stdout=log, stderr=subprocess.STDOUT)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        log.close()
+        shutil.rmtree(d, ignore_errors=True)
+
+    atexit.register(stop)
+    return proc, log_path, time.time()
+
+
+def wait_prebuild(proc, log_path, t_start):
+    """Wait for the background build and print its build lines: the
+    phases after it find their libraries built (their own build lines then
+    time the loads)."""
+    t0 = time.time()
+    rc = proc.wait()
+    lines = open(log_path).read().splitlines()
+    builds = [ln for ln in lines if "build" in ln]
+    print(f"phase 19 background build (phases 16-21, 23b, 24, 26; "
+          f"{PREBUILD_NVCC} nvcc at a time, started {t0 - t_start:.1f} s "
+          f"before): rc {rc}, waited {time.time() - t0:.1f} s; "
+          + " | ".join(builds) + (" | " + " | ".join(lines[-5:])
+                                  if rc else ""), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phases 26-26c: the random walk over the KubeAPI and generic backends
+# (kernels K39 kube_sim_step, K40 kube_sim_fold; K27 / K28 of the generic
+# specs' walk texts)
+# ---------------------------------------------------------------------------
+
+# the small pins' geometry: every model walks SIM26_SEEDS at SIM26 with
+# deadlock on; round-by-round kernel checks over SIM26_ROUNDS rounds
+SIM26 = dict(walkers=4096, depth=64, fp_capacity=1 << 16)
+SIM26_SEEDS = (0, 7)
+SIM26_ROUNDS = 6
+SIM26_KUBE = ("FF", "Model_1")
+# the reference's final carries on the CPU (jaxtlc.sim.engine.
+# make_sim_engine over jaxtlc's kubeapi_backend / gen_backend at SIM26,
+# run_fn after jit(init_fn)(seed)): (steps, generated, transitions,
+# distinct, violation, sim_sha)
+SIM26_PINS = {
+    'FF/0': (64, 545963, 262144, 3367, 0,
+        '6f18e2f06fa273c830880fb51a32b573'
+        '92cdbaecefd5b01523e1cdd686d34ef1'),
+    'FF/7': (64, 545944, 262144, 3320, 0,
+        '1db631ed5c10038e20d3af9624632abd'
+        '1eb483bf6072f4e59252342b61ce97d5'),
+    'Model_1/0': (64, 865392, 262144, 3937, 0,
+        'ebeaaf2195aa63b23fb5900e256717c4'
+        'd021742dd8718cd9dd4f28dab7763a34'),
+    'Model_1/7': (64, 865210, 262144, 4019, 0,
+        'e970173deb39d43bdf1b828d38bcb6b7'
+        '8a55df19a82a09b35fc0f07cf49f50a4'),
+    'RaftElection/0': (64, 343122, 262144, 491, 0,
+        '1710eef82a46ec7356a8883a78ce6962'
+        'c4cfb42e9e68ef9ca74e5cadb09805c6'),
+    'RaftElection/7': (64, 343148, 262144, 491, 0,
+        '6747eb56f4ae80bcfd4ed31752a1b034'
+        'b215cff333422eafd46990e85855825e'),
+    'Reconciler/0': (64, 302819, 262144, 81, 0,
+        '95abe58e880d8dd0e4eea7de00d8e783'
+        '90a9b52522639a7c2d78aa6b20baab51'),
+    'Reconciler/7': (64, 303345, 262144, 81, 0,
+        'e1eb112ccef9e85bfb9fab53887ea9f3'
+        '6c618b36cce2e0d282046b72252a3a36'),
+    'ServiceMesh/0': (64, 955995, 262144, 1444, 0,
+        '716912eeeeac2294031090b049e19d96'
+        '5b5841d6c12ce670aa1a5d7cf3a3742d'),
+    'ServiceMesh/7': (64, 956495, 262144, 1444, 0,
+        '2ec9dd040a1c767a4ad93e690d395f56'
+        'b8f0bbd1e7b90a757cc5800b97831e6d'),
+}
+SIM26_VIOL_PINS = {
+    'FF/delete_noop': dict(
+        counts=(47, 402884, 192512, 2031, 3),
+        sha=('70ad2597fa5659a226189d8233a8ca0a'
+             'b9c87ba7fa291711b32d2b9144f8e44d'),
+        lane=752, step=47, action=15,
+        state=(63, 42, 2912, 2681, 9, 13, 40, 59, 15, 3, 21, 0, 114, 0, 0,
+               0, 0, 0, 2, 0)),
+    'Reconciler/never': dict(
+        counts=(3, 31397, 12288, 10, 103),
+        sha=('0c51bc16a1075ed9ed84aa022279cf69'
+             'ea0bd5aa4447d2ccca15542ad2b10b60'),
+        lane=4, step=3, action=3,
+        state=(1, 1, 0, 0, 0, 0, 1)),
+}
+# full width: (walkers, depth, seed, fp capacity) and the reference's
+# result on the CPU (jaxtlc.sim.engine.result_from_sim_carry's fields)
+SIM26B = {"Model_1": (65536, 256, 7, 1 << 22),
+          "scaled": (65536, 256, 7, 1 << 22),
+          "R5": (65536, 100, 7, 1 << 22)}
+SIM26B_PINS = {
+    'scaled': dict(
+        steps=256, generated=52567138, transitions=16777216,
+        distinct=1709494, violation=0, halted=0,
+        action_generated={'DoRequest': 2524203, 'DoReply': 2461215,
+            'DoListRequest': 775487, 'DoListReply': 759903, 'CStart': 848958,
+            'C1': 694367, 'C10': 686070, 'C11': 652910, 'c12': 644663,
+            'C13': 611253, 'C2': 64667, 'C3': 118511, 'C8': 117719,
+            'C6': 29240, 'C7': 27635, 'C4': 114883, 'C5': 177961,
+            'PVCStart': 661756, 'PVCListedPVCs': 633402,
+            'PVCHavePVCs': 468484, 'PVCDone': 443581, 'APIStart': 3260348},
+        depth_hist=((256, 65536),)),
+    'Model_1': dict(
+        steps=256, generated=54888137, transitions=16777216,
+        distinct=38762, violation=0, halted=0,
+        action_generated={'DoRequest': 2140236, 'DoReply': 2118737,
+            'DoListRequest': 1751611, 'DoListReply': 1734282,
+            'CStart': 1772614, 'C1': 1696322, 'C10': 278509, 'C11': 271448,
+            'c12': 44374, 'C13': 43200, 'C2': 113, 'C3': 33480, 'C8': 5566,
+            'C6': 14, 'C7': 14, 'C4': 5555, 'C5': 5665, 'PVCStart': 1727998,
+            'PVCListedPVCs': 1684108, 'PVCHavePVCs': 90857, 'PVCDone': 87224,
+            'APIStart': 1285289},
+        depth_hist=((256, 65536),)),
+    'R5': dict(
+        steps=100, generated=13918416, transitions=6553600,
+        distinct=445506, violation=0, halted=0,
+        action_generated={'Bump': 262144, 'Terminating': 4476243,
+            'Wake': 605071, 'Observe': 605071, 'Apply': 605071},
+        depth_hist=((100, 65536),)),
+}
+# phase 26c: the port's bench_sim (jaxtlc bench.py:1240-1300) - Model_1
+# walked at 4,096 walkers to depth 256 against the BFS at chunk 1024
+BENCH26C_SIM = dict(walkers=4096, depth=256, fp_capacity=1 << 20)
+BENCH26C_BFS = dict(chunk=1024, queue_capacity=1 << 15, fp_capacity=1 << 20)
+
+
+def backends26(ops, tmp):
+    """The backends of phases 26-26c: KubeAPI's FF, Model_1, FF under
+    delete_noop and the scaled 2x1 model; the generic RaftElection,
+    Reconciler, ServiceMesh, the NeverObserves edit and Reconciler-5 -
+    their walk libraries (K27 / K28 around each spec's step, gen_sim.cuh)
+    built in parallel, one nvcc a text.  Returns (backends, the nvcc
+    seconds)."""
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torchtlc.config import MODEL_1, ModelConfig, scaled_config
+    from torchtlc.engine.backend import gen_backend, kubeapi_backend
+    from torchtlc.frontend.model import resolve
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    never, r5 = write_gen_models(os.path.join(tmp, "p26"))
+    ff = ModelConfig(False, False)
+    out = {"FF": kubeapi_backend(ff), "Model_1": kubeapi_backend(MODEL_1),
+           "FF/delete_noop": kubeapi_backend(
+               dataclasses.replace(ff, mutation="delete_noop")),
+           "scaled": kubeapi_backend(scaled_config()[0])}
+    cfgs = {n: os.path.join(here, "specs", f"{n}.toolbox", "Model_1",
+                            "MC.cfg") for n in GEN_NAMES}
+    cfgs.update({"Reconciler/never": never, "R5": r5})
+    for name, cfg in cfgs.items():
+        out[name] = gen_backend(resolve(cfg, workers="gpu").genspec)
+    progs = [out[n].kernels.prog for n in cfgs]
+    t0 = time.time()
+    with ThreadPoolExecutor(len(progs)) as pool:
+        list(pool.map(ops.gen_sim_lib, progs))
+    return out, time.time() - t0
+
+
+def is_kube26(backend) -> bool:
+    return backend.cfg is not None
+
+
+def walk_kernels26(ops, backend):
+    """(K_init, K_step, K_fold) of a backend's walk on the card - K39 /
+    K40 for KubeAPI, the walk text's K27 / K28 for a generic spec - with
+    the plain versions' signatures, and their LAUNCHES names."""
+    prog = backend.kernels.prog
+    if is_kube26(backend):
+        return ((lambda *a: ops.kube_sim_init(prog, *a),
+                 lambda *a: ops.kube_sim_step(prog, *a),
+                 lambda *a: ops.kube_sim_fold(prog, *a)),
+                ("kube_sim_step", "kube_sim_fold"))
+    return ((lambda *a: ops.struct_sim_init(prog, *a),
+             lambda *a: ops.struct_sim_step(prog, *a),
+             lambda *a: ops.sim_fold(prog, *a)),
+            ("gen_sim_step", "gen_sim_fold"))
+
+
+def walk26(torch, ops, backend, walkers, depth, fp_capacity, seed):
+    """One walk on the card through make_sim_engine's init_fn and run_fn
+    (deadlock on), its launch counts reset just before and read just after:
+    (carry, wall of run_fn, launches, engine)."""
+    from torchtlc.sim.engine import make_sim_engine
+
+    eng = make_sim_engine(backend, walkers, depth, fp_capacity=fp_capacity)
+    ops.reset_counts()
+    c = eng[0](seed)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    c = eng[1](c)
+    torch.cuda.synchronize()
+    return c, time.time() - t0, dict(ops.LAUNCHES), eng
+
+
+def kube_lane_ops(prog) -> int:
+    """K39's integer operations a live walker, counted low: the enabled
+    test of each of the L lanes (its handler reads and writes the F
+    fields once: 2 F), the chosen lane once more with the canonicalizing
+    sorts (ni^2 compares of the API rows), three threefry2x32 (~80
+    operations each), the invariants (~8 a field) and the pack (~4 a
+    field)."""
+    ni = prog.cdc.ni
+    return (prog.L + 1) * 2 * prog.F + ni * ni + 3 * 80 + 12 * prog.F
+
+
+def walk_bound26(backend, n_live, W):
+    """(bound ms, bound_by) of one step-kernel round with n_live live
+    walkers of W."""
+    prog = backend.kernels.prog
+    lane = kube_lane_ops(prog) if is_kube26(backend) else sim_lane_ops(prog)
+    return gen_bound_ms(k27_bytes(prog, n_live, W), n_live * lane)
+
+
+def walk_round_check26(torch, ops, tag, backend, c, depth, record=None,
+                       reps=10):
+    """The step kernel (K39, or the walk text's K27; with the packed rows)
+    and then the fold kernel (K40 / K28) against their plain versions on
+    copies of the carry `c` and of fresh buffers: states, alive,
+    steps_taken, the scratch, the packed rows and take flags, the old
+    rows and actions at every class lane; then every leaf of the carry,
+    the go flag and the reset scratch after the fold.  Timed with
+    `record` under the kernels' names.  Returns the violation code the
+    fold set."""
+    from torchtlc.sim.engine import (SIM_MIN, SIM_NONE, carry_to_reference,
+                                     sim_buffers)
+
+    prog = backend.kernels.prog
+    (_, k_step, k_fold), (n_step, n_fold) = walk_kernels26(ops, backend)
+    W = c.states.shape[0]
+    dl = backend.check_deadlock
+    base = sim_buffers(prog, W, "cuda", True)
+    base.go.fill_(1)
+    outs = []
+    for kernel in (True, False):
+        cc, bb = clone_carry(c), clone_buffers(base)
+        (k_step if kernel else prog.sim_step_plain)(
+            bb, cc.key, cc.step_i, cc.states, cc.alive, cc.steps_taken, dl)
+        outs.append((cc, bb))
+    (ck, bk), (cp, bp) = outs
+    for name in ("states", "alive", "steps_taken"):
+        need(torch.equal(getattr(ck, name), getattr(cp, name)),
+             f"{n_step} {name} differs from its plain version ({tag})")
+    for name in ("scratch", "packed", "take"):
+        need(torch.equal(getattr(bk, name), getattr(bp, name)),
+             f"{n_step} {name} differs from its plain version ({tag})")
+    mins = bk.scratch[SIM_MIN:SIM_MIN + prog.n_inv + 3].tolist()
+    for lane in {m for m in mins if m != SIM_NONE}:
+        need(torch.equal(bk.vact[lane], bp.vact[lane])
+             and torch.equal(bk.vold[lane], bp.vold[lane]),
+             f"{n_step} lane {lane}'s saved row or action ({tag})")
+    k_fold(bk, ck, depth)
+    prog.sim_fold_plain(bp, cp, depth)
+    for a, b in zip(carry_to_reference(ck), carry_to_reference(cp)):
+        need(a.shape == b.shape and (a == b).all(),
+             f"{n_fold} differs from its plain version ({tag})")
+    need(torch.equal(bk.go, bp.go) and torch.equal(bk.scratch, bp.scratch),
+         f"{n_fold} go / reset scratch differ from the plain version ({tag})")
+    if record is not None:
+        n_live = int(c.alive.sum())
+
+        def setup():
+            return clone_carry(c), clone_buffers(base)
+
+        def step(a, fn=k_step):
+            fn(a[1], a[0].key, a[0].step_i, a[0].states, a[0].alive,
+               a[0].steps_taken, dl)
+
+        def setup_fold():  # the fold's input: a carry the kernel stepped
+            a = setup()
+            step(a)
+            return a
+
+        record(n_step, tag, 0, cuda_ms(torch, step, reps, setup),
+               cuda_ms(torch, lambda a: step(a, prog.sim_step_plain), 2,
+                       setup),
+               *walk_bound26(backend, n_live, W))
+        S = bk.scratch.numel()
+        record(n_fold, tag, 0,
+               cuda_ms(torch, lambda a: k_fold(a[1], a[0], depth), reps,
+                       setup_fold),
+               cuda_ms(torch, lambda a: prog.sim_fold_plain(a[1], a[0],
+                                                            depth), 2,
+                       setup_fold),
+               *gen_bound_ms(8 * S + 8 * prog.n_labels + 8 * prog.F + 64,
+                             S + prog.n_labels + prog.F))
+    return int(ck.viol)
+
+
+def walk_init_check26(torch, ops, tag, backend, W, seed):
+    """The step kernel's kInit form against its plain version: the chosen
+    Init states, the scratch, the packed rows and take flags."""
+    import numpy as np
+
+    from torchtlc.sim import threefry
+    from torchtlc.sim.engine import sim_buffers, u32_tensor
+
+    prog = backend.kernels.prog
+    (k_init, _, _), (n_step, _) = walk_kernels26(ops, backend)
+    inits = torch.from_numpy(np.ascontiguousarray(np.asarray(
+        backend.initial_vectors(), np.int32))).cuda()
+    key = u32_tensor(threefry.prng_key(seed), "cuda")
+    outs = []
+    for kernel in (True, False):
+        b = sim_buffers(prog, W, "cuda", True)
+        st = torch.zeros(W, prog.F, dtype=torch.int32, device="cuda")
+        (k_init if kernel else prog.sim_init_plain)(b, key, inits, st)
+        outs.append((st, b))
+    (sk, bk), (sp, bp) = outs
+    need(torch.equal(sk, sp) and torch.equal(bk.scratch, bp.scratch)
+         and torch.equal(bk.packed, bp.packed)
+         and torch.equal(bk.take, bp.take),
+         f"{n_step}'s kInit form differs from its plain version ({tag})")
+
+
+def walk_pinned26(tag, leaves, pin):
+    steps, gen, trans, distinct, viol, sha = pin
+    got = (int(leaves[2]), int(leaves[5]), int(leaves[6]), int(leaves[14]),
+           int(leaves[8]))
+    need(got == (steps, gen, trans, distinct, viol),
+         f"{tag}: (steps, generated, transitions, distinct, viol) {got}, "
+         f"the reference's {(steps, gen, trans, distinct, viol)}")
+    need(sim_sha(leaves) == sha,
+         f"{tag}: the final carry differs from the reference's")
+
+
+def replay_check26(torch, tag, backend, c, seed):
+    """replay_lane on the card (K1's sharded variant and K7's, or K21 and
+    K18, on a one-row queue a step) re-walks the violating lane of `c` to
+    the same violation, step, action and state."""
+    import numpy as np
+
+    from torchtlc.engine.backend import VIOL_ASSERT
+    from torchtlc.sim.replay import replay_lane
+
+    viol, lane, step = int(c.viol), int(c.viol_lane), int(c.viol_step)
+    walk = replay_lane(backend, seed, lane, step)
+    state = c.viol_state.cpu().numpy()
+    # the assertion reports the state the lane stood in, an invariant the
+    # state it reached
+    got = walk.fields[-2] if viol == VIOL_ASSERT else walk.fields[-1]
+    act = backend.labels[int(c.viol_action)]
+    need(walk.violation == viol and walk.violation_step == step
+         and walk.labels[-1] == act and np.array_equal(got, state),
+         f"{tag}: replay_lane on the card gives ({walk.violation}, "
+         f"{walk.violation_step}, {walk.labels[-1]}), the walk ({viol}, "
+         f"{step}, {act})")
+
+
+def phase_sim26(torch, ops, card, runs, tmp):
+    """Phase 26: the walk over the KubeAPI backend (K39 and K40 every
+    round) and over the generic backend (the walk text's K27 and K28) on
+    the card through make_sim_engine - FF and Model_1, RaftElection,
+    Reconciler and ServiceMesh at 4,096 walkers to depth 64, seeds 0 and
+    7, the sampling filter on: every final carry pinned to the reference's
+    CPU run.  The kernels held against their plain versions on the kInit
+    form and round by round on popped carries; FF under delete_noop (the
+    assertion) and the NeverObserves edit (an invariant), each pinned
+    (lane, step, action, state) and re-walked by replay_lane on the
+    card."""
+    from torchtlc.sim.engine import carry_to_reference
+
+    backends, nvcc_s = backends26(ops, tmp)
+    k39_ptxas = ptxas_entries(ops.load().logs.get("kube_sim", ""),
+                              ("kube_sim",))
+    gen_prog = backends["R5"].kernels.prog
+    gen_sim = gen_prog.sim_text
+    print(f"phase 26 build: K39 / K40 in kube_sim.cu (phase 1's build; "
+          f"ptxas: {k39_ptxas}); {len(GEN_NAMES) + 2} generic walk "
+          f"libraries (K27 / K28, gen_sim.cuh) in {nvcc_s:.1f} s; "
+          f"Reconciler-5's walk text: "
+          f"{ptxas_kernels(gen_prog, ('sim_step', 'sim_fold'), gen_sim)}",
+          flush=True)
+    rows = {}
+    record = gen_recorder(rows)
+    out, lines = {}, []
+    W, D, cap = SIM26["walkers"], SIM26["depth"], SIM26["fp_capacity"]
+    for name in SIM26_KUBE + GEN_NAMES:
+        b = backends[name]
+        _, (n_step, n_fold) = walk_kernels26(ops, b)
+        for seed in SIM26_SEEDS:
+            c, wall, launches, eng = walk26(torch, ops, b, W, D, cap, seed)
+            leaves = carry_to_reference(c)
+            walk_pinned26(f"{name} seed {seed}", leaves,
+                          SIM26_PINS[f"{name}/{seed}"])
+            need(launches[n_step] == launches[n_fold] > int(leaves[2])
+                 and launches["struct_sim_step"] == 0,
+                 f"{name}: walk launches {launches}")
+            out[f"p26_{name}_{seed}"] = {"launches": launches}
+            lines.append(f"{name}/{seed} {int(leaves[2])} steps, "
+                         f"{int(leaves[6])} transitions ({wall:.3f} s)")
+        walk_init_check26(torch, ops, name, b, W, 0)
+        init_fn, _, step_fn = eng
+        c = init_fn(0)
+        for d in range(SIM26_ROUNDS):
+            walk_round_check26(torch, ops, f"{name} round {d + 1}", b, c, D,
+                               record if d == SIM26_ROUNDS - 1 else None)
+            c = step_fn(c)
+    checks = []
+    for name, pin in SIM26_VIOL_PINS.items():
+        b = backends[name]
+        c, wall, launches, eng = walk26(torch, ops, b, W, D, cap, 0)
+        leaves = carry_to_reference(c)
+        walk_pinned26(name, leaves, pin["counts"] + (pin["sha"],))
+        need((int(c.viol_lane), int(c.viol_step), int(c.viol_action))
+             == (pin["lane"], pin["step"], pin["action"])
+             and tuple(c.viol_state.tolist()) == pin["state"],
+             f"{name}: violation lane / step / action / state")
+        out[f"p26_{name}"] = {"launches": launches}
+        replay_check26(torch, name, b, c, 0)
+        # the violating round, kernels against plain versions
+        init_fn, _, step_fn = eng
+        v = init_fn(0)
+        for _ in range(pin["step"] - 1):
+            v = step_fn(v)
+        got = walk_round_check26(torch, ops, f"{name} round {pin['step']}",
+                                 b, v, D)
+        need(got == pin["counts"][4],
+             f"{name}: round {pin['step']} set violation {got}")
+        checks.append(f"{name}: code {got} at lane {pin['lane']}, step "
+                      f"{pin['step']}, action {b.labels[pin['action']]}, "
+                      f"replayed")
+    k39, k27 = rows["kube_sim_step"][-1], rows["gen_sim_step"][-1]
+    print("phase 26 walks over KubeAPI and generic specs: every final "
+          "carry = the reference's (digests pinned): " + "; ".join(lines)
+          + "; K39 / K40 and the generic K27 / K28 = plain (kInit and "
+          f"{SIM26_ROUNDS} rounds each); " + "; ".join(checks) + "; at "
+          f"4,096 walkers round {SIM26_ROUNDS}: K39 {k39['ms']:.4f} ms "
+          f"(ServiceMesh's K27 {k27['ms']:.4f} ms) on {card}", flush=True)
+    out.update(p26_rows=rows, p26_backends=backends)
+    return out
+
+
+def phase_sim26_real(torch, ops, card, runs, tmp):
+    """Phase 26b: the walks at full width - the scaled 2x1 KubeAPI model
+    and Model_1 at 65,536 walkers to depth 256, Reconciler-5 to depth 100,
+    seed 7, fp capacity 2^22: steps, generated, transitions, sampled
+    distinct, action_generated and the depth histogram pinned to the
+    reference's CPU run; the execution walls (two runs), transitions per
+    second, the device's busy share (torch.profiler) and the step and fold
+    kernels a round at round 11 against their plain versions, timed, with
+    their bounds."""
+    from torchtlc.sim.engine import result_from_sim_carry
+
+    backends = runs.get("p26_backends") or backends26(ops, tmp)[0]
+    rows = runs.setdefault("p26_rows", {})
+    record = gen_recorder(rows)
+    out, lines = {}, []
+    for name, (W, D, seed, cap) in SIM26B.items():
+        b = backends[name]
+        pin = SIM26B_PINS[name]
+        _, (n_step, n_fold) = walk_kernels26(ops, b)
+        walls = []
+        for i in range(2):
+            c, wall, launches, eng = walk26(torch, ops, b, W, D, cap, seed)
+            r = result_from_sim_carry(c, wall, b, W, D, seed)
+            got = dict(steps=r.steps, generated=r.generated,
+                       transitions=r.transitions, distinct=r.distinct,
+                       violation=r.violation,
+                       action_generated=r.action_generated,
+                       depth_hist=r.depth_hist, halted=r.halted)
+            need(got == pin, f"{name} at full width: {got}, the "
+                 f"reference's {pin}")
+            walls.append(round(wall, 4))
+            out[f"p26b_{name}_{i}"] = {"launches": launches}
+        _, traced, busy, by_name = device_busy(
+            torch, lambda: eng[1](eng[0](seed)))
+        k_s = sum(v for k, v in by_name.items() if "sim_step" in k)
+        init_fn, _, step_fn = eng
+        c = init_fn(seed)
+        for _ in range(10):
+            c = step_fn(c)
+        walk_round_check26(torch, ops, f"{name} {W} walkers round 11", b, c,
+                           D, record, reps=10)
+        ks, kf = rows[n_step][-1], rows[n_fold][-1]
+        lines.append(
+            f"{name} (W {W}, depth {D}): {pin['steps']} rounds, "
+            f"{pin['generated']:,} generated, {pin['transitions']:,} "
+            f"transitions, {pin['distinct']:,} sampled distinct (the "
+            f"reference's); walls {walls} s, "
+            f"{pin['transitions'] / min(walls):,.0f} transitions/s; traced "
+            f"{traced:.3f} s, busy {busy:.3f} s ({busy / traced:.1%}), "
+            f"{n_step} {k_s:.3f} s; a round at round 11: {n_step} "
+            f"{ks['ms']:.4f} ms (plain {ks['plain_ms']:.1f} ms, bound "
+            f"{ks['bound_ms']:.5f} ms by {ks['bound_by']}), {n_fold} "
+            f"{kf['ms']:.4f} ms")
+        out[f"p26b_{name}"] = dict(walls=walls, busy=busy / traced,
+                                   step_ms=ks["ms"], fold_ms=kf["ms"])
+    print("phase 26b full-width walks: " + "; ".join(lines) + f" on {card}",
+          flush=True)
+    return out
+
+
+def phase_bench26(torch, ops, card, runs):
+    """Phase 26c: the port's bench_sim price sheet (jaxtlc bench.py:
+    1240-1300): Model_1 walked at 4,096 walkers to depth 256 (fp 2^20, seed
+    0) against the exhaustive BFS at chunk 1024 (qcap 2^15, fp 2^20, its
+    default modes), interleaved best of 5; transitions/s over the BFS's
+    distinct states/s.  A measurement, no claim: the two tiers answer
+    different questions."""
+    from torchtlc.config import MODEL_1
+    from torchtlc.engine.backend import kubeapi_backend
+    from torchtlc.engine.bfs import make_backend_engine, result_from_carry
+    from torchtlc.sim.engine import make_sim_engine, result_from_sim_carry
+
+    backend = kubeapi_backend(MODEL_1)
+    s_init, s_run, _ = make_sim_engine(backend, **BENCH26C_SIM)
+    b_init, b_run, _ = make_backend_engine(backend, **BENCH26C_BFS)
+    sim_walls, bfs_walls = [], []
+    for _ in range(5):
+        c = s_init(0)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        c = s_run(c)
+        torch.cuda.synchronize()
+        sim_walls.append(time.time() - t0)
+        bc = b_init()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        bc = b_run(bc)
+        torch.cuda.synchronize()
+        bfs_walls.append(time.time() - t0)
+    r = result_from_sim_carry(c, min(sim_walls), backend,
+                              BENCH26C_SIM["walkers"],
+                              BENCH26C_SIM["depth"], 0)
+    br = result_from_carry(bc, min(bfs_walls))
+    need(r.violation == 0 and r.steps == BENCH26C_SIM["depth"],
+         f"26c: the walk {r.violation}, {r.steps} rounds")
+    need((br.generated, br.distinct, br.depth) == (577736, 163408, 124),
+         f"26c: the BFS {(br.generated, br.distinct, br.depth)}")
+    trans_s = r.transitions / min(sim_walls)
+    bfs_s = br.distinct / min(bfs_walls)
+    print(f"phase 26c bench_sim price sheet (Model_1): walk "
+          f"{BENCH26C_SIM['walkers']} walkers x {BENCH26C_SIM['depth']} "
+          f"rounds, {r.transitions:,} transitions, {r.distinct:,} sampled "
+          f"distinct, best {min(sim_walls):.4f} s of "
+          f"{[round(w, 4) for w in sim_walls]}: {trans_s:,.0f} "
+          f"transitions/s; BFS chunk 1024 best {min(bfs_walls):.4f} s of "
+          f"{[round(w, 4) for w in bfs_walls]}: {bfs_s:,.0f} distinct "
+          f"states/s; ratio {trans_s / bfs_s:.3f} (a price sheet, no "
+          f"claim) on {card}", flush=True)
+    return {"p26c": dict(trans_s=trans_s, bfs_s=bfs_s,
+                         ratio=trans_s / bfs_s)}
+
+
 def route_bucket(chunk, lanes, D=POD_D, factor=2.0):
     from torchtlc.engine.sharded import route_bucket_width
 
@@ -9718,6 +10411,9 @@ def free_port() -> int:
 
 
 if __name__ == "__main__":
+    if "--prebuild" in sys.argv:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(prebuild_main(sys.argv[sys.argv.index("--prebuild") + 1]))
     try:
         sys.exit(main())
     except SmokeFailure as exc:

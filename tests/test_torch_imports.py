@@ -87,7 +87,7 @@ def test_sim_package_is_checked():
     checks above walk, every module of it."""
     names = {os.path.relpath(p, ROOT) for p in _port_files()}
     for mod in ("__init__", "threefry", "engine", "replay", "driver",
-                "liveness"):
+                "liveness", "plain", "kube"):
         assert os.path.join("torchtlc", "sim", f"{mod}.py") in names
 
 

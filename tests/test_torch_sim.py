@@ -489,14 +489,22 @@ def test_walk_trajectories_and_lassos_equal_reference(tmp_path):
 
 
 def test_walk_needs_a_struct_backend():
-    """KubeAPI's and generic specs' walks are not ported: a backend
-    without the sim routes raises naming ROADMAP Queue B."""
-    from torchtlc.engine.backend import kubeapi_backend
+    """The seam that remains: every backend of the port carries the walk's
+    routes (struct, generic, KubeAPI), and a SpecBackend whose kernels
+    have none - here KubeAPI's expand routes alone - raises."""
     from torchtlc.config import ModelConfig
+    from torchtlc.engine.backend import kubeapi_backend
 
-    with pytest.raises(NotImplementedError, match="Queue B"):
-        make_sim_engine(kubeapi_backend(ModelConfig(False, False)), 4, 4,
-                        device="cpu")
+    class ExpandOnly:  # the kernel routes of an engine with no walk
+        def __init__(self, kernels):
+            self.expand = kernels.expand
+            self.deferred = kernels.deferred
+
+    backend = kubeapi_backend(ModelConfig(False, False))
+    make_sim_engine(backend, 4, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="sim_step"):
+        make_sim_engine(backend._replace(kernels=ExpandOnly(
+            backend.kernels)), 4, 4, device="cpu")
 
 
 def test_sim_kernels_refuse_cpu_tensors(refs):

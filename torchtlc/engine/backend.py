@@ -25,6 +25,12 @@ the fresh-insert claimants instead.
 (spec.coverage_device): the expand stage then counts the block's 311 site
 increments (kernel K10, torchtlc/kernels/csrc/coverage.cu) on K1's valid
 flags, before dedup, in every mode.
+
+``KubeKernels`` also carries the random walk's round (sim.engine): kernel
+K39 ``kube_sim_step`` and K40 ``kube_sim_fold`` (torchtlc/kernels/csrc/
+kube_sim.cu) on CUDA tensors, their plain versions (sim.kube.KubeWalk,
+make_kernel and the invariant kernel under sim.plain.WalkPlain) on CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -101,8 +107,8 @@ def gen_backend(spec, prog=None) -> SpecBackend:
     """Generic-frontend backend (jaxtlc/engine/backend.py:480): the spec's
     compiled program (gen.program.GenProgram, built here unless given)
     and codec behind the SpecBackend seam, its routes kernel K19 (the
-    liveness enumerator and capture) and K21 and K18 (the sharded
-    engine)."""
+    liveness enumerator and capture), K21 and K18 (the sharded engine)
+    and K27 and K28 (the random walk, from the spec's walk text)."""
     from ..gen.engine import VIOL_INVARIANT_BASE
     from ..gen.kernel import initial_field_vectors
     from ..gen.program import GenKernels, GenProgram
@@ -126,10 +132,20 @@ def gen_backend(spec, prog=None) -> SpecBackend:
 
 class KubeKernels(NamedTuple):
     """KubeAPI's kernel routes: K1 (expand_block) and K7 (deferred_check),
-    and the sharded engine's K1 and K7 variants, each on a CUDA tensor,
-    its plain version on a CPU tensor."""
+    the sharded engine's K1 and K7 variants, and the random walk's round,
+    K39 and K40 (kube_sim.cu; ``prog`` is the walk program, sim.kube.
+    KubeWalk), each on a CUDA tensor, its plain version on a CPU
+    tensor."""
 
     cfg: ModelConfig
+
+    @property
+    def prog(self):
+        """The walk program (sim.kube.KubeWalk): the sizes of the walk's
+        buffers and the plain versions of K39 and K40."""
+        from ..sim.kube import kube_walk
+
+        return kube_walk(self.cfg)
 
     def expand(self, block, n: int, deferred: bool = False):
         """-> (packed, flags [5, ck*L], action, gen, flat=None,
@@ -155,6 +171,35 @@ class KubeKernels(NamedTuple):
         from .sharded import deferred_check_rows
 
         return deferred_check_rows(self.cfg, rows_in, fresh, c_idx, rows)
+
+    # the random walk's round (sim.engine): kernels K39 and K40 on CUDA
+    # tensors, their plain versions (sim.plain.WalkPlain over make_kernel
+    # and the invariant kernel) on CPU tensors; a failed build or launch
+    # raises
+
+    def sim_init(self, buf, key, inits, states) -> None:
+        if not states.is_cuda:
+            return self.prog.sim_init_plain(buf, key, inits, states)
+        from ..kernels import ops
+
+        ops.kube_sim_init(self.prog, buf, key, inits, states)
+
+    def sim_step(self, buf, key, step_i, states, alive, steps_taken,
+                 check_deadlock: bool) -> None:
+        if not states.is_cuda:
+            return self.prog.sim_step_plain(buf, key, step_i, states, alive,
+                                            steps_taken, check_deadlock)
+        from ..kernels import ops
+
+        ops.kube_sim_step(self.prog, buf, key, step_i, states, alive,
+                          steps_taken, check_deadlock)
+
+    def sim_fold(self, buf, carry, depth: int, init: bool = False) -> None:
+        if not carry.states.is_cuda:
+            return self.prog.sim_fold_plain(buf, carry, depth, init)
+        from ..kernels import ops
+
+        ops.kube_sim_fold(self.prog, buf, carry, depth, init)
 
 
 def kubeapi_backend(cfg: ModelConfig, coverage: bool = False) -> SpecBackend:

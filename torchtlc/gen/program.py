@@ -20,6 +20,12 @@ enumerator and capture take; each runs K19 on a CUDA block and the plain
 version on a CPU block.  ``expand_sharded`` and ``deferred_rows`` are the
 sharded engine's (kernel K21 over the shards' raw queue rows, kernel K18
 on one owner's received rows; both in the emitted text beside K19).
+``sim_init``, ``sim_step`` and ``sim_fold`` are the random walk's round
+(sim.engine): kernels K27 and K28 of the spec's walk library - a second
+text, ``GenProgram.sim_text``, around the same emitted step
+(gen_sim.cuh), built at the first walk on the card, so a check builds
+none of it - or their plain versions (sim.plain.WalkPlain over the step's
+lane IR).
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ import torch
 from ..engine.backend import FLAG_OVF, FLAG_VALID
 from ..struct import lanes
 from ..struct.backend import EmittedRows, StructProgram
-from ..struct.emit import masks_source
+from ..struct.emit import masks_source, spec_source
 from .codec import GenCodec
 from .ir import GenSpec
 from .kernel import make_gen_kernel
@@ -52,7 +58,9 @@ def _first(rows: torch.Tensor) -> torch.Tensor:
 
 
 class GenProgram(StructProgram):
-    """A generic spec compiled to the lane IR and emitted as K19."""
+    """A generic spec compiled to the lane IR and emitted as K19; its walk
+    library (K27 / K28 around the same step, gen_sim.cuh) is printed at
+    the first walk that asks for it (``sim_text``)."""
 
     def __init__(self, spec: GenSpec):
         cdc = GenCodec(spec)
@@ -69,6 +77,25 @@ class GenProgram(StructProgram):
                          np.asarray(ker.lane_action, np.int32),
                          len(spec.actions), title=f"generic spec {spec.name}",
                          template="gen_expand.cuh")
+        self._sim_text = None
+
+    @property
+    def sim_text(self) -> str:
+        """The emitted C++ of the walk's kernels K27 and K28 over this
+        spec's step (gen_sim.cuh), printed at first use.  It prints the
+        same graphs as K19's text, so its constant table is K."""
+        if self._sim_text is None:
+            text, K = spec_source(
+                self.step_outputs, self.inv_outputs, n_fields=self.F,
+                widths=self.cdc.widths, n_words=self.W,
+                lane_action=self.lane_action, n_labels=self.n_labels,
+                title=f"generic spec {self.spec.name} (walk)",
+                template="gen_sim.cuh")
+            if not np.array_equal(K, self.K):
+                raise RuntimeError("the walk text's constant table differs "
+                                   "from K19's")
+            self._sim_text = text
+        return self._sim_text
 
     def expand_plain(self, block: torch.Tensor, n: int, inv: bool = True,
                      deadlock: bool = True):
@@ -144,8 +171,8 @@ class GenMasks:
 
 class GenKernels(EmittedRows):
     """The generic backend's kernel routes: K19, and the sharded engine's
-    K21 and K18 on received rows (EmittedRows), on CUDA tensors, their
-    plain versions on CPU tensors."""
+    K21 and K18 on received rows and the walk's K27 and K28 (EmittedRows),
+    on CUDA tensors, their plain versions on CPU tensors."""
 
     def _run(self, block: torch.Tensor, n: int, inv: bool, deadlock: bool):
         if not block.is_cuda:

@@ -20,10 +20,11 @@ artifact cache's invariant re-check) and K32, K34 and K35
 (emitted_batched.cuh, which struct_expand.cuh includes last: the serving
 plane's batched expand and walk round),
 K20 of a generic spec's temporal operands, K22 of a struct spec's
-coverage conditions and K29 / K30 of an inference run's candidate
-predicates: the C++ that torchtlc.struct.emit prints
-around a hand-written template (struct_expand.cuh, gen_expand.cuh,
-gen_masks.cuh, struct_cov.cuh, struct_infer.cuh) goes to
+coverage conditions, K29 / K30 of an inference run's candidate
+predicates and K27 / K28 of a generic spec's walk (gen_sim.cuh, a second
+text of the spec, built only by a walk): the C++ that torchtlc.struct.emit
+prints around a hand-written template (struct_expand.cuh, gen_expand.cuh,
+gen_masks.cuh, struct_cov.cuh, struct_infer.cuh, gen_sim.cuh) goes to
 ``_build/struct/<digest>/spec.cu``, where the digest covers the text,
 the templates and the flags; nvcc builds it into
 ``libstruct.so`` for the card, or g++ into ``libstruct_host.so`` for the
@@ -43,7 +44,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 SOURCES = ("expand.cu", "fp64.cu", "fpset.cu", "commit.cu", "slab.cu",
            "deferred.cu", "ring.cu", "coverage.cu", "route.cu", "liveness.cu",
-           "fpset_batched.cu", "pod.cu")
+           "fpset_batched.cu", "pod.cu", "kube_sim.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -122,17 +123,18 @@ STRUCT_TEMPLATES = ("common.cuh", "struct_prelude.cuh", "struct_codec.cuh",
                     "struct_inv_rows.cuh", "emitted_sharded.cuh",
                     "struct_cov.cuh", "struct_cert.cuh", "struct_reduce.cuh",
                     "emitted_sim.cuh", "threefry.cuh", "struct_infer.cuh",
-                    "struct_recheck.cuh", "emitted_batched.cuh")
+                    "struct_recheck.cuh", "emitted_batched.cuh",
+                    "gen_sim.cuh")
 HOST_FLAGS = ["-x", "c++", "-O1", "-std=c++17", "-shared", "-fPIC"]
 
 
 def build_struct(text: str, host: bool = False) -> str:
-    """Build (or find) one emitted library (K17/K18, K19, K20, K22 or
-    K29/K30) from its text: nvcc for sm_90a, or g++ with host=True.
-    Returns the library path; raises with the compiler's output when the
-    build fails.  nvcc runs with ``-Xptxas -v``: its report (each kernel's
-    registers, stack frame and spills) is kept beside the library as
-    ``nvcc.log``."""
+    """Build (or find) one emitted library (K17/K18, K19, K20, K22,
+    K29/K30 or a generic spec's K27/K28) from its text: nvcc for sm_90a,
+    or g++ with host=True.  Returns the library path; raises with the
+    compiler's output when the build fails.  nvcc runs with ``-Xptxas
+    -v``: its report (each kernel's registers, stack frame and spills) is
+    kept beside the library as ``nvcc.log``."""
     flags = HOST_FLAGS if host else NVCC_FLAGS + ["-Xptxas", "-v"]
     h = hashlib.sha256(" ".join(flags).encode() + text.encode())
     for name in STRUCT_TEMPLATES:

@@ -1,6 +1,7 @@
-// CPU build of the per-lane logic of K1, K3, K5-K16 and K36-K38, for the
+// CPU build of the per-lane logic of K1, K3, K5-K16 and K36-K40, for the
 // host tests (tests/test_torch_kernels_host.py, tests/test_torch_sharded.py,
-// tests/test_torch_live.py, tests/test_torch_pod.py).  g++ compiles the same
+// tests/test_torch_live.py, tests/test_torch_pod.py,
+// tests/test_torch_sim_kube.py).  g++ compiles the same
 // __host__ __device__ headers nvcc builds the kernels from; these loops
 // stand in for the grids, the straggler walk runs the walk kernel's
 // rounds (read, rank, claim-or-advance) sequentially, and std::stable_sort
@@ -11,6 +12,7 @@
 #include "coverage.cuh"
 #include "deferred.cuh"
 #include "fpset.cuh"
+#include "kube_sim.cuh"
 #include "liveness.cuh"
 #include "pod.cuh"
 #include "ring.cuh"
@@ -596,5 +598,76 @@ extern "C" int host_pod_stats_pack(const void* const* ptrs, const int* widths,
   for (int r = 0; r < rows; r++)
     for (int c = 0; c < P.W; c++)
       out[(size_t)r * P.W + c] = pod_stats_word(P, r, c);
+  return 0;
+}
+
+// K39: every walker's round (or, with init, its Init state) in lane order,
+// the block folds into the scratch directly; packed may be null.
+struct HostKubeSimMin {  // a walker into the scratch's class minima
+  int32_t* sc;
+  int lane;
+  void operator()(int c) {
+    if (lane < sc[KSIM_MIN + c]) sc[KSIM_MIN + c] = lane;
+  }
+};
+
+extern "C" int host_kube_sim_step(const void* layout, const int* go,
+                                  const uint32_t* key, const int32_t* step_i,
+                                  const int32_t* inits, int n0,
+                                  int32_t* states, uint8_t* alive,
+                                  int32_t* steps_taken, int W, int init,
+                                  int check_deadlock, uint32_t* packed,
+                                  uint8_t* take, int32_t* vold, int32_t* vact,
+                                  int32_t* scratch) {
+  const KubeLayout& Y = *(const KubeLayout*)layout;
+  if (!init && *go == 0) return 0;
+  uint32_t* su = (uint32_t*)scratch;
+  for (int lane = 0; lane < W; lane++) {
+    HostKubeSimMin trip{scratch, lane};
+    bool took;
+    if (init) {
+      kube_sim_init_lane(Y, key[0], key[1], lane, inits, n0, states, trip);
+      took = true;
+      scratch[KSIM_ANY] = 1;
+    } else {
+      const KubeSimLane r =
+          kube_sim_lane(Y, key[0], key[1], *step_i + 1, lane, states, alive,
+                        steps_taken, check_deadlock != 0, vold, vact, trip);
+      su[KSIM_GEN] += r.gen;
+      if (r.take) {
+        su[KSIM_TRANS] += 1u;
+        su[KSIM_HIST + r.act] += 1u;
+        scratch[KSIM_ANY] = 1;
+      }
+      took = r.take;
+    }
+    if (packed) {
+      kube_pack(Y, states + (size_t)lane * Y.F, packed + (size_t)lane * Y.W);
+      take[lane] = took;
+    }
+  }
+  return 0;
+}
+
+// K40: the fold of one round's scratch into the carry, in place.
+extern "C" int host_kube_sim_fold(int init, int F, int* go, int32_t* scratch,
+                                  int depth, int32_t* step_i, int32_t* viol,
+                                  int32_t* viol_lane, int32_t* viol_step,
+                                  int32_t* viol_state, int32_t* viol_action,
+                                  uint32_t* generated, uint32_t* transitions,
+                                  uint32_t* act_taken, const int32_t* states,
+                                  const int32_t* vold, const int32_t* vact) {
+  if (!init && *go == 0) return 0;
+  int lane;
+  const int c = kube_sim_fold_scalars(init, scratch, depth, step_i, viol,
+                                      viol_lane, viol_step, viol_action,
+                                      generated, transitions, vact, go, &lane);
+  if (c >= 0) {
+    const int32_t* src = (kube_sim_old_row(c) ? vold : states) + (size_t)lane * F;
+    for (int j = 0; j < F; j++) viol_state[j] = src[j];
+  }
+  for (int t = 0; t < KUBE_N_LABELS; t++)
+    act_taken[t] += (uint32_t)scratch[KSIM_HIST + t];
+  for (int t = 0; t < KSIM_SCRATCH; t++) kube_sim_reset(scratch, t);
   return 0;
 }

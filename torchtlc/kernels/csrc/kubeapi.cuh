@@ -491,12 +491,13 @@ HD void kube_server_list(const KubeLayout& Y, const int32_t* f, int c,
 
 // -- one (state, lane) ------------------------------------------------------
 
-// The canonical successor of lane `lane` of the state whose F raw fields
-// are `f` (popped: the row is inside the pop mask), as F raw int32 fields
-// in `s` - the reference's pre-pack `flat` row.  bad_typeok/bad_onlyone
-// are left false.
-HD LaneOut kube_succ_fields(const KubeLayout& Y, const int32_t* f,
-                            bool popped, int lane, int32_t* s) {
+// Lane `lane` of the state whose F raw fields are `f` before
+// canonicalization: the handler's successor in `s`, its validity, assert
+// and overflow flags and its action (unmasked; bad_typeok/bad_onlyone
+// false).  The walk's kernel K39 (kube_sim.cuh) counts the enabled lanes
+// with it.
+HD LaneOut kube_succ_raw(const KubeLayout& Y, const int32_t* f, int lane,
+                         int32_t* s) {
   for (int j = 0; j < Y.F; j++) s[j] = f[j];
   LaneOut o;
   o.valid = o.afail = o.ovf = o.bad_typeok = o.bad_onlyone = false;
@@ -516,6 +517,16 @@ HD LaneOut kube_succ_fields(const KubeLayout& Y, const int32_t* f,
     kube_server_list(Y, f, lane - ncl - Y.nc, s, o.valid, o.ovf);
     o.action = LBL_APIStart;
   }
+  return o;
+}
+
+// The canonical successor of lane `lane` of the state whose F raw fields
+// are `f` (popped: the row is inside the pop mask), as F raw int32 fields
+// in `s` - the reference's pre-pack `flat` row.  bad_typeok/bad_onlyone
+// are left false.
+HD LaneOut kube_succ_fields(const KubeLayout& Y, const int32_t* f,
+                            bool popped, int lane, int32_t* s) {
+  LaneOut o = kube_succ_raw(Y, f, lane, s);
   kube_canon(Y, s);
   o.valid = o.valid && popped;
   o.afail = o.afail && o.valid;

@@ -32,7 +32,11 @@ KERNELS = ("expand", "fp64", "fpset_key", "fpset_probe", "fpset_claim",
            "struct_certify", "struct_recheck", "emitted_expand_batched",
            "fpset_insert_batched", "struct_sim_step_batched",
            "sim_fold_batched", "pod_exchange_pack", "pod_exchange_unpack",
-           "pod_stats_pack")
+           "pod_stats_pack", "kube_sim_step", "kube_sim_fold",
+           "gen_sim_step", "gen_sim_fold")
+# K27 / K28 launched from a generic spec's walk library (gen_sim.cuh) count
+# as gen_sim_step / gen_sim_fold, from a struct spec's library as
+# struct_sim_step / sim_fold
 LAUNCHES = {name: 0 for name in KERNELS}
 # K23's certificate runs standalone (its own wrapper) or inside K17 (kCert)
 # and K18: each launch that evaluates it adds one to
@@ -105,6 +109,11 @@ _SIGNATURES = {
     "tt_pod_exchange_unpack": ("pod", [_P, _I, _I, _I, _I, _P, _P, _P, _P,
                                        _P]),
     "tt_pod_stats_pack": ("pod", [_P, _P, _P, _I, _I, _P, _P]),
+    "tt_kube_sim_dims": ("kube_sim", [_P]),
+    "tt_kube_sim_step": ("kube_sim", [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I,
+                                      _I, _I, _P, _P, _P, _P, _P, _P]),
+    "tt_kube_sim_fold": ("kube_sim", [_I, _I, _P, _P, _I, _P, _P, _P, _P, _P,
+                                      _P, _P, _P, _P, _P, _P, _P, _P]),
 }
 
 
@@ -1213,6 +1222,27 @@ def _opt(t):
     return None if t is None else _ptr(t)
 
 
+def gen_sim_lib(prog):
+    """The walk library of a compiled generic spec (K27 / K28 around its
+    emitted step, gen.program.GenProgram.sim_text), built at the first
+    walk on the card and loaded once per text."""
+    return _emitted_lib(prog.sim_text, "tt_gen_sim_dims", (
+        ("tt_struct_sim_step", [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+                                _I, _P, _P, _P, _P, _P, _P]),
+        ("tt_sim_fold", [_I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P, _P, _P, _P, _P])),
+        (prog.F, prog.W, prog.L, prog.n_inv, prog.n_labels))
+
+
+def _sim_lib(prog):
+    """(library, K27's count name, K28's) of a walk program: a generic
+    spec's walk library, counted as gen_sim_step / gen_sim_fold, or a
+    struct spec's own library."""
+    if prog.template == "gen_expand.cuh":
+        return gen_sim_lib(prog), "gen_sim_step", "gen_sim_fold"
+    return struct_lib(prog), "struct_sim_step", "sim_fold"
+
+
 def struct_sim_init(prog, buf, key: torch.Tensor, inits: torch.Tensor,
                     states: torch.Tensor) -> None:
     """K27's kInit form, round 0 of the walk: each of the W rows of states
@@ -1229,7 +1259,8 @@ def struct_sim_init(prog, buf, key: torch.Tensor, inits: torch.Tensor,
         raise ValueError("struct_sim_init: no Init vector")
     _sim_buffers(prog, buf, W)
     dev = states.device
-    _launched("struct_sim_step", struct_lib(prog).tt_struct_sim_step(
+    lib_, step, _ = _sim_lib(prog)
+    _launched(step, lib_.tt_struct_sim_step(
         _ptr(prog.constants(dev)), _ptr(buf.go), _ptr(key), None,
         _ptr(inits), n0, _ptr(states), None, None, W, 1, 0,
         _opt(buf.packed), _opt(buf.take), _ptr(buf.vold), _ptr(buf.vact),
@@ -1254,7 +1285,8 @@ def struct_sim_step(prog, buf, key: torch.Tensor, step_i: torch.Tensor,
     _need(step_i, "step_i", torch.int32, ())
     _sim_buffers(prog, buf, W)
     dev = states.device
-    _launched("struct_sim_step", struct_lib(prog).tt_struct_sim_step(
+    lib_, step, _ = _sim_lib(prog)
+    _launched(step, lib_.tt_struct_sim_step(
         _ptr(prog.constants(dev)), _ptr(buf.go), _ptr(key), _ptr(step_i),
         None, 0, _ptr(states), _ptr(alive), _ptr(steps_taken), W, 0,
         int(bool(check_deadlock)), _opt(buf.packed), _opt(buf.take),
@@ -1279,7 +1311,8 @@ def sim_fold(prog, buf, carry, depth: int, init: bool = False) -> None:
     _need(carry.transitions, "transitions", torch.uint32, ())
     _need(carry.act_taken, "act_taken", torch.uint32, (prog.n_labels,))
     _sim_buffers(prog, buf, W)
-    _launched("sim_fold", struct_lib(prog).tt_sim_fold(
+    lib_, _, fold = _sim_lib(prog)
+    _launched(fold, lib_.tt_sim_fold(
         int(bool(init)), _ptr(buf.go), _ptr(buf.scratch), int(depth),
         VIOL_INVARIANT_BASE, _ptr(carry.step_i), _ptr(carry.viol),
         _ptr(carry.viol_lane), _ptr(carry.viol_step),
@@ -1598,3 +1631,103 @@ def sim_fold_batched(prog, buf, carry, depth: int,
         _ptr(carry.generated), _ptr(carry.transitions),
         _ptr(carry.act_taken), _ptr(carry.states), _ptr(buf.vold),
         _ptr(buf.vact), W, Kl, _stream()))
+
+
+# ---------------------------------------------------------------------------
+# K39 kube_sim_step, K40 kube_sim_fold: the random walk over the KubeAPI
+# spec (kube_sim.cu)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _kube_sim_dims() -> tuple:
+    got = (ctypes.c_int * 3)()
+    lib().tt_kube_sim_dims(got)
+    return tuple(got)
+
+
+def _kube_walk(walk, buf, W: int) -> np.ndarray:
+    """The layout words of a KubeAPI walk program (sim.kube.KubeWalk),
+    its buffers of W walkers checked against the library's scratch."""
+    from ..sim.engine import scratch_words
+
+    words, n_cls, n_labels = _kube_sim_dims()
+    if (words, n_cls, n_labels) != (
+            scratch_words(walk.n_inv, walk.n_labels), walk.n_inv + 3,
+            walk.n_labels):
+        raise RuntimeError(f"kube_sim library dims {(words, n_cls, n_labels)}"
+                           f" do not match the walk's")
+    _sim_buffers(walk, buf, W)
+    return _layout(walk.cfg)
+
+
+def kube_sim_init(walk, buf, key: torch.Tensor, inits: torch.Tensor,
+                  states: torch.Tensor) -> None:
+    """K39's kInit form, round 0 of a KubeAPI walk: each of the W rows of
+    states [W, F] int32 becomes Init vector bits % n0 of inits [n0, F]
+    int32 (bits the threefry draw of (lane, 0) under key [2] uint32); its
+    invariant classes go to buf.scratch, its packed row and a set take flag
+    to buf.packed / buf.take when the buffers carry them; see
+    sim.plain.WalkPlain.sim_init_plain."""
+    W, n0 = states.shape[0], inits.shape[0]
+    _need(states, "states", torch.int32, (W, walk.F))
+    _need(inits, "inits", torch.int32, (n0, walk.F))
+    _need(key, "key", torch.uint32, (2,))
+    if n0 < 1:
+        raise ValueError("kube_sim_init: no Init vector")
+    lay = _kube_walk(walk, buf, W)
+    _launched("kube_sim_step", lib().tt_kube_sim_step(
+        lay.ctypes.data_as(_P), _ptr(buf.go), _ptr(key), None, _ptr(inits),
+        n0, _ptr(states), None, None, W, 1, 0, _opt(buf.packed),
+        _opt(buf.take), _ptr(buf.vold), _ptr(buf.vact), _ptr(buf.scratch),
+        _stream()))
+
+
+def kube_sim_step(walk, buf, key: torch.Tensor, step_i: torch.Tensor,
+                  states: torch.Tensor, alive: torch.Tensor,
+                  steps_taken: torch.Tensor, check_deadlock: bool) -> None:
+    """K39, one transition round of the W walkers of a KubeAPI walk (a
+    no-op while buf.go is 0): states [W, F] int32, alive [W] bool and
+    steps_taken [W] int32 are updated in place; the block partials go to
+    buf.scratch, the old rows and actions of the violating walkers to
+    buf.vold / buf.vact, the packed chosen rows and take flags to
+    buf.packed / buf.take when the buffers carry them.  key [2] uint32,
+    step_i 0-dim int32 (the round is step_i + 1).  See
+    sim.plain.WalkPlain.sim_step_plain."""
+    W = states.shape[0]
+    _need(states, "states", torch.int32, (W, walk.F))
+    _need(alive, "alive", torch.bool, (W,))
+    _need(steps_taken, "steps_taken", torch.int32, (W,))
+    _need(key, "key", torch.uint32, (2,))
+    _need(step_i, "step_i", torch.int32, ())
+    lay = _kube_walk(walk, buf, W)
+    _launched("kube_sim_step", lib().tt_kube_sim_step(
+        lay.ctypes.data_as(_P), _ptr(buf.go), _ptr(key), _ptr(step_i), None,
+        0, _ptr(states), _ptr(alive), _ptr(steps_taken), W, 0,
+        int(bool(check_deadlock)), _opt(buf.packed), _opt(buf.take),
+        _ptr(buf.vold), _ptr(buf.vact), _ptr(buf.scratch), _stream()))
+
+
+def kube_sim_fold(walk, buf, carry, depth: int, init: bool = False) -> None:
+    """K40, one block: fold K39's partials in buf.scratch into the walk
+    carry (sim.engine.SimCarry) in place - the first-wins violation
+    (TypeOK, OnlyOneVersion, the assertion, deadlock, the slot overflow),
+    the uint32 counters, step_i - reset the scratch and write buf.go; a
+    no-op while buf.go is 0 unless `init`.  See
+    sim.plain.WalkPlain.sim_fold_plain."""
+    W = carry.states.shape[0]
+    _need(carry.states, "states", torch.int32, (W, walk.F))
+    for name in ("step_i", "viol", "viol_lane", "viol_step", "viol_action"):
+        _need(getattr(carry, name), name, torch.int32, ())
+    _need(carry.viol_state, "viol_state", torch.int32, (walk.F,))
+    _need(carry.generated, "generated", torch.uint32, ())
+    _need(carry.transitions, "transitions", torch.uint32, ())
+    _need(carry.act_taken, "act_taken", torch.uint32, (walk.n_labels,))
+    _kube_walk(walk, buf, W)
+    _launched("kube_sim_fold", lib().tt_kube_sim_fold(
+        int(bool(init)), walk.F, _ptr(buf.go), _ptr(buf.scratch), int(depth),
+        _ptr(carry.step_i), _ptr(carry.viol), _ptr(carry.viol_lane),
+        _ptr(carry.viol_step), _ptr(carry.viol_state),
+        _ptr(carry.viol_action), _ptr(carry.generated),
+        _ptr(carry.transitions), _ptr(carry.act_taken), _ptr(carry.states),
+        _ptr(buf.vold), _ptr(buf.vact), _stream()))

@@ -34,8 +34,14 @@ old one otherwise.  ``generated``, ``transitions`` and ``act_taken`` are
 uint32 and wrap: ``torch.uint32`` on the card (K28 adds to them), int64
 masked to 32 bits on the CPU (CPU ``torch.uint32`` has no arithmetic).
 
-Only struct backends carry the walk's kernels (``StructKernels.sim_*``);
-KubeAPI's and generic specs' walks are ROADMAP Queue B.
+Every backend of the port carries a walk: its kernels' routes ``sim_init``,
+``sim_step`` and ``sim_fold`` (and ``prog``, the walk program that sizes
+the buffers) run K27 / K28 from a struct spec's own library or a generic
+spec's walk library (gen.program.GenProgram.sim_text), and K39
+``kube_sim_step`` / K40 ``kube_sim_fold`` (torchtlc/kernels/csrc/
+kube_sim.cu) over the KubeAPI spec - one thread a walker, the same round,
+buffers and fold.  The sampling filter packs through the backend's codec
+(K27's st_pack, K39's kube_pack) and fingerprints ``cdc.nbits`` bits.
 
 ``SimEngine`` (the serving plane's smoke class, jaxtlc/sim/engine.py:
 429-541) runs up to `width` (seed, config) lanes in one dispatch through
@@ -305,8 +311,8 @@ def make_sim_engine(
     kern = backend.kernels
     if getattr(kern, "sim_step", None) is None:
         raise NotImplementedError(
-            "the random walk runs over struct backends only (kernels K27, "
-            "K28); KubeAPI's and generic specs' walks are ROADMAP Queue B")
+            "the random walk needs a backend whose kernels carry its round "
+            "(sim_init, sim_step, sim_fold)")
     prog = kern.prog
     cdc = backend.cdc
     F = cdc.n_fields

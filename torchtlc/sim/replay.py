@@ -7,10 +7,16 @@ enabled successor lane in the emitted lane order.  This module re-derives
 the identical draw on the host (sim.threefry) and re-steps the lane one
 state at a time through the backend's expand route on the run's device -
 kernel K17 on a one-row block and K18 on the chosen row on the card, their
-plain versions on the CPU - a path independent of the walk's K27, so a
-disagreement between the two is caught, not repeated.  The walk prefix is
-the counterexample trace: decoded through the struct codec, it renders as
-the same exit-12 trace a BFS run prints for the same path.
+plain versions on the CPU - a path independent of the walk's kernels, so a
+disagreement between the two is caught, not repeated.  A backend whose
+expand route returns no raw successors (``flat`` None: KubeAPI's K1, a
+generic spec's K19) re-steps through its sharded engine's expand route
+instead, which returns them (K1's sharded variant, K21, on a one-row
+queue), and checks the invariants through its received-rows route (K7's
+variant, K18).  The walk prefix is the counterexample trace: decoded
+through the backend's codec (spec.codec's for KubeAPI, the struct or the
+generic codec), it renders as the same exit-12 trace a BFS run prints for
+the same path.
 """
 
 from __future__ import annotations
@@ -89,9 +95,23 @@ def replay_lane(
     if code != OK:
         return ReplayedWalk(seed, lane, fields, lbls, code, 0, False)
 
+    qhead = torch.zeros(1, dtype=torch.int64, device=dev)
+    npop = torch.ones(1, dtype=torch.int64, device=dev)
+
+    def successors(vec):
+        # (flags, action, raw successor fields) of the one row
+        row = torch.from_numpy(vec[None].copy()).to(dev)
+        _, flags, action, _, flat = kern.expand(cdc.pack(row), 1,
+                                                deferred=True)[:5]
+        if flat is None:
+            # the sharded expand of a one-row queue: qrows 2, one popped
+            queue = torch.cat([row, torch.zeros_like(row)])[None]
+            _, flags, action, _, flat = kern.expand_sharded(
+                queue, qhead, npop, 1, deferred=True)[:5]
+        return flags, action, flat
+
     for d in range(1, steps + 1):
-        block = cdc.pack(torch.from_numpy(state[None].copy()).to(dev))
-        _, flags, action, _, flat = kern.expand(block, 1, deferred=True)[:5]
+        flags, action, flat = successors(state)
         flags = flags.cpu().numpy()
         valid = flags[0].astype(bool)
         n = int(valid.sum())
@@ -125,10 +145,12 @@ def replay_lane(
 
 
 def walk_trace(walk: ReplayedWalk, cdc) -> List[Tuple[tuple, object]]:
-    """The walk as [(decoded state tuple, action label | None), ...] -
-    the shape struct.oracle.violation_trace returns, so the api's trace
-    renderer prints a replayed walk and a BFS-found trace through one code
-    path."""
+    """The walk as [(decoded state, action label | None), ...] through the
+    backend's codec `cdc` (its ``decode`` of one raw field vector: the
+    struct codec's state tuple, spec.codec's KubeAPI state, the generic
+    codec's) - for a struct spec the shape struct.oracle.violation_trace
+    returns, so the api's trace renderer prints a replayed walk and a
+    BFS-found trace through one code path."""
     return [
         (cdc.decode(vec), lbl)
         for vec, lbl in zip(walk.fields, walk.labels)

@@ -17,10 +17,12 @@ consume.  Its kernel routes are ``StructKernels``:
   ``emitted_expand_sharded`` over the D shards' raw queue rows and K18 on
   one owner's received rows, or their plain versions;
 * ``sim_init``, ``sim_step`` and ``sim_fold`` - the random walk's round
-  (sim.engine): kernel K27 ``struct_sim_step`` (its kInit form for round
-  0) and K28 ``sim_fold`` (torchtlc/kernels/csrc/emitted_sim.cuh), or
-  their plain versions ``StructProgram.sim_init_plain``,
-  ``sim_step_plain`` and ``sim_fold_plain``;
+  (sim.engine; ``EmittedRows``'s, shared with the generic backend):
+  kernel K27 ``struct_sim_step`` (its kInit form for round 0) and K28
+  ``sim_fold`` (torchtlc/kernels/csrc/emitted_sim.cuh), or their plain
+  versions ``sim_init_plain``, ``sim_step_plain`` and ``sim_fold_plain``
+  (sim.plain.WalkPlain, which StructProgram mixes in, over
+  ``StructProgram.sim_lanes``);
 * ``recheck(words)`` - the artifact cache's invariant re-check over
   stored packed rows (struct.artifacts.run_recheck): kernel K31
   ``struct_recheck`` (torchtlc/kernels/csrc/struct_recheck.cuh) on CUDA
@@ -67,8 +69,9 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from ..engine.backend import (OK, VIOL_ASSERT, VIOL_DEADLOCK,
-                              VIOL_SLOT_OVERFLOW, SpecBackend)
+from ..engine.backend import (OK, VIOL_ASSERT, VIOL_SLOT_OVERFLOW,
+                              SpecBackend)
+from ..sim.plain import WalkPlain
 from . import lanes
 from .codec import MaskLeaf, StructCodec
 from .compile import LaneCompiler, TrapPolicy
@@ -122,10 +125,12 @@ class _Constants:
         return t
 
 
-class StructProgram(_Constants):
+class StructProgram(_Constants, WalkPlain):
     """A compiled spec: the lane-IR graphs of its step and invariants,
-    their torch evaluation (the plain versions) and the emitted C++ with
-    its constant table."""
+    their torch evaluation (the plain versions; the walk's round through
+    sim.plain.WalkPlain) and the emitted C++ with its constant table."""
+
+    code_base = VIOL_INVARIANT_BASE  # invariant k reports code 100 + k
 
     def __init__(self, step_outputs, inv_outputs, cdc: StructCodec,
                  lane_action: np.ndarray, n_labels: int, title: str,
@@ -374,144 +379,15 @@ class StructProgram(_Constants):
         out = (i64(viol), state, i64(vaction))
         return out + (cert_bad,) if cert else out
 
-    # -- the random walk: the plain versions of K27 and K28 -------------
-    # (in place on the walk's buffers, sim.engine.SimBuffers, as the
-    # kernels are, so the two compare buffer for buffer)
+    # -- the random walk: K27 and K28's plain versions are WalkPlain's
+    # (sim.plain) over this step
 
-    def sim_init_plain(self, buf, key, inits: torch.Tensor,
-                       states: torch.Tensor) -> None:
-        """Torch version of K27's kInit form, round 0 (jaxtlc/sim/
-        engine.py:186-230): row l of states [W, F] int32 becomes Init
-        vector bits % n0 of inits [n0, F] (bits the draw of (l, 0) under
-        key); the invariants of the chosen states fold into buf.scratch;
-        every lane packs its row and sets its take flag when the buffers
-        carry them."""
-        from ..sim import engine as se
-        from ..sim.threefry import lane_bits
-
-        W = states.shape[0]
-        bits = lane_bits(key, W, 0, states.device)
-        states.copy_(inits[bits % inits.shape[0]])
-        inv = self.inv_bits_plain(states)
-        se.fold_classes(buf.scratch, [((inv >> k) & 1) == 0
-                                      for k in range(self.n_inv)])
-        if W:
-            buf.scratch[se.SIM_ANY] = 1
-        if buf.packed is not None:
-            buf.packed.copy_(self.cdc.pack(states))
-            buf.take.fill_(True)
-
-    def sim_step_plain(self, buf, key, step_i: torch.Tensor,
-                       states: torch.Tensor, alive: torch.Tensor,
-                       steps_taken: torch.Tensor,
-                       check_deadlock: bool) -> None:
-        """Torch version of K27, one transition round (jaxtlc/sim/
-        engine.py:232-315), a no-op while buf.go is 0: step_plain over the
-        W current states, the enabled lanes of the live walkers, the draw
-        of (lane, step_i + 1), the idx-th enabled lane (idx = bits mod the
-        enabled count, unsigned), invariants on the chosen states only.
-        states, alive and steps_taken are updated in place; the partials
-        (enabled lanes, transitions, the action histogram, any walker
-        alive, the lowest lane of each violation class - invariants,
-        assertion, deadlock with `check_deadlock`, slot overflow) fold into
-        buf.scratch; a lane that trips the assertion or the slot overflow
-        saves its old row to buf.vold, one that trips any class its action
-        to buf.vact; the packed chosen rows and take flags go to
-        buf.packed / buf.take when the buffers carry them."""
-        from ..sim import engine as se
-        from ..sim.threefry import lane_bits
-
-        if not int(buf.go[0]):
-            return
-        W = states.shape[0]
-        dev = states.device
-        d = step_i.to(torch.int64) + 1
+    def sim_lanes(self, states: torch.Tensor):
+        """step_plain over the walkers' states [W, F] -> (succ, valid, ovf,
+        afail, action [W, L] int32: each lane's action)."""
         succ, valid, ovf, afail = self.step_plain(states)
-        valid = valid & alive[:, None]
-        n = valid.sum(1)
-        dead = alive & (n == 0)
-        bits = lane_bits(key, W, d, dev)
-        idx = bits % n.clamp(min=1)
-        csum = torch.cumsum(valid.to(torch.int64), 1)
-        chosen = ((csum == (idx + 1)[:, None]) & valid).to(
-            torch.int32).argmax(1)
-        take = alive & (n > 0)
-        rows = torch.arange(W, device=dev)
-        new = torch.where(take[:, None], succ[rows, chosen].to(torch.int32),
-                          states)
-        acts = torch.from_numpy(self.lane_action).to(dev)[chosen]
-        ch_afail = take & afail[rows, chosen]
-        ch_ovf = take & ovf[rows, chosen]
-        inv = self.inv_bits_plain(new)
-        inv_bad = [take & (((inv >> k) & 1) == 0) for k in range(self.n_inv)]
-        old = ch_afail | ch_ovf
-        buf.vold[old] = states[old]
-        tripped = old.clone()
-        for bad in inv_bad:
-            tripped |= bad
-        buf.vact[tripped] = acts[tripped]
-        none = torch.zeros_like(take)
-        se.fold_classes(buf.scratch, inv_bad + [
-            ch_afail, dead if check_deadlock else none, ch_ovf])
-        se.fold_add(buf.scratch, se.SIM_GEN, valid.sum())
-        se.fold_add(buf.scratch, se.SIM_TRANS, take.sum())
-        buf.scratch[se.SIM_ANY] |= take.any().to(torch.int32)
-        hist = torch.zeros(self.n_labels, dtype=torch.int64, device=dev)
-        hist.index_add_(0, acts.to(torch.int64), take.to(torch.int64))
-        h0 = se.hist_offset(self.n_inv)
-        se.fold_add(buf.scratch[h0:h0 + self.n_labels], slice(None), hist)
-        states.copy_(new)
-        alive.copy_(take)
-        steps_taken.copy_(torch.where(take, d.to(torch.int32), steps_taken))
-        if buf.packed is not None:
-            buf.packed.copy_(self.cdc.pack(new))
-            buf.take.copy_(take)
-
-    def sim_fold_plain(self, buf, carry, depth: int,
-                       init: bool = False) -> None:
-        """Torch version of K28 (jaxtlc/sim/engine.py:264-290 and the
-        counters of :292-315), a no-op while buf.go is 0 unless `init`:
-        while the carry's violation is OK, the first class with a lane in
-        buf.scratch (invariants in order, assertion, deadlock, slot
-        overflow) sets viol, viol_lane, viol_step, viol_state (the new row,
-        or buf.vold's for the assertion and the slot overflow) and
-        viol_action (buf.vact's; -1 for a deadlock and on round 0); the
-        partials add to the uint32 counters (wrapping), step_i advances,
-        buf.go is rewritten and the scratch reset.  In place."""
-        from ..sim import engine as se
-
-        if not init and not int(buf.go[0]):
-            return
-        sc = buf.scratch
-        c = carry
-        d = 0 if init else int(c.step_i) + 1
-        mins = sc[se.SIM_MIN:se.SIM_MIN + self.n_inv + 3].tolist()
-        cls = next((k for k, v in enumerate(mins) if v != se.SIM_NONE), -1)
-        if int(c.viol) == OK and cls >= 0:
-            lane = mins[cls]
-            code = (VIOL_INVARIANT_BASE + cls if cls < self.n_inv else
-                    (VIOL_ASSERT, VIOL_DEADLOCK,
-                     VIOL_SLOT_OVERFLOW)[cls - self.n_inv])
-            c.viol.fill_(code)
-            c.viol_lane.fill_(lane)
-            c.viol_step.fill_(d)
-            src = buf.vold if cls in (self.n_inv, self.n_inv + 2) \
-                else c.states
-            c.viol_state.copy_(src[lane])
-            c.viol_action.fill_(-1 if init or cls == self.n_inv + 1
-                                else int(buf.vact[lane]))
-        if not init:
-            se.u32_set(c.generated, se.u32_get(c.generated)
-                       + se.u32_word(sc[se.SIM_GEN]))
-            se.u32_set(c.transitions, se.u32_get(c.transitions)
-                       + se.u32_word(sc[se.SIM_TRANS]))
-            c.step_i.fill_(d)
-        h0 = se.hist_offset(self.n_inv)
-        se.u32_set(c.act_taken, se.u32_get(c.act_taken)
-                   + se.u32_word(sc[h0:h0 + self.n_labels]))
-        buf.go.fill_(int(d < depth and int(c.viol) == OK
-                         and int(sc[se.SIM_ANY]) != 0))
-        se.scratch_reset(sc, self.n_inv)
+        la = torch.from_numpy(self.lane_action).to(states.device)
+        return succ, valid, ovf, afail, la.expand(states.shape[0], self.L)
 
     # -- the serving plane's batched forms (K32, K34, K35) ----------------
 
@@ -580,9 +456,9 @@ class StructProgram(_Constants):
 
 class EmittedRows:
     """The routes every emitted backend shares (struct and generic): the
-    sharded engine's expand, kernel K21, and the deferred check of received
-    rows, kernel K18 - on CUDA tensors, their plain versions on CPU
-    tensors."""
+    sharded engine's expand, kernel K21, the deferred check of received
+    rows, kernel K18, and the random walk's round, kernels K27 and K28 - on
+    CUDA tensors, their plain versions on CPU tensors."""
 
     def __init__(self, prog: StructProgram):
         self.prog = prog
@@ -609,6 +485,35 @@ class EmittedRows:
             viol, state, _ = ops.struct_inv_rows(self.prog, rows_in, fresh,
                                                  c_idx, None, rows)
         return viol, state
+
+    # the random walk's round (sim.engine): kernels K27 and K28 of the
+    # spec's text on CUDA tensors (a struct spec's own library, a generic
+    # spec's walk library), their plain versions (sim.plain.WalkPlain) on
+    # CPU tensors; a failed build or launch raises
+
+    def sim_init(self, buf, key, inits, states) -> None:
+        if not states.is_cuda:
+            return self.prog.sim_init_plain(buf, key, inits, states)
+        from ..kernels import ops
+
+        ops.struct_sim_init(self.prog, buf, key, inits, states)
+
+    def sim_step(self, buf, key, step_i, states, alive, steps_taken,
+                 check_deadlock: bool) -> None:
+        if not states.is_cuda:
+            return self.prog.sim_step_plain(buf, key, step_i, states, alive,
+                                            steps_taken, check_deadlock)
+        from ..kernels import ops
+
+        ops.struct_sim_step(self.prog, buf, key, step_i, states, alive,
+                            steps_taken, check_deadlock)
+
+    def sim_fold(self, buf, carry, depth: int, init: bool = False) -> None:
+        if not carry.states.is_cuda:
+            return self.prog.sim_fold_plain(buf, carry, depth, init)
+        from ..kernels import ops
+
+        ops.sim_fold(self.prog, buf, carry, depth, init)
 
 
 class StructKernels(EmittedRows):
@@ -692,34 +597,6 @@ class StructKernels(EmittedRows):
         from ..kernels import ops
 
         return ops.struct_cert_check(self.prog, rows, valid)
-
-    # the random walk's round (sim.engine): kernel K27 and K28 on CUDA
-    # tensors, their plain versions on CPU tensors; a failed build or
-    # launch raises
-
-    def sim_init(self, buf, key, inits, states) -> None:
-        if not states.is_cuda:
-            return self.prog.sim_init_plain(buf, key, inits, states)
-        from ..kernels import ops
-
-        ops.struct_sim_init(self.prog, buf, key, inits, states)
-
-    def sim_step(self, buf, key, step_i, states, alive, steps_taken,
-                 check_deadlock: bool) -> None:
-        if not states.is_cuda:
-            return self.prog.sim_step_plain(buf, key, step_i, states, alive,
-                                            steps_taken, check_deadlock)
-        from ..kernels import ops
-
-        ops.struct_sim_step(self.prog, buf, key, step_i, states, alive,
-                            steps_taken, check_deadlock)
-
-    def sim_fold(self, buf, carry, depth: int, init: bool = False) -> None:
-        if not carry.states.is_cuda:
-            return self.prog.sim_fold_plain(buf, carry, depth, init)
-        from ..kernels import ops
-
-        ops.sim_fold(self.prog, buf, carry, depth, init)
 
     # the serving plane's batched routes: kernels K32, K34, K35 on CUDA
     # tensors, their plain versions on CPU tensors
