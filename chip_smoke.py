@@ -501,6 +501,13 @@ def main() -> int:
                                 .strip())
     print(f"phase 1 build: {len(info.libs)} libraries with nvcc in "
           f"{time.time() - t0:.1f} s; registers {regs}", flush=True)
+    redesigned = {}
+    for stem, names in (("expand", ("expand_kernel",)),
+                        ("fpset", ("walk_kernel",)),
+                        ("fpset_batched", ("bwalk_kernel",))):
+        redesigned.update(ptxas_entries(info.logs.get(stem, ""), names))
+    print(f"phase 1 ptxas of K1 and the straggler walks (K3, K33): "
+          f"{redesigned}", flush=True)
 
     only = None
     if "--phases" in sys.argv:
@@ -1586,10 +1593,11 @@ def sharded_kernel_checks(torch, ops, tag, cfg, kw, D, bodies, runs,
     rows = runs.setdefault("sharded_rows", {})
     library = runs.setdefault("sharded_library", {})
 
-    def record(name, err, ms, pms, nbytes):
+    def record(name, err, ms, pms, nbytes, nops=0):
+        bound, by = gen_bound_ms(nbytes, nops)
         rows.setdefault(name, []).append(dict(
-            shape=tag, max_abs_err=err, ms=ms, plain_ms=pms,
-            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3))
+            shape=tag, max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bound,
+            bound_by=by))
 
     def err_of(a, b):
         if a is None or b is None:
@@ -1629,7 +1637,8 @@ def sharded_kernel_checks(torch, ops, tag, cfg, kw, D, bodies, runs,
            cuda_ms(torch, lambda _: ts.expand_sharded_plain(
                cfg, c.queue, c.qhead, npop, chunk, deferred, True), 2),
            D * chunk * F * 4 + D * ncand * (W * 4 + 5 + 4 + F * 4)
-           + D * chunk * W * 4)
+           + D * chunk * W * 4,
+           D * ncand * kube_expand_ops(cfg, deferred, sharded=True))
     packed, flags, action, gen, fields, block = got
     lo, hi = fp64_words(packed, cdc.nbits)
     valid = flags[0]
@@ -2505,6 +2514,44 @@ def cuda_ms_once(torch, fn):
     return out, s.elapsed_time(e)
 
 
+def check_expand_wide(torch, rng):
+    """K1 (both variants) and its sharded variant on rows wider than the
+    main path's: scaled 3x0 with both faults (9 packed words), seeded
+    random fields, bitwise against the plain versions (untimed)."""
+    import numpy as np
+
+    from torchtlc.config import make_scaled
+    from torchtlc.engine import sharded as ts
+    from torchtlc.engine.backend import expand_block, expand_plain
+    from torchtlc.kernels import ops
+    from torchtlc.spec.codec import get_codec
+
+    cfg = make_scaled(3, 0, True, True)
+    cdc = get_codec(cfg)
+    ck, D = 512, 2
+    fields = torch.from_numpy(np.stack(
+        [rng.integers(0, 1 << w, D * (ck + 1)) for w in cdc.lane_widths],
+        1).astype(np.int32)).cuda()
+    block = cdc.pack(fields[:ck])
+    for deferred in (False, True):
+        got = expand_block(cfg, block, ck - 5, deferred)
+        ref = expand_plain(cfg, block, ck - 5, deferred)
+        need(all(torch.equal(a, b.to(a.dtype)) for a, b in zip(got, ref)),
+             f"K1 expand differs from its plain version (W = {cdc.n_words}, "
+             f"deferred {deferred})")
+    queue = fields.reshape(D, ck + 1, -1)
+    qhead = torch.tensor([0, 7], dtype=torch.int64, device="cuda")
+    npop = torch.tensor([ck, ck - 9], dtype=torch.int64, device="cuda")
+    got = ops.expand_sharded(cfg, queue, qhead, npop, ck, True, True)
+    ref = ts.expand_sharded_plain(cfg, queue, qhead, npop, ck, True, True)
+    need(all(torch.equal(a, b.to(a.dtype)) for a, b in zip(got, ref)),
+         f"K1's sharded variant differs from its plain version (W = "
+         f"{cdc.n_words})")
+    print(f"phase 2 K1 on {cdc.n_words}-word rows (scaled 3x0, both "
+          "faults): both variants and the sharded one equal their plain "
+          "versions", flush=True)
+
+
 def phase_kernels(torch, ops, runs, launches):
     """Hold every kernel bitwise against its plain version on the card, at
     the Model_1 and the scaled step shapes, and time both."""
@@ -2522,10 +2569,11 @@ def phase_kernels(torch, ops, runs, launches):
     rows = {}
     library = {}  # kernel -> one PyTorch call's time at the scaled shape
 
-    def record(name, shape, err, ms, plain_ms, nbytes):
+    def record(name, shape, err, ms, plain_ms, nbytes, nops=0):
+        bound, by = gen_bound_ms(nbytes, nops)
         rows.setdefault(name, []).append(dict(
             shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3))
+            bound_ms=bound, bound_by=by))
 
     def err_of(a, b):
         a = a.to(torch.int64)
@@ -2561,7 +2609,8 @@ def phase_kernels(torch, ops, runs, launches):
         ms = cuda_ms(torch, lambda _: expand_block(cfg, block, n), 20)
         pms = cuda_ms(torch, lambda _: expand_plain(cfg, block, n), 3)
         record("expand", tag, err, ms, pms,
-               ck * W * 4 + ncand * (W * 4 + 5 + 4) + n_labels * 8)
+               ck * W * 4 + ncand * (W * 4 + 5 + 4) + n_labels * 8,
+               ncand * kube_expand_ops(cfg, False))
         packed, flags, action, _ = got
         valid = flags[0].bool()
 
@@ -2663,6 +2712,7 @@ def phase_kernels(torch, ops, runs, launches):
             f"bound {v[-1]['bound_ms']:.4f} ms)" for k, v in rows.items()
             if v[-1]["shape"] == tag and k not in first_slice), flush=True)
 
+    check_expand_wide(torch, rng)
     check_member(torch, ops, runs, record)
     source = {
         "coverage_count": ("torchtlc/kernels/csrc/coverage.cu",
@@ -2799,6 +2849,22 @@ def phase_kernels(torch, ops, runs, launches):
         raise SmokeFailure(f"kernel {k} was not held against its plain "
                            "version")
     return out
+
+
+def kube_expand_ops(cfg, deferred, sharded=False) -> int:
+    """K1's integer operations a candidate lane, counted low: the copy of
+    the row's F fields into the lane's frame and the handler's reads and
+    writes of them (2 F each), the canonicalizing sorts (ni^2 compares of
+    the API rows), the invariants unless deferred (~8 a field), the test
+    of each field against the row's (2 F), and the lane's share of its
+    row's decode (~6 a field; the sharded variant's pack of the row, ~4 a
+    field and word)."""
+    from torchtlc.engine.backend import kernel_layout
+
+    lay = kernel_layout(cfg)
+    ni, F, W, L = int(lay[0]), int(lay[24]), int(lay[25]), int(lay[28])
+    row = 4 * F * W if sharded else 6 * F
+    return 6 * F + ni * ni + (0 if deferred else 8 * F) + -(-row // L)
 
 
 def model1_level40():
@@ -3049,6 +3115,7 @@ def check_fpset(torch, fpset, rng, dev, tag, R, ncand):
     ms = {k: 0.0 for k in errs}
     pms = {k: 0.0 for k in errs}
     stragglers, max_seg = 0, 0
+    wstats = torch.zeros(3, dtype=torch.int32, device=dev)
     nr = int(nreps)
     for seg in range(nseg):
         off = seg * R
@@ -3084,7 +3151,7 @@ def check_fpset(torch, fpset, rng, dev, tag, R, ncand):
         n_s = int(npend)
         torch.cuda._sleep(SPIN_CYCLES)
         e6 = ev()
-        ops.fpset_walk(t_k, keys, pend, is_new, npend)
+        ops.fpset_walk(t_k, keys, pend, is_new, npend, wstats)
         e7 = ev()
         fpset.fpset_walk_plain(t_p, keys, pend_p, is_new_p)
         e8 = ev()
@@ -3104,10 +3171,18 @@ def check_fpset(torch, fpset, rng, dev, tag, R, ncand):
     need(stragglers > 0, f"K3 test walked no straggler ({tag})")
     need(R <= 2048 or max_seg > 2048,
          f"K3 test walked only {max_seg} stragglers in a segment ({tag})")
+    slices, rounds, general = (int(x) for x in wstats.tolist())
+    need(general == 0, f"K3 walk: {general} slices took the general order "
+         f"({tag}): the sorted keys' homes did not ascend")
+    nseg_run = -(-nr // R)
+    row_us = dependent_row_us(torch, table.shape[0], dev)
     print(f"phase 2 K3 ({tag}): {cap} slots to load {load:.3f}, {nr} distinct "
           f"of {ncand} candidates, {stragglers} stragglers walked (max "
-          f"{max_seg} in one segment), table words equal", flush=True)
-    nseg_run = -(-nr // R)
+          f"{max_seg} in one segment), table words equal; the walk: "
+          f"{slices} slices, {rounds} rounds in {nseg_run} launches, "
+          f"general order 0; one dependent row read {row_us:.4f} us (K9 "
+          f"over a run of full rows), so a latency floor of "
+          f"{rounds / nseg_run * row_us / 1e3:.4f} ms a launch", flush=True)
     per = {k: (0, ms[k] / nseg_run, pms[k] / nseg_run) for k in ms}
     return {  # per launch: mean over the nseg_run active segments
         "fpset_probe": (*per["fpset_probe"], R * (8 + 4) + nr / nseg_run * 64),
@@ -3115,6 +3190,32 @@ def check_fpset(torch, fpset, rng, dev, tag, R, ncand):
         "fpset_walk": (*per["fpset_walk"],
                        stragglers / nseg_run * (8 + 64 + 8) + R * 2),
     }
+
+
+def dependent_row_us(torch, nb, dev, hops=64):
+    """One dependent bucket-row read on this card, in microseconds: K9
+    over one lane whose walk must cross `hops` full rows, less the same
+    lane stopped after its first row, over hops - 1, on a zeroed table of
+    nb rows (L2-warm after cuda_ms's warm-up call).  The straggler walk's
+    rounds each wait on one such read."""
+    from torchtlc.engine import fpset
+    from torchtlc.kernels import ops
+
+    lo = torch.tensor([12345], dtype=torch.int32)
+    hi = torch.tensor([678], dtype=torch.int32)
+    m = torch.ones(1, dtype=torch.bool)
+    klo, khi = fpset.key_words(fpset.fpset_key_plain(lo, hi, m))
+    home = int(fpset._bucket_of(khi, nb)[0])
+    table = torch.zeros(nb, 16, dtype=torch.int32)
+    rows = (home + torch.arange(hops)) % nb
+    table[rows, 0::2] = fpset.to_i32(~klo & fpset.MASK32)  # never the key
+    table[rows, 1::2] = 1
+    table, lo, hi, m = (t.to(dev) for t in (table, lo, hi, m))
+    far = cuda_ms(torch, lambda _: ops.fpset_member(table, lo, hi, m, hops),
+                  20)
+    near = cuda_ms(torch, lambda _: ops.fpset_member(table, lo, hi, m, 1),
+                   20)
+    return (far - near) / (hops - 1) * 1e3
 
 
 def check_new_kernels(torch, ops, rng, tag, cfg, block, n, record, runs,
@@ -3159,7 +3260,8 @@ def check_new_kernels(torch, ops, rng, tag, cfg, block, n, record, runs,
     pms = cuda_ms(torch, lambda _: backend.expand_plain(cfg, block, n, True),
                   3)
     record("expand/deferred", tag, err, ms, pms,
-           ck * W * 4 + ncand * (W * 4 + 5 + 4) + 22 * 8)
+           ck * W * 4 + ncand * (W * 4 + 5 + 4) + 22 * 8,
+           ncand * kube_expand_ops(cfg, True))
     packed, flags, action, _ = got
     valid = flags[0].bool()
     lo, hi = fp64_words(packed, cdc.nbits)
@@ -7677,7 +7779,7 @@ def hybrid22_kernel_checks(torch, ops, tag, cfg, rows, n, chunk, record):
            cuda_ms(torch, lambda _: ts.expand_sharded_plain(
                cfg, stage, qhead, npop, chunk), 2),
            *gen_bound_ms(chunk * F * 4 + ncand * (W * 4 + 5 + 4 + F * 4),
-                         0))
+                         ncand * kube_expand_ops(cfg, False, sharded=True)))
     packed = got[0]
     lo, hi = fp64_words(packed, nbits)
     lo2, hi2 = fp64_words_plain(packed, nbits)
@@ -8680,8 +8782,10 @@ def k32_k33_check(torch, ops, tag, eng, b, record, reps=10):
     mask = got[1][live, :n].bool()
     R = min(2 * w, n)
     tables = b.table.clone()
+    wstats = torch.zeros(3, dtype=torch.int32, device=tables.device)
     res = fpset.fpset_insert_sorted_batched(tables, live, lo, hi, mask,
-                                            probe_width=R, claim_width=R)
+                                            probe_width=R, claim_width=R,
+                                            walk_stats=wstats)
     plain_tables = b.table.clone()
     ref = fpset.fpset_insert_sorted_batched(
         plain_tables, live, lo, hi, mask, probe_width=R, claim_width=R,
@@ -8693,8 +8797,12 @@ def k32_k33_check(torch, ops, tag, eng, b, record, reps=10):
     keys = fpset.fpset_key_batched(lo, hi, mask)
     n_valid = int(mask.sum())
     nreps = int(res[2].sum())
+    slices, rounds, general = (int(x) for x in wstats.tolist())
+    need(general == 0, f"K33 walk: {general} slices took the general order "
+         f"({tag})")
     record("fpset_insert_batched", f"{tag}: {len(live)} lanes x {n:,} "
-           f"candidates, {n_valid:,} valid, {nreps:,} distinct, R {R:,}", 0,
+           f"candidates, {n_valid:,} valid, {nreps:,} distinct, R {R:,}; "
+           f"the walks {slices} slices, {rounds} rounds", 0,
            cuda_ms(torch, lambda t: fpset.fpset_insert_sorted_batched(
                t, live, lo, hi, mask, probe_width=R, claim_width=R), reps,
                lambda: b.table.clone()),
@@ -8922,6 +9030,7 @@ def phase_sweep24_real(torch, ops, card, runs, tmp):
           f"({busy / traced:.1%}), top {[(k[:40], round(v, 4)) for k, v in top]}; "
           f"K32 {k32['ms']:.4f} ms (plain {k32['plain_ms']:.1f} ms, bound "
           f"{k32['bound_ms']:.4f} ms by {k32['bound_by']}), K33 "
+          f"({k33['shape']}) "
           f"{k33['ms']:.4f} ms (plain {k33['plain_ms']:.1f} ms, its sort "
           f"{lib33:.4f} ms); the dispatch's launches "
           f"{ {k: v for k, v in out['p24b_rr4_0']['launches'].items() if v} } "

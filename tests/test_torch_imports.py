@@ -19,7 +19,8 @@ FORBIDDEN = ("jax", "jaxtlc")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, n) for n in ("chip_smoke.py",
+                                           "chip_kernel_ab.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "torchtlc")):
         out += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(out)

@@ -39,7 +39,8 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(so)
     lib.host_expand.argtypes = [P, P, I, I, I, P, P, P, P]
     lib.host_fpset_key.argtypes = [P, P, P, LL, P]
-    lib.host_fpset_probe_segment.argtypes = [P, I, P, I, LL, LL, P, I, P]
+    lib.host_fpset_probe_segment.argtypes = [P, I, P, I, LL, LL, P, I, P,
+                                            P]
     lib.host_slab_dedup.argtypes = [P, LL, I, I, I, P, P]
     lib.host_slab_dedup.restype = LL
     lib.host_deferred_check.argtypes = [P, P, LL, P, P, P, P, P, P]
@@ -135,7 +136,7 @@ def _host_insert(lib, table, lo, hi, mask, R=0, C=0):
         out = np.zeros(R, np.uint8)
         lib.host_fpset_probe_segment(table.ctypes.data, lognb, seg.ctypes.data,
                                      R, int(nreps), s * R, None, C,
-                                     out.ctypes.data)
+                                     out.ctypes.data, None)
         is_new[s * R:(s + 1) * R] = out
     return is_new[:n].astype(bool), c_idx.numpy(), int(nreps)
 
@@ -219,7 +220,8 @@ def test_slab_header_equals_plain(host_lib, bits, passes, n, R, dup):
     sk = np.ascontiguousarray(s_key.numpy())
     host_lib.host_fpset_probe_segment(host.ctypes.data, (cap // 8).bit_length()
                                       - 1, sk.ctypes.data, R, 0, 0,
-                                      active.ctypes.data, R, is_new.ctypes.data)
+                                      active.ctypes.data, R, is_new.ctypes.data,
+                                      None)
     ref_new = tfs.probe_segment_plain(plain.table, s_key, p_active.bool(), R)
     assert (is_new == ref_new.numpy()).all()
     assert (host == plain.table.numpy().view(np.uint32)).all()

@@ -540,14 +540,15 @@ def fpset_key_batched(lo, hi, mask):
 
 def fpset_insert_sorted_batched(tables: torch.Tensor, lanes, lo, hi, mask,
                                 probe_width: int = 0, claim_width: int = 0,
-                                plain: bool = False):
+                                plain: bool = False, walk_stats=None):
     """The sorted insert-or-find of K batches into stacked tables (kernel
     K33 on CUDA tensors, the plain probe segments lane by lane on CPU
     ones, or on any device with `plain`): row k of lo/hi/mask [K, n] goes
     to tables[lanes[k]] ([T, nb, 16] int32, updated in place).  Returns
     (is_new_c [K, n] bool, c_idx [K, n] int64, nreps [K] int64): row k
     equals fpset_insert_sorted's results on that table alone, and so do
-    the table words."""
+    the table words.  walk_stats (int32 [3] on the card, optional) gets
+    K33's walk counters added (kernels.ops.fpset_walk)."""
     K, n = lo.shape
     R = min(probe_width or n, n)
     C = min(claim_width or R, R)
@@ -570,7 +571,7 @@ def fpset_insert_sorted_batched(tables: torch.Tensor, lanes, lo, hi, mask,
             out = torch.empty(K, R, dtype=torch.uint8, device=dev)
             ops.fpset_probe_segment_batched(
                 tables, c_key[:, seg * R:(seg + 1) * R].contiguous(), nreps,
-                seg * R, C, out, lanes=lane_t)
+                seg * R, C, out, lanes=lane_t, walk_stats=walk_stats)
             is_new[:, seg * R:(seg + 1) * R] = out
     else:
         for k, t in enumerate(lanes):

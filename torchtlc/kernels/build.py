@@ -77,21 +77,22 @@ def nvcc() -> str:
                        "built from torchtlc/kernels/csrc on the GPU machine")
 
 
-def _digest(flags) -> str:
+def _digest(flags, csrc: str) -> str:
     h = hashlib.sha256(" ".join(flags).encode())
-    for name in sorted(os.listdir(CSRC)):
+    for name in sorted(os.listdir(csrc)):
         if name.endswith((".cu", ".cuh")):
-            with open(os.path.join(CSRC, name), "rb") as f:
+            with open(os.path.join(csrc, name), "rb") as f:
                 h.update(name.encode() + f.read())
     return h.hexdigest()[:16]
 
 
-def build(ptxas_report: bool = False) -> BuildInfo:
+def build(ptxas_report: bool = False, csrc: str = CSRC) -> BuildInfo:
     """Build (or find) every kernel library.  ptxas_report adds
     ``-Xptxas -v`` and forces a fresh build, so the logs carry each
-    kernel's registers, shared memory and spills."""
+    kernel's registers, shared memory and spills.  csrc: another source
+    tree of the same files (chip_kernel_ab.py times an earlier one)."""
     flags = NVCC_FLAGS + (["-Xptxas", "-v"] if ptxas_report else [])
-    out_dir = os.path.join(BUILD_DIR, _digest(flags))
+    out_dir = os.path.join(BUILD_DIR, _digest(flags, csrc))
     os.makedirs(out_dir, exist_ok=True)
     libs = {os.path.splitext(s)[0]: os.path.join(
         out_dir, f"lib{os.path.splitext(s)[0]}.so") for s in SOURCES}
@@ -103,7 +104,7 @@ def build(ptxas_report: bool = False) -> BuildInfo:
         tmp = f"{libs[stem]}.{os.getpid()}.tmp"
         meter("builds")
         procs[stem] = (tmp, subprocess.Popen(
-            [nvcc(), *flags, "-I", CSRC, "-o", tmp, os.path.join(CSRC, s)],
+            [nvcc(), *flags, "-I", csrc, "-o", tmp, os.path.join(csrc, s)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     logs, failed = {}, []
     for stem, (tmp, proc) in procs.items():

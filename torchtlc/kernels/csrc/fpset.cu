@@ -16,13 +16,15 @@
 //                settled in slices of S = min(R, 2048) taken in position
 //                order; each round every pending lane re-reads its current
 //                bucket, wanters of one bucket rank by ascending (lo, hi)
-//                (the reference's dense [S, S] rank form, over the compacted
-//                wanter list), the fitting ones claim, the rest advance to
-//                the next bucket.  __syncthreads separates read, rank and
-//                write phases, so no host round trip happens per round.
+//                (the reference's dense [S, S] rank, computed as a rank
+//                inside the lane's home run: fpset_walk.cuh), the fitting
+//                ones claim, the rest advance to the next bucket.
+//                __syncthreads separates the read, count and claim phases,
+//                so no host round trip happens per round.
 //
 // Bound: latency.  Round 0 gathers one 64-byte row per candidate (R rows);
-// the walk is serial in rounds but touches only the few stragglers.
+// the walk is serial in rounds, one dependent row read each, and touches
+// only the few stragglers.
 //
 // Kernel K9 "fpset_member" (member_kernel below) replaces
 // jaxtlc/engine/fpset.py:292 fpset_member, the device filter of the host
@@ -84,8 +86,9 @@ __global__ void __launch_bounds__(WALK_THREADS)
     walk_kernel(uint32_t* table, int lognb, uint32_t nb_mask,
                 const int64_t* __restrict__ keys, int R,
                 uint8_t* __restrict__ pending, uint8_t* __restrict__ is_new,
-                const int* __restrict__ npend) {
-  fp_walk_block(table, lognb, nb_mask, keys, R, pending, is_new, npend);
+                const int* __restrict__ npend, int* __restrict__ stats) {
+  fp_walk_block(table, lognb, nb_mask, keys, R, pending, is_new, npend,
+                stats);
 }
 
 extern "C" int tt_fpset_key(const void* lo, const void* hi, const void* mask,
@@ -123,12 +126,15 @@ extern "C" int tt_fpset_claim(void* table, const void* keys, int R,
   return (int)cudaGetLastError();
 }
 
+// stats: NULL or int32 [3] counters (slices, rounds, general-order
+// slices) the walk adds to
 extern "C" int tt_fpset_walk(void* table, int lognb, unsigned nb_mask,
                              const void* keys, int R, void* pending,
-                             void* is_new, const void* npend, void* stream) {
+                             void* is_new, const void* npend, void* stats,
+                             void* stream) {
   walk_kernel<<<1, WALK_THREADS, 0, (cudaStream_t)stream>>>(
       (uint32_t*)table, lognb, (uint32_t)nb_mask, (const int64_t*)keys, R,
-      (uint8_t*)pending, (uint8_t*)is_new, (const int*)npend);
+      (uint8_t*)pending, (uint8_t*)is_new, (const int*)npend, (int*)stats);
   return (int)cudaGetLastError();
 }
 

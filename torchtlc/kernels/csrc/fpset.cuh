@@ -95,12 +95,64 @@ HD bool fp_less(uint32_t lo_a, uint32_t hi_a, uint32_t lo_b, uint32_t hi_b) {
   return lo_a < lo_b || (lo_a == lo_b && hi_a < hi_b);
 }
 
-// One 64-byte bucket row into registers: four 16-byte loads on the card.
+// -- the straggler walk's claim rank (fpset_walk.cuh, host_launch.cpp) ------
+//
+// A walk slice holds ns pending lanes in position order: home bucket
+// home[i], key words lo[i], hi[i].  Every lane still pending after a
+// round advances exactly one bucket, so at round k each pending lane
+// sits at home + k (mod nb): two lanes meet in a bucket only when they
+// share a home.  The reference ranks a bucket's wanters by ascending
+// (lo, hi) among ALL wanters of the slice (its dense [S, S] form); here
+// the slice is ordered once by (home, lo, hi), and a wanter's rank is the
+// number of wanters between its home run's first sorted position and its
+// own - one exclusive prefix count of the round's wanters.  The callers'
+// blocks are sorted by key, so the homes ascend along the slice and a
+// run is found by walking to its ends; a slice whose homes do not ascend
+// (fp_slice_descends) takes the exact general form, which counts over the
+// whole slice.
+
+// whether slice entry i breaks the ascending homes (i > 0)
+HD bool fp_slice_descends(const uint32_t* home, int i) {
+  return i > 0 && home[i] < home[i - 1];
+}
+
+// Sorted position `pos` of slice entry i by (home, lo, hi, i) and the
+// sorted position `rs` of the first entry of its home run.  general:
+// the homes need not ascend (O(ns) per entry); else the run is the
+// contiguous stretch of entries sharing home[i] (O(run)).
+HD void fp_slice_order(const uint32_t* home, const uint32_t* lo,
+                       const uint32_t* hi, int ns, int i, bool general,
+                       int* pos, int* rs) {
+  const uint32_t h = home[i];
+  int a = 0, e = ns;
+  if (!general) {
+    a = i;
+    while (a > 0 && home[a - 1] == h) a--;
+    e = i + 1;
+    while (e < ns && home[e] == h) e++;
+  }
+  int below = 0, rank = 0;
+  for (int j = a; j < e; j++) {
+    if (home[j] < h)
+      below++;
+    else if (home[j] == h && j != i &&
+             (fp_less(lo[j], hi[j], lo[i], hi[i]) ||
+              (lo[j] == lo[i] && hi[j] == hi[i] && j < i)))
+      rank++;
+  }
+  *rs = a + below;
+  *pos = a + below + rank;
+}
+
+// One 64-byte bucket row into registers: four 16-byte loads on the card,
+// through the read-only data cache unless kCoherent (the walk reads rows
+// its own block wrote in earlier rounds).
+template <bool kCoherent = false>
 HD void fp_load_row(const uint32_t* table, uint32_t b, uint32_t* row) {
 #if defined(__CUDA_ARCH__)
   const uint4* src = reinterpret_cast<const uint4*>(table + (size_t)b * 16);
   for (int q = 0; q < 4; q++) {
-    const uint4 v = __ldg(src + q);
+    const uint4 v = kCoherent ? src[q] : __ldg(src + q);
     row[4 * q] = v.x;
     row[4 * q + 1] = v.y;
     row[4 * q + 2] = v.z;

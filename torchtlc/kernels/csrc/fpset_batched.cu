@@ -91,12 +91,12 @@ __global__ void __launch_bounds__(WALK_THREADS)
                  const int64_t* __restrict__ keys, int R,
                  const int* __restrict__ lanes,
                  uint8_t* __restrict__ pending, uint8_t* __restrict__ is_new,
-                 const int* __restrict__ npend) {
+                 const int* __restrict__ npend, int* __restrict__ stats) {
   const int lane = blockIdx.x;
   const int tl = lanes != nullptr ? lanes[lane] : lane;
   fp_walk_block(table + ((size_t)tl << lognb) * 16, lognb, nb_mask,
                 keys + (size_t)lane * R, R, pending + (size_t)lane * R,
-                is_new + (size_t)lane * R, npend + lane);
+                is_new + (size_t)lane * R, npend + lane, stats);
 }
 
 extern "C" int tt_fpset_bkey(const void* lo, const void* hi, const void* mask,
@@ -146,13 +146,15 @@ extern "C" int tt_fpset_bclaim(void* table, int lognb, const void* keys,
   return (int)cudaGetLastError();
 }
 
+// stats: NULL or int32 [3] counters summed over the lanes (as K3's)
 extern "C" int tt_fpset_bwalk(void* table, int lognb, unsigned nb_mask,
                               const void* keys, int K, int R,
                               const void* lanes, void* pending, void* is_new,
-                              const void* npend, void* stream) {
+                              const void* npend, void* stats, void* stream) {
   if (K > 0)
     bwalk_kernel<<<K, WALK_THREADS, 0, (cudaStream_t)stream>>>(
         (uint32_t*)table, lognb, (uint32_t)nb_mask, (const int64_t*)keys, R,
-        (const int*)lanes, (uint8_t*)pending, (uint8_t*)is_new, (const int*)npend);
+        (const int*)lanes, (uint8_t*)pending, (uint8_t*)is_new,
+        (const int*)npend, (int*)stats);
   return (int)cudaGetLastError();
 }

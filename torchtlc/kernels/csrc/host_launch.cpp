@@ -4,7 +4,7 @@
 // tests/test_torch_sim_kube.py).  g++ compiles the same
 // __host__ __device__ headers nvcc builds the kernels from; these loops
 // stand in for the grids, the straggler walk runs the walk kernel's
-// rounds (read, rank, claim-or-advance) sequentially, and std::stable_sort
+// rounds (read, count, claim-or-advance) sequentially, and std::stable_sort
 // stands in for the ordering sort.  Not used by the engine.
 #include <algorithm>
 #include <vector>
@@ -42,25 +42,39 @@ extern "C" void host_coverage_count(const void* params, const uint32_t* block,
   }
 }
 
+// K1 (expand.cu): each row decoded once (its words with the bits past
+// nbits cleared, kube_field_get at the fields' offsets), then its L lanes
+// (kube_lane_step).
 extern "C" void host_expand(const void* layout, const uint32_t* block, int ck,
                             int n, int deferred, uint32_t* packed,
                             uint8_t* flags,
                             int32_t* action, unsigned long long* gen) {
   const KubeLayout& Y = *(const KubeLayout*)layout;
   const long long ncand = (long long)ck * Y.L;
-  for (long long idx = 0; idx < ncand; idx++) {
-    const int row = (int)(idx / Y.L), lane = (int)(idx % Y.L);
-    const u32* src = block + (size_t)row * Y.W;
-    u32* dst = packed + (size_t)idx * Y.W;
-    LaneOut o = deferred ? kube_expand_lane<true>(Y, src, row < n, lane, dst)
-                         : kube_expand_lane<false>(Y, src, row < n, lane, dst);
-    flags[idx] = o.valid;
-    flags[ncand + idx] = o.afail;
-    flags[2 * ncand + idx] = o.ovf;
-    flags[3 * ncand + idx] = o.bad_typeok;
-    flags[4 * ncand + idx] = o.bad_onlyone;
-    action[idx] = o.action;
-    if (o.valid) gen[o.action]++;
+  int32_t off[KUBE_MAXF];
+  kube_field_offsets(Y, off);
+  for (int row = 0; row < ck; row++) {
+    u32 base[KUBE_MAXF];
+    for (int k = 0; k < Y.W; k++)
+      base[k] = kube_row_word(Y, block + (size_t)row * Y.W, k);
+    int32_t f[KUBE_MAXF], s[KUBE_MAXF];
+    for (int j = 0; j < Y.F; j++)
+      f[j] = kube_field_get(base, Y.W, off[j], Y.width[j]);
+    for (int lane = 0; lane < Y.L; lane++) {
+      const long long idx = (long long)row * Y.L + lane;
+      u32* dst = packed + (size_t)idx * Y.W;
+      LaneOut o =
+          deferred
+              ? kube_lane_step<true>(Y, off, f, base, row < n, lane, s, dst)
+              : kube_lane_step<false>(Y, off, f, base, row < n, lane, s, dst);
+      flags[idx] = o.valid;
+      flags[ncand + idx] = o.afail;
+      flags[2 * ncand + idx] = o.ovf;
+      flags[3 * ncand + idx] = o.bad_typeok;
+      flags[4 * ncand + idx] = o.bad_onlyone;
+      action[idx] = o.action;
+      if (o.valid) gen[o.action]++;
+    }
   }
 }
 
@@ -85,20 +99,98 @@ extern "C" long long host_fpset_member(const uint32_t* table, int lognb,
   return total;
 }
 
+// The straggler walk (fpset_walk.cuh) over the pending positions [R]
+// bytes, sequentially: slices of S = min(R, 2048) in position order, each
+// ordered once by (home, lo, hi) (fp_slice_order), then rounds of row
+// reads, the wanters' exclusive count in sorted order, and claims at
+// occupancy + (count at the entry - count at its home run's first entry).
+// Clears pending, sets is_new; stats (nullable) gets slices, rounds and
+// general-order slices added.
+extern "C" void host_fpset_walk(uint32_t* table, int lognb,
+                                const int64_t* keys, int R, uint8_t* pending,
+                                uint8_t* is_new, int* stats) {
+  const uint32_t nb_mask = (uint32_t)((1ull << lognb) - 1ull);
+  std::vector<int> pend;
+  for (int i = 0; i < R; i++)
+    if (pending[i]) pend.push_back(i);
+  const int S = R < 2048 ? R : 2048;
+  for (size_t start = 0; start < pend.size(); start += S) {
+    const int ns = (int)std::min(pend.size() - start, (size_t)S);
+    std::vector<uint32_t> lo(ns), hi(ns), home(ns);
+    for (int i = 0; i < ns; i++) {
+      lo[i] = fp_key_lo(keys[pend[start + i]]);
+      hi[i] = fp_key_hi(keys[pend[start + i]]);
+      home[i] = fp_bucket(hi[i], lognb);
+    }
+    bool general = false;
+    for (int i = 0; i < ns; i++)
+      general = general || fp_slice_descends(home.data(), i);
+    std::vector<int> ord(ns), rs(ns), st(ns, 1), occ(ns), ex(ns + 1);
+    std::vector<uint32_t> b(ns);
+    for (int i = 0; i < ns; i++) {
+      int pos, r;
+      fp_slice_order(home.data(), lo.data(), hi.data(), ns, i, general, &pos,
+                     &r);
+      ord[pos] = i;
+      rs[pos] = r;
+    }
+    for (int e = 0; e < ns; e++) b[e] = home[ord[e]];
+    int rounds = 0;
+    while (true) {
+      rounds++;
+      std::vector<char> want(ns, 0);
+      for (int e = 0; e < ns; e++) {
+        if (!(st[e] & 1)) continue;
+        uint32_t row[2 * FP_BUCKET];
+        fp_load_row<true>(table, b[e], row);
+        if (fp_row_has(row, lo[ord[e]], hi[ord[e]])) {
+          st[e] = 0;
+        } else {
+          occ[e] = fp_row_occ(row);
+          want[e] = 1;
+        }
+      }
+      ex[0] = 0;
+      for (int e = 0; e < ns; e++) ex[e + 1] = ex[e] + want[e];
+      if (ex[ns] == 0) break;
+      for (int e = 0; e < ns; e++) {
+        if (!want[e]) continue;
+        const int slot = occ[e] + ex[e] - ex[rs[e]];
+        if (slot < FP_BUCKET) {
+          table[(size_t)b[e] * 16 + 2 * slot] = lo[ord[e]];
+          table[(size_t)b[e] * 16 + 2 * slot + 1] = hi[ord[e]];
+          st[e] = 2;
+        } else {
+          b[e] = (b[e] + 1u) & nb_mask;
+        }
+      }
+    }
+    for (int e = 0; e < ns; e++) {
+      const int p = pend[start + ord[e]];
+      is_new[p] = (uint8_t)(st[e] >> 1);
+      pending[p] = 0;
+    }
+    if (stats != nullptr) {
+      stats[0] += 1;
+      stats[1] += rounds;
+      stats[2] += general ? 1 : 0;
+    }
+  }
+}
+
 // One probe segment: round 0 against the pre-claim table, the first C
 // fitting claims, then the straggler walk.  Active lanes: act (nullable,
-// the slab layout) or the prefix off + i < nreps.  is_new: [R] bytes.
-extern "C" void host_fpset_probe_segment(uint32_t* table, int lognb,
-                                         const int64_t* keys, int R,
-                                         long long nreps, long long off,
-                                         const uint8_t* act, int C,
-                                         uint8_t* is_new) {
-  const uint32_t nb_mask = (1u << lognb) - 1u;
+// the slab layout) or the prefix off + i < nreps.  is_new: [R] bytes;
+// walk_stats as host_fpset_walk's.
+extern "C" void host_fpset_probe_segment(
+    uint32_t* table, int lognb, const int64_t* keys, int R, long long nreps,
+    long long off, const uint8_t* act, int C, uint8_t* is_new,
+    int* walk_stats) {
   std::vector<int32_t> slot(R);
   for (int i = 0; i < R; i++)
     slot[i] = fp_round0(table, lognb, keys, act, i,
                         act != nullptr ? act[i] != 0 : off + i < nreps);
-  std::vector<int> pending;
+  std::vector<uint8_t> pending(R, 0);
   int nclaim = 0;
   for (int i = 0; i < R; i++) {
     bool claimed = slot[i] >= 0 && nclaim < C;
@@ -108,49 +200,9 @@ extern "C" void host_fpset_probe_segment(uint32_t* table, int lognb,
       table[2 * (size_t)slot[i] + 1] = fp_key_hi(keys[i]);
     }
     is_new[i] = claimed;
-    if (slot[i] == -2 || (slot[i] >= 0 && !claimed)) pending.push_back(i);
+    pending[i] = slot[i] == -2 || (slot[i] >= 0 && !claimed);
   }
-  const int S = R < 2048 ? R : 2048;
-  for (size_t start = 0; start < pending.size(); start += S) {
-    const size_t ns = std::min(pending.size() - start, (size_t)S);
-    std::vector<uint32_t> lo(ns), hi(ns), b(ns);
-    std::vector<int> st(ns, 1), occ(ns);
-    for (size_t i = 0; i < ns; i++) {
-      lo[i] = fp_key_lo(keys[pending[start + i]]);
-      hi[i] = fp_key_hi(keys[pending[start + i]]);
-      b[i] = fp_bucket(hi[i], lognb);
-    }
-    while (true) {
-      std::vector<int> wl;
-      for (size_t i = 0; i < ns; i++) {
-        if (!(st[i] & 1)) continue;
-        const uint32_t* row = table + (size_t)b[i] * 16;
-        if (fp_row_has(row, lo[i], hi[i])) {
-          st[i] = 0;
-        } else {
-          occ[i] = fp_row_occ(row);
-          wl.push_back((int)i);
-        }
-      }
-      if (wl.empty()) break;
-      std::vector<uint32_t> nb = b;
-      for (int i : wl) {
-        int r = 0;
-        for (int j : wl)
-          r += (b[j] == b[i] && fp_less(lo[j], hi[j], lo[i], hi[i])) ? 1 : 0;
-        const int s = occ[i] + r;
-        if (s < FP_BUCKET) {
-          table[(size_t)b[i] * 16 + 2 * s] = lo[i];
-          table[(size_t)b[i] * 16 + 2 * s + 1] = hi[i];
-          st[i] = 2;
-        } else {
-          nb[i] = (b[i] + 1u) & nb_mask;
-        }
-      }
-      b = nb;
-    }
-    for (size_t i = 0; i < ns; i++) is_new[pending[start + i]] = st[i] >> 1;
-  }
+  host_fpset_walk(table, lognb, keys, R, pending.data(), is_new, walk_stats);
 }
 
 // K33's probe segment over stacked tables ([*, nb, 16]): row k's R keys at
@@ -167,7 +219,7 @@ extern "C" void host_fpset_insert_batched(uint32_t* table, int lognb,
         table + ((size_t)(lanes != nullptr ? lanes[k] : k) << lognb) * 16,
         lognb, keys + (size_t)k * R, R, act != nullptr ? 0 : nreps[k], off,
         act != nullptr ? act + (size_t)k * R : nullptr, C,
-        is_new + (size_t)k * R);
+        is_new + (size_t)k * R, nullptr);
 }
 
 // The slab dedup of one batch (K5 then K6): keys [N] from host_fpset_key,
@@ -339,8 +391,9 @@ extern "C" void host_ring_row_sym(
 }
 
 // K1's sharded variant: every lane of the D shards' pops, reading the
-// unpacked circular queue rows (expand.cu expand_sharded_kernel); block
-// may be null.
+// unpacked circular queue rows (expand.cu, kSharded): each row's packed
+// words once (its fields OR-ed in, kube_field_or), then its L lanes
+// (kube_lane_step); block may be null.
 extern "C" void host_expand_sharded(const void* layout, const int32_t* queue,
                                     long long qrows, int qcap,
                                     const long long* qhead,
@@ -350,28 +403,38 @@ extern "C" void host_expand_sharded(const void* layout, const int32_t* queue,
                                     int32_t* fields, uint32_t* block,
                                     unsigned long long* gen) {
   const KubeLayout& Y = *(const KubeLayout*)layout;
-  const long long per = (long long)ck * Y.L, ncand = per * D;
-  for (long long idx = 0; idx < ncand; idx++) {
-    const int d = (int)(idx / per);
-    const int row = (int)((idx % per) / Y.L), lane = (int)(idx % Y.L);
-    const int32_t* src =
-        queue + ((size_t)d * qrows + (size_t)((qhead[d] + row) % qcap)) * Y.F;
-    u32* dst = packed + (size_t)idx * Y.W;
-    int32_t* fo = fields + (size_t)idx * Y.F;
-    LaneOut o =
-        deferred ? kube_expand_fields<true>(Y, src, row < npop[d], lane, dst, fo)
-                 : kube_expand_fields<false>(Y, src, row < npop[d], lane, dst,
-                                             fo);
-    flags[idx] = o.valid;
-    flags[ncand + idx] = o.afail;
-    flags[2 * ncand + idx] = o.ovf;
-    flags[3 * ncand + idx] = o.bad_typeok;
-    flags[4 * ncand + idx] = o.bad_onlyone;
-    action[idx] = o.action;
-    if (block != nullptr && lane == 0)
-      kube_pack(Y, src, block + ((size_t)d * ck + row) * Y.W);
-    if (o.valid) gen[(size_t)d * KUBE_N_LABELS + o.action]++;
-  }
+  const long long ncand = (long long)D * ck * Y.L;
+  int32_t off[KUBE_MAXF];
+  kube_field_offsets(Y, off);
+  for (int d = 0; d < D; d++)
+    for (int row = 0; row < ck; row++) {
+      const int32_t* src =
+          queue + ((size_t)d * qrows + (size_t)((qhead[d] + row) % qcap)) * Y.F;
+      u32 base[KUBE_MAXF] = {};  // W <= F words
+      for (int j = 0; j < Y.F; j++)
+        kube_field_or(base, Y.W, off[j], Y.width[j], (u32)src[j]);
+      if (block != nullptr)
+        for (int k = 0; k < Y.W; k++)
+          block[((size_t)d * ck + row) * Y.W + k] = base[k];
+      for (int lane = 0; lane < Y.L; lane++) {
+        const long long idx = ((long long)d * ck + row) * Y.L + lane;
+        u32* dst = packed + (size_t)idx * Y.W;
+        int32_t* fo = fields + (size_t)idx * Y.F;
+        const bool popped = row < npop[d];
+        LaneOut o =
+            deferred
+                ? kube_lane_step<true>(Y, off, src, base, popped, lane, fo, dst)
+                : kube_lane_step<false>(Y, off, src, base, popped, lane, fo,
+                                        dst);
+        flags[idx] = o.valid;
+        flags[ncand + idx] = o.afail;
+        flags[2 * ncand + idx] = o.ovf;
+        flags[3 * ncand + idx] = o.bad_typeok;
+        flags[4 * ncand + idx] = o.bad_onlyone;
+        action[idx] = o.action;
+        if (o.valid) gen[(size_t)d * KUBE_N_LABELS + o.action]++;
+      }
+    }
 }
 
 // K7's owner-side variant over received rows [N, F].

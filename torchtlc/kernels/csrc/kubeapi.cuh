@@ -20,7 +20,6 @@
 #define KUBE_MAXC 8
 #define KUBE_MAXI 16
 #define KUBE_MAXF 96
-#define KUBE_MAXW 8
 
 // label / verb / response ids: torchtlc/spec/labels.py order
 enum {
@@ -498,6 +497,7 @@ HD void kube_server_list(const KubeLayout& Y, const int32_t* f, int c,
 // with it.
 HD LaneOut kube_succ_raw(const KubeLayout& Y, const int32_t* f, int lane,
                          int32_t* s) {
+#pragma unroll 4
   for (int j = 0; j < Y.F; j++) s[j] = f[j];
   LaneOut o;
   o.valid = o.afail = o.ovf = o.bad_typeok = o.bad_onlyone = false;
@@ -542,41 +542,90 @@ HD LaneOut kube_succ_lane(const KubeLayout& Y, const u32* row, bool popped,
   return kube_succ_fields(Y, f, popped, lane, s);
 }
 
-// Expand lane `lane` of the packed row `row`; writes the packed canonical
-// successor to `out` (W words).  kDeferred skips the invariants (the
+// -- K1's row and lane steps (expand.cu; host_launch.cpp runs them too) ----
+//
+// A popped row is decoded once: its F fields (kube_field_get at each
+// field's bit offset, kube_field_offsets) and its packed words with the
+// bits past nbits cleared (kube_row_word over the popped words, or
+// kube_field_or of each field into zeroed words over an unpacked queue
+// row).  Each lane then starts its successor from the row's fields, and
+// its packed successor from the row's words, rewriting only the fields
+// the lane changed (kube_lane_step): the words equal kube_pack of the
+// successor, since packing is fieldwise.
+
+// bit offset of each field in a packed row: the widths before it
+HD void kube_field_offsets(const KubeLayout& Y, int32_t* off) {
+  int o = 0;
+  for (int j = 0; j < Y.F; j++) {
+    off[j] = o;
+    o += Y.width[j];
+  }
+}
+
+HD u32 k_width_mask(int w) { return w >= 32 ? 0xFFFFFFFFu : ((1u << w) - 1u); }
+
+// field j (bit offset off, width w) of the W packed words `row`, as
+// kube_unpack reads it
+HD int32_t kube_field_get(const u32* row, int W, int off, int w) {
+  const int a = off >> 5, sh = off & 31;
+  uint64_t v = row[a];
+  if (a + 1 < W) v |= (uint64_t)row[a + 1] << 32;
+  return (int32_t)((u32)(v >> sh) & k_width_mask(w));
+}
+
+// overwrite field j (bit offset off, width w) of the W words `out` with
+// the low w bits of v, as kube_pack packs them
+HD void kube_field_put(u32* out, int W, int off, int w, u32 v) {
+  const int a = off >> 5, sh = off & 31;
+  const uint64_t m = (uint64_t)k_width_mask(w) << sh;
+  const uint64_t x = ((uint64_t)v << sh) & m;
+  out[a] = (out[a] & ~(u32)m) | (u32)x;
+  if (a + 1 < W) out[a + 1] = (out[a + 1] & ~(u32)(m >> 32)) | (u32)(x >> 32);
+}
+
+// OR the low w bits of v into the W zeroed-or-disjoint words `out` at bit
+// offset off (atomically on the card: a row's fields share its words)
+HD void kube_field_or(u32* out, int W, int off, int w, u32 v) {
+  if (w == 0) return;
+  const int a = off >> 5, sh = off & 31;
+  const uint64_t x = (uint64_t)(v & k_width_mask(w)) << sh;
+#if defined(__CUDA_ARCH__)
+  if ((u32)x) atomicOr(out + a, (u32)x);
+  if (a + 1 < W && (u32)(x >> 32)) atomicOr(out + a + 1, (u32)(x >> 32));
+#else
+  out[a] |= (u32)x;
+  if (a + 1 < W) out[a + 1] |= (u32)(x >> 32);
+#endif
+}
+
+// word k of kube_pack(kube_unpack(row)): the popped word with the bits
+// past nbits cleared
+HD u32 kube_row_word(const KubeLayout& Y, const u32* row, int k) {
+  const int rem = Y.nbits - 32 * k;
+  return rem >= 32 ? row[k] : rem <= 0 ? 0u : row[k] & ((1u << rem) - 1u);
+}
+
+// Lane `lane` of the row whose F raw fields are `f` and whose packed
+// words are `base` (bits past nbits clear): the canonical successor's F
+// fields in `s` (the reference's pre-pack `flat` row), its W packed words
+// in `out`, and the lane's flags.  kDeferred skips the invariants (the
 // reference's deferred=True expand stage, jaxtlc/engine/backend.py:228):
 // the commit's deferred checker (deferred.cu) evaluates them on the fresh
 // claimants instead.
 template <bool kDeferred>
-HD LaneOut kube_expand_lane(const KubeLayout& Y, const u32* row, bool popped,
-                            int lane, u32* out) {
-  int32_t s[KUBE_MAXF];
-  LaneOut o = kube_succ_lane(Y, row, popped, lane, s);
-  if (!kDeferred) {
-    int bits = kube_invariants(Y, s);
-    o.bad_typeok = o.valid && !(bits & 1);
-    o.bad_onlyone = o.valid && !(bits & 2);
-  }
-  kube_pack(Y, s, out);
-  return o;
-}
-
-// Expand lane `lane` of the state whose F raw fields are `f` (the sharded
-// engine's queue holds unpacked rows): the packed canonical successor to
-// `out` (W words) and its F raw fields to `fields_out`, the reference's
-// pre-pack `flat` row that the route payload carries.
-template <bool kDeferred>
-HD LaneOut kube_expand_fields(const KubeLayout& Y, const int32_t* f,
-                              bool popped, int lane, u32* out,
-                              int32_t* fields_out) {
-  int32_t s[KUBE_MAXF];
+HD LaneOut kube_lane_step(const KubeLayout& Y, const int32_t* off,
+                          const int32_t* f, const u32* base, bool popped,
+                          int lane, int32_t* s, u32* out) {
   LaneOut o = kube_succ_fields(Y, f, popped, lane, s);
   if (!kDeferred) {
-    int bits = kube_invariants(Y, s);
+    const int bits = kube_invariants(Y, s);
     o.bad_typeok = o.valid && !(bits & 1);
     o.bad_onlyone = o.valid && !(bits & 2);
   }
-  kube_pack(Y, s, out);
-  for (int j = 0; j < Y.F; j++) fields_out[j] = s[j];
+#pragma unroll 4
+  for (int k = 0; k < Y.W; k++) out[k] = base[k];
+#pragma unroll 4
+  for (int j = 0; j < Y.F; j++)
+    if (s[j] != f[j]) kube_field_put(out, Y.W, off[j], Y.width[j], (u32)s[j]);
   return o;
 }

@@ -64,7 +64,7 @@ _SIGNATURES = {
     "tt_fpset_probe": ("fpset", [_P, _I, _P, _I, _P, _P, _LL, _P, _P]),
     "tt_fpset_claim": ("fpset", [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P]),
     "tt_fpset_walk": ("fpset", [_P, _I, ctypes.c_uint, _P, _I, _P, _P, _P,
-                                _P]),
+                                _P, _P]),
     "tt_fpset_member": ("fpset", [_P, _I, ctypes.c_uint, _P, _P, _P, _LL,
                                   _LL, _P, _P]),
     "tt_fpset_bkey": ("fpset_batched", [_P, _P, _P, _LL, _P, _P]),
@@ -73,7 +73,7 @@ _SIGNATURES = {
     "tt_fpset_bclaim": ("fpset_batched", [_P, _I, _P, _I, _I, _P, _P, _P,
                                           _I, _P, _P, _P, _P]),
     "tt_fpset_bwalk": ("fpset_batched", [_P, _I, ctypes.c_uint, _P, _I, _I,
-                                         _P, _P, _P, _P, _P]),
+                                         _P, _P, _P, _P, _P, _P]),
     "tt_commit": ("commit", [_P, _I, _LL, _LL, _P, _LL, _P, _P, _P, _LL, _P,
                              _P, _I, _I, _I, _P]),
     "tt_slab_scatter": ("slab", [_P, _LL, _I, ctypes.c_uint, _P, _P, _P]),
@@ -355,10 +355,21 @@ def fpset_claim(table: torch.Tensor, keys: torch.Tensor, slot: torch.Tensor,
         _ptr(npend), _stream()))
 
 
+def _walk_stats(stats):
+    """The walk's optional int32 [3] counters (slices, rounds, slices in
+    the general order), added to on the device."""
+    if stats is None:
+        return None
+    _need(stats, "stats", torch.int32, (3,))
+    return _ptr(stats)
+
+
 def fpset_walk(table: torch.Tensor, keys: torch.Tensor, pending: torch.Tensor,
-               is_new: torch.Tensor, npend: torch.Tensor) -> None:
+               is_new: torch.Tensor, npend: torch.Tensor,
+               stats=None) -> None:
     """Settle the npend pending stragglers (one block, no host round
-    trip); updates table, pending and is_new in place."""
+    trip); updates table, pending and is_new in place, and adds to stats
+    (int32 [3], optional) its slices, rounds and general-order slices."""
     nb, lognb = _table_geom(table)
     R = keys.shape[0]
     _need(keys, "keys", torch.int64, (R,))
@@ -367,7 +378,7 @@ def fpset_walk(table: torch.Tensor, keys: torch.Tensor, pending: torch.Tensor,
     _need(npend, "npend", torch.int32, (1,))
     _launched("fpset_walk", lib().tt_fpset_walk(
         _ptr(table), lognb, nb - 1, _ptr(keys), R, _ptr(pending),
-        _ptr(is_new), _ptr(npend), _stream()))
+        _ptr(is_new), _ptr(npend), _walk_stats(stats), _stream()))
 
 
 def fpset_probe_segment(table, keys, nreps, off: int, C: int,
@@ -1492,13 +1503,14 @@ def fpset_bkey(lo: torch.Tensor, hi: torch.Tensor, mask: torch.Tensor):
 def fpset_probe_segment_batched(table: torch.Tensor, keys: torch.Tensor,
                                 nreps, off: int, C: int,
                                 is_new_out: torch.Tensor, active=None,
-                                lanes=None) -> None:
+                                lanes=None, walk_stats=None) -> None:
     """K33's probe segment over stacked tables ([T, nb, 16] int32): row k's
     ascending keys [K, R] against table lanes[k] ([K] int32; row k's own
     table when None), active where active[k, i] ([K, R] uint8) when given,
     else where off + i < nreps[k] ([K] int64, read on the device).  Writes
     is_new_out [K, R] uint8 and the tables in place: bprobe, bclaim, bwalk
-    (one block a row)."""
+    (one block a row; walk_stats as fpset_walk's stats, summed over the
+    rows)."""
     T, nb = table.shape[0], table.shape[1]
     if nb & (nb - 1):
         raise ValueError("table rows must be a power of two")
@@ -1534,7 +1546,8 @@ def fpset_probe_segment_batched(table: torch.Tensor, keys: torch.Tensor,
         _ptr(pending), _ptr(npend), _stream()))
     _launched("fpset_insert_batched", lib().tt_fpset_bwalk(
         _ptr(table), lognb, nb - 1, _ptr(keys), Kl, R, _opt(lanes),
-        _ptr(pending), _ptr(is_new_out), _ptr(npend), _stream()))
+        _ptr(pending), _ptr(is_new_out), _ptr(npend), _walk_stats(walk_stats),
+        _stream()))
 
 
 def emitted_expand_batched(prog, queue: torch.Tensor, pop: torch.Tensor,
